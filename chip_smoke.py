@@ -5,15 +5,19 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``: compile every CUDA kernel of the serving path from
-   ``deepspeed_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
-   started together).
+1. ``build``: compile every CUDA kernel of the serving and training paths
+   from ``deepspeed_tpu_torch/csrc`` with ``nvcc`` (one process per source,
+   all started together).
 2. ``kernel``: every kernel against its plain PyTorch version at the main
-   path's shapes (flash prefill at B=4, H=12, d=64, T=256/512/200 in bf16 and
-   f32; flash decode over an 8-slot, 1024-position cache in f32, bf16 and
-   int8, with and without a key-padding mask), with the tolerance stated,
-   and the times of the kernel, the plain version and one PyTorch library
-   call beside the least time the card could take (``bound_ms``).
+   paths' shapes (flash prefill at B=4, H=12, d=64, T=256/512/200 in bf16 and
+   f32, and at the training shape B=8, T=1024 with its lse; flash decode
+   over an 8-slot, 1024-position cache in f32, bf16 and int8, with and
+   without a key-padding mask; flash backward at B=8, H=12, d=64, T=1024 in
+   bf16 and f32, T=256 and a ragged T=1000; fused Adam over GPT-2 124M's
+   ``wte``, stacked ``qkv_w`` and ragged ``lnf_g`` leaves and over a whole
+   step's 16 leaves), with the tolerance stated, and the times of the
+   kernel, the plain version and one PyTorch library call beside the least
+   time the card could take (``bound_ms``).
 3. ``serve_f32``: GPT-2 124M at full width and depth (random weights from
    a seed) behind ``init_serving``: 8 slots, 64-token prefill chunks, 16
    requests with 64..384-token prompts, drained; every request's greedy
@@ -21,10 +25,23 @@ Phases, each printing one JSON line:
    (the JAX package's serving contract) unless the first differing token
    sits on a near-tie of the top-2 logits.
 4. ``serve_bf16``: the same flow in bf16 plus a ``generate()`` with B=4 and
-   T=256, the main path.  Kernel launch counters are zeroed just before it
-   and read just after: every kernel must have launched.  Logits of the
-   kernel path and of the plain path on the card must agree.
-5. ``kernels``: one entry per kernel with its launches on the main path.
+   T=256, the serving main path.  Kernel launch counters are zeroed just
+   before it and read just after: both serving kernels must have launched.
+   Logits of the kernel path and of the plain path on the card must agree.
+5. ``train_f32``: GPT-2 124M at full width and depth through
+   ``deepspeed_tpu_torch.initialize`` in f32, B=2, T=1024, 3 ``train_batch``
+   steps, TF32 off: the kernel path against the same steps with
+   ``use_flash_attention=False`` (the plain attention); per-step losses
+   must agree within the tolerance stated.
+6. ``train_bf16``: the training main path, GPT-2 124M in bf16 with f32
+   masters, micro-batch 8, gradient accumulation 2, T=1024, AdamW with
+   ``WarmupDecayLR`` and clipping 1.0, 4 steps on one fixed batch.  The
+   counters are zeroed just before and read just after: the flash forward,
+   flash backward and fused Adam kernels must have launched; every loss
+   finite and the last below the first.  Prints tokens/s, ms a step, peak
+   memory and model-FLOPs utilization.
+7. ``kernels``: one entry per kernel with its launches on the main paths
+   (serving and training summed for the flash forward).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -66,6 +83,23 @@ F32_NEAR_TIE = 1e-3
 BF16_LOGIT_TOL = 0.1
 
 FLUSH_BYTES = 512 << 20  # > the 50 MB L2: every timed launch starts cold
+
+# flash backward vs its plain version: the f32/bf16 bounds above, relative
+# to each gradient's largest entry (|dq|, |dk|, |dv| reach ~5 at T=1024);
+# dq's f32 sum is taken with atomics in an order that changes between runs
+# fused Adam vs its plain version (f32 p): the kernel rounds each product
+# and sum as the plain version does, so only an ulp may differ
+ADAM_TOL = 1e-6
+# train_f32, flash kernels vs plain attention, per-step loss (relative):
+# the same f32 math in other summation orders (~1e-6), which Adam's
+# normalized update turns into steps of up to one lr the other way for
+# gradients near zero; the loss of a wrong kernel moves by far more
+TRAIN_F32_LOSS_RTOL = 1e-3
+# Adam's operations per element of the keep-folded body (multiplies, adds,
+# two divides, a square root, a select), for the bound; bytes per f32
+# element: p read+write, g read, m read+write, v read+write
+ADAM_FLOPS_PER_ELEM = 24
+ADAM_BYTES_PER_ELEM = 28
 
 
 def emit(obj) -> None:
@@ -328,8 +362,8 @@ def phase_serve_bf16(torch, params, reqs):
 
     check(gen.shape == (4, 272) and np.array_equal(gen[:, :256], gen_ids),
           f"generate() returned {gen.shape}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("flash_fwd", "flash_decode"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the serving main path")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
     n_tok = int(sum(len(r.generated) for r in done))
     stats = srv.stats()
@@ -375,6 +409,260 @@ def phase_serve_bf16(torch, params, reqs):
 
 
 # ---------------------------------------------------------------------------
+# phase 2 (training kernels): flash forward lse, flash backward, fused Adam
+# ---------------------------------------------------------------------------
+
+def check_flash_fwd_training(torch, dev, flush):
+    """B1 at the training shape with its lse (the residual the backward
+    consumes)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, H, T, d = 8, 12, 1024, 64
+    g = torch.Generator(device=dev).manual_seed(1024)
+    q, k, v = (torch.randn(B, H, T, d, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True)
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+    check(err <= TOL["bfloat16"], f"flash_fwd training shape: max_err {err}")
+    check(lse_err <= 1e-4, f"flash_fwd training shape: lse max_err {lse_err} > 1e-4")
+    b_ms, b_by = bound_ms(4 * B * H * T * d * 2 + B * H * T * 4, 4 * B * H * d * T * (T + 1) / 2,
+                          "bfloat16")
+    row = {
+        "phase": "kernel", "kernel": "flash_fwd", "B": B, "H": H, "T": T, "d": d,
+        "dtype": "bfloat16", "causal": True, "lse": True, "max_err": err, "lse_max_err": lse_err,
+        "tol": TOL["bfloat16"], "lse_tol": 1e-4,
+        "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True),
+                               flush),
+        "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, True, scale), flush,
+                              iters=5),
+        "library_ms": device_ms(
+            torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit(row)
+    return row
+
+
+def check_flash_bwd(torch, dev, flush):
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    rows = []
+    for B, T, dtype in ((8, 1024, torch.bfloat16), (8, 1024, torch.float32),
+                        (8, 256, torch.bfloat16), (8, 1000, torch.bfloat16)):
+        H, d = 12, 64
+        name = str(dtype).replace("torch.", "")
+        g = torch.Generator(device=dev).manual_seed(T + 7)
+        q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(dtype) for _ in range(4))
+        scale = d ** -0.5
+        out, lse = fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)
+        ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, ref)]
+        scales = [float(b.float().abs().max()) for b in ref]
+        tol = [TOL[name] * max(1.0, sc) for sc in scales]
+        for grad, e, t in zip(("dq", "dk", "dv"), errs, tol):
+            check(e <= t, f"flash_bwd B={B} T={T} {name}: {grad} max_err {e} > tol {t}")
+        check(all(torch.isfinite(a).all().item() for a in got), f"flash_bwd T={T} {name}: non-finite")
+        item = dtype.itemsize
+        pairs = T * (T + 1) / 2  # causal (query, key) pairs
+        nbytes = 7 * B * H * T * d * item + 2 * B * H * T * 4
+        flops = 5 * 2 * d * pairs * B * H  # s, dp, dv, dk, dq products
+        b_ms, b_by = bound_ms(nbytes, flops, name)
+        # the library yardstick: SDPA's backward through autograd, timed only
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        row = {
+            "phase": "kernel", "kernel": "flash_bwd", "B": B, "H": H, "T": T, "d": d,
+            "dtype": name, "causal": True, "max_err": max(errs), "max_err_dq_dk_dv": errs,
+            "tol_dq_dk_dv": tol,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale),
+                                   flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, True,
+                                                                         scale), flush, iters=5),
+            "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                lout, (ql, kl, vl), do, retain_graph=True), flush, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        del lout
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def check_fused_adam(torch, dev, flush):
+    """B3 per leaf (wte, stacked qkv_w, ragged lnf_g) and over one step's
+    16 leaves of GPT-2 124M, f32 masters and grads."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.kernels import fused_update as fu
+
+    cfg = gpt2.PRESETS["gpt2"]
+    d, L = cfg.n_embd, cfg.n_layer
+    step_shapes = [(cfg.vocab_size, d), (cfg.n_positions, d), (d,), (d,),
+                   (L, d), (L, d), (L, d, 3 * d), (L, 3 * d), (L, d, d), (L, d),
+                   (L, d), (L, d), (L, d, 4 * d), (L, 4 * d), (L, 4 * d, d), (L, d)]
+    check(sum(int(np.prod(s)) for s in step_shapes) == cfg.num_params(), "GPT-2 leaf shapes")
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, adam_w_mode=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def leaves(shapes):
+        out = []
+        for shp in shapes:
+            p = torch.randn(shp, generator=g, device=dev) * 0.02
+            out.append((p, torch.randn(shp, generator=g, device=dev) * 1e-3,
+                        torch.randn(shp, generator=g, device=dev) * 1e-4,
+                        torch.rand(shp, generator=g, device=dev) * 1e-7))
+        return out
+
+    scal = torch.tensor([6e-4, 1.0, 1.0 - 0.9 ** 3, 1.0 - 0.95 ** 3], device=dev)
+
+    def run_kernel(ls):
+        for p, gr, m, v in ls:
+            fu.adam_leaf_cuda(p, gr, m, v, scal, **hyper)
+
+    def run_plain(ls):
+        for p, gr, m, v in ls:
+            fu._adam_keep_body(p, gr, m, v, *scal.unbind(0), **hyper)
+
+    def library(ls):
+        params = [torch.nn.Parameter(p.clone()) for p, _, _, _ in ls]
+        for prm, (_, gr, _, _) in zip(params, ls):
+            prm.grad = gr
+        opt = torch.optim.AdamW(params, lr=6e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                                fused=True)
+        return opt.step
+
+    rows = []
+    for label, shapes in (("wte", [step_shapes[0]]), ("qkv_w", [step_shapes[6]]),
+                          ("lnf_g", [step_shapes[2]]), ("step_16_leaves", step_shapes)):
+        ls = leaves(shapes)
+        ref = [fu._adam_keep_body(p, gr, m, v, *scal.unbind(0), **hyper) for p, gr, m, v in ls]
+        work = [tuple(t.clone() for t in leaf) for leaf in ls]
+        run_kernel(work)
+        torch.cuda.synchronize()
+        err = max(max_err(a, b) for (pk, _, mk, vk), (pr, mr, vr) in zip(work, ref)
+                  for a, b in ((pk, pr), (mk, mr), (vk, vr)))
+        check(err <= ADAM_TOL, f"fused_adam {label}: max_err {err} > tol {ADAM_TOL}")
+        n = sum(int(np.prod(s)) for s in shapes)
+        b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_FLOPS_PER_ELEM * n, "float32")
+        row = {
+            "phase": "kernel", "kernel": "fused_adam", "leaves": label, "launches_per_call": len(shapes),
+            "elements": n, "p_dtype": "float32", "max_err": err, "tol": ADAM_TOL,
+            "kernel_ms": device_ms(torch, lambda: run_kernel(work), flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: run_plain(work), flush, iters=5),
+            "library_ms": device_ms(torch, library(work), flush, iters=10),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit(row)
+        rows.append(row)
+        del ls, ref, work
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the training path
+# ---------------------------------------------------------------------------
+
+def _train(torch, cfg, params, config, batch, steps):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+
+    model_fn, _, _ = gpt2.make_model(cfg)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,
+                                                     config=config)
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch)
+        losses.append(float(loss))  # the host read ends the step
+        walls.append(time.perf_counter() - t0)
+    return engine, losses, walls
+
+
+def phase_train_f32(torch, params):
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg = gpt2.PRESETS["gpt2"]
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "weight_decay": 0.1}}}
+    batch = {"input_ids": np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 1024),
+                                                             dtype=np.int32)}
+    out = {}
+    for name, c in (("kernels", cfg), ("plain_attention", dataclasses.replace(
+            cfg, use_flash_attention=False))):
+        kernels.reset_launches()
+        engine, losses, walls = _train(torch, c, params, config, batch, 3)
+        out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                     "launches": kernels.launches()}
+        del engine
+        torch.cuda.empty_cache()
+    check(out["kernels"]["launches"]["flash_bwd"] > 0 and out["plain_attention"]["launches"]["flash_bwd"] == 0,
+          f"train_f32: flash launches {out['kernels']['launches']} / {out['plain_attention']['launches']}")
+    k, p = out["kernels"]["losses"], out["plain_attention"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
+    check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_f32: non-finite loss {k} / {p}")
+    check(max(rel) <= TRAIN_F32_LOSS_RTOL,
+          f"train_f32: kernel vs plain losses differ by {max(rel)} > {TRAIN_F32_LOSS_RTOL}")
+    emit({"phase": "train_f32", "B": 2, "T": 1024, "steps": 3, "allow_tf32": False,
+          "losses": out, "max_rel_diff": max(rel), "tol": TRAIN_F32_LOSS_RTOL})
+
+
+def phase_train_bf16(torch, params):
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg = gpt2.PRESETS["gpt2"]
+    mb, gas, T, steps = 8, 2, 1024, 4
+    config = {
+        "train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
+        "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+        "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95],
+                                                  "weight_decay": 0.1}},
+        "scheduler": {"type": "WarmupDecayLR", "params": {
+            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_max_lr": 6e-4}},
+    }
+    batch = {"input_ids": np.random.default_rng(12).integers(0, cfg.vocab_size, (mb * gas, T),
+                                                             dtype=np.int32)}
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    engine, losses, walls = _train(torch, cfg, params, config, batch, steps)
+    launches = kernels.launches()
+    # ----------------------------------------------------------------------
+
+    for name in ("flash_fwd", "flash_bwd", "fused_adam"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the training main path")
+    check(all(np.isfinite(losses)), f"train_bf16: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train_bf16: loss did not fall: {losses}")
+    tokens = mb * gas * T
+    steady = walls[1:]  # the first step includes the kernels' first load
+    step_s = float(np.median(steady))
+    # model FLOPs a step: 6 N per token for the weights (the tied head
+    # included) and 6 L T d per token for causal attention, forward and
+    # backward; remat's recompute is not counted
+    flops = tokens * (6 * cfg.num_params() + 6 * cfg.n_layer * T * cfg.n_embd)
+    emit({"phase": "train_bf16", "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
+          "losses": losses, "step_ms": [w * 1e3 for w in walls], "step_ms_median_after_first": step_s * 1e3,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "launches": launches, "global_steps": engine.global_steps})
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -406,8 +694,11 @@ def main() -> int:
           "allow_tf32": False, "ptxas": ptxas})
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    fwd_rows = check_flash_fwd(torch, dev, flush)
+    check_flash_fwd(torch, dev, flush)
+    fwd_train = check_flash_fwd_training(torch, dev, flush)
     dec_rows = check_flash_decode(torch, dev, flush)
+    bwd_rows = check_flash_bwd(torch, dev, flush)
+    adam_rows = check_fused_adam(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -415,17 +706,24 @@ def main() -> int:
     params = gpt2.init_params(cfg, seed=0)
     reqs = request_mix(seed=0)
     phase_serve_f32(torch, params, reqs)
-    launches = phase_serve_bf16(torch, params, reqs)
+    serve_launches = phase_serve_bf16(torch, params, reqs)
+    phase_train_f32(torch, params)
+    train_launches = phase_train_bf16(torch, params)
+    launches = {name: serve_launches[name] + train_launches[name] for name in serve_launches}
 
-    # the main-path shapes: generate()'s bf16 prefill (B=4, T=256) and the
-    # bf16 pool's decode (8 slots x 1024 positions)
-    fwd = next(r for r in fwd_rows if r["T"] == 256 and r["dtype"] == "bfloat16")
+    # the main-path shapes: the training step's bf16 attention (B=8, H=12,
+    # T=1024, d=64: B1 with lse, B2), the bf16 pool's decode (8 slots x
+    # 1024 positions) and one step's fused Adam over GPT-2 124M's 16 leaves
+    bwd = next(r for r in bwd_rows if r["T"] == 1024 and r["dtype"] == "bfloat16")
     dec = next(r for r in dec_rows if r["kv"] == "bfloat16" and not r["masked"])
+    adam = next(r for r in adam_rows if r["leaves"] == "step_16_leaves")
     report = kernels.kernels_report()
     entries = []
     for name, row, replaces in (
-        ("flash_fwd", fwd, "deepspeed_tpu/ops/attention/flash_attention.py:237"),
+        ("flash_fwd", fwd_train, "deepspeed_tpu/ops/attention/flash_attention.py:237"),
         ("flash_decode", dec, "deepspeed_tpu/ops/kernels/flash_decode.py:88"),
+        ("flash_bwd", bwd, "deepspeed_tpu/ops/attention/flash_attention.py:607"),
+        ("fused_adam", adam, "deepspeed_tpu/ops/kernels/fused_update.py:125"),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": report[name]["source"],

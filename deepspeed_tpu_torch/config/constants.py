@@ -1,5 +1,73 @@
-"""Serving defaults (copy of the ``serving`` section of
-``deepspeed_tpu/config/constants.py``; the port keeps its own copy)."""
+"""Config keys and defaults (copy of the training and ``serving``
+sections of ``deepspeed_tpu/config/constants.py``; the port keeps its own
+copy)."""
+
+#############################################
+# Batch size triad
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+
+#############################################
+# Optimizer / scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+LEGACY_FUSION = "legacy_fusion"
+LEGACY_FUSION_DEFAULT = False
+SCHEDULER = "scheduler"
+SCHEDULER_PARAMS = "params"
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+SGD_OPTIMIZER = "sgd"
+
+#############################################
+# Precision
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+
+BF16 = "bf16"
+BF16_ENABLED = "enabled"
+BF16_ENABLED_DEFAULT = False
+
+#############################################
+# Engine knobs
+#############################################
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+SEED = "seed"
+SEED_DEFAULT = 42
+
+#############################################
+# ZeRO
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_STAGE = "stage"
+ZERO_STAGE_DEFAULT = 0
+MAX_STAGE_ZERO_OPTIMIZATION = 3
+
+MESH = "mesh"
+MESH_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
 
 #############################################
 # Serving (continuous-batching slot-pool engine)

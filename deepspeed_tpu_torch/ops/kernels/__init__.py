@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # kernel name -> (source, C entry point, argtypes)
 KERNELS = {
@@ -48,6 +49,16 @@ KERNELS = {
         "flash_decode.cu", "ds_flash_decode",
         # q, k, v, ks, vs, pos, kpm, out, B, H, S, d, q_dtype, kv_dtype, sm_scale, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_bwd": (
+        "flash_bwd.cu", "ds_flash_bwd",
+        # q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, d, dtype, causal, sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "fused_adam": (
+        "fused_adam.cu", "ds_fused_adam",
+        # p, g, m, v, scal, n, p_dtype, g_dtype, b1m1, omb1, b2m1, omb2, eps, wd, adam_w_mode, stream
+        [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
     ),
 }
 
