@@ -35,13 +35,14 @@ Phases, each printing one JSON line:
    must agree within the tolerance stated.
 6. ``train_bf16``: the training main path, GPT-2 124M in bf16 with f32
    masters, micro-batch 8, gradient accumulation 2, T=1024, AdamW with
-   ``WarmupDecayLR`` and clipping 1.0, 4 steps on one fixed batch.  The
+   ``WarmupDecayLR`` (lr 6e-5 rising to 6e-4 over 2 steps) and clipping
+   1.0, 4 steps on one fixed batch.  The
    counters are zeroed just before and read just after: the flash forward,
    flash backward and fused Adam kernels must have launched; every loss
    finite and the last below the first.  Prints tokens/s, ms a step, peak
    memory and model-FLOPs utilization.
-7. ``kernels``: one entry per kernel with its launches on the main paths
-   (serving and training summed for the flash forward).
+7. ``kernels``: one entry per kernel with its launches on each main path
+   (``launches_by_path``: serving, training) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -84,17 +85,24 @@ BF16_LOGIT_TOL = 0.1
 
 FLUSH_BYTES = 512 << 20  # > the 50 MB L2: every timed launch starts cold
 
-# flash backward vs its plain version: the f32/bf16 bounds above, relative
-# to each gradient's largest entry (|dq|, |dk|, |dv| reach ~5 at T=1024);
-# dq's f32 sum is taken with atomics in an order that changes between runs
-# fused Adam vs its plain version (f32 p): the kernel rounds each product
-# and sum as the plain version does, so only an ulp may differ
-ADAM_TOL = 1e-6
+# flash backward vs its plain version, entry by entry:
+#   |got - ref| <= tol * (|ref| + BWD_RMS_SHARE * rms(ref))
+# with tol the f32/bf16 bound above.  The relative term takes a bf16
+# output that rounds the other way (one spacing, <= 2**-7 of the entry)
+# and dq's f32 sum, taken with atomics in an order that changes between
+# runs; the rms term takes entries near zero.  With random causal inputs
+# the entries shrink like sqrt(e / position) (rms ~0.1 at T=1024), so a
+# kernel that drops or misplaces one 64-row tile's share of a late row
+# moves it by several times its bound
+BWD_RMS_SHARE = 0.5
+# fused Adam vs its plain version (f32 p), each of p, m and v relative to
+# its own largest entry: the kernel rounds each product and sum as the
+# plain version does, so at most an ulp may differ (the runs read 0)
+ADAM_RTOL = 1e-6
 # train_f32, flash kernels vs plain attention, per-step loss (relative):
-# the same f32 math in other summation orders (~1e-6), which Adam's
-# normalized update turns into steps of up to one lr the other way for
-# gradients near zero; the loss of a wrong kernel moves by far more
-TRAIN_F32_LOSS_RTOL = 1e-3
+# the same f32 math in other summation orders; the runs read 0, 0 and
+# 9.1e-8, so this leaves two orders of margin
+TRAIN_F32_LOSS_RTOL = 1e-5
 # Adam's operations per element of the keep-folded body (multiplies, adds,
 # two divides, a square root, a select), for the bound; bytes per f32
 # element: p read+write, g read, m read+write, v read+write
@@ -144,6 +152,17 @@ def bound_ms(nbytes, flops, dtype_name):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
+
+
+def grad_err(a, b, tol):
+    """``(max |a - b|, max of |a - b| over its bound)`` for the backward's
+    entry-by-entry bound ``tol * (|b| + BWD_RMS_SHARE * rms(b))``; the
+    check passes where the second is at most 1."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    bound = tol * (b.abs() + BWD_RMS_SHARE * b.square().mean().sqrt())
+    worst = (diff / bound.clamp_min(1e-30)).max()
+    return float(diff.max()), float(worst)
 
 
 # ---------------------------------------------------------------------------
@@ -465,11 +484,11 @@ def check_flash_bwd(torch, dev, flush):
         got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)
         ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, scale)
         torch.cuda.synchronize()
-        errs = [max_err(a, b) for a, b in zip(got, ref)]
-        scales = [float(b.float().abs().max()) for b in ref]
-        tol = [TOL[name] * max(1.0, sc) for sc in scales]
-        for grad, e, t in zip(("dq", "dk", "dv"), errs, tol):
-            check(e <= t, f"flash_bwd B={B} T={T} {name}: {grad} max_err {e} > tol {t}")
+        errs, over = zip(*(grad_err(a, b, TOL[name]) for a, b in zip(got, ref)))
+        rms = [float(b.float().square().mean().sqrt()) for b in ref]
+        for grad, e, w in zip(("dq", "dk", "dv"), errs, over):
+            check(w <= 1.0, f"flash_bwd B={B} T={T} {name}: {grad} max_err {e} is {w:.3g}x "
+                            f"its entry bound {TOL[name]} * (|ref| + {BWD_RMS_SHARE} * rms(ref))")
         check(all(torch.isfinite(a).all().item() for a in got), f"flash_bwd T={T} {name}: non-finite")
         item = dtype.itemsize
         pairs = T * (T + 1) / 2  # causal (query, key) pairs
@@ -481,8 +500,9 @@ def check_flash_bwd(torch, dev, flush):
         lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
         row = {
             "phase": "kernel", "kernel": "flash_bwd", "B": B, "H": H, "T": T, "d": d,
-            "dtype": name, "causal": True, "max_err": max(errs), "max_err_dq_dk_dv": errs,
-            "tol_dq_dk_dv": tol,
+            "dtype": name, "causal": True, "max_err": max(errs), "max_err_dq_dk_dv": list(errs),
+            "err_over_bound_dq_dk_dv": list(over), "rms_dq_dk_dv": rms, "tol": TOL[name],
+            "tol_rms_share": BWD_RMS_SHARE,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale),
                                    flush, iters=10),
             "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, True,
@@ -547,14 +567,22 @@ def check_fused_adam(torch, dev, flush):
         work = [tuple(t.clone() for t in leaf) for leaf in ls]
         run_kernel(work)
         torch.cuda.synchronize()
-        err = max(max_err(a, b) for (pk, _, mk, vk), (pr, mr, vr) in zip(work, ref)
-                  for a, b in ((pk, pr), (mk, mr), (vk, vr)))
-        check(err <= ADAM_TOL, f"fused_adam {label}: max_err {err} > tol {ADAM_TOL}")
+        got = {"p": [w[0] for w in work], "m": [w[2] for w in work], "v": [w[3] for w in work]}
+        errs, tols = {}, {}
+        for i, part in enumerate(("p", "m", "v")):
+            ref_i = [r[i] for r in ref]
+            errs[part] = max(max_err(a, b) for a, b in zip(got[part], ref_i))
+            tols[part] = ADAM_RTOL * max(float(b.abs().max()) for b in ref_i)
+            check(errs[part] <= tols[part],
+                  f"fused_adam {label}: {part} max_err {errs[part]} > tol {tols[part]} "
+                  f"({ADAM_RTOL} of its largest entry)")
+        err = max(errs.values())
         n = sum(int(np.prod(s)) for s in shapes)
         b_ms, b_by = bound_ms(ADAM_BYTES_PER_ELEM * n, ADAM_FLOPS_PER_ELEM * n, "float32")
         row = {
             "phase": "kernel", "kernel": "fused_adam", "leaves": label, "launches_per_call": len(shapes),
-            "elements": n, "p_dtype": "float32", "max_err": err, "tol": ADAM_TOL,
+            "elements": n, "p_dtype": "float32", "max_err": err, "max_err_p_m_v": errs,
+            "tol_p_m_v": tols,
             "kernel_ms": device_ms(torch, lambda: run_kernel(work), flush, iters=10),
             "plain_ms": device_ms(torch, lambda: run_plain(work), flush, iters=5),
             "library_ms": device_ms(torch, library(work), flush, iters=10),
@@ -626,8 +654,11 @@ def phase_train_bf16(torch, params):
         "bf16": {"enabled": True}, "gradient_clipping": 1.0,
         "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95],
                                                   "weight_decay": 0.1}},
+        # warmup_min_lr > 0: the log warmup's first step would otherwise run
+        # at lr 0 and update nothing
         "scheduler": {"type": "WarmupDecayLR", "params": {
-            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_max_lr": 6e-4}},
+            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_min_lr": 6e-5,
+            "warmup_max_lr": 6e-4}},
     }
     batch = {"input_ids": np.random.default_rng(12).integers(0, cfg.vocab_size, (mb * gas, T),
                                                              dtype=np.int32)}
@@ -645,14 +676,15 @@ def phase_train_bf16(torch, params):
     check(all(np.isfinite(losses)), f"train_bf16: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"train_bf16: loss did not fall: {losses}")
     tokens = mb * gas * T
-    steady = walls[1:]  # the first step includes the kernels' first load
-    step_s = float(np.median(steady))
+    # all the tokens over all the time of the steps after the first (which
+    # includes the kernels' first load)
+    step_s = float(sum(walls[1:])) / (steps - 1)
     # model FLOPs a step: 6 N per token for the weights (the tied head
     # included) and 6 L T d per token for causal attention, forward and
     # backward; remat's recompute is not counted
     flops = tokens * (6 * cfg.num_params() + 6 * cfg.n_layer * T * cfg.n_embd)
     emit({"phase": "train_bf16", "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
-          "losses": losses, "step_ms": [w * 1e3 for w in walls], "step_ms_median_after_first": step_s * 1e3,
+          "losses": losses, "step_ms": [w * 1e3 for w in walls], "step_ms_mean_after_first": step_s * 1e3,
           "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
@@ -709,7 +741,8 @@ def main() -> int:
     serve_launches = phase_serve_bf16(torch, params, reqs)
     phase_train_f32(torch, params)
     train_launches = phase_train_bf16(torch, params)
-    launches = {name: serve_launches[name] + train_launches[name] for name in serve_launches}
+    by_path = {name: {"serving": serve_launches[name], "training": train_launches[name]}
+               for name in serve_launches}
 
     # the main-path shapes: the training step's bf16 attention (B=8, H=12,
     # T=1024, d=64: B1 with lse, B2), the bf16 pool's decode (8 slots x
@@ -727,7 +760,8 @@ def main() -> int:
     ):
         entries.append({
             "name": name, "route": "cuda", "source": report[name]["source"],
-            "replaces": replaces, "launches": launches[name], "max_abs_err": row["max_err"],
+            "replaces": replaces, "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name], "max_abs_err": row["max_err"],
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

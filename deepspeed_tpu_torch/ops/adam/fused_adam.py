@@ -30,6 +30,26 @@ def _device_of(params: List[torch.Tensor]) -> torch.device:
     return params[0].device if params else torch.device("cpu")
 
 
+def _adam_keep_body(p32, g32, m, v, lr, keep, c1, c2, *, b1, b2, eps,
+                    weight_decay, adam_w_mode):
+    """The keep-folded Adam body on f32 values: ``(p32_new, m_new,
+    v_new)``.  ``keep`` is an f32 scalar tensor, 1 - overflow: 0 selects
+    the old state and a zero update.  ``lr``, ``c1``, ``c2`` are f32 scalar
+    tensors or floats.  This is the one copy of the Adam arithmetic: the
+    CUDA kernel (``csrc/fused_adam.cu``) rounds each product and sum on its
+    own as this does."""
+    g32 = torch.where(keep > 0, g32, torch.zeros((), dtype=g32.dtype, device=g32.device))
+    if not adam_w_mode and weight_decay > 0.0:
+        g32 = g32 + weight_decay * p32
+    m_new = m + keep * ((b1 - 1.0) * m + (1.0 - b1) * g32)
+    v_new = v + keep * ((b2 - 1.0) * v + (1.0 - b2) * g32 * g32)
+    denom = torch.sqrt(v_new / c2) + eps
+    upd = -(lr * (m_new / c1) / denom)
+    if adam_w_mode and weight_decay > 0.0:
+        upd = upd - (lr * weight_decay) * p32
+    return p32 + keep * upd, m_new, v_new
+
+
 class FusedAdam:
     """Adam with decoupled (AdamW) or L2 (classic) weight decay.
     ``adam_w_mode=True`` decays the parameters, not the gradients."""
@@ -81,40 +101,27 @@ class FusedAdam:
         ``skip``: optional 0-dim bool tensor (overflow); when set the state
         keeps its old values and the updates are zero."""
         lr = self.lr if lr is None else lr
-        keep = None if skip is None else (1.0 - skip.to(torch.float32))
+        dev = state.step.device
+        keep = (torch.ones((), dtype=torch.float32, device=dev) if skip is None
+                else 1.0 - skip.to(torch.float32))
         step = state.step + (1 if skip is None else (~skip).to(state.step.dtype))
-        b1, b2 = self.b1, self.b2
         if self.bias_correction:
             # bias corrections use the unconditional count: on a skipped
             # step the stored count stays put and c2 = 1 - b2^0 = 0 would
             # divide by zero (the update is zeroed there anyway)
             bstep = (state.step + 1).to(torch.float32)
-            c1 = 1.0 - torch.pow(b1, bstep)
-            c2 = 1.0 - torch.pow(b2, bstep)
+            c1 = 1.0 - torch.pow(self.b1, bstep)
+            c2 = 1.0 - torch.pow(self.b2, bstep)
         else:
             c1 = c2 = 1.0
         updates, ms, vs = [], [], []
         for g, m, v, p in zip(grads, state.exp_avg, state.exp_avg_sq, params):
-            g = g.float()
-            if keep is not None:
-                # a skip step IS the non-finite-grads step: zero g first
-                g = torch.where(skip, torch.zeros((), device=g.device), g)
             p32 = p.float()
-            if not self.adam_w_mode and self.weight_decay > 0.0:
-                g = g + self.weight_decay * p32
-            if keep is None:
-                m_new = b1 * m + (1.0 - b1) * g
-                v_new = b2 * v + (1.0 - b2) * g * g
-            else:
-                m_new = m + keep * ((b1 - 1.0) * m + (1.0 - b1) * g)
-                v_new = v + keep * ((b2 - 1.0) * v + (1.0 - b2) * g * g)
-            denom = torch.sqrt(v_new / c2) + self.eps
-            upd = -(lr * (m_new / c1) / denom)
-            if self.adam_w_mode and self.weight_decay > 0.0:
-                upd = upd - lr * self.weight_decay * p32
-            if keep is not None:
-                upd = keep * upd
-            updates.append(upd)
+            p_new, m_new, v_new = _adam_keep_body(
+                p32, g.float(), m, v, lr, keep, c1, c2, b1=self.b1, b2=self.b2, eps=self.eps,
+                weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode)
+            # exact while |u| <= |p| / 2 (Sterbenz), so p + u gives back p_new
+            updates.append(p_new - p32)
             ms.append(m_new)
             vs.append(v_new)
         return updates, AdamState(step=step, exp_avg=ms, exp_avg_sq=vs)

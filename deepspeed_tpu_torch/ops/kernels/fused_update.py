@@ -23,7 +23,7 @@ from typing import Any, List, Optional
 import torch
 
 from deepspeed_tpu_torch.ops import kernels as _kernels
-from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState, FusedAdam
+from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState, FusedAdam, _adam_keep_body
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -31,34 +31,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def adam_update_reference(p32, g32, m, v, lr, b1, b2, eps, weight_decay,
                           adam_w_mode, c1, c2):
     """Adam/AdamW on f32 tensors: returns ``(p_new, m_new, v_new)``.
-    ``c1``/``c2`` are the bias corrections (pass 1.0 to disable)."""
-    if not adam_w_mode:
-        g32 = g32 + weight_decay * p32
-    m_new = b1 * m + (1.0 - b1) * g32
-    v_new = b2 * v + (1.0 - b2) * g32 * g32
-    denom = torch.sqrt(v_new / c2) + eps
-    upd = -(lr * (m_new / c1) / denom)
-    if adam_w_mode and weight_decay > 0.0:
-        upd = upd - lr * weight_decay * p32
-    return p32 + upd, m_new, v_new
-
-
-def _adam_keep_body(p32, g32, m, v, lr, keep, c1, c2, *, b1, b2, eps,
-                    weight_decay, adam_w_mode):
-    """The keep-folded Adam body on f32 values: ``(p32_new, m_new,
-    v_new)``.  ``lr``, ``keep``, ``c1``, ``c2`` are f32 scalar tensors (or
-    floats); keep = 1 - overflow selects the old state and a zero update.
-    The CUDA kernel rounds each product and sum on its own as this does."""
-    g32 = torch.where(keep > 0, g32, torch.zeros((), dtype=g32.dtype, device=g32.device))
-    if not adam_w_mode and weight_decay > 0.0:
-        g32 = g32 + weight_decay * p32
-    m_new = m + keep * ((b1 - 1.0) * m + (1.0 - b1) * g32)
-    v_new = v + keep * ((b2 - 1.0) * v + (1.0 - b2) * g32 * g32)
-    denom = torch.sqrt(v_new / c2) + eps
-    upd = -(lr * (m_new / c1) / denom)
-    if adam_w_mode and weight_decay > 0.0:
-        upd = upd - (lr * weight_decay) * p32
-    return p32 + keep * upd, m_new, v_new
+    ``c1``/``c2`` are the bias corrections (pass 1.0 to disable).  The
+    keep-folded body with keep = 1."""
+    keep = torch.ones((), dtype=torch.float32, device=p32.device)
+    return _adam_keep_body(p32, g32, m, v, lr, keep, c1, c2, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay, adam_w_mode=adam_w_mode)
 
 
 def _check_leaf(p, g, m, v, scal) -> None:

@@ -15,9 +15,11 @@ rectangular shapes, the fused Adam's dtypes, ragged and unaligned leaves
 and its overflow skip, autograd through the kernels, and the wrappers'
 refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
-backward's dq 2e-5 in f32 and 2e-2 in bf16 too (its f32 sum is taken
-with atomics, in an order that changes between runs); fused Adam 1e-6 in
-f32 (the kernel rounds each product and sum as the plain version does)."""
+backward entry by entry, within that tolerance times |entry| plus half
+the gradient's rms (dq's f32 sum is taken with atomics, in an order that
+changes between runs); fused Adam's moments 1e-6 of their largest entry,
+f32 p 1e-6 absolute (the kernel rounds each product and sum as the plain
+version does)."""
 import numpy as np
 import pytest
 import torch
@@ -121,7 +123,9 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, sq, sk, d, causal):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert a.dtype == dtype and a.shape == b.shape
-        assert _err(a, b) <= TOL[dtype] * max(1.0, float(b.float().abs().max()))
+        a, b = a.float(), b.float()
+        bound = TOL[dtype] * (b.abs() + 0.5 * b.square().mean().sqrt())
+        assert bool(((a - b).abs() <= bound).all()), _err(a, b)
 
 
 def test_autograd_through_the_kernels_matches_the_plain_path(dev):
@@ -158,7 +162,8 @@ def test_fused_adam_kernel_matches_plain(dev, n, pdtype, gdtype, offset, adam_w_
         pr, mr, vr = fu._adam_keep_body(p.float(), g.float(), m, v, *scal.unbind(0), **hyper)
         torch.cuda.synchronize()
         assert _err(pk, pr.to(pdtype)) <= (1e-6 if pdtype == torch.float32 else 1e-2)
-        assert _err(mk, mr) <= 1e-6 and _err(vk, vr) <= 1e-6
+        for got, ref in ((mk, mr), (vk, vr)):
+            assert _err(got, ref) <= 1e-6 * float(ref.abs().max())
         if keep == 0.0:  # the overflow skip writes back the old state
             assert torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(vk, v)
 

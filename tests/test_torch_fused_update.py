@@ -139,8 +139,8 @@ def test_plain_update_matches_jax_update_and_non_adam_returns_none():
 
 @pytest.mark.parametrize("adam_w_mode", [True, False], ids=["adamw", "adam_l2"])
 def test_adam_update_reference_matches_jax_and_the_keep_body(adam_w_mode):
-    """The unfolded body (the host optimizer's, ROADMAP A12) equals the JAX
-    one and the keep-folded body at keep = 1."""
+    """The port's unfolded entry point (the keep-folded body at keep = 1)
+    equals the JAX package's unfolded body and the keep-folded body."""
     rng = np.random.default_rng(6)
     p, g = (rng.standard_normal((32, 256)).astype(np.float32) for _ in range(2))
     m = (0.1 * rng.standard_normal((32, 256))).astype(np.float32)
