@@ -15,9 +15,12 @@ Phases, each printing one JSON line:
    without a key-padding mask; flash backward at B=8, H=12, d=64, T=1024 in
    bf16 and f32, T=256 and a ragged T=1000; fused Adam over GPT-2 124M's
    ``wte``, stacked ``qkv_w`` and ragged ``lnf_g`` leaves and over a whole
-   step's 16 leaves), with the tolerance stated, and the times of the
-   kernel, the plain version and one PyTorch library call beside the least
-   time the card could take (``bound_ms``).
+   step's 16 leaves; paged flash decode at the paged pool's serving shape,
+   8 slots x 8 pages of 128 over a permuted 129-page pool, in bf16, f32 and
+   int8, also against flash decode over the gathered view, bit for bit),
+   with the tolerance stated, and the times of the kernel, the plain
+   version and one PyTorch library call beside the least time the card
+   could take (``bound_ms``).
 3. ``serve_f32``: GPT-2 124M at full width and depth (random weights from
    a seed) behind ``init_serving``: 8 slots, 64-token prefill chunks, 16
    requests with 64..384-token prompts, drained; every request's greedy
@@ -41,8 +44,20 @@ Phases, each printing one JSON line:
    flash backward and fused Adam kernels must have launched; every loss
    finite and the last below the first.  Prints tokens/s, ms a step, peak
    memory and model-FLOPs utilization.
-7. ``kernels``: one entry per kernel with its launches on each main path
-   (``launches_by_path``: serving, training) and their sum.
+7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
+   pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
+   ``paged_request_mix(seed=0)``: 16 requests sharing a 200-token prefix
+   and a 3-turn session.  Served tokens must equal the slot engine's on the
+   same prompts (the near-tie rule above); at least 6 prefix hits, a
+   copy-on-write, 2 session rebinds, no leaked page; paged flash decode
+   launched, slot flash decode not.
+8. ``serve_paged_bf16``: the same mix in bf16, the paged serving main path
+   (counters zeroed just before and read just after), against the slot
+   engine on the same mix (decode tokens/s, TTFT, prefill chunks run);
+   then the session is spilled to disk and a fourth turn restores it: the
+   restored rows must equal the spilled ones bit for bit.
+9. ``kernels``: one entry per kernel with its launches on each main path
+   (``launches_by_path``: serving, serving_paged, training) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -291,6 +306,77 @@ def check_flash_decode(torch, dev, flush):
     return rows
 
 
+def check_flash_decode_paged(torch, dev, flush):
+    """B5 at the paged pool's serving shape: 8 slots x 8 pages of 128 rows
+    over a permuted 129-page pool (the default 1 + 2 x 64), ragged
+    positions, in bf16, f32 and int8; against its plain version and, bit
+    for bit, against B4 over the gathered contiguous view."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.kernels import flash_decode as fd
+    from deepspeed_tpu_torch.ops.transformer.inference import _kv_quant
+
+    B, H, P, page_len, d = 8, 12, 8, 128, 64
+    S, NP = P * page_len, 1 + 2 * B * P
+    rows = []
+    for kv in ("bfloat16", "int8", "float32"):
+        g = torch.Generator(device=dev).manual_seed(4321)
+        qdtype = torch.float32 if kv == "float32" else torch.bfloat16
+        q = torch.randn(B, H, 1, d, generator=g, device=dev).to(qdtype)
+        k32 = torch.randn(NP, H, page_len, d, generator=g, device=dev)
+        v32 = torch.randn(NP, H, page_len, d, generator=g, device=dev)
+        if kv == "int8":
+            kc, vc = (dict(zip(("q", "s"), _kv_quant(t))) for t in (k32, v32))
+        else:
+            kc, vc = k32.to(qdtype), v32.to(qdtype)
+        del k32, v32
+        perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(5)) + 1
+        table = perm[:B * P].reshape(B, P).to(torch.int32).to(dev)
+        pos = torch.tensor([0, S - 1, 100, 511, 777, 1, 300, 1000], dtype=torch.int32, device=dev)
+        out = fd.flash_decode_paged_cuda(q, kc, vc, table, pos)
+        ref = fd.flash_decode_paged_reference(q, kc, vc, table, pos)
+        b4 = fd.flash_decode_cuda(q, fd.paged_gather(kc, table), fd.paged_gather(vc, table), pos)
+        torch.cuda.synchronize()
+        qname = str(qdtype).replace("torch.", "")
+        err, tol = max_err(out, ref), TOL[qname]
+        check(torch.isfinite(out).all().item(), f"flash_decode_paged {kv}: non-finite")
+        check(err <= tol, f"flash_decode_paged {kv}: max_err {err} > tol {tol}")
+        check(torch.equal(out, b4), f"flash_decode_paged {kv}: differs from flash_decode over the "
+                                    f"gathered view by {max_err(out, b4)} (one body: must be equal)")
+        pos_h = pos.cpu()
+        nbytes, flops = _decode_cost(kv, pos_h, None, B, H, S, d, q.element_size())
+        nbytes += B * P * 4  # the page table
+        b_ms, b_by = bound_ms(nbytes, flops, qname)
+        library_ms = None
+        if kv != "int8":
+            ids = table.reshape(-1).long()
+
+            def gather_sdpa():
+                gk, gv = (c.index_select(0, ids).view(B, P, H, page_len, d).transpose(1, 2)
+                          .reshape(B, H, S, d) for c in (kc, vc))
+                return F.scaled_dot_product_attention(q, gk, gv, attn_mask=amask)
+
+            amask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+            library_ms = device_ms(torch, gather_sdpa, flush)
+        row = {
+            "phase": "kernel", "kernel": "flash_decode_paged", "B": B, "H": H, "P": P,
+            "page_len": page_len, "num_pages": NP, "d": d, "kv": kv, "q_dtype": qname,
+            "pos": pos_h.tolist(), "max_err": err, "tol": tol, "equal_to_flash_decode_gathered": True,
+            "kernel_ms": device_ms(torch, lambda: fd.flash_decode_paged_cuda(q, kc, vc, table, pos),
+                                   flush),
+            "plain_ms": device_ms(torch, lambda: fd.flash_decode_paged_reference(
+                q, kc, vc, table, pos), flush),
+            # no single PyTorch call computes this function: two calls,
+            # index_select of the pages then SDPA with a boolean mask
+            "library_ms": library_ms, "library_calls": "index_select + scaled_dot_product_attention",
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+        emit(row)
+        rows.append(row)
+        del kc, vc
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
@@ -327,6 +413,24 @@ def top2_gap(eng, tokens):
     return float(top[0] - top[1])
 
 
+def near_tie_flips(eng, done, wants, label):
+    """The first token where each served request's tokens differ from
+    the expected ones, which must sit on a near-tie of the top-2 logits
+    of ``eng`` (f32)."""
+    flips = []
+    for r, want in zip(done, wants):
+        got = r.tokens()
+        if np.array_equal(want, got):
+            continue
+        i = int(np.nonzero(want != got)[0][0])
+        gap = top2_gap(eng, got[:i])
+        flips.append({"request": r.request_id, "at": i - r.prompt_len, "top2_gap": gap})
+        check(gap < F32_NEAR_TIE,
+              f"{label} request {r.request_id}: served token {i - r.prompt_len} differs with "
+              f"top-2 gap {gap} >= {F32_NEAR_TIE}")
+    return flips
+
+
 def phase_serve_f32(torch, params, reqs):
     import deepspeed_tpu_torch
 
@@ -335,18 +439,8 @@ def phase_serve_f32(torch, params, reqs):
         serving={"num_slots": 8, "prefill_chunk": 64})
     done, wall = serve(srv, reqs)
     eng = srv.engine
-    flips = []
-    for r in done:
-        solo = eng.generate(r.prompt[None, :], max_new_tokens=len(r.generated))[0]
-        got = r.tokens()
-        if np.array_equal(solo, got):
-            continue
-        i = int(np.nonzero(solo != got)[0][0])
-        gap = top2_gap(eng, got[:i])
-        flips.append({"request": r.request_id, "at": i - r.prompt_len, "top2_gap": gap})
-        check(gap < F32_NEAR_TIE,
-              f"f32 request {r.request_id}: served token {i - r.prompt_len} differs from solo "
-              f"generate() with top-2 gap {gap} >= {F32_NEAR_TIE}")
+    solo = [eng.generate(r.prompt[None, :], max_new_tokens=len(r.generated))[0] for r in done]
+    flips = near_tie_flips(eng, done, solo, "serve_f32 vs solo generate()")
     emit({"phase": "serve_f32", "requests": len(done),
           "tokens": int(sum(len(r.generated) for r in done)),
           "equal_to_solo_generate": len(done) - len(flips), "near_tie_flips": flips,
@@ -424,6 +518,163 @@ def phase_serve_bf16(torch, params, reqs):
           f"bf16 decode logits differ by {errs['decode']}")
     emit({"phase": "logits_bf16", "B": 4, "T": 256, "max_abs_err": errs, "tol": BF16_LOGIT_TOL,
           "logit_range": [float(pp.min()), float(pp.max())]})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the paged serving path
+# ---------------------------------------------------------------------------
+
+PAGED = {"num_slots": 8, "prefill_chunk": 64, "kvcache": {"enabled": True, "page_len": 128}}
+
+
+def accounted_pages(pool):
+    """Pages the host bookkeeping holds: index entries, parked sessions
+    and mapped slots (the leak check of the JAX package's tests)."""
+    pages = set()
+    for e in pool.index.entries():
+        pages.update(e.pages)
+    for s in pool.sessions.warm():
+        pages.update(s.pages)
+    for ps in pool._slot_pages.values():
+        pages.update(ps)
+    return pages
+
+
+def slot_replay(srv, done):
+    """Serve the prompts of ``done`` (with their budgets) on ``srv`` and
+    return its tokens in order."""
+    rids = [srv.submit(r.prompt, max_new_tokens=len(r.generated)) for r in done]
+    res = srv.drain()
+    return [res[r].tokens() for r in rids]
+
+
+def phase_serve_paged_f32(torch, params, mix):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_serving import drain_paged_mix
+
+    srv = deepspeed_tpu_torch.init_serving(model="gpt2", params=params, dtype=torch.float32,
+                                           serving=PAGED)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    done, turns = drain_paged_mix(srv, mix)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    check(launches["flash_decode_paged"] > 0 and launches["flash_decode"] == 0,
+          f"serve_paged_f32: decode launches {launches}")
+    kv = srv.stats()["kvcache"]
+    check(kv["prefix_hits"] >= 6 and kv["cow_copies"] >= 1 and kv["session_rebinds"] == 2,
+          f"serve_paged_f32: kvcache counters {kv}")
+    check(srv.pool.live_slots == 0 and kv["pages_live"] == len(accounted_pages(srv.pool)),
+          f"serve_paged_f32: {kv['pages_live']} live pages, "
+          f"{len(accounted_pages(srv.pool))} accounted for")
+    allreq = done + turns
+    for r in allreq:
+        check(r.finish_reason == "length" and all(0 <= t < 50257 for t in r.generated),
+              f"serve_paged_f32 request {r.request_id}: {r.finish_reason}")
+    eng = srv.engine
+    del srv
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    want = slot_replay(ServingEngine(eng, num_slots=8, prefill_chunk=64), allreq)
+    flips = near_tie_flips(eng, allreq, want, "serve_paged_f32 vs the slot engine")
+    emit({"phase": "serve_paged_f32", "requests": len(allreq), "session_turns": len(turns),
+          "tokens": int(sum(len(r.generated) for r in allreq)),
+          "equal_to_slot_engine": len(allreq) - len(flips), "near_tie_flips": flips,
+          "near_tie_tol": F32_NEAR_TIE, "kvcache": kv, "launches": launches, "wall_s": wall})
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _served_summary(srv, done, wall):
+    st = srv.stats()
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
+    n_tok = int(sum(len(r.generated) for r in done))
+    return {"ttft_ms_p50": _percentile(ttft, 50), "ttft_ms_p99": _percentile(ttft, 99),
+            "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "decode_tokens_per_s": (n_tok - len(done)) / st["phase_seconds"]["decode"],
+            "decode_ms_per_step": st["phase_seconds"]["decode"] / st["decode_steps"] * 1e3,
+            "decode_steps": st["decode_steps"], "prefill_chunks": st["prefill_chunks"],
+            "phase_seconds": st["phase_seconds"]}
+
+
+def phase_serve_paged_bf16(torch, params, mix):
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_serving import drain_paged_mix
+
+    out = {}
+    # the slot engine on the same mix first (session turns are plain
+    # requests there), then the paged engine: the paged serving main path
+    slot = deepspeed_tpu_torch.init_serving(model="gpt2", params=params, dtype=torch.bfloat16,
+                                            serving={"num_slots": 8, "prefill_chunk": 64})
+    t0 = time.perf_counter()
+    done, turns = drain_paged_mix(slot, mix)
+    torch.cuda.synchronize()
+    out["slot"] = _served_summary(slot, done + turns, time.perf_counter() - t0)
+    del slot
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as spill:
+        cfg = {**PAGED, "kvcache": {**PAGED["kvcache"], "spill_dir": spill}}
+        srv = deepspeed_tpu_torch.init_serving(model="gpt2", params=params, dtype=torch.bfloat16,
+                                               serving=cfg)
+        # -- the main path: counters zeroed just before, read just after ---
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        done, turns = drain_paged_mix(srv, mix)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()
+        # ------------------------------------------------------------------
+        out["paged"] = _served_summary(srv, done + turns, wall)
+        check(launches["flash_decode_paged"] > 0 and launches["flash_decode"] == 0,
+              f"serve_paged_bf16: launches {launches}")
+        kv = srv.stats()["kvcache"]
+        check(kv["session_rebinds"] == 2 and kv["prefix_hits"] >= 6,
+              f"serve_paged_bf16: kvcache counters {kv}")
+
+        # -- a bf16 spill -> restore of the session -------------------------
+        pool = srv.pool
+        sess = pool.sessions.peek("chat-1")
+        n_pages = len(sess.pages)
+        before = pool._gather_host(sess.pages)
+        check(pool.spill_sessions(time.monotonic()) == 1 and pool.sessions.is_spilled("chat-1"),
+              "serve_paged_bf16: session not spilled")
+        files = sorted(os.listdir(os.path.join(spill, os.listdir(spill)[0])))
+        prompt = np.concatenate([turns[-1].tokens(), mix[1][1][0]])
+        rid = srv.submit(prompt, max_new_tokens=8, session_id="chat-1")
+        t4 = srv.drain()[rid]
+        kv = srv.stats()["kvcache"]
+        check(kv["session_restores"] == 1 and kv["session_rebinds"] == 3 and t4.prefix_hint > 0,
+              f"serve_paged_bf16: restore {kv}, hit {t4.prefix_hint}")
+        # the restored pages hold the spilled rows [0, hit) untouched: the
+        # turn wrote positions >= hit only, and parked them again
+        after = pool._gather_host(pool.sessions.peek("chat-1").pages[:n_pages])
+        hit = t4.prefix_hint
+
+        def head(leaf):  # (L, pages, H, page_len, x) -> (L, H, hit, x)
+            L, n, Hh, pl, x = leaf.shape
+            return leaf.permute(0, 2, 1, 3, 4).reshape(L, Hh, n * pl, x)[:, :, :hit]
+
+        check(all(torch.equal(head(before[k]), head(after[k])) for k in before),
+              "serve_paged_bf16: restored rows differ from the spilled ones")
+        check(files == ["kv.npz", "manifest.json", "meta.json"], f"spill files {files}")
+        emit({"phase": "serve_paged_bf16", "requests": len(done) + len(turns),
+              "paged": out["paged"], "slot": out["slot"], "kvcache": kv,
+              "tokens_saved": kv["tokens_saved"],
+              "prefill_chunks_saved": out["slot"]["prefill_chunks"] - out["paged"]["prefill_chunks"],
+              "spill_restore": {"files": files, "restored_rows": hit, "leaves": sorted(before),
+                                "dtype": str(before["k"].dtype)},
+              "launches": launches})
+        del srv, pool
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -706,7 +957,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops import kernels
-    from deepspeed_tpu_torch.tools.profile_serving import request_mix
+    from deepspeed_tpu_torch.tools.profile_serving import paged_request_mix, request_mix
 
     # a reference states its float32 matmul precision: full f32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -729,6 +980,7 @@ def main() -> int:
     check_flash_fwd(torch, dev, flush)
     fwd_train = check_flash_fwd_training(torch, dev, flush)
     dec_rows = check_flash_decode(torch, dev, flush)
+    paged_rows = check_flash_decode_paged(torch, dev, flush)
     bwd_rows = check_flash_bwd(torch, dev, flush)
     adam_rows = check_fused_adam(torch, dev, flush)
     del flush
@@ -739,22 +991,29 @@ def main() -> int:
     reqs = request_mix(seed=0)
     phase_serve_f32(torch, params, reqs)
     serve_launches = phase_serve_bf16(torch, params, reqs)
+    mix = paged_request_mix(seed=0)
+    phase_serve_paged_f32(torch, params, mix)
+    paged_launches = phase_serve_paged_bf16(torch, params, mix)
     phase_train_f32(torch, params)
     train_launches = phase_train_bf16(torch, params)
-    by_path = {name: {"serving": serve_launches[name], "training": train_launches[name]}
+    by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
+                      "training": train_launches[name]}
                for name in serve_launches}
 
     # the main-path shapes: the training step's bf16 attention (B=8, H=12,
     # T=1024, d=64: B1 with lse, B2), the bf16 pool's decode (8 slots x
-    # 1024 positions) and one step's fused Adam over GPT-2 124M's 16 leaves
+    # 1024 positions), the bf16 paged pool's decode (8 slots x 8 pages of
+    # 128) and one step's fused Adam over GPT-2 124M's 16 leaves
     bwd = next(r for r in bwd_rows if r["T"] == 1024 and r["dtype"] == "bfloat16")
     dec = next(r for r in dec_rows if r["kv"] == "bfloat16" and not r["masked"])
+    paged = next(r for r in paged_rows if r["kv"] == "bfloat16")
     adam = next(r for r in adam_rows if r["leaves"] == "step_16_leaves")
     report = kernels.kernels_report()
     entries = []
     for name, row, replaces in (
         ("flash_fwd", fwd_train, "deepspeed_tpu/ops/attention/flash_attention.py:237"),
         ("flash_decode", dec, "deepspeed_tpu/ops/kernels/flash_decode.py:88"),
+        ("flash_decode_paged", paged, "deepspeed_tpu/ops/kernels/flash_decode.py:277"),
         ("flash_bwd", bwd, "deepspeed_tpu/ops/attention/flash_attention.py:607"),
         ("fused_adam", adam, "deepspeed_tpu/ops/kernels/fused_update.py:125"),
     ):

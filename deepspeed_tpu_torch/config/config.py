@@ -4,7 +4,8 @@
 Ported: :class:`DeepSpeedConfig` with its batch triad on one device, the
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler`` blocks, the ZeRO
 ``stage``, ``gradient_clipping``, ``steps_per_print``, ``seed``, and the
-``serving`` block's slot-pool fields (:class:`ServingConfig`).  Unknown
+``serving`` block's slot-pool fields and its ``kvcache`` block (the paged
+pool; :class:`ServingConfig`, :class:`KVCacheConfig`).  Unknown
 keys raise :class:`DeepSpeedConfigError` as in the JAX package.  Keys and
 blocks the JAX package knows but the port cannot honour yet are accepted
 only at their "off" default; otherwise they raise ``NotImplementedError``
@@ -15,7 +16,7 @@ import dataclasses
 import difflib
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from deepspeed_tpu_torch.config import constants as C
 
@@ -65,8 +66,9 @@ _NOT_PORTED_BLOCKS = {
 
 def _refuse_not_ported(d: Dict[str, Any]) -> None:
     """Raise for any part of ``d`` that asks for serving machinery the
-    port does not have yet (paged KV, tiers, journal, watchdog, fleet,
-    front-door, tenants)."""
+    port does not have yet (journal, watchdog, fleet, front-door,
+    tenants).  The ``kvcache`` block is parsed by :class:`KVCacheConfig`,
+    which refuses its ``tiers``."""
     for key, (off, item) in _NOT_PORTED_KEYS.items():
         if key in d and d[key] not in (off, None):
             raise NotImplementedError(
@@ -80,17 +82,139 @@ def _refuse_not_ported(d: Dict[str, Any]) -> None:
                 f"'{C.SERVING}.{block}' is not ported to deepspeed_tpu_torch yet "
                 f"(ROADMAP {item})"
             )
-    kvc = d.pop(C.SERVING_KVCACHE, None) or {}
-    if kvc.get("enabled"):
-        raise NotImplementedError(
-            f"'{C.SERVING}.{C.SERVING_KVCACHE}.enabled' (the paged KV pool) is not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP B5 + A8 serving/kvcache/)"
+
+
+@dataclass
+class KVTiersConfig:
+    """``serving.kvcache.tiers`` block: hierarchical page residency HBM
+    (T0) → host memory (T1) → disk (T2).  Parsed and validated as in the
+    JAX package; ``enabled`` raises (the tier manager is not ported)."""
+
+    enabled: bool = C.SERVING_KVCACHE_TIERS_ENABLED_DEFAULT
+    host_pages: int = C.SERVING_KVCACHE_TIERS_HOST_PAGES_DEFAULT  # 0 = unbounded
+    disk_dir: str = C.SERVING_KVCACHE_TIERS_DISK_DIR_DEFAULT  # "" = no T2
+    residency_window: int = C.SERVING_KVCACHE_TIERS_RESIDENCY_WINDOW_DEFAULT
+    demote_watermark: float = C.SERVING_KVCACHE_TIERS_DEMOTE_WATERMARK_DEFAULT
+    prefetch_ahead: int = C.SERVING_KVCACHE_TIERS_PREFETCH_AHEAD_DEFAULT
+    demote_batch: int = C.SERVING_KVCACHE_TIERS_DEMOTE_BATCH_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "KVTiersConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, KVTiersConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_KVCACHE}.{C.SERVING_KVCACHE_TIERS}"
+        out = cls(
+            enabled=bool(d.pop("enabled", C.SERVING_KVCACHE_TIERS_ENABLED_DEFAULT)),
+            host_pages=int(d.pop("host_pages", C.SERVING_KVCACHE_TIERS_HOST_PAGES_DEFAULT)),
+            disk_dir=str(d.pop("disk_dir", C.SERVING_KVCACHE_TIERS_DISK_DIR_DEFAULT) or ""),
+            residency_window=int(d.pop(
+                "residency_window", C.SERVING_KVCACHE_TIERS_RESIDENCY_WINDOW_DEFAULT)),
+            demote_watermark=float(d.pop(
+                "demote_watermark", C.SERVING_KVCACHE_TIERS_DEMOTE_WATERMARK_DEFAULT)),
+            prefetch_ahead=int(d.pop(
+                "prefetch_ahead", C.SERVING_KVCACHE_TIERS_PREFETCH_AHEAD_DEFAULT)),
+            demote_batch=int(d.pop("demote_batch", C.SERVING_KVCACHE_TIERS_DEMOTE_BATCH_DEFAULT)),
         )
-    if (kvc.get(C.SERVING_KVCACHE_TIERS) or {}).get("enabled"):
-        raise NotImplementedError(
-            f"'{C.SERVING}.{C.SERVING_KVCACHE}.{C.SERVING_KVCACHE_TIERS}' is not "
-            "ported to deepspeed_tpu_torch yet (ROADMAP A8 serving/kvcache/tiers.py)"
+        _check_empty(d, block, _known_keys(cls))
+        if out.host_pages < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.host_pages' must be >= 0 (0 = unbounded), got {out.host_pages}"
+            )
+        if out.residency_window < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.residency_window' must be >= 0 (0 keeps whole "
+                f"sessions resident), got {out.residency_window}"
+            )
+        if not (0.0 < out.demote_watermark <= 1.0):
+            raise DeepSpeedConfigError(
+                f"'{block}.demote_watermark' must be in (0, 1], got {out.demote_watermark}"
+            )
+        if out.prefetch_ahead < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.prefetch_ahead' must be >= 0, got {out.prefetch_ahead}"
+            )
+        if out.demote_batch < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.demote_batch' must be >= 1, got {out.demote_batch}"
+            )
+        if out.enabled:
+            raise NotImplementedError(
+                f"'{block}' is not ported to deepspeed_tpu_torch yet "
+                "(ROADMAP A8 serving/kvcache/tiers.py)"
+            )
+        return out
+
+
+@dataclass
+class KVCacheConfig:
+    """``serving.kvcache`` block: the paged KV pool — fixed-shape page
+    buffers with a host page allocator, shared-prefix dedup via a radix
+    index, copy-on-write for partially filled shared pages, and durable
+    per-``session_id`` KV reuse (warm in-pool, spilled to ``spill_dir``
+    when cold)."""
+
+    enabled: bool = C.SERVING_KVCACHE_ENABLED_DEFAULT
+    page_len: int = C.SERVING_KVCACHE_PAGE_LEN_DEFAULT
+    num_pages: int = C.SERVING_KVCACHE_NUM_PAGES_DEFAULT  # 0 = derive
+    # prompt prefixes (token-id lists) pre-registered in the radix index
+    # at engine start; pinned entries are never evicted under pressure
+    pinned_prefixes: Tuple[Tuple[int, ...], ...] = ()
+    session_ttl_seconds: float = C.SERVING_KVCACHE_SESSION_TTL_SECONDS_DEFAULT
+    spill_dir: str = C.SERVING_KVCACHE_SPILL_DIR_DEFAULT
+    tiers: KVTiersConfig = field(default_factory=KVTiersConfig)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "KVCacheConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, KVCacheConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_KVCACHE}"
+        tiers = KVTiersConfig.from_dict(d.pop(C.SERVING_KVCACHE_TIERS, None))
+        raw_pins = d.pop("pinned_prefixes", ())
+        if raw_pins is None:
+            raw_pins = ()
+        if not isinstance(raw_pins, (list, tuple)):
+            raise DeepSpeedConfigError(
+                f"'{block}.pinned_prefixes' must be a list of token-id "
+                f"lists, got {type(raw_pins).__name__}"
+            )
+        pins: List[Tuple[int, ...]] = []
+        for i, spec in enumerate(raw_pins):
+            if not isinstance(spec, (list, tuple)) or not spec:
+                raise DeepSpeedConfigError(
+                    f"'{block}.pinned_prefixes[{i}]' must be a non-empty "
+                    f"list of token ids"
+                )
+            pins.append(tuple(int(t) for t in spec))
+        out = cls(
+            tiers=tiers,
+            enabled=bool(d.pop("enabled", C.SERVING_KVCACHE_ENABLED_DEFAULT)),
+            page_len=int(d.pop("page_len", C.SERVING_KVCACHE_PAGE_LEN_DEFAULT)),
+            num_pages=int(d.pop("num_pages", C.SERVING_KVCACHE_NUM_PAGES_DEFAULT)),
+            pinned_prefixes=tuple(pins),
+            session_ttl_seconds=float(
+                d.pop("session_ttl_seconds", C.SERVING_KVCACHE_SESSION_TTL_SECONDS_DEFAULT)
+            ),
+            spill_dir=str(d.pop("spill_dir", C.SERVING_KVCACHE_SPILL_DIR_DEFAULT) or ""),
         )
+        _check_empty(d, block, _known_keys(cls))
+        if out.page_len < 1:
+            raise DeepSpeedConfigError(f"'{block}.page_len' must be >= 1, got {out.page_len}")
+        if out.num_pages < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.num_pages' must be >= 0 (0 derives it from the "
+                f"slot capacity), got {out.num_pages}"
+            )
+        if out.session_ttl_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.session_ttl_seconds' must be >= 0, got {out.session_ttl_seconds}"
+            )
+        return out
 
 
 @dataclass
@@ -100,7 +224,7 @@ class ServingConfig:
     prompts prefill in ``prefill_chunk``-token chunks interleaved with
     decode steps; ``max_queue`` bounds admission and
     ``deadline_seconds`` expires requests that wait too long for a
-    slot."""
+    slot.  ``kvcache.enabled`` swaps the slot pool for the paged pool."""
 
     num_slots: int = C.SERVING_NUM_SLOTS_DEFAULT
     max_len: int = C.SERVING_MAX_LEN_DEFAULT  # 0 = derive from the engine
@@ -116,6 +240,7 @@ class ServingConfig:
     degrade_engage_steps: int = C.SERVING_DEGRADE_ENGAGE_STEPS_DEFAULT
     degrade_disengage_steps: int = C.SERVING_DEGRADE_DISENGAGE_STEPS_DEFAULT
     degrade_max_new_tokens: int = C.SERVING_DEGRADE_MAX_NEW_TOKENS_DEFAULT
+    kvcache: KVCacheConfig = field(default_factory=KVCacheConfig)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -124,6 +249,7 @@ class ServingConfig:
         d = dict(d)
         _refuse_not_ported(d)
         out = cls(
+            kvcache=KVCacheConfig.from_dict(d.pop(C.SERVING_KVCACHE, None)),
             num_slots=int(d.pop("num_slots", C.SERVING_NUM_SLOTS_DEFAULT)),
             max_len=int(d.pop("max_len", C.SERVING_MAX_LEN_DEFAULT)),
             kv_cache_dtype=str(

@@ -101,13 +101,27 @@ SERVING_DEGRADE_QUEUE_WATERMARK_DEFAULT = 0.75
 SERVING_DEGRADE_ENGAGE_STEPS_DEFAULT = 8
 SERVING_DEGRADE_DISENGAGE_STEPS_DEFAULT = 16
 SERVING_DEGRADE_MAX_NEW_TOKENS_DEFAULT = 32  # rung-1 clamp; 0 disables the rung
+# -- paged KV cache (serving.kvcache.*) ------------------------------------
+SERVING_KVCACHE = "kvcache"
+SERVING_KVCACHE_ENABLED_DEFAULT = False  # paged pool off = slot-contiguous pool
+SERVING_KVCACHE_PAGE_LEN_DEFAULT = 128  # tokens per KV page
+SERVING_KVCACHE_NUM_PAGES_DEFAULT = 0  # 0 = derive (garbage page + 2x slot capacity)
+SERVING_KVCACHE_SESSION_TTL_SECONDS_DEFAULT = 0.0  # 0 = warm sessions never expire
+SERVING_KVCACHE_SPILL_DIR_DEFAULT = ""  # "" = cold sessions drop instead of spill
+# -- hierarchical KV tiering (serving.kvcache.tiers.*; parsed, not ported) -
+SERVING_KVCACHE_TIERS = "tiers"
+SERVING_KVCACHE_TIERS_ENABLED_DEFAULT = False
+SERVING_KVCACHE_TIERS_HOST_PAGES_DEFAULT = 0  # T1 page cap; 0 = unbounded
+SERVING_KVCACHE_TIERS_DISK_DIR_DEFAULT = ""  # "" = no T2 (host tier only)
+SERVING_KVCACHE_TIERS_RESIDENCY_WINDOW_DEFAULT = 0  # tokens kept in T0 per parked session; 0 = all
+SERVING_KVCACHE_TIERS_DEMOTE_WATERMARK_DEFAULT = 0.75  # demote when pages_live exceeds this fraction
+SERVING_KVCACHE_TIERS_PREFETCH_AHEAD_DEFAULT = 4  # queued admits prefetched per tick
+SERVING_KVCACHE_TIERS_DEMOTE_BATCH_DEFAULT = 4  # entries demoted per tick
 # -- blocks of the JAX package's serving stack not ported yet ------------
 SERVING_DRAIN_DEADLINE_SECONDS_DEFAULT = 30.0  # SIGTERM in-flight drain budget
 SERVING_JOURNAL_DIR_DEFAULT = ""  # "" = request journaling off
 SERVING_JOURNAL_SEGMENT_RECORDS_DEFAULT = 512  # records per WAL segment
 SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT = 4  # sealed segments before compaction
-SERVING_KVCACHE = "kvcache"
-SERVING_KVCACHE_TIERS = "tiers"
 SERVING_FLEET = "fleet"
 SERVING_FRONTDOOR = "frontdoor"
 SERVING_TENANTS = "tenants"

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``deepspeed_tpu_torch/csrc/``
-with a plain C entry point.  At first use the source is compiled with
-``nvcc`` for ``sm_90a`` into a shared library under
+Each kernel is a plain C entry point in a CUDA C++ source under
+``deepspeed_tpu_torch/csrc/`` (two kernels may share a source and its
+body: B4 and B5 live in ``flash_decode.cu``).  At first use the source is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
 :func:`build` compiles several sources at once, one ``nvcc`` each.
@@ -50,6 +51,12 @@ KERNELS = {
         # q, k, v, ks, vs, pos, kpm, out, B, H, S, d, q_dtype, kv_dtype, sm_scale, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    "flash_decode_paged": (
+        "flash_decode.cu", "ds_flash_decode_paged",
+        # q, k, v, ks, vs, table, pos, out, B, H, P, page_len, num_pages, d, q_dtype, kv_dtype,
+        # sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
     "flash_bwd": (
         "flash_bwd.cu", "ds_flash_bwd",
         # q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, d, dtype, causal, sm_scale, stream
@@ -93,7 +100,7 @@ class KernelLibrary:
         self._libs: Dict[str, ctypes.CDLL] = {}
 
     def _so_path(self, name: str) -> Path:
-        return self.build_dir / f"lib{name}.so"
+        return self.build_dir / f"lib{Path(KERNELS[name][0]).stem}.so"
 
     def _stale(self, name: str) -> bool:
         so = self._so_path(name)
@@ -103,28 +110,33 @@ class KernelLibrary:
     def build(self, names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, float]:
         """Compile the named kernels (default: all) that are missing or
         older than their source, one ``nvcc`` per source, all started
-        together.  Returns the wall seconds of each compile."""
+        together.  Returns the wall seconds of each compile, by kernel
+        (kernels that share a source share its compile)."""
         names = list(KERNELS if names is None else names)
         todo = [n for n in names if force or self._stale(n)]
         if not todo:
             return {}
+        sources = {KERNELS[n][0]: n for n in todo}  # one nvcc per source
         nvcc = _nvcc()
         self.build_dir.mkdir(parents=True, exist_ok=True)
         procs = {}
         t0 = time.perf_counter()
-        for name in todo:
-            tmp = self.build_dir / f"lib{name}.{os.getpid()}.tmp.so"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / KERNELS[name][0])]
-            procs[name] = (tmp, subprocess.Popen(
+        for src, name in sources.items():
+            tmp = self.build_dir / f"lib{Path(src).stem}.{os.getpid()}.tmp.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+            procs[src] = (name, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             ))
         failed = []
-        for name, (tmp, proc) in procs.items():
+        for src, (name, tmp, proc) in procs.items():
             log, _ = proc.communicate()
-            self.build_seconds[name] = time.perf_counter() - t0
-            self.build_log[name] = log
+            seconds = time.perf_counter() - t0
+            for n in todo:
+                if KERNELS[n][0] == src:
+                    self.build_seconds[n] = seconds
+                    self.build_log[n] = log
             if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+                failed.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
                 continue
             # atomic publish: a concurrent loader never sees half a file
             os.replace(tmp, self._so_path(name))
@@ -139,7 +151,7 @@ class KernelLibrary:
         if f is None:
             if self._stale(name):
                 self.build([name])
-            lib = ctypes.CDLL(str(self._so_path(name)))
+            lib = ctypes.CDLL(str(self._so_path(name)))  # dlopen: one handle per file
             src, entry, argtypes = KERNELS[name]
             f = getattr(lib, entry)
             f.argtypes = argtypes

@@ -1,20 +1,25 @@
-"""Single-query flash decode over the slot-pool KV layout (counterpart of
-``deepspeed_tpu/ops/kernels/flash_decode.py``).
+"""Single-query flash decode over the slot-pool and the paged KV layouts
+(counterpart of ``deepspeed_tpu/ops/kernels/flash_decode.py``).
 
-Contract (the same as the JAX kernel's):
+Contract (the same as the JAX kernels'):
 
 * ``q``: (B, H, 1, d) — one query per slot (decode step).
-* caches: (B, H, S, d) tensors in ``q``'s type, or the int8 pair
-  ``{"q": int8 codes, "s": (B, H, S, 1) f32 scales}`` from
+* slot caches (B4): (B, H, S, d) tensors in ``q``'s type, or the int8
+  pair ``{"q": int8 codes, "s": (B, H, S, 1) f32 scales}`` from
   ``init_kv_cache``.
+* page pools (B5): (num_pages, H, page_len, d) in the same forms, with a
+  (B, P) int32 ``page_table``: key ``j`` of slot ``b`` lives at page
+  ``page_table[b, j // page_len]``, row ``j % page_len``.
 * ``pos``: scalar or per-slot (B,) write offsets; key ``j`` is
   attendable iff ``j <= pos[b]`` (serving writes the token's K/V before
   it attends).
-* ``key_padding_mask``: optional (B, S), True = attendable.
+* ``key_padding_mask`` (slot caches only): optional (B, S), True =
+  attendable.
 
-:func:`flash_decode` launches the CUDA kernel (``csrc/flash_decode.cu``)
-for CUDA tensors and runs :func:`flash_decode_reference`, the plain
-PyTorch version of the same function, for CPU tensors.
+:func:`flash_decode` and :func:`flash_decode_paged` launch the CUDA
+kernels (``csrc/flash_decode.cu``, one body for both) for CUDA tensors
+and run :func:`flash_decode_reference` / :func:`flash_decode_paged_reference`,
+the plain PyTorch versions of the same functions, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ NEG_INF = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_D = 128
+_MAX_PAGES = 8192  # table entries a block stages in shared memory (csrc)
 
 
 def decode_supported(B: int, H: int, S: int, d: int) -> bool:
@@ -39,6 +45,15 @@ def decode_supported(B: int, H: int, S: int, d: int) -> bool:
     128.  (The TPU grid needed ``S % 128 == 0``; the Hopper kernel walks
     keys one row at a time and masks past ``pos`` itself.)"""
     return B >= 1 and H >= 1 and S >= 1 and 1 <= d <= _MAX_D
+
+
+def decode_paged_supported(B: int, H: int, P: int, page_len: int, d: int) -> bool:
+    """Paged shapes the CUDA kernel serves: any ``page_len >= 1``, head_dim
+    up to 128, up to 8192 pages a slot.  (The TPU kernel took one page as
+    one kv block and needed ``page_len % 128 == 0``; the Hopper kernel
+    walks keys one row at a time through the staged table row.)"""
+    return (B >= 1 and H >= 1 and 1 <= P <= _MAX_PAGES and page_len >= 1
+            and 1 <= d <= _MAX_D and P * page_len < 2 ** 31)
 
 
 def _per_slot(pos) -> bool:
@@ -84,13 +99,47 @@ def flash_decode_reference(q, k_cache, v_cache, pos, sm_scale: Optional[float] =
     return out.to(q.dtype)
 
 
-def _check_cuda(name: str, t: torch.Tensor, device: torch.device) -> None:
+def paged_gather(cache, page_table: torch.Tensor):
+    """The logical slot view of a page pool: gather ``cache`` (num_pages,
+    H, page_len, d) — or the int8 ``{"q", "s"}`` pair — through
+    ``page_table`` (B, P) into the contiguous (B, H, P * page_len, d)
+    layout of a slot cache.  Unused table entries point at the garbage
+    page, whose rows lie behind the position mask."""
+    B, P = page_table.shape
+
+    def g(buf):
+        t = buf[page_table.reshape(-1).to(buf.device, torch.int64)]   # (B*P, H, pl, x)
+        t = t.reshape(B, P, buf.shape[1], buf.shape[2], buf.shape[3])
+        return t.permute(0, 2, 1, 3, 4).reshape(B, buf.shape[1], P * buf.shape[2], buf.shape[3])
+
+    if isinstance(cache, dict):
+        return {name: g(buf) for name, buf in cache.items()}
+    return g(cache)
+
+
+def flash_decode_paged_reference(q, k_cache, v_cache, page_table, pos,
+                                 sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch paged attention: :func:`paged_gather` of both pools,
+    then :func:`flash_decode_reference` over the gathered view (the JAX
+    package's ground truth in ``paged_cache_attention``; any T)."""
+    return flash_decode_reference(q, paged_gather(k_cache, page_table),
+                                  paged_gather(v_cache, page_table), pos, sm_scale)
+
+
+def _check_cuda(name: str, t: torch.Tensor, device: torch.device,
+                fn: str = "flash_decode_cuda") -> None:
     if not t.is_cuda:
-        raise ValueError(f"flash_decode_cuda: {name} lies on {t.device}, not on a CUDA device")
+        raise ValueError(f"{fn}: {name} lies on {t.device}, not on a CUDA device")
     if t.device != device:
-        raise ValueError(f"flash_decode_cuda: {name} is on {t.device}, q on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, q on {device}")
     if not t.is_contiguous():
-        raise ValueError(f"flash_decode_cuda: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _pos_vector(pos, B: int, dev) -> torch.Tensor:
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=dev, dtype=torch.int32).reshape(-1).expand(B).contiguous()
+    return torch.full((B,), int(pos), dtype=torch.int32, device=dev)
 
 
 def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
@@ -134,10 +183,7 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None
         ks, vs = k_cache["s"], v_cache["s"]
         _check_cuda("k scales", ks, dev)
         _check_cuda("v scales", vs, dev)
-    if isinstance(pos, torch.Tensor):
-        pos_vec = pos.to(device=dev, dtype=torch.int32).reshape(-1).expand(B).contiguous()
-    else:
-        pos_vec = torch.full((B,), int(pos), dtype=torch.int32, device=dev)
+    pos_vec = _pos_vector(pos, B, dev)
     kpm = None
     if key_padding_mask is not None:
         if tuple(key_padding_mask.shape) != (B, S):
@@ -174,3 +220,85 @@ def flash_decode(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
     if q.device.type == "cpu":
         return flash_decode_reference(q, k_cache, v_cache, pos, sm_scale, key_padding_mask)
     return flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale, key_padding_mask)
+
+
+def flash_decode_paged_cuda(q, k_cache, v_cache, page_table, pos,
+                            sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the paged CUDA kernel (``csrc/flash_decode.cu``,
+    ``ds_flash_decode_paged``) on the current stream.  Raises for tensors
+    that are not on one CUDA device, not contiguous, or of a type or shape
+    the kernel does not take.  The page table must be int32 (B, P) with
+    entries in ``[0, num_pages)`` (checking that on the host would cost a
+    device sync a step; the kernel clamps other entries into the pool, so
+    a wrong table reads wrong pages, never memory outside the pool)."""
+    fn_name = "flash_decode_paged_cuda"
+    quant = isinstance(k_cache, dict)
+    k_op = k_cache["q"] if quant else k_cache
+    v_op = v_cache["q"] if quant else v_cache
+    if q.ndim != 4:
+        raise ValueError(f"{fn_name}: q must be (B, H, 1, d), got {tuple(q.shape)}")
+    B, H, T, d = q.shape
+    if T != 1:
+        raise ValueError(f"flash_decode_paged serves exactly one query per slot, got T={T}")
+    if k_op.ndim != 4:
+        raise ValueError(f"{fn_name}: pools must be (num_pages, H, page_len, d), "
+                         f"got {tuple(k_op.shape)}")
+    NP, _, page_len, _ = k_op.shape
+    if k_op.shape != (NP, H, page_len, d) or v_op.shape != (NP, H, page_len, d):
+        raise ValueError(
+            f"{fn_name}: pools must be (num_pages, H, page_len, d) = (NP, {H}, page_len, {d}), "
+            f"got {tuple(k_op.shape)} / {tuple(v_op.shape)}"
+        )
+    if page_table.dtype != torch.int32 or page_table.ndim != 2 or page_table.shape[0] != B:
+        raise ValueError(f"{fn_name}: page_table must be int32 (B={B}, P), got "
+                         f"{page_table.dtype} {tuple(page_table.shape)}")
+    P = page_table.shape[1]
+    if not decode_paged_supported(B, H, P, page_len, d):
+        raise ValueError(f"{fn_name} cannot serve (B={B}, H={H}, P={P}, page_len={page_len}, d={d})")
+    if q.dtype not in _Q_CODES:
+        raise ValueError(f"{fn_name}: q dtype {q.dtype} not in {list(_Q_CODES)}")
+    if quant:
+        if k_op.dtype != torch.int8 or v_op.dtype != torch.int8:
+            raise ValueError(f"{fn_name}: int8 pools need int8 codes")
+        for nm, sc in (("k scales", k_cache["s"]), ("v scales", v_cache["s"])):
+            if sc.dtype != torch.float32 or tuple(sc.shape) != (NP, H, page_len, 1):
+                raise ValueError(f"{fn_name}: {nm} must be f32 (num_pages, H, page_len, 1)")
+    elif k_op.dtype != q.dtype or v_op.dtype != q.dtype:
+        raise ValueError(f"{fn_name}: pool dtype {k_op.dtype}/{v_op.dtype} must equal q's {q.dtype}")
+    dev = q.device
+    for nm, t in (("q", q), ("k_cache", k_op), ("v_cache", v_op), ("page_table", page_table)):
+        _check_cuda(nm, t, dev, fn_name)
+    ks = vs = None
+    if quant:
+        ks, vs = k_cache["s"], v_cache["s"]
+        _check_cuda("k scales", ks, dev, fn_name)
+        _check_cuda("v scales", vs, dev, fn_name)
+    pos_vec = _pos_vector(pos, B, dev)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    out = torch.empty((B, H, 1, d), dtype=q.dtype, device=dev)
+    lib = _kernels.library()
+    fn = lib.fn("flash_decode_paged")
+    err = fn(
+        q.data_ptr(), k_op.data_ptr(), v_op.data_ptr(),
+        ks.data_ptr() if ks is not None else None,
+        vs.data_ptr() if vs is not None else None,
+        page_table.data_ptr(), pos_vec.data_ptr(), out.data_ptr(),
+        B, H, P, page_len, NP, d, _Q_CODES[q.dtype], _KV_CODES[k_op.dtype],
+        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    lib.check("flash_decode_paged", err)
+    _kernels.count_launch("flash_decode_paged")
+    return out
+
+
+def flash_decode_paged(q, k_cache, v_cache, page_table, pos,
+                       sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Single-query attention against a page pool through ``page_table``;
+    see module docs.  Returns (B, H, 1, d) in ``q.dtype``.  CUDA tensors
+    take the kernel, CPU tensors the plain version."""
+    if q.shape[2] != 1:
+        raise ValueError(f"flash_decode_paged serves exactly one query per slot, got T={q.shape[2]}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(q, k_cache, v_cache, page_table, pos, sm_scale)
+    return flash_decode_paged_cuda(q, k_cache, v_cache, page_table, pos, sm_scale)

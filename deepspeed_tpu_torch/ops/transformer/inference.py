@@ -15,6 +15,11 @@
 * ``pos`` forms: a Python int (static offset), a 0-dim tensor (a traced
   offset in the JAX package — never the initial-prefill fast path), or a
   (B,) tensor (the slot-pool form: each row at its own position).
+* A ``page_table`` (B, P) selects the paged form: the caches are page
+  pools ``(layers, num_pages, heads, page_len, head_dim)``, writes scatter
+  through the table in place (``write_mask`` sends masked rows to the
+  garbage page 0), and a single-token step attends through the table
+  with the paged flash-decode kernel.
 
 Layer-parameter layout matches ``models/gpt2.py`` blocks.
 """
@@ -30,7 +35,10 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, m
 from deepspeed_tpu_torch.ops.kernels.flash_decode import (
     _per_slot,
     flash_decode,
+    flash_decode_paged,
+    flash_decode_paged_reference,
     flash_decode_reference,
+    paged_gather,  # noqa: F401  (public here, as in the JAX package's module)
 )
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _ln
 
@@ -117,6 +125,55 @@ def _scalar_cache_write(cache: torch.Tensor, t: torch.Tensor, pos) -> torch.Tens
     return cache
 
 
+def paged_cache_write(cache, t: torch.Tensor, page_table: torch.Tensor, pos: torch.Tensor,
+                      write_mask=None):
+    """Per-slot token write through a page table, in place: row ``b`` of
+    ``t`` (B, H, T, d) lands at logical positions ``pos[b]:pos[b]+T`` of
+    slot ``b``, scattered into ``cache`` (num_pages, H, page_len, d) via
+    ``page_table[b]``.  ``write_mask`` (B,) False redirects a row's writes
+    to (garbage page 0, row 0); the duplicate targets there are never
+    attended.  int8 caches quantize rows as :func:`slot_cache_write`'s
+    callers do.  Returns ``cache``."""
+    quant = isinstance(cache, dict)
+    buf0 = cache["q"] if quant else cache
+    page_len, dev = buf0.shape[2], buf0.device
+    B, H, T, _ = t.shape
+    table = page_table.to(dev, torch.int64)
+    idx = pos.to(dev, torch.int64)[:, None] + torch.arange(T, device=dev)[None, :]  # (B, T)
+    idx = torch.clamp(idx, 0, table.shape[1] * page_len - 1)
+    pid = torch.gather(table, 1, idx // page_len)
+    off = idx % page_len
+    if write_mask is not None:
+        keep = write_mask.to(dev, torch.bool)[:, None]
+        pid = torch.where(keep, pid, 0)
+        off = torch.where(keep, off, 0)
+    pid_f, off_f = pid.reshape(-1), off.reshape(-1)
+
+    def scat(buf, vals):  # vals (B, H, T, x) -> rows (B*T, H, x)
+        rows = vals.permute(0, 2, 1, 3).reshape(B * T, H, vals.shape[-1])
+        buf[pid_f, :, off_f] = rows.to(buf.dtype)
+
+    if quant:
+        cq, cs = _kv_quant(t)
+        scat(cache["q"], cq)
+        scat(cache["s"], cs)
+    else:
+        scat(cache, t)
+    return cache
+
+
+def paged_cache_attention(q, k_cache, v_cache, page_table, pos, sm_scale: Optional[float] = None,
+                          use_kernel: bool = True) -> torch.Tensor:
+    """Attend queries (B, H, T, d) against page pools through
+    ``page_table``.  Single-query steps go to the paged flash-decode
+    kernel (its plain version on the CPU); other steps, and
+    ``use_kernel=False``, take the plain gather + cache attention."""
+    if use_kernel and q.shape[2] == 1:
+        return flash_decode_paged(q.contiguous(), k_cache, v_cache, page_table, pos,
+                                  sm_scale=sm_scale)
+    return flash_decode_paged_reference(q, k_cache, v_cache, page_table, pos, sm_scale=sm_scale)
+
+
 def cache_attention(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
                     key_padding_mask=None, use_kernel: bool = True) -> torch.Tensor:
     """Attend queries (B, H, T, d) against a static cache (B, H, S, d):
@@ -147,6 +204,7 @@ def inference_block(
     pos,
     key_padding_mask=None,
     page_table=None,
+    write_mask=None,
 ) -> Tuple[torch.Tensor, Any, Any]:
     """One transformer layer with cache update (in place).
 
@@ -154,9 +212,9 @@ def inference_block(
     flash/causal fast path over the prompt block.  Any other ``pos``
     (decode, chunked continuation) attends against the whole cache with
     the position mask; a (B,) ``pos`` tensor is the slot-pool form.
-    Returns (y, k_cache, v_cache)."""
-    if page_table is not None:
-        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP B5 + A8 serving/kvcache/)")
+    ``page_table`` (B, P) selects the paged form (page pools, a per-slot
+    ``pos``, ``write_mask`` for the rows that must not touch real pages,
+    no ``key_padding_mask``).  Returns (y, k_cache, v_cache)."""
     if "gate_w" in lp:
         raise NotImplementedError("MoE decode blocks are not ported yet (ROADMAP A11)")
     B, T, D = x.shape
@@ -170,6 +228,16 @@ def inference_block(
         return t.reshape(B, T, H, hd).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
+    if page_table is not None:
+        if key_padding_mask is not None:
+            raise ValueError("paged caches do not support key_padding_mask")
+        paged_cache_write(k_cache, k, page_table, pos, write_mask)
+        paged_cache_write(v_cache, v, page_table, pos, write_mask)
+        attn = paged_cache_attention(q, k_cache, v_cache, page_table, pos,
+                                     use_kernel=cfg.use_flash_attention)
+        attn = attn.transpose(1, 2).reshape(B, T, D)
+        attn = _wmm(attn, lp["proj_w"]) + lp["proj_b"].to(attn.dtype)
+        return _block_mlp(cfg, lp, x + attn), k_cache, v_cache
     slotted = _per_slot(pos)
     if isinstance(k_cache, dict):
         for cache, t in ((k_cache, k), (v_cache, v)):
@@ -235,16 +303,17 @@ def forward_with_cache(
     key_padding_mask=None,
     position_ids=None,
     page_table=None,
+    write_mask=None,
 ):
     """Full GPT-2-layout network step with cache: embeddings → cached
     blocks → final LN → tied-embedding logits.
 
     ``tokens``: (B, T) int.  ``k_cache``/``v_cache``: stacked caches or
     tuples of per-layer caches, updated in place.  ``position_ids`` (B,
-    T) overrides the default ``pos + arange(T)`` positions.  Returns
-    (logits (B, T, V) f32, k_cache, v_cache)."""
-    if page_table is not None:
-        raise NotImplementedError("paged KV caches are not ported yet (ROADMAP B5 + A8 serving/kvcache/)")
+    T) overrides the default ``pos + arange(T)`` positions.
+    ``page_table`` (B, P) + ``write_mask`` (B,) select the paged form
+    (see :func:`inference_block`).  Returns (logits (B, T, V) f32,
+    k_cache, v_cache)."""
     B, T = tokens.shape
     wpe = params["wpe"]
     dev = wpe.device
@@ -271,7 +340,8 @@ def forward_with_cache(
         lp = {name: a[i] for name, a in blocks.items()}
         ck = k_cache[i] if per_layer else _layer_cache(k_cache, i)
         cv = v_cache[i] if per_layer else _layer_cache(v_cache, i)
-        x, _, _ = inference_block(cfg, lp, x, ck, cv, pos, key_padding_mask=key_padding_mask)
+        x, _, _ = inference_block(cfg, lp, x, ck, cv, pos, key_padding_mask=key_padding_mask,
+                                  page_table=page_table, write_mask=write_mask)
     x = _ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
     logits = x @ params["wte"].t().to(x.dtype)
     return logits.float(), k_cache, v_cache

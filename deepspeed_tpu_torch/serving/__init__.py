@@ -1,14 +1,16 @@
-"""serving/ — continuous-batching serving engine over a slot-pool KV
-cache (counterpart of ``deepspeed_tpu/serving``; the journal, watchdog,
-paged pool, fleet and front-door are not ported yet).
+"""serving/ — continuous-batching serving engine over a slot-pool or a
+paged KV cache (counterpart of ``deepspeed_tpu/serving``; the journal,
+watchdog, KV tiering, fleet and front-door are not ported yet).
 
     srv = deepspeed_tpu_torch.init_serving(model="gpt2", dtype=torch.bfloat16,
-                                           serving={"num_slots": 8})
-    rid = srv.submit(prompt_tokens, max_new_tokens=64)
+                                           serving={"num_slots": 8,
+                                                    "kvcache": {"enabled": True}})
+    rid = srv.submit(prompt_tokens, max_new_tokens=64, session_id="chat-1")
     results = srv.drain()
     print(results[rid].tokens())
 """
 from deepspeed_tpu_torch.serving.engine import ServingEngine
+from deepspeed_tpu_torch.serving.kvcache import PagedKVPool
 from deepspeed_tpu_torch.serving.pool import SlotKVPool, SlotPoolError
 from deepspeed_tpu_torch.serving.scheduler import (
     PRIORITY_HIGH,
@@ -26,6 +28,7 @@ from deepspeed_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "ServingEngine",
+    "PagedKVPool",
     "SlotKVPool",
     "SlotPoolError",
     "AdmissionController",

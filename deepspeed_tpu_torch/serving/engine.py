@@ -1,4 +1,4 @@
-"""ServingEngine: continuous batching over a slot-pool KV cache
+"""ServingEngine: continuous batching over a slot-pool or a paged KV cache
 (counterpart of ``deepspeed_tpu/serving/engine.py``).
 
 Sits on top of an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
@@ -15,14 +15,24 @@ Sits on top of an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
 Every step has the same shapes: a prefill chunk is ``(1,
 prefill_chunk)`` tokens at a slot and position, a decode step is
 ``(num_slots, 1)`` tokens with a per-slot position vector.  Both write
-the pool's cache tensors in place.  Decoding is greedy by default (bit
-parity with solo ``generate()`` in the JAX package, token parity up to
-near-ties here); per-request sampling draws from generators keyed on
-(seed, position), so a request's tokens do not depend on its slot.
+the pool's cache tensors in place.
 
-Not ported yet (ROADMAP A8): the request journal, the SIGTERM watchdog,
-telemetry spans, the ds_san/ds_shard hooks, tenants, the fleet and the
-paged pool.
+``serving.kvcache.enabled`` swaps the slot pool for the paged pool
+(:class:`~deepspeed_tpu_torch.serving.kvcache.PagedKVPool`): requests
+that share a prompt prefix reuse its pages and prefill restarts at the
+first uncached chunk, a partly filled shared tail page is copied before
+the slot's first chunk writes, a finished turn under a ``session_id``
+parks its pages for the next turn, and every decode step attends
+through the page tables (the paged flash-decode kernel on the card).
+
+Decoding is greedy by default (bit parity with solo ``generate()`` in
+the JAX package, token parity up to near-ties here); per-request
+sampling draws from generators keyed on (seed, position), so a
+request's tokens do not depend on its slot.
+
+Not ported yet (ROADMAP A8): the request journal, the SIGTERM watchdog
+and its session spill at drain, telemetry spans, the ds_san/ds_shard
+hooks, tenants, the fleet and KV tiering.
 """
 from __future__ import annotations
 
@@ -37,7 +47,8 @@ import torch
 from deepspeed_tpu_torch.config.config import ServingConfig
 from deepspeed_tpu_torch.inference.engine import sample_logits_pooled
 from deepspeed_tpu_torch.ops.transformer.inference import forward_with_cache
-from deepspeed_tpu_torch.serving.pool import SlotKVPool
+from deepspeed_tpu_torch.serving.kvcache import GARBAGE_PAGE, PagedKVPool
+from deepspeed_tpu_torch.serving.pool import SlotKVPool, _leaves
 from deepspeed_tpu_torch.serving.scheduler import (
     PRIORITY_NORMAL,
     ContinuousScheduler,
@@ -99,10 +110,44 @@ class ServingEngine:
                 max_len = aligned
         kv_dtype = "int8" if config.kv_cache_dtype == "int8" else engine._kv_dtype
         self.device = engine.device
-        self.pool = SlotKVPool(
-            mcfg.n_layer, config.num_slots, mcfg.n_head, max_len, mcfg.head_dim,
-            kv_dtype, device=self.device,
-        )
+        kvc = config.kvcache
+        self._paged = bool(kvc.enabled)
+        if self._paged:
+            if config.max_len:
+                if max_len % kvc.page_len:
+                    raise ValueError(
+                        f"serving.max_len={max_len} must be a multiple of "
+                        f"serving.kvcache.page_len={kvc.page_len} — the paged "
+                        "pool maps slots as whole pages"
+                    )
+            else:
+                # re-floor the derived capacity to a (chunk, page_len)
+                # common multiple: chunk-multiple keeps the last prefill
+                # write from clamping, page-multiple keeps slots whole
+                step = math.lcm(config.prefill_chunk, kvc.page_len)
+                aligned = (capacity // step) * step
+                if aligned < config.prefill_chunk:
+                    raise ValueError(
+                        f"serving.kvcache.page_len={kvc.page_len} cannot align "
+                        f"to the engine capacity {capacity} within "
+                        f"lcm(prefill_chunk={config.prefill_chunk}, page_len)="
+                        f"{step}; lower page_len or raise max_out_tokens"
+                    )
+                max_len = aligned
+            self.pool = PagedKVPool(
+                mcfg.n_layer, config.num_slots, mcfg.n_head, max_len,
+                mcfg.head_dim, kv_dtype, page_len=kvc.page_len,
+                num_pages=(kvc.num_pages or None), device=self.device,
+                prefill_chunk=config.prefill_chunk,
+                pinned_prefixes=kvc.pinned_prefixes,
+                session_ttl_seconds=kvc.session_ttl_seconds,
+                spill_dir=(kvc.spill_dir or None),
+            )
+        else:
+            self.pool = SlotKVPool(
+                mcfg.n_layer, config.num_slots, mcfg.n_head, max_len, mcfg.head_dim,
+                kv_dtype, device=self.device,
+            )
         self.scheduler = ContinuousScheduler(
             self.pool,
             prefill_chunk=config.prefill_chunk,
@@ -127,6 +172,7 @@ class ServingEngine:
         log_dist(
             f"serving engine: {config.num_slots} slots x {max_len} positions "
             f"(kv={kv_dtype}, chunk={config.prefill_chunk}, "
+            f"{'paged, ' if self._paged else ''}"
             f"pool {self.pool.cache_bytes() / 1e6:.1f} MB, device={self.device})"
         )
 
@@ -150,6 +196,7 @@ class ServingEngine:
         top_k: int = 0,
         seed: int = 0,
         priority: Optional[int] = None,
+        session_id: Optional[str] = None,
     ) -> int:
         """Enqueue one request; returns its id.  Raises
         :class:`ServingQueueFull` when the queue is at its bound,
@@ -157,7 +204,12 @@ class ServingEngine:
         estimated TTFT exceeds ``serving.slo_ttft_ms`` or the
         degradation ladder sheds the tier, and ``ValueError`` when the
         request cannot ever fit the pool.  ``priority``: 0 high / 1
-        normal (default) / 2 low."""
+        normal (default) / 2 low.
+
+        ``session_id`` (paged pool only): a finished turn's KV pages park
+        under this id, and the next turn whose prompt extends the parked
+        history rebinds them — prefill restarts at the first uncached
+        chunk.  Ignored on the slot pool."""
         if do_sample and top_k > self.config.max_top_k:
             raise ValueError(
                 f"top_k={top_k} exceeds serving.max_top_k={self.config.max_top_k}; "
@@ -174,6 +226,7 @@ class ServingEngine:
             top_k=top_k,
             seed=seed,
             priority=PRIORITY_NORMAL if priority is None else priority,
+            session_id=session_id,
             now=time.monotonic(),
             step=self._step_count,
         )
@@ -185,6 +238,10 @@ class ServingEngine:
         work remains."""
         self._step_count += 1
         t0 = time.monotonic()
+        if self._paged:
+            # TTL sweep BEFORE admission: pages a cold session releases
+            # this tick are available to the requests admitted in it
+            self.pool.sweep(t0)
         plan = self.scheduler.tick(t0, self._step_count, admit=True)
         t1 = time.monotonic()
         for job in plan.prefill_jobs:
@@ -235,25 +292,48 @@ class ServingEngine:
         chunk = self.config.prefill_chunk
         dev = self.device
         n_pos = self.engine.model_config.n_positions
-        ks, vs = self.pool.slot_view(r.slot)
         toks = torch.from_numpy(job.tokens[None, :].astype(np.int64)).to(dev)
         # explicit clipped position ids: the zero-padded chunk tail must
         # not shift the wpe rows of the real tokens
         position_ids = torch.clamp(
             job.start + torch.arange(chunk, device=dev), 0, n_pos - 1)[None, :]
-        # a tensor offset (never the initial-prefill fast path): the chunk
-        # attends the slot's whole cache under the position mask
-        logits, _, _ = forward_with_cache(
-            self.engine.params, toks, ks, vs, torch.tensor(job.start), self._icfg,
-            position_ids=position_ids,
-        )
+        if self._paged:
+            # the slot's pending copy-on-write lands BEFORE this chunk's
+            # writes, on every layer and leaf of K and V ((0, 0) — the
+            # garbage page onto itself — is the identity)
+            src, dst = self.pool.consume_cow(r.slot)
+            if (src, dst) != (GARBAGE_PAGE, GARBAGE_PAGE):
+                for buf in _leaves(self.pool.k) + _leaves(self.pool.v):
+                    buf[:, dst] = buf[:, src]
+            table = torch.from_numpy(self.pool.table(r.slot)).to(dev)[None, :]
+            # the per-slot (1,) offset: the chunk writes and attends
+            # through the slot's page table
+            logits, _, _ = forward_with_cache(
+                self.engine.params, toks, self.pool.k, self.pool.v,
+                torch.tensor([job.start], dtype=torch.int32, device=dev), self._icfg,
+                position_ids=position_ids, page_table=table,
+            )
+        else:
+            ks, vs = self.pool.slot_view(r.slot)
+            # a 0-dim tensor offset (never the initial-prefill fast path):
+            # the chunk attends the slot's whole cache under the position mask
+            logits, _, _ = forward_with_cache(
+                self.engine.params, toks, ks, vs, torch.tensor(job.start), self._icfg,
+                position_ids=position_ids,
+            )
         first = sample_logits_pooled(
             logits[0, job.take_idx][None, :],
             [r.do_sample], [r.temperature], [r.top_k], [r.seed],
             [job.start + job.take_idx], self.config.max_top_k,
         )[0]
         self.prefill_chunks += 1
-        self.scheduler.note_prefill(job, int(first), now=time.monotonic(), step=self._step_count)
+        now = time.monotonic()
+        if self._paged and job.final:
+            # the whole prompt's KV is paged in: learn it as a shared
+            # prefix (before note_prefill — a 1-token budget can retire
+            # the request, releasing the slot, inside that call)
+            self.pool.learn_prefix(r, now=now)
+        self.scheduler.note_prefill(job, int(first), now=now, step=self._step_count)
 
     @torch.inference_mode()
     def _run_decode(self, toks: np.ndarray, pos: np.ndarray, decoding) -> None:
@@ -261,8 +341,17 @@ class ServingEngine:
         dev = self.device
         tok_t = torch.from_numpy(toks.astype(np.int64)).to(dev)[:, None]
         pos_t = torch.from_numpy(pos.astype(np.int32)).to(dev)
+        paged = {}
+        if self._paged:
+            # every slot's page table; non-decoding slots write to the
+            # garbage page, their reads were already behind the position mask
+            wmask = np.zeros((self.pool.num_slots,), np.bool_)
+            for r in decoding:
+                wmask[r.slot] = True
+            paged = {"page_table": torch.from_numpy(self.pool.tables()).to(dev),
+                     "write_mask": torch.from_numpy(wmask).to(dev)}
         logits, _, _ = forward_with_cache(
-            self.engine.params, tok_t, self.pool.k, self.pool.v, pos_t, self._icfg,
+            self.engine.params, tok_t, self.pool.k, self.pool.v, pos_t, self._icfg, **paged,
         )
         out = sample_logits_pooled(
             logits[:, -1], flags, temps, topks, seeds, pos, self.config.max_top_k,
@@ -277,7 +366,11 @@ class ServingEngine:
         """Counters and per-phase host wall time (seconds) for logs."""
         s = self.scheduler
         s.sweep_expired(time.monotonic(), self._step_count)
-        return {
+        if self._paged:
+            # the same idle sweep for parked-session TTLs: the per-step
+            # sweep never runs on an engine that receives no traffic
+            self.pool.sweep(time.monotonic())
+        out = {
             "submitted": s.submitted,
             "finished": s.finished_count,
             "rejected": s.rejected,
@@ -294,6 +387,9 @@ class ServingEngine:
             "kv_dtype": "int8" if isinstance(self.pool.k, dict) else str(self.pool.k.dtype),
             "phase_seconds": dict(self._phase_seconds),
         }
+        if self._paged:
+            out["kvcache"] = self.pool.stats()
+        return out
 
 
 __all__ = [

@@ -10,7 +10,9 @@ machine that has only PyTorch; there, without the JAX test harness:
 
 They cover what ``chip_smoke.py`` does not drive: ragged and rectangular
 prefill shapes, the lse output, every head dim the kernels take, scalar
-and out-of-range decode positions, tiny caches, the backward's ragged and
+and out-of-range decode positions, tiny caches, the paged decode over
+every page length it is checked at (with B4 on the gathered view as a
+bit-for-bit oracle: the two share one body), the backward's ragged and
 rectangular shapes, the fused Adam's dtypes, ragged and unaligned leaves
 and its overflow skip, autograd through the kernels, and the wrappers'
 refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
@@ -99,6 +101,60 @@ def test_flash_decode_kernel_matches_plain(dev, B, H, S, d, kv, masked, pos):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert _err(out, ref) <= TOL[qdtype]
+
+
+def _paged_inputs(dev, kv, page_len, d=64, H=3, S=1024):
+    """Six slots over a permuted page pool: positions 0, 127, 128, 1023
+    and a ragged one, plus an idle slot whose table is all garbage page
+    and whose position (-1) leaves no attendable key: it attends
+    uniformly over the whole gathered view, as the plain version does."""
+    B, P = 6, S // page_len
+    NP = 1 + (B - 1) * P
+    qdtype = torch.float32 if kv == torch.float32 else torch.bfloat16
+    q = _randn(dev, B, H, 1, d, seed=11).to(qdtype)
+    k, v = _randn(dev, NP, H, page_len, d, seed=12), _randn(dev, NP, H, page_len, d, seed=13)
+    if kv == "int8":
+        kc, vc = (dict(zip(("q", "s"), _kv_quant(t))) for t in (k, v))
+    else:
+        kc, vc = k.to(kv), v.to(kv)
+    perm = torch.randperm(NP - 1, generator=torch.Generator().manual_seed(page_len)) + 1
+    table = torch.zeros(B, P, dtype=torch.int32)
+    table[:B - 1] = perm.reshape(B - 1, P).to(torch.int32)
+    pos = torch.tensor([0, 127, 128, S - 1, 555, -1], dtype=torch.int32)
+    return q, kc, vc, table.to(dev), pos.to(dev)
+
+
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16, "int8"], ids=["f32", "bf16", "int8"])
+@pytest.mark.parametrize("page_len", [16, 64, 128])
+def test_flash_decode_paged_kernel_matches_plain_and_b4(dev, kv, page_len):
+    q, kc, vc, table, pos = _paged_inputs(dev, kv, page_len)
+    out = fd.flash_decode_paged_cuda(q, kc, vc, table, pos)
+    ref = fd.flash_decode_paged_reference(q, kc, vc, table, pos)
+    # B4 over the gathered contiguous view: the same body and key order
+    b4 = fd.flash_decode_cuda(q, fd.paged_gather(kc, table), fd.paged_gather(vc, table), pos)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[q.dtype]
+    assert torch.equal(out, b4)
+
+
+def test_flash_decode_paged_refusals_and_launch_count(dev):
+    q, kc, vc, table, pos = _paged_inputs(dev, torch.bfloat16, 64)
+    kernels.reset_launches()
+    fd.flash_decode_paged(q, kc, vc, table, pos)
+    fd.flash_decode_paged(q.cpu(), kc.cpu(), vc.cpu(), table.cpu(), pos.cpu())  # plain: no launch
+    assert kernels.launches()["flash_decode_paged"] == 1
+    with pytest.raises(ValueError, match="int32"):
+        fd.flash_decode_paged_cuda(q, kc, vc, table.long(), pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode_paged_cuda(q, kc, vc, table.cpu(), pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode_paged_cuda(q.cpu(), kc.cpu(), vc.cpu(), table.cpu(), pos.cpu())
+    wide = _randn(dev, 9, 3, 64, 192).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="cannot serve"):
+        fd.flash_decode_paged_cuda(_randn(dev, 6, 3, 1, 192).to(torch.bfloat16), wide, wide,
+                                   table, pos)
+    assert kernels.launches()["flash_decode_paged"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -199,7 +255,8 @@ def test_launch_counts_and_refusals(dev):
     fa.flash_fwd(q, q, q, causal=True)
     fd.flash_decode(q[:, :, :1].contiguous(), q, q, 5)
     fa.flash_fwd(q.cpu(), q.cpu(), q.cpu(), causal=True)  # the plain version: no launch
-    want = {"flash_fwd": 1, "flash_decode": 1, "flash_bwd": 0, "fused_adam": 0}
+    want = {"flash_fwd": 1, "flash_decode": 1, "flash_decode_paged": 0, "flash_bwd": 0,
+            "fused_adam": 0}
     assert kernels.launches() == want
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
@@ -221,8 +278,9 @@ def test_launch_counts_and_refusals(dev):
 
 
 def test_tiny_model_on_the_card_matches_the_cpu(dev):
-    """Greedy generate() and served tokens of a small f32 GPT-2 on the
-    card equal the CPU's plain path (T=130 takes the prefill kernel)."""
+    """Greedy generate() and served tokens (slot pool and paged pool) of a
+    small f32 GPT-2 on the card equal the CPU's plain path (T=130 takes
+    the prefill kernel)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.serving import ServingEngine
@@ -237,7 +295,17 @@ def test_tiny_model_on_the_card_matches_the_cpu(dev):
         gen = eng.generate(ids, max_new_tokens=8)
         srv = ServingEngine(eng, num_slots=2, prefill_chunk=32)
         rid = srv.submit(ids[1], max_new_tokens=8)
-        outs[where] = (gen, srv.drain()[rid].tokens())
+        paged = ServingEngine(eng, num_slots=2, prefill_chunk=32,
+                              kvcache={"enabled": True, "page_len": 16})
+        pids = [paged.submit(ids[1], max_new_tokens=8)]
+        pres = paged.drain()  # learns ids[1] as a prefix: its repeat hits
+        pids += [paged.submit(ids[i], max_new_tokens=8) for i in (1, 0)]
+        pres.update(paged.drain())
+        outs[where] = (gen, srv.drain()[rid].tokens(), [pres[i].tokens() for i in pids])
+        if where == "cuda":
+            assert paged.stats()["kvcache"]["prefix_hits"] >= 1
     np.testing.assert_array_equal(outs["cpu"][0], outs["cuda"][0])
     np.testing.assert_array_equal(outs["cpu"][1], outs["cuda"][1])
     np.testing.assert_array_equal(outs["cuda"][1], outs["cuda"][0][1])
+    for got, want in zip(outs["cuda"][2], (outs["cuda"][0][1], outs["cuda"][0][1], outs["cuda"][0][0])):
+        np.testing.assert_array_equal(got, want)

@@ -39,6 +39,11 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/runtime/engine.py",
     "deepspeed_tpu_torch/inference/engine.py",
     "deepspeed_tpu_torch/serving/engine.py",
+    "deepspeed_tpu_torch/resilience/atomic.py",
+    "deepspeed_tpu_torch/serving/kvcache/__init__.py",
+    "deepspeed_tpu_torch/serving/kvcache/prefix.py",
+    "deepspeed_tpu_torch/serving/kvcache/sessions.py",
+    "deepspeed_tpu_torch/serving/kvcache/pages.py",
 )
 
 
@@ -94,6 +99,10 @@ def test_kernel_launchers_refuse_cpu_tensors():
     dq = torch.zeros(1, 2, 1, 64)
     with pytest.raises(ValueError, match="CUDA"):
         tfd.flash_decode_cuda(dq, q, q, torch.zeros(1, dtype=torch.int32))
+    pool = torch.zeros(3, 2, 16, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfd.flash_decode_paged_cuda(dq, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32))
     lse = torch.zeros(1, 2, 128)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd_cuda(q, q, q, q, lse, lse, causal=True, sm_scale=0.125)
@@ -102,7 +111,8 @@ def test_kernel_launchers_refuse_cpu_tensors():
         tfu.adam_leaf_cuda(p, p, p, p, torch.ones(4), b1=0.9, b2=0.999, eps=1e-8,
                            weight_decay=0.0, adam_w_mode=True)
     report = kernels_report()
-    assert set(report) == {"flash_fwd", "flash_decode", "flash_bwd", "fused_adam"}
+    assert set(report) == {"flash_fwd", "flash_decode", "flash_decode_paged", "flash_bwd",
+                           "fused_adam"}
     assert all(r["launches"] == 0 for r in report.values())
     assert all((REPO / r["source"]).is_file() for r in report.values())
 

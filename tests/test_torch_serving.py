@@ -14,6 +14,7 @@ import torch
 
 import deepspeed_tpu
 import deepspeed_tpu_torch
+from deepspeed_tpu.config.config import KVCacheConfig as JKVCacheConfig
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu.serving import ServingEngine as JServingEngine
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError, ServingConfig
@@ -133,12 +134,25 @@ def test_pool_capacity_keeps_the_jax_engines_rule():
     {"fleet": {"replicas": 2}},
     {"frontdoor": {"enabled": True}},
     {"tenants": {"enabled": True}},
-    {"kvcache": {"enabled": True}},
     {"kvcache": {"tiers": {"enabled": True}}},
+    {"kvcache": {"enabled": True, "tiers": {"enabled": True}}},
 ])
 def test_unported_config_blocks_raise(block):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingConfig.from_dict(block)
+
+
+@pytest.mark.parametrize("block", [
+    {"enabled": True},
+    {"enabled": True, "page_len": 16, "num_pages": 40, "pinned_prefixes": [[1, 2, 3]],
+     "session_ttl_seconds": 2.5, "spill_dir": "/s",
+     "tiers": {"host_pages": 8, "demote_watermark": 0.5}},
+])
+def test_kvcache_block_parses_like_jax(block):
+    """The paged pool's block is ported: it parses to the JAX package's
+    KVCacheConfig, field for field (its tiers stay refused, above)."""
+    got = ServingConfig.from_dict({"kvcache": block}).kvcache
+    assert dataclasses.asdict(got) == dataclasses.asdict(JKVCacheConfig.from_dict(block))
 
 
 def test_sampled_tokens_reproducible_across_slot_churn():
