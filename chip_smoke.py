@@ -10,12 +10,17 @@ Phases, each printing one JSON line:
    all started together).
 2. ``kernel``: every kernel against its plain PyTorch version at the main
    paths' shapes (flash prefill at B=4, H=12, d=64, T=256/512/200 in bf16 and
-   f32, and at the training shape B=8, T=1024 with its lse; flash decode
+   f32, and at the training shape B=8, T=1024 with its lse, and with
+   BERT-large's key-padding bias at B=8, H=16, T=512 with its lse; flash decode
    over an 8-slot, 1024-position cache in f32, bf16 and int8, with and
    without a key-padding mask; flash backward at B=8, H=12, d=64, T=1024 in
-   bf16 and f32, T=256 and a ragged T=1000; fused Adam over GPT-2 124M's
+   bf16 and f32, T=256 and a ragged T=1000, and with the key-padding bias
+   at B=8, H=16, T=512 in bf16 and f32; fused Adam over GPT-2 124M's
    ``wte``, stacked ``qkv_w`` and ragged ``lnf_g`` leaves and over a whole
-   step's 16 leaves; paged flash decode at the paged pool's serving shape,
+   step's 16 leaves; fused LAMB's two passes over BERT-large's
+   ``tok_emb``, stacked ``qkv_w``, ragged ``mlm_bias`` and ``nsp_b`` and
+   over a whole step's 26 leaves, with and without bias correction;
+   paged flash decode at the paged pool's serving shape,
    8 slots x 8 pages of 128 over a permuted 129-page pool, in bf16, f32 and
    int8, also against flash decode over the gathered view, bit for bit),
    with the tolerance stated, and the times of the kernel, the plain
@@ -56,8 +61,24 @@ Phases, each printing one JSON line:
    engine on the same mix (decode tokens/s, TTFT, prefill chunks run);
    then the session is spilled to disk and a fourth turn restores it: the
    restored rows must equal the spilled ones bit for bit.
-9. ``kernels``: one entry per kernel with its launches on each main path
-   (``launches_by_path``: serving, serving_paged, training) and their sum.
+9. ``train_bert_f32``: BERT-large at full width and depth (random weights
+   from a seed) through ``initialize`` in f32, B=2, T=512 with a
+   key-padding mask, LAMB, 3 steps, TF32 off: the kernel path (biased
+   flash forward and backward, fused LAMB) against
+   ``use_flash_attention=False``; per-step losses must agree within the
+   tolerance stated; the LAMB kernels must launch and fused Adam not.
+10. ``train_bert_bf16``: the BERT pretraining main path, BERT-large in bf16
+   over f32 masters, micro-batch 8, gradient accumulation 2, T=512 with
+   the padded synthetic MLM + NSP batch, LAMB with bing_bert's phase-2
+   settings (lr 2e-3, weight decay 0.01, no bias correction, trust ratio
+   in [0.01, 0.3]), ``WarmupDecayLR``, clipping 1.0, 4 steps.  Counters
+   zeroed just before and read just after: the biased flash forward and
+   backward and both LAMB kernels must have launched; every loss finite
+   and the last below the first.  Prints tokens/s, ms a step, peak memory
+   and model-FLOPs utilization.
+11. ``kernels``: one entry per kernel with its launches on each main path
+   (``launches_by_path``: serving, serving_paged, training,
+   training_bert) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -123,6 +144,22 @@ TRAIN_F32_LOSS_RTOL = 1e-5
 # element: p read+write, g read, m read+write, v read+write
 ADAM_FLOPS_PER_ELEM = 24
 ADAM_BYTES_PER_ELEM = 28
+# fused LAMB vs its plain version (f32 p): m, v and p each within 1e-6 of
+# its own largest entry (each product and sum rounded as the plain version
+# rounds it, so at most an ulp may differ); the trust ratio within 1e-5
+# relative, since its norms sum per block, in another order than
+# torch.linalg.vector_norm
+LAMB_RTOL = 1e-6
+LAMB_TRUST_RTOL = 1e-5
+# LAMB's bytes per f32 element: pass 1 reads p and g, reads and writes m
+# and v, writes dir (28); pass 2 reads p and dir and writes p (12).  Its
+# operations: pass 1's keep-folded body with the decay term and the two
+# squares summed (~26), pass 2's multiply and subtract (2)
+LAMB_DIR_BYTES, LAMB_APPLY_BYTES = 28, 12
+LAMB_DIR_FLOPS, LAMB_APPLY_FLOPS = 26, 2
+# the key-padding pattern of the biased attention checks: batch row b
+# keeps BIAS_KEEP[b % 4] of its 512 keys (the rest carry a -1e9 bias)
+BIAS_KEEP = (512, 448, 300, 129)
 
 
 def emit(obj) -> None:
@@ -845,15 +882,209 @@ def check_fused_adam(torch, dev, flush):
     return rows
 
 
+def bert_leaf_shapes(cfg):
+    """The 26 leaf shapes of a BERT parameter tree (the layers stacked on
+    a leading dim), checked against ``num_params``."""
+    d, L, i, V = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size, cfg.vocab_size
+    shapes = [(V, d), (cfg.max_position_embeddings, d), (cfg.type_vocab_size, d), (d,), (d,),
+              (L, d), (L, d), (L, d, 3 * d), (L, 3 * d), (L, d, d), (L, d),
+              (L, d), (L, d), (L, d, i), (L, i), (L, i, d), (L, d),
+              (d, d), (d,), (d, d), (d,), (d,), (d,), (V,), (d, 2), (2,)]
+    check(len(shapes) == 26 and sum(int(np.prod(s)) for s in shapes) == cfg.num_params(),
+          "BERT leaf shapes")
+    return shapes
+
+
+def check_fused_lamb(torch, dev, flush):
+    """B7a and B7b per leaf (``tok_emb``, stacked ``qkv_w``, ragged
+    ``mlm_bias`` and ``nsp_b``) and over one step's 26 leaves of
+    BERT-large, f32 masters and grads, with and without bias correction.
+    Leaves alternate between weight scale 0.02 and 1, and the 1-D
+    ``mlm_bias`` is zero (its init), so the trust ratio takes its three
+    branches: inside the clamp, at ``max_coeff`` 0.3, and 1."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops.kernels import fused_update as fu
+
+    shapes = bert_leaf_shapes(bert.BERT_LARGE)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01)
+    clamp = dict(min_coeff=0.01, max_coeff=0.3)
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def leaves(idx):
+        out = []
+        for j in idx:
+            shp = shapes[j]
+            scale = 0.0 if j == 23 else (0.02 if j % 2 == 0 else 1.0)
+            p = torch.randn(shp, generator=g, device=dev) * scale
+            out.append((p, torch.randn(shp, generator=g, device=dev) * 1e-3,
+                        torch.randn(shp, generator=g, device=dev) * 1e-4,
+                        torch.rand(shp, generator=g, device=dev) * 1e-7))
+        return out
+
+    rows = []
+    for bias_correction in (True, False):
+        c1, c2 = (1.0 - 0.9 ** 3, 1.0 - 0.999 ** 3) if bias_correction else (1.0, 1.0)
+        scal = torch.tensor([2e-3, 1.0, c1, c2], device=dev)
+        for label, idx in (("tok_emb", [0]), ("qkv_w", [7]), ("mlm_bias", [23]), ("nsp_b", [25]),
+                           ("step_26_leaves", list(range(26)))):
+            if label != "step_26_leaves" and not bias_correction:
+                continue  # the single leaves once; the whole step in both modes
+            ls = leaves(idx)
+            ref = [fu._lamb_math(p, gr, m, v, *scal.unbind(0), **hyper, **clamp)
+                   for p, gr, m, v in ls]
+            work = [tuple(t.clone() for t in leaf) for leaf in ls]
+            dir_buf = torch.empty(max(p.numel() for p, _, _, _ in ls), device=dev)
+            trusts = [fu.lamb_leaf_cuda(*w, scal, dir_buf=dir_buf, **hyper, **clamp) for w in work]
+            torch.cuda.synchronize()
+            errs, tols = {}, {}
+            # work leaves are (p, g, m, v); _lamb_math returns (p, m, v, trust)
+            for part, wi, ri in (("p", 0, 0), ("m", 2, 1), ("v", 3, 2)):
+                ref_i = [r[ri] for r in ref]
+                errs[part] = max(max_err(w[wi], b) for w, b in zip(work, ref_i))
+                tols[part] = LAMB_RTOL * max(float(b.abs().max()) for b in ref_i)
+                check(errs[part] <= tols[part],
+                      f"fused_lamb {label}: {part} max_err {errs[part]} > tol {tols[part]} "
+                      f"({LAMB_RTOL} of its largest entry)")
+            t_ref = torch.stack([r[3].reshape(()) for r in ref])
+            t_got = torch.cat(trusts)
+            t_rel = float(((t_got - t_ref).abs() / t_ref).max())
+            check(t_rel <= LAMB_TRUST_RTOL, f"fused_lamb {label}: trust off by {t_rel} relative")
+            branches = {"at_max": int((t_ref == 0.3).sum()), "one": int((t_ref == 1.0).sum()),
+                        "inside": int(((t_ref > 0.01) & (t_ref < 0.3)).sum())}
+            n = sum(p.numel() for p, _, _, _ in ls)
+            # each pass timed alone: pass 1 over every leaf (m and v move on
+            # each repeat), pass 2 over every leaf with the trusts found above
+            dir_k = device_ms(torch, lambda: [fu.lamb_dir_cuda(*w, scal, dir_buf, **hyper)
+                                              for w in work], flush, iters=10)
+            apply_k = device_ms(torch, lambda: [fu.lamb_apply_cuda(w[0], dir_buf, scal, t)
+                                                for w, t in zip(work, trusts)], flush, iters=10)
+
+            def plain_dir():
+                for p, gr, m, v in work:
+                    d, _, _ = fu._lamb_dir_body(p, gr, m, v, *scal.unbind(0)[1:], **hyper)
+                    torch.linalg.vector_norm(p), torch.linalg.vector_norm(d)
+
+            def plain_apply():
+                lr, keep = scal[0], scal[1]
+                for (p, _, _, _), t in zip(work, trusts):
+                    (p - keep * lr * t * dir_buf[:p.numel()].view_as(p)).to(p.dtype)
+
+            both = device_ms(torch, lambda: [fu.lamb_leaf_cuda(*w, scal, dir_buf=dir_buf, **hyper,
+                                                               **clamp) for w in work],
+                             flush, iters=10)
+            for kernel, k_ms, plain_fn, nbytes, flops in (
+                ("fused_lamb_dir", dir_k, plain_dir, LAMB_DIR_BYTES, LAMB_DIR_FLOPS),
+                ("fused_lamb_apply", apply_k, plain_apply, LAMB_APPLY_BYTES, LAMB_APPLY_FLOPS),
+            ):
+                b_ms, b_by = bound_ms(nbytes * n, flops * n, "float32")
+                row = {
+                    "phase": "kernel", "kernel": kernel, "leaves": label,
+                    "bias_correction": bias_correction, "launches_per_call": len(ls),
+                    "elements": n, "p_dtype": "float32", "max_err": max(errs.values()),
+                    "max_err_p_m_v": errs, "tol_p_m_v": tols, "trust_max_rel_err": t_rel,
+                    "trust_tol": LAMB_TRUST_RTOL, "trust_branches": branches,
+                    "kernel_ms": k_ms, "both_passes_with_trust_ms": both,
+                    "plain_ms": device_ms(torch, plain_fn, flush, iters=5),
+                    # torch.optim has no LAMB: no one PyTorch call computes it
+                    "library_ms": None, "library": "none (torch.optim has no LAMB)",
+                    "bound_ms": b_ms, "bound_by": b_by,
+                }
+                emit(row)
+                rows.append(row)
+            del ls, ref, work, dir_buf
+    return rows
+
+
+def _bias_inputs(torch, dev, B, H, T, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    keep = [BIAS_KEEP[b % len(BIAS_KEEP)] * T // 512 for b in range(B)]
+    kb = torch.zeros(B, T, device=dev)
+    for b, n in enumerate(keep):
+        kb[b, n:] = -1e9
+    return q, k, v, do, kb, keep
+
+
+def check_flash_bias(torch, dev, flush):
+    """B1 (with lse) and B2 with BERT-large's key-padding bias at B=8,
+    H=16, T=512, d=64, non-causal, in bf16 and f32: rows keep 512, 448, 300
+    and 129 keys.  A padded key's p must be exactly 0, so its dk and dv
+    rows must be exactly 0."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, H, T, d = 8, 16, 512, 64
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v, do, kb, keep = _bias_inputs(torch, dev, B, H, T, d, dtype, seed=512)
+        scale = d ** -0.5
+        out, lse = fa.flash_fwd_cuda(q, k, v, False, scale, want_lse=True, kbias=kb)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, False, scale, kb)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, False, scale, kbias=kb)
+        refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, False, scale, kb)
+        torch.cuda.synchronize()
+        err, lse_err, tol = max_err(out, ref), max_err(lse, ref_lse), TOL[name]
+        check(torch.isfinite(out).all().item(), f"flash_fwd kbias {name}: non-finite output")
+        check(err <= tol, f"flash_fwd kbias {name}: max_err {err} > tol {tol}")
+        check(lse_err <= 1e-4, f"flash_fwd kbias {name}: lse max_err {lse_err} > 1e-4")
+        errs, over = zip(*(grad_err(a, b, tol) for a, b in zip(got, refb)))
+        for grad, e, w in zip(("dq", "dk", "dv"), errs, over):
+            check(w <= 1.0, f"flash_bwd kbias {name}: {grad} max_err {e} is {w:.3g}x its entry "
+                            f"bound {tol} * (|ref| + {BWD_RMS_SHARE} * rms(ref))")
+        check(all(torch.isfinite(a).all().item() for a in got), f"flash_bwd kbias {name}: non-finite")
+        padded = max(float(torch.cat([got[1][b, :, n:], got[2][b, :, n:]]).abs().max())
+                     for b, n in enumerate(keep) if n < T)
+        check(padded == 0.0, f"flash_bwd kbias {name}: a padded key's dk/dv is {padded}, not 0")
+        item = dtype.itemsize
+        mask = kb[:, None, None, :].to(dtype)  # SDPA's float mask, in q's type
+        fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + B * T * 4,
+                                4 * B * H * d * T * T, name)
+        rows[("flash_fwd", name)] = {
+            "phase": "kernel", "kernel": "flash_fwd", "bias": "kbias (B, 1, 1, T)", "B": B,
+            "H": H, "T": T, "d": d, "dtype": name, "causal": False, "lse": True,
+            "keys_kept": keep, "max_err": err, "lse_max_err": lse_err, "tol": tol, "lse_tol": 1e-4,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, False, scale, want_lse=True, kbias=kb), flush),
+            "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, False, scale, kb),
+                                  flush, iters=5),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask), flush),
+            "bound_ms": fb_ms, "bound_by": fb_by,
+        }
+        bb_ms, bb_by = bound_ms(7 * B * H * T * d * item + 2 * B * H * T * 4 + B * T * 4,
+                                5 * 2 * d * T * T * B * H, name)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lout = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        rows[("flash_bwd", name)] = {
+            "phase": "kernel", "kernel": "flash_bwd", "bias": "kbias (B, 1, 1, T)", "B": B,
+            "H": H, "T": T, "d": d, "dtype": name, "causal": False, "keys_kept": keep,
+            "max_err": max(errs), "max_err_dq_dk_dv": list(errs),
+            "err_over_bound_dq_dk_dv": list(over), "padded_keys_dk_dv_max": padded, "tol": tol,
+            "tol_rms_share": BWD_RMS_SHARE,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
+                q, k, v, do, lse, delta, False, scale, kbias=kb), flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
+                q, k, v, do, lse, delta, False, scale, kb), flush, iters=5),
+            "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                lout, (ql, kl, vl), do, retain_graph=True), flush, iters=10),
+            "bound_ms": bb_ms, "bound_by": bb_by,
+        }
+        del lout
+        emit(rows[("flash_fwd", name)])
+        emit(rows[("flash_bwd", name)])
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the training path
 # ---------------------------------------------------------------------------
 
-def _train(torch, cfg, params, config, batch, steps):
+def _train(torch, model_fn, params, config, batch, steps):
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import gpt2
 
-    model_fn, _, _ = gpt2.make_model(cfg)
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,
                                                      config=config)
     losses, walls = [], []
@@ -878,7 +1109,7 @@ def phase_train_f32(torch, params):
     for name, c in (("kernels", cfg), ("plain_attention", dataclasses.replace(
             cfg, use_flash_attention=False))):
         kernels.reset_launches()
-        engine, losses, walls = _train(torch, c, params, config, batch, 3)
+        engine, losses, walls = _train(torch, gpt2.make_model(c)[0], params, config, batch, 3)
         out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
                      "launches": kernels.launches()}
         del engine
@@ -918,7 +1149,7 @@ def phase_train_bf16(torch, params):
     # -- the main path: counters zeroed just before, read just after -------
     torch.cuda.synchronize()
     kernels.reset_launches()
-    engine, losses, walls = _train(torch, cfg, params, config, batch, steps)
+    engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config, batch, steps)
     launches = kernels.launches()
     # ----------------------------------------------------------------------
 
@@ -946,6 +1177,95 @@ def phase_train_bf16(torch, params):
 
 
 # ---------------------------------------------------------------------------
+# phases 9 and 10: BERT-large pretraining with LAMB
+# ---------------------------------------------------------------------------
+
+def phase_train_bert_f32(torch, params):
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import BERT_LAMB, synthetic_mlm_batch
+
+    cfg = bert.BERT_LARGE
+    B, T, steps = 2, 512, 3
+    config = {"train_micro_batch_size_per_gpu": B, "gradient_clipping": 1.0, "optimizer": BERT_LAMB}
+    batch = synthetic_mlm_batch(cfg.vocab_size, B, T, seed=21)
+    out = {}
+    for name, c in (("kernels", cfg), ("plain_attention", dataclasses.replace(
+            cfg, use_flash_attention=False))):
+        kernels.reset_launches()
+        engine, losses, walls = _train(torch, bert.make_model(c)[0], params, config, batch, steps)
+        out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                     "launches": kernels.launches()}
+        del engine
+        torch.cuda.empty_cache()
+    kl, pl = out["kernels"]["launches"], out["plain_attention"]["launches"]
+    check(kl["flash_fwd"] > 0 and kl["flash_bwd"] > 0 and pl["flash_bwd"] == 0,
+          f"train_bert_f32: flash launches {kl} / {pl}")
+    check(kl["fused_lamb_dir"] > 0 and kl["fused_lamb_apply"] > 0 and kl["fused_adam"] == 0,
+          f"train_bert_f32: optimizer launches {kl}")
+    k, p = out["kernels"]["losses"], out["plain_attention"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
+    check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_bert_f32: non-finite loss {k} / {p}")
+    check(max(rel) <= TRAIN_F32_LOSS_RTOL,
+          f"train_bert_f32: kernel vs plain losses differ by {max(rel)} > {TRAIN_F32_LOSS_RTOL}")
+    emit({"phase": "train_bert_f32", "model": "bert-large", "B": B, "T": T, "steps": steps,
+          "keys_kept": batch["attention_mask"].sum(1).tolist(), "allow_tf32": False,
+          "losses": out, "max_rel_diff": max(rel), "tol": TRAIN_F32_LOSS_RTOL})
+
+
+def phase_train_bert_bf16(torch, params):
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import BERT_LAMB, synthetic_mlm_batch
+
+    cfg = bert.BERT_LARGE
+    mb, gas, T, steps = 8, 2, 512, 4
+    config = {
+        "train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
+        "bf16": {"enabled": True}, "gradient_clipping": 1.0, "optimizer": BERT_LAMB,
+        # warmup_min_lr > 0: the log warmup's first step would otherwise run
+        # at lr 0 and update nothing
+        "scheduler": {"type": "WarmupDecayLR", "params": {
+            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_min_lr": 2e-4,
+            "warmup_max_lr": 2e-3}},
+    }
+    batch = synthetic_mlm_batch(cfg.vocab_size, mb * gas, T, seed=22)
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    engine, losses, walls = _train(torch, bert.make_model(cfg)[0], params, config, batch, steps)
+    launches = kernels.launches()
+    # ----------------------------------------------------------------------
+
+    for name in ("flash_fwd", "flash_bwd", "fused_lamb_dir", "fused_lamb_apply"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the BERT training main path")
+    check(launches["fused_adam"] == 0, f"train_bert_bf16: fused_adam launched {launches}")
+    check(all(np.isfinite(losses)), f"train_bert_bf16: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train_bert_bf16: loss did not fall: {losses}")
+    tokens = mb * gas * T
+    step_s = float(sum(walls[1:])) / (steps - 1)
+    # model FLOPs a step: 6 N per token for the weights (the tied decoder
+    # included) and 12 L T d per token for non-causal attention, forward
+    # and backward; remat's recompute is not counted.  Padded positions
+    # are computed, so they count as tokens.
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    flops = tokens * (6 * cfg.num_params() + 12 * L * T * d)
+    emit({"phase": "train_bert_bf16", "model": "bert-large", "optimizer": BERT_LAMB,
+          "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
+          "real_tokens_per_step": int(batch["attention_mask"].sum()), "losses": losses,
+          "step_ms": [w * 1e3 for w in walls], "step_ms_mean_after_first": step_s * 1e3,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "launches": launches, "global_steps": engine.global_steps})
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -955,7 +1275,7 @@ def main() -> int:
               "this script runs the port on the GPU only", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.models import bert, gpt2
     from deepspeed_tpu_torch.ops import kernels
     from deepspeed_tpu_torch.tools.profile_serving import paged_request_mix, request_mix
 
@@ -983,6 +1303,8 @@ def main() -> int:
     paged_rows = check_flash_decode_paged(torch, dev, flush)
     bwd_rows = check_flash_bwd(torch, dev, flush)
     adam_rows = check_fused_adam(torch, dev, flush)
+    bias_rows = check_flash_bias(torch, dev, flush)
+    lamb_rows = check_fused_lamb(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -996,18 +1318,27 @@ def main() -> int:
     paged_launches = phase_serve_paged_bf16(torch, params, mix)
     phase_train_f32(torch, params)
     train_launches = phase_train_bf16(torch, params)
+    del params
+    bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
+    phase_train_bert_f32(torch, bert_params)
+    bert_launches = phase_train_bert_bf16(torch, bert_params)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
-                      "training": train_launches[name]}
+                      "training": train_launches[name], "training_bert": bert_launches[name]}
                for name in serve_launches}
 
-    # the main-path shapes: the training step's bf16 attention (B=8, H=12,
-    # T=1024, d=64: B1 with lse, B2), the bf16 pool's decode (8 slots x
-    # 1024 positions), the bf16 paged pool's decode (8 slots x 8 pages of
-    # 128) and one step's fused Adam over GPT-2 124M's 16 leaves
+    # the main-path shapes: the GPT-2 training step's bf16 attention (B=8,
+    # H=12, T=1024, d=64: B1 with lse, B2), the bf16 pool's decode (8 slots
+    # x 1024 positions), the bf16 paged pool's decode (8 slots x 8 pages of
+    # 128), one step's fused Adam over GPT-2 124M's 16 leaves and one step's
+    # fused LAMB over BERT-large's 26 leaves (no bias correction, as the
+    # main path).  B1 and B2 also carry their row at the BERT main path's
+    # shape (bf16, B=8, H=16, T=512, the key-padding bias) under "kbias".
     bwd = next(r for r in bwd_rows if r["T"] == 1024 and r["dtype"] == "bfloat16")
     dec = next(r for r in dec_rows if r["kv"] == "bfloat16" and not r["masked"])
     paged = next(r for r in paged_rows if r["kv"] == "bfloat16")
     adam = next(r for r in adam_rows if r["leaves"] == "step_16_leaves")
+    lamb = {r["kernel"]: r for r in lamb_rows
+            if r["leaves"] == "step_26_leaves" and not r["bias_correction"]}
     report = kernels.kernels_report()
     entries = []
     for name, row, replaces in (
@@ -1016,14 +1347,23 @@ def main() -> int:
         ("flash_decode_paged", paged, "deepspeed_tpu/ops/kernels/flash_decode.py:277"),
         ("flash_bwd", bwd, "deepspeed_tpu/ops/attention/flash_attention.py:607"),
         ("fused_adam", adam, "deepspeed_tpu/ops/kernels/fused_update.py:125"),
+        ("fused_lamb_dir", lamb["fused_lamb_dir"], "deepspeed_tpu/ops/kernels/fused_update.py:214"),
+        ("fused_lamb_apply", lamb["fused_lamb_apply"],
+         "deepspeed_tpu/ops/kernels/fused_update.py:231"),
     ):
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": report[name]["source"],
             "replaces": replaces, "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name], "max_abs_err": row["max_err"],
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        })
+        }
+        biased = bias_rows.get((name, "bfloat16"))
+        if biased is not None:
+            entry["kbias"] = {key: biased[key] for key in (
+                "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+        entries.append(entry)
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,23 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk and dv of
 // online-softmax attention over (B*H, T, d) in one pass, from the forward's
-// log-sum-exp and delta = rowsum(dO * O).
+// log-sum-exp and delta = rowsum(dO * O), with an optional f32 key-row
+// bias (B, Tk).
 //
 // Replaces: deepspeed_tpu/ops/attention/flash_attention.py::
 // _flash_bwd_fused_kernel (Pallas, TPU), driven there by
 // _flash_bwd_fused_pallas / _flash_bwd_fused_chunked and here by
 // deepspeed_tpu_torch/ops/attention/flash_attention.py::flash_bwd_cuda.
-// This slice ports the variant the GPT-2 training step runs: causal
-// (end-aligned, as the forward) or full, no bias, no dropout.
+// Ported: causal (end-aligned, as the forward) or full, without a bias
+// (the GPT-2 training step) or with the Pallas kernel's key-row ``kbias``
+// form (B, 1, 1, Tk) (BERT pretraining's key-padding mask).  The full
+// (B*H, Tq, Tk) bias form and attention dropout are not ported.
 //
 // Rounding points kept from the Pallas kernel (for parity):
 //   * the dots take their operands in their own type (bf16 or f32) and sum
 //     in f32: operands are widened exactly to f32 in shared memory;
-//   * p = exp(s * scale - lse) is computed once per score, in f32;
+//   * p = exp(s * scale - lse) is computed once per score, in f32; with a
+//     bias, p = exp((s * scale + kbias[b, j]) - lse), the bias added after
+//     the scale as in the forward, so ds carries no bias term;
 //   * p is rounded to dO's type before the dV product;
 //   * ds = p * (dp - delta) * scale is rounded to q's type before the dK
 //     and dQ products;
@@ -44,7 +49,10 @@
 // compute 16 of its 64 scores; for dk/dv, four threads own one key row and
 // a quarter of its d columns; for dq, four threads own one query row and a
 // quarter of its columns.  Row strides are padded by one float so the 8
-// rows a warp touches fall in different banks.
+// rows a warp touches fall in different banks.  With a bias (KB, a
+// template flag, so the kernel without a bias is the code it was before
+// the bias existed) the block stages its K tile's 64 bias values in shared
+// memory once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,17 +78,18 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 
 template <int D>
 constexpr size_t smem_bytes() {
-  // K, V, Q, dO tiles (rows of D + 1 floats), P and dS tiles, lse, delta
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * (64 + 1) + 2 * 64);
+  // K, V, Q, dO tiles (rows of D + 1 floats), P and dS tiles, lse, delta,
+  // the K tile's bias
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * (64 + 1) + 3 * 64);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KB>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq32,
-                 T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int causal,
-                 float sm_scale) {
+                 const float* __restrict__ delta, const float* __restrict__ kbias,
+                 float* __restrict__ dq32, T* __restrict__ dk, T* __restrict__ dv, int H,
+                 int sq, int sk, int causal, float sm_scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kBK + 1;
   constexpr int NC = D / 4;  // columns a thread owns
@@ -93,6 +102,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* dSs = Ps + kBQ * PP;    // kBQ x PP, ds rounded to q's type
   float* lse_s = dSs + kBQ * PP; // kBQ
   float* delta_s = lse_s + kBQ;  // kBQ
+  float* Bk = delta_s + kBQ;     // kBK, the K tile's key-row bias (KB only)
 
   const int k0 = blockIdx.x * kBK;
   const size_t bh = blockIdx.y;
@@ -114,6 +124,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     Ks[kk * DP + e] = in ? widen(kb[static_cast<size_t>(gk) * D + e]) : 0.f;
     Vs[kk * DP + e] = in ? widen(vb[static_cast<size_t>(gk) * D + e]) : 0.f;
   }
+  if (KB && tid < kBK) Bk[tid] = k0 + tid < sk ? kbias[(bh / H) * sk + k0 + tid] : 0.f;
 
   const int offset = sk - sq;  // end-aligned causal offset
   // the first q tile with a row that sees key k0: offset + gq >= k0
@@ -160,7 +171,9 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         const bool ok = gq < sq && gk < sk && (!causal || qpos >= gk);
         // a masked score is the Pallas kernel's DEFAULT_MASK_VALUE, whose
         // exp(mask - lse) is 0 for every finite lse
-        const float p = ok ? expf(s * sm_scale - row_lse) : 0.f;
+        const float p = !ok ? 0.f
+                        : KB ? expf(__fadd_rn(__fmul_rn(s, sm_scale), Bk[kk]) - row_lse)
+                             : expf(s * sm_scale - row_lse);
         Ps[r * PP + kk] = round_to<T>(p);
         dSs[r * PP + kk] = round_to<T>(p * (dp - row_delta) * sm_scale);
       }
@@ -206,33 +219,50 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KB>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq32, void* dk, void* dv, int BH, int sq, int sk,
-           int causal, float sm_scale, cudaStream_t stream) {
+           const void* delta, const void* kbias, void* dq32, void* dk, void* dv, int BH, int H,
+           int sq, int sk, int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, D, KB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sk + kBK - 1) / kBK, BH);
-  flash_bwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_kernel<T, D, KB><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq32), static_cast<T*>(dk),
-      static_cast<T*>(dv), sq, sk, causal, sm_scale);
+      static_cast<const float*>(delta), static_cast<const float*>(kbias),
+      static_cast<float*>(dq32), static_cast<T*>(dk), static_cast<T*>(dv), H, sq, sk, causal,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the arguments every launch passes on unchanged
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta, *kbias;
+  void *dq32, *dk, *dv;
+  int BH, H, sq, sk, causal;
+  float sm_scale;
+  cudaStream_t st;
+};
+
+template <typename T, int D>
+int dispatch_bias(const Args& a) {
+  if (a.kbias == nullptr)
+    return launch<T, D, false>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.kbias, a.dq32, a.dk, a.dv,
+                               a.BH, a.H, a.sq, a.sk, a.causal, a.sm_scale, a.st);
+  return launch<T, D, true>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.kbias, a.dq32, a.dk, a.dv,
+                            a.BH, a.H, a.sq, a.sk, a.causal, a.sm_scale, a.st);
+}
+
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq32, void* dk, void* dv, int BH, int sq, int sk, int d,
-               int causal, float sm_scale, cudaStream_t st) {
+int dispatch_d(const Args& a, int d) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, causal, sm_scale, st);
-    case 32: return launch<T, 32>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, causal, sm_scale, st);
-    case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, causal, sm_scale, st);
-    case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, causal, sm_scale, st);
+    case 16: return dispatch_bias<T, 16>(a);
+    case 32: return dispatch_bias<T, 32>(a);
+    case 64: return dispatch_bias<T, 64>(a);
+    case 128: return dispatch_bias<T, 128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -241,18 +271,19 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* dout, co
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, dout, dk and dv share it).  lse
 // and delta are f32 (BH, sq); dq32 is an f32 (BH, sq, d) buffer that the
-// caller zeroes.  Causal needs sq <= sk.  Returns a cudaError_t.
+// caller zeroes.  kbias (f32, (BH / H, sk), the forward's) may be null:
+// then H is not read and the kernel is the one without a bias.  Causal
+// needs sq <= sk.  Returns a cudaError_t.
 extern "C" int ds_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq32, void* dk, void* dv,
-                            int BH, int sq, int sk, int d, int dtype, int causal,
-                            float sm_scale, void* stream) {
+                            const void* lse, const void* delta, const void* kbias, void* dq32,
+                            void* dk, void* dv, int BH, int H, int sq, int sk, int d, int dtype,
+                            int causal, float sm_scale, void* stream) {
   if (BH < 1 || sq < 1 || sk < 1 || (causal && sq > sk)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, d, causal, sm_scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, d, causal,
-                                     sm_scale, st);
+  if (kbias != nullptr && (H < 1 || BH % H != 0)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, dout, lse, delta, kbias, dq32, dk, dv, BH, H, sq, sk, causal, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return dispatch_d<float>(a, d);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, d);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

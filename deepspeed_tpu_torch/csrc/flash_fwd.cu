@@ -1,12 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a): online-softmax attention
 // over (B*H, T, d), end-aligned causal or full, with an optional
-// log-sum-exp output.
+// log-sum-exp output and an optional f32 key-row bias (B, Tk).
 //
 // Replaces: deepspeed_tpu/ops/attention/flash_attention.py::_flash_fwd_kernel
 // (Pallas, TPU), driven there by _flash_fwd_pallas and here by
 // deepspeed_tpu_torch/ops/attention/flash_attention.py::flash_fwd_cuda.
-// This slice ports the variant the serving prefill runs: no bias, no
-// dropout.  The lse output is there for the training slice.
+// Ported: the variants the serving prefill (no bias), the GPT-2 training
+// step (lse) and BERT pretraining (lse and a key-padding bias, the Pallas
+// kernel's ``kbias`` form (B, 1, 1, Tk)) run.  The full (B*H, Tq, Tk) bias
+// form and attention dropout are not ported.
 //
 // Rounding points kept from the Pallas kernel (for parity):
 //   * the Q.K^T dot takes the operands in their own type (bf16 or f32)
@@ -17,7 +19,11 @@
 //     unrounded p;
 //   * causal masking is end-aligned: query row i sits at position
 //     (sk - sq) + i;
-//   * a row whose l stays 0 divides by 1.
+//   * a row whose l stays 0 divides by 1;
+//   * the key-row bias is added in f32 after the scale, before the causal
+//     mask: s = (q.k) * scale + kbias[b, j], each step rounded on its own.
+//     A key masked by a bias of -1e9 weighs exp(-1e9 - m) = 0 exactly once
+//     its row has seen a real key.
 //
 // What bounds it: the causal forward does about T/4 flops per byte it
 // must move (q, k, v read once, out written once), so at the prefill
@@ -34,8 +40,10 @@
 // Layout: one block of 256 threads per (64-query tile, batch*head).
 // Four threads own one query row: each computes 16 of the 64 scores of a
 // key tile and 1/4 of the row's output dims.  K/V tiles of 64 rows are
-// staged in shared memory; row strides are padded by one float so the 8
-// rows a warp touches fall in different banks.
+// staged in shared memory, with the tile's 64 bias values beside them
+// when there is a bias (KB: a template flag, so the kernel without a bias
+// is the code it was before the bias existed); row strides are padded by
+// one float so the 8 rows a warp touches fall in different banks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,14 +70,14 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
+  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1) + kBK);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool KB>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int causal,
-                 float sm_scale) {
+                 T* __restrict__ out, float* __restrict__ lse, const float* __restrict__ kbias,
+                 int H, int sq, int sk, int causal, float sm_scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kBK + 1;
   extern __shared__ float smem[];
@@ -77,6 +85,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Ks = Qs + kBQ * DP;    // kBK x DP
   float* Vs = Ks + kBK * DP;    // kBK x D
   float* Ps = Vs + kBK * D;     // kBQ x PP
+  float* Bs = Ps + kBQ * PP;    // kBK, the tile's key-row bias (KB only)
 
   const int q0 = blockIdx.x * kBQ;
   const size_t bh = blockIdx.y;
@@ -86,6 +95,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* qb = q + bh * sq * D;
   const T* kb = k + bh * sk * D;
   const T* vb = v + bh * sk * D;
+  const float* kbb = KB ? kbias + (bh / H) * sk : nullptr;  // this batch row's bias
 
   for (int idx = tid; idx < kBQ * D; idx += kThreads) {
     const int rr = idx / D, e = idx % D;
@@ -114,6 +124,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       Ks[kk * DP + e] = in ? widen(kb[static_cast<size_t>(gk) * D + e]) : 0.f;
       Vs[kk * D + e] = in ? widen(vb[static_cast<size_t>(gk) * D + e]) : 0.f;
     }
+    if (KB && tid < kBK) Bs[tid] = k0 + tid < sk ? kbb[k0 + tid] : 0.f;
     __syncthreads();
 
     float s[kBK / 4];
@@ -129,7 +140,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       // a masked key weighs exp(mask - m) = 0 in the Pallas kernel once
       // the row has seen a real key, which end-aligned causal rows (sq <=
       // sk) always have in their first tile; so masked keys drop out here
-      s[i] = ok ? dot * sm_scale : -INFINITY;
+      s[i] = !ok ? -INFINITY : KB ? __fadd_rn(__fmul_rn(dot, sm_scale), Bs[kk]) : dot * sm_scale;
       mx = fmaxf(mx, s[i]);
     }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -169,29 +180,40 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int sq,
-           int sk, int causal, float sm_scale, cudaStream_t stream) {
+template <typename T, int D, bool KB>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const void* kbias,
+           int BH, int H, int sq, int sk, int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D, KB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<T, D, KB><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), sq, sk, causal, sm_scale);
+      static_cast<T*>(out), static_cast<float*>(lse), static_cast<const float*>(kbias), H, sq,
+      sk, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int dispatch_bias(const void* q, const void* k, const void* v, void* out, void* lse,
+                  const void* kbias, int BH, int H, int sq, int sk, int causal, float sm_scale,
+                  cudaStream_t st) {
+  if (kbias == nullptr)
+    return launch<T, D, false>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
+  return launch<T, D, true>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
+}
+
 template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, void* lse, int BH, int sq,
-               int sk, int d, int causal, float sm_scale, cudaStream_t st) {
+int dispatch_d(const void* q, const void* k, const void* v, void* out, void* lse,
+               const void* kbias, int BH, int H, int sq, int sk, int d, int causal,
+               float sm_scale, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, BH, sq, sk, causal, sm_scale, st);
-    case 32: return launch<T, 32>(q, k, v, out, lse, BH, sq, sk, causal, sm_scale, st);
-    case 64: return launch<T, 64>(q, k, v, out, lse, BH, sq, sk, causal, sm_scale, st);
-    case 128: return launch<T, 128>(q, k, v, out, lse, BH, sq, sk, causal, sm_scale, st);
+    case 16: return dispatch_bias<T, 16>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
+    case 32: return dispatch_bias<T, 32>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
+    case 64: return dispatch_bias<T, 64>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
+    case 128: return dispatch_bias<T, 128>(q, k, v, out, lse, kbias, BH, H, sq, sk, causal, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -199,15 +221,21 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, void* lse
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and out share it).  lse (f32,
-// (BH, sq)) may be null.  Causal needs sq <= sk.  Returns a cudaError_t.
+// (BH, sq)) may be null.  kbias (f32, (BH / H, sk): one row of key biases
+// per batch row, shared by its H heads) may be null: then H is not read
+// and the kernel is the one without a bias.  Causal needs sq <= sk.
+// Returns a cudaError_t.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                            int BH, int sq, int sk, int d, int dtype, int causal,
-                            float sm_scale, void* stream) {
+                            const void* kbias, int BH, int H, int sq, int sk, int d, int dtype,
+                            int causal, float sm_scale, void* stream) {
   if (BH < 1 || sq < 1 || sk < 1 || (causal && sq > sk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (kbias != nullptr && (H < 1 || BH % H != 0)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, out, lse, BH, sq, sk, d, causal, sm_scale, st);
+  if (dtype == 0)
+    return dispatch_d<float>(q, k, v, out, lse, kbias, BH, H, sq, sk, d, causal, sm_scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, BH, sq, sk, d, causal, sm_scale, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, kbias, BH, H, sq, sk, d, causal,
+                                     sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is a plain C entry point in a CUDA C++ source under
-``deepspeed_tpu_torch/csrc/`` (two kernels may share a source and its
-body: B4 and B5 live in ``flash_decode.cu``).  At first use the source is
+``deepspeed_tpu_torch/csrc/`` (two kernels may share a source: B4 and B5
+live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
+``fused_lamb.cu``).  At first use the source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
@@ -43,8 +44,8 @@ _L = ctypes.c_longlong
 KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu", "ds_flash_fwd",
-        # q, k, v, out, lse, BH, sq, sk, d, dtype, causal, sm_scale, stream
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, out, lse, kbias, BH, H, sq, sk, d, dtype, causal, sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "flash_decode": (
         "flash_decode.cu", "ds_flash_decode",
@@ -59,13 +60,25 @@ KERNELS = {
     ),
     "flash_bwd": (
         "flash_bwd.cu", "ds_flash_bwd",
-        # q, k, v, dout, lse, delta, dq32, dk, dv, BH, sq, sk, d, dtype, causal, sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, dout, lse, delta, kbias, dq32, dk, dv, BH, H, sq, sk, d, dtype, causal,
+        # sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "fused_adam": (
         "fused_adam.cu", "ds_fused_adam",
         # p, g, m, v, scal, n, p_dtype, g_dtype, b1m1, omb1, b2m1, omb2, eps, wd, adam_w_mode, stream
         [_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P],
+    ),
+    "fused_lamb_dir": (
+        "fused_lamb.cu", "ds_fused_lamb_dir",
+        # p, g, m, v, dir, partials, scal, n, blocks, p_dtype, g_dtype, b1m1, omb1, b2m1, omb2,
+        # eps, wd, stream
+        [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F, _F, _F, _P],
+    ),
+    "fused_lamb_apply": (
+        "fused_lamb.cu", "ds_fused_lamb_apply",
+        # p, dir, scal, trust, n, p_dtype, stream
+        [_P, _P, _P, _P, _L, _I, _P],
     ),
 }
 

@@ -9,9 +9,10 @@ scales the loss and runs autograd's backward, which casts the gradients
 back to f32 and sums them into the masters' ``.grad`` (the gradient
 accumulator).  At the accumulation boundary the step averages, unscales,
 checks overflow (dynamic scaler only), clips by the global norm and
-updates: Adam and AdamW with f32 state always take
+updates: Adam and AdamW with f32 state and LAMB always take
 :func:`~deepspeed_tpu_torch.ops.kernels.fused_update.engine_update` (the
-fused Adam kernel on the card), SGD its own ``update``.
+fused Adam kernel, or LAMB's two kernels, on the card), SGD its own
+``update``.
 
 PyTorch runs eagerly: there is no compiled step; ``train_batch`` loops
 over the micro-batches.  Nothing reads the device on the host except the
@@ -23,7 +24,7 @@ drawing dropout seeds from it never waits on the card.
 
 Not ported (each raises, naming its ROADMAP item, or is absent): ZeRO
 sharding across devices and TP (A6), offload (A12), pipeline (A11), 1-bit
-optimizers and LAMB (A13, B7), the comm layer, supervision, telemetry,
+optimizers (A13), the comm layer, supervision, telemetry,
 sanitizer, timeline and flops profiler (A14/A15), MoQ and PLD (A13),
 checkpoints (A4).
 """
@@ -39,6 +40,7 @@ from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.inference.engine import resolve_device
 from deepspeed_tpu_torch.ops.adam.fused_adam import SGD, FusedAdam, FusedAdamW
 from deepspeed_tpu_torch.ops.kernels.fused_update import engine_update
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -148,7 +150,7 @@ class DeepSpeedEngine:
         if name == C.ADAMW_OPTIMIZER:
             return FusedAdamW(lr=lr, **params)
         if name == C.LAMB_OPTIMIZER:
-            raise NotImplementedError("the LAMB optimizer is not ported yet (ROADMAP B7 + A13)")
+            return FusedLamb(lr=lr, **params)
         if name in (C.ONEBIT_ADAM_OPTIMIZER, C.ONEBIT_LAMB_OPTIMIZER):
             raise NotImplementedError(f"the {name} optimizer is not ported yet (ROADMAP A13)")
         if name == C.SGD_OPTIMIZER:

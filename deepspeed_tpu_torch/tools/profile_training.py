@@ -1,16 +1,19 @@
 """Where a training step spends its time on the card.
 
     python -m deepspeed_tpu_torch.tools.profile_training [--steps 2] [--trace out.json]
+    python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --optimizer lamb --seq 512
 
-Builds ``initialize()`` for GPT-2 124M in bf16 over f32 masters (random
-weights from ``--seed``), micro-batch 8, gradient accumulation 2, T 1024,
-AdamW with clipping 1.0 (the ``train_bf16`` main path of
-``chip_smoke.py``), runs two warm-up steps, then ``--steps`` steps of one
-fixed batch under ``torch.profiler`` with CPU and CUDA activities.  Prints
-one JSON line: the window, the device-busy time (the union of the
-kernels' intervals) and the idle share, the device time by kernel class
-(the port's kernels, GEMMs, everything else) and the top device kernels
-and host ops.  Needs a CUDA card; it raises without one.
+Builds ``initialize()`` in bf16 over f32 masters (random weights from
+``--seed``), micro-batch 8, gradient accumulation 2, clipping 1.0, for one
+of two training main paths of ``chip_smoke.py``: GPT-2 124M at T 1024 with
+AdamW (``train_bf16``, the default), or BERT-large MLM + NSP pretraining
+at T 512 with LAMB (bing_bert's phase-2 settings) on a synthetic padded
+batch (``train_bert_bf16``).  Runs two warm-up steps, then ``--steps``
+steps of one fixed batch under ``torch.profiler`` with CPU and CUDA
+activities.  Prints one JSON line: the window, the device-busy time (the
+union of the kernels' intervals) and the idle share, the device time by
+kernel class (the port's kernels, GEMMs, everything else) and the top
+device kernels and host ops.  Needs a CUDA card; it raises without one.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd", ("flash_bwd_kernel",)),
     ("fused_adam", ("fused_adam_kernel",)),
+    ("fused_lamb_dir", ("lamb_dir_kernel",)),
+    ("fused_lamb_apply", ("lamb_apply_kernel",)),
     # cuBLAS on Hopper names most of its GEMM kernels nvjet_*
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
 )
@@ -43,8 +48,69 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+# the key-padding pattern of the synthetic BERT batches: row b keeps
+# KEEP_FRACTIONS[b % 4] of its T positions (512, 448, 300 and 129 at T 512)
+KEEP_FRACTIONS = (1.0, 448 / 512, 300 / 512, 129 / 512)
+
+# bing_bert's phase-2 LAMB settings (lr 2e-3, weight decay 0.01, no bias
+# correction, trust ratio clamped to [0.01, 0.3])
+BERT_LAMB = {"type": "Lamb", "params": {"lr": 2e-3, "weight_decay": 0.01,
+                                        "bias_correction": False, "max_coeff": 0.3,
+                                        "min_coeff": 0.01}}
+
+
+def synthetic_mlm_batch(vocab_size: int, B: int, T: int, seed: int = 0) -> dict:
+    """One MLM + NSP batch as numpy arrays: row b keeps
+    ``KEEP_FRACTIONS[b % 4]`` of its positions (the rest padding, masked
+    out by ``attention_mask``), two segments split at the row's middle,
+    15 % of the real positions labelled and replaced by the [MASK] id 103,
+    and an NSP label."""
+    rng = np.random.default_rng(seed)
+    keep = np.array([max(1, int(round(T * KEEP_FRACTIONS[b % 4]))) for b in range(B)])
+    pos = np.arange(T)[None, :]
+    mask = (pos < keep[:, None]).astype(np.int32)
+    ids = rng.integers(0, vocab_size, (B, T), dtype=np.int32)
+    labels = np.where((rng.random((B, T)) < 0.15) & (mask > 0), ids, -100).astype(np.int32)
+    return {
+        "input_ids": np.where(labels != -100, 103, ids * mask).astype(np.int32),
+        "token_type_ids": ((pos >= keep[:, None] // 2) & (mask > 0)).astype(np.int32),
+        "attention_mask": mask,
+        "masked_lm_labels": labels,
+        "next_sentence_label": rng.integers(0, 2, B).astype(np.int32),
+    }
+
+
+def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int):
+    """``(engine, batch, cfg)`` of a bf16 training run: GPT-2 124M or
+    BERT-large at width and depth, random weights from ``seed``, one
+    fixed batch of ``gas * mb`` rows."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert, gpt2
+
+    if model == "bert-large":
+        cfg = bert.PRESETS[model]
+        model_fn, init_fn, _ = bert.make_model(cfg)
+        batch = synthetic_mlm_batch(cfg.vocab_size, mb * gas, T, seed)
+    else:
+        cfg = gpt2.PRESETS[model]
+        model_fn, init_fn, _ = gpt2.make_model(cfg)
+        batch = {"input_ids": np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (mb * gas, T), dtype=np.int32)}
+    opt = BERT_LAMB if optimizer == "lamb" else {
+        "type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}}
+    config = {"train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
+              "bf16": {"enabled": True}, "gradient_clipping": 1.0, "optimizer": opt}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model_fn, model_parameters=init_fn(seed=seed), config=config)
+    return engine, batch, cfg
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="gpt2", choices=["gpt2", "bert-large"])
+    ap.add_argument("--optimizer", default=None, choices=["adamw", "lamb"],
+                    help="default: adamw for gpt2, lamb for bert-large")
+    ap.add_argument("--seq", type=int, default=None, help="default: 1024 for gpt2, 512 for bert")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the window here")
@@ -52,20 +118,11 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_training measures the card; torch.cuda.is_available() is False")
 
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models import gpt2
-
-    cfg = gpt2.PRESETS["gpt2"]
-    mb, gas, T = 8, 2, 1024
-    model_fn, init_fn, _ = gpt2.make_model(cfg)
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(
-        model=model_fn, model_parameters=init_fn(seed=args.seed),
-        config={"train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
-                "bf16": {"enabled": True}, "gradient_clipping": 1.0,
-                "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95],
-                                                          "weight_decay": 0.1}}})
-    batch = {"input_ids": np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (mb * gas, T), dtype=np.int32)}
+    bert_run = args.model == "bert-large"
+    optimizer = args.optimizer or ("lamb" if bert_run else "adamw")
+    T = args.seq or (512 if bert_run else 1024)
+    mb, gas = 8, 2
+    engine, batch, _ = build(args.model, optimizer, T, mb, gas, args.seed)
     for _ in range(2):  # warm-up: kernel build and load, allocator
         float(engine.train_batch(batch))
     torch.cuda.synchronize()
@@ -97,7 +154,8 @@ def main(argv=None) -> dict:
             host_self[a.key] += a.self_cpu_time_total
     steps = args.steps
     out = {
-        "profile": "train_step", "model": "gpt2", "dtype": "bf16", "micro_batch": mb, "gas": gas,
+        "profile": "train_step", "model": args.model, "optimizer": optimizer, "dtype": "bf16",
+        "micro_batch": mb, "gas": gas,
         "T": T, "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
         "tokens_per_s": mb * gas * T * steps / wall,
         # no kernel events means the profiler did not trace the card:

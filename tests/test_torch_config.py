@@ -32,6 +32,10 @@ VALID = [
      "optimizer": {"type": "SGD", "params": {"lr": 0.1, "momentum": 0.9}},
      "mesh": {"data": 1}, "telemetry": {}, "wall_clock_breakdown": False,
      "kernels": {"enabled": "auto"}},
+    {"train_batch_size": 16, "train_micro_batch_size_per_gpu": 8, "bf16": {"enabled": True},
+     "optimizer": {"type": "Lamb", "params": {
+         "lr": 2e-3, "betas": [0.9, 0.999], "eps": 1e-6, "weight_decay": 0.01,
+         "bias_correction": False, "max_coeff": 0.3, "min_coeff": 0.01}}},
 ]
 
 INVALID = [
@@ -102,3 +106,41 @@ def test_not_ported_blocks_raise_naming_their_item(d, item):
 def test_serving_block_still_parses():
     c = TConfig({"train_batch_size": 8, "serving": {"num_slots": 4, "prefill_chunk": 32}})
     assert c.serving.num_slots == 4 and c.serving.prefill_chunk == 32
+
+
+LAMB_PARAMS = {"lr": 2e-3, "betas": [0.9, 0.98], "eps": 1e-6, "weight_decay": 0.01,
+               "bias_correction": False, "max_coeff": 0.3, "min_coeff": 0.02}
+
+
+@pytest.mark.parametrize("params", [LAMB_PARAMS, {}], ids=["bing_bert", "defaults"])
+def test_lamb_block_builds_the_jax_packages_optimizer(params):
+    """The engine turns a ``Lamb`` block into ``FusedLamb`` with the same
+    hyper-parameters as the JAX package's ``FusedLamb(lr=lr, **params)``
+    (``_configure_basic_optimizer``); the reference defaults fill what
+    the block leaves out."""
+    import numpy as np
+
+    from deepspeed_tpu.ops.lamb.fused_lamb import FusedLamb as JLamb
+    from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    d = {"train_batch_size": 8, "optimizer": {"type": "Lamb", "params": dict(params)}}
+    jopt = JLamb(**{"lr": 1e-3, **JConfig(d, world_size=1).optimizer.params})
+    eng = DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
+                          config=TConfig(d), device="cpu")
+    topt = eng.optimizer
+    assert isinstance(topt, FusedLamb)
+    names = ("lr", "b1", "b2", "eps", "weight_decay", "bias_correction", "max_coeff", "min_coeff")
+    assert {n: getattr(topt, n) for n in names} == {n: getattr(jopt, n) for n in names}
+
+
+def test_onebit_lamb_still_raises_naming_a13():
+    import numpy as np
+
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    d = {"train_batch_size": 8, "optimizer": {"type": "OneBitLamb", "params": {"lr": 1e-3}}}
+    JConfig(d, world_size=1)  # the JAX package takes it
+    with pytest.raises(NotImplementedError, match="A13"):
+        DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
+                        config=TConfig(d), device="cpu")

@@ -13,15 +13,17 @@ prefill shapes, the lse output, every head dim the kernels take, scalar
 and out-of-range decode positions, tiny caches, the paged decode over
 every page length it is checked at (with B4 on the gathered view as a
 bit-for-bit oracle: the two share one body), the backward's ragged and
-rectangular shapes, the fused Adam's dtypes, ragged and unaligned leaves
-and its overflow skip, autograd through the kernels, and the wrappers'
-refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
+rectangular shapes, the key-row bias in the forward and backward (ragged,
+causal with a bias, every head dim), the fused Adam's and fused LAMB's
+dtypes, ragged and unaligned leaves, trust-ratio branches and overflow
+skip, autograd through the kernels, and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
 backward entry by entry, within that tolerance times |entry| plus half
 the gradient's rms (dq's f32 sum is taken with atomics, in an order that
 changes between runs); fused Adam's moments 1e-6 of their largest entry,
 f32 p 1e-6 absolute (the kernel rounds each product and sum as the plain
-version does)."""
+version does); fused LAMB the same, with its trust ratio 1e-5 relative
+(its norms sum per block, in another order)."""
 import numpy as np
 import pytest
 import torch
@@ -224,6 +226,120 @@ def test_fused_adam_kernel_matches_plain(dev, n, pdtype, gdtype, offset, adam_w_
             assert torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(vk, v)
 
 
+def _padding_bias(dev, B, sk, keep):
+    kb = torch.zeros(B, sk, device=dev)
+    for b in range(B):
+        kb[b, keep[b % len(keep)]:] = -1e9
+    return kb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (512, 512, 64, False),   # BERT phase 2
+    (500, 500, 64, False),   # ragged last tiles
+    (256, 256, 32, True),    # causal with a bias
+    (130, 257, 128, False),
+    (300, 300, 128, True),
+])
+def test_flash_kbias_fwd_and_bwd_match_plain(dev, dtype, sq, sk, d, causal):
+    q = _randn(dev, 3, 2, sq, d, seed=1).to(dtype)
+    k = _randn(dev, 3, 2, sk, d, seed=2).to(dtype)
+    v = _randn(dev, 3, 2, sk, d, seed=3).to(dtype)
+    do = _randn(dev, 3, 2, sq, d, seed=4).to(dtype)
+    kb = _padding_bias(dev, 3, sk, (sk, sk - 64, sk // 2 + 1))
+    if causal:  # a smooth bias too, not only 0 / -1e9
+        kb = kb + _randn(dev, 3, sk, seed=5)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, want_lse=True, kbias=kb)
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale, kb)
+    delta = (do.float() * out.float()).sum(-1)
+    got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale, kbias=kb)
+    refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb)
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
+    for a, b in zip(got, refb):
+        a, b = a.float(), b.float()
+        bound = TOL[dtype] * (b.abs() + 0.5 * b.square().mean().sqrt())
+        assert bool(((a - b).abs() <= bound).all()), _err(a, b)
+    if not causal:  # a padded key takes p == 0 exactly: its dk and dv are 0
+        assert not got[1][2, :, sk // 2 + 1:].any() and not got[2][2, :, sk // 2 + 1:].any()
+
+
+def test_autograd_with_a_padding_bias_matches_the_plain_path(dev):
+    q, k, v = (_randn(dev, 2, 4, 512, 64, seed=s).requires_grad_() for s in (1, 2, 3))
+    w = _randn(dev, 2, 4, 512, 64, seed=4)
+    bias = _padding_bias(dev, 2, 512, (512, 300))[:, None, None, :]
+    kernels.reset_launches()
+    (fa.flash_attention(q, k, v, bias=bias) * w).sum().backward()
+    assert kernels.launches()["flash_fwd"] == 1 and kernels.launches()["flash_bwd"] == 1
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (fa.mha_reference(q, k, v, bias=bias) * w).sum().backward()
+    for a, t in zip(got, (q, k, v)):
+        assert _err(a, t.grad) <= 1e-4  # f32 attention, sums in other orders
+
+
+@pytest.mark.parametrize("n,pdtype,gdtype,offset,scale", [
+    (30522 * 1024, torch.float32, torch.float32, 0, 1.0),   # tok_emb: trust at max_coeff
+    (4096, torch.float32, torch.float32, 0, 0.002),          # trust inside the clamp
+    (30522, torch.float32, torch.float32, 0, 0.0),           # zero leaf: trust 1
+    (1001, torch.bfloat16, torch.float32, 0, 1.0),
+    (4099, torch.float32, torch.bfloat16, 0, 1e-5),          # trust at min_coeff
+    (4099, torch.float32, torch.float32, 1, 1.0),            # not 16-byte aligned
+    (2, torch.float32, torch.float32, 0, 1.0),               # nsp_b
+])
+def test_fused_lamb_kernels_match_plain(dev, n, pdtype, gdtype, offset, scale):
+    def leaf(seed, s=1.0):
+        return (_randn(dev, n + offset, seed=seed) * s)[offset:]
+
+    p, g = leaf(1, scale).to(pdtype), leaf(2, 1e-3).to(gdtype)
+    # v bounded below, so |dir| <= ~0.02 per entry and the trust ratio's
+    # branch follows from the leaf's scale
+    m, v = leaf(3, 1e-4), leaf(4, 1e-3).square() + 1e-6
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.01, min_coeff=0.01, max_coeff=0.3)
+    trusts = {}
+    for keep in (1.0, 0.0):
+        scal = torch.tensor([2e-3, keep, 0.271, 0.003], device=dev)
+        pk, mk, vk = p.clone(), m.clone(), v.clone()
+        trust = fu.lamb_leaf_cuda(pk, g, mk, vk, scal, **hyper)
+        pr, mr, vr, tr = fu._lamb_math(p, g, m, v, *scal.unbind(0), **hyper)
+        torch.cuda.synchronize()
+        trusts[keep] = float(tr)
+        assert abs(float(trust) - float(tr)) <= 1e-5 * float(tr)
+        assert _err(pk, pr) <= (1e-6 * max(float(pr.float().abs().max()), 1e-30)
+                                if pdtype == torch.float32 else 1e-2)
+        for got, ref in ((mk, mr), (vk, vr)):
+            assert _err(got, ref) <= 1e-6 * float(ref.abs().max())
+        if keep == 0.0:  # the overflow skip writes back the old state
+            assert torch.equal(pk, p) and torch.equal(mk, m) and torch.equal(vk, v)
+    want = {1.0: 0.3, 0.0: 1.0, 1e-5: 0.01}.get(scale)
+    if want is not None:
+        assert trusts[1.0] == pytest.approx(want, rel=1e-6)
+
+
+def test_lamb_engine_update_on_the_card_matches_the_cpu(dev):
+    """One engine_update over several leaves sharing one direction
+    scratch (a large leaf before small ones, so a stale tail would show)
+    on the card against the CPU's plain version."""
+    from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+
+    shapes = [(3000, 17), (5,), (64, 64), (2,)]
+    params = {where: [_randn(dev, *s, seed=i).to(where) for i, s in enumerate(shapes)]
+              for where in ("cpu", "cuda")}
+    grads = [_randn(dev, *s, seed=10 + i) * 1e-3 for i, s in enumerate(shapes)]
+    opt = FusedLamb(lr=2e-3, weight_decay=0.01, max_coeff=0.3, bias_correction=False)
+    kernels.reset_launches()
+    for where in ("cpu", "cuda"):
+        st = opt.init(params[where])
+        for _ in range(2):
+            st = fu.engine_update(opt, [g.to(where) for g in grads], st, params[where], 2e-3,
+                                  None)
+    assert kernels.launches()["fused_lamb_dir"] == 8 == kernels.launches()["fused_lamb_apply"]
+    for a, b in zip(params["cuda"], params["cpu"]):
+        assert _err(a.cpu(), b) <= 1e-6 * float(b.abs().max())
+
+
 def test_training_step_on_the_card_matches_the_cpu(dev):
     """Three f32 train_batch steps of a small GPT-2 on the card (flash
     forward, backward and fused Adam kernels) against the CPU's plain
@@ -256,7 +372,7 @@ def test_launch_counts_and_refusals(dev):
     fd.flash_decode(q[:, :, :1].contiguous(), q, q, 5)
     fa.flash_fwd(q.cpu(), q.cpu(), q.cpu(), causal=True)  # the plain version: no launch
     want = {"flash_fwd": 1, "flash_decode": 1, "flash_decode_paged": 0, "flash_bwd": 0,
-            "fused_adam": 0}
+            "fused_adam": 0, "fused_lamb_dir": 0, "fused_lamb_apply": 0}
     assert kernels.launches() == want
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)

@@ -28,12 +28,14 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/__init__.py",
     "deepspeed_tpu_torch/config/config.py",
     "deepspeed_tpu_torch/models/gpt2.py",
+    "deepspeed_tpu_torch/models/bert.py",
     "deepspeed_tpu_torch/ops/normalize.py",
     "deepspeed_tpu_torch/ops/attention/flash_attention.py",
     "deepspeed_tpu_torch/ops/kernels/__init__.py",
     "deepspeed_tpu_torch/ops/kernels/flash_decode.py",
     "deepspeed_tpu_torch/ops/kernels/fused_update.py",
     "deepspeed_tpu_torch/ops/adam/fused_adam.py",
+    "deepspeed_tpu_torch/ops/lamb/fused_lamb.py",
     "deepspeed_tpu_torch/runtime/lr_schedules.py",
     "deepspeed_tpu_torch/runtime/fp16/loss_scaler.py",
     "deepspeed_tpu_torch/runtime/engine.py",
@@ -67,7 +69,7 @@ def test_import_walk_covers_every_slice_module():
     missing = [m for m in SLICE_MODULES if m not in walked]
     assert not missing, missing
     assert {p.name for p in CUDA_SOURCES} >= {"flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu",
-                                              "fused_adam.cu"}
+                                              "fused_adam.cu", "fused_lamb.cu"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -110,9 +112,15 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfu.adam_leaf_cuda(p, p, p, p, torch.ones(4), b1=0.9, b2=0.999, eps=1e-8,
                            weight_decay=0.0, adam_w_mode=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfu.lamb_leaf_cuda(p, p, p, p, torch.ones(4), b1=0.9, b2=0.999, eps=1e-8,
+                           weight_decay=0.0, min_coeff=0.01, max_coeff=10.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_fwd_cuda(q, q, q, causal=False, sm_scale=0.125, kbias=torch.zeros(1, 128))
     report = kernels_report()
     assert set(report) == {"flash_fwd", "flash_decode", "flash_decode_paged", "flash_bwd",
-                           "fused_adam"}
+                           "fused_adam", "fused_lamb_dir", "fused_lamb_apply"}
+    assert report["fused_lamb_dir"]["source"] == report["fused_lamb_apply"]["source"]
     assert all(r["launches"] == 0 for r in report.values())
     assert all((REPO / r["source"]).is_file() for r in report.values())
 
