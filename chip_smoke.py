@@ -22,7 +22,14 @@ Phases, each printing one JSON line:
    over a whole step's 26 leaves, with and without bias correction;
    paged flash decode at the paged pool's serving shape,
    8 slots x 8 pages of 128 over a permuted 129-page pool, in bf16, f32 and
-   int8, also against flash decode over the gathered view, bit for bit),
+   int8, also against flash decode over the gathered view, bit for bit;
+   flash forward and backward with BERT-large's padding bias and attention
+   dropout 0.1 (in-kernel Threefry bits against the host twin's) and with
+   a (B, 1, T, T) mask read through its strides, at B=8, H=16, T=512 in
+   bf16 and f32, and a trainable (1, 16, 512, 512) bias's cotangent under
+   dropout; the two-pass backward at B=1, H=16, T=9216 in bf16 and f32,
+   against its plain version and the single-pass kernel, its dq the same
+   bits over two launches),
    with the tolerance stated, and the times of the kernel, the plain
    version and one PyTorch library call beside the least time the card
    could take (``bound_ms``).
@@ -76,9 +83,27 @@ Phases, each printing one JSON line:
    backward and both LAMB kernels must have launched; every loss finite
    and the last below the first.  Prints tokens/s, ms a step, peak memory
    and model-FLOPs utilization.
-11. ``kernels``: one entry per kernel with its launches on each main path
+11. ``train_bert_drop_f32``: BERT-large with its published dropout (hidden
+   and attention-probability 0.1) in f32, B=2, T=512, LAMB, 3 steps, TF32
+   off: the kernel path against ``use_flash_attention=False`` on the same
+   seeds (the same keep-bits, the same hidden masks); per-step losses
+   within the tolerance stated.
+12. ``train_bert_drop_bf16``: this slice's main path, BERT-large with its
+   published dropout, otherwise ``train_bert_bf16``'s settings.  Counters
+   zeroed just before and read just after: every flash forward and
+   backward launch ran with the bias and dropout, both LAMB kernels
+   launched, fused Adam and the two-pass backward not; every loss finite.
+   Prints tokens/s, ms a step, peak memory and model-FLOPs utilization.
+13. ``transformer_layer``: ``DeepSpeedTransformerLayer`` at BERT-large
+   width (pre-LN, the op's default dropout 0.1 and 0.1): 24 layers in bf16
+   at B=8, T=512, forward and backward, with a (B, T) mask (the key-row
+   bias) and with a (B, 1, T, T) seq2seq mask (the full bias), each a main
+   path (counters zeroed before, read after); the same stack in f32 at
+   B=2 against plain attention on the same seeds; one layer at B=1,
+   T=9216, whose backward must be the two-pass B6a/B6b and not B2.
+14. ``kernels``: one entry per kernel with its launches on each main path
    (``launches_by_path``: serving, serving_paged, training,
-   training_bert) and their sum.
+   training_bert, training_bert_dropout, transformer_layer) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -160,6 +185,36 @@ LAMB_DIR_FLOPS, LAMB_APPLY_FLOPS = 26, 2
 # the key-padding pattern of the biased attention checks: batch row b
 # keeps BIAS_KEEP[b % 4] of its 512 keys (the rest carry a -1e9 bias)
 BIAS_KEEP = (512, 448, 300, 129)
+# attention dropout: BERT-Large's published rate, and the key words of the
+# kernel checks (both above 2**31, so the uint32 arithmetic is exercised)
+DROP_RATE = 0.1
+DROP_KEY = (0x9E3779B9, 0xBB67AE85)
+# the two-pass backward's check: one sequence past d 64's 8,192-row bound
+# of the fused backward, keeping LONG_KEEP of its keys
+LONG_T, LONG_KEEP = 9216, 8000
+# its entry bound's rms share: BWD_RMS_SHARE was set for sums over at most
+# 1,024 terms; here each gradient sums LONG_T terms that nearly cancel,
+# and the f32 rounding of such a sum grows as the square root of its
+# length.  Against the float64 function (`_bwd2_float64`, on an H100) the
+# f32 dk and dv read 1.24x and 1.01x the unscaled bound, the kernel's and
+# the plain version's alike (the same bits), and dq 0.46x (kernel) and
+# 1.05x (plain, cuBLAS's order): the error is the f32 sum's own, and the
+# kernel's dq is the closer of the two
+LONG_RMS_SHARE = BWD_RMS_SHARE * (LONG_T / 1024) ** 0.5
+# f32 autograd through the kernels vs the plain path (dq, dk, dv and a
+# trainable bias's cotangent), each relative to its largest entry: the
+# same f32 math in other summation orders (the card tests read ~1e-6)
+AUTOGRAD_F32_RTOL = 1e-4
+# train_bert_drop_f32, kernels vs plain attention with dropout on both
+# (the same keep-bits, the same hidden masks), per-step loss (relative):
+# as train_f32's bound (train_bert_f32, without dropout, reads ~1e-7 on
+# an H100)
+TRAIN_DROP_F32_LOSS_RTOL = 1e-5
+# transformer_layer's f32 check, 24 layers at B 2 through the kernels vs
+# plain attention on the same seeds: the output and the input's gradient
+# within this share of their largest entries (f32 sums in other orders,
+# carried through 24 pre-LN layers)
+LAYER_F32_RTOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -206,13 +261,13 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
 
 
-def grad_err(a, b, tol):
+def grad_err(a, b, tol, rms_share=BWD_RMS_SHARE):
     """``(max |a - b|, max of |a - b| over its bound)`` for the backward's
-    entry-by-entry bound ``tol * (|b| + BWD_RMS_SHARE * rms(b))``; the
-    check passes where the second is at most 1."""
+    entry-by-entry bound ``tol * (|b| + rms_share * rms(b))``; the check
+    passes where the second is at most 1."""
     a, b = a.float(), b.float()
     diff = (a - b).abs()
-    bound = tol * (b.abs() + BWD_RMS_SHARE * b.square().mean().sqrt())
+    bound = tol * (b.abs() + rms_share * b.square().mean().sqrt())
     worst = (diff / bound.clamp_min(1e-30)).max()
     return float(diff.max()), float(worst)
 
@@ -1078,6 +1133,330 @@ def check_flash_bias(torch, dev, flush):
     return rows
 
 
+def _sdpa_grad(torch, F, q, k, v, do, **kw):
+    """SDPA's backward through autograd on fresh leaves, for timing: a
+    callable that recomputes the gradients of one forward."""
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lout = F.scaled_dot_product_attention(ql, kl, vl, **kw)
+    return lambda: torch.autograd.grad(lout, (ql, kl, vl), do, retain_graph=True)
+
+
+def _check_bwd_rows(got, ref, tol, label, rms_share=BWD_RMS_SHARE):
+    errs, over = zip(*(grad_err(a, b, tol, rms_share) for a, b in zip(got, ref)))
+    for grad, e, w in zip(("dq", "dk", "dv"), errs, over):
+        check(w <= 1.0, f"{label}: {grad} max_err {e} is {w:.3g}x its entry bound "
+                        f"{tol} * (|ref| + {rms_share} * rms(ref))")
+    check(all(a.isfinite().all().item() for a in got), f"{label}: non-finite gradient")
+    return list(errs), list(over)
+
+
+def _padded_zero(got, keep, T):
+    """The largest |dk|, |dv| over padded keys (must be exactly 0)."""
+    return max(float(max(got[1][b, :, n:].abs().max(), got[2][b, :, n:].abs().max()))
+               for b, n in enumerate(keep) if n < T)
+
+
+def check_flash_dropout(torch, dev, flush):
+    """B1 (with lse) and B2 with BERT-large's key-padding bias and
+    attention dropout 0.1 (in-kernel Threefry bits) at B=8, H=16, T=512,
+    d=64, non-causal, in bf16 and f32, against the plain versions on the
+    same key words (the host twin's bits).  A single wrong keep-bit moves
+    an f32 output by ~|v| / (0.9 T) ~ 2e-3, a hundred times the bound.
+    Library: SDPA with ``dropout_p`` 0.1 and the float mask (its own random
+    stream: the time alone is compared)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, H, T, d = 8, 16, 512, 64
+    drop = fa.make_dropout(DROP_RATE, DROP_KEY)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v, do, kb, keep = _bias_inputs(torch, dev, B, H, T, d, dtype, seed=513)
+        scale = d ** -0.5
+        out, lse = fa.flash_fwd_cuda(q, k, v, False, scale, want_lse=True, kbias=kb, drop=drop)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, False, scale, kb, None, drop)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, False, scale, kb, None, drop)
+        refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, False, scale, kb, None, drop)
+        torch.cuda.synchronize()
+        err, lse_err, tol = max_err(out, ref), max_err(lse, ref_lse), TOL[name]
+        check(torch.isfinite(out).all().item(), f"flash_fwd kbias+dropout {name}: non-finite")
+        check(err <= tol, f"flash_fwd kbias+dropout {name}: max_err {err} > tol {tol}")
+        check(lse_err <= 1e-4, f"flash_fwd kbias+dropout {name}: lse max_err {lse_err} > 1e-4")
+        errs, over = _check_bwd_rows(got, refb, tol, f"flash_bwd kbias+dropout {name}")
+        padded = _padded_zero(got, keep, T)
+        check(padded == 0.0, f"flash_bwd kbias+dropout {name}: a padded key's dk/dv is {padded}")
+        item = dtype.itemsize
+        mask = kb[:, None, None, :].to(dtype)
+        fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + B * T * 4,
+                                4 * B * H * d * T * T, name)
+        rows[("flash_fwd", name)] = {
+            "phase": "kernel", "kernel": "flash_fwd", "bias": "kbias (B, 1, 1, T)",
+            "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+            "causal": False, "lse": True, "keys_kept": keep, "max_err": err,
+            "lse_max_err": lse_err, "tol": tol, "lse_tol": 1e-4,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, False, scale, want_lse=True, kbias=kb, drop=drop), flush),
+            "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(
+                q, k, v, False, scale, kb, None, drop), flush, iters=3),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=DROP_RATE), flush),
+            "bound_ms": fb_ms, "bound_by": fb_by,
+            "bound_note": "the dots' operations; Threefry's integer operations have no "
+                          "peak in the table and are left out",
+        }
+        bb_ms, bb_by = bound_ms(7 * B * H * T * d * item + 2 * B * H * T * 4 + B * T * 4,
+                                5 * 2 * d * T * T * B * H, name)
+        sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=mask, dropout_p=DROP_RATE)
+        rows[("flash_bwd", name)] = {
+            "phase": "kernel", "kernel": "flash_bwd", "bias": "kbias (B, 1, 1, T)",
+            "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+            "causal": False, "keys_kept": keep, "max_err": max(errs), "max_err_dq_dk_dv": errs,
+            "err_over_bound_dq_dk_dv": over, "padded_keys_dk_dv_max": padded, "tol": tol,
+            "tol_rms_share": BWD_RMS_SHARE,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
+                q, k, v, do, lse, delta, False, scale, kb, None, drop), flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
+                q, k, v, do, lse, delta, False, scale, kb, None, drop), flush, iters=3),
+            "library_ms": device_ms(torch, sdpa_bwd, flush, iters=10),
+            "bound_ms": bb_ms, "bound_by": bb_by,
+        }
+        del sdpa_bwd
+        emit(rows[("flash_fwd", name)])
+        emit(rows[("flash_bwd", name)])
+    return rows
+
+
+def check_flash_fbias(torch, dev, flush):
+    """B1 and B2 with the full bias form, read through its broadcast
+    strides, at B=8, H=16, T=512, d=64 with dropout 0.1: a (8, 1, 512, 512)
+    mask (the key padding plus a seq2seq pattern: each row's second half
+    attends causally within it) in bf16 and f32 against the plain
+    versions, and, in f32, a trainable (1, 16, 512, 512) bias through
+    ``flash_attention``'s autograd (its cotangent under dropout) against
+    the plain path with the host twin's keep-mask."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, H, T, d = 8, 16, 512, 64
+    drop = fa.make_dropout(DROP_RATE, DROP_KEY)
+    scale = d ** -0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v, do, kb, keep = _bias_inputs(torch, dev, B, H, T, d, dtype, seed=514)
+        mask4 = seq2seq_mask(torch, kb, T)
+        fb = mask4.expand(B, H, T, T)
+        out, lse = fa.flash_fwd_cuda(q, k, v, False, scale, want_lse=True, fbias=fb, drop=drop)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, False, scale, None, fb, drop)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, False, scale, None, fb, drop)
+        refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, False, scale, None, fb, drop)
+        torch.cuda.synchronize()
+        err, lse_err, tol = max_err(out, ref), max_err(lse, ref_lse), TOL[name]
+        check(torch.isfinite(out).all().item(), f"flash_fwd fbias {name}: non-finite")
+        check(err <= tol, f"flash_fwd fbias {name}: max_err {err} > tol {tol}")
+        check(lse_err <= 1e-4, f"flash_fwd fbias {name}: lse max_err {lse_err} > 1e-4")
+        errs, over = _check_bwd_rows(got, refb, tol, f"flash_bwd fbias {name}")
+        item = dtype.itemsize
+        smask = mask4.to(dtype)
+        bias_bytes = B * T * T * 4  # the (8, 1, 512, 512) f32 mask, read once
+        fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + bias_bytes,
+                                4 * B * H * d * T * T, name)
+        rows[("flash_fwd", name)] = {
+            "phase": "kernel", "kernel": "flash_fwd", "bias": "fbias (B, 1, T, T)",
+            "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+            "causal": False, "lse": True, "max_err": err, "lse_max_err": lse_err, "tol": tol,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, False, scale, want_lse=True, fbias=fb, drop=drop), flush),
+            "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(
+                q, k, v, False, scale, None, fb, drop), flush, iters=3),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=smask, dropout_p=DROP_RATE), flush),
+            "bound_ms": fb_ms, "bound_by": fb_by,
+        }
+        bb_ms, bb_by = bound_ms(7 * B * H * T * d * item + 2 * B * H * T * 4 + bias_bytes,
+                                5 * 2 * d * T * T * B * H, name)
+        sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=smask, dropout_p=DROP_RATE)
+        rows[("flash_bwd", name)] = {
+            "phase": "kernel", "kernel": "flash_bwd", "bias": "fbias (B, 1, T, T)",
+            "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+            "causal": False, "max_err": max(errs), "max_err_dq_dk_dv": errs,
+            "err_over_bound_dq_dk_dv": over, "tol": tol, "tol_rms_share": BWD_RMS_SHARE,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
+                q, k, v, do, lse, delta, False, scale, None, fb, drop), flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
+                q, k, v, do, lse, delta, False, scale, None, fb, drop), flush, iters=3),
+            "library_ms": device_ms(torch, sdpa_bwd, flush, iters=10),
+            "bound_ms": bb_ms, "bound_by": bb_by,
+        }
+        del sdpa_bwd
+        emit(rows[("flash_fwd", name)])
+        emit(rows[("flash_bwd", name)])
+
+    # a trainable per-head bias under dropout, through the autograd function
+    g = torch.Generator(device=dev).manual_seed(515)
+    q, k, v, w = (torch.randn(B, H, T, d, generator=g, device=dev) for _ in range(4))
+    bias = torch.randn(1, H, T, T, generator=g, device=dev) * 0.5
+    grads = {}
+    for label in ("kernels", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        if label == "kernels":
+            out = fa.flash_attention(*leaves[:3], bias=leaves[3], dropout_rate=DROP_RATE,
+                                     dropout_rng=DROP_KEY)
+        else:
+            m4 = fa.dropout_keep_mask_host(DROP_KEY, B, H, T, T, 1 - DROP_RATE, dev)
+            out = fa.mha_reference(*leaves[:3], bias=leaves[3], dropout_mask=m4.view(B, H, T, T),
+                                   keep_prob=1 - DROP_RATE)
+        (out * w).sum().backward()
+        grads[label] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    rel = [max_err(a, b) / float(b.abs().max()) for a, b in zip(grads["kernels"], grads["plain"])]
+    check(max(rel) <= AUTOGRAD_F32_RTOL,
+          f"trainable fbias under dropout: dq/dk/dv/dbias differ by {rel} of their largest "
+          f"entries > {AUTOGRAD_F32_RTOL}")
+    rows["trainable_bias"] = {
+        "phase": "kernel", "kernel": "flash_attention (B1, B2, the bias cotangent)",
+        "bias": "trainable (1, H, T, T)", "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d,
+        "dtype": "float32", "rel_err_dq_dk_dv_dbias": rel, "tol": AUTOGRAD_F32_RTOL}
+    emit(rows["trainable_bias"])
+    return rows
+
+
+def seq2seq_mask(torch, kb, T):
+    """A (B, 1, T, T) f32 mask: the key padding of ``kb`` (B, T), plus a
+    seq2seq (UniLM) pattern, in which every query sees the first half of
+    the row and a query in the second half sees the second half causally."""
+    half = T // 2
+    pos = torch.arange(T, device=kb.device)
+    allowed = (pos[None, :] < half) | (pos[None, :] <= pos[:, None])  # (T, T)
+    return torch.where(allowed[None, None], kb[:, None, None, :],
+                       torch.full((), -1e9, device=kb.device)).float().contiguous()
+
+
+def _bwd2_float64(torch, fa, args):
+    """The two-pass backward's function in float64, head by head, on the
+    same inputs (lse, delta, the f32 keep factor): the yardstick that
+    tells the f32 kernel's summation error from the f32 plain version's.
+    Returns ``(dq, dk, dv)`` in float64."""
+    q, k, v, do, lse, delta, _, scale, kb, _, drop = args
+    keep = fa.keep_mask(drop, q, k)
+    grads = ([], [], [])
+    for h in range(q.shape[1]):
+        qh, kh, vh, doh = (t[0, h].double() for t in (q, k, v, do))
+        p = torch.exp(qh @ kh.T * scale + kb[0].double()[None, :]
+                      - lse[0, h].double()[:, None])
+        f = (keep[0, h].float() / drop.keep_prob).double()
+        ds = p * ((doh @ vh.T) * f - delta[0, h].double()[:, None]) * scale
+        for out, g in zip(grads, (ds @ kh, ds.T @ qh, (p * f).T @ doh)):
+            out.append(g)
+        del p, f, ds
+    del keep
+    return tuple(torch.stack(g)[None] for g in grads)
+
+
+def check_flash_bwd2(torch, dev, flush):
+    """B6a (dq pass) and B6b (dk/dv pass) at one long sequence, B=1, H=16,
+    T=9216, d=64 (past d 64's 8,192-row bound of the fused backward), in
+    bf16 and f32, with a key-padding bias keeping 8,000 keys and dropout
+    0.1: against the two-pass plain version, against B2 on the same
+    inputs, in f32 against the float64 function (:func:`_bwd2_float64`;
+    the plain version's own error beside the kernel's), and dq the same
+    bits over two launches.  Bound by operations:
+    the dq pass 6 T^2 d B H, the dk/dv pass 8 T^2 d B H (14 together).
+    Library: SDPA's backward with the float mask (the whole backward, for
+    both rows)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, H, T, d, kept = 1, 16, LONG_T, 64, LONG_KEEP
+    drop = fa.make_dropout(DROP_RATE, DROP_KEY)
+    scale = d ** -0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        g = torch.Generator(device=dev).manual_seed(9216)
+        q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        kb = torch.zeros(B, T, device=dev)
+        kb[:, kept:] = -1e9
+        out, lse = fa.flash_fwd_cuda(q, k, v, False, scale, want_lse=True, kbias=kb, drop=drop)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, False, scale, kb, None, drop)
+        got = fa.flash_bwd2_cuda(*args)
+        again = fa.flash_bwd_dq_cuda(*args)
+        b2 = fa.flash_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        tol = TOL[name]
+        check(torch.equal(got[0], again), f"flash_bwd_dq {name}: dq differs between two launches")
+        b2_errs, b2_over = _check_bwd_rows(got, b2, tol, f"flash_bwd2 vs flash_bwd {name}",
+                                           LONG_RMS_SHARE)
+        torch.cuda.empty_cache()
+        ref = fa.flash_bwd2_reference(*args)
+        torch.cuda.synchronize()
+        errs, over = _check_bwd_rows(got, ref, tol, f"flash_bwd2 {name}", LONG_RMS_SHARE)
+        f64 = {}
+        if dtype == torch.float32:
+            # both f32 results against float64, at the unscaled rms share
+            torch.cuda.empty_cache()
+            exact = _bwd2_float64(torch, fa, args)
+            for label, res in (("kernel", got), ("plain", ref)):
+                f64[label + "_vs_f64_over_bound_dq_dk_dv"] = [
+                    grad_err(a, b, tol)[1] for a, b in zip(res, exact)]
+            emit({"phase": "kernel", "kernel": "flash_bwd2 vs float64", "dtype": name, "T": T,
+                  "tol": tol, "tol_rms_share": BWD_RMS_SHARE, **f64})
+            _check_bwd_rows(got, exact, tol, f"flash_bwd2 {name} vs float64", LONG_RMS_SHARE)
+            del exact
+        del ref
+        torch.cuda.empty_cache()
+        padded = _padded_zero(got, [kept], T)
+        check(padded == 0.0, f"flash_bwd2 {name}: a padded key's dk/dv is {padded}")
+        item = dtype.itemsize
+        small = 2 * B * H * T * 4 + B * T * 4  # lse, delta, the bias row
+        sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=kb[:, None, None, :].to(dtype))
+        library_ms = device_ms(torch, sdpa_bwd, flush, iters=3, warmup=1)
+        del sdpa_bwd
+        for kernel, fn, plain, nbytes, flops in (
+            ("flash_bwd_dq", lambda: fa.flash_bwd_dq_cuda(*args),
+             lambda: fa.flash_bwd_dq_reference(*args), 5 * B * H * T * d * item + small,
+             6 * T * T * d * B * H),
+            ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv_cuda(*args),
+             lambda: fa.flash_bwd_dkv_reference(*args), 6 * B * H * T * d * item + small,
+             8 * T * T * d * B * H),
+        ):
+            b_ms, b_by = bound_ms(nbytes, flops, name)
+            rows[(kernel, name)] = {
+                "phase": "kernel", "kernel": kernel, "bias": "kbias (B, 1, 1, T)",
+                "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+                "causal": False, "keys_kept": kept, "max_err": max(errs),
+                "max_err_dq_dk_dv": errs, "err_over_bound_dq_dk_dv": over,
+                "vs_flash_bwd_max_err_dq_dk_dv": b2_errs, "vs_flash_bwd_over_bound": b2_over,
+                "dq_bitwise_repeatable": True, "padded_keys_dk_dv_max": padded, "tol": tol,
+                "tol_rms_share": LONG_RMS_SHARE, **f64,
+                "kernel_ms": device_ms(torch, fn, flush, iters=3, warmup=1),
+                "plain_ms": device_ms(torch, plain, flush, iters=1, warmup=0),
+                "library_ms": library_ms, "library": "SDPA's whole backward (float mask)",
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            torch.cuda.empty_cache()
+        rows[("flash_bwd", name)] = {
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(*args), flush, iters=3,
+                                   warmup=1)}
+        emit(rows[("flash_bwd_dq", name)])
+        emit(rows[("flash_bwd_dkv", name)])
+        emit({"phase": "kernel", "kernel": "flash_bwd", "B": B, "H": H, "T": T, "d": d,
+              "dtype": name, "bias": "kbias (B, 1, 1, T)", "dropout": DROP_RATE,
+              "kernel_ms": rows[("flash_bwd", name)]["kernel_ms"],
+              "note": "B2 on B6's inputs, for comparison"})
+        del q, k, v, do, out, lse, delta, got, again, b2, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the training path
 # ---------------------------------------------------------------------------
@@ -1266,6 +1645,239 @@ def phase_train_bert_bf16(torch, params):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-13: BERT-large with its published dropout, the transformer layer
+# ---------------------------------------------------------------------------
+
+def _bert_drop_cfg(bert):
+    """BERT-large as published: hidden and attention-probability dropout
+    0.1 (google-research/bert's BERT-Large ``bert_config.json``)."""
+    return dataclasses.replace(bert.BERT_LARGE, hidden_dropout_prob=0.1,
+                               attention_probs_dropout_prob=0.1)
+
+
+def phase_train_bert_drop_f32(torch, params):
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import BERT_LAMB, synthetic_mlm_batch
+
+    cfg = _bert_drop_cfg(bert)
+    B, T, steps = 2, 512, 3
+    config = {"train_micro_batch_size_per_gpu": B, "gradient_clipping": 1.0, "optimizer": BERT_LAMB}
+    batch = synthetic_mlm_batch(cfg.vocab_size, B, T, seed=23)
+    out = {}
+    for name, c in (("kernels", cfg), ("plain_attention", dataclasses.replace(
+            cfg, use_flash_attention=False))):
+        kernels.reset_launches()
+        engine, losses, walls = _train(torch, bert.make_model(c)[0], params, config, batch, steps)
+        out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                     "launches": kernels.launches(), "variants": kernels.launch_variants()}
+        del engine
+        torch.cuda.empty_cache()
+    kl, pl = out["kernels"], out["plain_attention"]
+    for name in ("flash_fwd", "flash_bwd"):
+        check(kl["launches"][name] > 0 and kl["variants"][name] == {
+            "kbias+dropout": kl["launches"][name]} and pl["launches"][name] == 0,
+            f"train_bert_drop_f32: {name} launches {kl['variants'][name]} / {pl['launches'][name]}")
+    k, p = kl["losses"], pl["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
+    check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_bert_drop_f32: non-finite {k} / {p}")
+    check(max(rel) <= TRAIN_DROP_F32_LOSS_RTOL,
+          f"train_bert_drop_f32: kernel vs plain losses differ by {max(rel)} > "
+          f"{TRAIN_DROP_F32_LOSS_RTOL}")
+    emit({"phase": "train_bert_drop_f32", "model": "bert-large", "hidden_dropout": 0.1,
+          "attention_dropout": 0.1, "B": B, "T": T, "steps": steps,
+          "keys_kept": batch["attention_mask"].sum(1).tolist(), "allow_tf32": False,
+          "losses": out, "max_rel_diff": max(rel), "tol": TRAIN_DROP_F32_LOSS_RTOL})
+
+
+def phase_train_bert_drop_bf16(torch, params):
+    """The main path of this slice: BERT-large with its published dropout,
+    train_bert_bf16's phase-2 settings otherwise."""
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import BERT_LAMB, synthetic_mlm_batch
+
+    cfg = _bert_drop_cfg(bert)
+    mb, gas, T, steps = 8, 2, 512, 4
+    config = {
+        "train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
+        "bf16": {"enabled": True}, "gradient_clipping": 1.0, "optimizer": BERT_LAMB,
+        "scheduler": {"type": "WarmupDecayLR", "params": {
+            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_min_lr": 2e-4,
+            "warmup_max_lr": 2e-3}},
+    }
+    batch = synthetic_mlm_batch(cfg.vocab_size, mb * gas, T, seed=22)
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    engine, losses, walls = _train(torch, bert.make_model(cfg)[0], params, config, batch, steps)
+    launches = kernels.launches()
+    variants = kernels.launch_variants()
+    # ----------------------------------------------------------------------
+
+    for name in ("flash_fwd", "flash_bwd", "fused_lamb_dir", "fused_lamb_apply"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the BERT dropout main path")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(variants[name] == {"kbias+dropout": launches[name]},
+              f"train_bert_drop_bf16: {name} ran {variants[name]}, not all with bias and dropout")
+    for name in ("fused_adam", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == 0, f"train_bert_drop_bf16: {name} launched {launches}")
+    check(all(np.isfinite(losses)), f"train_bert_drop_bf16: non-finite loss {losses}")
+    tokens = mb * gas * T
+    step_s = float(sum(walls[1:])) / (steps - 1)
+    L, d = cfg.num_hidden_layers, cfg.hidden_size
+    flops = tokens * (6 * cfg.num_params() + 12 * L * T * d)
+    emit({"phase": "train_bert_drop_bf16", "model": "bert-large", "hidden_dropout": 0.1,
+          "attention_dropout": 0.1, "optimizer": BERT_LAMB, "micro_batch": mb, "gas": gas,
+          "T": T, "steps": steps, "real_tokens_per_step": int(batch["attention_mask"].sum()),
+          "losses": losses, "step_ms": [w * 1e3 for w in walls],
+          "step_ms_mean_after_first": step_s * 1e3, "tokens_per_step": tokens,
+          "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "launches": launches, "variants": variants, "global_steps": engine.global_steps})
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _layer_stack(torch, cfg, n, dev):
+    from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerLayer
+
+    return [DeepSpeedTransformerLayer(cfg, seed=i, device=dev) for i in range(n)]
+
+
+def _run_stack(torch, layers, x, mask, seed, w):
+    """Forward through ``layers`` with per-layer seeds drawn from a CPU
+    generator seeded ``seed``, then the backward of ``sum(out * w)``.
+    Returns the output and the input's gradient."""
+    from deepspeed_tpu_torch.ops.transformer.transformer import draw_seeds
+
+    gen = torch.Generator().manual_seed(seed)
+    x = x.detach().clone().requires_grad_()
+    h = x
+    for layer in layers:
+        h = layer(h, attention_mask=mask, rng=draw_seeds(gen), training=True)
+    (h.float() * w).sum().backward()
+    return h.detach(), x.grad
+
+
+def phase_transformer_layer(torch, dev):
+    """DeepSpeedTransformerLayer at BERT-large width (d 1024, 16 heads of
+    64, FFN 4096, pre-LN, dropout 0.1 and 0.1, the op's defaults): 24
+    layers in bf16 at B 8, T 512, forward and backward, with a (B, T) mask
+    (B1/B2 with the key-row bias) and with a (B, 1, T, T) seq2seq mask (the
+    full bias); the same in f32 at B 2 against plain attention on the same
+    seeds; and one layer at B 1, T 9216 with a (B, T) mask, whose backward
+    is the two-pass B6a/B6b."""
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerConfig
+
+    cfg = DeepSpeedTransformerConfig(
+        batch_size=8, hidden_size=1024, intermediate_size=4096, heads=16, attn_dropout_ratio=0.1,
+        hidden_dropout_ratio=0.1, num_hidden_layers=24, pre_layer_norm=True,
+        dtype=torch.bfloat16)
+    L, B, T, D = 24, 8, 512, 1024
+    layers = _layer_stack(torch, cfg, L, dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn(B, T, D, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(B, T, D, generator=g, device=dev)
+    keep = torch.tensor([BIAS_KEEP[b % 4] for b in range(B)], device=dev)
+    mask2 = (torch.arange(T, device=dev)[None, :] < keep[:, None]).long()
+    kb = torch.where(mask2.bool(), 0.0, -1e9)
+    mask4 = seq2seq_mask(torch, kb, T)
+    runs, launches = {}, {}
+    total = {name: 0 for name in kernels.launches()}
+    want = {"2d": "kbias+dropout", "4d": "fbias+dropout"}
+    # one untimed pass of each form first (cuBLAS plans, the allocator):
+    # the first timed pass read 413 ms against the second form's 139 ms
+    for mask in (mask2, mask4):
+        _run_stack(torch, layers, x, mask, 4, w)
+    for form, mask in (("2d", mask2), ("4d", mask4)):
+        for layer in layers:
+            layer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        # -- the main path: counters zeroed just before, read just after ---
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, dx = _run_stack(torch, layers, x, mask, 5, w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[form] = kernels.launches()
+        variants = kernels.launch_variants()
+        # ------------------------------------------------------------------
+        for name in ("flash_fwd", "flash_bwd"):
+            check(variants[name] == {want[form]: L},
+                  f"transformer_layer {form}: {name} ran {variants[name]}, want {L} {want[form]}")
+        check(launches[form]["flash_bwd_dq"] == 0 and launches[form]["flash_bwd_dkv"] == 0,
+              f"transformer_layer {form}: two-pass backward launched {launches[form]}")
+        check(out.isfinite().all().item() and dx.isfinite().all().item(),
+              f"transformer_layer {form}: non-finite output or gradient")
+        for name, n in launches[form].items():
+            total[name] += n
+        runs[form] = {"wall_ms": wall * 1e3, "launches": launches[form], "variants": variants,
+                      "out_rms": float(out.float().square().mean().sqrt())}
+    del layers, x, w, out, dx
+    torch.cuda.empty_cache()
+
+    # -- f32 at B 2: the kernels against plain attention, the same seeds -----
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    layers = _layer_stack(torch, f32, L, dev)
+    x = torch.randn(2, T, D, generator=g, device=dev)
+    w = torch.randn(2, T, D, generator=g, device=dev)
+    f32_err = {}
+    for form, mask in (("2d", mask2[:2]), ("4d", mask4[:2])):
+        res = {}
+        for label, use_flash in (("kernels", True), ("plain", False)):
+            for layer in layers:
+                layer.config = dataclasses.replace(f32, use_flash_attention=use_flash)
+                layer.zero_grad(set_to_none=True)
+            res[label] = _run_stack(torch, layers, x, mask, 6, w)
+        errs = [max_err(a, b) / float(b.abs().max()) for a, b in zip(res["kernels"], res["plain"])]
+        check(max(errs) <= LAYER_F32_RTOL,
+              f"transformer_layer f32 {form}: kernels vs plain attention differ by {errs} of the "
+              f"largest entries > {LAYER_F32_RTOL}")
+        f32_err[form] = {"out": errs[0], "dx": errs[1]}
+    del layers, x, w, res
+    torch.cuda.empty_cache()
+
+    # -- one layer at T 9216: the two-pass backward ----------------------------
+    (layer,) = _layer_stack(torch, dataclasses.replace(cfg, num_hidden_layers=1), 1, dev)
+    x = torch.randn(1, LONG_T, D, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(1, LONG_T, D, generator=g, device=dev)
+    mask = (torch.arange(LONG_T, device=dev) < LONG_KEEP).long()[None]
+    torch.cuda.synchronize()
+    # -- the main path: counters zeroed just before, read just after -------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out, dx = _run_stack(torch, [layer], x, mask, 7, w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["long"] = kernels.launches()
+    variants = kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    check(launches["long"]["flash_bwd_dq"] == 1 and launches["long"]["flash_bwd_dkv"] == 1
+          and launches["long"]["flash_bwd"] == 0 and launches["long"]["flash_fwd"] == 1,
+          f"transformer_layer T={LONG_T}: launches {launches['long']}")
+    check(variants["flash_bwd_dq"] == {"kbias+dropout": 1},
+          f"transformer_layer T={LONG_T}: B6a ran {variants['flash_bwd_dq']}")
+    check(out.isfinite().all().item() and dx.isfinite().all().item(),
+          f"transformer_layer T={LONG_T}: non-finite output or gradient")
+    for name, n in launches["long"].items():
+        total[name] += n
+    runs["long"] = {"B": 1, "T": LONG_T, "keys_kept": LONG_KEEP, "wall_ms": wall * 1e3,
+                    "launches": launches["long"], "variants": variants}
+    emit({"phase": "transformer_layer", "layers": L, "d": D, "heads": 16, "ffn": 4096,
+          "pre_ln": True, "attn_dropout": 0.1, "hidden_dropout": 0.1, "B": B, "T": T,
+          "dtype": "bfloat16", "runs": runs, "f32_B2_rel_err": f32_err, "f32_tol": LAYER_F32_RTOL})
+    del layer, x, w, out, dx
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1305,6 +1917,10 @@ def main() -> int:
     adam_rows = check_fused_adam(torch, dev, flush)
     bias_rows = check_flash_bias(torch, dev, flush)
     lamb_rows = check_fused_lamb(torch, dev, flush)
+    drop_rows = check_flash_dropout(torch, dev, flush)
+    fbias_rows = check_flash_fbias(torch, dev, flush)
+    torch.cuda.empty_cache()
+    long_rows = check_flash_bwd2(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1322,8 +1938,15 @@ def main() -> int:
     bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
     phase_train_bert_f32(torch, bert_params)
     bert_launches = phase_train_bert_bf16(torch, bert_params)
+    phase_train_bert_drop_f32(torch, bert_params)
+    drop_launches = phase_train_bert_drop_bf16(torch, bert_params)
+    del bert_params
+    torch.cuda.empty_cache()
+    layer_launches = phase_transformer_layer(torch, dev)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
-                      "training": train_launches[name], "training_bert": bert_launches[name]}
+                      "training": train_launches[name], "training_bert": bert_launches[name],
+                      "training_bert_dropout": drop_launches[name],
+                      "transformer_layer": layer_launches[name]}
                for name in serve_launches}
 
     # the main-path shapes: the GPT-2 training step's bf16 attention (B=8,
@@ -1331,8 +1954,11 @@ def main() -> int:
     # x 1024 positions), the bf16 paged pool's decode (8 slots x 8 pages of
     # 128), one step's fused Adam over GPT-2 124M's 16 leaves and one step's
     # fused LAMB over BERT-large's 26 leaves (no bias correction, as the
-    # main path).  B1 and B2 also carry their row at the BERT main path's
-    # shape (bf16, B=8, H=16, T=512, the key-padding bias) under "kbias".
+    # main path), B6a and B6b at one bf16 sequence of 9,216 (B=1, H=16, a
+    # key-padding bias, dropout 0.1).  B1 and B2 also carry their rows at
+    # the BERT main paths' shape (bf16, B=8, H=16, T=512): the key-padding
+    # bias under "kbias", with dropout 0.1 under "kbias_dropout" (this
+    # slice's main path), the (B, 1, T, T) mask with dropout under "fbias".
     bwd = next(r for r in bwd_rows if r["T"] == 1024 and r["dtype"] == "bfloat16")
     dec = next(r for r in dec_rows if r["kv"] == "bfloat16" and not r["masked"])
     paged = next(r for r in paged_rows if r["kv"] == "bfloat16")
@@ -1350,6 +1976,10 @@ def main() -> int:
         ("fused_lamb_dir", lamb["fused_lamb_dir"], "deepspeed_tpu/ops/kernels/fused_update.py:214"),
         ("fused_lamb_apply", lamb["fused_lamb_apply"],
          "deepspeed_tpu/ops/kernels/fused_update.py:231"),
+        ("flash_bwd_dq", long_rows[("flash_bwd_dq", "bfloat16")],
+         "deepspeed_tpu/ops/attention/flash_attention.py:480"),
+        ("flash_bwd_dkv", long_rows[("flash_bwd_dkv", "bfloat16")],
+         "deepspeed_tpu/ops/attention/flash_attention.py:538"),
     ):
         entry = {
             "name": name, "route": "cuda", "source": report[name]["source"],
@@ -1358,11 +1988,13 @@ def main() -> int:
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         }
-        biased = bias_rows.get((name, "bfloat16"))
-        if biased is not None:
-            entry["kbias"] = {key: biased[key] for key in (
-                "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}
+        for label, rows_of in (("kbias", bias_rows), ("kbias_dropout", drop_rows),
+                               ("fbias", fbias_rows)):
+            row = rows_of.get((name, "bfloat16"))
+            if row is not None:
+                entry[label] = {key: row[key] for key in (
+                    "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
         entries.append(entry)
     print(smi, flush=True)
     emit({"kernels": entries})

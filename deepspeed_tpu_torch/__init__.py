@@ -47,7 +47,7 @@ def initialize(
     parallelism and partition rules (ROADMAP A6), a data loader from
     ``training_data`` (A5) and pipeline modules (A11) are not ported."""
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig, DeepSpeedConfigError
-    from deepspeed_tpu_torch.inference.engine import resolve_device
+    from deepspeed_tpu_torch.utils.device import resolve_device
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     device = resolve_device(device)

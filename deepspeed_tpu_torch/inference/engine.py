@@ -20,21 +20,10 @@ from deepspeed_tpu_torch.ops.transformer.inference import (
     forward_with_cache,
     init_kv_cache,
 )
+from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _MASK64 = (1 << 64) - 1
-
-
-def resolve_device(device: Any) -> torch.device:
-    """The engine's device.  A CUDA device with no card raises: the port
-    never drifts to the CPU on its own."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r} was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path on the CPU"
-        )
-    return dev
 
 
 def _generator(device: torch.device, seed: int, position: int) -> torch.Generator:

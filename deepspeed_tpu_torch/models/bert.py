@@ -12,11 +12,16 @@ both sides of the port.
 
 The layer loop is a Python loop over the stacked parameters; with
 ``remat`` each block runs under ``torch.utils.checkpoint`` and is
-recomputed in the backward.  Attention is non-causal with the key-padding
-mask as an f32 (B, 1, 1, T) bias of 0 or -1e9, which the flash kernels take
-as their key-row bias.  Attention-probability dropout is not ported
-(ROADMAP A9); hidden dropout is :func:`deepspeed_tpu_torch.ops.normalize.
-dropout` (another generator than the JAX package's, so its masks differ).
+recomputed in the backward.  A block is the training layer op's
+``encoder_block`` (``ops/transformer/transformer.py``).  Attention is
+non-causal with the key-padding mask as an f32 (B, 1, 1, T) bias of 0 or
+-1e9, which the flash kernels take as their key-row bias.  Attention-probability dropout is keyed per layer by
+a pair of uint32 words drawn outside the checkpoint: the kernels regenerate
+its keep-bits from each score's position (so a recomputed block drops the
+same scores), and the plain-attention branch applies the same bits from
+``flash_attention.keep_mask``.  Hidden dropout is
+:func:`deepspeed_tpu_torch.ops.normalize.dropout` (another generator than
+the JAX package's, so its masks differ).
 """
 from __future__ import annotations
 
@@ -29,12 +34,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
-from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
 from deepspeed_tpu_torch.ops.normalize import token_nll
-
-MASK_BIAS = -1e9  # the score bias of a padded key
+from deepspeed_tpu_torch.ops.transformer.transformer import (
+    PARAM_KEYS,
+    encoder_block,
+    key_padding_bias,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,12 +61,6 @@ class BertConfig:
     # steers the JAX package's XLA layer scan; kept for config
     # compatibility, not read here
     scan_unroll: int = 1
-
-    def __post_init__(self):
-        if self.attention_probs_dropout_prob > 0.0:
-            raise NotImplementedError(
-                "attention_probs_dropout_prob > 0 (attention dropout) is not ported yet "
-                "(ROADMAP A9)")
 
     @property
     def head_dim(self) -> int:
@@ -84,10 +84,7 @@ BERT_LARGE = BertConfig(hidden_size=1024, num_hidden_layers=24, num_attention_he
 
 PRESETS = {"tiny": BERT_TINY, "bert-base": BERT_BASE, "bert-large": BERT_LARGE}
 
-BLOCK_KEYS = (
-    "ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
-    "ln2_g", "ln2_b", "fc_w", "fc_b", "fc_proj_w", "fc_proj_b",
-)
+BLOCK_KEYS = PARAM_KEYS  # the encoder layer's weights, stacked under "blocks"
 TOP_KEYS = (
     "tok_emb", "pos_emb", "type_emb", "emb_ln_g", "emb_ln_b", "pooler_w", "pooler_b",
     "mlm_dense_w", "mlm_dense_b", "mlm_ln_g", "mlm_ln_b", "mlm_bias", "nsp_w", "nsp_b",
@@ -160,53 +157,22 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
             "blocks": {k: conv(tree["blocks"][k]) for k in BLOCK_KEYS}}
 
 
-def _dropout_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    if seed is None:
-        return None
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 def _bert_block(cfg: BertConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
                 mask_bias: Optional[torch.Tensor], seeds: Optional[tuple],
                 deterministic: bool) -> torch.Tensor:
-    """One encoder block, pre-LN or post-LN; ``lp`` holds this layer's
-    slice of the stacked params.  ``seeds``: two ints for the block's
-    hidden-dropout generators (None in eval), so a recomputed block draws
-    the same masks."""
-    B, T, D = x.shape
-    H, hd = cfg.num_attention_heads, cfg.head_dim
-    r1, r2 = (_dropout_generator(s, x.device) for s in (seeds or (None, None)))
-
-    def attn_part(h):
-        qkv = h @ lp["qkv_w"].to(h.dtype) + lp["qkv_b"].to(h.dtype)
-        q, k, v = qkv.split(D, dim=-1)
-
-        def heads(t):
-            return t.reshape(B, T, H, hd).transpose(1, 2)
-
-        q, k, v = heads(q), heads(k), heads(v)
-        if cfg.use_flash_attention:
-            out = flash_attention(q, k, v, causal=False, bias=mask_bias)
-        else:
-            out = mha_reference(q, k, v, causal=False, bias=mask_bias)
-        out = out.transpose(1, 2).reshape(B, T, D)
-        return out @ lp["proj_w"].to(out.dtype) + lp["proj_b"].to(out.dtype)
-
-    def mlp_part(h):
-        h = h @ lp["fc_w"].to(h.dtype) + lp["fc_b"].to(h.dtype)
-        h = F.gelu(h)
-        return h @ lp["fc_proj_w"].to(h.dtype) + lp["fc_proj_b"].to(h.dtype)
-
-    eps, rate = cfg.layer_norm_eps, cfg.hidden_dropout_prob
-    if cfg.pre_layer_norm:
-        x = x + _dropout(attn_part(_layer_norm(x, lp["ln1_g"], lp["ln1_b"], eps)), rate, r1,
-                         deterministic)
-        return x + _dropout(mlp_part(_layer_norm(x, lp["ln2_g"], lp["ln2_b"], eps)), rate, r2,
-                            deterministic)
-    x = _layer_norm(x + _dropout(attn_part(x), rate, r1, deterministic), lp["ln1_g"],
-                    lp["ln1_b"], eps)
-    return _layer_norm(x + _dropout(mlp_part(x), rate, r2, deterministic), lp["ln2_g"],
-                       lp["ln2_b"], eps)
+    """One encoder block, pre-LN or post-LN: the training layer op's
+    :func:`encoder_block` on this layer's slice of the stacked params.
+    ``seeds`` (None in eval): ``(s1, s2, attn_key)``, two ints for the
+    block's hidden-dropout generators (None without hidden dropout) and
+    the attention dropout's key, a pair of uint32 words (None without
+    attention dropout; the JAX package's ``r_attn``), so a recomputed block
+    draws the same masks."""
+    s1, s2, attn_key = seeds or (None, None, None)
+    return encoder_block(
+        lp, x, mask_bias, (attn_key, s1, s2), heads=cfg.num_attention_heads,
+        pre_layer_norm=cfg.pre_layer_norm, eps=cfg.layer_norm_eps,
+        hidden_rate=cfg.hidden_dropout_prob, attn_rate=cfg.attention_probs_dropout_prob,
+        use_flash=cfg.use_flash_attention, deterministic=deterministic)
 
 
 def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
@@ -217,8 +183,11 @@ def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
     """The encoder: ``input_ids (B, T)`` → hidden states ``(B, T, d)`` in
     the parameters' type.  ``attention_mask`` (B, T), nonzero where a key
     is real, becomes the f32 bias 0 / -1e9 on every head's scores.
-    ``generator`` draws the hidden-dropout seeds (a CPU generator keeps
-    the draw off the device); None or ``deterministic`` means no dropout."""
+    ``generator`` draws the per-layer dropout seeds before the layers run
+    (a CPU generator keeps the draw off the device): two hidden-dropout
+    seeds where ``hidden_dropout_prob > 0``, then an attention key of two
+    uint32 words where ``attention_probs_dropout_prob > 0``; None or
+    ``deterministic`` means no dropout."""
     B, T = input_ids.shape
     dtype = params["blocks"]["qkv_w"].dtype
     x = params["tok_emb"][input_ids.long()] + params["pos_emb"][:T][None]
@@ -230,18 +199,21 @@ def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
         x = x + params["type_emb"][token_type_ids.long()]
     x = _layer_norm(x.to(dtype), params["emb_ln_g"], params["emb_ln_b"], cfg.layer_norm_eps)
 
-    mask_bias = None
-    if attention_mask is not None:
-        keep = attention_mask[:, None, None, :].bool()
-        mask_bias = torch.where(keep, torch.zeros((), dtype=torch.float32, device=x.device),
-                                torch.full((), MASK_BIAS, dtype=torch.float32, device=x.device))
+    mask_bias = key_padding_bias(attention_mask, x.device)
 
     L = cfg.num_hidden_layers
     layers = {key: params["blocks"][key].unbind(0) for key in BLOCK_KEYS}
     seeds = [None] * L
-    if generator is not None and not deterministic and cfg.hidden_dropout_prob > 0.0:
-        draw = torch.randint(0, 2**62, (L, 2), generator=generator, device=generator.device)
-        seeds = [tuple(row) for row in draw.tolist()]
+    if generator is not None and not deterministic:
+        hidden, attn = [(None, None)] * L, [None] * L
+        if cfg.hidden_dropout_prob > 0.0:
+            hidden = torch.randint(0, 2**62, (L, 2), generator=generator,
+                                   device=generator.device).tolist()
+        if cfg.attention_probs_dropout_prob > 0.0:
+            attn = [tuple(a) for a in torch.randint(0, 2**32, (L, 2), generator=generator,
+                                                    dtype=torch.int64,
+                                                    device=generator.device).tolist()]
+        seeds = [(s1, s2, a) for (s1, s2), a in zip(hidden, attn)]
     block_fn = functools.partial(_bert_block, cfg)
     for i in range(L):
         lp = {key: layers[key][i] for key in BLOCK_KEYS}
@@ -289,7 +261,8 @@ def make_model(cfg: BertConfig):
     A6."""
 
     def model_fn(params, batch, generator):
-        deterministic = generator is None or cfg.hidden_dropout_prob == 0.0
+        deterministic = generator is None or (cfg.hidden_dropout_prob == 0.0
+                                              and cfg.attention_probs_dropout_prob == 0.0)
         return mlm_nsp_loss(params, batch, generator=generator, cfg=cfg,
                             deterministic=deterministic)
 

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
+from deepspeed_tpu_torch.ops.normalize import dropout_generator
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
 from deepspeed_tpu_torch.ops.normalize import token_nll
 
@@ -176,12 +177,6 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
     }
 
 
-def _dropout_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    if seed is None:
-        return None
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
            seeds: Optional[tuple], deterministic: bool) -> torch.Tensor:
     """One transformer block; ``lp`` holds this layer's slice of the
@@ -190,7 +185,7 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     masks."""
     B, T, D = x.shape
     H, hd = cfg.n_head, cfg.head_dim
-    r1, r2, r3 = (_dropout_generator(s, x.device) for s in (seeds or (None,) * 3))
+    r1, r2, r3 = (dropout_generator(s, x.device) for s in (seeds or (None,) * 3))
 
     h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
     qkv = h @ lp["qkv_w"].to(h.dtype) + lp["qkv_b"].to(h.dtype)

@@ -3,7 +3,9 @@
 Each kernel is a plain C entry point in a CUDA C++ source under
 ``deepspeed_tpu_torch/csrc/`` (two kernels may share a source: B4 and B5
 live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
-``fused_lamb.cu``).  At first use the source is
+``fused_lamb.cu``, the two-pass attention backward B6a and B6b in
+``flash_bwd_2pass.cu``; the flash sources share the device functions of
+``flash_common.cuh``).  At first use the source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
@@ -13,13 +15,16 @@ There is no switch between kernels and their plain versions: a wrapper
 launches its kernel for a CUDA tensor and takes the plain PyTorch
 version for a CPU tensor.  Each wrapper counts its launches here
 (:func:`count_launch`), so a run can show which kernels its path went
-through.  Tile sizes are fixed in the sources (the JAX package's block
+through, and by variant (:func:`launch_variants`: the attention kernels
+name their bias form and dropout), so a run can show which options they
+ran with.  Tile sizes are fixed in the sources (the JAX package's block
 autotuner is not ported).
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -35,17 +40,25 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+_LOCAL_INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_U = ctypes.c_uint32
+
+# the extended options every flash-attention entry point takes after its
+# tensors: kbias, fbias, fbias's four element strides, dropout, k0, k1,
+# threshold, inv_keep
+_FLASH_EXT = [_P, _P, _L, _L, _L, _L, _I, _U, _U, _U, _F]
 
 # kernel name -> (source, C entry point, argtypes)
 KERNELS = {
     "flash_fwd": (
         "flash_fwd.cu", "ds_flash_fwd",
-        # q, k, v, out, lse, kbias, BH, H, sq, sk, d, dtype, causal, sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, out, lse, <ext>, BH, H, sq, sk, d, dtype, causal, sm_scale, stream
+        [_P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "flash_decode": (
         "flash_decode.cu", "ds_flash_decode",
@@ -60,9 +73,20 @@ KERNELS = {
     ),
     "flash_bwd": (
         "flash_bwd.cu", "ds_flash_bwd",
-        # q, k, v, dout, lse, delta, kbias, dq32, dk, dv, BH, H, sq, sk, d, dtype, causal,
+        # q, k, v, dout, lse, delta, dq32, dk, dv, <ext>, BH, H, sq, sk, d, dtype, causal,
         # sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_bwd_dq": (
+        "flash_bwd_2pass.cu", "ds_flash_bwd_dq",
+        # q, k, v, dout, lse, delta, dq, <ext>, BH, H, sq, sk, d, dtype, causal, sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "flash_bwd_dkv": (
+        "flash_bwd_2pass.cu", "ds_flash_bwd_dkv",
+        # q, k, v, dout, lse, delta, dk, dv, <ext>, BH, H, sq, sk, d, dtype, causal, sm_scale,
+        # stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "fused_adam": (
         "fused_adam.cu", "ds_fused_adam",
@@ -107,6 +131,7 @@ class KernelLibrary:
     def __init__(self, build_dir: Path = BUILD_DIR):
         self.build_dir = Path(build_dir)
         self.launches: Dict[str, int] = {name: 0 for name in KERNELS}
+        self.variants: Dict[str, Dict[str, int]] = {name: {} for name in KERNELS}
         self.build_seconds: Dict[str, float] = {}
         self.build_log: Dict[str, str] = {}
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -117,8 +142,12 @@ class KernelLibrary:
 
     def _stale(self, name: str) -> bool:
         so = self._so_path(name)
+        if not so.exists():
+            return True
+        # a source's own file and the headers of csrc/ that it includes
         src = CSRC_DIR / KERNELS[name][0]
-        return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+        deps = [src, *(CSRC_DIR / h for h in _LOCAL_INCLUDE.findall(src.read_text()))]
+        return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
     def build(self, names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, float]:
         """Compile the named kernels (default: all) that are missing or
@@ -185,6 +214,7 @@ class KernelLibrary:
     def reset_launches(self) -> None:
         for name in self.launches:
             self.launches[name] = 0
+            self.variants[name] = {}
 
 
 _LIBRARY = KernelLibrary()
@@ -200,8 +230,14 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     return _LIBRARY.build(names, force=force)
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, variant: Optional[str] = None) -> None:
+    """One launch of kernel ``name``; ``variant`` names the options it ran
+    with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
+    ``+dropout``)."""
     _LIBRARY.launches[name] += 1
+    if variant is not None:
+        v = _LIBRARY.variants[name]
+        v[variant] = v.get(variant, 0) + 1
 
 
 def reset_launches() -> None:
@@ -210,6 +246,12 @@ def reset_launches() -> None:
 
 def launches() -> Dict[str, int]:
     return dict(_LIBRARY.launches)
+
+
+def launch_variants() -> Dict[str, Dict[str, int]]:
+    """Per kernel, its launches since the last :func:`reset_launches` by
+    the variant it ran (kernels that name none have an empty dict)."""
+    return {name: dict(v) for name, v in _LIBRARY.variants.items()}
 
 
 def kernels_report() -> Dict[str, Dict[str, object]]:

@@ -17,6 +17,14 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) ->
     return (y * g.float() + b.float()).to(x.dtype)
 
 
+def dropout_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A dropout generator on ``device`` seeded ``seed`` (None: no
+    dropout)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout drawn from ``generator`` (a ``torch.Generator`` on

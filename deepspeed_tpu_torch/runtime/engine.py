@@ -37,7 +37,7 @@ import torch
 
 from deepspeed_tpu_torch.config import constants as C
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
-from deepspeed_tpu_torch.inference.engine import resolve_device
+from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.ops.adam.fused_adam import SGD, FusedAdam, FusedAdamW
 from deepspeed_tpu_torch.ops.kernels.fused_update import engine_update
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb

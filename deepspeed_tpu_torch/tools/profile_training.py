@@ -2,13 +2,16 @@
 
     python -m deepspeed_tpu_torch.tools.profile_training [--steps 2] [--trace out.json]
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --optimizer lamb --seq 512
+    python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --dropout 0.1
 
 Builds ``initialize()`` in bf16 over f32 masters (random weights from
 ``--seed``), micro-batch 8, gradient accumulation 2, clipping 1.0, for one
 of two training main paths of ``chip_smoke.py``: GPT-2 124M at T 1024 with
 AdamW (``train_bf16``, the default), or BERT-large MLM + NSP pretraining
 at T 512 with LAMB (bing_bert's phase-2 settings) on a synthetic padded
-batch (``train_bert_bf16``).  Runs two warm-up steps, then ``--steps``
+batch (``train_bert_bf16``; with ``--dropout 0.1``, BERT-large's
+published hidden and attention-probability dropout, ``train_bert_drop_bf16``).
+Runs two warm-up steps, then ``--steps``
 steps of one fixed batch under ``torch.profiler`` with CPU and CUDA
 activities.  Prints one JSON line: the window, the device-busy time (the
 union of the kernels' intervals) and the idle share, the device time by
@@ -32,6 +35,8 @@ from deepspeed_tpu_torch.tools.profile_serving import _union_us
 KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_bwd", ("flash_bwd_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_lamb_dir", ("lamb_dir_kernel",)),
     ("fused_lamb_apply", ("lamb_apply_kernel",)),
@@ -80,19 +85,23 @@ def synthetic_mlm_batch(vocab_size: int, B: int, T: int, seed: int = 0) -> dict:
     }
 
 
-def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int):
+def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, dropout: float = 0.0):
     """``(engine, batch, cfg)`` of a bf16 training run: GPT-2 124M or
     BERT-large at width and depth, random weights from ``seed``, one
-    fixed batch of ``gas * mb`` rows."""
+    fixed batch of ``gas * mb`` rows; ``dropout``: BERT's hidden and
+    attention-probability dropout (GPT-2's ``dropout``)."""
+    import dataclasses
+
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import bert, gpt2
 
     if model == "bert-large":
-        cfg = bert.PRESETS[model]
+        cfg = dataclasses.replace(bert.PRESETS[model], hidden_dropout_prob=dropout,
+                                  attention_probs_dropout_prob=dropout)
         model_fn, init_fn, _ = bert.make_model(cfg)
         batch = synthetic_mlm_batch(cfg.vocab_size, mb * gas, T, seed)
     else:
-        cfg = gpt2.PRESETS[model]
+        cfg = dataclasses.replace(gpt2.PRESETS[model], dropout=dropout)
         model_fn, init_fn, _ = gpt2.make_model(cfg)
         batch = {"input_ids": np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (mb * gas, T), dtype=np.int32)}
@@ -111,6 +120,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--optimizer", default=None, choices=["adamw", "lamb"],
                     help="default: adamw for gpt2, lamb for bert-large")
     ap.add_argument("--seq", type=int, default=None, help="default: 1024 for gpt2, 512 for bert")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="hidden (and BERT's attention) dropout; BERT-large publishes 0.1")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the window here")
@@ -122,7 +133,7 @@ def main(argv=None) -> dict:
     optimizer = args.optimizer or ("lamb" if bert_run else "adamw")
     T = args.seq or (512 if bert_run else 1024)
     mb, gas = 8, 2
-    engine, batch, _ = build(args.model, optimizer, T, mb, gas, args.seed)
+    engine, batch, _ = build(args.model, optimizer, T, mb, gas, args.seed, args.dropout)
     for _ in range(2):  # warm-up: kernel build and load, allocator
         float(engine.train_batch(batch))
     torch.cuda.synchronize()
@@ -155,6 +166,7 @@ def main(argv=None) -> dict:
     steps = args.steps
     out = {
         "profile": "train_step", "model": args.model, "optimizer": optimizer, "dtype": "bf16",
+        "dropout": args.dropout,
         "micro_batch": mb, "gas": gas,
         "T": T, "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
         "tokens_per_s": mb * gas * T * steps / wall,

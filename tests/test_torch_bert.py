@@ -10,6 +10,10 @@ attention branch; ``BERT_TINY`` with 256 positions at T 256 takes the
 flash kernels (the JAX Pallas kernels interpreted, the port the plain
 versions of its CUDA kernels), with the mask as their key-row bias.
 
+The block with attention dropout runs against JAX's ``_bert_block`` given
+the same attention key words (JAX's ``r_attn``): the keep-bits are the
+same Threefry bits on both sides.
+
 Tolerances (f32 throughout):
 * loss 2e-5 relative; gradients 2e-5 of each leaf's largest entry plus
   2e-5 relative: the same math in other summation orders (attention,
@@ -95,8 +99,10 @@ def test_params_from_jax_round_trip_and_refusals():
     missing = {**tree, "blocks": {k: v for k, v in tree["blocks"].items() if k != "fc_b"}}
     with pytest.raises(KeyError, match="fc_b"):
         tbert.params_from_jax(missing)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tbert.BertConfig(attention_probs_dropout_prob=0.1)
+    # the published BERT-Large dropout builds (attention dropout is ported)
+    published = dataclasses.replace(tbert.BERT_LARGE, hidden_dropout_prob=0.1,
+                                    attention_probs_dropout_prob=0.1)
+    assert published.attention_probs_dropout_prob == 0.1
 
 
 def _jax_loss_and_grads(cfg, params, batch):
@@ -175,3 +181,90 @@ def test_lamb_train_batch_trajectory_matches_jax_engine(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=TOL)
     for a, b in zip(_flat_np(teng.params), _flat_np(jax.tree.map(np.asarray, jeng.state["params"]))):
         np.testing.assert_allclose(a, b, atol=PARAM_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T", [64, 256], ids=["dense_T64", "kernel_T256"])
+def test_block_with_attention_dropout_matches_jax(T):
+    """One pre-LN block, attention dropout 0.1 (hidden off), a padding
+    mask: output and gradients (x and every leaf of the layer) against
+    JAX's ``_bert_block`` with ``deterministic=False``, the port given
+    JAX's ``r_attn = split(rng, 3)[2]`` as its attention key."""
+    jcfg, tcfg = (dataclasses.replace(c, attention_probs_dropout_prob=0.1) for c in _cfgs(T))
+    params = jbert.init_params(jcfg, seed=4)
+    lp = {k: v[0] for k, v in params["blocks"].items()}
+    rng = np.random.default_rng(T)
+    x, w = (rng.standard_normal((2, T, jcfg.hidden_size)).astype(np.float32) for _ in range(2))
+    keep = np.array([T, T // 2 + 3])
+    mask_bias = np.where(np.arange(T)[None, None, None, :] < keep[:, None, None, None], 0.0,
+                         -1e9).astype(np.float32)
+    key = jax.random.PRNGKey(17)
+
+    def f(lp_, x_):
+        out = jbert._bert_block(jcfg, x_, lp_, jnp.asarray(mask_bias), key, False)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (want_lp, want_x), want = jax.grad(f, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in lp.items()}, jnp.asarray(x))
+    r_attn = np.asarray(jax.random.split(key, 3)[2])
+
+    tlp = {k: torch.from_numpy(np.asarray(v)).requires_grad_() for k, v in lp.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tbert._bert_block(tcfg, tx, tlp, torch.from_numpy(mask_bias), (None, None, r_attn),
+                            False)
+    (got * torch.from_numpy(w)).sum().backward()
+
+    def close(a, b, what):
+        b = np.asarray(b)
+        assert (np.abs(a - b) <= TOL * (np.abs(b) + np.abs(b).max())).all(), what
+
+    close(got.detach().numpy(), want, "out")
+    close(tx.grad.numpy(), want_x, "dx")
+    for k in tlp:
+        close(tlp[k].grad.numpy(), want_lp[k], k)
+    # the plain-attention branch applies the same keep-bits
+    plain = tbert._bert_block(dataclasses.replace(tcfg, use_flash_attention=False),
+                              torch.from_numpy(x), tlp, torch.from_numpy(mask_bias),
+                              (None, None, r_attn), False)
+    close(plain.detach().numpy(), want, "plain attention")
+
+
+def test_remat_with_dropout_gives_the_same_gradients():
+    """Attention and hidden dropout 0.1, one generator seed: the loss and
+    every gradient equal with and without remat (the recomputed blocks
+    regenerate the same keep-bits and hidden masks; gradients within 1e-6
+    of their largest entry, the order autograd sums a leaf's parts in may
+    differ, a wrong mask moves them by far more); attention dropout
+    alone turns the model's dropout on (``make_model``'s rule), and the
+    flash path equals the plain-attention path."""
+    _, tcfg = _cfgs(256)
+    tcfg = dataclasses.replace(tcfg, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    batch = {k: torch.from_numpy(v) for k, v in synthetic_batch(tcfg.vocab_size, 2, 256, seed=6,
+                                                                keep=[256, 150]).items()}
+    params = tbert.init_params(tcfg, seed=2)
+
+    def run(cfg):
+        p = tbert.params_from_jax(params)
+        leaves, _ = tree_flatten(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = tbert.make_model(cfg)[0](p, batch, torch.Generator().manual_seed(5))
+        loss.backward()
+        return float(loss.detach()), [t.grad for t in leaves]
+
+    remat = run(tcfg)
+    flat = run(dataclasses.replace(tcfg, remat=False))
+    assert remat[0] == flat[0]
+    for a, b in zip(remat[1], flat[1]):
+        # the same values; autograd may sum a leaf's parts in another order
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    plain = run(dataclasses.replace(tcfg, use_flash_attention=False))
+    assert plain[0] == pytest.approx(remat[0], rel=TOL)
+    attn_only = dataclasses.replace(tcfg, hidden_dropout_prob=0.0)
+    loss_fn = tbert.make_model(attn_only)[0]
+    p = tbert.params_from_jax(params)
+    with torch.no_grad():
+        train = float(loss_fn(p, batch, torch.Generator().manual_seed(5)))
+        evald = float(loss_fn(p, batch, None))
+    # small weights make attention nearly uniform, so the move is small,
+    # but 40 times the loss's f32 spacing
+    assert abs(train - evald) > 1e-6

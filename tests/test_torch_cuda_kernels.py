@@ -16,7 +16,10 @@ bit-for-bit oracle: the two share one body), the backward's ragged and
 rectangular shapes, the key-row bias in the forward and backward (ragged,
 causal with a bias, every head dim), the fused Adam's and fused LAMB's
 dtypes, ragged and unaligned leaves, trust-ratio branches and overflow
-skip, autograd through the kernels, and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
+skip, autograd through the kernels, attention dropout (in-kernel
+Threefry bits against the host twin's) and the full bias in the forward
+and both backwards (B2 and the two-pass B6a/B6b, whose dq must be the same
+bits launch after launch), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
 backward entry by entry, within that tolerance times |entry| plus half
 the gradient's rms (dq's f32 sum is taken with atomics, in an order that
@@ -372,7 +375,8 @@ def test_launch_counts_and_refusals(dev):
     fd.flash_decode(q[:, :, :1].contiguous(), q, q, 5)
     fa.flash_fwd(q.cpu(), q.cpu(), q.cpu(), causal=True)  # the plain version: no launch
     want = {"flash_fwd": 1, "flash_decode": 1, "flash_decode_paged": 0, "flash_bwd": 0,
-            "fused_adam": 0, "fused_lamb_dir": 0, "fused_lamb_apply": 0}
+            "fused_adam": 0, "fused_lamb_dir": 0, "fused_lamb_apply": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
     assert kernels.launches() == want
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
@@ -425,3 +429,114 @@ def test_tiny_model_on_the_card_matches_the_cpu(dev):
     np.testing.assert_array_equal(outs["cuda"][1], outs["cuda"][0][1])
     for got, want in zip(outs["cuda"][2], (outs["cuda"][0][1], outs["cuda"][0][1], outs["cuda"][0][0])):
         np.testing.assert_array_equal(got, want)
+
+
+def _bwd_close(got, ref, dtype):
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        bound = TOL[dtype] * (b.abs() + 0.5 * b.square().mean().sqrt())
+        assert bool(((a - b).abs() <= bound).all()), _err(a, b)
+
+
+def _options(dev, kind, B, H, sq, sk, seed=7):
+    """(kbias, fbias) of one bias form: none, the key-row form, a (B, 1, Tq,
+    Tk) mask with a smooth part (read through a stride-0 head dim), or a
+    (1, H, Tq, Tk) bias (stride 0 on the batch)."""
+    if kind == "kbias":
+        return _padding_bias(dev, B, sk, (sk, sk - 64, sk // 2 + 1)), None
+    if kind == "fbias_mask":
+        m = _randn(dev, B, 1, sq, sk, seed=seed) * 0.5
+        m[0, :, :, sk - 40:] = -1e9
+        return None, m.expand(B, H, sq, sk)
+    if kind == "fbias_heads":
+        return None, (_randn(dev, 1, H, sq, sk, seed=seed) * 0.5).expand(B, H, sq, sk)
+    return None, None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["none", "kbias", "fbias_mask", "fbias_heads"])
+@pytest.mark.parametrize("sq,sk,d,causal,rate", [
+    (512, 512, 64, False, 0.1),   # BERT phase 2
+    (300, 300, 128, True, 0.1),   # ragged, causal
+    (130, 257, 32, False, 0.25),
+    (200, 200, 16, True, 0.0),    # the full bias without dropout
+])
+def test_flash_dropout_and_fbias_fwd_bwd_match_plain(dev, dtype, kind, sq, sk, d, causal, rate):
+    B, H = 3, 2
+    q = _randn(dev, B, H, sq, d, seed=1).to(dtype)
+    k = _randn(dev, B, H, sk, d, seed=2).to(dtype)
+    v = _randn(dev, B, H, sk, d, seed=3).to(dtype)
+    do = _randn(dev, B, H, sq, d, seed=4).to(dtype)
+    kb, fb = _options(dev, kind, B, H, sq, sk)
+    drop = fa.make_dropout(rate, (2**31 + 9, 77))
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, want_lse=True, kbias=kb, fbias=fb,
+                                 drop=drop)
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale, kb, fb, drop)
+    delta = (do.float() * out.float()).sum(-1)
+    got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    two = fa.flash_bwd2_cuda(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    torch.cuda.synchronize()
+    assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
+    _bwd_close(got, refb, dtype)
+    _bwd_close(two, refb, dtype)
+    if kind == "kbias" and not causal:  # a padded key's dk and dv stay exactly 0
+        for grads in (got, two):
+            assert not grads[1][2, :, sk // 2 + 1:].any() and not grads[2][2, :, sk // 2 + 1:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_two_pass_dq_is_the_same_bits_every_launch(dev, dtype):
+    """B6a sums dq in registers and writes it once: two launches give the
+    same bits (B2's atomic dq need not)."""
+    q, k, v, do = (_randn(dev, 2, 4, 1000, 64, seed=s).to(dtype) for s in (1, 2, 3, 4))
+    kb = _padding_bias(dev, 2, 1000, (1000, 700))
+    drop = fa.make_dropout(0.1, (5, 6))
+    out, lse = fa.flash_fwd_cuda(q, k, v, False, 0.125, want_lse=True, kbias=kb, drop=drop)
+    delta = (do.float() * out.float()).sum(-1)
+    a = fa.flash_bwd2_cuda(q, k, v, do, lse, delta, False, 0.125, kbias=kb, drop=drop)
+    b = fa.flash_bwd2_cuda(q, k, v, do, lse, delta, False, 0.125, kbias=kb, drop=drop)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_autograd_with_dropout_and_a_trainable_full_bias_matches_the_plain_path(dev, monkeypatch):
+    """flash_attention with dropout and a trainable (1, H, T, T) bias through
+    the kernels (B1, then B2; and B6 with the threshold patched down)
+    against the plain path with the host twin's keep-mask: q, k, v and
+    bias gradients."""
+    q, k, v = (_randn(dev, 2, 4, 512, 64, seed=s).requires_grad_() for s in (1, 2, 3))
+    w = _randn(dev, 2, 4, 512, 64, seed=4)
+    bias = (_randn(dev, 1, 4, 512, 512, seed=5) * 0.5).requires_grad_()
+    key = (123, 2**32 - 5)
+    mask = fa.dropout_keep_mask_host(key, 2, 4, 512, 512, 0.9, dev).reshape(2, 4, 512, 512)
+    (fa.mha_reference(q, k, v, bias=bias, dropout_mask=mask, keep_prob=0.9) * w).sum().backward()
+    want = [t.grad.clone() for t in (q, k, v, bias)]
+    for fused_max, route in ((1 << 21, "flash_bwd"), (64 * 64 * 4, "flash_bwd_dq")):
+        monkeypatch.setattr(fa, "_FUSED_BWD_MAX_SQ_BYTES", fused_max)
+        for t in (q, k, v, bias):
+            t.grad = None
+        kernels.reset_launches()
+        (fa.flash_attention(q, k, v, bias=bias, dropout_rate=0.1, dropout_rng=key) * w
+         ).sum().backward()
+        got = kernels.launches()
+        assert got["flash_fwd"] == 1 and got[route] == 1
+        assert kernels.launch_variants()["flash_fwd"] == {"fbias+dropout": 1}
+        for a, t in zip(want, (q, k, v, bias)):
+            assert _err(t.grad, a) <= 1e-4 * max(1.0, float(a.abs().max()))
+
+
+def test_dropout_and_fbias_refusals(dev):
+    q = _randn(dev, 1, 2, 128, 64)
+    kb = torch.zeros(1, 128, device=dev)
+    fb = torch.zeros(1, 2, 128, 128, device=dev)
+    with pytest.raises(ValueError, match="not both"):
+        fa.flash_fwd_cuda(q, q, q, False, 0.125, kbias=kb, fbias=fb)
+    with pytest.raises(ValueError, match="fbias"):
+        fa.flash_fwd_cuda(q, q, q, False, 0.125, fbias=fb[:, :1])  # not expanded to (B, H, T, T)
+    with pytest.raises(ValueError, match="fbias"):
+        fa.flash_bwd2_cuda(q, q, q, q, q[..., 0].contiguous(), q[..., 0].contiguous(), False,
+                           0.125, fbias=fb.half())

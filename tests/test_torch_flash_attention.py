@@ -105,12 +105,16 @@ def test_dense_and_reference_match_jax_bf16():
 
 
 def test_bias_and_dropout_not_ported_yet():
-    """What of the bias and dropout stays unported: a full (B, H, Tq, Tk)
-    bias past the dense threshold and attention dropout (the key-row bias
-    is ported: tests/test_torch_flash_bias.py)."""
+    """The bias and dropout are now ported in full (the key-row bias:
+    tests/test_torch_flash_bias.py; the full bias and dropout:
+    tests/test_torch_flash_dropout.py): a zero full bias past the dense
+    threshold equals no bias, and dropout at rate 0 is exact."""
     q, k, v = (_torch(a, torch.float32) for a in _qkv(1, 1, 256, 256, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tfa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 256, 256))
+    want = tfa.flash_attention(q, k, v)
+    assert torch.equal(tfa.flash_attention(q, k, v, bias=torch.zeros(1, 1, 256, 256)), want)
+    assert torch.equal(tfa.flash_attention(q, k, v, dropout_rate=0.0), want)
     q, k, v = (_torch(a, torch.float32) for a in _qkv(1, 1, 8, 8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tfa.flash_attention(q, k, v, dropout_rate=0.1)
+    ref = jfa.flash_attention(*(_jax(a, jnp.float32) for a in _qkv(1, 1, 8, 8, 16)),
+                              dropout_rate=0.1, dropout_rng=jnp.asarray([3, 4], jnp.uint32))
+    out = tfa.flash_attention(q, k, v, dropout_rate=0.1, dropout_rng=(3, 4))
+    assert _err(ref, out) < F32_TOL

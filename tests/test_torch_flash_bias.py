@@ -134,10 +134,16 @@ def test_kernel_plain_versions_with_kbias_match_the_reference():
 
 
 def test_unported_forms_raise_naming_a9():
+    """What A9 left open is closed: the full bias past the dense threshold
+    and dropout run (tests/test_torch_flash_dropout.py holds them to JAX);
+    what stays refused is a bias that is not 4-D and dropout without a
+    key."""
     q = torch.zeros(1, 2, 256, 32)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 256, 256))
-    with pytest.raises(NotImplementedError, match="A9"):
+    out = tfa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 256, 256))
+    assert out.shape == q.shape and not out.any()
+    out = tfa.flash_attention(q, q, q, dropout_rate=0.1, dropout_rng=(1, 2))
+    assert out.shape == q.shape
+    with pytest.raises(ValueError, match="dropout_rng"):
         tfa.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match="4-D"):
         tfa.flash_attention(q, q, q, bias=torch.zeros(256))

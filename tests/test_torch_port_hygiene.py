@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.ops.attention import flash_attention as tfa
 from deepspeed_tpu_torch.ops.kernels import flash_decode as tfd
 from deepspeed_tpu_torch.ops.kernels import fused_update as tfu
 from deepspeed_tpu_torch.ops.kernels import kernels_report
+from deepspeed_tpu_torch.ops.transformer import transformer as ttr
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -46,7 +47,13 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/serving/kvcache/prefix.py",
     "deepspeed_tpu_torch/serving/kvcache/sessions.py",
     "deepspeed_tpu_torch/serving/kvcache/pages.py",
+    "deepspeed_tpu_torch/ops/transformer/transformer.py",
+    "deepspeed_tpu_torch/utils/device.py",
 )
+# the layers above the ops, which no op module may import
+ABOVE_OPS = ("deepspeed_tpu_torch.models", "deepspeed_tpu_torch.inference",
+             "deepspeed_tpu_torch.runtime", "deepspeed_tpu_torch.serving")
+OPS_FILES = sorted((REPO / "deepspeed_tpu_torch" / "ops").rglob("*.py"))
 
 
 def _imported_roots(path: Path):
@@ -69,7 +76,45 @@ def test_import_walk_covers_every_slice_module():
     missing = [m for m in SLICE_MODULES if m not in walked]
     assert not missing, missing
     assert {p.name for p in CUDA_SOURCES} >= {"flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu",
-                                              "fused_adam.cu", "fused_lamb.cu"}
+                                              "fused_adam.cu", "fused_lamb.cu",
+                                              "flash_bwd_2pass.cu"}
+
+
+@pytest.mark.parametrize("path", OPS_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_ops_import_nothing_from_the_layers_above(path):
+    """The ops are the bottom layer: a model, an engine or the serving
+    stack builds on them, never the other way round."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                 [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+        bad += [(node.lineno, n) for n in names if n.startswith(ABOVE_OPS)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monkeypatch):
+    """A built kernel is stale when its source or a csrc/ header that the
+    source includes is newer than its library: the flash sources follow
+    flash_common.cuh, the optimizer and decode kernels do not."""
+    import os
+    import shutil
+
+    from deepspeed_tpu_torch.ops import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    lib = kernels.KernelLibrary(tmp_path / "build")
+    lib.build_dir.mkdir()
+    for src in csrc.iterdir():
+        os.utime(src, (1000, 1000))
+    for name in kernels.KERNELS:  # every library built after every source
+        lib._so_path(name).touch()
+        os.utime(lib._so_path(name), (2000, 2000))
+    assert not any(lib._stale(name) for name in kernels.KERNELS)
+    os.utime(csrc / "flash_common.cuh", (3000, 3000))
+    stale = {name for name in kernels.KERNELS if lib._stale(name)}
+    assert stale == {"flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -92,6 +137,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=init_fn(seed=0),
                                        config={"train_batch_size": 2})
+    with pytest.raises(RuntimeError, match="is_available"):
+        ttr.DeepSpeedTransformerLayer(ttr.DeepSpeedTransformerConfig(
+            hidden_size=64, intermediate_size=128, heads=4))
 
 
 def test_kernel_launchers_refuse_cpu_tensors():
@@ -117,10 +165,15 @@ def test_kernel_launchers_refuse_cpu_tensors():
                            weight_decay=0.0, min_coeff=0.01, max_coeff=10.0)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_fwd_cuda(q, q, q, causal=False, sm_scale=0.125, kbias=torch.zeros(1, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd2_cuda(q, q, q, q, lse, lse, causal=False, sm_scale=0.125,
+                            kbias=torch.zeros(1, 128))
     report = kernels_report()
     assert set(report) == {"flash_fwd", "flash_decode", "flash_decode_paged", "flash_bwd",
-                           "fused_adam", "fused_lamb_dir", "fused_lamb_apply"}
+                           "fused_adam", "fused_lamb_dir", "fused_lamb_apply", "flash_bwd_dq",
+                           "flash_bwd_dkv"}
     assert report["fused_lamb_dir"]["source"] == report["fused_lamb_apply"]["source"]
+    assert report["flash_bwd_dq"]["source"] == report["flash_bwd_dkv"]["source"]
     assert all(r["launches"] == 0 for r in report.values())
     assert all((REPO / r["source"]).is_file() for r in report.values())
 
