@@ -29,7 +29,11 @@ Phases, each printing one JSON line:
    bf16 and f32, and a trainable (1, 16, 512, 512) bias's cotangent under
    dropout; the two-pass backward at B=1, H=16, T=9216 in bf16 and f32,
    against its plain version and the single-pass kernel, its dq the same
-   bits over two launches),
+   bits over two launches; the block-sparse forward B8 and backward
+   B9a/B9b at B=1, H=12, d=64, T=8192 and 16384 with GPT-2's default
+   BigBird layout (block 256, causal) in bf16 and f32, their gradients the
+   same bits over two launches, and a per-head and an untouched-column
+   layout at T=1024, whose empty columns' dk/dv must be exactly 0),
    with the tolerance stated, and the times of the kernel, the plain
    version and one PyTorch library call beside the least time the card
    could take (``bound_ms``).
@@ -101,9 +105,22 @@ Phases, each printing one JSON line:
    path (counters zeroed before, read after); the same stack in f32 at
    B=2 against plain attention on the same seeds; one layer at B=1,
    T=9216, whose backward must be the two-pass B6a/B6b and not B2.
-14. ``kernels``: one entry per kernel with its launches on each main path
+14. ``train_sparse_f32``: GPT-2 with ``attention_mode="sparse"`` (124M
+   width, 8 layers, the default BigBird layout, block 256) in f32, B=1,
+   T=8192, 3 steps, TF32 off: the splash kernels against the same steps
+   with the sparse op on its gather path; per-step losses within the
+   tolerance stated.
+15. ``train_sparse_bf16``: this slice's main path, the sparse GPT-2 in bf16
+   over f32 masters at T=8192 and T=16384 (8 layers, B=1, Adam at lr 1e-4,
+   remat, cross-entropy in chunks of 512), 4 steps, beside the dense flash
+   path at the same T and depth.  Counters zeroed just before and read just
+   after each sparse run: B8 16, B9a 8 and B9b 8 launches a micro-step,
+   fused Adam launched, B1/B2 not; losses finite and falling.  Prints ms a
+   step, tokens/s, peak memory, MFU and sparse-over-dense tokens/s.
+16. ``kernels``: one entry per kernel with its launches on each main path
    (``launches_by_path``: serving, serving_paged, training,
-   training_bert, training_bert_dropout, transformer_layer) and their sum.
+   training_bert, training_bert_dropout, transformer_layer,
+   training_sparse) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -112,6 +129,7 @@ script exits non-zero; without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -210,6 +228,10 @@ AUTOGRAD_F32_RTOL = 1e-4
 # as train_f32's bound (train_bert_f32, without dropout, reads ~1e-7 on
 # an H100)
 TRAIN_DROP_F32_LOSS_RTOL = 1e-5
+# the sparse slice: GPT-2 124M's attention (12 heads of 64) at the lengths
+# of the JAX package's long-context records, 8 layers, batch 1
+SPARSE_TS = (8192, 16384)
+SPARSE_LAYERS = 8
 # transformer_layer's f32 check, 24 layers at B 2 through the kernels vs
 # plain attention on the same seeds: the output and the input's gradient
 # within this share of their largest entries (f32 sums in other orders,
@@ -1457,21 +1479,278 @@ def check_flash_bwd2(torch, dev, flush):
     return rows
 
 
+def _splash_work(layout, block, causal=True):
+    """The (query, key) pairs the splash kernels compute over a layout's
+    sparse rows (dense rows excluded, as the kernels exclude them), summed
+    over the heads: causal inside diagonal blocks."""
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    dense = sp._dense_row_mask(layout, exempt_uniform_full=True)
+    active = (layout != 0) & ~dense[:, :, None]
+    nb = layout.shape[1]
+    diag = np.eye(nb, dtype=bool)[None]
+    per_edge = np.where(diag, block * (block + 1) // 2, block * block) if causal else block * block
+    above = np.triu(np.ones((nb, nb), bool), 1)[None] if causal else np.zeros((1, nb, nb), bool)
+    return int((active * per_edge * ~above).sum())
+
+
+def _splash_grad_errs(got, ref, tol, layout, block, label, enforce=True):
+    """Check the splash backward entry by entry against
+    ``sparse.splash_grad_bound`` (share BWD_RMS_SHARE, grown per layout
+    block as √(terms / 1024) of that block's sum); ``enforce=False`` only
+    reads.  Returns ``(max_err, max of the error over its bound, largest
+    share)``, each dq, dk, dv."""
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    errs, over, shares = [], [], []
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        bound, share = sp.splash_grad_bound(name, b, layout, block, tol, BWD_RMS_SHARE)
+        diff = (a.double() - b.double()).abs()
+        errs.append(float(diff.max()))
+        over.append(float((diff / bound.clamp_min(1e-30)).max()))
+        shares.append(share)
+        if enforce:
+            check(over[-1] <= 1.0, f"{label}: {name} max_err {errs[-1]} is {over[-1]:.3g}x its "
+                                   f"entry bound {tol} * (|ref| + share * rms(ref's block))")
+            check(bool(a.isfinite().all()), f"{label}: non-finite {name}")
+    return errs, over, shares
+
+
+def _splash_bwd_float64(torch, args):
+    """The splash backward's function in float64, head by head, dense over
+    the layout expanded to (T, T) and the causal triangle, on the same
+    inputs (lse, delta): the yardstick that tells the f32 kernels'
+    summation error from the f32 plain versions' (as :func:`_bwd2_float64`
+    for B6).  Returns ``(dq, dk, dv)`` in float64."""
+    q, k, v, do, lse, delta, layout, block, causal, scale = args
+    T = q.shape[2]
+    grads = ([], [], [])
+    for h in range(q.shape[1]):
+        blocks = torch.as_tensor(layout[h % layout.shape[0]], device=q.device).bool()
+        allowed = blocks.repeat_interleave(block, 0).repeat_interleave(block, 1)
+        if causal:
+            allowed &= torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        qh, kh, vh, doh = (t[0, h].double() for t in (q, k, v, do))
+        s = (qh @ kh.T * scale).masked_fill_(~allowed, float("-inf"))
+        del allowed
+        p = torch.exp(s.sub_(lse[0, h].double()[:, None]))  # +inf lse: a zero row
+        del s
+        ds = p * (doh @ vh.T - delta[0, h].double()[:, None]) * scale
+        for out, g in zip(grads, (ds @ kh, ds.T @ qh, p.T @ doh)):
+            out.append(g)
+        del p, ds
+    return tuple(torch.stack(g)[None] for g in grads)
+
+
+def check_splash(torch, dev, flush):
+    """B8 (splash_fwd, with lse), B9a (splash_bwd_dq) and B9b
+    (splash_bwd_dkv) at the sparse main path's shapes, B=1, H=12, d=64, T
+    8192 and 16384 with GPT-2's default sparse layout (unidirectional
+    BigBird, block 256, causal), in bf16 and f32: against the plain
+    versions (the backward entry by entry, ``sparse.splash_grad_bound``),
+    in f32 the kernels and the plain versions against the float64
+    function (:func:`_splash_bwd_float64`), dq/dk/dv the same bits over
+    two launches, the lse of a row
+    with no block +inf where the plain version's is; then a per-head and
+    an untouched-column layout at (1, 2, 1024, 64), block 256, whose empty
+    columns' dk/dv must be exactly 0.  Bound by operations over the
+    layout's scores (causal inside diagonal blocks): 4 d a score forward,
+    6 d for the dq pass, 8 d for the dk/dv pass.  Library: SDPA with the
+    layout expanded to a (1, 1, T, T) boolean mask, and its backward by
+    autograd (for both backward rows)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    B, H, d = 1, 12, 64
+    scale = d ** -0.5
+    rows = {}
+    for T in SPARSE_TS:
+        cfg = dataclasses.replace(gpt2.PRESETS["gpt2"], n_positions=T, attention_mode="sparse")
+        layout, block = gpt2.sparse_layout(cfg, T)
+        check(not sp._dense_row_mask(layout, True).any(), f"splash T={T}: a dense row")
+        scores = _splash_work(layout, block)
+        blocks = torch.as_tensor(layout[0], device=dev).bool()
+        allowed = blocks.repeat_interleave(block, 0).repeat_interleave(block, 1)
+        allowed &= torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+        allowed = allowed[None, None]
+        del blocks
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            tol = TOL[name]
+            g = torch.Generator(device=dev).manual_seed(T)
+            q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
+            ref, ref_lse = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
+            torch.cuda.synchronize()
+            fwd_err = max_err(out, ref)
+            check(fwd_err <= tol, f"splash_fwd T={T} {name}: max_err {fwd_err} > {tol}")
+            inf = torch.isinf(ref_lse)
+            check(torch.equal(torch.isinf(lse), inf), f"splash_fwd T={T} {name}: +inf lse rows differ")
+            lse_err = max_err(lse[~inf], ref_lse[~inf])
+            check(lse_err <= 1e-4, f"splash_fwd T={T} {name}: lse max_err {lse_err} > 1e-4")
+            del ref, ref_lse
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, layout, block, True, scale)
+            got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+            again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+            torch.cuda.synchronize()
+            for label, a, b in zip(("dq", "dk", "dv"), got, again):
+                check(torch.equal(a, b), f"splash T={T} {name}: {label} differs between two launches")
+            del again
+            ref = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
+            torch.cuda.synchronize()
+            errs, over, shares = _splash_grad_errs(got, ref, tol, layout, block,
+                                                   f"splash T={T} {name}")
+            f64 = {}
+            if dtype == torch.float32:
+                # both f32 results against float64, under the per-block bound
+                # (the kernel's held to it) and under the whole tensor's rms
+                # with share √(T/1024), the bound first tried
+                exact = _splash_bwd_float64(torch, args)
+                whole = BWD_RMS_SHARE * (T / 1024) ** 0.5
+                f64["kernel_vs_plain_over_whole_tensor_bound_dq_dk_dv"] = [
+                    grad_err(a, b, tol, whole)[1] for a, b in zip(got, ref)]
+                for label, res in (("kernel", got), ("plain", ref)):
+                    e, o, _ = _splash_grad_errs(res, exact, tol, layout, block,
+                                                f"splash T={T} {label} vs float64",
+                                                enforce=label == "kernel")
+                    f64[label + "_vs_f64_max_err_dq_dk_dv"] = e
+                    f64[label + "_vs_f64_over_bound_dq_dk_dv"] = o
+                    f64[label + "_vs_f64_over_whole_tensor_bound_dq_dk_dv"] = [
+                        grad_err(a, b, tol, whole)[1] for a, b in zip(res, exact)]
+                emit({"phase": "kernel", "kernel": "splash_bwd vs float64", "dtype": name,
+                      "T": T, "tol": tol, "whole_tensor_share": whole, **f64})
+                del exact
+            del ref, got
+            torch.cuda.empty_cache()
+            item = dtype.itemsize
+            tensor_bytes = B * H * T * d * item
+            sdpa_fwd = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=allowed)
+            fwd_lib_ms = device_ms(torch, sdpa_fwd, flush, iters=3, warmup=1)
+            sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=allowed)
+            bwd_lib_ms = device_ms(torch, sdpa_bwd, flush, iters=3, warmup=1)
+            del sdpa_bwd
+            torch.cuda.empty_cache()
+            for kernel, fn, plain, nbytes, flops, err, lib, lib_name in (
+                ("splash_fwd",
+                 lambda: sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True),
+                 lambda: sp.splash_fwd_reference(q, k, v, layout, block, True, scale),
+                 4 * tensor_bytes + B * H * T * 4, 4 * d * scores * B, fwd_err, fwd_lib_ms,
+                 "SDPA (bool mask)"),
+                ("splash_bwd_dq", lambda: sp.splash_bwd_dq_cuda(*args),
+                 lambda: sp.splash_bwd_dq_reference(*args), 5 * tensor_bytes + 2 * B * H * T * 4,
+                 6 * d * scores * B, errs[0], bwd_lib_ms, "SDPA's whole backward (bool mask)"),
+                ("splash_bwd_dkv", lambda: sp.splash_bwd_dkv_cuda(*args),
+                 lambda: sp.splash_bwd_dkv_reference(*args), 6 * tensor_bytes + 2 * B * H * T * 4,
+                 8 * d * scores * B, max(errs[1:]), bwd_lib_ms,
+                 "SDPA's whole backward (bool mask)"),
+            ):
+                b_ms, b_by = bound_ms(nbytes, flops, name)
+                row = {
+                    "phase": "kernel", "kernel": kernel, "layout": "bigbird-uni",
+                    "block": block, "B": B, "H": H, "T": T, "d": d, "dtype": name,
+                    "causal": True, "active_blocks_per_head": int(layout[0].sum()),
+                    "scores": scores * B, "max_err": err, "tol": tol,
+                    "kernel_ms": device_ms(torch, fn, flush, iters=5, warmup=1),
+                    "plain_ms": device_ms(torch, plain, flush, iters=3, warmup=1),
+                    "library_ms": lib, "library": lib_name, "bound_ms": b_ms, "bound_by": b_by,
+                    "bitwise_repeatable": True,
+                }
+                if kernel != "splash_fwd":
+                    row.update({"max_err_dq_dk_dv": list(errs),
+                                "err_over_bound_dq_dk_dv": list(over),
+                                "tol_rms_share_dq_dk_dv": list(shares), **f64})
+                rows[(kernel, T, name)] = row
+                emit(row)
+                torch.cuda.empty_cache()
+            del q, k, v, do, out, lse, delta, args
+            torch.cuda.empty_cache()
+        del allowed
+        torch.cuda.empty_cache()
+
+    # -- layouts the main path does not reach, at a small shape --------------
+    T, block = 1024, 256
+    small = {}
+    for label in ("per-head", "untouched-columns"):
+        layout = sp.check_layouts(T // block)[label]
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            g = torch.Generator(device=dev).manual_seed(7)
+            q, k, v, do = (torch.randn(1, 2, T, d, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
+            ref, _ = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, layout, block, True, scale)
+            got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+            again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+            refb = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
+            torch.cuda.synchronize()
+            fwd_err = max_err(out, ref)
+            check(fwd_err <= TOL[name], f"splash_fwd {label} {name}: max_err {fwd_err}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"splash {label} {name}: gradients differ between two launches")
+            errs, over, _ = _splash_grad_errs(got, refb, TOL[name], layout, block,
+                                              f"splash {label} {name}")
+            zero = None
+            if label == "untouched-columns":
+                zero = max(float(x.reshape(1, 2, T // block, block, d)[:, h, c].abs().max())
+                           for x in got[1:] for h, c in sp.UNTOUCHED_COLUMNS)
+                check(zero == 0.0, f"splash {label} {name}: an untouched column's dk/dv is {zero}")
+            small[(label, name)] = {"fwd_max_err": fwd_err, "max_err_dq_dk_dv": errs,
+                                    "err_over_bound_dq_dk_dv": over, "empty_columns_max": zero}
+    emit({"phase": "kernel", "kernel": "splash (per-head, untouched columns)", "B": 1, "H": 2,
+          "T": T, "block": block, "d": d, "causal": True,
+          "results": {f"{a}/{b}": r for (a, b), r in small.items()}})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the training path
 # ---------------------------------------------------------------------------
 
-def _train(torch, model_fn, params, config, batch, steps):
+ALLOC_EVENTS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+
+
+def _train(torch, model_fn, params, config, batch, steps, probe=None):
+    """``steps`` train_batch calls on one batch: ``(engine, losses, wall
+    seconds a step)``.  With a list ``probe``, each step appends what the
+    host spent around the card's work: the garbage collector's pauses (ms
+    and count, by the generation collected) and the caching allocator's
+    cudaMalloc and cudaFree calls and retries."""
     import deepspeed_tpu_torch
 
     engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,
                                                      config=config)
-    losses, walls = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = engine.train_batch(batch)
-        losses.append(float(loss))  # the host read ends the step
-        walls.append(time.perf_counter() - t0)
+    losses, walls, pauses = [], [], []
+
+    def on_gc(phase, info):
+        pauses.append((phase, info["generation"], time.perf_counter()))
+
+    if probe is not None:
+        gc.callbacks.append(on_gc)
+    try:
+        for _ in range(steps):
+            pauses.clear()
+            before = torch.cuda.memory_stats() if probe is not None else None
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            losses.append(float(loss))  # the host read ends the step
+            walls.append(time.perf_counter() - t0)
+            if probe is not None:
+                after = torch.cuda.memory_stats()
+                ms, count = [0.0] * 3, [0] * 3
+                for (_, _, t0), (_, g, t1) in zip(pauses[::2], pauses[1::2]):
+                    ms[g] += (t1 - t0) * 1e3
+                    count[g] += 1
+                probe.append({"gc_ms_by_generation": ms, "gc_count_by_generation": count,
+                              **{n: after.get(n, 0) - before.get(n, 0) for n in ALLOC_EVENTS}})
+    finally:
+        if probe is not None:
+            gc.callbacks.remove(on_gc)
     return engine, losses, walls
 
 
@@ -1878,6 +2157,150 @@ def phase_transformer_layer(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 14 and 15: block-sparse GPT-2 training at T 8192 and 16384
+# ---------------------------------------------------------------------------
+
+# the JAX package's long-context recipe (tools/bench_long_context.py):
+# Adam at lr 1e-4, remat per block, cross-entropy in chunks of 512
+def _sparse_cfg(T, mode="sparse"):
+    from deepspeed_tpu_torch.models import gpt2
+
+    return dataclasses.replace(gpt2.PRESETS["gpt2"], n_positions=T, n_layer=SPARSE_LAYERS,
+                               attention_mode=mode, xent_chunk_size=512)
+
+
+def phase_train_sparse_f32(torch):
+    """train_sparse_f32: the sparse GPT-2 (124M width, 8 layers, T 8192, B
+    1) in f32, 3 steps, TF32 off, through the splash kernels against the
+    same steps with the sparse op on the gather path; per-step losses
+    within TRAIN_F32_LOSS_RTOL."""
+    import functools
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+    from deepspeed_tpu_torch.tools.profile_training import LONG_ADAM
+
+    T = SPARSE_TS[0]
+    cfg = _sparse_cfg(T)
+    params = gpt2.init_params(cfg, seed=0)
+    config = {"train_micro_batch_size_per_gpu": 1, "optimizer": LONG_ADAM}
+    batch = {"input_ids": np.random.default_rng(13).integers(0, cfg.vocab_size, (1, T),
+                                                             dtype=np.int32)}
+    out = {}
+    for name in ("kernels", "gather"):
+        if name == "gather":  # the sparse op's plain route, for this run only
+            gpt2.block_sparse_attention = functools.partial(sp.block_sparse_attention,
+                                                            backend="gather")
+        try:
+            kernels.reset_launches()
+            engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config,
+                                           batch, 3)
+            out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                         "launches": kernels.launches()}
+        finally:
+            gpt2.block_sparse_attention = sp.block_sparse_attention
+        del engine
+        torch.cuda.empty_cache()
+    kl, gl = out["kernels"]["launches"], out["gather"]["launches"]
+    check(kl["splash_fwd"] > 0 and kl["splash_bwd_dq"] > 0 and kl["splash_bwd_dkv"] > 0
+          and gl["splash_fwd"] == 0, f"train_sparse_f32: splash launches {kl} / {gl}")
+    k, p = out["kernels"]["losses"], out["gather"]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
+    check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_sparse_f32: non-finite loss {k} / {p}")
+    check(max(rel) <= TRAIN_F32_LOSS_RTOL,
+          f"train_sparse_f32: kernel vs gather losses differ by {max(rel)} > {TRAIN_F32_LOSS_RTOL}")
+    emit({"phase": "train_sparse_f32", "layers": SPARSE_LAYERS, "B": 1, "T": T, "steps": 3,
+          "allow_tf32": False, "losses": out, "max_rel_diff": max(rel),
+          "tol": TRAIN_F32_LOSS_RTOL})
+
+
+def phase_train_sparse_bf16(torch):
+    """train_sparse_bf16, this slice's main path: the sparse GPT-2 in bf16
+    over f32 masters at T 8192 and 16384 (8 layers, B 1, Adam, remat,
+    cross-entropy chunks of 512), 4 steps on one batch, beside the dense
+    flash path at the same T and depth.  Counters zeroed just before each
+    sparse run and read just after: per micro-step B8 16 launches (the
+    forward and remat's recompute), B9a and B9b 8 each, fused Adam
+    launched, B1/B2 not; losses finite and falling.  Each step's garbage
+    collector pauses and allocator calls are kept (``_train``'s probe), and
+    tokens/s is given from the mean and the median of the steps after the
+    first.  Model FLOPs a step:
+    6 N a token for the weights, and 12 d for each score of each head and
+    layer that the attention computes (4 d forward, 8 d backward; dense
+    causal: T (T + 1) / 2 scores a head), recompute not counted."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import LONG_ADAM
+
+    config = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": True},
+              "optimizer": LONG_ADAM}
+    steps = 4
+    total = None
+    runs = {}
+    for T in SPARSE_TS:
+        batch = {"input_ids": np.random.default_rng(14).integers(0, 50257, (1, T),
+                                                                 dtype=np.int32)}
+        for mode in ("sparse", "flash"):
+            cfg = _sparse_cfg(T, mode)
+            params = gpt2.init_params(cfg, seed=0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            # -- the main path (sparse): counters zeroed just before --------
+            kernels.reset_launches()
+            probe = []
+            engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config,
+                                           batch, steps, probe)
+            launches = kernels.launches()
+            # ----------------------------------------------------------------
+            del params
+            check(all(np.isfinite(losses)), f"train_sparse_bf16 T={T} {mode}: non-finite loss {losses}")
+            check(losses[-1] < losses[0], f"train_sparse_bf16 T={T} {mode}: loss did not fall {losses}")
+            H, d = cfg.n_head, cfg.head_dim
+            if mode == "sparse":
+                layout, block = gpt2.sparse_layout(cfg, T)
+                scores = _splash_work(layout, block)
+                want = {"splash_fwd": 2 * SPARSE_LAYERS * steps,
+                        "splash_bwd_dq": SPARSE_LAYERS * steps,
+                        "splash_bwd_dkv": SPARSE_LAYERS * steps}
+                got = {n: launches[n] for n in want}
+                check(got == want, f"train_sparse_bf16 T={T}: splash launches {got}, want {want}")
+                check(launches["fused_adam"] > 0 and launches["flash_fwd"] == 0
+                      and launches["flash_bwd"] == 0,
+                      f"train_sparse_bf16 T={T}: launches {launches}")
+                total = launches if total is None else {n: total[n] + launches[n] for n in total}
+            else:
+                scores = H * T * (T + 1) // 2
+                check(launches["flash_fwd"] > 0 and launches["splash_fwd"] == 0,
+                      f"train_sparse_bf16 T={T} dense: launches {launches}")
+            step_s = float(sum(walls[1:])) / (steps - 1)
+            median_s = float(np.median(walls[1:]))
+            flops = 6 * cfg.num_params() * T + 12 * d * scores * SPARSE_LAYERS
+            runs[(T, mode)] = {
+                "losses": losses, "step_ms": [w * 1e3 for w in walls], "host_per_step": probe,
+                "step_ms_mean_after_first": step_s * 1e3, "tokens_per_s": T / step_s,
+                "step_ms_median_after_first": median_s * 1e3,
+                "tokens_per_s_median": T / median_s,
+                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "attention_scores_per_layer": scores, "model_flops_per_step": flops,
+                "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+                "launches": {n: c for n, c in launches.items() if c},
+                "global_steps": engine.global_steps}
+            del engine
+            torch.cuda.empty_cache()
+        sp_run, dn_run = runs[(T, "sparse")], runs[(T, "flash")]
+        emit({"phase": "train_sparse_bf16", "layers": SPARSE_LAYERS, "B": 1, "T": T,
+              "steps": steps, "optimizer": LONG_ADAM, "xent_chunk_size": 512, "remat": True,
+              "layout": "bigbird-uni, block %d" % gpt2.sparse_layout(_sparse_cfg(T), T)[1],
+              "sparse": sp_run, "dense_flash": dn_run,
+              "sparse_over_dense_tokens_per_s": sp_run["tokens_per_s"] / dn_run["tokens_per_s"],
+              "sparse_over_dense_median": sp_run["tokens_per_s_median"]
+              / dn_run["tokens_per_s_median"]})
+    return total
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1921,6 +2344,8 @@ def main() -> int:
     fbias_rows = check_flash_fbias(torch, dev, flush)
     torch.cuda.empty_cache()
     long_rows = check_flash_bwd2(torch, dev, flush)
+    torch.cuda.empty_cache()
+    splash_rows = check_splash(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1943,10 +2368,14 @@ def main() -> int:
     del bert_params
     torch.cuda.empty_cache()
     layer_launches = phase_transformer_layer(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train_sparse_f32(torch)
+    sparse_launches = phase_train_sparse_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "training": train_launches[name], "training_bert": bert_launches[name],
                       "training_bert_dropout": drop_launches[name],
-                      "transformer_layer": layer_launches[name]}
+                      "transformer_layer": layer_launches[name],
+                      "training_sparse": sparse_launches[name]}
                for name in serve_launches}
 
     # the main-path shapes: the GPT-2 training step's bf16 attention (B=8,
@@ -1980,6 +2409,12 @@ def main() -> int:
          "deepspeed_tpu/ops/attention/flash_attention.py:480"),
         ("flash_bwd_dkv", long_rows[("flash_bwd_dkv", "bfloat16")],
          "deepspeed_tpu/ops/attention/flash_attention.py:538"),
+        ("splash_fwd", splash_rows[("splash_fwd", SPARSE_TS[0], "bfloat16")],
+         "deepspeed_tpu/ops/attention/sparse.py:581"),
+        ("splash_bwd_dq", splash_rows[("splash_bwd_dq", SPARSE_TS[0], "bfloat16")],
+         "deepspeed_tpu/ops/attention/sparse.py:726"),
+        ("splash_bwd_dkv", splash_rows[("splash_bwd_dkv", SPARSE_TS[0], "bfloat16")],
+         "deepspeed_tpu/ops/attention/sparse.py:836"),
     ):
         entry = {
             "name": name, "route": "cuda", "source": report[name]["source"],
@@ -1993,6 +2428,12 @@ def main() -> int:
             row = rows_of.get((name, "bfloat16"))
             if row is not None:
                 entry[label] = {key: row[key] for key in (
+                    "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}
+        for T in SPARSE_TS[1:]:  # the splash kernels' rows at the longer length
+            row = splash_rows.get((name, T, "bfloat16"))
+            if row is not None:
+                entry[f"T{T}"] = {key: row[key] for key in (
                     "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}
         entries.append(entry)

@@ -513,6 +513,26 @@ class ZeroConfig:
         return out
 
 
+@dataclass
+class SparseAttentionConfig:
+    """``sparse_attention``: ``mode`` (dense|fixed|variable|bigbird|
+    bslongformer) and the remaining keys as the mode's ``params`` (block,
+    different_layout_per_head, ...), parsed as the JAX package parses
+    them; as there, nothing reads the block (a model takes its
+    ``SparsityConfig`` directly: ``GPT2Config.sparsity_config``)."""
+
+    mode: Optional[str] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "SparseAttentionConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        mode = d.pop("mode", None)
+        return cls(mode=mode, params=d)
+
+
 def _check_mesh(d: Optional[Dict[str, Any]]) -> None:
     """The ``mesh`` block on one device: ``data`` may be -1 (whatever is
     left) or 1, every other axis 1.  More devices raise (ROADMAP A6)."""
@@ -559,7 +579,6 @@ _TOP_NOT_PORTED = {
     "elasticity": (_off_block, "A14 elasticity/"),
     "quantize_training": (_off_block, "A13 runtime/quantize.py"),
     "progressive_layer_drop": (_off_block, "A13 progressive_layer_drop.py"),
-    "sparse_attention": (_off_block, "A10"),
     "zero_allow_untested_optimizer": (lambda v: v is False, "A6"),
     "dataloader_drop_last": (lambda v: v is False, "A5 runtime/dataloader.py"),
 }
@@ -567,7 +586,7 @@ _TOP_NOT_PORTED = {
 _PORTED_TOP_LEVEL = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING,
-    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING,
+    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION,
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -605,6 +624,7 @@ class DeepSpeedConfig:
         self.zero_config = ZeroConfig.from_dict(d.get(C.ZERO_OPTIMIZATION))
         _check_mesh(d.get(C.MESH))
         self.serving = ServingConfig.from_dict(d.get(C.SERVING))
+        self.sparse_attention = SparseAttentionConfig.from_dict(d.get(C.SPARSE_ATTENTION))
         self.gradient_clipping = float(d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print = int(d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT))
         self.seed = int(d.get(C.SEED, C.SEED_DEFAULT))

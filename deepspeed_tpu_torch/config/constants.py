@@ -73,6 +73,7 @@ MESH_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
 # Serving (continuous-batching slot-pool engine)
 #############################################
 SERVING = "serving"
+SPARSE_ATTENTION = "sparse_attention"
 SERVING_NUM_SLOTS_DEFAULT = 8  # concurrent sequences in the slot pool
 SERVING_MAX_LEN_DEFAULT = 0  # 0 = derive from min(max_out_tokens, n_positions)
 SERVING_KV_CACHE_DTYPE_DEFAULT = "model"  # model | int8

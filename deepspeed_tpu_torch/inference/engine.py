@@ -1,19 +1,23 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``).
 
-GPT-family models only, one device (``mp_size=1``).  The engine owns
-the parameters on its ``device`` and offers the external-cache surface
-(``init_cache`` / ``prefill`` / ``decode_step``) that the serving engine
-builds on, plus the closed ``generate()`` loop.  PyTorch runs eagerly, so
-there is no compiled-executable cache: each call runs the kernels
-directly.  HF injection, checkpoints and int8 weights are later slices.
+GPT-2 and BERT models, one device (``mp_size=1``).  The engine owns the
+parameters on its ``device`` and offers the full-sequence ``forward`` (GPT
+logits, BERT encoder states); for GPT models also the external-cache
+surface (``init_cache`` / ``prefill`` / ``decode_step``) that the serving
+engine builds on, and the closed ``generate()`` loop.  PyTorch runs
+eagerly, so there is no compiled-executable cache: each call runs the
+kernels directly.  HF injection, checkpoints and int8 weights are later
+slices.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.models import bert as bert_mod
 from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
 from deepspeed_tpu_torch.ops.transformer.inference import (
     DeepSpeedInferenceConfig,
@@ -96,11 +100,13 @@ class InferenceEngine:
         seed: int = 0,
         device: Any = "cuda",
     ):
-        """``model`` may be a preset name (``"gpt2"``, ...), or None with
-        explicit ``model_config`` (+ optional ``params``, the JAX
-        package's GPT-2 tree as numpy arrays or the port's tensors).
-        ``device`` defaults to ``"cuda"`` and raises when there is no
-        card; tests pass ``device="cpu"``."""
+        """``model`` may be a preset name (``"gpt2"``, ...; GPT-2 presets
+        win a shared name such as ``"tiny"``, ``"bert-*"`` names the BERT
+        family), or None with explicit ``model_config`` (a ``GPT2Config``
+        or a ``BertConfig``; + optional ``params``, the JAX package's tree
+        as numpy arrays or the port's tensors).  ``device`` defaults to
+        ``"cuda"`` and raises when there is no card; tests pass
+        ``device="cpu"``."""
         self.device = resolve_device(device)
         if int(mp_size) != 1:
             raise NotImplementedError("mp_size > 1 (tensor parallelism) is not ported yet (ROADMAP A6)")
@@ -121,41 +127,87 @@ class InferenceEngine:
         self._kv_dtype = "int8" if kv_cache_dtype == "int8" else self.dtype
 
         if isinstance(model, str):
-            if model not in gpt2_mod.PRESETS:
-                raise ValueError(f"unknown model preset '{model}' (GPT-2 family only in the port)")
-            self.model_config = gpt2_mod.PRESETS[model]
+            bert_name = model if model in bert_mod.PRESETS else model.replace("bert-", "")
+            if model in gpt2_mod.PRESETS:
+                self.model_config = gpt2_mod.PRESETS[model]
+            elif bert_name in bert_mod.PRESETS:
+                self.model_config = bert_mod.PRESETS[bert_name]
+            else:
+                raise ValueError(f"unknown model preset '{model}'")
         elif model is not None:
             raise NotImplementedError(
                 "HF/torch module injection is not ported yet (ROADMAP A7 inference/injection.py)"
             )
         elif model_config is not None:
-            if not isinstance(model_config, gpt2_mod.GPT2Config):
-                raise NotImplementedError("only GPT2Config models are ported (ROADMAP A9 for BERT)")
+            if not isinstance(model_config, (gpt2_mod.GPT2Config, bert_mod.BertConfig)):
+                raise NotImplementedError(
+                    f"{type(model_config).__name__} models are not ported; GPT2Config and "
+                    "BertConfig are (ROADMAP A7)")
             self.model_config = model_config
         else:
             raise ValueError("init_inference needs `model` (a preset name) or model_config=")
 
+        self._is_gpt = isinstance(self.model_config, gpt2_mod.GPT2Config)
+        self._family = gpt2_mod if self._is_gpt else bert_mod
+        # no backward to save memory for
+        if self.model_config.remat:
+            self.model_config = dataclasses.replace(self.model_config, remat=False)
         if params is None:
-            params = gpt2_mod.init_params(self.model_config, seed=seed)
-        if isinstance(params["wte"], torch.Tensor):
+            params = self._family.init_params(self.model_config, seed=seed)
+        if all(isinstance(v, torch.Tensor) for v in params["blocks"].values()):
             self.params = {
                 k: ({n: t.to(self.device, self.dtype) for n, t in v.items()}
                     if isinstance(v, dict) else v.to(self.device, self.dtype))
                 for k, v in params.items()
             }
         else:
-            self.params = gpt2_mod.params_from_jax(params, device=self.device, dtype=self.dtype)
+            self.params = self._family.params_from_jax(params, device=self.device,
+                                                       dtype=self.dtype)
         n_params = self.model_config.num_params()
         log_dist(
-            f"inference engine: GPT2Config params={n_params / 1e6:.1f}M "
-            f"dtype={self.dtype} device={self.device}"
+            f"inference engine: {type(self.model_config).__name__} "
+            f"params={n_params / 1e6:.1f}M dtype={self.dtype} device={self.device}"
         )
 
     @property
     def generation_capacity(self) -> int:
         """Hard bound on prompt + generated length: ``max_out_tokens``
-        clamped by the model's positional table."""
-        return min(self.max_out_tokens, self.model_config.n_positions)
+        clamped by the model's positional table (GPT models)."""
+        if self._is_gpt:
+            return min(self.max_out_tokens, self.model_config.n_positions)
+        return self.max_out_tokens
+
+    def _require_gpt(self, what: str) -> None:
+        if not self._is_gpt:
+            raise ValueError(f"{what} requires a causal-LM (GPT-family) model")
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def forward(self, input_ids, **kw) -> torch.Tensor:
+        """Full-sequence forward: GPT → logits (B, T, V); BERT → encoder
+        hidden states (B, T, d) (BERT takes ``token_type_ids`` and
+        ``attention_mask``)."""
+        if self._is_gpt and kw:
+            raise TypeError(
+                f"forward() got unexpected kwargs {sorted(kw)} for a GPT-family "
+                "model (token_type_ids/attention_mask are BERT-only)"
+            )
+        ids = self._tokens(input_ids)
+        if self._is_gpt and ids.shape[1] > self.model_config.n_positions:
+            # past n_positions the position lookup would fail; raise with
+            # the numbers instead
+            raise ValueError(
+                f"forward() sequence length {ids.shape[1]} exceeds the "
+                f"model's n_positions={self.model_config.n_positions}"
+            )
+        with torch.inference_mode():
+            if self._is_gpt:
+                return gpt2_mod.apply(self.params, ids, self.model_config, deterministic=True)
+            kw = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in kw.items()}
+            return bert_mod.encode(self.params, ids, self.model_config, deterministic=True, **kw)
+
+    __call__ = forward
 
     # ------------------------------------------------------------------
     # external-cache prefill/decode surface
@@ -174,6 +226,7 @@ class InferenceEngine:
     def init_cache(self, batch: int, max_len: int):
         """Externally-owned KV cache ``(layers, batch, heads, max_len,
         head_dim)`` on the engine's device, in its cache dtype."""
+        self._require_gpt("init_cache()")
         if max_len > self.generation_capacity:
             raise ValueError(
                 f"cache max_len={max_len} exceeds the generation capacity "
@@ -197,6 +250,7 @@ class InferenceEngine:
         """Initial prefill (write offset 0, causal fast path) into an
         externally-owned cache, in place.  Returns ``(logits, k_cache,
         v_cache)``."""
+        self._require_gpt("prefill()")
         tokens = self._tokens(tokens)
         T, S = tokens.shape[1], self._cache_len(k_cache)
         if T > S:
@@ -209,6 +263,7 @@ class InferenceEngine:
         """One decode/continuation step at write offset ``pos`` (scalar,
         or a per-row (B,) vector for slot-pool continuous batching).
         Returns ``(logits, k_cache, v_cache)``."""
+        self._require_gpt("decode_step()")
         tokens = self._tokens(tokens)
         T, S = tokens.shape[1], self._cache_len(k_cache)
         pos_host = np.asarray(pos)
@@ -241,6 +296,7 @@ class InferenceEngine:
         """Autoregressive generation (KV-cache decode).  ``input_ids``
         (B, T); ragged prompts are LEFT-padded with ``attention_mask``
         (B, T, 1=real).  Returns (B, T + max_new_tokens) int32 numpy."""
+        self._require_gpt("generate()")
         ids = np.asarray(input_ids).astype(np.int64)
         B, T = ids.shape
         N = int(max_new_tokens)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
+from deepspeed_tpu_torch.ops.attention.sparse import BigBirdSparsityConfig, block_sparse_attention
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
 from deepspeed_tpu_torch.ops.normalize import dropout_generator
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
@@ -39,8 +40,12 @@ class GPT2Config:
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     use_flash_attention: bool = True
-    # "flash" only: ring/ulysses/sparse attention are ROADMAP A10
+    # "flash" | "sparse": sparse runs the block-sparse kernels with
+    # `sparsity_config` (default: unidirectional BigBird), the long-sequence
+    # recipe; ring/ulysses (sequence parallel) are ROADMAP A6
     attention_mode: str = "flash"
+    # a SparsityConfig instance (ops/attention/sparse.py); None: BigBird
+    sparsity_config: Any = None
     n_experts: int = 0  # MoE FFNs are ROADMAP A11
     remat: bool = True  # activation checkpointing per block
     # >0: cross-entropy in time-chunks of this size, each recomputed in the
@@ -54,9 +59,10 @@ class GPT2Config:
     flash_blocks: tuple = ()
 
     def __post_init__(self):
-        if self.attention_mode != "flash":
+        if self.attention_mode in ("ring", "ulysses"):
             raise NotImplementedError(
-                f"attention_mode={self.attention_mode!r} is not ported yet (ROADMAP A10)")
+                f"attention_mode={self.attention_mode!r} (sequence parallel) is not ported yet "
+                "(ROADMAP A6)")
         if self.n_experts > 0:
             raise NotImplementedError("MoE GPT-2 (n_experts > 0) is not ported yet (ROADMAP A11)")
         if self.remat_save_names:
@@ -177,6 +183,45 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
     }
 
 
+# per-(config values, seq) layout cache: layouts are static numpy, built once
+_SPARSE_LAYOUTS: Dict[Any, Any] = {}
+
+
+def _sparsity_cache_key(sc, T: int):
+    # by value: id() would collide after gc and never hit for per-call
+    # default configs
+    vals = tuple(
+        (k, tuple(v) if isinstance(v, list) else v)
+        for k, v in sorted(vars(sc).items())
+        if isinstance(v, (int, float, str, bool, list, tuple, type(None)))
+    )
+    return (type(sc).__name__, vals, T)
+
+
+def sparse_layout(cfg: GPT2Config, T: int):
+    """``(layout, block)`` of the sparse attention at length ``T``: the
+    config's ``sparsity_config``, or the default unidirectional BigBird
+    (one random block, a window of 3, one global block) at the largest
+    block of 256/128/64/16 that divides T with at least the 3-block window
+    (make_layout refuses fewer).  Cached by config values."""
+    sc = cfg.sparsity_config
+    if sc is None:
+        block = next((b for b in (256, 128, 64, 16) if T % b == 0 and T // b >= 3), 16)
+        sc = BigBirdSparsityConfig(
+            num_heads=cfg.n_head, block=block, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1, attention="unidirectional",
+        )
+    key = _sparsity_cache_key(sc, T)
+    if key not in _SPARSE_LAYOUTS:
+        _SPARSE_LAYOUTS[key] = sc.make_layout(T)
+    return _SPARSE_LAYOUTS[key], sc.block
+
+
+def _sparse_attn(cfg: GPT2Config, q, k, v, T: int):
+    layout, block = sparse_layout(cfg, T)
+    return block_sparse_attention(q, k, v, layout, block, causal=True)
+
+
 def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
            seeds: Optional[tuple], deterministic: bool) -> torch.Tensor:
     """One transformer block; ``lp`` holds this layer's slice of the
@@ -195,7 +240,11 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
         return t.reshape(B, T, H, hd).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
-    if cfg.use_flash_attention and T >= 128:
+    if cfg.attention_mode == "sparse":
+        attn = _sparse_attn(cfg, q, k, v, T)
+    elif cfg.attention_mode != "flash":
+        raise ValueError(f"unknown attention_mode {cfg.attention_mode!r} (flash|ring|ulysses|sparse)")
+    elif cfg.use_flash_attention and T >= 128:
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = mha_reference(q, k, v, causal=True)

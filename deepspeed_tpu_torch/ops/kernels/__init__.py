@@ -4,8 +4,9 @@ Each kernel is a plain C entry point in a CUDA C++ source under
 ``deepspeed_tpu_torch/csrc/`` (two kernels may share a source: B4 and B5
 live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
 ``fused_lamb.cu``, the two-pass attention backward B6a and B6b in
-``flash_bwd_2pass.cu``; the flash sources share the device functions of
-``flash_common.cuh``).  At first use the source is
+``flash_bwd_2pass.cu``, the block-sparse forward B8 and its backward B9a
+and B9b in ``splash_attn.cu``; the attention sources share the device
+functions of ``flash_common.cuh``).  At first use the source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
@@ -87,6 +88,24 @@ KERNELS = {
         # q, k, v, dout, lse, delta, dk, dv, <ext>, BH, H, sq, sk, d, dtype, causal, sm_scale,
         # stream
         [_P, _P, _P, _P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "splash_fwd": (
+        "splash_attn.cu", "ds_splash_fwd",
+        # q, k, v, out, lse, idx, valid, BH, H, LH, T, block, deg, d, dtype, causal, sm_scale,
+        # stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "splash_bwd_dq": (
+        "splash_attn.cu", "ds_splash_bwd_dq",
+        # q, k, v, dout, lse, delta, dq, idx, valid, BH, H, LH, T, block, deg, d, dtype, causal,
+        # sm_scale, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
+    "splash_bwd_dkv": (
+        "splash_attn.cu", "ds_splash_bwd_dkv",
+        # q, k, v, dout, lse, delta, dk, dv, dk32, dv32, qidx, flags, item_col, item_off,
+        # col_items, BH, H, LH, T, block, E, W, d, dtype, causal, sm_scale, stream
+        [*[_P] * 15, *[_I] * 10, _F, _P],
     ),
     "fused_adam": (
         "fused_adam.cu", "ds_fused_adam",

@@ -3,6 +3,7 @@
     python -m deepspeed_tpu_torch.tools.profile_training [--steps 2] [--trace out.json]
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --optimizer lamb --seq 512
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --dropout 0.1
+    python -m deepspeed_tpu_torch.tools.profile_training --attention-mode sparse --seq 8192 --layers 8
 
 Builds ``initialize()`` in bf16 over f32 masters (random weights from
 ``--seed``), micro-batch 8, gradient accumulation 2, clipping 1.0, for one
@@ -11,6 +12,11 @@ AdamW (``train_bf16``, the default), or BERT-large MLM + NSP pretraining
 at T 512 with LAMB (bing_bert's phase-2 settings) on a synthetic padded
 batch (``train_bert_bf16``; with ``--dropout 0.1``, BERT-large's
 published hidden and attention-probability dropout, ``train_bert_drop_bf16``).
+With ``--attention-mode`` (``sparse`` or ``flash``) it runs the long-context
+recipe of ``train_sparse_bf16`` instead: GPT-2 124M's width at ``--layers``
+(default 8) and ``n_positions`` = ``--seq`` (default 8192), batch 1, Adam at
+lr 1e-4, cross-entropy in chunks of 512, block-sparse attention (the
+default BigBird layout) or dense flash attention.
 Runs two warm-up steps, then ``--steps``
 steps of one fixed batch under ``torch.profiler`` with CPU and CUDA
 activities.  Prints one JSON line: the window, the device-busy time (the
@@ -25,6 +31,7 @@ import json
 import subprocess
 import time
 from collections import defaultdict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,6 +44,9 @@ KERNEL_CLASSES = (
     ("flash_bwd", ("flash_bwd_kernel",)),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("splash_fwd", ("splash_fwd_kernel",)),
+    ("splash_bwd_dq", ("splash_dq_kernel",)),
+    ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel")),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_lamb_dir", ("lamb_dir_kernel",)),
     ("fused_lamb_apply", ("lamb_apply_kernel",)),
@@ -85,11 +95,19 @@ def synthetic_mlm_batch(vocab_size: int, B: int, T: int, seed: int = 0) -> dict:
     }
 
 
-def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, dropout: float = 0.0):
+# the long-context recipe (the JAX package's tools/bench_long_context.py)
+LONG_ADAM = {"type": "Adam", "params": {"lr": 1e-4}}
+
+
+def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, dropout: float = 0.0,
+          attention_mode: Optional[str] = None, layers: Optional[int] = None):
     """``(engine, batch, cfg)`` of a bf16 training run: GPT-2 124M or
     BERT-large at width and depth, random weights from ``seed``, one
     fixed batch of ``gas * mb`` rows; ``dropout``: BERT's hidden and
-    attention-probability dropout (GPT-2's ``dropout``)."""
+    attention-probability dropout (GPT-2's ``dropout``).  With
+    ``attention_mode`` (GPT-2 only): the long-context recipe, ``layers``
+    layers, ``n_positions`` = T, cross-entropy chunks of 512 and Adam at
+    lr 1e-4 (``LONG_ADAM``, whatever ``optimizer`` says)."""
     import dataclasses
 
     import deepspeed_tpu_torch
@@ -102,10 +120,13 @@ def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, drop
         batch = synthetic_mlm_batch(cfg.vocab_size, mb * gas, T, seed)
     else:
         cfg = dataclasses.replace(gpt2.PRESETS[model], dropout=dropout)
+        if attention_mode is not None:
+            cfg = dataclasses.replace(cfg, attention_mode=attention_mode, n_positions=T,
+                                      n_layer=layers or cfg.n_layer, xent_chunk_size=512)
         model_fn, init_fn, _ = gpt2.make_model(cfg)
         batch = {"input_ids": np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (mb * gas, T), dtype=np.int32)}
-    opt = BERT_LAMB if optimizer == "lamb" else {
+    opt = LONG_ADAM if attention_mode is not None else BERT_LAMB if optimizer == "lamb" else {
         "type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.1}}
     config = {"train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
               "bf16": {"enabled": True}, "gradient_clipping": 1.0, "optimizer": opt}
@@ -119,7 +140,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--model", default="gpt2", choices=["gpt2", "bert-large"])
     ap.add_argument("--optimizer", default=None, choices=["adamw", "lamb"],
                     help="default: adamw for gpt2, lamb for bert-large")
-    ap.add_argument("--seq", type=int, default=None, help="default: 1024 for gpt2, 512 for bert")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="default: 1024 for gpt2, 512 for bert, 8192 with --attention-mode")
+    ap.add_argument("--attention-mode", default=None, choices=["flash", "sparse"],
+                    help="GPT-2's long-context recipe with this attention (B 1, Adam, xent chunks)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of the long-context recipe (default 8)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="hidden (and BERT's attention) dropout; BERT-large publishes 0.1")
     ap.add_argument("--steps", type=int, default=2)
@@ -130,10 +156,14 @@ def main(argv=None) -> dict:
         raise RuntimeError("profile_training measures the card; torch.cuda.is_available() is False")
 
     bert_run = args.model == "bert-large"
-    optimizer = args.optimizer or ("lamb" if bert_run else "adamw")
-    T = args.seq or (512 if bert_run else 1024)
-    mb, gas = 8, 2
-    engine, batch, _ = build(args.model, optimizer, T, mb, gas, args.seed, args.dropout)
+    long_run = args.attention_mode is not None
+    if long_run and (bert_run or args.optimizer):
+        raise ValueError("--attention-mode is GPT-2's long-context recipe, with its own Adam")
+    optimizer = "adam" if long_run else args.optimizer or ("lamb" if bert_run else "adamw")
+    T = args.seq or (512 if bert_run else 8192 if long_run else 1024)
+    mb, gas = (1, 1) if long_run else (8, 2)
+    engine, batch, engine_cfg = build(args.model, optimizer, T, mb, gas, args.seed, args.dropout,
+                                      args.attention_mode, (args.layers or 8) if long_run else None)
     for _ in range(2):  # warm-up: kernel build and load, allocator
         float(engine.train_batch(batch))
     torch.cuda.synchronize()
@@ -166,7 +196,8 @@ def main(argv=None) -> dict:
     steps = args.steps
     out = {
         "profile": "train_step", "model": args.model, "optimizer": optimizer, "dtype": "bf16",
-        "dropout": args.dropout,
+        "dropout": args.dropout, "attention_mode": args.attention_mode or "flash",
+        "layers": getattr(engine_cfg, "n_layer", None) or engine_cfg.num_hidden_layers,
         "micro_batch": mb, "gas": gas,
         "T": T, "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
         "tokens_per_s": mb * gas * T * steps / wall,

@@ -94,13 +94,28 @@ def test_same_dict_gives_same_rejection(d):
     ({"activation_checkpointing": {"partition_activations": True}}, "A13"),
     ({"wall_clock_breakdown": True}, "A14"),
     ({"dataloader_drop_last": True}, "A5"),
-    ({"sparse_attention": {"mode": "fixed"}}, "A10"),
+    ({"progressive_layer_drop": {"enabled": True}}, "A13"),
 ])
 def test_not_ported_blocks_raise_naming_their_item(d, item):
     d = {"train_batch_size": 8, **d}
     JConfig(d, world_size=1)  # the JAX package takes it
     with pytest.raises(NotImplementedError, match=item):
         TConfig(d)
+
+
+@pytest.mark.parametrize("block", [
+    None,
+    {"mode": "fixed"},
+    {"mode": "bigbird", "block": 64, "num_random_blocks": 2, "different_layout_per_head": True},
+    {"block": 16, "attention": "unidirectional"},
+], ids=["absent", "fixed", "bigbird-params", "no-mode"])
+def test_sparse_attention_block_parses_as_the_jax_package_does(block):
+    d = {"train_batch_size": 8}
+    if block is not None:
+        d["sparse_attention"] = block
+    want = JConfig(d, world_size=1).sparse_attention
+    got = TConfig(d).sparse_attention
+    assert (got.mode, got.params) == (want.mode, want.params)
 
 
 def test_serving_block_still_parses():

@@ -19,11 +19,16 @@ dtypes, ragged and unaligned leaves, trust-ratio branches and overflow
 skip, autograd through the kernels, attention dropout (in-kernel
 Threefry bits against the host twin's) and the full bias in the forward
 and both backwards (B2 and the two-pass B6a/B6b, whose dq must be the same
-bits launch after launch), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
+bits launch after launch), the block-sparse kernels B8/B9a/B9b (every
+layout form: BigBird, per-head, untouched key columns, a row with no
+block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the same bits
+launch after launch), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
 backward entry by entry, within that tolerance times |entry| plus half
 the gradient's rms (dq's f32 sum is taken with atomics, in an order that
-changes between runs); fused Adam's moments 1e-6 of their largest entry,
+changes between runs; for the block-sparse backward, the rms of the
+entry's own layout block, its share grown as the square root of that
+block's sum past 1,024 terms); fused Adam's moments 1e-6 of their largest entry,
 f32 p 1e-6 absolute (the kernel rounds each product and sum as the plain
 version does); fused LAMB the same, with its trust ratio 1e-5 relative
 (its norms sum per block, in another order)."""
@@ -376,7 +381,7 @@ def test_launch_counts_and_refusals(dev):
     fa.flash_fwd(q.cpu(), q.cpu(), q.cpu(), causal=True)  # the plain version: no launch
     want = {"flash_fwd": 1, "flash_decode": 1, "flash_decode_paged": 0, "flash_bwd": 0,
             "fused_adam": 0, "fused_lamb_dir": 0, "fused_lamb_apply": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "splash_fwd": 0, "splash_bwd_dq": 0, "splash_bwd_dkv": 0}
     assert kernels.launches() == want
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, True, 0.125)
@@ -540,3 +545,117 @@ def test_dropout_and_fbias_refusals(dev):
     with pytest.raises(ValueError, match="fbias"):
         fa.flash_bwd2_cuda(q, q, q, q, q[..., 0].contiguous(), q[..., 0].contiguous(), False,
                            0.125, fbias=fb.half())
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention: B8 (splash_fwd), B9a (splash_bwd_dq), B9b
+# (splash_bwd_dkv) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _splash_layout(kind, H, nb, block):
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    if kind in ("bigbird-uni", "bigbird-bi"):
+        att = "unidirectional" if kind == "bigbird-uni" else "bidirectional"
+        return sp.BigBirdSparsityConfig(num_heads=H, block=block, attention=att).make_layout(
+            nb * block)
+    if kind == "all-ones":
+        return sp.DenseSparsityConfig(num_heads=H, block=block).make_layout(nb * block)
+    return sp.check_layouts(nb)[kind]  # per-head, untouched-columns, zero-degree-row (H = 2)
+
+
+def _splash_bwd_close(got, ref, dtype, layout, block):
+    """The splash backward entry by entry, within the bound chip_smoke.py
+    holds it to (``sparse.splash_grad_bound``)."""
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        bound, _ = sp.splash_grad_bound(name, b, layout, block, TOL[dtype])
+        assert bool(((a.float() - b.float()).abs() <= bound).all()), _err(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,causal,T,d,block", [
+    ("bigbird-uni", True, 4096, 64, 256),     # the main path's layout, shorter
+    ("bigbird-bi", False, 1024, 32, 128),     # global rows: 0 here, the dense bucket's
+    ("per-head", True, 512, 128, 64),         # the (H, E) index form
+    ("untouched-columns", True, 256, 16, 64),
+    ("zero-degree-row", False, 256, 64, 64),
+    ("all-ones", True, 512, 64, 128),         # exempt from the dense bucket
+    ("bigbird-uni", True, 384, 64, 96),       # a block that is no multiple of 64
+    ("bigbird-bi", False, 128, 16, 16),       # a block below one tile
+])
+def test_splash_kernels_match_plain(dev, dtype, kind, causal, T, d, block):
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    B, H = 2, 2
+    layout = _splash_layout(kind, H, T // block, block)
+    q, k, v, do = (_randn(dev, B, H, T, d, seed=s).to(dtype) for s in (1, 2, 3, 4))
+    scale = d ** -0.5
+    out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, causal, scale, want_lse=True)
+    ref, ref_lse = sp.splash_fwd_reference(q, k, v, layout, block, causal, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _err(out, ref) <= TOL[dtype]
+    inf = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), inf)
+    assert _err(lse[~inf], ref_lse[~inf]) <= 1e-4
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, layout, block, causal, scale)
+    got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+    again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
+    ref = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    _splash_bwd_close(got, ref, dtype, layout, block)
+    for a, b in zip(got, again):  # no atomics: the same bits every launch
+        assert torch.equal(a, b)
+    if kind == "untouched-columns":
+        nb = T // block
+        for h, col in sp.UNTOUCHED_COLUMNS:
+            for g in got[1:]:
+                assert not g.reshape(B, H, nb, block, d)[:, h, col].any(), (h, col)
+    if kind == "zero-degree-row":
+        assert not out.reshape(B, H, T // block, block, d)[:, 0, 1].any()
+
+
+def test_splash_autograd_on_the_card_matches_the_gather_path(dev):
+    """block_sparse_attention's auto route on the card (B8, then B9a and
+    B9b, with BigBird's dense global rows outside the kernels) against the
+    gather path, f32: output and q, k, v gradients."""
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    T, block = 1024, 128
+    layout = _splash_layout("bigbird-bi", 4, T // block, block)
+    q, k, v = (_randn(dev, 2, 4, T, 64, seed=s).requires_grad_() for s in (1, 2, 3))
+    w = _randn(dev, 2, 4, T, 64, seed=4)
+    (sp.block_sparse_attention(q, k, v, layout, block, backend="gather") * w).sum().backward()
+    want = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    kernels.reset_launches()
+    (sp.block_sparse_attention(q, k, v, layout, block) * w).sum().backward()
+    got = kernels.launches()
+    assert (got["splash_fwd"], got["splash_bwd_dq"], got["splash_bwd_dkv"]) == (1, 1, 1)
+    for a, t in zip(want, (q, k, v)):
+        assert _err(t.grad, a) <= 1e-4 * max(1.0, float(a.abs().max()))
+
+
+def test_splash_refusals(dev):
+    from deepspeed_tpu_torch.ops.attention import sparse as sp
+
+    layout = _splash_layout("bigbird-uni", 2, 4, 64)
+    q = _randn(dev, 1, 2, 256, 64)
+    with pytest.raises(ValueError, match="layout"):
+        sp.splash_fwd_cuda(q, q, q, layout[:, :2, :2], 64, True, 0.125)
+    with pytest.raises(ValueError, match="multiple"):
+        sp.splash_fwd_cuda(q, q, q, layout, 100, True, 0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        sp.splash_fwd_cuda(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                           q[..., :48].contiguous(), layout, 64, True, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        sp.splash_fwd_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), q, q, layout, 64,
+                           True, 0.125)
+    lse = q[..., 0].contiguous()
+    with pytest.raises(ValueError, match="float32"):
+        sp.splash_bwd_dkv_cuda(q, q, q, q, lse.double(), lse, layout, 64, True, 0.125)

@@ -15,6 +15,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.ops.attention import flash_attention as tfa
+from deepspeed_tpu_torch.ops.attention import sparse as tsp
 from deepspeed_tpu_torch.ops.kernels import flash_decode as tfd
 from deepspeed_tpu_torch.ops.kernels import fused_update as tfu
 from deepspeed_tpu_torch.ops.kernels import kernels_report
@@ -32,6 +33,7 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/models/bert.py",
     "deepspeed_tpu_torch/ops/normalize.py",
     "deepspeed_tpu_torch/ops/attention/flash_attention.py",
+    "deepspeed_tpu_torch/ops/attention/sparse.py",
     "deepspeed_tpu_torch/ops/kernels/__init__.py",
     "deepspeed_tpu_torch/ops/kernels/flash_decode.py",
     "deepspeed_tpu_torch/ops/kernels/fused_update.py",
@@ -77,7 +79,7 @@ def test_import_walk_covers_every_slice_module():
     assert not missing, missing
     assert {p.name for p in CUDA_SOURCES} >= {"flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu",
                                               "fused_adam.cu", "fused_lamb.cu",
-                                              "flash_bwd_2pass.cu"}
+                                              "flash_bwd_2pass.cu", "splash_attn.cu"}
 
 
 @pytest.mark.parametrize("path", OPS_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -94,8 +96,8 @@ def test_ops_import_nothing_from_the_layers_above(path):
 
 def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monkeypatch):
     """A built kernel is stale when its source or a csrc/ header that the
-    source includes is newer than its library: the flash sources follow
-    flash_common.cuh, the optimizer and decode kernels do not."""
+    source includes is newer than its library: the flash and splash sources
+    follow flash_common.cuh, the optimizer and decode kernels do not."""
     import os
     import shutil
 
@@ -114,7 +116,8 @@ def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monke
     assert not any(lib._stale(name) for name in kernels.KERNELS)
     os.utime(csrc / "flash_common.cuh", (3000, 3000))
     stale = {name for name in kernels.KERNELS if lib._stale(name)}
-    assert stale == {"flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert stale == {"flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv", "splash_fwd",
+                     "splash_bwd_dq", "splash_bwd_dkv"}
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
@@ -168,12 +171,21 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_bwd2_cuda(q, q, q, q, lse, lse, causal=False, sm_scale=0.125,
                             kbias=torch.zeros(1, 128))
+    layout = np.tril(np.ones((1, 2, 2), np.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.splash_fwd_cuda(q, q, q, layout, 64, causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.splash_bwd_dq_cuda(q, q, q, q, lse, lse, layout, 64, causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.splash_bwd_dkv_cuda(q, q, q, q, lse, lse, layout, 64, causal=True, sm_scale=0.125)
     report = kernels_report()
     assert set(report) == {"flash_fwd", "flash_decode", "flash_decode_paged", "flash_bwd",
                            "fused_adam", "fused_lamb_dir", "fused_lamb_apply", "flash_bwd_dq",
-                           "flash_bwd_dkv"}
+                           "flash_bwd_dkv", "splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"}
     assert report["fused_lamb_dir"]["source"] == report["fused_lamb_apply"]["source"]
     assert report["flash_bwd_dq"]["source"] == report["flash_bwd_dkv"]["source"]
+    assert report["splash_fwd"]["source"] == report["splash_bwd_dq"]["source"] == \
+        report["splash_bwd_dkv"]["source"]
     assert all(r["launches"] == 0 for r in report.values())
     assert all((REPO / r["source"]).is_file() for r in report.values())
 
