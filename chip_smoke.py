@@ -9,8 +9,12 @@ Phases, each printing one JSON line:
    from ``deepspeed_tpu_torch/csrc`` with ``nvcc`` (one process per source,
    all started together).
 2. ``kernel``: every kernel against its plain PyTorch version at the main
-   paths' shapes (flash prefill at B=4, H=12, d=64, T=256/512/200 in bf16 and
-   f32, and at the training shape B=8, T=1024 with its lse, and with
+   paths' shapes (B1 and B2 run bf16 on their tensor-core bodies and f32
+   on their CUDA-core bodies, each row naming its ``body``; flash prefill
+   at B=4, H=12, d=64, T=256/512/200 in bf16 and
+   f32, and at the training shape B=8, T=1024 with its lse, and the
+   tensor-core bodies at every head dim, d=16/32/64/128 with H=768/d, B=8,
+   T=1024, causal, B1 with its lse and B2; and with
    BERT-large's key-padding bias at B=8, H=16, T=512 with its lse; flash decode
    over an 8-slot, 1024-position cache in f32, bf16 and int8, with and
    without a key-padding mask; flash backward at B=8, H=12, d=64, T=1024 in
@@ -36,7 +40,11 @@ Phases, each printing one JSON line:
    layout at T=1024, whose empty columns' dk/dv must be exactly 0),
    with the tolerance stated, and the times of the kernel, the plain
    version and one PyTorch library call beside the least time the card
-   could take (``bound_ms``).
+   could take (``bound_ms``; with dropout the slower of the dots and
+   Threefry's integer operations on the INT32 pipe).  B2's bf16 gradients
+   (and its plain version's) are held to the float64 function within the
+   bound of the bf16 contract (``flash_bwd_float64``), the f32 ones to the
+   plain version entry by entry.
 3. ``serve_f32``: GPT-2 124M at full width and depth (random weights from
    a seed) behind ``init_serving``: 8 slots, 64-token prefill chunks, 16
    requests with 64..384-token prompts, drained; every request's greedy
@@ -47,6 +55,7 @@ Phases, each printing one JSON line:
    T=256, the serving main path.  Kernel launch counters are zeroed just
    before it and read just after: both serving kernels must have launched.
    Logits of the kernel path and of the plain path on the card must agree.
+   Every prefill launch of B1 must have run its tensor-core body.
 5. ``train_f32``: GPT-2 124M at full width and depth through
    ``deepspeed_tpu_torch.initialize`` in f32, B=2, T=1024, 3 ``train_batch``
    steps, TF32 off: the kernel path against the same steps with
@@ -57,8 +66,9 @@ Phases, each printing one JSON line:
    ``WarmupDecayLR`` (lr 6e-5 rising to 6e-4 over 2 steps) and clipping
    1.0, 4 steps on one fixed batch.  The
    counters are zeroed just before and read just after: the flash forward,
-   flash backward and fused Adam kernels must have launched; every loss
-   finite and the last below the first.  Prints tokens/s, ms a step, peak
+   flash backward and fused Adam kernels must have launched, B1 and B2 on
+   their tensor-core bodies only; every loss finite and the last below the
+   first.  Prints tokens/s, ms a step, peak
    memory and model-FLOPs utilization.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
@@ -95,14 +105,16 @@ Phases, each printing one JSON line:
 12. ``train_bert_drop_bf16``: this slice's main path, BERT-large with its
    published dropout, otherwise ``train_bert_bf16``'s settings.  Counters
    zeroed just before and read just after: every flash forward and
-   backward launch ran with the bias and dropout, both LAMB kernels
-   launched, fused Adam and the two-pass backward not; every loss finite.
+   backward launch ran with the bias and dropout on the tensor-core body,
+   both LAMB kernels launched, fused Adam and the two-pass backward not;
+   every loss finite.
    Prints tokens/s, ms a step, peak memory and model-FLOPs utilization.
 13. ``transformer_layer``: ``DeepSpeedTransformerLayer`` at BERT-large
    width (pre-LN, the op's default dropout 0.1 and 0.1): 24 layers in bf16
    at B=8, T=512, forward and backward, with a (B, T) mask (the key-row
    bias) and with a (B, 1, T, T) seq2seq mask (the full bias), each a main
-   path (counters zeroed before, read after); the same stack in f32 at
+   path (counters zeroed before, read after) timed with two more passes
+   (their median beside the counted one); the same stack in f32 at
    B=2 against plain attention on the same seeds; one layer at B=1,
    T=9216, whose backward must be the two-pass B6a/B6b and not B2.
 14. ``train_sparse_f32``: GPT-2 with ``attention_mode="sparse"`` (124M
@@ -118,6 +130,7 @@ Phases, each printing one JSON line:
    fused Adam launched, B1/B2 not; losses finite and falling.  Prints ms a
    step, tokens/s, peak memory, MFU and sparse-over-dense tokens/s.
 16. ``kernels``: one entry per kernel with its launches on each main path
+   (B1 and B2: the tensor-core body's source, the f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
    training_bert, training_bert_dropout, transformer_layer,
    training_sparse) and their sum.
@@ -163,6 +176,22 @@ F32_NEAR_TIE = 1e-3
 BF16_LOGIT_TOL = 0.1
 
 FLUSH_BYTES = 512 << 20  # > the 50 MB L2: every timed launch starts cold
+
+# attention dropout's keep-bits on the INT32 pipe, for the dropout rows'
+# bound: Threefry-2x32 as flash_common.cuh computes it, integer operations
+# a score: the counter's multiply-add, 2 key adds, 20 rounds of add,
+# rotate (one funnel shift) and xor (60), 5 key injections of 2 adds (10),
+# the compare and the select (75 in all); the rate: 64 INT32 lanes a clock
+# on each of the H100 SXM's 132 SMs at its 1.98 GHz boost clock (NVIDIA
+# H100 Tensor Core GPU Architecture white paper), 16.7e12 operations a
+# second
+THREEFRY_OPS_PER_SCORE = 75
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+
+# the head dims the tensor-core bodies serve beside GPT-2's 64 (whose rows
+# are the training shape's), each at GPT-2's width (768 = H x d) and
+# training shape (B 8, T 1024, causal)
+TC_DIMS = (16, 32, 128)
 
 # flash backward vs its plain version, entry by entry:
 #   |got - ref| <= tol * (|ref| + BWD_RMS_SHARE * rms(ref))
@@ -213,7 +242,7 @@ LONG_T, LONG_KEEP = 9216, 8000
 # its entry bound's rms share: BWD_RMS_SHARE was set for sums over at most
 # 1,024 terms; here each gradient sums LONG_T terms that nearly cancel,
 # and the f32 rounding of such a sum grows as the square root of its
-# length.  Against the float64 function (`_bwd2_float64`, on an H100) the
+# length.  Against the float64 function (`flash_bwd_float64`, on an H100) the
 # f32 dk and dv read 1.24x and 1.01x the unscaled bound, the kernel's and
 # the plain version's alike (the same bits), and dq 0.46x (kernel) and
 # 1.05x (plain, cuBLAS's order): the error is the f32 sum's own, and the
@@ -273,10 +302,24 @@ def device_ms(torch, fn, flush, iters=20, warmup=3):
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound_ms(nbytes, flops, dtype_name):
+def bound_ms(nbytes, flops, dtype_name, int_ops=0):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over their pipe's peak (the dots' on the tensor or CUDA
+    cores, dropout's integer operations on the INT32 pipe; the pipes run
+    side by side, so the slower of them), whichever is larger."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype_name], int_ops / PEAK_INT32_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def body(dtype_name):
+    """The B1/B2 body a dtype takes: bf16 the tensor cores', f32 the CUDA cores'."""
+    return "tc" if dtype_name == "bfloat16" else "simt"
+
+
+def only_tc(variants):
+    """Whether a B1/B2 launch count by variant holds tensor-core launches only."""
+    return bool(variants) and all(v.endswith("/tc") for v in variants)
 
 
 def max_err(a, b) -> float:
@@ -322,8 +365,8 @@ def check_flash_fwd(torch, dev, flush):
             flops = 4 * B * H * d * T * (T + 1) / 2
             b_ms, b_by = bound_ms(nbytes, flops, name)
             row = {
-                "phase": "kernel", "kernel": "flash_fwd", "B": B, "H": H, "T": T, "d": d,
-                "dtype": name, "causal": True, "max_err": err, "tol": tol,
+                "phase": "kernel", "kernel": "flash_fwd", "body": body(name), "B": B, "H": H,
+                "T": T, "d": d, "dtype": name, "causal": True, "max_err": err, "tol": tol,
                 "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale), flush),
                 "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, True, scale), flush),
                 "library_ms": device_ms(
@@ -585,12 +628,15 @@ def phase_serve_bf16(torch, params, reqs):
     gen = eng.generate(gen_ids, max_new_tokens=16)
     gen_wall = time.perf_counter() - t0
     launches = kernels.launches()
+    variants = kernels.launch_variants()
     # ----------------------------------------------------------------------
 
     check(gen.shape == (4, 272) and np.array_equal(gen[:, :256], gen_ids),
           f"generate() returned {gen.shape}")
     for name in ("flash_fwd", "flash_decode"):
         check(launches[name] > 0, f"kernel {name} was not launched on the serving main path")
+    check(only_tc(variants["flash_fwd"]),
+          f"serve_bf16: the bf16 prefill ran {variants['flash_fwd']}, not only the tensor-core body")
     ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
     n_tok = int(sum(len(r.generated) for r in done))
     stats = srv.stats()
@@ -603,7 +649,7 @@ def phase_serve_bf16(torch, params, reqs):
           "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
           "phase_seconds": stats["phase_seconds"],
           "generate": {"B": 4, "T": 256, "new": 16, "wall_s": gen_wall},
-          "launches": launches})
+          "launches": launches, "flash_fwd_variants": variants["flash_fwd"]})
 
     # -- kernel path vs plain path on the card, first-step logits ----------
     cfg = eng.model_config
@@ -816,7 +862,7 @@ def check_flash_fwd_training(torch, dev, flush):
     b_ms, b_by = bound_ms(4 * B * H * T * d * 2 + B * H * T * 4, 4 * B * H * d * T * (T + 1) / 2,
                           "bfloat16")
     row = {
-        "phase": "kernel", "kernel": "flash_fwd", "B": B, "H": H, "T": T, "d": d,
+        "phase": "kernel", "kernel": "flash_fwd", "body": "tc", "B": B, "H": H, "T": T, "d": d,
         "dtype": "bfloat16", "causal": True, "lse": True, "max_err": err, "lse_max_err": lse_err,
         "tol": TOL["bfloat16"], "lse_tol": 1e-4,
         "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True),
@@ -849,12 +895,9 @@ def check_flash_bwd(torch, dev, flush):
         got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)
         ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, scale)
         torch.cuda.synchronize()
-        errs, over = zip(*(grad_err(a, b, TOL[name]) for a, b in zip(got, ref)))
+        fields = _bwd_fields(fa, got, ref, (q, k, v, do, lse, delta, True, scale),
+                             f"flash_bwd B={B} T={T} {name}")
         rms = [float(b.float().square().mean().sqrt()) for b in ref]
-        for grad, e, w in zip(("dq", "dk", "dv"), errs, over):
-            check(w <= 1.0, f"flash_bwd B={B} T={T} {name}: {grad} max_err {e} is {w:.3g}x "
-                            f"its entry bound {TOL[name]} * (|ref| + {BWD_RMS_SHARE} * rms(ref))")
-        check(all(torch.isfinite(a).all().item() for a in got), f"flash_bwd T={T} {name}: non-finite")
         item = dtype.itemsize
         pairs = T * (T + 1) / 2  # causal (query, key) pairs
         nbytes = 7 * B * H * T * d * item + 2 * B * H * T * 4
@@ -864,10 +907,8 @@ def check_flash_bwd(torch, dev, flush):
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lout = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
         row = {
-            "phase": "kernel", "kernel": "flash_bwd", "B": B, "H": H, "T": T, "d": d,
-            "dtype": name, "causal": True, "max_err": max(errs), "max_err_dq_dk_dv": list(errs),
-            "err_over_bound_dq_dk_dv": list(over), "rms_dq_dk_dv": rms, "tol": TOL[name],
-            "tol_rms_share": BWD_RMS_SHARE,
+            "phase": "kernel", "kernel": "flash_bwd", "body": body(name), "B": B, "H": H, "T": T,
+            "d": d, "dtype": name, "causal": True, **fields, "rms_dq_dk_dv": rms,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale),
                                    flush, iters=10),
             "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(q, k, v, do, lse, delta, True,
@@ -879,6 +920,81 @@ def check_flash_bwd(torch, dev, flush):
         del lout
         emit(row)
         rows.append(row)
+    return rows
+
+
+def check_flash_tc_dims(torch, dev, flush):
+    """B1 (with lse) and B2 on the tensor-core bodies at the head dims
+    they serve beside 64 (``TC_DIMS``; d 64 is the training rows'), bf16,
+    causal, at GPT-2's width and training shape: B 8, T 1024, H = 768 / d.
+    Out within 2e-2 and lse within 1e-4 of the plain version, the
+    gradients (the kernel's and the plain version's) within the float64
+    bound (:func:`_bwd_fields`); each launch counted as ``tc``.  Library:
+    SDPA (causal) and its backward by autograd."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    B, T = 8, 1024
+    rows = {}
+    for d in TC_DIMS:
+        H = 768 // d
+        g = torch.Generator(device=dev).manual_seed(2000 + d)
+        q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = d ** -0.5
+        kernels.reset_launches()
+        out, lse = fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True)
+        delta = (do.float() * out.float()).sum(-1)
+        got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, True, scale)
+        torch.cuda.synchronize()
+        variants = kernels.launch_variants()
+        check(variants["flash_fwd"] == {"none/tc": 1} and variants["flash_bwd"] == {"none/tc": 1},
+              f"d={d}: bf16 launches ran {variants['flash_fwd']} / {variants['flash_bwd']}")
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
+        err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
+        del ref
+        check(torch.isfinite(out).all().item(), f"flash_fwd tc d={d}: non-finite output")
+        check(err <= TOL["bfloat16"], f"flash_fwd tc d={d}: max_err {err}")
+        check(lse_err <= 1e-4, f"flash_fwd tc d={d}: lse max_err {lse_err} > 1e-4")
+        refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, scale)
+        fields = _bwd_fields(fa, got, refb, (q, k, v, do, lse, delta, True, scale),
+                             f"flash_bwd tc d={d}")
+        del refb
+        torch.cuda.empty_cache()
+        pairs = T * (T + 1) / 2
+        fb_ms, fb_by = bound_ms(4 * B * H * T * d * 2 + B * H * T * 4, 4 * B * H * d * pairs,
+                                "bfloat16")
+        rows[("flash_fwd", d)] = {
+            "phase": "kernel", "kernel": "flash_fwd", "body": "tc", "B": B, "H": H, "T": T,
+            "d": d, "dtype": "bfloat16", "causal": True, "lse": True, "max_err": err,
+            "lse_max_err": lse_err, "tol": TOL["bfloat16"], "lse_tol": 1e-4,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, True, scale, want_lse=True), flush),
+            "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, True, scale),
+                                  flush, iters=3),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), flush),
+            "bound_ms": fb_ms, "bound_by": fb_by,
+        }
+        bb_ms, bb_by = bound_ms(7 * B * H * T * d * 2 + 2 * B * H * T * 4,
+                                5 * 2 * d * pairs * B * H, "bfloat16")
+        sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, is_causal=True)
+        rows[("flash_bwd", d)] = {
+            "phase": "kernel", "kernel": "flash_bwd", "body": "tc", "B": B, "H": H, "T": T,
+            "d": d, "dtype": "bfloat16", "causal": True, **fields,
+            "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
+                q, k, v, do, lse, delta, True, scale), flush, iters=10),
+            "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
+                q, k, v, do, lse, delta, True, scale), flush, iters=3),
+            "library_ms": device_ms(torch, sdpa_bwd, flush, iters=10),
+            "bound_ms": bb_ms, "bound_by": bb_by,
+        }
+        del sdpa_bwd, q, k, v, do, out, lse, delta, got
+        torch.cuda.empty_cache()
+        emit(rows[("flash_fwd", d)])
+        emit(rows[("flash_bwd", d)])
     return rows
 
 
@@ -1107,11 +1223,8 @@ def check_flash_bias(torch, dev, flush):
         check(torch.isfinite(out).all().item(), f"flash_fwd kbias {name}: non-finite output")
         check(err <= tol, f"flash_fwd kbias {name}: max_err {err} > tol {tol}")
         check(lse_err <= 1e-4, f"flash_fwd kbias {name}: lse max_err {lse_err} > 1e-4")
-        errs, over = zip(*(grad_err(a, b, tol) for a, b in zip(got, refb)))
-        for grad, e, w in zip(("dq", "dk", "dv"), errs, over):
-            check(w <= 1.0, f"flash_bwd kbias {name}: {grad} max_err {e} is {w:.3g}x its entry "
-                            f"bound {tol} * (|ref| + {BWD_RMS_SHARE} * rms(ref))")
-        check(all(torch.isfinite(a).all().item() for a in got), f"flash_bwd kbias {name}: non-finite")
+        fields = _bwd_fields(fa, got, refb, (q, k, v, do, lse, delta, False, scale, kb),
+                             f"flash_bwd kbias {name}")
         padded = max(float(torch.cat([got[1][b, :, n:], got[2][b, :, n:]]).abs().max())
                      for b, n in enumerate(keep) if n < T)
         check(padded == 0.0, f"flash_bwd kbias {name}: a padded key's dk/dv is {padded}, not 0")
@@ -1120,7 +1233,8 @@ def check_flash_bias(torch, dev, flush):
         fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + B * T * 4,
                                 4 * B * H * d * T * T, name)
         rows[("flash_fwd", name)] = {
-            "phase": "kernel", "kernel": "flash_fwd", "bias": "kbias (B, 1, 1, T)", "B": B,
+            "phase": "kernel", "kernel": "flash_fwd", "body": body(name),
+            "bias": "kbias (B, 1, 1, T)", "B": B,
             "H": H, "T": T, "d": d, "dtype": name, "causal": False, "lse": True,
             "keys_kept": keep, "max_err": err, "lse_max_err": lse_err, "tol": tol, "lse_tol": 1e-4,
             "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
@@ -1136,11 +1250,10 @@ def check_flash_bias(torch, dev, flush):
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         lout = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
         rows[("flash_bwd", name)] = {
-            "phase": "kernel", "kernel": "flash_bwd", "bias": "kbias (B, 1, 1, T)", "B": B,
+            "phase": "kernel", "kernel": "flash_bwd", "body": body(name),
+            "bias": "kbias (B, 1, 1, T)", "B": B,
             "H": H, "T": T, "d": d, "dtype": name, "causal": False, "keys_kept": keep,
-            "max_err": max(errs), "max_err_dq_dk_dv": list(errs),
-            "err_over_bound_dq_dk_dv": list(over), "padded_keys_dk_dv_max": padded, "tol": tol,
-            "tol_rms_share": BWD_RMS_SHARE,
+            **fields, "padded_keys_dk_dv_max": padded,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
                 q, k, v, do, lse, delta, False, scale, kbias=kb), flush, iters=10),
             "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
@@ -1170,6 +1283,39 @@ def _check_bwd_rows(got, ref, tol, label, rms_share=BWD_RMS_SHARE):
                         f"{tol} * (|ref| + {rms_share} * rms(ref))")
     check(all(a.isfinite().all().item() for a in got), f"{label}: non-finite gradient")
     return list(errs), list(over)
+
+
+def _bwd_fields(fa, got, ref, args, label):
+    """B2's gradients ``got`` checked, and the row's error fields.  f32 (the
+    CUDA-core body): against the plain version ``ref`` entry by entry
+    (:func:`_check_bwd_rows`).  bf16 (the tensor-core body): the kernel's
+    gradients and the plain version's against the float64 function of the
+    same inputs ``args`` (``flash_bwd_float64``), each within the bound of
+    the bf16 contract, which holds for any summation order; the max error
+    against the plain version is reported beside it.  The entry bound is
+    not a bound of that contract (a bf16 P or dS next to a rounding tie
+    rounds either way): ``entry_bound_vs_float64`` gives the kernel's and
+    the plain version's readings of it against float64, for the record."""
+    name = str(got[0].dtype).replace("torch.", "")
+    tol = TOL[name]
+    if name != "bfloat16":
+        errs, over = _check_bwd_rows(got, ref, tol, label)
+        return {"max_err": max(errs), "max_err_dq_dk_dv": errs, "err_over_bound_dq_dk_dv": over,
+                "tol": tol, "tol_rms_share": BWD_RMS_SHARE}
+    witness = fa.flash_bwd_float64(*args)
+    over = {"kernel": fa.float64_over_bound(got, witness),
+            "plain": fa.float64_over_bound(ref, witness)}
+    for who, ratios in over.items():
+        for grad, w in zip(("dq", "dk", "dv"), ratios):
+            check(w <= 1.0, f"{label}: the {who}'s {grad} is {w:.3g}x its float64 bound")
+    check(all(a.isfinite().all().item() for a in got), f"{label}: non-finite gradient")
+    entry = {who: [grad_err(g, x, tol)[1] for g, x in zip(grads, witness[0])]
+             for who, grads in (("kernel", got), ("plain", ref))}
+    errs = [max_err(a, b) for a, b in zip(got, ref)]
+    return {"max_err": max(errs), "max_err_dq_dk_dv": errs,
+            "kernel_over_float64_bound_dq_dk_dv": over["kernel"],
+            "plain_over_float64_bound_dq_dk_dv": over["plain"],
+            "entry_bound_vs_float64": entry, "tol": tol, "tol_rms_share": BWD_RMS_SHARE}
 
 
 def _padded_zero(got, keep, T):
@@ -1207,15 +1353,19 @@ def check_flash_dropout(torch, dev, flush):
         check(torch.isfinite(out).all().item(), f"flash_fwd kbias+dropout {name}: non-finite")
         check(err <= tol, f"flash_fwd kbias+dropout {name}: max_err {err} > tol {tol}")
         check(lse_err <= 1e-4, f"flash_fwd kbias+dropout {name}: lse max_err {lse_err} > 1e-4")
-        errs, over = _check_bwd_rows(got, refb, tol, f"flash_bwd kbias+dropout {name}")
+        fields = _bwd_fields(fa, got, refb,
+                             (q, k, v, do, lse, delta, False, scale, kb, None, drop),
+                             f"flash_bwd kbias+dropout {name}")
         padded = _padded_zero(got, keep, T)
         check(padded == 0.0, f"flash_bwd kbias+dropout {name}: a padded key's dk/dv is {padded}")
         item = dtype.itemsize
         mask = kb[:, None, None, :].to(dtype)
+        keep_ops = THREEFRY_OPS_PER_SCORE * B * H * T * T  # one keep-bit a score
         fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + B * T * 4,
-                                4 * B * H * d * T * T, name)
+                                4 * B * H * d * T * T, name, keep_ops)
         rows[("flash_fwd", name)] = {
-            "phase": "kernel", "kernel": "flash_fwd", "bias": "kbias (B, 1, 1, T)",
+            "phase": "kernel", "kernel": "flash_fwd", "body": body(name),
+            "bias": "kbias (B, 1, 1, T)",
             "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
             "causal": False, "lse": True, "keys_kept": keep, "max_err": err,
             "lse_max_err": lse_err, "tol": tol, "lse_tol": 1e-4,
@@ -1226,18 +1376,17 @@ def check_flash_dropout(torch, dev, flush):
             "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=DROP_RATE), flush),
             "bound_ms": fb_ms, "bound_by": fb_by,
-            "bound_note": "the dots' operations; Threefry's integer operations have no "
-                          "peak in the table and are left out",
+            "bound_note": "the slower of the dots on the tensor (f32: CUDA) cores and "
+                          "Threefry's integer operations on the INT32 pipe",
         }
         bb_ms, bb_by = bound_ms(7 * B * H * T * d * item + 2 * B * H * T * 4 + B * T * 4,
-                                5 * 2 * d * T * T * B * H, name)
+                                5 * 2 * d * T * T * B * H, name, keep_ops)
         sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=mask, dropout_p=DROP_RATE)
         rows[("flash_bwd", name)] = {
-            "phase": "kernel", "kernel": "flash_bwd", "bias": "kbias (B, 1, 1, T)",
+            "phase": "kernel", "kernel": "flash_bwd", "body": body(name),
+            "bias": "kbias (B, 1, 1, T)",
             "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
-            "causal": False, "keys_kept": keep, "max_err": max(errs), "max_err_dq_dk_dv": errs,
-            "err_over_bound_dq_dk_dv": over, "padded_keys_dk_dv_max": padded, "tol": tol,
-            "tol_rms_share": BWD_RMS_SHARE,
+            "causal": False, "keys_kept": keep, **fields, "padded_keys_dk_dv_max": padded,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
                 q, k, v, do, lse, delta, False, scale, kb, None, drop), flush, iters=10),
             "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
@@ -1262,6 +1411,7 @@ def check_flash_fbias(torch, dev, flush):
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+    from deepspeed_tpu_torch.tools.profile_training import seq2seq_mask
 
     B, H, T, d = 8, 16, 512, 64
     drop = fa.make_dropout(DROP_RATE, DROP_KEY)
@@ -1270,7 +1420,7 @@ def check_flash_fbias(torch, dev, flush):
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         q, k, v, do, kb, keep = _bias_inputs(torch, dev, B, H, T, d, dtype, seed=514)
-        mask4 = seq2seq_mask(torch, kb, T)
+        mask4 = seq2seq_mask(kb, T)
         fb = mask4.expand(B, H, T, T)
         out, lse = fa.flash_fwd_cuda(q, k, v, False, scale, want_lse=True, fbias=fb, drop=drop)
         ref, ref_lse = fa.flash_fwd_reference(q, k, v, False, scale, None, fb, drop)
@@ -1282,14 +1432,17 @@ def check_flash_fbias(torch, dev, flush):
         check(torch.isfinite(out).all().item(), f"flash_fwd fbias {name}: non-finite")
         check(err <= tol, f"flash_fwd fbias {name}: max_err {err} > tol {tol}")
         check(lse_err <= 1e-4, f"flash_fwd fbias {name}: lse max_err {lse_err} > 1e-4")
-        errs, over = _check_bwd_rows(got, refb, tol, f"flash_bwd fbias {name}")
+        fields = _bwd_fields(fa, got, refb, (q, k, v, do, lse, delta, False, scale, None, fb, drop),
+                             f"flash_bwd fbias {name}")
         item = dtype.itemsize
         smask = mask4.to(dtype)
         bias_bytes = B * T * T * 4  # the (8, 1, 512, 512) f32 mask, read once
+        keep_ops = THREEFRY_OPS_PER_SCORE * B * H * T * T  # one keep-bit a score
         fb_ms, fb_by = bound_ms(4 * B * H * T * d * item + B * H * T * 4 + bias_bytes,
-                                4 * B * H * d * T * T, name)
+                                4 * B * H * d * T * T, name, keep_ops)
         rows[("flash_fwd", name)] = {
-            "phase": "kernel", "kernel": "flash_fwd", "bias": "fbias (B, 1, T, T)",
+            "phase": "kernel", "kernel": "flash_fwd", "body": body(name),
+            "bias": "fbias (B, 1, T, T)",
             "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
             "causal": False, "lse": True, "max_err": err, "lse_max_err": lse_err, "tol": tol,
             "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(
@@ -1301,13 +1454,13 @@ def check_flash_fbias(torch, dev, flush):
             "bound_ms": fb_ms, "bound_by": fb_by,
         }
         bb_ms, bb_by = bound_ms(7 * B * H * T * d * item + 2 * B * H * T * 4 + bias_bytes,
-                                5 * 2 * d * T * T * B * H, name)
+                                5 * 2 * d * T * T * B * H, name, keep_ops)
         sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, attn_mask=smask, dropout_p=DROP_RATE)
         rows[("flash_bwd", name)] = {
-            "phase": "kernel", "kernel": "flash_bwd", "bias": "fbias (B, 1, T, T)",
+            "phase": "kernel", "kernel": "flash_bwd", "body": body(name),
+            "bias": "fbias (B, 1, T, T)",
             "dropout": DROP_RATE, "B": B, "H": H, "T": T, "d": d, "dtype": name,
-            "causal": False, "max_err": max(errs), "max_err_dq_dk_dv": errs,
-            "err_over_bound_dq_dk_dv": over, "tol": tol, "tol_rms_share": BWD_RMS_SHARE,
+            "causal": False, **fields,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
                 q, k, v, do, lse, delta, False, scale, None, fb, drop), flush, iters=10),
             "plain_ms": device_ms(torch, lambda: fa.flash_bwd_reference(
@@ -1348,44 +1501,12 @@ def check_flash_fbias(torch, dev, flush):
     return rows
 
 
-def seq2seq_mask(torch, kb, T):
-    """A (B, 1, T, T) f32 mask: the key padding of ``kb`` (B, T), plus a
-    seq2seq (UniLM) pattern, in which every query sees the first half of
-    the row and a query in the second half sees the second half causally."""
-    half = T // 2
-    pos = torch.arange(T, device=kb.device)
-    allowed = (pos[None, :] < half) | (pos[None, :] <= pos[:, None])  # (T, T)
-    return torch.where(allowed[None, None], kb[:, None, None, :],
-                       torch.full((), -1e9, device=kb.device)).float().contiguous()
-
-
-def _bwd2_float64(torch, fa, args):
-    """The two-pass backward's function in float64, head by head, on the
-    same inputs (lse, delta, the f32 keep factor): the yardstick that
-    tells the f32 kernel's summation error from the f32 plain version's.
-    Returns ``(dq, dk, dv)`` in float64."""
-    q, k, v, do, lse, delta, _, scale, kb, _, drop = args
-    keep = fa.keep_mask(drop, q, k)
-    grads = ([], [], [])
-    for h in range(q.shape[1]):
-        qh, kh, vh, doh = (t[0, h].double() for t in (q, k, v, do))
-        p = torch.exp(qh @ kh.T * scale + kb[0].double()[None, :]
-                      - lse[0, h].double()[:, None])
-        f = (keep[0, h].float() / drop.keep_prob).double()
-        ds = p * ((doh @ vh.T) * f - delta[0, h].double()[:, None]) * scale
-        for out, g in zip(grads, (ds @ kh, ds.T @ qh, (p * f).T @ doh)):
-            out.append(g)
-        del p, f, ds
-    del keep
-    return tuple(torch.stack(g)[None] for g in grads)
-
-
 def check_flash_bwd2(torch, dev, flush):
     """B6a (dq pass) and B6b (dk/dv pass) at one long sequence, B=1, H=16,
     T=9216, d=64 (past d 64's 8,192-row bound of the fused backward), in
     bf16 and f32, with a key-padding bias keeping 8,000 keys and dropout
     0.1: against the two-pass plain version, against B2 on the same
-    inputs, in f32 against the float64 function (:func:`_bwd2_float64`;
+    inputs, in f32 against the float64 function (``flash_bwd_float64``;
     the plain version's own error beside the kernel's), and dq the same
     bits over two launches.  Bound by operations:
     the dq pass 6 T^2 d B H, the dk/dv pass 8 T^2 d B H (14 together).
@@ -1425,7 +1546,7 @@ def check_flash_bwd2(torch, dev, flush):
         if dtype == torch.float32:
             # both f32 results against float64, at the unscaled rms share
             torch.cuda.empty_cache()
-            exact = _bwd2_float64(torch, fa, args)
+            exact = fa.flash_bwd_float64(*args)[0]
             for label, res in (("kernel", got), ("plain", ref)):
                 f64[label + "_vs_f64_over_bound_dq_dk_dv"] = [
                     grad_err(a, b, tol)[1] for a, b in zip(res, exact)]
@@ -1520,7 +1641,7 @@ def _splash_bwd_float64(torch, args):
     """The splash backward's function in float64, head by head, dense over
     the layout expanded to (T, T) and the causal triangle, on the same
     inputs (lse, delta): the yardstick that tells the f32 kernels'
-    summation error from the f32 plain versions' (as :func:`_bwd2_float64`
+    summation error from the f32 plain versions' (as ``flash_bwd_float64``
     for B6).  Returns ``(dq, dk, dv)`` in float64."""
     q, k, v, do, lse, delta, layout, block, causal, scale = args
     T = q.shape[2]
@@ -1769,11 +1890,14 @@ def phase_train_f32(torch, params):
         kernels.reset_launches()
         engine, losses, walls = _train(torch, gpt2.make_model(c)[0], params, config, batch, 3)
         out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-                     "launches": kernels.launches()}
+                     "launches": kernels.launches(), "variants": kernels.launch_variants()}
         del engine
         torch.cuda.empty_cache()
     check(out["kernels"]["launches"]["flash_bwd"] > 0 and out["plain_attention"]["launches"]["flash_bwd"] == 0,
           f"train_f32: flash launches {out['kernels']['launches']} / {out['plain_attention']['launches']}")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(out["kernels"]["variants"][name] == {"none/simt": out["kernels"]["launches"][name]},
+              f"train_f32: {name} ran {out['kernels']['variants'][name]}, not only the f32 body")
     k, p = out["kernels"]["losses"], out["plain_attention"]["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
     check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_f32: non-finite loss {k} / {p}")
@@ -1809,10 +1933,14 @@ def phase_train_bf16(torch, params):
     kernels.reset_launches()
     engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config, batch, steps)
     launches = kernels.launches()
+    variants = kernels.launch_variants()
     # ----------------------------------------------------------------------
 
     for name in ("flash_fwd", "flash_bwd", "fused_adam"):
         check(launches[name] > 0, f"kernel {name} was not launched on the training main path")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(only_tc(variants[name]),
+              f"train_bf16: {name} ran {variants[name]}, not only the tensor-core body")
     check(all(np.isfinite(losses)), f"train_bf16: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"train_bf16: loss did not fall: {losses}")
     tokens = mb * gas * T
@@ -1828,7 +1956,8 @@ def phase_train_bf16(torch, params):
           "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
-          "launches": launches, "global_steps": engine.global_steps})
+          "launches": launches, "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
+          "global_steps": engine.global_steps})
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -1853,12 +1982,15 @@ def phase_train_bert_f32(torch, params):
         kernels.reset_launches()
         engine, losses, walls = _train(torch, bert.make_model(c)[0], params, config, batch, steps)
         out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-                     "launches": kernels.launches()}
+                     "launches": kernels.launches(), "variants": kernels.launch_variants()}
         del engine
         torch.cuda.empty_cache()
     kl, pl = out["kernels"]["launches"], out["plain_attention"]["launches"]
     check(kl["flash_fwd"] > 0 and kl["flash_bwd"] > 0 and pl["flash_bwd"] == 0,
           f"train_bert_f32: flash launches {kl} / {pl}")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(out["kernels"]["variants"][name] == {"kbias/simt": kl[name]},
+              f"train_bert_f32: {name} ran {out['kernels']['variants'][name]}")
     check(kl["fused_lamb_dir"] > 0 and kl["fused_lamb_apply"] > 0 and kl["fused_adam"] == 0,
           f"train_bert_f32: optimizer launches {kl}")
     k, p = out["kernels"]["losses"], out["plain_attention"]["losses"]
@@ -1895,10 +2027,14 @@ def phase_train_bert_bf16(torch, params):
     kernels.reset_launches()
     engine, losses, walls = _train(torch, bert.make_model(cfg)[0], params, config, batch, steps)
     launches = kernels.launches()
+    variants = kernels.launch_variants()
     # ----------------------------------------------------------------------
 
     for name in ("flash_fwd", "flash_bwd", "fused_lamb_dir", "fused_lamb_apply"):
         check(launches[name] > 0, f"kernel {name} was not launched on the BERT training main path")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(variants[name] == {"kbias/tc": launches[name]},
+              f"train_bert_bf16: {name} ran {variants[name]}, not only the tensor-core body")
     check(launches["fused_adam"] == 0, f"train_bert_bf16: fused_adam launched {launches}")
     check(all(np.isfinite(losses)), f"train_bert_bf16: non-finite loss {losses}")
     check(losses[-1] < losses[0], f"train_bert_bf16: loss did not fall: {losses}")
@@ -1955,7 +2091,7 @@ def phase_train_bert_drop_f32(torch, params):
     kl, pl = out["kernels"], out["plain_attention"]
     for name in ("flash_fwd", "flash_bwd"):
         check(kl["launches"][name] > 0 and kl["variants"][name] == {
-            "kbias+dropout": kl["launches"][name]} and pl["launches"][name] == 0,
+            "kbias+dropout/simt": kl["launches"][name]} and pl["launches"][name] == 0,
             f"train_bert_drop_f32: {name} launches {kl['variants'][name]} / {pl['launches'][name]}")
     k, p = kl["losses"], pl["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
@@ -1999,8 +2135,9 @@ def phase_train_bert_drop_bf16(torch, params):
     for name in ("flash_fwd", "flash_bwd", "fused_lamb_dir", "fused_lamb_apply"):
         check(launches[name] > 0, f"kernel {name} was not launched on the BERT dropout main path")
     for name in ("flash_fwd", "flash_bwd"):
-        check(variants[name] == {"kbias+dropout": launches[name]},
-              f"train_bert_drop_bf16: {name} ran {variants[name]}, not all with bias and dropout")
+        check(variants[name] == {"kbias+dropout/tc": launches[name]},
+              f"train_bert_drop_bf16: {name} ran {variants[name]}, not all with bias and dropout "
+              f"on the tensor-core body")
     for name in ("fused_adam", "flash_bwd_dq", "flash_bwd_dkv"):
         check(launches[name] == 0, f"train_bert_drop_bf16: {name} launched {launches}")
     check(all(np.isfinite(losses)), f"train_bert_drop_bf16: non-finite loss {losses}")
@@ -2053,6 +2190,7 @@ def phase_transformer_layer(torch, dev):
     is the two-pass B6a/B6b."""
     from deepspeed_tpu_torch.ops import kernels
     from deepspeed_tpu_torch.ops.transformer.transformer import DeepSpeedTransformerConfig
+    from deepspeed_tpu_torch.tools.profile_training import seq2seq_mask
 
     cfg = DeepSpeedTransformerConfig(
         batch_size=8, hidden_size=1024, intermediate_size=4096, heads=16, attn_dropout_ratio=0.1,
@@ -2066,10 +2204,10 @@ def phase_transformer_layer(torch, dev):
     keep = torch.tensor([BIAS_KEEP[b % 4] for b in range(B)], device=dev)
     mask2 = (torch.arange(T, device=dev)[None, :] < keep[:, None]).long()
     kb = torch.where(mask2.bool(), 0.0, -1e9)
-    mask4 = seq2seq_mask(torch, kb, T)
+    mask4 = seq2seq_mask(kb, T)
     runs, launches = {}, {}
     total = {name: 0 for name in kernels.launches()}
-    want = {"2d": "kbias+dropout", "4d": "fbias+dropout"}
+    want = {"2d": "kbias+dropout/tc", "4d": "fbias+dropout/tc"}
     # one untimed pass of each form first (cuBLAS plans, the allocator):
     # the first timed pass read 413 ms against the second form's 139 ms
     for mask in (mask2, mask4):
@@ -2096,8 +2234,19 @@ def phase_transformer_layer(torch, dev):
               f"transformer_layer {form}: non-finite output or gradient")
         for name, n in launches[form].items():
             total[name] += n
-        runs[form] = {"wall_ms": wall * 1e3, "launches": launches[form], "variants": variants,
-                      "out_rms": float(out.float().square().mean().sqrt())}
+        # two more passes, after the counts were read: one pass's host
+        # time moves with the host (a garbage collection, a slower core)
+        passes = [wall * 1e3]
+        for seed in (8, 9):
+            for layer in layers:
+                layer.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            _run_stack(torch, layers, x, mask, seed, w)
+            torch.cuda.synchronize()
+            passes.append((time.perf_counter() - t0) * 1e3)
+        runs[form] = {"wall_ms": wall * 1e3, "passes_ms": passes,
+                      "median_ms": sorted(passes)[1], "launches": launches[form],
+                      "variants": variants, "out_rms": float(out.float().square().mean().sqrt())}
     del layers, x, w, out, dx
     torch.cuda.empty_cache()
 
@@ -2140,6 +2289,8 @@ def phase_transformer_layer(torch, dev):
     check(launches["long"]["flash_bwd_dq"] == 1 and launches["long"]["flash_bwd_dkv"] == 1
           and launches["long"]["flash_bwd"] == 0 and launches["long"]["flash_fwd"] == 1,
           f"transformer_layer T={LONG_T}: launches {launches['long']}")
+    check(variants["flash_fwd"] == {"kbias+dropout/tc": 1},
+          f"transformer_layer T={LONG_T}: B1 ran {variants['flash_fwd']}")
     check(variants["flash_bwd_dq"] == {"kbias+dropout": 1},
           f"transformer_layer T={LONG_T}: B6a ran {variants['flash_bwd_dq']}")
     check(out.isfinite().all().item() and dx.isfinite().all().item(),
@@ -2334,6 +2485,8 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     check_flash_fwd(torch, dev, flush)
     fwd_train = check_flash_fwd_training(torch, dev, flush)
+    tc_rows = check_flash_tc_dims(torch, dev, flush)
+    torch.cuda.empty_cache()
     dec_rows = check_flash_decode(torch, dev, flush)
     paged_rows = check_flash_decode_paged(torch, dev, flush)
     bwd_rows = check_flash_bwd(torch, dev, flush)
@@ -2389,6 +2542,8 @@ def main() -> int:
     # bias under "kbias", with dropout 0.1 under "kbias_dropout" (this
     # slice's main path), the (B, 1, T, T) mask with dropout under "fbias".
     bwd = next(r for r in bwd_rows if r["T"] == 1024 and r["dtype"] == "bfloat16")
+    # d 64's tensor-core rows are the training shape's
+    tc_rows.update({("flash_fwd", 64): fwd_train, ("flash_bwd", 64): bwd})
     dec = next(r for r in dec_rows if r["kv"] == "bfloat16" and not r["masked"])
     paged = next(r for r in paged_rows if r["kv"] == "bfloat16")
     adam = next(r for r in adam_rows if r["leaves"] == "step_16_leaves")
@@ -2417,19 +2572,27 @@ def main() -> int:
          "deepspeed_tpu/ops/attention/sparse.py:836"),
     ):
         entry = {
-            "name": name, "route": "cuda", "source": report[name]["source"],
+            "name": name, "route": "cuda",
+            # B1/B2: the main paths' bf16 body; the f32 body beside it
+            "source": report[name].get("tc_source", report[name]["source"]),
             "replaces": replaces, "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name], "max_abs_err": row["max_err"],
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         }
+        if "tc_source" in report[name]:
+            entry["f32_source"] = report[name]["source"]
+        keys = ("B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
         for label, rows_of in (("kbias", bias_rows), ("kbias_dropout", drop_rows),
                                ("fbias", fbias_rows)):
             row = rows_of.get((name, "bfloat16"))
             if row is not None:
-                entry[label] = {key: row[key] for key in (
-                    "B", "H", "T", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}
+                entry[label] = {key: row[key] for key in keys}
+        for d in sorted((*TC_DIMS, 64)):  # B1/B2's tensor-core body at every head dim
+            row = tc_rows.get((name, d))
+            if row is not None:
+                entry[f"d{d}"] = {key: row[key] for key in ("d", *keys)}
         for T in SPARSE_TS[1:]:  # the splash kernels' rows at the longer length
             row = splash_rows.get((name, T, "bfloat16"))
             if row is not None:

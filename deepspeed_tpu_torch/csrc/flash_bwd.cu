@@ -1,5 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): dq, dk and dv of
-// online-softmax attention over (B*H, T, d) in one pass, from the forward's
+// Flash-attention backward for Hopper (sm_90a), the f32 body: dq, dk and
+// dv of online-softmax attention over (B*H, T, d) in one pass (bf16
+// tensors take the tensor-core body, flash_bwd_tc.cu, with the same
+// contract; f32's 2e-5 parity bound keeps this one on the CUDA cores), from the forward's
 // log-sum-exp and delta = rowsum(dO * O), with the forward's options: an
 // additive score bias (the key-row form (B, Tk) or the full form through
 // its strides) and attention-probability dropout with in-kernel Threefry
@@ -15,8 +17,7 @@
 // flash_bwd_2pass.cu) shares the score tile, bias and keep factor.
 //
 // Rounding points kept from the Pallas kernel (for parity):
-//   * the dots take their operands in their own type (bf16 or f32) and sum
-//     in f32: operands are widened exactly to f32 in shared memory;
+//   * the dots take their operands in their own type and sum in f32;
 //   * p = exp(s * scale - lse) is computed once per score, in f32; with a
 //     bias, p = exp((s * scale + bias) - lse), the bias added after the
 //     scale as in the forward, so ds carries no bias term;
@@ -29,13 +30,12 @@
 //   * dq is summed in f32 and cast to q's type by the wrapper.
 //
 // What bounds it: at the training shape (B 8, H 12, T 1024, d 64, causal)
-// the work is ~5 T^2 d BH / 2 multiply-adds (32 GFLOP) against ~88 MB of
-// q, k, v, dO in and dq, dk, dv out, so on this card the floor is the
-// tensor-core rate (~0.033 ms), not bytes.  This first version does its
-// dots on the CUDA cores in f32 from shared memory (no wgmma, no TMA), so
-// the CUDA-core rate and shared-memory reads bound it in practice, far
-// above that floor (see PERF.md); dropout adds Threefry's ~80 integer
-// operations a score, once.  What the design does about the work: every
+// the work is ~5 T^2 d BH / 2 multiply-adds (32 GFLOP) against ~176 MB of
+// f32 q, k, v, dO in and dq, dk, dv out, so the f32 floor is the CUDA-core
+// rate (67 TFLOP/s).  This body does its dots from shared memory, one
+// float read per multiply-add, so shared-memory reads bound it in
+// practice, far above that floor (see PERF.md); dropout adds Threefry's
+// ~85 integer operations a score, once.  What the design does about the work: every
 // score and probability stays in registers and shared memory (no T x T
 // matrix in device memory, no keep mask: its bits are regenerated from
 // the position), q tiles wholly above the causal diagonal are skipped,
@@ -58,8 +58,8 @@
 // quarter of its columns.  Row strides are padded by one float so the 8
 // rows a warp touches fall in different banks.  EXT, a template flag,
 // selects the kernel that reads the run-time options (bias form, dropout);
-// without it the kernel is the bias-free code it was before they existed,
-// which the GPT-2 step runs.  With a bias the block stages its tile's bias
+// without it the kernel is the bias-free code it was before they existed.
+// With a bias the block stages its tile's bias
 // in shared memory (the K tile's 64 key-row values once, or each q tile's
 // 64 x 64 full tile).
 #include <cuda_bf16.h>
@@ -247,7 +247,7 @@ int dispatch_d(const Args& a, int d) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v, dout, dk and dv share it).  lse
+// dtype: 0 float32 (q, k, v, dout, dk and dv; bf16 is flash_bwd_tc.cu's).  lse
 // and delta are f32 (BH, sq); dq32 is an f32 (BH, sq, d) buffer that the
 // caller zeroes.  The extended options are the forward's (ds_flash_fwd):
 // kbias or fbias (not both), dropout with (k0, k1, threshold, inv_keep);
@@ -268,7 +268,6 @@ extern "C" int ds_flash_bwd(const void* q, const void* k, const void* v, const v
   const Args a{q, k, v, dout, lse, delta, dq32, dk, dv, e, BH, sq, sk, causal, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_d<float>(a, d);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, d);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,8 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a): online-softmax attention
-// over (B*H, T, d), end-aligned causal or full, with an optional
+// Flash-attention forward for Hopper (sm_90a), the f32 body: online-softmax
+// attention over (B*H, T, d), end-aligned causal or full, with an optional
 // log-sum-exp output, an optional additive score bias (the key-row form
 // (B, Tk) or the full form through its strides) and optional
-// attention-probability dropout with in-kernel Threefry bits.
+// attention-probability dropout with in-kernel Threefry bits.  bf16
+// tensors take the tensor-core body, flash_fwd_tc.cu, with the same
+// contract; this one serves f32, whose 2e-5 parity bound TF32's 10-bit
+// mantissa cannot meet, so its dots stay on the CUDA cores.
 //
 // Replaces: deepspeed_tpu/ops/attention/flash_attention.py::_flash_fwd_kernel
 // (Pallas, TPU), driven there by _flash_fwd_pallas and here by
@@ -13,9 +16,7 @@
 // dropout (``kdrop``).
 //
 // Rounding points kept from the Pallas kernel (for parity):
-//   * the Q.K^T dot takes the operands in their own type (bf16 or f32)
-//     and sums in f32 — operands are widened exactly to f32 in shared
-//     memory, so each product is exact and the sum is f32;
+//   * the Q.K^T dot takes the operands in their own type and sums in f32;
 //   * the softmax state (m, l) and the accumulator are f32;
 //   * p is rounded to v's type before the P.V dot, while l sums the
 //     unrounded p; with dropout, the rounded value is p * keep where keep
@@ -30,18 +31,16 @@
 //     row has seen a real key.
 //
 // What bounds it: the causal forward does about T/4 flops per byte it
-// must move (q, k, v read once, out written once), so at the prefill
-// shapes (T <= 1024, d = 64) the card's floor is bytes, just below the
-// bf16 tensor-core balance point (~295 flops/byte).  This first version
-// does its dots on the CUDA cores in f32 (no wgmma, no TMA), so the
-// CUDA-core rate and shared-memory reads bound it in practice, far above
-// that floor (see PERF.md); dropout adds ~80 integer operations a score
-// (Threefry's 20 rounds).  What the design does: every score stays in
-// registers and shared memory (no T x T matrix in device memory, no keep
-// mask either: the bits are regenerated from the position), key tiles
-// wholly above the causal diagonal are skipped, and a ragged last tile is
-// masked in-kernel, so any T is served.  Making it fast (wgmma on 64-row
-// tiles fed by TMA) is later work.
+// must move (q, k, v read once, out written once), so at T 1024, d 64 the
+// f32 floor is the CUDA-core rate (67 TFLOP/s).  This body does its dots
+// from shared memory, one float read per multiply-add, so shared-memory
+// reads bound it in practice, far above that floor (see PERF.md);
+// dropout adds ~85 integer operations a score (Threefry's 20 rounds).
+// What the design does: every score stays in registers and shared memory
+// (no T x T matrix in device memory, no keep mask either: the bits are
+// regenerated from the position), key tiles wholly above the causal
+// diagonal are skipped, and a ragged last tile is masked in-kernel, so
+// any T is served.
 //
 // Layout: one block of 256 threads per (64-query tile, batch*head).
 // Four threads own one query row: each computes 16 of the 64 scores of a
@@ -49,10 +48,9 @@
 // staged in shared memory, with the tile's bias beside them (64 key-row
 // values, or the 64 x 64 full tile).  EXT, a template flag, selects the
 // kernel that reads the run-time options (bias form, dropout); without it
-// the kernel is the bias-free code it was before those options existed,
-// which the serving prefill and the GPT-2 step run.  Row strides are
-// padded by one float so the 8 rows a warp touches fall in different
-// banks.
+// the kernel is the bias-free code it was before those options existed.
+// Row strides are padded by one float so the 8 rows a warp touches fall
+// in different banks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -224,7 +222,7 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, void* lse
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and out share it).  lse (f32,
+// dtype: 0 float32 (q, k, v and out; bf16 is flash_fwd_tc.cu's).  lse (f32,
 // (BH, sq)) may be null.  The extended options, each off when null / 0:
 // kbias (f32, (BH / H, sk): one row of key biases per batch row, shared by
 // its H heads), or fbias (f32, element (b, h, i, j) at b * fb_b + h * fb_h
@@ -245,8 +243,6 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, void* o
               fb_k, H < 1 ? 1 : H, dropout, k0, k1, threshold, inv_keep};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(q, k, v, out, lse, e, BH, sq, sk, d, causal, sm_scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, e, BH, sq, sk, d, causal, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

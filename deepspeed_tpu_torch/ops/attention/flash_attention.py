@@ -3,10 +3,14 @@
 
 Layout convention: ``(batch, heads, seq, head_dim)``.
 
-:func:`flash_fwd` launches the forward CUDA kernel (``csrc/flash_fwd.cu``,
-B1), :func:`flash_bwd` the single-pass backward (``csrc/flash_bwd.cu``, B2)
-and :func:`flash_bwd2` the two-pass backward (``csrc/flash_bwd_2pass.cu``,
-B6a then B6b) for CUDA tensors; CPU tensors take
+:func:`flash_fwd` launches the forward CUDA kernel (B1), :func:`flash_bwd`
+the single-pass backward (B2) and :func:`flash_bwd2` the two-pass backward
+(``csrc/flash_bwd_2pass.cu``, B6a then B6b) for CUDA tensors.  B1 and B2
+have two bodies each, chosen by dtype: bf16 runs on the tensor cores
+(``csrc/flash_fwd_tc.cu``: wgmma fed by TMA; ``csrc/flash_bwd_tc.cu``:
+mma.sync fed by cp.async), f32 on the CUDA cores (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``), since TF32 cannot hold f32's parity bound.  CPU
+tensors take
 :func:`flash_fwd_reference`, :func:`flash_bwd_reference` and
 :func:`flash_bwd2_reference`, the plain PyTorch versions of the same
 arithmetic.  :class:`_FlashAttention` ties them together as the autograd
@@ -346,6 +350,88 @@ def flash_bwd2_reference(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
     return (dq, *flash_bwd_dkv_reference(*args))
 
 
+# the error bound of flash_bwd_float64: one f32 operation's rounding
+# (2**-24) doubled, which leaves room for the tensor cores' accumulation
+# (it need not round to nearest), and the smallest normal f32, which takes
+# a p that underflows
+_F32_UNIT = 2.0 ** -22
+_F32_TINY = 2.0 ** -126
+
+
+def flash_bwd_float64(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,
+                      fbias=None, drop: Optional[Dropout] = None):
+    """The single-pass backward's function in float64 on the same inputs
+    (lse, delta and ``drop``'s keep-bits included), with nothing rounded,
+    and a bound on how far the kernels' contract may take a result from it.
+    Returns ``((dq, dk, dv), (bound_dq, bound_dk, bound_dv))``, float64.
+
+    The bound is entry by entry and holds for any summation order: p and
+    ds formed in f32 (each operation within ``_F32_UNIT`` of its result,
+    the score's and dp's sums over d terms, the exponent's error carried
+    through exp), rounded to q's type (unit roundoff u, 2**-8 for bf16),
+    the dV, dK and dQ products summed in f32 over the rows they span, each
+    result rounded to u.  So it holds the kernels and the plain version
+    alike and takes nothing from cuBLAS's order: a bf16 P or dS next to a
+    rounding tie may go either way."""
+    u = torch.finfo(q.dtype).eps / 2
+    e = _F32_UNIT
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias = _score_bias(kbias, fbias)
+    keep = keep_mask(drop, q, k)
+    allowed = _causal_allowed(sq, sk, q.device) if causal else None
+    grads = [torch.empty(t.shape, dtype=torch.float64, device=q.device) for t in (q, k, v)]
+    bounds = [torch.empty_like(g) for g in grads]
+    for i in range(b):  # one (Tq, Tk) tile a batch*head: T 9216 fits too
+        for j in range(h):
+            qd, kd, vd, dod = (t[i, j].double() for t in (q, k, v, do))
+            lse_ij = lse[i, j].double()[:, None]
+            delta_ij = delta[i, j].double()[:, None]
+            x = qd @ kd.T * sm_scale
+            if bias is not None:
+                x = x + bias[i, min(j, bias.shape[1] - 1)].double()
+            # the f32 exponent's error: the score's sum, the scale, the bias and lse
+            err_x = ((qd.abs() @ kd.abs().T) * (sm_scale * d) + x.abs() + lse_ij.abs()) * e
+            p = torch.exp(x - lse_ij)
+            if allowed is not None:
+                p = p.masked_fill(~allowed, 0.0)
+            err_p = torch.where(p > 0, p * (torch.expm1(err_x) + e * torch.exp(err_x)),
+                                torch.zeros_like(p)) + _F32_TINY
+            del x, err_x
+            kf = 1.0 if keep is None else keep[i, j].double() / drop.keep_prob
+            pd = p * kf
+            err_pd = err_p * kf + pd.abs() * (2 * e)  # times the keep factor, itself rounded
+            dpk = (dod @ vd.T) * kf
+            err_t = ((dod.abs() @ vd.abs().T) * (d * e) * kf + dpk.abs() * (3 * e)
+                     + delta_ij.abs() * e)
+            t = dpk - delta_ij
+            del dpk
+            ds = p * t * sm_scale
+            err_ds = (err_p * t.abs() + p * err_t) * sm_scale + ds.abs() * (2 * e)
+            del p, t, err_t, err_p
+            # rounded to q's type: the stored P (dV's operand) and dS
+            e_pd = err_pd + u * (pd.abs() + err_pd)
+            e_ds = err_ds + u * (ds.abs() + err_ds)
+            del err_pd, err_ds
+            for g, bnd, (m, em, x_op, n) in zip(grads, bounds, (
+                    (ds, e_ds, kd, sk), (ds.T, e_ds.T, qd, sq), (pd.T, e_pd.T, dod, sq))):
+                exact = m @ x_op
+                pre = em @ x_op.abs() + n * e * ((m.abs() + em) @ x_op.abs())
+                g[i, j] = exact
+                bnd[i, j] = pre + u * (exact.abs() + pre)
+            del pd, ds, e_pd, e_ds
+    return tuple(grads), tuple(bounds)
+
+
+def float64_over_bound(got, witness):
+    """``[max |got - exact| / bound]`` for dq, dk and dv against
+    :func:`flash_bwd_float64`'s ``witness``: at most 1 where ``got`` keeps
+    to the contract."""
+    exact, bound = witness
+    return [float(((g.double() - x).abs() / bnd.clamp_min(1e-300)).max())
+            for g, x, bnd in zip(got, exact, bound)]
+
+
 def _check_kbias(who: str, kbias, b: int, sk: int, dev) -> None:
     if kbias is None:
         return
@@ -373,6 +459,22 @@ def _variant(kbias, fbias, drop) -> str:
     return form + ("+dropout" if drop is not None else "")
 
 
+def _body(name: str, dtype) -> Tuple[str, str]:
+    """``(library entry, body)`` of B1 or B2 for ``dtype``: bf16 the
+    tensor-core body (``<name>_tc``, ``tc``), f32 the CUDA-core body
+    (``simt``)."""
+    return (name + "_tc", "tc") if dtype == torch.bfloat16 else (name, "simt")
+
+
+def _check_aligned(who: str, *named) -> None:
+    """The tensor-core bodies load 16-byte rows (TMA, cp.async): a tensor
+    must start on a 16-byte boundary."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary for the bf16 "
+                             f"tensor-core kernel (a view at an odd offset is not)")
+
+
 def _ext_args(kbias, fbias, drop: Optional[Dropout]):
     """The kernels' extended arguments: kbias, fbias, fbias's strides,
     dropout, k0, k1, threshold, inv_keep."""
@@ -397,12 +499,13 @@ def _check_options(who, q, k, kbias, fbias, drop) -> None:
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, want_lse: bool = False,
                    kbias=None, fbias=None, drop: Optional[Dropout] = None
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch the CUDA kernel (``csrc/flash_fwd.cu``) on the current
-    stream; ``kbias``: an optional f32 (B, Tk) key-row bias, ``fbias`` an
-    optional f32 (B, H, Tq, Tk) bias (an expanded view is read in place),
-    ``drop`` optional dropout.  Raises for tensors that are not on one CUDA
-    device, not contiguous, or of a type or shape the kernel does not
-    take."""
+    """Launch the forward kernel on the current stream: the tensor-core
+    body (``csrc/flash_fwd_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/flash_fwd.cu``) for f32.  ``kbias``: an optional f32 (B, Tk)
+    key-row bias, ``fbias`` an optional f32 (B, H, Tq, Tk) bias (an
+    expanded view is read in place), ``drop`` optional dropout.  Raises for
+    tensors that are not on one CUDA device, not contiguous (bf16: not
+    16-byte aligned), or of a type or shape the kernel does not take."""
     if q.ndim != 4:
         raise ValueError(f"flash_fwd_cuda: q must be (B, H, T, d), got {tuple(q.shape)}")
     b, h, sq, d = q.shape
@@ -432,16 +535,19 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, want_lse: bool = Fals
     _check_options("flash_fwd_cuda", q, k, kbias, fbias, drop)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if want_lse else None
+    entry, body = _body("flash_fwd", q.dtype)
+    if body == "tc":
+        _check_aligned("flash_fwd_cuda", ("q", q), ("k", k), ("v", v), ("out", out))
     lib = _kernels.library()
-    fn = lib.fn("flash_fwd")
+    fn = lib.fn(entry)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None, *_ext_args(kbias, fbias, drop),
         b * h, h, sq, sk, d, _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    lib.check("flash_fwd", err)
-    _kernels.count_launch("flash_fwd", _variant(kbias, fbias, drop))
+    lib.check(entry, err)
+    _kernels.count_launch("flash_fwd", f"{_variant(kbias, fbias, drop)}/{body}")
     return out, lse
 
 
@@ -497,12 +603,14 @@ def _check_bwd(who: str, q, k, v, do, lse, delta) -> None:
 def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,
                    fbias=None, drop: Optional[Dropout] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the single-pass backward CUDA kernel (``csrc/flash_bwd.cu``)
-    on the current stream, with the forward's bias and dropout.  dq is
-    summed in an f32 buffer (zeroed here, cast to q's type after the
-    kernel, as the Pallas kernel's ``dq32``).  Raises for tensors that are
-    not on one CUDA device, not contiguous, or of a type or shape the
-    kernel does not take."""
+    """Launch the single-pass backward kernel on the current stream, with
+    the forward's bias and dropout: the tensor-core body
+    (``csrc/flash_bwd_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/flash_bwd.cu``) for f32.  dq is summed in an f32 buffer
+    (zeroed here, cast to q's type after the kernel, as the Pallas
+    kernel's ``dq32``).  Raises for tensors that are not on one CUDA
+    device, not contiguous (bf16: not 16-byte aligned), or of a type or
+    shape the kernel does not take."""
     _check_bwd("flash_bwd_cuda", q, k, v, do, lse, delta)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -513,16 +621,19 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias
     dq32 = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    entry, body = _body("flash_bwd", q.dtype)
+    if body == "tc":
+        _check_aligned("flash_bwd_cuda", ("q", q), ("k", k), ("v", v), ("dO", do))
     lib = _kernels.library()
-    fn = lib.fn("flash_bwd")
+    fn = lib.fn(entry)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_ext_args(kbias, fbias, drop), b * h, h, sq, sk, d, _DTYPE_CODES[q.dtype],
         int(bool(causal)), float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
-    lib.check("flash_bwd", err)
-    _kernels.count_launch("flash_bwd", _variant(kbias, fbias, drop))
+    lib.check(entry, err)
+    _kernels.count_launch("flash_bwd", f"{_variant(kbias, fbias, drop)}/{body}")
     return dq32.to(q.dtype), dk, dv
 
 

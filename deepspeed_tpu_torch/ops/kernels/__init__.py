@@ -6,8 +6,14 @@ live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
 ``fused_lamb.cu``, the two-pass attention backward B6a and B6b in
 ``flash_bwd_2pass.cu``, the block-sparse forward B8 and its backward B9a
 and B9b in ``splash_attn.cu``; the attention sources share the device
-functions of ``flash_common.cuh``).  At first use the source is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+functions of ``flash_common.cuh``).  A kernel may have a second body in
+a source of its own (:data:`BODIES`): the flash forward and single-pass
+backward run bf16 tensors on tensor-core bodies (``flash_fwd_tc.cu``,
+``flash_bwd_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on the
+CUDA-core bodies of ``flash_fwd.cu`` and ``flash_bwd.cu``; a body counts
+its launches under its kernel's name, with the body in the variant.  At
+first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
 :func:`build` compiles several sources at once, one ``nvcc`` each.
@@ -126,6 +132,18 @@ KERNELS = {
 }
 
 
+# a kernel's second body -> (source, C entry point, argtypes): built like a
+# kernel, launched by its kernel's wrapper (by dtype) and counted under the
+# kernel's name, its variant ending in "/tc" (the tensor-core body) where
+# the kernel's own body's ends in "/simt"
+BODIES = {
+    "flash_fwd_tc": ("flash_fwd_tc.cu", "ds_flash_fwd_tc", KERNELS["flash_fwd"][2]),
+    "flash_bwd_tc": ("flash_bwd_tc.cu", "ds_flash_bwd_tc", KERNELS["flash_bwd"][2]),
+}
+# every library that builds: the kernels and the second bodies
+_UNITS = {**KERNELS, **BODIES}
+
+
 class KernelBuildError(RuntimeError):
     pass
 
@@ -157,27 +175,27 @@ class KernelLibrary:
         self._libs: Dict[str, ctypes.CDLL] = {}
 
     def _so_path(self, name: str) -> Path:
-        return self.build_dir / f"lib{Path(KERNELS[name][0]).stem}.so"
+        return self.build_dir / f"lib{Path(_UNITS[name][0]).stem}.so"
 
     def _stale(self, name: str) -> bool:
         so = self._so_path(name)
         if not so.exists():
             return True
         # a source's own file and the headers of csrc/ that it includes
-        src = CSRC_DIR / KERNELS[name][0]
+        src = CSRC_DIR / _UNITS[name][0]
         deps = [src, *(CSRC_DIR / h for h in _LOCAL_INCLUDE.findall(src.read_text()))]
         return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
     def build(self, names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, float]:
-        """Compile the named kernels (default: all) that are missing or
-        older than their source, one ``nvcc`` per source, all started
-        together.  Returns the wall seconds of each compile, by kernel
-        (kernels that share a source share its compile)."""
-        names = list(KERNELS if names is None else names)
+        """Compile the named kernels and bodies (default: all) that are
+        missing or older than their source, one ``nvcc`` per source, all
+        started together.  Returns the wall seconds of each compile, by
+        kernel or body (kernels that share a source share its compile)."""
+        names = list(_UNITS if names is None else names)
         todo = [n for n in names if force or self._stale(n)]
         if not todo:
             return {}
-        sources = {KERNELS[n][0]: n for n in todo}  # one nvcc per source
+        sources = {_UNITS[n][0]: n for n in todo}  # one nvcc per source
         nvcc = _nvcc()
         self.build_dir.mkdir(parents=True, exist_ok=True)
         procs = {}
@@ -193,7 +211,7 @@ class KernelLibrary:
             log, _ = proc.communicate()
             seconds = time.perf_counter() - t0
             for n in todo:
-                if KERNELS[n][0] == src:
+                if _UNITS[n][0] == src:
                     self.build_seconds[n] = seconds
                     self.build_log[n] = log
             if proc.returncode != 0:
@@ -206,14 +224,14 @@ class KernelLibrary:
         return {n: self.build_seconds[n] for n in todo}
 
     def fn(self, name: str):
-        """The C entry point of kernel ``name``, built and loaded on first
-        use."""
+        """The C entry point of kernel or body ``name``, built and loaded
+        on first use."""
         f = self._fns.get(name)
         if f is None:
             if self._stale(name):
                 self.build([name])
             lib = ctypes.CDLL(str(self._so_path(name)))  # dlopen: one handle per file
-            src, entry, argtypes = KERNELS[name]
+            src, entry, argtypes = _UNITS[name]
             f = getattr(lib, entry)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
@@ -252,7 +270,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
 def count_launch(name: str, variant: Optional[str] = None) -> None:
     """One launch of kernel ``name``; ``variant`` names the options it ran
     with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
-    ``+dropout``)."""
+    ``+dropout``; for B1 and B2 also the body, ``/tc`` or ``/simt``)."""
     _LIBRARY.launches[name] += 1
     if variant is not None:
         v = _LIBRARY.variants[name]
@@ -274,13 +292,20 @@ def launch_variants() -> Dict[str, Dict[str, int]]:
 
 
 def kernels_report() -> Dict[str, Dict[str, object]]:
-    """Per kernel: its source, whether a built library is present, and
-    the launches counted since the last :func:`reset_launches`."""
-    return {
+    """Per kernel: its source (and its second body's, ``tc_source``), whether
+    a built library is present, and the launches counted since the last
+    :func:`reset_launches`."""
+    def rel(src):
+        return str((CSRC_DIR / src).relative_to(PACKAGE_DIR.parent))
+
+    report = {
         name: {
-            "source": str((CSRC_DIR / src).relative_to(PACKAGE_DIR.parent)),
+            "source": rel(src),
             "built": _LIBRARY._so_path(name).exists(),
             "launches": _LIBRARY.launches[name],
         }
         for name, (src, _, _) in KERNELS.items()
     }
+    for body, (src, _, _) in BODIES.items():
+        report[body[:-len("_tc")]]["tc_source"] = rel(src)
+    return report

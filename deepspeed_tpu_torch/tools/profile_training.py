@@ -4,6 +4,7 @@
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --optimizer lamb --seq 512
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --dropout 0.1
     python -m deepspeed_tpu_torch.tools.profile_training --attention-mode sparse --seq 8192 --layers 8
+    python -m deepspeed_tpu_torch.tools.profile_training --model transformer-layer --mask 4d
 
 Builds ``initialize()`` in bf16 over f32 masters (random weights from
 ``--seed``), micro-batch 8, gradient accumulation 2, clipping 1.0, for one
@@ -16,10 +17,19 @@ With ``--attention-mode`` (``sparse`` or ``flash``) it runs the long-context
 recipe of ``train_sparse_bf16`` instead: GPT-2 124M's width at ``--layers``
 (default 8) and ``n_positions`` = ``--seq`` (default 8192), batch 1, Adam at
 lr 1e-4, cross-entropy in chunks of 512, block-sparse attention (the
-default BigBird layout) or dense flash attention.
-Runs two warm-up steps, then ``--steps``
-steps of one fixed batch under ``torch.profiler`` with CPU and CUDA
-activities.  Prints one JSON line: the window, the device-busy time (the
+default BigBird layout) or dense flash attention.  With ``--model
+transformer-layer`` a step is ``chip_smoke.py``'s ``transformer_layer``
+pass: 24 ``DeepSpeedTransformerLayer``s at BERT-large width (pre-LN,
+dropout 0.1 and 0.1), bf16, B 8, T 512, forward and the backward of a
+weighted sum, under a (B, T) key-padding mask (``--mask 2d``) or a (B, 1,
+T, T) seq2seq mask (``--mask 4d``).  The script uses only entry points
+that every slice of the port since the transformer layer's has, so it can
+profile an older checkout of the package (put it first on PYTHONPATH and
+run this file by its path).
+Runs two warm-up steps, ``--steps`` timed steps without the profiler,
+then ``--steps`` steps of one fixed batch under ``torch.profiler`` with
+CPU and CUDA activities.  Prints one JSON line: the unprofiled step
+times, the window, the device-busy time (the
 union of the kernels' intervals) and the idle share, the device time by
 kernel class (the port's kernels, GEMMs, everything else) and the top
 device kernels and host ops.  Needs a CUDA card; it raises without one.
@@ -40,8 +50,8 @@ from deepspeed_tpu_torch.tools.profile_serving import _union_us
 
 # kernel-name patterns of each class, first match wins
 KERNEL_CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel",)),
-    ("flash_bwd", ("flash_bwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
+    ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("splash_fwd", ("splash_fwd_kernel",)),
@@ -99,6 +109,52 @@ def synthetic_mlm_batch(vocab_size: int, B: int, T: int, seed: int = 0) -> dict:
 LONG_ADAM = {"type": "Adam", "params": {"lr": 1e-4}}
 
 
+def seq2seq_mask(kb, T: int):
+    """A (B, 1, T, T) f32 mask: the key padding of ``kb`` (B, T), plus a
+    seq2seq (UniLM) pattern, in which every query sees the first half of
+    the row and a query in the second half sees the second half causally."""
+    half = T // 2
+    pos = torch.arange(T, device=kb.device)
+    allowed = (pos[None, :] < half) | (pos[None, :] <= pos[:, None])  # (T, T)
+    return torch.where(allowed[None, None], kb[:, None, None, :],
+                       torch.full((), -1e9, device=kb.device)).float().contiguous()
+
+
+def layer_step(mask_form: str, B: int, T: int, seed: int, layers: int = 24, device="cuda"):
+    """A callable that runs one ``transformer_layer`` pass (the module
+    docstring) and waits for the device; ``mask_form`` "2d" or "4d"."""
+    from deepspeed_tpu_torch.ops.transformer.transformer import (
+        DeepSpeedTransformerConfig, DeepSpeedTransformerLayer, draw_seeds)
+
+    dev = torch.device(device)
+    cfg = DeepSpeedTransformerConfig(
+        batch_size=B, hidden_size=1024, intermediate_size=4096, heads=16, attn_dropout_ratio=0.1,
+        hidden_dropout_ratio=0.1, num_hidden_layers=layers, pre_layer_norm=True,
+        dtype=torch.bfloat16)
+    stack = [DeepSpeedTransformerLayer(cfg, seed=i, device=dev) for i in range(layers)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, 1024, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(B, T, 1024, generator=g, device=dev)
+    keep = torch.tensor([max(1, round(T * KEEP_FRACTIONS[b % 4])) for b in range(B)], device=dev)
+    mask = (torch.arange(T, device=dev)[None, :] < keep[:, None]).long()
+    if mask_form == "4d":
+        mask = seq2seq_mask(torch.where(mask.bool(), 0.0, -1e9), T)
+    gen = torch.Generator().manual_seed(seed)
+
+    def step():
+        for layer in stack:
+            layer.zero_grad(set_to_none=True)
+        h = xin = x.detach().clone().requires_grad_()
+        for layer in stack:
+            h = layer(h, attention_mask=mask, rng=draw_seeds(gen), training=True)
+        (h.float() * w).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return xin.grad
+
+    return step
+
+
 def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, dropout: float = 0.0,
           attention_mode: Optional[str] = None, layers: Optional[int] = None):
     """``(engine, batch, cfg)`` of a bf16 training run: GPT-2 124M or
@@ -137,7 +193,9 @@ def build(model: str, optimizer: str, T: int, mb: int, gas: int, seed: int, drop
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="gpt2", choices=["gpt2", "bert-large"])
+    ap.add_argument("--model", default="gpt2", choices=["gpt2", "bert-large", "transformer-layer"])
+    ap.add_argument("--mask", default="2d", choices=["2d", "4d"],
+                    help="transformer-layer: a (B, T) key-padding mask or a (B, 1, T, T) one")
     ap.add_argument("--optimizer", default=None, choices=["adamw", "lamb"],
                     help="default: adamw for gpt2, lamb for bert-large")
     ap.add_argument("--seq", type=int, default=None,
@@ -156,23 +214,44 @@ def main(argv=None) -> dict:
         raise RuntimeError("profile_training measures the card; torch.cuda.is_available() is False")
 
     bert_run = args.model == "bert-large"
+    layer_run = args.model == "transformer-layer"
     long_run = args.attention_mode is not None
-    if long_run and (bert_run or args.optimizer):
+    if long_run and (bert_run or layer_run or args.optimizer):
         raise ValueError("--attention-mode is GPT-2's long-context recipe, with its own Adam")
-    optimizer = "adam" if long_run else args.optimizer or ("lamb" if bert_run else "adamw")
-    T = args.seq or (512 if bert_run else 8192 if long_run else 1024)
     mb, gas = (1, 1) if long_run else (8, 2)
-    engine, batch, engine_cfg = build(args.model, optimizer, T, mb, gas, args.seed, args.dropout,
-                                      args.attention_mode, (args.layers or 8) if long_run else None)
+    if layer_run:
+        T, mb, gas, optimizer = args.seq or 512, 8, 1, None
+        step = layer_step(args.mask, mb, T, args.seed)
+        meta = {"profile": "transformer_layer", "model": args.model, "mask": args.mask,
+                "dropout": 0.1, "layers": 24}
+    else:
+        optimizer = "adam" if long_run else args.optimizer or ("lamb" if bert_run else "adamw")
+        T = args.seq or (512 if bert_run else 8192 if long_run else 1024)
+        engine, batch, engine_cfg = build(args.model, optimizer, T, mb, gas, args.seed,
+                                          args.dropout, args.attention_mode,
+                                          (args.layers or 8) if long_run else None)
+
+        def step():
+            return float(engine.train_batch(batch))
+
+        meta = {"profile": "train_step", "model": args.model, "dropout": args.dropout,
+                "attention_mode": args.attention_mode or "flash",
+                "layers": getattr(engine_cfg, "n_layer", None) or engine_cfg.num_hidden_layers}
     for _ in range(2):  # warm-up: kernel build and load, allocator
-        float(engine.train_batch(batch))
+        step()
     torch.cuda.synchronize()
+    unprofiled_ms = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        unprofiled_ms.append((time.perf_counter() - t0) * 1e3)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            float(engine.train_batch(batch))
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -195,11 +274,9 @@ def main(argv=None) -> dict:
             host_self[a.key] += a.self_cpu_time_total
     steps = args.steps
     out = {
-        "profile": "train_step", "model": args.model, "optimizer": optimizer, "dtype": "bf16",
-        "dropout": args.dropout, "attention_mode": args.attention_mode or "flash",
-        "layers": getattr(engine_cfg, "n_layer", None) or engine_cfg.num_hidden_layers,
-        "micro_batch": mb, "gas": gas,
-        "T": T, "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
+        **meta, "optimizer": optimizer, "dtype": "bf16", "micro_batch": mb, "gas": gas,
+        "T": T, "steps": steps, "unprofiled_step_ms": unprofiled_ms,
+        "wall_s": wall, "step_ms": wall / steps * 1e3,
         "tokens_per_s": mb * gas * T * steps / wall,
         # no kernel events means the profiler did not trace the card:
         # the device numbers are then not measured

@@ -22,11 +22,16 @@ and both backwards (B2 and the two-pass B6a/B6b, whose dq must be the same
 bits launch after launch), the block-sparse kernels B8/B9a/B9b (every
 layout form: BigBird, per-head, untouched key columns, a row with no
 block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the same bits
-launch after launch), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
+launch after launch), B1's and B2's bf16 tensor-core bodies at every
+head dim with every option (ragged, end-aligned and full; each launch
+counted as ``tc``, an f32 one as ``simt``), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
 backward entry by entry, within that tolerance times |entry| plus half
 the gradient's rms (dq's f32 sum is taken with atomics, in an order that
-changes between runs; for the block-sparse backward, the rms of the
+changes between runs; B2's bf16 tensor-core body, and its plain version,
+against the float64 function within the bf16 contract's bound,
+``flash_attention.flash_bwd_float64``, since a bf16 P or dS next to a
+rounding tie may round either way; for the block-sparse backward, the rms of the
 entry's own layout block, its share grown as the square root of that
 block's sum past 1,024 terms); fused Adam's moments 1e-6 of their largest entry,
 f32 p 1e-6 absolute (the kernel rounds each product and sum as the plain
@@ -187,11 +192,7 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, sq, sk, d, causal):
     got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale)
     ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale)
     torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        assert a.dtype == dtype and a.shape == b.shape
-        a, b = a.float(), b.float()
-        bound = TOL[dtype] * (b.abs() + 0.5 * b.square().mean().sqrt())
-        assert bool(((a - b).abs() <= bound).all()), _err(a, b)
+    _b2_close(got, ref, dtype, (q, k, v, do, lse, delta, causal, scale))
 
 
 def test_autograd_through_the_kernels_matches_the_plain_path(dev):
@@ -265,10 +266,7 @@ def test_flash_kbias_fwd_and_bwd_match_plain(dev, dtype, sq, sk, d, causal):
     refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb)
     torch.cuda.synchronize()
     assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
-    for a, b in zip(got, refb):
-        a, b = a.float(), b.float()
-        bound = TOL[dtype] * (b.abs() + 0.5 * b.square().mean().sqrt())
-        assert bool(((a - b).abs() <= bound).all()), _err(a, b)
+    _b2_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb))
     if not causal:  # a padded key takes p == 0 exactly: its dk and dv are 0
         assert not got[1][2, :, sk // 2 + 1:].any() and not got[2][2, :, sk // 2 + 1:].any()
 
@@ -444,6 +442,21 @@ def _bwd_close(got, ref, dtype):
         assert bool(((a - b).abs() <= bound).all()), _err(a, b)
 
 
+def _b2_close(got, ref, dtype, args):
+    """B2 against its plain version: f32 (the CUDA-core body) entry by
+    entry; bf16 (the tensor-core body), and the plain version, against the
+    float64 function of the same inputs ``args`` within the bound of the
+    bf16 contract (``flash_bwd_float64``)."""
+    if dtype != torch.bfloat16:
+        _bwd_close(got, ref, dtype)
+        return
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and bool(a.isfinite().all())
+    witness = fa.flash_bwd_float64(*args)
+    kernel, plain = fa.float64_over_bound(got, witness), fa.float64_over_bound(ref, witness)
+    assert max(kernel) <= 1.0 and max(plain) <= 1.0, (kernel, plain)
+
+
 def _options(dev, kind, B, H, sq, sk, seed=7):
     """(kbias, fbias) of one bias form: none, the key-row form, a (B, 1, Tq,
     Tk) mask with a smooth part (read through a stride-0 head dim), or a
@@ -485,11 +498,71 @@ def test_flash_dropout_and_fbias_fwd_bwd_match_plain(dev, dtype, kind, sq, sk, d
     refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
     torch.cuda.synchronize()
     assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
-    _bwd_close(got, refb, dtype)
+    _b2_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
     _bwd_close(two, refb, dtype)
     if kind == "kbias" and not causal:  # a padded key's dk and dv stay exactly 0
         for grads in (got, two):
             assert not grads[1][2, :, sk // 2 + 1:].any() and not grads[2][2, :, sk // 2 + 1:].any()
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (200, 200, True),     # ragged last tiles
+    (1000, 1000, True),   # ragged, many tiles
+    (100, 300, True),     # end-aligned: queries are the last 100 positions
+    (257, 257, False),    # full attention, one row past a tile
+])
+@pytest.mark.parametrize("kind", ["none", "kbias", "fbias_mask", "fbias_heads", "dropout",
+                                  "kbias_dropout"])
+def test_tensor_core_bodies_match_plain(dev, d, sq, sk, causal, kind):
+    """B1 and B2 on bf16 tensors take the tensor-core bodies
+    (flash_fwd_tc.cu, flash_bwd_tc.cu): out within 2e-2 and lse within
+    1e-4 of the plain version, the gradients (and the plain version's)
+    within the float64 bound of the bf16 contract, at every head dim with
+    every option; each launch is counted as ``tc``."""
+    B, H = 3, 2
+    q = _randn(dev, B, H, sq, d, seed=1).to(torch.bfloat16)
+    k = _randn(dev, B, H, sk, d, seed=2).to(torch.bfloat16)
+    v = _randn(dev, B, H, sk, d, seed=3).to(torch.bfloat16)
+    do = _randn(dev, B, H, sq, d, seed=4).to(torch.bfloat16)
+    kb, fb = _options(dev, kind.replace("_dropout", "").replace("dropout", "none"), B, H, sq, sk)
+    drop = fa.make_dropout(0.1, (2**31 + 9, 77)) if "dropout" in kind else None
+    scale = d ** -0.5
+    kernels.reset_launches()
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, want_lse=True, kbias=kb, fbias=fb,
+                                 drop=drop)
+    delta = (do.float() * out.float()).sum(-1)
+    got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale, kb, fb, drop)
+    refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+    assert _err(lse, ref_lse) <= 1e-4
+    _b2_close(got, refb, torch.bfloat16, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
+    form = fa._variant(kb, fb, drop)
+    variants = kernels.launch_variants()
+    assert variants["flash_fwd"] == {form + "/tc": 1} and variants["flash_bwd"] == {form + "/tc": 1}
+
+
+def test_bf16_launches_count_as_tc_and_f32_as_simt(dev):
+    """The wrapper picks the body by dtype and names it in the variant; a
+    bf16 view off a 16-byte boundary is refused, not sent to the f32 body."""
+    q = _randn(dev, 1, 2, 128, 64)
+    lse = torch.zeros(1, 2, 128, device=dev)
+    kernels.reset_launches()
+    for t in (q, q.to(torch.bfloat16)):
+        out, lse = fa.flash_fwd_cuda(t, t, t, True, 0.125, want_lse=True)
+        fa.flash_bwd_cuda(t, t, t, t, lse, (t.float() * out.float()).sum(-1), True, 0.125)
+    torch.cuda.synchronize()
+    assert kernels.launches()["flash_fwd"] == 2 and kernels.launches()["flash_bwd"] == 2
+    want = {"none/simt": 1, "none/tc": 1}
+    assert kernels.launch_variants()["flash_fwd"] == want
+    assert kernels.launch_variants()["flash_bwd"] == want
+    odd = torch.empty(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(1, 2, 128, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd_cuda(odd, odd, odd, True, 0.125)
+    assert kernels.launches()["flash_fwd"] == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -529,7 +602,7 @@ def test_autograd_with_dropout_and_a_trainable_full_bias_matches_the_plain_path(
          ).sum().backward()
         got = kernels.launches()
         assert got["flash_fwd"] == 1 and got[route] == 1
-        assert kernels.launch_variants()["flash_fwd"] == {"fbias+dropout": 1}
+        assert kernels.launch_variants()["flash_fwd"] == {"fbias+dropout/simt": 1}
         for a, t in zip(want, (q, k, v, bias)):
             assert _err(t.grad, a) <= 1e-4 * max(1.0, float(a.abs().max()))
 

@@ -13,6 +13,9 @@ own bound, since both sides sum in f32 in different orders; bfloat16
 3e-2 relative to each gradient's largest entry, because both sides round
 p and ds to bf16 before the products and dq, dk, dv to bf16 at the end,
 whose spacing is 2**-8 relative, after f32 sums in different orders.
+The float64 bound of the bf16 contract (``flash_bwd_float64``, which the
+card holds B2's tensor-core body to) is checked against JAX's interpreted
+fused kernel and the port's plain version here.
 """
 import jax
 import jax.numpy as jnp
@@ -102,3 +105,58 @@ def test_autograd_takes_lse_only_when_a_gradient_is_wanted(monkeypatch):
     with torch.no_grad():
         tfa.flash_attention(q, q, q, causal=True)
     assert calls == [False, True, False]
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(128, 256, True), (256, 256, False)],
+                         ids=["end_aligned", "full"])
+def test_bf16_fused_kernel_and_plain_backward_lie_within_the_float64_bound(sq, sk, causal):
+    """``flash_bwd_float64``'s bound holds the JAX package's interpreted
+    fused kernel and the port's plain version on the same bf16 inputs (each
+    rounds p and ds to bf16 after f32 sums in its own order), and a
+    gradient that misses one 64-key tile lies far outside it."""
+    rng = np.random.default_rng(sq + sk)
+    q, do = (rng.standard_normal((1, 2, sq, 32)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, sk, 32)).astype(np.float32) for _ in range(2))
+    sc = 1.0 / np.sqrt(32)
+    jq, jk, jv, jdo = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    out, lse = jfa._flash_fwd_pallas(jq, jk, jv, causal, sc, 128, 128, True, want_lse=True)
+    jax_grads = jfa._flash_bwd_fused_pallas(jq, jk, jv, out, lse, jdo, causal, sc, 128, 128, True)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    tlse = torch.from_numpy(np.array(lse, np.float32))
+    delta = (tdo.float() * torch.from_numpy(np.array(out, np.float32))).sum(-1)
+    plain = tfa.flash_bwd(tq, tk, tv, tdo, tlse, delta, causal, sc)
+    witness = tfa.flash_bwd_float64(tq, tk, tv, tdo, tlse, delta, causal, sc)
+    from_jax = [torch.from_numpy(np.array(g, np.float32)) for g in jax_grads]
+    assert max(tfa.float64_over_bound(from_jax, witness)) <= 1.0
+    assert max(tfa.float64_over_bound(plain, witness)) <= 1.0
+    _, ds = tfa._bwd_probs(tq, tk, tv, tdo, tlse, delta, causal, sc, None, None, None)
+    ds[..., 64:128] = 0
+    missing = torch.einsum("bhqk,bhkd->bhqd", ds, tk.float())
+    assert tfa.float64_over_bound((missing, *plain[1:]), witness)[0] > 10.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kind", ["kbias", "fbias", "dropout"])
+def test_plain_backward_with_options_lies_within_the_float64_bound(dtype, kind):
+    """The plain backward with each option (a padding bias with a smooth
+    part, a per-head full bias read through a stride-0 batch dim, dropout)
+    within ``flash_bwd_float64``'s bound for its dtype, causal end-aligned
+    and ragged."""
+    g = torch.Generator().manual_seed(3)
+    B, H, sq, sk, d = 2, 2, 100, 300, 16
+    q, do = (torch.randn(B, H, sq, d, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, H, sk, d, generator=g).to(dtype) for _ in range(2))
+    kb = fb = drop = None
+    if kind == "kbias":
+        kb = torch.randn(B, sk, generator=g)
+        kb[1, sk // 2:] = -1e9
+    elif kind == "fbias":
+        fb = (torch.randn(1, H, sq, sk, generator=g) * 0.5).expand(B, H, sq, sk)
+    else:
+        drop = tfa.make_dropout(0.1, (2**31 + 9, 77))
+    sc = d ** -0.5
+    out, lse = tfa.flash_fwd_reference(q, k, v, True, sc, kb, fb, drop)
+    delta = (do.float() * out.float()).sum(-1)
+    plain = tfa.flash_bwd_reference(q, k, v, do, lse, delta, True, sc, kb, fb, drop)
+    witness = tfa.flash_bwd_float64(q, k, v, do, lse, delta, True, sc, kb, fb, drop)
+    assert max(tfa.float64_over_bound(plain, witness)) <= 1.0
