@@ -1,5 +1,7 @@
-// Device functions shared by the flash-attention kernels: flash_fwd.cu (B1),
-// flash_bwd.cu (B2) and flash_bwd_2pass.cu (B6a, B6b).  One copy of the
+// Device functions shared by the flash-attention kernels: flash_fwd.cu and
+// flash_fwd_tc.cu (B1), flash_bwd.cu and flash_bwd_tc.cu (B2),
+// flash_bwd_2pass.cu and flash_bwd_2pass_tc.cu (B6a, B6b) and
+// splash_attn.cu (B8, B9a, B9b).  One copy of the
 // score tile, the two bias forms and the dropout keep factor, so the
 // forward and the two backwards cannot drift apart.
 //
@@ -83,10 +85,15 @@ __device__ __forceinline__ uint32_t threefry2x32_bits(uint32_t k0, uint32_t k1, 
   return x0;
 }
 
+// whether dropout keeps score (gq, gk) of batch*head bh
+__device__ __forceinline__ bool keep_bit(const Ext& e, uint32_t bh, int gq, int gk, int sk) {
+  const uint32_t x0 = static_cast<uint32_t>(gq) * static_cast<uint32_t>(sk) + static_cast<uint32_t>(gk);
+  return threefry2x32_bits(e.k0, e.k1, x0, bh) < e.threshold;
+}
+
 // the dropout factor of score (gq, gk) of batch*head bh: inv_keep if kept, else 0
 __device__ __forceinline__ float keep_factor(const Ext& e, uint32_t bh, int gq, int gk, int sk) {
-  const uint32_t x0 = static_cast<uint32_t>(gq) * static_cast<uint32_t>(sk) + static_cast<uint32_t>(gk);
-  return threefry2x32_bits(e.k0, e.k1, x0, bh) < e.threshold ? e.inv_keep : 0.f;
+  return keep_bit(e, bh, gq, gk, sk) ? e.inv_keep : 0.f;
 }
 
 // stage the bias of query rows [q0, q0 + kBQ) x keys [k0, k0 + kBK) of

@@ -1,7 +1,9 @@
 // Hopper tensor-core building blocks shared by the bf16 flash-attention
 // bodies: flash_fwd_tc.cu (B1: TMA loads into a ring of stages guarded by
-// mbarriers, wgmma products) and flash_bwd_tc.cu (B2: cp.async loads,
-// ldmatrix and mma.sync products).  Inline PTX only, so a source that
+// mbarriers, wgmma products), flash_bwd_tc.cu (B2: cp.async loads,
+// ldmatrix and mma.sync products) and flash_bwd_2pass_tc.cu (B6a, B6b:
+// the same), and the backward's key-tile walk that B2 and B6b share
+// (tc::bwd::kv_tile_walk, below).  Inline PTX only, so a source that
 // includes this header needs no CUTLASS and builds in seconds.
 //
 // Fragment layouts (a warp's 16 x 8 tile of mma.sync m16n8k16, and each
@@ -20,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace tc {
 
@@ -251,4 +255,338 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The bf16 attention backward's tile code: B2 (flash_bwd_tc.cu) and the
+// dk/dv pass B6b (flash_bwd_2pass_tc.cu) run kv_tile_walk, with and
+// without dq; the dq pass B6a (flash_bwd_2pass_tc.cu) takes load_tile and
+// probs.  The rounding points are those of the f32 body (flash_bwd.cu),
+// stated in flash_bwd_tc.cu.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+namespace bwd {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;
+constexpr int kBK = 64;
+constexpr int kThreads = 128;  // four warps
+constexpr int kPS = kBK + 8;   // row pitch (elements) of the staged dS^T tile
+
+// shared memory of kv_tile_walk: K, V, two buffers of a Q and a dO tile,
+// with dq the dS^T tile, then two buffers each of lse and delta
+template <int D, bool DQ>
+struct Smem {
+  static constexpr int kP = D + 8;       // row pitch (elements) of a Q/dO/K/V tile
+  static constexpr int kTile = 64 * kP;  // elements of a tile
+  static constexpr int kBytes = 2 * (6 * kTile + (DQ ? kBK * kPS : 0)) + 4 * 4 * kBQ;
+};
+
+// rows [r0, r0 + 64) of a (T, D) bf16 matrix into a tile of row pitch D + 8,
+// 16 bytes a copy by the block's kThreads threads; rows past T zeroed
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0, int T, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int idx = tid; idx < 64 * kChunks; idx += kThreads) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const bool in = r0 + r < T;
+    const bf16* s = src + static_cast<size_t>(in ? r0 + r : 0) * D + 8 * c;
+    cp_async16(dst + r * (D + 8) + 8 * c, s, in);
+  }
+}
+
+// dV's probability (p times the keep factor) and dS of one score from its S
+// and dP, in f32, each step rounded as the f32 body rounds it
+struct Probs {
+  float pd, ds;
+};
+template <bool EXT>
+__device__ __forceinline__ Probs probs(float s, float dp, float bias, float kf, bool has_bias,
+                                       bool drop, float lse, float delta, float sm_scale) {
+  float x;
+  if (EXT) {
+    x = __fmul_rn(s, sm_scale);
+    if (has_bias) x = __fadd_rn(x, bias);
+  } else {
+    x = s * sm_scale;
+  }
+  const float p = expf(x - lse);
+  float pd = p;
+  if (EXT && drop) {
+    pd = __fmul_rn(p, kf);
+    dp = __fmul_rn(dp, kf);
+  }
+  return {pd, p * (dp - delta) * sm_scale};
+}
+
+// One block of four warps owns one (64-row K/V tile, batch*head): K and V
+// stay in shared memory while the block walks the q tiles from the causal
+// lower bound to the end, the next q tile's Q, dO, lse and delta loading
+// by cp.async while the current one computes.  Warp w owns keys
+// 16w..16w+15:
+//   S^T = K.Q^T and dP^T = V.dO^T (16 x 64 each, f32 accumulators);
+//   P^T and dS^T formed on those accumulators with the bias, mask, lse,
+//   delta and keep factor, then rounded to bf16 in registers;
+//   dV += P^T.dO and dK += dS^T.Q with P^T and dS^T as register A
+//   operands (the accumulator layout of two 8-column chunks is the A
+//   layout of one 16-deep step), dk and dv held in registers;
+//   with DQ (B2): dS^T staged to shared memory, and dQ += dS.K for q rows
+//   16w..16w+15, staged in the q tile's spent Q/dO buffer and added into
+//   the f32 buffer dq32 one row at a time by cp.reduce.async.bulk (an f32
+//   add in L2; blocks add in no fixed order, so the order of dq's sum
+//   varies between runs).  Without DQ (B6b) dq32 is not read.
+// With dropout (DROP, a template flag) a tile's 32 keep-bits a thread are
+// formed first, into one word, in the same straight-line block as the S^T
+// and dP^T products: integer work with no operand from the products, so
+// it issues while the tensor cores run (Threefry, not the products, is
+// the floor).  Rows of every tile are padded by 16 bytes so ldmatrix's
+// eight rows fall in different banks.  Q tiles wholly above the causal
+// diagonal are skipped and only tiles that cross it (or a ragged end) are
+// masked, so any T is served; rows past T load as zeros.  Launched with
+// kThreads threads and Smem<D, DQ>::kBytes of dynamic shared memory, grid
+// (key tiles, batch*head).
+template <int D, bool EXT, bool DROP, bool DQ>
+__device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v,
+                                             const bf16* __restrict__ dout,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta, const flash::Ext& e,
+                                             float* __restrict__ dq32, bf16* __restrict__ dk,
+                                             bf16* __restrict__ dv, int sq, int sk, int causal,
+                                             float sm_scale) {
+  using S = Smem<D, DQ>;
+  constexpr int P = S::kP;
+  constexpr int ND = D / 8;  // 8-column chunks of a d-wide accumulator
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + S::kTile;
+  bf16* Qs = Vs + S::kTile;        // two buffers, each a Q tile then a dO tile
+  bf16* dOs = Qs + S::kTile;
+  bf16* dSt = Qs + 4 * S::kTile;   // with DQ: kBK x kPS, dS^T, keys as rows
+  float* lse_s = reinterpret_cast<float*>(dSt + (DQ ? kBK * kPS : 0));  // two buffers of kBQ
+  float* delta_s = lse_s + 2 * kBQ;                                     // two buffers of kBQ
+
+  const int k0 = blockIdx.x * kBK;
+  const int bh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int kw = 16 * warp;  // this warp's keys in the tile (and q rows for dQ)
+  // ldmatrix addressing: the row and column a lane points at
+  const int lrA = (lane & 7) + 8 * ((lane >> 3) & 1), lcA = 8 * (lane >> 4);  // A, row-major
+  const int lrB = (lane & 7) + 8 * (lane >> 4), lcB = 8 * ((lane >> 3) & 1);  // B from [n][k]
+  const bf16* qb = q + static_cast<size_t>(bh) * sq * D;
+  const bf16* dob = dout + static_cast<size_t>(bh) * sq * D;
+  const float* lseb = lse + static_cast<size_t>(bh) * sq;
+  const float* deltab = delta + static_cast<size_t>(bh) * sq;
+
+  const int offset = sk - sq;  // end-aligned causal offset
+  // the first q tile with a row that sees key k0: offset + gq >= k0
+  const int q_lo = causal ? max(0, k0 - offset) / kBQ : 0;
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+
+  auto load_q_tile = [&](int t, int buf) {
+    const int q0 = t * kBQ;
+    load_tile<D>(Qs + 2 * buf * S::kTile, qb, q0, sq, tid);
+    load_tile<D>(dOs + 2 * buf * S::kTile, dob, q0, sq, tid);
+    const int r = tid & 63;
+    const bool in = q0 + r < sq;
+    if (tid < 64)
+      cp_async4(lse_s + buf * kBQ + r, lseb + (in ? q0 + r : 0), in);
+    else
+      cp_async4(delta_s + buf * kBQ + r, deltab + (in ? q0 + r : 0), in);
+  };
+
+  load_tile<D>(Ks, k + static_cast<size_t>(bh) * sk * D, k0, sk, tid);
+  load_tile<D>(Vs, v + static_cast<size_t>(bh) * sk * D, k0, sk, tid);
+  if (q_lo < n_qt) load_q_tile(q_lo, 0);
+  cp_async_commit();
+
+  // the key-row bias of this thread's two keys (rows g and g + 8 of its warp's 16)
+  float kbv[2] = {0.f, 0.f};
+  if (EXT && e.kbias != nullptr) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gk = k0 + kw + g + 8 * hh;
+      kbv[hh] = gk < sk ? e.kbias[static_cast<long long>(bh / e.H) * sk + gk] : 0.f;
+    }
+  }
+  const float* fbias_bh = EXT && e.fbias != nullptr
+                              ? e.fbias + static_cast<long long>(bh / e.H) * e.fb_b +
+                                    static_cast<long long>(bh % e.H) * e.fb_h
+                              : nullptr;
+  const bool has_bias = EXT && (e.kbias != nullptr || e.fbias != nullptr);
+
+  float dk_acc[ND * 4], dv_acc[ND * 4];
+#pragma unroll
+  for (int i = 0; i < ND * 4; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int t = q_lo; t < n_qt; ++t) {
+    const int buf = (t - q_lo) & 1;
+    const int q0 = t * kBQ;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + 1 < n_qt) {
+      load_q_tile(t + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* Qt = Qs + 2 * buf * S::kTile;
+    const bf16* dOt = dOs + 2 * buf * S::kTile;
+    const float* lse_t = lse_s + buf * kBQ;
+    const float* delta_t = delta_s + buf * kBQ;
+
+    // element i of this thread's 32 scores sits at key kw + g + 8 * ((i >>
+    // 1) & 1), query 8 * (i >> 2) + t2 + (i & 1) of the tiles; the
+    // keep-bits first
+    uint32_t keep = 0;
+    if (DROP) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int gq = q0 + 8 * (i >> 2) + t2 + (i & 1);
+        const int gk = k0 + kw + g + 8 * ((i >> 1) & 1);
+        keep |= static_cast<uint32_t>(flash::keep_bit(e, static_cast<uint32_t>(bh), gq, gk, sk))
+                << i;
+      }
+    }
+
+    // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 keys x 64 queries
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, Ks + (kw + lrA) * P + 16 * kd + lcA);
+      ldsm_x4(va, Vs + (kw + lrA) * P + 16 * kd + lcA);
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t b[4];
+        ldsm_x4(b, Qt + (16 * n2 + lrB) * P + 16 * kd + lcB);
+        mma_bf16(st + 8 * n2, ka, b);
+        mma_bf16(st + 8 * n2 + 4, ka, b + 2);
+        ldsm_x4(b, dOt + (16 * n2 + lrB) * P + 16 * kd + lcB);
+        mma_bf16(dpt + 8 * n2, va, b);
+        mma_bf16(dpt + 8 * n2 + 4, va, b + 2);
+      }
+    }
+
+    // P^T (times keep, into st) and dS^T (into dpt)
+    const bool edge = q0 + kBQ > sq || k0 + kBK > sk || (causal && offset + q0 < k0 + kBK - 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int qq = 8 * (i >> 2) + t2 + (i & 1);
+      const int gq = q0 + qq, gk = k0 + kw + g + 8 * hh;
+      const bool ok = !edge || (gq < sq && gk < sk && (!causal || offset + gq >= gk));
+      float bias = 0.f;
+      if (EXT) {
+        if (e.kbias != nullptr)
+          bias = hh ? kbv[1] : kbv[0];
+        else if (fbias_bh != nullptr && gq < sq && gk < sk)
+          bias = fbias_bh[gq * e.fb_q + gk * e.fb_k];
+      }
+      const float kf = DROP && !((keep >> i) & 1u) ? 0.f : e.inv_keep;
+      // a masked score is the Pallas kernel's DEFAULT_MASK_VALUE, whose
+      // exp(mask - lse) is 0 for every finite lse
+      const Probs r = ok ? probs<EXT>(st[i], dpt[i], bias, kf, has_bias, DROP, lse_t[qq],
+                                      delta_t[qq], sm_scale)
+                         : Probs{0.f, 0.f};
+      st[i] = r.pd;
+      dpt[i] = r.ds;
+    }
+
+    if constexpr (DQ) {
+      // dS^T rounded to bf16 into this warp's 16 rows of the dS^T tile
+      // (keys as rows, queries as columns), for dQ
+      bf16* Tw = dSt + kw * kPS;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<uint32_t*>(Tw + g * kPS + 8 * c + t2) =
+            pack_bf16(dpt[4 * c], dpt[4 * c + 1]);
+        *reinterpret_cast<uint32_t*>(Tw + (g + 8) * kPS + 8 * c + t2) =
+            pack_bf16(dpt[4 * c + 2], dpt[4 * c + 3]);
+      }
+    }
+
+    // dV += P^T.dO, then dK += dS^T.Q (B = dO / Q read transposed), P^T and
+    // dS^T rounded to bf16 as register A operands
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      uint32_t pa[4], sa[4];
+      pack_a(pa, st, kq);
+      pack_a(sa, dpt, kq);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, dOt + (16 * kq + lrA) * P + 16 * n2 + lcA);
+        mma_bf16(dv_acc + 8 * n2, pa, b);
+        mma_bf16(dv_acc + 8 * n2 + 4, pa, b + 2);
+        ldsm_x4_t(b, Qt + (16 * kq + lrA) * P + 16 * n2 + lcA);
+        mma_bf16(dk_acc + 8 * n2, sa, b);
+        mma_bf16(dk_acc + 8 * n2 + 4, sa, b + 2);
+      }
+    }
+
+    if constexpr (DQ) {
+      __syncthreads();  // dS^T is whole
+
+      // dQ[16 rows of this warp] += dS.K, into the f32 buffer
+      float dq_acc[ND * 4];
+#pragma unroll
+      for (int i = 0; i < ND * 4; ++i) dq_acc[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t sa[4];
+        ldsm_x4_t(sa, dSt + (16 * kk + lrB) * kPS + kw + lcB);
+#pragma unroll
+        for (int n2 = 0; n2 < D / 16; ++n2) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Ks + (16 * kk + lrA) * P + 16 * n2 + lcA);
+          mma_bf16(dq_acc + 8 * n2, sa, b);
+          mma_bf16(dq_acc + 8 * n2 + 4, sa, b + 2);
+        }
+      }
+      // stage the warp's 16 rows in this tile's Q/dO buffer (read by no
+      // warp after dS^T was whole), then add each row into the f32 buffer
+      // with one bulk reduction
+      float* dqb = dq32 + static_cast<size_t>(bh) * sq * D;
+      float* stg = reinterpret_cast<float*>(Qs + 2 * buf * S::kTile);
+      constexpr int SP = D + 8;  // row pitch (floats) of the staged dq tile
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+          *reinterpret_cast<float2*>(stg + (kw + g + 8 * hh) * SP + 8 * n + t2) =
+              make_float2(dq_acc[4 * n + 2 * hh], dq_acc[4 * n + 2 * hh + 1]);
+      fence_async_smem();
+      __syncwarp();
+      if (lane < 16 && q0 + kw + lane < sq) {
+        bulk_reduce_add_f32(dqb + static_cast<size_t>(q0 + kw + lane) * D,
+                            stg + (kw + lane) * SP, D * 4);
+        bulk_commit();
+        bulk_wait_read();  // the staging rows may be overwritten after this
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int gk = k0 + kw + g + 8 * hh;
+    if (gk < sk) {
+      const size_t base = (static_cast<size_t>(bh) * sk + gk) * D + t2;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        *reinterpret_cast<uint32_t*>(dk + base + 8 * n) =
+            pack_bf16(dk_acc[4 * n + 2 * hh], dk_acc[4 * n + 2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dv + base + 8 * n) =
+            pack_bf16(dv_acc[4 * n + 2 * hh], dv_acc[4 * n + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace bwd
 }  // namespace tc

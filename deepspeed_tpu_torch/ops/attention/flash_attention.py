@@ -5,12 +5,12 @@ Layout convention: ``(batch, heads, seq, head_dim)``.
 
 :func:`flash_fwd` launches the forward CUDA kernel (B1), :func:`flash_bwd`
 the single-pass backward (B2) and :func:`flash_bwd2` the two-pass backward
-(``csrc/flash_bwd_2pass.cu``, B6a then B6b) for CUDA tensors.  B1 and B2
-have two bodies each, chosen by dtype: bf16 runs on the tensor cores
-(``csrc/flash_fwd_tc.cu``: wgmma fed by TMA; ``csrc/flash_bwd_tc.cu``:
-mma.sync fed by cp.async), f32 on the CUDA cores (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``), since TF32 cannot hold f32's parity bound.  CPU
-tensors take
+(B6a then B6b) for CUDA tensors.  Each has two bodies, chosen by dtype:
+bf16 runs on the tensor cores (``csrc/flash_fwd_tc.cu``: wgmma fed by TMA;
+``csrc/flash_bwd_tc.cu`` and ``csrc/flash_bwd_2pass_tc.cu``: mma.sync fed
+by cp.async), f32 on the CUDA cores (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, ``csrc/flash_bwd_2pass.cu``), since TF32 cannot
+hold f32's parity bound.  CPU tensors take
 :func:`flash_fwd_reference`, :func:`flash_bwd_reference` and
 :func:`flash_bwd2_reference`, the plain PyTorch versions of the same
 arithmetic.  :class:`_FlashAttention` ties them together as the autograd
@@ -460,8 +460,8 @@ def _variant(kbias, fbias, drop) -> str:
 
 
 def _body(name: str, dtype) -> Tuple[str, str]:
-    """``(library entry, body)`` of B1 or B2 for ``dtype``: bf16 the
-    tensor-core body (``<name>_tc``, ``tc``), f32 the CUDA-core body
+    """``(library entry, body)`` of B1, B2, B6a or B6b for ``dtype``: bf16
+    the tensor-core body (``<name>_tc``, ``tc``), f32 the CUDA-core body
     (``simt``)."""
     return (name + "_tc", "tc") if dtype == torch.bfloat16 else (name, "simt")
 
@@ -649,29 +649,37 @@ def flash_bwd(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None
 def _launch_bwd2(name: str, outs, q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                  kbias, fbias, drop: Optional[Dropout]) -> None:
     """Check the arguments and launch one pass of the two-pass backward
-    (``csrc/flash_bwd_2pass.cu``) writing ``outs``."""
-    _check_bwd(name + "_cuda", q, k, v, do, lse, delta)
+    writing ``outs``: the tensor-core body (``csrc/flash_bwd_2pass_tc.cu``)
+    for bf16, the CUDA-core body (``csrc/flash_bwd_2pass.cu``) for f32."""
+    who = name + "_cuda"
+    _check_bwd(who, q, k, v, do, lse, delta)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if causal and sq > sk:
-        raise ValueError(f"{name}_cuda: causal attention needs Tq <= Tk, got {sq} > {sk}")
-    _check_options(name + "_cuda", q, k, kbias, fbias, drop)
+        raise ValueError(f"{who}: causal attention needs Tq <= Tk, got {sq} > {sk}")
+    _check_options(who, q, k, kbias, fbias, drop)
+    entry, body = _body(name, q.dtype)
+    if body == "tc":
+        _check_aligned(who, ("q", q), ("k", k), ("v", v), ("dO", do))
     lib = _kernels.library()
-    err = lib.fn(name)(
+    err = lib.fn(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), *(t.data_ptr() for t in outs), *_ext_args(kbias, fbias, drop),
         b * h, h, sq, sk, d, _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check(name, err)
-    _kernels.count_launch(name, _variant(kbias, fbias, drop))
+    lib.check(entry, err)
+    _kernels.count_launch(name, f"{_variant(kbias, fbias, drop)}/{body}")
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,
                       fbias=None, drop: Optional[Dropout] = None) -> torch.Tensor:
-    """Launch the dq pass (B6a) on the current stream: dq summed in
-    registers and written once in q's type (no atomics, so the same bits
-    every launch).  Same arguments and refusals as :func:`flash_bwd_cuda`."""
+    """Launch the dq pass (B6a) on the current stream: the tensor-core body
+    (``csrc/flash_bwd_2pass_tc.cu``) for bf16, the CUDA-core body
+    (``csrc/flash_bwd_2pass.cu``) for f32.  dq is summed in registers and
+    written once in q's type (no atomics, so the same bits every launch).
+    Same arguments and refusals as :func:`flash_bwd_cuda` (bf16: a view off
+    a 16-byte boundary is refused, not sent to the f32 body)."""
     dq = torch.empty_like(q)
     _launch_bwd2("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, causal, sm_scale, kbias, fbias,
                  drop)
@@ -681,7 +689,8 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kb
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,
                        fbias=None, drop: Optional[Dropout] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dk/dv pass (B6b) on the current stream: ``(dk, dv)``."""
+    """Launch the dk/dv pass (B6b) on the current stream: ``(dk, dv)``,
+    by the body :func:`flash_bwd_dq_cuda` picks for the same dtype."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd2("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, causal, sm_scale, kbias,
                  fbias, drop)

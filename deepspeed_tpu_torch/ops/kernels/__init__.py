@@ -7,11 +7,13 @@ live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
 ``flash_bwd_2pass.cu``, the block-sparse forward B8 and its backward B9a
 and B9b in ``splash_attn.cu``; the attention sources share the device
 functions of ``flash_common.cuh``).  A kernel may have a second body in
-a source of its own (:data:`BODIES`): the flash forward and single-pass
-backward run bf16 tensors on tensor-core bodies (``flash_fwd_tc.cu``,
-``flash_bwd_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on the
-CUDA-core bodies of ``flash_fwd.cu`` and ``flash_bwd.cu``; a body counts
-its launches under its kernel's name, with the body in the variant.  At
+a source of its own (:data:`BODIES`): the flash forward, the single-pass
+backward and the two passes of the two-pass backward run bf16 tensors on
+tensor-core bodies (``flash_fwd_tc.cu``, ``flash_bwd_tc.cu``,
+``flash_bwd_2pass_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on
+the CUDA-core bodies of ``flash_fwd.cu``, ``flash_bwd.cu`` and
+``flash_bwd_2pass.cu``; a body counts its launches under its kernel's
+name, with the body in the variant.  At
 first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
@@ -139,6 +141,9 @@ KERNELS = {
 BODIES = {
     "flash_fwd_tc": ("flash_fwd_tc.cu", "ds_flash_fwd_tc", KERNELS["flash_fwd"][2]),
     "flash_bwd_tc": ("flash_bwd_tc.cu", "ds_flash_bwd_tc", KERNELS["flash_bwd"][2]),
+    "flash_bwd_dq_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dq_tc", KERNELS["flash_bwd_dq"][2]),
+    "flash_bwd_dkv_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dkv_tc",
+                         KERNELS["flash_bwd_dkv"][2]),
 }
 # every library that builds: the kernels and the second bodies
 _UNITS = {**KERNELS, **BODIES}
@@ -270,7 +275,8 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
 def count_launch(name: str, variant: Optional[str] = None) -> None:
     """One launch of kernel ``name``; ``variant`` names the options it ran
     with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
-    ``+dropout``; for B1 and B2 also the body, ``/tc`` or ``/simt``)."""
+    ``+dropout``; for B1, B2, B6a and B6b also the body, ``/tc`` or
+    ``/simt``)."""
     _LIBRARY.launches[name] += 1
     if variant is not None:
         v = _LIBRARY.variants[name]

@@ -5,6 +5,7 @@
     python -m deepspeed_tpu_torch.tools.profile_training --model bert-large --dropout 0.1
     python -m deepspeed_tpu_torch.tools.profile_training --attention-mode sparse --seq 8192 --layers 8
     python -m deepspeed_tpu_torch.tools.profile_training --model transformer-layer --mask 4d
+    python -m deepspeed_tpu_torch.tools.profile_training --model transformer-layer --seq 9216 --batch 1
 
 Builds ``initialize()`` in bf16 over f32 masters (random weights from
 ``--seed``), micro-batch 8, gradient accumulation 2, clipping 1.0, for one
@@ -19,10 +20,12 @@ recipe of ``train_sparse_bf16`` instead: GPT-2 124M's width at ``--layers``
 lr 1e-4, cross-entropy in chunks of 512, block-sparse attention (the
 default BigBird layout) or dense flash attention.  With ``--model
 transformer-layer`` a step is ``chip_smoke.py``'s ``transformer_layer``
-pass: 24 ``DeepSpeedTransformerLayer``s at BERT-large width (pre-LN,
-dropout 0.1 and 0.1), bf16, B 8, T 512, forward and the backward of a
-weighted sum, under a (B, T) key-padding mask (``--mask 2d``) or a (B, 1,
-T, T) seq2seq mask (``--mask 4d``).  The script uses only entry points
+pass: ``--layers`` (default 24) ``DeepSpeedTransformerLayer``s at
+BERT-large width (pre-LN, dropout 0.1 and 0.1), bf16, ``--batch`` (default
+8) rows of ``--seq`` (default 512) positions, forward and the backward of
+a weighted sum, under a (B, T) key-padding mask (``--mask 2d``) or a (B,
+1, T, T) seq2seq mask (``--mask 4d``); at ``--seq 9216`` with a (B, T)
+mask the backward is the two-pass B6a/B6b.  The script uses only entry points
 that every slice of the port since the transformer layer's has, so it can
 profile an older checkout of the package (put it first on PYTHONPATH and
 run this file by its path).
@@ -52,8 +55,8 @@ from deepspeed_tpu_torch.tools.profile_serving import _union_us
 KERNEL_CLASSES = (
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
     ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
     ("splash_fwd", ("splash_fwd_kernel",)),
     ("splash_bwd_dq", ("splash_dq_kernel",)),
     ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel")),
@@ -203,7 +206,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--attention-mode", default=None, choices=["flash", "sparse"],
                     help="GPT-2's long-context recipe with this attention (B 1, Adam, xent chunks)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="layers of the long-context recipe (default 8)")
+                    help="layers of the long-context recipe (default 8) or of transformer-layer "
+                         "(default 24)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="transformer-layer: rows a pass (default 8)")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="hidden (and BERT's attention) dropout; BERT-large publishes 0.1")
     ap.add_argument("--steps", type=int, default=2)
@@ -218,12 +224,15 @@ def main(argv=None) -> dict:
     long_run = args.attention_mode is not None
     if long_run and (bert_run or layer_run or args.optimizer):
         raise ValueError("--attention-mode is GPT-2's long-context recipe, with its own Adam")
+    if args.batch is not None and not layer_run:
+        raise ValueError("--batch sets transformer-layer's rows; the training runs fix theirs")
     mb, gas = (1, 1) if long_run else (8, 2)
     if layer_run:
-        T, mb, gas, optimizer = args.seq or 512, 8, 1, None
-        step = layer_step(args.mask, mb, T, args.seed)
+        T, mb, gas, optimizer = args.seq or 512, args.batch or 8, 1, None
+        layers = args.layers or 24
+        step = layer_step(args.mask, mb, T, args.seed, layers)
         meta = {"profile": "transformer_layer", "model": args.model, "mask": args.mask,
-                "dropout": 0.1, "layers": 24}
+                "dropout": 0.1, "layers": layers}
     else:
         optimizer = "adam" if long_run else args.optimizer or ("lamb" if bert_run else "adamw")
         T = args.seq or (512 if bert_run else 8192 if long_run else 1024)

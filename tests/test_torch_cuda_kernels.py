@@ -22,14 +22,16 @@ and both backwards (B2 and the two-pass B6a/B6b, whose dq must be the same
 bits launch after launch), the block-sparse kernels B8/B9a/B9b (every
 layout form: BigBird, per-head, untouched key columns, a row with no
 block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the same bits
-launch after launch), B1's and B2's bf16 tensor-core bodies at every
-head dim with every option (ragged, end-aligned and full; each launch
-counted as ``tc``, an f32 one as ``simt``), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
+launch after launch), the bf16 tensor-core bodies of B1, B2, B6a and B6b
+at every head dim with every option (ragged, end-aligned and full; each
+launch counted as ``tc``, an f32 one as ``simt``), and the wrappers'
+refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
 bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
 backward entry by entry, within that tolerance times |entry| plus half
 the gradient's rms (dq's f32 sum is taken with atomics, in an order that
-changes between runs; B2's bf16 tensor-core body, and its plain version,
-against the float64 function within the bf16 contract's bound,
+changes between runs; the bf16 tensor-core bodies of B2 and B6, and
+their plain versions, against the float64 function within the bf16
+contract's bound,
 ``flash_attention.flash_bwd_float64``, since a bf16 P or dS next to a
 rounding tie may round either way; for the block-sparse backward, the rms of the
 entry's own layout block, its share grown as the square root of that
@@ -192,7 +194,7 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, sq, sk, d, causal):
     got = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale)
     ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale)
     torch.cuda.synchronize()
-    _b2_close(got, ref, dtype, (q, k, v, do, lse, delta, causal, scale))
+    _grads_close(got, ref, dtype, (q, k, v, do, lse, delta, causal, scale))
 
 
 def test_autograd_through_the_kernels_matches_the_plain_path(dev):
@@ -266,7 +268,7 @@ def test_flash_kbias_fwd_and_bwd_match_plain(dev, dtype, sq, sk, d, causal):
     refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb)
     torch.cuda.synchronize()
     assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
-    _b2_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb))
+    _grads_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb))
     if not causal:  # a padded key takes p == 0 exactly: its dk and dv are 0
         assert not got[1][2, :, sk // 2 + 1:].any() and not got[2][2, :, sk // 2 + 1:].any()
 
@@ -442,11 +444,11 @@ def _bwd_close(got, ref, dtype):
         assert bool(((a - b).abs() <= bound).all()), _err(a, b)
 
 
-def _b2_close(got, ref, dtype, args):
-    """B2 against its plain version: f32 (the CUDA-core body) entry by
-    entry; bf16 (the tensor-core body), and the plain version, against the
-    float64 function of the same inputs ``args`` within the bound of the
-    bf16 contract (``flash_bwd_float64``)."""
+def _grads_close(got, ref, dtype, args):
+    """B2's or B6's gradients against the plain version: f32 (the CUDA-core
+    bodies) entry by entry; bf16 (the tensor-core bodies), and the plain
+    version, against the float64 function of the same inputs ``args``
+    within the bound of the bf16 contract (``flash_bwd_float64``)."""
     if dtype != torch.bfloat16:
         _bwd_close(got, ref, dtype)
         return
@@ -498,8 +500,8 @@ def test_flash_dropout_and_fbias_fwd_bwd_match_plain(dev, dtype, kind, sq, sk, d
     refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
     torch.cuda.synchronize()
     assert _err(out, ref) <= TOL[dtype] and _err(lse, ref_lse) <= 1e-4
-    _b2_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
-    _bwd_close(two, refb, dtype)
+    _grads_close(got, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
+    _grads_close(two, refb, dtype, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
     if kind == "kbias" and not causal:  # a padded key's dk and dv stay exactly 0
         for grads in (got, two):
             assert not grads[1][2, :, sk // 2 + 1:].any() and not grads[2][2, :, sk // 2 + 1:].any()
@@ -539,46 +541,98 @@ def test_tensor_core_bodies_match_plain(dev, d, sq, sk, causal, kind):
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     assert _err(out, ref) <= TOL[torch.bfloat16]
     assert _err(lse, ref_lse) <= 1e-4
-    _b2_close(got, refb, torch.bfloat16, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
+    _grads_close(got, refb, torch.bfloat16, (q, k, v, do, lse, delta, causal, scale, kb, fb, drop))
     form = fa._variant(kb, fb, drop)
     variants = kernels.launch_variants()
     assert variants["flash_fwd"] == {form + "/tc": 1} and variants["flash_bwd"] == {form + "/tc": 1}
 
 
 def test_bf16_launches_count_as_tc_and_f32_as_simt(dev):
-    """The wrapper picks the body by dtype and names it in the variant; a
-    bf16 view off a 16-byte boundary is refused, not sent to the f32 body."""
+    """The wrapper picks the body by dtype and names it in the variant (B1,
+    B2, and B6a/B6b); a bf16 view off a 16-byte boundary is refused, not
+    sent to the f32 body."""
     q = _randn(dev, 1, 2, 128, 64)
     lse = torch.zeros(1, 2, 128, device=dev)
     kernels.reset_launches()
     for t in (q, q.to(torch.bfloat16)):
         out, lse = fa.flash_fwd_cuda(t, t, t, True, 0.125, want_lse=True)
-        fa.flash_bwd_cuda(t, t, t, t, lse, (t.float() * out.float()).sum(-1), True, 0.125)
+        delta = (t.float() * out.float()).sum(-1)
+        fa.flash_bwd_cuda(t, t, t, t, lse, delta, True, 0.125)
+        fa.flash_bwd2_cuda(t, t, t, t, lse, delta, True, 0.125)
     torch.cuda.synchronize()
-    assert kernels.launches()["flash_fwd"] == 2 and kernels.launches()["flash_bwd"] == 2
     want = {"none/simt": 1, "none/tc": 1}
-    assert kernels.launch_variants()["flash_fwd"] == want
-    assert kernels.launch_variants()["flash_bwd"] == want
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert kernels.launches()[name] == 2
+        assert kernels.launch_variants()[name] == want
     odd = torch.empty(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(1, 2, 128, 64)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd_cuda(odd, odd, odd, True, 0.125)
-    assert kernels.launches()["flash_fwd"] == 2
+    for launch in (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="16-byte"):
+            launch(odd, odd, odd, odd, lse, delta, True, 0.125)
+    assert all(kernels.launches()[name] == 2 for name in ("flash_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkv"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_two_pass_dq_is_the_same_bits_every_launch(dev, dtype):
-    """B6a sums dq in registers and writes it once: two launches give the
-    same bits (B2's atomic dq need not)."""
+    """B6a sums dq in registers and writes it once, on either body (bf16:
+    the tensor cores'): two launches give the same bits (B2's dq, added
+    into an f32 buffer in no fixed order, need not)."""
     q, k, v, do = (_randn(dev, 2, 4, 1000, 64, seed=s).to(dtype) for s in (1, 2, 3, 4))
     kb = _padding_bias(dev, 2, 1000, (1000, 700))
     drop = fa.make_dropout(0.1, (5, 6))
     out, lse = fa.flash_fwd_cuda(q, k, v, False, 0.125, want_lse=True, kbias=kb, drop=drop)
     delta = (do.float() * out.float()).sum(-1)
+    kernels.reset_launches()
     a = fa.flash_bwd2_cuda(q, k, v, do, lse, delta, False, 0.125, kbias=kb, drop=drop)
     b = fa.flash_bwd2_cuda(q, k, v, do, lse, delta, False, 0.125, kbias=kb, drop=drop)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+    form = "kbias+dropout/" + ("tc" if dtype == torch.bfloat16 else "simt")
+    assert kernels.launch_variants()["flash_bwd_dq"] == {form: 2}
+    assert kernels.launch_variants()["flash_bwd_dkv"] == {form: 2}
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,sk,causal", [
+    (200, 200, True),     # ragged last tiles
+    (1000, 1000, True),   # ragged, many tiles
+    (100, 300, True),     # end-aligned: queries are the last 100 positions
+    (257, 257, False),    # full attention, one row past a tile
+])
+@pytest.mark.parametrize("kind", ["none", "kbias", "fbias_mask", "fbias_heads", "dropout",
+                                  "kbias_dropout", "fbias_mask_dropout"])
+def test_two_pass_tensor_core_bodies_lie_within_the_float64_bound(dev, d, sq, sk, causal, kind):
+    """B6a and B6b on bf16 tensors take the tensor-core bodies
+    (flash_bwd_2pass_tc.cu): their gradients and the plain version's within
+    the float64 bound of the bf16 contract, at every head dim with every
+    option; each launch counted as ``tc``; a padded key's dk and dv exactly
+    0; dk and dv the same bits as B2's (the same key-tile walk)."""
+    B, H = 3, 2
+    q = _randn(dev, B, H, sq, d, seed=1).to(torch.bfloat16)
+    k = _randn(dev, B, H, sk, d, seed=2).to(torch.bfloat16)
+    v = _randn(dev, B, H, sk, d, seed=3).to(torch.bfloat16)
+    do = _randn(dev, B, H, sq, d, seed=4).to(torch.bfloat16)
+    kb, fb = _options(dev, kind.replace("_dropout", "").replace("dropout", "none"), B, H, sq, sk)
+    drop = fa.make_dropout(0.1, (2**31 + 9, 77)) if "dropout" in kind else None
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, want_lse=True, kbias=kb, fbias=fb,
+                                 drop=drop)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale, kb, fb, drop)
+    kernels.reset_launches()
+    got = fa.flash_bwd2_cuda(*args)
+    single = fa.flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    form = fa._variant(kb, fb, drop) + "/tc"
+    variants = kernels.launch_variants()
+    assert variants["flash_bwd_dq"] == {form: 1} and variants["flash_bwd_dkv"] == {form: 1}
+    _grads_close(got, fa.flash_bwd2_reference(*args), torch.bfloat16, args)
+    assert torch.equal(got[1], single[1]) and torch.equal(got[2], single[2])
+    if kb is not None and not causal:  # batch row 2 keeps sk // 2 + 1 keys
+        assert not got[1][2, :, sk // 2 + 1:].any() and not got[2][2, :, sk // 2 + 1:].any()
 
 
 def test_autograd_with_dropout_and_a_trainable_full_bias_matches_the_plain_path(dev, monkeypatch):
@@ -603,6 +657,7 @@ def test_autograd_with_dropout_and_a_trainable_full_bias_matches_the_plain_path(
         got = kernels.launches()
         assert got["flash_fwd"] == 1 and got[route] == 1
         assert kernels.launch_variants()["flash_fwd"] == {"fbias+dropout/simt": 1}
+        assert kernels.launch_variants()[route] == {"fbias+dropout/simt": 1}
         for a, t in zip(want, (q, k, v, bias)):
             assert _err(t.grad, a) <= 1e-4 * max(1.0, float(a.abs().max()))
 

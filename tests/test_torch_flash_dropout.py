@@ -184,6 +184,43 @@ def test_two_pass_plain_backward_matches_jax_two_pass_kernels(bias_kind, causal)
         _close(a.numpy(), b.numpy(), "two-pass vs single-pass")
 
 
+@pytest.mark.parametrize("bias_kind,causal", [("kbias", False), ("fbias", True)])
+def test_bf16_two_pass_plain_and_jax_kernels_lie_within_the_float64_bound(bias_kind, causal):
+    """bf16, with in-kernel dropout: the port's two-pass plain backward and
+    the JAX package's interpreted two-pass kernels (``_flash_bwd_pallas``)
+    on the same inputs and forward residuals, both within
+    ``flash_bwd_float64``'s bound (what the card's bf16 B6a/B6b are held
+    to: each rounds p and ds to bf16 after f32 sums in its own order); a dq
+    that misses one 64-key tile lies far outside it."""
+    seed = (31, 2**31 + 1)
+    q, k, v, w, bias = _inputs(1, 2, 256, 32, seed=43, bias_kind=bias_kind)
+    scale = 32 ** -0.5
+    key = jnp.asarray(seed, jnp.uint32)
+    jq, jk, jv, jw = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, w))
+    jb = jnp.asarray(bias)
+    out, lse = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale, 128, 128, True, bias=jb,
+                                     keep_prob=1 - RATE, drop_seed=key, want_lse=True)
+    jax_grads = jfa._flash_bwd_pallas(jq, jk, jv, out, lse, jw, causal, scale, 128, 128, True,
+                                      bias=jb, keep_prob=1 - RATE, drop_seed=key)
+    drop = tfa.make_dropout(RATE, np.asarray(seed, np.uint32))
+    tq, tk, tv, tw = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, w))
+    mode, b2 = tfa._bias_mode(torch.from_numpy(bias), 1, 2, 256, 256)
+    kb, fb = (b2, None) if mode == "kbias" else (None, b2)
+    tlse = torch.from_numpy(np.array(lse, np.float32))
+    delta = (tw.float() * torch.from_numpy(np.array(out, np.float32))).sum(-1)
+    args = (tq, tk, tv, tw, tlse, delta, causal, scale, kb, fb, drop)
+    plain = tfa.flash_bwd2(*args)
+    assert all(g.dtype == torch.bfloat16 for g in plain)
+    witness = tfa.flash_bwd_float64(*args)
+    from_jax = [torch.from_numpy(np.array(g, np.float32)) for g in jax_grads]
+    assert max(tfa.float64_over_bound(from_jax, witness)) <= 1.0
+    assert max(tfa.float64_over_bound(plain, witness)) <= 1.0
+    _, ds = tfa._bwd_probs(*args)
+    ds[..., 64:128] = 0
+    missing = torch.einsum("bhqk,bhkd->bhqd", ds, tk.float()).to(torch.bfloat16)
+    assert tfa.float64_over_bound((missing, *plain[1:]), witness)[0] > 10.0
+
+
 def test_two_pass_route_taken_past_the_threshold(monkeypatch):
     """With a bias, sq * d * 4 past ``_FUSED_BWD_MAX_SQ_BYTES`` takes the
     two-pass backward (B6), as the JAX package's dispatch does; without a
