@@ -35,18 +35,22 @@ Phases, each printing one JSON line:
    (tensor-core bodies) and f32, against its plain version and the
    single-pass kernel, its dq the same bits over two launches, and the
    bf16 pair at GPT-2's training shape beside B2 (``flash_bwd2_gpt2``:
-   the deterministic route's cost); the block-sparse forward B8 and backward
+   the two-pass route's cost); the block-sparse forward B8 and backward
    B9a/B9b at B=1, H=12, d=64, T=8192 and 16384 with GPT-2's default
-   BigBird layout (block 256, causal) in bf16 and f32, their gradients the
-   same bits over two launches, and a per-head and an untouched-column
-   layout at T=1024, whose empty columns' dk/dv must be exactly 0),
+   BigBird layout (block 256, causal) in bf16 (B9a/B9b on their
+   tensor-core bodies) and f32, their gradients the same bits over two
+   launches, and a per-head and an untouched-column layout at T=1024,
+   whose empty columns' dk/dv must be exactly 0, and BigBird with a block
+   of 96 at T=1536),
    with the tolerance stated, and the times of the kernel, the plain
    version and one PyTorch library call beside the least time the card
    could take (``bound_ms``; with dropout the slower of the dots and
-   Threefry's integer operations on the INT32 pipe).  B2's and B6's bf16
-   gradients (and their plain versions') are held to the float64 function
-   within the bound of the bf16 contract (``flash_bwd_float64``), the f32
-   ones to the plain version entry by entry.
+   Threefry's integer operations on the INT32 pipe).  B2's, B6's, B9a's
+   and B9b's bf16 gradients (and their plain versions') are held to the
+   float64 function within the bound of the bf16 contract
+   (``flash_bwd_float64``, ``splash_bwd_float64``), the f32 ones to the
+   plain version entry by entry; every B2 row's dq, dk and dv must be the
+   same bits over two launches (dq summed in a fixed order).
 3. ``serve_f32``: GPT-2 124M at full width and depth (random weights from
    a seed) behind ``init_serving``: 8 slots, 64-token prefill chunks, 16
    requests with 64..384-token prompts, drained; every request's greedy
@@ -66,7 +70,10 @@ Phases, each printing one JSON line:
 6. ``train_bf16``: the training main path, GPT-2 124M in bf16 with f32
    masters, micro-batch 8, gradient accumulation 2, T=1024, AdamW with
    ``WarmupDecayLR`` (lr 6e-5 rising to 6e-4 over 2 steps) and clipping
-   1.0, 4 steps on one fixed batch.  The
+   1.0, 4 steps on one fixed batch.  First, a reading (not a gate): two
+   first steps from the same state, through fresh engines, compared bit
+   for bit (loss, parameters, every B1/B2 launch's outputs), naming the
+   first launch and the parameters that differ, if any.  The
    counters are zeroed just before and read just after: the flash forward,
    flash backward and fused Adam kernels must have launched, B1 and B2 on
    their tensor-core bodies only; every loss finite and the last below the
@@ -131,12 +138,13 @@ Phases, each printing one JSON line:
    over f32 masters at T=8192 and T=16384 (8 layers, B=1, Adam at lr 1e-4,
    remat, cross-entropy in chunks of 512), 4 steps, beside the dense flash
    path at the same T and depth.  Counters zeroed just before and read just
-   after each sparse run: B8 16, B9a 8 and B9b 8 launches a micro-step,
-   fused Adam launched, B1/B2 not; losses finite and falling.  Prints ms a
+   after each sparse run: B8 16, B9a 8 and B9b 8 launches a micro-step
+   (B9a and B9b all on their tensor-core bodies), fused Adam launched,
+   B1/B2 not; losses finite and falling.  Prints ms a
    step, tokens/s, peak memory, MFU and sparse-over-dense tokens/s.
 16. ``kernels``: one entry per kernel with its launches on each main path
-   (B1, B2, B6a and B6b: the tensor-core body's source, the f32 body's
-   beside it)
+   (B1, B2, B6a, B6b, B9a and B9b: the tensor-core body's source, the f32
+   body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
    training_bert, training_bert_dropout, transformer_layer,
    training_sparse) and their sum.
@@ -1291,9 +1299,11 @@ def _check_bwd_rows(got, ref, tol, label, rms_share=BWD_RMS_SHARE):
     return list(errs), list(over)
 
 
-def _bwd_fields(fa, got, ref, args, label):
-    """B2's gradients ``got`` checked, and the row's error fields.  f32 (the
-    CUDA-core body): against the plain version ``ref`` entry by entry
+def _bwd_fields(fa, got, ref, args, label, launch=None):
+    """B2's gradients ``got`` checked, and the row's error fields.  Another
+    launch on ``args`` (``launch``, default B2's ``flash_bwd_cuda``) must
+    give the same bits: dq, dk and dv are summed in a fixed order.  f32
+    (the CUDA-core body): against the plain version ``ref`` entry by entry
     (:func:`_check_bwd_rows`).  bf16 (the tensor-core body): the kernel's
     gradients and the plain version's against the float64 function of the
     same inputs ``args`` (``flash_bwd_float64``), each within the bound of
@@ -1302,12 +1312,16 @@ def _bwd_fields(fa, got, ref, args, label):
     not a bound of that contract (a bf16 P or dS next to a rounding tie
     rounds either way): ``entry_bound_vs_float64`` gives the kernel's and
     the plain version's readings of it against float64, for the record."""
+    again = (launch or fa.flash_bwd_cuda)(*args)
+    check(all(bool(a.eq(b).all()) for a, b in zip(got, again)),
+          f"{label}: dq, dk or dv differs between two launches")
+    del again
     name = str(got[0].dtype).replace("torch.", "")
     tol = TOL[name]
     if name != "bfloat16":
         errs, over = _check_bwd_rows(got, ref, tol, label)
         return {"max_err": max(errs), "max_err_dq_dk_dv": errs, "err_over_bound_dq_dk_dv": over,
-                "tol": tol, "tol_rms_share": BWD_RMS_SHARE}
+                "tol": tol, "tol_rms_share": BWD_RMS_SHARE, "bitwise_repeatable": True}
     witness = fa.flash_bwd_float64(*args)
     over = {"kernel": fa.float64_over_bound(got, witness),
             "plain": fa.float64_over_bound(ref, witness)}
@@ -1321,7 +1335,8 @@ def _bwd_fields(fa, got, ref, args, label):
     return {"max_err": max(errs), "max_err_dq_dk_dv": errs,
             "kernel_over_float64_bound_dq_dk_dv": over["kernel"],
             "plain_over_float64_bound_dq_dk_dv": over["plain"],
-            "entry_bound_vs_float64": entry, "tol": tol, "tol_rms_share": BWD_RMS_SHARE}
+            "entry_bound_vs_float64": entry, "tol": tol, "tol_rms_share": BWD_RMS_SHARE,
+            "bitwise_repeatable": True}
 
 
 def _padded_zero(got, keep, T):
@@ -1644,9 +1659,9 @@ def check_flash_bwd2(torch, dev, flush):
 
 def _check_flash_bwd2_gpt2(torch, dev, flush):
     """The tensor-core B6a + B6b pair at GPT-2's training shape (bf16, B=8,
-    H=12, T=1024, d=64, causal, no bias) beside B2 on the same inputs: the
-    pair's dq is the same bits every launch, B2's need not be (its dq is
-    added into L2 in no fixed order).  Gradients (the pair's and the plain
+    H=12, T=1024, d=64, causal, no bias) beside B2 on the same inputs (both
+    the same bits every launch since B2 sums dq in a fixed order; the pair
+    is the two-pass route's cost).  Gradients (the pair's and the plain
     version's) within the float64 bound."""
     import torch.nn.functional as F
 
@@ -1661,12 +1676,8 @@ def _check_flash_bwd2_gpt2(torch, dev, flush):
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, True, scale)
     got = fa.flash_bwd2_cuda(*args)
-    again = fa.flash_bwd2_cuda(*args)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          "flash_bwd2 GPT-2 shape: the pair's gradients differ between two launches")
     ref = fa.flash_bwd2_reference(*args)
-    fields = _bwd_fields(fa, got, ref, args, "flash_bwd2 GPT-2 shape")
+    fields = _bwd_fields(fa, got, ref, args, "flash_bwd2 GPT-2 shape", fa.flash_bwd2_cuda)
     del ref
     pairs = T * (T + 1) / 2  # causal (query, key) pairs
     b_ms, b_by = bound_ms(7 * B * H * T * d * 2 + 2 * B * H * T * 4, 14 * d * pairs * B * H,
@@ -1675,7 +1686,7 @@ def _check_flash_bwd2_gpt2(torch, dev, flush):
     row = {
         "phase": "kernel", "kernel": "flash_bwd2_gpt2", "pair": "flash_bwd_dq + flash_bwd_dkv",
         "body": "tc", "B": B, "H": H, "T": T, "d": d, "dtype": "bfloat16", "causal": True,
-        **fields, "bitwise_repeatable": True,
+        **fields,
         "kernel_ms": device_ms(torch, lambda: fa.flash_bwd2_cuda(*args), flush, iters=10),
         "flash_bwd_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(*args), flush, iters=10),
         "plain_ms": device_ms(torch, lambda: fa.flash_bwd2_reference(*args), flush, iters=3),
@@ -1751,18 +1762,50 @@ def _splash_bwd_float64(torch, args):
     return tuple(torch.stack(g)[None] for g in grads)
 
 
+def _check_splash_bodies(kernels, name, label):
+    """Since the last reset, two launches each of B9a and B9b, on the body
+    q's type takes: bf16 the tensor cores' (``splash_attn_tc.cu``), f32 the
+    CUDA cores'."""
+    form = "none/" + body(name)
+    for kernel in ("splash_bwd_dq", "splash_bwd_dkv"):
+        ran = kernels.launch_variants()[kernel]
+        check(ran == {form: 2}, f"{label}: {kernel} ran {ran}, not {form} twice")
+
+
+def _splash_bf16_fields(fa, sp, got, ref, args, label):
+    """The bf16 B9a/B9b gradients ``got`` (the tensor-core bodies) and the
+    plain version's ``ref`` against the float64 function of the same inputs
+    ``args``, each within the bound of the bf16 contract
+    (``sparse.splash_bwd_float64``), which holds for any summation order: a
+    bf16 P or dS next to a rounding tie rounds either way.  Returns the
+    row's fields."""
+    witness = sp.splash_bwd_float64(*args)
+    over = {"kernel": fa.float64_over_bound(got, witness),
+            "plain": fa.float64_over_bound(ref, witness)}
+    for who, ratios in over.items():
+        for grad, w in zip(("dq", "dk", "dv"), ratios):
+            check(w <= 1.0, f"{label}: the {who}'s {grad} is {w:.3g}x its float64 bound")
+    check(all(bool(a.isfinite().all()) for a in got), f"{label}: non-finite gradient")
+    return {"kernel_over_float64_bound_dq_dk_dv": over["kernel"],
+            "plain_over_float64_bound_dq_dk_dv": over["plain"]}
+
+
 def check_splash(torch, dev, flush):
     """B8 (splash_fwd, with lse), B9a (splash_bwd_dq) and B9b
     (splash_bwd_dkv) at the sparse main path's shapes, B=1, H=12, d=64, T
     8192 and 16384 with GPT-2's default sparse layout (unidirectional
-    BigBird, block 256, causal), in bf16 and f32: against the plain
-    versions (the backward entry by entry, ``sparse.splash_grad_bound``),
-    in f32 the kernels and the plain versions against the float64
-    function (:func:`_splash_bwd_float64`), dq/dk/dv the same bits over
-    two launches, the lse of a row
-    with no block +inf where the plain version's is; then a per-head and
-    an untouched-column layout at (1, 2, 1024, 64), block 256, whose empty
-    columns' dk/dv must be exactly 0.  Bound by operations over the
+    BigBird, block 256, causal), in bf16 (B9a/B9b on their tensor-core
+    bodies) and f32: the forward against its plain version; the bf16
+    backward, kernels and plain version, against the float64 function
+    within the bf16 contract's bound (:func:`_splash_bf16_fields`); the
+    f32 backward against its plain version entry by entry
+    (``sparse.splash_grad_bound``), and the f32 kernels and plain versions
+    against the float64 function (:func:`_splash_bwd_float64`); dq/dk/dv
+    the same bits over two launches, each launch on the body its dtype
+    takes, the lse of a row with no block +inf where the plain version's
+    is; then a per-head and an untouched-column layout at (1, 2, 1024,
+    64), block 256, whose empty columns' dk/dv must be exactly 0, and
+    BigBird at (1, 2, 1536, 64) with a block of 96, both dtypes.  Bound by operations over the
     layout's scores (causal inside diagonal blocks): 4 d a score forward,
     6 d for the dq pass, 8 d for the dk/dv pass.  Library: SDPA with the
     layout expanded to a (1, 1, T, T) boolean mask, and its backward by
@@ -1770,6 +1813,8 @@ def check_splash(torch, dev, flush):
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
     from deepspeed_tpu_torch.ops.attention import sparse as sp
 
     B, H, d = 1, 12, 64
@@ -1803,18 +1848,23 @@ def check_splash(torch, dev, flush):
             del ref, ref_lse
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, layout, block, True, scale)
+            kernels.reset_launches()
             got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             torch.cuda.synchronize()
+            _check_splash_bodies(kernels, name, f"splash T={T} {name}")
             for label, a, b in zip(("dq", "dk", "dv"), got, again):
                 check(torch.equal(a, b), f"splash T={T} {name}: {label} differs between two launches")
             del again
             ref = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
             torch.cuda.synchronize()
-            errs, over, shares = _splash_grad_errs(got, ref, tol, layout, block,
-                                                   f"splash T={T} {name}")
-            f64 = {}
-            if dtype == torch.float32:
+            if dtype == torch.bfloat16:
+                errs = [max_err(a, b) for a, b in zip(got, ref)]
+                f64 = _splash_bf16_fields(fa, sp, got, ref, args, f"splash T={T} {name}")
+            else:
+                errs, over, shares = _splash_grad_errs(got, ref, tol, layout, block,
+                                                       f"splash T={T} {name}")
+                f64 = {"err_over_bound_dq_dk_dv": list(over), "tol_rms_share_dq_dk_dv": list(shares)}
                 # both f32 results against float64, under the per-block bound
                 # (the kernel's held to it) and under the whole tensor's rms
                 # with share √(T/1024), the bound first tried
@@ -1860,6 +1910,7 @@ def check_splash(torch, dev, flush):
                 b_ms, b_by = bound_ms(nbytes, flops, name)
                 row = {
                     "phase": "kernel", "kernel": kernel, "layout": "bigbird-uni",
+                    "variant": "tc" if kernel != "splash_fwd" and name == "bfloat16" else "simt",
                     "block": block, "B": B, "H": H, "T": T, "d": d, "dtype": name,
                     "causal": True, "active_blocks_per_head": int(layout[0].sum()),
                     "scores": scores * B, "max_err": err, "tol": tol,
@@ -1869,9 +1920,7 @@ def check_splash(torch, dev, flush):
                     "bitwise_repeatable": True,
                 }
                 if kernel != "splash_fwd":
-                    row.update({"max_err_dq_dk_dv": list(errs),
-                                "err_over_bound_dq_dk_dv": list(over),
-                                "tol_rms_share_dq_dk_dv": list(shares), **f64})
+                    row.update({"max_err_dq_dk_dv": list(errs), **f64})
                 rows[(kernel, T, name)] = row
                 emit(row)
                 torch.cuda.empty_cache()
@@ -1880,11 +1929,15 @@ def check_splash(torch, dev, flush):
         del allowed
         torch.cuda.empty_cache()
 
-    # -- layouts the main path does not reach, at a small shape --------------
-    T, block = 1024, 256
+    # -- layouts the main path does not reach, at a small shape: per-head,
+    # untouched columns, and BigBird with a block of 96 (its 64-row tiles
+    # also hold the next block's rows) ---------------------------------------
     small = {}
-    for label in ("per-head", "untouched-columns"):
-        layout = sp.check_layouts(T // block)[label]
+    for label, T, block in (("per-head", 1024, 256), ("untouched-columns", 1024, 256),
+                            ("bigbird-uni", 1536, 96)):
+        layout = (sp.BigBirdSparsityConfig(num_heads=2, block=block, attention="unidirectional")
+                  .make_layout(T) if label == "bigbird-uni" else sp.check_layouts(T // block)[label])
+        label = f"{label} block {block}"
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).replace("torch.", "")
             g = torch.Generator(device=dev).manual_seed(7)
@@ -1894,25 +1947,31 @@ def check_splash(torch, dev, flush):
             ref, _ = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, layout, block, True, scale)
+            kernels.reset_launches()
             got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             refb = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
             torch.cuda.synchronize()
+            _check_splash_bodies(kernels, name, f"splash {label} {name}")
             fwd_err = max_err(out, ref)
             check(fwd_err <= TOL[name], f"splash_fwd {label} {name}: max_err {fwd_err}")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"splash {label} {name}: gradients differ between two launches")
-            errs, over, _ = _splash_grad_errs(got, refb, TOL[name], layout, block,
-                                              f"splash {label} {name}")
+            if dtype == torch.bfloat16:
+                errs = [max_err(a, b) for a, b in zip(got, refb)]
+                over = _splash_bf16_fields(fa, sp, got, refb, args, f"splash {label} {name}")
+            else:
+                errs, over, _ = _splash_grad_errs(got, refb, TOL[name], layout, block,
+                                                  f"splash {label} {name}")
             zero = None
-            if label == "untouched-columns":
+            if label.startswith("untouched-columns"):
                 zero = max(float(x.reshape(1, 2, T // block, block, d)[:, h, c].abs().max())
                            for x in got[1:] for h, c in sp.UNTOUCHED_COLUMNS)
                 check(zero == 0.0, f"splash {label} {name}: an untouched column's dk/dv is {zero}")
-            small[(label, name)] = {"fwd_max_err": fwd_err, "max_err_dq_dk_dv": errs,
+            small[(label, name)] = {"T": T, "fwd_max_err": fwd_err, "max_err_dq_dk_dv": errs,
                                     "err_over_bound_dq_dk_dv": over, "empty_columns_max": zero}
-    emit({"phase": "kernel", "kernel": "splash (per-head, untouched columns)", "B": 1, "H": 2,
-          "T": T, "block": block, "d": d, "causal": True,
+    emit({"phase": "kernel", "kernel": "splash (per-head, untouched columns, block 96)", "B": 1,
+          "H": 2, "d": d, "causal": True,
           "results": {f"{a}/{b}": r for (a, b), r in small.items()}})
     return rows
 
@@ -1995,6 +2054,63 @@ def phase_train_f32(torch, params):
           "losses": out, "max_rel_diff": max(rel), "tol": TRAIN_F32_LOSS_RTOL})
 
 
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _named_leaves(tree[key], f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _first_step_bits(torch, model_fn, params, config, batch):
+    """The ROADMAP C3 reading (not a gate): two first ``train_batch`` steps
+    from the same state and batch, each through a fresh engine, compared
+    bit for bit: the loss, every parameter after the update, and every
+    output of every B1 and B2 launch in launch order (each kernel's outputs
+    kept for the comparison).  Where they differ, the first kernel launch
+    that differs and the parameters that differ name the op."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+
+    runs = []
+    wrapped = ("flash_fwd_cuda", "flash_bwd_cuda")
+    real = {name: getattr(fa, name) for name in wrapped}
+    try:
+        for _ in range(2):
+            outs = []
+
+            def keep(name, fn):
+                def run(*args, **kwargs):
+                    res = fn(*args, **kwargs)
+                    outs.append((name, [t.clone() for t in res if t is not None]))
+                    return res
+                return run
+
+            for name in wrapped:
+                setattr(fa, name, keep(name, real[name]))
+            engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,
+                                                             config=config)
+            loss = engine.train_batch(batch)
+            runs.append((float(loss), outs, dict(_named_leaves(engine.params))))
+            del engine
+    finally:
+        for name in wrapped:
+            setattr(fa, name, real[name])
+    (loss_a, outs_a, par_a), (loss_b, outs_b, par_b) = runs
+    first = next(({"op": na, "launch": i, "of": len(outs_a)}
+                  for i, ((na, a), (_, b)) in enumerate(zip(outs_a, outs_b))
+                  if not all(torch.equal(x, y) for x, y in zip(a, b))), None)
+    differ = [name for name in par_a if not torch.equal(par_a[name], par_b[name])]
+    row = {"phase": "train_bf16_first_step_bits", "same_loss": loss_a == loss_b,
+           "same_params": not differ, "params_differing": differ,
+           "kernel_launches_compared": len(outs_a), "first_kernel_launch_differing": first,
+           "note": "ROADMAP C3 reading, not a gate"}
+    del runs, outs_a, outs_b
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
 def phase_train_bf16(torch, params):
     from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.ops import kernels
@@ -2014,6 +2130,7 @@ def phase_train_bf16(torch, params):
     }
     batch = {"input_ids": np.random.default_rng(12).integers(0, cfg.vocab_size, (mb * gas, T),
                                                              dtype=np.int32)}
+    _first_step_bits(torch, gpt2.make_model(cfg)[0], params, config, batch)
     torch.cuda.reset_peak_memory_stats()
 
     # -- the main path: counters zeroed just before, read just after -------
@@ -2476,8 +2593,9 @@ def phase_train_sparse_bf16(torch):
     cross-entropy chunks of 512), 4 steps on one batch, beside the dense
     flash path at the same T and depth.  Counters zeroed just before each
     sparse run and read just after: per micro-step B8 16 launches (the
-    forward and remat's recompute), B9a and B9b 8 each, fused Adam
-    launched, B1/B2 not; losses finite and falling.  Each step's garbage
+    forward and remat's recompute), B9a and B9b 8 each, all on their
+    tensor-core bodies (``none/tc``), fused Adam launched, B1/B2 not;
+    losses finite and falling.  Each step's garbage
     collector pauses and allocator calls are kept (``_train``'s probe), and
     tokens/s is given from the mean and the median of the steps after the
     first.  Model FLOPs a step:
@@ -2508,6 +2626,7 @@ def phase_train_sparse_bf16(torch):
             engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config,
                                            batch, steps, probe)
             launches = kernels.launches()
+            variants = kernels.launch_variants()
             # ----------------------------------------------------------------
             del params
             check(all(np.isfinite(losses)), f"train_sparse_bf16 T={T} {mode}: non-finite loss {losses}")
@@ -2521,6 +2640,9 @@ def phase_train_sparse_bf16(torch):
                         "splash_bwd_dkv": SPARSE_LAYERS * steps}
                 got = {n: launches[n] for n in want}
                 check(got == want, f"train_sparse_bf16 T={T}: splash launches {got}, want {want}")
+                for name in ("splash_bwd_dq", "splash_bwd_dkv"):  # the tensor-core bodies only
+                    check(variants[name] == {"none/tc": want[name]},
+                          f"train_sparse_bf16 T={T}: {name} ran {variants[name]}")
                 check(launches["fused_adam"] > 0 and launches["flash_fwd"] == 0
                       and launches["flash_bwd"] == 0,
                       f"train_sparse_bf16 T={T}: launches {launches}")
@@ -2541,6 +2663,7 @@ def phase_train_sparse_bf16(torch):
                 "attention_scores_per_layer": scores, "model_flops_per_step": flops,
                 "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
                 "launches": {n: c for n, c in launches.items() if c},
+                "variants": {n: v for n, v in variants.items() if v},
                 "global_steps": engine.global_steps}
             del engine
             torch.cuda.empty_cache()
@@ -2677,7 +2800,7 @@ def main() -> int:
     ):
         entry = {
             "name": name, "route": "cuda",
-            # B1/B2/B6: the main paths' bf16 body; the f32 body beside it
+            # B1/B2/B6/B9: the main paths' bf16 body; the f32 body beside it
             "source": report[name].get("tc_source", report[name]["source"]),
             "replaces": replaces, "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name], "max_abs_err": row["max_err"],

@@ -44,11 +44,14 @@
 // Design: the TPU kernel keeps dq resident in VMEM across a sequential kv
 // grid axis; Hopper runs blocks in no order, so that does not carry over.
 // Here one block of 256 threads owns one (64-row K/V tile, batch*head): K
-// and V stay in shared memory while the block walks the q tiles from the
-// causal lower bound to the end, accumulating dk and dv in registers.  dq
-// gets each tile's contribution through atomicAdd into an f32 buffer the
-// wrapper zeroes (so the order of dq's sum varies between runs).  The TPU
-// kernel's q-chunked variant exists only to fit dq in VMEM; nothing here
+// and V stay in shared memory while the block walks its q tiles
+// (flash_common.cuh's QTileWalk: from the causal lower bound up, rotated
+// in a full square attention), accumulating dk and dv in registers.  dq
+// gets each tile's contribution added into an f32 buffer the wrapper
+// zeroes, the key tiles of a q tile taking turns in a fixed order
+// (QTileWalk::rank, wait_turn / pass_turn), so dq is the same bits every
+// run, as the JAX kernel's.  The TPU kernel's q-chunked variant exists
+// only to fit dq in VMEM; nothing here
 // holds dq on chip, so no chunking is needed.  A ragged last tile (q or
 // kv) is masked in-kernel, so any T is served.
 //
@@ -90,8 +93,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, const Ext e, float* __restrict__ dq32,
-                 T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int causal,
-                 float sm_scale) {
+                 int* __restrict__ dq_turn, T* __restrict__ dk, T* __restrict__ dv, int sq,
+                 int sk, int causal, int rotate, int natural, float sm_scale) {
   constexpr int DP = D + 1;
   constexpr int PP = kPP;
   constexpr int NC = D / 4;  // columns a thread owns
@@ -107,7 +110,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* Bk = delta_s + kBQ;     // kBK, the K tile's key-row bias (EXT only)
   float* Bt = Bk + kBK;          // kBQ x PP, the full bias of a q tile (EXT with fbias only)
 
-  const int k0 = blockIdx.x * kBK;
+  const flash::QTileWalk w(blockIdx.x, sq, sk, causal, rotate, natural);
+  const int k0 = w.kt * kBK;
   const size_t bh = blockIdx.y;
   const int tid = threadIdx.x;
   const int r = tid >> 2;  // the row this thread works on (query or key)
@@ -130,16 +134,16 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // the key-row bias of this K tile, staged once (the full form per q tile)
   if (EXT && e.kbias != nullptr) flash::stage_bias(e, Bk, Bt, bh, 0, k0, sq, sk, tid);
 
-  const int offset = sk - sq;  // end-aligned causal offset
-  // the first q tile with a row that sees key k0: offset + gq >= k0
-  const int q_lo = causal ? max(0, k0 - offset) / kBQ : 0;
   const int n_qt = (sq + kBQ - 1) / kBQ;
 
   float dk_acc[NC], dv_acc[NC];
 #pragma unroll
   for (int i = 0; i < NC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  for (int t = q_lo; t < n_qt; ++t) {
+  // the q tiles in QTileWalk's order: a key tile's predecessor in a q
+  // tile's dq sum reached it one step earlier
+  for (int step = 0; step < w.m; ++step) {
+    const int t = w.tile(step);
     const int q0 = t * kBQ;
     __syncthreads();  // the previous tile's readers are done
     for (int idx = tid; idx < kBQ * D; idx += kThreads) {
@@ -176,18 +180,27 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
 
-    // dq[r] += ds k, summed into the f32 buffer across kv blocks
+    // dq[r] += ds k, summed into the f32 buffer across kv blocks in the q
+    // tile's turn (flash_common.cuh): one block adds at a time, in the
+    // same order every run
     const int gq = q0 + r;
-    if (gq < sq) {
-#pragma unroll 4
-      for (int i = 0; i < NC; ++i) {
-        const int e2 = c + 4 * i;
-        float a = 0.f;
+    float part[NC];
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int e2 = c + 4 * i;
+      float a = 0.f;
 #pragma unroll 16
-        for (int kk = 0; kk < kBK; ++kk) a += dSs[r * PP + kk] * Ks[kk * DP + e2];
-        atomicAdd(dqb + static_cast<size_t>(gq) * D + e2, a);
-      }
+      for (int kk = 0; kk < kBK; ++kk) a += dSs[r * PP + kk] * Ks[kk * DP + e2];
+      part[i] = a;
     }
+    int* turn = dq_turn + bh * n_qt + t;
+    flash::wait_turn(turn, w.rank(t));
+    if (gq < sq) {
+      float* row = dqb + static_cast<size_t>(gq) * D;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) atomicAdd(row + c + 4 * i, part[i]);
+    }
+    flash::pass_turn(turn, w.rank(t));
   }
 
   const int gk = k0 + r;
@@ -205,7 +218,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // the arguments every launch passes on unchanged
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq32, *dk, *dv;
+  void *dq32, *dq_turn, *dk, *dv;
   Ext e;
   int BH, sq, sk, causal;
   float sm_scale;
@@ -219,12 +232,18 @@ int launch(const Args& a) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;  // blocks an SM holds
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_bwd_kernel<T, D, EXT>,
+                                                      kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const flash::WalkPlan plan = flash::plan_walk(a.sq, a.sk, D, a.causal, per_sm);
   dim3 grid((a.sk + kBK - 1) / kBK, a.BH);
   flash_bwd_kernel<T, D, EXT><<<grid, kThreads, bytes, a.st>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), a.e, static_cast<float*>(a.dq32),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk, a.causal, a.sm_scale);
+      static_cast<int*>(a.dq_turn), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq, a.sk,
+      a.causal, plan.rotate, plan.natural, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,13 +267,16 @@ int dispatch_d(const Args& a, int d) {
 }  // namespace
 
 // dtype: 0 float32 (q, k, v, dout, dk and dv; bf16 is flash_bwd_tc.cu's).  lse
-// and delta are f32 (BH, sq); dq32 is an f32 (BH, sq, d) buffer that the
-// caller zeroes.  The extended options are the forward's (ds_flash_fwd):
-// kbias or fbias (not both), dropout with (k0, k1, threshold, inv_keep);
+// and delta are f32 (BH, sq); dq32 is an f32 (BH, sq, d) buffer and dq_turn
+// an int32 (BH, ceil(sq / 64)) buffer of turn counters (flash_common.cuh's
+// QTileWalk), both zeroed by the caller.  The extended options are the
+// forward's (ds_flash_fwd): kbias or fbias (not both), dropout with (k0,
+// k1, threshold, inv_keep);
 // with none of them the kernel is the one without options.  Causal needs
 // sq <= sk.  Returns a cudaError_t.
 extern "C" int ds_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* delta, void* dq32, void* dk, void* dv,
+                            const void* lse, const void* delta, void* dq32, void* dq_turn,
+                            void* dk, void* dv,
                             const void* kbias, const void* fbias, long long fb_b, long long fb_h,
                             long long fb_q, long long fb_k, int dropout, unsigned k0, unsigned k1,
                             unsigned threshold, float inv_keep, int BH, int H, int sq, int sk,
@@ -265,7 +287,7 @@ extern "C" int ds_flash_bwd(const void* q, const void* k, const void* v, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const Ext e{static_cast<const float*>(kbias), static_cast<const float*>(fbias), fb_b, fb_h, fb_q,
               fb_k, H < 1 ? 1 : H, dropout, k0, k1, threshold, inv_keep};
-  const Args a{q, k, v, dout, lse, delta, dq32, dk, dv, e, BH, sq, sk, causal, sm_scale,
+  const Args a{q, k, v, dout, lse, delta, dq32, dq_turn, dk, dv, e, BH, sq, sk, causal, sm_scale,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_d<float>(a, d);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -48,18 +48,20 @@
 // a register operand, which ldmatrix's .trans form serves from one
 // row-major tile.
 //
-// B6a: one block of four warps per (64-row q tile, batch*head) keeps Q, dO,
-// lse and delta of its tile in shared memory and walks the key tiles up to
-// the causal bound, the next K/V tile (and its key-row bias) loading by
-// cp.async while the current one computes.  Warp w owns q rows
-// 16w..16w+15:
+// B6a: flash_tc.cuh's tc::bwd::q_tile_walk (B9a runs it too, over a
+// layout's key tiles): one block of four warps per (64-row q tile,
+// batch*head) keeps Q, dO, lse and delta of its tile in shared memory and
+// walks the key tiles up to the causal bound, the next K/V tile (and its
+// key-row bias) loading by cp.async while the current one computes.  Warp
+// w owns q rows 16w..16w+15:
 //   S = Q.K^T and dP = dO.V^T (16 x 64 each, f32 accumulators);
 //   dS = p (dp keep - delta) scale formed on them with the bias, mask,
 //   lse, delta and keep-bits, rounded to bf16 in registers;
 //   dQ += dS.K with dS as the register A operand and K's B fragments by
 //   ldmatrix.trans, dq summed in registers (D / 2 floats a thread).
 // B6b: flash_tc.cuh's tc::bwd::kv_tile_walk without dq: one block per
-// (64-row K/V tile, batch*head), dk and dv in registers, no dS staging.
+// (64-row K/V tile, batch*head), dk and dv in registers, no dS staging,
+// over B2's q tiles in B2's order (so its dk and dv are B2's bits).
 // Rows of every tile are padded by 16 bytes so ldmatrix's eight rows fall
 // in different banks; rows past T load as zeros and only tiles that cross
 // the diagonal or a ragged end are masked, so any T is served.
@@ -78,16 +80,8 @@ using tc::bwd::kBK;
 using tc::bwd::kBQ;
 using tc::bwd::kThreads;
 
-// shared memory of the dq pass: the Q and dO tiles, two buffers each of a
-// K and a V tile, lse and delta of the q tile, two buffers of a K tile's
-// key-row bias
-template <int D>
-struct DqSmem {
-  static constexpr int kP = D + 8;       // row pitch (elements) of a tile
-  static constexpr int kTile = 64 * kP;  // elements of a tile
-  static constexpr int kBytes = 2 * 6 * kTile + 4 * (2 * kBQ + 2 * kBK);
-};
-
+// B6a: the q-tile walk of flash_tc.cuh over the key tiles up to the causal
+// bound
 template <int D, bool EXT, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -95,183 +89,28 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        const Ext e, bf16* __restrict__ dq, int sq, int sk, int causal,
                        float sm_scale) {
-  using S = DqSmem<D>;
-  constexpr int P = S::kP;
-  constexpr int ND = D / 8;  // 8-column chunks of a d-wide accumulator
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + S::kTile;
-  bf16* Ks = dOs + S::kTile;  // two buffers, each a K tile then a V tile
-  bf16* Vs = Ks + S::kTile;
-  float* lse_s = reinterpret_cast<float*>(Qs + 6 * S::kTile);  // kBQ
-  float* delta_s = lse_s + kBQ;                                // kBQ
-  float* kb_s = delta_s + kBQ;                                 // two buffers of kBK
-
   const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-  const int qw = 16 * warp;  // this warp's q rows in the tile
-  // ldmatrix addressing: the row and column a lane points at
-  const int lrA = (lane & 7) + 8 * ((lane >> 3) & 1), lcA = 8 * (lane >> 4);  // A, row-major
-  const int lrB = (lane & 7) + 8 * (lane >> 4), lcB = 8 * ((lane >> 3) & 1);  // B from [n][k]
-  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-  const float* kbias_b =
-      EXT && e.kbias != nullptr ? e.kbias + static_cast<long long>(bh / e.H) * sk : nullptr;
-  const float* fbias_bh = EXT && e.fbias != nullptr
-                              ? e.fbias + static_cast<long long>(bh / e.H) * e.fb_b +
-                                    static_cast<long long>(bh % e.H) * e.fb_h
-                              : nullptr;
-  const bool has_bias = EXT && (e.kbias != nullptr || e.fbias != nullptr);
-
-  const int offset = sk - sq;  // end-aligned causal offset
-  // key tiles wholly above the diagonal of the tile's last row are skipped
-  const int kv_end = causal ? min(sk, max(0, offset + q0 + kBQ)) : sk;
-  const int n_kt = (kv_end + kBK - 1) / kBK;
-
-  auto load_kv_tile = [&](int t, int buf) {
-    const int k0 = t * kBK;
-    tc::bwd::load_tile<D>(Ks + 2 * buf * S::kTile, kb, k0, sk, tid);
-    tc::bwd::load_tile<D>(Vs + 2 * buf * S::kTile, vb, k0, sk, tid);
-    if (kbias_b != nullptr && tid < kBK) {
-      const bool in = k0 + tid < sk;
-      tc::cp_async4(kb_s + buf * kBK + tid, kbias_b + (in ? k0 + tid : 0), in);
-    }
-  };
-
-  {
-    tc::bwd::load_tile<D>(Qs, q + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
-    tc::bwd::load_tile<D>(dOs, dout + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
-    const int r = tid & 63;
-    const bool in = q0 + r < sq;
-    const size_t row = static_cast<size_t>(bh) * sq + (in ? q0 + r : 0);
-    if (tid < 64)
-      tc::cp_async4(lse_s + r, lse + row, in);
-    else
-      tc::cp_async4(delta_s + r, delta + row, in);
-  }
-  if (n_kt > 0) load_kv_tile(0, 0);
-  tc::cp_async_commit();
-
-  float dq_acc[ND * 4];
-#pragma unroll
-  for (int i = 0; i < ND * 4; ++i) dq_acc[i] = 0.f;
-
-  for (int t = 0; t < n_kt; ++t) {
-    const int buf = t & 1;
-    const int k0 = t * kBK;
-    tc::cp_async_wait<0>();
-    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
-    if (t + 1 < n_kt) {
-      load_kv_tile(t + 1, buf ^ 1);
-      tc::cp_async_commit();
-    }
-    const bf16* Kt = Ks + 2 * buf * S::kTile;
-    const bf16* Vt = Vs + 2 * buf * S::kTile;
-    const float* kbt = kb_s + buf * kBK;
-
-    // element i of this thread's 32 scores sits at q row qw + g + 8 * ((i
-    // >> 1) & 1), key 8 * (i >> 2) + t2 + (i & 1) of the tile.  The
-    // keep-bits first: integer work with no operand from the products, in
-    // one block with them, so it issues while the tensor cores run
-    uint32_t keep = 0;
-    if (DROP) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int gq = q0 + qw + g + 8 * ((i >> 1) & 1);
-        const int gk = k0 + 8 * (i >> 2) + t2 + (i & 1);
-        keep |= static_cast<uint32_t>(flash::keep_bit(e, static_cast<uint32_t>(bh), gq, gk, sk))
-                << i;
-      }
-    }
-
-    // S = Q.K^T and dP = dO.V^T for this warp's 16 q rows x 64 keys
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t qa[4], da[4];
-      tc::ldsm_x4(qa, Qs + (qw + lrA) * P + 16 * kd + lcA);
-      tc::ldsm_x4(da, dOs + (qw + lrA) * P + 16 * kd + lcA);
-#pragma unroll
-      for (int n2 = 0; n2 < 4; ++n2) {
-        uint32_t b[4];
-        tc::ldsm_x4(b, Kt + (16 * n2 + lrB) * P + 16 * kd + lcB);
-        tc::mma_bf16(s + 8 * n2, qa, b);
-        tc::mma_bf16(s + 8 * n2 + 4, qa, b + 2);
-        tc::ldsm_x4(b, Vt + (16 * n2 + lrB) * P + 16 * kd + lcB);
-        tc::mma_bf16(dp + 8 * n2, da, b);
-        tc::mma_bf16(dp + 8 * n2 + 4, da, b + 2);
-      }
-    }
-
-    // dS (into dp)
-    const bool edge = q0 + kBQ > sq || k0 + kBK > sk || (causal && offset + q0 < k0 + kBK - 1);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int qq = qw + g + 8 * ((i >> 1) & 1);
-      const int kk = 8 * (i >> 2) + t2 + (i & 1);
-      const int gq = q0 + qq, gk = k0 + kk;
-      const bool ok = !edge || (gq < sq && gk < sk && (!causal || offset + gq >= gk));
-      float bias = 0.f;
-      if (EXT) {
-        if (kbias_b != nullptr)
-          bias = kbt[kk];
-        else if (fbias_bh != nullptr && gq < sq && gk < sk)
-          bias = fbias_bh[gq * e.fb_q + gk * e.fb_k];
-      }
-      const float kf = DROP && !((keep >> i) & 1u) ? 0.f : e.inv_keep;
-      // a masked score is the Pallas kernel's DEFAULT_MASK_VALUE, whose
-      // exp(mask - lse) is 0 for every finite lse
-      dp[i] = ok ? tc::bwd::probs<EXT>(s[i], dp[i], bias, kf, has_bias, DROP, lse_s[qq],
-                                        delta_s[qq], sm_scale).ds
-                 : 0.f;
-    }
-
-    // dQ += dS.K (B = K read transposed), dS rounded to bf16 as the
-    // register A operand
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t sa[4];
-      tc::pack_a(sa, dp, kk);
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t b[4];
-        tc::ldsm_x4_t(b, Kt + (16 * kk + lrA) * P + 16 * n2 + lcA);
-        tc::mma_bf16(dq_acc + 8 * n2, sa, b);
-        tc::mma_bf16(dq_acc + 8 * n2 + 4, sa, b + 2);
-      }
-    }
-  }
-  tc::cp_async_wait<0>();
-
-  // dq rounded to bf16 once
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int gq = q0 + qw + g + 8 * hh;
-    if (gq < sq) {
-      bf16* row = dq + (static_cast<size_t>(bh) * sq + gq) * D + t2;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-        *reinterpret_cast<uint32_t*>(row + 8 * n) =
-            tc::pack_bf16(dq_acc[4 * n + 2 * hh], dq_acc[4 * n + 2 * hh + 1]);
-    }
-  }
+  tc::bwd::q_tile_walk<D, EXT, DROP>(q, k, v, dout, lse, delta, e, dq, blockIdx.y, q0,
+                                     min(kBQ, sq - q0), sq, sk, causal, sm_scale,
+                                     tc::bwd::DenseKTiles(q0, sq, sk, causal));
 }
 
-// B6b: the key-tile walk of flash_tc.cuh without dq
+// B6b: the key-tile walk of flash_tc.cuh without dq, over B2's q tiles
 template <int D, bool EXT, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const Ext e, bf16* __restrict__ dk, bf16* __restrict__ dv, int sq,
-                        int sk, int causal, float sm_scale) {
-  tc::bwd::kv_tile_walk<D, EXT, DROP, false>(q, k, v, dout, lse, delta, e, nullptr, dk, dv, sq,
-                                             sk, causal, sm_scale);
+                        int sk, int causal, int rotate, float sm_scale) {
+  // no turns to wait on: key tile blockIdx.x (the longest causal walks
+  // first), B2's walk for it
+  const flash::QTileWalk w(blockIdx.x, sq, sk, causal, rotate, 1);
+  const int k0 = w.kt * kBK;
+  tc::bwd::kv_tile_walk<D, EXT, DROP, false>(
+      q, k, v, dout, lse, delta, e, nullptr, nullptr, blockIdx.y, k0, min(kBK, sk - k0), sq, sk,
+      causal, sm_scale, tc::bwd::DenseQTiles(w, sq),
+      tc::bwd::StoreDkv<D>(dk, dv, blockIdx.y, k0, sk));
 }
 
 // the arguments every launch passes on unchanged
@@ -286,7 +125,7 @@ struct Args {
 
 template <int D, bool EXT, bool DROP>
 int launch_dq(const Args& a) {
-  constexpr int bytes = DqSmem<D>::kBytes;
+  constexpr int bytes = tc::bwd::DqSmem<D>::kBytes;
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D, EXT, DROP>,
@@ -318,7 +157,8 @@ int launch_dkv(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), a.e, static_cast<bf16*>(a.out0),
-      static_cast<bf16*>(a.out1), a.sq, a.sk, a.causal, a.sm_scale);
+      static_cast<bf16*>(a.out1), a.sq, a.sk, a.causal,
+      flash::plan_walk(a.sq, a.sk, D, a.causal, 1 << 20).rotate, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

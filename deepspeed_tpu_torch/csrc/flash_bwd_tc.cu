@@ -26,10 +26,10 @@
 // and dq, dk, dv out, so the floor is the tensor-core rate (~0.033 ms at
 // 989 TFLOP/s).  The f32 body ran them on the CUDA cores at ~8 TFLOP/s.
 // dq's f32 sum across key tiles goes through L2 (64 d adds for each pair
-// of a q tile and a key tile: 53 M at that shape; as scalar atomics they
-// kept the kernel at ~0.35 ms on the card, as a bulk reduction a row at
-// ~0.25); with dropout, Threefry's ~75 integer operations a score
-// outweigh the products, as in the forward: the walk forms a tile's
+// of a q tile and a key tile: 53 M at that shape), as vector reductions in
+// each q tile's turn (below); with dropout, Threefry's ~75 integer
+// operations a score outweigh the products, as in the forward: the walk
+// forms a tile's
 // keep-bits ahead of its products (a DROP template flag; a body without
 // dropout carries no Threefry code).
 //
@@ -43,11 +43,13 @@
 //
 // What the design does: the decomposition of flash_bwd.cu, written once
 // as flash_tc.cuh's tc::bwd::kv_tile_walk (the dk/dv pass of the two-pass
-// backward, flash_bwd_2pass_tc.cu, runs it without dq).  One block of
-// four warps owns one (64-row K/V tile, batch*head): K and V stay in
-// shared memory while the block walks the q tiles from the causal lower
-// bound to the end, the next q tile's Q, dO, lse and delta loading by
-// cp.async while the current one computes.  Warp w owns keys 16w..16w+15:
+// backward, flash_bwd_2pass_tc.cu, and the block-sparse one,
+// splash_attn_tc.cu, run it without dq).  One block of four warps owns
+// one (64-row K/V tile, batch*head): K and V stay in shared memory while
+// the block walks its q tiles (from the causal lower bound up, wrapped
+// around where the walk rotates), the next q tile's Q, dO, lse and delta
+// loading by cp.async while the current one computes.  Warp w owns keys
+// 16w..16w+15:
 //   S^T = K.Q^T and dP^T = V.dO^T (16 x 64 each, f32 accumulators);
 //   P^T and dS^T formed on those accumulators with the bias, mask, lse,
 //   delta and keep factor, then rounded to bf16 in registers;
@@ -55,10 +57,15 @@
 //   operands (the accumulator layout of two 8-column chunks is the A
 //   layout of one 16-deep step), dk and dv held in registers;
 //   dS^T staged to shared memory, and dQ += dS.K for q rows 16w..16w+15,
-//   staged in the q tile's spent Q/dO buffer and added into the f32
-//   buffer one row at a time by cp.reduce.async.bulk (an f32 add in L2;
-//   blocks add in no fixed order, so the order of dq's sum varies
-//   between runs; the two-pass backward's dq does not).
+//   added into the f32 buffer by vector reductions in L2 in the q tile's
+//   turn: the key tiles add into a q tile one at a time in a fixed order,
+//   through an int32 counter a (batch*head, q tile) (flash_common.cuh's
+//   QTileWalk), so dq is the same bits every run, as the JAX kernel's,
+//   whose sequential kv axis sums dq in one order.  The walk is ordered so
+//   that a key tile's predecessor in a q tile's sum reached that q tile
+//   one step earlier: the turn waits for nobody once the walks run
+//   (causal: each key tile walks up from its bound and the sum runs down
+//   the key tiles; full and square: the walks are rotated).
 // Rounding: the tensor cores sum S and dP in another order than the f32
 // body's FMA chain and the plain version's f32 GEMMs, so where the f32 P or
 // dS lies next to a bf16 rounding tie the two may round to neighbouring
@@ -84,22 +91,28 @@ using flash::Ext;
 using tc::bwd::kBK;
 using tc::bwd::kThreads;
 
-// the key-tile walk of flash_tc.cuh with dq
+// the key-tile walk of flash_tc.cuh with dq, over the q tiles in the walk
+// order of flash_common.cuh's QTileWalk
 template <int D, bool EXT, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta, const Ext e,
-                    float* __restrict__ dq32, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    int sq, int sk, int causal, float sm_scale) {
-  tc::bwd::kv_tile_walk<D, EXT, DROP, true>(q, k, v, dout, lse, delta, e, dq32, dk, dv, sq, sk,
-                                            causal, sm_scale);
+                    float* __restrict__ dq32, int* __restrict__ dq_turn, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int sq, int sk, int causal, int rotate,
+                    int natural, float sm_scale) {
+  const flash::QTileWalk w(blockIdx.x, sq, sk, causal, rotate, natural);
+  const int k0 = w.kt * kBK;
+  tc::bwd::kv_tile_walk<D, EXT, DROP, true>(
+      q, k, v, dout, lse, delta, e, dq32, dq_turn, blockIdx.y, k0, min(kBK, sk - k0), sq, sk,
+      causal, sm_scale, tc::bwd::DenseQTiles(w, sq),
+      tc::bwd::StoreDkv<D>(dk, dv, blockIdx.y, k0, sk));
 }
 
 // the arguments every launch passes on unchanged
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq32, *dk, *dv;
+  void *dq32, *dq_turn, *dk, *dv;
   Ext e;
   int BH, sq, sk, causal;
   float sm_scale;
@@ -109,19 +122,23 @@ struct Args {
 template <int D, bool EXT, bool DROP>
 int launch(const Args& a) {
   constexpr int bytes = tc::bwd::Smem<D, true>::kBytes;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, EXT, DROP>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static int per_sm = 0;  // blocks an SM holds
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, EXT, DROP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, flash_bwd_tc_kernel<D, EXT, DROP>, kThreads, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    sized = true;
   }
+  const flash::WalkPlan plan = flash::plan_walk(a.sq, a.sk, D, a.causal, per_sm);
   dim3 grid((a.sk + kBK - 1) / kBK, a.BH);
   flash_bwd_tc_kernel<D, EXT, DROP><<<grid, kThreads, bytes, a.st>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), a.e, static_cast<float*>(a.dq32),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk, a.causal, a.sm_scale);
+      static_cast<int*>(a.dq_turn), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq,
+      a.sk, a.causal, plan.rotate, plan.natural, a.sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,10 +154,11 @@ int dispatch_ext(const Args& a) {
 
 // The bf16 backward: q, k, v, dout, dk and dv bf16 (B*H, T, d), contiguous
 // and 16-byte aligned (cp.async's rule); the other arguments as
-// ds_flash_bwd's (flash_bwd.cu), whose dtype must be 1.  Returns a
-// cudaError_t.
+// ds_flash_bwd's (flash_bwd.cu: dq32 and the dq_turn counters zeroed by
+// the caller), whose dtype must be 1.  Returns a cudaError_t.
 extern "C" int ds_flash_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
-                               const void* lse, const void* delta, void* dq32, void* dk, void* dv,
+                               const void* lse, const void* delta, void* dq32, void* dq_turn,
+                               void* dk, void* dv,
                                const void* kbias, const void* fbias, long long fb_b,
                                long long fb_h, long long fb_q, long long fb_k, int dropout,
                                unsigned k0, unsigned k1, unsigned threshold, float inv_keep,
@@ -157,7 +175,7 @@ extern "C" int ds_flash_bwd_tc(const void* q, const void* k, const void* v, cons
     return static_cast<int>(cudaErrorMisalignedAddress);
   const Ext e{static_cast<const float*>(kbias), static_cast<const float*>(fbias), fb_b, fb_h, fb_q,
               fb_k, H < 1 ? 1 : H, dropout, k0, k1, threshold, inv_keep};
-  const Args a{q, k, v, dout, lse, delta, dq32, dk, dv, e, BH, sq, sk, causal, sm_scale,
+  const Args a{q, k, v, dout, lse, delta, dq32, dq_turn, dk, dv, e, BH, sq, sk, causal, sm_scale,
                static_cast<cudaStream_t>(stream)};
   switch (d) {
     case 16: return dispatch_ext<16>(a);

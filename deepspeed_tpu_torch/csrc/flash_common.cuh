@@ -1,9 +1,10 @@
 // Device functions shared by the flash-attention kernels: flash_fwd.cu and
 // flash_fwd_tc.cu (B1), flash_bwd.cu and flash_bwd_tc.cu (B2),
-// flash_bwd_2pass.cu and flash_bwd_2pass_tc.cu (B6a, B6b) and
-// splash_attn.cu (B8, B9a, B9b).  One copy of the
-// score tile, the two bias forms and the dropout keep factor, so the
-// forward and the two backwards cannot drift apart.
+// flash_bwd_2pass.cu and flash_bwd_2pass_tc.cu (B6a, B6b), splash_attn.cu
+// (B8, B9a, B9b) and splash_attn_tc.cu (B9a, B9b).  One copy of the score
+// tile, the two bias forms, the dropout keep factor, a block-sparse
+// layout's geometry and B2's walk with its ordered dq sum, so the forward
+// and the backwards cannot drift apart.
 //
 // The extended options (``Ext``) are chosen at run time and are uniform
 // over a block:
@@ -94,6 +95,127 @@ __device__ __forceinline__ bool keep_bit(const Ext& e, uint32_t bh, int gq, int 
 // the dropout factor of score (gq, gk) of batch*head bh: inv_keep if kept, else 0
 __device__ __forceinline__ float keep_factor(const Ext& e, uint32_t bh, int gq, int gk, int sk) {
   return keep_bit(e, bh, gq, gk, sk) ? e.inv_keep : 0.f;
+}
+
+// a block-sparse layout's geometry (splash_attn.cu, splash_attn_tc.cu)
+struct SplashGeom {
+  int T, block, nb;
+  int tiles;  // 64-row tiles of a layout block, ceil(block / 64)
+  int H, LH;  // heads, and the layout's heads (1: head-uniform)
+  int causal;
+  float scale;
+};
+
+// the layout row of batch*head bh: 0 for a head-uniform layout, else its head
+__device__ __forceinline__ int layout_head(const SplashGeom& g, size_t bh) {
+  return g.LH == 1 ? 0 : static_cast<int>(bh % g.H);
+}
+
+// The single-pass backward's walk and its ordered dq sum (B2, both bodies;
+// B6b walks B2's way so that its dk and dv are B2's bits).  Key tile kt
+// visits the q tiles [lo, n_qt), lo the causal lower bound, and the key
+// tiles that visit q tile t add their dq shares into it one at a time, in
+// a fixed order, through an int32 counter a (batch*head, q tile) that the
+// caller zeroes: kt waits until the counter reads its rank, adds, and
+// passes the turn on (rank + 1) once its adds are done.  The walk makes
+// each key tile's predecessor in that order reach the q tile one step of
+// its walk earlier, so the turn is waiting when a block gets there and the
+// order costs no idle time once the walks run (where every key tile
+// reaches a q tile at the same step, its turns pass down a chain of blocks
+// one hand-off after another, and each step waits for the whole chain):
+//   * causal: each key tile walks up from its bound; tile t is summed in
+//     descending key tile, kmax(t) first (the key tiles that reach t are
+//     0..kmax(t), contiguous from 0; the higher one reaches it earlier);
+//   * full, square, `rotate`: key tile kt starts its walk at q tile kt and
+//     wraps around, so it reaches t at step (t - kt) mod n, the order of
+//     tile t's sum (t first, then t - 1, ...);
+//   * full, otherwise: every key tile walks up from 0, tile t is summed in
+//     descending key tile (a key tile waits for the one above it).
+// A block waits on blocks of its own blockIdx.y only, and every wait ends:
+//   * by default the key tiles map to blockIdx.x in reverse (kt = n_kt - 1
+//     - blockIdx.x), so each block waits on a lower blockIdx.x, which the
+//     grid (key tiles, batch*head), x fastest, dispatches first (in-order
+//     block dispatch, as FlashAttention-3's deterministic backward relies
+//     on) - except in the rotated walk, whose key tile n - 1 waits on key
+//     tile 0: it rotates only where all of a batch*head's key tiles are
+//     resident on the card at once (the launcher asks the occupancy
+//     calculator), so the block it waits on is resident or will be;
+//   * where a batch*head's key tiles take at most a quarter of the
+//     resident blocks (`natural`), blockIdx.x is the key tile: the longest
+//     causal walks go first, and a batch*head's blocks are dispatched
+//     together, so waiting on a higher blockIdx.x costs nothing.
+// (Residency here assumes that no kernel launched beside this one on
+// another stream holds the card's blocks while waiting on it: the port's
+// engines launch on one stream.)
+struct QTileWalk {
+  int kt, n_kt, lo, m, st, offset, causal, rotate;
+  __device__ __forceinline__ QTileWalk(int block_x, int sq, int sk, int causal_, int rotate_,
+                                       int natural)
+      : causal(causal_), rotate(rotate_) {
+    n_kt = (sk + kBK - 1) / kBK;
+    kt = natural ? block_x : n_kt - 1 - block_x;
+    offset = sk - sq;  // end-aligned causal offset
+    // the first q tile with a row that sees key kt * kBK: offset + gq >= k0
+    lo = causal ? max(0, kt * kBK - offset) / kBQ : 0;
+    m = max(0, (sq + kBQ - 1) / kBQ - lo);
+    st = rotate && m > 0 ? kt % m : 0;
+  }
+  // the q tile of step s, s in [0, m)
+  __device__ __forceinline__ int tile(int s) const {
+    return lo + (st + s < m ? st + s : st + s - m);
+  }
+  // this key tile's place in the order of q tile t's dq sum
+  __device__ __forceinline__ int rank(int t) const {
+    if (rotate) return t >= kt ? t - kt : t - kt + m;  // m == n_kt
+    const int kmax = causal ? min(n_kt - 1, (kBQ * (t + 1) + offset - 1) / kBK) : n_kt - 1;
+    return kmax - kt;
+  }
+};
+
+// B2's walk on the host, for a card whose SMs hold `per_sm` blocks each:
+// whether blockIdx.x is the key tile (`natural`) and whether the full
+// square walk rotates.  The rotation is decided on a card of at least 2
+// blocks an SM where d <= 64 (both bf16 bodies' every variant holds that
+// many) and 1 else, so that B2 and B6b agree on it; B2 takes it only where
+// all of a batch*head's blocks are resident at once.
+struct WalkPlan {
+  int natural, rotate;
+};
+__host__ inline WalkPlan plan_walk(int sq, int sk, int d, int causal, int per_sm) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return {0, 0};
+  const long long n_kt = (sk + kBK - 1) / kBK, slots = static_cast<long long>(sms) * per_sm;
+  const bool rotate =
+      !causal && sq == sk && n_kt <= static_cast<long long>(sms) * (d <= 64 ? 2 : 1);
+  return {4 * n_kt <= slots, rotate && n_kt <= slots};
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// a block's turn in a q tile's dq sum: wait (one thread, then the block at
+// a barrier) until the counter reads `rank`; after the adds, pass it on.
+// Every thread's adds come before the second barrier, and the release
+// store after it makes them visible before the counter moves (the release
+// is cumulative over what the barrier ordered before it; the tensor-core
+// walk passes its turn at its next step's barrier instead)
+__device__ __forceinline__ void wait_turn(const int* turn, int rank) {
+  if (threadIdx.x == 0)
+    while (ld_acquire(turn) != rank) {
+    }
+  __syncthreads();
+}
+__device__ __forceinline__ void pass_turn(int* turn, int rank) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(turn, rank + 1);
 }
 
 // stage the bias of query rows [q0, q0 + kBQ) x keys [k0, k0 + kBK) of

@@ -1,10 +1,11 @@
-// Hopper tensor-core building blocks shared by the bf16 flash-attention
-// bodies: flash_fwd_tc.cu (B1: TMA loads into a ring of stages guarded by
+// Hopper tensor-core building blocks shared by the bf16 attention bodies:
+// flash_fwd_tc.cu (B1: TMA loads into a ring of stages guarded by
 // mbarriers, wgmma products), flash_bwd_tc.cu (B2: cp.async loads,
-// ldmatrix and mma.sync products) and flash_bwd_2pass_tc.cu (B6a, B6b:
-// the same), and the backward's key-tile walk that B2 and B6b share
-// (tc::bwd::kv_tile_walk, below).  Inline PTX only, so a source that
-// includes this header needs no CUTLASS and builds in seconds.
+// ldmatrix and mma.sync products), flash_bwd_2pass_tc.cu (B6a, B6b: the
+// same) and splash_attn_tc.cu (B9a, B9b: the same), and the backward's two
+// tile walks (tc::bwd::kv_tile_walk: B2, B6b, B9b; tc::bwd::q_tile_walk:
+// B6a, B9a; below).  Inline PTX only, so a source that includes this
+// header needs no CUTLASS and builds in seconds.
 //
 // Fragment layouts (a warp's 16 x 8 tile of mma.sync m16n8k16, and each
 // warp's 16 rows of a wgmma m64nNk16 tile), with g = lane / 4, t = lane % 4:
@@ -100,27 +101,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
-}
-
-// make this thread's shared-memory stores visible to the async proxy (TMA,
-// bulk copies) before it reads them
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// dst[0 .. bytes/4) += src[..] in device memory, f32, one bulk operation
-// (16-byte aligned, a multiple of 16 bytes), tracked by a bulk group
-__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src, int bytes) {
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(smem_addr(src)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// wait until every committed bulk operation has read its source
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -258,11 +238,18 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// The bf16 attention backward's tile code: B2 (flash_bwd_tc.cu) and the
-// dk/dv pass B6b (flash_bwd_2pass_tc.cu) run kv_tile_walk, with and
-// without dq; the dq pass B6a (flash_bwd_2pass_tc.cu) takes load_tile and
-// probs.  The rounding points are those of the f32 body (flash_bwd.cu),
-// stated in flash_bwd_tc.cu.
+// The bf16 attention backward's tile code, two walks: kv_tile_walk (one
+// block owns a 64-row K/V tile and walks q tiles: B2 with dq, B6b and the
+// block-sparse dk/dv pass B9b without) and q_tile_walk (one block owns a
+// 64-row q tile and walks key tiles: the dq passes B6a and B9a).  A walk
+// takes its tiles from a source, the i-th tile's first row and its valid
+// rows: a dense attention's are contiguous (DenseQTiles, in B2's walk
+// order, and DenseKTiles); a
+// block-sparse one's are the layout's active blocks cut into 64-row tiles
+// and listed in shared memory (ListTiles).  A tile of a layout block of 96
+// or 16 rows holds fewer than 64 valid rows: its other rows belong to the
+// next block, and the walk masks them.  The rounding points are those of
+// the f32 body (flash_bwd.cu), stated in flash_bwd_tc.cu.
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -275,6 +262,39 @@ constexpr int kBK = 64;
 constexpr int kThreads = 128;  // four warps
 constexpr int kPS = kBK + 8;   // row pitch (elements) of the staged dS^T tile
 
+// a dense attention's q tiles for one key tile in B2's walk order, and the
+// key tile's place in each q tile's dq sum (flash_common.cuh's QTileWalk)
+struct DenseQTiles {
+  flash::QTileWalk w;
+  int count, sq;
+  __device__ __forceinline__ DenseQTiles(const flash::QTileWalk& w_, int sq_)
+      : w(w_), count(w_.m), sq(sq_) {}
+  __device__ __forceinline__ int r0(int i) const { return w.tile(i) * kBQ; }
+  __device__ __forceinline__ int n(int i) const { return min(kBQ, sq - r0(i)); }
+  __device__ __forceinline__ int rank(int i) const { return w.rank(w.tile(i)); }
+};
+
+// a dense attention's key tiles for the q tile at q0, up to the causal bound
+// of its last row
+struct DenseKTiles {
+  int count, sk;
+  __device__ __forceinline__ DenseKTiles(int q0, int sq, int sk_, int causal) : sk(sk_) {
+    const int end = causal ? min(sk, max(0, (sk - sq) + q0 + kBQ)) : sk;
+    count = (end + kBK - 1) / kBK;
+  }
+  __device__ __forceinline__ int r0(int i) const { return i * kBK; }
+  __device__ __forceinline__ int n(int i) const { return min(kBK, sk - r0(i)); }
+};
+
+// tiles listed in shared memory by their first rows, each a 64-row tile of
+// a layout block of `block` rows (shorter where the block ends)
+struct ListTiles {
+  const int* rows;
+  int count, block;
+  __device__ __forceinline__ int r0(int i) const { return rows[i]; }
+  __device__ __forceinline__ int n(int i) const { return min(kBQ, block - rows[i] % block); }
+};
+
 // shared memory of kv_tile_walk: K, V, two buffers of a Q and a dO tile,
 // with dq the dS^T tile, then two buffers each of lse and delta
 template <int D, bool DQ>
@@ -282,6 +302,16 @@ struct Smem {
   static constexpr int kP = D + 8;       // row pitch (elements) of a Q/dO/K/V tile
   static constexpr int kTile = 64 * kP;  // elements of a tile
   static constexpr int kBytes = 2 * (6 * kTile + (DQ ? kBK * kPS : 0)) + 4 * 4 * kBQ;
+};
+
+// shared memory of q_tile_walk: the Q and dO tiles, two buffers each of a K
+// and a V tile, lse and delta of the q tile, two buffers of a K tile's
+// key-row bias
+template <int D>
+struct DqSmem {
+  static constexpr int kP = D + 8;       // row pitch (elements) of a tile
+  static constexpr int kTile = 64 * kP;  // elements of a tile
+  static constexpr int kBytes = 2 * 6 * kTile + 4 * (2 * kBQ + 2 * kBK);
 };
 
 // rows [r0, r0 + 64) of a (T, D) bf16 matrix into a tile of row pitch D + 8,
@@ -321,11 +351,12 @@ __device__ __forceinline__ Probs probs(float s, float dp, float bias, float kf, 
   return {pd, p * (dp - delta) * sm_scale};
 }
 
-// One block of four warps owns one (64-row K/V tile, batch*head): K and V
-// stay in shared memory while the block walks the q tiles from the causal
-// lower bound to the end, the next q tile's Q, dO, lse and delta loading
-// by cp.async while the current one computes.  Warp w owns keys
-// 16w..16w+15:
+// One block of four warps owns one K/V tile (rows [k0, k0 + kn) of
+// batch*head bh, kn < 64 where T or a layout block ends): K and V stay in
+// shared memory while the block walks the q tiles of `src`, the next q
+// tile's Q, dO, lse and delta loading by cp.async while the current one
+// computes (across a layout's edges too: the next listed tile).  Warp w
+// owns keys 16w..16w+15:
 //   S^T = K.Q^T and dP^T = V.dO^T (16 x 64 each, f32 accumulators);
 //   P^T and dS^T formed on those accumulators with the bias, mask, lse,
 //   delta and keep factor, then rounded to bf16 in registers;
@@ -333,29 +364,32 @@ __device__ __forceinline__ Probs probs(float s, float dp, float bias, float kf, 
 //   operands (the accumulator layout of two 8-column chunks is the A
 //   layout of one 16-deep step), dk and dv held in registers;
 //   with DQ (B2): dS^T staged to shared memory, and dQ += dS.K for q rows
-//   16w..16w+15, staged in the q tile's spent Q/dO buffer and added into
-//   the f32 buffer dq32 one row at a time by cp.reduce.async.bulk (an f32
-//   add in L2; blocks add in no fixed order, so the order of dq's sum
-//   varies between runs).  Without DQ (B6b) dq32 is not read.
+//   16w..16w+15, added into the f32 buffer dq32 by vector reductions in
+//   L2 in the q tile's turn (dq_turn, flash_common.cuh): the key tiles add
+//   into a q tile in a fixed order (src.rank), so dq's sum is the same
+//   every run.  Without DQ (B6b, B9b) dq32 and dq_turn are not read.
 // With dropout (DROP, a template flag) a tile's 32 keep-bits a thread are
 // formed first, into one word, in the same straight-line block as the S^T
 // and dP^T products: integer work with no operand from the products, so
 // it issues while the tensor cores run (Threefry, not the products, is
 // the floor).  Rows of every tile are padded by 16 bytes so ldmatrix's
-// eight rows fall in different banks.  Q tiles wholly above the causal
-// diagonal are skipped and only tiles that cross it (or a ragged end) are
-// masked, so any T is served; rows past T load as zeros.  Launched with
-// kThreads threads and Smem<D, DQ>::kBytes of dynamic shared memory, grid
-// (key tiles, batch*head).
-template <int D, bool EXT, bool DROP, bool DQ>
+// eight rows fall in different banks.  A score counts where its query row
+// and key lie in their tiles' valid rows (and, causal, (sk - sq) + gq >=
+// gk); only tiles that cross the diagonal or hold fewer than 64 valid rows
+// are masked, so any T and any layout block is served; rows past T load as
+// zeros.  At the end `out(kk, c, dk_c, dk_c1, dv_c, dv_c1)` takes the f32
+// sums of columns c, c + 1 of each of this thread's key rows kk < kn.
+// Launched with kThreads threads and (at least) Smem<D, DQ>::kBytes of
+// dynamic shared memory.
+template <int D, bool EXT, bool DROP, bool DQ, class Src, class Out>
 __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,
                                              const bf16* __restrict__ dout,
                                              const float* __restrict__ lse,
                                              const float* __restrict__ delta, const flash::Ext& e,
-                                             float* __restrict__ dq32, bf16* __restrict__ dk,
-                                             bf16* __restrict__ dv, int sq, int sk, int causal,
-                                             float sm_scale) {
+                                             float* __restrict__ dq32, int* __restrict__ dq_turn,
+                                             int bh, int k0, int kn, int sq, int sk, int causal,
+                                             float sm_scale, const Src& src, Out out) {
   using S = Smem<D, DQ>;
   constexpr int P = S::kP;
   constexpr int ND = D / 8;  // 8-column chunks of a d-wide accumulator
@@ -368,8 +402,6 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
   float* lse_s = reinterpret_cast<float*>(dSt + (DQ ? kBK * kPS : 0));  // two buffers of kBQ
   float* delta_s = lse_s + 2 * kBQ;                                     // two buffers of kBQ
 
-  const int k0 = blockIdx.x * kBK;
-  const int bh = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
@@ -381,14 +413,10 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
   const bf16* dob = dout + static_cast<size_t>(bh) * sq * D;
   const float* lseb = lse + static_cast<size_t>(bh) * sq;
   const float* deltab = delta + static_cast<size_t>(bh) * sq;
-
   const int offset = sk - sq;  // end-aligned causal offset
-  // the first q tile with a row that sees key k0: offset + gq >= k0
-  const int q_lo = causal ? max(0, k0 - offset) / kBQ : 0;
-  const int n_qt = (sq + kBQ - 1) / kBQ;
 
-  auto load_q_tile = [&](int t, int buf) {
-    const int q0 = t * kBQ;
+  auto load_q_tile = [&](int i, int buf) {
+    const int q0 = src.r0(i);
     load_tile<D>(Qs + 2 * buf * S::kTile, qb, q0, sq, tid);
     load_tile<D>(dOs + 2 * buf * S::kTile, dob, q0, sq, tid);
     const int r = tid & 63;
@@ -401,7 +429,7 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
 
   load_tile<D>(Ks, k + static_cast<size_t>(bh) * sk * D, k0, sk, tid);
   load_tile<D>(Vs, v + static_cast<size_t>(bh) * sk * D, k0, sk, tid);
-  if (q_lo < n_qt) load_q_tile(q_lo, 0);
+  if (src.count > 0) load_q_tile(0, 0);
   cp_async_commit();
 
   // the key-row bias of this thread's two keys (rows g and g + 8 of its warp's 16)
@@ -423,13 +451,19 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
 #pragma unroll
   for (int i = 0; i < ND * 4; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  for (int t = q_lo; t < n_qt; ++t) {
-    const int buf = (t - q_lo) & 1;
-    const int q0 = t * kBQ;
+  // with DQ, the q tile turn this block holds (its dq added), passed on
+  // at the next barrier: every warp's adds come before that barrier, so
+  // the release store after it makes them visible before the counter moves
+  int* held = nullptr;
+  int held_rank = 0;
+  for (int i = 0; i < src.count; ++i) {
+    const int buf = i & 1;
+    const int q0 = src.r0(i), qn = src.n(i);
     cp_async_wait<0>();
-    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
-    if (t + 1 < n_qt) {
-      load_q_tile(t + 1, buf ^ 1);
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (DQ && tid == 0 && held != nullptr) flash::st_release(held, held_rank + 1);
+    if (i + 1 < src.count) {
+      load_q_tile(i + 1, buf ^ 1);
       cp_async_commit();
     }
     const bf16* Qt = Qs + 2 * buf * S::kTile;
@@ -443,18 +477,18 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
     uint32_t keep = 0;
     if (DROP) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int gq = q0 + 8 * (i >> 2) + t2 + (i & 1);
-        const int gk = k0 + kw + g + 8 * ((i >> 1) & 1);
+      for (int j = 0; j < 32; ++j) {
+        const int gq = q0 + 8 * (j >> 2) + t2 + (j & 1);
+        const int gk = k0 + kw + g + 8 * ((j >> 1) & 1);
         keep |= static_cast<uint32_t>(flash::keep_bit(e, static_cast<uint32_t>(bh), gq, gk, sk))
-                << i;
+                << j;
       }
     }
 
     // S^T = K.Q^T and dP^T = V.dO^T for this warp's 16 keys x 64 queries
     float st[32], dpt[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd) {
       uint32_t ka[4], va[4];
@@ -473,13 +507,13 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
     }
 
     // P^T (times keep, into st) and dS^T (into dpt)
-    const bool edge = q0 + kBQ > sq || k0 + kBK > sk || (causal && offset + q0 < k0 + kBK - 1);
+    const bool edge = qn < kBQ || kn < kBK || (causal && offset + q0 < k0 + kBK - 1);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int hh = (i >> 1) & 1;
-      const int qq = 8 * (i >> 2) + t2 + (i & 1);
-      const int gq = q0 + qq, gk = k0 + kw + g + 8 * hh;
-      const bool ok = !edge || (gq < sq && gk < sk && (!causal || offset + gq >= gk));
+    for (int j = 0; j < 32; ++j) {
+      const int hh = (j >> 1) & 1;
+      const int qq = 8 * (j >> 2) + t2 + (j & 1), kk = kw + g + 8 * hh;
+      const int gq = q0 + qq, gk = k0 + kk;
+      const bool ok = !edge || (qq < qn && kk < kn && (!causal || offset + gq >= gk));
       float bias = 0.f;
       if (EXT) {
         if (e.kbias != nullptr)
@@ -487,14 +521,14 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
         else if (fbias_bh != nullptr && gq < sq && gk < sk)
           bias = fbias_bh[gq * e.fb_q + gk * e.fb_k];
       }
-      const float kf = DROP && !((keep >> i) & 1u) ? 0.f : e.inv_keep;
+      const float kf = DROP && !((keep >> j) & 1u) ? 0.f : e.inv_keep;
       // a masked score is the Pallas kernel's DEFAULT_MASK_VALUE, whose
       // exp(mask - lse) is 0 for every finite lse
-      const Probs r = ok ? probs<EXT>(st[i], dpt[i], bias, kf, has_bias, DROP, lse_t[qq],
+      const Probs r = ok ? probs<EXT>(st[j], dpt[j], bias, kf, has_bias, DROP, lse_t[qq],
                                       delta_t[qq], sm_scale)
                          : Probs{0.f, 0.f};
-      st[i] = r.pd;
-      dpt[i] = r.ds;
+      st[j] = r.pd;
+      dpt[j] = r.ds;
     }
 
     if constexpr (DQ) {
@@ -535,7 +569,7 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
       // dQ[16 rows of this warp] += dS.K, into the f32 buffer
       float dq_acc[ND * 4];
 #pragma unroll
-      for (int i = 0; i < ND * 4; ++i) dq_acc[i] = 0.f;
+      for (int j = 0; j < ND * 4; ++j) dq_acc[j] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t sa[4];
@@ -548,42 +582,241 @@ __device__ __forceinline__ void kv_tile_walk(const bf16* __restrict__ q, const b
           mma_bf16(dq_acc + 8 * n2 + 4, sa, b + 2);
         }
       }
-      // stage the warp's 16 rows in this tile's Q/dO buffer (read by no
-      // warp after dS^T was whole), then add each row into the f32 buffer
-      // with one bulk reduction
+      // in this q tile's turn, add the warp's 16 rows into the f32 buffer
+      // (vector reductions in L2); the turn is passed on at the next
+      // barrier, which spares the hand-off a barrier of its own and lets
+      // the other warps start the next tile while the release waits for the
+      // adds to land
       float* dqb = dq32 + static_cast<size_t>(bh) * sq * D;
-      float* stg = reinterpret_cast<float*>(Qs + 2 * buf * S::kTile);
-      constexpr int SP = D + 8;  // row pitch (floats) of the staged dq tile
+      int* turn = dq_turn + static_cast<size_t>(bh) * ((sq + kBQ - 1) / kBQ) + q0 / kBQ;
+      const int rank = src.rank(i);
+      flash::wait_turn(turn, rank);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh)
+        if (kw + g + 8 * hh < qn) {
+          float* row = dqb + static_cast<size_t>(q0 + kw + g + 8 * hh) * D + t2;
 #pragma unroll
-        for (int n = 0; n < ND; ++n)
-          *reinterpret_cast<float2*>(stg + (kw + g + 8 * hh) * SP + 8 * n + t2) =
-              make_float2(dq_acc[4 * n + 2 * hh], dq_acc[4 * n + 2 * hh + 1]);
-      fence_async_smem();
-      __syncwarp();
-      if (lane < 16 && q0 + kw + lane < sq) {
-        bulk_reduce_add_f32(dqb + static_cast<size_t>(q0 + kw + lane) * D,
-                            stg + (kw + lane) * SP, D * 4);
-        bulk_commit();
-        bulk_wait_read();  // the staging rows may be overwritten after this
-      }
+          for (int n = 0; n < ND; ++n)
+            atomicAdd(reinterpret_cast<float2*>(row + 8 * n),
+                      make_float2(dq_acc[4 * n + 2 * hh], dq_acc[4 * n + 2 * hh + 1]));
+        }
+      held = turn;
+      held_rank = rank;
     }
+  }
+  if constexpr (DQ) {
+    __syncthreads();
+    if (tid == 0 && held != nullptr) flash::st_release(held, held_rank + 1);
   }
   cp_async_wait<0>();
 
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int gk = k0 + kw + g + 8 * hh;
-    if (gk < sk) {
-      const size_t base = (static_cast<size_t>(bh) * sk + gk) * D + t2;
+    const int kk = kw + g + 8 * hh;
+    if (kk < kn) {
 #pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + base + 8 * n) =
-            pack_bf16(dk_acc[4 * n + 2 * hh], dk_acc[4 * n + 2 * hh + 1]);
-        *reinterpret_cast<uint32_t*>(dv + base + 8 * n) =
-            pack_bf16(dv_acc[4 * n + 2 * hh], dv_acc[4 * n + 2 * hh + 1]);
+      for (int n = 0; n < ND; ++n)
+        out(kk, 8 * n + t2, dk_acc[4 * n + 2 * hh], dk_acc[4 * n + 2 * hh + 1],
+            dv_acc[4 * n + 2 * hh], dv_acc[4 * n + 2 * hh + 1]);
+    }
+  }
+}
+
+// dk and dv of kv_tile_walk rounded to bf16 into (BH, T, D) rows k0 + kk
+// of batch*head bh (B2, B6b, and a column of B9b held by one item)
+template <int D>
+struct StoreDkv {
+  bf16 *dk, *dv;
+  __device__ __forceinline__ StoreDkv(bf16* dk_, bf16* dv_, int bh, int k0, int T)
+      : dk(dk_ + (static_cast<size_t>(bh) * T + k0) * D),
+        dv(dv_ + (static_cast<size_t>(bh) * T + k0) * D) {}
+  __device__ __forceinline__ void operator()(int kk, int c, float k_lo, float k_hi, float v_lo,
+                                             float v_hi) const {
+    *reinterpret_cast<uint32_t*>(dk + kk * D + c) = pack_bf16(k_lo, k_hi);
+    *reinterpret_cast<uint32_t*>(dv + kk * D + c) = pack_bf16(v_lo, v_hi);
+  }
+};
+
+// One block of four warps owns one q tile (rows [q0, q0 + qn) of
+// batch*head bh, qn < 64 where T or a layout block ends): Q, dO, lse and
+// delta stay in shared memory while the block walks the key tiles of `src`,
+// the next K/V tile (and its key-row bias) loading by cp.async while the
+// current one computes (across a layout's edges too: the next listed
+// tile).  Warp w owns q rows 16w..16w+15:
+//   S = Q.K^T and dP = dO.V^T (16 x 64 each, f32 accumulators);
+//   dS = p (dp keep - delta) scale formed on them with the bias, mask,
+//   lse, delta and keep-bits, rounded to bf16 in registers;
+//   dQ += dS.K with dS as the register A operand and K's B fragments by
+//   ldmatrix.trans, dq summed in registers (D / 2 floats a thread) in the
+//   source's order and rounded to bf16 once into dq's rows q0 + qq, qq < qn:
+//   no atomics, so the same bits every launch.
+// Masking as kv_tile_walk's.  Launched with kThreads threads and (at
+// least) DqSmem<D>::kBytes of dynamic shared memory.
+template <int D, bool EXT, bool DROP, class Src>
+__device__ __forceinline__ void q_tile_walk(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v,
+                                            const bf16* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta, const flash::Ext& e,
+                                            bf16* __restrict__ dq, int bh, int q0, int qn, int sq,
+                                            int sk, int causal, float sm_scale, const Src& src) {
+  using S = DqSmem<D>;
+  constexpr int P = S::kP;
+  constexpr int ND = D / 8;  // 8-column chunks of a d-wide accumulator
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + S::kTile;
+  bf16* Ks = dOs + S::kTile;  // two buffers, each a K tile then a V tile
+  bf16* Vs = Ks + S::kTile;
+  float* lse_s = reinterpret_cast<float*>(Qs + 6 * S::kTile);  // kBQ
+  float* delta_s = lse_s + kBQ;                                // kBQ
+  float* kb_s = delta_s + kBQ;                                 // two buffers of kBK
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int qw = 16 * warp;  // this warp's q rows in the tile
+  // ldmatrix addressing: the row and column a lane points at
+  const int lrA = (lane & 7) + 8 * ((lane >> 3) & 1), lcA = 8 * (lane >> 4);  // A, row-major
+  const int lrB = (lane & 7) + 8 * (lane >> 4), lcB = 8 * ((lane >> 3) & 1);  // B from [n][k]
+  const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
+  const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+  const float* kbias_b =
+      EXT && e.kbias != nullptr ? e.kbias + static_cast<long long>(bh / e.H) * sk : nullptr;
+  const float* fbias_bh = EXT && e.fbias != nullptr
+                              ? e.fbias + static_cast<long long>(bh / e.H) * e.fb_b +
+                                    static_cast<long long>(bh % e.H) * e.fb_h
+                              : nullptr;
+  const bool has_bias = EXT && (e.kbias != nullptr || e.fbias != nullptr);
+  const int offset = sk - sq;  // end-aligned causal offset
+
+  auto load_kv_tile = [&](int i, int buf) {
+    const int k0 = src.r0(i);
+    load_tile<D>(Ks + 2 * buf * S::kTile, kb, k0, sk, tid);
+    load_tile<D>(Vs + 2 * buf * S::kTile, vb, k0, sk, tid);
+    if (kbias_b != nullptr && tid < kBK) {
+      const bool in = k0 + tid < sk;
+      cp_async4(kb_s + buf * kBK + tid, kbias_b + (in ? k0 + tid : 0), in);
+    }
+  };
+
+  {
+    load_tile<D>(Qs, q + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
+    load_tile<D>(dOs, dout + static_cast<size_t>(bh) * sq * D, q0, sq, tid);
+    const int r = tid & 63;
+    const bool in = q0 + r < sq;
+    const size_t row = static_cast<size_t>(bh) * sq + (in ? q0 + r : 0);
+    if (tid < 64)
+      cp_async4(lse_s + r, lse + row, in);
+    else
+      cp_async4(delta_s + r, delta + row, in);
+  }
+  if (src.count > 0) load_kv_tile(0, 0);
+  cp_async_commit();
+
+  float dq_acc[ND * 4];
+#pragma unroll
+  for (int i = 0; i < ND * 4; ++i) dq_acc[i] = 0.f;
+
+  for (int i = 0; i < src.count; ++i) {
+    const int buf = i & 1;
+    const int k0 = src.r0(i), kn = src.n(i);
+    cp_async_wait<0>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + 1 < src.count) {
+      load_kv_tile(i + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* Kt = Ks + 2 * buf * S::kTile;
+    const bf16* Vt = Vs + 2 * buf * S::kTile;
+    const float* kbt = kb_s + buf * kBK;
+
+    // element j of this thread's 32 scores sits at q row qw + g + 8 * ((j
+    // >> 1) & 1), key 8 * (j >> 2) + t2 + (j & 1) of the tile.  The
+    // keep-bits first: integer work with no operand from the products, in
+    // one block with them, so it issues while the tensor cores run
+    uint32_t keep = 0;
+    if (DROP) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int gq = q0 + qw + g + 8 * ((j >> 1) & 1);
+        const int gk = k0 + 8 * (j >> 2) + t2 + (j & 1);
+        keep |= static_cast<uint32_t>(flash::keep_bit(e, static_cast<uint32_t>(bh), gq, gk, sk))
+                << j;
       }
+    }
+
+    // S = Q.K^T and dP = dO.V^T for this warp's 16 q rows x 64 keys
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      uint32_t qa[4], da[4];
+      ldsm_x4(qa, Qs + (qw + lrA) * P + 16 * kd + lcA);
+      ldsm_x4(da, dOs + (qw + lrA) * P + 16 * kd + lcA);
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t b[4];
+        ldsm_x4(b, Kt + (16 * n2 + lrB) * P + 16 * kd + lcB);
+        mma_bf16(s + 8 * n2, qa, b);
+        mma_bf16(s + 8 * n2 + 4, qa, b + 2);
+        ldsm_x4(b, Vt + (16 * n2 + lrB) * P + 16 * kd + lcB);
+        mma_bf16(dp + 8 * n2, da, b);
+        mma_bf16(dp + 8 * n2 + 4, da, b + 2);
+      }
+    }
+
+    // dS (into dp)
+    const bool edge = qn < kBQ || kn < kBK || (causal && offset + q0 < k0 + kBK - 1);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int qq = qw + g + 8 * ((j >> 1) & 1);
+      const int kk = 8 * (j >> 2) + t2 + (j & 1);
+      const int gq = q0 + qq, gk = k0 + kk;
+      const bool ok = !edge || (qq < qn && kk < kn && (!causal || offset + gq >= gk));
+      float bias = 0.f;
+      if (EXT) {
+        if (kbias_b != nullptr)
+          bias = kbt[kk];
+        else if (fbias_bh != nullptr && gq < sq && gk < sk)
+          bias = fbias_bh[gq * e.fb_q + gk * e.fb_k];
+      }
+      const float kf = DROP && !((keep >> j) & 1u) ? 0.f : e.inv_keep;
+      // a masked score is the Pallas kernel's DEFAULT_MASK_VALUE, whose
+      // exp(mask - lse) is 0 for every finite lse
+      dp[j] = ok ? probs<EXT>(s[j], dp[j], bias, kf, has_bias, DROP, lse_s[qq], delta_s[qq],
+                              sm_scale).ds
+                 : 0.f;
+    }
+
+    // dQ += dS.K (B = K read transposed), dS rounded to bf16 as the
+    // register A operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sa[4];
+      pack_a(sa, dp, kk);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        ldsm_x4_t(b, Kt + (16 * kk + lrA) * P + 16 * n2 + lcA);
+        mma_bf16(dq_acc + 8 * n2, sa, b);
+        mma_bf16(dq_acc + 8 * n2 + 4, sa, b + 2);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dq rounded to bf16 once
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qq = qw + g + 8 * hh;
+    if (qq < qn) {
+      bf16* row = dq + (static_cast<size_t>(bh) * sq + q0 + qq) * D + t2;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<uint32_t*>(row + 8 * n) =
+            pack_bf16(dq_acc[4 * n + 2 * hh], dq_acc[4 * n + 2 * hh + 1]);
     }
   }
 }

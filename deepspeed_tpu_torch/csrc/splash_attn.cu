@@ -76,21 +76,11 @@ using flash::narrow;
 using flash::round_to;
 using flash::widen;
 
-// the layout's geometry, read by every kernel
-struct Geom {
-  int T, block, nb;
-  int tiles;  // 64-row tiles of a layout block, ceil(block / 64)
-  int H, LH;  // heads, and the layout's heads (1: head-uniform)
-  int causal;
-  float scale;
-};
+using Geom = flash::SplashGeom;
+using flash::layout_head;
 
 // rows of tile `t` of a layout block: 64, or fewer in a block's last tile
 __device__ __forceinline__ int tile_len(const Geom& g, int t) { return min(kBQ, g.block - t * kBQ); }
-
-__device__ __forceinline__ int layout_head(const Geom& g, size_t bh) {
-  return g.LH == 1 ? 0 : static_cast<int>(bh % g.H);
-}
 
 // the block ids of the valid entries (ok & 1) among `n` entries of an index
 // list, in order, clamped into [0, nb), into ids[] (at most `cap`);

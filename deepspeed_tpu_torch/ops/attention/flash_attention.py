@@ -359,11 +359,14 @@ _F32_TINY = 2.0 ** -126
 
 
 def flash_bwd_float64(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,
-                      fbias=None, drop: Optional[Dropout] = None):
+                      fbias=None, drop: Optional[Dropout] = None, allowed=None):
     """The single-pass backward's function in float64 on the same inputs
     (lse, delta and ``drop``'s keep-bits included), with nothing rounded,
     and a bound on how far the kernels' contract may take a result from it.
     Returns ``((dq, dk, dv), (bound_dq, bound_dk, bound_dv))``, float64.
+    ``allowed``: an optional bool mask broadcastable to (B, H, Tq, Tk) of
+    the scores that exist (a block-sparse layout expanded), beside the
+    causal mask; a row with none has lse = +inf, so its p is exactly 0.
 
     The bound is entry by entry and holds for any summation order: p and
     ds formed in f32 (each operation within ``_F32_UNIT`` of its result,
@@ -379,7 +382,7 @@ def flash_bwd_float64(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kb
     sk = k.shape[2]
     bias = _score_bias(kbias, fbias)
     keep = keep_mask(drop, q, k)
-    allowed = _causal_allowed(sq, sk, q.device) if causal else None
+    tri = _causal_allowed(sq, sk, q.device) if causal else None
     grads = [torch.empty(t.shape, dtype=torch.float64, device=q.device) for t in (q, k, v)]
     bounds = [torch.empty_like(g) for g in grads]
     for i in range(b):  # one (Tq, Tk) tile a batch*head: T 9216 fits too
@@ -393,8 +396,11 @@ def flash_bwd_float64(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kb
             # the f32 exponent's error: the score's sum, the scale, the bias and lse
             err_x = ((qd.abs() @ kd.abs().T) * (sm_scale * d) + x.abs() + lse_ij.abs()) * e
             p = torch.exp(x - lse_ij)
+            if tri is not None:
+                p = p.masked_fill(~tri, 0.0)
             if allowed is not None:
-                p = p.masked_fill(~allowed, 0.0)
+                p = p.masked_fill(~allowed[min(i, allowed.shape[0] - 1),
+                                           min(j, allowed.shape[1] - 1)], 0.0)
             err_p = torch.where(p > 0, p * (torch.expm1(err_x) + e * torch.exp(err_x)),
                                 torch.zeros_like(p)) + _F32_TINY
             del x, err_x
@@ -460,9 +466,9 @@ def _variant(kbias, fbias, drop) -> str:
 
 
 def _body(name: str, dtype) -> Tuple[str, str]:
-    """``(library entry, body)`` of B1, B2, B6a or B6b for ``dtype``: bf16
-    the tensor-core body (``<name>_tc``, ``tc``), f32 the CUDA-core body
-    (``simt``)."""
+    """``(library entry, body)`` of B1, B2, B6a, B6b, B9a or B9b for
+    ``dtype``: bf16 the tensor-core body (``<name>_tc``, ``tc``), f32 the
+    CUDA-core body (``simt``)."""
     return (name + "_tc", "tc") if dtype == torch.bfloat16 else (name, "simt")
 
 
@@ -608,9 +614,12 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias
     (``csrc/flash_bwd_tc.cu``) for bf16, the CUDA-core body
     (``csrc/flash_bwd.cu``) for f32.  dq is summed in an f32 buffer
     (zeroed here, cast to q's type after the kernel, as the Pallas
-    kernel's ``dq32``).  Raises for tensors that are not on one CUDA
-    device, not contiguous (bf16: not 16-byte aligned), or of a type or
-    shape the kernel does not take."""
+    kernel's ``dq32``), the key tiles adding into a q tile in a fixed
+    order through an int32 turn counter a (batch*head, 64-row q tile),
+    zeroed here too: the same bits every launch, as the JAX kernel's.
+    Raises for tensors that are not on one CUDA device, not contiguous
+    (bf16: not 16-byte aligned), or of a type or shape the kernel does not
+    take."""
     _check_bwd("flash_bwd_cuda", q, k, v, do, lse, delta)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -619,6 +628,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias
     _check_options("flash_bwd_cuda", q, k, kbias, fbias, drop)
     dev = q.device
     dq32 = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    turns = torch.zeros(b * h * -(-sq // 64), dtype=torch.int32, device=dev)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     entry, body = _body("flash_bwd", q.dtype)
@@ -628,7 +638,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias
     fn = lib.fn(entry)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), dq32.data_ptr(), turns.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_ext_args(kbias, fbias, drop), b * h, h, sq, sk, d, _DTYPE_CODES[q.dtype],
         int(bool(causal)), float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )

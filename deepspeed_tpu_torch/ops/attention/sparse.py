@@ -14,8 +14,9 @@ block) pairs.
   differentiable by autograd, with ``key_padding_mask``; rows with no
   active block give zeros.  ``"splash"`` is :func:`splash_attention`: the
   CUDA kernels B8 (:func:`splash_fwd`, ``csrc/splash_attn.cu``), B9a
-  (:func:`splash_bwd_dq`) and B9b (:func:`splash_bwd_dkv`) for CUDA
-  tensors, their plain versions for CPU tensors, tied together by
+  (:func:`splash_bwd_dq`) and B9b (:func:`splash_bwd_dkv`; bf16 on their
+  tensor-core bodies, ``csrc/splash_attn_tc.cu``) for CUDA tensors, their
+  plain versions for CPU tensors, tied together by
   :class:`_SplashAttention` (the JAX package's ``custom_vjp``).  Auto
   (``None``) takes splash when the JAX package's rule holds (``block >=
   64``, ``T % block == 0``, no key-padding mask) and the tensors lie on
@@ -47,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops import kernels as _kernels
+from deepspeed_tpu_torch.ops.attention import flash_attention as _fa
 from deepspeed_tpu_torch.ops.attention.flash_attention import (
     _DTYPE_CODES,
     _HEAD_DIMS,
@@ -816,6 +818,22 @@ def check_layouts(nb: int) -> dict:
             "zero-degree-row": zero_row}
 
 
+def splash_bwd_float64(q, k, v, do, lse, delta, layout: np.ndarray, block: int, causal: bool,
+                       sm_scale: float):
+    """The splash backward's function in float64 on the same inputs, and
+    the bound of the bf16 contract around it: ``flash_bwd_float64`` over
+    the scores the kernels compute, the layout's active blocks less the
+    dense rows (:func:`_dense_row_mask`, which the kernels leave to
+    autograd) expanded to (T, T), causal inside diagonal blocks.  Returns
+    ``((dq, dk, dv), (bound_dq, bound_dk, bound_dv))``, float64; held with
+    ``flash_attention.float64_over_bound``."""
+    layout = _splash_layout(layout)
+    active = (layout != 0) & ~_dense_row_mask(layout, exempt_uniform_full=True)[:, :, None]
+    allowed = torch.as_tensor(active, device=q.device)
+    allowed = allowed.repeat_interleave(block, 1).repeat_interleave(block, 2)[None]
+    return _fa.flash_bwd_float64(q, k, v, do, lse, delta, causal, sm_scale, allowed=allowed)
+
+
 def splash_grad_bound(grad: str, ref: torch.Tensor, layout: np.ndarray, block: int, tol: float,
                       share: float = 0.5) -> Tuple[torch.Tensor, float]:
     """The entry-by-entry bound a splash gradient ``grad`` ("dq", "dk" or
@@ -906,44 +924,60 @@ def splash_fwd_cuda(q, k, v, layout: np.ndarray, block: int, causal: bool, sm_sc
     return out, lse
 
 
+def _splash_body(who: str, name: str, q, k, v, do) -> Tuple[str, str]:
+    """``(library entry, body)`` of B9a or B9b for q's type, as B2's: bf16
+    the tensor-core body (``csrc/splash_attn_tc.cu``), which refuses a view
+    off a 16-byte boundary, f32 the CUDA-core one (``csrc/splash_attn.cu``)."""
+    entry, body = _fa._body(name, q.dtype)
+    if body == "tc":
+        _fa._check_aligned(who, ("q", q), ("k", k), ("v", v), ("dO", do))
+    return entry, body
+
+
 def splash_bwd_dq_cuda(q, k, v, do, lse, delta, layout: np.ndarray, block: int, causal: bool,
                        sm_scale: float) -> torch.Tensor:
-    """Launch B9a on the current stream: dq summed in registers over the
-    row's edges in a fixed order and written once (no atomics, so the same
-    bits every launch)."""
+    """Launch B9a on the current stream, the body by dtype
+    (:func:`_splash_body`): dq summed in registers over the row's edges in
+    a fixed order and written once (no atomics, so the same bits every
+    launch)."""
     _check_tensors("splash_bwd_dq_cuda", layout, block, q, k, v, do, lse, delta)
+    entry, body = _splash_body("splash_bwd_dq_cuda", "splash_bwd_dq", q, k, v, do)
     d = q.shape[-1]
     idx, valid, deg, _ = _kernel_arrays(layout, q.device)
     dq = torch.empty_like(q)
     lib = _kernels.library()
-    err = lib.fn("splash_bwd_dq")(
+    err = lib.fn(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), idx.data_ptr(), valid.data_ptr(),
         *_geometry(q, layout, block), deg, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("splash_bwd_dq", err)
-    _kernels.count_launch("splash_bwd_dq")
+    lib.check(entry, err)
+    _kernels.count_launch("splash_bwd_dq", "none/" + body)
     return dq
 
 
 def splash_bwd_dkv_cuda(q, k, v, do, lse, delta, layout: np.ndarray, block: int, causal: bool,
                         sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch B9b on the current stream: one block per (64-key tile, work
-    item) walks an item's piece of its column's run of the column-sorted
-    edge list (at most ``deg`` query blocks, :func:`_dkv_items`), dk and
-    dv summed in registers into an f32 partial; a second kernel sums each
-    column's partials in item order and writes dk and dv once (an
-    untouched column gets zeros; no atomics, so the same bits every
-    launch).  Returns ``(dk, dv)``."""
+    """Launch B9b on the current stream, the body by dtype
+    (:func:`_splash_body`): one block per (64-key tile, work item) walks an
+    item's piece of its column's run of the column-sorted edge list (at
+    most ``deg`` query blocks, :func:`_dkv_items`), dk and dv summed in
+    registers; a second kernel sums each column's f32 partials (B*H, W,
+    block, d) in item order and writes dk and dv once (an untouched column
+    gets zeros; no atomics, so the same bits every launch).  The f32 body
+    sends every item through the partials, the tensor-core body only the
+    items of a column cut into several (a column of one item writes its
+    dk and dv directly).  Returns ``(dk, dv)``."""
     _check_tensors("splash_bwd_dkv_cuda", layout, block, q, k, v, do, lse, delta)
+    entry, body = _splash_body("splash_bwd_dkv_cuda", "splash_bwd_dkv", q, k, v, do)
     b, h, t, d = q.shape
     _, _, _, (qidx, flags, item_col, item_off, col_items) = _kernel_arrays(layout, q.device)
     W = item_col.shape[1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     partials = torch.empty((2, b * h, W, block, d), dtype=torch.float32, device=q.device)
     lib = _kernels.library()
-    err = lib.fn("splash_bwd_dkv")(
+    err = lib.fn(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), partials[0].data_ptr(),
         partials[1].data_ptr(), qidx.data_ptr(), flags.data_ptr(), item_col.data_ptr(),
@@ -951,8 +985,8 @@ def splash_bwd_dkv_cuda(q, k, v, do, lse, delta, layout: np.ndarray, block: int,
         W, d, _DTYPE_CODES[q.dtype], int(bool(causal)), float(sm_scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("splash_bwd_dkv", err)
-    _kernels.count_launch("splash_bwd_dkv")
+    lib.check(entry, err)
+    _kernels.count_launch("splash_bwd_dkv", "none/" + body)
     return dk, dv
 
 

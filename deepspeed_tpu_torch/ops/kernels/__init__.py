@@ -8,12 +8,13 @@ live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
 and B9b in ``splash_attn.cu``; the attention sources share the device
 functions of ``flash_common.cuh``).  A kernel may have a second body in
 a source of its own (:data:`BODIES`): the flash forward, the single-pass
-backward and the two passes of the two-pass backward run bf16 tensors on
-tensor-core bodies (``flash_fwd_tc.cu``, ``flash_bwd_tc.cu``,
-``flash_bwd_2pass_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on
-the CUDA-core bodies of ``flash_fwd.cu``, ``flash_bwd.cu`` and
-``flash_bwd_2pass.cu``; a body counts its launches under its kernel's
-name, with the body in the variant.  At
+backward, the two passes of the two-pass backward and the block-sparse
+backward's two passes run bf16 tensors on tensor-core bodies
+(``flash_fwd_tc.cu``, ``flash_bwd_tc.cu``, ``flash_bwd_2pass_tc.cu``,
+``splash_attn_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on the
+CUDA-core bodies of ``flash_fwd.cu``, ``flash_bwd.cu``,
+``flash_bwd_2pass.cu`` and ``splash_attn.cu``; a body counts its launches
+under its kernel's name, with the body in the variant.  At
 first use the source is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under
 ``deepspeed_tpu_torch/build/`` (listed in ``.gitignore``) and loaded with
@@ -82,9 +83,9 @@ KERNELS = {
     ),
     "flash_bwd": (
         "flash_bwd.cu", "ds_flash_bwd",
-        # q, k, v, dout, lse, delta, dq32, dk, dv, <ext>, BH, H, sq, sk, d, dtype, causal,
-        # sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, dout, lse, delta, dq32, dq_turn, dk, dv, <ext>, BH, H, sq, sk, d, dtype,
+        # causal, sm_scale, stream
+        [*[_P] * 10, *_FLASH_EXT, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     "flash_bwd_dq": (
         "flash_bwd_2pass.cu", "ds_flash_bwd_dq",
@@ -144,6 +145,9 @@ BODIES = {
     "flash_bwd_dq_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dq_tc", KERNELS["flash_bwd_dq"][2]),
     "flash_bwd_dkv_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dkv_tc",
                          KERNELS["flash_bwd_dkv"][2]),
+    "splash_bwd_dq_tc": ("splash_attn_tc.cu", "ds_splash_bwd_dq_tc", KERNELS["splash_bwd_dq"][2]),
+    "splash_bwd_dkv_tc": ("splash_attn_tc.cu", "ds_splash_bwd_dkv_tc",
+                          KERNELS["splash_bwd_dkv"][2]),
 }
 # every library that builds: the kernels and the second bodies
 _UNITS = {**KERNELS, **BODIES}
@@ -275,8 +279,8 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
 def count_launch(name: str, variant: Optional[str] = None) -> None:
     """One launch of kernel ``name``; ``variant`` names the options it ran
     with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
-    ``+dropout``; for B1, B2, B6a and B6b also the body, ``/tc`` or
-    ``/simt``)."""
+    ``+dropout``; for B1, B2, B6a, B6b, B9a and B9b also the body, ``/tc``
+    or ``/simt``)."""
     _LIBRARY.launches[name] += 1
     if variant is not None:
         v = _LIBRARY.variants[name]

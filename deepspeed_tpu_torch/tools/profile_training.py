@@ -58,8 +58,9 @@ KERNEL_CLASSES = (
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
     ("splash_fwd", ("splash_fwd_kernel",)),
-    ("splash_bwd_dq", ("splash_dq_kernel",)),
-    ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel")),
+    ("splash_bwd_dq", ("splash_dq_kernel", "splash_dq_tc_kernel")),
+    ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel", "splash_dkv_tc_kernel",
+                        "splash_dkv_tc_sum_kernel")),
     ("fused_adam", ("fused_adam_kernel",)),
     ("fused_lamb_dir", ("lamb_dir_kernel",)),
     ("fused_lamb_apply", ("lamb_apply_kernel",)),

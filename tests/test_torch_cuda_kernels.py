@@ -18,24 +18,23 @@ causal with a bias, every head dim), the fused Adam's and fused LAMB's
 dtypes, ragged and unaligned leaves, trust-ratio branches and overflow
 skip, autograd through the kernels, attention dropout (in-kernel
 Threefry bits against the host twin's) and the full bias in the forward
-and both backwards (B2 and the two-pass B6a/B6b, whose dq must be the same
-bits launch after launch), the block-sparse kernels B8/B9a/B9b (every
-layout form: BigBird, per-head, untouched key columns, a row with no
-block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the same bits
-launch after launch), the bf16 tensor-core bodies of B1, B2, B6a and B6b
-at every head dim with every option (ragged, end-aligned and full; each
-launch counted as ``tc``, an f32 one as ``simt``), and the wrappers'
-refusals.  Tolerances: float32 2e-5 (sums in other orders, TF32 off);
-bfloat16 outputs 2e-2 (rounded to bf16, spacing 2**-8 relative); the
-backward entry by entry, within that tolerance times |entry| plus half
-the gradient's rms (dq's f32 sum is taken with atomics, in an order that
-changes between runs; the bf16 tensor-core bodies of B2 and B6, and
-their plain versions, against the float64 function within the bf16
-contract's bound,
-``flash_attention.flash_bwd_float64``, since a bf16 P or dS next to a
-rounding tie may round either way; for the block-sparse backward, the rms of the
-entry's own layout block, its share grown as the square root of that
-block's sum past 1,024 terms); fused Adam's moments 1e-6 of their largest entry,
+and both backwards (B2 and the two-pass B6a/B6b, whose dq, dk and dv must
+be the same bits launch after launch), the block-sparse kernels
+B8/B9a/B9b (every layout form: BigBird, per-head, untouched key columns, a
+row with no block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the
+same bits launch after launch), the bf16 tensor-core bodies of B1, B2,
+B6a, B6b, B9a and B9b at every head dim with every option (ragged,
+end-aligned and full; each launch counted as ``tc``, an f32 one as
+``simt``), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums
+in other orders, TF32 off); bfloat16 outputs 2e-2 (rounded to bf16,
+spacing 2**-8 relative); the backward entry by entry, within that
+tolerance times |entry| plus half the gradient's rms (the bf16
+tensor-core bodies of B2, B6, B9a and B9b, and their plain versions,
+against the float64 function within the bf16 contract's bound,
+``flash_attention.flash_bwd_float64`` / ``sparse.splash_bwd_float64``,
+since a bf16 P or dS next to a rounding tie may round either way; for the
+f32 block-sparse backward, the rms of the entry's own layout block, its
+share grown as the square root of that block's sum past 1,024 terms); fused Adam's moments 1e-6 of their largest entry,
 f32 p 1e-6 absolute (the kernel rounds each product and sum as the plain
 version does); fused LAMB the same, with its trust ratio 1e-5 relative
 (its norms sum per block, in another order)."""
@@ -577,8 +576,7 @@ def test_bf16_launches_count_as_tc_and_f32_as_simt(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_two_pass_dq_is_the_same_bits_every_launch(dev, dtype):
     """B6a sums dq in registers and writes it once, on either body (bf16:
-    the tensor cores'): two launches give the same bits (B2's dq, added
-    into an f32 buffer in no fixed order, need not)."""
+    the tensor cores'): two launches give the same bits."""
     q, k, v, do = (_randn(dev, 2, 4, 1000, 64, seed=s).to(dtype) for s in (1, 2, 3, 4))
     kb = _padding_bias(dev, 2, 1000, (1000, 700))
     drop = fa.make_dropout(0.1, (5, 6))
@@ -693,13 +691,24 @@ def _splash_layout(kind, H, nb, block):
     return sp.check_layouts(nb)[kind]  # per-head, untouched-columns, zero-degree-row (H = 2)
 
 
-def _splash_bwd_close(got, ref, dtype, layout, block):
-    """The splash backward entry by entry, within the bound chip_smoke.py
-    holds it to (``sparse.splash_grad_bound``)."""
+def _splash_bwd_close(got, ref, dtype, args):
+    """The splash backward against its plain version: f32 (the CUDA-core
+    bodies) entry by entry, within the bound chip_smoke.py holds it to
+    (``sparse.splash_grad_bound``); bf16 (the tensor-core bodies), and the
+    plain version, against the float64 function of the same inputs
+    ``args`` within the bound of the bf16 contract
+    (``sparse.splash_bwd_float64``)."""
     from deepspeed_tpu_torch.ops.attention import sparse as sp
 
+    layout, block = args[6], args[7]
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and bool(a.isfinite().all())
+    if dtype == torch.bfloat16:
+        witness = sp.splash_bwd_float64(*args)
+        kernel, plain = fa.float64_over_bound(got, witness), fa.float64_over_bound(ref, witness)
+        assert max(kernel) <= 1.0 and max(plain) <= 1.0, (kernel, plain)
+        return
     for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        assert a.dtype == b.dtype and a.shape == b.shape
         bound, _ = sp.splash_grad_bound(name, b, layout, block, TOL[dtype])
         assert bool(((a.float() - b.float()).abs() <= bound).all()), _err(a, b)
 
@@ -731,11 +740,15 @@ def test_splash_kernels_match_plain(dev, dtype, kind, causal, T, d, block):
     assert _err(lse[~inf], ref_lse[~inf]) <= 1e-4
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, layout, block, causal, scale)
+    kernels.reset_launches()
     got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
     again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
     ref = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
     torch.cuda.synchronize()
-    _splash_bwd_close(got, ref, dtype, layout, block)
+    form = "none/" + ("tc" if dtype == torch.bfloat16 else "simt")
+    variants = kernels.launch_variants()
+    assert variants["splash_bwd_dq"] == {form: 2} and variants["splash_bwd_dkv"] == {form: 2}
+    _splash_bwd_close(got, ref, dtype, args)
     for a, b in zip(got, again):  # no atomics: the same bits every launch
         assert torch.equal(a, b)
     if kind == "untouched-columns":
@@ -745,6 +758,32 @@ def test_splash_kernels_match_plain(dev, dtype, kind, causal, T, d, block):
                 assert not g.reshape(B, H, nb, block, d)[:, h, col].any(), (h, col)
     if kind == "zero-degree-row":
         assert not out.reshape(B, H, T // block, block, d)[:, 0, 1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ["gpt2-causal", "bert-kbias"])
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["nodrop", "dropout"])
+def test_flash_bwd_is_the_same_bits_every_launch(dev, dtype, shape, rate):
+    """B2 adds each key tile's dq share into its f32 buffer in the q tile's
+    turn, in ascending key tile (both bodies): dq, dk and dv are the same
+    bits over launches, at GPT-2's causal training shape and at BERT's
+    shape with its key-padding bias, with and without dropout."""
+    if shape == "gpt2-causal":
+        B, H, T, causal, kb = 8, 12, 1024, True, None
+    else:
+        B, H, T, causal = 8, 16, 512, False
+        kb = _padding_bias(dev, B, T, (512, 448, 300, 129))
+    q, k, v, do = (_randn(dev, B, H, T, 64, seed=s).to(dtype) for s in (1, 2, 3, 4))
+    drop = fa.make_dropout(rate, (0x9E3779B9, 0xBB67AE85))
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, 0.125, want_lse=True, kbias=kb, drop=drop)
+    delta = (do.float() * out.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, 0.125, kb, None, drop)
+    first = fa.flash_bwd_cuda(*args)
+    for _ in range(2):
+        again = fa.flash_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_splash_autograd_on_the_card_matches_the_gather_path(dev):
@@ -787,3 +826,11 @@ def test_splash_refusals(dev):
     lse = q[..., 0].contiguous()
     with pytest.raises(ValueError, match="float32"):
         sp.splash_bwd_dkv_cuda(q, q, q, q, lse.double(), lse, layout, 64, True, 0.125)
+    # the bf16 bodies load 16-byte rows by cp.async: a view off a 16-byte
+    # boundary is refused, not sent to the f32 body
+    odd = torch.empty(2 * 256 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(1, 2, 256, 64)
+    kernels.reset_launches()
+    for launch in (sp.splash_bwd_dq_cuda, sp.splash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="16-byte"):
+            launch(odd, odd, odd, odd, lse, lse, layout, 64, True, 0.125)
+    assert kernels.launches()["splash_bwd_dq"] == kernels.launches()["splash_bwd_dkv"] == 0

@@ -121,19 +121,20 @@ def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monke
 
 
 def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
-    """The bf16 bodies of B1, B2, B6a and B6b build from their own sources
-    (B6a's and B6b's share one), in the same parallel round as the kernels:
-    an edit of flash_tc.cuh rebuilds those four and nothing else, an edit
-    of flash_common.cuh rebuilds them with the other attention kernels; the
-    report names each beside its kernel's f32 source, and the launch counts
-    stay by kernel."""
+    """The bf16 bodies of B1, B2, B6a, B6b, B9a and B9b build from their
+    own sources (B6a's and B6b's share one, B9a's and B9b's another), in
+    the same parallel round as the kernels: an edit of flash_tc.cuh
+    rebuilds those six and nothing else, an edit of flash_common.cuh
+    rebuilds them with the other attention kernels; the report names each
+    beside its kernel's f32 source, and the launch counts stay by
+    kernel."""
     import os
     import shutil
 
     from deepspeed_tpu_torch.ops import kernels
 
     assert set(kernels.BODIES) == {"flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dq_tc",
-                                   "flash_bwd_dkv_tc"}
+                                   "flash_bwd_dkv_tc", "splash_bwd_dq_tc", "splash_bwd_dkv_tc"}
     for body, (src, entry, argtypes) in kernels.BODIES.items():
         kernel = body[:-len("_tc")]
         assert (kernels.CSRC_DIR / src).is_file() and src != kernels.KERNELS[kernel][0]
@@ -145,20 +146,25 @@ def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert report[name]["tc_source"].endswith("csrc/flash_bwd_2pass_tc.cu")
         assert report[name]["source"].endswith("csrc/flash_bwd_2pass.cu")
+    for name in ("splash_bwd_dq", "splash_bwd_dkv"):
+        assert report[name]["tc_source"].endswith("csrc/splash_attn_tc.cu")
+        assert report[name]["source"].endswith("csrc/splash_attn.cu")
+    assert "tc_source" not in report["splash_fwd"]
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     lib = kernels.KernelLibrary(tmp_path / "build")
     lib.build_dir.mkdir()
     units = [*kernels.KERNELS, *kernels.BODIES]
-    assert len({lib._so_path(n) for n in units}) == len(units) - 6  # shared sources
+    assert len({lib._so_path(n) for n in units}) == len(units) - 7  # shared sources
     for src in csrc.iterdir():
         os.utime(src, (1000, 1000))
     for name in units:
         lib._so_path(name).touch()
         os.utime(lib._so_path(name), (2000, 2000))
     os.utime(csrc / "flash_tc.cuh", (3000, 3000))
-    tc_bodies = {"flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc"}
+    tc_bodies = {"flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+                 "splash_bwd_dq_tc", "splash_bwd_dkv_tc"}
     assert {n for n in units if lib._stale(n)} == tc_bodies
     os.utime(csrc / "flash_common.cuh", (4000, 4000))
     assert tc_bodies | {"flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"} <= {
@@ -173,7 +179,7 @@ def test_flash_wrappers_pick_the_body_by_dtype():
     assert tfa._body("flash_bwd", torch.bfloat16) == ("flash_bwd_tc", "tc")
     assert tfa._body("flash_fwd", torch.float32) == ("flash_fwd", "simt")
     assert tfa._body("flash_bwd", torch.float32) == ("flash_bwd", "simt")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "splash_bwd_dq", "splash_bwd_dkv"):
         assert tfa._body(name, torch.bfloat16) == (name + "_tc", "tc")
         assert tfa._body(name, torch.float32) == (name, "simt")
     q = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
@@ -183,6 +189,10 @@ def test_flash_wrappers_pick_the_body_by_dtype():
     for launch in (tfa.flash_bwd_dq_cuda, tfa.flash_bwd_dkv_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             launch(q, q, q, q, lse, lse, causal=False, sm_scale=0.125)
+    layout = np.tril(np.ones((1, 2, 2), np.uint8))
+    for launch in (tsp.splash_bwd_dq_cuda, tsp.splash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(q, q, q, q, lse, lse, layout, 64, causal=True, sm_scale=0.125)
 
 
 @pytest.mark.parametrize("path", CUDA_SOURCES, ids=lambda p: p.name)
