@@ -17,7 +17,9 @@ Phases, each printing one JSON line:
    T=1024, causal, B1 with its lse and B2; and with
    BERT-large's key-padding bias at B=8, H=16, T=512 with its lse; flash decode
    over an 8-slot, 1024-position cache in f32, bf16 and int8, with and
-   without a key-padding mask; flash backward at B=8, H=12, d=64, T=1024 in
+   without a key-padding mask (split over keys: every row the same bits
+   over two launches, f32 within 1e-6 of its split plain version); flash
+   backward at B=8, H=12, d=64, T=1024 in
    bf16 and f32, T=256 and a ragged T=1000, and with the key-padding bias
    at B=8, H=16, T=512 in bf16 and f32; fused Adam over GPT-2 124M's
    ``wte``, stacked ``qkv_w`` and ragged ``lnf_g`` leaves and over a whole
@@ -37,11 +39,12 @@ Phases, each printing one JSON line:
    bf16 pair at GPT-2's training shape beside B2 (``flash_bwd2_gpt2``:
    the two-pass route's cost); the block-sparse forward B8 and backward
    B9a/B9b at B=1, H=12, d=64, T=8192 and 16384 with GPT-2's default
-   BigBird layout (block 256, causal) in bf16 (B9a/B9b on their
-   tensor-core bodies) and f32, their gradients the same bits over two
-   launches, and a per-head and an untouched-column layout at T=1024,
-   whose empty columns' dk/dv must be exactly 0, and BigBird with a block
-   of 96 at T=1536),
+   BigBird layout (block 256, causal) in bf16 (on their tensor-core
+   bodies) and f32, their outputs and gradients the same bits over two
+   launches, and a per-head, an untouched-column and a zero-degree-row
+   layout at T=1024, whose empty columns' dk/dv must be exactly 0 and
+   whose empty rows' output 0 with lse +inf, and BigBird with blocks of
+   96 at T=1536 and of 16 at T=512),
    with the tolerance stated, and the times of the kernel, the plain
    version and one PyTorch library call beside the least time the card
    could take (``bound_ms``; with dropout the slower of the dots and
@@ -50,7 +53,11 @@ Phases, each printing one JSON line:
    float64 function within the bound of the bf16 contract
    (``flash_bwd_float64``, ``splash_bwd_float64``), the f32 ones to the
    plain version entry by entry; every B2 row's dq, dk and dv must be the
-   same bits over two launches (dq summed in a fixed order).
+   same bits over two launches (dq summed in a fixed order).  The bf16
+   forwards B1 (training shape) and B8 (T 8192 and 16384), kernel and
+   plain version, are also read against their float64 functions
+   (``flash_fwd_float64``, ``splash_fwd_float64``), the kernel held to
+   2e-2 there.
 3. ``serve_f32``: GPT-2 124M at full width and depth (random weights from
    a seed) behind ``init_serving``: 8 slots, 64-token prefill chunks, 16
    requests with 64..384-token prompts, drained; every request's greedy
@@ -133,18 +140,18 @@ Phases, each printing one JSON line:
    width, 8 layers, the default BigBird layout, block 256) in f32, B=1,
    T=8192, 3 steps, TF32 off: the splash kernels against the same steps
    with the sparse op on its gather path; per-step losses within the
-   tolerance stated.
+   tolerance stated; every splash launch on its CUDA-core body.
 15. ``train_sparse_bf16``: this slice's main path, the sparse GPT-2 in bf16
    over f32 masters at T=8192 and T=16384 (8 layers, B=1, Adam at lr 1e-4,
    remat, cross-entropy in chunks of 512), 4 steps, beside the dense flash
    path at the same T and depth.  Counters zeroed just before and read just
    after each sparse run: B8 16, B9a 8 and B9b 8 launches a micro-step
-   (B9a and B9b all on their tensor-core bodies), fused Adam launched,
+   (all on their tensor-core bodies), fused Adam launched,
    B1/B2 not; losses finite and falling.  Prints ms a
    step, tokens/s, peak memory, MFU and sparse-over-dense tokens/s.
 16. ``kernels``: one entry per kernel with its launches on each main path
-   (B1, B2, B6a, B6b, B9a and B9b: the tensor-core body's source, the f32
-   body's beside it)
+   (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
+   f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
    training_bert, training_bert_dropout, transformer_layer,
    training_sparse) and their sum.
@@ -271,6 +278,10 @@ AUTOGRAD_F32_RTOL = 1e-4
 # as train_f32's bound (train_bert_f32, without dropout, reads ~1e-7 on
 # an H100)
 TRAIN_DROP_F32_LOSS_RTOL = 1e-5
+# flash decode (f32) vs its split plain version (flash_decode_split_reference:
+# the same chunks of 128 keys and the same combine, summed in another order
+# inside a chunk): a few f32 roundings of outputs below 1 in magnitude
+DECODE_SPLIT_TOL = 1e-6
 # the sparse slice: GPT-2 124M's attention (12 heads of 64) at the lengths
 # of the JAX package's long-context records, 8 layers, batch 1
 SPARSE_TS = (8192, 16384)
@@ -444,12 +455,20 @@ def check_flash_decode(torch, dev, flush):
         for masked in (False, True):
             q, kc, vc, pos, kpm = _decode_inputs(torch, dev, kv, masked, B, H, S, d)
             out = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
+            again = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
             ref = fd.flash_decode_reference(q, kc, vc, pos, key_padding_mask=kpm)
+            split = fd.flash_decode_split_reference(q, kc, vc, pos, key_padding_mask=kpm)
             torch.cuda.synchronize()
             qname = str(q.dtype).replace("torch.", "")
+            label = f"flash_decode {kv} masked={masked}"
             err, tol = max_err(out, ref), TOL[qname]
-            check(torch.isfinite(out).all().item(), f"flash_decode {kv} masked={masked}: non-finite")
-            check(err <= tol, f"flash_decode {kv} masked={masked}: max_err {err} > tol {tol}")
+            split_err = max_err(out, split)
+            check(torch.isfinite(out).all().item(), f"{label}: non-finite")
+            check(err <= tol, f"{label}: max_err {err} > tol {tol}")
+            check(torch.equal(out, again), f"{label}: differs between two launches")
+            if qname == "float32":
+                check(split_err <= DECODE_SPLIT_TOL, f"{label}: {split_err} from its split plain "
+                                                     f"version > {DECODE_SPLIT_TOL}")
             pos_h, kpm_h = pos.cpu(), (kpm.cpu() if kpm is not None else None)
             nbytes, flops = _decode_cost(kv, pos_h, kpm_h, B, H, S, d, q.element_size())
             b_ms, b_by = bound_ms(nbytes, flops, qname)
@@ -464,7 +483,9 @@ def check_flash_decode(torch, dev, flush):
             row = {
                 "phase": "kernel", "kernel": "flash_decode", "B": B, "H": H, "S": S, "d": d,
                 "kv": kv, "q_dtype": qname, "masked": masked, "pos": pos_h.tolist(),
-                "max_err": err, "tol": tol,
+                "max_err": err, "tol": tol, "split_plain_max_err": split_err,
+                "split_plain_tol": DECODE_SPLIT_TOL if qname == "float32" else None,
+                "splits": -(-S // fd.DECODE_CHUNK), "bitwise_repeatable": True,
                 "kernel_ms": device_ms(torch, lambda: fd.flash_decode_cuda(
                     q, kc, vc, pos, key_padding_mask=kpm), flush),
                 "plain_ms": device_ms(torch, lambda: fd.flash_decode_reference(
@@ -505,6 +526,7 @@ def check_flash_decode_paged(torch, dev, flush):
         table = perm[:B * P].reshape(B, P).to(torch.int32).to(dev)
         pos = torch.tensor([0, S - 1, 100, 511, 777, 1, 300, 1000], dtype=torch.int32, device=dev)
         out = fd.flash_decode_paged_cuda(q, kc, vc, table, pos)
+        again = fd.flash_decode_paged_cuda(q, kc, vc, table, pos)
         ref = fd.flash_decode_paged_reference(q, kc, vc, table, pos)
         b4 = fd.flash_decode_cuda(q, fd.paged_gather(kc, table), fd.paged_gather(vc, table), pos)
         torch.cuda.synchronize()
@@ -512,6 +534,7 @@ def check_flash_decode_paged(torch, dev, flush):
         err, tol = max_err(out, ref), TOL[qname]
         check(torch.isfinite(out).all().item(), f"flash_decode_paged {kv}: non-finite")
         check(err <= tol, f"flash_decode_paged {kv}: max_err {err} > tol {tol}")
+        check(torch.equal(out, again), f"flash_decode_paged {kv}: differs between two launches")
         check(torch.equal(out, b4), f"flash_decode_paged {kv}: differs from flash_decode over the "
                                     f"gathered view by {max_err(out, b4)} (one body: must be equal)")
         pos_h = pos.cpu()
@@ -533,6 +556,7 @@ def check_flash_decode_paged(torch, dev, flush):
             "phase": "kernel", "kernel": "flash_decode_paged", "B": B, "H": H, "P": P,
             "page_len": page_len, "num_pages": NP, "d": d, "kv": kv, "q_dtype": qname,
             "pos": pos_h.tolist(), "max_err": err, "tol": tol, "equal_to_flash_decode_gathered": True,
+            "bitwise_repeatable": True,
             "kernel_ms": device_ms(torch, lambda: fd.flash_decode_paged_cuda(q, kc, vc, table, pos),
                                    flush),
             "plain_ms": device_ms(torch, lambda: fd.flash_decode_paged_reference(
@@ -856,9 +880,23 @@ def phase_serve_paged_bf16(torch, params, mix):
 # phase 2 (training kernels): flash forward lse, flash backward, fused Adam
 # ---------------------------------------------------------------------------
 
+def _fwd_float64_fields(out, ref, exact, label):
+    """A bf16 forward's ``out`` (the kernel) and ``ref`` (its plain version)
+    against the float64 function of the same inputs ``exact`` (``(out,
+    lse)``, float64): the kernel within the bf16 tolerance (the output and
+    p rounded to bf16), the plain version read beside it."""
+    got = {who: float((x.double() - exact[0]).abs().max()) for who, x in (("kernel", out),
+                                                                        ("plain", ref))}
+    check(got["kernel"] <= TOL["bfloat16"],
+          f"{label}: {got['kernel']} from the float64 function > {TOL['bfloat16']}")
+    return {"kernel_vs_float64_max_err": got["kernel"], "plain_vs_float64_max_err": got["plain"]}
+
+
 def check_flash_fwd_training(torch, dev, flush):
     """B1 at the training shape with its lse (the residual the backward
-    consumes)."""
+    consumes); the bf16 kernel and its plain version are also read against
+    the float64 function of the same inputs (``flash_fwd_float64``), the
+    kernel held to the bf16 tolerance there too."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.attention import flash_attention as fa
@@ -873,12 +911,14 @@ def check_flash_fwd_training(torch, dev, flush):
     err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
     check(err <= TOL["bfloat16"], f"flash_fwd training shape: max_err {err}")
     check(lse_err <= 1e-4, f"flash_fwd training shape: lse max_err {lse_err} > 1e-4")
+    f64 = _fwd_float64_fields(out, ref, fa.flash_fwd_float64(q, k, v, True, scale),
+                              "flash_fwd training shape")
     b_ms, b_by = bound_ms(4 * B * H * T * d * 2 + B * H * T * 4, 4 * B * H * d * T * (T + 1) / 2,
                           "bfloat16")
     row = {
         "phase": "kernel", "kernel": "flash_fwd", "body": "tc", "B": B, "H": H, "T": T, "d": d,
         "dtype": "bfloat16", "causal": True, "lse": True, "max_err": err, "lse_max_err": lse_err,
-        "tol": TOL["bfloat16"], "lse_tol": 1e-4,
+        "tol": TOL["bfloat16"], "lse_tol": 1e-4, **f64,
         "kernel_ms": device_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True),
                                flush),
         "plain_ms": device_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, True, scale), flush,
@@ -1772,6 +1812,14 @@ def _check_splash_bodies(kernels, name, label):
         check(ran == {form: 2}, f"{label}: {kernel} ran {ran}, not {form} twice")
 
 
+def _check_splash_fwd_body(kernels, name, label):
+    """Since the last reset, two launches of B8 on the body q's type takes:
+    bf16 the tensor cores' (``splash_attn_tc.cu``), f32 the CUDA cores'."""
+    ran = kernels.launch_variants()["splash_fwd"]
+    form = "none/" + body(name)
+    check(ran == {form: 2}, f"{label}: splash_fwd ran {ran}, not {form} twice")
+
+
 def _splash_bf16_fields(fa, sp, got, ref, args, label):
     """The bf16 B9a/B9b gradients ``got`` (the tensor-core bodies) and the
     plain version's ``ref`` against the float64 function of the same inputs
@@ -1794,18 +1842,21 @@ def check_splash(torch, dev, flush):
     """B8 (splash_fwd, with lse), B9a (splash_bwd_dq) and B9b
     (splash_bwd_dkv) at the sparse main path's shapes, B=1, H=12, d=64, T
     8192 and 16384 with GPT-2's default sparse layout (unidirectional
-    BigBird, block 256, causal), in bf16 (B9a/B9b on their tensor-core
-    bodies) and f32: the forward against its plain version; the bf16
+    BigBird, block 256, causal), in bf16 (on their tensor-core bodies) and
+    f32: the forward against its plain version (the bf16 one also against
+    the float64 function, :func:`_fwd_float64_fields`); the bf16
     backward, kernels and plain version, against the float64 function
     within the bf16 contract's bound (:func:`_splash_bf16_fields`); the
     f32 backward against its plain version entry by entry
     (``sparse.splash_grad_bound``), and the f32 kernels and plain versions
-    against the float64 function (:func:`_splash_bwd_float64`); dq/dk/dv
-    the same bits over two launches, each launch on the body its dtype
-    takes, the lse of a row with no block +inf where the plain version's
-    is; then a per-head and an untouched-column layout at (1, 2, 1024,
-    64), block 256, whose empty columns' dk/dv must be exactly 0, and
-    BigBird at (1, 2, 1536, 64) with a block of 96, both dtypes.  Bound by operations over the
+    against the float64 function (:func:`_splash_bwd_float64`); out, lse
+    and dq/dk/dv the same bits over two launches, each launch on the body
+    its dtype takes, the lse of a row with no block +inf where the plain
+    version's is; then a per-head, an untouched-column and a
+    zero-degree-row layout at (1, 2, 1024, 64), block 256, whose empty
+    columns' dk/dv must be exactly 0 and whose empty rows' output 0, and
+    BigBird at (1, 2, 1536, 64) with a block of 96 and at (1, 2, 512, 64)
+    with a block of 16, both dtypes.  Bound by operations over the
     layout's scores (causal inside diagonal blocks): 4 d a score forward,
     6 d for the dq pass, 8 d for the dk/dv pass.  Library: SDPA with the
     layout expanded to a (1, 1, T, T) boolean mask, and its backward by
@@ -1836,15 +1887,27 @@ def check_splash(torch, dev, flush):
             g = torch.Generator(device=dev).manual_seed(T)
             q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(dtype)
                            for _ in range(4))
+            kernels.reset_launches()
             out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
+            out2, lse2 = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
             ref, ref_lse = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
             torch.cuda.synchronize()
+            _check_splash_fwd_body(kernels, name, f"splash_fwd T={T} {name}")
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"splash_fwd T={T} {name}: out or lse differs between two launches")
+            del out2, lse2
             fwd_err = max_err(out, ref)
             check(fwd_err <= tol, f"splash_fwd T={T} {name}: max_err {fwd_err} > {tol}")
             inf = torch.isinf(ref_lse)
             check(torch.equal(torch.isinf(lse), inf), f"splash_fwd T={T} {name}: +inf lse rows differ")
             lse_err = max_err(lse[~inf], ref_lse[~inf])
             check(lse_err <= 1e-4, f"splash_fwd T={T} {name}: lse max_err {lse_err} > 1e-4")
+            fwd_f64 = {}
+            if dtype == torch.bfloat16:
+                fwd_f64 = _fwd_float64_fields(
+                    out, ref, sp.splash_fwd_float64(q, k, v, layout, block, True, scale),
+                    f"splash_fwd T={T} {name}")
+                torch.cuda.empty_cache()
             del ref, ref_lse
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, layout, block, True, scale)
@@ -1910,7 +1973,7 @@ def check_splash(torch, dev, flush):
                 b_ms, b_by = bound_ms(nbytes, flops, name)
                 row = {
                     "phase": "kernel", "kernel": kernel, "layout": "bigbird-uni",
-                    "variant": "tc" if kernel != "splash_fwd" and name == "bfloat16" else "simt",
+                    "variant": body(name),
                     "block": block, "B": B, "H": H, "T": T, "d": d, "dtype": name,
                     "causal": True, "active_blocks_per_head": int(layout[0].sum()),
                     "scores": scores * B, "max_err": err, "tol": tol,
@@ -1921,6 +1984,8 @@ def check_splash(torch, dev, flush):
                 }
                 if kernel != "splash_fwd":
                     row.update({"max_err_dq_dk_dv": list(errs), **f64})
+                else:
+                    row.update({"lse_max_err": lse_err, "lse_tol": 1e-4, **fwd_f64})
                 rows[(kernel, T, name)] = row
                 emit(row)
                 torch.cuda.empty_cache()
@@ -1934,7 +1999,8 @@ def check_splash(torch, dev, flush):
     # also hold the next block's rows) ---------------------------------------
     small = {}
     for label, T, block in (("per-head", 1024, 256), ("untouched-columns", 1024, 256),
-                            ("bigbird-uni", 1536, 96)):
+                            ("zero-degree-row", 1024, 256), ("bigbird-uni", 1536, 96),
+                            ("bigbird-uni", 512, 16)):
         layout = (sp.BigBirdSparsityConfig(num_heads=2, block=block, attention="unidirectional")
                   .make_layout(T) if label == "bigbird-uni" else sp.check_layouts(T // block)[label])
         label = f"{label} block {block}"
@@ -1943,18 +2009,28 @@ def check_splash(torch, dev, flush):
             g = torch.Generator(device=dev).manual_seed(7)
             q, k, v, do = (torch.randn(1, 2, T, d, generator=g, device=dev).to(dtype)
                            for _ in range(4))
+            kernels.reset_launches()
             out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
-            ref, _ = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
+            out2, lse2 = sp.splash_fwd_cuda(q, k, v, layout, block, True, scale, want_lse=True)
+            ref, ref_lse = sp.splash_fwd_reference(q, k, v, layout, block, True, scale)
             delta = (do.float() * out.float()).sum(-1)
             args = (q, k, v, do, lse, delta, layout, block, True, scale)
-            kernels.reset_launches()
             got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
             refb = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
             torch.cuda.synchronize()
+            _check_splash_fwd_body(kernels, name, f"splash_fwd {label} {name}")
             _check_splash_bodies(kernels, name, f"splash {label} {name}")
             fwd_err = max_err(out, ref)
             check(fwd_err <= TOL[name], f"splash_fwd {label} {name}: max_err {fwd_err}")
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"splash_fwd {label} {name}: out or lse differs between two launches")
+            inf = torch.isinf(ref_lse)
+            check(torch.equal(torch.isinf(lse), inf), f"splash_fwd {label} {name}: +inf lse rows "
+                                                      f"differ")
+            lse_err = max_err(lse[~inf], ref_lse[~inf])
+            check(lse_err <= 1e-4, f"splash_fwd {label} {name}: lse max_err {lse_err} > 1e-4")
+            check(not out[inf].any(), f"splash_fwd {label} {name}: a row with no block is not 0")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"splash {label} {name}: gradients differ between two launches")
             if dtype == torch.bfloat16:
@@ -1968,9 +2044,11 @@ def check_splash(torch, dev, flush):
                 zero = max(float(x.reshape(1, 2, T // block, block, d)[:, h, c].abs().max())
                            for x in got[1:] for h, c in sp.UNTOUCHED_COLUMNS)
                 check(zero == 0.0, f"splash {label} {name}: an untouched column's dk/dv is {zero}")
-            small[(label, name)] = {"T": T, "fwd_max_err": fwd_err, "max_err_dq_dk_dv": errs,
+            small[(label, name)] = {"T": T, "fwd_max_err": fwd_err, "lse_max_err": lse_err,
+                                    "inf_lse_rows": int(inf.sum()), "max_err_dq_dk_dv": errs,
                                     "err_over_bound_dq_dk_dv": over, "empty_columns_max": zero}
-    emit({"phase": "kernel", "kernel": "splash (per-head, untouched columns, block 96)", "B": 1,
+    emit({"phase": "kernel", "kernel": "splash (per-head, untouched columns, zero-degree row, "
+                                       "blocks 96 and 16)", "B": 1,
           "H": 2, "d": d, "causal": True,
           "results": {f"{a}/{b}": r for (a, b), r in small.items()}})
     return rows
@@ -2569,7 +2647,7 @@ def phase_train_sparse_f32(torch):
             engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], params, config,
                                            batch, 3)
             out[name] = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
-                         "launches": kernels.launches()}
+                         "launches": kernels.launches(), "variants": kernels.launch_variants()}
         finally:
             gpt2.block_sparse_attention = sp.block_sparse_attention
         del engine
@@ -2577,6 +2655,9 @@ def phase_train_sparse_f32(torch):
     kl, gl = out["kernels"]["launches"], out["gather"]["launches"]
     check(kl["splash_fwd"] > 0 and kl["splash_bwd_dq"] > 0 and kl["splash_bwd_dkv"] > 0
           and gl["splash_fwd"] == 0, f"train_sparse_f32: splash launches {kl} / {gl}")
+    for name in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):  # the CUDA-core bodies only
+        ran = out["kernels"]["variants"][name]
+        check(ran == {"none/simt": kl[name]}, f"train_sparse_f32: {name} ran {ran}")
     k, p = out["kernels"]["losses"], out["gather"]["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(k, p)]
     check(all(np.isfinite(k)) and all(np.isfinite(p)), f"train_sparse_f32: non-finite loss {k} / {p}")
@@ -2640,7 +2721,7 @@ def phase_train_sparse_bf16(torch):
                         "splash_bwd_dkv": SPARSE_LAYERS * steps}
                 got = {n: launches[n] for n in want}
                 check(got == want, f"train_sparse_bf16 T={T}: splash launches {got}, want {want}")
-                for name in ("splash_bwd_dq", "splash_bwd_dkv"):  # the tensor-core bodies only
+                for name in want:  # the tensor-core bodies only
                     check(variants[name] == {"none/tc": want[name]},
                           f"train_sparse_bf16 T={T}: {name} ran {variants[name]}")
                 check(launches["fused_adam"] > 0 and launches["flash_fwd"] == 0

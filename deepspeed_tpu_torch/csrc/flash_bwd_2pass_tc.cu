@@ -92,7 +92,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = blockIdx.x * kBQ;
   tc::bwd::q_tile_walk<D, EXT, DROP>(q, k, v, dout, lse, delta, e, dq, blockIdx.y, q0,
                                      min(kBQ, sq - q0), sq, sk, causal, sm_scale,
-                                     tc::bwd::DenseKTiles(q0, sq, sk, causal));
+                                     tc::DenseKTiles(q0, sq, sk, causal));
 }
 
 // B6b: the key-tile walk of flash_tc.cuh without dq, over B2's q tiles

@@ -10,7 +10,7 @@
 // flash_decode_paged_cuda.
 //
 // Contract (the same as the Pallas kernels'):
-//   q (B, H, 1, d) f32|bf16; pos (B,) int32.
+//   q (B, H, 1, d) f32|bf16; pos (B,) int32; d 16, 32, 64 or 128.
 //   B4: K/V caches (B, H, S, d) in q's type, or int8 codes with
 //     (B, H, S, 1) f32 per-row scales; optional key-padding mask (B, S)
 //     uint8 (nonzero = attendable).
@@ -32,46 +32,44 @@
 // What bounds it: device-memory bytes.  Each step reads every attendable
 // key and value row once (2 * (pos+1) * d * itemsize per slot and head)
 // and does ~4 flops per byte, far below the H100's ~295 flops per byte.
-// The page table adds 4 bytes per page; B5 reads a slot's table row once
-// per block into shared memory, so the per-key address costs one shared
-// load, one divide and no extra device-memory traffic.
+// The page table adds 4 bytes per page.
 //
-// Design: one block per (slot, head), 16 warps.  Only keys j <= pos[b]
-// are read, so an idle or short slot costs nothing beyond its prefix
-// (and the garbage page behind a paged slot's position mask is never
-// touched).  Warp w takes keys w, w + 16, ...; it loads 4 keys' K and V
-// rows before it reduces any of them, so each warp keeps several row
-// loads in flight (the 96 blocks of the serving shape are fewer than the
-// card's 132 SMs, so per-warp memory parallelism is what feeds the
-// bandwidth).  Lanes split a row's d elements, so a row load is one
-// coalesced access.  Each warp keeps its own online-softmax state (m, l,
-// acc); the 16 states are merged through shared memory at the end.
-// Fixed sizes, no autotuning.  Because B4 and B5 share the body and the
-// key order, B5 over a page pool equals B4 over the gathered contiguous
-// view bit for bit.  On an H100 this design reaches ~7 % of the bytes
-// bound at the serving shape (PERF.md): one 2-byte (bf16) or 1-byte
-// (int8) load per lane per element, with half the lanes idle at d = 64,
-// so load instructions and their latency, not bytes, bound it; 16-byte
-// vector loads are the next step.
+// Design (FlashDecoding's split over keys): the keys of each (slot, head)
+// are cut into chunks of kChunk, and one block of four warps takes one
+// (chunk, slot * head); the grid is sized from S on the host, never from
+// pos.  A block whose chunk starts past the row's last key (pos[b], or S
+// - 1 where the row has no attendable key at all) writes an empty record
+// and returns, so an idle or short slot costs little and the garbage page
+// behind a paged slot's position mask is never read.  Inside a block each
+// warp takes 32 consecutive keys, and a lane loads 16 bytes of a row (8
+// bf16 elements, 4 f32 or 16 int8 codes): a row is d * itemsize / 16
+// lanes (8 for a d-64 bf16 row, so one warp-wide load brings four rows),
+// each lane keeps up to eight rows' K and V loads in flight before it
+// reduces any, and a row's dot is summed by shuffles within its lane
+// group.  Each lane group keeps its own online-softmax state (m, l, acc);
+// the groups of a warp merge by a shuffle butterfly, the four warps
+// through shared memory in warp order, and the block writes its (acc[d],
+// m, l) to an f32 workspace (B*H, splits, d + 2).  A second kernel
+// combines each row's records in split order and writes out.  Nothing is
+// summed by atomics, so every launch gives the same bits; because B4 and
+// B5 share the body, the chunk boundaries and the key order, B5 over a
+// page pool equals B4 over the gathered contiguous view bit for bit.
+// Fixed sizes, no autotuning.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 16;
+constexpr int kChunk = 128;  // keys a block takes (deepspeed_tpu_torch: DECODE_CHUNK)
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;        // keys loaded per warp before reducing
-constexpr int kMaxD = 128;
-constexpr int kPerLane = kMaxD / 32;
-constexpr float kMask = -1e30f;   // the JAX version's NEG_INF
-// page-table entries a block stages: 8 K ints, with the 8.3 KB of static
-// shared memory below the 48 KB a block gets without opting in
-constexpr int kMaxPages = 8192;
+constexpr int kPerWarp = kChunk / kWarps;  // consecutive keys a warp takes
+constexpr float kMask = -1e30f;            // the JAX version's NEG_INF
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float widen(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T narrow(float x);
 template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
@@ -79,10 +77,42 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// 16 bytes of a K/V row: N elements of T, widened to f32 exactly
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void widen(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void widen(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int i = 0; i < 4; ++i) {  // a bf16 is the high half of its f32
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Vec<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void widen(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * i + j] = static_cast<float>(static_cast<int>(w[i] << (24 - 8 * j)) >> 24);
+  }
+};
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
 // Row addressing of key j of one (slot, head): row r of K/V starts at
@@ -93,244 +123,340 @@ struct ContiguousRows {  // B4: the (B, H, S, d) cache, row0 = (b * H + h) * S
 };
 
 struct PagedRows {  // B5: the (num_pages, H, page_len, d) pool via the slot's table
-  const int* table;  // the slot's page-table row, staged in shared memory
+  const int* table;  // the chunk's page-table entries, staged in shared memory
+  int p0;            // the page of table[0]
   size_t h;
   int H, page_len;
   __device__ __forceinline__ size_t operator()(int j) const {
-    return (static_cast<size_t>(table[j / page_len]) * H + h) * page_len + j % page_len;
+    return (static_cast<size_t>(table[j / page_len - p0]) * H + h) * page_len + j % page_len;
   }
 };
 
-// The decode of one (slot, head) by one block: walks keys 0..n-1 in the
-// order described above and writes out[bh, :].  S is the logical cache
-// length (B5: P * page_len), rows maps a key to its row.
-template <typename TQ, typename TKV, bool QUANT, typename Rows>
-__device__ __forceinline__ void decode_one(const TQ* __restrict__ q, const TKV* __restrict__ k,
-                                           const TKV* __restrict__ v, const float* __restrict__ ks,
-                                           const float* __restrict__ vs, int pos_b,
-                                           const uint8_t* __restrict__ mask_row,
-                                           TQ* __restrict__ out, size_t bh, int S, int d,
-                                           float sm_scale, Rows rows) {
-  __shared__ float sh_m[kWarps];
-  __shared__ float sh_l[kWarps];
-  __shared__ float sh_acc[kWarps][kMaxD];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// The keys the row attends: [0, n), n = pos[b] + 1 (at most S) where the
+// row has an attendable key, else all S (every score then masked, the
+// softmax uniform).  Block-uniform.
+__device__ __forceinline__ int row_keys(int pos_b, const uint8_t* __restrict__ mask_row, int S,
+                                        int* any_out) {
   const int last = min(pos_b, S - 1);
-
-  // Does the row have any attendable key?  (block-uniform branch)
   int any = last >= 0;
   if (mask_row != nullptr && any) {
     int mine = 0;
+#pragma unroll 8
     for (int j = threadIdx.x; j <= last; j += kThreads) mine |= mask_row[j] != 0;
     any = __syncthreads_or(mine);
   }
-  // With none, every score is kMask and the softmax is uniform over S.
-  const int n = any ? last + 1 : S;
+  *any_out = any;
+  return any ? last + 1 : S;
+}
 
-  float qr[kPerLane], acc[kPerLane];
+// One block's share of one (slot, head): keys [c0, c1) of the n the row
+// attends, c0 = split * kChunk < n.  Writes the block's record (acc[D], m,
+// l) of the softmax over those keys, in base e, to rec.
+template <typename TQ, typename TKV, bool QUANT, int D, typename Rows>
+__device__ __forceinline__ void decode_chunk(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                                             const TKV* __restrict__ v,
+                                             const float* __restrict__ ks,
+                                             const float* __restrict__ vs, int any,
+                                             const uint8_t* __restrict__ mask_row, int bh, int c0,
+                                             int c1, float sm_scale, Rows rows,
+                                             float* __restrict__ rec) {
+  using VT = Vec<TKV>;
+  constexpr int V = VT::N;          // elements a lane loads
+  constexpr int L = D / V;          // lanes of a row
+  constexpr int R = 32 / L;         // rows of one warp-wide load
+  constexpr int U = L < 8 ? L : 8;  // row loads a lane keeps in flight
+  constexpr int kStep = R * U;      // keys a warp takes a step
+  static_assert(D % V == 0 && L >= 1 && L <= 32 && 32 % L == 0, "a row is 1..32 lanes");
+  static_assert(kPerWarp % kStep == 0, "a warp's keys are whole steps");
+  __shared__ float sh_m[kWarps], sh_l[kWarps], sh_acc[kWarps][D];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / L, li = lane % L;  // the lane's row in a load, its 16 bytes of it
+
+  float qv[V], acc[V];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int e = lane + 32 * i;
-    qr[i] = e < d ? widen(q[bh * d + e]) : 0.f;
-    acc[i] = 0.f;
+  for (int x = 0; x < V; ++x) {
+    qv[x] = widen(q[static_cast<size_t>(bh) * D + li * V + x]);
+    acc[x] = 0.f;
   }
   float m = kMask, l = 0.f;
 
-  for (int j0 = warp; j0 < n; j0 += kWarps * kUnroll) {
-    float kr[kUnroll][kPerLane], vr[kUnroll][kPerLane];
-    size_t row[kUnroll];
+  const int w0 = c0 + warp * kPerWarp;
+  const int w1 = min(w0 + kPerWarp, c1);
+  for (int j0 = w0; j0 < w1; j0 += kStep) {
+    uint4 kr[U], vr[U];
+    size_t row[U];
+    bool keep[U];  // the key-padding mask's bytes, loaded with the rows
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kWarps;
-      row[u] = rows(min(j, n - 1));
-      const size_t off = row[u] * d;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int e = lane + 32 * i;
-        kr[u][i] = (j < n && e < d) ? widen(k[off + e]) : 0.f;
-        vr[u][i] = (j < n && e < d) ? widen(v[off + e]) : 0.f;
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * R + grp;
+      row[u] = rows(min(j, c1 - 1));
+      keep[u] = any;
+      if (j < c1) {
+        kr[u] = load16(k + row[u] * D + li * V);
+        vr[u] = load16(v + row[u] * D + li * V);
+        if (mask_row != nullptr) keep[u] = keep[u] && mask_row[j] != 0;
+      } else {
+        kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
-    float s[kUnroll];
+    float s[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
+      float kf[V];
+      VT::widen(kr[u], kf);
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < kPerLane; ++i) part += qr[i] * kr[u][i];
-      s[u] = warp_sum(part);
+      for (int x = 0; x < V; ++x) part += qv[x] * kf[x];
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+      s[u] = part;
     }
     float m_new = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kWarps;
-      if (j < n) {
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * R + grp;
+      if (j < c1) {
         float sj = s[u] * sm_scale;
         if (QUANT) sj *= ks[row[u]];
-        const bool allowed = any && (mask_row == nullptr || mask_row[j] != 0);
-        s[u] = allowed ? sj : kMask;
+        s[u] = keep[u] ? sj : kMask;
         m_new = fmaxf(m_new, s[u]);
       }
     }
     const float alpha = expf(m - m_new);
-    float p[kUnroll];
+    float p[U];
     float psum = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u * kWarps;
-      p[u] = j < n ? expf(s[u] - m_new) : 0.f;
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * R + grp;
+      p[u] = j < c1 ? expf(s[u] - m_new) : 0.f;
       psum += p[u];
-      if (QUANT && j < n) p[u] *= vs[row[u]];
+      if (QUANT && j < c1) p[u] *= vs[row[u]];
     }
     l = alpha * l + psum;
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      float a = acc[i] * alpha;
+    for (int x = 0; x < V; ++x) acc[x] *= alpha;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) a += p[u] * vr[u][i];
-      acc[i] = a;
+    for (int u = 0; u < U; ++u) {
+      float vf[V];
+      VT::widen(vr[u], vf);
+#pragma unroll
+      for (int x = 0; x < V; ++x) acc[x] += p[u] * vf[x];
     }
   }
 
-  if (lane == 0) {
-    sh_m[warp] = m;
-    sh_l[warp] = l;
-  }
+  // the warp's lane groups merge by a butterfly; every group ends with the
+  // warp's state (a group with no key holds m = kMask, l = 0 and weighs 0)
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int e = lane + 32 * i;
-    if (e < d) sh_acc[warp][e] = acc[i];
+  for (int off = L; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+    const float big = fmaxf(m, mo);
+    const float a = expf(m - big), b = expf(mo - big);
+    l = l * a + lo * b;
+#pragma unroll
+    for (int x = 0; x < V; ++x) acc[x] = acc[x] * a + __shfl_xor_sync(0xffffffffu, acc[x], off) * b;
+    m = big;
+  }
+  if (lane < L) {
+#pragma unroll
+    for (int x = 0; x < V; ++x) sh_acc[warp][li * V + x] = acc[x];
+    if (lane == 0) {
+      sh_m[warp] = m;
+      sh_l[warp] = l;
+    }
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < d; e += kThreads) {
+  // the four warps in warp order; a split whose keys are all masked, in a
+  // row that has a real key, weighs exp(-1e30 - M) = 0 in the combine
+  for (int e = threadIdx.x; e < D; e += kThreads) {
     float big = kMask;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) big = fmaxf(big, sh_m[w]);
     float tot_l = 0.f, tot_a = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
       const float c = expf(sh_m[w] - big);
       tot_l += c * sh_l[w];
       tot_a += c * sh_acc[w][e];
     }
-    if (tot_l == 0.f) tot_l = 1.f;
-    out[bh * d + e] = narrow<TQ>(tot_a / tot_l);
+    rec[e] = tot_a;
+    if (e == 0) {
+      rec[D] = big;
+      rec[D + 1] = tot_l;
+    }
   }
 }
 
-// B4: one block per (slot, head) of the slot-contiguous cache.
-template <typename TQ, typename TKV, bool QUANT>
+// an empty record: the chunk lies past the row's last key
+__device__ __forceinline__ void empty_record(float* rec, int D) {
+  if (threadIdx.x == 0) {
+    rec[D] = -INFINITY;
+    rec[D + 1] = 0.f;
+  }
+}
+
+// B4: one block per (chunk, slot * head) of the slot-contiguous cache.
+template <typename TQ, typename TKV, bool QUANT, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ pos,
-                    const uint8_t* __restrict__ kpm, TQ* __restrict__ out,
-                    int H, int S, int d, float sm_scale) {
-  const size_t bh = blockIdx.x;
-  const int b = blockIdx.x / H;
-  decode_one<TQ, TKV, QUANT>(q, k, v, ks, vs, pos[b],
-                             kpm ? kpm + static_cast<size_t>(b) * S : nullptr, out, bh, S, d,
-                             sm_scale, ContiguousRows{bh * S});
+                    const uint8_t* __restrict__ kpm, float* __restrict__ ws, int H, int S,
+                    int splits, float sm_scale) {
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H;
+  float* rec = ws + (static_cast<size_t>(bh) * splits + split) * (D + 2);
+  const uint8_t* mask_row = kpm ? kpm + static_cast<size_t>(b) * S : nullptr;
+  int any;
+  const int n = row_keys(pos[b], mask_row, S, &any);
+  const int c0 = split * kChunk;
+  if (c0 >= n) return empty_record(rec, D);
+  decode_chunk<TQ, TKV, QUANT, D>(q, k, v, ks, vs, any, mask_row, bh, c0, min(c0 + kChunk, n),
+                                  sm_scale, ContiguousRows{static_cast<size_t>(bh) * S}, rec);
 }
 
-// B5: one block per (slot, head) of the page pool.  The slot's table row
-// (P entries) is staged in dynamic shared memory first, each entry
-// clamped into [0, num_pages): an entry outside the pool (which the
-// caller must not pass) then reads a wrong page, never memory outside
-// the pool.  (A trap on such an entry cost ~10 us at the serving shape.)
-template <typename TQ, typename TKV, bool QUANT>
+// B5: one block per (chunk, slot * head) of the page pool.  The chunk's
+// page-table entries are staged in shared memory first, each clamped into
+// [0, num_pages): an entry outside the pool (which the caller must not
+// pass) then reads a wrong page, never memory outside the pool.
+template <typename TQ, typename TKV, bool QUANT, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_paged_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                           const TKV* __restrict__ v, const float* __restrict__ ks,
                           const float* __restrict__ vs, const int* __restrict__ table,
-                          const int* __restrict__ pos, TQ* __restrict__ out, int H, int P,
-                          int page_len, int num_pages, int d, float sm_scale) {
-  extern __shared__ int sh_table[];
-  const size_t bh = blockIdx.x;
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  for (int i = threadIdx.x; i < P; i += kThreads)
-    sh_table[i] = min(max(table[static_cast<size_t>(b) * P + i], 0), num_pages - 1);
+                          const int* __restrict__ pos, float* __restrict__ ws, int H, int P,
+                          int page_len, int num_pages, int splits, float sm_scale) {
+  __shared__ int sh_table[kChunk + 1];  // a chunk spans at most kChunk + 1 pages
+  const int split = blockIdx.x, bh = blockIdx.y, b = bh / H, h = bh % H;
+  float* rec = ws + (static_cast<size_t>(bh) * splits + split) * (D + 2);
+  const int S = P * page_len;
+  int any;
+  const int n = row_keys(pos[b], nullptr, S, &any);
+  const int c0 = split * kChunk;
+  if (c0 >= n) return empty_record(rec, D);
+  const int c1 = min(c0 + kChunk, n);
+  const int p0 = c0 / page_len, np = (c1 - 1) / page_len + 1 - p0;
+  for (int i = threadIdx.x; i < np; i += kThreads)
+    sh_table[i] = min(max(table[static_cast<size_t>(b) * P + p0 + i], 0), num_pages - 1);
   __syncthreads();
-  decode_one<TQ, TKV, QUANT>(q, k, v, ks, vs, pos[b], nullptr, out, bh, P * page_len, d,
-                             sm_scale, PagedRows{sh_table, static_cast<size_t>(h), H, page_len});
+  decode_chunk<TQ, TKV, QUANT, D>(q, k, v, ks, vs, any, nullptr, bh, c0, c1, sm_scale,
+                                  PagedRows{sh_table, p0, static_cast<size_t>(h), H, page_len},
+                                  rec);
 }
 
-template <typename TQ, typename TKV, bool QUANT>
-int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* pos, const void* kpm, void* out, int B, int H, int S, int d,
-           float sm_scale, cudaStream_t stream) {
-  flash_decode_kernel<TQ, TKV, QUANT><<<B * H, kThreads, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(pos), static_cast<const uint8_t*>(kpm),
-      static_cast<TQ*>(out), H, S, d, sm_scale);
+// The combine: one block per slot * head merges the row's records in split
+// order (an empty record, m = -inf, is skipped) and writes out.
+template <typename TQ, int D>
+__global__ void __launch_bounds__(D)
+decode_combine_kernel(const float* __restrict__ ws, TQ* __restrict__ out, int splits) {
+  const int bh = blockIdx.x, e = threadIdx.x;
+  const float* recs = ws + static_cast<size_t>(bh) * splits * (D + 2);
+  float big = -INFINITY;
+  for (int s = 0; s < splits; ++s) big = fmaxf(big, recs[s * (D + 2) + D]);
+  float tot_l = 0.f, tot_a = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float ms = recs[s * (D + 2) + D];
+    if (ms == -INFINITY) continue;
+    const float c = expf(ms - big);
+    tot_l += c * recs[s * (D + 2) + D + 1];
+    tot_a += c * recs[s * (D + 2) + e];
+  }
+  out[static_cast<size_t>(bh) * D + e] = narrow<TQ>(tot_a / (tot_l == 0.f ? 1.f : tot_l));
+}
+
+// the arguments every launch passes on unchanged
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *pos;
+  const void* kpm;    // B4's key-padding mask (may be null)
+  const void* table;  // B5's page table
+  float* ws;
+  void* out;
+  int B, H, S, splits;
+  int P, page_len, num_pages;  // B5
+  float sm_scale;
+  cudaStream_t st;
+};
+
+template <typename TQ, typename TKV, bool QUANT, int D, bool PAGED>
+int launch(const Args& a) {
+  dim3 grid(a.splits, a.B * a.H);
+  if constexpr (PAGED) {
+    flash_decode_paged_kernel<TQ, TKV, QUANT, D><<<grid, kThreads, 0, a.st>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
+        static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+        static_cast<const int*>(a.table), static_cast<const int*>(a.pos), a.ws, a.H, a.P,
+        a.page_len, a.num_pages, a.splits, a.sm_scale);
+  } else {
+    flash_decode_kernel<TQ, TKV, QUANT, D><<<grid, kThreads, 0, a.st>>>(
+        static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
+        static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+        static_cast<const int*>(a.pos), static_cast<const uint8_t*>(a.kpm), a.ws, a.H, a.S,
+        a.splits, a.sm_scale);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_combine_kernel<TQ, D><<<a.B * a.H, D, 0, a.st>>>(a.ws, static_cast<TQ*>(a.out), a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV, bool QUANT>
-int launch_paged(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                 const void* table, const void* pos, void* out, int B, int H, int P,
-                 int page_len, int num_pages, int d, float sm_scale, cudaStream_t stream) {
-  flash_decode_paged_kernel<TQ, TKV, QUANT>
-      <<<B * H, kThreads, P * sizeof(int), stream>>>(
-          static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-          static_cast<const float*>(ks), static_cast<const float*>(vs),
-          static_cast<const int*>(table), static_cast<const int*>(pos), static_cast<TQ*>(out),
-          H, P, page_len, num_pages, d, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+template <int D, bool PAGED>
+int dispatch_types(const Args& a, int q_dtype, int kv_dtype) {
+  using bf16 = __nv_bfloat16;
+  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, false, D, PAGED>(a);
+  if (q_dtype == 1 && kv_dtype == 1) return launch<bf16, bf16, false, D, PAGED>(a);
+  if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t, true, D, PAGED>(a);
+  if (q_dtype == 1 && kv_dtype == 2) return launch<bf16, int8_t, true, D, PAGED>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool PAGED>
+int entry(const Args& a, int d, int q_dtype, int kv_dtype) {
+  if (a.B < 1 || a.H < 1 || a.S < 1 || static_cast<long long>(a.B) * a.H > 65535 ||
+      a.splits != (a.S + kChunk - 1) / kChunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte row loads: the caches and the workspace start on a 16-byte boundary
+  if ((reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v)) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  switch (d) {
+    case 16: return dispatch_types<16, PAGED>(a, q_dtype, kv_dtype);
+    case 32: return dispatch_types<32, PAGED>(a, q_dtype, kv_dtype);
+    case 64: return dispatch_types<64, PAGED>(a, q_dtype, kv_dtype);
+    case 128: return dispatch_types<128, PAGED>(a, q_dtype, kv_dtype);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q_dtype: 0 float32, 1 bfloat16.  kv_dtype: 0 float32, 1 bfloat16, 2 int8
-// (then ks/vs are the f32 scales).  kpm may be null.  Returns a cudaError_t.
-extern "C" int ds_flash_decode(const void* q, const void* k, const void* v,
-                               const void* ks, const void* vs, const void* pos,
-                               const void* kpm, void* out, int B, int H, int S, int d,
-                               int q_dtype, int kv_dtype, float sm_scale, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float, false>(q, k, v, ks, vs, pos, kpm, out, B, H, S, d, sm_scale, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(q, k, v, ks, vs, pos, kpm, out, B, H, S, d,
-                                                       sm_scale, st);
-  if (q_dtype == 0 && kv_dtype == 2)
-    return launch<float, int8_t, true>(q, k, v, ks, vs, pos, kpm, out, B, H, S, d, sm_scale, st);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return launch<__nv_bfloat16, int8_t, true>(q, k, v, ks, vs, pos, kpm, out, B, H, S, d,
-                                               sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// (then ks/vs are the f32 scales).  kpm may be null.  k and v start on a
+// 16-byte boundary; ws is the f32 workspace (B*H, splits, d + 2) with
+// splits = ceil(S / 128).  Two kernel launches on the stream.  Returns a
+// cudaError_t.
+extern "C" int ds_flash_decode(const void* q, const void* k, const void* v, const void* ks,
+                               const void* vs, const void* pos, const void* kpm, void* ws,
+                               void* out, int B, int H, int S, int splits, int d, int q_dtype,
+                               int kv_dtype, float sm_scale, void* stream) {
+  const Args a{q, k, v, ks, vs, pos, kpm, nullptr, static_cast<float*>(ws), out, B, H, S, splits,
+               0, 0, 0, sm_scale, static_cast<cudaStream_t>(stream)};
+  return entry<false>(a, d, q_dtype, kv_dtype);
 }
 
 // The paged form: k/v (and ks/vs) are pools of num_pages pages, table is
-// (B, P) int32 with every entry in [0, num_pages).  P is bounded by the
-// 48 KB of shared memory a block gets without opting in (the table row
-// lives there).  Returns a cudaError_t.
-extern "C" int ds_flash_decode_paged(const void* q, const void* k, const void* v,
-                                     const void* ks, const void* vs, const void* table,
-                                     const void* pos, void* out, int B, int H, int P,
-                                     int page_len, int num_pages, int d, int q_dtype,
-                                     int kv_dtype, float sm_scale, void* stream) {
-  if (B < 1 || H < 1 || P < 1 || P > kMaxPages || page_len < 1 || num_pages < 1 || d < 1 ||
-      d > kMaxD)
+// (B, P) int32 with every entry in [0, num_pages); ws as ds_flash_decode's
+// with S = P * page_len.  Returns a cudaError_t.
+extern "C" int ds_flash_decode_paged(const void* q, const void* k, const void* v, const void* ks,
+                                     const void* vs, const void* table, const void* pos, void* ws,
+                                     void* out, int B, int H, int P, int page_len, int num_pages,
+                                     int splits, int d, int q_dtype, int kv_dtype, float sm_scale,
+                                     void* stream) {
+  if (P < 1 || page_len < 1 || num_pages < 1 || static_cast<long long>(P) * page_len > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch_paged<float, float, false>(q, k, v, ks, vs, table, pos, out, B, H, P, page_len,
-                                             num_pages, d, sm_scale, st);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch_paged<__nv_bfloat16, __nv_bfloat16, false>(q, k, v, ks, vs, table, pos, out, B,
-                                                             H, P, page_len, num_pages, d,
-                                                             sm_scale, st);
-  if (q_dtype == 0 && kv_dtype == 2)
-    return launch_paged<float, int8_t, true>(q, k, v, ks, vs, table, pos, out, B, H, P, page_len,
-                                             num_pages, d, sm_scale, st);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return launch_paged<__nv_bfloat16, int8_t, true>(q, k, v, ks, vs, table, pos, out, B, H, P,
-                                                     page_len, num_pages, d, sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, ks, vs, pos, nullptr, table, static_cast<float*>(ws), out, B, H,
+               P * page_len, splits, P, page_len, num_pages, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return entry<true>(a, d, q_dtype, kv_dtype);
 }
 
 extern "C" const char* ds_error_string(int err) {

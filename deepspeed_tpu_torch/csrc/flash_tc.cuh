@@ -1,10 +1,14 @@
 // Hopper tensor-core building blocks shared by the bf16 attention bodies:
-// flash_fwd_tc.cu (B1: TMA loads into a ring of stages guarded by
-// mbarriers, wgmma products), flash_bwd_tc.cu (B2: cp.async loads,
-// ldmatrix and mma.sync products), flash_bwd_2pass_tc.cu (B6a, B6b: the
-// same) and splash_attn_tc.cu (B9a, B9b: the same), and the backward's two
-// tile walks (tc::bwd::kv_tile_walk: B2, B6b, B9b; tc::bwd::q_tile_walk:
-// B6a, B9a; below).  Inline PTX only, so a source that includes this
+// flash_fwd_tc.cu (B1) and splash_attn_tc.cu's forward (B8), which run the
+// forward's q-tile walk below (tc::fwd::q_tile_walk: TMA loads into a ring
+// of stages guarded by mbarriers, wgmma products), flash_bwd_tc.cu (B2:
+// cp.async loads, ldmatrix and mma.sync products), flash_bwd_2pass_tc.cu
+// (B6a, B6b: the same) and splash_attn_tc.cu's backward (B9a, B9b: the
+// same), and the backward's two tile walks (tc::bwd::kv_tile_walk: B2, B6b,
+// B9b; tc::bwd::q_tile_walk: B6a, B9a; below).  A walk over key (or q)
+// tiles takes them from a source (tc::DenseKTiles, tc::ListTiles,
+// tc::bwd::DenseQTiles), so a dense attention and a layout's listed tiles
+// run the same loop.  Inline PTX only, so a source that includes this
 // header needs no CUTLASS and builds in seconds.
 //
 // Fragment layouts (a warp's 16 x 8 tile of mma.sync m16n8k16, and each
@@ -235,6 +239,396 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// ---------------------------------------------------------------------------
+// Key-tile sources of the q-tile walks (tc::fwd::q_tile_walk and
+// tc::bwd::q_tile_walk; ListTiles also feeds kv_tile_walk's q tiles): the
+// number of tiles, the i-th tile's first row r0(i) and its valid rows n(i).
+// A tile with fewer than 64 valid rows (where T or a layout block ends) is
+// masked past them: its other rows are zeros past T or the next block's.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileRows = 64;  // the rows of every tile the walks move
+
+// a dense attention's key tiles for the q tile at q0, up to the causal bound
+// of its last row (end-aligned: query row i sits at key position (sk - sq) + i)
+struct DenseKTiles {
+  int count, sk;
+  __device__ __forceinline__ DenseKTiles(int q0, int sq, int sk_, int causal) : sk(sk_) {
+    const int end = causal ? min(sk, max(0, (sk - sq) + q0 + kTileRows)) : sk;
+    count = (end + kTileRows - 1) / kTileRows;
+  }
+  __device__ __forceinline__ int r0(int i) const { return i * kTileRows; }
+  __device__ __forceinline__ int n(int i) const { return min(kTileRows, sk - r0(i)); }
+};
+
+// tiles listed in shared memory by their first rows, each a 64-row tile of
+// a layout block of `block` rows (shorter where the block ends)
+struct ListTiles {
+  const int* rows;
+  int count, block;
+  __device__ __forceinline__ int r0(int i) const { return rows[i]; }
+  __device__ __forceinline__ int n(int i) const { return min(kTileRows, block - rows[i] % block); }
+};
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// The bf16 attention forward's walk (B1, B8): one block of 160 threads owns
+// a 64-row q tile and walks the key tiles of a source.  Warp 4 is the
+// producer: one lane loads the Q tile once and keeps the source's K/V tiles
+// in flight through TMA into a ring of four stages (three at d 128), each
+// guarded by a "full" mbarrier (transaction bytes) and an "empty" one (the
+// consumers' 128 arrivals).  Warps 0-3 are one consumer warpgroup owning the
+// 64 query rows: S = Q.K^T by wgmma m64n64k16 with both operands in shared
+// memory; the scale, bias, mask, online softmax (base 2, on the
+// special-function unit) and keep factor on the accumulator fragments in
+// registers; P rounded to bf16 in registers and used as the A operand of
+// O += P.V by wgmma m64n{d}k16 with V read transposed from shared memory.
+// The next tile's S and this tile's P.V are issued together, and the next
+// tile's softmax runs while P.V is on the tensor cores (FlashAttention-3's
+// overlap within a warpgroup); nothing is in flight across an iteration, so
+// the compiler keeps the products asynchronous.  Every score stays on chip;
+// only tiles with fewer than 64 valid keys or that cross the causal
+// diagonal are masked.  Tensor maps are 3-D (d, T, B*H), so any row can
+// start a tile (a layout's listed tiles too) and rows past T arrive as
+// zeros, never as the next head's rows.  The tiles are stored as TMA writes
+// them with the 128-byte swizzle (64-byte at d 32, 32-byte at d 16; d 128
+// as two 64-column sub-tiles), and the wgmma descriptors name the same
+// swizzle.  The rounding points are flash_fwd_tc.cu's.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+namespace fwd {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = kTileRows;
+constexpr int kBK = kTileRows;
+constexpr int kThreads = 160;  // one consumer warpgroup and the producer warp
+
+// the shared-memory layout of a 64-row tile of head dim D
+template <int D>
+struct Tile {
+  static constexpr int kW = D > 64 ? 64 : D;                 // columns in a sub-tile
+  static constexpr int kRowBytes = kW * 2;                    // the swizzle width
+  static constexpr int kSubs = D / kW;                        // sub-tiles (2 at d 128)
+  static constexpr int kSubBytes = 64 * kRowBytes;
+  static constexpr int kBytes = kSubs * kSubBytes;
+  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  // K/V ring depth: a stage is released after its P.V, which overlaps the
+  // next tile's softmax, so three or four stages keep the loads ahead
+  static constexpr int kStages = D > 64 ? 3 : 4;
+  // Q, the K/V ring, and the slack that aligns them to 1024 bytes (the
+  // swizzle pattern repeats every 1024 bytes); a caller may keep more
+  // dynamic shared memory past kSmem
+  static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024;
+
+  // A or B operand stored K-major (d contiguous): the 16 columns of k-step kk
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    const int byte = kk * 32;
+    return wgmma_desc(base + (byte / kRowBytes) * kSubBytes + byte % kRowBytes, 16,
+                      8 * kRowBytes, kLayout);
+  }
+  // B operand stored MN-major (V: keys are rows, d contiguous): the 16 keys of k-step kk
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
+    return wgmma_desc(base + kk * 16 * kRowBytes, kSubBytes, 8 * kRowBytes, kLayout);
+  }
+};
+
+// The walk of one q tile, rows [q0, q0 + qn) of batch*head bh (qn < 64
+// where T or a layout block ends: the tile's other rows are computed and
+// not written), over the key tiles of `src`, causal end-aligned (query row
+// i at key position (sk - sq) + i) or none.  out (B*H, sq, D) bf16 and lse
+// (B*H, sq) f32 (may be null); qmap, kmap and vmap are make_map's maps of
+// q, k and v.  A source with no tile (a layout row with no block) writes 0
+// and lse +inf and loads nothing (its consumers would otherwise wait on a
+// stage no load fills).  Launched with kThreads threads and (at least)
+// Tile<D>::kSmem bytes of dynamic shared memory.
+template <int D, bool EXT, class Src>
+__device__ __forceinline__ void q_tile_walk(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                            const CUtensorMap* vmap, bf16* __restrict__ out,
+                                            float* __restrict__ lse, const flash::Ext& e, int bh,
+                                            int q0, int qn, int sq, int sk, int causal,
+                                            float sm_scale, const Src& src) {
+  using L = Tile<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], qbar;
+  const int tid = threadIdx.x;
+  const int n_tiles = src.count;
+  if (n_tiles == 0) {
+    bf16* rows = out + (static_cast<size_t>(bh) * sq + q0) * D;
+    for (int i = tid; i < qn * D; i += kThreads) rows[i] = __float2bfloat16_rn(0.f);
+    if (lse != nullptr)
+      for (int r = tid; r < qn; r += kThreads) lse[static_cast<size_t>(bh) * sq + q0 + r] = INFINITY;
+    return;
+  }
+  // 1024-byte alignment: the swizzle pattern repeats every 1024 bytes
+  const uint32_t raw = smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + L::kBytes;                 // kStages tiles
+  uint8_t* Vs = Ks + kStages * L::kBytes;       // kStages tiles
+  const int offset = sk - sq;  // end-aligned causal offset
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_init(&qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {
+    // ---- producer warp: one lane issues every load -------------------------
+    if (tid == 128) {
+      mbar_arrive_expect_tx(&qbar, L::kBytes);
+      for (int sub = 0; sub < L::kSubs; ++sub)
+        tma_load_3d(Qs + sub * L::kSubBytes, qmap, &qbar, sub * L::kW, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        // the consumers released this stage's previous tile, t - kStages
+        if (t >= kStages) mbar_wait(&empty[s], ((t / kStages) + 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * L::kBytes);
+        const int k0 = src.r0(t);
+        for (int sub = 0; sub < L::kSubs; ++sub) {
+          tma_load_3d(Ks + s * L::kBytes + sub * L::kSubBytes, kmap, &full[s], sub * L::kW, k0,
+                      bh);
+          tma_load_3d(Vs + s * L::kBytes + sub * L::kSubBytes, vmap, &full[s], sub * L::kW, k0,
+                      bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: 64 query rows, two a thread ---------------------
+  constexpr int NO = D / 2;  // output accumulators a thread holds
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rA = warp * 16 + (lane >> 2);  // tile rows rA and rA + 8
+  const int cq = 2 * (lane & 3);           // first column of the thread's pair in a chunk
+  const uint32_t sQ = smem_addr(Qs), sK = smem_addr(Ks), sV = smem_addr(Vs);
+  const float scale2 = sm_scale * kLog2e;
+  const float* kbias_row = EXT && e.kbias != nullptr ? e.kbias + static_cast<long long>(bh / e.H) * sk
+                                                     : nullptr;
+  const float* fbias_bh = EXT && e.fbias != nullptr
+                              ? e.fbias + static_cast<long long>(bh / e.H) * e.fb_b +
+                                    static_cast<long long>(bh % e.H) * e.fb_h
+                              : nullptr;
+
+  // S = Q.K^T of the tile in stage s into sc (f32), issued and committed
+  float sc[32];
+  auto issue_s = [&](int s) {
+    fence_regs<32>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, L::kmajor(sQ, kk), L::kmajor(sK + s * L::kBytes, kk), kk > 0);
+    wgmma_commit();
+  };
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // the softmax state in base 2: m is the row's running max of s * log2(e)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+  // the key-row bias of the thread's 16 columns of a tile, loaded before
+  // the tile's S is issued, so the loads' latency hides under it
+  float kbc[16];
+  auto load_kbias = [&](int k0) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const int gk = k0 + 8 * (c >> 1) + cq + (c & 1);
+      kbc[c] = gk < sk ? kbias_row[gk] : 0.f;
+    }
+  };
+
+  // key tile t's softmax on sc: scale, bias, mask, the running max and
+  // sum, alpha (the factor O takes before this tile's P.V), and p (times
+  // the keep factor) left in sc
+  auto softmax = [&](int t) {
+    const int k0 = src.r0(t), kend = k0 + src.n(t);  // the tile's valid keys end at kend
+    // element i sits at row rA + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + cq + (i & 1)
+    const bool edge = k0 + kBK > kend || (causal && k0 + kBK - 1 > offset + q0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const int row = rA + 8 * h;
+      const int kk = 8 * (i >> 2) + cq + (i & 1);
+      const int gk = k0 + kk;
+      float x;
+      if (EXT) {
+        x = __fmul_rn(sc[i], sm_scale);
+        if (kbias_row != nullptr) {
+          x = __fadd_rn(x, kbc[2 * (i >> 2) + (i & 1)]);
+        } else if (fbias_bh != nullptr) {
+          const int gq = q0 + row;
+          x = __fadd_rn(x, gq < sq && gk < sk ? fbias_bh[gq * e.fb_q + gk * e.fb_k] : 0.f);
+        }
+        x *= kLog2e;
+      } else {
+        x = sc[i] * scale2;
+      }
+      // a masked key weighs exactly 0: p = exp2(-inf - m) once the row has
+      // a real key, and a row with none yet subtracts 0 (below)
+      if (edge && !(gk < kend && (!causal || offset + q0 + row >= gk))) x = -INFINITY;
+      sc[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float mu[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      // a row with no key yet subtracts 0, so its masked scores give 0, not NaN
+      mu[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = ex2(m[h] - mu[h]);
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = ex2(sc[i] - mu[h]);
+      ls[h] += p;  // the softmax statistics take the full p
+      float pv = p;
+      if (EXT && e.dropout)
+        pv = __fmul_rn(p, flash::keep_factor(e, static_cast<uint32_t>(bh), q0 + rA + 8 * h,
+                                             k0 + 8 * (i >> 2) + cq + (i & 1), sk));
+      sc[i] = pv;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 1);
+      ls[h] += __shfl_xor_sync(0xffffffffu, ls[h], 2);
+      l[h] = alpha[h] * l[h] + ls[h];
+    }
+  };
+
+  // O = O * alpha + P.V of key tile t, P (rounded to bf16) the register A
+  // operand; issued and committed
+  uint32_t pa[4][4];
+  auto issue_pv = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+    fence_regs<NO>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(o, pa[kk], L::mnmajor(sV + (t % kStages) * L::kBytes, kk));
+    wgmma_commit();
+  };
+
+  // Each step issues the next tile's S and this tile's P.V, then runs the
+  // next tile's softmax while P.V is on the tensor cores.  No product is
+  // in flight across an iteration, so the compiler can see which group
+  // each wait retires and keeps the products asynchronous.
+  mbar_wait(&qbar, 0);
+  mbar_wait(&full[0], 0);
+  if (kbias_row != nullptr) load_kbias(src.r0(0));
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs<32>(sc);
+  softmax(0);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], sc, kk);
+  for (int t = 0; t + 1 < n_tiles; ++t) {
+    mbar_wait(&full[(t + 1) % kStages], ((t + 1) / kStages) & 1);
+    if (kbias_row != nullptr) load_kbias(src.r0(t + 1));
+    issue_s((t + 1) % kStages);
+    issue_pv(t);
+    wgmma_wait<1>();  // the next S is done; P.V may still run
+    fence_regs<32>(sc);
+    softmax(t + 1);
+    wgmma_wait<0>();  // P.V is done: its registers and its stage are free
+    fence_regs<NO>(o);
+    mbar_arrive(&empty[t % kStages]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(pa[kk], sc, kk);
+  }
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs<NO>(o);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rA + 8 * h;
+    if (r >= qn) continue;
+    const int gq = q0 + r;
+    const float denom = l[h] == 0.f ? 1.f : l[h];
+    bf16* orow = out + (static_cast<size_t>(bh) * sq + gq) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + cq) =
+          pack_bf16(o[4 * j + 2 * h] / denom, o[4 * j + 2 * h + 1] / denom);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * sq + gq] =
+          l[h] == 0.f ? INFINITY : m[h] * 0.6931471805599453f + logf(fmaxf(l[h], 1e-37f));
+  }
+}
+
+// ---- host side: tensor maps ------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no -lcuda at link time)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 3-D map over a (BH, T, D) bf16 tensor, 64-row boxes of the tile's
+// sub-tile width, swizzled as the wgmma descriptors read it
+template <int D>
+int make_map(CUtensorMap* map, const void* ptr, int BH, int T) {
+  using L = Tile<D>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(T) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(L::kW), 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = L::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : L::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the three maps of a forward's q (BH, sq, D), k and v (BH, sk, D)
+template <int D>
+int make_maps(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm, const void* q, const void* k,
+              const void* v, int BH, int sq, int sk) {
+  int err = make_map<D>(qm, q, BH, sq);
+  if (!err) err = make_map<D>(km, k, BH, sk);
+  if (!err) err = make_map<D>(vm, v, BH, sk);
+  return err;
+}
+
+}  // namespace fwd
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
@@ -244,9 +638,9 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 // 64-row q tile and walks key tiles: the dq passes B6a and B9a).  A walk
 // takes its tiles from a source, the i-th tile's first row and its valid
 // rows: a dense attention's are contiguous (DenseQTiles, in B2's walk
-// order, and DenseKTiles); a
+// order, and tc::DenseKTiles); a
 // block-sparse one's are the layout's active blocks cut into 64-row tiles
-// and listed in shared memory (ListTiles).  A tile of a layout block of 96
+// and listed in shared memory (tc::ListTiles).  A tile of a layout block of 96
 // or 16 rows holds fewer than 64 valid rows: its other rows belong to the
 // next block, and the walk masks them.  The rounding points are those of
 // the f32 body (flash_bwd.cu), stated in flash_bwd_tc.cu.
@@ -272,27 +666,6 @@ struct DenseQTiles {
   __device__ __forceinline__ int r0(int i) const { return w.tile(i) * kBQ; }
   __device__ __forceinline__ int n(int i) const { return min(kBQ, sq - r0(i)); }
   __device__ __forceinline__ int rank(int i) const { return w.rank(w.tile(i)); }
-};
-
-// a dense attention's key tiles for the q tile at q0, up to the causal bound
-// of its last row
-struct DenseKTiles {
-  int count, sk;
-  __device__ __forceinline__ DenseKTiles(int q0, int sq, int sk_, int causal) : sk(sk_) {
-    const int end = causal ? min(sk, max(0, (sk - sq) + q0 + kBQ)) : sk;
-    count = (end + kBK - 1) / kBK;
-  }
-  __device__ __forceinline__ int r0(int i) const { return i * kBK; }
-  __device__ __forceinline__ int n(int i) const { return min(kBK, sk - r0(i)); }
-};
-
-// tiles listed in shared memory by their first rows, each a 64-row tile of
-// a layout block of `block` rows (shorter where the block ends)
-struct ListTiles {
-  const int* rows;
-  int count, block;
-  __device__ __forceinline__ int r0(int i) const { return rows[i]; }
-  __device__ __forceinline__ int n(int i) const { return min(kBQ, block - rows[i] % block); }
 };
 
 // shared memory of kv_tile_walk: K, V, two buffers of a Q and a dO tile,

@@ -1,6 +1,8 @@
-// Block-sparse ("splash") attention for Hopper (sm_90a): the forward (B8),
-// the dq pass (B9a) and the dk/dv pass (B9b) over (B*H, T, d), restricted to
-// the active (query block, key block) pairs of a layout.
+// Block-sparse ("splash") attention for Hopper (sm_90a), the CUDA-core
+// bodies (f32 tensors; bf16 tensors take splash_attn_tc.cu's tensor-core
+// bodies): the forward (B8), the dq pass (B9a) and the dk/dv pass (B9b)
+// over (B*H, T, d), restricted to the active (query block, key block) pairs
+// of a layout.
 //
 // Replaces: deepspeed_tpu/ops/attention/sparse.py::_splash_kernel (B8),
 // _splash_dq_kernel (B9a) and _splash_dkv_kernel (B9b) (Pallas, TPU),
@@ -37,8 +39,8 @@
 //
 // What bounds it: like the dense flash kernels, about T_active * d flops
 // for every q/k/v byte, so the tensor cores' rate, not bytes, is the floor
-// at the main path's shapes (block 256, d 64).  This first version does
-// its dots on the CUDA cores in f32 from shared memory (no wgmma, no TMA).
+// at the main path's shapes (block 256, d 64).  These bodies do their dots
+// on the CUDA cores in f32 from shared memory (no wgmma, no TMA).
 // What the design does: nothing of T x T size reaches device memory, the
 // layout's inactive blocks are never read, key tiles wholly above the
 // causal diagonal are skipped, and no output needs atomics: dq (B9a) sums

@@ -429,6 +429,42 @@ def flash_bwd_float64(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kb
     return tuple(grads), tuple(bounds)
 
 
+def flash_fwd_float64(q, k, v, causal: bool, sm_scale: float, kbias=None, fbias=None,
+                      allowed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's function in float64 on the same inputs, nothing
+    rounded: softmax(q k^T scale + bias) v with end-aligned causal masking,
+    ``allowed`` an optional bool mask broadcastable to (B, H, Tq, Tk) of
+    the scores that exist (a block-sparse layout expanded).  A row with no
+    score gives out 0 and lse +inf.  Returns ``(out, lse)``, float64: the
+    yardstick the bf16 forwards (kernels and plain versions alike) are read
+    against, one (Tq, Tk) tile a batch*head."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bias = _score_bias(kbias, fbias)
+    tri = _causal_allowed(sq, sk, q.device) if causal else None
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float64, device=q.device)
+    for i in range(b):
+        for j in range(h):
+            x = q[i, j].double() @ k[i, j].double().T * sm_scale
+            if bias is not None:
+                x = x + bias[i, min(j, bias.shape[1] - 1)].double()
+            if tri is not None:
+                x = x.masked_fill(~tri, -math.inf)
+            if allowed is not None:
+                x = x.masked_fill(~allowed[min(i, allowed.shape[0] - 1),
+                                           min(j, allowed.shape[1] - 1)], -math.inf)
+            m = x.amax(-1, keepdim=True)
+            m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+            p = torch.exp(x - m)
+            del x
+            l = p.sum(-1, keepdim=True)
+            out[i, j] = (p @ v[i, j].double()) / torch.where(l == 0, torch.ones_like(l), l)
+            lse[i, j] = torch.where(l == 0, torch.full_like(l, math.inf), m + torch.log(l))[:, 0]
+            del p
+    return out, lse
+
+
 def float64_over_bound(got, witness):
     """``[max |got - exact| / bound]`` for dq, dk and dv against
     :func:`flash_bwd_float64`'s ``witness``: at most 1 where ``got`` keeps
@@ -466,19 +502,19 @@ def _variant(kbias, fbias, drop) -> str:
 
 
 def _body(name: str, dtype) -> Tuple[str, str]:
-    """``(library entry, body)`` of B1, B2, B6a, B6b, B9a or B9b for
+    """``(library entry, body)`` of B1, B2, B6a, B6b, B8, B9a or B9b for
     ``dtype``: bf16 the tensor-core body (``<name>_tc``, ``tc``), f32 the
     CUDA-core body (``simt``)."""
     return (name + "_tc", "tc") if dtype == torch.bfloat16 else (name, "simt")
 
 
 def _check_aligned(who: str, *named) -> None:
-    """The tensor-core bodies load 16-byte rows (TMA, cp.async): a tensor
-    must start on a 16-byte boundary."""
+    """The tensor-core bodies (TMA, cp.async) and the decode kernel load
+    16-byte pieces of rows: a tensor must start on a 16-byte boundary."""
     for name, t in named:
         if t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must start on a 16-byte boundary for the bf16 "
-                             f"tensor-core kernel (a view at an odd offset is not)")
+            raise ValueError(f"{who}: {name} must start on a 16-byte boundary for the kernel's "
+                             f"16-byte loads (a view at an odd offset is not)")
 
 
 def _ext_args(kbias, fbias, drop: Optional[Dropout]):

@@ -818,6 +818,26 @@ def check_layouts(nb: int) -> dict:
             "zero-degree-row": zero_row}
 
 
+def _allowed_scores(layout: np.ndarray, block: int, dev) -> torch.Tensor:
+    """(1, LH, T, T) bool: the scores the splash kernels compute, the
+    layout's active blocks less the dense rows (:func:`_dense_row_mask`,
+    which the kernels leave to the dense path) expanded to (T, T)."""
+    layout = _splash_layout(layout)
+    active = (layout != 0) & ~_dense_row_mask(layout, exempt_uniform_full=True)[:, :, None]
+    allowed = torch.as_tensor(active, device=dev)
+    return allowed.repeat_interleave(block, 1).repeat_interleave(block, 2)[None]
+
+
+def splash_fwd_float64(q, k, v, layout: np.ndarray, block: int, causal: bool, sm_scale: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The splash forward's function in float64 on the same inputs, nothing
+    rounded: ``flash_fwd_float64`` over the scores the kernels compute
+    (:func:`_allowed_scores`), causal inside diagonal blocks.  Returns
+    ``(out, lse)``, float64; a row with no block gives out 0, lse +inf."""
+    return _fa.flash_fwd_float64(q, k, v, causal, sm_scale,
+                                 allowed=_allowed_scores(layout, block, q.device))
+
+
 def splash_bwd_float64(q, k, v, do, lse, delta, layout: np.ndarray, block: int, causal: bool,
                        sm_scale: float):
     """The splash backward's function in float64 on the same inputs, and
@@ -827,11 +847,8 @@ def splash_bwd_float64(q, k, v, do, lse, delta, layout: np.ndarray, block: int, 
     autograd) expanded to (T, T), causal inside diagonal blocks.  Returns
     ``((dq, dk, dv), (bound_dq, bound_dk, bound_dv))``, float64; held with
     ``flash_attention.float64_over_bound``."""
-    layout = _splash_layout(layout)
-    active = (layout != 0) & ~_dense_row_mask(layout, exempt_uniform_full=True)[:, :, None]
-    allowed = torch.as_tensor(active, device=q.device)
-    allowed = allowed.repeat_interleave(block, 1).repeat_interleave(block, 2)[None]
-    return _fa.flash_bwd_float64(q, k, v, do, lse, delta, causal, sm_scale, allowed=allowed)
+    return _fa.flash_bwd_float64(q, k, v, do, lse, delta, causal, sm_scale,
+                                 allowed=_allowed_scores(layout, block, q.device))
 
 
 def splash_grad_bound(grad: str, ref: torch.Tensor, layout: np.ndarray, block: int, tol: float,
@@ -904,33 +921,39 @@ def _geometry(q, layout: np.ndarray, block: int):
 
 def splash_fwd_cuda(q, k, v, layout: np.ndarray, block: int, causal: bool, sm_scale: float,
                     want_lse: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Launch B8 (``csrc/splash_attn.cu``) on the current stream: ``(out,
-    lse or None)``.  Raises for tensors that are not on one CUDA device,
-    not contiguous, or of a type or shape the kernel does not take."""
+    """Launch B8 on the current stream, the body by dtype
+    (:func:`_splash_body`): ``(out, lse or None)``.  Each row sums its
+    listed key tiles in the layout's order and is written once (no atomics,
+    so the same bits every launch).  Raises for tensors that are not on one
+    CUDA device, not contiguous, or of a type or shape the kernel does not
+    take."""
     _check_tensors("splash_fwd_cuda", layout, block, q, k, v)
     b, h, t, d = q.shape
     idx, valid, deg, _ = _kernel_arrays(layout, q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if want_lse else None
+    entry, body = _splash_body("splash_fwd_cuda", "splash_fwd", q, k, v, out)
     lib = _kernels.library()
-    err = lib.fn("splash_fwd")(
+    err = lib.fn(entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None, idx.data_ptr(), valid.data_ptr(),
         *_geometry(q, layout, block), deg, d, _DTYPE_CODES[q.dtype], int(bool(causal)),
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    lib.check("splash_fwd", err)
-    _kernels.count_launch("splash_fwd")
+    lib.check(entry, err)
+    _kernels.count_launch("splash_fwd", "none/" + body)
     return out, lse
 
 
-def _splash_body(who: str, name: str, q, k, v, do) -> Tuple[str, str]:
-    """``(library entry, body)`` of B9a or B9b for q's type, as B2's: bf16
-    the tensor-core body (``csrc/splash_attn_tc.cu``), which refuses a view
-    off a 16-byte boundary, f32 the CUDA-core one (``csrc/splash_attn.cu``)."""
+def _splash_body(who: str, name: str, q, k, v, x) -> Tuple[str, str]:
+    """``(library entry, body)`` of B8, B9a or B9b for q's type, as B2's:
+    bf16 the tensor-core body (``csrc/splash_attn_tc.cu``), which refuses a
+    view off a 16-byte boundary (``x``: B8's out, the backward's dO), f32
+    the CUDA-core one (``csrc/splash_attn.cu``)."""
     entry, body = _fa._body(name, q.dtype)
     if body == "tc":
-        _fa._check_aligned(who, ("q", q), ("k", k), ("v", v), ("dO", do))
+        _fa._check_aligned(who, ("q", q), ("k", k), ("v", v),
+                           ("out" if name == "splash_fwd" else "dO", x))
     return entry, body
 
 

@@ -8,8 +8,8 @@ live in ``flash_decode.cu``, LAMB's two passes B7a and B7b in
 and B9b in ``splash_attn.cu``; the attention sources share the device
 functions of ``flash_common.cuh``).  A kernel may have a second body in
 a source of its own (:data:`BODIES`): the flash forward, the single-pass
-backward, the two passes of the two-pass backward and the block-sparse
-backward's two passes run bf16 tensors on tensor-core bodies
+backward, the two passes of the two-pass backward, the block-sparse
+forward and its backward's two passes run bf16 tensors on tensor-core bodies
 (``flash_fwd_tc.cu``, ``flash_bwd_tc.cu``, ``flash_bwd_2pass_tc.cu``,
 ``splash_attn_tc.cu``, sharing ``flash_tc.cuh``) and f32 tensors on the
 CUDA-core bodies of ``flash_fwd.cu``, ``flash_bwd.cu``,
@@ -72,14 +72,15 @@ KERNELS = {
     ),
     "flash_decode": (
         "flash_decode.cu", "ds_flash_decode",
-        # q, k, v, ks, vs, pos, kpm, out, B, H, S, d, q_dtype, kv_dtype, sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, ks, vs, pos, kpm, ws, out, B, H, S, splits, d, q_dtype, kv_dtype, sm_scale,
+        # stream
+        [*[_P] * 9, *[_I] * 7, _F, _P],
     ),
     "flash_decode_paged": (
         "flash_decode.cu", "ds_flash_decode_paged",
-        # q, k, v, ks, vs, table, pos, out, B, H, P, page_len, num_pages, d, q_dtype, kv_dtype,
-        # sm_scale, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v, ks, vs, table, pos, ws, out, B, H, P, page_len, num_pages, splits, d, q_dtype,
+        # kv_dtype, sm_scale, stream
+        [*[_P] * 9, *[_I] * 9, _F, _P],
     ),
     "flash_bwd": (
         "flash_bwd.cu", "ds_flash_bwd",
@@ -145,6 +146,7 @@ BODIES = {
     "flash_bwd_dq_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dq_tc", KERNELS["flash_bwd_dq"][2]),
     "flash_bwd_dkv_tc": ("flash_bwd_2pass_tc.cu", "ds_flash_bwd_dkv_tc",
                          KERNELS["flash_bwd_dkv"][2]),
+    "splash_fwd_tc": ("splash_attn_tc.cu", "ds_splash_fwd_tc", KERNELS["splash_fwd"][2]),
     "splash_bwd_dq_tc": ("splash_attn_tc.cu", "ds_splash_bwd_dq_tc", KERNELS["splash_bwd_dq"][2]),
     "splash_bwd_dkv_tc": ("splash_attn_tc.cu", "ds_splash_bwd_dkv_tc",
                           KERNELS["splash_bwd_dkv"][2]),
@@ -279,8 +281,8 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
 def count_launch(name: str, variant: Optional[str] = None) -> None:
     """One launch of kernel ``name``; ``variant`` names the options it ran
     with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
-    ``+dropout``; for B1, B2, B6a, B6b, B9a and B9b also the body, ``/tc``
-    or ``/simt``)."""
+    ``+dropout``; for B1, B2, B6a, B6b, B8, B9a and B9b also the body,
+    ``/tc`` or ``/simt``)."""
     _LIBRARY.launches[name] += 1
     if variant is not None:
         v = _LIBRARY.variants[name]

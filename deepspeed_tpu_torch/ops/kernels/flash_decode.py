@@ -19,7 +19,11 @@ Contract (the same as the JAX kernels'):
 :func:`flash_decode` and :func:`flash_decode_paged` launch the CUDA
 kernels (``csrc/flash_decode.cu``, one body for both) for CUDA tensors
 and run :func:`flash_decode_reference` / :func:`flash_decode_paged_reference`,
-the plain PyTorch versions of the same functions, for CPU tensors.
+the plain PyTorch versions of the same functions, for CPU tensors.  The
+kernels split each row's keys into chunks of :data:`DECODE_CHUNK`, one
+block each, and combine the chunks' softmax states in chunk order;
+:func:`flash_decode_split_reference` does that arithmetic in PyTorch (the
+tests and the card check hold the kernel to it; no path runs it).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops import kernels as _kernels
+from deepspeed_tpu_torch.ops.attention.flash_attention import _check_aligned
 
 # Same mask constant as the JAX version: fully-masked rows degrade to a
 # uniform softmax instead of NaN (the garbage rows of idle slots).
@@ -36,24 +41,29 @@ NEG_INF = -1e30
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_D = 128
-_MAX_PAGES = 8192  # table entries a block stages in shared memory (csrc)
+# the head dims the kernel serves: a lane loads 16 bytes of a row, so a
+# row is a power-of-two count of lanes for every cache type
+_HEAD_DIMS = (16, 32, 64, 128)
+# keys a block of the kernel takes (csrc/flash_decode.cu's kChunk): each
+# row's keys split into chunks of this many, combined in chunk order
+DECODE_CHUNK = 128
 
 
 def decode_supported(B: int, H: int, S: int, d: int) -> bool:
-    """Shapes the CUDA kernel serves: any cache length, head_dim up to
-    128.  (The TPU grid needed ``S % 128 == 0``; the Hopper kernel walks
-    keys one row at a time and masks past ``pos`` itself.)"""
-    return B >= 1 and H >= 1 and S >= 1 and 1 <= d <= _MAX_D
+    """Shapes the CUDA kernel serves: any cache length, head_dim 16, 32, 64
+    or 128, at most 65535 slot-heads.  (The TPU grid needed ``S % 128 ==
+    0``; the Hopper kernel masks past ``pos`` and the cache's end itself.)"""
+    return B >= 1 and H >= 1 and S >= 1 and d in _HEAD_DIMS and B * H <= 65535
 
 
 def decode_paged_supported(B: int, H: int, P: int, page_len: int, d: int) -> bool:
     """Paged shapes the CUDA kernel serves: any ``page_len >= 1``, head_dim
-    up to 128, up to 8192 pages a slot.  (The TPU kernel took one page as
-    one kv block and needed ``page_len % 128 == 0``; the Hopper kernel
-    walks keys one row at a time through the staged table row.)"""
-    return (B >= 1 and H >= 1 and 1 <= P <= _MAX_PAGES and page_len >= 1
-            and 1 <= d <= _MAX_D and P * page_len < 2 ** 31)
+    16, 32, 64 or 128, and a logical cache ``P * page_len`` below 2**31.
+    (The TPU kernel took one page as one kv block and needed ``page_len %
+    128 == 0``; the Hopper kernel stages the page-table entries of its own
+    chunk of keys.)"""
+    return (decode_supported(B, H, P * page_len, d) and P >= 1 and page_len >= 1
+            and P * page_len < 2 ** 31)
 
 
 def _per_slot(pos) -> bool:
@@ -99,6 +109,68 @@ def flash_decode_reference(q, k_cache, v_cache, pos, sm_scale: Optional[float] =
     return out.to(q.dtype)
 
 
+def flash_decode_split_reference(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
+                                 key_padding_mask=None, chunk: int = DECODE_CHUNK) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, for the tests and the card
+    check (no path runs it): one query a slot (B, H, 1, d) against a slot
+    cache.  Row b takes keys ``[0, n_b)``, ``n_b = pos[b] + 1`` (at most S)
+    where it has an attendable key, else all S (every score masked at
+    ``NEG_INF``: uniform).  Those keys are cut into chunks of ``chunk``;
+    each chunk's softmax state is formed on its own (f32 scores from the
+    widened operands, the int8 key scale after ``sm_scale``, the value scale
+    on p before the value sum, l the sum of p): ``m_c``, ``l_c``, ``acc_c``;
+    a chunk past ``n_b`` holds nothing.  The states combine in chunk order,
+    ``out = sum_c e^(m_c - M) acc_c / sum_c e^(m_c - M) l_c``.  A chunk of
+    masked keys in a row with a real key weighs e^(-1e30 - M) = 0.
+    Returns (B, H, 1, d) in q's type."""
+    quant = isinstance(k_cache, dict)
+    k_op = k_cache["q"] if quant else k_cache
+    v_op = v_cache["q"] if quant else v_cache
+    B, H, T, d = q.shape
+    if T != 1:
+        raise ValueError(f"flash_decode_split_reference takes one query per slot, got T={T}")
+    S = k_op.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    s = torch.einsum("bhd,bhsd->bhs", q[:, :, 0].float(), k_op.float()) * sm_scale
+    if quant:
+        s = s * k_cache["s"][..., 0]
+    key = torch.arange(S, device=dev)
+    last = _pos_vector(pos, B, dev).long().clamp(max=S - 1)
+    allowed = key[None] <= last[:, None]  # (B, S)
+    if key_padding_mask is not None:
+        allowed = allowed & key_padding_mask.to(dev, torch.bool)
+    n = torch.where(allowed.any(-1), last + 1, torch.full_like(last, S))
+    s = torch.where(allowed[:, None], s, torch.full((), NEG_INF, device=dev))
+    C = -(-S // chunk)
+    pad = C * chunk - S
+    v = v_op.float()
+    if quant:
+        v_scale = v_cache["s"][..., 0]  # (B, H, S)
+    if pad:
+        s = torch.cat([s, s.new_zeros(B, H, pad)], -1)
+        v = torch.cat([v, v.new_zeros(B, H, pad, d)], 2)
+        if quant:
+            v_scale = torch.cat([v_scale, v_scale.new_zeros(B, H, pad)], -1)
+    inside = (torch.arange(C * chunk, device=dev)[None] < n[:, None]).view(B, 1, C, chunk)
+    sc = s.view(B, H, C, chunk)
+    m = torch.where(inside, sc, torch.full((), -math.inf, device=dev)).amax(-1)  # (B, H, C)
+    has = torch.isfinite(m)
+    m0 = torch.where(has, m, torch.zeros_like(m))
+    p = torch.where(inside, torch.exp(sc - m0[..., None]), torch.zeros_like(sc))
+    l = p.sum(-1)
+    if quant:
+        p = p * v_scale.view(B, H, C, chunk)
+    acc = torch.einsum("bhck,bhckd->bhcd", p, v.view(B, H, C, chunk, d))
+    big = m.amax(-1, keepdim=True)  # finite: the first chunk always holds a key
+    w = torch.where(has, torch.exp(m0 - big), torch.zeros_like(m0))
+    tot_l = (w * l).sum(-1)
+    tot_a = (w[..., None] * acc).sum(-2)
+    out = tot_a / torch.where(tot_l == 0, torch.ones_like(tot_l), tot_l)[..., None]
+    return out[:, :, None].to(q.dtype)
+
+
 def paged_gather(cache, page_table: torch.Tensor):
     """The logical slot view of a page pool: gather ``cache`` (num_pages,
     H, page_len, d) — or the int8 ``{"q", "s"}`` pair — through
@@ -136,6 +208,12 @@ def _check_cuda(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
+def _workspace(B: int, H: int, S: int, d: int, dev) -> torch.Tensor:
+    """The kernel's f32 records (B*H, splits, d + 2): each chunk's acc, m
+    and l, allocated on the stream (no host sync)."""
+    return torch.empty((B * H, -(-S // DECODE_CHUNK), d + 2), dtype=torch.float32, device=dev)
+
+
 def _pos_vector(pos, B: int, dev) -> torch.Tensor:
     if isinstance(pos, torch.Tensor):
         return pos.to(device=dev, dtype=torch.int32).reshape(-1).expand(B).contiguous()
@@ -144,9 +222,10 @@ def _pos_vector(pos, B: int, dev) -> torch.Tensor:
 
 def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
                       key_padding_mask=None) -> torch.Tensor:
-    """Launch the CUDA kernel (``csrc/flash_decode.cu``) on the current
-    stream.  Raises for tensors that are not on one CUDA device, not
-    contiguous, or of a type or shape the kernel does not take."""
+    """Launch the CUDA kernel (``csrc/flash_decode.cu``: the split over
+    keys, then the combine, on the current stream).  Raises for tensors
+    that are not on one CUDA device, not contiguous, a cache off a 16-byte
+    boundary, or of a type or shape the kernel does not take."""
     quant = isinstance(k_cache, dict)
     k_op = k_cache["q"] if quant else k_cache
     v_op = v_cache["q"] if quant else v_cache
@@ -191,10 +270,17 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None
                 f"flash_decode_cuda: key_padding_mask must be (B, S) = ({B}, {S}), "
                 f"got {tuple(key_padding_mask.shape)}"
             )
-        kpm = (key_padding_mask.to(dev) != 0).to(torch.uint8).contiguous()
+        kpm = key_padding_mask
+        # the kernel reads one byte a key (nonzero = attendable): a
+        # contiguous bool or uint8 mask on the device is read in place
+        if (kpm.dtype not in (torch.bool, torch.uint8) or kpm.device != dev
+                or not kpm.is_contiguous()):
+            kpm = (kpm.to(dev) != 0).to(torch.uint8).contiguous()
+    _check_aligned("flash_decode_cuda", ("k_cache", k_op), ("v_cache", v_op))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty((B, H, 1, d), dtype=q.dtype, device=dev)
+    ws = _workspace(B, H, S, d, dev)
     lib = _kernels.library()
     fn = lib.fn("flash_decode")
     err = fn(
@@ -202,8 +288,8 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None,
         pos_vec.data_ptr(), kpm.data_ptr() if kpm is not None else None,
-        out.data_ptr(), B, H, S, d, _Q_CODES[q.dtype], _KV_CODES[k_op.dtype],
-        float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
+        ws.data_ptr(), out.data_ptr(), B, H, S, ws.shape[1], d, _Q_CODES[q.dtype],
+        _KV_CODES[k_op.dtype], float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("flash_decode", err)
     _kernels.count_launch("flash_decode")
@@ -225,9 +311,10 @@ def flash_decode(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
 def flash_decode_paged_cuda(q, k_cache, v_cache, page_table, pos,
                             sm_scale: Optional[float] = None) -> torch.Tensor:
     """Launch the paged CUDA kernel (``csrc/flash_decode.cu``,
-    ``ds_flash_decode_paged``) on the current stream.  Raises for tensors
-    that are not on one CUDA device, not contiguous, or of a type or shape
-    the kernel does not take.  The page table must be int32 (B, P) with
+    ``ds_flash_decode_paged``: B4's body and combine) on the current
+    stream.  Raises for tensors that are not on one CUDA device, not
+    contiguous, a pool off a 16-byte boundary, or of a type or shape the
+    kernel does not take.  The page table must be int32 (B, P) with
     entries in ``[0, num_pages)`` (checking that on the host would cost a
     device sync a step; the kernel clamps other entries into the pool, so
     a wrong table reads wrong pages, never memory outside the pool)."""
@@ -273,18 +360,20 @@ def flash_decode_paged_cuda(q, k_cache, v_cache, page_table, pos,
         ks, vs = k_cache["s"], v_cache["s"]
         _check_cuda("k scales", ks, dev, fn_name)
         _check_cuda("v scales", vs, dev, fn_name)
+    _check_aligned(fn_name, ("k_cache", k_op), ("v_cache", v_op))
     pos_vec = _pos_vector(pos, B, dev)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     out = torch.empty((B, H, 1, d), dtype=q.dtype, device=dev)
+    ws = _workspace(B, H, P * page_len, d, dev)
     lib = _kernels.library()
     fn = lib.fn("flash_decode_paged")
     err = fn(
         q.data_ptr(), k_op.data_ptr(), v_op.data_ptr(),
         ks.data_ptr() if ks is not None else None,
         vs.data_ptr() if vs is not None else None,
-        page_table.data_ptr(), pos_vec.data_ptr(), out.data_ptr(),
-        B, H, P, page_len, NP, d, _Q_CODES[q.dtype], _KV_CODES[k_op.dtype],
+        page_table.data_ptr(), pos_vec.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        B, H, P, page_len, NP, ws.shape[1], d, _Q_CODES[q.dtype], _KV_CODES[k_op.dtype],
         float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("flash_decode_paged", err)

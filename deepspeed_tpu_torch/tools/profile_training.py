@@ -57,7 +57,7 @@ KERNEL_CLASSES = (
     ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
-    ("splash_fwd", ("splash_fwd_kernel",)),
+    ("splash_fwd", ("splash_fwd_kernel", "splash_fwd_tc_kernel")),
     ("splash_bwd_dq", ("splash_dq_kernel", "splash_dq_tc_kernel")),
     ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel", "splash_dkv_tc_kernel",
                         "splash_dkv_tc_sum_kernel")),

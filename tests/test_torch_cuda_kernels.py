@@ -10,7 +10,10 @@ machine that has only PyTorch; there, without the JAX test harness:
 
 They cover what ``chip_smoke.py`` does not drive: ragged and rectangular
 prefill shapes, the lse output, every head dim the kernels take, scalar
-and out-of-range decode positions, tiny caches, the paged decode over
+and out-of-range decode positions, positions at the split decode's chunk
+edges and lengths a chunk does not divide (the same bits launch after
+launch, f32 within 1e-6 of the split plain version), tiny caches, 16-byte
+alignment refusals, the paged decode over
 every page length it is checked at (with B4 on the gathered view as a
 bit-for-bit oracle: the two share one body), the backward's ragged and
 rectangular shapes, the key-row bias in the forward and backward (ragged,
@@ -21,9 +24,9 @@ Threefry bits against the host twin's) and the full bias in the forward
 and both backwards (B2 and the two-pass B6a/B6b, whose dq, dk and dv must
 be the same bits launch after launch), the block-sparse kernels
 B8/B9a/B9b (every layout form: BigBird, per-head, untouched key columns, a
-row with no block, all ones, blocks of 16, 96, 128 and 256; dq/dk/dv the
-same bits launch after launch), the bf16 tensor-core bodies of B1, B2,
-B6a, B6b, B9a and B9b at every head dim with every option (ragged,
+row with no block, all ones, blocks of 16, 96, 128 and 256; out, lse and
+dq/dk/dv the same bits launch after launch), the bf16 tensor-core bodies
+of B1, B2, B6a, B6b, B8, B9a and B9b at every head dim with every option (ragged,
 end-aligned and full; each launch counted as ``tc``, an f32 one as
 ``simt``), and the wrappers' refusals.  Tolerances: float32 2e-5 (sums
 in other orders, TF32 off); bfloat16 outputs 2e-2 (rounded to bf16,
@@ -98,8 +101,17 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, sq, sk, d, causal):
     (5, 3, 1, 64, "int8", False, [0] * 5),              # one-row cache
     (2, 2, 96, 32, torch.float32, False, [200, 3]),     # pos past the end: all S keys
     (4, 12, 1024, 64, "int8", True, [1023, 0, 512, 7]),
+    # a chunk's edges (127, 128, 129) and S one below and one above a chunk
+    (4, 3, 127, 64, torch.float32, False, [126, 0, 63, 500]),
+    (4, 3, 129, 64, torch.float32, True, [127, 128, 5, 64]),
+    (4, 3, 129, 32, torch.bfloat16, False, [127, 128, 129, -1]),
+    (4, 2, 384, 16, "int8", True, [127, 128, 129, 383]),
+    (3, 2, 300, 128, torch.float32, True, [255, 256, 257]),
 ])
 def test_flash_decode_kernel_matches_plain(dev, B, H, S, d, kv, masked, pos):
+    """The split kernel against the plain version (and, f32, within 1e-6 of
+    its split plain version, the same chunks and combine), the same bits
+    on a second launch."""
     qdtype = torch.float32 if kv == torch.float32 else torch.bfloat16
     q = _randn(dev, B, H, 1, d, seed=4).to(qdtype)
     k, v = _randn(dev, B, H, S, d, seed=5), _randn(dev, B, H, S, d, seed=6)
@@ -113,10 +125,15 @@ def test_flash_decode_kernel_matches_plain(dev, B, H, S, d, kv, masked, pos):
         kpm = torch.rand(B, S, generator=torch.Generator(device=dev).manual_seed(7), device=dev) > 0.5
         kpm[0, :] = False  # a slot with no attendable key: uniform over S, finite
     out = fd.flash_decode_cuda(q, kc, vc, pos_t, key_padding_mask=kpm)
+    again = fd.flash_decode_cuda(q, kc, vc, pos_t, key_padding_mask=kpm)
     ref = fd.flash_decode_reference(q, kc, vc, pos_t, key_padding_mask=kpm)
+    split = fd.flash_decode_split_reference(q, kc, vc, pos_t, key_padding_mask=kpm)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert _err(out, ref) <= TOL[qdtype]
+    assert torch.equal(out, again)
+    if qdtype == torch.float32:
+        assert _err(out, split) <= 1e-6
 
 
 def _paged_inputs(dev, kv, page_len, d=64, H=3, S=1024):
@@ -148,10 +165,11 @@ def test_flash_decode_paged_kernel_matches_plain_and_b4(dev, kv, page_len):
     ref = fd.flash_decode_paged_reference(q, kc, vc, table, pos)
     # B4 over the gathered contiguous view: the same body and key order
     b4 = fd.flash_decode_cuda(q, fd.paged_gather(kc, table), fd.paged_gather(vc, table), pos)
+    again = fd.flash_decode_paged_cuda(q, kc, vc, table, pos)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape and torch.isfinite(out).all()
     assert _err(out, ref) <= TOL[q.dtype]
-    assert torch.equal(out, b4)
+    assert torch.equal(out, b4) and torch.equal(out, again)
 
 
 def test_flash_decode_paged_refusals_and_launch_count(dev):
@@ -170,7 +188,15 @@ def test_flash_decode_paged_refusals_and_launch_count(dev):
     with pytest.raises(ValueError, match="cannot serve"):
         fd.flash_decode_paged_cuda(_randn(dev, 6, 3, 1, 192).to(torch.bfloat16), wide, wide,
                                    table, pos)
+    # 16-byte row loads: a pool or a cache off a 16-byte boundary is refused
+    odd = torch.empty(kc.numel() + 1, dtype=kc.dtype, device=dev)[1:].view(kc.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.flash_decode_paged_cuda(q, odd, vc, table, pos)
+    slot = torch.empty(6 * 3 * 64 * 64 + 1, dtype=kc.dtype, device=dev)[1:].view(6, 3, 64, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.flash_decode_cuda(q, slot, slot, pos)
     assert kernels.launches()["flash_decode_paged"] == 1
+    assert kernels.launches()["flash_decode"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -731,22 +757,26 @@ def test_splash_kernels_match_plain(dev, dtype, kind, causal, T, d, block):
     layout = _splash_layout(kind, H, T // block, block)
     q, k, v, do = (_randn(dev, B, H, T, d, seed=s).to(dtype) for s in (1, 2, 3, 4))
     scale = d ** -0.5
+    kernels.reset_launches()
     out, lse = sp.splash_fwd_cuda(q, k, v, layout, block, causal, scale, want_lse=True)
+    out2, lse2 = sp.splash_fwd_cuda(q, k, v, layout, block, causal, scale, want_lse=True)
     ref, ref_lse = sp.splash_fwd_reference(q, k, v, layout, block, causal, scale)
     torch.cuda.synchronize()
     assert out.dtype == dtype and _err(out, ref) <= TOL[dtype]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)  # no atomics: the same bits
     inf = torch.isinf(ref_lse)
     assert torch.equal(torch.isinf(lse), inf)
     assert _err(lse[~inf], ref_lse[~inf]) <= 1e-4
+    assert not out[inf].any()
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, layout, block, causal, scale)
-    kernels.reset_launches()
     got = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
     again = (sp.splash_bwd_dq_cuda(*args), *sp.splash_bwd_dkv_cuda(*args))
     ref = (sp.splash_bwd_dq_reference(*args), *sp.splash_bwd_dkv_reference(*args))
     torch.cuda.synchronize()
     form = "none/" + ("tc" if dtype == torch.bfloat16 else "simt")
     variants = kernels.launch_variants()
+    assert variants["splash_fwd"] == {form: 2}
     assert variants["splash_bwd_dq"] == {form: 2} and variants["splash_bwd_dkv"] == {form: 2}
     _splash_bwd_close(got, ref, dtype, args)
     for a, b in zip(got, again):  # no atomics: the same bits every launch
@@ -826,11 +856,14 @@ def test_splash_refusals(dev):
     lse = q[..., 0].contiguous()
     with pytest.raises(ValueError, match="float32"):
         sp.splash_bwd_dkv_cuda(q, q, q, q, lse.double(), lse, layout, 64, True, 0.125)
-    # the bf16 bodies load 16-byte rows by cp.async: a view off a 16-byte
-    # boundary is refused, not sent to the f32 body
+    # the bf16 bodies load 16-byte rows by TMA and cp.async: a view off a
+    # 16-byte boundary is refused, not sent to the f32 body
     odd = torch.empty(2 * 256 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(1, 2, 256, 64)
     kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        sp.splash_fwd_cuda(odd, odd, odd, layout, 64, True, 0.125)
     for launch in (sp.splash_bwd_dq_cuda, sp.splash_bwd_dkv_cuda):
         with pytest.raises(ValueError, match="16-byte"):
             launch(odd, odd, odd, odd, lse, lse, layout, 64, True, 0.125)
-    assert kernels.launches()["splash_bwd_dq"] == kernels.launches()["splash_bwd_dkv"] == 0
+    assert sum(kernels.launches()[n] for n in ("splash_fwd", "splash_bwd_dq",
+                                               "splash_bwd_dkv")) == 0

@@ -121,10 +121,10 @@ def test_a_header_edit_rebuilds_only_the_sources_that_include_it(tmp_path, monke
 
 
 def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
-    """The bf16 bodies of B1, B2, B6a, B6b, B9a and B9b build from their
-    own sources (B6a's and B6b's share one, B9a's and B9b's another), in
-    the same parallel round as the kernels: an edit of flash_tc.cuh
-    rebuilds those six and nothing else, an edit of flash_common.cuh
+    """The bf16 bodies of B1, B2, B6a, B6b, B8, B9a and B9b build from
+    their own sources (B6a's and B6b's share one, B8's, B9a's and B9b's
+    another), in the same parallel round as the kernels: an edit of
+    flash_tc.cuh rebuilds those seven and nothing else, an edit of flash_common.cuh
     rebuilds them with the other attention kernels; the report names each
     beside its kernel's f32 source, and the launch counts stay by
     kernel."""
@@ -134,7 +134,8 @@ def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
     from deepspeed_tpu_torch.ops import kernels
 
     assert set(kernels.BODIES) == {"flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dq_tc",
-                                   "flash_bwd_dkv_tc", "splash_bwd_dq_tc", "splash_bwd_dkv_tc"}
+                                   "flash_bwd_dkv_tc", "splash_fwd_tc", "splash_bwd_dq_tc",
+                                   "splash_bwd_dkv_tc"}
     for body, (src, entry, argtypes) in kernels.BODIES.items():
         kernel = body[:-len("_tc")]
         assert (kernels.CSRC_DIR / src).is_file() and src != kernels.KERNELS[kernel][0]
@@ -146,17 +147,16 @@ def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert report[name]["tc_source"].endswith("csrc/flash_bwd_2pass_tc.cu")
         assert report[name]["source"].endswith("csrc/flash_bwd_2pass.cu")
-    for name in ("splash_bwd_dq", "splash_bwd_dkv"):
+    for name in ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv"):
         assert report[name]["tc_source"].endswith("csrc/splash_attn_tc.cu")
         assert report[name]["source"].endswith("csrc/splash_attn.cu")
-    assert "tc_source" not in report["splash_fwd"]
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     lib = kernels.KernelLibrary(tmp_path / "build")
     lib.build_dir.mkdir()
     units = [*kernels.KERNELS, *kernels.BODIES]
-    assert len({lib._so_path(n) for n in units}) == len(units) - 7  # shared sources
+    assert len({lib._so_path(n) for n in units}) == len(units) - 8  # shared sources
     for src in csrc.iterdir():
         os.utime(src, (1000, 1000))
     for name in units:
@@ -164,7 +164,7 @@ def test_tensor_core_bodies_are_libraries_of_their_own(tmp_path, monkeypatch):
         os.utime(lib._so_path(name), (2000, 2000))
     os.utime(csrc / "flash_tc.cuh", (3000, 3000))
     tc_bodies = {"flash_fwd_tc", "flash_bwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
-                 "splash_bwd_dq_tc", "splash_bwd_dkv_tc"}
+                 "splash_fwd_tc", "splash_bwd_dq_tc", "splash_bwd_dkv_tc"}
     assert {n for n in units if lib._stale(n)} == tc_bodies
     os.utime(csrc / "flash_common.cuh", (4000, 4000))
     assert tc_bodies | {"flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"} <= {
@@ -179,7 +179,8 @@ def test_flash_wrappers_pick_the_body_by_dtype():
     assert tfa._body("flash_bwd", torch.bfloat16) == ("flash_bwd_tc", "tc")
     assert tfa._body("flash_fwd", torch.float32) == ("flash_fwd", "simt")
     assert tfa._body("flash_bwd", torch.float32) == ("flash_bwd", "simt")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv", "splash_bwd_dq", "splash_bwd_dkv"):
+    for name in ("flash_bwd_dq", "flash_bwd_dkv", "splash_fwd", "splash_bwd_dq",
+                 "splash_bwd_dkv"):
         assert tfa._body(name, torch.bfloat16) == (name + "_tc", "tc")
         assert tfa._body(name, torch.float32) == (name, "simt")
     q = torch.zeros(1, 2, 128, 64, dtype=torch.bfloat16)
@@ -190,6 +191,8 @@ def test_flash_wrappers_pick_the_body_by_dtype():
         with pytest.raises(ValueError, match="CUDA"):
             launch(q, q, q, q, lse, lse, causal=False, sm_scale=0.125)
     layout = np.tril(np.ones((1, 2, 2), np.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsp.splash_fwd_cuda(q, q, q, layout, 64, causal=True, sm_scale=0.125)
     for launch in (tsp.splash_bwd_dq_cuda, tsp.splash_bwd_dkv_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             launch(q, q, q, q, lse, lse, layout, 64, causal=True, sm_scale=0.125)

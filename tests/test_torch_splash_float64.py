@@ -1,4 +1,5 @@
-"""The bf16 block-sparse backward against its float64 function, on the CPU.
+"""The bf16 block-sparse backward, and the bf16 forwards, against their
+float64 functions, on the CPU.
 
 The card's bf16 B9a / B9b (``csrc/splash_attn_tc.cu``) sum S and dP on the
 tensor cores, in another order than any plain version, so a bf16 P or dS
@@ -18,13 +19,22 @@ d 32 and 64, causal BigBird, a per-head layout and untouched key columns):
   cover every column's valid edges exactly once and in edge order, at most
   ``deg`` a piece, and a column is cut into several items (the kernel's
   "split" columns, which go through f32 partials) exactly when it has more
-  than ``deg`` valid edges.
+  than ``deg`` valid edges;
+* the bf16 forwards (the splash forward B8 and the dense flash forward B1,
+  whose card kernels sum on the tensor cores) against
+  ``sparse.splash_fwd_float64`` / ``flash_attention.flash_fwd_float64``:
+  the port's plain version and the JAX package's interpreted Pallas kernel
+  within the bf16 outputs' 2e-2 (the output rounded to bf16, spacing 2**-8
+  relative, after p is rounded to bf16 before P.V), lse within 1e-4 (f32
+  sums of up to T terms) with the +inf rows of a row with no block equal,
+  and a forward whose layout misses one edge lies outside 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops.attention import flash_attention as jfa
 from deepspeed_tpu.ops.attention import sparse as js
 from deepspeed_tpu_torch.ops.attention import flash_attention as tfa
 from deepspeed_tpu_torch.ops.attention import sparse as ts
@@ -135,3 +145,76 @@ def test_dkv_items_cover_every_column_once_in_order_and_flag_split_columns(kind)
         assert (item_col[h, ci[nb]:] == -1).all() and ci[nb] <= W
     if kind == "bigbird-uni-64":
         assert split_seen  # the global column is cut into items
+
+
+FWD_TOL = 2e-2  # bf16 outputs
+LSE_TOL = 1e-4
+
+
+def _bf16(r, shape):
+    return jnp.asarray(r.standard_normal(shape), jnp.bfloat16)
+
+
+def _to_torch(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _close_to_float64(out, lse, exact):
+    ref, ref_lse = exact
+    assert float((out.double() - ref).abs().max()) <= FWD_TOL
+    inf = torch.isinf(ref_lse)
+    assert torch.equal(torch.isinf(lse), inf)
+    assert float((lse.double() - ref_lse)[~inf].abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("kind,T,hd,block", [*CASES, ("zero-degree-row", 256, 64, 64)],
+                         ids=[f"{c[0]}-T{c[1]}-b{c[3]}" for c in CASES] + ["zero-degree-row"])
+def test_bf16_plain_and_jax_splash_forward_lie_within_tolerance_of_float64(kind, T, hd, block):
+    nb = T // block
+    layout = _layout(kind, nb, block) if kind != "zero-degree-row" else ts.check_layouts(nb)[kind]
+    scale = hd ** -0.5
+    r = np.random.default_rng(23)
+    jq, jk, jv = (_bf16(r, (1, 2, T, hd)) for _ in range(3))
+    jout, jlse = js._splash_fwd(jq, jk, jv, layout, block, True, scale, True, want_lse=True)
+    tq, tk, tv = (_to_torch(x).to(torch.bfloat16) for x in (jq, jk, jv))
+    exact = ts.splash_fwd_float64(tq, tk, tv, layout, block, True, scale)
+    out, lse = ts.splash_fwd_reference(tq, tk, tv, layout, block, True, scale)
+    assert out.dtype == torch.bfloat16
+    _close_to_float64(out, lse, exact)
+    _close_to_float64(_to_torch(jout), _to_torch(jlse), exact)
+    if kind == "zero-degree-row":
+        assert bool(torch.isinf(exact[1][0, 0, block:2 * block]).all())
+        assert not exact[0][0, 0, block:2 * block].any()
+    # one edge fewer: the last row block's first active key block off the diagonal
+    if kind != "zero-degree-row":
+        fewer = ts._splash_layout(layout).copy()
+        c = int(np.nonzero(fewer[0, nb - 1, : nb - 1])[0][0])
+        fewer[0, nb - 1, c] = 0
+        if fewer.shape[0] == 1:
+            fewer = np.concatenate([fewer, ts._splash_layout(layout)], 0)
+        missing = ts.splash_fwd_float64(tq, tk, tv, fewer, block, True, scale)[0]
+        assert float((out.double() - missing).abs().max()) > FWD_TOL
+
+
+@pytest.mark.parametrize("causal,bias", [(True, False), (False, True)],
+                         ids=["causal", "kbias"])
+def test_bf16_plain_and_jax_flash_forward_lie_within_tolerance_of_float64(causal, bias):
+    """GPT-2's causal form and BERT's key-padding bias, at (2, 2, 256, 64)."""
+    B, H, T, d = 2, 2, 256, 64
+    scale = d ** -0.5
+    r = np.random.default_rng(29)
+    jq, jk, jv = (_bf16(r, (B, H, T, d)) for _ in range(3))
+    kb = np.zeros((B, T), np.float32)
+    kb[1, 200:] = -1e9  # row 1 keeps 200 of its keys
+    jbias = jnp.asarray(kb)[:, None, None, :] if bias else None
+    jout, jlse = jfa._flash_fwd_pallas(jq, jk, jv, causal, scale, 128, 128, True, bias=jbias)
+    tq, tk, tv = (_to_torch(x).to(torch.bfloat16) for x in (jq, jk, jv))
+    tkb = torch.from_numpy(kb) if bias else None
+    exact = tfa.flash_fwd_float64(tq, tk, tv, causal, scale, kbias=tkb)
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, causal, scale, kbias=tkb)
+    _close_to_float64(out, lse, exact)
+    _close_to_float64(_to_torch(jout), _to_torch(jlse), exact)
+    # the f32 plain version of the same inputs sits far closer
+    out32, _ = tfa.flash_fwd_reference(tq.float(), tk.float(), tv.float(), causal, scale,
+                                       kbias=tkb)
+    assert float((out32.double() - exact[0]).abs().max()) <= 1e-5
