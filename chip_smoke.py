@@ -86,6 +86,17 @@ Phases, each printing one JSON line:
    their tensor-core bodies only; every loss finite and the last below the
    first.  Prints tokens/s, ms a step, peak
    memory and model-FLOPs utilization.
+   Then ``train_resume_bf16``: the same config over a 96 x 1024 dataset
+   read through ``DeepSpeedDataLoader(16, shuffle)`` ->
+   ``engine.prefetch_loader``: engine A takes 6 steps; engine B 3, a
+   synchronous save, an async save, a step while that commit runs, and
+   the drain; fresh engines C and D load the sync and the async tag and
+   take 3 steps each.  Their losses, masters, Adam moments and batches
+   must equal A's bit for bit, both tags' state must hash alike, and the
+   6 steps fed without the prefetcher must give A's losses (counters
+   zeroed before, read after: ``training_resume``).  Prints the saves'
+   ms and GB/s, the async stall beside its commit, the loads, and the
+   step ms with and without the prefetcher and its ``data_wait``.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
    ``paged_request_mix(seed=0)``: 16 requests sharing a 200-token prefix
@@ -125,6 +136,10 @@ Phases, each printing one JSON line:
    both LAMB kernels launched, fused Adam and the two-pass backward not;
    every loss finite.
    Prints tokens/s, ms a step, peak memory and model-FLOPs utilization.
+   Then ``train_resume_bert_drop_bf16``: the same BERT-large, depth cut
+   to 4 layers, 2 steps + save + a fresh engine's load + 2 against 4
+   uninterrupted steps, bit for bit, LAMB's moments included (the gate on
+   the generator and the Threefry keys resuming; ``training_resume_bert``).
 13. ``transformer_layer``: ``DeepSpeedTransformerLayer`` at BERT-large
    width (pre-LN, the op's default dropout 0.1 and 0.1): 24 layers in bf16
    at B=8, T=512, forward and backward, with a (B, T) mask (the key-row
@@ -153,8 +168,9 @@ Phases, each printing one JSON line:
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
-   training_bert, training_bert_dropout, transformer_layer,
-   training_sparse) and their sum.
+   training_resume, training_bert, training_resume_bert,
+   training_bert_dropout, transformer_layer, training_sparse) and their
+   sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -2189,13 +2205,8 @@ def _first_step_bits(torch, model_fn, params, config, batch):
     return row
 
 
-def phase_train_bf16(torch, params):
-    from deepspeed_tpu_torch.models import gpt2
-    from deepspeed_tpu_torch.ops import kernels
-
-    cfg = gpt2.PRESETS["gpt2"]
-    mb, gas, T, steps = 8, 2, 1024, 4
-    config = {
+def _gpt2_bf16_config(mb, gas):
+    return {
         "train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
         "bf16": {"enabled": True}, "gradient_clipping": 1.0,
         "optimizer": {"type": "AdamW", "params": {"lr": 6e-4, "betas": [0.9, 0.95],
@@ -2206,6 +2217,15 @@ def phase_train_bf16(torch, params):
             "total_num_steps": 100, "warmup_num_steps": 2, "warmup_min_lr": 6e-5,
             "warmup_max_lr": 6e-4}},
     }
+
+
+def phase_train_bf16(torch, params):
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg = gpt2.PRESETS["gpt2"]
+    mb, gas, T, steps = 8, 2, 1024, 4
+    config = _gpt2_bf16_config(mb, gas)
     batch = {"input_ids": np.random.default_rng(12).integers(0, cfg.vocab_size, (mb * gas, T),
                                                              dtype=np.int32)}
     _first_step_bits(torch, gpt2.make_model(cfg)[0], params, config, batch)
@@ -2243,6 +2263,215 @@ def phase_train_bf16(torch, params):
           "global_steps": engine.global_steps})
     del engine
     torch.cuda.empty_cache()
+    return launches, float(np.median(walls[1:])) * 1e3
+
+
+# ---------------------------------------------------------------------------
+# resumable training: checkpoints, the resumable loader, prefetch, async saves
+# ---------------------------------------------------------------------------
+
+RESUME_ROWS = 96  # 6 global batches of 16 x 1024 tokens: one shuffled epoch
+
+
+class _Recording:
+    """A loader that keeps a copy of each batch it yields (the ids the
+    engines consumed) and passes the resume cursor through."""
+
+    def __init__(self, loader, key):
+        self.loader, self.key, self.seen = loader, key, []
+
+    def __iter__(self):
+        return self._gen(iter(self.loader))
+
+    def _gen(self, it):
+        for batch in it:
+            self.seen.append(np.array(batch[self.key]))
+            yield batch
+
+    def state_dict(self):
+        return self.loader.state_dict()
+
+    def load_state_dict(self, sd):
+        self.loader.load_state_dict(sd)
+
+
+def _run_steps(engine, feed, steps):
+    """``steps`` train_batch calls over ``feed``: losses and the wall
+    seconds of each step, the batch's wait included (the host read of the
+    loss ends the step)."""
+    losses, walls = [], []
+    it = iter(feed)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(next(it))))
+        walls.append(time.perf_counter() - t0)
+    it.close()  # stops a prefetcher's threads
+    return losses, walls
+
+
+def _optimizer_tensors(engine):
+    st = engine.opt_state
+    return [*engine._params, st.step, *st.exp_avg, *st.exp_avg_sq]
+
+
+def _same_tensors(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _resume_run(torch, make, data, key, steps, cut, root, async_too):
+    """Engine A: ``steps`` steps uninterrupted through
+    ``DeepSpeedDataLoader`` -> ``prefetch_loader``; engine B: ``cut`` steps,
+    a synchronous save (and with ``async_too`` an async save, a step taken
+    while its commit runs, then the drain); engines C (and D) fresh, loading
+    the sync (async) tag before their ``steps - cut`` steps.  Returns what
+    the gates and the print need."""
+    from deepspeed_tpu_torch.resilience import manager
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+    loader = lambda: _Recording(DeepSpeedDataLoader(data, batch_size=16, shuffle=True, seed=0),  # noqa: E731
+                                key)
+    out = {}
+    a, rec_a = make(), loader()
+    out["losses_a"], walls_a = _run_steps(a, a.prefetch_loader(rec_a), steps)
+    out["step_ms_prefetch"] = [w * 1e3 for w in walls_a]
+    out["data_wait_ms"] = a.timeline.summary()["data_wait_ms"]
+    state_a = _optimizer_tensors(a)
+
+    b, rec_b = make(), loader()
+    out["losses_b"], _ = _run_steps(b, b.prefetch_loader(rec_b), cut)
+    b.timeline.end_step()  # close the steps' record: the saves get their own
+    t0 = time.perf_counter()
+    tags = [b.save_checkpoint(os.path.join(root, "sync"), async_save=False)]
+    out["sync_save_ms"] = (time.perf_counter() - t0) * 1e3
+    b.timeline.end_step()
+    out["sync_ckpt_stall_ms"] = b.timeline.summary(last_n=1)["ckpt_stall_ms"]
+    if async_too:
+        tags.append(b.save_checkpoint(os.path.join(root, "async"), async_save=True))
+        b.timeline.end_step()
+        out["async_ckpt_stall_ms"] = b.timeline.summary(last_n=1)["ckpt_stall_ms"]
+        # a step while the commit runs: the masters and moments change in
+        # place under it, so the async tag is the snapshot's only if the
+        # snapshot was whole before save_checkpoint returned
+        out["in_flight_during_step"] = b._async_writer.in_flight
+        t0 = time.perf_counter()
+        float(b.train_batch({k: v[:16] for k, v in data.items()}))
+        out["step_ms_during_commit"] = (time.perf_counter() - t0) * 1e3
+        pend = b._async_writer.drain()
+        check(pend.ok, f"async save failed: {pend.error!r}")
+        out["async_commit_ms"] = (pend.finished_at - pend.started_at) * 1e3
+    del b
+    sizes = [sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(t) for f in fs)
+             for t in tags]
+    out["tag_bytes"] = sizes[0]
+    out["sync_save_gb_per_s"] = sizes[0] / out["sync_save_ms"] / 1e6
+    digests = []
+    for t in tags:
+        ok, notes = manager.verify_tag(os.path.dirname(t), os.path.basename(t))
+        check(ok, f"tag {t} does not verify: {notes}")
+        with open(os.path.join(t, "manifest.json")) as f:
+            digests.append(json.load(f)["files"]["state/state.pt"]["digest"])
+    out["state_digests"] = digests
+
+    out["resumed"] = {}
+    for t in tags:
+        c, rec_c = make(), loader()
+        feed = c.prefetch_loader(rec_c)  # registered before the load: the cursor comes back
+        t0 = time.perf_counter()
+        path, _ = c.load_checkpoint(os.path.dirname(t))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        losses, _ = _run_steps(c, feed, steps - cut)
+        out["resumed"][os.path.basename(os.path.dirname(t))] = {
+            "path": path, "load_ms": load_ms, "load_gb_per_s": out["tag_bytes"] / load_ms / 1e6,
+            "losses": losses,
+            "same_state": _same_tensors(torch, _optimizer_tensors(c), state_a),
+            "same_batches": len(rec_c.seen) >= steps - cut and all(
+                np.array_equal(x, y) for x, y in zip(rec_c.seen, rec_a.seen[cut:steps])),
+            "global_steps": c.global_steps}
+        del c
+    out["b_batches_are_a_first"] = all(np.array_equal(x, y)
+                                       for x, y in zip(rec_b.seen[:cut], rec_a.seen))
+    del a, state_a
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resume_gates(label, out, steps, cut):
+    want = out["losses_a"][cut:steps]
+    check(all(np.isfinite(out["losses_a"])), f"{label}: non-finite loss {out['losses_a']}")
+    check(out["losses_b"] == out["losses_a"][:cut],
+          f"{label}: engine B's first steps {out['losses_b']} differ from A's {out['losses_a']}")
+    check(out["b_batches_are_a_first"], f"{label}: engine B consumed other batches than A")
+    for name, r in out["resumed"].items():
+        check(r["losses"] == want,
+              f"{label}: resumed from the {name} tag, losses {r['losses']} != A's {want}")
+        check(r["same_state"], f"{label}: resumed from the {name} tag, masters or moments differ")
+        check(r["same_batches"], f"{label}: resumed from the {name} tag, other batches than A's")
+        check(r["global_steps"] == steps, f"{label}: {name} ends at step {r['global_steps']}")
+
+
+def phase_train_resume_bf16(torch, params, train_step_ms):
+    """GPT-2 124M, train_bf16's config, resumed from a sync and an async
+    tag against 6 uninterrupted steps, bit for bit; and the same 6 steps
+    fed without the prefetcher."""
+    import tempfile
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg = gpt2.PRESETS["gpt2"]
+    mb, gas, steps, cut = 8, 2, 6, 3
+    config = dict(_gpt2_bf16_config(mb, gas), overlap={"async_checkpoint": {"enabled": True}})
+    model_fn = gpt2.make_model(cfg)[0]
+    make = lambda: deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,  # noqa: E731
+                                                  config=config)[0]
+    data = {"input_ids": np.random.default_rng(13).integers(0, cfg.vocab_size, (RESUME_ROWS, 1024),
+                                                            dtype=np.int32)}
+    root = tempfile.mkdtemp()
+    try:
+        # -- the main path: counters zeroed just before, read just after ---
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = _resume_run(torch, make, data, "input_ids", steps, cut, root, async_too=True)
+        e = make()
+        from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+        plain, walls_e = _run_steps(e, DeepSpeedDataLoader(data, batch_size=16, shuffle=True,
+                                                           seed=0), steps)
+        launches = kernels.launches()
+        variants = kernels.launch_variants()
+        # ------------------------------------------------------------------
+        del e
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for name in ("flash_fwd", "flash_bwd", "fused_adam"):
+        check(launches[name] > 0, f"train_resume_bf16: kernel {name} was not launched")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(only_tc(variants[name]),
+              f"train_resume_bf16: {name} ran {variants[name]}, not only the tensor-core body")
+    _resume_gates("train_resume_bf16", out, steps, cut)
+    check(plain == out["losses_a"],
+          f"train_resume_bf16: losses without the prefetcher {plain} != with it {out['losses_a']}")
+    check(out["state_digests"][0] == out["state_digests"][1],
+          f"train_resume_bf16: the sync and async tags' state differ {out['state_digests']}")
+    check(out["in_flight_during_step"], "train_resume_bf16: the async commit was not in flight")
+    emit({"phase": "train_resume_bf16", "model": "gpt2", "micro_batch": mb, "gas": gas, "T": 1024,
+          "steps": steps, "saved_after": cut, "dataset_rows": RESUME_ROWS,
+          "losses": out["losses_a"], "losses_without_prefetch": plain,
+          "resumed": out["resumed"], "state_digests": out["state_digests"],
+          "tag_bytes": out["tag_bytes"], "sync_save_ms": out["sync_save_ms"],
+          "sync_save_gb_per_s": out["sync_save_gb_per_s"],
+          "sync_ckpt_stall_ms": out["sync_ckpt_stall_ms"],
+          "async_ckpt_stall_ms": out["async_ckpt_stall_ms"],
+          "async_commit_ms": out["async_commit_ms"],
+          "step_ms_during_commit": out["step_ms_during_commit"],
+          "step_ms_prefetch": out["step_ms_prefetch"],
+          "step_ms_median_prefetch": float(np.median(out["step_ms_prefetch"][1:])),
+          "data_wait_ms_mean_prefetch": out["data_wait_ms"],
+          "step_ms_median_without_prefetch": float(np.median(walls_e[1:])) * 1e3,
+          "step_ms_median_train_bf16": train_step_ms, "launches": launches})
     return launches
 
 
@@ -2438,6 +2667,66 @@ def phase_train_bert_drop_bf16(torch, params):
           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
           "launches": launches, "variants": variants, "global_steps": engine.global_steps})
     del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+RESUME_BERT_LAYERS = 4
+
+
+def phase_train_resume_bert_drop_bf16(torch):
+    """BERT-large at full width with its published dropout, LAMB and
+    train_bert_drop_bf16's batch, depth cut to 4 layers: 2 steps, a save,
+    a fresh engine's load and 2 steps against 4 uninterrupted steps, bit
+    for bit (the gate on the micro-step generator and the Threefry keys
+    resuming)."""
+    import tempfile
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bert
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_training import BERT_LAMB, synthetic_mlm_batch
+
+    cfg = dataclasses.replace(_bert_drop_cfg(bert), num_hidden_layers=RESUME_BERT_LAYERS)
+    params = bert.init_params(cfg, seed=0)
+    mb, gas, T, steps, cut = 8, 2, 512, 4, 2
+    config = {
+        "train_micro_batch_size_per_gpu": mb, "gradient_accumulation_steps": gas,
+        "bf16": {"enabled": True}, "gradient_clipping": 1.0, "optimizer": BERT_LAMB,
+        "scheduler": {"type": "WarmupDecayLR", "params": {
+            "total_num_steps": 100, "warmup_num_steps": 2, "warmup_min_lr": 2e-4,
+            "warmup_max_lr": 2e-3}},
+    }
+    model_fn = bert.make_model(cfg)[0]
+    make = lambda: deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,  # noqa: E731
+                                                  config=config)[0]
+    data = synthetic_mlm_batch(cfg.vocab_size, steps * mb * gas, T, seed=22)
+    root = tempfile.mkdtemp()
+    try:
+        # -- the main path: counters zeroed just before, read just after ---
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = _resume_run(torch, make, data, "input_ids", steps, cut, root, async_too=False)
+        launches = kernels.launches()
+        variants = kernels.launch_variants()
+        # ------------------------------------------------------------------
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("flash_fwd", "flash_bwd", "fused_lamb_dir", "fused_lamb_apply"):
+        check(launches[name] > 0, f"train_resume_bert_drop_bf16: kernel {name} was not launched")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(variants[name] == {"kbias+dropout/tc": launches[name]},
+              f"train_resume_bert_drop_bf16: {name} ran {variants[name]}")
+    _resume_gates("train_resume_bert_drop_bf16", out, steps, cut)
+    emit({"phase": "train_resume_bert_drop_bf16", "model": "bert-large",
+          "reduced": {"n_layer": f"{bert.BERT_LARGE.num_hidden_layers} -> {RESUME_BERT_LAYERS}"},
+          "hidden_dropout": 0.1, "attention_dropout": 0.1, "optimizer": BERT_LAMB,
+          "micro_batch": mb, "gas": gas, "T": T, "steps": steps, "saved_after": cut,
+          "losses": out["losses_a"], "resumed": out["resumed"], "tag_bytes": out["tag_bytes"],
+          "sync_save_ms": out["sync_save_ms"], "sync_save_gb_per_s": out["sync_save_gb_per_s"],
+          "step_ms_prefetch": out["step_ms_prefetch"],
+          "data_wait_ms_mean_prefetch": out["data_wait_ms"], "launches": launches})
     torch.cuda.empty_cache()
     return launches
 
@@ -2819,7 +3108,8 @@ def main() -> int:
     phase_serve_paged_f32(torch, params, mix)
     paged_launches = phase_serve_paged_bf16(torch, params, mix)
     phase_train_f32(torch, params)
-    train_launches = phase_train_bf16(torch, params)
+    train_launches, train_step_ms = phase_train_bf16(torch, params)
+    resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
     del params
     bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
     phase_train_bert_f32(torch, bert_params)
@@ -2828,12 +3118,15 @@ def main() -> int:
     drop_launches = phase_train_bert_drop_bf16(torch, bert_params)
     del bert_params
     torch.cuda.empty_cache()
+    resume_bert_launches = phase_train_resume_bert_drop_bf16(torch)
     layer_launches = phase_transformer_layer(torch, dev)
     torch.cuda.empty_cache()
     phase_train_sparse_f32(torch)
     sparse_launches = phase_train_sparse_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
-                      "training": train_launches[name], "training_bert": bert_launches[name],
+                      "training": train_launches[name], "training_resume": resume_launches[name],
+                      "training_bert": bert_launches[name],
+                      "training_resume_bert": resume_bert_launches[name],
                       "training_bert_dropout": drop_launches[name],
                       "transformer_layer": layer_launches[name],
                       "training_sparse": sparse_launches[name]}

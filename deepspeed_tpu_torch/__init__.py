@@ -43,9 +43,16 @@ def initialize(
     * ``device``: ``"cuda"`` (the default; raises when there is no card)
       or ``"cpu"``, where every kernel takes its plain PyTorch version.
 
-    Returns ``(engine, optimizer, None, lr_schedule)``.  A mesh, tensor
-    parallelism and partition rules (ROADMAP A6), a data loader from
-    ``training_data`` (A5) and pipeline modules (A11) are not ported."""
+    * ``training_data``: a dataset for a
+      :class:`~deepspeed_tpu_torch.runtime.dataloader.DeepSpeedDataLoader`
+      (a dict/tuple of equal-length numpy arrays, or a sequence of
+      examples batched by ``collate_fn``), shuffled from the config's
+      ``seed``, in batches of ``train_micro_batch_size_per_gpu``, dropping
+      the last partial batch per ``dataloader_drop_last``.
+
+    Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
+    without ``training_data``.  A mesh, tensor parallelism and partition
+    rules (ROADMAP A6) and pipeline modules (A11) are not ported."""
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig, DeepSpeedConfigError
     from deepspeed_tpu_torch.utils.device import resolve_device
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
@@ -65,14 +72,24 @@ def initialize(
         raise NotImplementedError(
             "meshes, tensor parallelism and partition rules are not ported yet (ROADMAP A6); "
             "the port trains on one device")
-    if training_data is not None:
-        raise NotImplementedError("initialize(training_data=...) is not ported yet (ROADMAP A5 "
-                                  "runtime/dataloader.py)")
+    ds_config = DeepSpeedConfig(config)
     engine = DeepSpeedEngine(
-        model=model, params=model_parameters, config=DeepSpeedConfig(config),
+        model=model, params=model_parameters, config=ds_config,
         optimizer=optimizer, lr_scheduler=lr_scheduler, loss_fn=loss_fn, device=device,
     )
-    return engine, engine.optimizer, None, engine.lr_schedule
+    loader = None
+    if training_data is not None:
+        from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+        loader = DeepSpeedDataLoader(
+            training_data,
+            batch_size=ds_config.train_micro_batch_size_per_gpu,
+            shuffle=True,
+            seed=ds_config.seed,
+            drop_last=ds_config.dataloader_drop_last,
+            collate_fn=collate_fn,
+        )
+    return engine, engine.optimizer, loader, engine.lr_schedule
 
 
 def init_inference(model=None, **kwargs):

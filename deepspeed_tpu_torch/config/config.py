@@ -3,9 +3,12 @@
 
 Ported: :class:`DeepSpeedConfig` with its batch triad on one device, the
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler`` blocks, the ZeRO
-``stage``, ``gradient_clipping``, ``steps_per_print``, ``seed``, and the
+``stage``, ``gradient_clipping``, ``steps_per_print``, ``seed``, the
 ``serving`` block's slot-pool fields and its ``kvcache`` block (the paged
-pool; :class:`ServingConfig`, :class:`KVCacheConfig`).  Unknown
+pool; :class:`ServingConfig`, :class:`KVCacheConfig`), the ``resilience``
+block but its ``supervision`` (:class:`ResilienceConfig`), the ``overlap``
+block (:class:`OverlapConfig`), ``checkpoint_tag_validation`` and
+``dataloader_drop_last``.  Unknown
 keys raise :class:`DeepSpeedConfigError` as in the JAX package.  Keys and
 blocks the JAX package knows but the port cannot honour yet are accepted
 only at their "off" default; otherwise they raise ``NotImplementedError``
@@ -452,8 +455,8 @@ _ZERO_NOT_PORTED = {
     "allgather_partitions": (True, "A6"),
     "allgather_bucket_size": (500_000_000, "A6"),
     "overlap_comm": (True, "A6"),
-    "load_from_fp32_weights": (True, "A4 checkpoints"),
-    "elastic_checkpoint": (True, "A4 checkpoints"),
+    "load_from_fp32_weights": (True, "A6 ZeRO checkpoint options"),
+    "elastic_checkpoint": (True, "A6 ZeRO checkpoint options"),
     "sub_group_size": (1_000_000_000, "A6"),
     "stage3_prefetch_bucket_size": (50_000_000, "A6"),
     "prefetch_bucket_size": (50_000_000, "A6"),
@@ -463,8 +466,8 @@ _ZERO_NOT_PORTED = {
     "max_live_parameters": (1_000_000_000, "A6"),
     "stage3_max_reuse_distance": (1_000_000_000, "A6"),
     "max_reuse_distance": (1_000_000_000, "A6"),
-    "stage3_gather_fp16_weights_on_model_save": (False, "A4 checkpoints"),
-    "gather_fp16_weights_on_model_save": (False, "A4 checkpoints"),
+    "stage3_gather_fp16_weights_on_model_save": (False, "A6 ZeRO checkpoint options"),
+    "gather_fp16_weights_on_model_save": (False, "A6 ZeRO checkpoint options"),
     "round_robin_gradients": (False, "A6"),
     "ignore_unused_parameters": (True, "A6"),
     "legacy_stage1": (False, "A6"),
@@ -551,6 +554,281 @@ def _off_block(v: Any) -> bool:
     return v is None or v == {} or v == {"enabled": False}
 
 
+@dataclass
+class ResilienceCheckpointConfig:
+    """``resilience.checkpoint`` — durability of the checkpoint tree."""
+
+    atomic: bool = C.CHECKPOINT_ATOMIC_DEFAULT
+    verify_on_load: bool = C.CHECKPOINT_VERIFY_ON_LOAD_DEFAULT
+    checksum: str = C.CHECKPOINT_CHECKSUM_DEFAULT
+    keep_last_n: int = C.CHECKPOINT_KEEP_LAST_N_DEFAULT  # 0 = keep all
+    keep_every: int = C.CHECKPOINT_KEEP_EVERY_DEFAULT  # pin step multiples
+    fail_on_missing: bool = C.CHECKPOINT_FAIL_ON_MISSING_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "ResilienceCheckpointConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            atomic=bool(d.pop("atomic", C.CHECKPOINT_ATOMIC_DEFAULT)),
+            verify_on_load=bool(d.pop("verify_on_load", C.CHECKPOINT_VERIFY_ON_LOAD_DEFAULT)),
+            checksum=str(d.pop("checksum", C.CHECKPOINT_CHECKSUM_DEFAULT)).lower(),
+            keep_last_n=int(d.pop("keep_last_n", C.CHECKPOINT_KEEP_LAST_N_DEFAULT)),
+            keep_every=int(d.pop("keep_every", C.CHECKPOINT_KEEP_EVERY_DEFAULT)),
+            fail_on_missing=bool(d.pop(C.CHECKPOINT_FAIL_ON_MISSING,
+                                       C.CHECKPOINT_FAIL_ON_MISSING_DEFAULT)),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.checksum not in C.CHECKPOINT_CHECKSUM_ALGORITHMS:
+            raise DeepSpeedConfigError(
+                f"'{block}.checksum' must be one of {C.CHECKPOINT_CHECKSUM_ALGORITHMS}, "
+                f"got '{out.checksum}'"
+            )
+        return out
+
+
+@dataclass
+class WatchdogConfig:
+    """``resilience.watchdog`` — SIGTERM/SIGINT → emergency checkpoint at
+    the next step boundary, then exit with a scheduler-readable code."""
+
+    enabled: bool = C.WATCHDOG_ENABLED_DEFAULT
+    grace_seconds: float = C.WATCHDOG_GRACE_SECONDS_DEFAULT
+    exit_code: int = C.WATCHDOG_EXIT_CODE_DEFAULT
+    save_dir: Optional[str] = None  # default: the engine's last ckpt dir
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "WatchdogConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.WATCHDOG_ENABLED_DEFAULT)),
+            grace_seconds=float(d.pop("grace_seconds", C.WATCHDOG_GRACE_SECONDS_DEFAULT)),
+            exit_code=int(d.pop("exit_code", C.WATCHDOG_EXIT_CODE_DEFAULT)),
+            save_dir=d.pop("save_dir", None),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if not (0 <= out.exit_code <= 255):
+            raise DeepSpeedConfigError(f"'{block}.exit_code' must be in [0, 255], got {out.exit_code}")
+        if out.grace_seconds < 0:
+            raise DeepSpeedConfigError(f"'{block}.grace_seconds' must be >= 0, got {out.grace_seconds}")
+        return out
+
+
+@dataclass
+class RetryConfig:
+    """``resilience.retry`` — the bounded-retry policy of checkpoint I/O."""
+
+    max_attempts: int = C.RETRY_MAX_ATTEMPTS_DEFAULT
+    backoff_seconds: float = C.RETRY_BACKOFF_SECONDS_DEFAULT
+    backoff_max_seconds: float = C.RETRY_BACKOFF_MAX_SECONDS_DEFAULT
+    jitter: float = C.RETRY_JITTER_DEFAULT
+    timeout_seconds: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "RetryConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            max_attempts=int(d.pop("max_attempts", C.RETRY_MAX_ATTEMPTS_DEFAULT)),
+            backoff_seconds=float(d.pop("backoff_seconds", C.RETRY_BACKOFF_SECONDS_DEFAULT)),
+            backoff_max_seconds=float(d.pop("backoff_max_seconds",
+                                            C.RETRY_BACKOFF_MAX_SECONDS_DEFAULT)),
+            jitter=float(d.pop("jitter", C.RETRY_JITTER_DEFAULT)),
+            timeout_seconds=d.pop("timeout_seconds", None),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.max_attempts < 1:
+            raise DeepSpeedConfigError(f"'{block}.max_attempts' must be >= 1, got {out.max_attempts}")
+        return out
+
+    def policy(self):
+        """The port's runtime :class:`RetryPolicy` (imported here so
+        config parsing stays free of the resilience package)."""
+        from deepspeed_tpu_torch.resilience.policy import RetryPolicy
+
+        return RetryPolicy(
+            max_attempts=self.max_attempts,
+            backoff_seconds=self.backoff_seconds,
+            backoff_max_seconds=self.backoff_max_seconds,
+            jitter=self.jitter,
+            timeout_seconds=self.timeout_seconds,
+        )
+
+
+@dataclass
+class DivergenceConfig:
+    """``resilience.divergence`` — N consecutive NaN/overflow-skipped
+    steps trip a configurable action (warn / lower the loss-scale floor /
+    roll back to the last verified checkpoint)."""
+
+    enabled: bool = C.DIVERGENCE_ENABLED_DEFAULT
+    threshold: int = C.DIVERGENCE_THRESHOLD_DEFAULT
+    action: str = C.DIVERGENCE_ACTION_WARN
+    # Opt-in host sync: without dynamic loss scaling (bf16 default) there
+    # is no overflow flag, so NaN detection must read the loss each step.
+    check_loss: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "DivergenceConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.DIVERGENCE_ENABLED_DEFAULT)),
+            threshold=int(d.pop("threshold", C.DIVERGENCE_THRESHOLD_DEFAULT)),
+            action=str(d.pop("action", C.DIVERGENCE_ACTION_WARN)).lower(),
+            check_loss=bool(d.pop("check_loss", False)),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.action not in C.DIVERGENCE_ACTIONS:
+            raise DeepSpeedConfigError(
+                f"'{block}.action' must be one of {C.DIVERGENCE_ACTIONS}, got '{out.action}'"
+            )
+        if out.threshold < 1:
+            raise DeepSpeedConfigError(f"'{block}.threshold' must be >= 1, got {out.threshold}")
+        return out
+
+
+@dataclass
+class ResilienceConfig:
+    """``resilience`` block.  Its ``supervision`` sub-block (heartbeats,
+    the hung-collective watchdog, exit 44) is accepted only at its off
+    default (ROADMAP A14)."""
+
+    checkpoint: ResilienceCheckpointConfig = field(default_factory=ResilienceCheckpointConfig)
+    watchdog: WatchdogConfig = field(default_factory=WatchdogConfig)
+    retry: RetryConfig = field(default_factory=RetryConfig)
+    divergence: DivergenceConfig = field(default_factory=DivergenceConfig)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ResilienceConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        sub = lambda key: (d.pop(key, None), f"{C.RESILIENCE}.{key}")  # noqa: E731
+        out = cls(
+            checkpoint=ResilienceCheckpointConfig.from_dict(*sub(C.RESILIENCE_CHECKPOINT)),
+            watchdog=WatchdogConfig.from_dict(*sub(C.RESILIENCE_WATCHDOG)),
+            retry=RetryConfig.from_dict(*sub(C.RESILIENCE_RETRY)),
+            divergence=DivergenceConfig.from_dict(*sub(C.RESILIENCE_DIVERGENCE)),
+        )
+        if not _off_block(d.pop(C.RESILIENCE_SUPERVISION, None)):
+            raise _not_ported(f"{C.RESILIENCE}.{C.RESILIENCE_SUPERVISION}",
+                              "A14 resilience/supervision/")
+        _check_empty(d, C.RESILIENCE, (*_known_keys(cls), C.RESILIENCE_SUPERVISION))
+        return out
+
+
+@dataclass
+class PrefetchOverlapConfig:
+    """``overlap.prefetch`` — pipelined load + device placement of input
+    batches ahead of the step (``engine.prefetch_loader``)."""
+
+    enabled: bool = C.PREFETCH_ENABLED_DEFAULT
+    depth: int = C.PREFETCH_DEPTH_DEFAULT  # batches in flight per stage
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "PrefetchOverlapConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.PREFETCH_ENABLED_DEFAULT)),
+            depth=int(d.pop("depth", C.PREFETCH_DEPTH_DEFAULT)),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.depth < 1:
+            raise DeepSpeedConfigError(f"'{block}.depth' must be >= 1, got {out.depth}")
+        return out
+
+
+@dataclass
+class AsyncCheckpointConfig:
+    """``overlap.async_checkpoint`` — snapshot the state at the step
+    boundary, run the stage->manifest->rename commit on a background
+    thread (the durability contract is unchanged)."""
+
+    enabled: bool = C.ASYNC_CHECKPOINT_ENABLED_DEFAULT
+    drain_timeout_seconds: float = C.ASYNC_CHECKPOINT_DRAIN_TIMEOUT_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "AsyncCheckpointConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.ASYNC_CHECKPOINT_ENABLED_DEFAULT)),
+            drain_timeout_seconds=float(d.pop("drain_timeout_seconds",
+                                              C.ASYNC_CHECKPOINT_DRAIN_TIMEOUT_DEFAULT)),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.drain_timeout_seconds <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.drain_timeout_seconds' must be > 0, got {out.drain_timeout_seconds}"
+            )
+        return out
+
+
+@dataclass
+class TimelineConfig:
+    """``overlap.timeline`` — per-step wall-time attribution (data_wait /
+    compute / ckpt_stall / compile / other).
+
+    ``fence``: synchronize the card after each step so ``compute`` is
+    recorded.  ``null`` (default) follows ``wall_clock_breakdown``, which
+    the port refuses (ROADMAP A14): so the fence is on only when asked for
+    explicitly, and an unfenced timeline omits ``compute`` rather than
+    record the time it took to queue the step."""
+
+    enabled: bool = C.TIMELINE_ENABLED_DEFAULT
+    window: int = C.TIMELINE_WINDOW_DEFAULT
+    fence: Optional[bool] = None  # None = follow wall_clock_breakdown
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "TimelineConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        fence = d.pop("fence", None)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.TIMELINE_ENABLED_DEFAULT)),
+            window=int(d.pop("window", C.TIMELINE_WINDOW_DEFAULT)),
+            fence=None if fence is None else bool(fence),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.window < 1:
+            raise DeepSpeedConfigError(f"'{block}.window' must be >= 1, got {out.window}")
+        return out
+
+
+@dataclass
+class OverlapConfig:
+    """``overlap`` block: input prefetch, async checkpoints, the step
+    timeline."""
+
+    prefetch: PrefetchOverlapConfig = field(default_factory=PrefetchOverlapConfig)
+    async_checkpoint: AsyncCheckpointConfig = field(default_factory=AsyncCheckpointConfig)
+    timeline: TimelineConfig = field(default_factory=TimelineConfig)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "OverlapConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        sub = lambda key: (d.pop(key, None), f"{C.OVERLAP}.{key}")  # noqa: E731
+        out = cls(
+            prefetch=PrefetchOverlapConfig.from_dict(*sub(C.OVERLAP_PREFETCH)),
+            async_checkpoint=AsyncCheckpointConfig.from_dict(*sub(C.OVERLAP_ASYNC_CHECKPOINT)),
+            timeline=TimelineConfig.from_dict(*sub(C.OVERLAP_TIMELINE)),
+        )
+        _check_empty(d, C.OVERLAP, _known_keys(cls))
+        return out
+
+
 # top-level keys of the JAX package that the port does not honour yet:
 # key -> (predicate "at its off default", ROADMAP item)
 _TOP_NOT_PORTED = {
@@ -565,9 +843,6 @@ _TOP_NOT_PORTED = {
     "disable_allgather": (lambda v: v is False, "A6"),
     "tensorboard": (_off_block, "A14"),
     "pipeline": (_off_block, "A11 runtime/pipe/"),
-    "checkpoint_tag_validation": (lambda v: v == "Warn", "A4 checkpoints"),
-    "resilience": (_off_block, "A14 resilience/"),
-    "overlap": (_off_block, "A5 runtime/overlap/"),
     "sanitizer": (_off_block, "A15"),
     "comm": (_off_block, "A6 comm/"),
     "telemetry": (_off_block, "A14 telemetry/"),
@@ -580,13 +855,13 @@ _TOP_NOT_PORTED = {
     "quantize_training": (_off_block, "A13 runtime/quantize.py"),
     "progressive_layer_drop": (_off_block, "A13 progressive_layer_drop.py"),
     "zero_allow_untested_optimizer": (lambda v: v is False, "A6"),
-    "dataloader_drop_last": (lambda v: v is False, "A5 runtime/dataloader.py"),
 }
 
 _PORTED_TOP_LEVEL = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING,
-    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION,
+    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION, C.RESILIENCE, C.OVERLAP,
+    C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST,
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -628,6 +903,17 @@ class DeepSpeedConfig:
         self.gradient_clipping = float(d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))
         self.steps_per_print = int(d.get(C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT))
         self.seed = int(d.get(C.SEED, C.SEED_DEFAULT))
+        self.resilience = ResilienceConfig.from_dict(d.get(C.RESILIENCE))
+        self.overlap = OverlapConfig.from_dict(d.get(C.OVERLAP))
+        # validated as in the JAX package, which never reads it either
+        self.checkpoint_tag_validation_mode = d.get(C.CHECKPOINT_TAG_VALIDATION,
+                                                    C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
+        self.dataloader_drop_last = bool(d.get(C.DATALOADER_DROP_LAST,
+                                               C.DATALOADER_DROP_LAST_DEFAULT))
+        if self.checkpoint_tag_validation_mode not in C.CHECKPOINT_TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError(
+                f"checkpoint_tag_validation must be one of {C.CHECKPOINT_TAG_VALIDATION_MODES}"
+            )
         if self.fp16.enabled and self.bf16.enabled:
             raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
         for key, (is_off, item) in _TOP_NOT_PORTED.items():

@@ -126,3 +126,69 @@ SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT = 4  # sealed segments before compaction
 SERVING_FLEET = "fleet"
 SERVING_FRONTDOOR = "frontdoor"
 SERVING_TENANTS = "tenants"
+
+#############################################
+# Checkpoints and the data loader
+#############################################
+CHECKPOINT_TAG_VALIDATION = "checkpoint_tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+DATALOADER_DROP_LAST = "dataloader_drop_last"
+DATALOADER_DROP_LAST_DEFAULT = False
+
+#############################################
+# Resilience (checkpoint durability, preemption, retries, divergence)
+#############################################
+RESILIENCE = "resilience"
+
+RESILIENCE_CHECKPOINT = "checkpoint"
+CHECKPOINT_ATOMIC_DEFAULT = True
+CHECKPOINT_VERIFY_ON_LOAD_DEFAULT = True
+CHECKPOINT_CHECKSUM_DEFAULT = "sha256"
+CHECKPOINT_CHECKSUM_ALGORITHMS = ["sha256", "crc32", "none"]
+CHECKPOINT_KEEP_LAST_N_DEFAULT = 0  # 0 = keep everything
+CHECKPOINT_KEEP_EVERY_DEFAULT = 0  # 0 = no step-multiple pinning
+CHECKPOINT_FAIL_ON_MISSING = "fail_on_missing"
+CHECKPOINT_FAIL_ON_MISSING_DEFAULT = False
+
+RESILIENCE_WATCHDOG = "watchdog"
+WATCHDOG_ENABLED_DEFAULT = False
+WATCHDOG_GRACE_SECONDS_DEFAULT = 60.0
+WATCHDOG_EXIT_CODE_DEFAULT = 43  # "preempted and saved"
+
+RESILIENCE_RETRY = "retry"
+RETRY_MAX_ATTEMPTS_DEFAULT = 3
+RETRY_BACKOFF_SECONDS_DEFAULT = 0.5
+RETRY_BACKOFF_MAX_SECONDS_DEFAULT = 30.0
+RETRY_JITTER_DEFAULT = 0.25
+
+RESILIENCE_DIVERGENCE = "divergence"
+DIVERGENCE_ENABLED_DEFAULT = True
+DIVERGENCE_THRESHOLD_DEFAULT = 20
+DIVERGENCE_ACTION_WARN = "warn"
+DIVERGENCE_ACTION_FLOOR = "floor_loss_scale"
+DIVERGENCE_ACTION_ROLLBACK = "rollback"
+DIVERGENCE_ACTIONS = [
+    DIVERGENCE_ACTION_WARN,
+    DIVERGENCE_ACTION_FLOOR,
+    DIVERGENCE_ACTION_ROLLBACK,
+]
+
+RESILIENCE_SUPERVISION = "supervision"
+
+#############################################
+# Overlap (input prefetch, async checkpoints, step timeline)
+#############################################
+OVERLAP = "overlap"
+
+OVERLAP_PREFETCH = "prefetch"
+PREFETCH_ENABLED_DEFAULT = True
+PREFETCH_DEPTH_DEFAULT = 2
+
+OVERLAP_ASYNC_CHECKPOINT = "async_checkpoint"
+ASYNC_CHECKPOINT_ENABLED_DEFAULT = False
+ASYNC_CHECKPOINT_DRAIN_TIMEOUT_DEFAULT = 300.0  # seconds
+
+OVERLAP_TIMELINE = "timeline"
+TIMELINE_ENABLED_DEFAULT = True
+TIMELINE_WINDOW_DEFAULT = 512  # steps retained for summaries

@@ -1,6 +1,5 @@
 """Durable file primitives: atomic writes and checkpoint manifests (a copy
-of ``deepspeed_tpu/resilience/atomic.py``; the JAX package's fault-injection
-hook before the rename is not ported).
+of ``deepspeed_tpu/resilience/atomic.py``).
 
 A checkpoint tag must either exist completely or not at all.  The two
 building blocks here are:
@@ -22,6 +21,8 @@ import json
 import os
 import zlib
 from typing import Dict, List, Optional, Tuple
+
+from deepspeed_tpu_torch.resilience import faults
 
 MANIFEST_FILE = "manifest.json"
 MANIFEST_VERSION = 1
@@ -51,6 +52,7 @@ def atomic_write_text(path: str, text: str) -> None:
         f.write(text)
         f.flush()
         os.fsync(f.fileno())
+    faults.check("atomic.replace", path=path)
     os.replace(tmp, path)
     fsync_dir(os.path.dirname(path))
 

@@ -1,0 +1,555 @@
+"""Checkpoint save/load (counterpart of ``deepspeed_tpu/runtime/checkpointing.py``).
+
+A tag keeps the JAX package's layout — ``<tag>/state/``, ``<tag>/meta.json``
+and ``<tag>/manifest.json``, staged in ``<tag>.tmp/``, with ``latest``
+beside the tags — but ``state/`` is one ``torch.save`` file
+(``state/state.pt``): a flat dict from name to CPU tensor, loaded with
+``torch.load(weights_only=True)``, pickling nothing but tensors and plain
+containers.  The names are the JAX portable state's top-level keys
+(``params``, ``opt_state``, ``loss_scale``, ``micro_step``,
+``global_step``, ``global_samples``; ``grad_acc`` when a save falls
+between micro-steps) joined by ``/`` to each leaf's path
+(``params/blocks/qkv_w``, ``opt_state/exp_avg/wte``).  Masters and moments
+are f32 on disk.  A JAX (orbax) tag cannot be read here, nor a port tag by
+JAX: the interchange point is :func:`consolidate_fp32_state_dict`, whose
+names and values equal the JAX package's.
+
+Durability (``deepspeed_tpu_torch.resilience``): a tag is written into
+``<tag>.tmp``, a size+checksum ``manifest.json`` goes in last, and a
+single rename publishes it — a kill at any point leaves the previous
+tree intact.  On load the manifest is re-verified; a corrupt tag is
+quarantined (``<tag>.corrupt``) and the load falls back to the newest
+verified tag.  Checkpoint I/O runs under the configured retry policy,
+and retention GC (``keep_last_n``/``keep_every``) runs after each
+successful save.  The fault sites ``ckpt.save.state``, ``ckpt.save.meta``
+(here), ``ckpt.commit`` and ``ckpt.latest`` (``resilience/manager.py``)
+sit where the JAX package has them.
+
+Not ported, each with its ROADMAP item: barriers, the tag broadcast and
+multi-process saves (A6); the host-offload optimizer's files (A12); the
+1-bit optimizers' phase sync (A13); the supervision plane's ``local_npz``
+emergency format (A14); the sanitizer's donation, transfer and drift
+hooks (A15).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.resilience import CheckpointNotFoundError, atomic, faults, manager
+from deepspeed_tpu_torch.resilience.policy import retry_call
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
+
+LATEST_FILE = manager.LATEST_FILE
+STATE_DIR = "state"
+STATE_FILE = "state.pt"  # one name in every tag: torch.save names its records after it
+
+
+def _ckpt_path(save_dir: str, tag: str) -> str:
+    return os.path.join(os.path.abspath(save_dir), str(tag))
+
+
+def _path_str(path) -> str:
+    """A leaf's path as the JAX package writes it (a copy of
+    ``deepspeed_tpu/runtime/zero/stages.py::_path_str``): dict keys,
+    sequence indices and field names joined by ``/``."""
+    return "/".join(str(p) for p in path)
+
+
+def _walk(tree: Any, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` of a tree of dicts (sorted keys), lists, tuples and
+    dataclasses (field order: the NamedTuple states of the JAX package)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _walk(tree[key], path + (key,))
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _walk(x, path + (i,))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from _walk(getattr(tree, f.name), path + (f.name,))
+    else:
+        yield path, tree
+
+
+def _state_tensors(engine) -> Dict[str, torch.Tensor]:
+    """The engine's live tensors that a tag holds, by name: the f32
+    masters, the optimizer state (``AdamState`` / ``LambState`` / SGD's
+    dict; a list of per-parameter tensors is named by the parameters'
+    paths, as the JAX state's parameter-shaped subtrees are), the loss
+    scaler's state and, between micro-steps, the pending gradients."""
+    params = engine._params
+    as_tree = lambda x: (engine._unflatten(x) if isinstance(x, list) and len(x) == len(params)  # noqa: E731
+                         else x)
+    opt = engine.opt_state
+    opt = ({f.name: as_tree(getattr(opt, f.name)) for f in dataclasses.fields(opt)}
+           if dataclasses.is_dataclass(opt) else {k: as_tree(v) for k, v in opt.items()})
+    tree = {"params": engine._unflatten([p.detach() for p in params]), "opt_state": opt,
+            "loss_scale": engine.loss_scale_state}
+    if any(p.grad is not None for p in params):
+        tree["grad_acc"] = engine._unflatten(
+            [p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
+    return {_path_str(path): leaf for path, leaf in _walk(tree)}
+
+
+def _snapshot_state_to_host(engine) -> Dict[str, torch.Tensor]:
+    """Every tensor of the tag copied to the host, plus the step counters.
+    On the card the copies go into pinned host tensors on a side stream
+    that waits for the work queued so far, and their event is
+    synchronized before this returns: the fused optimizer kernels update
+    masters and moments in place, so after this training may overwrite
+    the device tensors freely."""
+    live = _state_tensors(engine)
+    counters = {name: torch.tensor(value, dtype=torch.int32) for name, value in (
+        ("micro_step", engine._host_micro_step), ("global_step", engine._host_global_step),
+        ("global_samples", engine.global_samples))}
+    if engine.device.type != "cuda":
+        return {**{n: t.detach().to("cpu", copy=True) for n, t in live.items()}, **counters}
+    stream = torch.cuda.Stream(engine.device)
+    stream.wait_stream(torch.cuda.current_stream(engine.device))
+    out = {}
+    with torch.cuda.stream(stream):
+        for name, t in live.items():
+            out[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out[name].copy_(t.detach(), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return {**out, **counters}
+
+
+def _write_state(target: str, snapshot: Dict[str, torch.Tensor]) -> None:
+    os.makedirs(os.path.join(target, STATE_DIR), exist_ok=True)
+    torch.save(snapshot, os.path.join(target, STATE_DIR, STATE_FILE))
+
+
+def _resilience_cfg(engine):
+    cfg = getattr(getattr(engine, "config", None), "resilience", None)
+    if cfg is None:
+        from deepspeed_tpu_torch.config.config import ResilienceConfig
+
+        cfg = ResilienceConfig()
+    return cfg
+
+
+def _note_ckpt_dir(engine, directory: str) -> None:
+    note = getattr(engine, "_note_checkpoint_dir", None)
+    if note is not None:
+        note(directory)
+
+
+def _loader_state(engine) -> Optional[dict]:
+    """The registered dataloader's resume cursor, or None (loaders
+    without the state protocol never break a save)."""
+    loader = getattr(engine, "_train_loader", None)
+    if loader is None or not hasattr(loader, "state_dict"):
+        return None
+    try:
+        return loader.state_dict()
+    except Exception as e:  # noqa: BLE001 — cursors are best-effort
+        logger.warning(f"dataloader state_dict failed ({e!r}); checkpoint has no resume cursor")
+        return None
+
+
+def _merge_loader_state(engine, client_state: Optional[dict]) -> Optional[dict]:
+    """Fold the registered loader's cursor into the client state (an
+    explicit caller-provided '__dataloader__' wins)."""
+    sd = _loader_state(engine)
+    if sd is None:
+        return client_state
+    out = dict(client_state or {})
+    out.setdefault("__dataloader__", sd)
+    return out
+
+
+def _restore_loader_state(engine, client_state: Dict[str, Any]) -> None:
+    sd = client_state.get("__dataloader__")
+    loader = getattr(engine, "_train_loader", None)
+    if not sd or loader is None or not hasattr(loader, "load_state_dict"):
+        return
+    try:
+        loader.load_state_dict(sd)
+        log_dist(
+            f"dataloader cursor restored (epoch {sd.get('epoch')}, batch {sd.get('cursor')})"
+        )
+    except Exception as e:  # noqa: BLE001
+        logger.warning(f"dataloader cursor restore failed ({e!r}); loader starts fresh")
+
+
+def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any]:
+    """The JAX package's ``meta.json`` keys; one device: the world sizes
+    are 1 and there is no comm layer's state (``comm_state`` null)."""
+    return {
+        "tag": tag,
+        "global_step": int(engine._host_global_step),
+        "micro_step": int(engine._host_micro_step),
+        "global_samples": int(engine.global_samples),
+        "skipped_steps": int(engine.skipped_steps),
+        "world_size": 1,
+        "dp_world_size": 1,
+        "mp_world_size": 1,
+        "zero_stage": engine.zero_stage,
+        # whether the tag holds gradients of micro-steps still to be
+        # applied (a save between micro-steps)
+        "has_grad_acc": any(p.grad is not None for p in engine._params),
+        "comm_state": None,
+        "client_state": client_state or {},
+        "ds_tpu_version": _version(),
+    }
+
+
+def save_checkpoint(
+    engine,
+    save_dir: str,
+    tag: Optional[str] = None,
+    client_state: Optional[dict] = None,
+    save_latest: bool = True,
+    async_save: Optional[bool] = None,
+) -> str:
+    """Write one checkpoint tag.  ``async_save=None`` defers to the
+    engine's ``overlap.async_checkpoint`` config: when an async writer is
+    armed, the state is snapshotted to host (the only stall) and the
+    stage->manifest->rename commit runs on a background thread — training
+    resumes immediately and the returned path is where the tag WILL be
+    committed (``engine._async_writer.drain()`` to wait).  Any save
+    request drains an in-flight async save first."""
+    rcfg = _resilience_cfg(engine)
+    ck = rcfg.checkpoint
+    if tag is None:
+        tag = f"global_step{int(engine._host_global_step)}"
+    tag = str(tag)
+    client_state = _merge_loader_state(engine, client_state)
+    save_dir = os.path.abspath(save_dir)
+    final_path = _ckpt_path(save_dir, tag)
+    os.makedirs(save_dir, exist_ok=True)
+
+    # the stall clock starts BEFORE the drain: waiting out the previous
+    # in-flight commit is checkpoint-induced training stall and must
+    # show up in the ckpt_stall phase, not hide in "other"
+    timeline = getattr(engine, "timeline", None)
+    t_stall = time.perf_counter()
+    writer = getattr(engine, "_async_writer", None)
+    if writer is not None:
+        # sync saves drain too: they share the tree's staging/latest/GC
+        # state with whatever commit is still in flight
+        writer.drain()
+    use_async = (writer is not None) if async_save is None else (bool(async_save) and writer is not None)
+    if use_async and not ck.atomic:
+        # the JAX package's other blockers, multi-process saves (A6) and
+        # the host-offload optimizer (A12), do not exist in the port
+        logger.warning(
+            "async checkpoint save unavailable ('resilience.checkpoint.atomic' is off); "
+            "saving synchronously"
+        )
+        use_async = False
+
+    if use_async:
+        path = _submit_async_save(
+            engine, writer, save_dir, tag, final_path, rcfg, client_state, save_latest
+        )
+    else:
+        path = _sync_save(engine, save_dir, tag, final_path, rcfg, client_state, save_latest)
+    if timeline is not None:
+        timeline.note("ckpt_stall", time.perf_counter() - t_stall)
+    return path
+
+
+def _commit_snapshot(save_dir: str, tag: str, final_path: str, target_atomic: bool,
+                     snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any], checksum: str) -> None:
+    """One attempt of the commit protocol: state, meta, manifest last, one
+    rename (``target_atomic``), or straight into the tag's directory."""
+    faults.check("ckpt.save.state", path=final_path)
+    target = manager.begin_stage(save_dir, tag) if target_atomic else final_path
+    os.makedirs(target, exist_ok=True)
+    try:
+        _write_state(target, snapshot)
+        faults.check("ckpt.save.meta", path=target)
+        atomic.atomic_write_text(os.path.join(target, "meta.json"), json.dumps(meta, indent=2))
+        if target_atomic:
+            # manifest last: its presence certifies completeness
+            atomic.write_manifest(target, algorithm=checksum)
+            manager.commit_tag(save_dir, tag)
+    except OSError:
+        if target_atomic:
+            manager.abort_stage(save_dir, tag)
+        raise
+    finally:
+        if target_atomic:
+            # after this frame unwinds no live save owns the staging dir
+            # (a real crash clears the in-memory registry with the
+            # process; a simulated kill must match)
+            manager.release_stage(save_dir, tag)
+
+
+def _publish(save_dir: str, tag: str, rcfg, save_latest: bool) -> None:
+    """After a commit: the ``latest`` pointer, then retention GC."""
+    ck = rcfg.checkpoint
+    if save_latest:
+        retry_call(rcfg.retry.policy(), manager.write_latest, save_dir, tag)
+    deleted = manager.retention_gc(
+        save_dir, keep_last_n=ck.keep_last_n, keep_every=ck.keep_every, protect=(tag,)
+    )
+    if deleted:
+        log_dist(f"retention gc: deleted old tag(s) {deleted} (keep_last_n={ck.keep_last_n})")
+
+
+def _sync_save(
+    engine,
+    save_dir: str,
+    tag: str,
+    final_path: str,
+    rcfg,
+    client_state: Optional[dict],
+    save_latest: bool,
+) -> str:
+    ck = rcfg.checkpoint
+    meta = _build_meta(engine, tag, client_state)
+    snapshot = _snapshot_state_to_host(engine)
+    retry_call(
+        rcfg.retry.policy(),
+        _commit_snapshot, save_dir, tag, final_path, ck.atomic, snapshot, meta, ck.checksum,
+        on_retry=lambda attempt, e, pause: logger.warning(
+            f"checkpoint save of '{tag}' failed (attempt {attempt}: {e}); retrying in {pause:.1f}s"
+        ),
+    )
+    _publish(save_dir, tag, rcfg, save_latest)
+    _note_ckpt_dir(engine, save_dir)
+    log_dist(f"saved checkpoint {final_path}")
+    return final_path
+
+
+def _submit_async_save(
+    engine,
+    writer,
+    save_dir: str,
+    tag: str,
+    final_path: str,
+    rcfg,
+    client_state: Optional[dict],
+    save_latest: bool,
+) -> str:
+    """Snapshot now (the only training stall), commit in the background.
+
+    The background job is the SAME commit protocol as :func:`_sync_save`
+    — stage into ``<tag>.tmp`` under the in-flight registry, meta,
+    manifest last, one rename, latest pointer, retention GC — so every
+    fault-injection durability property carries over: a kill at any
+    background instruction leaves the previous tree (plus a ``.tmp``
+    leftover) and never a loadable-but-corrupt tag."""
+    ck = rcfg.checkpoint
+    meta = _build_meta(engine, tag, client_state)
+    snapshot = _snapshot_state_to_host(engine)
+    policy = rcfg.retry.policy()
+
+    def commit() -> None:
+        retry_call(
+            policy,
+            _commit_snapshot, save_dir, tag, final_path, True, snapshot, meta, ck.checksum,
+            on_retry=lambda attempt, e, pause: logger.warning(
+                f"async checkpoint save of '{tag}' failed (attempt {attempt}: {e}); "
+                f"retrying in {pause:.1f}s"
+            ),
+        )
+        _publish(save_dir, tag, rcfg, save_latest)
+        log_dist(f"async checkpoint save of {final_path} committed")
+
+    writer.submit(tag, final_path, commit)
+    _note_ckpt_dir(engine, save_dir)
+    log_dist(f"async checkpoint save of {final_path} submitted; training resumes")
+    return final_path
+
+
+def _load_candidates(load_dir: str, requested: Optional[str], explicit: bool) -> List[str]:
+    """Tags to try, in order: the requested one first, then (unless the
+    tag was named explicitly by the caller) every other committed tag
+    newest-first — the fallback scan for a stale/corrupt ``latest``."""
+    candidates: List[str] = [requested] if requested else []
+    if not explicit:
+        for t in manager.newest_first(load_dir):
+            if t not in candidates:
+                candidates.append(t)
+    return candidates
+
+
+def load_checkpoint(
+    engine,
+    load_dir: str,
+    tag: Optional[str] = None,
+    load_optimizer_states: bool = True,
+    load_lr_scheduler_states: bool = True,
+    load_module_only: bool = False,
+    strict: Optional[bool] = None,
+):
+    """Returns ``(path, client_state)``, or ``(None, {})`` if nothing
+    loadable was found.
+
+    ``strict=True`` (or config ``resilience.checkpoint.fail_on_missing``)
+    raises :class:`CheckpointNotFoundError` instead of the silent
+    ``(None, {})``.  With ``verify_on_load`` (default), every candidate
+    tag's manifest is re-checked first; corrupt tags are quarantined to
+    ``<tag>.corrupt`` and the newest verified tag wins.
+    """
+    rcfg = _resilience_cfg(engine)
+    ck = rcfg.checkpoint
+    if strict is None:
+        strict = ck.fail_on_missing
+    writer = getattr(engine, "_async_writer", None)
+    if writer is not None:
+        # restoring while a background commit mutates the tree (rename,
+        # latest update, GC) would race the candidate scan
+        writer.drain()
+    load_dir = os.path.abspath(load_dir)
+    explicit = tag is not None
+    requested = str(tag) if explicit else manager.read_latest(load_dir)
+    if requested is None and not explicit:
+        logger.warning(f"no '{LATEST_FILE}' file at {load_dir}; scanning for committed tags")
+
+    tried: List[str] = []
+    for cand in _load_candidates(load_dir, requested, explicit):
+        path = _ckpt_path(load_dir, cand)
+        if not os.path.isdir(path):
+            tried.append(f"'{cand}': missing")
+            continue
+        if ck.verify_on_load:
+            ok, notes = manager.verify_tag(load_dir, cand)
+            if not ok:
+                dest = manager.quarantine_tag(load_dir, cand)
+                logger.warning(
+                    f"checkpoint tag '{cand}' failed verification ({'; '.join(notes)}); "
+                    f"quarantined to {os.path.basename(dest)}"
+                )
+                tried.append(f"'{cand}': corrupt ({notes[0]})")
+                continue
+            if notes:
+                logger.warning(f"checkpoint tag '{cand}': {'; '.join(notes)}")
+        if cand != requested:
+            logger.warning(
+                f"falling back to verified tag '{cand}' (requested "
+                f"{'nothing' if requested is None else repr(requested)})"
+            )
+        return _restore_tag(
+            engine,
+            path,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states,
+            load_module_only=load_module_only,
+        )
+
+    detail = f" (requested tag '{requested}')" if requested else ""
+    attempts = f"; tried: {', '.join(tried)}" if tried else ""
+    msg = f"no loadable checkpoint under {load_dir}{detail}{attempts}"
+    if strict:
+        raise CheckpointNotFoundError(
+            msg + "; pass strict=False or set 'resilience.checkpoint.fail_on_missing' = false "
+            "for the legacy (None, {}) return"
+        )
+    logger.warning(msg + "; nothing loaded")
+    return None, {}
+
+
+def _restore_tag(
+    engine,
+    path: str,
+    load_optimizer_states: bool = True,
+    load_lr_scheduler_states: bool = True,
+    load_module_only: bool = False,
+) -> Tuple[str, Dict[str, Any]]:
+    meta_path = os.path.join(path, "meta.json")
+    meta: Dict[str, Any] = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    restored = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu",
+                          weights_only=True)
+    return _finish_restore(
+        engine, path, meta, restored,
+        load_optimizer_states=load_optimizer_states,
+        load_lr_scheduler_states=load_lr_scheduler_states,
+        load_module_only=load_module_only,
+    )
+
+
+def _finish_restore(
+    engine,
+    path: str,
+    meta: Dict[str, Any],
+    restored: Dict[str, torch.Tensor],
+    load_optimizer_states: bool,
+    load_lr_scheduler_states: bool,
+    load_module_only: bool,
+) -> Tuple[str, Dict[str, Any]]:
+    """Copy the tag's tensors into the engine's own, in place, and set the
+    host counters (the engine's source of truth: the LR schedule reads
+    the global step, the model's generator is seeded from the micro
+    step).  As in the JAX package, ``load_module_only`` takes the
+    parameters alone, ``load_optimizer_states=False`` the parameters, the
+    loss scaler and the counters."""
+    groups = {"params"}
+    if not load_module_only:
+        groups.add("loss_scale")
+        if load_optimizer_states:
+            groups |= {"opt_state", "grad_acc"}
+    live = _state_tensors(engine)
+    live = {n: t for n, t in live.items() if n.split("/", 1)[0] in groups and n.split("/", 1)[0] != "grad_acc"}
+    disk = {n for n in restored if n.split("/", 1)[0] in groups - {"grad_acc"}}
+    if disk != set(live):
+        raise ValueError(
+            f"checkpoint {path} does not match this engine: missing {sorted(set(live) - disk)}, "
+            f"unexpected {sorted(disk - set(live))}"
+        )
+    for name, t in live.items():
+        src = restored[name]
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(
+                f"checkpoint {path} does not match this engine: '{name}' is "
+                f"{src.dtype}{tuple(src.shape)}, the engine's {t.dtype}{tuple(t.shape)}"
+            )
+    with torch.no_grad():
+        for name, t in live.items():
+            t.copy_(restored[name])
+        # gradients pending from the pre-restore parameters must not mix
+        # into the restored run; the tag's own pending ones come back
+        paths = [_path_str(p) for p, _ in _walk(engine._unflatten(list(engine._params)))]
+        for p, name in zip(engine._params, paths):
+            acc = restored.get(f"grad_acc/{name}") if "grad_acc" in groups else None
+            p.grad = acc.to(p.device) if acc is not None else None
+    if not load_module_only:
+        engine._host_micro_step = int(restored["micro_step"])
+        engine._host_global_step = int(restored["global_step"])
+        engine.global_samples = int(restored["global_samples"])
+
+    client_state: Dict[str, Any] = {}
+    if meta:
+        client_state = meta.get("client_state", {})
+        engine.skipped_steps = meta.get("skipped_steps", 0)
+        sched = engine.client_lr_scheduler
+        if load_lr_scheduler_states and sched is not None and hasattr(sched, "load_state_dict"):
+            sd = client_state.get("__lr_scheduler__")
+            if sd:
+                sched.load_state_dict(sd)
+    # resume-cursor: hand the loader its saved epoch/batch position so a
+    # restarted job neither replays nor skips batches
+    _restore_loader_state(engine, client_state)
+    _note_ckpt_dir(engine, os.path.dirname(path))
+    log_dist(f"loaded checkpoint {path} (global_step={engine._host_global_step})")
+    return path, client_state
+
+
+def consolidate_fp32_state_dict(engine) -> Dict[str, np.ndarray]:
+    """The full f32 parameters on the host by the JAX package's leaf names
+    (``blocks/qkv_w``): the ``zero_to_fp32.py`` analog, and the point
+    where the port's and the JAX package's checkpoints meet."""
+    return {_path_str(path): leaf.detach().float().cpu().numpy()
+            for path, leaf in _walk(engine.params)}
+
+
+def _version() -> str:
+    from deepspeed_tpu_torch.version import __version__
+
+    return __version__

@@ -20,16 +20,30 @@ overflow flag when the loss scaler is dynamic (as the JAX engine).
 
 The generator handed to the model is a CPU ``torch.Generator`` seeded
 from the config's ``seed`` and the micro-step count (None in eval), so
-drawing dropout seeds from it never waits on the card.
+drawing dropout seeds from it never waits on the card.  The JAX engine's
+``rng`` state leaf has no counterpart: a checkpoint restores the
+micro-step count, and the generator (hidden-dropout masks, attention
+dropout's Threefry keys) follows from it.
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``,
+``runtime/checkpointing.py``) carry the masters, the optimizer state, the
+loss scaler's state and the host counters (global and micro step,
+skipped steps, samples), which stay the engine's source of truth.  A
+registered loader (``register_dataloader``, ``prefetch_loader``) has its
+cursor saved and restored with them.  At every step boundary the engine
+checks the ``step.boundary`` fault site, a pending preemption (the
+``resilience.watchdog``: emergency save, exit 43) and the divergence
+guard (``resilience.divergence``, on by default as in the JAX engine).
 
 Not ported (each raises, naming its ROADMAP item, or is absent): ZeRO
 sharding across devices and TP (A6), offload (A12), pipeline (A11), 1-bit
-optimizers (A13), the comm layer, supervision, telemetry,
-sanitizer, timeline and flops profiler (A14/A15), MoQ and PLD (A13),
-checkpoints (A4).
+optimizers (A13), the comm layer, supervision, telemetry, sanitizer and
+flops profiler (A14/A15), MoQ and PLD (A13).
 """
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -43,7 +57,7 @@ from deepspeed_tpu_torch.ops.kernels.fused_update import engine_update
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 _SEED_MASK = (1 << 63) - 1
 
@@ -68,6 +82,39 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
 
     build = walk(tree)
     return leaves, lambda new: build(iter(new))
+
+
+class _PlacedBatch:
+    """A batch already on the engine's device, placed ahead of the step by
+    ``prefetch_loader``: ``train_batch`` takes it without placing it
+    again.  On the card its leaves were copied from pinned host memory on
+    the engine's copy stream; :meth:`take` makes the current stream wait
+    for the copies' event and marks each leaf as used by the current
+    stream, so the caching allocator does not hand its memory to a later
+    batch (allocated on the copy stream) while the step still reads it.
+    ``sources`` keeps the pinned host tensors alive until the batch is
+    taken."""
+
+    __slots__ = ("leaves", "rebuild", "event", "sources")
+
+    def __init__(self, leaves, rebuild, event=None, sources=None):
+        self.leaves, self.rebuild, self.event, self.sources = leaves, rebuild, event, sources
+
+    def take(self) -> Tuple[List[torch.Tensor], Callable]:
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.leaves[0].device)
+            stream.wait_event(self.event)
+            for t in self.leaves:
+                t.record_stream(stream)
+        self.sources = None
+        return self.leaves, self.rebuild
+
+
+def _pinned(x: Any) -> torch.Tensor:
+    """A host batch leaf in pinned memory (a CUDA tensor stays as it is)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return x if x.is_cuda else x.pin_memory()
 
 
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -127,13 +174,55 @@ class DeepSpeedEngine:
         self.skipped_steps = 0
         self._host_global_step = 0
         self._host_micro_step = 0
+        self.global_samples = 0
         self._cached_loss = None
+        self._last_loss = None  # the boundary's divergence check_loss reads it
         self._last_info: Dict[str, Any] = {}
+        self._init_resilience_and_overlap(config)
         log_dist(
             f"engine: device={self.device} dtype={self.compute_dtype} "
             f"micro_bs={config.train_micro_batch_size_per_gpu} "
             f"gas={config.gradient_accumulation_steps} zero_stage={self.zero_stage} (one device)"
         )
+
+    def _init_resilience_and_overlap(self, config) -> None:
+        """The ``resilience`` block (divergence guard, preemption watchdog,
+        fault plan from ``DS_FAULT_PLAN``) and the ``overlap`` block (step
+        timeline, async checkpoint writer); engines built without them
+        take the defaults."""
+        from deepspeed_tpu_torch.config.config import OverlapConfig, ResilienceConfig
+        from deepspeed_tpu_torch.resilience import DivergenceGuard, PreemptionWatchdog, faults
+        from deepspeed_tpu_torch.runtime.overlap import AsyncCheckpointWriter, StepTimeline
+
+        self.resilience = getattr(config, "resilience", None) or ResilienceConfig()
+        div = self.resilience.divergence
+        self._divergence_guard = (DivergenceGuard(threshold=div.threshold, action=div.action)
+                                  if div.enabled else None)
+        # the directory emergency saves / auto-rollback target: explicit
+        # watchdog.save_dir, else wherever the run last saved/loaded
+        self._resilience_ckpt_dir: Optional[str] = self.resilience.watchdog.save_dir
+        self._watchdog = None
+        if self.resilience.watchdog.enabled:
+            self._watchdog = PreemptionWatchdog(
+                grace_seconds=self.resilience.watchdog.grace_seconds,
+                exit_code=self.resilience.watchdog.exit_code,
+            ).install()
+        faults.install_from_env()
+        self._train_loader = None  # registered resumable dataloader
+
+        self.overlap = getattr(config, "overlap", None) or OverlapConfig()
+        self.timeline = StepTimeline(enabled=self.overlap.timeline.enabled,
+                                     window=self.overlap.timeline.window)
+        # the fence (a synchronize per step) follows wall_clock_breakdown
+        # when unset; the port refuses that key (ROADMAP A14), so only an
+        # explicit ``fence: true`` turns it on
+        self._timeline_fence = bool(self.overlap.timeline.fence)
+        self._async_writer = (
+            AsyncCheckpointWriter(
+                drain_timeout_seconds=self.overlap.async_checkpoint.drain_timeout_seconds)
+            if self.overlap.async_checkpoint.enabled else None
+        )
+        self._copy_stream = None  # prefetch_loader's host-to-device stream
 
     # ------------------------------------------------------------------
     # configuration helpers
@@ -251,6 +340,7 @@ class DeepSpeedEngine:
         loss = self._compute_loss(batch, self._generator())
         self.loss_scaler.scale_loss(loss.float(), self.loss_scale_state).backward()
         self._host_micro_step += 1
+        self.global_samples += self.train_micro_batch_size_per_gpu
         return loss.detach()
 
     @torch.no_grad()
@@ -285,15 +375,27 @@ class DeepSpeedEngine:
         new, rebuild = tree_flatten(new_state)
         return rebuild([torch.where(overflow, o, n) for o, n in zip(old, new)])
 
-    def _end_step(self, info: Dict[str, Any]) -> None:
+    def _end_step(self, info: Dict[str, Any], loss: Optional[torch.Tensor]) -> None:
         """Host bookkeeping at the boundary: the overflow flag is read on
-        the host only when the scaler is dynamic."""
+        the host only when the scaler is dynamic; then the boundary hook
+        and the timeline's step record."""
         self._last_info = info
-        if self.loss_scaler.dynamic and bool(info["overflow"]):
+        overflowed = self.loss_scaler.dynamic and bool(info["overflow"])
+        if overflowed:
             self.skipped_steps += 1
             log_dist(f"step skipped on overflow; loss scale -> {self.loss_scale}")
-            return
-        self._host_global_step += 1
+        else:
+            self._host_global_step += 1
+        self._on_step_boundary(overflowed, loss=loss)
+        self.timeline.end_step()
+
+    def _fence_compute(self, t_compute: float) -> None:
+        """With ``overlap.timeline.fence``, wait for the card and note the
+        step's launches as ``compute``."""
+        if self.timeline.enabled and self._timeline_fence:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.timeline.note("compute", time.perf_counter() - t_compute)
 
     # ------------------------------------------------------------------
     # user API
@@ -303,7 +405,7 @@ class DeepSpeedEngine:
         As in the JAX engine, the gradients are produced here and summed
         into the accumulator; ``backward()`` checks the call order."""
         loss = self._micro_step(self._prepare_batch(batch))
-        self._cached_loss = loss
+        self._cached_loss = self._last_loss = loss
         return loss
 
     __call__ = forward
@@ -320,33 +422,217 @@ class DeepSpeedEngine:
     def step(self) -> None:
         """Apply the optimizer step at the gradient-accumulation boundary."""
         if self.is_gradient_accumulation_boundary():
-            self._end_step(self._apply_step())
+            self._end_step(self._apply_step(), loss=self._last_loss)
 
     def train_batch(self, batch: Any) -> torch.Tensor:
         """One global batch: every leaf's leading dim is ``gas *
         micro_batch``; the micro-batches are its consecutive slices.
         Returns the mean micro-batch loss (a 0-dim tensor on the
-        device)."""
+        device).  Batches from ``prefetch_loader`` are already on the
+        device and pass straight through."""
         gas = self.gradient_accumulation_steps
-        leaves, rebuild = tree_flatten(batch)
-        leaves = [self._to_device(x) for x in leaves]
+        if isinstance(batch, _PlacedBatch):
+            # the prefetcher noted its own wait as data_wait
+            leaves, rebuild = batch.take()
+        else:
+            t_place = time.perf_counter()
+            leaves, rebuild = tree_flatten(batch)
+            leaves = [self._to_device(x) for x in leaves]
+            self.timeline.note("data_wait", time.perf_counter() - t_place)
+        t_compute = time.perf_counter()
         mb = leaves[0].shape[0] // gas if leaves else 0
         losses = []
         for i in range(gas):
             micro = rebuild([x[i * mb:(i + 1) * mb] for x in leaves])
             losses.append(self._micro_step(micro))
-        self._end_step(self._apply_step())
-        return torch.stack(losses).mean()
+        info = self._apply_step()
+        loss = torch.stack(losses).mean()
+        self._last_loss = loss
+        self._fence_compute(t_compute)
+        self._end_step(info, loss=loss)
+        return loss
 
     @torch.no_grad()
     def eval_batch(self, batch: Any) -> torch.Tensor:
         """The loss of one batch without dropout and without gradients."""
         return self._compute_loss(self._prepare_batch(batch), None)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_checkpoint is not ported yet (ROADMAP A4 runtime/checkpointing.py)")
+    # ------------------------------------------------------------------
+    # input pipeline
+    # ------------------------------------------------------------------
+    def _place_ahead(self, batch: Any) -> _PlacedBatch:
+        """The prefetcher's place stage (its own thread): every leaf on the
+        engine's device.  On the card each leaf is pinned and copied on
+        the engine's copy stream, whose event the step's stream waits on
+        (:meth:`_PlacedBatch.take`)."""
+        leaves, rebuild = tree_flatten(batch)
+        if self.device.type != "cuda":
+            return _PlacedBatch([self._to_device(x) for x in leaves], rebuild)
+        torch.cuda.set_device(self._copy_stream.device)  # this thread's current device
+        host = [_pinned(x) for x in leaves]
+        with torch.cuda.stream(self._copy_stream):
+            placed = [h.to(self.device, non_blocking=True) for h in host]
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return _PlacedBatch(placed, rebuild, event, host)
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(
-            "load_checkpoint is not ported yet (ROADMAP A4 runtime/checkpointing.py)")
+    def prefetch_loader(self, loader, prefetch_depth: Optional[int] = None):
+        """Wrap a host batch iterator so loader pulls and the copies to the
+        card run ahead of the step as a two-stage pipeline
+        (``runtime/overlap`` ``DevicePrefetcher``); feed the result to
+        ``train_batch``.  ``prefetch_depth`` defaults to the
+        ``overlap.prefetch.depth`` config (2 = double buffering); with
+        ``overlap.prefetch.enabled = false`` the wrap is a synchronous
+        pass-through (A/B knob for measuring the overlap) — unless the
+        caller passes ``prefetch_depth`` explicitly, which is a direct API
+        request for background prefetch and wins over the config default.
+        The wrapper is registered (:meth:`register_dataloader`), so
+        checkpoints carry its cursor."""
+        from deepspeed_tpu_torch.runtime.overlap import DevicePrefetcher, InlineLoader
+
+        if self.device.type == "cuda" and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        if not self.overlap.prefetch.enabled and prefetch_depth is None:
+            return self.register_dataloader(
+                InlineLoader(loader, self._place_ahead, timeline=self.timeline))
+        depth = self.overlap.prefetch.depth if prefetch_depth is None else int(prefetch_depth)
+        return self.register_dataloader(DevicePrefetcher(
+            loader, depth=depth, place_fn=self._place_ahead, timeline=self.timeline))
+
+    def register_dataloader(self, loader):
+        """Register the training loader for resume-cursor round-trips:
+        checkpoint saves record its ``state_dict()`` in the client state,
+        loads restore it — a restarted job neither replays nor skips
+        batches.  ``prefetch_loader`` calls this automatically."""
+        self._train_loader = loader
+        return loader
+
+    # ------------------------------------------------------------------
+    # resilience: preemption + divergence
+    # ------------------------------------------------------------------
+    def _note_checkpoint_dir(self, directory: str) -> None:
+        """Remember where this run checkpoints (emergency saves and
+        divergence rollback target it)."""
+        self._resilience_ckpt_dir = os.path.abspath(directory)
+
+    def _on_step_boundary(self, overflowed: bool, loss=None) -> None:
+        """Host-side hook after every optimizer-step boundary: the fault
+        site first (an injected kill at a boundary must win over progress
+        reporting), then a pending preemption request, then the
+        divergence guard.  Nothing here reads the card unless
+        ``divergence.check_loss`` asks for it."""
+        from deepspeed_tpu_torch.resilience import faults
+
+        faults.check("step.boundary")
+        wd = self._watchdog
+        if wd is not None and wd.preemption_requested:
+            self._handle_preemption()
+        guard = self._divergence_guard
+        if guard is None:
+            return
+        diverged = bool(overflowed) or faults.check_flag("engine.force_overflow")
+        if not diverged and self.resilience.divergence.check_loss and loss is not None:
+            # opt-in host sync: the only NaN signal without dynamic loss
+            # scaling (bf16 has no overflow flag)
+            diverged = not bool(np.isfinite(float(loss)))
+        action = guard.record(diverged)
+        if action is not None:
+            self._apply_divergence_action(action)
+
+    def _handle_preemption(self) -> None:
+        """Emergency checkpoint + exit.  Exit-code contract: the
+        configured code (default 43) means "preempted AND saved" — a
+        scheduler can requeue and resume blindly; exit 1 means the save
+        did not happen (deadline passed or save failed) — treat as a
+        crash and resume from the previous tag."""
+        wd = self._watchdog
+        log_dist(
+            f"preemption signal ({wd.signal_name}) received; attempting emergency "
+            f"checkpoint ({wd.remaining():.0f}s of grace left)"
+        )
+        if self._resilience_ckpt_dir is None:
+            logger.error(
+                "preempted but no checkpoint dir is known (no prior save/load and no "
+                "'resilience.watchdog.save_dir'); exiting WITHOUT saving"
+            )
+            raise SystemExit(1)
+        if wd.remaining() <= 0:
+            logger.error(
+                f"preemption grace deadline ({wd.grace_seconds}s) already passed; "
+                "exiting WITHOUT saving"
+            )
+            raise SystemExit(1)
+        writer = self._async_writer
+        if writer is not None and writer.in_flight:
+            # drain-before-exit: an in-flight background commit must land
+            # (or provably fail) before the emergency save touches the
+            # tree; the budget is capped by the remaining grace window
+            log_dist("draining in-flight async checkpoint before the emergency save")
+            try:
+                writer.drain(timeout=max(1.0, min(writer.drain_timeout_seconds, wd.remaining())))
+            except BaseException as e:  # hung drain => cannot certify "saved"
+                logger.error(f"drain of in-flight async save failed: {e!r}")
+                raise SystemExit(1) from e
+        try:
+            # synchronous: exit code 43 must certify a COMMITTED tag
+            path = self.save_checkpoint(self._resilience_ckpt_dir, async_save=False)
+        except BaseException as e:  # a failed save must NOT exit as "saved"
+            logger.error(f"emergency checkpoint failed: {e!r}")
+            raise SystemExit(1) from e
+        log_dist(f"emergency checkpoint saved to {path}; exiting with code {wd.exit_code}")
+        raise SystemExit(wd.exit_code)
+
+    def _apply_divergence_action(self, action: str) -> None:
+        n = self.resilience.divergence.threshold
+        if action == C.DIVERGENCE_ACTION_FLOOR:
+            # the floor is read by the scaler's next update: nothing to
+            # recompile in eager PyTorch
+            old = self.loss_scaler.min_scale
+            self.loss_scaler.min_scale = max(old / 2.0, 2.0**-24)
+            logger.warning(
+                f"divergence guard: {n} consecutive skipped steps — lowering loss-scale "
+                f"floor {old} -> {self.loss_scaler.min_scale}"
+            )
+        elif action == C.DIVERGENCE_ACTION_ROLLBACK:
+            if self._resilience_ckpt_dir is None:
+                logger.error(
+                    f"divergence guard: {n} consecutive skipped steps and action=rollback, "
+                    "but no checkpoint dir is known (no prior save/load); cannot roll back"
+                )
+                return
+            logger.warning(
+                f"divergence guard: {n} consecutive skipped steps — rolling back to the "
+                f"last verified checkpoint under {self._resilience_ckpt_dir}"
+            )
+            # strict=False even under fail_on_missing: a failed rollback
+            # must degrade to the error log below, not crash the step
+            path, _ = self.load_checkpoint(self._resilience_ckpt_dir, strict=False)
+            if path is None:
+                logger.error("divergence rollback found no loadable checkpoint")
+        else:
+            logger.warning(
+                f"divergence guard: {n} consecutive NaN/overflow-skipped steps "
+                f"(loss scale {self.loss_scale}) — the run is likely diverging"
+            )
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None, save_latest: bool = True,
+                        async_save: Optional[bool] = None):
+        """``async_save``: None defers to the ``overlap.async_checkpoint``
+        config; True/False forces the background/synchronous path for this
+        save."""
+        from deepspeed_tpu_torch.runtime.checkpointing import save_checkpoint as _save
+
+        return _save(self, save_dir, tag=tag, client_state=client_state,
+                     save_latest=save_latest, async_save=async_save)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None, **kw):
+        """``(path, client_state)``, or ``(None, {})`` when nothing
+        loadable is found; keywords: ``load_optimizer_states``,
+        ``load_lr_scheduler_states``, ``load_module_only``, ``strict``."""
+        from deepspeed_tpu_torch.runtime.checkpointing import load_checkpoint as _load
+
+        return _load(self, load_dir, tag=tag, **kw)

@@ -51,6 +51,16 @@ INVALID = [
     {"train_batch_size": 8, "zero_optimization": {"stage": 1, "bucket": 5}},
     {"train_batch_size": 8, "optimizer": {"type": 3}},
     {"train_batch_size": 8, "mesh": {"dat": 1}},
+    {"train_batch_size": 8, "checkpoint_tag_validation": "Strict"},
+    {"train_batch_size": 8, "resilience": {"checkpoint": {"checksum": "md5"}}},
+    {"train_batch_size": 8, "resilience": {"retry": {"max_attempts": 0}}},
+    {"train_batch_size": 8, "resilience": {"divergence": {"action": "panic"}}},
+    {"train_batch_size": 8, "resilience": {"watchdog": {"exit_code": 300}}},
+    {"train_batch_size": 8, "resilience": {"watchdog": {"grace": 5}}},
+    {"train_batch_size": 8, "overlap": {"prefetch": {"depth": 0}}},
+    {"train_batch_size": 8, "overlap": {"async_checkpoint": {"drain_timeout_seconds": 0}}},
+    {"train_batch_size": 8, "overlap": {"timeline": {"window": 0}}},
+    {"train_batch_size": 8, "overlap": {"prefetcher": {}}},
 ]
 
 
@@ -89,11 +99,11 @@ def test_same_dict_gives_same_rejection(d):
     ({"mesh": {"data": 2}}, "A6"),
     ({"mesh": {"fsdp": 4}}, "A6"),
     ({"pipeline": {"stages": 2}}, "A11"),
-    ({"resilience": {"watchdog": {"enabled": True}}}, "A14"),
+    ({"resilience": {"supervision": {"enabled": True}}}, "A14"),
     ({"telemetry": {"enabled": True, "ring": 16}}, "A14"),
     ({"activation_checkpointing": {"partition_activations": True}}, "A13"),
     ({"wall_clock_breakdown": True}, "A14"),
-    ({"dataloader_drop_last": True}, "A5"),
+    ({"sanitizer": {"enabled": True}}, "A15"),
     ({"progressive_layer_drop": {"enabled": True}}, "A13"),
 ])
 def test_not_ported_blocks_raise_naming_their_item(d, item):
@@ -116,6 +126,43 @@ def test_sparse_attention_block_parses_as_the_jax_package_does(block):
     want = JConfig(d, world_size=1).sparse_attention
     got = TConfig(d).sparse_attention
     assert (got.mode, got.params) == (want.mode, want.params)
+
+
+RESILIENCE_OVERLAP = [
+    {},
+    {"resilience": {"checkpoint": {"keep_last_n": 3, "keep_every": 100, "checksum": "CRC32",
+                                   "fail_on_missing": True, "verify_on_load": False},
+                    "watchdog": {"enabled": True, "grace_seconds": 30, "exit_code": 50,
+                                 "save_dir": "/ckpt"},
+                    "retry": {"max_attempts": 5, "backoff_seconds": 0.0, "jitter": 0.0,
+                              "timeout_seconds": 9.5},
+                    "divergence": {"threshold": 4, "action": "Rollback", "check_loss": True},
+                    "supervision": {"enabled": False}},
+     "overlap": {"prefetch": {"enabled": False, "depth": 4},
+                 "async_checkpoint": {"enabled": True, "drain_timeout_seconds": 60},
+                 "timeline": {"enabled": False, "window": 16, "fence": True}},
+     "checkpoint_tag_validation": "Fail", "dataloader_drop_last": True},
+]
+
+
+@pytest.mark.parametrize("extra", RESILIENCE_OVERLAP, ids=["defaults", "every-key"])
+def test_resilience_and_overlap_blocks_parse_as_the_jax_package_does(extra):
+    """The ``resilience`` (but ``supervision``) and ``overlap`` blocks,
+    ``checkpoint_tag_validation`` and ``dataloader_drop_last`` parse to the
+    JAX dataclasses' fields, and ``retry.policy()`` builds the same
+    policy."""
+    import dataclasses
+
+    d = {"train_batch_size": 8, **extra}
+    want, got = JConfig(d, world_size=1), TConfig(d)
+    for block in ("checkpoint", "watchdog", "retry", "divergence"):
+        assert dataclasses.asdict(getattr(got.resilience, block)) == \
+            dataclasses.asdict(getattr(want.resilience, block)), block
+    assert dataclasses.asdict(got.overlap) == dataclasses.asdict(want.overlap)
+    assert got.checkpoint_tag_validation_mode == want.checkpoint_tag_validation_mode
+    assert got.dataloader_drop_last == want.dataloader_drop_last
+    assert dataclasses.asdict(got.resilience.retry.policy()) == \
+        dataclasses.asdict(want.resilience.retry.policy())
 
 
 def test_serving_block_still_parses():

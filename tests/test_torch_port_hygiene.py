@@ -44,7 +44,19 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/runtime/engine.py",
     "deepspeed_tpu_torch/inference/engine.py",
     "deepspeed_tpu_torch/serving/engine.py",
+    "deepspeed_tpu_torch/resilience/__init__.py",
     "deepspeed_tpu_torch/resilience/atomic.py",
+    "deepspeed_tpu_torch/resilience/faults.py",
+    "deepspeed_tpu_torch/resilience/manager.py",
+    "deepspeed_tpu_torch/resilience/policy.py",
+    "deepspeed_tpu_torch/resilience/watchdog.py",
+    "deepspeed_tpu_torch/runtime/checkpointing.py",
+    "deepspeed_tpu_torch/runtime/dataloader.py",
+    "deepspeed_tpu_torch/runtime/overlap/__init__.py",
+    "deepspeed_tpu_torch/runtime/overlap/async_writer.py",
+    "deepspeed_tpu_torch/runtime/overlap/prefetch.py",
+    "deepspeed_tpu_torch/runtime/overlap/timeline.py",
+    "deepspeed_tpu_torch/runtime/overlap/worker.py",
     "deepspeed_tpu_torch/serving/kvcache/__init__.py",
     "deepspeed_tpu_torch/serving/kvcache/prefix.py",
     "deepspeed_tpu_torch/serving/kvcache/sessions.py",
