@@ -97,6 +97,19 @@ Phases, each printing one JSON line:
    zeroed before, read after: ``training_resume``).  Prints the saves'
    ms and GB/s, the async stall beside its commit, the loads, and the
    step ms with and without the prefetcher and its ``data_wait``.
+   Then ``train_zero_bf16``: ZeRO across ranks at world size 1.  A child
+   process under the launcher environment (``WORLD_SIZE=1``, ``RANK=0``,
+   ``LOCAL_RANK=0``, ``MASTER_ADDR``, a free ``MASTER_PORT``) runs
+   ``deepspeed_tpu_torch/tools/zero_worker.py``: NCCL starts, the
+   collectives (all-reduce, reduce-scatter, all-gather, the stage-3
+   autograd gather) are checked on CUDA tensors in f32 and bf16 at odd
+   sizes, then train_bf16's 4 steps run at ZeRO stages 0-3 on ``mesh:
+   {data: 1, fsdp: 1}``.  Each stage's losses and state (masters, Adam
+   moments, step, scaler: a sha256 each) must be train_bf16's bit for bit,
+   0 bytes counted (the models say 0 at one rank), and B1/B2/B3 launched
+   as in train_bf16 on the tensor-core bodies (the child zeroes the
+   counters before each stage and reads them after: ``training_zero``).
+   Prints ms a step and peak memory by stage beside train_bf16's.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
    ``paged_request_mix(seed=0)``: 16 requests sharing a 200-token prefix
@@ -168,7 +181,7 @@ Phases, each printing one JSON line:
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
-   training_resume, training_bert, training_resume_bert,
+   training_resume, training_zero, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
 
@@ -2261,9 +2274,26 @@ def phase_train_bf16(torch, params):
           "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
           "launches": launches, "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
           "global_steps": engine.global_steps})
+    one_process = {"losses": losses, "batch": batch["input_ids"],
+                   "digests": _state_digests(torch, engine),
+                   "launches": launches, "step_ms_median": float(np.median(walls[1:])) * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     del engine
     torch.cuda.empty_cache()
-    return launches, float(np.median(walls[1:])) * 1e3
+    return launches, float(np.median(walls[1:])) * 1e3, one_process
+
+
+def _state_digests(torch, engine):
+    """A sha256 of every tensor of the engine's state (masters, moments,
+    step, loss scaler), by checkpoint name: ``tools/zero_worker.py``'s
+    ``record: digest``."""
+    import hashlib
+
+    from deepspeed_tpu_torch.runtime.checkpointing import _state_tensors
+
+    return {n: hashlib.sha256(t.detach().cpu().reshape(-1).contiguous().view(torch.uint8)
+                              .numpy().tobytes()).hexdigest()
+            for n, t in _state_tensors(engine).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -2472,6 +2502,114 @@ def phase_train_resume_bf16(torch, params, train_step_ms):
           "data_wait_ms_mean_prefetch": out["data_wait_ms"],
           "step_ms_median_without_prefetch": float(np.median(walls_e[1:])) * 1e3,
           "step_ms_median_train_bf16": train_step_ms, "launches": launches})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# ZeRO across ranks: the launcher environment, NCCL, stages 0-3 at world 1
+# ---------------------------------------------------------------------------
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_train_zero_bf16(torch, one_process):
+    """``train_bf16``'s GPT-2 124M run (bf16 over f32 masters, micro 8 x
+    gas 2 x T 1024, AdamW, WarmupDecayLR, clipping, remat, 4 steps on its
+    batch) at ZeRO stages 0-3 on ``mesh: {data: 1, fsdp: 1}``, in a child
+    process started under the launcher environment (world size 1) through
+    ``tools/zero_worker.py``; first the collectives check on CUDA tensors
+    through NCCL.  Gates: the NCCL backend; every stage's losses, masters,
+    moments and scaler bit for bit those of stage 0 and of the one-process
+    engine (train_bf16's); 0 bytes counted, as the models say; B1, B2 and
+    B3 launched as in train_bf16, on the tensor-core bodies.  Returns the
+    launches of the four stages' runs (the child zeroes the counts before
+    each and reads them after)."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import kernels
+
+    mb, gas, T, steps = 8, 2, 1024, 4
+    root = tempfile.mkdtemp()
+    try:
+        batches = os.path.join(root, "batches.npz")
+        np.savez(batches, input_ids=np.repeat(one_process["batch"][None], steps, axis=0))
+        cases = [{"name": f"stage{s}", "model": "gpt2", "preset": "gpt2", "init_seed": 0,
+                  "config": dict(_gpt2_bf16_config(mb, gas), mesh={"data": 1, "fsdp": 1},
+                                 zero_optimization={"stage": s}),
+                  "batches": batches, "steps": steps, "record": "digest"} for s in range(4)]
+        spec = os.path.join(root, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": "cuda", "deterministic": False, "threads": 4, "out": root,
+                       "collectives_check": True, "cases": cases}, f)
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.tools.zero_worker", spec],
+                              env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "train_zero_bf16: the rank process failed "
+              f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(root, "collectives.json")) as f:
+            coll = json.load(f)
+        stages = []
+        for s in range(4):
+            with open(os.path.join(root, f"stage{s}.json")) as f:
+                stages.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    check(coll["backend"] == "nccl", f"train_zero_bf16: collectives ran on {coll['backend']}")
+    bad = [r for r in coll["rows"] if not r["ok"]]
+    check(coll["ok"] and not bad, f"train_zero_bf16: collectives check failed: {bad[:4]}")
+    want = one_process["digests"]
+    launches = {name: 0 for name in kernels.launches()}
+    rows = {}
+    for s, st in enumerate(stages):
+        label = f"train_zero_bf16 stage {s}"
+        check(st["backend"] == "nccl" and st["world_size"] == 1,
+              f"{label}: backend {st['backend']}, world {st['world_size']}")
+        check(st["losses"] == one_process["losses"],
+              f"{label}: losses {st['losses']} != the one-process engine's {one_process['losses']}")
+        differ = sorted(n for n in want if st["digests"].get(n) != want[n])
+        check(set(st["digests"]) == set(want) and not differ,
+              f"{label}: state differs from the one-process engine's in {differ[:6]}")
+        check(st["digests"] == stages[0]["digests"], f"{label}: state differs from stage 0's")
+        counted = sum(sum(c.values()) for c in st["comm"])
+        check(counted == 0 and st["model"]["total"] == 0
+              and st["extras"]["update-all-gather"] == 0,
+              f"{label}: counted {st['comm']} bytes, model {st['model']} {st['extras']}")
+        for name in ("flash_fwd", "flash_bwd", "fused_adam"):
+            check(st["launches"][name] == one_process["launches"][name],
+                  f"{label}: {name} launched {st['launches'][name]} times, "
+                  f"train_bf16 {one_process['launches'][name]}")
+        for name in ("flash_fwd", "flash_bwd"):
+            check(only_tc(st["variants"][name]),
+                  f"{label}: {name} ran {st['variants'][name]}, not only the tensor-core body")
+        for name, n in st["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        rows[f"stage{s}"] = {"losses": st["losses"], "step_ms": st["ms"],
+                             "step_ms_median_after_first": float(np.median(st["ms"][1:])),
+                             "peak_gib": st["peak_bytes"] / 2**30,
+                             "comm_bytes": st["comm"], "model": st["model"],
+                             "extras": st["extras"], "launches": {
+                                 n: st["launches"][n] for n in ("flash_fwd", "flash_bwd",
+                                                                "fused_adam")}}
+    emit({"phase": "train_zero_bf16", "model": "gpt2", "micro_batch": mb, "gas": gas, "T": T,
+          "steps": steps, "mesh": {"data": 1, "fsdp": 1}, "backend": coll["backend"],
+          "child_wall_s": wall_s, "collectives_rows": len(coll["rows"]),
+          "collectives_max_err": max(r["max_err"] for r in coll["rows"]),
+          "stages": rows, "step_ms_median_train_bf16": one_process["step_ms_median"],
+          "peak_gib_train_bf16": one_process["peak_gib"],
+          "same_bits_as_one_process": True})
     return launches
 
 
@@ -3108,8 +3246,10 @@ def main() -> int:
     phase_serve_paged_f32(torch, params, mix)
     paged_launches = phase_serve_paged_bf16(torch, params, mix)
     phase_train_f32(torch, params)
-    train_launches, train_step_ms = phase_train_bf16(torch, params)
+    train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
+    zero_launches = phase_train_zero_bf16(torch, one_process)
+    del one_process
     del params
     bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
     phase_train_bert_f32(torch, bert_params)
@@ -3125,6 +3265,7 @@ def main() -> int:
     sparse_launches = phase_train_sparse_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "training": train_launches[name], "training_resume": resume_launches[name],
+                      "training_zero": zero_launches.get(name, 0),
                       "training_bert": bert_launches[name],
                       "training_resume_bert": resume_bert_launches[name],
                       "training_bert_dropout": drop_launches[name],

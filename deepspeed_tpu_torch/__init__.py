@@ -2,7 +2,8 @@
 NVIDIA H100.
 
 The JAX package stays the reference; this package keeps its module paths
-and names.  ``initialize`` trains (one device), ``init_inference`` and
+and names.  ``initialize`` trains (one device, or ZeRO 0-3 across the
+ranks of a ``torch.distributed`` group), ``init_inference`` and
 ``init_serving`` serve.  The kernels the JAX package wrote in Pallas for the TPU are
 CUDA C++ kernels here (``csrc/``), built with ``nvcc`` at first use.
 Entry points run on the card (``device="cuda"``) unless the caller asks
@@ -32,7 +33,15 @@ def initialize(
     config_params: Any = None,
     device: Any = "cuda",
 ):
-    """Build a ready-to-train engine on one device.
+    """Build a ready-to-train engine, on one device or on every rank of a
+    process group.
+
+    Under a launcher (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT`` in the environment) this starts
+    ``torch.distributed`` first (``comm.distributed.init_distributed``:
+    NCCL for ``device="cuda"``, gloo for the CPU), unless
+    ``dist_init_required`` is False; every rank then calls
+    ``initialize`` with the same arguments and trains on its own rows.
 
     * ``model``: callable ``(params, batch, generator) -> loss`` (or
       outputs if ``loss_fn`` is given); ``generator`` is a
@@ -50,9 +59,15 @@ def initialize(
       ``seed``, in batches of ``train_micro_batch_size_per_gpu``, dropping
       the last partial batch per ``dataloader_drop_last``.
 
+    * ``mesh``: the port's mesh, a ``mesh`` config dict or a
+      ``MeshConfig`` (default: the config's ``mesh`` block, ``data x
+      fsdp`` over the group); ``tp_spec_fn`` / ``partition_rules``: the
+      JAX engine's layout inputs (tensor parallelism itself, a ``model``
+      axis above 1, is ROADMAP A6's second part).
+
     Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
-    without ``training_data``.  A mesh, tensor parallelism and partition
-    rules (ROADMAP A6) and pipeline modules (A11) are not ported."""
+    without ``training_data``; it hands each data-parallel rank its own
+    slice of every epoch.  Pipeline modules (A11) are not ported."""
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig, DeepSpeedConfigError
     from deepspeed_tpu_torch.utils.device import resolve_device
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
@@ -68,14 +83,19 @@ def initialize(
         raise ValueError("initialize() needs `model` (callable (params, batch, generator) -> loss/outputs)")
     if model_parameters is None:
         raise ValueError("initialize() needs `model_parameters` (initial parameter tree)")
-    if mesh is not None or tp_spec_fn is not None or partition_rules is not None:
-        raise NotImplementedError(
-            "meshes, tensor parallelism and partition rules are not ported yet (ROADMAP A6); "
-            "the port trains on one device")
-    ds_config = DeepSpeedConfig(config)
+    from deepspeed_tpu_torch.comm.distributed import init_distributed
+    from deepspeed_tpu_torch.comm.mesh import Mesh, make_mesh
+
+    if dist_init_required is not False:
+        init_distributed(device=device)
+    if mesh is not None and not isinstance(mesh, Mesh):
+        mesh = make_mesh(mesh)
+    ds_config = DeepSpeedConfig(
+        config, world_size=None if mesh is None else mesh.sizes["data"] * mesh.sizes["fsdp"])
     engine = DeepSpeedEngine(
         model=model, params=model_parameters, config=ds_config,
         optimizer=optimizer, lr_scheduler=lr_scheduler, loss_fn=loss_fn, device=device,
+        mesh=mesh, tp_spec_fn=tp_spec_fn, partition_rules=partition_rules,
     )
     loader = None
     if training_data is not None:
@@ -88,6 +108,8 @@ def initialize(
             seed=ds_config.seed,
             drop_last=ds_config.dataloader_drop_last,
             collate_fn=collate_fn,
+            process_index=engine.mesh.chunk_index(("data", "fsdp")),
+            process_count=engine.dp_world_size,
         )
     return engine, engine.optimizer, loader, engine.lr_schedule
 

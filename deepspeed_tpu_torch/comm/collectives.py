@@ -1,0 +1,124 @@
+"""Collectives on explicit process groups (counterpart of
+``deepspeed_tpu/comm/collectives.py:99-131``, whose ``lax`` collectives
+run inside a compiled SPMD program over named mesh axes).
+
+Here each is a thin wrapper over ``torch.distributed`` on a group of the
+port's mesh (``comm/mesh.py``), and each counts its bytes, by kind, under
+the convention of ``runtime/zero/stages.py::zero_step_comm_model``: an
+all-reduce twice its payload, an all-gather its whole result once, a
+reduce-scatter its shard once.  ``kind`` names the count (the model's
+``all-gather``, ``reduce-scatter``, ``all-reduce``, ``grad-exchange``, or
+a kind of the port's own such as ``update-all-gather``);
+:func:`reset_counts` and :func:`counts` read them.  The counts are host
+integers from tensor shapes: counting never waits on the device.
+
+The engine calls these only on axes longer than one rank (a one-rank
+axis moves nothing, and the model counts nothing for it); called on a
+one-rank group they still run the collective.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+_COUNTS: Dict[str, int] = defaultdict(int)
+
+
+def reset_counts() -> None:
+    _COUNTS.clear()
+
+
+def counts() -> Dict[str, int]:
+    """Bytes counted by kind since the last :func:`reset_counts`."""
+    return dict(_COUNTS)
+
+
+def _count(kind: str, nbytes: int) -> None:
+    _COUNTS[kind] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_reduce(x: torch.Tensor, group, kind: str = "all-reduce") -> torch.Tensor:
+    """Sum over ``group``, in place on a contiguous ``x`` (a copy
+    otherwise); returns the sum."""
+    y = x if x.is_contiguous() else x.contiguous()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    _count(kind, 2 * _nbytes(y))
+    return y
+
+
+def all_reduce_mean(x: torch.Tensor, group, kind: str = "all-reduce") -> torch.Tensor:
+    return all_reduce(x, group, kind=kind) / group_size(group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0, kind: str = "all-gather",
+               order: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in group-rank order,
+    or chunk ``c`` from group rank ``order[c]``.  A gather along a
+    dimension other than the first costs one copy after the collective."""
+    n = group_size(group)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]) if x.dim() else (n,),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    _count(kind, _nbytes(out))
+    if x.dim() == 0:
+        return out
+    stacked = out.view((n,) + tuple(x.shape))
+    if order is not None and list(order) != list(range(n)):
+        stacked = stacked[torch.as_tensor(list(order), device=x.device)]
+    if dim == 0:
+        return stacked.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    shape = list(x.shape)
+    shape[dim] *= n
+    return stacked.movedim(0, dim).reshape(shape)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
+                   kind: str = "reduce-scatter") -> torch.Tensor:
+    """Sum over ``group`` and keep this rank's chunk of ``dim`` (group
+    rank ``r`` keeps chunk ``r``).  A dimension other than the first costs
+    one copy before the collective."""
+    n = group_size(group)
+    shape = list(x.shape)
+    if shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(shape)} is not a multiple of {n}")
+    shape[dim] //= n
+    if dim == 0:
+        inp = x.contiguous()
+    else:
+        split = list(x.shape[:dim]) + [n, shape[dim]] + list(x.shape[dim + 1:])
+        inp = x.reshape(split).movedim(dim, 0).contiguous()  # (n, *shape)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, inp.reshape((n * shape[0],) + tuple(shape[1:])), group=group)
+    _count(kind, _nbytes(out))
+    return out
+
+
+def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:
+    """``obj`` from rank ``src`` on every rank (the checkpoint tag)."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def host_allgather(obj: Any, group=None) -> List[Any]:
+    """Every rank's picklable ``obj``, in rank order (a host-side gather:
+    blocking on every rank)."""
+    out: List[Any] = [None] * group_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def barrier(group=None) -> None:
+    dist.barrier(group=group)

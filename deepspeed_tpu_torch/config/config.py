@@ -445,74 +445,194 @@ class SchedulerConfig:
         return out
 
 
-# zero_optimization keys of the JAX package other than ``stage``: their
-# default there, and the ROADMAP item that ports them.  On one device
-# every stage is the same math, so the stage itself is honoured.
-_ZERO_NOT_PORTED = {
-    "contiguous_gradients": (True, "A6"),
-    "reduce_scatter": (True, "A6"),
-    "reduce_bucket_size": (500_000_000, "A6"),
-    "allgather_partitions": (True, "A6"),
-    "allgather_bucket_size": (500_000_000, "A6"),
-    "overlap_comm": (True, "A6"),
-    "load_from_fp32_weights": (True, "A6 ZeRO checkpoint options"),
-    "elastic_checkpoint": (True, "A6 ZeRO checkpoint options"),
-    "sub_group_size": (1_000_000_000, "A6"),
-    "stage3_prefetch_bucket_size": (50_000_000, "A6"),
-    "prefetch_bucket_size": (50_000_000, "A6"),
-    "stage3_param_persistence_threshold": (100_000, "A6"),
-    "param_persistence_threshold": (100_000, "A6"),
-    "stage3_max_live_parameters": (1_000_000_000, "A6"),
-    "max_live_parameters": (1_000_000_000, "A6"),
-    "stage3_max_reuse_distance": (1_000_000_000, "A6"),
-    "max_reuse_distance": (1_000_000_000, "A6"),
-    "stage3_gather_fp16_weights_on_model_save": (False, "A6 ZeRO checkpoint options"),
-    "gather_fp16_weights_on_model_save": (False, "A6 ZeRO checkpoint options"),
-    "round_robin_gradients": (False, "A6"),
-    "ignore_unused_parameters": (True, "A6"),
-    "legacy_stage1": (False, "A6"),
-    "cross_replica_weight_update": (True, "A6"),
-    "cpu_offload": (False, "A12"),
-}
 _OFFLOAD_KEYS = ("device", "nvme_path", "buffer_count", "buffer_size", "pin_memory",
                  "pipeline_read", "pipeline_write", "fast_init", "max_in_cpu", "ratio")
 
 
+def _pop_alias(d: Dict[str, Any], key: str, alias: str, default: Any, block: str) -> Any:
+    """Pop a key that also has a reference-compat alias; both spellings
+    at once raise (the JAX package's rule)."""
+    if key in d and alias in d:
+        raise DeepSpeedConfigError(
+            f"'{block}.{key}' and its alias '{block}.{alias}' are both set; use one"
+        )
+    return d.pop(key, d.pop(alias, default))
+
+
 @dataclass
 class ZeroConfig:
-    """``zero_optimization``: only ``stage`` is ported (one device: every
-    stage is the same math).  Offload raises (ROADMAP A12); the other
-    knobs are accepted at their JAX default only (ROADMAP A6)."""
+    """``zero_optimization``, parsed as the JAX package parses it.  The
+    engine reads what the JAX engine reads: ``stage``, ``reduce_scatter``,
+    ``cross_replica_weight_update`` and ``param_persistence_threshold``
+    (alias ``stage3_param_persistence_threshold``); the bucket, overlap,
+    live-parameter and checkpoint knobs are carried, unread, as there.
+    Offload (``offload_param``, ``offload_optimizer``, ``cpu_offload``)
+    raises (ROADMAP A12)."""
 
     stage: int = C.ZERO_STAGE_DEFAULT
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: bool = True
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = True
+    sub_group_size: int = 1_000_000_000
+    prefetch_bucket_size: int = 50_000_000
+    param_persistence_threshold: int = 100_000
+    max_live_parameters: int = 1_000_000_000
+    max_reuse_distance: int = 1_000_000_000
+    gather_fp16_weights_on_model_save: bool = False
+    round_robin_gradients: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    cross_replica_weight_update: bool = True
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
         if d is None:
             return cls()
         d = dict(d)
-        out = cls(stage=int(d.pop(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT)))
-        for block in ("offload_param", "offload_optimizer"):
-            sub = d.pop(block, None)
+        block = C.ZERO_OPTIMIZATION
+        for sub_name in ("offload_param", "offload_optimizer"):
+            sub = d.pop(sub_name, None)
             if sub is None:
                 continue
             sub = dict(sub)
             unknown = set(sub) - set(_OFFLOAD_KEYS)
             if unknown:
-                _check_empty({k: sub[k] for k in unknown}, f"{C.ZERO_OPTIMIZATION}.{block}", _OFFLOAD_KEYS)
+                _check_empty({k: sub[k] for k in unknown}, f"{block}.{sub_name}", _OFFLOAD_KEYS)
             if sub.get("device", "none") not in ("none", "cpu", "nvme"):
                 raise DeepSpeedConfigError(
-                    f"{C.ZERO_OPTIMIZATION}.{block}.device must be none|cpu|nvme, got {sub['device']}"
+                    f"{block}.{sub_name}.device must be none|cpu|nvme, got {sub['device']}"
                 )
             if sub.get("device", "none") != "none":
-                raise _not_ported(f"{C.ZERO_OPTIMIZATION}.{block}", "A12")
-        for key, (default, item) in _ZERO_NOT_PORTED.items():
-            if key in d and d.pop(key) != default:
-                raise _not_ported(f"{C.ZERO_OPTIMIZATION}.{key}", item)
-        _check_empty(d, C.ZERO_OPTIMIZATION,
-                     ("stage", "offload_param", "offload_optimizer", *_ZERO_NOT_PORTED))
+                raise _not_ported(f"{block}.{sub_name}", "A12")
+        if bool(d.pop("cpu_offload", False)):
+            raise _not_ported(f"{block}.cpu_offload", "A12")
+        out = cls(
+            stage=int(d.pop(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT)),
+            contiguous_gradients=bool(d.pop("contiguous_gradients", True)),
+            reduce_scatter=bool(d.pop("reduce_scatter", True)),
+            reduce_bucket_size=int(d.pop("reduce_bucket_size", 500_000_000)),
+            allgather_partitions=bool(d.pop("allgather_partitions", True)),
+            allgather_bucket_size=int(d.pop("allgather_bucket_size", 500_000_000)),
+            overlap_comm=bool(d.pop("overlap_comm", True)),
+            load_from_fp32_weights=bool(d.pop("load_from_fp32_weights", True)),
+            elastic_checkpoint=bool(d.pop("elastic_checkpoint", True)),
+            sub_group_size=int(d.pop("sub_group_size", 1_000_000_000)),
+            prefetch_bucket_size=int(_pop_alias(d, "stage3_prefetch_bucket_size",
+                                                "prefetch_bucket_size", 50_000_000, block)),
+            param_persistence_threshold=int(_pop_alias(
+                d, "stage3_param_persistence_threshold", "param_persistence_threshold",
+                100_000, block)),
+            max_live_parameters=int(_pop_alias(d, "stage3_max_live_parameters",
+                                               "max_live_parameters", 1_000_000_000, block)),
+            max_reuse_distance=int(_pop_alias(d, "stage3_max_reuse_distance",
+                                              "max_reuse_distance", 1_000_000_000, block)),
+            gather_fp16_weights_on_model_save=bool(_pop_alias(
+                d, "stage3_gather_fp16_weights_on_model_save",
+                "gather_fp16_weights_on_model_save", False, block)),
+            round_robin_gradients=bool(d.pop("round_robin_gradients", False)),
+            ignore_unused_parameters=bool(d.pop("ignore_unused_parameters", True)),
+            legacy_stage1=bool(d.pop("legacy_stage1", False)),
+            cross_replica_weight_update=bool(d.pop("cross_replica_weight_update", True)),
+        )
+        _check_empty(d, block, _known_keys(
+            cls, "offload_param", "offload_optimizer", "cpu_offload",
+            "stage3_prefetch_bucket_size", "stage3_param_persistence_threshold",
+            "stage3_max_live_parameters", "stage3_max_reuse_distance",
+            "stage3_gather_fp16_weights_on_model_save"))
         if not (0 <= out.stage <= C.MAX_STAGE_ZERO_OPTIMIZATION):
             raise DeepSpeedConfigError(f"zero_optimization.stage must be in [0,3], got {out.stage}")
+        return out
+
+
+# mesh axes the port does not shard over yet, and their ROADMAP items
+_MESH_NOT_PORTED = {
+    "model": "A6 (second part: tensor parallelism)",
+    "seq": "A6 (second part: ring/Ulysses sequence parallelism)",
+    "pipe": "A11 (pipeline)",
+    "expert": "A11 (MoE expert parallelism)",
+}
+
+
+@dataclass
+class MeshConfig:
+    """``mesh``: the named axis sizes, parsed as the JAX package parses
+    them; ``data`` defaults to whatever the world size leaves (-1).  The
+    port shards over ``data`` and ``fsdp``; a ``model``, ``seq``,
+    ``pipe`` or ``expert`` axis larger than 1 raises, naming its item."""
+
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
+    pipe: int = 1
+    seq: int = 1
+    expert: int = 1
+
+    AXES = ("pipe", "data", "fsdp", "seq", "model", "expert")
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "MeshConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            data=int(d.pop("data", -1)),
+            fsdp=int(d.pop("fsdp", 1)),
+            model=int(d.pop("model", 1)),
+            pipe=int(d.pop("pipe", 1)),
+            seq=int(d.pop("seq", 1)),
+            expert=int(d.pop("expert", 1)),
+        )
+        _check_empty(d, C.MESH, _known_keys(cls))
+        for axis, item in _MESH_NOT_PORTED.items():
+            if getattr(out, axis) not in (1, -1):
+                raise _not_ported(f"{C.MESH}.{axis} = {getattr(out, axis)}", item)
+        return out
+
+
+@dataclass
+class CommConfig:
+    """``comm``: the gradient exchange's wire strategy, parsed as the JAX
+    package parses it.  The port runs ``dense``; a strategy that resolves
+    to ``int8`` or ``onebit`` raises where the engine selects it
+    (``comm/strategy.py``, ROADMAP A13)."""
+
+    strategy: str = C.COMM_STRATEGY_DEFAULT
+    threshold_bytes: int = C.COMM_THRESHOLD_BYTES_DEFAULT
+    dcn_threshold_bytes: int = C.COMM_DCN_THRESHOLD_BYTES_DEFAULT
+    quantize_bits: int = C.COMM_QUANTIZE_BITS_DEFAULT
+    error_feedback: bool = C.COMM_ERROR_FEEDBACK_DEFAULT
+    stochastic_rounding: bool = C.COMM_STOCHASTIC_ROUNDING_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "CommConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            strategy=str(d.pop("strategy", C.COMM_STRATEGY_DEFAULT)).lower(),
+            threshold_bytes=int(d.pop("threshold_bytes", C.COMM_THRESHOLD_BYTES_DEFAULT)),
+            dcn_threshold_bytes=int(d.pop("dcn_threshold_bytes",
+                                          C.COMM_DCN_THRESHOLD_BYTES_DEFAULT)),
+            quantize_bits=int(d.pop("quantize_bits", C.COMM_QUANTIZE_BITS_DEFAULT)),
+            error_feedback=bool(d.pop("error_feedback", C.COMM_ERROR_FEEDBACK_DEFAULT)),
+            stochastic_rounding=bool(d.pop("stochastic_rounding",
+                                           C.COMM_STOCHASTIC_ROUNDING_DEFAULT)),
+        )
+        _check_empty(d, C.COMM, _known_keys(cls))
+        if out.strategy not in C.COMM_STRATEGIES:
+            raise DeepSpeedConfigError(
+                f"'{C.COMM}.strategy' must be one of {C.COMM_STRATEGIES}, got '{out.strategy}'")
+        if out.threshold_bytes < 0 or out.dcn_threshold_bytes < 0:
+            raise DeepSpeedConfigError(f"'{C.COMM}' thresholds must be >= 0")
+        if out.quantize_bits != C.COMM_QUANTIZE_BITS_DEFAULT:
+            raise DeepSpeedConfigError(
+                f"'{C.COMM}.quantize_bits' supports only {C.COMM_QUANTIZE_BITS_DEFAULT}, "
+                f"got {out.quantize_bits}")
         return out
 
 
@@ -536,16 +656,17 @@ class SparseAttentionConfig:
         return cls(mode=mode, params=d)
 
 
-def _check_mesh(d: Optional[Dict[str, Any]]) -> None:
-    """The ``mesh`` block on one device: ``data`` may be -1 (whatever is
-    left) or 1, every other axis 1.  More devices raise (ROADMAP A6)."""
-    if d is None:
-        return
-    d = dict(d)
-    sizes = {axis: int(d.pop(axis, -1 if axis == "data" else 1)) for axis in C.MESH_AXES}
-    _check_empty(d, C.MESH, C.MESH_AXES)
-    if sizes["data"] not in (-1, 1) or any(sizes[a] != 1 for a in C.MESH_AXES if a != "data"):
-        raise _not_ported(f"{C.MESH} {sizes} (more than one device)", "A6")
+def _dp_world_size(mesh: "MeshConfig") -> int:
+    """``data x fsdp`` of the mesh over the started process group (1 when
+    none is started)."""
+    from deepspeed_tpu_torch.comm import distributed
+    from deepspeed_tpu_torch.sharding.mesh import resolve_mesh_shape
+
+    try:
+        sizes = resolve_mesh_shape(mesh, distributed.get_world_size())
+    except ValueError:  # the engine's mesh build raises for it
+        return 1
+    return sizes["data"] * sizes["fsdp"]
 
 
 def _off_block(v: Any) -> bool:
@@ -844,7 +965,6 @@ _TOP_NOT_PORTED = {
     "tensorboard": (_off_block, "A14"),
     "pipeline": (_off_block, "A11 runtime/pipe/"),
     "sanitizer": (_off_block, "A15"),
-    "comm": (_off_block, "A6 comm/"),
     "telemetry": (_off_block, "A14 telemetry/"),
     "kernels": (lambda v: v is None or v == {} or v == {"enabled": "auto"},
                 "B (the port has no kernel switch: CUDA tensors always take the kernels)"),
@@ -861,7 +981,7 @@ _PORTED_TOP_LEVEL = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING,
     C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION, C.RESILIENCE, C.OVERLAP,
-    C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST,
+    C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST, C.COMM,
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -869,11 +989,11 @@ _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
 
 class DeepSpeedConfig:
     """Parse a config dict / JSON path and resolve the batch-size triad.
-    The port runs on one device: the data-parallel world size is 1."""
+    ``world_size``: the data-parallel world size the triad counts (the
+    JAX package's argument); default: the ``mesh`` block's ``data x
+    fsdp`` over the started process group, 1 without one."""
 
-    world_size = 1
-
-    def __init__(self, config: Any):
+    def __init__(self, config: Any, world_size: Optional[int] = None):
         if isinstance(config, str):
             with open(config, "r") as f:
                 d = json.load(f)
@@ -897,7 +1017,11 @@ class DeepSpeedConfig:
         self.fp16 = Fp16Config.from_dict(d.get(C.FP16))
         self.bf16 = Bf16Config.from_dict(d.get(C.BF16))
         self.zero_config = ZeroConfig.from_dict(d.get(C.ZERO_OPTIMIZATION))
-        _check_mesh(d.get(C.MESH))
+        self.mesh = MeshConfig.from_dict(d.get(C.MESH))
+        self.comm = CommConfig.from_dict(d.get(C.COMM))
+        if world_size is None:
+            world_size = _dp_world_size(self.mesh)
+        self.world_size = int(world_size)
         self.serving = ServingConfig.from_dict(d.get(C.SERVING))
         self.sparse_attention = SparseAttentionConfig.from_dict(d.get(C.SPARSE_ATTENTION))
         self.gradient_clipping = float(d.get(C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT))

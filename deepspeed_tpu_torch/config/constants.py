@@ -69,6 +69,20 @@ MAX_STAGE_ZERO_OPTIMIZATION = 3
 MESH = "mesh"
 MESH_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
 
+# comm block (the JAX package's constants)
+COMM = "comm"
+COMM_STRATEGY_AUTO = "auto"
+COMM_STRATEGY_DENSE = "dense"
+COMM_STRATEGY_INT8 = "int8"
+COMM_STRATEGY_ONEBIT = "onebit"
+COMM_STRATEGIES = [COMM_STRATEGY_AUTO, COMM_STRATEGY_DENSE, COMM_STRATEGY_INT8, COMM_STRATEGY_ONEBIT]
+COMM_STRATEGY_DEFAULT = COMM_STRATEGY_DENSE
+COMM_THRESHOLD_BYTES_DEFAULT = 65536  # below this, dense always wins
+COMM_DCN_THRESHOLD_BYTES_DEFAULT = 4096
+COMM_QUANTIZE_BITS_DEFAULT = 8
+COMM_ERROR_FEEDBACK_DEFAULT = True
+COMM_STOCHASTIC_ROUNDING_DEFAULT = True
+
 #############################################
 # Serving (continuous-batching slot-pool engine)
 #############################################

@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
     encoder_block,
     key_padding_bias,
 )
+from deepspeed_tpu_torch.runtime.zero.partition import materialize, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +169,7 @@ def _bert_block(cfg: BertConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     attention dropout; the JAX package's ``r_attn``), so a recomputed block
     draws the same masks."""
     s1, s2, attn_key = seeds or (None, None, None)
+    lp = {k: materialize(v) for k, v in lp.items()}
     return encoder_block(
         lp, x, mask_bias, (attn_key, s1, s2), heads=cfg.num_attention_heads,
         pre_layer_norm=cfg.pre_layer_norm, eps=cfg.layer_norm_eps,
@@ -190,19 +192,21 @@ def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
     ``deterministic`` means no dropout."""
     B, T = input_ids.shape
     dtype = params["blocks"]["qkv_w"].dtype
-    x = params["tok_emb"][input_ids.long()] + params["pos_emb"][:T][None]
+    x = materialize(params["tok_emb"])[input_ids.long()] + materialize(params["pos_emb"])[:T][None]
+    type_emb = materialize(params["type_emb"])
     if token_type_ids is None:
         # absent segment ids mean "all segment A": the type-0 embedding is
         # still added
-        x = x + params["type_emb"][0][None, None]
+        x = x + type_emb[0][None, None]
     else:
-        x = x + params["type_emb"][token_type_ids.long()]
-    x = _layer_norm(x.to(dtype), params["emb_ln_g"], params["emb_ln_b"], cfg.layer_norm_eps)
+        x = x + type_emb[token_type_ids.long()]
+    x = _layer_norm(x.to(dtype), materialize(params["emb_ln_g"]), materialize(params["emb_ln_b"]),
+                    cfg.layer_norm_eps)
 
     mask_bias = key_padding_bias(attention_mask, x.device)
 
     L = cfg.num_hidden_layers
-    layers = {key: params["blocks"][key].unbind(0) for key in BLOCK_KEYS}
+    layers = {key: unstack(params["blocks"][key]) for key in BLOCK_KEYS}
     seeds = [None] * L
     if generator is not None and not deterministic:
         hidden, attn = [(None, None)] * L, [None] * L
@@ -235,6 +239,7 @@ def mlm_nsp_loss(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
     x = encode(params, batch["input_ids"], cfg, token_type_ids=batch.get("token_type_ids"),
                attention_mask=batch.get("attention_mask"), generator=generator,
                deterministic=deterministic)
+    params = {k: materialize(v) for k, v in params.items() if k != "blocks"}
     # MLM: transform, then the decoder tied to the token embeddings
     h = x @ params["mlm_dense_w"].to(x.dtype) + params["mlm_dense_b"].to(x.dtype)
     h = F.gelu(h)

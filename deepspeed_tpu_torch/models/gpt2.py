@@ -10,7 +10,13 @@ on both sides of the port.
 The layer loop is a Python loop over the stacked parameters (``unbind``
 once per key, so the backward stacks each key's gradient once); with
 ``remat`` (the default, the JAX ``nothing_saveable`` policy) each block
-runs under ``torch.utils.checkpoint`` and is recomputed in the backward."""
+runs under ``torch.utils.checkpoint`` and is recomputed in the backward.
+
+Under ZeRO stage 3 a sharded leaf arrives as a handle
+(``runtime/zero/partition.py``): :func:`materialize` gathers the
+embeddings and the final LayerNorm once per forward, and a block's
+weights inside the block (its checkpoint region), so the recompute
+gathers them again and they are freed after the block."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,6 +34,7 @@ from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
 from deepspeed_tpu_torch.ops.normalize import dropout_generator
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
 from deepspeed_tpu_torch.ops.normalize import token_nll
+from deepspeed_tpu_torch.runtime.zero.partition import materialize, unstack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +238,7 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     B, T, D = x.shape
     H, hd = cfg.n_head, cfg.head_dim
     r1, r2, r3 = (dropout_generator(s, x.device) for s in (seeds or (None,) * 3))
+    lp = {k: materialize(v) for k, v in lp.items()}
 
     h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
     qkv = h @ lp["qkv_w"].to(h.dtype) + lp["qkv_b"].to(h.dtype)
@@ -270,9 +278,10 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
     off the device); None or ``deterministic`` means no dropout."""
     B, T = tokens.shape
     tokens = tokens.long()
-    x = params["wte"][tokens] + params["wpe"][:T][None]
+    wte = materialize(params["wte"])
+    x = wte[tokens] + materialize(params["wpe"])[:T][None]
     x = x.to(params["blocks"]["qkv_w"].dtype)
-    layers = {key: params["blocks"][key].unbind(0) for key in BLOCK_KEYS}
+    layers = {key: unstack(params["blocks"][key]) for key in BLOCK_KEYS}
     seeds = [None] * cfg.n_layer
     if generator is not None and not deterministic and cfg.dropout > 0.0:
         draw = torch.randint(0, 2**62, (cfg.n_layer, 3), generator=generator,
@@ -285,10 +294,11 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
             x = checkpoint(block_fn, x, lp, seeds[i], deterministic, use_reentrant=False)
         else:
             x = block_fn(x, lp, seeds[i], deterministic)
-    x = _layer_norm(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_epsilon)
+    x = _layer_norm(x, materialize(params["lnf_g"]), materialize(params["lnf_b"]),
+                    cfg.layer_norm_epsilon)
     if return_hidden:
         return x
-    return x @ params["wte"].t().to(x.dtype)  # tied embedding head
+    return x @ wte.t().to(x.dtype)  # tied embedding head
 
 
 def _xent_chunk(xc, wte, lc, mc):
@@ -333,7 +343,8 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
 
     if chunked:
         ones = torch.ones(labels.shape, dtype=torch.float32, device=out.device) if mask is None else mask
-        return _chunked_xent(out_shift, params["wte"], labels, ones, cfg.xent_chunk_size)
+        return _chunked_xent(out_shift, materialize(params["wte"]), labels, ones,
+                             cfg.xent_chunk_size)
 
     nll = token_nll(out_shift, labels)
     if mask is not None:

@@ -27,6 +27,7 @@ the same ``[lr, keep, c1, c2]`` tensor as Adam's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Optional
 
 import torch
@@ -214,34 +215,60 @@ def lamb_trust_from_partials(partials, min_coeff, max_coeff) -> torch.Tensor:
     return _lamb_trust(norms[0], norms[1], min_coeff, max_coeff).reshape(1)
 
 
+def lamb_trust_from_sums(sums, min_coeff, max_coeff) -> torch.Tensor:
+    """The trust ratio from the summed ``(sum p^2, sum dir^2)`` of a whole
+    leaf (a ZeRO shard's partials summed over the ranks that hold the
+    rest): a 1-element f32 tensor."""
+    norms = sums.sqrt()
+    return _lamb_trust(norms[0], norms[1], min_coeff, max_coeff).reshape(1)
+
+
 def lamb_leaf_cuda(p, g, m, v, scal, *, b1, b2, eps, weight_decay, min_coeff, max_coeff,
-                   dir_buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   dir_buf: Optional[torch.Tensor] = None, reduce_sq=None) -> torch.Tensor:
     """Both LAMB passes over one leaf on the current stream, with the trust
     ratio resolved on the device between them; p, m and v are updated in
     place.  ``dir_buf``: an f32 scratch of at least ``p.numel()`` elements
     for the direction (one buffer may serve every leaf of a step, in
-    stream order); allocated here if None.  Returns the trust ratio.
-    Raises for tensors that are not on one CUDA device, not contiguous, or
-    of a type the kernels do not take."""
+    stream order); allocated here if None.  ``reduce_sq``: where p is a
+    ZeRO shard, a function that sums the shard's ``(sum p^2, sum dir^2)``
+    over the ranks holding the rest of the leaf (zero padding adds
+    nothing).  Returns the trust ratio.  Raises for tensors that are not
+    on one CUDA device, not contiguous, or of a type the kernels do not
+    take."""
     if dir_buf is None:
         dir_buf = torch.empty(p.numel(), dtype=torch.float32, device=p.device)
     partials = lamb_dir_cuda(p, g, m, v, scal, dir_buf, b1=b1, b2=b2, eps=eps,
                              weight_decay=weight_decay)
-    trust = lamb_trust_from_partials(partials, min_coeff, max_coeff)
+    if reduce_sq is None:
+        trust = lamb_trust_from_partials(partials, min_coeff, max_coeff)
+    else:
+        trust = lamb_trust_from_sums(reduce_sq(partials.sum(dim=0)), min_coeff, max_coeff)
     lamb_apply_cuda(p, dir_buf, scal, trust)
     return trust
 
 
 def lamb_leaf(p, g, m, v, scal, *, b1, b2, eps, weight_decay, min_coeff, max_coeff,
-              dir_buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+              dir_buf: Optional[torch.Tensor] = None, reduce_sq=None) -> torch.Tensor:
     """One LAMB step of one leaf, in place: ``scal`` is the f32 tensor
     ``[lr, keep, c1, c2]`` on the leaf's device.  CUDA tensors take the
-    kernels, CPU tensors the plain version.  Returns the trust ratio."""
+    kernels, CPU tensors the plain version.  ``reduce_sq``: see
+    :func:`lamb_leaf_cuda`.  Returns the trust ratio."""
     hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, min_coeff=min_coeff,
                  max_coeff=max_coeff)
     if p.device.type != "cpu":
-        return lamb_leaf_cuda(p, g, m, v, scal, dir_buf=dir_buf, **hyper)
+        return lamb_leaf_cuda(p, g, m, v, scal, dir_buf=dir_buf, reduce_sq=reduce_sq, **hyper)
     _check_leaf(p, g, m, v, scal, "lamb_leaf")
+    if reduce_sq is not None:
+        lr, keep, c1, c2 = scal.unbind(0)
+        p32 = p.float()
+        d, m_new, v_new = _lamb_dir_body(p32, g.float(), m, v, keep, c1, c2, b1=b1, b2=b2,
+                                         eps=eps, weight_decay=weight_decay)
+        sums = reduce_sq(torch.stack([torch.sum(p32 * p32), torch.sum(d * d)]))
+        trust = lamb_trust_from_sums(sums, min_coeff, max_coeff)
+        p.copy_((p32 - keep * lr * trust[0] * d).to(p.dtype))
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return trust
     p_new, m_new, v_new, trust = _lamb_math(p, g, m, v, *scal.unbind(0), **hyper)
     p.copy_(p_new)
     m.copy_(m_new)
@@ -273,12 +300,14 @@ def adam_scalars(optimizer, step: torch.Tensor, lr, overflow: Optional[torch.Ten
 
 
 def engine_update(optimizer, grads: List[torch.Tensor], opt_state, params: List[torch.Tensor],
-                  lr, overflow: Optional[torch.Tensor]) -> Any:
+                  lr, overflow: Optional[torch.Tensor], reduce_norms=None) -> Any:
     """The engine's update seam: one :func:`adam_leaf` or :func:`lamb_leaf`
     per leaf, in place over ``params`` and the state's moments; the
-    state's step advances unless ``overflow``.  Returns the state, or None
-    when the optimizer or state is neither the Adam family with f32 state
-    nor LAMB (the caller then takes ``optimizer.update``)."""
+    state's step advances unless ``overflow``.  ``reduce_norms(i, sums)``:
+    for ZeRO shards, LAMB's per-leaf squared norms summed across ranks.
+    Returns the state, or None when the optimizer or state is neither the
+    Adam family with f32 state nor LAMB (the caller then takes
+    ``optimizer.update``)."""
     is_adam = isinstance(optimizer, FusedAdam) and isinstance(opt_state, AdamState)
     is_lamb = isinstance(optimizer, FusedLamb) and isinstance(opt_state, LambState)
     if not (is_adam or is_lamb):
@@ -297,9 +326,10 @@ def engine_update(optimizer, grads: List[torch.Tensor], opt_state, params: List[
         if params and params[0].is_cuda:
             dir_buf = torch.empty(max(p.numel() for p in params), dtype=torch.float32,
                                   device=params[0].device)
-        for p, g, m, v in leaves:
+        for i, (p, g, m, v) in enumerate(leaves):
+            red = None if reduce_norms is None else functools.partial(reduce_norms, i)
             lamb_leaf(p, g, m, v, scal, min_coeff=optimizer.min_coeff,
-                      max_coeff=optimizer.max_coeff, dir_buf=dir_buf, **hyper)
+                      max_coeff=optimizer.max_coeff, dir_buf=dir_buf, reduce_sq=red, **hyper)
     if overflow is None:
         opt_state.step += 1
     else:

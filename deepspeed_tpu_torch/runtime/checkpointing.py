@@ -25,11 +25,23 @@ successful save.  The fault sites ``ckpt.save.state``, ``ckpt.save.meta``
 (here), ``ckpt.commit`` and ``ckpt.latest`` (``resilience/manager.py``)
 sit where the JAX package has them.
 
-Not ported, each with its ROADMAP item: barriers, the tag broadcast and
-multi-process saves (A6); the host-offload optimizer's files (A12); the
-1-bit optimizers' phase sync (A13); the supervision plane's ``local_npz``
-emergency format (A14); the sanitizer's donation, transfer and drift
-hooks (A15).
+Across ranks (a ZeRO engine on a process group), the tag keeps the same
+single ``state.pt``: every tensor is gathered to its whole, natural shape
+(flat-padded leaves unpadded), so a tag does not depend on the world size
+or the stage that wrote it — it loads at any world size, and one-process
+tags load across ranks and back.  Every rank takes part in the gathers;
+rank 0 owns the staging directory and the commit, between barriers, as
+in the JAX package (``deepspeed_tpu/runtime/checkpointing.py:228-316``).
+A failed write is not retried on one rank alone (the save is collective),
+an async save falls back to a synchronous one with the JAX package's
+warning, and on load rank 0 picks the tag (its scan, verification and
+quarantine) and broadcasts it.  Each rank then reads the file and keeps
+its own slices.
+
+Not ported, each with its ROADMAP item: the host-offload optimizer's
+files (A12); the 1-bit optimizers' phase sync (A13); the supervision
+plane's ``local_npz`` emergency format and its armed barriers (A14); the
+sanitizer's donation, transfer and drift hooks (A15).
 """
 from __future__ import annotations
 
@@ -78,23 +90,40 @@ def _walk(tree: Any, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
         yield path, tree
 
 
-def _state_tensors(engine) -> Dict[str, torch.Tensor]:
-    """The engine's live tensors that a tag holds, by name: the f32
-    masters, the optimizer state (``AdamState`` / ``LambState`` / SGD's
-    dict; a list of per-parameter tensors is named by the parameters'
-    paths, as the JAX state's parameter-shaped subtrees are), the loss
-    scaler's state and, between micro-steps, the pending gradients."""
-    params = engine._params
-    as_tree = lambda x: (engine._unflatten(x) if isinstance(x, list) and len(x) == len(params)  # noqa: E731
-                         else x)
+def _opt_fields(engine) -> Dict[str, Any]:
+    """The optimizer state by field (``AdamState`` / ``LambState`` / SGD's
+    dict)."""
     opt = engine.opt_state
-    opt = ({f.name: as_tree(getattr(opt, f.name)) for f in dataclasses.fields(opt)}
-           if dataclasses.is_dataclass(opt) else {k: as_tree(v) for k, v in opt.items()})
-    tree = {"params": engine._unflatten([p.detach() for p in params]), "opt_state": opt,
+    if dataclasses.is_dataclass(opt):
+        return {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)}
+    return dict(opt)
+
+
+def _per_leaf(engine, x) -> bool:
+    return isinstance(x, list) and len(x) == len(engine._params)
+
+
+def _state_tensors(engine) -> Dict[str, torch.Tensor]:
+    """The tag's tensors by name, whole: the f32 masters, the optimizer
+    state (a list of per-parameter tensors is named by the parameters'
+    paths, as the JAX state's parameter-shaped subtrees are), the loss
+    scaler's state and, between micro-steps, the pending gradients.  Where
+    ZeRO cuts a leaf this gathers it (every rank must call); otherwise the
+    names map to the engine's live tensors."""
+    layout = engine.layout
+    nat = lambda i, t, spec: layout.natural(i, t.detach(), spec)  # noqa: E731
+    params = [nat(i, p, layout.leaves[i].param_spec) for i, p in enumerate(engine._params)]
+    opt = {}
+    for name, x in _opt_fields(engine).items():
+        opt[name] = (engine._unflatten([nat(i, t, layout.leaves[i].opt_spec)
+                                        for i, t in enumerate(x)])
+                     if _per_leaf(engine, x) else x)
+    tree = {"params": engine._unflatten(params), "opt_state": opt,
             "loss_scale": engine.loss_scale_state}
-    if any(p.grad is not None for p in params):
-        tree["grad_acc"] = engine._unflatten(
-            [p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
+    if any(a is not None for a in engine._grad_acc):
+        tree["grad_acc"] = engine._unflatten([
+            nat(i, a, layout.leaves[i].acc_spec) if a is not None else torch.zeros_like(params[i])
+            for i, a in enumerate(engine._grad_acc)])
     return {_path_str(path): leaf for path, leaf in _walk(tree)}
 
 
@@ -182,22 +211,47 @@ def _restore_loader_state(engine, client_state: Dict[str, Any]) -> None:
         logger.warning(f"dataloader cursor restore failed ({e!r}); loader starts fresh")
 
 
+def _world(engine) -> int:
+    """The ranks a save or load spans (1: no collective, no barrier)."""
+    return int(getattr(engine, "world_size", 1))
+
+
+def _rank(engine) -> int:
+    return int(getattr(engine, "global_rank", 0))
+
+
+def _barrier(engine) -> None:
+    if _world(engine) > 1:
+        from deepspeed_tpu_torch.comm import collectives
+
+        collectives.barrier()
+
+
+def _broadcast_tag(engine, tag: Optional[str]) -> Optional[str]:
+    """Rank 0's tag on every rank (as it is, at one rank)."""
+    if _world(engine) <= 1:
+        return tag
+    from deepspeed_tpu_torch.comm import collectives
+
+    return collectives.broadcast_object(tag, src=0)
+
+
 def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any]:
-    """The JAX package's ``meta.json`` keys; one device: the world sizes
-    are 1 and there is no comm layer's state (``comm_state`` null)."""
+    """The JAX package's ``meta.json`` keys (no comm layer's state:
+    ``comm_state`` null; the dense exchange keeps none)."""
     return {
         "tag": tag,
         "global_step": int(engine._host_global_step),
         "micro_step": int(engine._host_micro_step),
         "global_samples": int(engine.global_samples),
         "skipped_steps": int(engine.skipped_steps),
-        "world_size": 1,
-        "dp_world_size": 1,
+        "world_size": _world(engine),
+        "dp_world_size": int(getattr(engine, "dp_world_size", 1)),
         "mp_world_size": 1,
         "zero_stage": engine.zero_stage,
         # whether the tag holds gradients of micro-steps still to be
         # applied (a save between micro-steps)
-        "has_grad_acc": any(p.grad is not None for p in engine._params),
+        "has_grad_acc": any(a is not None for a in engine._grad_acc),
         "comm_state": None,
         "client_state": client_state or {},
         "ds_tpu_version": _version(),
@@ -223,7 +277,7 @@ def save_checkpoint(
     ck = rcfg.checkpoint
     if tag is None:
         tag = f"global_step{int(engine._host_global_step)}"
-    tag = str(tag)
+    tag = str(_broadcast_tag(engine, str(tag)))
     client_state = _merge_loader_state(engine, client_state)
     save_dir = os.path.abspath(save_dir)
     final_path = _ckpt_path(save_dir, tag)
@@ -240,14 +294,20 @@ def save_checkpoint(
         # state with whatever commit is still in flight
         writer.drain()
     use_async = (writer is not None) if async_save is None else (bool(async_save) and writer is not None)
-    if use_async and not ck.atomic:
-        # the JAX package's other blockers, multi-process saves (A6) and
-        # the host-offload optimizer (A12), do not exist in the port
-        logger.warning(
-            "async checkpoint save unavailable ('resilience.checkpoint.atomic' is off); "
-            "saving synchronously"
-        )
-        use_async = False
+    if use_async:
+        # the JAX package's blockers (the host-offload optimizer, A12, does
+        # not exist in the port); a multi-rank save is collective, and its
+        # gathers must not run on the writer thread
+        blockers = []
+        if _world(engine) > 1:
+            blockers.append("multi-process saves are collective (staging barriers)")
+        if not ck.atomic:
+            blockers.append("'resilience.checkpoint.atomic' is off")
+        if blockers:
+            logger.warning(
+                f"async checkpoint save unavailable ({'; '.join(blockers)}); saving synchronously"
+            )
+            use_async = False
 
     if use_async:
         path = _submit_async_save(
@@ -311,17 +371,59 @@ def _sync_save(
     ck = rcfg.checkpoint
     meta = _build_meta(engine, tag, client_state)
     snapshot = _snapshot_state_to_host(engine)
-    retry_call(
-        rcfg.retry.policy(),
-        _commit_snapshot, save_dir, tag, final_path, ck.atomic, snapshot, meta, ck.checksum,
-        on_retry=lambda attempt, e, pause: logger.warning(
-            f"checkpoint save of '{tag}' failed (attempt {attempt}: {e}); retrying in {pause:.1f}s"
-        ),
-    )
-    _publish(save_dir, tag, rcfg, save_latest)
+    if _world(engine) > 1:
+        _multi_rank_commit(engine, save_dir, tag, final_path, rcfg, snapshot, meta)
+    else:
+        retry_call(
+            rcfg.retry.policy(),
+            _commit_snapshot, save_dir, tag, final_path, ck.atomic, snapshot, meta, ck.checksum,
+            on_retry=lambda attempt, e, pause: logger.warning(
+                f"checkpoint save of '{tag}' failed (attempt {attempt}: {e}); retrying in {pause:.1f}s"
+            ),
+        )
+    if _rank(engine) == 0:
+        _publish(save_dir, tag, rcfg, save_latest)
+    _barrier(engine)  # no rank reads `latest` before it names this tag
     _note_ckpt_dir(engine, save_dir)
     log_dist(f"saved checkpoint {final_path}")
     return final_path
+
+
+def _multi_rank_commit(engine, save_dir: str, tag: str, final_path: str, rcfg,
+                       snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any]) -> None:
+    """The commit protocol across ranks: rank 0 stages, writes the state,
+    meta and manifest, and commits, between barriers.  One attempt: a
+    retry on one rank alone would desync the barriers and hang the job."""
+    ck = rcfg.checkpoint
+    faults.check("ckpt.save.state", path=final_path)
+    rank0 = _rank(engine) == 0
+    target = final_path
+    failed = None
+    if rank0:
+        try:
+            target = manager.begin_stage(save_dir, tag) if ck.atomic else final_path
+            os.makedirs(target, exist_ok=True)
+            _write_state(target, snapshot)
+            faults.check("ckpt.save.meta", path=target)
+            atomic.atomic_write_text(os.path.join(target, "meta.json"), json.dumps(meta, indent=2))
+            if ck.atomic:
+                atomic.write_manifest(target, algorithm=ck.checksum)
+                manager.commit_tag(save_dir, tag)
+        except OSError as e:
+            if ck.atomic:
+                manager.abort_stage(save_dir, tag)
+            failed = e
+        finally:
+            if ck.atomic:
+                manager.release_stage(save_dir, tag)
+    # every rank learns whether the commit landed, then fails alike
+    from deepspeed_tpu_torch.comm import collectives
+
+    error = collectives.broadcast_object(None if failed is None else repr(failed), src=0)
+    if failed is not None:
+        raise failed
+    if error is not None:
+        raise OSError(f"checkpoint save of '{tag}' failed on rank 0: {error}")
 
 
 def _submit_async_save(
@@ -365,6 +467,40 @@ def _submit_async_save(
     return final_path
 
 
+def _pick_tag(load_dir: str, tag: Optional[str], explicit: bool, ck):
+    """``(tag to load or None, requested tag, notes on the tags tried)``:
+    the requested tag (or ``latest``) if it verifies, else the newest
+    verified one; corrupt tags are quarantined."""
+    requested = str(tag) if explicit else manager.read_latest(load_dir)
+    if requested is None and not explicit:
+        logger.warning(f"no '{LATEST_FILE}' file at {load_dir}; scanning for committed tags")
+    tried: List[str] = []
+    for cand in _load_candidates(load_dir, requested, explicit):
+        path = _ckpt_path(load_dir, cand)
+        if not os.path.isdir(path):
+            tried.append(f"'{cand}': missing")
+            continue
+        if ck.verify_on_load:
+            ok, notes = manager.verify_tag(load_dir, cand)
+            if not ok:
+                dest = manager.quarantine_tag(load_dir, cand)
+                logger.warning(
+                    f"checkpoint tag '{cand}' failed verification ({'; '.join(notes)}); "
+                    f"quarantined to {os.path.basename(dest)}"
+                )
+                tried.append(f"'{cand}': corrupt ({notes[0]})")
+                continue
+            if notes:
+                logger.warning(f"checkpoint tag '{cand}': {'; '.join(notes)}")
+        if cand != requested:
+            logger.warning(
+                f"falling back to verified tag '{cand}' (requested "
+                f"{'nothing' if requested is None else repr(requested)})"
+            )
+        return cand, requested, tried
+    return None, requested, tried
+
+
 def _load_candidates(load_dir: str, requested: Optional[str], explicit: bool) -> List[str]:
     """Tags to try, in order: the requested one first, then (unless the
     tag was named explicitly by the caller) every other committed tag
@@ -406,36 +542,17 @@ def load_checkpoint(
         writer.drain()
     load_dir = os.path.abspath(load_dir)
     explicit = tag is not None
-    requested = str(tag) if explicit else manager.read_latest(load_dir)
-    if requested is None and not explicit:
-        logger.warning(f"no '{LATEST_FILE}' file at {load_dir}; scanning for committed tags")
+    picked = _pick_tag(load_dir, tag, explicit, ck) if _rank(engine) == 0 else None
+    if _world(engine) > 1:
+        # rank 0 scans, verifies and quarantines; every rank loads its pick
+        from deepspeed_tpu_torch.comm import collectives
 
-    tried: List[str] = []
-    for cand in _load_candidates(load_dir, requested, explicit):
-        path = _ckpt_path(load_dir, cand)
-        if not os.path.isdir(path):
-            tried.append(f"'{cand}': missing")
-            continue
-        if ck.verify_on_load:
-            ok, notes = manager.verify_tag(load_dir, cand)
-            if not ok:
-                dest = manager.quarantine_tag(load_dir, cand)
-                logger.warning(
-                    f"checkpoint tag '{cand}' failed verification ({'; '.join(notes)}); "
-                    f"quarantined to {os.path.basename(dest)}"
-                )
-                tried.append(f"'{cand}': corrupt ({notes[0]})")
-                continue
-            if notes:
-                logger.warning(f"checkpoint tag '{cand}': {'; '.join(notes)}")
-        if cand != requested:
-            logger.warning(
-                f"falling back to verified tag '{cand}' (requested "
-                f"{'nothing' if requested is None else repr(requested)})"
-            )
+        picked = collectives.broadcast_object(picked, src=0)
+    cand, requested, tried = picked
+    if cand is not None:
         return _restore_tag(
             engine,
-            path,
+            _ckpt_path(load_dir, cand),
             load_optimizer_states=load_optimizer_states,
             load_lr_scheduler_states=load_lr_scheduler_states,
             load_module_only=load_module_only,
@@ -511,14 +628,7 @@ def _finish_restore(
                 f"{src.dtype}{tuple(src.shape)}, the engine's {t.dtype}{tuple(t.shape)}"
             )
     with torch.no_grad():
-        for name, t in live.items():
-            t.copy_(restored[name])
-        # gradients pending from the pre-restore parameters must not mix
-        # into the restored run; the tag's own pending ones come back
-        paths = [_path_str(p) for p, _ in _walk(engine._unflatten(list(engine._params)))]
-        for p, name in zip(engine._params, paths):
-            acc = restored.get(f"grad_acc/{name}") if "grad_acc" in groups else None
-            p.grad = acc.to(p.device) if acc is not None else None
+        _copy_in(engine, restored, groups)
     if not load_module_only:
         engine._host_micro_step = int(restored["micro_step"])
         engine._host_global_step = int(restored["global_step"])
@@ -539,6 +649,34 @@ def _finish_restore(
     _note_ckpt_dir(engine, os.path.dirname(path))
     log_dist(f"loaded checkpoint {path} (global_step={engine._host_global_step})")
     return path, client_state
+
+
+def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
+    """Copy whole tensors of a tag into the engine's own, in place, each
+    cut to this rank's slice of its spec."""
+    layout, n = engine.layout, len(engine._params)
+    paths = [_path_str(p) for p, _ in _walk(engine._unflatten(list(range(n))))]
+    put = lambda dst, i, spec, src: dst.copy_(  # noqa: E731
+        layout.from_natural(i, src.to(dst.device), spec))
+    for i, name in enumerate(paths):
+        put(engine._params[i], i, layout.leaves[i].param_spec, restored[f"params/{name}"])
+    if "opt_state" in groups:
+        for field, x in _opt_fields(engine).items():
+            if _per_leaf(engine, x):
+                for i, name in enumerate(paths):
+                    put(x[i], i, layout.leaves[i].opt_spec, restored[f"opt_state/{field}/{name}"])
+            else:
+                for sub, leaf in _walk(x, (field,)):
+                    leaf.copy_(restored["opt_state/" + _path_str(sub)])
+    if "loss_scale" in groups:
+        for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
+            leaf.copy_(restored[_path_str(sub)])
+    # gradients pending from the pre-restore parameters must not mix into
+    # the restored run; the tag's own pending ones come back
+    for i, name in enumerate(paths):
+        acc = restored.get(f"grad_acc/{name}") if "grad_acc" in groups else None
+        engine._grad_acc[i] = (None if acc is None else layout.from_natural(
+            i, acc.to(engine.device), layout.leaves[i].acc_spec).clone())
 
 
 def consolidate_fp32_state_dict(engine) -> Dict[str, np.ndarray]:

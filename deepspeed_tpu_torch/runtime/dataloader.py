@@ -4,9 +4,11 @@ Host-side batching of an indexable dataset with a resumable cursor: the
 checkpoint's client state records ``(epoch, cursor, seed)``, so a
 restarted job neither replays nor skips batches.  The shuffle is
 ``np.random.default_rng(seed + epoch)``, so the permutations are the JAX
-package's.  The port trains on one device: ``process_index`` and
-``process_count`` default to 0 and 1 (ROADMAP A6 brings
-``torch.distributed``).
+package's.  ``process_index`` and ``process_count`` default to this
+rank's place in the data-parallel grid (``data x fsdp``) of the started
+process group, 0 and 1 without one: each rank takes its own contiguous
+slice of every epoch's permutation, as the JAX loader slices per
+process.
 """
 from __future__ import annotations
 
@@ -57,9 +59,15 @@ class DeepSpeedDataLoader:
         seed: int = 0,
         drop_last: bool = True,
         collate_fn: Optional[Callable] = None,
-        process_index: int = 0,
-        process_count: int = 1,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
     ):
+        from deepspeed_tpu_torch.comm import distributed
+
+        if process_index is None:
+            process_index = distributed.get_rank()
+        if process_count is None:
+            process_count = distributed.get_world_size()
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle

@@ -1,18 +1,46 @@
-"""Training engine on one device (counterpart of
-``deepspeed_tpu/runtime/engine.py::DeepSpeedEngine``).
+"""Training engine (counterpart of
+``deepspeed_tpu/runtime/engine.py::DeepSpeedEngine``), on one device or on
+every rank of a ``torch.distributed`` process group.
 
 The engine owns f32 master weights on its device (leaves of the caller's
 parameter tree, flattened in sorted-key order as a JAX pytree flattens).
 Each micro-step casts the masters to the compute type (bf16, fp16 or
 f32), runs the model callable ``(params, batch, generator) -> loss``,
 scales the loss and runs autograd's backward, which casts the gradients
-back to f32 and sums them into the masters' ``.grad`` (the gradient
-accumulator).  At the accumulation boundary the step averages, unscales,
-checks overflow (dynamic scaler only), clips by the global norm and
-updates: Adam and AdamW with f32 state and LAMB always take
-:func:`~deepspeed_tpu_torch.ops.kernels.fused_update.engine_update` (the
-fused Adam kernel, or LAMB's two kernels, on the card), SGD its own
+back to f32; they are reduced over the data-parallel grid and summed into
+the gradient accumulator.  At the accumulation boundary the step
+averages, unscales, checks overflow (dynamic scaler only), clips by the
+global norm and updates: Adam and AdamW with f32 state and LAMB always
+take :func:`~deepspeed_tpu_torch.ops.kernels.fused_update.engine_update`
+(the fused Adam kernel, or LAMB's two kernels, on the card), SGD its own
 ``update``.
+
+**ZeRO across ranks.**  The engine's mesh (``mesh`` config block or
+argument; ``comm/mesh.py``) is read from the started process group
+(``comm.distributed.init_distributed``); the data-parallel grid is
+``data x fsdp``, and each rank's batch is its own rows.  The JAX
+package's rules (``runtime/zero/stages.py``) give every leaf a parameter,
+gradient and optimizer-state spec, and ``runtime/zero/partition.py``
+carries them out:
+
+* each micro-step's gradient is all-reduced over ``data``, then
+  reduce-scattered over ``fsdp`` where the gradient spec cuts the leaf
+  (stage >= 2), else all-reduced over ``fsdp``;
+* the update runs on this rank's slice of the optimizer state (stage >= 1:
+  fsdp, and data too by cross-replica update sharding), as contiguous
+  tensors the fused kernels take; the updated masters are all-gathered
+  back to the parameter spec;
+* stage 3 keeps only this rank's shard of each sharded master, and the
+  model gathers on use (``runtime/zero/partition.py``);
+* the global gradient norm sums each element once (on the rank at
+  coordinate 0 of the axes that do not cut it), and one all-reduce per
+  step carries it with the overflow count and the loss sum, so every
+  rank clips, skips and reports alike; ``train_batch`` returns the mean
+  loss over the global batch.
+
+Every collective counts its bytes by kind (``comm/collectives.py``); at
+world size 1 the engine issues none, and its arithmetic is the
+one-device engine's, bit for bit.
 
 PyTorch runs eagerly: there is no compiled step; ``train_batch`` loops
 over the micro-batches.  Nothing reads the device on the host except the
@@ -35,10 +63,10 @@ checks the ``step.boundary`` fault site, a pending preemption (the
 ``resilience.watchdog``: emergency save, exit 43) and the divergence
 guard (``resilience.divergence``, on by default as in the JAX engine).
 
-Not ported (each raises, naming its ROADMAP item, or is absent): ZeRO
-sharding across devices and TP (A6), offload (A12), pipeline (A11), 1-bit
-optimizers (A13), the comm layer, supervision, telemetry, sanitizer and
-flops profiler (A14/A15), MoQ and PLD (A13).
+Not ported (each raises, naming its ROADMAP item, or is absent): TP and
+sequence parallelism (A6, second part), offload (A12), pipeline (A11),
+1-bit optimizers and compressed exchanges (A13), supervision, telemetry,
+sanitizer and flops profiler (A14/A15), MoQ and PLD (A13).
 """
 from __future__ import annotations
 
@@ -84,6 +112,25 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
     return leaves, lambda new: build(iter(new))
 
 
+def tree_paths(tree: Any) -> List[str]:
+    """The ``/``-joined path of every leaf, in :func:`tree_flatten`'s
+    order (the JAX package's path strings: ``blocks/qkv_w``)."""
+    out: List[str] = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (str(k),))
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                walk(x, path + (str(i),))
+        else:
+            out.append("/".join(path))
+
+    walk(tree, ())
+    return out
+
+
 class _PlacedBatch:
     """A batch already on the engine's device, placed ahead of the step by
     ``prefetch_loader``: ``train_batch`` takes it without placing it
@@ -117,16 +164,15 @@ def _pinned(x: Any) -> torch.Tensor:
     return x if x.is_cuda else x.pin_memory()
 
 
-def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def _sum_squares(grads: List[torch.Tensor], device) -> torch.Tensor:
     sq = [torch.sum(torch.square(g.float())) for g in grads]
-    return torch.sqrt(torch.stack(sq).sum())
+    return torch.stack(sq).sum() if sq else torch.zeros((), dtype=torch.float32, device=device)
 
 
-def _clip_by_global_norm(grads: List[torch.Tensor],
-                         max_norm: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    norm = _global_norm(grads)
+def _clip_by_norm(grads: List[torch.Tensor], norm: torch.Tensor,
+                  max_norm: float) -> List[torch.Tensor]:
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    return [(g.float() * factor).to(g.dtype) for g in grads], norm
+    return [(g.float() * factor).to(g.dtype) for g in grads]
 
 
 class DeepSpeedEngine:
@@ -139,11 +185,26 @@ class DeepSpeedEngine:
         lr_scheduler: Any = None,
         loss_fn: Optional[Callable] = None,
         device: Any = "cuda",
+        mesh=None,
+        tp_spec_fn=None,
+        partition_rules=None,
     ):
         """``model``: callable ``(params, batch, generator) -> loss`` (or
         outputs if ``loss_fn`` is given, then ``loss_fn(outputs, batch) ->
         loss``).  ``params``: the initial parameter tree (numpy arrays or
-        tensors); the engine keeps its own f32 copy on ``device``."""
+        tensors), whole on every rank; the engine keeps its own f32 copy of
+        this rank's part on ``device``.  ``mesh``: the port's mesh, a
+        ``mesh`` config dict or a ``MeshConfig`` (default: the config's
+        ``mesh`` block over the started process group).
+        ``partition_rules`` / ``tp_spec_fn``: the layout inputs of the JAX
+        engine (a family name, a rule table or a ``(path, shape) -> spec``
+        callable); they keep tensor-parallel leaves out of the flat plan."""
+        from deepspeed_tpu_torch.comm.mesh import Mesh, MeshInfo
+        from deepspeed_tpu_torch.runtime.zero.partition import ZeroLayout
+        from deepspeed_tpu_torch.runtime.zero.stages import ZeroShardingRules
+        from deepspeed_tpu_torch.sharding.mesh import MeshTopology, build_mesh
+        from deepspeed_tpu_torch.sharding.rules import PartitionRules
+
         self.device = resolve_device(device)
         self.config = config
         self._model_fn = model
@@ -152,23 +213,49 @@ class DeepSpeedEngine:
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.loss_scaler = LossScaler.from_config(config.fp16)
 
-        # -- f32 masters: the leaves of the caller's tree, on the device --
+        # -- mesh and ZeRO rules ------------------------------------------
+        if isinstance(mesh, Mesh):
+            self.mesh, self.topology = mesh, MeshTopology.single_slice(mesh.sizes)
+        else:
+            self.mesh, self.topology = build_mesh(config.mesh if mesh is None else mesh)
+        self.mesh_info = MeshInfo.from_mesh(self.mesh)
+        self.global_rank = self.mesh.rank
+        self.world_size = self.mesh.world_size
+        self.dp_world_size = self.mesh_info.dp_world_size
+        self.partition_rules = PartitionRules.coerce(partition_rules, tp_spec_fn)
+        self.zero_rules = ZeroShardingRules(
+            config.zero_config,
+            fsdp_size=self.mesh_info.fsdp_world_size,
+            tp_spec_fn=self.partition_rules.tp_spec_fn(),
+            data_size=self.mesh_info.sizes.get("data", 1),
+        )
+
+        # -- f32 masters: this rank's part of each leaf, on the device ------
         leaves, self._unflatten = tree_flatten(params)
-        self._params: List[torch.Tensor] = [
-            torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
-            if not isinstance(x, torch.Tensor)
-            else x.detach().to(device=self.device, dtype=torch.float32, copy=True)
-            for x in leaves
-        ]
+        self._paths = tree_paths(params)
+        self.layout = ZeroLayout(self.mesh, self.zero_rules,
+                                 [tuple(np.shape(x)) for x in leaves], self._paths)
+        self._params: List[torch.Tensor] = []
+        for i, x in enumerate(leaves):
+            full = (torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+                    if not isinstance(x, torch.Tensor)
+                    else x.detach().to(device=self.device, dtype=torch.float32, copy=True))
+            leaf = self.layout.leaves[i]
+            if leaf.flat is not None or self.layout.sharded(leaf.param_spec):
+                full = self.layout.from_natural(i, full, leaf.param_spec).contiguous()
+            self._params.append(full)
         for p in self._params:
             p.requires_grad_(True)
+        self._grad_acc: List[Optional[torch.Tensor]] = [None] * len(self._params)
+        self._stage3 = any(self.layout.param_sharded(i) for i in range(len(self._params)))
 
-        # -- optimizer and schedule ---------------------------------------
+        # -- optimizer and schedule (state on this rank's update slices) ----
         self.optimizer = optimizer if optimizer is not None else self._configure_basic_optimizer()
         self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
         self.client_lr_scheduler = lr_scheduler
         with torch.no_grad():
-            self.opt_state = self.optimizer.init(self._params)
+            self.opt_state = self.optimizer.init(
+                [self._update_param(i) for i in range(len(self._params))])
         self.loss_scale_state = self.loss_scaler.init(self.device)
 
         self.skipped_steps = 0
@@ -178,12 +265,60 @@ class DeepSpeedEngine:
         self._cached_loss = None
         self._last_loss = None  # the boundary's divergence check_loss reads it
         self._last_info: Dict[str, Any] = {}
+        self._peer_preempt = False  # a preemption seen by any rank (the step scalars)
+        self._init_comm_layer(config)
         self._init_resilience_and_overlap(config)
         log_dist(
             f"engine: device={self.device} dtype={self.compute_dtype} "
             f"micro_bs={config.train_micro_batch_size_per_gpu} "
-            f"gas={config.gradient_accumulation_steps} zero_stage={self.zero_stage} (one device)"
+            f"gas={config.gradient_accumulation_steps} zero_stage={self.zero_stage} "
+            f"mesh={self.mesh} ({sum(self.layout.update_sharded(i) for i in range(len(self._params)))}"
+            f" of {len(self._params)} leaves update-sharded, "
+            f"{sum(self.layout.param_sharded(i) for i in range(len(self._params)))} param-sharded)"
         )
+
+    def _init_comm_layer(self, config) -> None:
+        """The comm layer (the JAX engine's ``_init_comm_layer``): resolve
+        the gradient exchange's strategy once (dense only; a compressed
+        pick raises, ROADMAP A13) and record the forced-dense fallback of
+        ``reduce_scatter: false``."""
+        from deepspeed_tpu_torch.comm.strategy import STRATEGY_DENSE, CommLayer
+        from deepspeed_tpu_torch.config.config import CommConfig
+
+        self.comm = CommLayer(self.mesh, self.mesh_info, getattr(config, "comm", None) or CommConfig(),
+                              zero_config=config.zero_config, topology=self.topology)
+        if (config.zero_config.stage >= 2 and self.mesh_info.fsdp_world_size > 1
+                and not config.zero_config.reduce_scatter):
+            self.comm.note("zero-grad-reduce", STRATEGY_DENSE,
+                           "zero_optimization.reduce_scatter=false forces the dense all-reduce path")
+            logger.warning(
+                "zero_optimization.reduce_scatter=false: gradient reduction stays a full "
+                "all-reduce (grads replicated over fsdp) — ~2x the wire bytes and a "
+                "params-sized grad buffer per rank")
+        self._comm_n_params = sum(leaf.numel for leaf in self.layout.leaves)
+        self.comm.select(4 * self._comm_n_params, torch.float32, ("data", "fsdp"),
+                         site="grad-exchange")
+        self._comm_grad_strategy = STRATEGY_DENSE
+
+    def comm_summary(self) -> Dict[str, Any]:
+        """The strategy table and the per-step byte model: the JAX package's
+        ``step_comm_bytes`` (``param_bytes`` is the compute type's size)
+        and the port's own ``update-all-gather``
+        (``runtime/zero/stages.py::port_step_comm_extras``)."""
+        from deepspeed_tpu_torch.comm.strategy import step_comm_bytes
+        from deepspeed_tpu_torch.runtime.zero.stages import port_step_comm_extras
+
+        model = step_comm_bytes(
+            self._comm_n_params, self.mesh_info.sizes, stage=self.zero_stage,
+            gas=self.gradient_accumulation_steps, strategy=self._comm_grad_strategy,
+            param_bytes=torch.finfo(self.compute_dtype).bits // 8,
+            reduce_scatter=self.config.zero_config.reduce_scatter, topology=self.topology)
+        extras = port_step_comm_extras(
+            self._comm_n_params, self.mesh_info.sizes, stage=self.zero_stage,
+            cross_replica=self.config.zero_config.cross_replica_weight_update)
+        return {"strategy": self._comm_grad_strategy,
+                "grad_exchange_bytes": model["grad-exchange"], "model": model,
+                "extras": extras, "table": self.comm.table()}
 
     def _init_resilience_and_overlap(self, config) -> None:
         """The ``resilience`` block (divergence guard, preemption watchdog,
@@ -293,8 +428,20 @@ class DeepSpeedEngine:
 
     @property
     def params(self) -> Any:
-        """The f32 master weights, as the caller's tree (detached)."""
-        return self._unflatten([p.detach() for p in self._params])
+        """The f32 master weights, whole, as the caller's tree (detached).
+        Where ZeRO shards them this gathers: read it on every rank."""
+        return self._unflatten([self.layout.natural(i, p.detach(), self.layout.leaves[i].param_spec)
+                                for i, p in enumerate(self._params)])
+
+    def _update_param(self, i: int) -> torch.Tensor:
+        """The masters of leaf ``i``'s optimizer-state slice: the master
+        itself where the state is cut as the parameter, else a contiguous
+        copy of this rank's slice (the fused kernels refuse views)."""
+        leaf = self.layout.leaves[i]
+        p = self._params[i].detach()
+        if not self.layout.update_sharded(i):
+            return p
+        return self.layout.narrow(p, leaf.state_shape, leaf.param_spec, leaf.opt_spec).contiguous()
 
     def get_lr(self) -> List[float]:
         return [float(self.lr_schedule(self._host_global_step))]
@@ -319,49 +466,139 @@ class DeepSpeedEngine:
         leaves, rebuild = tree_flatten(batch)
         return rebuild([self._to_device(x) for x in leaves])
 
-    def _materialize_params(self) -> Any:
+    def _materialize_params(self, ctx=None) -> Any:
         """The masters cast to the compute type, as the caller's tree; the
-        cast's backward hands f32 gradients to the masters."""
-        return self._unflatten([p.to(self.compute_dtype) for p in self._params])
+        cast's backward hands f32 gradients to the masters.  With a stage-3
+        context ``ctx`` a sharded leaf is a handle the model gathers on use
+        (``runtime/zero/partition.py``)."""
+        out = []
+        for i, p in enumerate(self._params):
+            if ctx is not None and self.layout.param_sharded(i):
+                out.append(ctx.leaf(i))
+            else:
+                out.append(self.layout.from_state(i, p).to(self.compute_dtype))
+        return self._unflatten(out)
 
     def _generator(self) -> torch.Generator:
         seed = (self.config.seed * 1_000_003 + self._host_micro_step) & _SEED_MASK
         return torch.Generator().manual_seed(seed)
 
     def _compute_loss(self, batch: Any, generator: Optional[torch.Generator]) -> torch.Tensor:
-        out = self._model_fn(self._materialize_params(), batch, generator)
+        if not self._stage3:
+            return self._loss_of(self._materialize_params(), batch, generator)
+        from deepspeed_tpu_torch.runtime.zero.partition import Stage3Context
+
+        ctx = Stage3Context(self.layout, self._params, self.compute_dtype)
+        with ctx.hooks():
+            loss = self._loss_of(self._materialize_params(ctx), batch, generator)
+        ctx.end_forward()
+        return loss
+
+    def _loss_of(self, params: Any, batch: Any, generator) -> torch.Tensor:
+        out = self._model_fn(params, batch, generator)
         loss = self._loss_fn(out, batch) if self._loss_fn is not None else out
         loss = torch.as_tensor(loss)
         return loss.mean() if loss.ndim != 0 else loss
 
     def _micro_step(self, batch: Any) -> torch.Tensor:
         """Forward and backward of one micro-batch on the device; the
-        gradients add into the masters' ``.grad``."""
+        gradients, reduced over the data-parallel grid, add into the
+        accumulator."""
         loss = self._compute_loss(batch, self._generator())
         self.loss_scaler.scale_loss(loss.float(), self.loss_scale_state).backward()
+        self._accumulate()
         self._host_micro_step += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu
+        self.global_samples += self.train_micro_batch_size_per_gpu * self.dp_world_size
         return loss.detach()
 
     @torch.no_grad()
-    def _apply_step(self) -> Dict[str, Any]:
+    def _accumulate(self) -> None:
+        """Move each master's ``.grad`` into the accumulator, reduced as the
+        stage says (stage 3's sharded leaves were reduced in the backward).
+        A leaf the loss did not reach contributes zeros, so every rank
+        issues the same collectives."""
+        for i, p in enumerate(self._params):
+            g, p.grad = p.grad, None
+            if g is None:
+                if self.dp_world_size == 1:
+                    continue
+                g = torch.zeros_like(p)
+            if not self.layout.param_sharded(i):
+                g = self.layout.reduce_grad(i, g)
+            acc = self._grad_acc[i]
+            self._grad_acc[i] = g if acc is None else acc.add_(g)
+
+    @torch.no_grad()
+    def _apply_step(self, loss: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Optimizer step at the accumulation boundary (the JAX engine's
-        ``_apply_step_impl`` + ``_apply_update``)."""
-        gas = self.gradient_accumulation_steps
-        grads = [p.grad / gas if p.grad is not None else torch.zeros_like(p) for p in self._params]
-        for p in self._params:
-            p.grad = None
+        ``_apply_step_impl`` + ``_apply_update``) on this rank's update
+        slices; ``loss`` (this rank's mean loss) comes back as the global
+        batch's mean under ``info["loss"]``."""
+        layout, n = self.layout, len(self._params)
+        div = self.gradient_accumulation_steps * self.dp_world_size
+        grads = []
+        for i, p in enumerate(self._params):
+            leaf, acc = layout.leaves[i], self._grad_acc[i]
+            if acc is None:
+                acc = torch.zeros(layout.narrow(p, leaf.state_shape, leaf.param_spec,
+                                                leaf.acc_spec).shape, device=self.device)
+            grads.append(layout.narrow(acc, leaf.state_shape, leaf.acc_spec, leaf.opt_spec) / div)
+        self._grad_acc = [None] * n
         grads, overflow = self.loss_scaler.unscale_and_check(grads, self.loss_scale_state)
+        clip = self.config.gradient_clipping > 0.0
         grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
-        if self.config.gradient_clipping > 0.0:
-            grads, grad_norm = _clip_by_global_norm(grads, self.config.gradient_clipping)
+        sq = None
+        if clip:
+            sq = _sum_squares([g for i, g in enumerate(grads) if layout.update_owner(i)],
+                              self.device)
+        if self.dp_world_size > 1:
+            # one all-reduce for the step's scalars: every rank clips,
+            # skips, reports and meets a preemption alike
+            from deepspeed_tpu_torch.comm import collectives
+
+            zero = torch.zeros((), dtype=torch.float32, device=self.device)
+            wd = self._watchdog
+            preempt = torch.full((), float(wd is not None and wd.preemption_requested),
+                                 dtype=torch.float32, device=self.device)
+            vec = torch.stack([zero if sq is None else sq, overflow.float(),
+                               zero if loss is None else loss.float(), preempt])
+            vec = collectives.all_reduce(vec, self.mesh.group(("data", "fsdp")),
+                                         kind="step-scalars")
+            sq, overflow = (vec[0] if clip else None), vec[1] > 0
+            if loss is not None:
+                loss = vec[2] / self.dp_world_size
+            self._peer_preempt = bool(vec[3] > 0)
+        if clip:
+            grad_norm = torch.sqrt(sq)
+            grads = _clip_by_norm(grads, grad_norm, self.config.gradient_clipping)
         lr = float(self.lr_schedule(self._host_global_step))
-        params = [p.detach() for p in self._params]
-        state = engine_update(self.optimizer, grads, self.opt_state, params, lr, overflow)
+        params = [self._update_param(i) for i in range(n)]
+        state = engine_update(self.optimizer, grads, self.opt_state, params, lr, overflow,
+                              reduce_norms=self._lamb_norm_reducer())
         if state is None:
             self.opt_state = self._plain_update(grads, params, lr, overflow)
+        for i in range(n):
+            if layout.update_sharded(i):
+                leaf = layout.leaves[i]
+                self._params[i].copy_(layout.gather(params[i], leaf.opt_spec, leaf.param_spec,
+                                                    "update-all-gather"))
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
-        return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow}
+        return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+
+    def _lamb_norm_reducer(self):
+        """LAMB's per-leaf ``(sum p^2, sum dir^2)`` summed over the ranks
+        that hold the leaf's other slices (None where no leaf is cut)."""
+        axes = [self.layout.update_axes(i) for i in range(len(self._params))]
+        if not any(axes):
+            return None
+        from deepspeed_tpu_torch.comm import collectives
+
+        def reduce(i: int, sq: torch.Tensor) -> torch.Tensor:
+            if not axes[i]:
+                return sq
+            return collectives.all_reduce(sq, self.mesh.group(axes[i]), kind="lamb-norms")
+
+        return reduce
 
     def _plain_update(self, grads, params, lr, overflow):
         """``optimizer.update`` then ``p + u`` for optimizers the fused
@@ -425,10 +662,10 @@ class DeepSpeedEngine:
             self._end_step(self._apply_step(), loss=self._last_loss)
 
     def train_batch(self, batch: Any) -> torch.Tensor:
-        """One global batch: every leaf's leading dim is ``gas *
-        micro_batch``; the micro-batches are its consecutive slices.
-        Returns the mean micro-batch loss (a 0-dim tensor on the
-        device).  Batches from ``prefetch_loader`` are already on the
+        """One step: every leaf's leading dim is ``gas * micro_batch``,
+        this rank's rows (the micro-batches are its consecutive slices).
+        Returns the mean loss over the global batch, every rank's
+        micro-batches (a 0-dim tensor on the device).  Batches from ``prefetch_loader`` are already on the
         device and pass straight through."""
         gas = self.gradient_accumulation_steps
         if isinstance(batch, _PlacedBatch):
@@ -445,8 +682,8 @@ class DeepSpeedEngine:
         for i in range(gas):
             micro = rebuild([x[i * mb:(i + 1) * mb] for x in leaves])
             losses.append(self._micro_step(micro))
-        info = self._apply_step()
-        loss = torch.stack(losses).mean()
+        info = self._apply_step(torch.stack(losses).mean())
+        loss = info["loss"]
         self._last_loss = loss
         self._fence_compute(t_compute)
         self._end_step(info, loss=loss)
@@ -525,7 +762,11 @@ class DeepSpeedEngine:
 
         faults.check("step.boundary")
         wd = self._watchdog
-        if wd is not None and wd.preemption_requested:
+        # across ranks the save is collective: a preemption any rank saw
+        # (the step scalars' all-reduce) is every rank's
+        preempt = wd is not None and (
+            self._peer_preempt if self.dp_world_size > 1 else wd.preemption_requested)
+        if preempt:
             self._handle_preemption()
         guard = self._divergence_guard
         if guard is None:
@@ -550,6 +791,10 @@ class DeepSpeedEngine:
             f"preemption signal ({wd.signal_name}) received; attempting emergency "
             f"checkpoint ({wd.remaining():.0f}s of grace left)"
         )
+        if self.dp_world_size > 1 and not self._every_rank_can_save():
+            logger.error("preempted, but a rank cannot save (no checkpoint dir or no grace "
+                         "left); exiting WITHOUT saving")
+            raise SystemExit(1)
         if self._resilience_ckpt_dir is None:
             logger.error(
                 "preempted but no checkpoint dir is known (no prior save/load and no "
@@ -581,6 +826,17 @@ class DeepSpeedEngine:
             raise SystemExit(1) from e
         log_dist(f"emergency checkpoint saved to {path}; exiting with code {wd.exit_code}")
         raise SystemExit(wd.exit_code)
+
+    def _every_rank_can_save(self) -> bool:
+        """Whether every rank knows a checkpoint directory and has grace
+        left (one all-reduce): an emergency save is collective, so the
+        ranks save together or exit together."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        ok = self._resilience_ckpt_dir is not None and self._watchdog.remaining() > 0
+        flag = torch.full((), 0.0 if ok else 1.0, dtype=torch.float32, device=self.device)
+        return float(collectives.all_reduce(flag, self.mesh.group(("data", "fsdp")),
+                                            kind="boundary-flags")) == 0.0
 
     def _apply_divergence_action(self, action: str) -> None:
         n = self.resilience.divergence.threshold

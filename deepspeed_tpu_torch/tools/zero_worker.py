@@ -1,0 +1,254 @@
+"""One rank of a ZeRO training run: trains the cases of a JSON spec and
+writes what each produced.
+
+Run it once per rank under a launcher environment (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; or the
+spec's ``init_method``, such as ``file:///tmp/store`` for ranks on one
+host)::
+
+    RANK=0 WORLD_SIZE=2 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=29511 \\
+        python -m deepspeed_tpu_torch.tools.zero_worker spec.json
+
+It imports torch and the port only.  The spec::
+
+    {"device": "cpu" | "cuda", "init_method": null, "deterministic": true,
+     "threads": 1, "out": "<dir>", "collectives_check": false,
+     "cases": [{"name": "s2", "model": "gpt2" | "bert", "preset": "tiny",
+                "model_cfg": {...}, "init_seed": 3, "config": {...},
+                "batches": "<npz: key -> (steps, global batch, ...)>"
+                  | "synthetic": {"seed": 0, "T": 1024},
+                "steps": 3, "first_batch": 0, "load": {"dir": ..., "tag": ...},
+                "save": {"dir": ..., "tag": ..., "after": 2},
+                "sigterm": {"rank": 0, "after": 1},
+                "record": "full" | "digest" | "none"}]}
+
+Each rank trains on its own rows of every global batch (micro-batch
+``i``'s rows ``i*mb*dp + r*mb ...`` on data-parallel rank ``r``, the JAX
+engine's batch layout).  Rank 0 writes ``<out>/<name>.json`` (losses, the
+collective bytes of every step by kind, the comm model, ms a step, peak
+device memory, kernel launches, the backend) and, for ``record: full``,
+``<out>/<name>.npz`` with every tensor of the state, whole, by checkpoint
+name; ``record: digest`` writes a sha256 of each instead, ``none``
+nothing.  A case with
+``load`` restores the tag before training (``steps: 0`` records the
+loaded state as it is); ``sigterm`` sends SIGTERM to one rank after a
+step (with ``resilience.watchdog`` on, every rank saves and exits 43).
+``collectives_check`` first runs
+:func:`check_collectives` and writes ``<out>/collectives.json``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import signal
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _model(case):
+    if case.get("model", "gpt2") == "bert":
+        from deepspeed_tpu_torch.models import bert as mod
+    else:
+        from deepspeed_tpu_torch.models import gpt2 as mod
+    cfg = dataclasses.replace(mod.PRESETS[case.get("preset", "tiny")], **case.get("model_cfg", {}))
+    model_fn, init_fn, _ = mod.make_model(cfg)
+    return cfg, model_fn, init_fn
+
+
+def _batches(case, cfg, global_rows: int):
+    steps, first = int(case.get("steps", 1)), int(case.get("first_batch", 0))
+    if "batches" in case:
+        with np.load(case["batches"]) as z:
+            data = {k: z[k] for k in z.files}
+        return [{k: v[first + s] for k, v in data.items()} for s in range(steps)]
+    syn = case["synthetic"]
+    rng = np.random.default_rng(syn.get("seed", 0))
+    vocab = getattr(cfg, "vocab_size")
+    return [{"input_ids": rng.integers(0, vocab, (global_rows, syn["T"]), dtype=np.int32)}
+            for _ in range(steps)]
+
+
+def _rank_rows(batch, engine):
+    """This data-parallel rank's rows of a global batch."""
+    gas, mb, dp = (engine.gradient_accumulation_steps, engine.train_micro_batch_size_per_gpu,
+                   engine.dp_world_size)
+    r = engine.mesh.chunk_index(("data", "fsdp"))
+    rows = np.concatenate([np.arange(i * mb * dp + r * mb, i * mb * dp + (r + 1) * mb)
+                           for i in range(gas)])
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _record(engine):
+    from deepspeed_tpu_torch.runtime.checkpointing import _state_tensors
+
+    return {n: t.detach().cpu() for n, t in _state_tensors(engine).items()}
+
+
+def run_case(case, device, out_dir, rank):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.comm import collectives
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg, model_fn, init_fn = _model(case)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model_fn, model_parameters=init_fn(seed=int(case.get("init_seed", 0))),
+        config=case["config"], device=device)
+    if "load" in case:
+        engine.load_checkpoint(case["load"]["dir"], tag=case["load"].get("tag"))
+    global_rows = (engine.gradient_accumulation_steps * engine.train_micro_batch_size_per_gpu
+                   * engine.dp_world_size)
+    batches = _batches(case, cfg, global_rows)
+    cuda = engine.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    losses, comm, ms = [], [], []
+    kernels.reset_launches()
+    save = case.get("save")
+    for s, batch in enumerate(batches):
+        local = _rank_rows(batch, engine)
+        collectives.reset_counts()
+        if cuda:
+            torch.cuda.synchronize(engine.device)
+        t0 = time.perf_counter()
+        loss = engine.train_batch(local)
+        if cuda:
+            torch.cuda.synchronize(engine.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append(collectives.counts())
+        losses.append(float(loss))
+        if save is not None and s + 1 == int(save.get("after", len(batches))):
+            engine.save_checkpoint(save["dir"], tag=save.get("tag"))
+        term = case.get("sigterm")
+        if term is not None and rank == int(term["rank"]) and s + 1 == int(term["after"]):
+            # a preemption on one rank: the next step boundary is every
+            # rank's (an emergency save, then exit 43 everywhere)
+            os.kill(os.getpid(), signal.SIGTERM)
+    launches, variants = kernels.launches(), kernels.launch_variants()
+    record = case.get("record", "full")
+    state = _record(engine) if record != "none" else {}
+    peak = int(torch.cuda.max_memory_allocated(engine.device)) if cuda else None
+    peaks = (collectives.host_allgather(peak) if torch.distributed.is_initialized()
+             else [peak])
+    if rank != 0:
+        return
+    summary = engine.comm_summary()
+    result = {
+        "name": case["name"], "losses": losses, "comm": comm, "ms": ms,
+        "world_size": engine.world_size, "mesh": engine.mesh.sizes,
+        "model": summary["model"], "extras": summary["extras"], "table": summary["table"],
+        "n_params": engine._comm_n_params, "launches": launches, "variants": variants,
+        "backend": (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                    else None),
+        "peak_bytes": peak, "peak_bytes_by_rank": peaks,
+    }
+    if record == "digest":
+        result["digests"] = {
+            n: hashlib.sha256(t.reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+            .hexdigest() for n, t in state.items()}
+    elif record == "full":
+        np.savez(os.path.join(out_dir, case["name"] + ".npz"),
+                 **{n: t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+                    for n, t in state.items()})
+    with open(os.path.join(out_dir, case["name"] + ".json"), "w") as f:
+        json.dump(result, f)
+
+
+def check_collectives(device, out_dir, rank) -> None:
+    """The collectives of ``comm/collectives.py`` on the started group, in
+    f32 and bf16 at odd sizes, each against its plain expectation from
+    every rank's input (all ranks draw the same inputs from one seed and
+    take row ``rank``): all-reduce, reduce-scatter and all-gather along the
+    first and a trailing dimension, and the stage-3 autograd gather
+    (all-gather forward, reduce-scatter of the gradient backward).  Sums
+    over ranks compare within a bound that grows with the world size (0 at
+    one rank); the rest bit for bit.  Rank 0 writes
+    ``<out>/collectives.json``."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import collectives
+    from deepspeed_tpu_torch.runtime.zero.partition import _GatherFn
+
+    pg, world = dist.group.WORLD, dist.get_world_size()
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    rows = []
+
+    def record(op, dtype, shape, got, want, summed):
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        eps = torch.finfo(dtype).eps
+        tol = 0.0 if (world == 1 or not summed) else 2 * (world - 1) * eps * float(
+            want.double().abs().max() + 1)
+        rows.append({"op": op, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+                     "max_err": err, "tol": tol, "ok": bool(err <= tol)})
+
+    g = torch.Generator().manual_seed(1234)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 7, 1023, 4097):
+            x = torch.randn(world, n, generator=g).to(dtype)
+            want = x.double().sum(0).to(dtype)
+            got = collectives.all_reduce(x[rank].to(dev).clone(), pg, kind="check")
+            record("all_reduce", dtype, (n,), got.cpu(), want, True)
+            y = torch.randn(world, world * n, 3, generator=g).to(dtype)
+            want = y.double().sum(0).to(dtype)[rank * n:(rank + 1) * n]
+            got = collectives.reduce_scatter(y[rank].to(dev), pg, dim=0, kind="check")
+            record("reduce_scatter_dim0", dtype, (world * n, 3), got.cpu(), want, True)
+            want = y.double().sum(0).to(dtype).transpose(0, 1)[:, rank * n:(rank + 1) * n]
+            got = collectives.reduce_scatter(y[rank].transpose(0, 1).contiguous().to(dev), pg,
+                                             dim=1, kind="check")
+            record("reduce_scatter_dim1", dtype, (3, world * n), got.cpu(), want, True)
+            z = torch.randn(world, 5, n, generator=g).to(dtype)
+            got = collectives.all_gather(z[rank].to(dev), pg, dim=0, kind="check")
+            record("all_gather_dim0", dtype, (5, n), got.cpu(), torch.cat(list(z), 0), False)
+            got = collectives.all_gather(z[rank].to(dev), pg, dim=1, kind="check")
+            record("all_gather_dim1", dtype, (5, n), got.cpu(), torch.cat(list(z), 1), False)
+            # the stage-3 gather: a bf16/f32 whole from f32 shards, the f32
+            # shard gradient from every rank's whole gradient
+            shard = z[rank].float().to(dev).requires_grad_(True)
+            full = _GatherFn.apply(
+                shard, lambda s: collectives.all_gather(s.to(dtype), pg, dim=1, kind="check"),
+                lambda gr: collectives.reduce_scatter(gr.float(), pg, dim=1, kind="check"))
+            record("autograd_gather_fwd", dtype, (5, n), full.detach().cpu(),
+                   torch.cat(list(z), 1), False)
+            up = torch.randn(world, 5, world * n, generator=g)
+            full.backward(up[rank].to(dev).to(dtype))
+            want = up.to(dtype).double().sum(0).float()[:, rank * n:(rank + 1) * n]
+            record("autograd_gather_bwd", torch.float32, (5, world * n), shard.grad.cpu(),
+                   want, True)
+    if rank == 0:
+        with open(os.path.join(out_dir, "collectives.json"), "w") as f:
+            json.dump({"backend": dist.get_backend(), "world_size": world, "rows": rows,
+                       "ok": all(r["ok"] for r in rows)}, f)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    torch.set_num_threads(int(spec.get("threads", 1)))
+    if spec.get("deterministic", True):
+        torch.use_deterministic_algorithms(True)
+    # a reference states its float32 matmul precision: full f32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from deepspeed_tpu_torch.comm import distributed
+
+    device = spec.get("device", "cpu")
+    if not distributed.init_distributed(init_method=spec.get("init_method"), device=device):
+        raise SystemExit("zero_worker: no launcher environment (RANK, WORLD_SIZE)")
+    os.makedirs(spec["out"], exist_ok=True)
+    try:
+        if spec.get("collectives_check"):
+            check_collectives(device, spec["out"], distributed.get_rank())
+        for case in spec.get("cases", []):
+            run_case(case, device, spec["out"], distributed.get_rank())
+    finally:
+        distributed.destroy()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -95,9 +95,9 @@ def test_same_dict_gives_same_rejection(d):
 @pytest.mark.parametrize("d,item", [
     ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}, "A12"),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}}, "A12"),
-    ({"zero_optimization": {"stage": 1, "reduce_bucket_size": 1000}}, "A6"),
-    ({"mesh": {"data": 2}}, "A6"),
-    ({"mesh": {"fsdp": 4}}, "A6"),
+    ({"prescale_gradients": True}, "A6"),
+    ({"mesh": {"data": 2, "model": 2}}, "A6"),
+    ({"mesh": {"fsdp": 2, "seq": 2}}, "A6"),
     ({"pipeline": {"stages": 2}}, "A11"),
     ({"resilience": {"supervision": {"enabled": True}}}, "A14"),
     ({"telemetry": {"enabled": True, "ring": 16}}, "A14"),

@@ -867,3 +867,35 @@ def test_splash_refusals(dev):
             launch(odd, odd, odd, odd, lse, lse, layout, 64, True, 0.125)
     assert sum(kernels.launches()[n] for n in ("splash_fwd", "splash_bwd_dq",
                                                "splash_bwd_dkv")) == 0
+
+
+def test_nccl_collectives_at_world_1(dev, tmp_path):
+    """The collectives layer on CUDA tensors through NCCL, world size 1,
+    under the launcher environment: all-reduce, reduce-scatter, all-gather
+    and the stage-3 autograd gather, f32 and bf16, odd sizes, each equal
+    to its plain expectation (``tools/zero_worker.py``'s check, in a child
+    process so the group does not outlive the test)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"device": "cuda", "deterministic": False, "out": str(tmp_path),
+                                "collectives_check": True, "cases": []}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), PYTHONPATH=repo)
+    proc = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.tools.zero_worker",
+                           str(spec)], env=env, cwd=repo, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    out = json.loads((tmp_path / "collectives.json").read_text())
+    assert out["backend"] == "nccl" and out["world_size"] == 1
+    assert {r["dtype"] for r in out["rows"]} == {"float32", "bfloat16"}
+    bad = [r for r in out["rows"] if not r["ok"]]
+    assert not bad, bad

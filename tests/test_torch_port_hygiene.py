@@ -63,6 +63,23 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/serving/kvcache/pages.py",
     "deepspeed_tpu_torch/ops/transformer/transformer.py",
     "deepspeed_tpu_torch/utils/device.py",
+    "deepspeed_tpu_torch/comm/topology.py",
+    "deepspeed_tpu_torch/comm/distributed.py",
+    "deepspeed_tpu_torch/comm/mesh.py",
+    "deepspeed_tpu_torch/comm/collectives.py",
+    "deepspeed_tpu_torch/comm/strategy.py",
+    "deepspeed_tpu_torch/sharding/__init__.py",
+    "deepspeed_tpu_torch/sharding/spec.py",
+    "deepspeed_tpu_torch/sharding/layout.py",
+    "deepspeed_tpu_torch/sharding/update.py",
+    "deepspeed_tpu_torch/sharding/rules.py",
+    "deepspeed_tpu_torch/sharding/mesh.py",
+    "deepspeed_tpu_torch/runtime/zero/stages.py",
+    "deepspeed_tpu_torch/runtime/zero/partition.py",
+    "deepspeed_tpu_torch/runtime/zero/api.py",
+    "deepspeed_tpu_torch/runtime/zero/utils.py",
+    "deepspeed_tpu_torch/tools/zero_worker.py",
+    "deepspeed_tpu_torch/tools/profile_zero.py",
 )
 # the layers above the ops, which no op module may import
 ABOVE_OPS = ("deepspeed_tpu_torch.models", "deepspeed_tpu_torch.inference",

@@ -145,7 +145,8 @@ def test_micro_api_and_eval_match_train_batch():
         np.testing.assert_allclose(a, b, atol=1e-8, rtol=0)
     with pytest.raises(NotImplementedError, match="A6"):
         deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=init_fn(seed=3),
-                                       config=_config(False), mesh=object(), device="cpu")
+                                       config=_config(False), mesh={"data": 1, "model": 2},
+                                       device="cpu")
 
 
 SCHEDULES = [
