@@ -110,6 +110,22 @@ Phases, each printing one JSON line:
    as in train_bf16 on the tensor-core bodies (the child zeroes the
    counters before each stage and reads them after: ``training_zero``).
    Prints ms a step and peak memory by stage beside train_bf16's.
+   Then ``train_tp_seq_bf16``: tensor and sequence parallelism on one
+   card.  (a) Ring attention's schedule over 4 virtual ranks in one
+   process (``parallel.sequence.VirtualRing``) at GPT-2's widths, (1, 12,
+   8192, 64) bf16, causal, forward and backward: B1 with its lse and B2
+   with the merged lse, 10 launches each on the tensor-core bodies
+   (counters zeroed before, read after); the output within 2e-2 of dense
+   B1 and of the float64 function, the lse within 1e-4 of B1's; the
+   gradients within the bf16 contract's bound of ``flash_bwd_float64``
+   (as dense B2's), a second backward the same bits; ms beside the ring's
+   plain body and SDPA.  (b) In ``train_zero_bf16``'s child: GPT-2 124M
+   with vocab 50304 on ``mesh {model: 1, seq: 1}``, 4 steps with
+   ``attention_mode`` ring and ulysses, losses and state bit for bit the
+   flash run's (one rank: both fall back to flash attention); the
+   vocab-parallel embedding and NLL over a group of one at GPT-2's widths
+   against the plain embedding (exact) and ``token_nll`` (1e-5).
+   ``training_tp_seq`` counts (a)'s pass and (b)'s two runs.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
    ``paged_request_mix(seed=0)``: 16 requests sharing a 200-token prefix
@@ -181,7 +197,7 @@ Phases, each printing one JSON line:
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, training,
-   training_resume, training_zero, training_bert, training_resume_bert,
+   training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
 
@@ -2528,7 +2544,9 @@ def phase_train_zero_bf16(torch, one_process):
     engine (train_bf16's); 0 bytes counted, as the models say; B1, B2 and
     B3 launched as in train_bf16, on the tensor-core bodies.  Returns the
     launches of the four stages' runs (the child zeroes the counts before
-    each and reads them after)."""
+    each and reads them after) and what the same child ran for
+    ``train_tp_seq_bf16`` (:data:`TP_SEQ_CASES`, the vocab-parallel ops'
+    check), which that phase reads."""
     import shutil
     import tempfile
 
@@ -2543,10 +2561,17 @@ def phase_train_zero_bf16(torch, one_process):
                   "config": dict(_gpt2_bf16_config(mb, gas), mesh={"data": 1, "fsdp": 1},
                                  zero_optimization={"stage": s}),
                   "batches": batches, "steps": steps, "record": "digest"} for s in range(4)]
+        # train_tp_seq_bf16's part (b): vocab 50304 (model-divisible), mesh
+        # {model: 1, seq: 1}, flash and the two sequence-parallel modes
+        cases += [{"name": f"tp_seq_{mode}", "model": "gpt2", "preset": "gpt2", "init_seed": 0,
+                   "model_cfg": {"vocab_size": TP_VOCAB, "attention_mode": mode},
+                   "config": dict(_gpt2_bf16_config(mb, gas), mesh=TP_SEQ_MESH),
+                   "batches": batches, "steps": steps, "record": "digest"}
+                  for mode in TP_SEQ_CASES]
         spec = os.path.join(root, "spec.json")
         with open(spec, "w") as f:
             json.dump({"device": "cuda", "deterministic": False, "threads": 4, "out": root,
-                       "collectives_check": True, "cases": cases}, f)
+                       "collectives_check": True, "tp_ops_check": True, "cases": cases}, f)
         env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                    PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -2564,6 +2589,12 @@ def phase_train_zero_bf16(torch, one_process):
         for s in range(4):
             with open(os.path.join(root, f"stage{s}.json")) as f:
                 stages.append(json.load(f))
+        tp_seq = {}
+        for mode in TP_SEQ_CASES:
+            with open(os.path.join(root, f"tp_seq_{mode}.json")) as f:
+                tp_seq[mode] = json.load(f)
+        with open(os.path.join(root, "tp_ops.json")) as f:
+            tp_seq["tp_ops"] = json.load(f)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2610,6 +2641,237 @@ def phase_train_zero_bf16(torch, one_process):
           "stages": rows, "step_ms_median_train_bf16": one_process["step_ms_median"],
           "peak_gib_train_bf16": one_process["peak_gib"],
           "same_bits_as_one_process": True})
+    return launches, tp_seq
+
+
+# train_tp_seq_bf16: part (b)'s cases in train_zero_bf16's child (flash is
+# the yardstick: at one seq rank ring and Ulysses fall back to it), GPT-2's
+# vocabulary padded to a multiple of 64 (50257 is refused at a model axis
+# of 2, as the JAX package refuses it), and part (a)'s virtual ring: P
+# ranks in one process at GPT-2's training widths and T 8192 (the sparse
+# slice's long sequence)
+TP_SEQ_CASES = ("flash", "ring", "ulysses")
+TP_SEQ_MESH = {"data": 1, "fsdp": 1, "model": 1, "seq": 1}
+TP_VOCAB = 50304
+RING_P, RING_SHAPE = 4, (1, 12, 8192, 64)
+# the virtual ring's output against dense B1's, max-abs (an H100 reading at
+# RING_SHAPE: 9.8e-4)
+RING_VS_DENSE_TOL = 4e-3
+# the ring's rms error against the float64 function, over each 16-row tile
+# of each head, at most this many times dense B1's / B2's on the same tile:
+# the ring rounds each block's output (its dq, dk, dv) to bf16 before the
+# f32 merge (sum), about 1.2x dense's rms where rounding dominates; a tile
+# of 16 rows keeps a wrong row visible (one row 10x the noise: ~2.7x)
+RING_RMS_RATIO, RING_RMS_ROWS = 2.0, 16
+
+
+def tile_rms_ratio(got, ref, exact, rows=RING_RMS_ROWS) -> float:
+    """``max`` over (batch, head, ``rows``-row tile) of ``rms(got - exact)
+    / rms(ref - exact)``: how far ``got`` strays from the float64 function
+    ``exact``, tile by tile, beside another kernel ``ref`` on the same
+    inputs.  A wrong share anywhere shows as a tile well above 1."""
+    def tile_rms(x):
+        d = (x.double() - exact)
+        B, H, T, dd = d.shape
+        return d.square().reshape(B, H, T // rows, rows * dd).mean(-1).sqrt()
+
+    return float((tile_rms(got) / tile_rms(ref).clamp_min(1e-300)).max())
+
+
+def _virtual_ring(torch, dev):
+    """Part (a) of :func:`phase_train_tp_seq_bf16`: ``(row, launches)``,
+    the counted pass's B1 and B2 launches."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+    from deepspeed_tpu_torch.parallel import sequence as sq
+
+    B, H, T, d = RING_SHAPE
+    P = RING_P
+    g = torch.Generator(device=dev).manual_seed(8192)
+    q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+
+    def ring_pass(plain=False):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = sq.ring_attention(*leaves, causal=True, ring=sq.VirtualRing(P), plain=plain)
+        out.backward(do)
+        return out.detach(), [t.grad for t in leaves]
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out, grads = ring_pass()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    variants = kernels.launch_variants()
+    blocks = P * (P + 1) // 2
+    check(launches["flash_fwd"] == blocks and launches["flash_bwd"] == blocks,
+          f"train_tp_seq_bf16 ring: B1 {launches['flash_fwd']}, B2 {launches['flash_bwd']} "
+          f"launches, {blocks} each expected")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(only_tc(variants[name]), f"train_tp_seq_bf16 ring: {name} ran {variants[name]}")
+    again = ring_pass()[1]
+    check(all(bool(a.eq(b).all()) for a, b in zip(grads, again)),
+          "train_tp_seq_bf16 ring: two backwards gave other bits")
+    del again
+    ring = sq.VirtualRing(P)
+
+    def lse_delta(o, plain):
+        """The merged lse and delta a ring's backward formed (its own
+        forward's: the kernels' or the plain body's)."""
+        _, lses = sq.ring_forward(ring.lanes(q), ring.lanes(k), ring.lanes(v), ring, True, scale,
+                                  plain=plain)
+        return ring.join(lses), (do.float() * o.float()).sum(-1)
+
+    ring_lse, delta = lse_delta(out, False)
+    dense, dense_lse = fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True)
+    dense_delta = (do.float() * dense.float()).sum(-1)
+    dense_grads = fa.flash_bwd_cuda(q, k, v, do, dense_lse, dense_delta, True, scale)
+    plain_out, plain_grads = ring_pass(plain=True)
+    plain_lse, plain_delta = lse_delta(plain_out, True)
+    torch.cuda.synchronize()
+    out_err, lse_err = max_err(out, dense), max_err(ring_lse, dense_lse)
+    check(out_err <= RING_VS_DENSE_TOL, f"train_tp_seq_bf16 ring: out {out_err} from dense B1")
+    check(lse_err <= 1e-4, f"train_tp_seq_bf16 ring: lse {lse_err} from dense B1's")
+    exact_out, exact_lse = fa.flash_fwd_float64(q, k, v, True, scale)
+    f64 = _fwd_float64_fields(out, plain_out, (exact_out, exact_lse), "train_tp_seq_bf16 ring")
+    # the gradients of the exact output: the ring's and dense B2's errors
+    # beside each other, tile by tile, the output's first
+    exact_grads = fa.flash_bwd_float64(q, k, v, do, exact_lse,
+                                       (do.double() * exact_out).sum(-1), True, scale)[0]
+    rms_ratio = {"out": tile_rms_ratio(out, dense, exact_out)}
+    for grad, got, ref, x in zip(("dq", "dk", "dv"), grads, dense_grads, exact_grads):
+        rms_ratio[grad] = tile_rms_ratio(got, ref, x)
+    del exact_out, exact_lse, exact_grads
+    for what, w in rms_ratio.items():
+        check(w <= RING_RMS_RATIO, f"train_tp_seq_bf16 ring: the {what}'s error from the float64 "
+                                   f"function is {w:.3g}x dense's in a {RING_RMS_ROWS}-row tile")
+    # each ring against the float64 function of its own lse and delta;
+    # for the record also against one pass's bound (B2's contract over the
+    # whole sequence, without the ring's P roundings a row or column)
+    over, over_single_pass = {}, {}
+    for who, got, lse_, delta_ in (("ring", grads, ring_lse, delta),
+                                   ("ring_plain", plain_grads, plain_lse, plain_delta)):
+        over[who] = fa.float64_over_bound(
+            got, sq.ring_bwd_float64(q, k, v, do, lse_, delta_, P, True, scale))
+        over_single_pass[who] = fa.float64_over_bound(
+            got, fa.flash_bwd_float64(q, k, v, do, lse_, delta_, True, scale))
+    over["dense_b2"] = fa.float64_over_bound(
+        dense_grads, fa.flash_bwd_float64(q, k, v, do, dense_lse, dense_delta, True, scale))
+    for who, ratios in over.items():
+        for grad, w in zip(("dq", "dk", "dv"), ratios):
+            check(w <= 1.0, f"train_tp_seq_bf16 ring: the {who}'s {grad} is {w:.3g}x its "
+                            "float64 bound")
+    grad_errs = [max_err(a, b) for a, b in zip(grads, dense_grads)]
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def timed(fn, iters):  # a pass: clones of q, k, v, the forward and the backward
+        return device_ms(torch, fn, flush, iters=iters, warmup=1)
+
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        torch.autograd.grad(o, (ql, kl, vl), do)
+
+    def dense_pass():  # dense B1 with its lse, delta, B2: the ring's work undivided
+        o, lse_ = fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True)
+        fa.flash_bwd_cuda(q, k, v, do, lse_, (do.float() * o.float()).sum(-1), True, scale)
+
+    def ring_fwd():
+        sq.ring_forward(ring.lanes(q), ring.lanes(k), ring.lanes(v), ring, True, scale)
+
+    # the bound of dense attention's forward and backward over the whole
+    # sequence: q, k, v, out and dO, dq, dk, dv once each (bf16), lse and
+    # delta (f32); the causal pairs' two forward and five backward dots
+    pairs = T * (T + 1) / 2
+    b_ms, b_by = bound_ms(11 * B * H * T * d * 2 + 3 * B * H * T * 4,
+                          7 * 2 * d * pairs * B * H, "bfloat16")
+    ring_row = {"B": B, "H": H, "T": T, "d": d, "P": P, "causal": True,
+                "launches": {n: launches[n] for n in ("flash_fwd", "flash_bwd")},
+                "out_max_err_vs_dense_b1": out_err, "out_tol_vs_dense_b1": RING_VS_DENSE_TOL,
+                "lse_max_err_vs_dense_b1": lse_err, **f64,
+                "tile_rms_ratio_vs_dense_out_dq_dk_dv": rms_ratio,
+                "tile_rms_ratio_limit": RING_RMS_RATIO,
+                "grad_max_err_vs_dense_b2_dq_dk_dv": grad_errs,
+                "over_float64_bound_dq_dk_dv": over,
+                "over_single_pass_float64_bound_dq_dk_dv": over_single_pass,
+                "bitwise_repeatable": True,
+                "fwd_bwd_ms": timed(ring_pass, 5),
+                "dense_b1_b2_fwd_bwd_ms": timed(dense_pass, 5),
+                "fwd_ms": timed(ring_fwd, 5),
+                "dense_b1_fwd_ms": timed(
+                    lambda: fa.flash_fwd_cuda(q, k, v, True, scale, want_lse=True), 5),
+                "plain_fwd_bwd_ms": timed(lambda: ring_pass(plain=True), 2),
+                "library_ms": timed(sdpa, 5), "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v, do, out, grads, plain_out, plain_grads, dense_grads, ql, kl, vl, flush
+    torch.cuda.empty_cache()
+
+    return ring_row, launches
+
+
+def phase_train_tp_seq_bf16(torch, dev, tp_seq):
+    """Tensor and sequence parallelism on one card.  (a) Ring attention's
+    schedule over ``RING_P`` virtual ranks (``parallel.sequence.VirtualRing``)
+    at ``RING_SHAPE`` in bf16, causal, forward and backward through its
+    autograd function: its blocks are B1 with its lse and B2 with the
+    merged lse on the tensor-core bodies (P(P+1)/2 = 10 each way); the
+    output within ``RING_VS_DENSE_TOL`` of dense B1 over the whole
+    sequence and within the bf16 tolerance of the float64 function, the
+    merged lse within 1e-4 of B1's; the output's and dq's, dk's and dv's
+    error against the float64 function (the gradients' of the float64
+    output's lse and delta, so an output error shows in them) at most
+    ``RING_RMS_RATIO`` times dense B1's / B2's in every 16-row tile
+    (:func:`tile_rms_ratio`); dq, dk and dv within the bound of the
+    float64 function given the ring's own lse and delta
+    (``parallel.sequence.ring_bwd_float64``: ``flash_bwd_float64`` on every
+    block the ring runs, the blocks' bounds summed with the f32 sum's and
+    the last rounding's), dense B2's within its own, and a second backward
+    the same bits; the ring's plain body (the blocks' plain versions in
+    the same schedule) beside it, its ms with dense B1 + B2's, the plain
+    body's and SDPA's over the whole sequence.  (b) From ``train_zero_bf16``'s child (NCCL, world 1): GPT-2
+    124M with vocab 50304 on ``mesh {model: 1, seq: 1}`` for 4 steps,
+    ``ring`` and ``ulysses`` losses and state (sha256 each) bit for bit
+    flash's; the vocab-parallel embedding and NLL over a group of one at
+    GPT-2's widths against the plain embedding and ``token_nll``.  Returns
+    the main path's launches: the counted virtual-ring pass and the child's
+    ring and Ulysses runs (each zeroed before, read after)."""
+    ring_row, launches = _virtual_ring(torch, dev)
+
+    # (b): the child's runs at {model: 1, seq: 1}
+    flash = tp_seq["flash"]
+    for mode in ("ring", "ulysses"):
+        run = tp_seq[mode]
+        label = f"train_tp_seq_bf16 {mode}"
+        check(run["backend"] == "nccl" and run["mesh"]["model"] == 1 and run["mesh"]["seq"] == 1,
+              f"{label}: backend {run['backend']}, mesh {run['mesh']}")
+        check(run["losses"] == flash["losses"],
+              f"{label}: losses {run['losses']} != flash's {flash['losses']}")
+        differ = sorted(n for n in flash["digests"] if run["digests"].get(n) != flash["digests"][n])
+        check(set(run["digests"]) == set(flash["digests"]) and not differ,
+              f"{label}: state differs from flash's in {differ[:6]}")
+        check(all(np.isfinite(run["losses"])) and run["losses"][-1] < run["losses"][0],
+              f"{label}: losses {run['losses']}")
+        for name in ("flash_fwd", "flash_bwd"):
+            check(run["launches"][name] == flash["launches"][name] > 0
+                  and only_tc(run["variants"][name]),
+                  f"{label}: {name} launched {run['launches'][name]} ({run['variants'][name]})")
+        counted = sum(sum(c.values()) for c in run["comm"])
+        check(counted == 0, f"{label}: {run['comm']} bytes counted at one rank")
+    ops = tp_seq["tp_ops"]
+    check(ops["ok"], f"train_tp_seq_bf16: vocab-parallel ops check failed: {ops['rows']}")
+    for name, n in launches.items():
+        launches[name] = n + sum(tp_seq[m]["launches"].get(name, 0) for m in ("ring", "ulysses"))
+    emit({"phase": "train_tp_seq_bf16", "virtual_ring": ring_row,
+          "gpt2": {m: {"vocab_size": TP_VOCAB, "mesh": tp_seq[m]["mesh"],
+                       "losses": tp_seq[m]["losses"],
+                       "step_ms_median_after_first": float(np.median(tp_seq[m]["ms"][1:])),
+                       "peak_gib": tp_seq[m]["peak_bytes"] / 2**30}
+                   for m in TP_SEQ_CASES},
+          "same_bits_as_flash": True, "tp_ops": ops["rows"], "launches": launches})
     return launches
 
 
@@ -3248,8 +3510,9 @@ def main() -> int:
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
-    zero_launches = phase_train_zero_bf16(torch, one_process)
+    zero_launches, tp_seq = phase_train_zero_bf16(torch, one_process)
     del one_process
+    tp_seq_launches = phase_train_tp_seq_bf16(torch, dev, tp_seq)
     del params
     bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
     phase_train_bert_f32(torch, bert_params)
@@ -3266,6 +3529,7 @@ def main() -> int:
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "training": train_launches[name], "training_resume": resume_launches[name],
                       "training_zero": zero_launches.get(name, 0),
+                      "training_tp_seq": tp_seq_launches.get(name, 0),
                       "training_bert": bert_launches[name],
                       "training_resume_bert": resume_bert_launches[name],
                       "training_bert_dropout": drop_launches[name],

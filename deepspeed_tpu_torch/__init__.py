@@ -2,8 +2,9 @@
 NVIDIA H100.
 
 The JAX package stays the reference; this package keeps its module paths
-and names.  ``initialize`` trains (one device, or ZeRO 0-3 across the
-ranks of a ``torch.distributed`` group), ``init_inference`` and
+and names.  ``initialize`` trains (one device, or ZeRO 0-3, tensor and
+sequence parallelism across the ranks of a ``torch.distributed`` group),
+``init_inference`` and
 ``init_serving`` serve.  The kernels the JAX package wrote in Pallas for the TPU are
 CUDA C++ kernels here (``csrc/``), built with ``nvcc`` at first use.
 Entry points run on the card (``device="cuda"``) unless the caller asks
@@ -26,6 +27,8 @@ def initialize(
     mesh=None,
     tp_spec_fn=None,
     partition_rules=None,
+    mesh_check: Optional[Callable] = None,
+    comm_model: Optional[Callable] = None,
     loss_fn: Optional[Callable] = None,
     dist_init_required: Optional[bool] = None,
     collate_fn: Optional[Callable] = None,
@@ -60,10 +63,14 @@ def initialize(
       the last partial batch per ``dataloader_drop_last``.
 
     * ``mesh``: the port's mesh, a ``mesh`` config dict or a
-      ``MeshConfig`` (default: the config's ``mesh`` block, ``data x
-      fsdp`` over the group); ``tp_spec_fn`` / ``partition_rules``: the
-      JAX engine's layout inputs (tensor parallelism itself, a ``model``
-      axis above 1, is ROADMAP A6's second part).
+      ``MeshConfig`` (default: the config's ``mesh`` block over the
+      group: ``data x fsdp x seq x model``); ``tp_spec_fn`` /
+      ``partition_rules``: the JAX engine's layout inputs, which a
+      ``model`` axis above 1 needs (``make_model``'s third value);
+      ``mesh_check`` / ``comm_model``: the model's refusals of a mesh and
+      its activation collectives' byte model (``gpt2.check_mesh`` /
+      ``gpt2.parallel_comm_model`` and BERT's, bound to the config with
+      ``functools.partial``).
 
     Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
     without ``training_data``; it hands each data-parallel rank its own
@@ -96,6 +103,7 @@ def initialize(
         model=model, params=model_parameters, config=ds_config,
         optimizer=optimizer, lr_scheduler=lr_scheduler, loss_fn=loss_fn, device=device,
         mesh=mesh, tp_spec_fn=tp_spec_fn, partition_rules=partition_rules,
+        mesh_check=mesh_check, comm_model=comm_model,
     )
     loader = None
     if training_data is not None:

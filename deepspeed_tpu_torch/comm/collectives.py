@@ -6,9 +6,11 @@ Here each is a thin wrapper over ``torch.distributed`` on a group of the
 port's mesh (``comm/mesh.py``), and each counts its bytes, by kind, under
 the convention of ``runtime/zero/stages.py::zero_step_comm_model``: an
 all-reduce twice its payload, an all-gather its whole result once, a
-reduce-scatter its shard once.  ``kind`` names the count (the model's
+reduce-scatter its shard once, an all-to-all its input once, a ring
+exchange the bytes it sends.  ``kind`` names the count (the model's
 ``all-gather``, ``reduce-scatter``, ``all-reduce``, ``grad-exchange``, or
-a kind of the port's own such as ``update-all-gather``);
+a kind of the port's own such as ``update-all-gather``, ``tp-all-reduce``,
+``seq-all-to-all``, ``seq-p2p``);
 :func:`reset_counts` and :func:`counts` read them.  The counts are host
 integers from tensor shapes: counting never waits on the device.
 
@@ -48,11 +50,11 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_reduce(x: torch.Tensor, group, kind: str = "all-reduce") -> torch.Tensor:
-    """Sum over ``group``, in place on a contiguous ``x`` (a copy
-    otherwise); returns the sum."""
+def all_reduce(x: torch.Tensor, group, kind: str = "all-reduce", op: str = "sum") -> torch.Tensor:
+    """Sum (``op="max"``: the largest entry) over ``group``, in place on a
+    contiguous ``x`` (a copy otherwise); returns the result."""
     y = x if x.is_contiguous() else x.contiguous()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
     _count(kind, 2 * _nbytes(y))
     return y
 
@@ -103,6 +105,68 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
     dist.reduce_scatter_tensor(out, inp.reshape((n * shape[0],) + tuple(shape[1:])), group=group)
     _count(kind, _nbytes(out))
     return out
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,
+               kind: str = "all-to-all") -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: cut ``split_dim`` into one
+    chunk per group rank, send chunk ``j`` to group rank ``j``, and
+    concatenate the chunks received along ``concat_dim`` in group-rank
+    order.  One ``all_to_all_single``, with a copy on each side."""
+    n = group_size(group)
+    shape = list(x.shape)
+    if shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(shape)} is not a multiple of {n}")
+    parts = shape[:split_dim] + [n, shape[split_dim] // n] + shape[split_dim + 1:]
+    inp = x.reshape(parts).movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    _count(kind, _nbytes(inp))
+    # out[j] is group rank j's chunk: put the rank index just before
+    # concat_dim and merge the two
+    out = out.movedim(0, concat_dim)
+    shape[split_dim] //= n
+    shape[concat_dim] *= n
+    return out.reshape(shape)
+
+
+class RingExchange:
+    """Send to the next rank of a ring and receive from the previous one
+    (``batch_isend_irecv``): :meth:`start` posts the transfers of a list
+    of tensors and returns a handle whose ``wait()`` gives the tensors
+    received, shaped and typed as those sent.  ``ranks`` are the ring's
+    global ranks in ring order, ``me`` this rank's place in it; each
+    exchange counts the bytes it sends under ``kind``."""
+
+    def __init__(self, group, ranks: Sequence[int], me: int, kind: str = "p2p"):
+        self.group, self.ranks, self.me, self.kind = group, list(ranks), int(me), kind
+        self.size = len(self.ranks)
+
+    def start(self, tensors: Sequence[torch.Tensor]) -> "_Pending":
+        nxt = self.ranks[(self.me + 1) % self.size]
+        prv = self.ranks[(self.me - 1) % self.size]
+        sends = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = [dist.P2POp(dist.isend, t, nxt, group=self.group) for t in sends]
+        ops += [dist.P2POp(dist.irecv, t, prv, group=self.group) for t in recvs]
+        reqs = dist.batch_isend_irecv(ops)
+        _count(self.kind, sum(_nbytes(t) for t in sends))
+        return _Pending(reqs, recvs, sends)
+
+
+class _Pending:
+    """Transfers in flight; the sent tensors stay referenced until they end."""
+
+    __slots__ = ("reqs", "recvs", "sends")
+
+    def __init__(self, reqs, recvs, sends):
+        self.reqs, self.recvs, self.sends = reqs, recvs, sends
+
+    def wait(self) -> List[torch.Tensor]:
+        for r in self.reqs:
+            r.wait()
+        self.sends = None
+        return self.recvs
 
 
 def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:

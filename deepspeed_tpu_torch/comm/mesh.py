@@ -9,7 +9,13 @@ over those axes (ranks increase fastest along the last axis).  The ranks
 that differ only along a set of axes form one process group;
 :meth:`Mesh.group` hands out this rank's, built once with
 ``torch.distributed.new_group`` for every set the engine uses (``data``,
-``fsdp``, and both: the data-parallel grid ZeRO partitions over).
+``fsdp``, and both: the data-parallel grid ZeRO partitions over;
+``model``, the tensor-parallel group of the Megatron operators
+(``parallel/tensor.py``); ``seq``, the ring and the all-to-all of
+``parallel/sequence.py``, and the gradients' all-reduce over it).
+:meth:`Mesh.ensure_groups` adds others (LAMB's norms over the axes that
+cut a leaf); the step's scalars travel over every rank
+(:meth:`Mesh.world_group`).
 
 A spec entry that names several axes (``("fsdp", "data")``) cuts a
 dimension fsdp-major; a group's ranks are in global-rank order, which is
@@ -30,7 +36,8 @@ from deepspeed_tpu_torch.sharding.mesh import MESH_AXES, resolve_mesh_shape
 from deepspeed_tpu_torch.sharding.spec import entry_axes, spec_tuple
 
 # the axis sets whose groups the engine asks for
-GROUP_AXES: Tuple[Tuple[str, ...], ...] = (("data",), ("fsdp",), ("data", "fsdp"))
+GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
+    ("data",), ("fsdp",), ("data", "fsdp"), ("model",), ("seq",))
 
 
 class Mesh:
@@ -52,11 +59,20 @@ class Mesh:
     def _build_groups(self) -> None:
         """Every rank calls ``new_group`` for every group, in one order
         (``torch.distributed``'s rule); each keeps its own."""
+        self.ensure_groups(GROUP_AXES)
+
+    def ensure_groups(self, axis_sets: Sequence[Sequence[str]]) -> None:
+        """Build this rank's group over each axis set not built yet (its
+        axes longer than one rank).  Collective: every rank calls it with
+        the same sets in the same order."""
         import torch.distributed as dist
 
-        for axes in GROUP_AXES:
+        if self.world_size <= 1:
+            return
+        for axes in axis_sets:
+            axes = tuple(a for a in MESH_AXES if a in axes and self.sizes[a] > 1)
             key = frozenset(axes)
-            if self.size(axes) <= 1:
+            if not axes or key in self._groups:
                 continue
             for ranks in self.group_ranks(axes):
                 if len(ranks) == self.world_size:
@@ -76,6 +92,20 @@ class Mesh:
             ranks = sorted(self.topology.filter_match(**fixed))
             out.append(ranks)
         return out
+
+    def members(self, axes: Sequence[str]) -> List[int]:
+        """The global ranks of this rank's group over ``axes``, in group
+        order (a one-rank axis set: this rank alone)."""
+        axes = tuple(a for a in axes if self.sizes[a] > 1)
+        if not axes:
+            return [self.rank]
+        return self._members[frozenset(axes)]
+
+    def world_group(self):
+        """The group of every rank (None for one rank)."""
+        import torch.distributed as dist
+
+        return dist.group.WORLD if self.world_size > 1 else None
 
     def size(self, axes: Sequence[str]) -> int:
         return int(np.prod([self.sizes[a] for a in axes])) if axes else 1

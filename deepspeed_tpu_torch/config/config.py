@@ -551,8 +551,6 @@ class ZeroConfig:
 
 # mesh axes the port does not shard over yet, and their ROADMAP items
 _MESH_NOT_PORTED = {
-    "model": "A6 (second part: tensor parallelism)",
-    "seq": "A6 (second part: ring/Ulysses sequence parallelism)",
     "pipe": "A11 (pipeline)",
     "expert": "A11 (MoE expert parallelism)",
 }
@@ -562,8 +560,8 @@ _MESH_NOT_PORTED = {
 class MeshConfig:
     """``mesh``: the named axis sizes, parsed as the JAX package parses
     them; ``data`` defaults to whatever the world size leaves (-1).  The
-    port shards over ``data`` and ``fsdp``; a ``model``, ``seq``,
-    ``pipe`` or ``expert`` axis larger than 1 raises, naming its item."""
+    port shards over ``data``, ``fsdp``, ``seq`` and ``model``; a ``pipe``
+    or ``expert`` axis larger than 1 raises, naming its item."""
 
     data: int = -1
     fsdp: int = 1

@@ -109,7 +109,9 @@ class InferenceEngine:
         ``device="cpu"``."""
         self.device = resolve_device(device)
         if int(mp_size) != 1:
-            raise NotImplementedError("mp_size > 1 (tensor parallelism) is not ported yet (ROADMAP A6)")
+            raise NotImplementedError(
+                "mp_size > 1 (tensor-parallel inference) is not ported yet (ROADMAP A6, "
+                "inference part)")
         if quantize_bits:
             raise NotImplementedError("quantize_bits (int8 weights) is not ported yet (ROADMAP A7)")
         self.dtype = dtype if dtype is not None else torch.bfloat16

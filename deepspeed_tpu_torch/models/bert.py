@@ -22,6 +22,18 @@ same scores), and the plain-attention branch applies the same bits from
 ``flash_attention.keep_mask``.  Hidden dropout is
 :func:`deepspeed_tpu_torch.ops.normalize.dropout` (another generator than
 the JAX package's, so its masks differ).
+
+**Tensor parallelism** (a ``model`` axis of m > 1 ranks in the engine's
+ambient mesh; the JAX BERT has no sequence-parallel mode, nor does this
+one): the tensor-parallel leaves arrive as the rank's blocks
+(``tp_spec_fn``: the JAX package's ``bert`` rule table), each block runs
+``num_attention_heads / m`` heads with the Megatron operators
+(``encoder_block(tp=...)``), ``tok_emb`` is a vocab-parallel embedding
+and the MLM decoder a vocab-parallel loss (``parallel/tensor.py``).
+``mlm_bias`` (V,) is replicated, as in the JAX table, yet a rank adds
+only its vocabulary block of it: it enters through ``copy_to_model``, so
+its gradient is all-reduced over ``model`` and the ranks keep equal
+copies.
 """
 from __future__ import annotations
 
@@ -40,6 +52,13 @@ from deepspeed_tpu_torch.ops.transformer.transformer import (
     PARAM_KEYS,
     encoder_block,
     key_padding_bias,
+)
+from deepspeed_tpu_torch.parallel.sequence import get_global_mesh
+from deepspeed_tpu_torch.parallel.tensor import (
+    copy_to_model,
+    tp_group,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
 )
 from deepspeed_tpu_torch.runtime.zero.partition import materialize, unstack
 
@@ -160,7 +179,7 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
 
 def _bert_block(cfg: BertConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
                 mask_bias: Optional[torch.Tensor], seeds: Optional[tuple],
-                deterministic: bool) -> torch.Tensor:
+                deterministic: bool, tp=None) -> torch.Tensor:
     """One encoder block, pre-LN or post-LN: the training layer op's
     :func:`encoder_block` on this layer's slice of the stacked params.
     ``seeds`` (None in eval): ``(s1, s2, attn_key)``, two ints for the
@@ -174,14 +193,14 @@ def _bert_block(cfg: BertConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
         lp, x, mask_bias, (attn_key, s1, s2), heads=cfg.num_attention_heads,
         pre_layer_norm=cfg.pre_layer_norm, eps=cfg.layer_norm_eps,
         hidden_rate=cfg.hidden_dropout_prob, attn_rate=cfg.attention_probs_dropout_prob,
-        use_flash=cfg.use_flash_attention, deterministic=deterministic)
+        use_flash=cfg.use_flash_attention, deterministic=deterministic, tp=tp)
 
 
 def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
            token_type_ids: Optional[torch.Tensor] = None,
            attention_mask: Optional[torch.Tensor] = None,
            generator: Optional[torch.Generator] = None,
-           deterministic: bool = True) -> torch.Tensor:
+           deterministic: bool = True, tp=None) -> torch.Tensor:
     """The encoder: ``input_ids (B, T)`` → hidden states ``(B, T, d)`` in
     the parameters' type.  ``attention_mask`` (B, T), nonzero where a key
     is real, becomes the f32 bias 0 / -1e9 on every head's scores.
@@ -189,10 +208,12 @@ def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
     (a CPU generator keeps the draw off the device): two hidden-dropout
     seeds where ``hidden_dropout_prob > 0``, then an attention key of two
     uint32 words where ``attention_probs_dropout_prob > 0``; None or
-    ``deterministic`` means no dropout."""
+    ``deterministic`` means no dropout.  ``tp``: the ``model`` group when
+    the parameters are the rank's tensor-parallel blocks."""
     B, T = input_ids.shape
     dtype = params["blocks"]["qkv_w"].dtype
-    x = materialize(params["tok_emb"])[input_ids.long()] + materialize(params["pos_emb"])[:T][None]
+    x = (vocab_parallel_embedding(materialize(params["tok_emb"]), input_ids.long(), tp)
+         + materialize(params["pos_emb"])[:T][None])
     type_emb = materialize(params["type_emb"])
     if token_type_ids is None:
         # absent segment ids mean "all segment A": the type-0 embedding is
@@ -218,7 +239,7 @@ def encode(params: Dict[str, Any], input_ids: torch.Tensor, cfg: BertConfig,
                                                     dtype=torch.int64,
                                                     device=generator.device).tolist()]
         seeds = [(s1, s2, a) for (s1, s2), a in zip(hidden, attn)]
-    block_fn = functools.partial(_bert_block, cfg)
+    block_fn = functools.partial(_bert_block, cfg, tp=tp)
     for i in range(L):
         lp = {key: layers[key][i] for key in BLOCK_KEYS}
         if cfg.remat:
@@ -235,19 +256,27 @@ def mlm_nsp_loss(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
 
     ``batch``: ``input_ids``, ``masked_lm_labels`` (-100 = not masked),
     optional ``token_type_ids`` / ``attention_mask`` /
-    ``next_sentence_label``."""
+    ``next_sentence_label``.  Under the ambient mesh's ``model`` axis the
+    decoder's logits are this rank's vocabulary block (module
+    docstring)."""
+    tp = tp_group(get_global_mesh())
     x = encode(params, batch["input_ids"], cfg, token_type_ids=batch.get("token_type_ids"),
                attention_mask=batch.get("attention_mask"), generator=generator,
-               deterministic=deterministic)
+               deterministic=deterministic, tp=tp)
     params = {k: materialize(v) for k, v in params.items() if k != "blocks"}
     # MLM: transform, then the decoder tied to the token embeddings
     h = x @ params["mlm_dense_w"].to(x.dtype) + params["mlm_dense_b"].to(x.dtype)
     h = F.gelu(h)
     h = _layer_norm(h, params["mlm_ln_g"], params["mlm_ln_b"], cfg.layer_norm_eps)
-    logits = (h @ params["tok_emb"].t().to(h.dtype)).float() + params["mlm_bias"]
+    bias = params["mlm_bias"]
+    if tp is not None:
+        n = params["tok_emb"].shape[0]
+        bias = copy_to_model(bias, tp)[tp.rank * n:(tp.rank + 1) * n]
+    logits = (copy_to_model(h, tp) @ params["tok_emb"].t().to(h.dtype)).float() + bias
     labels = batch["masked_lm_labels"].long()
     valid = (labels >= 0).float()
-    nll = token_nll(logits, torch.where(labels >= 0, labels, torch.zeros_like(labels))) * valid
+    nll = vocab_parallel_nll(logits, torch.where(labels >= 0, labels, torch.zeros_like(labels)),
+                             tp) * valid
     loss = nll.sum() / torch.clamp(valid.sum(), min=1.0)
     if "next_sentence_label" in batch:
         pooled = torch.tanh(x[:, 0] @ params["pooler_w"].to(x.dtype)
@@ -258,12 +287,51 @@ def mlm_nsp_loss(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
     return loss
 
 
+def tp_spec_fn(path: str, shape) -> Any:
+    """The tensor-parallel base spec of a BERT leaf: the JAX package's
+    ``bert`` rule table (qkv/fc column-parallel, proj/fc_proj
+    row-parallel, ``tok_emb`` by vocabulary)."""
+    from deepspeed_tpu_torch.sharding.rules import rules_for_family
+
+    return rules_for_family("bert").spec(path, shape)
+
+
+def check_mesh(cfg: BertConfig, sizes: Dict[str, int]) -> None:
+    """What the port refuses of a mesh for BERT, at ``initialize``: a
+    ``seq`` axis (no sequence-parallel mode) and heads the ``model`` axis
+    does not divide (a tensor-parallel rank runs whole heads)."""
+    m, P = int(sizes.get("model", 1)), int(sizes.get("seq", 1))
+    if P > 1:
+        raise ValueError(f"BERT has no sequence-parallel mode: a seq axis of {P} is refused")
+    if m > 1 and cfg.num_attention_heads % m:
+        raise ValueError(f"num_attention_heads {cfg.num_attention_heads} is not divisible by "
+                         f"the model axis ({m}): a tensor-parallel rank runs whole heads")
+
+
+def parallel_comm_model(cfg: BertConfig, sizes: Dict[str, int], rows: int, T: int,
+                        act_bytes: int, gas: int = 1, labels_given: bool = False) -> Dict[str, int]:
+    """``runtime/zero/stages.py::port_parallel_comm_model`` for this
+    config: the MLM loss over every position (``rows * T``), and the
+    ``mlm_bias`` gradient's all-reduce over ``model`` (each rank adds only
+    its vocabulary slice), ``2 V act_bytes``."""
+    from deepspeed_tpu_torch.runtime.zero.stages import port_parallel_comm_model
+
+    return port_parallel_comm_model(
+        cfg.num_hidden_layers, cfg.hidden_size, rows, T, sizes, loss_positions=rows * T,
+        tp_extra_bytes=2 * cfg.vocab_size * act_bytes, gas=gas, act_bytes=act_bytes,
+        remat=cfg.remat,
+        mlp_recompute=cfg.remat and (cfg.hidden_dropout_prob > 0.0 or not cfg.pre_layer_norm))
+
+
 def make_model(cfg: BertConfig):
     """Returns ``(model_fn, init_fn, tp_spec_fn)``; ``model_fn(params,
     batch, generator) -> loss`` plugs into
     ``deepspeed_tpu_torch.initialize(model=...)``.  ``generator=None``
-    means eval.  ``tp_spec_fn`` is None: tensor parallelism is ROADMAP
-    A6."""
+    means eval.  ``tp_spec_fn`` gives the tensor-parallel leaves' specs
+    (pass it to ``initialize`` for a ``model`` axis, with
+    ``mesh_check=functools.partial(check_mesh, cfg)`` for this config's
+    refusals and ``comm_model=functools.partial(parallel_comm_model,
+    cfg)``)."""
 
     def model_fn(params, batch, generator):
         deterministic = generator is None or (cfg.hidden_dropout_prob == 0.0
@@ -271,4 +339,4 @@ def make_model(cfg: BertConfig):
         return mlm_nsp_loss(params, batch, generator=generator, cfg=cfg,
                             deterministic=deterministic)
 
-    return model_fn, functools.partial(init_params, cfg), None
+    return model_fn, functools.partial(init_params, cfg), tp_spec_fn

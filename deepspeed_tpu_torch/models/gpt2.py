@@ -16,7 +16,25 @@ Under ZeRO stage 3 a sharded leaf arrives as a handle
 (``runtime/zero/partition.py``): :func:`materialize` gathers the
 embeddings and the final LayerNorm once per forward, and a block's
 weights inside the block (its checkpoint region), so the recompute
-gathers them again and they are freed after the block."""
+gathers them again and they are freed after the block.
+
+**Tensor parallelism** (a ``model`` axis of m > 1 ranks in the engine's
+ambient mesh): the tensor-parallel leaves arrive as the rank's blocks
+(``tp_spec_fn``: the JAX package's ``gpt2`` rule table) and a block runs
+over the rank's ``n_head / m`` heads with the Megatron operators of
+``parallel/tensor.py``: ``copy_to_model`` before ``qkv`` and ``fc``,
+``reduce_from_model`` after ``proj`` and ``fc_proj``, whose replicated
+biases are added after the reduction; the token embedding and the tied
+head are vocab-parallel (the loss from ``vocab_parallel_nll``).
+**Sequence parallelism** (a ``seq`` axis of P > 1, ``attention_mode``
+``ring`` or ``ulysses``, ``parallel/sequence.py``): the rank runs its
+positions ``[r*T/P, (r+1)*T/P)`` of every row (the position embedding's
+rows too); the label of its last position is the next shard's first
+token, taken from the whole rows before the cut, and the sequence's last
+position is masked on the last rank.  The loss is the token NLLs' sum
+all-reduced over ``seq`` over the global count, as ``jnp.mean`` (or the
+masked mean) gives it.  With one rank on either axis the arithmetic is
+the one-device model's."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,7 +51,14 @@ from deepspeed_tpu_torch.ops.attention.sparse import BigBirdSparsityConfig, bloc
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
 from deepspeed_tpu_torch.ops.normalize import dropout_generator
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
-from deepspeed_tpu_torch.ops.normalize import token_nll
+from deepspeed_tpu_torch.parallel import sequence as _seq
+from deepspeed_tpu_torch.parallel.tensor import (
+    copy_to_model,
+    reduce_from_model,
+    tp_group,
+    vocab_parallel_embedding,
+    vocab_parallel_nll,
+)
 from deepspeed_tpu_torch.runtime.zero.partition import materialize, unstack
 
 
@@ -47,9 +72,10 @@ class GPT2Config:
     dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     use_flash_attention: bool = True
-    # "flash" | "sparse": sparse runs the block-sparse kernels with
-    # `sparsity_config` (default: unidirectional BigBird), the long-sequence
-    # recipe; ring/ulysses (sequence parallel) are ROADMAP A6
+    # "flash" | "ring" | "ulysses" | "sparse": ring/ulysses run sequence
+    # parallel over the mesh's `seq` axis (parallel/sequence.py); sparse
+    # runs the block-sparse kernels with `sparsity_config` (default:
+    # unidirectional BigBird), the long-sequence recipe
     attention_mode: str = "flash"
     # a SparsityConfig instance (ops/attention/sparse.py); None: BigBird
     sparsity_config: Any = None
@@ -66,10 +92,6 @@ class GPT2Config:
     flash_blocks: tuple = ()
 
     def __post_init__(self):
-        if self.attention_mode in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_mode={self.attention_mode!r} (sequence parallel) is not ported yet "
-                "(ROADMAP A6)")
         if self.n_experts > 0:
             raise NotImplementedError("MoE GPT-2 (n_experts > 0) is not ported yet (ROADMAP A11)")
         if self.remat_save_names:
@@ -224,62 +246,108 @@ def sparse_layout(cfg: GPT2Config, T: int):
     return _SPARSE_LAYOUTS[key], sc.block
 
 
-def _sparse_attn(cfg: GPT2Config, q, k, v, T: int):
+def _sparse_attn(cfg: GPT2Config, q, k, v, T: int, tp=None):
     layout, block = sparse_layout(cfg, T)
+    if tp is not None:  # this rank's heads of the per-head layout
+        n = q.shape[1]
+        layout = layout[tp.rank * n:(tp.rank + 1) * n]
     return block_sparse_attention(q, k, v, layout, block, causal=True)
 
 
+class _Parallel:
+    """What a forward reads of the ambient mesh: the ``model`` group (None
+    for one rank) and this rank's place on ``seq`` (``P`` ranks)."""
+
+    __slots__ = ("mesh", "tp", "P", "r")
+
+    def __init__(self):
+        self.mesh = _seq.get_global_mesh()
+        self.tp = tp_group(self.mesh)
+        self.P = 1 if self.mesh is None else int(self.mesh.sizes.get("seq", 1))
+        self.r = 0 if self.P == 1 else int(self.mesh.coords["seq"])
+
+    def fold(self, seed: Optional[int], tp_too: bool = False) -> Optional[int]:
+        """A dropout seed of this rank's own: its ``seq`` place (and its
+        ``model`` place for an activation cut over ``model``) folded in, so
+        shards draw masks of their own (unchanged on one rank)."""
+        if seed is None:
+            return None
+        k = self.r * (self.tp.size if self.tp else 1) + (self.tp.rank if tp_too and self.tp else 0)
+        return seed + k * (1 << 40)
+
+
 def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
-           seeds: Optional[tuple], deterministic: bool) -> torch.Tensor:
+           seeds: Optional[tuple], deterministic: bool,
+           par: Optional[_Parallel] = None) -> torch.Tensor:
     """One transformer block; ``lp`` holds this layer's slice of the
-    stacked params.  ``seeds``: three ints for the block's dropout
-    generators (None in eval), so a recomputed block draws the same
-    masks."""
+    stacked params (the rank's blocks under tensor parallelism).
+    ``seeds``: three ints for the block's dropout generators (None in
+    eval), so a recomputed block draws the same masks."""
     B, T, D = x.shape
-    H, hd = cfg.n_head, cfg.head_dim
-    r1, r2, r3 = (dropout_generator(s, x.device) for s in (seeds or (None,) * 3))
+    tp = par.tp if par is not None else None
+    H, hd = cfg.n_head // (tp.size if tp else 1), cfg.head_dim
+    s1, s2, s3 = seeds or (None,) * 3
+    if par is not None:
+        s1, s2, s3 = par.fold(s1), par.fold(s2, tp_too=True), par.fold(s3)
+    r1, r2, r3 = (dropout_generator(s, x.device) for s in (s1, s2, s3))
     lp = {k: materialize(v) for k, v in lp.items()}
 
     h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
+    h = copy_to_model(h, tp)
     qkv = h @ lp["qkv_w"].to(h.dtype) + lp["qkv_b"].to(h.dtype)
-    q, k, v = qkv.split(D, dim=-1)
+    q, k, v = qkv.split(H * hd, dim=-1)
 
     def heads(t):
         return t.reshape(B, T, H, hd).transpose(1, 2)
 
     q, k, v = heads(q), heads(k), heads(v)
     if cfg.attention_mode == "sparse":
-        attn = _sparse_attn(cfg, q, k, v, T)
+        attn = _sparse_attn(cfg, q, k, v, T, tp)
+    elif cfg.attention_mode == "ring":
+        # the forward's mesh, also when the recompute runs in the backward
+        attn = _seq.ring_attention(q, k, v, causal=True, mesh=par.mesh if par else None)
+    elif cfg.attention_mode == "ulysses":
+        attn = _seq.ulysses_attention(q, k, v, causal=True, mesh=par.mesh if par else None,
+                                      use_flash=cfg.use_flash_attention)
     elif cfg.attention_mode != "flash":
         raise ValueError(f"unknown attention_mode {cfg.attention_mode!r} (flash|ring|ulysses|sparse)")
     elif cfg.use_flash_attention and T >= 128:
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = mha_reference(q, k, v, causal=True)
-    attn = attn.transpose(1, 2).reshape(B, T, D)
-    attn = attn @ lp["proj_w"].to(attn.dtype) + lp["proj_b"].to(attn.dtype)
+    attn = attn.transpose(1, 2).reshape(B, T, H * hd)
+    attn = reduce_from_model(attn @ lp["proj_w"].to(attn.dtype), tp) + lp["proj_b"].to(attn.dtype)
     x = x + _dropout(attn, cfg.dropout, r1, deterministic)
 
     h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
+    h = copy_to_model(h, tp)
     h = h @ lp["fc_w"].to(h.dtype) + lp["fc_b"].to(h.dtype)
     h = F.gelu(h, approximate="tanh")
     h = _dropout(h, cfg.dropout, r2, deterministic)
-    h = h @ lp["fc_proj_w"].to(h.dtype) + lp["fc_proj_b"].to(h.dtype)
+    h = reduce_from_model(h @ lp["fc_proj_w"].to(h.dtype), tp) + lp["fc_proj_b"].to(h.dtype)
     return x + _dropout(h, cfg.dropout, r3, deterministic)
 
 
 def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
           generator: Optional[torch.Generator] = None, deterministic: bool = True,
-          return_hidden: bool = False) -> torch.Tensor:
+          return_hidden: bool = False, par: Optional[_Parallel] = None) -> torch.Tensor:
     """Forward pass: ``tokens (B, T)`` → logits ``(B, T, V)`` in the
     parameters' type.  ``return_hidden=True`` returns the post-final-LN
     hidden states (B, T, D) instead (the chunked-xent loss).
     ``generator`` draws the dropout seeds (a CPU generator keeps the draw
-    off the device); None or ``deterministic`` means no dropout."""
+    off the device); None or ``deterministic`` means no dropout.  Under
+    the ambient mesh's ``seq`` axis the result covers this rank's
+    positions, under its ``model`` axis the logits this rank's vocabulary
+    block (module docstring)."""
+    par = par or _Parallel()
     B, T = tokens.shape
-    tokens = tokens.long()
+    pos = slice(0, T)
+    if par.P > 1:
+        _seq.check_seq_len(T, par.P)
+        pos = _seq.local_positions(par.mesh, T)
+    tokens = tokens[:, pos].long()
     wte = materialize(params["wte"])
-    x = wte[tokens] + materialize(params["wpe"])[:T][None]
+    x = vocab_parallel_embedding(wte, tokens, par.tp) + materialize(params["wpe"])[pos][None]
     x = x.to(params["blocks"]["qkv_w"].dtype)
     layers = {key: unstack(params["blocks"][key]) for key in BLOCK_KEYS}
     seeds = [None] * cfg.n_layer
@@ -287,7 +355,7 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
         draw = torch.randint(0, 2**62, (cfg.n_layer, 3), generator=generator,
                              device=generator.device)
         seeds = [tuple(row) for row in draw.tolist()]
-    block_fn = functools.partial(_block, cfg)
+    block_fn = functools.partial(_block, cfg, par=par)
     for i in range(cfg.n_layer):
         lp = {key: layers[key][i] for key in BLOCK_KEYS}
         if cfg.remat:
@@ -298,41 +366,68 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
                     cfg.layer_norm_epsilon)
     if return_hidden:
         return x
-    return x @ wte.t().to(x.dtype)  # tied embedding head
+    return copy_to_model(x, par.tp) @ wte.t().to(x.dtype)  # tied embedding head
 
 
-def _xent_chunk(xc, wte, lc, mc):
+def _xent_chunk(xc, wte, lc, mc, tp=None):
     logits = xc @ wte.t().to(xc.dtype)
-    nll = token_nll(logits, lc) * mc
+    nll = vocab_parallel_nll(logits, lc, tp) * mc
     return nll.sum(), mc.sum()
 
 
-def _chunked_xent(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Masked-mean next-token NLL computed per time-chunk, each chunk
-    recomputed in the backward: peak memory holds one chunk of logits
-    instead of the whole (B, T, V) tensor."""
+def _chunked_sums(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, chunk: int, tp=None):
+    """The masked next-token NLL's ``(sum, count)`` computed per
+    time-chunk, each chunk recomputed in the backward: peak memory holds
+    one chunk of logits instead of the whole (B, T, V) tensor."""
     T = hidden.shape[1]
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, T, chunk):
         s, c = checkpoint(_xent_chunk, hidden[:, c0:c0 + chunk], wte, labels[:, c0:c0 + chunk],
-                          mask[:, c0:c0 + chunk], use_reentrant=False)
+                          mask[:, c0:c0 + chunk], tp, use_reentrant=False)
         total = total + s
         count = count + c
-    return total / torch.clamp(count, min=1.0)
+    return total, count
+
+
+def _seq_labels(batch: Dict[str, Any], tokens: torch.Tensor, pos: slice):
+    """This ``seq`` rank's labels and label mask, taken from the whole rows
+    before the cut: the next token of each of its positions (the first
+    token of the next shard for its last one); the sequence's last
+    position, which has none, is masked."""
+    mask = batch.get("attention_mask")
+    if "labels" in batch:
+        labels = batch["labels"][:, pos]
+        mask = mask[:, pos].float() if mask is not None else torch.ones(
+            labels.shape, dtype=torch.float32, device=labels.device)
+        return labels, mask
+    B, T = tokens.shape
+    pad = torch.zeros((B, 1), dtype=tokens.dtype, device=tokens.device)
+    labels = torch.cat([tokens[:, 1:], pad], dim=1)[:, pos]
+    keep = torch.ones((B, T), dtype=torch.float32, device=tokens.device)
+    keep[:, T - 1] = 0.0
+    if mask is not None:
+        keep = keep * torch.cat([mask[:, 1:].float(), pad.float()], dim=1)
+    return labels, keep[:, pos]
 
 
 def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
             cfg: GPT2Config = None, deterministic: bool = False) -> torch.Tensor:
     """Next-token cross entropy.  ``batch``: {"input_ids": (B, T)} with
     optional "labels" (default: shifted input_ids) and "attention_mask"."""
+    par = _Parallel()
     tokens = batch["input_ids"]
     chunked = cfg.xent_chunk_size > 0
     out = apply(params, tokens, cfg, generator=generator, deterministic=deterministic,
-                return_hidden=chunked)
+                return_hidden=chunked, par=par)
+    if chunked:  # the hidden states feed the vocab-parallel head
+        out = copy_to_model(out, par.tp)
+    if par.P > 1:
+        labels, mask = _seq_labels(batch, tokens, _seq.local_positions(par.mesh, tokens.shape[1]))
+        out_shift = out
     # mask indexes the *label* position (tokens[:, 1:]), not the query
-    if "labels" in batch:
+    elif "labels" in batch:
         labels, out_shift = batch["labels"], out
         mask = batch.get("attention_mask")
         mask = mask[:, : labels.shape[1]].float() if mask is not None else None
@@ -343,24 +438,76 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
 
     if chunked:
         ones = torch.ones(labels.shape, dtype=torch.float32, device=out.device) if mask is None else mask
-        return _chunked_xent(out_shift, materialize(params["wte"]), labels, ones,
-                             cfg.xent_chunk_size)
+        total, count = _chunked_sums(out_shift, materialize(params["wte"]), labels, ones,
+                                     cfg.xent_chunk_size, par.tp)
+    else:
+        nll = vocab_parallel_nll(out_shift, labels, par.tp)
+        if mask is None:
+            return nll.mean()
+        total, count = (nll * mask).sum(), mask.sum()
+    if par.P > 1:
+        total, count = _seq.reduce_from_seq(torch.stack([total, count]), par.mesh)
+    return total / torch.clamp(count, min=1.0)
 
-    nll = token_nll(out_shift, labels)
-    if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+
+def tp_spec_fn(path: str, shape) -> Any:
+    """The tensor-parallel base spec of a GPT-2 leaf: the JAX package's
+    ``gpt2`` rule table (qkv/fc column-parallel, proj/fc_proj
+    row-parallel, ``wte`` by vocabulary)."""
+    from deepspeed_tpu_torch.sharding.rules import rules_for_family
+
+    return rules_for_family("gpt2").spec(path, shape)
+
+
+def check_mesh(cfg: GPT2Config, sizes: Dict[str, int]) -> None:
+    """What the port refuses of a mesh for this config, at ``initialize``:
+    heads the ``model`` axis does not divide (a rank runs whole heads),
+    ``n_positions`` the ``seq`` axis does not divide (the JAX package's
+    wording), a ``seq`` axis under an attention other than ``ring`` or
+    ``ulysses``, and Ulysses over heads the ``seq`` axis does not divide
+    (a rank's ``n_head / model`` heads)."""
+    m, P = int(sizes.get("model", 1)), int(sizes.get("seq", 1))
+    if m > 1 and cfg.n_head % m:
+        raise ValueError(f"n_head {cfg.n_head} is not divisible by the model axis ({m}): "
+                         "a tensor-parallel rank runs whole heads")
+    if P > 1:
+        if cfg.attention_mode not in ("ring", "ulysses"):
+            raise ValueError(f"a seq axis of {P} needs attention_mode 'ring' or 'ulysses', got "
+                             f"{cfg.attention_mode!r}")
+        _seq.check_seq_len(cfg.n_positions, P)
+        if cfg.attention_mode == "ulysses":
+            _seq.check_ulysses_heads(cfg.n_head // m, P)
+
+
+def parallel_comm_model(cfg: GPT2Config, sizes: Dict[str, int], rows: int, T: int,
+                        act_bytes: int, gas: int = 1, labels_given: bool = False) -> Dict[str, int]:
+    """``runtime/zero/stages.py::port_parallel_comm_model`` for this
+    config.  The loss's positions: the label shift drops each row's last
+    (``rows * (T - 1)``; ``rows * T`` with labels given) without ``seq``;
+    with it each rank scores its ``rows * T / seq``, the last rank's final
+    position masked, not dropped."""
+    from deepspeed_tpu_torch.runtime.zero.stages import port_parallel_comm_model
+
+    P = int(sizes.get("seq", 1))
+    n = rows * (T // P) if P > 1 else rows * (T if labels_given else T - 1)
+    return port_parallel_comm_model(
+        cfg.n_layer, cfg.n_embd, rows, T, sizes, loss_positions=n, gas=gas,
+        act_bytes=act_bytes, attention_mode=cfg.attention_mode, remat=cfg.remat,
+        xent_chunk=cfg.xent_chunk_size, mlp_recompute=cfg.remat and cfg.dropout > 0.0)
 
 
 def make_model(cfg: GPT2Config):
     """Returns ``(model_fn, init_fn, tp_spec_fn)``; ``model_fn(params,
     batch, generator) -> loss`` plugs into
     ``deepspeed_tpu_torch.initialize(model=...)``.  ``generator=None``
-    means eval.  ``tp_spec_fn`` is None: tensor parallelism is ROADMAP A6
-    (and the layer-streaming ``stream_spec`` is A12)."""
+    means eval.  ``tp_spec_fn`` gives the tensor-parallel leaves' specs
+    (pass it to ``initialize`` for a ``model`` axis, with
+    ``mesh_check=functools.partial(check_mesh, cfg)`` for this config's
+    refusals and ``comm_model=functools.partial(parallel_comm_model,
+    cfg)``).  The layer-streaming ``stream_spec`` is ROADMAP A12."""
 
     def model_fn(params, batch, generator):
         deterministic = generator is None or cfg.dropout == 0.0
         return loss_fn(params, batch, generator=generator, cfg=cfg, deterministic=deterministic)
 
-    return model_fn, functools.partial(init_params, cfg), None
+    return model_fn, functools.partial(init_params, cfg), tp_spec_fn

@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
 from deepspeed_tpu_torch.ops.normalize import dropout_generator
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _ln
+from deepspeed_tpu_torch.parallel.tensor import copy_to_model, rank_dropout_key, reduce_from_model
 from deepspeed_tpu_torch.utils.device import resolve_device
 
 MASK_BIAS = -1e9  # the score bias of a padded key
@@ -164,7 +165,7 @@ def attention(q, k, v, bias, rate: float, attn_key, use_flash: bool) -> torch.Te
 def encoder_block(p: Dict[str, torch.Tensor], x: torch.Tensor, bias: Optional[torch.Tensor],
                   seeds: Optional[tuple], *, heads: int, pre_layer_norm: bool, eps: float,
                   hidden_rate: float, attn_rate: float, use_flash: bool, deterministic: bool,
-                  checkpoint_parts: bool = False) -> torch.Tensor:
+                  checkpoint_parts: bool = False, tp=None) -> torch.Tensor:
     """One encoder layer, the BERT block and this op alike.  ``x``: (B, T,
     D); ``p``: the layer's weights (``PARAM_KEYS``); ``bias``: an additive
     f32 score bias broadcastable to (B, H, T, T) or None.  ``seeds``
@@ -173,22 +174,30 @@ def encoder_block(p: Dict[str, torch.Tensor], x: torch.Tensor, bias: Optional[to
     hidden-dropout generators after the attention and after the MLP (None:
     no such dropout), so a recomputed block draws the same masks.
     ``checkpoint_parts`` recomputes the attention and MLP parts in the
-    backward (``torch.utils.checkpoint``)."""
+    backward (``torch.utils.checkpoint``).  ``tp``: the ``model`` group
+    (``parallel/tensor.py``) when ``p`` holds the rank's tensor-parallel
+    blocks: the rank runs ``heads / m`` heads and the block adds the
+    Megatron operators around its four matmuls (its attention dropout
+    keyed by :func:`~deepspeed_tpu_torch.parallel.tensor.rank_dropout_key`)."""
     B, T, D = x.shape
     hd = D // heads
+    hl = heads // (tp.size if tp is not None else 1)
     attn_key, s1, s2 = (None, None, None) if deterministic or seeds is None else seeds
+    attn_key = rank_dropout_key(attn_key, tp)
     r1, r2 = dropout_generator(s1, x.device), dropout_generator(s2, x.device)
 
     def attn_part(h):
+        h = copy_to_model(h, tp)
         qkv = h @ p["qkv_w"].to(h.dtype) + p["qkv_b"].to(h.dtype)
-        q, k, v = (t.reshape(B, T, heads, hd).transpose(1, 2) for t in qkv.split(D, dim=-1))
+        q, k, v = (t.reshape(B, T, hl, hd).transpose(1, 2) for t in qkv.split(hl * hd, dim=-1))
         o = attention(q, k, v, bias, attn_rate, attn_key, use_flash)
-        o = o.transpose(1, 2).reshape(B, T, D)
-        return o @ p["proj_w"].to(o.dtype) + p["proj_b"].to(o.dtype)
+        o = o.transpose(1, 2).reshape(B, T, hl * hd)
+        return reduce_from_model(o @ p["proj_w"].to(o.dtype), tp) + p["proj_b"].to(o.dtype)
 
     def mlp_part(h):
+        h = copy_to_model(h, tp)
         h = F.gelu(h @ p["fc_w"].to(h.dtype) + p["fc_b"].to(h.dtype))
-        return h @ p["fc_proj_w"].to(h.dtype) + p["fc_proj_b"].to(h.dtype)
+        return reduce_from_model(h @ p["fc_proj_w"].to(h.dtype), tp) + p["fc_proj_b"].to(h.dtype)
 
     attn_fn, mlp_fn = attn_part, mlp_part
     if checkpoint_parts:

@@ -247,7 +247,7 @@ def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any
         "skipped_steps": int(engine.skipped_steps),
         "world_size": _world(engine),
         "dp_world_size": int(getattr(engine, "dp_world_size", 1)),
-        "mp_world_size": 1,
+        "mp_world_size": int(engine.mesh.sizes["model"]) if hasattr(engine, "mesh") else 1,
         "zero_stage": engine.zero_stage,
         # whether the tag holds gradients of micro-steps still to be
         # applied (a save between micro-steps)

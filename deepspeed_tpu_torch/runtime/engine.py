@@ -38,6 +38,25 @@ carries them out:
   rank clips, skips and reports alike; ``train_batch`` returns the mean
   loss over the global batch.
 
+**Tensor and sequence parallelism.**  A ``model`` axis cuts the leaves
+the model's ``tp_spec_fn`` (or ``partition_rules``) names: each ``model``
+rank keeps its block of them (ZeRO's specs compose on top: stage 3
+gathers over ``fsdp`` only) and the model runs the Megatron operators of
+``parallel/tensor.py`` on them.  A ``seq`` axis cuts the positions: each
+``seq`` rank runs its positions of its rows (``parallel/sequence.py``).
+The engine scopes its mesh around every forward
+(``parallel.sequence.ambient_mesh``), so the model finds its groups
+(it keeps them for the backward's recompute);
+every micro-step's gradient is all-reduced over ``seq`` before the
+data-parallel reduction; the global norm counts each element once (a
+tensor-parallel block once per block, a replicated leaf once); the step's
+scalars travel over every rank.  ``dp_world_size`` counts ``data x
+fsdp`` only.  ``initialize`` refuses, as the JAX package does, a
+tensor-parallel dimension the ``model`` axis does not divide (GPT-2's
+vocabulary of 50257 at ``model`` 2), and the model's own refusals
+(``initialize``'s ``mesh_check``, a model's ``check_mesh``: heads, ``T %
+seq``, Ulysses' heads).
+
 Every collective counts its bytes by kind (``comm/collectives.py``); at
 world size 1 the engine issues none, and its arithmetic is the
 one-device engine's, bit for bit.
@@ -63,8 +82,7 @@ checks the ``step.boundary`` fault site, a pending preemption (the
 ``resilience.watchdog``: emergency save, exit 43) and the divergence
 guard (``resilience.divergence``, on by default as in the JAX engine).
 
-Not ported (each raises, naming its ROADMAP item, or is absent): TP and
-sequence parallelism (A6, second part), offload (A12), pipeline (A11),
+Not ported (each raises, naming its ROADMAP item, or is absent): offload (A12), pipeline (A11),
 1-bit optimizers and compressed exchanges (A13), supervision, telemetry,
 sanitizer and flops profiler (A14/A15), MoQ and PLD (A13).
 """
@@ -83,6 +101,7 @@ from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.ops.adam.fused_adam import SGD, FusedAdam, FusedAdamW
 from deepspeed_tpu_torch.ops.kernels.fused_update import engine_update
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.parallel.sequence import ambient_mesh
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -188,6 +207,8 @@ class DeepSpeedEngine:
         mesh=None,
         tp_spec_fn=None,
         partition_rules=None,
+        mesh_check=None,
+        comm_model=None,
     ):
         """``model``: callable ``(params, batch, generator) -> loss`` (or
         outputs if ``loss_fn`` is given, then ``loss_fn(outputs, batch) ->
@@ -198,7 +219,13 @@ class DeepSpeedEngine:
         ``mesh`` block over the started process group).
         ``partition_rules`` / ``tp_spec_fn``: the layout inputs of the JAX
         engine (a family name, a rule table or a ``(path, shape) -> spec``
-        callable); they keep tensor-parallel leaves out of the flat plan."""
+        callable); they keep tensor-parallel leaves out of the flat plan.
+        ``mesh_check(sizes)``: the model's refusals of a mesh, raised here
+        (``gpt2.check_mesh`` / ``bert.check_mesh`` bound to the config).
+        ``comm_model(sizes, rows, T, act_bytes, gas=, labels_given=)``: the
+        model's activation collectives (``gpt2.parallel_comm_model`` /
+        ``bert.parallel_comm_model`` bound to the config), which
+        :meth:`comm_summary` evaluates at a micro-batch's shape."""
         from deepspeed_tpu_torch.comm.mesh import Mesh, MeshInfo
         from deepspeed_tpu_torch.runtime.zero.partition import ZeroLayout
         from deepspeed_tpu_torch.runtime.zero.stages import ZeroShardingRules
@@ -209,6 +236,7 @@ class DeepSpeedEngine:
         self.config = config
         self._model_fn = model
         self._loss_fn = loss_fn
+        self._comm_model = comm_model
 
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.loss_scaler = LossScaler.from_config(config.fp16)
@@ -233,8 +261,11 @@ class DeepSpeedEngine:
         # -- f32 masters: this rank's part of each leaf, on the device ------
         leaves, self._unflatten = tree_flatten(params)
         self._paths = tree_paths(params)
-        self.layout = ZeroLayout(self.mesh, self.zero_rules,
-                                 [tuple(np.shape(x)) for x in leaves], self._paths)
+        shapes = [tuple(np.shape(x)) for x in leaves]
+        self._check_parallel(mesh_check, shapes)
+        self.layout = ZeroLayout(self.mesh, self.zero_rules, shapes, self._paths)
+        # LAMB's norms reduce over the axes that cut each leaf's state
+        self.mesh.ensure_groups(sorted({self.layout.update_axes(i) for i in range(len(leaves))}))
         self._params: List[torch.Tensor] = []
         for i, x in enumerate(leaves):
             full = (torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
@@ -277,6 +308,39 @@ class DeepSpeedEngine:
             f"{sum(self.layout.param_sharded(i) for i in range(len(self._params)))} param-sharded)"
         )
 
+    def _check_parallel(self, mesh_check, shapes) -> None:
+        """The refusals of a ``model`` or ``seq`` axis, before any leaf is
+        cut: the model's own (``mesh_check``), a ``model`` axis with
+        no tensor-parallel leaf, and every tensor-parallel dimension the
+        ``model`` axis does not divide (the JAX package's words), the parts
+        of a fused leaf each alike."""
+        from deepspeed_tpu_torch.sharding.rules import fused_tp_parts
+        from deepspeed_tpu_torch.sharding.spec import entry_axes, spec_tuple
+
+        sizes = self.mesh.sizes
+        if mesh_check is not None:
+            mesh_check(dict(sizes))
+        m = sizes["model"]
+        if m <= 1:
+            return
+        spec_fn = self.partition_rules.tp_spec_fn()
+        cut = [(path, shape, d) for path, shape in zip(self._paths, shapes)
+               for d, e in enumerate(spec_tuple(spec_fn(path, shape), len(shape)))
+               if "model" in entry_axes(e)]
+        if not cut:
+            raise ValueError(
+                f"mesh.model = {m} needs the model's tensor-parallel specs: pass "
+                "tp_spec_fn (make_model's third value) or partition_rules")
+        for path, shape, d in cut:
+            parts = fused_tp_parts(path) if d == len(shape) - 1 else 1
+            if shape[d] % (parts * m):
+                what = (f"each of its {parts} packed parts" if parts > 1
+                        else f"the global size of its dimension {d}")
+                raise ValueError(
+                    f"{path}: its sharding over 'model' ({m} ranks) implies that {what} "
+                    f"should be divisible by {m}, but it is equal to "
+                    f"{shape[d] // parts} (full shape: {tuple(shape)})")
+
     def _init_comm_layer(self, config) -> None:
         """The comm layer (the JAX engine's ``_init_comm_layer``): resolve
         the gradient exchange's strategy once (dense only; a compressed
@@ -295,16 +359,23 @@ class DeepSpeedEngine:
                 "zero_optimization.reduce_scatter=false: gradient reduction stays a full "
                 "all-reduce (grads replicated over fsdp) — ~2x the wire bytes and a "
                 "params-sized grad buffer per rank")
-        self._comm_n_params = sum(leaf.numel for leaf in self.layout.leaves)
+        # one model rank's elements: the blocks its collectives move
+        self._comm_n_params = sum(self.layout.local_numel(i)
+                                  for i in range(len(self.layout.leaves)))
         self.comm.select(4 * self._comm_n_params, torch.float32, ("data", "fsdp"),
                          site="grad-exchange")
         self._comm_grad_strategy = STRATEGY_DENSE
 
-    def comm_summary(self) -> Dict[str, Any]:
+    def comm_summary(self, rows: Optional[int] = None, seq_len: Optional[int] = None,
+                     labels_given: bool = False) -> Dict[str, Any]:
         """The strategy table and the per-step byte model: the JAX package's
         ``step_comm_bytes`` (``param_bytes`` is the compute type's size)
-        and the port's own ``update-all-gather``
-        (``runtime/zero/stages.py::port_step_comm_extras``)."""
+        and the port's own ``update-all-gather`` and ``seq-grad-exchange``
+        (``runtime/zero/stages.py::port_step_comm_extras``), over one
+        ``model`` rank's elements; with the engine's ``comm_model`` and a
+        micro-batch's shape (``rows`` of ``seq_len`` tokens, this rank's
+        rows, every position), ``parallel``: the activations' collectives
+        of the model under tensor and sequence parallelism."""
         from deepspeed_tpu_torch.comm.strategy import step_comm_bytes
         from deepspeed_tpu_torch.runtime.zero.stages import port_step_comm_extras
 
@@ -315,10 +386,16 @@ class DeepSpeedEngine:
             reduce_scatter=self.config.zero_config.reduce_scatter, topology=self.topology)
         extras = port_step_comm_extras(
             self._comm_n_params, self.mesh_info.sizes, stage=self.zero_stage,
-            cross_replica=self.config.zero_config.cross_replica_weight_update)
-        return {"strategy": self._comm_grad_strategy,
-                "grad_exchange_bytes": model["grad-exchange"], "model": model,
-                "extras": extras, "table": self.comm.table()}
+            cross_replica=self.config.zero_config.cross_replica_weight_update,
+            gas=self.gradient_accumulation_steps)
+        out = {"strategy": self._comm_grad_strategy,
+               "grad_exchange_bytes": model["grad-exchange"], "model": model,
+               "extras": extras, "table": self.comm.table()}
+        if self._comm_model is not None and rows is not None:
+            out["parallel"] = self._comm_model(
+                dict(self.mesh.sizes), rows, seq_len, torch.finfo(self.compute_dtype).bits // 8,
+                gas=self.gradient_accumulation_steps, labels_given=labels_given)
+        return out
 
     def _init_resilience_and_overlap(self, config) -> None:
         """The ``resilience`` block (divergence guard, preemption watchdog,
@@ -495,7 +572,8 @@ class DeepSpeedEngine:
         return loss
 
     def _loss_of(self, params: Any, batch: Any, generator) -> torch.Tensor:
-        out = self._model_fn(params, batch, generator)
+        with ambient_mesh(self.mesh):
+            out = self._model_fn(params, batch, generator)
         loss = self._loss_fn(out, batch) if self._loss_fn is not None else out
         loss = torch.as_tensor(loss)
         return loss.mean() if loss.ndim != 0 else loss
@@ -517,10 +595,11 @@ class DeepSpeedEngine:
         stage says (stage 3's sharded leaves were reduced in the backward).
         A leaf the loss did not reach contributes zeros, so every rank
         issues the same collectives."""
+        reduces = self.dp_world_size * self.mesh.sizes["seq"] > 1
         for i, p in enumerate(self._params):
             g, p.grad = p.grad, None
             if g is None:
-                if self.dp_world_size == 1:
+                if not reduces:
                     continue
                 g = torch.zeros_like(p)
             if not self.layout.param_sharded(i):
@@ -551,19 +630,21 @@ class DeepSpeedEngine:
         if clip:
             sq = _sum_squares([g for i, g in enumerate(grads) if layout.update_owner(i)],
                               self.device)
-        if self.dp_world_size > 1:
-            # one all-reduce for the step's scalars: every rank clips,
-            # skips, reports and meets a preemption alike
+        if self.world_size > 1:
+            # one all-reduce over every rank for the step's scalars: every
+            # rank clips, skips, reports and meets a preemption alike; the
+            # loss, equal on a row's model and seq ranks, counts once
             from deepspeed_tpu_torch.comm import collectives
 
             zero = torch.zeros((), dtype=torch.float32, device=self.device)
             wd = self._watchdog
             preempt = torch.full((), float(wd is not None and wd.preemption_requested),
                                  dtype=torch.float32, device=self.device)
+            counts_loss = self.mesh.coords["model"] == 0 and self.mesh.coords["seq"] == 0
             vec = torch.stack([zero if sq is None else sq, overflow.float(),
-                               zero if loss is None else loss.float(), preempt])
-            vec = collectives.all_reduce(vec, self.mesh.group(("data", "fsdp")),
-                                         kind="step-scalars")
+                               zero if loss is None or not counts_loss else loss.float(),
+                               preempt])
+            vec = collectives.all_reduce(vec, self.mesh.world_group(), kind="step-scalars")
             sq, overflow = (vec[0] if clip else None), vec[1] > 0
             if loss is not None:
                 loss = vec[2] / self.dp_world_size
@@ -765,7 +846,7 @@ class DeepSpeedEngine:
         # across ranks the save is collective: a preemption any rank saw
         # (the step scalars' all-reduce) is every rank's
         preempt = wd is not None and (
-            self._peer_preempt if self.dp_world_size > 1 else wd.preemption_requested)
+            self._peer_preempt if self.world_size > 1 else wd.preemption_requested)
         if preempt:
             self._handle_preemption()
         guard = self._divergence_guard
@@ -791,7 +872,7 @@ class DeepSpeedEngine:
             f"preemption signal ({wd.signal_name}) received; attempting emergency "
             f"checkpoint ({wd.remaining():.0f}s of grace left)"
         )
-        if self.dp_world_size > 1 and not self._every_rank_can_save():
+        if self.world_size > 1 and not self._every_rank_can_save():
             logger.error("preempted, but a rank cannot save (no checkpoint dir or no grace "
                          "left); exiting WITHOUT saving")
             raise SystemExit(1)
@@ -835,7 +916,7 @@ class DeepSpeedEngine:
 
         ok = self._resilience_ckpt_dir is not None and self._watchdog.remaining() > 0
         flag = torch.full((), 0.0 if ok else 1.0, dtype=torch.float32, device=self.device)
-        return float(collectives.all_reduce(flag, self.mesh.group(("data", "fsdp")),
+        return float(collectives.all_reduce(flag, self.mesh.world_group(),
                                             kind="boundary-flags")) == 0.0
 
     def _apply_divergence_action(self, action: str) -> None:

@@ -10,6 +10,18 @@ checkpoints and ``engine.params`` hold it).  Leaves of
 ``ZeroShardingRules.plan_flat`` live as zero-padded 1-D vectors, as in
 the JAX engine's state.
 
+**Tensor parallelism.**  A leaf with a ``model`` entry in its specs (the
+tensor-parallel base spec, ``LeafLayout.tp_spec``) is held by each
+``model`` rank as its block of that spec: the block the model computes
+with, never gathered in the step (stage 3 gathers over ``fsdp`` only, up
+to the block).  The fused ``q|k|v`` leaves (``sharding/rules.py``
+``fused_tp_parts``) are stored head-grouped: their last dimension is
+permuted so that a contiguous cut gives rank ``r`` ``[q_r | k_r | v_r]``,
+the columns of its own heads.  ``natural``/``from_natural`` undo and
+apply the permutation, so checkpoints and ``engine.params`` keep the
+natural layout and a tag loads at any ``model`` size (ROADMAP C4: a
+rank's block of ``qkv`` is not the block JAX's ``NamedSharding`` gives).
+
 Stage 3 hands the model a :class:`ShardedLeaf` for each sharded leaf
 instead of a tensor.  The model calls :func:`materialize` where it uses
 one: the leaf is all-gathered in the compute type (once per forward: the
@@ -56,6 +68,10 @@ class LeafLayout:
     grad_spec: tuple
     opt_spec: tuple
     acc_spec: tuple
+    # the tensor-parallel base spec (the param spec's model entries) and,
+    # for a fused leaf cut over model, its number of packed parts
+    tp_spec: tuple = ()
+    parts: int = 1
 
     @property
     def numel(self) -> int:
@@ -65,14 +81,30 @@ class LeafLayout:
         return n
 
 
-def _sharded(mesh, spec) -> bool:
-    return any(mesh.size(entry_axes(e)) > 1 for e in spec)
+def _sharded(mesh, spec, skip: Sequence[str] = ()) -> bool:
+    return any(mesh.size([a for a in entry_axes(e) if a not in skip]) > 1 for e in spec)
+
+
+def _model_only(spec) -> tuple:
+    """A spec's ``model`` entries alone (the tensor-parallel base)."""
+    return tuple("model" if "model" in entry_axes(e) else None for e in spec)
+
+
+def _group_parts(t: torch.Tensor, parts: int, ranks: int, inverse: bool = False) -> torch.Tensor:
+    """The last dimension ``[part][rank][c]`` reordered ``[rank][part][c]``
+    (``inverse``: back)."""
+    n = t.shape[-1]
+    c = n // (parts * ranks)
+    a, b = (ranks, parts) if inverse else (parts, ranks)
+    return t.reshape(*t.shape[:-1], a, b, c).transpose(-3, -2).reshape(t.shape)
 
 
 class ZeroLayout:
     """The specs of every leaf on one mesh, and the moves between them."""
 
     def __init__(self, mesh, rules, shapes: Sequence[Tuple[int, ...]], paths: Sequence[str]):
+        from deepspeed_tpu_torch.sharding.rules import fused_tp_parts
+
         self.mesh = mesh
         self.rules = rules
         plan = rules.plan_flat(_shape_tree(paths, shapes))
@@ -88,15 +120,35 @@ class ZeroLayout:
             ps = spec_tuple(rules.param_spec(path, state_shape), nd)
             gs = spec_tuple(rules.grad_spec(path, state_shape), nd)
             os_ = spec_tuple(rules.opt_spec(path, state_shape), nd)
-            acc = ps if (_sharded(mesh, ps) and not _sharded(mesh, gs)) else gs
-            self.leaves.append(LeafLayout(path, shape, flat, state_shape, ps, gs, os_, acc))
+            # model cuts the three specs alike; the stage's own axes decide
+            acc = ps if (_sharded(mesh, ps, skip=("model",))
+                         and not _sharded(mesh, gs, skip=("model",))) else gs
+            tp = _model_only(ps)
+            parts = 1
+            if nd and tp[-1] == "model" and mesh.sizes["model"] > 1:
+                parts = fused_tp_parts(path)
+            self.leaves.append(LeafLayout(path, shape, flat, state_shape, ps, gs, os_, acc,
+                                          tp, parts))
 
     # -- predicates ---------------------------------------------------------
     def sharded(self, spec) -> bool:
         return _sharded(self.mesh, spec)
 
     def param_sharded(self, i: int) -> bool:
-        return self.sharded(self.leaves[i].param_spec)
+        """Whether stage 3 shards the parameter (over axes other than
+        ``model``): the model gathers it on use."""
+        return _sharded(self.mesh, self.leaves[i].param_spec, skip=("model",))
+
+    def tp_sharded(self, i: int) -> bool:
+        """Whether each ``model`` rank holds its own block of the leaf."""
+        return self.sharded(self.leaves[i].tp_spec)
+
+    def local_numel(self, i: int) -> int:
+        """Elements of leaf ``i``'s tensor-parallel block (its stored size
+        where ``model`` does not cut it)."""
+        leaf = self.leaves[i]
+        cut = self.mesh.sizes["model"] if self.tp_sharded(i) else 1
+        return leaf.numel // cut
 
     def update_sharded(self, i: int) -> bool:
         """Whether the optimizer state is cut finer than the parameter."""
@@ -108,7 +160,8 @@ class ZeroLayout:
         gradient norm: each element once, on the rank at coordinate 0 of
         every data-parallel axis that does not cut it."""
         cut = {a for e in self.leaves[i].opt_spec for a in entry_axes(e)}
-        return all(self.mesh.coords[a] == 0 for a in ("data", "fsdp") if a not in cut)
+        return all(self.mesh.coords[a] == 0 for a in ("data", "fsdp", "seq", "model")
+                   if a not in cut)
 
     def update_axes(self, i: int) -> Tuple[str, ...]:
         """The axes that cut leaf ``i``'s optimizer state (LAMB's norms sum
@@ -116,7 +169,7 @@ class ZeroLayout:
         cut = []
         for e in self.leaves[i].opt_spec:
             cut.extend(a for a in entry_axes(e) if self.mesh.sizes[a] > 1)
-        return tuple(a for a in ("data", "fsdp") if a in cut)
+        return tuple(a for a in ("data", "fsdp", "model") if a in cut)
 
     # -- moves ----------------------------------------------------------------
     def narrow(self, t: torch.Tensor, shape: Sequence[int], from_spec, to_spec) -> torch.Tensor:
@@ -167,29 +220,40 @@ class ZeroLayout:
         """The whole leaf in its natural shape from this rank's block ``t``
         of ``spec`` (a collective where ``spec`` cuts the leaf: call on
         every rank)."""
-        return self.from_state(i, self.gather(t, spec, (), kind))
+        whole = self.gather(t, spec, (), kind)
+        parts = self.leaves[i].parts
+        if parts > 1:
+            whole = _group_parts(whole, parts, self.mesh.sizes["model"], inverse=True)
+        return self.from_state(i, whole)
 
     def from_natural(self, i: int, full: torch.Tensor, spec) -> torch.Tensor:
         """This rank's block of ``spec`` from the whole natural leaf."""
         state = self.to_state(i, full)
+        parts = self.leaves[i].parts
+        if parts > 1:
+            state = _group_parts(state, parts, self.mesh.sizes["model"])
         return self.narrow(state, self.leaves[i].state_shape, (), spec)
 
     # -- gradients ------------------------------------------------------------
     def reduce_grad(self, i: int, g: torch.Tensor) -> torch.Tensor:
-        """One micro-step's whole gradient of leaf ``i`` (stored shape,
-        f32), summed over the data-parallel grid into the accumulator's
-        spec: the all-reduce over ``data`` (``grad-exchange``), then the
-        reduce-scatter over ``fsdp`` where the spec cuts the leaf, else the
-        all-reduce over ``fsdp``."""
+        """One micro-step's gradient of leaf ``i`` (its tensor-parallel
+        block in the stored shape, f32), summed over the data-parallel grid
+        into the accumulator's spec: the all-reduce over ``seq``
+        (``seq-grad-exchange``), the all-reduce over ``data``
+        (``grad-exchange``), then the reduce-scatter over ``fsdp`` where the
+        spec cuts the leaf, else the all-reduce over ``fsdp``."""
         return self.reduce_leaf(self.leaves[i], g)
 
     def reduce_leaf(self, leaf: LeafLayout, g: torch.Tensor) -> torch.Tensor:
         mesh = self.mesh
+        if mesh.sizes["seq"] > 1:
+            # each seq rank saw other positions: sum their gradients first
+            g = collectives.all_reduce(g, mesh.group(("seq",)), kind="seq-grad-exchange")
         if mesh.sizes["data"] > 1:
             g = collectives.all_reduce(g, mesh.group(("data",)), kind="grad-exchange")
         if mesh.sizes["fsdp"] > 1:
             dims = [d for d, e in enumerate(leaf.acc_spec) if "fsdp" in entry_axes(e)]
-            if dims and self.sharded(leaf.grad_spec):
+            if dims and _sharded(mesh, leaf.grad_spec, skip=("model",)):
                 g = collectives.reduce_scatter(g, mesh.group(("fsdp",)), dim=dims[0])
             else:
                 g = collectives.all_reduce(g, mesh.group(("fsdp",)))
@@ -258,10 +322,11 @@ class Stage3Context:
 
     def _gather_fn(self, i: int, dim_offset: int = 0):
         leaf = self.layout.leaves[i]
-        spec = leaf.param_spec[dim_offset:]
+        spec, to = leaf.param_spec[dim_offset:], leaf.tp_spec[dim_offset:]
 
         def gather(shard):
-            full = self.layout.gather(shard.to(self.dtype), spec, (), "all-gather")
+            # over fsdp only: up to the rank's tensor-parallel block
+            full = self.layout.gather(shard.to(self.dtype), spec, to, "all-gather")
             return self.layout.from_state(i, full) if dim_offset == 0 else full
 
         return gather
@@ -277,7 +342,7 @@ class Stage3Context:
             # one layer of a stacked leaf: the same reduction on its slice
             sub = LeafLayout(leaf.path, leaf.shape[1:], None, leaf.state_shape[1:],
                              leaf.param_spec[1:], leaf.grad_spec[1:], leaf.opt_spec[1:],
-                             leaf.acc_spec[1:])
+                             leaf.acc_spec[1:], leaf.tp_spec[1:])
             return layout.reduce_leaf(sub, g.contiguous())
 
         return reduce
@@ -351,7 +416,12 @@ class ShardedLeaf:
 
     @property
     def shape(self) -> torch.Size:
-        return torch.Size(self.ctx.layout.leaves[self.i].shape)
+        """The shape :func:`materialize` gives: the leaf's tensor-parallel
+        block."""
+        layout, leaf = self.ctx.layout, self.ctx.layout.leaves[self.i]
+        m = layout.mesh.sizes["model"]
+        return torch.Size(n // m if e == "model" and m > 1 else n
+                          for n, e in zip(leaf.shape, leaf.tp_spec))
 
     def layers(self) -> List[Any]:
         leaf = self.ctx.layout.leaves[self.i]

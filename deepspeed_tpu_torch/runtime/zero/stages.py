@@ -254,7 +254,12 @@ def zero_step_comm_model(
       ranks' preemption flags): 32 bytes;
     * ``lamb-norms`` — LAMB's two squared norms per sharded leaf: 16 bytes
       a leaf a step;
-    * ``checkpoint`` — the gathers of a save, outside the step.
+    * ``checkpoint`` — the gathers of a save, outside the step;
+    * ``seq-grad-exchange`` (:func:`port_step_comm_extras`) and the
+      activations' ``tp-all-reduce``, ``seq-p2p``, ``seq-all-to-all`` and
+      ``seq-loss`` (:func:`port_parallel_comm_model`), under tensor and
+      sequence parallelism; there ``n_params`` counts one ``model``
+      rank's blocks.
     """
     if fsdp <= 1:
         return {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0, "total": 0}
@@ -270,8 +275,11 @@ def port_step_comm_extras(
     stage: int,
     cross_replica: bool = True,
     master_bytes: int = 4,
+    gas: int = 1,
+    grad_bytes: int = 4,
 ) -> Dict[str, int]:
-    """The port's ``update-all-gather`` bytes a step: after a sharded
+    """The port's ``update-all-gather`` and ``seq-grad-exchange`` bytes a
+    step.  ``update-all-gather``: after a sharded
     update the f32 masters are gathered back to the parameter layout.  At
     stages 1 and 2 the masters are whole on every rank, so a sharded
     update gathers every master (``master_bytes * n_params``, the JAX
@@ -279,7 +287,11 @@ def port_step_comm_extras(
     and only the cross-replica ``data`` cut is gathered
     (``master_bytes * n_params / fsdp``).  First-order as
     :func:`zero_step_comm_model`: every leaf's update sharded (flat leaves
-    keep their fsdp-only layout)."""
+    keep their fsdp-only layout).  ``seq-grad-exchange``: every
+    micro-step's f32 gradient all-reduced over ``seq`` before the
+    data-parallel reduction (each ``seq`` rank saw other positions), ``2 *
+    n_params * grad_bytes * gas``.  ``n_params``: one ``model`` rank's
+    elements."""
     fsdp = mesh_sizes.get("fsdp", 1)
     data = mesh_sizes.get("data", 1)
     extra = data if (cross_replica and data > 1 and stage >= 1) else 1
@@ -289,4 +301,73 @@ def port_step_comm_extras(
         ag = master_bytes * n_params // fsdp if extra > 1 else 0
     else:
         ag = master_bytes * n_params if fsdp * extra > 1 else 0
-    return {"update-all-gather": int(ag)}
+    seq = mesh_sizes.get("seq", 1)
+    sg = 2 * n_params * grad_bytes * gas if seq > 1 else 0
+    return {"update-all-gather": int(ag), "seq-grad-exchange": int(sg)}
+
+
+def port_parallel_comm_model(
+    n_layer: int,
+    d_model: int,
+    rows: int,
+    T: int,
+    mesh_sizes: Dict[str, int],
+    loss_positions: int,
+    tp_extra_bytes: int = 0,
+    gas: int = 1,
+    act_bytes: int = 2,
+    attention_mode: str = "flash",
+    remat: bool = True,
+    xent_chunk: int = 0,
+    mlp_recompute: bool = False,
+) -> Dict[str, int]:
+    """Bytes a step of the activations' collectives under tensor and
+    sequence parallelism, first-order (the conventions of
+    ``comm/collectives.py``), for a stack of ``n_layer`` pre-/post-LN
+    blocks with a vocab-parallel embedding and tied head, ``rows`` rows of
+    ``T`` tokens a micro-step and ``act_bytes`` the compute type's size.
+    The model supplies what is its own: ``loss_positions`` (``N``, the
+    positions whose NLL a rank computes) and ``tp_extra_bytes`` (any
+    further ``model`` all-reduce a micro-step).  With ``Tl = T / seq`` and
+    ``a = rows * Tl * d_model * act_bytes`` (one rank's activations):
+
+    * ``tp-all-reduce`` (``model`` m > 1): a block all-reduces its
+      attention and MLP outputs forward (``reduce_from_model``) and the
+      gradients of their inputs backward (``copy_to_model``), ``4 * 2a``
+      a layer; under ``remat`` the recompute runs the attention's again,
+      and the MLP's only where something after it keeps a tensor for the
+      backward (``mlp_recompute``: hidden dropout's mask, a post-LN
+      LayerNorm) — ``torch.utils.checkpoint`` stops a recompute once it
+      has every tensor the backward needs;
+      the vocab-parallel embedding ``2a``; the tied head's input gradient
+      ``2a``; the vocab-parallel NLL over ``N`` positions, the max and
+      then the sum and the target (f32), ``24 N`` bytes, twice with
+      chunked cross-entropy (each chunk recomputed); ``tp_extra_bytes``.
+    * ``seq-p2p`` (``ring``, seq P > 1): K and V (``kv = a / m`` each) P-1
+      times forward (again in the recompute), backward K and V P-1 times
+      and the f32 dK and dV P times.
+    * ``seq-all-to-all`` (``ulysses``): q, k, v and the output forward
+      (again in the recompute), their gradients backward, ``a / m``
+      each.
+    * ``seq-loss``: the loss's (sum, count) all-reduced over ``seq``, 16
+      bytes.
+    """
+    m, P = mesh_sizes.get("model", 1), mesh_sizes.get("seq", 1)
+    Tl = T // P
+    a = rows * Tl * d_model * act_bytes
+    rc = 1 if remat else 0
+    out = {"tp-all-reduce": 0, "seq-p2p": 0, "seq-all-to-all": 0, "seq-loss": 0}
+    if m > 1:
+        tp = n_layer * (4 + rc * (1 + int(mlp_recompute))) * 2 * a + 2 * 2 * a
+        tp += 24 * loss_positions * (2 if xent_chunk > 0 else 1)
+        out["tp-all-reduce"] = tp + tp_extra_bytes
+    if P > 1:
+        kv = a // m
+        if attention_mode == "ring":
+            fwd = (P - 1) * 2 * kv
+            bwd = (P - 1) * 2 * kv + P * 2 * (kv // act_bytes) * 4
+            out["seq-p2p"] = n_layer * ((1 + rc) * fwd + bwd)
+        elif attention_mode == "ulysses":
+            out["seq-all-to-all"] = n_layer * (4 * (1 + rc) + 4) * kv
+        out["seq-loss"] = 16
+    return {k: int(v * gas) for k, v in out.items()}

@@ -2,10 +2,15 @@
 ``deepspeed_tpu/sharding/rules.py``; fmengine ``match_partition_rules`` /
 T5X logical-axes style).
 
-The port reads these tables for one thing so far: a leaf with a
-tensor-parallel base spec is kept out of ``ZeroShardingRules.plan_flat``
-and keeps its ``model`` entry in every spec.  A mesh whose ``model`` axis
-is larger than 1 raises (tensor parallelism is ROADMAP A6, second part).
+The port's engine reads these tables as the JAX engine does: a leaf
+with a tensor-parallel base spec is kept out of
+``ZeroShardingRules.plan_flat``, keeps its ``model`` entry in every spec,
+and each ``model`` rank holds its block of it; the models run the
+Megatron operators of ``parallel/tensor.py`` on those blocks.  One leaf
+kind is laid out otherwise than JAX's ``NamedSharding`` would cut it:
+:func:`fused_tp_parts` names the fused ``q|k|v`` projection, whose rank
+block is the columns of the rank's heads of each part
+(``runtime/zero/partition.py``).
 
 A rule table is an ordered sequence of ``(regex, PartitionSpec|None)``
 pairs matched against the ``/``-joined path of each parameter leaf;
@@ -328,6 +333,22 @@ def rules_for_config(model_config: Any, layout: SpecLayout = DEFAULT_LAYOUT) -> 
     raise ValueError(
         f"no built-in partition rules for model config {type(model_config).__name__}"
     )
+
+
+# leaves whose model-cut (last) dimension packs equal parts side by side:
+# GPT-2's and BERT's fused q|k|v projection.  JAX's P(None, None, 'model')
+# cuts the packed columns contiguously (at model 2, rank 0 would hold all
+# of q and half of k, and GSPMD reshards); a rank here holds
+# [q_r | k_r | v_r], the columns of its own heads of each part.
+FUSED_TP_PARTS: Tuple[Tuple[str, int], ...] = ((r"(^|/)qkv_[wb]$", 3),)
+
+
+def fused_tp_parts(path: str) -> int:
+    """How many equal parts a leaf's model-cut dimension packs (1: none)."""
+    for rx, parts in FUSED_TP_PARTS:
+        if re.search(rx, path):
+            return parts
+    return 1
 
 
 def family_catalog() -> Dict[str, int]:

@@ -1,5 +1,5 @@
-"""One rank of a ZeRO training run: trains the cases of a JSON spec and
-writes what each produced.
+"""One rank of a ZeRO, tensor- or sequence-parallel training run: trains
+the cases of a JSON spec and writes what each produced.
 
 Run it once per rank under a launcher environment (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``; or the
@@ -13,6 +13,7 @@ It imports torch and the port only.  The spec::
 
     {"device": "cpu" | "cuda", "init_method": null, "deterministic": true,
      "threads": 1, "out": "<dir>", "collectives_check": false,
+     "tp_ops_check": false, "seq_attention_check": null | "<npz: q, k, v, do>",
      "cases": [{"name": "s2", "model": "gpt2" | "bert", "preset": "tiny",
                 "model_cfg": {...}, "init_seed": 3, "config": {...},
                 "batches": "<npz: key -> (steps, global batch, ...)>"
@@ -24,9 +25,13 @@ It imports torch and the port only.  The spec::
 
 Each rank trains on its own rows of every global batch (micro-batch
 ``i``'s rows ``i*mb*dp + r*mb ...`` on data-parallel rank ``r``, the JAX
-engine's batch layout).  Rank 0 writes ``<out>/<name>.json`` (losses, the
-collective bytes of every step by kind, the comm model, ms a step, peak
-device memory, kernel launches, the backend) and, for ``record: full``,
+engine's batch layout); the ``model`` and ``seq`` ranks of a row take the
+same rows, whole (the model cuts a ``seq`` rank's positions).  A mesh
+with a ``model`` axis gets the model's ``tp_spec_fn``.  Rank 0 writes
+``<out>/<name>.json`` (losses, the collective bytes of every step by
+kind, the comm models, ms a step, peak device memory, kernel launches,
+the backend, and ``replicas_equal``: whether every rank holding the same
+block of a leaf holds the same bits of its master) and, for ``record: full``,
 ``<out>/<name>.npz`` with every tensor of the state, whole, by checkpoint
 name; ``record: digest`` writes a sha256 of each instead, ``none``
 nothing.  A case with
@@ -34,11 +39,15 @@ nothing.  A case with
 loaded state as it is); ``sigterm`` sends SIGTERM to one rank after a
 step (with ``resilience.watchdog`` on, every rank saves and exits 43).
 ``collectives_check`` first runs
-:func:`check_collectives` and writes ``<out>/collectives.json``.
+:func:`check_collectives` and writes ``<out>/collectives.json``;
+``tp_ops_check`` runs :func:`check_tp_ops` and writes
+``<out>/tp_ops.json``; ``seq_attention_check`` runs
+:func:`check_seq_attention` and writes ``<out>/seq_attention.npz``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -56,8 +65,10 @@ def _model(case):
     else:
         from deepspeed_tpu_torch.models import gpt2 as mod
     cfg = dataclasses.replace(mod.PRESETS[case.get("preset", "tiny")], **case.get("model_cfg", {}))
-    model_fn, init_fn, _ = mod.make_model(cfg)
-    return cfg, model_fn, init_fn
+    model_fn, init_fn, tp_fn = mod.make_model(cfg)
+    hooks = {"mesh_check": functools.partial(mod.check_mesh, cfg),
+             "comm_model": functools.partial(mod.parallel_comm_model, cfg)}
+    return cfg, model_fn, init_fn, tp_fn, hooks
 
 
 def _batches(case, cfg, global_rows: int):
@@ -89,15 +100,50 @@ def _record(engine):
     return {n: t.detach().cpu() for n, t in _state_tensors(engine).items()}
 
 
+def _digest(t: torch.Tensor) -> str:
+    t = t.detach().cpu().reshape(-1).contiguous()
+    return hashlib.sha256(t.view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def _replicas(engine):
+    """Every leaf's master as this rank holds it, hashed, and the
+    coordinates of the axes that cut it: ranks at the same coordinates
+    hold the same block and must hold the same bits (a replicated leaf on
+    every ``model`` rank among them)."""
+    from deepspeed_tpu_torch.sharding.spec import entry_axes
+
+    out = {}
+    for i, p in enumerate(engine._params):
+        leaf = engine.layout.leaves[i]
+        cut = sorted({a for e in leaf.param_spec for a in entry_axes(e)
+                      if engine.mesh.sizes[a] > 1})
+        out[leaf.path] = (_digest(p), tuple(engine.mesh.coords[a] for a in cut))
+    return out
+
+
+def _replicas_equal(per_rank):
+    """``{leaf: bool}`` from every rank's :func:`_replicas`."""
+    equal = {}
+    for path in per_rank[0]:
+        seen = {}
+        ok = True
+        for rep in per_rank:
+            digest, coords = rep[path]
+            ok &= seen.setdefault(coords, digest) == digest
+        equal[path] = bool(ok)
+    return equal
+
+
 def run_case(case, device, out_dir, rank):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import collectives
     from deepspeed_tpu_torch.ops import kernels
 
-    cfg, model_fn, init_fn = _model(case)
+    cfg, model_fn, init_fn, tp_fn, hooks = _model(case)
+    tp = int(case["config"].get("mesh", {}).get("model", 1)) > 1
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model_fn, model_parameters=init_fn(seed=int(case.get("init_seed", 0))),
-        config=case["config"], device=device)
+        config=case["config"], device=device, tp_spec_fn=tp_fn if tp else None, **hooks)
     if "load" in case:
         engine.load_checkpoint(case["load"]["dir"], tag=case["load"].get("tag"))
     global_rows = (engine.gradient_accumulation_steps * engine.train_micro_batch_size_per_gpu
@@ -132,24 +178,29 @@ def run_case(case, device, out_dir, rank):
     record = case.get("record", "full")
     state = _record(engine) if record != "none" else {}
     peak = int(torch.cuda.max_memory_allocated(engine.device)) if cuda else None
-    peaks = (collectives.host_allgather(peak) if torch.distributed.is_initialized()
-             else [peak])
+    dist_on = torch.distributed.is_initialized()
+    peaks = collectives.host_allgather(peak) if dist_on else [peak]
+    replicas = collectives.host_allgather(_replicas(engine)) if dist_on else [_replicas(engine)]
     if rank != 0:
         return
-    summary = engine.comm_summary()
+    # the activations' bytes at the micro-batch's shape (none without a step)
+    shape = ({} if not batches else
+             {"rows": engine.train_micro_batch_size_per_gpu,
+              "seq_len": int(batches[-1]["input_ids"].shape[-1]),
+              "labels_given": "labels" in batches[-1]})
+    summary = engine.comm_summary(**shape)
     result = {
         "name": case["name"], "losses": losses, "comm": comm, "ms": ms,
         "world_size": engine.world_size, "mesh": engine.mesh.sizes,
         "model": summary["model"], "extras": summary["extras"], "table": summary["table"],
+        "parallel": summary.get("parallel"), "replicas_equal": _replicas_equal(replicas),
         "n_params": engine._comm_n_params, "launches": launches, "variants": variants,
         "backend": (torch.distributed.get_backend() if torch.distributed.is_initialized()
                     else None),
         "peak_bytes": peak, "peak_bytes_by_rank": peaks,
     }
     if record == "digest":
-        result["digests"] = {
-            n: hashlib.sha256(t.reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
-            .hexdigest() for n, t in state.items()}
+        result["digests"] = {n: _digest(t) for n, t in state.items()}
     elif record == "full":
         np.savez(os.path.join(out_dir, case["name"] + ".npz"),
                  **{n: t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
@@ -224,6 +275,118 @@ def check_collectives(device, out_dir, rank) -> None:
                        "ok": all(r["ok"] for r in rows)}, f)
 
 
+def check_tp_ops(device, out_dir, rank) -> None:
+    """The vocab-parallel embedding and NLL of ``parallel/tensor.py`` over
+    the whole started group as the ``model`` group, at GPT-2 124M's widths
+    (vocab 50304, d 768) on 8 rows of 1024 tokens, in f32 and bf16: every
+    rank holds its vocabulary block of one table drawn from a seed, and
+    the results and the gradients of its block are held against the plain
+    embedding and ``token_nll`` on the whole table.  The embedding is a
+    sum of one nonzero row and zeros (0 error); the NLL's sums run in
+    another order: within ``TP_NLL_RTOL`` of its largest entry, its
+    gradients within ``TP_NLL_RTOL`` of theirs.  Rank 0 writes
+    ``<out>/tp_ops.json``."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.ops.normalize import token_nll
+    from deepspeed_tpu_torch.parallel.tensor import (
+        TPGroup,
+        vocab_parallel_embedding,
+        vocab_parallel_nll,
+    )
+
+    world = dist.get_world_size()
+    tp = TPGroup(dist.group.WORLD, world, rank)
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    V, D, B, T = 50304, 768, 8, 1024
+    n = V // world
+    rows = []
+    g = torch.Generator().manual_seed(4321)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = (torch.randn(V, D, generator=g) * 0.02).to(dtype).to(dev)
+        tokens = torch.randint(0, V, (B, T), generator=g).to(dev)
+        mine = table[rank * n:(rank + 1) * n].clone().requires_grad_(True)
+        whole = table.clone().requires_grad_(True)
+        got = vocab_parallel_embedding(mine, tokens, tp)
+        want = whole[tokens]
+        up = (torch.randn(B, T, D, generator=g)).to(dtype).to(dev)
+        got.backward(up)
+        want.backward(up)
+        emb_err = float((got.double() - want.double()).abs().max())
+        emb_grad_err = float((mine.grad.double() - whole.grad[rank * n:(rank + 1) * n].double())
+                             .abs().max())
+        logits = torch.randn(B, T, V, generator=g).to(dtype).to(dev)
+        labels = torch.randint(0, V, (B, T), generator=g).to(dev)
+        lm = logits[..., rank * n:(rank + 1) * n].clone().requires_grad_(True)
+        lw = logits.clone().requires_grad_(True)
+        nll = vocab_parallel_nll(lm, labels, tp)
+        ref = token_nll(lw, labels)
+        cot = torch.rand(B, T, generator=g).to(dev)
+        nll.backward(cot)
+        ref.backward(cot)
+        nll_err = float((nll.double() - ref.double()).abs().max() / ref.double().abs().max())
+        gw = lw.grad[..., rank * n:(rank + 1) * n].double()
+        nll_grad_err = float((lm.grad.double() - gw).abs().max() / gw.abs().max())
+        rows.append({"dtype": str(dtype).replace("torch.", ""), "V": V, "D": D, "B": B, "T": T,
+                     "embedding_max_err": emb_err, "embedding_grad_max_err": emb_grad_err,
+                     "nll_rel_err": nll_err, "nll_grad_rel_err": nll_grad_err,
+                     "tol": TP_NLL_RTOL, "grad_tol": TP_NLL_GRAD_RTOL[dtype],
+                     "ok": bool(emb_err == 0.0 and emb_grad_err == 0.0
+                                and nll_err <= TP_NLL_RTOL
+                                and nll_grad_err <= TP_NLL_GRAD_RTOL[dtype])})
+    if rank == 0:
+        with open(os.path.join(out_dir, "tp_ops.json"), "w") as f:
+            json.dump({"backend": dist.get_backend(), "world_size": world, "rows": rows,
+                       "ok": all(r["ok"] for r in rows)}, f)
+
+
+def check_seq_attention(inputs, device, out_dir, rank) -> None:
+    """``ring_attention`` and ``ulysses_attention`` with every started rank
+    on the ``seq`` axis, causal and full, forward and backward: the
+    whole ``(B, H, T, d)`` q, k, v and output cotangent ``do`` of
+    ``inputs`` (an npz), each rank its positions; the outputs and the
+    gradients gathered whole.  Rank 0 writes them to
+    ``<out>/seq_attention.npz`` as ``<ring|ulysses>_<causal|full>_<out|dq|dk|dv>``
+    (the caller holds them to a reference)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import collectives
+    from deepspeed_tpu_torch.comm.mesh import make_mesh
+    from deepspeed_tpu_torch.parallel.sequence import ring_attention, ulysses_attention
+
+    world = dist.get_world_size()
+    mesh = make_mesh({"data": 1, "seq": world})
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    with np.load(inputs) as z:
+        whole = {k: torch.from_numpy(z[k]).to(dev) for k in ("q", "k", "v", "do")}
+    T = whole["q"].shape[2]
+    pos = slice(rank * T // world, (rank + 1) * T // world)
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        for causal in (True, False):
+            q, k, v = (whole[n][:, :, pos].clone().requires_grad_(True) for n in ("q", "k", "v"))
+            o = fn(q, k, v, causal=causal, mesh=mesh)
+            o.backward(whole["do"][:, :, pos])
+            tag = f"{name}_{'causal' if causal else 'full'}"
+            for key, t in (("out", o), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
+                t = collectives.all_gather(t.detach().contiguous(), mesh.world_group(), dim=2,
+                                           kind="check")
+                out[f"{tag}_{key}"] = t.float().cpu().numpy()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "seq_attention.npz"), **out)
+
+
+# vocab_parallel_nll against token_nll on the same logits, relative to the
+# largest entry: the log-sum-exp over 50,304 columns summed in f32 in
+# another order (per rank, then across ranks) — a few f32 roundings of a
+# sum of ~5e4 terms (bf16 logits are upcast on both sides).  The
+# gradient's softmax divides by that sum; in bf16 each side rounds its
+# f32 gradient to bf16, so an entry may land one bf16 spacing (2**-8
+# relative) apart
+TP_NLL_RTOL = 1e-5
+TP_NLL_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     with open(argv[0]) as f:
@@ -243,6 +406,11 @@ def main(argv=None) -> int:
     try:
         if spec.get("collectives_check"):
             check_collectives(device, spec["out"], distributed.get_rank())
+        if spec.get("tp_ops_check"):
+            check_tp_ops(device, spec["out"], distributed.get_rank())
+        if spec.get("seq_attention_check"):
+            check_seq_attention(spec["seq_attention_check"], device, spec["out"],
+                                distributed.get_rank())
         for case in spec.get("cases", []):
             run_case(case, device, spec["out"], distributed.get_rank())
     finally:

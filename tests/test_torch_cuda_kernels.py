@@ -899,3 +899,53 @@ def test_nccl_collectives_at_world_1(dev, tmp_path):
     assert {r["dtype"] for r in out["rows"]} == {"float32", "bfloat16"}
     bad = [r for r in out["rows"] if not r["ok"]]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_virtual_ring_matches_dense_flash(dev, dtype, causal):
+    """Ring attention's schedule over 4 virtual ranks on one card
+    (``parallel.sequence.VirtualRing``): its blocks are B1 with its lse and
+    B2 with the merged lse (a causal ring of 4 runs 10 blocks each way, a
+    full one 16), against dense B1/B2 over the whole sequence.  The
+    output within the dtype's tolerance; f32 gradients entry by entry
+    within 2e-5 times |entry| plus half the rms; bf16 gradients against
+    the float64 function within the ring's bound (``ring_bwd_float64``:
+    every block's bf16 contract, its f32 sum and last rounding; the ring's
+    lse and delta given); a second backward the same bits."""
+    from deepspeed_tpu_torch.parallel import sequence as sq
+
+    B, H, T, d, P = 1, 4, 1024, 64, 4
+    q, k, v, do = (_randn(dev, B, H, T, d, seed=s).to(dtype) for s in range(4))
+    scale = d ** -0.5
+    kernels.reset_launches()
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = sq.ring_attention(*leaves, causal=causal, ring=sq.VirtualRing(P))
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    blocks = P * (P + 1) // 2 if causal else P * P
+    assert kernels.launches()["flash_fwd"] == 2 * blocks
+    assert kernels.launches()["flash_bwd"] == 2 * blocks
+    body = "tc" if dtype == torch.bfloat16 else "simt"
+    assert all(v.endswith("/" + body) for v in kernels.launch_variants()["flash_fwd"])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    ref, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, want_lse=True)
+    assert _err(out, ref) <= TOL[dtype]
+    qs, ks, vs = (list(t.chunk(P, dim=2)) for t in (q, k, v))
+    ring = sq.VirtualRing(P)
+    outs, lses = sq.ring_forward([t.contiguous() for t in qs], [t.contiguous() for t in ks],
+                                 [t.contiguous() for t in vs], ring, causal, scale)
+    ring_lse = torch.cat(lses, dim=2)
+    assert _err(ring_lse, lse) <= 1e-4
+    delta = (do.float() * out.detach().float()).sum(-1)
+    if dtype == torch.float32:
+        want = fa.flash_bwd_cuda(q, k, v, do, lse, delta, causal, scale)
+        for g, w in zip(grads[0], want):
+            bound = 2e-5 * (w.abs() + 0.5 * w.square().mean().sqrt())
+            assert bool(((g - w).abs() <= bound).all())
+    else:
+        witness = sq.ring_bwd_float64(q, k, v, do, ring_lse, delta, P, causal, scale)
+        assert max(fa.float64_over_bound(grads[0], witness)) <= 1.0

@@ -80,6 +80,9 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/runtime/zero/utils.py",
     "deepspeed_tpu_torch/tools/zero_worker.py",
     "deepspeed_tpu_torch/tools/profile_zero.py",
+    "deepspeed_tpu_torch/parallel/__init__.py",
+    "deepspeed_tpu_torch/parallel/sequence.py",
+    "deepspeed_tpu_torch/parallel/tensor.py",
 )
 # the layers above the ops, which no op module may import
 ABOVE_OPS = ("deepspeed_tpu_torch.models", "deepspeed_tpu_torch.inference",

@@ -17,7 +17,10 @@ the port's auto route is gather, as the JAX package's is off the TPU.
   (``_SplashAttention``, under remat, with the kernels' plain versions
   off the card) against ``backend="gather"``: losses within 1e-5
   relative, the bound chip_smoke.py holds the kernels to on the card.
-* ``"ring"`` and ``"ulysses"`` raise ``NotImplementedError`` naming A6.
+* ``"ring"`` and ``"ulysses"`` (refused until they were ported) build and
+  train: with one ``seq`` rank both fall back to flash attention, as in
+  the JAX package, so two steps give flash's losses and masters bit for
+  bit; without a mesh they raise the JAX package's error.
 """
 import dataclasses
 
@@ -118,8 +121,29 @@ def test_sparse_steps_through_the_splash_function_equal_the_gather_path(monkeypa
 
 @pytest.mark.parametrize("mode", ["ring", "ulysses"])
 def test_sequence_parallel_modes_are_refused_naming_a6(mode):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tgpt2.GPT2Config(attention_mode=mode)
+    """The id is the refusal's, kept; the modes now run (multi-rank parity:
+    tests/test_torch_sequence_parallel.py)."""
+    ids = np.random.default_rng(5).integers(0, tgpt2.GPT2_TINY.vocab_size, (2, 4, T))
+    runs = {}
+    # the embedding's backward sums in thread order otherwise
+    torch.use_deterministic_algorithms(True)
+    try:
+        for m in ("flash", mode):
+            cfg = dataclasses.replace(tgpt2.GPT2_TINY, n_positions=T, attention_mode=m)
+            model_fn, init_fn, _ = tgpt2.make_model(cfg)
+            eng, *_ = deepspeed_tpu_torch.initialize(
+                model=model_fn, model_parameters=init_fn(seed=3), device="cpu",
+                config={**_config(), "mesh": {"data": 1, "seq": 1, "model": 1}})
+            losses = [float(eng.train_batch({"input_ids": ids[s]})) for s in range(2)]
+            runs[m] = (losses, [p.detach().clone() for p in eng._params])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert runs[mode][0] == runs["flash"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[mode][1], runs["flash"][1]))
+    cfg = dataclasses.replace(tgpt2.GPT2_TINY, n_positions=T, attention_mode=mode)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tgpt2.apply(tgpt2.params_from_jax(jgpt2.init_params(jgpt2.GPT2_TINY, seed=0)),
+                    torch.zeros(1, 8, dtype=torch.long), cfg)
 
 
 def test_unknown_attention_mode_raises_as_the_jax_package_does():

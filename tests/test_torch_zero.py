@@ -80,10 +80,10 @@ def _bert_config(mesh, gas=GAS, stage=2):
             "zero_optimization": {"stage": stage, "stage3_param_persistence_threshold": 0}}
 
 
-def _launch(world, cases, tmp, name=None, rc=0):
+def _launch(world, cases, tmp, name=None, rc=0, extra=None):
     name = name or str(world)
     spec = {"device": "cpu", "init_method": f"file://{tmp}/store{name}", "out": str(tmp),
-            "cases": cases}
+            "cases": cases, **(extra or {})}
     path = tmp / f"spec{name}.json"
     path.write_text(json.dumps(spec))
     procs = []
@@ -125,18 +125,21 @@ def _one_process(cfg_dict, model, batches, steps, load=None, save=None):
     return losses, {n: t.detach().clone() for n, t in _state_tensors(eng).items()}
 
 
-def _jax(model, mesh, stage, batches, gas=GAS):
+def _jax(model, mesh, stage, batches, gas=GAS, mode="flash"):
+    """The JAX engine on a host mesh of ``mesh``'s shape (any of ``data``,
+    ``fsdp``, ``seq``, ``model``) with the family's tensor-parallel specs:
+    the losses and the final masters by checkpoint name."""
+    sizes = {a: mesh.get(a, 1) for a in ("data", "fsdp", "seq", "model")}
     if model == "bert":
         cfg = jbert.BERT_TINY
         model_fn, init_fn, tp_fn = jbert.make_model(cfg)
-        config = _bert_config(mesh, gas=gas)
+        config = _bert_config(sizes, gas=gas)
     else:
-        cfg = dataclasses.replace(jgpt2.GPT2_TINY, n_positions=T)
+        cfg = dataclasses.replace(jgpt2.GPT2_TINY, n_positions=T, attention_mode=mode)
         model_fn, init_fn, tp_fn = jgpt2.make_model(cfg)
-        config = _gpt2_config(stage, mesh)
-    world = mesh["data"] * mesh["fsdp"]
-    jmesh = make_mesh(MeshConfig(data=mesh["data"], fsdp=mesh["fsdp"]),
-                      devices=jax.devices()[:world])
+        config = _gpt2_config(stage, sizes)
+    world = int(np.prod(list(sizes.values())))
+    jmesh = make_mesh(MeshConfig(**sizes), devices=jax.devices()[:world])
     eng, *_ = deepspeed_tpu.initialize(model=model_fn, model_parameters=init_fn(seed=3),
                                        config=config, mesh=jmesh, tp_spec_fn=tp_fn)
     losses = [float(eng.train_batch({k: v[s] for k, v in batches.items()}))

@@ -286,8 +286,8 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
                             "stage3_param_persistence_threshold": 2}}, "error", None),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "raise", "A12"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "raise", "A12"),
-    ({"mesh": {"model": 2}}, "raise", "A6"),
-    ({"mesh": {"seq": 2}}, "raise", "A6"),
+    ({"mesh": {"model": 2}}, "parse", None),
+    ({"mesh": {"seq": 2}}, "parse", None),
     ({"mesh": {"pipe": 2}}, "raise", "A11"),
     ({"mesh": {"expert": 2}}, "raise", "A11"),
     ({"mesh": {"dat": 2}}, "error", None),
@@ -298,8 +298,14 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
 def test_config_refusals(d, exc, match):
     """Invalid blocks raise in both packages; blocks the JAX package takes
     but the port does not honour yet raise NotImplementedError naming their
-    ROADMAP item."""
+    ROADMAP item.  A ``model`` or ``seq`` axis parses in both, alike
+    (tensor and sequence parallelism run since they were ported)."""
     d = {"train_batch_size": 8, **d}
+    if exc == "parse":
+        j = jconfig.DeepSpeedConfig(d, world_size=1).mesh
+        t = tconfig.DeepSpeedConfig(d).mesh
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        return
     if exc == "error":
         with pytest.raises(jconfig.DeepSpeedConfigError):
             jconfig.DeepSpeedConfig(d, world_size=1)
