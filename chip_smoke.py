@@ -18,7 +18,9 @@ Phases, each printing one JSON line:
    BERT-large's key-padding bias at B=8, H=16, T=512 with its lse; flash decode
    over an 8-slot, 1024-position cache in f32, bf16 and int8, with and
    without a key-padding mask (split over keys: every row the same bits
-   over two launches, f32 within 1e-6 of its split plain version); flash
+   over two launches, f32 within 1e-6 of its split plain version), and in
+   bf16 at a tensor-parallel rank's heads (3 at d 64: GPT-2 over 4 ranks;
+   5 at d 128: GPT-Neo-2.7B over 4), the paged decode likewise; flash
    backward at B=8, H=12, d=64, T=1024 in
    bf16 and f32, T=256 and a ragged T=1000, and with the key-padding bias
    at B=8, H=16, T=512 in bf16 and f32; fused Adam over GPT-2 124M's
@@ -126,6 +128,17 @@ Phases, each printing one JSON line:
    vocab-parallel embedding and NLL over a group of one at GPT-2's widths
    against the plain embedding (exact) and ``token_nll`` (1e-5).
    ``training_tp_seq`` counts (a)'s pass and (b)'s two runs.
+   Then ``serve_tp_bf16``: tensor-parallel serving at world size 1.
+   ``train_zero_bf16``'s child also saves GPT-2 124M's initial state
+   (``init_params`` seed 0) as a tag; a second child under the launcher
+   environment runs ``deepspeed_tpu_torch/tools/serve_worker.py`` over
+   NCCL: ``init_serving(mp_size=1, checkpoint=<tag>)`` in bf16 (a
+   ``model`` group of one) serves ``request_mix(seed=0)`` through the slot
+   pool, ``paged_request_mix(seed=0)`` through the paged pool and
+   ``serve_bf16``'s ``generate()``: every token bit for bit those of
+   ``serve_bf16`` and ``serve_paged_bf16``, 0 bytes counted, B1 (tc), B4
+   and B5 launched (``serving_tp``); an ``init_on_device`` engine holds
+   GPT-2 124M's shapes in bf16, finite.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
    ``paged_request_mix(seed=0)``: 16 requests sharing a 200-token prefix
@@ -196,7 +209,7 @@ Phases, each printing one JSON line:
 16. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
-   (``launches_by_path``: serving, serving_paged, training,
+   (``launches_by_path``: serving, serving_paged, serving_tp, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
@@ -489,74 +502,90 @@ def _decode_cost(kv, pos, kpm, B, H, S, d, q_item):
     return nbytes, 4 * rows * H * d
 
 
+# a tensor-parallel rank's heads at mp_size 4 (serve_tp_bf16): GPT-2's 12
+# (d 64) and GPT-Neo-2.7B's 20 (d 128) over four ranks
+TP_DECODE_HEADS = ((3, 64), (5, 128))
+
+
+def _decode_row(torch, F, fd, dev, flush, kv, masked, B, H, S, d):
+    q, kc, vc, pos, kpm = _decode_inputs(torch, dev, kv, masked, B, H, S, d)
+    out = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
+    again = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
+    ref = fd.flash_decode_reference(q, kc, vc, pos, key_padding_mask=kpm)
+    split = fd.flash_decode_split_reference(q, kc, vc, pos, key_padding_mask=kpm)
+    torch.cuda.synchronize()
+    qname = str(q.dtype).replace("torch.", "")
+    label = f"flash_decode {kv} masked={masked} H={H} d={d}"
+    err, tol = max_err(out, ref), TOL[qname]
+    split_err = max_err(out, split)
+    check(torch.isfinite(out).all().item(), f"{label}: non-finite")
+    check(err <= tol, f"{label}: max_err {err} > tol {tol}")
+    check(torch.equal(out, again), f"{label}: differs between two launches")
+    if qname == "float32":
+        check(split_err <= DECODE_SPLIT_TOL, f"{label}: {split_err} from its split plain "
+                                             f"version > {DECODE_SPLIT_TOL}")
+    pos_h, kpm_h = pos.cpu(), (kpm.cpu() if kpm is not None else None)
+    nbytes, flops = _decode_cost(kv, pos_h, kpm_h, B, H, S, d, q.element_size())
+    b_ms, b_by = bound_ms(nbytes, flops, qname)
+    library_ms = None
+    if kv != "int8":
+        allowed = torch.arange(S, device=dev)[None, :] <= pos[:, None].long()
+        if kpm is not None:
+            allowed = allowed & kpm
+        amask = allowed[:, None, None, :]
+        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kc, vc, attn_mask=amask), flush)
+    row = {
+        "phase": "kernel", "kernel": "flash_decode", "B": B, "H": H, "S": S, "d": d,
+        "kv": kv, "q_dtype": qname, "masked": masked, "pos": pos_h.tolist(),
+        "max_err": err, "tol": tol, "split_plain_max_err": split_err,
+        "split_plain_tol": DECODE_SPLIT_TOL if qname == "float32" else None,
+        "splits": -(-S // fd.DECODE_CHUNK), "bitwise_repeatable": True,
+        "kernel_ms": device_ms(torch, lambda: fd.flash_decode_cuda(
+            q, kc, vc, pos, key_padding_mask=kpm), flush),
+        "plain_ms": device_ms(torch, lambda: fd.flash_decode_reference(
+            q, kc, vc, pos, key_padding_mask=kpm), flush),
+        "library_ms": library_ms,
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    emit(row)
+    return row
+
+
 def check_flash_decode(torch, dev, flush):
+    """B4 at the slot pool's serving shape (8 slots x 1024 positions, GPT-2's
+    12 heads) in bf16, int8 and f32, with and without a key mask; then in
+    bf16 at a tensor-parallel rank's heads (:data:`TP_DECODE_HEADS`)."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.kernels import flash_decode as fd
 
-    B, H, S, d = 8, 12, 1024, 64
-    rows = []
-    for kv in ("bfloat16", "int8", "float32"):
-        for masked in (False, True):
-            q, kc, vc, pos, kpm = _decode_inputs(torch, dev, kv, masked, B, H, S, d)
-            out = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
-            again = fd.flash_decode_cuda(q, kc, vc, pos, key_padding_mask=kpm)
-            ref = fd.flash_decode_reference(q, kc, vc, pos, key_padding_mask=kpm)
-            split = fd.flash_decode_split_reference(q, kc, vc, pos, key_padding_mask=kpm)
-            torch.cuda.synchronize()
-            qname = str(q.dtype).replace("torch.", "")
-            label = f"flash_decode {kv} masked={masked}"
-            err, tol = max_err(out, ref), TOL[qname]
-            split_err = max_err(out, split)
-            check(torch.isfinite(out).all().item(), f"{label}: non-finite")
-            check(err <= tol, f"{label}: max_err {err} > tol {tol}")
-            check(torch.equal(out, again), f"{label}: differs between two launches")
-            if qname == "float32":
-                check(split_err <= DECODE_SPLIT_TOL, f"{label}: {split_err} from its split plain "
-                                                     f"version > {DECODE_SPLIT_TOL}")
-            pos_h, kpm_h = pos.cpu(), (kpm.cpu() if kpm is not None else None)
-            nbytes, flops = _decode_cost(kv, pos_h, kpm_h, B, H, S, d, q.element_size())
-            b_ms, b_by = bound_ms(nbytes, flops, qname)
-            library_ms = None
-            if kv != "int8":
-                allowed = torch.arange(S, device=dev)[None, :] <= pos[:, None].long()
-                if kpm is not None:
-                    allowed = allowed & kpm
-                amask = allowed[:, None, None, :]
-                library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, kc, vc, attn_mask=amask), flush)
-            row = {
-                "phase": "kernel", "kernel": "flash_decode", "B": B, "H": H, "S": S, "d": d,
-                "kv": kv, "q_dtype": qname, "masked": masked, "pos": pos_h.tolist(),
-                "max_err": err, "tol": tol, "split_plain_max_err": split_err,
-                "split_plain_tol": DECODE_SPLIT_TOL if qname == "float32" else None,
-                "splits": -(-S // fd.DECODE_CHUNK), "bitwise_repeatable": True,
-                "kernel_ms": device_ms(torch, lambda: fd.flash_decode_cuda(
-                    q, kc, vc, pos, key_padding_mask=kpm), flush),
-                "plain_ms": device_ms(torch, lambda: fd.flash_decode_reference(
-                    q, kc, vc, pos, key_padding_mask=kpm), flush),
-                "library_ms": library_ms,
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
-            emit(row)
-            rows.append(row)
+    B, S = 8, 1024
+    rows = [_decode_row(torch, F, fd, dev, flush, kv, masked, B, 12, S, 64)
+            for kv in ("bfloat16", "int8", "float32") for masked in (False, True)]
+    rows += [_decode_row(torch, F, fd, dev, flush, "bfloat16", False, B, H, S, d)
+             for H, d in TP_DECODE_HEADS]
     return rows
 
 
 def check_flash_decode_paged(torch, dev, flush):
     """B5 at the paged pool's serving shape: 8 slots x 8 pages of 128 rows
     over a permuted 129-page pool (the default 1 + 2 x 64), ragged
-    positions, in bf16, f32 and int8; against its plain version and, bit
-    for bit, against B4 over the gathered contiguous view."""
+    positions, in bf16, f32 and int8 at GPT-2's 12 heads and in bf16 at a
+    tensor-parallel rank's (:data:`TP_DECODE_HEADS`); against its plain
+    version and, bit for bit, against B4 over the gathered contiguous
+    view."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.kernels import flash_decode as fd
     from deepspeed_tpu_torch.ops.transformer.inference import _kv_quant
 
-    B, H, P, page_len, d = 8, 12, 8, 128, 64
+    B, P, page_len = 8, 8, 128
     S, NP = P * page_len, 1 + 2 * B * P
     rows = []
-    for kv in ("bfloat16", "int8", "float32"):
+    shapes = [(kv, 12, 64) for kv in ("bfloat16", "int8", "float32")]
+    shapes += [("bfloat16", H, d) for H, d in TP_DECODE_HEADS]  # a tensor-parallel rank's
+    for kv, H, d in shapes:
         g = torch.Generator(device=dev).manual_seed(4321)
         qdtype = torch.float32 if kv == "float32" else torch.bfloat16
         q = torch.randn(B, H, 1, d, generator=g, device=dev).to(qdtype)
@@ -577,10 +606,11 @@ def check_flash_decode_paged(torch, dev, flush):
         torch.cuda.synchronize()
         qname = str(qdtype).replace("torch.", "")
         err, tol = max_err(out, ref), TOL[qname]
-        check(torch.isfinite(out).all().item(), f"flash_decode_paged {kv}: non-finite")
-        check(err <= tol, f"flash_decode_paged {kv}: max_err {err} > tol {tol}")
-        check(torch.equal(out, again), f"flash_decode_paged {kv}: differs between two launches")
-        check(torch.equal(out, b4), f"flash_decode_paged {kv}: differs from flash_decode over the "
+        label = f"flash_decode_paged {kv} H={H} d={d}"
+        check(torch.isfinite(out).all().item(), f"{label}: non-finite")
+        check(err <= tol, f"{label}: max_err {err} > tol {tol}")
+        check(torch.equal(out, again), f"{label}: differs between two launches")
+        check(torch.equal(out, b4), f"{label}: differs from flash_decode over the "
                                     f"gathered view by {max_err(out, b4)} (one body: must be equal)")
         pos_h = pos.cpu()
         nbytes, flops = _decode_cost(kv, pos_h, None, B, H, S, d, q.element_size())
@@ -627,15 +657,12 @@ def serve(srv, reqs):
     the drain's wall seconds."""
     import torch
 
+    from deepspeed_tpu_torch.tools.profile_serving import drain_request_mix
+
     t0 = time.perf_counter()
-    rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs[:10]]
-    srv.step()
-    srv.step()
-    rids += [srv.submit(p, max_new_tokens=n) for p, n in reqs[10:]]
-    res = srv.drain()
+    out = drain_request_mix(srv, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out = [res[r] for r in rids]
     for r, (p, n) in zip(out, reqs):
         check(r.finish_reason == "length" and len(r.generated) == n,
               f"request {r.request_id}: finish {r.finish_reason}, {len(r.generated)} of {n} tokens")
@@ -692,6 +719,14 @@ def _percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
+GEN_NEW = 16
+
+
+def generate_ids():
+    """``serve_bf16``'s ``generate()`` prompts: 4 rows of 256 tokens."""
+    return np.random.default_rng(7).integers(1, 50257, (4, 256), dtype=np.int32)
+
+
 def phase_serve_bf16(torch, params, reqs):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.ops import kernels
@@ -701,20 +736,20 @@ def phase_serve_bf16(torch, params, reqs):
         model="gpt2", params=params, dtype=torch.bfloat16,
         serving={"num_slots": 8, "prefill_chunk": 64})
     eng = srv.engine
-    gen_ids = np.random.default_rng(7).integers(1, 50257, (4, 256), dtype=np.int32)
+    gen_ids = generate_ids()
 
     # -- the main path: counters zeroed just before, read just after -------
     torch.cuda.synchronize()
     kernels.reset_launches()
     done, wall = serve(srv, reqs)
     t0 = time.perf_counter()
-    gen = eng.generate(gen_ids, max_new_tokens=16)
+    gen = eng.generate(gen_ids, max_new_tokens=GEN_NEW)
     gen_wall = time.perf_counter() - t0
     launches = kernels.launches()
     variants = kernels.launch_variants()
     # ----------------------------------------------------------------------
 
-    check(gen.shape == (4, 272) and np.array_equal(gen[:, :256], gen_ids),
+    check(gen.shape == (4, 256 + GEN_NEW) and np.array_equal(gen[:, :256], gen_ids),
           f"generate() returned {gen.shape}")
     for name in ("flash_fwd", "flash_decode"):
         check(launches[name] > 0, f"kernel {name} was not launched on the serving main path")
@@ -731,7 +766,7 @@ def phase_serve_bf16(torch, params, reqs):
           "decode_tokens_per_s": (n_tok - len(done)) / stats["phase_seconds"]["decode"],
           "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
           "phase_seconds": stats["phase_seconds"],
-          "generate": {"B": 4, "T": 256, "new": 16, "wall_s": gen_wall},
+          "generate": {"B": 4, "T": 256, "new": GEN_NEW, "wall_s": gen_wall},
           "launches": launches, "flash_fwd_variants": variants["flash_fwd"]})
 
     # -- kernel path vs plain path on the card, first-step logits ----------
@@ -761,7 +796,7 @@ def phase_serve_bf16(torch, params, reqs):
           f"bf16 decode logits differ by {errs['decode']}")
     emit({"phase": "logits_bf16", "B": 4, "T": 256, "max_abs_err": errs, "tol": BF16_LOGIT_TOL,
           "logit_range": [float(pp.min()), float(pp.max())]})
-    return launches
+    return launches, {"slot": [r.tokens().tolist() for r in done], "generate": gen.tolist()}
 
 
 # ---------------------------------------------------------------------------
@@ -918,7 +953,7 @@ def phase_serve_paged_bf16(torch, params, mix):
               "launches": launches})
         del srv, pool
     torch.cuda.empty_cache()
-    return launches
+    return launches, [r.tokens().tolist() for r in done + turns]
 
 
 # ---------------------------------------------------------------------------
@@ -2177,14 +2212,6 @@ def phase_train_f32(torch, params):
           "losses": out, "max_rel_diff": max(rel), "tol": TRAIN_F32_LOSS_RTOL})
 
 
-def _named_leaves(tree, prefix=""):
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _named_leaves(tree[key], f"{prefix}{key}.")
-    else:
-        yield prefix[:-1], tree
-
-
 def _first_step_bits(torch, model_fn, params, config, batch):
     """The ROADMAP C3 reading (not a gate): two first ``train_batch`` steps
     from the same state and batch, each through a fresh engine, compared
@@ -2194,6 +2221,7 @@ def _first_step_bits(torch, model_fn, params, config, batch):
     that differs and the parameters that differ name the op."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.ops.attention import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.engine import tree_items
 
     runs = []
     wrapped = ("flash_fwd_cuda", "flash_bwd_cuda")
@@ -2214,7 +2242,7 @@ def _first_step_bits(torch, model_fn, params, config, batch):
             engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=params,
                                                              config=config)
             loss = engine.train_batch(batch)
-            runs.append((float(loss), outs, dict(_named_leaves(engine.params))))
+            runs.append((float(loss), outs, dict(tree_items(engine.params))))
             del engine
     finally:
         for name in wrapped:
@@ -2533,7 +2561,7 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def phase_train_zero_bf16(torch, one_process):
+def phase_train_zero_bf16(torch, one_process, serve_tag):
     """``train_bf16``'s GPT-2 124M run (bf16 over f32 masters, micro 8 x
     gas 2 x T 1024, AdamW, WarmupDecayLR, clipping, remat, 4 steps on its
     batch) at ZeRO stages 0-3 on ``mesh: {data: 1, fsdp: 1}``, in a child
@@ -2568,6 +2596,12 @@ def phase_train_zero_bf16(torch, one_process):
                    "config": dict(_gpt2_bf16_config(mb, gas), mesh=TP_SEQ_MESH),
                    "batches": batches, "steps": steps, "record": "digest"}
                   for mode in TP_SEQ_CASES]
+        # serve_tp_bf16's tag: the engine's initial state (init_params seed
+        # 0, serve_bf16's weights), saved before any step
+        cases.append({"name": "serve_tag", "model": "gpt2", "preset": "gpt2", "init_seed": 0,
+                      "config": dict(_gpt2_bf16_config(mb, gas), mesh={"data": 1, "fsdp": 1}),
+                      "batches": batches, "steps": 0, "record": "none",
+                      "save": {"dir": serve_tag, "tag": "serve", "after": 0}})
         spec = os.path.join(root, "spec.json")
         with open(spec, "w") as f:
             json.dump({"device": "cuda", "deterministic": False, "threads": 4, "out": root,
@@ -2642,6 +2676,108 @@ def phase_train_zero_bf16(torch, one_process):
           "peak_gib_train_bf16": one_process["peak_gib"],
           "same_bits_as_one_process": True})
     return launches, tp_seq
+
+
+def phase_serve_tp_bf16(torch, serve_tag, served):
+    """The tensor-parallel serving path at world size 1: a child process
+    under the launcher environment runs ``tools/serve_worker.py`` over
+    NCCL, ``init_serving(mp_size=1)`` (a ``model`` group of one) on GPT-2
+    124M in bf16 with its parameters read through ``checkpoint=`` from the
+    tag ``train_zero_bf16``'s child wrote (``init_params`` seed 0, the
+    serving phases' weights).  Gates: the NCCL backend; the tokens of
+    ``request_mix(seed=0)`` through the slot pool, of
+    ``paged_request_mix(seed=0)`` through the paged pool and of
+    ``serve_bf16``'s ``generate()`` bit for bit those of ``serve_bf16`` and
+    ``serve_paged_bf16`` (``served``); 0 bytes counted; B1 (the prompt of
+    ``generate()``, tc body), B4 and B5 launched (the child zeroes the
+    counters before each drive and reads them after: ``serving_tp``); and
+    an ``init_on_device`` engine's parameters of GPT-2 124M's shapes, bf16,
+    finite.  Returns the launches."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import kernels
+
+    root = tempfile.mkdtemp()
+    try:
+        np.savez(os.path.join(root, "gen.npz"), input_ids=generate_ids())
+        engine = {"model": "gpt2", "mp_size": 1, "dtype": "bfloat16", "max_out_tokens": 1024}
+        cases = [
+            {"name": "tp1", "engine": dict(engine, checkpoint=os.path.join(serve_tag, "serve")),
+             "drives": [
+                 {"kind": "serve", "serving": {"num_slots": 8, "prefill_chunk": 64},
+                  "mix": "request", "mix_seed": 0},
+                 {"kind": "serve", "serving": PAGED, "mix": "paged", "mix_seed": 0},
+                 {"kind": "generate", "inputs": os.path.join(root, "gen.npz"),
+                  "max_new_tokens": GEN_NEW}]},
+            {"name": "dev", "engine": dict(engine, init_on_device=True, seed=0),
+             "drives": [{"kind": "shapes"}]},
+        ]
+        spec = os.path.join(root, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"device": "cuda", "deterministic": False, "threads": 4, "out": root,
+                       "cases": cases}, f)
+        env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+                   PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "deepspeed_tpu_torch.tools.serve_worker",
+                               spec], env=env, cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "serve_tp_bf16: the rank process failed "
+              f"(rc {proc.returncode}):\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(root, "tp1.r0.json")) as f:
+            tp1 = json.load(f)
+        with np.load(os.path.join(root, "tp1.r0.npz")) as z:
+            gen = z["d2"]
+        with open(os.path.join(root, "dev.r0.json")) as f:
+            dev = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    slot, paged, gen_d = tp1["drives"]
+    check(tp1["backend"] == "nccl" and tp1["world_size"] == 1 and tp1["mesh"]["model"] == 1,
+          f"serve_tp_bf16: backend {tp1['backend']}, world {tp1['world_size']}, "
+          f"mesh {tp1['mesh']}")
+    for label, got, want in (("slot pool", slot["tokens"], served["slot"]),
+                             ("paged pool", paged["tokens"], served["paged"]),
+                             ("generate()", gen.tolist(), served["generate"])):
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        check(len(got) == len(want) and not differ,
+              f"serve_tp_bf16 {label}: requests {differ[:8]} of {len(want)} differ from the "
+              "one-process engine's tokens (bit for bit expected at a model group of one)")
+    for d in tp1["drives"]:
+        check(not d["comm"], f"serve_tp_bf16: {d['kind']} counted {d['comm']} bytes at one rank")
+    launches = {name: 0 for name in kernels.launches()}
+    for d in tp1["drives"]:
+        for name, n in d["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    check(gen_d["launches"].get("flash_fwd", 0) > 0 and only_tc(gen_d["variants"]["flash_fwd"]),
+          f"serve_tp_bf16: generate()'s prefill ran {gen_d['variants'].get('flash_fwd')}")
+    check(slot["launches"].get("flash_decode", 0) > 0, f"serve_tp_bf16: slot {slot['launches']}")
+    check(paged["launches"].get("flash_decode_paged", 0) > 0
+          and not paged["launches"].get("flash_decode"),
+          f"serve_tp_bf16: paged {paged['launches']}")
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+
+    want = {p: list(spec.shape) for p, spec in tree_items(gpt2.param_specs(gpt2.PRESETS["gpt2"]))}
+    shapes = dev["drives"][0]
+    check(shapes["shapes"] == want and shapes["dtypes"] == ["torch.bfloat16"] and shapes["finite"],
+          f"serve_tp_bf16: init_on_device parameters {shapes['dtypes']}, finite "
+          f"{shapes['finite']}, shapes equal {shapes['shapes'] == want}")
+    emit({"phase": "serve_tp_bf16", "mp_size": 1, "mesh": tp1["mesh"], "backend": tp1["backend"],
+          "checkpoint": "serve", "child_wall_s": wall_s,
+          "slot": {k: slot[k] for k in ("wall_s", "decode_tokens_per_s", "tokens_generated")},
+          "paged": {k: paged[k] for k in ("wall_s", "decode_tokens_per_s", "tokens_generated")},
+          "slot_ttft_ms_p50": _percentile(slot["ttft_ms"], 50),
+          "paged_ttft_ms_p50": _percentile(paged["ttft_ms"], 50),
+          "same_bits_as_one_process": True, "init_on_device_leaves": len(want),
+          "launches": {n: c for n, c in launches.items() if c}})
+    return launches
 
 
 # train_tp_seq_bf16: part (b)'s cases in train_zero_bf16's child (flash is
@@ -3503,15 +3639,23 @@ def main() -> int:
     params = gpt2.init_params(cfg, seed=0)
     reqs = request_mix(seed=0)
     phase_serve_f32(torch, params, reqs)
-    serve_launches = phase_serve_bf16(torch, params, reqs)
+    serve_launches, served = phase_serve_bf16(torch, params, reqs)
     mix = paged_request_mix(seed=0)
     phase_serve_paged_f32(torch, params, mix)
-    paged_launches = phase_serve_paged_bf16(torch, params, mix)
+    paged_launches, served["paged"] = phase_serve_paged_bf16(torch, params, mix)
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
-    zero_launches, tp_seq = phase_train_zero_bf16(torch, one_process)
-    del one_process
+    import shutil
+    import tempfile
+
+    serve_tag = tempfile.mkdtemp()
+    try:
+        zero_launches, tp_seq = phase_train_zero_bf16(torch, one_process, serve_tag)
+        del one_process
+        serve_tp_launches = phase_serve_tp_bf16(torch, serve_tag, served)
+    finally:
+        shutil.rmtree(serve_tag, ignore_errors=True)
     tp_seq_launches = phase_train_tp_seq_bf16(torch, dev, tp_seq)
     del params
     bert_params = bert.init_params(bert.BERT_LARGE, seed=0)
@@ -3527,6 +3671,7 @@ def main() -> int:
     phase_train_sparse_f32(torch)
     sparse_launches = phase_train_sparse_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
+                      "serving_tp": serve_tp_launches.get(name, 0),
                       "training": train_launches[name], "training_resume": resume_launches[name],
                       "training_zero": zero_launches.get(name, 0),
                       "training_tp_seq": tp_seq_launches.get(name, 0),
@@ -3603,6 +3748,12 @@ def main() -> int:
             entry["gpt2_pair"] = {key: long_rows["gpt2"][key] for key in (
                 "B", "H", "T", "max_err", "kernel_ms", "flash_bwd_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")}
+        rank_rows = {"flash_decode": [r for r in dec_rows if r["H"] != 12],
+                     "flash_decode_paged": [r for r in paged_rows if r["H"] != 12]}
+        for row in rank_rows.get(name, []):  # a tensor-parallel rank's heads (serve_tp_bf16)
+            entry[f"h{row['H']}"] = {key: row[key] for key in (
+                "B", "H", "d", "max_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
         for T in SPARSE_TS[1:]:  # the splash kernels' rows at the longer length
             row = splash_rows.get((name, T, "bfloat16"))
             if row is not None:

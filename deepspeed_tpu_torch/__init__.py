@@ -4,9 +4,10 @@ NVIDIA H100.
 The JAX package stays the reference; this package keeps its module paths
 and names.  ``initialize`` trains (one device, or ZeRO 0-3, tensor and
 sequence parallelism across the ranks of a ``torch.distributed`` group),
-``init_inference`` and
-``init_serving`` serve.  The kernels the JAX package wrote in Pallas for the TPU are
-CUDA C++ kernels here (``csrc/``), built with ``nvcc`` at first use.
+``init_inference`` and ``init_serving`` serve (one device, or tensor
+parallel over ``mp_size`` ranks of a group).  The kernels the JAX
+package wrote in Pallas for the TPU are CUDA C++ kernels here
+(``csrc/``), built with ``nvcc`` at first use.
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU, where every kernel takes its plain PyTorch version.
 """
@@ -124,7 +125,15 @@ def initialize(
 
 def init_inference(model=None, **kwargs):
     """Build an :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`
-    (``device`` defaults to ``"cuda"``; it raises when there is no card)."""
+    (``device`` defaults to ``"cuda"``; it raises when there is no card).
+
+    ``mp_size=M`` serves tensor parallel on every rank of a process group
+    (started from the launcher environment, as :func:`initialize` starts
+    it; call on every rank with the same arguments): a ``model`` rank holds
+    its block of every leaf and ``n_head / M`` heads of every KV cache.
+    ``checkpoint`` / ``checkpoint_tag`` read the parameters of a tag the
+    port's training wrote at any mesh; ``init_on_device`` draws the random
+    init on the device."""
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
     return InferenceEngine(model=model, **kwargs)
@@ -133,7 +142,10 @@ def init_inference(model=None, **kwargs):
 def init_serving(model=None, serving=None, **kwargs):
     """A continuous-batching ServingEngine over an :func:`init_inference`
     engine.  ``serving`` is the ``serving`` config block (dict or
-    ServingConfig); remaining kwargs go to ``init_inference``."""
+    ServingConfig); remaining kwargs go to ``init_inference`` (``mp_size``,
+    ``checkpoint``, ...).  Across ranks every rank submits, steps and
+    drains alike (``submit`` and ``cancel`` are collectives decided on
+    rank 0), and every rank plans on rank 0's clock."""
     from deepspeed_tpu_torch.serving import ServingEngine
 
     return ServingEngine(init_inference(model=model, **kwargs), config=serving)

@@ -50,11 +50,15 @@ def group_size(group) -> int:
     return dist.get_world_size(group)
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
 def all_reduce(x: torch.Tensor, group, kind: str = "all-reduce", op: str = "sum") -> torch.Tensor:
-    """Sum (``op="max"``: the largest entry) over ``group``, in place on a
-    contiguous ``x`` (a copy otherwise); returns the result."""
+    """Sum (``op="max"`` / ``"min"``: the largest / smallest entry) over
+    ``group``, in place on a contiguous ``x`` (a copy otherwise); returns
+    the result."""
     y = x if x.is_contiguous() else x.contiguous()
-    dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(y, op=_OPS[op], group=group)
     _count(kind, 2 * _nbytes(y))
     return y
 

@@ -186,6 +186,30 @@ def make_mesh(cfg=None, world_size: Optional[int] = None) -> Mesh:
     return mesh
 
 
+def inference_mesh(mp_size: int) -> Optional[Mesh]:
+    """The serving mesh of ``init_inference(mp_size=M)`` (the JAX engine's
+    ``inference/engine.py:205-211``): ``{model: M, data: world // M}`` over
+    the started process group, each data replica computing the same
+    result.  None without a group, where ``M`` must be 1 (one process, as
+    the port served before tensor parallelism)."""
+    from deepspeed_tpu_torch.comm import distributed
+
+    m = int(mp_size)
+    if m < 1:
+        raise ValueError(f"mp_size must be >= 1, got {m}")
+    if not distributed.is_initialized():
+        if m > 1:
+            raise ValueError(
+                f"mp_size={m} needs a process group of a multiple of {m} ranks: start one "
+                "process per rank under a launcher (RANK, WORLD_SIZE, LOCAL_RANK, "
+                "MASTER_ADDR, MASTER_PORT)")
+        return None
+    world = distributed.get_world_size()
+    if world % m:
+        raise ValueError(f"mp_size={m} does not divide {world} ranks")
+    return make_mesh({"model": m, "data": world // m})
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshInfo:
     """Axis-size accessors (the reference's grid API,

@@ -1,29 +1,52 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``).
 
-GPT-2 and BERT models, one device (``mp_size=1``).  The engine owns the
-parameters on its ``device`` and offers the full-sequence ``forward`` (GPT
-logits, BERT encoder states); for GPT models also the external-cache
-surface (``init_cache`` / ``prefill`` / ``decode_step``) that the serving
-engine builds on, and the closed ``generate()`` loop.  PyTorch runs
-eagerly, so there is no compiled-executable cache: each call runs the
-kernels directly.  HF injection, checkpoints and int8 weights are later
-slices.
+GPT-2 and BERT models.  The engine owns the parameters on its ``device``
+and offers the full-sequence ``forward`` (GPT logits, BERT encoder
+states); for GPT models also the external-cache surface (``init_cache`` /
+``prefill`` / ``decode_step``) that the serving engine builds on, and the
+closed ``generate()`` loop.  PyTorch runs eagerly, so there is no
+compiled-executable cache: each call runs the kernels directly.
+
+**Tensor parallelism** (``mp_size=M``, under a process group started
+from the launcher environment, as ``initialize`` starts it): the mesh is
+``{model: M, data: world // M}`` (``comm/mesh.py`` ``inference_mesh``,
+the JAX engine's), each data replica computing the same result.  A
+``model`` rank holds its block of every leaf the family's rule table
+cuts (``tp_spec_fn``; the fused ``qkv`` head-grouped as training stores
+it, ``runtime/zero/partition.py``) and ``n_head / M`` heads of every KV
+cache; the blocks run the Megatron operators of ``parallel/tensor.py``
+and the logits' vocabulary blocks are all-gathered, so ``forward``,
+``prefill``, ``decode_step`` and ``generate`` give every rank the whole
+result, as the JAX engine returns it replicated.  Without a group
+``mp_size`` must be 1 and the engine is one process; with a group and
+``mp_size=1`` the ``model`` group has one rank and the arithmetic is the
+one-process engine's, bit for bit.  :func:`inference_comm_model` counts
+the collectives' bytes.  ``checkpoint=`` reads the parameters of a tag
+the port's training wrote at any mesh (``runtime/checkpointing.py``
+``load_params``); ``init_on_device`` draws them on the card.
+
+HF injection and int8 weights are later slices (ROADMAP A7).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import collectives
 from deepspeed_tpu_torch.models import bert as bert_mod
 from deepspeed_tpu_torch.models import gpt2 as gpt2_mod
 from deepspeed_tpu_torch.ops.transformer.inference import (
+    LOGITS_GATHER,
     DeepSpeedInferenceConfig,
     forward_with_cache,
     init_kv_cache,
 )
+from deepspeed_tpu_torch.parallel.sequence import ambient_mesh
+from deepspeed_tpu_torch.parallel.tensor import TP_ALL_REDUCE, tp_group
+from deepspeed_tpu_torch.runtime.engine import tree_from_paths, tree_items
 from deepspeed_tpu_torch.utils.device import resolve_device
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -86,32 +109,62 @@ def sample_logits_pooled(logits32: torch.Tensor, sample_flag, temperature, top_k
     return out
 
 
+def inference_comm_model(cfg: Any, mp_size: int, rows: int, T: int, act_bytes: int,
+                         logits_rows: Optional[int] = None,
+                         logits_bytes: int = 4) -> Dict[str, int]:
+    """Bytes the collectives of one tensor-parallel forward move, by
+    ``comm/collectives.py`` kind and convention (an all-reduce twice its
+    payload, an all-gather its whole result): the embedding's all-reduce
+    and two all-reduces a layer (after ``proj`` and ``fc_proj``) of
+    ``rows * T * d`` elements of ``act_bytes`` each, all ``tp-all-reduce``;
+    for a GPT model the logits' all-gather, ``rows * logits_rows * V``
+    elements of ``logits_bytes`` (``logits_rows`` None: all T), as
+    ``tp-all-gather``.  Nothing at ``mp_size`` 1."""
+    if int(mp_size) <= 1:
+        return {}
+    gpt = isinstance(cfg, gpt2_mod.GPT2Config)
+    d = cfg.n_embd if gpt else cfg.hidden_size
+    n_layer = cfg.n_layer if gpt else cfg.num_hidden_layers
+    out = {TP_ALL_REDUCE: (1 + 2 * n_layer) * 2 * rows * T * d * act_bytes}
+    if gpt:
+        kept = T if logits_rows is None else int(logits_rows)
+        out[LOGITS_GATHER] = rows * kept * cfg.vocab_size * logits_bytes
+    return out
+
+
 class InferenceEngine:
     def __init__(
         self,
         model: Any = None,
         mp_size: int = 1,
         dtype: Optional[torch.dtype] = None,
+        checkpoint: Optional[str] = None,
+        checkpoint_tag: Optional[str] = None,
         max_out_tokens: int = 1024,
         model_config: Any = None,
         params: Any = None,
         quantize_bits: int = 0,
         kv_cache_dtype: str = "model",
         seed: int = 0,
+        init_on_device: bool = False,
         device: Any = "cuda",
     ):
         """``model`` may be a preset name (``"gpt2"``, ...; GPT-2 presets
         win a shared name such as ``"tiny"``, ``"bert-*"`` names the BERT
         family), or None with explicit ``model_config`` (a ``GPT2Config``
         or a ``BertConfig``; + optional ``params``, the JAX package's tree
-        as numpy arrays or the port's tensors).  ``device`` defaults to
-        ``"cuda"`` and raises when there is no card; tests pass
-        ``device="cpu"``."""
+        as numpy arrays or the port's tensors, whole).  ``checkpoint``: a
+        training save directory or tag directory of the port (its
+        ``latest`` or ``checkpoint_tag``); else ``init_on_device`` draws
+        the random init from ``seed`` on the engine's device (another
+        stream than the host init's).  ``mp_size``: the ``model`` ranks
+        (module docstring).  ``device`` defaults to ``"cuda"`` and raises
+        when there is no card; tests pass ``device="cpu"``."""
+        from deepspeed_tpu_torch.comm.distributed import init_distributed
+        from deepspeed_tpu_torch.comm.mesh import inference_mesh
+
         self.device = resolve_device(device)
-        if int(mp_size) != 1:
-            raise NotImplementedError(
-                "mp_size > 1 (tensor-parallel inference) is not ported yet (ROADMAP A6, "
-                "inference part)")
+        self.mp_world_size = int(mp_size)
         if quantize_bits:
             raise NotImplementedError("quantize_bits (int8 weights) is not ported yet (ROADMAP A7)")
         self.dtype = dtype if dtype is not None else torch.bfloat16
@@ -154,22 +207,82 @@ class InferenceEngine:
         # no backward to save memory for
         if self.model_config.remat:
             self.model_config = dataclasses.replace(self.model_config, remat=False)
-        if params is None:
-            params = self._family.init_params(self.model_config, seed=seed)
-        if all(isinstance(v, torch.Tensor) for v in params["blocks"].values()):
-            self.params = {
-                k: ({n: t.to(self.device, self.dtype) for n, t in v.items()}
-                    if isinstance(v, dict) else v.to(self.device, self.dtype))
-                for k, v in params.items()
-            }
+
+        # -- refusals, then the mesh (a launcher environment starts the group) --
+        if self.mp_world_size > 1:
+            from deepspeed_tpu_torch.sharding.rules import check_model_cut
+
+            self._family.check_mesh(self.model_config, {"model": self.mp_world_size})
+            specs = self._family.param_specs(self.model_config)
+            check_model_cut([(path, spec.shape) for path, spec in tree_items(specs)],
+                            self._family.tp_spec_fn, self.mp_world_size)
+        init_distributed(device=self.device)
+        self.mesh = inference_mesh(self.mp_world_size)
+        self.tp = tp_group(self.mesh) if self.mesh is not None else None
+
+        # -- parameters, each leaf cut to this rank's block ---------------------
+        from_file = False  # a tag's memory-mapped leaves are copied off the file
+        if checkpoint is not None:
+            from deepspeed_tpu_torch.runtime.checkpointing import load_params
+
+            _, flat = load_params(checkpoint, checkpoint_tag)
+            params, from_file = tree_from_paths(flat), True
+        if params is None and init_on_device:
+            self.params = self._family.init_params_device(
+                self.model_config, seed=seed, dtype=self.dtype, device=self.device, keep=self._cut)
         else:
-            self.params = self._family.params_from_jax(params, device=self.device,
-                                                       dtype=self.dtype)
+            if params is None:
+                params = self._family.init_params(self.model_config, seed=seed)
+            if not all(isinstance(v, torch.Tensor) for v in params["blocks"].values()):
+                params = self._family.params_from_jax(params)  # checked, f32 on the host
+            self.params = tree_from_paths({path: self._place(path, t, from_file)
+                                           for path, t in tree_items(params)})
         n_params = self.model_config.num_params()
         log_dist(
             f"inference engine: {type(self.model_config).__name__} "
-            f"params={n_params / 1e6:.1f}M dtype={self.dtype} device={self.device}"
+            f"params={n_params / 1e6:.1f}M mp={self.mp_world_size} dtype={self.dtype} "
+            f"device={self.device} mesh={self.mesh}"
         )
+
+    def _cut(self, path: str, t: torch.Tensor) -> torch.Tensor:
+        """This ``model`` rank's block of the whole leaf ``t`` (``t`` itself
+        at one rank): the family's tensor-parallel spec, the fused ``qkv``
+        head-grouped first, so that rank ``r`` holds ``[q_r | k_r | v_r]``.
+        A dimension the axis does not divide is refused in the JAX
+        package's words."""
+        if self.tp is None:
+            return t
+        from deepspeed_tpu_torch.runtime.zero.partition import _group_parts
+        from deepspeed_tpu_torch.sharding.rules import check_model_cut, fused_tp_parts
+
+        shape = tuple(t.shape)
+        spec = self._family.tp_spec_fn(path, shape)
+        if not check_model_cut([(path, shape)], self._family.tp_spec_fn, self.tp.size):
+            return t
+        parts = fused_tp_parts(path)
+        if parts > 1:
+            t = _group_parts(t, parts, self.tp.size)
+        return self.mesh.local_block(t, spec)
+
+    def _place(self, path: str, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+        """A whole leaf as this rank's block on the engine's device, in its
+        dtype (cut where it lies, then moved: the host never holds a copy
+        of the whole tree in the target dtype)."""
+        return self._cut(path, t).to(self.device, self.dtype, copy=copy)
+
+    @property
+    def local_heads(self) -> int:
+        """The attention heads this rank runs and caches: ``n_head / M``."""
+        cfg = self.model_config
+        return (cfg.n_head if self._is_gpt else cfg.num_attention_heads) // self.mp_world_size
+
+    def comm_model(self, rows: int, T: int, logits_rows: Optional[int] = None,
+                   logits_bytes: int = 4) -> Dict[str, int]:
+        """:func:`inference_comm_model` for this engine's config, ``mp_size``
+        and dtype."""
+        act = torch.empty((), dtype=self.dtype).element_size()
+        return inference_comm_model(self.model_config, self.mp_world_size, rows, T, act,
+                                    logits_rows=logits_rows, logits_bytes=logits_bytes)
 
     @property
     def generation_capacity(self) -> int:
@@ -203,11 +316,16 @@ class InferenceEngine:
                 f"forward() sequence length {ids.shape[1]} exceeds the "
                 f"model's n_positions={self.model_config.n_positions}"
             )
-        with torch.inference_mode():
+        with torch.inference_mode(), ambient_mesh(self.mesh):
             if self._is_gpt:
-                return gpt2_mod.apply(self.params, ids, self.model_config, deterministic=True)
+                logits = gpt2_mod.apply(self.params, ids, self.model_config, deterministic=True)
+                if self.tp is not None:  # the rank's vocabulary block -> the whole logits
+                    logits = collectives.all_gather(logits, self.tp.group, dim=logits.dim() - 1,
+                                                    kind=LOGITS_GATHER)
+                return logits
             kw = {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in kw.items()}
-            return bert_mod.encode(self.params, ids, self.model_config, deterministic=True, **kw)
+            return bert_mod.encode(self.params, ids, self.model_config, deterministic=True,
+                                   tp=self.tp, **kw)
 
     __call__ = forward
 
@@ -220,6 +338,7 @@ class InferenceEngine:
             hidden_size=cfg.n_embd,
             heads=cfg.n_head,
             layer_norm_eps=cfg.layer_norm_epsilon,
+            mp_size=self.mp_world_size,
             dtype=self.dtype,
             max_out_tokens=int(max_len),
             use_flash_attention=cfg.use_flash_attention,
@@ -227,7 +346,8 @@ class InferenceEngine:
 
     def init_cache(self, batch: int, max_len: int):
         """Externally-owned KV cache ``(layers, batch, heads, max_len,
-        head_dim)`` on the engine's device, in its cache dtype."""
+        head_dim)`` on the engine's device, in its cache dtype; ``heads``
+        is this rank's :attr:`local_heads`."""
         self._require_gpt("init_cache()")
         if max_len > self.generation_capacity:
             raise ValueError(
@@ -237,8 +357,8 @@ class InferenceEngine:
                 f"{self.generation_capacity}"
             )
         cfg = self.model_config
-        return init_kv_cache(cfg.n_layer, int(batch), cfg.n_head, int(max_len), cfg.head_dim,
-                             self._kv_dtype, device=self.device)
+        return init_kv_cache(cfg.n_layer, int(batch), self.local_heads, int(max_len),
+                             cfg.head_dim, self._kv_dtype, device=self.device)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens), dtype=torch.int64).to(self.device)
@@ -259,7 +379,7 @@ class InferenceEngine:
             raise ValueError(f"prefill length {T} exceeds the cache capacity {S}")
         with torch.inference_mode():
             return forward_with_cache(self.params, tokens, k_cache, v_cache, 0,
-                                      self.inference_config(S))
+                                      self.inference_config(S), tp=self.tp)
 
     def decode_step(self, tokens, k_cache, v_cache, pos):
         """One decode/continuation step at write offset ``pos`` (scalar,
@@ -279,7 +399,7 @@ class InferenceEngine:
         pos_t = torch.as_tensor(pos_host, dtype=torch.int32).to(self.device)
         with torch.inference_mode():
             return forward_with_cache(self.params, tokens, k_cache, v_cache, pos_t,
-                                      self.inference_config(S))
+                                      self.inference_config(S), tp=self.tp)
 
     # ------------------------------------------------------------------
     # generation
@@ -327,7 +447,7 @@ class InferenceEngine:
         icfg = self.inference_config(S)
         eos = -1 if eos_token_id is None else int(eos_token_id)
         cfg = self.model_config
-        k_cache, v_cache = init_kv_cache(cfg.n_layer, B, cfg.n_head, S, cfg.head_dim,
+        k_cache, v_cache = init_kv_cache(cfg.n_layer, B, self.local_heads, S, cfg.head_dim,
                                          self._kv_dtype, device=dev)
         tokens = torch.as_tensor(ids, device=dev)
 
@@ -335,6 +455,7 @@ class InferenceEngine:
             return sample_logits(logits32, do_sample, temperature, top_k,
                                  seed=seed, position=step)
 
+        last = slice(T - 1, T)  # the prompt's logits that generation reads
         with torch.inference_mode():
             if masked:
                 prompt_mask = torch.as_tensor(am_np, device=dev).bool()
@@ -344,10 +465,12 @@ class InferenceEngine:
                     [prompt_mask, torch.ones((B, N), dtype=torch.bool, device=dev)], dim=1)
                 logits, _, _ = forward_with_cache(
                     self.params, tokens, k_cache, v_cache, 0, icfg,
-                    key_padding_mask=full_mask, position_ids=position_ids)
+                    key_padding_mask=full_mask, position_ids=position_ids, tp=self.tp,
+                    logits_rows=last)
             else:
                 full_mask = None
-                logits, _, _ = forward_with_cache(self.params, tokens, k_cache, v_cache, 0, icfg)
+                logits, _, _ = forward_with_cache(self.params, tokens, k_cache, v_cache, 0, icfg,
+                                                  tp=self.tp, logits_rows=last)
             nxt = sample(logits[:, -1], T - 1)
             out = [nxt]
             finished = nxt == eos
@@ -362,7 +485,7 @@ class InferenceEngine:
                 pos_ids = (real_len + step - 1)[:, None] if masked else None
                 lg, _, _ = forward_with_cache(
                     self.params, nxt[:, None].long(), k_tup, v_tup, pos, icfg,
-                    key_padding_mask=full_mask, position_ids=pos_ids)
+                    key_padding_mask=full_mask, position_ids=pos_ids, tp=self.tp)
                 tok = sample(lg[:, -1], pos)
                 tok = torch.where(finished, torch.full_like(tok, eos if eos >= 0 else 0), tok)
                 finished = finished | (tok == eos)

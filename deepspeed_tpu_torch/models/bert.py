@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.models.param_init import LeafSpec, draw_device, draw_host
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _layer_norm
 from deepspeed_tpu_torch.ops.normalize import token_nll
 from deepspeed_tpu_torch.ops.transformer.transformer import (
@@ -111,22 +112,13 @@ TOP_KEYS = (
 )
 
 
-def init_params(cfg: BertConfig, seed: int = 0) -> Dict[str, Any]:
-    """BERT init as numpy arrays: normal(0.02) weights, zero biases, unit
-    LayerNorm gains.  Same generator, draw order and values as the JAX
-    package's ``init_params``."""
-    rng = np.random.default_rng(seed)
+def param_specs(cfg: BertConfig) -> Dict[str, Any]:
+    """The parameter tree as :class:`~deepspeed_tpu_torch.models.param_init.LeafSpec`
+    leaves: normal(0.02) weights, zero biases, unit LayerNorm gains."""
     d, l, i = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
-
-    def n(*shape, s=0.02):
-        return (rng.standard_normal(shape) * s).astype(np.float32)
-
-    def z(*shape):
-        return np.zeros(shape, np.float32)
-
-    def o(*shape):
-        return np.ones(shape, np.float32)
-
+    n = lambda *shape: LeafSpec("n", shape, 0.02)  # noqa: E731
+    z = lambda *shape: LeafSpec("z", shape)  # noqa: E731
+    o = lambda *shape: LeafSpec("o", shape)  # noqa: E731
     return {
         "tok_emb": n(cfg.vocab_size, d),
         "pos_emb": n(cfg.max_position_embeddings, d),
@@ -152,6 +144,22 @@ def init_params(cfg: BertConfig, seed: int = 0) -> Dict[str, Any]:
         "nsp_w": n(d, 2),
         "nsp_b": z(2),
     }
+
+
+def init_params(cfg: BertConfig, seed: int = 0) -> Dict[str, Any]:
+    """BERT init as numpy arrays (:func:`param_specs`).  Same generator,
+    draw order and values as the JAX package's ``init_params``."""
+    return draw_host(param_specs(cfg), seed)
+
+
+def init_params_device(cfg: BertConfig, seed: int = 0, dtype: torch.dtype = torch.float32,
+                       device: Any = "cuda", keep=None) -> Dict[str, Any]:
+    """Random init drawn on ``device`` (the JAX package's
+    ``init_params_device``): the tree, shapes and scales of
+    :func:`init_params`, an independent stream; see
+    ``models/gpt2.py`` ``init_params_device`` for when to use which, and
+    for ``keep``."""
+    return draw_device(param_specs(cfg), seed, dtype, device, keep)
 
 
 def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
@@ -305,7 +313,8 @@ def check_mesh(cfg: BertConfig, sizes: Dict[str, int]) -> None:
         raise ValueError(f"BERT has no sequence-parallel mode: a seq axis of {P} is refused")
     if m > 1 and cfg.num_attention_heads % m:
         raise ValueError(f"num_attention_heads {cfg.num_attention_heads} is not divisible by "
-                         f"the model axis ({m}): a tensor-parallel rank runs whole heads")
+                         f"the model axis ({m}): a tensor-parallel rank runs whole heads "
+                         "(ROADMAP C4)")
 
 
 def parallel_comm_model(cfg: BertConfig, sizes: Dict[str, int], rows: int, T: int,

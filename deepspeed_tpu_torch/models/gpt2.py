@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from deepspeed_tpu_torch.models.param_init import LeafSpec, draw_device, draw_host
 from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
 from deepspeed_tpu_torch.ops.attention.sparse import BigBirdSparsityConfig, block_sparse_attention
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
@@ -140,47 +141,55 @@ BLOCK_KEYS = (
 )
 
 
-def init_params(cfg: GPT2Config, seed: int = 0) -> Dict[str, Any]:
-    """GPT-2 init as numpy arrays: normal(0.02), residual projections
-    scaled by 1/sqrt(2*n_layer).  Same generator, draw order and values
-    as the JAX package's ``init_params``."""
-    rng = np.random.default_rng(seed)
+# the JAX package's ``init_params`` draws the MLP's leaves first
+_FFN_FIRST = ("blocks/fc_w", "blocks/fc_b", "blocks/fc_proj_w", "blocks/fc_proj_b")
+
+
+def param_specs(cfg: GPT2Config) -> Dict[str, Any]:
+    """The parameter tree as :class:`~deepspeed_tpu_torch.models.param_init.LeafSpec`
+    leaves: normal(0.02), ``wpe`` normal(0.01), residual projections
+    scaled by 1/sqrt(2*n_layer), zero biases, unit LayerNorm gains.  Both
+    inits draw it, and an engine checks its shapes before any leaf
+    exists."""
     d, l = cfg.n_embd, cfg.n_layer
-    std = 0.02
-    proj_std = std / np.sqrt(2 * l)
-
-    def n(*shape, s=std):
-        return (rng.standard_normal(shape) * s).astype(np.float32)
-
-    def z(*shape):
-        return np.zeros(shape, np.float32)
-
-    def o(*shape):
-        return np.ones(shape, np.float32)
-
-    ffn = {
-        "fc_w": n(l, d, 4 * d),
-        "fc_b": z(l, 4 * d),
-        "fc_proj_w": n(l, 4 * d, d, s=proj_std),
-        "fc_proj_b": z(l, d),
-    }
+    std, proj_std = 0.02, 0.02 / np.sqrt(2 * l)
+    n = lambda *shape, s=std: LeafSpec("n", shape, s)  # noqa: E731
+    z = lambda *shape: LeafSpec("z", shape)  # noqa: E731
+    o = lambda *shape: LeafSpec("o", shape)  # noqa: E731
     return {
         "wte": n(cfg.vocab_size, d),
         "wpe": n(cfg.n_positions, d, s=0.01),
         "blocks": {
-            "ln1_g": o(l, d),
-            "ln1_b": z(l, d),
-            "qkv_w": n(l, d, 3 * d),
-            "qkv_b": z(l, 3 * d),
-            "proj_w": n(l, d, d, s=proj_std),
-            "proj_b": z(l, d),
-            "ln2_g": o(l, d),
-            "ln2_b": z(l, d),
-            **ffn,
+            "ln1_g": o(l, d), "ln1_b": z(l, d),
+            "qkv_w": n(l, d, 3 * d), "qkv_b": z(l, 3 * d),
+            "proj_w": n(l, d, d, s=proj_std), "proj_b": z(l, d),
+            "ln2_g": o(l, d), "ln2_b": z(l, d),
+            "fc_w": n(l, d, 4 * d), "fc_b": z(l, 4 * d),
+            "fc_proj_w": n(l, 4 * d, d, s=proj_std), "fc_proj_b": z(l, d),
         },
         "lnf_g": o(d),
         "lnf_b": z(d),
     }
+
+
+def init_params(cfg: GPT2Config, seed: int = 0) -> Dict[str, Any]:
+    """GPT-2 init as numpy arrays (:func:`param_specs`).  Same generator,
+    draw order and values as the JAX package's ``init_params``."""
+    return draw_host(param_specs(cfg), seed, first=_FFN_FIRST)
+
+
+def init_params_device(cfg: GPT2Config, seed: int = 0, dtype: torch.dtype = torch.float32,
+                       device: Any = "cuda", keep=None) -> Dict[str, Any]:
+    """Random init drawn on ``device`` (the JAX package's
+    ``init_params_device``): the tree, shapes and scales of
+    :func:`init_params`, an independent stream (not bitwise-equal to the
+    host init).  For serving paths where drawing an XL-class model on the
+    host and copying it costs more than drawing it on the card.  ``keep``:
+    see ``param_init.draw_device`` (``InferenceEngine`` passes a rank's
+    cut)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError("device init does not cover MoE (ROADMAP A11); use init_params")
+    return draw_device(param_specs(cfg), seed, dtype, device, keep)
 
 
 def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
@@ -469,7 +478,7 @@ def check_mesh(cfg: GPT2Config, sizes: Dict[str, int]) -> None:
     m, P = int(sizes.get("model", 1)), int(sizes.get("seq", 1))
     if m > 1 and cfg.n_head % m:
         raise ValueError(f"n_head {cfg.n_head} is not divisible by the model axis ({m}): "
-                         "a tensor-parallel rank runs whole heads")
+                         "a tensor-parallel rank runs whole heads (ROADMAP C4)")
     if P > 1:
         if cfg.attention_mode not in ("ring", "ulysses"):
             raise ValueError(f"a seq axis of {P} needs attention_mode 'ring' or 'ulysses', got "

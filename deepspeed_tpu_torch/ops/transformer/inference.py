@@ -20,6 +20,15 @@
   through the table in place (``write_mask`` sends masked rows to the
   garbage page 0), and a single-token step attends through the table
   with the paged flash-decode kernel.
+* Tensor parallelism over ``model`` (``tp``, a ``parallel/tensor.py``
+  group of ``cfg.mp_size`` ranks): the parameters are the rank's blocks
+  (``models/gpt2.py`` ``tp_spec_fn``, ``qkv`` head-grouped), the caches
+  hold the rank's ``heads / mp_size`` heads, and a block runs B1, B4 and
+  B5 on them, then sums ``proj`` and ``fc_proj`` over ``model`` (one
+  ``tp-all-reduce`` each, as the embedding's lookup has); the tied head
+  gives the rank's vocabulary block of the logits, and one all-gather
+  (``tp-all-gather``) gives every rank the whole f32 logits.
+  Without a group (one rank) the arithmetic is the one-device path's.
 
 Layer-parameter layout matches ``models/gpt2.py`` blocks.
 """
@@ -31,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.comm import collectives
 from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
 from deepspeed_tpu_torch.ops.kernels.flash_decode import (
     _per_slot,
@@ -41,6 +51,16 @@ from deepspeed_tpu_torch.ops.kernels.flash_decode import (
     paged_gather,  # noqa: F401  (public here, as in the JAX package's module)
 )
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _ln
+from deepspeed_tpu_torch.parallel.tensor import TP_ALL_REDUCE, vocab_parallel_rows
+
+# the logits' all-gather over ``model`` (``comm/collectives.py`` kind)
+LOGITS_GATHER = "tp-all-gather"
+
+
+def _sum_over_model(x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` summed over the ``model`` group, in place (``x`` itself
+    without a group).  No autograd operator: nothing here runs backward."""
+    return x if tp is None else collectives.all_reduce(x, tp.group, kind=TP_ALL_REDUCE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +73,7 @@ class DeepSpeedInferenceConfig:
     hidden_size: int = 768
     heads: int = 12
     layer_norm_eps: float = 1e-5
+    mp_size: int = 1  # ranks on ``model``: a rank runs heads / mp_size heads
     dtype: torch.dtype = torch.bfloat16
     max_out_tokens: int = 1024  # static KV-cache capacity
     use_flash_attention: bool = True
@@ -60,6 +81,17 @@ class DeepSpeedInferenceConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.heads
+
+    @property
+    def local_heads(self) -> int:
+        """The heads of one ``model`` rank (its caches' head count)."""
+        return self.heads // self.mp_size
+
+
+def _check_tp(cfg: DeepSpeedInferenceConfig, tp) -> None:
+    if (tp.size if tp is not None else 1) != cfg.mp_size:
+        raise ValueError(f"the model group has {tp.size if tp is not None else 1} ranks, "
+                         f"the config mp_size={cfg.mp_size}")
 
 
 def _wmm(h: torch.Tensor, w) -> torch.Tensor:
@@ -205,6 +237,7 @@ def inference_block(
     key_padding_mask=None,
     page_table=None,
     write_mask=None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Any, Any]:
     """One transformer layer with cache update (in place).
 
@@ -214,15 +247,17 @@ def inference_block(
     the position mask; a (B,) ``pos`` tensor is the slot-pool form.
     ``page_table`` (B, P) selects the paged form (page pools, a per-slot
     ``pos``, ``write_mask`` for the rows that must not touch real pages,
-    no ``key_padding_mask``).  Returns (y, k_cache, v_cache)."""
+    no ``key_padding_mask``).  ``tp``: the ``model`` group when ``lp``
+    holds the rank's blocks and the caches its heads.  Returns (y,
+    k_cache, v_cache)."""
     if "gate_w" in lp:
         raise NotImplementedError("MoE decode blocks are not ported yet (ROADMAP A11)")
-    B, T, D = x.shape
-    H, hd = cfg.heads, cfg.head_dim
+    B, T, _ = x.shape
+    H, hd = cfg.local_heads, cfg.head_dim
 
     h = _ln(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_eps)
     qkv = _wmm(h, lp["qkv_w"]) + lp["qkv_b"].to(h.dtype)
-    q, k, v = qkv.split(D, dim=-1)
+    q, k, v = qkv.split(H * hd, dim=-1)
 
     def heads(t):
         return t.reshape(B, T, H, hd).transpose(1, 2)
@@ -235,9 +270,7 @@ def inference_block(
         paged_cache_write(v_cache, v, page_table, pos, write_mask)
         attn = paged_cache_attention(q, k_cache, v_cache, page_table, pos,
                                      use_kernel=cfg.use_flash_attention)
-        attn = attn.transpose(1, 2).reshape(B, T, D)
-        attn = _wmm(attn, lp["proj_w"]) + lp["proj_b"].to(attn.dtype)
-        return _block_mlp(cfg, lp, x + attn), k_cache, v_cache
+        return _block_out(cfg, lp, x, attn, tp), k_cache, v_cache
     slotted = _per_slot(pos)
     if isinstance(k_cache, dict):
         for cache, t in ((k_cache, k), (v_cache, v)):
@@ -271,18 +304,27 @@ def inference_block(
     else:
         attn = cache_attention(q, k_cache, v_cache, pos, key_padding_mask=key_padding_mask,
                                use_kernel=kernels)
-    attn = attn.transpose(1, 2).reshape(B, T, D)
-    attn = _wmm(attn, lp["proj_w"]) + lp["proj_b"].to(attn.dtype)
-    return _block_mlp(cfg, lp, x + attn), k_cache, v_cache
+    return _block_out(cfg, lp, x, attn, tp), k_cache, v_cache
+
+
+def _block_out(cfg: DeepSpeedInferenceConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+               attn: torch.Tensor, tp) -> torch.Tensor:
+    """The attention's heads (B, H, T, d) through ``proj`` (summed over
+    ``model`` before its replicated bias), the residual, then the MLP."""
+    B, _, T, _ = attn.shape
+    attn = attn.transpose(1, 2).reshape(B, T, -1)
+    attn = _sum_over_model(_wmm(attn, lp["proj_w"]), tp) + lp["proj_b"].to(attn.dtype)
+    return _block_mlp(cfg, lp, x + attn, tp)
 
 
 def _block_mlp(cfg: DeepSpeedInferenceConfig, lp: Dict[str, torch.Tensor],
-               x: torch.Tensor) -> torch.Tensor:
-    """Post-attention half of the block: LN2 + dense MLP + residual."""
+               x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Post-attention half of the block: LN2 + dense MLP + residual
+    (``fc`` column-parallel, ``fc_proj`` row-parallel under ``tp``)."""
     h = _ln(x, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_eps)
     h = _wmm(h, lp["fc_w"]) + lp["fc_b"].to(h.dtype)
     h = F.gelu(h, approximate="tanh")
-    h = _wmm(h, lp["fc_proj_w"]) + lp["fc_proj_b"].to(h.dtype)
+    h = _sum_over_model(_wmm(h, lp["fc_proj_w"]), tp) + lp["fc_proj_b"].to(h.dtype)
     return x + h
 
 
@@ -304,6 +346,8 @@ def forward_with_cache(
     position_ids=None,
     page_table=None,
     write_mask=None,
+    tp=None,
+    logits_rows=None,
 ):
     """Full GPT-2-layout network step with cache: embeddings → cached
     blocks → final LN → tied-embedding logits.
@@ -312,8 +356,12 @@ def forward_with_cache(
     tuples of per-layer caches, updated in place.  ``position_ids`` (B,
     T) overrides the default ``pos + arange(T)`` positions.
     ``page_table`` (B, P) + ``write_mask`` (B,) select the paged form
-    (see :func:`inference_block`).  Returns (logits (B, T, V) f32,
-    k_cache, v_cache)."""
+    (see :func:`inference_block`).  ``tp``: the ``model`` group of
+    ``cfg.mp_size`` ranks (module docstring).  ``logits_rows`` (a slice
+    of T) keeps only those positions' logits, before the all-gather: a
+    caller that reads the last row gathers one row, not T.  Returns
+    (logits (B, T or the rows kept, V) f32, k_cache, v_cache)."""
+    _check_tp(cfg, tp)
     B, T = tokens.shape
     wpe = params["wpe"]
     dev = wpe.device
@@ -330,7 +378,8 @@ def forward_with_cache(
     else:
         start = min(max(int(pos), 0), wpe.shape[0] - T)               # dynamic_slice clamp
         pos_emb = wpe[start:start + T][None]
-    x = (params["wte"][tokens] + pos_emb).to(cfg.dtype)
+    x = (_sum_over_model(vocab_parallel_rows(params["wte"], tokens, tp), tp)
+         + pos_emb).to(cfg.dtype)
 
     blocks = params["blocks"]
     per_layer = isinstance(k_cache, (tuple, list))
@@ -341,7 +390,13 @@ def forward_with_cache(
         ck = k_cache[i] if per_layer else _layer_cache(k_cache, i)
         cv = v_cache[i] if per_layer else _layer_cache(v_cache, i)
         x, _, _ = inference_block(cfg, lp, x, ck, cv, pos, key_padding_mask=key_padding_mask,
-                                  page_table=page_table, write_mask=write_mask)
+                                  page_table=page_table, write_mask=write_mask, tp=tp)
     x = _ln(x, params["lnf_g"], params["lnf_b"], cfg.layer_norm_eps)
     logits = x @ params["wte"].t().to(x.dtype)
-    return logits.float(), k_cache, v_cache
+    if logits_rows is not None:
+        logits = logits[:, logits_rows]
+    logits = logits.float()
+    if tp is not None:  # the rank's vocabulary block -> every rank the whole row
+        logits = collectives.all_gather(logits, tp.group, dim=logits.dim() - 1,
+                                        kind=LOGITS_GATHER)
+    return logits, k_cache, v_cache

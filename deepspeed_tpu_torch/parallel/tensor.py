@@ -32,7 +32,7 @@ import torch
 from deepspeed_tpu_torch.comm import collectives
 
 TP_AXIS = "model"
-_KIND = "tp-all-reduce"
+TP_ALL_REDUCE = "tp-all-reduce"
 
 
 class TPGroup:
@@ -65,13 +65,13 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return collectives.all_reduce(g.clone(), ctx.group, kind=_KIND), None
+        return collectives.all_reduce(g.clone(), ctx.group, kind=TP_ALL_REDUCE), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return collectives.all_reduce(x.clone(), group, kind=_KIND)
+        return collectives.all_reduce(x.clone(), group, kind=TP_ALL_REDUCE)
 
     @staticmethod
     def backward(ctx, g):
@@ -88,12 +88,12 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
     return x if tp is None else _ReduceFromModel.apply(x, tp.group)
 
 
-def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor,
-                             tp: Optional[TPGroup]) -> torch.Tensor:
-    """Rows of an embedding table cut by vocabulary over ``model``:
-    ``table`` is this rank's ``(V/m, D)`` block (rows ``[r*V/m,
-    (r+1)*V/m)``); each rank looks up the tokens it holds (zeros
-    elsewhere), and the all-reduce assembles every row.  Without a group:
+def vocab_parallel_rows(table: torch.Tensor, tokens: torch.Tensor,
+                        tp: Optional[TPGroup]) -> torch.Tensor:
+    """This rank's share of an embedding lookup cut by vocabulary over
+    ``model``: ``table`` is this rank's ``(V/m, D)`` block (rows
+    ``[r*V/m, (r+1)*V/m)``); the rows of the tokens it holds, zeros
+    elsewhere, so the sum over ``model`` is every row.  Without a group:
     ``table[tokens]``."""
     if tp is None:
         return table[tokens]
@@ -101,9 +101,15 @@ def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor,
     ids = tokens - tp.rank * n
     inside = (ids >= 0) & (ids < n)
     rows = table[ids.clamp(0, n - 1)]
-    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
-                                                           device=rows.device))
-    return reduce_from_model(rows, tp)
+    return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+
+
+def vocab_parallel_embedding(table: torch.Tensor, tokens: torch.Tensor,
+                             tp: Optional[TPGroup]) -> torch.Tensor:
+    """Rows of an embedding table cut by vocabulary over ``model``
+    (:func:`vocab_parallel_rows` summed by :func:`reduce_from_model`)."""
+    return reduce_from_model(vocab_parallel_rows(table, tokens, tp), tp)
 
 
 class _VocabParallelNLL(torch.autograd.Function):
@@ -118,14 +124,14 @@ class _VocabParallelNLL(torch.autograd.Function):
     def forward(ctx, logits, labels, group, start: int):
         x = logits.float()
         n = x.shape[-1]
-        m = collectives.all_reduce(x.amax(dim=-1), group, kind=_KIND, op="max")
+        m = collectives.all_reduce(x.amax(dim=-1), group, kind=TP_ALL_REDUCE, op="max")
         s = torch.exp(x - m[..., None]).sum(dim=-1)
         ids = labels.long() - start
         inside = (ids >= 0) & (ids < n)
         ids = ids.clamp(0, n - 1)
         tgt = torch.gather(x, -1, ids[..., None])[..., 0]
         tgt = torch.where(inside, tgt, torch.zeros((), dtype=tgt.dtype, device=tgt.device))
-        st = collectives.all_reduce(torch.stack([s, tgt]), group, kind=_KIND)
+        st = collectives.all_reduce(torch.stack([s, tgt]), group, kind=TP_ALL_REDUCE)
         ctx.save_for_backward(logits, m, st[0], ids, inside)
         return torch.log(st[0]) + m - st[1]
 

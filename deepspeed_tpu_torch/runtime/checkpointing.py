@@ -679,6 +679,42 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
             i, acc.to(engine.device), layout.leaves[i].acc_spec).clone())
 
 
+def load_params(load_dir: str, tag: Optional[str] = None) -> Tuple[str, Dict[str, torch.Tensor]]:
+    """``(tag path, {leaf path: CPU f32 tensor})``: the parameters of a tag
+    this module wrote, whole and in their natural layout whatever mesh
+    wrote them (``init_inference(checkpoint=...)``, the counterpart of the
+    JAX engine's orbax restore of ``params``).  ``load_dir`` is a tag
+    directory, or a save directory where ``tag`` (else ``latest``, else
+    the newest verified tag) is picked as :func:`load_checkpoint` picks
+    it: rank 0 scans, verifies and quarantines, and broadcasts its pick
+    under a process group (call on every rank).  The state file is
+    memory-mapped, so the optimizer state in it is never read."""
+    from deepspeed_tpu_torch.comm import distributed
+    from deepspeed_tpu_torch.config.config import ResilienceConfig
+
+    path = os.path.abspath(load_dir)
+    if not os.path.isfile(os.path.join(path, STATE_DIR, STATE_FILE)):
+        picked = (_pick_tag(path, tag, tag is not None, ResilienceConfig().checkpoint)
+                  if distributed.get_rank() == 0 else None)
+        if distributed.get_world_size() > 1:
+            from deepspeed_tpu_torch.comm import collectives
+
+            picked = collectives.broadcast_object(picked, src=0)
+        cand, requested, tried = picked
+        if cand is None:
+            detail = f" (requested tag '{requested}')" if requested else ""
+            raise CheckpointNotFoundError(f"no loadable checkpoint under {path}{detail}"
+                                          + (f"; tried: {', '.join(tried)}" if tried else ""))
+        path = _ckpt_path(path, cand)
+    state = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu",
+                       weights_only=True, mmap=True)
+    params = {n[len("params/"):]: t for n, t in state.items() if n.startswith("params/")}
+    if not params:
+        raise ValueError(f"checkpoint {path} holds no parameters")
+    log_dist(f"loaded the parameters of {path}")
+    return path, params
+
+
 def consolidate_fp32_state_dict(engine) -> Dict[str, np.ndarray]:
     """The full f32 parameters on the host by the JAX package's leaf names
     (``blocks/qkv_w``): the ``zero_to_fp32.py`` analog, and the point

@@ -150,6 +150,24 @@ def tree_paths(tree: Any) -> List[str]:
     return out
 
 
+def tree_items(tree: Any) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` of every leaf, in :func:`tree_flatten`'s order."""
+    return list(zip(tree_paths(tree), tree_flatten(tree)[0]))
+
+
+def tree_from_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree of dicts whose leaves ``flat`` names by path:
+    ``{"blocks/qkv_w": t, "wte": t}`` -> ``{"blocks": {"qkv_w": t}, "wte": t}``."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *heads, last = path.split("/")
+        node = tree
+        for key in heads:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
 class _PlacedBatch:
     """A batch already on the engine's device, placed ahead of the step by
     ``prefetch_loader``: ``train_batch`` takes it without placing it
@@ -312,10 +330,9 @@ class DeepSpeedEngine:
         """The refusals of a ``model`` or ``seq`` axis, before any leaf is
         cut: the model's own (``mesh_check``), a ``model`` axis with
         no tensor-parallel leaf, and every tensor-parallel dimension the
-        ``model`` axis does not divide (the JAX package's words), the parts
-        of a fused leaf each alike."""
-        from deepspeed_tpu_torch.sharding.rules import fused_tp_parts
-        from deepspeed_tpu_torch.sharding.spec import entry_axes, spec_tuple
+        ``model`` axis does not divide (the JAX package's words, in
+        ``sharding/rules.py`` ``check_model_cut``)."""
+        from deepspeed_tpu_torch.sharding.rules import check_model_cut
 
         sizes = self.mesh.sizes
         if mesh_check is not None:
@@ -323,23 +340,10 @@ class DeepSpeedEngine:
         m = sizes["model"]
         if m <= 1:
             return
-        spec_fn = self.partition_rules.tp_spec_fn()
-        cut = [(path, shape, d) for path, shape in zip(self._paths, shapes)
-               for d, e in enumerate(spec_tuple(spec_fn(path, shape), len(shape)))
-               if "model" in entry_axes(e)]
-        if not cut:
+        if not check_model_cut(zip(self._paths, shapes), self.partition_rules.tp_spec_fn(), m):
             raise ValueError(
                 f"mesh.model = {m} needs the model's tensor-parallel specs: pass "
                 "tp_spec_fn (make_model's third value) or partition_rules")
-        for path, shape, d in cut:
-            parts = fused_tp_parts(path) if d == len(shape) - 1 else 1
-            if shape[d] % (parts * m):
-                what = (f"each of its {parts} packed parts" if parts > 1
-                        else f"the global size of its dimension {d}")
-                raise ValueError(
-                    f"{path}: its sharding over 'model' ({m} ranks) implies that {what} "
-                    f"should be divisible by {m}, but it is equal to "
-                    f"{shape[d] // parts} (full shape: {tuple(shape)})")
 
     def _init_comm_layer(self, config) -> None:
         """The comm layer (the JAX engine's ``_init_comm_layer``): resolve

@@ -30,6 +30,23 @@ the JAX package, token parity up to near-ties here); per-request
 sampling draws from generators keyed on (seed, position), so a
 request's tokens do not depend on its slot.
 
+**Across ranks** (an engine with ``mp_size=M`` under a process group,
+``inference/engine.py``): each rank's pools hold its ``n_head / M``
+heads (the JAX engine replicates its pools: ROADMAP C4), the host
+allocator, prefix index and copy-on-write are the same on every rank,
+and a session spill lands in a subdirectory of the rank's own.  Every
+rank runs the same scheduler, so every rank must see the same
+submissions and the same clock.  ``submit`` and ``cancel`` are
+collectives: every rank calls them in the same order, rank 0 decides
+(admission reads its measured step time) and broadcasts the outcome,
+and every rank applies it or raises rank 0's refusal, so ids and queues
+agree at every call.  Once a step (and at the start of a drain) rank 0
+broadcasts its ``time.monotonic()``, and every rank plans the step on
+it.  Within a step every decision reads the broadcast clock; rank 0
+stamps its requests' first-token and finish times with its own clock
+after them, for the metrics.  ``stats()`` then skips the idle sweeps
+(they would read a rank's own clock).
+
 Not ported yet (ROADMAP A8): the request journal, the SIGTERM watchdog
 and its session spill at drain, telemetry spans, the ds_san/ds_shard
 hooks, tenants, the fleet and KV tiering.
@@ -38,12 +55,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import collectives
 from deepspeed_tpu_torch.config.config import ServingConfig
 from deepspeed_tpu_torch.inference.engine import sample_logits_pooled
 from deepspeed_tpu_torch.ops.transformer.inference import forward_with_cache
@@ -63,6 +82,20 @@ from deepspeed_tpu_torch.utils.logging import log_dist
 # the decode kernel's row tile on the TPU; the pool capacity keeps the
 # JAX engine's alignment so that both engines build the same pool shapes
 _TPU_DECODE_ALIGN = 128
+# the collectives' kind for the ranks' agreement on a session restore
+AGREE_KIND = "session-agree"
+
+
+def rank_spill_dir(spill_dir: Optional[str], mesh) -> Optional[str]:
+    """A rank's own session-spill directory: ``spill_dir`` on one rank,
+    ``spill_dir/model<r>`` (``-data<j>`` past one data replica) on a mesh
+    of several, each with its own manifests."""
+    if not spill_dir or mesh is None or mesh.world_size == 1:
+        return spill_dir or None
+    name = f"model{mesh.coords['model']}"
+    if mesh.sizes["data"] > 1:
+        name += f"-data{mesh.coords['data']}"
+    return os.path.join(spill_dir, name)
 
 
 class ServingEngine:
@@ -110,6 +143,12 @@ class ServingEngine:
                 max_len = aligned
         kv_dtype = "int8" if config.kv_cache_dtype == "int8" else engine._kv_dtype
         self.device = engine.device
+        # across ranks: rank 0's admissions, cancellations and clock
+        mesh = engine.mesh
+        self._group = mesh.world_group() if mesh is not None and mesh.world_size > 1 else None
+        self._rank0 = self._group is None or mesh.rank == 0
+        self._now = 0.0  # the step's clock (rank 0's under a group)
+        heads = engine.local_heads
         kvc = config.kvcache
         self._paged = bool(kvc.enabled)
         if self._paged:
@@ -135,17 +174,18 @@ class ServingEngine:
                     )
                 max_len = aligned
             self.pool = PagedKVPool(
-                mcfg.n_layer, config.num_slots, mcfg.n_head, max_len,
+                mcfg.n_layer, config.num_slots, heads, max_len,
                 mcfg.head_dim, kv_dtype, page_len=kvc.page_len,
                 num_pages=(kvc.num_pages or None), device=self.device,
                 prefill_chunk=config.prefill_chunk,
                 pinned_prefixes=kvc.pinned_prefixes,
                 session_ttl_seconds=kvc.session_ttl_seconds,
-                spill_dir=(kvc.spill_dir or None),
+                spill_dir=rank_spill_dir(kvc.spill_dir, mesh),
+                agree=self._agree if self._group is not None else None,
             )
         else:
             self.pool = SlotKVPool(
-                mcfg.n_layer, config.num_slots, mcfg.n_head, max_len, mcfg.head_dim,
+                mcfg.n_layer, config.num_slots, heads, max_len, mcfg.head_dim,
                 kv_dtype, device=self.device,
             )
         self.scheduler = ContinuousScheduler(
@@ -173,7 +213,9 @@ class ServingEngine:
             f"serving engine: {config.num_slots} slots x {max_len} positions "
             f"(kv={kv_dtype}, chunk={config.prefill_chunk}, "
             f"{'paged, ' if self._paged else ''}"
-            f"pool {self.pool.cache_bytes() / 1e6:.1f} MB, device={self.device})"
+            f"pool {self.pool.cache_bytes() / 1e6:.1f} MB"
+            f"{f' a rank ({heads} of {mcfg.n_head} heads)' if engine.mp_world_size > 1 else ''}"
+            f", device={self.device})"
         )
 
     # ------------------------------------------------------------------
@@ -209,14 +251,11 @@ class ServingEngine:
         ``session_id`` (paged pool only): a finished turn's KV pages park
         under this id, and the next turn whose prompt extends the parked
         history rebinds them — prefill restarts at the first uncached
-        chunk.  Ignored on the slot pool."""
-        if do_sample and top_k > self.config.max_top_k:
-            raise ValueError(
-                f"top_k={top_k} exceeds serving.max_top_k={self.config.max_top_k}; "
-                "raise serving.max_top_k or lower the request's top_k"
-            )
-        req = self.scheduler.submit(
-            prompt,
+        chunk.  Ignored on the slot pool.
+
+        Across ranks a collective: rank 0's call decides, and every rank
+        returns its id or raises its refusal (module docstring)."""
+        kw = dict(
             max_new_tokens=(max_new_tokens if max_new_tokens is not None
                             else self.config.max_new_tokens),
             eos_token_id=eos_token_id,
@@ -227,10 +266,36 @@ class ServingEngine:
             seed=seed,
             priority=PRIORITY_NORMAL if priority is None else priority,
             session_id=session_id,
-            now=time.monotonic(),
-            step=self._step_count,
         )
-        return req.request_id
+        s = self.scheduler
+        if self._group is None:
+            return self._admit(prompt, kw, time.monotonic()).request_id
+        box = None
+        if self._rank0:
+            try:
+                req = self._admit(prompt, kw, time.monotonic())
+                box = (req.prompt, kw, req.request_id, req.submit_time)
+            except Exception as e:  # a refusal: every rank raises it
+                box = e
+            box = (box, s.rejected, s.admission.shed)
+        out, s.rejected, s.admission.shed = collectives.broadcast_object(
+            box, src=0, group=self._group)
+        if isinstance(out, Exception):
+            raise out
+        prompt, kw, rid, at = out
+        if not self._rank0:
+            s.submit(prompt, now=at, step=self._step_count, request_id=rid,
+                     bypass_admission=True, **kw)
+        return rid
+
+    def _admit(self, prompt, kw, now: float) -> Request:
+        """One process's admission of a request (rank 0's across ranks)."""
+        if kw["do_sample"] and kw["top_k"] > self.config.max_top_k:
+            raise ValueError(
+                f"top_k={kw['top_k']} exceeds serving.max_top_k={self.config.max_top_k}; "
+                "raise serving.max_top_k or lower the request's top_k"
+            )
+        return self.scheduler.submit(prompt, now=now, step=self._step_count, **kw)
 
     def step(self) -> bool:
         """One serving step: tick the scheduler, land this step's prefill
@@ -238,11 +303,12 @@ class ServingEngine:
         work remains."""
         self._step_count += 1
         t0 = time.monotonic()
+        now = self._sync(t0)
         if self._paged:
             # TTL sweep BEFORE admission: pages a cold session releases
             # this tick are available to the requests admitted in it
-            self.pool.sweep(t0)
-        plan = self.scheduler.tick(t0, self._step_count, admit=True)
+            self.pool.sweep(now)
+        plan = self.scheduler.tick(now, self._step_count, admit=True)
         t1 = time.monotonic()
         for job in plan.prefill_jobs:
             self._run_prefill(job)
@@ -265,7 +331,7 @@ class ServingEngine:
     def drain(self, max_steps: Optional[int] = None) -> Dict[int, Request]:
         """Step until every submitted request finishes (or ``max_steps``
         elapses); returns and clears the finished-request map."""
-        self.scheduler.sweep_expired(time.monotonic(), self._step_count)
+        self.scheduler.sweep_expired(self._sync(time.monotonic()), self._step_count)
         steps = 0
         while self.scheduler.has_work():
             self.step()
@@ -276,14 +342,54 @@ class ServingEngine:
 
     def cancel(self, request_id: int) -> bool:
         """Retire a queued or in-flight request without finishing it;
-        False when the id is unknown or already retired."""
-        return self.scheduler.cancel(request_id, now=time.monotonic(), step=self._step_count)
+        False when the id is unknown or already retired.  Across ranks a
+        collective: every rank cancels rank 0's id at rank 0's clock (the
+        ranks' schedulers agree, and so do their answers)."""
+        now = time.monotonic()
+        if self._group is not None:
+            box = (int(request_id), now) if self._rank0 else None
+            request_id, now = collectives.broadcast_object(box, src=0, group=self._group)
+        return self.scheduler.cancel(request_id, now=now, step=self._step_count)
 
     def result(self, request_id: int) -> Optional[Request]:
         return self.scheduler.request(request_id)
 
     def pop_results(self) -> Dict[int, Request]:
         return self.scheduler.pop_finished()
+
+    # ------------------------------------------------------------------
+    # across ranks
+    # ------------------------------------------------------------------
+    def _sync(self, now: float) -> float:
+        """The step's clock: ``now`` on one rank, rank 0's across ranks
+        (one broadcast)."""
+        if self._group is not None:
+            now = collectives.broadcast_object(now if self._rank0 else None, src=0,
+                                               group=self._group)
+        self._now = now
+        return now
+
+    def _agree(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank (one all-reduce of the flag)."""
+        flag = torch.tensor([int(bool(ok))], dtype=torch.int32, device=self.device)
+        return bool(collectives.all_reduce(flag, self._group, kind=AGREE_KIND, op="min").item())
+
+    def _note_time(self) -> float:
+        """The ``now`` a step's decisions read: the broadcast clock across
+        ranks, else the wall clock."""
+        return self._now if self._group is not None else time.monotonic()
+
+    def _stamp(self, reqs, now: float) -> None:
+        """Rank 0's first-token and finish times from its own clock (the
+        metrics), where the step's notes set the broadcast one."""
+        if self._group is None or not self._rank0:
+            return
+        wall = time.monotonic()
+        for r in reqs:
+            if r.first_token_time == now:
+                r.first_token_time = wall
+            if r.finish_time == now:
+                r.finish_time = wall
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -297,6 +403,7 @@ class ServingEngine:
         # not shift the wpe rows of the real tokens
         position_ids = torch.clamp(
             job.start + torch.arange(chunk, device=dev), 0, n_pos - 1)[None, :]
+        take = slice(job.take_idx, job.take_idx + 1)  # the one row sampled
         if self._paged:
             # the slot's pending copy-on-write lands BEFORE this chunk's
             # writes, on every layer and leaf of K and V ((0, 0) — the
@@ -311,7 +418,7 @@ class ServingEngine:
             logits, _, _ = forward_with_cache(
                 self.engine.params, toks, self.pool.k, self.pool.v,
                 torch.tensor([job.start], dtype=torch.int32, device=dev), self._icfg,
-                position_ids=position_ids, page_table=table,
+                position_ids=position_ids, page_table=table, tp=self.engine.tp, logits_rows=take,
             )
         else:
             ks, vs = self.pool.slot_view(r.slot)
@@ -319,21 +426,22 @@ class ServingEngine:
             # the chunk attends the slot's whole cache under the position mask
             logits, _, _ = forward_with_cache(
                 self.engine.params, toks, ks, vs, torch.tensor(job.start), self._icfg,
-                position_ids=position_ids,
+                position_ids=position_ids, tp=self.engine.tp, logits_rows=take,
             )
         first = sample_logits_pooled(
-            logits[0, job.take_idx][None, :],
+            logits[0, 0][None, :],
             [r.do_sample], [r.temperature], [r.top_k], [r.seed],
             [job.start + job.take_idx], self.config.max_top_k,
         )[0]
         self.prefill_chunks += 1
-        now = time.monotonic()
+        now = self._note_time()
         if self._paged and job.final:
             # the whole prompt's KV is paged in: learn it as a shared
             # prefix (before note_prefill — a 1-token budget can retire
             # the request, releasing the slot, inside that call)
             self.pool.learn_prefix(r, now=now)
         self.scheduler.note_prefill(job, int(first), now=now, step=self._step_count)
+        self._stamp([r], now)
 
     @torch.inference_mode()
     def _run_decode(self, toks: np.ndarray, pos: np.ndarray, decoding) -> None:
@@ -351,22 +459,26 @@ class ServingEngine:
             paged = {"page_table": torch.from_numpy(self.pool.tables()).to(dev),
                      "write_mask": torch.from_numpy(wmask).to(dev)}
         logits, _, _ = forward_with_cache(
-            self.engine.params, tok_t, self.pool.k, self.pool.v, pos_t, self._icfg, **paged,
+            self.engine.params, tok_t, self.pool.k, self.pool.v, pos_t, self._icfg,
+            tp=self.engine.tp, **paged,
         )
         out = sample_logits_pooled(
             logits[:, -1], flags, temps, topks, seeds, pos, self.config.max_top_k,
         )
         self.decode_steps += 1
+        now = self._note_time()
         self.scheduler.note_decode(
-            {r.slot: int(out[r.slot]) for r in decoding}, time.monotonic(), self._step_count
+            {r.slot: int(out[r.slot]) for r in decoding}, now, self._step_count
         )
+        self._stamp(decoding, now)
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
         """Counters and per-phase host wall time (seconds) for logs."""
         s = self.scheduler
-        s.sweep_expired(time.monotonic(), self._step_count)
-        if self._paged:
+        if self._group is None:  # across ranks the sweeps run in steps only
+            s.sweep_expired(time.monotonic(), self._step_count)
+        if self._paged and self._group is None:
             # the same idle sweep for parked-session TTLs: the per-step
             # sweep never runs on an engine that receives no traffic
             self.pool.sweep(time.monotonic())

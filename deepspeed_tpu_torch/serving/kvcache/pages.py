@@ -91,7 +91,8 @@ class PagedKVPool:
                  prefill_chunk: int = 1,
                  pinned_prefixes: Sequence[Sequence[int]] = (),
                  session_ttl_seconds: float = 0.0,
-                 spill_dir: Optional[str] = None):
+                 spill_dir: Optional[str] = None,
+                 agree=None):
         if num_slots < 1:
             raise SlotPoolError(f"num_slots must be >= 1, got {num_slots}")
         if page_len < 1:
@@ -141,7 +142,7 @@ class PagedKVPool:
         self._pending_cow: Dict[int, Tuple[int, int]] = {}
         self.index = PrefixIndex()
         self.sessions = SessionStore(spill_dir=spill_dir,
-                                     ttl_seconds=session_ttl_seconds)
+                                     ttl_seconds=session_ttl_seconds, agree=agree)
         self._pinned_specs: List[np.ndarray] = [
             np.asarray(list(spec), np.int32) for spec in pinned_prefixes
             if len(list(spec)) >= 1
@@ -283,7 +284,7 @@ class PagedKVPool:
     def _match_session(self, session_id: str, prompt: np.ndarray,
                        now: float) -> Optional[Session]:
         sess = self.sessions.peek(session_id)
-        if sess is None and self.sessions.is_spilled(session_id):
+        if sess is None and (self.sessions.is_spilled(session_id) or self.sessions.collective):
             sess = self._restore_session(session_id, now)
         if sess is None:
             return None

@@ -13,6 +13,15 @@ never a half-trusted one.  ``recover()`` re-registers every
 manifest-verified spill so a restarted engine rebinds its sessions
 exactly like warm ones.
 
+Under tensor parallelism each ``model`` rank holds its heads' pages: the
+serving engine gives each rank a ``spill_dir`` of its own (a subdirectory
+with its own manifests) and an ``agree`` function, one all-reduce (MIN)
+of the verified flag over every rank, so that a spill is restorable only
+when every rank's manifest is there and verifies, and all ranks take the
+same branch
+(one rank restoring while another re-prefills would split their
+collectives).
+
 The spill format is the JAX package's: ``kv.npz`` with one array per
 cache leaf (``k``/``v``, or ``k.q``/``k.s``/``v.q``/``v.s``), bfloat16
 stored as a raw uint16 view and named ``"bfloat16"`` in the meta's
@@ -27,7 +36,7 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,9 +105,12 @@ class SessionStore:
     in for :meth:`spill` and gets them back from :meth:`load`."""
 
     def __init__(self, spill_dir: Optional[str] = None,
-                 ttl_seconds: float = 0.0):
+                 ttl_seconds: float = 0.0,
+                 agree: Optional[Callable[[bool], bool]] = None):
         self.spill_dir = spill_dir
         self.ttl_seconds = float(ttl_seconds)
+        # across ranks: whether every rank's flag is True (a collective)
+        self.agree = agree
         self._warm: Dict[str, Session] = {}
         self._spilled: Dict[str, str] = {}  # session_id -> verified dir
         self.parks = 0
@@ -122,6 +134,12 @@ class SessionStore:
 
     def is_spilled(self, session_id: str) -> bool:
         return session_id in self._spilled
+
+    @property
+    def collective(self) -> bool:
+        """Whether restores are decided across ranks: every rank then asks
+        :meth:`load` for every session it does not hold warm."""
+        return self.agree is not None and self.spill_dir is not None
 
     def pop_warm(self, session_id: str) -> Optional[Session]:
         return self._warm.pop(session_id, None)
@@ -172,16 +190,27 @@ class SessionStore:
 
     def load(self, session_id: str) -> Optional[Tuple[Session, Dict[str, np.ndarray]]]:
         """Read a spilled session back (host leaves; the pool re-pages
-        them).  The spill entry is consumed — a later park re-persists."""
+        them).  The spill entry is consumed — a later park re-persists.
+        With ``agree`` this is a collective: None on every rank unless
+        every rank's spill verifies."""
         target = self._spilled.get(session_id)
-        if target is None:
+        if target is None and self.agree is None:
             return None
-        ok, notes = atomic.verify_manifest(target)
-        if not ok:
-            logger.warning(
-                f"kvcache: spilled session {session_id!r} failed manifest "
-                f"verification ({'; '.join(notes)}); dropping it"
-            )
+        ok, notes = (False, ["no spill on this rank"]) if target is None else \
+            atomic.verify_manifest(target)
+        if self.agree is not None and ok and not os.path.exists(
+                os.path.join(target, atomic.MANIFEST_FILE)):
+            # across ranks a rank's manifest must be there: one rank's
+            # crash mid-spill leaves its pages unverifiable
+            ok, notes = False, ["no manifest on this rank"]
+        every = ok if self.agree is None else self.agree(ok)
+        if not every:
+            if target is not None:
+                why = "; ".join(notes) if not ok else "another rank's spill failed verification"
+                logger.warning(
+                    f"kvcache: spilled session {session_id!r} failed manifest "
+                    f"verification ({why}); dropping it"
+                )
             self._spilled.pop(session_id, None)
             return None
         with open(os.path.join(target, _META_FILE)) as f:

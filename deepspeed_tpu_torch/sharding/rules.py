@@ -351,6 +351,31 @@ def fused_tp_parts(path: str) -> int:
     return 1
 
 
+def check_model_cut(leaves: Sequence[Tuple[str, Sequence[int]]], spec_fn: SpecFn, m: int) -> int:
+    """Refuse, in the JAX package's words, every dimension a ``model`` axis
+    of ``m`` ranks cuts and does not divide (the parts of a fused leaf
+    each alike); ``leaves`` are ``(path, shape)`` pairs, ``spec_fn`` the
+    tensor-parallel specs.  Returns how many leaves ``model`` cuts."""
+    from deepspeed_tpu_torch.sharding.spec import entry_axes, spec_tuple
+
+    cut = 0
+    for path, shape in leaves:
+        shape = tuple(int(n) for n in shape)
+        for d, e in enumerate(spec_tuple(spec_fn(path, shape), len(shape))):
+            if "model" not in entry_axes(e):
+                continue
+            cut += 1
+            parts = fused_tp_parts(path) if d == len(shape) - 1 else 1
+            if shape[d] % (parts * m):
+                what = (f"each of its {parts} packed parts" if parts > 1
+                        else f"the global size of its dimension {d}")
+                raise ValueError(
+                    f"{path}: its sharding over 'model' ({m} ranks) implies that {what} "
+                    f"should be divisible by {m}, but it is equal to "
+                    f"{shape[d] // parts} (full shape: {shape})")
+    return cut
+
+
 def family_catalog() -> Dict[str, int]:
     """{family: rule count}."""
     return {name: len(builder(DEFAULT_LAYOUT)) for name, builder in sorted(_FAMILIES.items())}

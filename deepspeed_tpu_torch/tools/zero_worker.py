@@ -19,7 +19,7 @@ It imports torch and the port only.  The spec::
                 "batches": "<npz: key -> (steps, global batch, ...)>"
                   | "synthetic": {"seed": 0, "T": 1024},
                 "steps": 3, "first_batch": 0, "load": {"dir": ..., "tag": ...},
-                "save": {"dir": ..., "tag": ..., "after": 2},
+                "save": {"dir": ..., "tag": ..., "after": 2 (0: before any step)},
                 "sigterm": {"rank": 0, "after": 1},
                 "record": "full" | "digest" | "none"}]}
 
@@ -155,6 +155,8 @@ def run_case(case, device, out_dir, rank):
     losses, comm, ms = [], [], []
     kernels.reset_launches()
     save = case.get("save")
+    if save is not None and int(save.get("after", -1)) == 0:  # the initial state
+        engine.save_checkpoint(save["dir"], tag=save.get("tag"))
     for s, batch in enumerate(batches):
         local = _rank_rows(batch, engine)
         collectives.reset_counts()

@@ -162,5 +162,7 @@ def test_engine_capacity_and_unported_options(params):
         teng.generate(_tokens(1, 4, 9), attention_mask=np.asarray([[1, 1, 0, 0]]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         deepspeed_tpu_torch.init_inference(model="tiny", quantize_bits=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mp_size 2 serves across ranks (tests/test_torch_tp_inference.py); one
+    # process without a group refuses it
+    with pytest.raises(ValueError, match="mp_size=2 needs a process group"):
         deepspeed_tpu_torch.init_inference(model="tiny", mp_size=2, device="cpu")

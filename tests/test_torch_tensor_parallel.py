@@ -326,5 +326,9 @@ def test_port_refusals_of_a_model_axis():
         _engine(tgpt2.GPT2_TINY, {"model": 2}, tp=False)
     with pytest.raises(ValueError, match="BERT has no sequence-parallel mode"):
         _engine(tbert.BERT_TINY, {"seq": 2}, family=tbert)
-    with pytest.raises(NotImplementedError, match="A6"):
-        deepspeed_tpu_torch.init_inference(model="tiny", mp_size=2, device="cpu")
+    # the inference engine's refusals of the same (tests/test_torch_tp_inference.py
+    # serves at mp_size 2 and 4 across ranks)
+    with pytest.raises(ValueError, match=r"n_head 3 is not divisible by the model axis \(2\)"):
+        deepspeed_tpu_torch.init_inference(
+            model_config=dataclasses.replace(tgpt2.GPT2_TINY, n_head=3, n_embd=48), mp_size=2,
+            device="cpu")
