@@ -151,6 +151,21 @@ Phases, each printing one JSON line:
    engine on the same mix (decode tokens/s, TTFT, prefill chunks run);
    then the session is spilled to disk and a fourth turn restores it: the
    restored rows must equal the spilled ones bit for bit.
+   Then ``serve_tiers_bf16``: GPT-2 124M (weights drawn on the card) in
+   bf16 on the paged pool (8 slots x 1024 positions, pages of 128, 160
+   pages), 16 sessions x 3 turns of 96..192 new prompt tokens and 32 greedy
+   tokens, tiers off (the reference, every session warm) and on (watermark
+   0.3, residency window 256, 24 host pages, then disk): every turn bit
+   for bit the reference's, demotions, promotions, T1 and T2 hits, one
+   prefill and one decode signature, B5 launched (``serving_tiers``);
+   the gather's and scatter's ms a page (CUDA events) beside their bound
+   over the host link, ``swap_hidden_ratio``, decode tokens/s beside the
+   reference's.  Then ``serve_resilience_bf16``: ``tools/serving_chaos.py``
+   in child processes (a real ``kill -9`` mid-decode replayed bit for bit;
+   SIGTERM mid-drain on the tiered engine, exit 43, the next turns
+   rebinding from disk bit for bit; two tenants, one deferred by its page
+   quota, the bill equal to the journal's), B4 and B5 launched in the
+   children (``serving_resilience``).
 9. ``train_bert_f32``: BERT-large at full width and depth (random weights
    from a seed) through ``initialize`` in f32, B=2, T=512 with a
    key-padding mask, LAMB, 3 steps, TF32 off: the kernel path (biased
@@ -209,7 +224,8 @@ Phases, each printing one JSON line:
 16. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
-   (``launches_by_path``: serving, serving_paged, serving_tp, training,
+   (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
+   serving_resilience, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
@@ -344,6 +360,22 @@ DECODE_SPLIT_TOL = 1e-6
 # of the JAX package's long-context records, 8 layers, batch 1
 SPARSE_TS = (8192, 16384)
 SPARSE_LAYERS = 8
+# serve_tiers_bf16: 16 sessions x 3 turns of 96..192 new prompt tokens and
+# 32 greedy tokens each on the paged pool (8 slots x 1024 positions, pages
+# of 128, 160 pages), with tiers off (the reference: every session warm)
+# and on (a residency window of 256 tokens, 24 host pages, then disk).
+# The watermark is 0.15 of the pool: at 0.3 the parked sessions (2-5 pages
+# each) stay under it once the learned prefixes have moved out, and no
+# session reaches the disk before its next turn (a CPU rehearsal at these
+# page counts: 0 disk hits at 0.3, 2 and 5 after turns 2 and 3 at 0.15)
+TIER_SESSIONS, TIER_TURNS, TIER_TAIL, TIER_NEW = 16, 3, (96, 192), 32
+TIER_SERVING = {"num_slots": 8, "prefill_chunk": 64, "max_len": 1024,
+                "kvcache": {"enabled": True, "page_len": 128, "num_pages": 160}}
+TIER_KNOBS = {"enabled": True, "demote_watermark": 0.15, "residency_window": 256,
+              "host_pages": 24, "demote_batch": 8, "prefetch_ahead": 2}
+# a tier move's bound: the page's bytes over the host link, PCIe 5.0 x16
+# at 64 GB/s each way (the PCI-SIG rate of the H100 SXM's host interface)
+HOST_LINK_BYTES = 64e9
 # transformer_layer's f32 check, 24 layers at B 2 through the kernels vs
 # plain attention on the same seeds: the output and the input's gradient
 # within this share of their largest entries (f32 sums in other orders,
@@ -954,6 +986,208 @@ def phase_serve_paged_bf16(torch, params, mix):
         del srv, pool
     torch.cuda.empty_cache()
     return launches, [r.tokens().tolist() for r in done + turns]
+
+
+# ---------------------------------------------------------------------------
+# serve_tiers_bf16 and serve_resilience_bf16: serving that survives a restart
+# ---------------------------------------------------------------------------
+
+def tier_turns(srv, seed=0):
+    """``TIER_SESSIONS`` sessions x ``TIER_TURNS`` turns on ``srv``: each
+    turn's prompt is the session's previous tokens plus a seeded tail;
+    every session's turn is submitted, then drained.  Between turns the
+    users think: with tiers, until the migration worker is idle (its disk
+    writes done, as a think time of a few hundred ms would leave them).
+    Returns the tokens by (turn, session) and the drained requests."""
+    rng = np.random.default_rng(seed)
+    vocab = srv.engine.model_config.vocab_size
+    tails = [[rng.integers(1, vocab, int(rng.integers(TIER_TAIL[0], TIER_TAIL[1] + 1)),
+                           dtype=np.int32) for _ in range(TIER_SESSIONS)]
+             for _ in range(TIER_TURNS)]
+    hist, out, done = {}, {}, []
+    for turn in range(TIER_TURNS):
+        rids = {}
+        for s, tail in enumerate(tails[turn]):
+            sid = f"chat-{s}"
+            prompt = tail if turn == 0 else np.concatenate([hist[sid], tail]).astype(np.int32)
+            rids[sid] = srv.submit(prompt, max_new_tokens=TIER_NEW, session_id=sid)
+        res = srv.drain()
+        for sid, rid in rids.items():
+            hist[sid] = res[rid].tokens()
+            out[(turn, sid)] = hist[sid].tolist()
+            done.append(res[rid])
+        while srv._tiers is not None and srv._tiers.inflight():
+            time.sleep(0.005)
+    return out, done
+
+
+def link_ms_per_page(torch, pool, n_pages=8, iters=10):
+    """The device ms a page of one gather (``index_select`` of both caches
+    then a ``non_blocking`` copy into host memory pinned beforehand) and
+    of one scatter (the copy back, then ``index_copy_``) over ``n_pages``
+    pages, CUDA events around ``iters`` of each: the host link's share of
+    a tier move, without the tier's own page-locking of new memory."""
+    ids = torch.arange(1, n_pages + 1, dtype=torch.int64, device=pool.k.device)
+    bufs = (pool.k, pool.v)
+    host = [torch.empty((b.shape[0], n_pages) + tuple(b.shape[2:]), dtype=b.dtype,
+                        pin_memory=True) for b in bufs]
+
+    def gather():
+        for h, b in zip(host, bufs):
+            h.copy_(b.index_select(1, ids), non_blocking=True)
+
+    def scatter():
+        for h, b in zip(host, bufs):
+            b.index_copy_(1, ids, h.to(b.device, non_blocking=True))
+
+    out = {}
+    for name, fn in (("gather", gather), ("scatter", scatter)):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        out[name] = start.elapsed_time(end) / iters / n_pages
+    return out
+
+
+def phase_serve_tiers_bf16(torch):
+    """GPT-2 124M (weights drawn on the card, seed 0) in bf16 on the paged
+    pool, 16 sessions x 3 turns, first with tiers off (every session stays
+    warm: the reference), then with tiers on (device → pinned host → disk
+    in a temp dir): every turn's tokens bit for bit the reference's;
+    demotions, promotions, T1 and T2 hits; the prefill and the decode calls
+    one signature each (the page tables rewritten in place); B5 launched
+    and B4 not (counters zeroed just before the tiered run and read just
+    after: ``serving_tiers``).  Prints the T0→T1 gather's and T1→T0
+    scatter's ms a page (CUDA events around each move) beside the bound
+    (page bytes over the host link) and beside the same copies into
+    memory pinned beforehand, ``swap_hidden_ratio`` and decode tokens/s
+    beside the reference's."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.serving import ServingEngine
+    from deepspeed_tpu_torch.serving import engine as engine_mod
+
+    eng = deepspeed_tpu_torch.init_inference(model="gpt2", dtype=torch.bfloat16,
+                                             init_on_device=True, seed=0, max_out_tokens=1024)
+    ref = ServingEngine(eng, TIER_SERVING)
+    t0 = time.perf_counter()
+    want, _ = tier_turns(ref)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    ref_st = ref.stats()
+    kv = ref_st["kvcache"]
+    check(kv["session_rebinds"] == TIER_SESSIONS * (TIER_TURNS - 1) and kv["session_drops"] == 0
+          and kv["session_spills"] == 0,
+          f"serve_tiers_bf16: the reference's sessions did not all stay warm: {kv}")
+    del ref
+    torch.cuda.empty_cache()
+
+    sigs = {"prefill": set(), "decode": set()}
+    real = engine_mod.forward_with_cache
+
+    def spy(params, toks, k, v, pos, icfg, **kw):
+        table = kw.get("page_table")
+        kind = "decode" if "write_mask" in kw else "prefill"
+        sigs[kind].add((tuple(toks.shape), tuple(pos.shape),
+                        None if table is None else tuple(table.shape)))
+        return real(params, toks, k, v, pos, icfg, **kw)
+
+    disk = tempfile.mkdtemp()
+    engine_mod.forward_with_cache = spy
+    try:
+        cfg = {**TIER_SERVING, "kvcache": {**TIER_SERVING["kvcache"],
+                                           "tiers": {**TIER_KNOBS, "disk_dir": disk}}}
+        srv = ServingEngine(eng, cfg)
+        # -- the main path: counters zeroed just before, read just after ---
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got, done = tier_turns(srv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()
+        # ------------------------------------------------------------------
+        st = srv.stats()
+        tiers = st["kvcache"]["tiers"]
+        srv._tiers.close()
+        link = link_ms_per_page(torch, srv.pool)
+    finally:
+        engine_mod.forward_with_cache = real
+        shutil.rmtree(disk, ignore_errors=True)
+    differ = [k for k in want if got.get(k) != want[k]]
+    check(not differ, f"serve_tiers_bf16: turns {differ[:8]} differ from the all-device run")
+    check(tiers["demote_t0_t1"] > 0 and tiers["demote_t1_t2"] > 0
+          and tiers["promote_t1_t0"] + tiers["promote_t2_t0"] > 0
+          and tiers["hits_t1"] >= 1 and tiers["hits_t2"] >= 1,
+          f"serve_tiers_bf16: the tier cascade did not run: {tiers}")
+    check(len(sigs["prefill"]) == 1 and len(sigs["decode"]) == 1,
+          f"serve_tiers_bf16: call signatures {sigs}")
+    # a prefill chunk at an offset attends the pages through the plain
+    # gather + attention, as the JAX package's paged_cache_attention does
+    # for more than one query: B1 runs in generate()'s prefill, not here
+    check(launches["flash_decode_paged"] > 0 and launches["flash_decode"] == 0,
+          f"serve_tiers_bf16: launches {launches}")
+    cfg_m = eng.model_config
+    for r in done:
+        check(r.finish_reason == "length" and all(0 <= t < cfg_m.vocab_size for t in r.generated),
+              f"serve_tiers_bf16 request {r.request_id}: {r.finish_reason}")
+    page_len = TIER_SERVING["kvcache"]["page_len"]
+    page_bytes = 2 * cfg_m.n_layer * cfg_m.n_head * page_len * cfg_m.head_dim * 2  # K, V: bf16
+    bound = page_bytes / HOST_LINK_BYTES * 1e3
+    n_new = TIER_SESSIONS * TIER_TURNS * (TIER_NEW - 1)  # decode-step tokens
+    emit({"phase": "serve_tiers_bf16", "sessions": TIER_SESSIONS, "turns": TIER_TURNS,
+          "turns_equal": len(want) - len(differ), "tiers": tiers,
+          "page_bytes": page_bytes,
+          "gather_ms_per_page": tiers["gather_ms_per_page"],
+          "scatter_ms_per_page": tiers["scatter_ms_per_page"],
+          "move_bound_ms_per_page": bound, "host_link_bytes_per_s": HOST_LINK_BYTES,
+          "prepinned_gather_ms_per_page": link["gather"],
+          "prepinned_scatter_ms_per_page": link["scatter"],
+          "swap_hidden_ratio": tiers["swap_hidden_ratio"],
+          "decode_tokens_per_s": n_new / st["phase_seconds"]["decode"],
+          "ref_decode_tokens_per_s": n_new / ref_st["phase_seconds"]["decode"],
+          "wall_s": wall, "ref_wall_s": ref_wall, "phase_seconds": st["phase_seconds"],
+          "ref_phase_seconds": ref_st["phase_seconds"],
+          "signatures": {k: [list(map(str, s)) for s in v] for k, v in sigs.items()},
+          "launches": {k: v for k, v in launches.items() if v}})
+    del srv, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_resilience_bf16(torch):
+    """``deepspeed_tpu_torch/tools/serving_chaos.py`` on the card: GPT-2
+    124M in bf16 (weights drawn on the card, seed 0) in child processes.
+    (a) A real ``kill -9`` at the victim's 3rd decode (slot pool, journal,
+    7 greedy requests and 1 seeded-sampling one); a fresh child's
+    ``recover()`` replays exactly the journal's incomplete set, bit for bit
+    the uninterrupted child's tokens.  (b) SIGTERM mid-drain on the tiered
+    paged engine: exit 43 after the journal commits, every warm session
+    flushed to disk; a fresh child's ``recover()`` and next turn of every
+    session rebind from disk (``hits_t2`` >= 1), bit for bit the
+    uninterrupted child's.  (c) Two tenants, one under a page quota below
+    its requests' need: it defers, the other does not, the tokens equal
+    the engine's without tenants, and the bill equals
+    ``journal_tenant_totals``.  A failed child fails the phase.  Returns
+    the children's launches (``serving_resilience``)."""
+    from deepspeed_tpu_torch.tools import serving_chaos
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = serving_chaos.run("cuda")
+    check(out["ok"], "serve_resilience_bf16: " + "\n".join(out["failures"]))
+    for name in ("flash_decode", "flash_decode_paged"):  # the slot and the paged pools
+        check(out["launches"].get(name, 0) > 0,
+              f"serve_resilience_bf16: {name} not launched in the children: {out['launches']}")
+    emit({"phase": "serve_resilience_bf16", **out})
+    return out["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3643,6 +3877,8 @@ def main() -> int:
     mix = paged_request_mix(seed=0)
     phase_serve_paged_f32(torch, params, mix)
     paged_launches, served["paged"] = phase_serve_paged_bf16(torch, params, mix)
+    tiers_launches = phase_serve_tiers_bf16(torch)
+    resilience_launches = phase_serve_resilience_bf16(torch)
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
@@ -3672,6 +3908,8 @@ def main() -> int:
     sparse_launches = phase_train_sparse_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "serving_tp": serve_tp_launches.get(name, 0),
+                      "serving_tiers": tiers_launches[name],
+                      "serving_resilience": resilience_launches.get(name, 0),
                       "training": train_launches[name], "training_resume": resume_launches[name],
                       "training_zero": zero_launches.get(name, 0),
                       "training_tp_seq": tp_seq_launches.get(name, 0),

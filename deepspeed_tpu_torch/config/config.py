@@ -4,8 +4,10 @@
 Ported: :class:`DeepSpeedConfig` with its batch triad on one device, the
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler`` blocks, the ZeRO
 ``stage``, ``gradient_clipping``, ``steps_per_print``, ``seed``, the
-``serving`` block's slot-pool fields and its ``kvcache`` block (the paged
-pool; :class:`ServingConfig`, :class:`KVCacheConfig`), the ``resilience``
+``serving`` block but its ``fleet`` and ``frontdoor`` (the slot and paged
+pools, the request journal, the SIGTERM drain, KV tiering and tenants;
+:class:`ServingConfig`, :class:`KVCacheConfig`, :class:`KVTiersConfig`,
+:class:`TenantsConfig`), the ``resilience``
 block but its ``supervision`` (:class:`ResilienceConfig`), the ``overlap``
 block (:class:`OverlapConfig`), ``checkpoint_tag_validation`` and
 ``dataloader_drop_last``.  Unknown
@@ -52,33 +54,17 @@ def _known_keys(cls, *extra: str) -> Iterable[str]:
     return tuple(f.name for f in dataclasses.fields(cls)) + extra
 
 
-# serving keys of the JAX package whose machinery is not ported yet:
-# key -> (default that means "off", ROADMAP item)
-_NOT_PORTED_KEYS = {
-    "journal_dir": (C.SERVING_JOURNAL_DIR_DEFAULT, "A8 serving/journal.py"),
-    "journal_segment_records": (C.SERVING_JOURNAL_SEGMENT_RECORDS_DEFAULT, "A8 serving/journal.py"),
-    "journal_keep_segments": (C.SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT, "A8 serving/journal.py"),
-    "drain_deadline_seconds": (C.SERVING_DRAIN_DEADLINE_SECONDS_DEFAULT, "A8 serving/watchdog.py"),
-}
+# serving blocks of the JAX package whose machinery is not ported yet:
+# block -> ROADMAP item
 _NOT_PORTED_BLOCKS = {
     C.SERVING_FLEET: "A8 serving/fleet/",
     C.SERVING_FRONTDOOR: "A8 serving/frontdoor/",
-    C.SERVING_TENANTS: "A8 serving/frontdoor/tenants.py",
 }
 
 
 def _refuse_not_ported(d: Dict[str, Any]) -> None:
     """Raise for any part of ``d`` that asks for serving machinery the
-    port does not have yet (journal, watchdog, fleet, front-door,
-    tenants).  The ``kvcache`` block is parsed by :class:`KVCacheConfig`,
-    which refuses its ``tiers``."""
-    for key, (off, item) in _NOT_PORTED_KEYS.items():
-        if key in d and d[key] not in (off, None):
-            raise NotImplementedError(
-                f"'{C.SERVING}.{key}' is not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP {item})"
-            )
-        d.pop(key, None)
+    port does not have yet (the fleet, the front door)."""
     for block, item in _NOT_PORTED_BLOCKS.items():
         if d.pop(block, None):
             raise NotImplementedError(
@@ -89,9 +75,9 @@ def _refuse_not_ported(d: Dict[str, Any]) -> None:
 
 @dataclass
 class KVTiersConfig:
-    """``serving.kvcache.tiers`` block: hierarchical page residency HBM
-    (T0) → host memory (T1) → disk (T2).  Parsed and validated as in the
-    JAX package; ``enabled`` raises (the tier manager is not ported)."""
+    """``serving.kvcache.tiers`` block: hierarchical page residency device
+    memory (T0) → host memory (T1) → disk (T2), parsed and validated as in
+    the JAX package (``serving/kvcache/tiers.py``)."""
 
     enabled: bool = C.SERVING_KVCACHE_TIERS_ENABLED_DEFAULT
     host_pages: int = C.SERVING_KVCACHE_TIERS_HOST_PAGES_DEFAULT  # 0 = unbounded
@@ -142,11 +128,6 @@ class KVTiersConfig:
         if out.demote_batch < 1:
             raise DeepSpeedConfigError(
                 f"'{block}.demote_batch' must be >= 1, got {out.demote_batch}"
-            )
-        if out.enabled:
-            raise NotImplementedError(
-                f"'{block}' is not ported to deepspeed_tpu_torch yet "
-                "(ROADMAP A8 serving/kvcache/tiers.py)"
             )
         return out
 
@@ -220,6 +201,120 @@ class KVCacheConfig:
         return out
 
 
+# per-tenant override spec keys accepted under serving.tenants.overrides
+_TENANT_SPEC_KEYS = (
+    "refill_tokens_per_second",
+    "burst_tokens",
+    "weight",
+    "slo_class",
+    "kv_pages_max",
+    "pinned_prefixes_max",
+)
+
+
+@dataclass
+class TenantsConfig:
+    """``serving.tenants`` block: the multi-tenant dimension — per-tenant token-bucket admission rates,
+    weighted-fair queueing ahead of priority tiers, SLO classes mapped
+    onto the degradation ladder's priorities, and per-tenant paged-KV
+    page / pinned-prefix quotas.  Field values are the defaults for any
+    tenant; ``overrides`` refines them per tenant name."""
+
+    enabled: bool = C.SERVING_TENANTS_ENABLED_DEFAULT
+    refill_tokens_per_second: float = (
+        C.SERVING_TENANTS_REFILL_TOKENS_PER_SECOND_DEFAULT)
+    burst_tokens: float = C.SERVING_TENANTS_BURST_TOKENS_DEFAULT
+    weight: float = C.SERVING_TENANTS_WEIGHT_DEFAULT
+    slo_class: str = C.SERVING_TENANTS_SLO_CLASS_DEFAULT
+    kv_pages_max: int = C.SERVING_TENANTS_KV_PAGES_MAX_DEFAULT
+    pinned_prefixes_max: int = C.SERVING_TENANTS_PINNED_PREFIXES_MAX_DEFAULT
+    overrides: Dict[str, Dict[str, Any]] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "TenantsConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, TenantsConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_TENANTS}"
+        raw_over = d.pop("overrides", None) or {}
+        if not isinstance(raw_over, dict):
+            raise DeepSpeedConfigError(
+                f"'{block}.overrides' must be a dict of per-tenant spec "
+                f"dicts, got {type(raw_over).__name__}"
+            )
+        overrides: Dict[str, Dict[str, Any]] = {}
+        for name, spec in raw_over.items():
+            if not isinstance(spec, dict):
+                raise DeepSpeedConfigError(
+                    f"'{block}.overrides[{name!r}]' must be a dict, "
+                    f"got {type(spec).__name__}"
+                )
+            unknown = sorted(set(spec) - set(_TENANT_SPEC_KEYS))
+            if unknown:
+                raise DeepSpeedConfigError(
+                    f"'{block}.overrides[{name!r}]' has unknown keys "
+                    f"{unknown}; known: {sorted(_TENANT_SPEC_KEYS)}"
+                )
+            slo = spec.get("slo_class")
+            if slo is not None and slo not in C.SERVING_TENANTS_SLO_CLASSES:
+                raise DeepSpeedConfigError(
+                    f"'{block}.overrides[{name!r}].slo_class' must be one "
+                    f"of {C.SERVING_TENANTS_SLO_CLASSES}, got '{slo}'"
+                )
+            overrides[str(name)] = dict(spec)
+        out = cls(
+            enabled=bool(d.pop("enabled", C.SERVING_TENANTS_ENABLED_DEFAULT)),
+            refill_tokens_per_second=float(
+                d.pop("refill_tokens_per_second",
+                     C.SERVING_TENANTS_REFILL_TOKENS_PER_SECOND_DEFAULT)
+            ),
+            burst_tokens=float(
+                d.pop("burst_tokens", C.SERVING_TENANTS_BURST_TOKENS_DEFAULT)
+            ),
+            weight=float(d.pop("weight", C.SERVING_TENANTS_WEIGHT_DEFAULT)),
+            slo_class=str(
+                d.pop("slo_class", C.SERVING_TENANTS_SLO_CLASS_DEFAULT)
+            ).lower(),
+            kv_pages_max=int(
+                d.pop("kv_pages_max", C.SERVING_TENANTS_KV_PAGES_MAX_DEFAULT)
+            ),
+            pinned_prefixes_max=int(
+                d.pop("pinned_prefixes_max",
+                     C.SERVING_TENANTS_PINNED_PREFIXES_MAX_DEFAULT)
+            ),
+            overrides=overrides,
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.refill_tokens_per_second < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.refill_tokens_per_second' must be >= 0 "
+                f"(0 with burst_tokens 0 = unlimited), "
+                f"got {out.refill_tokens_per_second}"
+            )
+        if out.burst_tokens < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.burst_tokens' must be >= 0, got {out.burst_tokens}"
+            )
+        if out.weight <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.weight' must be > 0, got {out.weight}"
+            )
+        if out.slo_class not in C.SERVING_TENANTS_SLO_CLASSES:
+            raise DeepSpeedConfigError(
+                f"'{block}.slo_class' must be one of "
+                f"{C.SERVING_TENANTS_SLO_CLASSES}, got '{out.slo_class}'"
+            )
+        if out.kv_pages_max < 0 or out.pinned_prefixes_max < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.kv_pages_max'/'pinned_prefixes_max' must be >= 0 "
+                f"(0 = uncapped), got "
+                f"{out.kv_pages_max}/{out.pinned_prefixes_max}"
+            )
+        return out
+
+
 @dataclass
 class ServingConfig:
     """``serving`` block: the continuous-batching slot-pool engine.
@@ -227,7 +322,10 @@ class ServingConfig:
     prompts prefill in ``prefill_chunk``-token chunks interleaved with
     decode steps; ``max_queue`` bounds admission and
     ``deadline_seconds`` expires requests that wait too long for a
-    slot.  ``kvcache.enabled`` swaps the slot pool for the paged pool."""
+    slot.  ``kvcache.enabled`` swaps the slot pool for the paged pool.
+    ``journal_dir`` arms the write-ahead request journal,
+    ``drain_deadline_seconds`` bounds the SIGTERM drain, and ``tenants``
+    the multi-tenant dimension."""
 
     num_slots: int = C.SERVING_NUM_SLOTS_DEFAULT
     max_len: int = C.SERVING_MAX_LEN_DEFAULT  # 0 = derive from the engine
@@ -244,6 +342,17 @@ class ServingConfig:
     degrade_disengage_steps: int = C.SERVING_DEGRADE_DISENGAGE_STEPS_DEFAULT
     degrade_max_new_tokens: int = C.SERVING_DEGRADE_MAX_NEW_TOKENS_DEFAULT
     kvcache: KVCacheConfig = field(default_factory=KVCacheConfig)
+    # graceful drain: SIGTERM stops admission and drains in-flight
+    # requests for at most this long before the journal commit + exit 43
+    drain_deadline_seconds: float = C.SERVING_DRAIN_DEADLINE_SECONDS_DEFAULT
+    # write-ahead request journal ("" = off): submit/admit/first-token/
+    # retire records under serving/journal.py's atomic segment protocol
+    journal_dir: str = C.SERVING_JOURNAL_DIR_DEFAULT
+    journal_segment_records: int = C.SERVING_JOURNAL_SEGMENT_RECORDS_DEFAULT
+    journal_keep_segments: int = C.SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT
+    # per-tenant rate limits, weighted-fair queueing, SLO classes and
+    # paged-KV quotas, keyed by submit(tenant=...)
+    tenants: TenantsConfig = field(default_factory=TenantsConfig)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
@@ -253,6 +362,7 @@ class ServingConfig:
         _refuse_not_ported(d)
         out = cls(
             kvcache=KVCacheConfig.from_dict(d.pop(C.SERVING_KVCACHE, None)),
+            tenants=TenantsConfig.from_dict(d.pop(C.SERVING_TENANTS, None)),
             num_slots=int(d.pop("num_slots", C.SERVING_NUM_SLOTS_DEFAULT)),
             max_len=int(d.pop("max_len", C.SERVING_MAX_LEN_DEFAULT)),
             kv_cache_dtype=str(
@@ -280,6 +390,16 @@ class ServingConfig:
             ),
             degrade_max_new_tokens=int(
                 d.pop("degrade_max_new_tokens", C.SERVING_DEGRADE_MAX_NEW_TOKENS_DEFAULT)
+            ),
+            drain_deadline_seconds=float(
+                d.pop("drain_deadline_seconds", C.SERVING_DRAIN_DEADLINE_SECONDS_DEFAULT)
+            ),
+            journal_dir=str(d.pop("journal_dir", C.SERVING_JOURNAL_DIR_DEFAULT) or ""),
+            journal_segment_records=int(
+                d.pop("journal_segment_records", C.SERVING_JOURNAL_SEGMENT_RECORDS_DEFAULT)
+            ),
+            journal_keep_segments=int(
+                d.pop("journal_keep_segments", C.SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT)
             ),
         )
         _check_empty(d, C.SERVING, _known_keys(cls))
@@ -348,6 +468,21 @@ class ServingConfig:
             raise DeepSpeedConfigError(
                 f"'{C.SERVING}.degrade_max_new_tokens' must be >= 0 (0 disables "
                 f"the clamp rung), got {out.degrade_max_new_tokens}"
+            )
+        if out.drain_deadline_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{C.SERVING}.drain_deadline_seconds' must be >= 0, "
+                f"got {out.drain_deadline_seconds}"
+            )
+        if out.journal_segment_records < 1:
+            raise DeepSpeedConfigError(
+                f"'{C.SERVING}.journal_segment_records' must be >= 1, "
+                f"got {out.journal_segment_records}"
+            )
+        if out.journal_keep_segments < 1:
+            raise DeepSpeedConfigError(
+                f"'{C.SERVING}.journal_keep_segments' must be >= 1, "
+                f"got {out.journal_keep_segments}"
             )
         return out
 

@@ -123,7 +123,7 @@ SERVING_KVCACHE_PAGE_LEN_DEFAULT = 128  # tokens per KV page
 SERVING_KVCACHE_NUM_PAGES_DEFAULT = 0  # 0 = derive (garbage page + 2x slot capacity)
 SERVING_KVCACHE_SESSION_TTL_SECONDS_DEFAULT = 0.0  # 0 = warm sessions never expire
 SERVING_KVCACHE_SPILL_DIR_DEFAULT = ""  # "" = cold sessions drop instead of spill
-# -- hierarchical KV tiering (serving.kvcache.tiers.*; parsed, not ported) -
+# -- hierarchical KV tiering (serving.kvcache.tiers.*) ---------------------
 SERVING_KVCACHE_TIERS = "tiers"
 SERVING_KVCACHE_TIERS_ENABLED_DEFAULT = False
 SERVING_KVCACHE_TIERS_HOST_PAGES_DEFAULT = 0  # T1 page cap; 0 = unbounded
@@ -132,14 +132,27 @@ SERVING_KVCACHE_TIERS_RESIDENCY_WINDOW_DEFAULT = 0  # tokens kept in T0 per park
 SERVING_KVCACHE_TIERS_DEMOTE_WATERMARK_DEFAULT = 0.75  # demote when pages_live exceeds this fraction
 SERVING_KVCACHE_TIERS_PREFETCH_AHEAD_DEFAULT = 4  # queued admits prefetched per tick
 SERVING_KVCACHE_TIERS_DEMOTE_BATCH_DEFAULT = 4  # entries demoted per tick
-# -- blocks of the JAX package's serving stack not ported yet ------------
+# -- the request journal and the SIGTERM drain ----------------------------
 SERVING_DRAIN_DEADLINE_SECONDS_DEFAULT = 30.0  # SIGTERM in-flight drain budget
 SERVING_JOURNAL_DIR_DEFAULT = ""  # "" = request journaling off
 SERVING_JOURNAL_SEGMENT_RECORDS_DEFAULT = 512  # records per WAL segment
 SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT = 4  # sealed segments before compaction
+# -- tenants (serving.tenants.*) -------------------------------------------
+SERVING_TENANTS = "tenants"
+SERVING_TENANTS_ENABLED_DEFAULT = False
+# default (per-tenant) token-bucket admission rate: budget tokens
+# (prompt + reserved max_new) per second, and the burst ceiling;
+# rate 0 + burst 0 = unlimited tenant
+SERVING_TENANTS_REFILL_TOKENS_PER_SECOND_DEFAULT = 0.0
+SERVING_TENANTS_BURST_TOKENS_DEFAULT = 0.0
+SERVING_TENANTS_WEIGHT_DEFAULT = 1.0  # WFQ share weight
+SERVING_TENANTS_SLO_CLASS_DEFAULT = "silver"  # gold | silver | bronze
+SERVING_TENANTS_SLO_CLASSES = ["gold", "silver", "bronze"]
+SERVING_TENANTS_KV_PAGES_MAX_DEFAULT = 0  # 0 = no per-tenant page cap
+SERVING_TENANTS_PINNED_PREFIXES_MAX_DEFAULT = 0  # 0 = no pin cap
+# -- blocks of the JAX package's serving stack not ported yet ------------
 SERVING_FLEET = "fleet"
 SERVING_FRONTDOOR = "frontdoor"
-SERVING_TENANTS = "tenants"
 
 #############################################
 # Checkpoints and the data loader

@@ -44,7 +44,6 @@ class BoundedWorker:
         self._q: "queue.Queue[Optional[Tuple[str, Callable[[], Any]]]]" = (
             queue.Queue(maxsize=depth))
         self._stop = threading.Event()
-        self._busy = threading.Event()
         self._lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._errors: List[Tuple[str, BaseException]] = []
@@ -72,7 +71,6 @@ class BoundedWorker:
                 self._q.task_done()
                 break
             label, fn = item
-            self._busy.set()
             try:
                 fn()
                 with self._lock:
@@ -83,7 +81,6 @@ class BoundedWorker:
                     self.last_error = exc
                     self._errors.append((label, exc))
             finally:
-                self._busy.clear()
                 self._q.task_done()
 
     # -- API ---------------------------------------------------------
@@ -114,8 +111,13 @@ class BoundedWorker:
         return True
 
     def pending(self) -> int:
-        """Queued-but-unstarted jobs plus the in-flight one (if any)."""
-        return self._q.qsize() + (1 if self._busy.is_set() else 0)
+        """Jobs submitted and not finished, the running one included: the
+        queue's count of puts not yet marked done, so a job the thread
+        has taken off the queue but not begun still counts (a queue size
+        plus a busy flag set after the take let :meth:`drain` return
+        between the two)."""
+        with self._q.mutex:
+            return self._q.unfinished_tasks
 
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Block until everything submitted so far has run.

@@ -26,13 +26,20 @@ partially-filled shared tail page is **copied-on-write** into a private
 page (the copy lands before the slot's first prefill chunk writes;
 ``src == dst == 0`` is the identity).
 
-Not ported (ROADMAP A8): HBM → host → disk tiering (``attach_tiers``),
-tenant page quotas (``attach_tenants``) and the fleet's session
-export/import; each raises ``NotImplementedError``.
+Two optional attachments: a
+:class:`~deepspeed_tpu_torch.serving.kvcache.tiers.PageTierManager`
+(:meth:`PagedKVPool.attach_tiers`) takes over session spill/drop and
+cold prefix demotion, device → pinned host → disk; a
+:class:`~deepspeed_tpu_torch.serving.frontdoor.tenants.TenantRegistry`
+(:meth:`PagedKVPool.attach_tenants`) caps each tenant's fresh pages and
+pinned prefixes.  :meth:`PagedKVPool.export_sessions` /
+:meth:`PagedKVPool.import_sessions` move parked sessions and pins between
+pools in the spill format.
 """
 from __future__ import annotations
 
 import functools
+import os
 import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
@@ -41,8 +48,17 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.inference import init_kv_cache
+from deepspeed_tpu_torch.serving.frontdoor.tenants import DEFAULT_TENANT
 from deepspeed_tpu_torch.serving.kvcache.prefix import PrefixEntry, PrefixIndex
-from deepspeed_tpu_torch.serving.kvcache.sessions import Session, SessionStore
+from deepspeed_tpu_torch.serving.kvcache.sessions import (
+    Session,
+    SessionStore,
+    pin_dir_name,
+    read_entries,
+    read_entry,
+    session_dir_name,
+    write_entry,
+)
 from deepspeed_tpu_torch.serving.pool import SlotPoolError
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -129,6 +145,7 @@ class PagedKVPool:
         self.k, self.v = init_kv_cache(
             n_layer, self.num_pages, heads, self.page_len, head_dim, kv_dtype, device=device
         )
+        self.on_cuda = torch.device(device).type == "cuda"
         # host-side allocator state (every public touch goes through
         # @_locked — see the decorator's docstring)
         self._lock = threading.RLock()
@@ -143,6 +160,10 @@ class PagedKVPool:
         self.index = PrefixIndex()
         self.sessions = SessionStore(spill_dir=spill_dir,
                                      ttl_seconds=session_ttl_seconds, agree=agree)
+        # optional hierarchical tiering (attach_tiers); when armed,
+        # session spill/drop and cold prefix eviction route through the
+        # PageTierManager instead of dying or hitting spill_dir directly
+        self.tiers: Optional[Any] = None
         self._pinned_specs: List[np.ndarray] = [
             np.asarray(list(spec), np.int32) for spec in pinned_prefixes
             if len(list(spec)) >= 1
@@ -156,6 +177,18 @@ class PagedKVPool:
         self.evictions = 0
         self.session_rebinds = 0
         self.alloc_waits = 0  # alloc_request returned None for lack of pages
+        # per-tenant quota enforcement, armed via attach_tenants().
+        # Charges follow the live slot — fresh pages claimed for a
+        # tenant's request count against its kv_pages_max until the slot
+        # retires; pinned-prefix inserts count against
+        # pinned_prefixes_max (over-quota pins degrade to unpinned
+        # entries, which pressure reclaim may evict).
+        self.tenants: Optional[Any] = None
+        self._tenant_pages: Dict[str, int] = {}
+        self._slot_tenant: Dict[int, Tuple[str, int]] = {}
+        self._tenant_pinned: Dict[str, int] = {}
+        self.tenant_quota_defers = 0
+        self.tenant_pin_rejects = 0
 
     # -- refcounting ------------------------------------------------------
     def _page_incref(self, pages: Sequence[int]) -> None:
@@ -286,11 +319,18 @@ class PagedKVPool:
         sess = self.sessions.peek(session_id)
         if sess is None and (self.sessions.is_spilled(session_id) or self.sessions.collective):
             sess = self._restore_session(session_id, now)
+        if sess is None and self.tiers is not None:
+            sess = self.tiers.promote_session(session_id, now)
         if sess is None:
             return None
         cl = sess.cached_len
         if cl > prompt.shape[0] or not np.array_equal(sess.tokens, prompt[:cl]):
             return None  # divergent history: leave parked for the TTL sweep
+        if self.tiers is not None and not self.tiers.promote_tail(sess, now):
+            # the tier-held tail cannot be paged back in: give the
+            # session up and re-prefill (rebind is only an optimisation)
+            self.tiers.drop_session(sess)
+            return None
         return sess
 
     @_locked
@@ -319,6 +359,10 @@ class PagedKVPool:
                 source = "session" if hit > 0 else None
         if source is None:
             entry = self.index.lookup(prompt, now=now)
+            if self.tiers is not None:
+                best = entry.length if entry is not None else 0
+                if self.tiers.promote_prefix_for(prompt, now, min_len=best):
+                    entry = self.index.lookup(prompt, now=now) or entry
             if entry is not None:
                 hit = self._aligned_hit(entry.length, plen)
                 source = "prefix" if hit > 0 else None
@@ -337,11 +381,28 @@ class PagedKVPool:
         )
         total = min(plen + int(req.max_new_tokens), self.max_len)
         need = max(_pages_for(total, self.page_len), n_cover)
+        # per-tenant page quota: fresh (privately-charged) pages for
+        # this slot must fit under the tenant's cap — reused shared
+        # pages are free (they are not attributable to one tenant).
+        # Over quota the request WAITS (None), exactly like page
+        # starvation: the tenant's own retirements free its budget, and
+        # other tenants are unaffected — which is the point.
+        tenant_key = None
+        if self.tenants is not None:
+            tenant = getattr(req, "tenant", None)
+            tenant_key = tenant or DEFAULT_TENANT
+            cap = self.tenants.kv_pages_max(tenant)
+            n_fresh = need - n_cover + (1 if need_cow else 0)
+            if cap > 0 and self._tenant_pages.get(tenant_key, 0) + n_fresh > cap:
+                self.tenant_quota_defers += 1
+                self.tenants.note_quota_defer(tenant)
+                return None
         # the slot takes its reference on every reused page BEFORE
         # claiming fresh ones: _take_pages may reclaim under pressure,
-        # and reclaim is allowed to spill the very session (or evict the
-        # very prefix entry) this rebind is consuming — the early incref
-        # keeps the reused pages (and their KV) live through that
+        # and reclaim is allowed to spill/demote the very session (or
+        # evict the very prefix entry) this rebind is consuming — the
+        # early incref keeps the reused pages (and their KV) live
+        # through that
         self._page_incref(reuse)
         fresh = self._take_pages(need - n_cover + (1 if need_cow else 0), now)
         if fresh is None:
@@ -371,6 +432,9 @@ class PagedKVPool:
         slot = self._free_slots.popleft()
         self._owner[slot] = rid
         self._bind(slot, mapping, cow)
+        if tenant_key is not None:
+            self._tenant_pages[tenant_key] = self._tenant_pages.get(tenant_key, 0) + len(fresh)
+            self._slot_tenant[slot] = (tenant_key, len(fresh))
         req.prefill_pos = hit
         req.prefix_hint = hit
         if hit > 0:
@@ -427,21 +491,38 @@ class PagedKVPool:
         for spec in self._pinned_specs:
             L = int(spec.shape[0])
             if L <= prompt.shape[0] and np.array_equal(prompt[:L], spec):
-                self._insert_entry(spec.copy(), pages, pinned=True, now=now)
+                self._insert_entry(spec.copy(), pages, pinned=True, now=now,
+                                   tenant=getattr(req, "tenant", None))
         if self.prefill_chunk <= split < prompt.shape[0]:
             self._insert_entry(prompt[:split].copy(), pages, pinned=False, now=now)
         self._insert_entry(prompt.copy(), pages, pinned=False, now=now)
 
     def _insert_entry(self, tokens: np.ndarray, pages: List[int],
-                      pinned: bool, now: float) -> None:
+                      pinned: bool, now: float,
+                      tenant: Optional[str] = None) -> None:
+        key = tenant or DEFAULT_TENANT
+        if pinned and self.tenants is not None:
+            # per-tenant pinned-prefix quota: an over-quota pin degrades
+            # to a plain (evictable) entry instead of pinning — the
+            # tenant keeps the cache benefit but cannot exempt unbounded
+            # pages from pressure reclaim
+            cap = self.tenants.pinned_prefixes_max(tenant)
+            if cap > 0 and self._tenant_pinned.get(key, 0) >= cap:
+                self.tenant_pin_rejects += 1
+                pinned = False
         cover = pages[: _pages_for(tokens.shape[0], self.page_len)]
         entry = PrefixEntry(tokens=tokens, pages=list(cover), pinned=pinned,
                             last_used=now)
         inserted = self.index.insert(entry)
+        newly_pinned = False
         if inserted is entry:
             self._page_incref(cover)
+            newly_pinned = pinned
         elif pinned and not inserted.pinned:
             inserted.pinned = True  # a learned entry graduates to pinned
+            newly_pinned = True
+        if newly_pinned and self.tenants is not None:
+            self._tenant_pinned[key] = self._tenant_pinned.get(key, 0) + 1
 
     @_locked
     def prefix_hint_tokens(self, prompt: np.ndarray,
@@ -458,8 +539,56 @@ class PagedKVPool:
             if (sess is not None and sess.cached_len <= plen
                     and np.array_equal(sess.tokens, prompt[: sess.cached_len])):
                 return self._aligned_hit(sess.cached_len, plen)
+            if self.tiers is not None:
+                cl, _tier = self.tiers.session_hint(prompt, session_id)
+                if cl:
+                    # a tiered session promotes on demand at alloc, so
+                    # the expected hit is as real as a warm one
+                    return self._aligned_hit(cl, plen)
         entry = self.index.lookup(prompt, stamp=False)
-        return self._aligned_hit(entry.length, plen) if entry is not None else 0
+        best = self._aligned_hit(entry.length, plen) if entry is not None else 0
+        if self.tiers is not None:
+            tl, _tier = self.tiers.prefix_hint(prompt)
+            if tl:
+                best = max(best, self._aligned_hit(tl, plen))
+        return best
+
+    # residency-discount weights for affinity pricing: reused tokens are
+    # worth less when promoting them first costs a host scatter (T1) or a
+    # disk read + scatter (T2)
+    _TIER_WEIGHTS = {"": 1.0, "host": 0.75, "disk": 0.5}
+
+    @_locked
+    def affinity_tokens(self, prompt: np.ndarray,
+                        session_id: Optional[str] = None) -> float:
+        """Tier-aware :meth:`prefix_hint_tokens` for routing: cached
+        tokens discounted by residency (T0 full, T1 3/4, T2 1/2) so a
+        session parked in host memory still beats a cold replica but
+        loses to a replica holding it on the device."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        plen = int(prompt.shape[0])
+        if plen < 2:
+            return 0.0
+        best = 0.0
+        if session_id is not None:
+            sess = self.sessions.peek(session_id)
+            if (sess is not None and sess.cached_len <= plen
+                    and np.array_equal(sess.tokens, prompt[: sess.cached_len])):
+                best = float(self._aligned_hit(sess.cached_len, plen))
+            elif self.tiers is not None:
+                cl, tier = self.tiers.session_hint(prompt, session_id)
+                if cl:
+                    best = (self._aligned_hit(cl, plen)
+                            * self._TIER_WEIGHTS.get(tier, 0.5))
+        entry = self.index.lookup(prompt, stamp=False)
+        if entry is not None:
+            best = max(best, float(self._aligned_hit(entry.length, plen)))
+        if self.tiers is not None:
+            tl, tier = self.tiers.prefix_hint(prompt)
+            if tl:
+                best = max(best, self._aligned_hit(tl, plen)
+                           * self._TIER_WEIGHTS.get(tier, 0.5))
+        return best
 
     # -- retirement / sessions --------------------------------------------
     @_locked
@@ -471,6 +600,14 @@ class PagedKVPool:
         if slot not in self._owner:
             raise SlotPoolError(f"slot {slot} is not allocated")
         del self._owner[slot]
+        charged = self._slot_tenant.pop(slot, None)
+        if charged is not None:
+            key, n_charged = charged
+            left = self._tenant_pages.get(key, 0) - n_charged
+            if left > 0:
+                self._tenant_pages[key] = left
+            else:
+                self._tenant_pages.pop(key, None)
         pages = self._slot_pages.pop(slot, [])
         self._pending_cow.pop(slot, None)
         self._tables[slot] = GARBAGE_PAGE
@@ -491,35 +628,64 @@ class PagedKVPool:
                 ))
                 if prev is not None:
                     self._page_decref(prev.pages)
+                if self.tiers is not None:
+                    # a fresh park supersedes any tiered copy (mirror of
+                    # park() clearing a stale spill)
+                    self.tiers.discard_session(sid)
                 self._page_decref(dropped)
                 parked = True
         if not parked:
             self._page_decref(pages)
 
-    def _gather_host(self, pages: Sequence[int]) -> Dict[str, torch.Tensor]:
-        """The pages' rows of every cache leaf, on the host: ``(layers,
-        len(pages), heads, page_len, x)`` CPU tensors keyed as the spill
-        format keys them."""
+    def _gather_pinned(self, pages: Sequence[int]) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """The pages' rows of every cache leaf, copied to the host: one
+        ``index_select`` per leaf, ``(layers, len(pages), heads, page_len,
+        x)`` tensors keyed as the spill format keys them.  On a CUDA pool
+        the copies go ``non_blocking`` into pinned host tensors and the
+        second value is the CUDA event recorded after them: the host
+        reads them only after it completes.  None on the CPU."""
+        ids = torch.as_tensor(list(pages), dtype=torch.int64, device=self.k_device)
         out: Dict[str, torch.Tensor] = {}
         for prefix, tree in (("k", self.k), ("v", self.v)):
             for key, buf in _spill_leaves(tree, prefix).items():
-                ids = torch.as_tensor(list(pages), dtype=torch.int64, device=buf.device)
-                out[key] = buf.index_select(1, ids).cpu()
+                rows = buf.index_select(1, ids)
+                if self.on_cuda:
+                    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                    host.copy_(rows, non_blocking=True)
+                    rows = host
+                out[key] = rows
+        if not self.on_cuda:
+            return out, None
+        ready = torch.cuda.Event()
+        ready.record()
+        return out, ready
+
+    def _gather_host(self, pages: Sequence[int]) -> Dict[str, torch.Tensor]:
+        """:meth:`_gather_pinned`, its copies complete."""
+        out, ready = self._gather_pinned(pages)
+        if ready is not None:
+            ready.synchronize()
         return out
 
-    def _scatter_device(self, pages: Sequence[int],
-                        leaves: Dict[str, np.ndarray]) -> None:
-        """Write host leaves (numpy, a bfloat16 leaf as its uint16 view)
-        into the pages of every cache leaf, in place."""
+    def _scatter_device(self, pages: Sequence[int], leaves: Dict[str, torch.Tensor]) -> None:
+        """Write host leaves into the pages of every cache leaf, in place:
+        one ``index_copy_`` per leaf."""
+        ids = torch.as_tensor(list(pages), dtype=torch.int64, device=self.k_device)
         for prefix, tree in (("k", self.k), ("v", self.v)):
             for key, buf in _spill_leaves(tree, prefix).items():
-                a = np.asarray(leaves[key])
-                host = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-                        if a.dtype == np.uint16 else torch.from_numpy(a))
-                ids = torch.as_tensor(list(pages), dtype=torch.int64, device=buf.device)
-                buf[:, ids] = host.to(buf.device, buf.dtype)
+                host = leaves[key].to(buf.device, buf.dtype, non_blocking=True)
+                buf.index_copy_(1, ids, host)
+
+    @property
+    def k_device(self) -> torch.device:
+        return next(iter(_spill_leaves(self.k, "k").values())).device
 
     def _spill_or_drop(self, sess: Session) -> None:
+        if self.tiers is not None:
+            # tiering replaces direct spill/drop: the session parks in
+            # host memory and cascades to disk under host-cap pressure
+            self.tiers.demote_session(sess)
+            return
         if self.sessions.spill_dir is not None:
             self.sessions.spill(sess, self._gather_host(sess.pages))
         else:
@@ -567,32 +733,157 @@ class PagedKVPool:
         return len(warm)
 
     @_locked
+    def attach_tiers(self, mgr: Any) -> None:
+        """Arm hierarchical tiering: ``mgr`` (a
+        :class:`~deepspeed_tpu_torch.serving.kvcache.tiers.PageTierManager`)
+        takes over session spill/drop and cold prefix eviction."""
+        self.tiers = mgr
+
+    @_locked
+    def attach_tenants(self, registry: Any) -> None:
+        """Arm per-tenant quota enforcement: ``registry`` (a
+        :class:`~deepspeed_tpu_torch.serving.frontdoor.tenants.TenantRegistry`)
+        supplies page and pinned-prefix caps; over-cap allocations defer
+        (return ``None`` from :meth:`alloc_request`) and over-cap pins
+        degrade to unpinned entries."""
+        self.tenants = registry
+
+    @_locked
     def recover(self) -> List[str]:
         """After a restart: re-register manifest-verified session spills
-        so rebinds keep working.  (Device pages and the learned prefix
-        index died with the process — traffic re-prefills and
-        re-learns.)"""
-        return self.sessions.recover()
+        (and, with tiers, their committed disk entries) so rebinds keep
+        working.  (Device pages and the learned prefix index died with
+        the process — traffic re-prefills and re-learns.)"""
+        found = self.sessions.recover()
+        if self.tiers is not None:
+            found = found + self.tiers.recover()
+        return found
 
-    def attach_tiers(self, mgr: Any) -> None:
-        raise NotImplementedError(
-            "KV page tiering is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A8 serving/kvcache/tiers.py)")
-
-    def attach_tenants(self, registry: Any) -> None:
-        raise NotImplementedError(
-            "tenant page quotas are not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A8 serving/frontdoor/tenants.py)")
-
+    # -- live migration ---------------------------------------------------
+    @_locked
     def export_sessions(self, dest_dir: str, now: float = 0.0) -> List[str]:
-        raise NotImplementedError(
-            "session export is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A8 serving/fleet/ session migration)")
+        """Scale-down export: write every parked session (warm and
+        spilled) plus every pinned prefix entry into ``dest_dir`` in the
+        spill wire format, one manifest-last directory per entry.
 
+        READ-ONLY on pool state — sessions stay parked, pins stay
+        indexed, no refcount moves — so a failed or killed export is
+        simply retried, and an abandoned one costs nothing.  A kill -9
+        mid-export leaves a manifest-verified prefix of entries the
+        importer trusts; the unverified tail is ignored."""
+        os.makedirs(dest_dir, exist_ok=True)
+        exported: List[str] = []
+        for sess in self.sessions.warm():
+            # a residency-window session keeps only head pages in T0;
+            # the export must carry the tier-held tail too
+            leaves = (self.tiers.merged_session_leaves(sess)
+                      if self.tiers is not None
+                      else self._gather_host(sess.pages))
+            write_entry(
+                dest_dir, session_dir_name(sess.session_id),
+                {
+                    "kind": "session",
+                    "session_id": sess.session_id,
+                    "tokens": [int(t) for t in sess.tokens],
+                    "parked_at": sess.parked_at,
+                },
+                leaves,
+            )
+            exported.append(sess.session_id)
+        for sid in self.sessions.spilled_ids():
+            src = self.sessions.spilled_dir(sid)
+            loaded = read_entry(src) if src else None
+            if loaded is None:
+                continue
+            meta, leaves = loaded
+            meta = {k: v for k, v in meta.items() if k != "leaf_dtypes"}
+            meta.setdefault("kind", "session")
+            write_entry(dest_dir, session_dir_name(sid), meta, leaves)
+            exported.append(sid)
+        for entry in self.index.entries():
+            if not entry.pinned:
+                continue  # learned entries re-learn from traffic
+            write_entry(
+                dest_dir, pin_dir_name(entry.tokens),
+                {
+                    "kind": "pinned_prefix",
+                    "tokens": [int(t) for t in entry.tokens],
+                },
+                self._gather_host(entry.pages),
+            )
+            exported.append(f"pin:{len(entry.tokens)}")
+        if self.tiers is not None:
+            exported.extend(self.tiers.export_sessions(
+                dest_dir, skip=set(exported)))
+        return exported
+
+    @_locked
     def import_sessions(self, src_dir: str, now: float = 0.0) -> Dict[str, int]:
-        raise NotImplementedError(
-            "session import is not ported to deepspeed_tpu_torch yet "
-            "(ROADMAP A8 serving/fleet/ session migration)")
+        """Scale-up/survivor import: adopt every manifest-verified entry
+        under ``src_dir``.  Sessions the pool already knows are skipped
+        (the survivor's own copy wins — rebind is an optimisation, so a
+        skip only re-prefills, it never changes outputs).  When the pool
+        is out of pages a migrated session lands in this pool's own
+        spill_dir instead (or is dropped without one)."""
+        counts = {"sessions": 0, "pinned": 0, "respilled": 0, "skipped": 0}
+        for meta, leaves in read_entries(src_dir):
+            kind = meta.get("kind", "session")
+            if kind == "pinned_prefix":
+                tokens = np.asarray(meta["tokens"], np.int32)
+                if tokens.shape[0] < 1:
+                    counts["skipped"] += 1
+                    continue
+                existing = self.index.get(tokens)
+                if existing is not None:
+                    existing.pinned = True
+                    counts["skipped"] += 1
+                    continue
+                pages = self._take_pages(
+                    _pages_for(tokens.shape[0], self.page_len), now
+                )
+                if pages is None:
+                    logger.warning(
+                        "kvcache: no pages to import a pinned prefix "
+                        f"({tokens.shape[0]} tokens); dropping it"
+                    )
+                    counts["skipped"] += 1
+                    continue
+                self._scatter_device(pages, leaves)
+                # insert takes the index's own reference (ref -> 2);
+                # releasing the import's claim leaves the index as the
+                # sole holder, exactly like a learned pinned entry
+                self._insert_entry(tokens, pages, pinned=True, now=now)
+                self._page_decref(pages)
+                counts["pinned"] += 1
+                continue
+            sid = meta["session_id"]
+            if self.sessions.has(sid):
+                counts["skipped"] += 1
+                continue
+            sess = Session(
+                session_id=sid,
+                tokens=np.asarray(meta["tokens"], np.int32),
+                pages=[],
+                parked_at=now,
+            )
+            pages = self._take_pages(
+                _pages_for(sess.cached_len, self.page_len), now
+            )
+            if pages is None:
+                if self.sessions.adopt_spill(sid, meta, leaves) is not None:
+                    counts["respilled"] += 1
+                else:
+                    logger.warning(
+                        f"kvcache: no pages and no spill_dir for migrated "
+                        f"session {sid!r}; dropping it (next turn re-prefills)"
+                    )
+                    counts["skipped"] += 1
+                continue
+            self._scatter_device(pages, leaves)
+            sess.pages = pages
+            self.sessions.park(sess)
+            counts["sessions"] += 1
+        return counts
 
     # -- introspection ----------------------------------------------------
     @_locked
@@ -602,7 +893,7 @@ class PagedKVPool:
     @_locked
     def stats(self) -> Dict[str, Any]:
         sess = self.sessions.stats()
-        return {
+        out = {
             "page_len": self.page_len,
             "num_pages": self.num_pages,
             "pages_per_slot": self.pages_per_slot,
@@ -625,3 +916,11 @@ class PagedKVPool:
             "session_restores": sess["restores"],
             "session_drops": sess["drops"],
         }
+        if self.tiers is not None:
+            out["tiers"] = self.tiers.stats()
+        if self.tenants is not None:
+            out["tenant_pages"] = dict(self._tenant_pages)
+            out["tenant_pinned"] = dict(self._tenant_pinned)
+            out["tenant_quota_defers"] = self.tenant_quota_defers
+            out["tenant_pin_rejects"] = self.tenant_pin_rejects
+        return out

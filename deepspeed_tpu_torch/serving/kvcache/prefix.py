@@ -35,6 +35,9 @@ class PrefixEntry:
     pinned: bool = False
     hits: int = 0
     last_used: float = 0.0
+    # set only on the tier manager's shadow-index entries: the tier
+    # store key holding this prefix's off-device KV (pages is [] there)
+    tier_key: str = ""
 
     @property
     def length(self) -> int:

@@ -1,7 +1,6 @@
 """Durable session KV: park a finished turn's pages under its
 ``session_id`` so turn N+1 rebinds instead of re-prefilling (a copy of
-``deepspeed_tpu/serving/kvcache/sessions.py`` on the port's ``atomic``;
-the fleet's migration wire format is not ported).
+``deepspeed_tpu/serving/kvcache/sessions.py`` on the port's ``atomic``).
 
 Warm sessions stay pinned in the device page pool (pure host
 bookkeeping here — the pool holds the refcounts).  Cold sessions
@@ -25,10 +24,11 @@ collectives).
 The spill format is the JAX package's: ``kv.npz`` with one array per
 cache leaf (``k``/``v``, or ``k.q``/``k.s``/``v.q``/``v.s``), bfloat16
 stored as a raw uint16 view and named ``"bfloat16"`` in the meta's
-``leaf_dtypes``.  Leaves come in as torch tensors;
-:meth:`SessionStore.load` returns numpy arrays as stored — a bfloat16
-leaf stays its uint16 view, which the pool turns back into bfloat16 at
-the device scatter (numpy has no bfloat16 of its own).
+``leaf_dtypes``.  Leaves come in and go out as CPU torch tensors of
+their dtypes (numpy has no bfloat16 of its own: a bfloat16 leaf is read
+back from its uint16 view).  Migration entries (:func:`write_entry`,
+session export and import) and the tier manager's disk entries share the
+layout.
 """
 from __future__ import annotations
 
@@ -50,6 +50,79 @@ _DATA_FILE = "kv.npz"
 
 def session_dir_name(session_id: str) -> str:
     return "sess_" + hashlib.sha256(session_id.encode("utf-8")).hexdigest()[:16]
+
+
+def pin_dir_name(tokens: "np.ndarray") -> str:
+    """Entry dir for a pinned-prefix migration entry, keyed on the token
+    run itself (pins have no session_id)."""
+    digest = hashlib.sha256(np.asarray(tokens, np.int32).tobytes()).hexdigest()
+    return "sess_pin_" + digest[:16]
+
+
+def prefix_dir_name(tokens: "np.ndarray") -> str:
+    """Entry dir for a tier-demoted (learned) prefix entry — distinct
+    from pins so tier recovery can tell them apart by name alone."""
+    digest = hashlib.sha256(np.asarray(tokens, np.int32).tobytes()).hexdigest()
+    return "sess_pfx_" + digest[:16]
+
+
+# -- migration wire format --------------------------------------------------
+# One directory per entry, identical to the spill layout: kv.npz +
+# meta.json staged first, manifest.json written LAST.  An export killed
+# mid-write leaves a prefix of manifest-verified entries plus at most
+# one unverifiable directory — the importer trusts exactly the verified
+# subset, which is what makes kill -9 mid-migration lossless.
+
+def write_entry(dest_dir: str, dir_name: str, meta: Dict,
+                leaves: Dict[str, torch.Tensor]) -> str:
+    """Write one spill-format entry under ``dest_dir/dir_name`` (data +
+    meta fsynced, manifest last).  Idempotent: a stale manifest from a
+    prior attempt is invalidated before the data is rewritten, so a
+    retried export can overwrite its own partial output safely."""
+    target = os.path.join(dest_dir, dir_name)
+    os.makedirs(target, exist_ok=True)
+    stale = os.path.join(target, atomic.MANIFEST_FILE)
+    if os.path.exists(stale):
+        os.remove(stale)
+    dtypes = _save_leaves(leaves, os.path.join(target, _DATA_FILE))
+    meta = dict(meta)
+    meta["leaf_dtypes"] = dtypes
+    atomic.atomic_write_text(os.path.join(target, _META_FILE), json.dumps(meta))
+    atomic.write_manifest(target)
+    return target
+
+
+def read_entry(target: str) -> Optional[Tuple[Dict, Dict[str, torch.Tensor]]]:
+    """One manifest-verified entry as ``(meta, leaves)``; None when the
+    directory is unverifiable (export killed mid-write) — never trusted,
+    never fatal."""
+    ok, _ = atomic.verify_manifest(target)
+    meta_path = os.path.join(target, _META_FILE)
+    if not ok or not os.path.exists(meta_path):
+        logger.warning(
+            f"kvcache: ignoring unverifiable migration entry at {target}"
+        )
+        return None
+    with open(meta_path) as f:
+        meta = json.load(f)
+    leaves = _load_leaves(os.path.join(target, _DATA_FILE), meta["leaf_dtypes"])
+    return meta, leaves
+
+
+def read_entries(src_dir: str) -> List[Tuple[Dict, Dict[str, torch.Tensor]]]:
+    """Every manifest-verified entry under ``src_dir`` as ``(meta,
+    leaves)`` pairs, sorted by directory name."""
+    out: List[Tuple[Dict, Dict[str, torch.Tensor]]] = []
+    if not os.path.isdir(src_dir):
+        return out
+    for name in sorted(os.listdir(src_dir)):
+        target = os.path.join(src_dir, name)
+        if not (name.startswith("sess_") and os.path.isdir(target)):
+            continue
+        loaded = read_entry(target)
+        if loaded is not None:
+            out.append(loaded)
+    return out
 
 
 @dataclasses.dataclass
@@ -93,10 +166,25 @@ def _save_leaves(leaves: Dict[str, torch.Tensor], path: str) -> Dict[str, str]:
     return dtypes
 
 
-def _load_leaves(path: str, dtypes: Dict[str, str]) -> Dict[str, np.ndarray]:
-    """The stored arrays; a ``"bfloat16"`` leaf stays its uint16 view."""
+def _load_leaves(path: str, dtypes: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """The stored leaves as CPU tensors of their recorded dtypes (a
+    ``"bfloat16"`` leaf back from its uint16 view)."""
+    out: Dict[str, torch.Tensor] = {}
     with np.load(path) as z:
-        return {key: z[key] for key in dtypes}
+        for key, dtype in dtypes.items():
+            arr = z[key]
+            out[key] = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                        if dtype == "bfloat16" else torch.from_numpy(arr))
+    return out
+
+
+# the tier manager stages its own disk entries (it needs a fault site
+# between the staged payload and the manifest), so the leaf codec and
+# file names are part of this module's public surface
+save_leaves = _save_leaves
+load_leaves = _load_leaves
+META_FILE = _META_FILE
+DATA_FILE = _DATA_FILE
 
 
 class SessionStore:
@@ -188,7 +276,7 @@ class SessionStore:
         self.spills += 1
         return target
 
-    def load(self, session_id: str) -> Optional[Tuple[Session, Dict[str, np.ndarray]]]:
+    def load(self, session_id: str) -> Optional[Tuple[Session, Dict[str, torch.Tensor]]]:
         """Read a spilled session back (host leaves; the pool re-pages
         them).  The spill entry is consumed — a later park re-persists.
         With ``agree`` this is a collective: None on every rank unless
@@ -225,6 +313,34 @@ class SessionStore:
         self._spilled.pop(session_id, None)
         self.restores += 1
         return sess, leaves
+
+    def spilled_ids(self) -> List[str]:
+        return sorted(self._spilled)
+
+    def spilled_dir(self, session_id: str) -> Optional[str]:
+        """The registered spill directory for ``session_id`` (export
+        reads it directly — unlike :meth:`load`, nothing is consumed)."""
+        return self._spilled.get(session_id)
+
+    def adopt_spill(self, session_id: str, meta: Dict,
+                    leaves: Dict[str, torch.Tensor]) -> Optional[str]:
+        """Persist an imported (migrated) session straight into this
+        store's own ``spill_dir`` and register it — the landing path for
+        migrated sessions when the pool has no free pages.  Returns None
+        (entry dropped) without a spill_dir."""
+        if self.spill_dir is None:
+            return None
+        meta = {k: v for k, v in meta.items() if k != "leaf_dtypes"}
+        meta["session_id"] = session_id
+        target = write_entry(self.spill_dir, session_dir_name(session_id),
+                             meta, leaves)
+        self._warm.pop(session_id, None)
+        self._spilled[session_id] = target
+        self.spills += 1
+        return target
+
+    def has(self, session_id: str) -> bool:
+        return session_id in self._warm or session_id in self._spilled
 
     # -- crash recovery ---------------------------------------------------
     def recover(self) -> List[str]:

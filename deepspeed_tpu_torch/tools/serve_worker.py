@@ -59,6 +59,20 @@ index ``i``:
   holds the paged pool's counters before the session.  ``"profile":
   true`` traces the drive under ``torch.profiler`` (``profile``: its
   ``tools/profile_serving.py`` ``profile_summary``).
+* ``{"kind": "recover", "serving": {...}, "requests": [...],
+  "kill_at_decode": 3, "tiers_refusal": true}``: a journaled engine
+  (``<out>/journal_<name>_<i>``, written by rank 0) serves the requests
+  until every rank dies of an ``InjectedKill`` at its
+  ``kill_at_decode``-th decode; a fresh engine over the same journal
+  runs ``recover()`` (a collective) and a drain: ``ids`` the killed
+  run's ids, ``replayed`` the replayed ids, ``tokens`` their tokens in
+  that order.  ``tiers_refusal`` first records, in ``tiers_refused``,
+  the message of a tiered paged engine's refusal under the group.
+* ``{"kind": "sigterm", "serving": {...}, "requests": [...], "steps": 2}``:
+  a journaled engine with the watchdog on every rank serves the requests;
+  after ``steps`` steps rank 0 alone sends itself SIGTERM, and every rank
+  steps until the drain exits: ``exit_code``, ``steps`` (the engine's
+  step count at the exit), ``undone`` and the drained ``tokens``.
 
 Each drive records the bytes counted by kind (``comm/collectives.py``)
 and what the inference byte model gives for the same forwards
@@ -245,6 +259,61 @@ def _serve(engine, drive, rec, spill_root):
     })
 
 
+def _recover(engine, drive, rec, journal_dir):
+    from deepspeed_tpu_torch.resilience import faults
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    if drive.get("tiers_refusal"):
+        try:
+            ServingEngine(engine, config={"kvcache": {"enabled": True, "page_len": 16,
+                                                      "tiers": {"enabled": True}}})
+            rec["tiers_refused"] = None
+        except NotImplementedError as e:
+            rec["tiers_refused"] = str(e)
+    serving = {**drive.get("serving", {}), "journal_dir": journal_dir}
+    srv = ServingEngine(engine, config=serving)
+    rec["ids"] = _submit_all(srv, drive["requests"])
+    killed = False
+    try:
+        with faults.FaultInjector(seed=0).kill("serving.decode",
+                                               after=int(drive["kill_at_decode"]) - 1):
+            srv.drain()
+    except faults.InjectedKill:
+        killed = True
+    rec["killed"] = killed
+    fresh = ServingEngine(engine, config=serving)
+    rec["replayed"] = fresh.recover()
+    res = fresh.drain()
+    rec["tokens"] = [res[r].tokens().tolist() for r in rec["replayed"]]
+    rec["finish"] = [res[r].finish_reason for r in rec["replayed"]]
+
+
+def _sigterm(engine, drive, rec, journal_dir):
+    import signal
+
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    srv = ServingEngine(engine, config={**drive.get("serving", {}), "journal_dir": journal_dir})
+    rec["ids"] = _submit_all(srv, drive["requests"])
+    wd = srv.install_watchdog(drain_deadline_seconds=600.0)
+    try:
+        for _ in range(int(drive.get("steps", 0))):
+            srv.step()
+        if engine.mesh.rank == 0:
+            os.kill(os.getpid(), signal.SIGTERM)
+        try:
+            while True:
+                srv.step()
+        except SystemExit as e:
+            rec["exit_code"] = e.code
+    finally:
+        wd.uninstall()
+    rec["steps"] = srv._step_count
+    rec["undone"] = srv.scheduler.pending_ids()
+    done = srv.scheduler.pop_finished()
+    rec["tokens"] = [done[r].tokens().tolist() for r in sorted(done)]
+
+
 def _sync(engine):
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
@@ -303,6 +372,9 @@ def run_case(case, device, out_dir, rank):
                 rec["finite"] = all(bool(torch.isfinite(t).all()) for _, t in leaves)
             elif kind == "serve":
                 _serve(engine, drive, rec, os.path.join(out_dir, f"spill_{case['name']}_{i}"))
+            elif kind in ("recover", "sigterm"):
+                fn = _recover if kind == "recover" else _sigterm
+                fn(engine, drive, rec, os.path.join(out_dir, f"journal_{case['name']}_{i}"))
             else:
                 raise ValueError(f"unknown drive kind {kind!r}")
             _sync(engine)

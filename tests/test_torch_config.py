@@ -172,6 +172,75 @@ def test_serving_block_still_parses():
     assert c.serving.num_slots == 4 and c.serving.prefill_chunk == 32
 
 
+SERVING_RESILIENCE = [
+    {"journal_dir": "/tmp/j"},
+    {"drain_deadline_seconds": 5.0},
+    {"journal_dir": "/ckpt/wal", "journal_segment_records": 64, "journal_keep_segments": 2,
+     "drain_deadline_seconds": 0.0},
+    {"tenants": {"enabled": True}},
+    {"tenants": {"enabled": True, "refill_tokens_per_second": 50.0, "burst_tokens": 400,
+                 "weight": 2, "slo_class": "Gold", "kv_pages_max": 12, "pinned_prefixes_max": 2,
+                 "overrides": {"acme": {"kv_pages_max": 3, "slo_class": "bronze"},
+                               "globex": {"weight": 0.5}}}},
+    {"kvcache": {"tiers": {"enabled": True}}},
+    {"kvcache": {"enabled": True, "tiers": {"enabled": True}}},
+    {"kvcache": {"enabled": True, "page_len": 128, "num_pages": 160,
+                 "tiers": {"enabled": True, "host_pages": 24, "disk_dir": "/nvme/kv",
+                           "residency_window": 256, "demote_watermark": 0.3,
+                           "prefetch_ahead": 2, "demote_batch": 8}}},
+]
+
+
+@pytest.mark.parametrize("block", SERVING_RESILIENCE, ids=[
+    "journal", "drain", "journal-every-key", "tenants", "tenants-every-key", "tiers",
+    "tiers-paged", "tiers-every-key"])
+def test_journal_drain_tenants_and_tiers_parse_as_the_jax_package_does(block):
+    """The request journal's keys, the drain deadline, the ``tenants``
+    block and ``kvcache.tiers`` are ported: the same dict gives the JAX
+    package's fields, and the full config takes them."""
+    import dataclasses
+
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+    from deepspeed_tpu_torch.config.config import ServingConfig as TServing
+
+    want, got = dataclasses.asdict(JServing.from_dict(block)), dataclasses.asdict(
+        TServing.from_dict(block))
+    for key in set(want) - {"fleet", "frontdoor"}:  # the two blocks still refused
+        assert got[key] == want[key], key
+    assert set(got) == set(want) - {"fleet", "frontdoor"}
+    TConfig({"train_batch_size": 8, "serving": block})
+
+
+@pytest.mark.parametrize("block", [
+    {"drain_deadline_seconds": -1},
+    {"journal_segment_records": 0},
+    {"journal_keep_segments": 0},
+    {"tenants": {"weight": 0.0}},
+    {"tenants": {"overrides": {"acme": {"refill_rate": 1}}}},
+    {"tenants": {"slo_class": "platinum"}},
+    {"tenants": {"bogus": 1}},
+    {"kvcache": {"tiers": {"enabled": True, "demote_watermark": 0.0}}},
+    {"kvcache": {"tiers": {"enabled": True, "host_pages": -1}}},
+])
+def test_journal_drain_tenants_and_tiers_reject_as_the_jax_package_does(block):
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+    from deepspeed_tpu_torch.config.config import ServingConfig as TServing
+
+    with pytest.raises(JError):
+        JServing.from_dict(block)
+    with pytest.raises(TError):
+        TServing.from_dict(block)
+
+
+@pytest.mark.parametrize("block", [{"fleet": {"replicas": 2}}, {"frontdoor": {"enabled": True}}])
+def test_fleet_and_frontdoor_still_refuse_naming_a8(block):
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+
+    JServing.from_dict(block)  # the JAX package takes it
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        TConfig({"train_batch_size": 8, "serving": block})
+
+
 LAMB_PARAMS = {"lr": 2e-3, "betas": [0.9, 0.98], "eps": 1e-6, "weight_decay": 0.01,
                "bias_correction": False, "max_coeff": 0.3, "min_coeff": 0.02}
 

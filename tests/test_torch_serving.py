@@ -1,7 +1,8 @@
 """The port's continuous-batching ServingEngine (deepspeed_tpu_torch) on
 the CPU: greedy parity with the JAX ServingEngine and with the port's own
 solo ``generate()`` under slot churn, EOS retirement, queue-full
-rejection, capacity validation, the config blocks not ported yet, and
+rejection, capacity validation, the config blocks not ported yet (the
+fleet, the front door), and
 sampled tokens keyed on (seed, position) whatever slot a request lands
 in.  The model is GPT2_TINY with its position table scaled up, so that
 slot and position bookkeeping bugs change the generations."""
@@ -129,16 +130,14 @@ def test_pool_capacity_keeps_the_jax_engines_rule():
 
 
 @pytest.mark.parametrize("block", [
-    {"journal_dir": "/tmp/j"},
-    {"drain_deadline_seconds": 5.0},
     {"fleet": {"replicas": 2}},
     {"frontdoor": {"enabled": True}},
-    {"tenants": {"enabled": True}},
-    {"kvcache": {"tiers": {"enabled": True}}},
-    {"kvcache": {"enabled": True, "tiers": {"enabled": True}}},
 ])
 def test_unported_config_blocks_raise(block):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The fleet and the front door still refuse, naming ROADMAP A8 (the
+    journal, the drain deadline, tenants and tiers parse:
+    ``tests/test_torch_config.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         ServingConfig.from_dict(block)
 
 
@@ -150,7 +149,7 @@ def test_unported_config_blocks_raise(block):
 ])
 def test_kvcache_block_parses_like_jax(block):
     """The paged pool's block is ported: it parses to the JAX package's
-    KVCacheConfig, field for field (its tiers stay refused, above)."""
+    KVCacheConfig, field for field, its tiers too."""
     got = ServingConfig.from_dict({"kvcache": block}).kvcache
     assert dataclasses.asdict(got) == dataclasses.asdict(JKVCacheConfig.from_dict(block))
 

@@ -24,6 +24,12 @@ one of 4, every case of that size inside it) against the port at
   on every rank, and ids and a cancel's answer stay rank 0's.
 * Rank 1's clock 1000 s ahead changes nothing: the ranks plan on rank
   0's broadcast clock (deadlines and session TTLs armed).
+* A journaled engine killed (an injected kill at the 3rd decode on
+  every rank) recovers on both ranks: the same replayed ids, the greedy
+  ones' tokens those of one process's uninterrupted run; a tiered pool
+  under the group is refused naming ROADMAP A8 tiers across ranks.
+  SIGTERM to rank 0 alone drains both ranks through the same steps to
+  the same exit code, 43, after rank 0's journal commits.
 * The bytes counted in every drive equal the inference byte model.
 * On one process: the refusals (a vocabulary or heads the axis does not
   divide, ``mp_size`` not dividing the world, ``mp_size`` > 1 without a
@@ -225,6 +231,10 @@ def runs(tmp_path_factory):
           {"name": "g2dev", "engine": _engine_spec(2, init_on_device=True, seed=3),
            "drives": _gpt_drives(tmp, x, serve=False)[:2]},
           {"name": "g2refuse", "engine": gpt, "drives": [_refusing_drive(x)]},
+          {"name": "g2rec", "engine": gpt, "drives": [
+              {"kind": "recover", "serving": SLOT, "requests": x["greedy"] + x["sampled"],
+               "kill_at_decode": 3, "tiers_refusal": True},
+              {"kind": "sigterm", "serving": SLOT, "requests": x["greedy"][:4], "steps": 2}]},
           {"name": "g2skew", "engine": gpt, "clock_skew": {"rank": 1, "seconds": 1000.0},
            "drives": [{"kind": "serve", "serving": SKEWED, "requests": x["greedy"][:5],
                        "session": {**x["session"], "spill_after": [0]}}]}]
@@ -280,8 +290,8 @@ def _read(runs, name, world):
     return out
 
 
-CASES = {"g2": 2, "g2i8": 2, "b2": 2, "g2dev": 2, "g2refuse": 2, "g2skew": 2, "g4": 4, "b4": 4,
-         "g4ck": 4, "g2d2": 4}
+CASES = {"g2": 2, "g2i8": 2, "b2": 2, "g2dev": 2, "g2refuse": 2, "g2skew": 2, "g2rec": 2,
+         "g4": 4, "b4": 4, "g4ck": 4, "g2d2": 4}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -299,7 +309,7 @@ def test_every_rank_gives_the_same_bits(runs, case):
             np.testing.assert_array_equal(arr[k], arr0[k], err_msg=f"{case} {k}")
         for d0, d in zip(meta0["drives"], meta["drives"]):
             for key in ("tokens", "finish", "prefix_hints", "session_restores_by_turn", "ids",
-                        "refused", "cancelled"):
+                        "refused", "cancelled", "replayed"):
                 assert d.get(key) == d0.get(key), (case, key)
             if "stats" in d0:
                 assert d["stats"].get("kvcache") == d0["stats"].get("kvcache")
@@ -366,6 +376,44 @@ def test_served_tokens_match_solo_generate_and_jax(runs, case, m):
     np.testing.assert_array_equal(d["tokens"][-1], want[0])
     assert d["finish"] == ["length"] * len(d["finish"])
     assert d["pool_heads"] == TTINY.n_head // meta["mp_size"]
+
+
+def test_killed_run_recovers_on_every_rank_to_one_process_tokens(runs):
+    """Every rank died at the same decode and replayed the same ids (rank
+    0 read the journal and broadcast it); the replayed greedy requests'
+    tokens equal one process's uninterrupted run; tiers under a group are
+    refused, naming their ROADMAP item."""
+    ranks = _read(runs, "g2rec", 2)
+    d = ranks[0][0]["drives"][0]
+    assert d["killed"] and d["replayed"] and set(d["replayed"]) <= set(d["ids"])
+    assert all(meta["drives"][0]["replayed"] == d["replayed"] for meta, _ in ranks)
+    assert all("ROADMAP A8 tiers across ranks" in meta["drives"][0]["tiers_refused"]
+               for meta, _ in ranks)
+    x = runs["x"]
+    reqs = x["greedy"] + x["sampled"]
+    want = _serve_local(ServingEngine(runs["port"], config=SLOT), {"requests": reqs})
+    n_greedy = 0
+    for rid, got in zip(d["replayed"], d["tokens"]):
+        i = d["ids"].index(rid)
+        if i < len(x["greedy"]):
+            np.testing.assert_array_equal(got, want[i])
+            n_greedy += 1
+    assert n_greedy > 0
+    assert d["finish"] == ["length"] * len(d["finish"])
+
+
+def test_sigterm_on_rank_0_drains_every_rank_alike(runs):
+    ranks = _read(runs, "g2rec", 2)
+    d = [meta["drives"][1] for meta, _ in ranks]
+    assert [x["exit_code"] for x in d] == [43, 43]
+    assert d[0]["steps"] == d[1]["steps"] and d[0]["undone"] == d[1]["undone"]
+    assert d[0]["undone"]  # 4 requests on 2 slots: the queued ones stay undone
+    journal = runs["tmp"] / "journal_g2rec_1"
+    from deepspeed_tpu_torch.serving.journal import incomplete_requests, read_records
+
+    assert [e["id"] for e in incomplete_requests(str(journal))] == d[0]["undone"]
+    assert [r for r in read_records(str(journal)) if r["t"] == "drain"][-1]["undone"] == \
+        d[0]["undone"]
 
 
 def test_paged_pool_prefix_cow_and_session_spill_at_mp2(runs):
