@@ -165,7 +165,22 @@ Phases, each printing one JSON line:
    SIGTERM mid-drain on the tiered engine, exit 43, the next turns
    rebinding from disk bit for bit; two tenants, one deferred by its page
    quota, the bill equal to the journal's), B4 and B5 launched in the
-   children (``serving_resilience``).
+   children (``serving_resilience``).  Then ``serve_fleet_bf16``:
+   ``tools/fleet_chaos.py``, GPT-2 124M bf16 replicas in child processes
+   behind one ``FleetRouter`` over the framed stdio transport: three
+   slot-pool replicas, 24 requests, one replica killed mid-decode (rc -9,
+   zero acknowledged loss, the restart replays the journal's incomplete
+   set); then an elastic fleet: a burst scales up off the warm pool,
+   sessions park, a victim dies inside ``migrate.export`` (rc -9), clean
+   scale-downs migrate the sessions to a replica whose final turns rebind
+   them; every output equal to solo ``generate()`` or first different on
+   a near-tie, B4 and B5 launched in the children (``serving_fleet``).
+   Then ``serve_frontdoor_bf16``: ``tools/frontdoor_chaos.py``, a
+   ``FrontDoor`` server child: 429 for a starved tenant, ``kill -9``
+   mid-stream, the same ``client_key`` resumed under its id after a
+   restart, SIGTERM: the stream completes, 503 with ``Retry-After``, exit
+   43, the journal's bill equal to what the client read; B4 launched in
+   the server (``serving_frontdoor``).
 9. ``train_bert_f32``: BERT-large at full width and depth (random weights
    from a seed) through ``initialize`` in f32, B=2, T=512 with a
    key-padding mask, LAMB, 3 steps, TF32 off: the kernel path (biased
@@ -225,7 +240,7 @@ Phases, each printing one JSON line:
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
-   serving_resilience, training,
+   serving_resilience, serving_fleet, serving_frontdoor, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
@@ -1187,6 +1202,61 @@ def phase_serve_resilience_bf16(torch):
         check(out["launches"].get(name, 0) > 0,
               f"serve_resilience_bf16: {name} not launched in the children: {out['launches']}")
     emit({"phase": "serve_resilience_bf16", **out})
+    return out["launches"]
+
+
+def phase_serve_fleet_bf16(torch):
+    """``deepspeed_tpu_torch/tools/fleet_chaos.py`` on the card: GPT-2 124M
+    in bf16 (weights drawn on the card, seed 0) in replica child processes
+    behind one ``FleetRouter`` over ``ProcessTransport``.  (a) Three
+    slot-pool replicas (4 slots x 1024 positions, chunks of 64), 24
+    requests (seeded Poisson router steps between submits, prompts of
+    64-256 tokens, 32-64 new, 2 seeded-sampling), the first replica killed
+    by ``DS_FAULT_PLAN`` at a decode: rc -9, zero acknowledged loss, the
+    restart replays exactly the journal's incomplete set, and every output
+    equals solo ``generate()`` or first differs on a near-tie.  (b) One
+    paged replica (pages of 128, 96 pages) under the autoscaler: a burst
+    of 16 scales up off the warm pool, 6 sessions x 3 turns park on the
+    elastic replicas, a victim dies inside ``migrate.export`` (rc -9,
+    journal replay), clean scale-downs migrate the rest to the first
+    replica, whose final turns rebind the migrated KV.  A failed or hung
+    child fails the phase.  Returns the children's launches
+    (``serving_fleet``)."""
+    from deepspeed_tpu_torch.tools import fleet_chaos
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = fleet_chaos.run("cuda")
+    check(out["ok"], "serve_fleet_bf16: " + "\n".join(out["failures"]))
+    check(out["failover"]["launches"].get("flash_decode", 0) > 0,
+          f"serve_fleet_bf16: flash_decode not launched in the replicas: {out['launches']}")
+    check(out["elastic"]["launches"].get("flash_decode_paged", 0) > 0,
+          f"serve_fleet_bf16: flash_decode_paged not launched in the replicas: "
+          f"{out['launches']}")
+    emit({"phase": "serve_fleet_bf16", **out})
+    return out["launches"]
+
+
+def phase_serve_frontdoor_bf16(torch):
+    """``deepspeed_tpu_torch/tools/frontdoor_chaos.py`` on the card: one
+    ``FrontDoor`` server child (GPT-2 124M bf16, journal, two tenants):
+    the starved tenant's 429 with ``Retry-After``; ``kill -9`` mid-stream
+    (rc -9); a fresh server over the journal answers the same
+    ``client_key`` with the original id and a stream that extends the
+    prefix and equals solo ``generate()`` (near-tie rule); TTFT through
+    HTTP beside in-process; SIGTERM after a stream's first chunk: the
+    stream completes, a probe answers 503 with ``Retry-After``, exit 43;
+    the journal's per-tenant bill equals what the client read.  Returns
+    the recovered server's launches (``serving_frontdoor``)."""
+    from deepspeed_tpu_torch.tools import frontdoor_chaos
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = frontdoor_chaos.run("cuda")
+    check(out["ok"], "serve_frontdoor_bf16: " + "\n".join(out["failures"]))
+    check(out["launches"].get("flash_decode", 0) > 0,
+          f"serve_frontdoor_bf16: flash_decode not launched in the server: {out['launches']}")
+    emit({"phase": "serve_frontdoor_bf16", **out})
     return out["launches"]
 
 
@@ -3879,6 +3949,8 @@ def main() -> int:
     paged_launches, served["paged"] = phase_serve_paged_bf16(torch, params, mix)
     tiers_launches = phase_serve_tiers_bf16(torch)
     resilience_launches = phase_serve_resilience_bf16(torch)
+    fleet_launches = phase_serve_fleet_bf16(torch)
+    frontdoor_launches = phase_serve_frontdoor_bf16(torch)
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
@@ -3910,6 +3982,8 @@ def main() -> int:
                       "serving_tp": serve_tp_launches.get(name, 0),
                       "serving_tiers": tiers_launches[name],
                       "serving_resilience": resilience_launches.get(name, 0),
+                      "serving_fleet": fleet_launches.get(name, 0),
+                      "serving_frontdoor": frontdoor_launches.get(name, 0),
                       "training": train_launches[name], "training_resume": resume_launches[name],
                       "training_zero": zero_launches.get(name, 0),
                       "training_tp_seq": tp_seq_launches.get(name, 0),

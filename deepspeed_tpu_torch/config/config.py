@@ -4,13 +4,16 @@
 Ported: :class:`DeepSpeedConfig` with its batch triad on one device, the
 ``fp16``, ``bf16``, ``optimizer``, ``scheduler`` blocks, the ZeRO
 ``stage``, ``gradient_clipping``, ``steps_per_print``, ``seed``, the
-``serving`` block but its ``fleet`` and ``frontdoor`` (the slot and paged
-pools, the request journal, the SIGTERM drain, KV tiering and tenants;
-:class:`ServingConfig`, :class:`KVCacheConfig`, :class:`KVTiersConfig`,
-:class:`TenantsConfig`), the ``resilience``
+``serving`` block (the slot and paged pools, the request journal, the
+SIGTERM drain, KV tiering, tenants, the fleet with its elastic autoscaler
+and the HTTP front door; :class:`ServingConfig`, :class:`KVCacheConfig`,
+:class:`KVTiersConfig`, :class:`TenantsConfig`, :class:`FleetConfig`,
+:class:`ElasticConfig`, :class:`FrontdoorConfig`), the ``resilience``
 block but its ``supervision`` (:class:`ResilienceConfig`), the ``overlap``
 block (:class:`OverlapConfig`), ``checkpoint_tag_validation`` and
-``dataloader_drop_last``.  Unknown
+``dataloader_drop_last``, and the top-level keys the JAX package parses
+and never reads again (``prescale_gradients``, ``sparse_gradients``,
+``memory_breakdown``, ...), carried unread under its attribute names.  Unknown
 keys raise :class:`DeepSpeedConfigError` as in the JAX package.  Keys and
 blocks the JAX package knows but the port cannot honour yet are accepted
 only at their "off" default; otherwise they raise ``NotImplementedError``
@@ -52,25 +55,6 @@ def _check_empty(d: Dict[str, Any], block: str, valid: Iterable[str] = ()) -> No
 
 def _known_keys(cls, *extra: str) -> Iterable[str]:
     return tuple(f.name for f in dataclasses.fields(cls)) + extra
-
-
-# serving blocks of the JAX package whose machinery is not ported yet:
-# block -> ROADMAP item
-_NOT_PORTED_BLOCKS = {
-    C.SERVING_FLEET: "A8 serving/fleet/",
-    C.SERVING_FRONTDOOR: "A8 serving/frontdoor/",
-}
-
-
-def _refuse_not_ported(d: Dict[str, Any]) -> None:
-    """Raise for any part of ``d`` that asks for serving machinery the
-    port does not have yet (the fleet, the front door)."""
-    for block, item in _NOT_PORTED_BLOCKS.items():
-        if d.pop(block, None):
-            raise NotImplementedError(
-                f"'{C.SERVING}.{block}' is not ported to deepspeed_tpu_torch yet "
-                f"(ROADMAP {item})"
-            )
 
 
 @dataclass
@@ -316,6 +300,348 @@ class TenantsConfig:
 
 
 @dataclass
+class ElasticConfig:
+    """``serving.fleet.elastic`` block (``serving/fleet/elastic.py``):
+    load-driven autoscaling — hot/cold tick hysteresis over the
+    router's own signals (queue depth, admitted-TTFT estimate, shed),
+    warm-pool scale-up, and drain-based scale-down with live KV session
+    migration to the survivors over the spill-manifest wire format."""
+
+    enabled: bool = C.SERVING_FLEET_ELASTIC_ENABLED_DEFAULT
+    min_replicas: int = C.SERVING_FLEET_ELASTIC_MIN_REPLICAS_DEFAULT
+    max_replicas: int = C.SERVING_FLEET_ELASTIC_MAX_REPLICAS_DEFAULT
+    scale_up_queue_depth: int = C.SERVING_FLEET_ELASTIC_SCALE_UP_QUEUE_DEPTH_DEFAULT
+    scale_up_ttft_seconds: float = C.SERVING_FLEET_ELASTIC_SCALE_UP_TTFT_SECONDS_DEFAULT
+    scale_down_queue_depth: int = (
+        C.SERVING_FLEET_ELASTIC_SCALE_DOWN_QUEUE_DEPTH_DEFAULT
+    )
+    engage_ticks: int = C.SERVING_FLEET_ELASTIC_ENGAGE_TICKS_DEFAULT
+    disengage_ticks: int = C.SERVING_FLEET_ELASTIC_DISENGAGE_TICKS_DEFAULT
+    scale_up_cooldown_seconds: float = (
+        C.SERVING_FLEET_ELASTIC_SCALE_UP_COOLDOWN_SECONDS_DEFAULT
+    )
+    scale_down_cooldown_seconds: float = (
+        C.SERVING_FLEET_ELASTIC_SCALE_DOWN_COOLDOWN_SECONDS_DEFAULT
+    )
+    warm_pool_size: int = C.SERVING_FLEET_ELASTIC_WARM_POOL_SIZE_DEFAULT
+    migration_deadline_seconds: float = (
+        C.SERVING_FLEET_ELASTIC_MIGRATION_DEADLINE_SECONDS_DEFAULT
+    )
+    migration_retries: int = C.SERVING_FLEET_ELASTIC_MIGRATION_RETRIES_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ElasticConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, ElasticConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_FLEET}.{C.SERVING_FLEET_ELASTIC}"
+        out = cls(
+            enabled=bool(d.pop("enabled", C.SERVING_FLEET_ELASTIC_ENABLED_DEFAULT)),
+            min_replicas=int(
+                d.pop("min_replicas", C.SERVING_FLEET_ELASTIC_MIN_REPLICAS_DEFAULT)
+            ),
+            max_replicas=int(
+                d.pop("max_replicas", C.SERVING_FLEET_ELASTIC_MAX_REPLICAS_DEFAULT)
+            ),
+            scale_up_queue_depth=int(
+                d.pop("scale_up_queue_depth",
+                     C.SERVING_FLEET_ELASTIC_SCALE_UP_QUEUE_DEPTH_DEFAULT)
+            ),
+            scale_up_ttft_seconds=float(
+                d.pop("scale_up_ttft_seconds",
+                     C.SERVING_FLEET_ELASTIC_SCALE_UP_TTFT_SECONDS_DEFAULT)
+            ),
+            scale_down_queue_depth=int(
+                d.pop("scale_down_queue_depth",
+                     C.SERVING_FLEET_ELASTIC_SCALE_DOWN_QUEUE_DEPTH_DEFAULT)
+            ),
+            engage_ticks=int(
+                d.pop("engage_ticks", C.SERVING_FLEET_ELASTIC_ENGAGE_TICKS_DEFAULT)
+            ),
+            disengage_ticks=int(
+                d.pop("disengage_ticks",
+                     C.SERVING_FLEET_ELASTIC_DISENGAGE_TICKS_DEFAULT)
+            ),
+            scale_up_cooldown_seconds=float(
+                d.pop("scale_up_cooldown_seconds",
+                     C.SERVING_FLEET_ELASTIC_SCALE_UP_COOLDOWN_SECONDS_DEFAULT)
+            ),
+            scale_down_cooldown_seconds=float(
+                d.pop("scale_down_cooldown_seconds",
+                     C.SERVING_FLEET_ELASTIC_SCALE_DOWN_COOLDOWN_SECONDS_DEFAULT)
+            ),
+            warm_pool_size=int(
+                d.pop("warm_pool_size",
+                     C.SERVING_FLEET_ELASTIC_WARM_POOL_SIZE_DEFAULT)
+            ),
+            migration_deadline_seconds=float(
+                d.pop("migration_deadline_seconds",
+                     C.SERVING_FLEET_ELASTIC_MIGRATION_DEADLINE_SECONDS_DEFAULT)
+            ),
+            migration_retries=int(
+                d.pop("migration_retries",
+                     C.SERVING_FLEET_ELASTIC_MIGRATION_RETRIES_DEFAULT)
+            ),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.min_replicas < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.min_replicas' must be >= 1, got {out.min_replicas}"
+            )
+        if out.max_replicas < out.min_replicas:
+            raise DeepSpeedConfigError(
+                f"'{block}.max_replicas' ({out.max_replicas}) must be >= "
+                f"min_replicas ({out.min_replicas})"
+            )
+        if out.scale_up_queue_depth < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_up_queue_depth' must be >= 1, "
+                f"got {out.scale_up_queue_depth}"
+            )
+        if out.scale_up_ttft_seconds <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_up_ttft_seconds' must be > 0, "
+                f"got {out.scale_up_ttft_seconds}"
+            )
+        if out.scale_down_queue_depth < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_down_queue_depth' must be >= 0, "
+                f"got {out.scale_down_queue_depth}"
+            )
+        if out.scale_down_queue_depth >= out.scale_up_queue_depth:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_down_queue_depth' "
+                f"({out.scale_down_queue_depth}) must be < "
+                f"scale_up_queue_depth ({out.scale_up_queue_depth}) — "
+                f"overlapping thresholds would flap"
+            )
+        if out.engage_ticks < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.engage_ticks' must be >= 1, got {out.engage_ticks}"
+            )
+        if out.disengage_ticks < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.disengage_ticks' must be >= 1, "
+                f"got {out.disengage_ticks}"
+            )
+        if out.scale_up_cooldown_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_up_cooldown_seconds' must be >= 0, "
+                f"got {out.scale_up_cooldown_seconds}"
+            )
+        if out.scale_down_cooldown_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.scale_down_cooldown_seconds' must be >= 0, "
+                f"got {out.scale_down_cooldown_seconds}"
+            )
+        if out.warm_pool_size < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.warm_pool_size' must be >= 0, "
+                f"got {out.warm_pool_size}"
+            )
+        if out.migration_deadline_seconds <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.migration_deadline_seconds' must be > 0, "
+                f"got {out.migration_deadline_seconds}"
+            )
+        if out.migration_retries < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.migration_retries' must be >= 0, "
+                f"got {out.migration_retries}"
+            )
+        return out
+
+
+@dataclass
+class FleetConfig:
+    """``serving.fleet`` block (``serving/fleet/router.py``): the
+    router over N engine replicas — least-estimated-TTFT placement, a
+    per-replica circuit breaker with seeded-jitter exponential backoff,
+    optional tail-latency hedging, and supervised lossless replica
+    restart (journal replay under original ids)."""
+
+    replicas: int = C.SERVING_FLEET_REPLICAS_DEFAULT
+    route_retries: int = C.SERVING_FLEET_ROUTE_RETRIES_DEFAULT
+    breaker_failures: int = C.SERVING_FLEET_BREAKER_FAILURES_DEFAULT
+    breaker_backoff_seconds: float = C.SERVING_FLEET_BREAKER_BACKOFF_SECONDS_DEFAULT
+    breaker_backoff_max_seconds: float = (
+        C.SERVING_FLEET_BREAKER_BACKOFF_MAX_SECONDS_DEFAULT
+    )
+    breaker_halfopen_probes: int = C.SERVING_FLEET_BREAKER_HALFOPEN_PROBES_DEFAULT
+    hedge: bool = C.SERVING_FLEET_HEDGE_DEFAULT
+    hedge_factor: float = C.SERVING_FLEET_HEDGE_FACTOR_DEFAULT
+    hedge_min_observations: int = C.SERVING_FLEET_HEDGE_MIN_OBSERVATIONS_DEFAULT
+    max_restarts: int = C.SERVING_FLEET_MAX_RESTARTS_DEFAULT
+    restart_backoff_seconds: float = C.SERVING_FLEET_RESTART_BACKOFF_SECONDS_DEFAULT
+    restart_budget_reset_seconds: float = (
+        C.SERVING_FLEET_RESTART_BUDGET_RESET_SECONDS_DEFAULT
+    )
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FleetConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, FleetConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_FLEET}"
+        elastic = ElasticConfig.from_dict(d.pop(C.SERVING_FLEET_ELASTIC, None))
+        out = cls(
+            replicas=int(d.pop("replicas", C.SERVING_FLEET_REPLICAS_DEFAULT)),
+            route_retries=int(
+                d.pop("route_retries", C.SERVING_FLEET_ROUTE_RETRIES_DEFAULT)
+            ),
+            breaker_failures=int(
+                d.pop("breaker_failures", C.SERVING_FLEET_BREAKER_FAILURES_DEFAULT)
+            ),
+            breaker_backoff_seconds=float(
+                d.pop("breaker_backoff_seconds",
+                     C.SERVING_FLEET_BREAKER_BACKOFF_SECONDS_DEFAULT)
+            ),
+            breaker_backoff_max_seconds=float(
+                d.pop("breaker_backoff_max_seconds",
+                     C.SERVING_FLEET_BREAKER_BACKOFF_MAX_SECONDS_DEFAULT)
+            ),
+            breaker_halfopen_probes=int(
+                d.pop("breaker_halfopen_probes",
+                     C.SERVING_FLEET_BREAKER_HALFOPEN_PROBES_DEFAULT)
+            ),
+            hedge=bool(d.pop("hedge", C.SERVING_FLEET_HEDGE_DEFAULT)),
+            hedge_factor=float(
+                d.pop("hedge_factor", C.SERVING_FLEET_HEDGE_FACTOR_DEFAULT)
+            ),
+            hedge_min_observations=int(
+                d.pop("hedge_min_observations",
+                     C.SERVING_FLEET_HEDGE_MIN_OBSERVATIONS_DEFAULT)
+            ),
+            max_restarts=int(
+                d.pop("max_restarts", C.SERVING_FLEET_MAX_RESTARTS_DEFAULT)
+            ),
+            restart_backoff_seconds=float(
+                d.pop("restart_backoff_seconds",
+                     C.SERVING_FLEET_RESTART_BACKOFF_SECONDS_DEFAULT)
+            ),
+            restart_budget_reset_seconds=float(
+                d.pop("restart_budget_reset_seconds",
+                     C.SERVING_FLEET_RESTART_BUDGET_RESET_SECONDS_DEFAULT)
+            ),
+            elastic=elastic,
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.replicas < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.replicas' must be >= 1, got {out.replicas}"
+            )
+        if out.route_retries < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.route_retries' must be >= 0, got {out.route_retries}"
+            )
+        if out.breaker_failures < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.breaker_failures' must be >= 1, got {out.breaker_failures}"
+            )
+        if out.breaker_backoff_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.breaker_backoff_seconds' must be >= 0, "
+                f"got {out.breaker_backoff_seconds}"
+            )
+        if out.breaker_backoff_max_seconds < out.breaker_backoff_seconds:
+            raise DeepSpeedConfigError(
+                f"'{block}.breaker_backoff_max_seconds' "
+                f"({out.breaker_backoff_max_seconds}) must be >= "
+                f"breaker_backoff_seconds ({out.breaker_backoff_seconds})"
+            )
+        if out.breaker_halfopen_probes < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.breaker_halfopen_probes' must be >= 1, "
+                f"got {out.breaker_halfopen_probes}"
+            )
+        if out.hedge_factor <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.hedge_factor' must be > 0, got {out.hedge_factor}"
+            )
+        if out.hedge_min_observations < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.hedge_min_observations' must be >= 1, "
+                f"got {out.hedge_min_observations}"
+            )
+        if out.max_restarts < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.max_restarts' must be >= 0 (0 = never restart), "
+                f"got {out.max_restarts}"
+            )
+        if out.restart_backoff_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.restart_backoff_seconds' must be >= 0, "
+                f"got {out.restart_backoff_seconds}"
+            )
+        if out.restart_budget_reset_seconds < 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.restart_budget_reset_seconds' must be >= 0 "
+                f"(0 = budget never decays), "
+                f"got {out.restart_budget_reset_seconds}"
+            )
+        return out
+
+
+@dataclass
+class FrontdoorConfig:
+    """``serving.frontdoor`` block (``serving/frontdoor/http.py``): the
+    stdlib HTTP front-door — chunked streaming token responses, request
+    deadlines mapped onto scheduler deadlines, ``Retry-After``-bearing
+    429/503 overload answers, and SIGTERM graceful drain composed with
+    the serving watchdog."""
+
+    enabled: bool = C.SERVING_FRONTDOOR_ENABLED_DEFAULT
+    host: str = C.SERVING_FRONTDOOR_HOST_DEFAULT
+    port: int = C.SERVING_FRONTDOOR_PORT_DEFAULT  # 0 = ephemeral
+    stream_poll_seconds: float = C.SERVING_FRONTDOOR_STREAM_POLL_SECONDS_DEFAULT
+    max_body_bytes: int = C.SERVING_FRONTDOOR_MAX_BODY_BYTES_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FrontdoorConfig":
+        if d is None:
+            return cls()
+        if isinstance(d, FrontdoorConfig):
+            d = dataclasses.asdict(d)
+        d = dict(d)
+        block = f"{C.SERVING}.{C.SERVING_FRONTDOOR}"
+        out = cls(
+            enabled=bool(d.pop("enabled", C.SERVING_FRONTDOOR_ENABLED_DEFAULT)),
+            host=str(d.pop("host", C.SERVING_FRONTDOOR_HOST_DEFAULT)),
+            port=int(d.pop("port", C.SERVING_FRONTDOOR_PORT_DEFAULT)),
+            stream_poll_seconds=float(
+                d.pop("stream_poll_seconds",
+                     C.SERVING_FRONTDOOR_STREAM_POLL_SECONDS_DEFAULT)
+            ),
+            max_body_bytes=int(
+                d.pop("max_body_bytes",
+                     C.SERVING_FRONTDOOR_MAX_BODY_BYTES_DEFAULT)
+            ),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if not 0 <= out.port <= 65535:
+            raise DeepSpeedConfigError(
+                f"'{block}.port' must be in [0, 65535] (0 = ephemeral), "
+                f"got {out.port}"
+            )
+        if out.stream_poll_seconds <= 0:
+            raise DeepSpeedConfigError(
+                f"'{block}.stream_poll_seconds' must be > 0, "
+                f"got {out.stream_poll_seconds}"
+            )
+        if out.max_body_bytes < 1:
+            raise DeepSpeedConfigError(
+                f"'{block}.max_body_bytes' must be >= 1, "
+                f"got {out.max_body_bytes}"
+            )
+        return out
+
+
+@dataclass
 class ServingConfig:
     """``serving`` block: the continuous-batching slot-pool engine.
     ``num_slots`` concurrent sequences share one fixed-shape KV pool;
@@ -324,8 +650,9 @@ class ServingConfig:
     ``deadline_seconds`` expires requests that wait too long for a
     slot.  ``kvcache.enabled`` swaps the slot pool for the paged pool.
     ``journal_dir`` arms the write-ahead request journal,
-    ``drain_deadline_seconds`` bounds the SIGTERM drain, and ``tenants``
-    the multi-tenant dimension."""
+    ``drain_deadline_seconds`` bounds the SIGTERM drain, ``tenants``
+    the multi-tenant dimension, ``fleet`` the router over replicas and
+    ``frontdoor`` the HTTP server."""
 
     num_slots: int = C.SERVING_NUM_SLOTS_DEFAULT
     max_len: int = C.SERVING_MAX_LEN_DEFAULT  # 0 = derive from the engine
@@ -353,15 +680,21 @@ class ServingConfig:
     # per-tenant rate limits, weighted-fair queueing, SLO classes and
     # paged-KV quotas, keyed by submit(tenant=...)
     tenants: TenantsConfig = field(default_factory=TenantsConfig)
+    # the router over engine replicas: placement, breakers, hedging,
+    # supervised restart, and the elastic autoscaler (serving/fleet/)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    # the stdlib HTTP front door (serving/frontdoor/http.py)
+    frontdoor: FrontdoorConfig = field(default_factory=FrontdoorConfig)
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ServingConfig":
         if d is None:
             return cls()
         d = dict(d)
-        _refuse_not_ported(d)
         out = cls(
+            fleet=FleetConfig.from_dict(d.pop(C.SERVING_FLEET, None)),
             kvcache=KVCacheConfig.from_dict(d.pop(C.SERVING_KVCACHE, None)),
+            frontdoor=FrontdoorConfig.from_dict(d.pop(C.SERVING_FRONTDOOR, None)),
             tenants=TenantsConfig.from_dict(d.pop(C.SERVING_TENANTS, None)),
             num_slots=int(d.pop("num_slots", C.SERVING_NUM_SLOTS_DEFAULT)),
             max_len=int(d.pop("max_len", C.SERVING_MAX_LEN_DEFAULT)),
@@ -1087,14 +1420,7 @@ class OverlapConfig:
 # key -> (predicate "at its off default", ROADMAP item)
 _TOP_NOT_PORTED = {
     "amp": (_off_block, "A13"),
-    "prescale_gradients": (lambda v: v is False, "A6"),
-    "gradient_predivide_factor": (lambda v: v == 1.0, "A6"),
-    "sparse_gradients": (lambda v: v is False, "A13 csr_tensor.py"),
-    "fp32_allreduce": (lambda v: v is False, "A6"),
     "wall_clock_breakdown": (lambda v: v is False, "A14"),
-    "memory_breakdown": (lambda v: v is False, "A14"),
-    "dump_state": (lambda v: v is False, "A14"),
-    "disable_allgather": (lambda v: v is False, "A6"),
     "tensorboard": (_off_block, "A14"),
     "pipeline": (_off_block, "A11 runtime/pipe/"),
     "sanitizer": (_off_block, "A15"),
@@ -1107,7 +1433,6 @@ _TOP_NOT_PORTED = {
     "elasticity": (_off_block, "A14 elasticity/"),
     "quantize_training": (_off_block, "A13 runtime/quantize.py"),
     "progressive_layer_drop": (_off_block, "A13 progressive_layer_drop.py"),
-    "zero_allow_untested_optimizer": (lambda v: v is False, "A6"),
 }
 
 _PORTED_TOP_LEVEL = {
@@ -1115,6 +1440,9 @@ _PORTED_TOP_LEVEL = {
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING,
     C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION, C.RESILIENCE, C.OVERLAP,
     C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST, C.COMM,
+    C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS,
+    C.ALLREDUCE_ALWAYS_FP32, C.MEMORY_BREAKDOWN, C.DUMP_STATE, C.DISABLE_ALLGATHER,
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER,
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -1167,6 +1495,19 @@ class DeepSpeedConfig:
                                                     C.CHECKPOINT_TAG_VALIDATION_DEFAULT)
         self.dataloader_drop_last = bool(d.get(C.DATALOADER_DROP_LAST,
                                                C.DATALOADER_DROP_LAST_DEFAULT))
+        # parsed as the JAX package parses them; it never reads them again
+        self.prescale_gradients = bool(d.get(C.PRESCALE_GRADIENTS,
+                                             C.PRESCALE_GRADIENTS_DEFAULT))
+        self.gradient_predivide_factor = float(d.get(C.GRADIENT_PREDIVIDE_FACTOR,
+                                                     C.GRADIENT_PREDIVIDE_FACTOR_DEFAULT))
+        self.sparse_gradients_enabled = bool(d.get(C.SPARSE_GRADIENTS,
+                                                   C.SPARSE_GRADIENTS_DEFAULT))
+        self.allreduce_always_fp32 = bool(d.get(C.ALLREDUCE_ALWAYS_FP32,
+                                                C.ALLREDUCE_ALWAYS_FP32_DEFAULT))
+        self.memory_breakdown = bool(d.get(C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT))
+        self.dump_state = bool(d.get(C.DUMP_STATE, C.DUMP_STATE_DEFAULT))
+        self.disable_allgather = bool(d.get(C.DISABLE_ALLGATHER, C.DISABLE_ALLGATHER_DEFAULT))
+        self.zero_allow_untested_optimizer = bool(d.get(C.ZERO_ALLOW_UNTESTED_OPTIMIZER, False))
         if self.checkpoint_tag_validation_mode not in C.CHECKPOINT_TAG_VALIDATION_MODES:
             raise DeepSpeedConfigError(
                 f"checkpoint_tag_validation must be one of {C.CHECKPOINT_TAG_VALIDATION_MODES}"

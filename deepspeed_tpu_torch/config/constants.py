@@ -55,6 +55,23 @@ GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
+# top-level keys the JAX package parses and never reads again: carried
+# unread under the JAX DeepSpeedConfig's attribute names
+PRESCALE_GRADIENTS = "prescale_gradients"
+PRESCALE_GRADIENTS_DEFAULT = False
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+ALLREDUCE_ALWAYS_FP32 = "fp32_allreduce"
+ALLREDUCE_ALWAYS_FP32_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+DISABLE_ALLGATHER = "disable_allgather"
+DISABLE_ALLGATHER_DEFAULT = False
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
 SEED = "seed"
 SEED_DEFAULT = 42
 
@@ -150,9 +167,72 @@ SERVING_TENANTS_SLO_CLASS_DEFAULT = "silver"  # gold | silver | bronze
 SERVING_TENANTS_SLO_CLASSES = ["gold", "silver", "bronze"]
 SERVING_TENANTS_KV_PAGES_MAX_DEFAULT = 0  # 0 = no per-tenant page cap
 SERVING_TENANTS_PINNED_PREFIXES_MAX_DEFAULT = 0  # 0 = no pin cap
-# -- blocks of the JAX package's serving stack not ported yet ------------
+# -- fleet router (serving.fleet.*; serving/fleet/router.py) -----------
 SERVING_FLEET = "fleet"
+SERVING_FLEET_REPLICAS_DEFAULT = 1  # engine replicas behind the router
+SERVING_FLEET_ROUTE_RETRIES_DEFAULT = 2  # extra replicas tried per submit
+# circuit breaker: consecutive failures that trip a replica OPEN, then
+# seeded-jitter exponential backoff (resilience/policy.py RetryPolicy
+# schedule) before a half-open probe is admitted
+SERVING_FLEET_BREAKER_FAILURES_DEFAULT = 3
+SERVING_FLEET_BREAKER_BACKOFF_SECONDS_DEFAULT = 0.5
+SERVING_FLEET_BREAKER_BACKOFF_MAX_SECONDS_DEFAULT = 30.0
+SERVING_FLEET_BREAKER_HALFOPEN_PROBES_DEFAULT = 1
+# tail-latency hedging: duplicate a first-token-less request to a
+# second replica after hedge_factor * observed p99 TTFT (armed only
+# past hedge_min_observations samples); first token wins, the loser is
+# cancelled via scheduler retirement
+SERVING_FLEET_HEDGE_DEFAULT = False
+SERVING_FLEET_HEDGE_FACTOR_DEFAULT = 1.5
+SERVING_FLEET_HEDGE_MIN_OBSERVATIONS_DEFAULT = 16
+# replica supervision: restarts per replica before it stays dead, with
+# the same RetryPolicy backoff schedule between restart attempts
+SERVING_FLEET_MAX_RESTARTS_DEFAULT = 3
+SERVING_FLEET_RESTART_BACKOFF_SECONDS_DEFAULT = 0.2
+# restart-budget decay (leaky bucket): every this-many seconds of clean
+# service since the last restart attempt forgives one consumed attempt,
+# so one bad hour does not permanently exhaust a long-lived replica's
+# budget; 0 = never decay (the pre-elastic behavior)
+SERVING_FLEET_RESTART_BUDGET_RESET_SECONDS_DEFAULT = 0.0
+# -- elastic fleet (serving.fleet.elastic.*; serving/fleet/elastic.py):
+# load-driven autoscaling with warm-pool scale-up and drain +
+# live-KV-session-migration scale-down ----------------------------------
+SERVING_FLEET_ELASTIC = "elastic"
+SERVING_FLEET_ELASTIC_ENABLED_DEFAULT = False
+SERVING_FLEET_ELASTIC_MIN_REPLICAS_DEFAULT = 1
+SERVING_FLEET_ELASTIC_MAX_REPLICAS_DEFAULT = 4
+# scale-up pressure: a tick is HOT when mean queued-per-routable-replica
+# crosses the depth threshold, any replica's admitted-TTFT estimate
+# crosses the ttft threshold, or the router absorbed shed/rejections
+# since the last tick
+SERVING_FLEET_ELASTIC_SCALE_UP_QUEUE_DEPTH_DEFAULT = 4
+SERVING_FLEET_ELASTIC_SCALE_UP_TTFT_SECONDS_DEFAULT = 1.0
+SERVING_FLEET_ELASTIC_SCALE_DOWN_QUEUE_DEPTH_DEFAULT = 1
+# hysteresis: engage fast (consecutive hot ticks), disengage slow
+# (consecutive cold ticks) — the degradation ladder's shape
+SERVING_FLEET_ELASTIC_ENGAGE_TICKS_DEFAULT = 3
+SERVING_FLEET_ELASTIC_DISENGAGE_TICKS_DEFAULT = 12
+SERVING_FLEET_ELASTIC_SCALE_UP_COOLDOWN_SECONDS_DEFAULT = 5.0
+SERVING_FLEET_ELASTIC_SCALE_DOWN_COOLDOWN_SECONDS_DEFAULT = 30.0
+# pre-built (factory + warm hook, off the routing thread) replicas kept
+# ready so a scale-up is an O(1) attach instead of a replica's build
+SERVING_FLEET_ELASTIC_WARM_POOL_SIZE_DEFAULT = 1
+# scale-down victim drain budget: while the victim still holds
+# in-flight requests past this deadline the scale-down ABORTS (the
+# victim revives) — it never proceeds over live work
+SERVING_FLEET_ELASTIC_MIGRATION_DEADLINE_SECONDS_DEFAULT = 30.0
+SERVING_FLEET_ELASTIC_MIGRATION_RETRIES_DEFAULT = 3
+# -- the HTTP front door (serving.frontdoor.*; serving/frontdoor/http.py)
 SERVING_FRONTDOOR = "frontdoor"
+SERVING_FRONTDOOR_ENABLED_DEFAULT = False
+SERVING_FRONTDOOR_HOST_DEFAULT = "127.0.0.1"
+SERVING_FRONTDOOR_PORT_DEFAULT = 0  # 0 = ephemeral (OS-assigned) port
+# chunked-streaming poll cadence: how often the handler thread samples
+# a live request's partial tokens between engine steps
+SERVING_FRONTDOOR_STREAM_POLL_SECONDS_DEFAULT = 0.01
+# hard cap on a single request body (token-id JSON) — a front door
+# should bound untrusted input before it reaches the scheduler
+SERVING_FRONTDOOR_MAX_BODY_BYTES_DEFAULT = 1 << 20
 
 #############################################
 # Checkpoints and the data loader

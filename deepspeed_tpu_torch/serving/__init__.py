@@ -2,9 +2,11 @@
 paged KV cache (counterpart of ``deepspeed_tpu/serving``): the pools,
 the scheduler, a write-ahead request journal for crash recovery
 (``journal.py``), a SIGTERM graceful-drain watchdog (``watchdog.py``),
-device → host → disk KV tiering (``kvcache/tiers.py``) and tenants
-(``frontdoor/tenants.py``).  The fleet and the HTTP front door are not
-ported yet.
+device → host → disk KV tiering (``kvcache/tiers.py``), tenants
+(``frontdoor/tenants.py``), the fleet router over replicas with failover,
+supervised restart and elastic scaling (``fleet/``), and the framed RPC
+transport and HTTP front door (``frontdoor/transport.py``,
+``frontdoor/http.py``).
 
     srv = deepspeed_tpu_torch.init_serving(
         model="gpt2", dtype=torch.bfloat16,
@@ -16,12 +18,32 @@ ported yet.
     rid = srv.submit(prompt_tokens, max_new_tokens=64, session_id="chat-1")
     results = srv.drain()
     print(results[rid].tokens())
+
+    # a fleet of replica processes behind one router
+    router = FleetRouter([TransportReplica(n, ProcessTransport(n, argv)) ...],
+                         config={"route_retries": 2},
+                         supervisor=ReplicaSupervisor(max_restarts=2))
+    hid = router.submit(prompt_tokens, client_key="req-1")
+    results = router.drain()
+
+    FrontDoor(srv).serve_forever()  # POST /v1/generate, GET /healthz, /statsz
 """
 from deepspeed_tpu_torch.serving.engine import ServingEngine
+from deepspeed_tpu_torch.serving.fleet import (
+    FleetOverloaded,
+    FleetRouter,
+    LocalReplica,
+    ReplicaDeadError,
+    ReplicaSupervisor,
+)
 from deepspeed_tpu_torch.serving.frontdoor import (
+    FrontDoor,
     TenantRegistry,
     TenantThrottled,
+    TransportFrameError,
+    TransportReplica,
     journal_tenant_totals,
+    wrap_replica,
 )
 from deepspeed_tpu_torch.serving.journal import JournalError, RequestJournal
 from deepspeed_tpu_torch.serving.kvcache import PagedKVPool, PageTierManager
@@ -43,6 +65,15 @@ from deepspeed_tpu_torch.serving.watchdog import ServingWatchdog
 
 __all__ = [
     "ServingEngine",
+    "FleetRouter",
+    "FleetOverloaded",
+    "LocalReplica",
+    "ReplicaDeadError",
+    "ReplicaSupervisor",
+    "FrontDoor",
+    "TransportFrameError",
+    "TransportReplica",
+    "wrap_replica",
     "PagedKVPool",
     "PageTierManager",
     "SlotKVPool",

@@ -73,9 +73,13 @@ code, so every rank drains the same steps and exits alike.  Tiers under
 a group are refused (ROADMAP A8 tiers across ranks: a disk read or write
 completes at a different moment on each rank).
 
-Not ported yet (ROADMAP A8): the fleet (``serving/fleet/``), the HTTP
-front door and its transport; the telemetry spans and counters (A14)
-and the ds_san/ds_shard hooks (A15).
+Around the engine: ``serving/fleet/`` routes over several engines
+(each wrapped in a ``LocalReplica``, in this process or in a child behind
+``serving/frontdoor/transport.py``) through ``cancel``,
+``client_request_id``, ``pop_results`` and ``recover``, and
+``serving/frontdoor/http.py`` serves one engine over HTTP.  Not ported
+yet: the telemetry spans and counters (ROADMAP A14) and the
+ds_san/ds_shard hooks (A15).
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@ package's ``DeepSpeedConfig`` on one device (data-parallel world size 1):
 the same JSON dicts give the same batch triad, the same training fields
 and the same rejections; blocks the port cannot honour yet raise
 ``NotImplementedError`` naming their ROADMAP item unless they are at their
-"off" default."""
+"off" default; the keys the JAX package parses and never reads again are
+carried under its attribute names; the ``serving.fleet`` (with its
+``elastic`` block) and ``serving.frontdoor`` blocks parse and refuse as
+the JAX package's do."""
 import json
 
 import pytest
@@ -95,11 +98,8 @@ def test_same_dict_gives_same_rejection(d):
 @pytest.mark.parametrize("d,item", [
     ({"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}, "A12"),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}}, "A12"),
-    ({"prescale_gradients": True}, "A6"),
-    # a model or seq axis now parses (tests/test_torch_zero_rules.py);
-    # these options still raise A6
-    ({"fp32_allreduce": True}, "A6"),
-    ({"disable_allgather": True}, "A6"),
+    # prescale_gradients, fp32_allreduce and disable_allgather parse now
+    # (test_keys_the_jax_package_never_reads_parse_as_its_attributes)
     ({"pipeline": {"stages": 2}}, "A11"),
     ({"resilience": {"supervision": {"enabled": True}}}, "A14"),
     ({"telemetry": {"enabled": True, "ring": 16}}, "A14"),
@@ -205,9 +205,7 @@ def test_journal_drain_tenants_and_tiers_parse_as_the_jax_package_does(block):
 
     want, got = dataclasses.asdict(JServing.from_dict(block)), dataclasses.asdict(
         TServing.from_dict(block))
-    for key in set(want) - {"fleet", "frontdoor"}:  # the two blocks still refused
-        assert got[key] == want[key], key
-    assert set(got) == set(want) - {"fleet", "frontdoor"}
+    assert got == want  # the fleet and frontdoor blocks too, at their defaults
     TConfig({"train_batch_size": 8, "serving": block})
 
 
@@ -234,11 +232,18 @@ def test_journal_drain_tenants_and_tiers_reject_as_the_jax_package_does(block):
 
 @pytest.mark.parametrize("block", [{"fleet": {"replicas": 2}}, {"frontdoor": {"enabled": True}}])
 def test_fleet_and_frontdoor_still_refuse_naming_a8(block):
-    from deepspeed_tpu.config.config import ServingConfig as JServing
+    """The fleet and the front door are ported, so the blocks that raised
+    ``NotImplementedError`` naming A8 now parse to the JAX package's
+    fields, in the full config too."""
+    import dataclasses
 
-    JServing.from_dict(block)  # the JAX package takes it
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TConfig({"train_batch_size": 8, "serving": block})
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+    from deepspeed_tpu_torch.config.config import ServingConfig as TServing
+
+    want = dataclasses.asdict(JServing.from_dict(block))
+    assert dataclasses.asdict(TServing.from_dict(block)) == want
+    got = TConfig({"train_batch_size": 8, "serving": block}).serving
+    assert dataclasses.asdict(got) == want
 
 
 LAMB_PARAMS = {"lr": 2e-3, "betas": [0.9, 0.98], "eps": 1e-6, "weight_decay": 0.01,
@@ -277,3 +282,124 @@ def test_onebit_lamb_still_raises_naming_a13():
     with pytest.raises(NotImplementedError, match="A13"):
         DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
                         config=TConfig(d), device="cpu")
+
+
+# the top-level keys the JAX package parses and never reads again: the
+# port carries them unread under the JAX DeepSpeedConfig's attribute names
+C7_KEYS = {
+    "prescale_gradients": (True, "prescale_gradients"),
+    "gradient_predivide_factor": (4.0, "gradient_predivide_factor"),
+    "sparse_gradients": (True, "sparse_gradients_enabled"),
+    "fp32_allreduce": (True, "allreduce_always_fp32"),
+    "memory_breakdown": (True, "memory_breakdown"),
+    "dump_state": (True, "dump_state"),
+    "disable_allgather": (True, "disable_allgather"),
+    "zero_allow_untested_optimizer": (True, "zero_allow_untested_optimizer"),
+}
+
+
+@pytest.mark.parametrize("key", sorted(C7_KEYS))
+def test_keys_the_jax_package_never_reads_parse_as_its_attributes(key):
+    """Each key at a value off its default is accepted, and its attribute
+    equals the JAX package's (also at the default, key absent)."""
+    value, attr = C7_KEYS[key]
+    d = {"train_batch_size": 8, key: value}
+    assert getattr(TConfig(d), attr) == getattr(JConfig(d, world_size=1), attr)
+    assert getattr(TConfig(d), attr) != getattr(TConfig({"train_batch_size": 8}), attr)
+    base = {"train_batch_size": 8}
+    assert getattr(TConfig(base), attr) == getattr(JConfig(base, world_size=1), attr)
+
+
+def test_every_key_still_refused_names_an_open_item():
+    """What ``_TOP_NOT_PORTED`` still refuses names a ROADMAP item, and
+    none of the keys above is in it."""
+    from deepspeed_tpu_torch.config import config as tc
+
+    assert not set(C7_KEYS) & set(tc._TOP_NOT_PORTED)
+    for key, (_, item) in tc._TOP_NOT_PORTED.items():
+        assert item.split()[0][0] in "AB", (key, item)
+    assert not hasattr(tc, "_NOT_PORTED_BLOCKS")
+
+
+FLEET_BLOCKS = [
+    {"fleet": {}},
+    {"fleet": {"replicas": 3, "route_retries": 1, "breaker_failures": 5,
+               "breaker_backoff_seconds": 0.25, "breaker_backoff_max_seconds": 8.0,
+               "breaker_halfopen_probes": 2, "hedge": True, "hedge_factor": 2.0,
+               "hedge_min_observations": 8, "max_restarts": 2,
+               "restart_backoff_seconds": 0.1, "restart_budget_reset_seconds": 60.0}},
+    {"fleet": {"elastic": {"enabled": True}}},
+    {"fleet": {"elastic": {"enabled": True, "min_replicas": 1, "max_replicas": 3,
+                           "scale_up_queue_depth": 4, "scale_up_ttft_seconds": 2.0,
+                           "scale_down_queue_depth": 1, "engage_ticks": 2,
+                           "disengage_ticks": 6, "scale_up_cooldown_seconds": 1.0,
+                           "scale_down_cooldown_seconds": 10.0, "warm_pool_size": 1,
+                           "migration_deadline_seconds": 15.0, "migration_retries": 1}}},
+    {"frontdoor": {"enabled": True}},
+    {"frontdoor": {"enabled": True, "host": "0.0.0.0", "port": 8080,
+                   "stream_poll_seconds": 0.005, "max_body_bytes": 4096}},
+    {"fleet": {"replicas": 2}, "frontdoor": {"enabled": True}, "journal_dir": "/j",
+     "tenants": {"enabled": True}},
+]
+
+
+@pytest.mark.parametrize("block", FLEET_BLOCKS, ids=[
+    "fleet-defaults", "fleet-every-key", "elastic", "elastic-every-key", "frontdoor",
+    "frontdoor-every-key", "all"])
+def test_fleet_elastic_and_frontdoor_parse_as_the_jax_package_does(block):
+    import dataclasses
+
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+    from deepspeed_tpu_torch.config.config import ServingConfig as TServing
+
+    want = dataclasses.asdict(JServing.from_dict(block))
+    assert dataclasses.asdict(TServing.from_dict(block)) == want
+    got = TConfig({"train_batch_size": 8, "serving": block}).serving
+    assert dataclasses.asdict(got) == want
+
+
+FLEET_REJECTS = [
+    {"fleet": {"replica": 3}},
+    {"fleet": {"replicas": 0}},
+    {"fleet": {"route_retries": -1}},
+    {"fleet": {"breaker_failures": 0}},
+    {"fleet": {"breaker_backoff_seconds": -0.5}},
+    {"fleet": {"breaker_backoff_seconds": 4.0, "breaker_backoff_max_seconds": 2.0}},
+    {"fleet": {"breaker_halfopen_probes": 0}},
+    {"fleet": {"hedge_factor": 0}},
+    {"fleet": {"hedge_min_observations": 0}},
+    {"fleet": {"max_restarts": -1}},
+    {"fleet": {"restart_backoff_seconds": -1}},
+    {"fleet": {"restart_budget_reset_seconds": -1.0}},
+    {"fleet": {"elastic": {"warm_replicas": 2}}},
+    {"fleet": {"elastic": {"min_replicas": 0}}},
+    {"fleet": {"elastic": {"min_replicas": 3, "max_replicas": 2}}},
+    {"fleet": {"elastic": {"scale_up_queue_depth": 0}}},
+    {"fleet": {"elastic": {"scale_up_ttft_seconds": 0}}},
+    {"fleet": {"elastic": {"scale_down_queue_depth": -1}}},
+    {"fleet": {"elastic": {"scale_up_queue_depth": 2, "scale_down_queue_depth": 2}}},
+    {"fleet": {"elastic": {"engage_ticks": 0}}},
+    {"fleet": {"elastic": {"disengage_ticks": 0}}},
+    {"fleet": {"elastic": {"scale_up_cooldown_seconds": -1}}},
+    {"fleet": {"elastic": {"scale_down_cooldown_seconds": -1}}},
+    {"fleet": {"elastic": {"warm_pool_size": -1}}},
+    {"fleet": {"elastic": {"migration_deadline_seconds": 0}}},
+    {"fleet": {"elastic": {"migration_retries": -1}}},
+    {"frontdoor": {"port": 70000}},
+    {"frontdoor": {"stream_poll_seconds": 0}},
+    {"frontdoor": {"max_body_bytes": 0}},
+    {"frontdoor": {"hots": "x"}},
+]
+
+
+@pytest.mark.parametrize("block", FLEET_REJECTS, ids=range(len(FLEET_REJECTS)))
+def test_fleet_elastic_and_frontdoor_reject_as_the_jax_package_does(block):
+    """The same dict is refused by both, with the same message."""
+    from deepspeed_tpu.config.config import ServingConfig as JServing
+    from deepspeed_tpu_torch.config.config import ServingConfig as TServing
+
+    with pytest.raises(JError) as want:
+        JServing.from_dict(block)
+    with pytest.raises(TError) as got:
+        TServing.from_dict(block)
+    assert str(got.value) == str(want.value)

@@ -134,11 +134,14 @@ def test_pool_capacity_keeps_the_jax_engines_rule():
     {"frontdoor": {"enabled": True}},
 ])
 def test_unported_config_blocks_raise(block):
-    """The fleet and the front door still refuse, naming ROADMAP A8 (the
-    journal, the drain deadline, tenants and tiers parse:
-    ``tests/test_torch_config.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ServingConfig.from_dict(block)
+    """The fleet and the front door, once refused naming ROADMAP A8, are
+    ported: each block parses, and an engine takes the config
+    (``tests/test_torch_config.py`` holds them against the JAX package)."""
+    cfg = ServingConfig.from_dict(block)
+    assert cfg.fleet.replicas == block.get("fleet", {}).get("replicas", 1)
+    assert cfg.frontdoor.enabled == block.get("frontdoor", {}).get("enabled", False)
+    eng = _port_engine(max_out_tokens=64)
+    assert ServingEngine(eng, cfg).config.fleet == cfg.fleet
 
 
 @pytest.mark.parametrize("block", [
