@@ -137,7 +137,11 @@ Phases, each printing one JSON line:
    pool, ``paged_request_mix(seed=0)`` through the paged pool and
    ``serve_bf16``'s ``generate()``: every token bit for bit those of
    ``serve_bf16`` and ``serve_paged_bf16``, 0 bytes counted, B1 (tc), B4
-   and B5 launched (``serving_tp``); an ``init_on_device`` engine holds
+   and B5 launched (``serving_tp``); then the same engine with
+   ``kvcache.tiers.enabled`` under the group (``serve_tiers_bf16``'s
+   16 sessions x 3 turns, a flush to disk before the last turn): every
+   turn bit for bit the all-device pool's, the tiers' agreements the only
+   bytes counted; an ``init_on_device`` engine holds
    GPT-2 124M's shapes in bf16, finite.
 7. ``serve_paged_f32``: GPT-2 124M behind ``init_serving`` with the paged
    pool (8 slots x 1024 positions, 64-token chunks, 128-token pages) on
@@ -181,6 +185,30 @@ Phases, each printing one JSON line:
    restart, SIGTERM: the stream completes, 503 with ``Retry-After``, exit
    43, the journal's bill equal to what the client read; B4 launched in
    the server (``serving_frontdoor``).
+   Then models from outside the repo.  ``serve_injected_bf16``: GPT-Neo
+   2.7B at its published widths (hidden 2560, 32 layers, 20 heads of 128,
+   vocab 50257, 2048 positions), weights drawn on the card (seed 0) and
+   handed over as a ``GPTNeoForCausalLM`` stand-in (``state_dict()``
+   under HF GPT-Neo's key names, a ``.config``; the card has no
+   ``transformers``), injected by ``init_inference(model=<stand-in>)``:
+   the tree bit for bit the preset engine's fed the same weights through
+   ``params=``, the prefill logits within the tolerance stated, 8
+   requests on the paged pool equal to solo ``generate()`` or first
+   different on a near-tie of 0.1 of logit (B1 and B5 launched:
+   ``serving_injected``).  ``serve_int8_bf16``: the same model with
+   ``quantize_bits=8`` (int8 codes and f32 per-channel scales on the card,
+   the same as packing on the host): weight bytes beside bf16's, the
+   prefill logits within the tolerance stated of a bf16 engine over the
+   dequantized ``q * s``, 8 requests on the slot and the paged pools
+   equal to int8 ``generate()`` or near-ties (B1, B4, B5:
+   ``serving_int8``), decode tokens/s and TTFT at batch 8 beside bf16's, in
+   turns.  ``serve_megatron_bf16``: Megatron-LM's GPT-2 345M written from
+   a seed as two tensor-parallel shards (``mp_rank_0X_model_states.pt``,
+   ``latest``, the newer interleaved QKV) and read through
+   ``find_megatron_checkpoints`` → ``SDLoaderFactory.get_sd_loader(...)
+   .load()`` → ``init_serving(model=merged)``: logits bit for bit the
+   unsplit weights', 8 requests on the slot pool (B1, B4:
+   ``serving_megatron``).
 9. ``train_bert_f32``: BERT-large at full width and depth (random weights
    from a seed) through ``initialize`` in f32, B=2, T=512 with a
    key-padding mask, LAMB, 3 steps, TF32 off: the kernel path (biased
@@ -240,7 +268,8 @@ Phases, each printing one JSON line:
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
-   serving_resilience, serving_fleet, serving_frontdoor, training,
+   serving_resilience, serving_fleet, serving_frontdoor, serving_injected,
+   serving_int8, serving_megatron, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse) and their
    sum.
@@ -1258,6 +1287,517 @@ def phase_serve_frontdoor_bf16(torch):
           f"serve_frontdoor_bf16: flash_decode not launched in the server: {out['launches']}")
     emit({"phase": "serve_frontdoor_bf16", **out})
     return out["launches"]
+
+
+# ---------------------------------------------------------------------------
+# models from outside the repo: injection, int8 weights at rest, Megatron
+# ---------------------------------------------------------------------------
+
+# GPT-Neo 2.7B at its published widths (EleutherAI/gpt-neo-2.7B: hidden
+# 2560, 32 layers, 20 heads of 128, vocab 50257, 2048 positions, MLP 4 x
+# hidden): the port's "gpt-neo-2.7b" preset.  Its requests: 8 prompts of
+# 64..256 tokens, 48 greedy tokens each, on 8 slots (batch 8 decode)
+NEO_PROMPTS, NEO_NEW = (64, 256), 48
+NEO_SLOT = {"num_slots": 8, "prefill_chunk": 64, "max_len": 1024}
+NEO_PAGED = {**NEO_SLOT, "kvcache": {"enabled": True, "page_len": 128}}
+# bf16 serving against bf16 solo generate(): a differing greedy token is
+# accepted where the step's own argmax flips once this much logit moves
+# between the two tokens (tools/fleet_chaos.py first_difference).  The
+# served decode runs batch 8 and the solo one batch 1, GEMMs of other
+# shapes that round 24-32 bf16 layers another way, so the two logits
+# differ by a few of bf16's spacings at the logits' magnitude (2 of them,
+# 0.0625, at GPT-Neo 2.7B's +-5.5 on the first card run): the tolerance is
+# 8 spacings at the largest |logit| of the model's prefill check
+NEAR_TIE_SPACINGS = 8
+
+
+def near_tie_tol(logits) -> float:
+    """:data:`NEAR_TIE_SPACINGS` bf16 spacings (2**-7 relative) at the
+    largest |logit| of ``logits``."""
+    top = float(logits.float().abs().max())
+    return float(NEAR_TIE_SPACINGS * 2.0 ** (np.floor(np.log2(top)) - 7))
+# the int8 engine's prefill logits against a bf16 engine over the
+# dequantized weights q * s: the two round each weight's scale or product
+# to bf16 (2**-9 relative) at other points and carry that through 32
+# layers, so they differ by a few of bf16's spacings at the logits'
+# magnitude (GPT-Neo 2.7B's random-init logits span +-5.5, where the
+# spacing is 2**-5: the first card run read 0.111, 3.6 spacings); the
+# bound is near_tie_tol's 8 spacings at the largest |logit|
+# Megatron-LM's GPT-2 345M (24 layers, hidden 1024, 16 heads, 1024
+# positions; its vocabulary padded to a multiple of 128 x 2 ranks, 50304)
+MEGATRON_345M = {"vocab_size": 50304, "n_positions": 1024, "n_embd": 1024, "n_layer": 24,
+                 "n_head": 16}
+
+
+class HFLayout:
+    """An HF-layout stand-in for a ``transformers`` model (the card has no
+    ``transformers``): ``state_dict()`` under the model's key names and a
+    ``.config`` naming its architecture."""
+
+    def __init__(self, sd, config):
+        self._sd, self.config = sd, config
+
+    def state_dict(self):
+        return self._sd
+
+
+def gpt_neo_standin(tree, cfg):
+    """GPT-Neo's layout of the port's tree ``tree`` (its ``transformer.h.N``
+    keys, (out, in) Linears, separate q/k/v without biases, the queries
+    without the sqrt(head_dim) the policy folds back in); a view of
+    ``tree``'s tensors but for the queries."""
+    from types import SimpleNamespace
+
+    d, b, scale = cfg.n_embd, tree["blocks"], float(np.sqrt(cfg.head_dim))
+    sd = {"transformer.wte.weight": tree["wte"], "transformer.wpe.weight": tree["wpe"],
+          "transformer.ln_f.weight": tree["lnf_g"], "transformer.ln_f.bias": tree["lnf_b"],
+          "lm_head.weight": tree["wte"]}
+    for i in range(cfg.n_layer):
+        p, a = f"transformer.h.{i}.", f"transformer.h.{i}.attn.attention."
+        qkv = b["qkv_w"][i]
+        sd.update({
+            p + "ln_1.weight": b["ln1_g"][i], p + "ln_1.bias": b["ln1_b"][i],
+            a + "q_proj.weight": (qkv[:, :d].float() / scale).to(qkv.dtype).t(),
+            a + "k_proj.weight": qkv[:, d:2 * d].t(), a + "v_proj.weight": qkv[:, 2 * d:].t(),
+            a + "out_proj.weight": b["proj_w"][i].t(), a + "out_proj.bias": b["proj_b"][i],
+            p + "ln_2.weight": b["ln2_g"][i], p + "ln_2.bias": b["ln2_b"][i],
+            p + "mlp.c_fc.weight": b["fc_w"][i].t(), p + "mlp.c_fc.bias": b["fc_b"][i],
+            p + "mlp.c_proj.weight": b["fc_proj_w"][i].t(),
+            p + "mlp.c_proj.bias": b["fc_proj_b"][i]})
+    config = SimpleNamespace(
+        architectures=["GPTNeoForCausalLM"], num_layers=cfg.n_layer, hidden_size=d,
+        num_heads=cfg.n_head, vocab_size=cfg.vocab_size,
+        max_position_embeddings=cfg.n_positions, layer_norm_epsilon=cfg.layer_norm_epsilon,
+        attention_types=[[["global", "local"], cfg.n_layer // 2]], window_size=256)
+    return HFLayout(sd, config)
+
+
+def neo_requests(seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, 50257, int(n), dtype=np.int32), NEO_NEW)
+            for n in rng.integers(NEO_PROMPTS[0], NEO_PROMPTS[1] + 1, 8)]
+
+
+def near_tie_check(eng, done, reqs, solo, tie, label):
+    """Each served request in ``done`` ran to its length and its tokens
+    equal ``solo`` ones (solo ``generate()``) or first differ on a
+    near-tie within ``tie``; returns the differing ones."""
+    from deepspeed_tpu_torch.tools.fleet_chaos import first_difference
+
+    flips = []
+    for i, (r, (p, n), want) in enumerate(zip(done, reqs, solo)):
+        check(r.finish_reason == "length" and len(r.generated) == n,
+              f"{label} request {i}: {r.finish_reason}, {len(r.generated)} of {n} tokens")
+        diff = first_difference(eng, len(p), r.tokens(), want, tie)
+        if diff is not None:
+            check(diff["ok"], f"{label} request {i}: differs from solo generate() at token "
+                              f"{diff['at']}, gap {diff['gap']} above {tie}")
+            flips.append({"request": i, **diff})
+    return flips
+
+
+def _serve_rates(srv, done, wall):
+    n_tok = int(sum(len(r.generated) for r in done))
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in done]
+    st = srv.stats()
+    return {"requests": len(done), "tokens": n_tok, "wall_s": wall,
+            "decode_tokens_per_s": (n_tok - len(done)) / st["phase_seconds"]["decode"],
+            "ttft_ms_p50": _percentile(ttft, 50), "decode_steps": st["decode_steps"],
+            "prefill_chunks": st["prefill_chunks"]}
+
+
+def _decode_window(torch, eng, steps=8, B=8, T=128):
+    """``steps`` greedy decode steps at batch ``B`` after a ``T``-token
+    prefill, under ``torch.profiler``: host wall ms a step (each ends in
+    its tokens' copy to the host) and device-busy ms a step."""
+    from deepspeed_tpu_torch.tools.profile_serving import profile_summary
+
+    ids = np.random.default_rng(3).integers(1, eng.model_config.vocab_size, (B, T))
+    k, v = eng.init_cache(B, T + steps + 1)
+    logits, k, v = eng.prefill(ids, k, v)
+    tok = logits[:, -1].argmax(-1)[:, None].cpu().numpy()
+    logits, k, v = eng.decode_step(tok, k, v, np.full(B, T))  # warm
+    tok = logits[:, -1].argmax(-1)[:, None].cpu().numpy()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, k, v = eng.decode_step(tok, k, v, np.full(B, T + 1 + i))
+            tok = logits[:, -1].argmax(-1)[:, None].cpu().numpy()
+        wall = time.perf_counter() - t0
+    out = profile_summary(prof)
+    busy = out["device_busy_ms"]
+    return {"wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": None if busy is None else busy / steps,
+            "device_idle_share": out["device_idle_share"],
+            "top_kernels_ms": out["top_kernels_ms"][:6]}
+
+
+def _main_path_launches(label, launches, variants, decode):
+    check(launches.get("flash_fwd", 0) > 0 and only_tc(variants.get("flash_fwd", {})),
+          f"{label}: generate()'s prefill ran {variants.get('flash_fwd')}")
+    check(any(launches.get(n, 0) > 0 for n in decode),
+          f"{label}: none of {decode} launched: {launches}")
+
+
+def phase_serve_injected_bf16(torch):
+    """GPT-Neo 2.7B at its published widths injected from an HF layout:
+    weights drawn on the card (seed 0) in the port's layout, handed over
+    as a ``GPTNeoForCausalLM`` stand-in (:func:`gpt_neo_standin`), and
+    ``init_inference(model=<stand-in>)`` through ``HFGPTNEOLayerPolicy``.
+    Gates: the injected tree equals the preset engine's (``params=``: the
+    drawn tree, its queries as the policy folds them) leaf for leaf, bit
+    for bit; their prefill logits (4 x 256) within BF16_LOGIT_TOL; 8
+    requests served on the paged pool (counters zeroed just before, with
+    a ``generate()`` of 4 x 256 prompts, and read just after: B1 and B5
+    launched, ``serving_injected``) each equal solo ``generate()`` or
+    first different on a near-tie.  Returns the launches, the drawn tree
+    and the stand-in (for ``serve_int8_bf16``)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.runtime.engine import tree_from_paths, tree_items
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = gpt2.PRESETS["gpt-neo-2.7b"]
+    tree = gpt2.init_params_device(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    standin = gpt_neo_standin(tree, cfg)
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.init_inference(model=standin, dtype=torch.bfloat16,
+                                             max_out_tokens=cfg.n_positions)
+    torch.cuda.synchronize()
+    inject_s = time.perf_counter() - t0
+    check(eng.model_config == dataclasses.replace(cfg, remat=False),
+          f"serve_injected_bf16: injected config {eng.model_config}")
+    # the preset engine on the same weights: the drawn tree, its queries
+    # as the policy folds them back (the stand-in's divided by sqrt(hd))
+    d, scale = cfg.n_embd, float(np.sqrt(cfg.head_dim))
+    qkv = torch.cat([torch.stack([standin.state_dict()[
+        f"transformer.h.{i}.attn.attention.q_proj.weight"].t() * scale
+        for i in range(cfg.n_layer)]), tree["blocks"]["qkv_w"][:, :, d:]], dim=2)
+    ref_tree = tree_from_paths({p: (qkv if p == "blocks/qkv_w" else t)
+                                for p, t in tree_items(tree)})
+    preset = deepspeed_tpu_torch.init_inference(model="gpt-neo-2.7b", params=ref_tree,
+                                                dtype=torch.bfloat16)
+    got, want = dict(tree_items(eng.params)), dict(tree_items(preset.params))
+    differ = sorted(p for p in want if not torch.equal(got[p], want[p]))
+    check(set(got) == set(want) and not differ,
+          f"serve_injected_bf16: injected leaves {differ} differ from the preset engine's")
+    q_fold_err = float(((qkv[:, :, :d].float() - tree["blocks"]["qkv_w"][:, :, :d].float()).abs()
+                        / tree["blocks"]["qkv_w"][:, :, :d].float().abs().clamp_min(1e-6)).max())
+    ids = generate_ids()
+    with torch.inference_mode():
+        lg = [e.prefill(ids, *e.init_cache(4, 256))[0] for e in (eng, preset)]
+    err = max_err(lg[0], lg[1])
+    check(bool(torch.isfinite(lg[0]).all()) and err <= BF16_LOGIT_TOL,
+          f"serve_injected_bf16: prefill logits differ from the preset engine's by {err}")
+    logit_range = [float(lg[0].min()), float(lg[0].max())]
+    tie = near_tie_tol(lg[0])
+    del preset, ref_tree, qkv, lg
+
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    srv = ServingEngine(eng, config=NEO_PAGED)
+    reqs = neo_requests()
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids_sub = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+    res = srv.drain()
+    gen = eng.generate(ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = kernels.launches(), kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    _main_path_launches("serve_injected_bf16", launches, variants, ("flash_decode_paged",))
+    check(gen.shape == (4, 256 + GEN_NEW), f"serve_injected_bf16: generate() gave {gen.shape}")
+    solo = [eng.generate(p[None], max_new_tokens=n)[0] for p, n in reqs]
+    flips = near_tie_check(eng, [res[r] for r in ids_sub], reqs, solo, tie,
+                           "serve_injected_bf16")
+    kv = srv.stats()["kvcache"]
+    emit({"phase": "serve_injected_bf16", "model": "gpt-neo-2.7b", "source": "GPTNeoForCausalLM "
+          "layout (drawn on the card, seed 0)", "params": cfg.num_params(),
+          "inject_s": inject_s, "weight_bytes": eng.weight_bytes(),
+          "leaves_equal_preset": len(want), "query_fold_max_rel": q_fold_err,
+          "prefill_logits_max_abs_err": err, "tol": BF16_LOGIT_TOL, "logit_range": logit_range,
+          "served": len(reqs), "equal_to_solo_generate": len(reqs) - len(flips),
+          "near_tie_flips": flips, "near_tie_tol": tie, "wall_s": wall,
+          "prefix_hits": kv["prefix_hits"], "launches": {n: c for n, c in launches.items() if c}})
+    del srv
+    return launches, eng, standin, solo
+
+
+def _dequantized(torch, eng):
+    """A packed engine's tree with every ``{"q", "s"}`` pair as ``q * s``
+    in bf16."""
+    def deq(v):
+        if isinstance(v, dict):
+            return (v["q"].float() * v["s"].unsqueeze(-2)).to(torch.bfloat16)
+        return v
+    return {k: ({n: deq(x) for n, x in v.items()} if k == "blocks" else v)
+            for k, v in eng.params.items()}
+
+
+def phase_serve_int8_bf16(torch, bf16_eng, standin, solo_bf16):
+    """``serve_injected_bf16``'s GPT-Neo 2.7B with ``quantize_bits=8``: the
+    stand-in injected and every matmul weight packed whole on the card
+    (int8 codes, f32 per-channel scales).  Gates: codes and scales as a
+    packing of the same weights on the host (layers 0 and 31 of ``qkv_w``,
+    ``proj_w``, ``fc_w``, ``fc_proj_w``); the prefill logits (4 x 256)
+    within :func:`near_tie_tol` of a bf16 engine over the dequantized
+    weights ``q * s``; 8 requests on the slot pool and on the paged pool (counters
+    zeroed just before, with a ``generate()`` of 4 x 256, read just after:
+    B1, B4 and B5 launched, ``serving_int8``) each equal solo int8
+    ``generate()`` or first different on a near-tie.  Reports the weight
+    bytes on the card against bf16's, decode tokens/s and TTFT p50 of the
+    same 8 requests at batch 8 on the slot pool, bf16 and int8 in turns
+    (three pairs, medians), and a profiled window of 8 decode steps at
+    batch 8 each (host ms and device-busy ms a step).  Returns the
+    launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.runtime.weight_quantizer import pack_one
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    eng = deepspeed_tpu_torch.init_inference(model=standin, dtype=torch.bfloat16,
+                                             quantize_bits=8, max_out_tokens=2048)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    blocks = eng.params["blocks"]
+    kinds = {n: (str(v["q"].dtype), str(v["s"].dtype), v["q"].device.type)
+             for n, v in blocks.items() if isinstance(v, dict)}
+    check(sorted(kinds) == ["fc_proj_w", "fc_w", "proj_w", "qkv_w"]
+          and all(k == ("torch.int8", "torch.float32", "cuda") for k in kinds.values()),
+          f"serve_int8_bf16: packed leaves {kinds}")
+    host_check = {}
+    for name in ("qkv_w", "proj_w", "fc_w", "fc_proj_w"):
+        for layer in (0, bf16_eng.model_config.n_layer - 1):
+            w = bf16_eng.params["blocks"][name][layer]
+            host = pack_one(w.cpu())
+            same = torch.equal(host["q"], blocks[name]["q"][layer].cpu())
+            s_err = float(((host["s"] - blocks[name]["s"][layer].cpu()).abs()
+                           / host["s"].abs()).max())
+            check(same and s_err <= 1e-6, f"serve_int8_bf16: {name}[{layer}] packed on the card "
+                  f"differs from the host's (codes equal {same}, scales {s_err})")
+            host_check[f"{name}[{layer}]"] = s_err
+    int8_bytes, bf16_bytes = eng.weight_bytes(), bf16_eng.weight_bytes()
+    ids = generate_ids()
+    deq = deepspeed_tpu_torch.init_inference(model="gpt-neo-2.7b", params=_dequantized(torch, eng),
+                                             dtype=torch.bfloat16)
+    with torch.inference_mode():
+        lg = [e.prefill(ids, *e.init_cache(4, 256))[0] for e in (eng, deq)]
+    err = max_err(lg[0], lg[1])
+    tie = near_tie_tol(lg[1])
+    check(bool(torch.isfinite(lg[0]).all()) and err <= tie,
+          f"serve_int8_bf16: prefill logits differ from the dequantized bf16 engine's by {err} "
+          f"(bound {tie})")
+    del deq, lg
+    torch.cuda.empty_cache()
+
+    reqs = neo_requests()
+    slot, paged = ServingEngine(eng, config=NEO_SLOT), ServingEngine(eng, config=NEO_PAGED)
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sub = [(slot, [slot.submit(p, max_new_tokens=n) for p, n in reqs]),
+           (paged, [paged.submit(p, max_new_tokens=n) for p, n in reqs])]
+    res = [srv.drain() for srv, _ in sub]
+    gen = eng.generate(ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = kernels.launches(), kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    _main_path_launches("serve_int8_bf16", launches, variants, ("flash_decode",))
+    check(launches.get("flash_decode_paged", 0) > 0,
+          f"serve_int8_bf16: the paged pool's decode did not launch B5: {launches}")
+    check(gen.shape == (4, 256 + GEN_NEW), f"serve_int8_bf16: generate() gave {gen.shape}")
+    solo = [eng.generate(p[None], max_new_tokens=n)[0] for p, n in reqs]
+    flips = {label: near_tie_check(eng, [done[r] for r in rids], reqs, solo, tie,
+                                   f"serve_int8_bf16 {label}")
+             for label, (srv, rids), done in zip(("slot", "paged"), sub, res)}
+    same_as_bf16 = sum(int(np.array_equal(a, b)) for a, b in zip(solo, solo_bf16))
+    del slot, paged
+
+    # decode tokens/s and TTFT at batch 8, bf16 and int8 in turns (three
+    # pairs, each side first in turn), then a profiled decode window each
+    rates = {"bf16": [], "int8": []}
+    turns = [("bf16", bf16_eng), ("int8", eng)]
+    for label, e in turns + turns[::-1] + turns:
+        srv = ServingEngine(e, config=NEO_SLOT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+        done = srv.drain()
+        torch.cuda.synchronize()
+        rates[label].append(_serve_rates(srv, [done[r] for r in rids], time.perf_counter() - t0))
+    mean = {k: float(np.median([r["decode_tokens_per_s"] for r in v])) for k, v in rates.items()}
+    ttft = {k: float(np.median([r["ttft_ms_p50"] for r in v])) for k, v in rates.items()}
+    window = {label: _decode_window(torch, e) for label, e in turns}
+    emit({"phase": "serve_int8_bf16", "model": "gpt-neo-2.7b", "pack_s": pack_s,
+          "weight_bytes": {"int8": int8_bytes, "bf16": bf16_bytes,
+                           "ratio": int8_bytes / bf16_bytes},
+          "packed_on_card_vs_host_scale_rel": host_check,
+          "prefill_logits_vs_dequantized_max_abs_err": err, "tol": tie,
+          "served": len(reqs), "near_tie_flips": flips, "near_tie_tol": tie,
+          "solo_tokens_equal_to_bf16": same_as_bf16, "main_path_wall_s": wall,
+          "rates": rates, "decode_tokens_per_s": mean,
+          "decode_int8_over_bf16": mean["int8"] / mean["bf16"], "ttft_ms_p50": ttft,
+          "ttft_int8_over_bf16": ttft["int8"] / ttft["bf16"], "decode_window": window,
+          "launches": {n: c for n, c in launches.items() if c}})
+    return launches
+
+
+def megatron_state_dict(torch, tree, cfg):
+    """Megatron-LM's GPT layout of the port's tree (CPU tensors): (out, in)
+    Linears under ``language_model.transformer.layers.N``, the fused
+    ``query_key_value`` interleaved by head, (heads, 3, head_dim)."""
+    H, hd, d = cfg.n_head, cfg.head_dim, cfg.n_embd
+    b = tree["blocks"]
+    sd = {"language_model.embedding.word_embeddings.weight": tree["wte"],
+          "language_model.embedding.position_embeddings.weight": tree["wpe"],
+          "language_model.transformer.final_layernorm.weight": tree["lnf_g"],
+          "language_model.transformer.final_layernorm.bias": tree["lnf_b"]}
+    for i in range(cfg.n_layer):
+        L = f"language_model.transformer.layers.{i}."
+        qkv_w = b["qkv_w"][i].t().reshape(3, H, hd, d).transpose(0, 1).reshape(3 * d, d)
+        qkv_b = b["qkv_b"][i].reshape(3, H, hd).transpose(0, 1).reshape(3 * d)
+        sd.update({
+            L + "input_layernorm.weight": b["ln1_g"][i], L + "input_layernorm.bias": b["ln1_b"][i],
+            L + "attention.query_key_value.weight": qkv_w.contiguous(),
+            L + "attention.query_key_value.bias": qkv_b.contiguous(),
+            L + "attention.dense.weight": b["proj_w"][i].t().contiguous(),
+            L + "attention.dense.bias": b["proj_b"][i],
+            L + "post_attention_layernorm.weight": b["ln2_g"][i],
+            L + "post_attention_layernorm.bias": b["ln2_b"][i],
+            L + "mlp.dense_h_to_4h.weight": b["fc_w"][i].t().contiguous(),
+            L + "mlp.dense_h_to_4h.bias": b["fc_b"][i],
+            L + "mlp.dense_4h_to_h.weight": b["fc_proj_w"][i].t().contiguous(),
+            L + "mlp.dense_4h_to_h.bias": b["fc_proj_b"][i]})
+    return {k: v.clone() for k, v in sd.items()}
+
+
+def megatron_shards(sd, tp):
+    """Megatron's tensor-parallel cut of a whole state dict: column-parallel
+    and vocab-parallel weights by rows (each rank its heads' interleaved
+    QKV rows), row-parallel by columns, the rest replicated."""
+    col = ("query_key_value.weight", "query_key_value.bias", "dense_h_to_4h.weight",
+           "dense_h_to_4h.bias", "word_embeddings.weight")
+    row = ("attention.dense.weight", "mlp.dense_4h_to_h.weight")
+    out = []
+    for r in range(tp):
+        out.append({k: (v.chunk(tp, dim=0)[r].clone() if k.endswith(col)
+                        else v.chunk(tp, dim=1)[r].clone() if k.endswith(row) else v)
+                    for k, v in sd.items()})
+    return out
+
+
+def phase_serve_megatron_bf16(torch):
+    """Megatron-LM's GPT-2 345M from a checkpoint of two tensor-parallel
+    shards: weights drawn on the card (seed 0, biases drawn too so that
+    the QKV bias's layout shows), written as Megatron's layout
+    (:func:`megatron_state_dict`, the newer interleaved QKV) in
+    ``mp_rank_00_model_states.pt`` / ``mp_rank_01_model_states.pt`` under
+    a tag a ``latest`` file names, in a temporary directory; then
+    ``find_megatron_checkpoints`` → ``SDLoaderFactory.get_sd_loader(...,
+    version=3.0).load()`` → ``init_serving(model=merged)``.  Gates: the
+    merged dict equals the unsplit one bit for bit; the served engine's
+    prefill logits (4 x 256) equal, bit for bit, an engine over the
+    unsplit weights; 8 requests on the slot pool (counters zeroed just
+    before, with a ``generate()`` of 4 x 256, read just after: B1 and B4
+    launched, ``serving_megatron``) each equal solo ``generate()`` or
+    first differ on a near-tie.  Returns the launches."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.checkpoint import SDLoaderFactory, find_megatron_checkpoints
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    cfg = gpt2.GPT2Config(**MEGATRON_345M)
+    tree = gpt2.init_params_device(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for name in ("qkv_b", "proj_b", "fc_b", "fc_proj_b"):
+        tree["blocks"][name].normal_(0.0, 0.02, generator=g)
+    host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu())
+            for k, v in tree.items()}
+    del tree
+    full = megatron_state_dict(torch, host, cfg)
+    root = tempfile.mkdtemp()
+    try:
+        tag = "iter_0001000"
+        os.makedirs(os.path.join(root, tag))
+        with open(os.path.join(root, "latest"), "w") as f:
+            f.write(tag)
+        t0 = time.perf_counter()
+        for r, shard in enumerate(megatron_shards(full, 2)):
+            torch.save({"model": shard, "checkpoint_version": 3.0, "iteration": 1000},
+                       os.path.join(root, tag, f"mp_rank_{r:02d}_model_states.pt"))
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(root, tag, n))
+                         for n in os.listdir(os.path.join(root, tag)))
+        t0 = time.perf_counter()
+        paths = find_megatron_checkpoints(root)
+        merged = SDLoaderFactory.get_sd_loader(paths, version=3.0).load()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check([os.path.basename(p) for p in paths] == ["mp_rank_00_model_states.pt",
+                                                   "mp_rank_01_model_states.pt"],
+          f"serve_megatron_bf16: found {paths}")
+    differ = sorted(k for k in full if not torch.equal(merged[k], full[k]))
+    check(set(merged) == set(full) and not differ,
+          f"serve_megatron_bf16: merged keys {differ[:6]} differ from the unsplit dict")
+    t0 = time.perf_counter()
+    srv = deepspeed_tpu_torch.init_serving(model=merged, dtype=torch.bfloat16,
+                                           serving={"num_slots": 8, "prefill_chunk": 64})
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = srv.engine
+    whole = deepspeed_tpu_torch.init_inference(model=full, dtype=torch.bfloat16)
+    ids = generate_ids()
+    with torch.inference_mode():
+        lg = [e.prefill(ids, *e.init_cache(4, 256))[0] for e in (eng, whole)]
+    check(torch.equal(lg[0], lg[1]) and bool(torch.isfinite(lg[0]).all()),
+          f"serve_megatron_bf16: logits differ from the unsplit weights' by "
+          f"{max_err(lg[0], lg[1])} (bit for bit expected)")
+    tie = near_tie_tol(lg[0])
+    del whole, lg, merged, full, host
+    reqs = [(p % cfg.vocab_size, n) for p, n in neo_requests(seed=1)]
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+    res = srv.drain()
+    gen = eng.generate(ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, variants = kernels.launches(), kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    _main_path_launches("serve_megatron_bf16", launches, variants, ("flash_decode",))
+    check(gen.shape == (4, 256 + GEN_NEW), f"serve_megatron_bf16: generate() gave {gen.shape}")
+    solo = [eng.generate(p[None], max_new_tokens=n)[0] for p, n in reqs]
+    flips = near_tie_check(eng, [res[r] for r in rids], reqs, solo, tie, "serve_megatron_bf16")
+    emit({"phase": "serve_megatron_bf16", "model": "megatron-gpt2-345m", "config": MEGATRON_345M,
+          "tp_shards": 2, "checkpoint_bytes": ckpt_bytes, "write_s": write_s,
+          "load_merge_s": load_s,
+          "inject_place_s": build_s, "logits_bit_equal_unsplit": True, "served": len(reqs),
+          "equal_to_solo_generate": len(reqs) - len(flips), "near_tie_flips": flips,
+          "near_tie_tol": tie, "wall_s": wall,
+          "launches": {n: c for n, c in launches.items() if c}})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3013,7 +3553,11 @@ def phase_serve_tp_bf16(torch, serve_tag, served):
                   "mix": "request", "mix_seed": 0},
                  {"kind": "serve", "serving": PAGED, "mix": "paged", "mix_seed": 0},
                  {"kind": "generate", "inputs": os.path.join(root, "gen.npz"),
-                  "max_new_tokens": GEN_NEW}]},
+                  "max_new_tokens": GEN_NEW},
+                 {"kind": "tiers", "serving": {**TIER_SERVING, "kvcache": {
+                     **TIER_SERVING["kvcache"], "tiers": TIER_KNOBS}},
+                  "sessions": TIER_SESSIONS, "turns": TIER_TURNS, "seed": 0,
+                  "new_tokens": TIER_TAIL[1], "max_new_tokens": TIER_NEW, "flush": True}]},
             {"name": "dev", "engine": dict(engine, init_on_device=True, seed=0),
              "drives": [{"kind": "shapes"}]},
         ]
@@ -3042,7 +3586,7 @@ def phase_serve_tp_bf16(torch, serve_tag, served):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    slot, paged, gen_d = tp1["drives"]
+    slot, paged, gen_d, tiers = tp1["drives"]
     check(tp1["backend"] == "nccl" and tp1["world_size"] == 1 and tp1["mesh"]["model"] == 1,
           f"serve_tp_bf16: backend {tp1['backend']}, world {tp1['world_size']}, "
           f"mesh {tp1['mesh']}")
@@ -3053,8 +3597,24 @@ def phase_serve_tp_bf16(torch, serve_tag, served):
         check(len(got) == len(want) and not differ,
               f"serve_tp_bf16 {label}: requests {differ[:8]} of {len(want)} differ from the "
               "one-process engine's tokens (bit for bit expected at a model group of one)")
-    for d in tp1["drives"]:
-        check(not d["comm"], f"serve_tp_bf16: {d['kind']} counted {d['comm']} bytes at one rank")
+    from deepspeed_tpu_torch.serving.engine import AGREE_KIND
+
+    for d in tp1["drives"]:  # the tiers' agreements are the only collectives at one rank
+        allowed = {AGREE_KIND} if d["kind"] == "tiers" else set()
+        check(set(d["comm"]) <= allowed,
+              f"serve_tp_bf16: {d['kind']} counted {d['comm']} bytes at one rank")
+    turns = len(tiers["reference"])
+    differ = [(t, s) for t in range(turns) for s in range(TIER_SESSIONS)
+              if tiers["tokens"][t][s] != tiers["reference"][t][s]]
+    check(not differ, f"serve_tp_bf16 tiers: turns {differ[:6]} of the tiered pool differ from "
+                      "the all-device pool's (bit for bit expected)")
+    tc = tiers["tier_counts"]
+    check(tc["demote_t0_t1"] > 0 and tc["demote_t1_t2"] > 0
+          and tc["hits_t1"] + tc["hits_t2"] + tc["promote_t2_t1"] > 0
+          and tiers["comm"].get(AGREE_KIND, 0) > 0,
+          f"serve_tp_bf16 tiers: {tc}, agreements {tiers['comm']}")
+    check(tiers["launches"].get("flash_decode_paged", 0) > 0,
+          f"serve_tp_bf16 tiers: {tiers['launches']}")
     launches = {name: 0 for name in kernels.launches()}
     for d in tp1["drives"]:
         for name, n in d["launches"].items():
@@ -3080,6 +3640,10 @@ def phase_serve_tp_bf16(torch, serve_tag, served):
           "slot_ttft_ms_p50": _percentile(slot["ttft_ms"], 50),
           "paged_ttft_ms_p50": _percentile(paged["ttft_ms"], 50),
           "same_bits_as_one_process": True, "init_on_device_leaves": len(want),
+          "tiers": {"sessions": TIER_SESSIONS, "turns": TIER_TURNS, "wall_s": tiers["wall_s"],
+                    "tier_counts": tc, "moves": tiers["tier_moves"],
+                    "agree_bytes": tiers["comm"].get(AGREE_KIND, 0),
+                    "same_bits_as_all_device": True},
           "launches": {n: c for n, c in launches.items() if c}})
     return launches
 
@@ -3951,6 +4515,13 @@ def main() -> int:
     resilience_launches = phase_serve_resilience_bf16(torch)
     fleet_launches = phase_serve_fleet_bf16(torch)
     frontdoor_launches = phase_serve_frontdoor_bf16(torch)
+    injected_launches, neo_bf16, neo_standin, neo_solo = phase_serve_injected_bf16(torch)
+    int8_launches = phase_serve_int8_bf16(torch, neo_bf16, neo_standin, neo_solo)
+    del neo_bf16, neo_standin, neo_solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    megatron_launches = phase_serve_megatron_bf16(torch)
+    torch.cuda.empty_cache()
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)
     resume_launches = phase_train_resume_bf16(torch, params, train_step_ms)
@@ -3984,6 +4555,9 @@ def main() -> int:
                       "serving_resilience": resilience_launches.get(name, 0),
                       "serving_fleet": fleet_launches.get(name, 0),
                       "serving_frontdoor": frontdoor_launches.get(name, 0),
+                      "serving_injected": injected_launches.get(name, 0),
+                      "serving_int8": int8_launches.get(name, 0),
+                      "serving_megatron": megatron_launches.get(name, 0),
                       "training": train_launches[name], "training_resume": resume_launches[name],
                       "training_zero": zero_launches.get(name, 0),
                       "training_tp_seq": tp_seq_launches.get(name, 0),

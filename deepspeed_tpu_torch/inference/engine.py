@@ -25,7 +25,19 @@ the collectives' bytes.  ``checkpoint=`` reads the parameters of a tag
 the port's training wrote at any mesh (``runtime/checkpointing.py``
 ``load_params``); ``init_on_device`` draws them on the card.
 
-HF injection and int8 weights are later slices (ROADMAP A7).
+**Models from outside the repo** (``model=`` a ``transformers`` GPT-2,
+GPT-Neo or BERT module, any object with ``state_dict()`` and a
+``.config``, or a merged Megatron state dict, ``inference/checkpoint.py``):
+an injection policy (``inference/injection.py``) maps the weights into the
+fused layout, on the device they arrive on.  **int8 weights at rest**
+(``quantize_bits=8`` on a GPT model): every matmul weight is packed whole
+(``runtime/weight_quantizer.py`` ``pack_one``, ``pack_int8_tree``'s step:
+per-output-channel scales over the whole input dimension) before a rank
+cuts its block, the float weight released once packed, and the blocks
+compute ``(x @ q) * s``;
+the codes stay int8 and the scales f32 on the device.  Any other
+``quantize_bits`` (4 bits, or a BERT model) quantizes and dequantizes the
+weights (``quantize_dequantize_tree``), as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -144,6 +156,9 @@ class InferenceEngine:
         model_config: Any = None,
         params: Any = None,
         quantize_bits: int = 0,
+        quantize_groups: int = 1,
+        injection_policy: Optional[type] = None,
+        replace_with_kernel_inject: bool = True,
         kv_cache_dtype: str = "model",
         seed: int = 0,
         init_on_device: bool = False,
@@ -151,22 +166,25 @@ class InferenceEngine:
     ):
         """``model`` may be a preset name (``"gpt2"``, ...; GPT-2 presets
         win a shared name such as ``"tiny"``, ``"bert-*"`` names the BERT
-        family), or None with explicit ``model_config`` (a ``GPT2Config``
-        or a ``BertConfig``; + optional ``params``, the JAX package's tree
-        as numpy arrays or the port's tensors, whole).  ``checkpoint``: a
-        training save directory or tag directory of the port (its
-        ``latest`` or ``checkpoint_tag``); else ``init_on_device`` draws
-        the random init from ``seed`` on the engine's device (another
-        stream than the host init's).  ``mp_size``: the ``model`` ranks
-        (module docstring).  ``device`` defaults to ``"cuda"`` and raises
+        family); an HF/torch module or a plain state dict, converted
+        through an injection policy (``injection_policy``, else the first
+        of ``inference/injection.py``'s that matches; with
+        ``replace_with_kernel_inject=False`` and no policy it is refused,
+        as in the JAX engine); or None with explicit ``model_config`` (a
+        ``GPT2Config`` or a ``BertConfig``; + optional ``params``, the JAX
+        package's tree as numpy arrays or the port's tensors, whole).
+        ``checkpoint``: a training save directory or tag directory of the
+        port (its ``latest`` or ``checkpoint_tag``); else
+        ``init_on_device`` draws the random init from ``seed`` on the
+        engine's device (another stream than the host init's).
+        ``mp_size`` (the ``model`` ranks) and ``quantize_bits`` /
+        ``quantize_groups``: the module docstring.  ``device`` defaults to ``"cuda"`` and raises
         when there is no card; tests pass ``device="cpu"``."""
         from deepspeed_tpu_torch.comm.distributed import init_distributed
         from deepspeed_tpu_torch.comm.mesh import inference_mesh
 
         self.device = resolve_device(device)
         self.mp_world_size = int(mp_size)
-        if quantize_bits:
-            raise NotImplementedError("quantize_bits (int8 weights) is not ported yet (ROADMAP A7)")
         self.dtype = dtype if dtype is not None else torch.bfloat16
         if self.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {self.dtype}")
@@ -181,6 +199,7 @@ class InferenceEngine:
         self.kv_cache_dtype = kv_cache_dtype
         self._kv_dtype = "int8" if kv_cache_dtype == "int8" else self.dtype
 
+        owned = False  # whether the engine may release the leaves of `params` as it places them
         if isinstance(model, str):
             bert_name = model if model in bert_mod.PRESETS else model.replace("bert-", "")
             if model in gpt2_mod.PRESETS:
@@ -189,18 +208,25 @@ class InferenceEngine:
                 self.model_config = bert_mod.PRESETS[bert_name]
             else:
                 raise ValueError(f"unknown model preset '{model}'")
-        elif model is not None:
-            raise NotImplementedError(
-                "HF/torch module injection is not ported yet (ROADMAP A7 inference/injection.py)"
-            )
+        elif model is not None and (hasattr(model, "state_dict") or isinstance(model, dict)):
+            if not replace_with_kernel_inject and injection_policy is None:
+                raise ValueError("torch/state-dict models require kernel injection "
+                                 "(replace_with_kernel_inject)")
+            from deepspeed_tpu_torch.inference.injection import replace_transformer_layer
+
+            self.model_config, params = replace_transformer_layer(model, policy=injection_policy)
+            owned = True  # the injected tree is the engine's (its leaves may be the source's)
         elif model_config is not None:
             if not isinstance(model_config, (gpt2_mod.GPT2Config, bert_mod.BertConfig)):
-                raise NotImplementedError(
-                    f"{type(model_config).__name__} models are not ported; GPT2Config and "
-                    "BertConfig are (ROADMAP A7)")
+                raise ValueError(
+                    f"model_config must be a GPT2Config or a BertConfig of "
+                    f"deepspeed_tpu_torch.models, got {type(model_config).__name__}; a "
+                    "transformers or Megatron model goes through model= and its injection "
+                    "policy (inference/injection.py)")
             self.model_config = model_config
         else:
-            raise ValueError("init_inference needs `model` (a preset name) or model_config=")
+            raise ValueError("init_inference needs `model` (module/state_dict/preset) "
+                             "or model_config=")
 
         self._is_gpt = isinstance(self.model_config, gpt2_mod.GPT2Config)
         self._family = gpt2_mod if self._is_gpt else bert_mod
@@ -220,23 +246,39 @@ class InferenceEngine:
         self.mesh = inference_mesh(self.mp_world_size)
         self.tp = tp_group(self.mesh) if self.mesh is not None else None
 
-        # -- parameters, each leaf cut to this rank's block ---------------------
+        # -- parameters: each leaf whole quantized where asked, then cut to
+        # this rank's block ------------------------------------------------------
+        self._packed_int8 = bool(quantize_bits == 8 and self._is_gpt)
+        self._simulate = None
+        if quantize_bits and not self._packed_int8:
+            from deepspeed_tpu_torch.runtime.weight_quantizer import WeightQuantization
+
+            self._simulate = WeightQuantization(bits=quantize_bits, groups=quantize_groups)
         from_file = False  # a tag's memory-mapped leaves are copied off the file
         if checkpoint is not None:
             from deepspeed_tpu_torch.runtime.checkpointing import load_params
 
             _, flat = load_params(checkpoint, checkpoint_tag)
-            params, from_file = tree_from_paths(flat), True
+            params, from_file, owned = tree_from_paths(flat), True, True
         if params is None and init_on_device:
             self.params = self._family.init_params_device(
-                self.model_config, seed=seed, dtype=self.dtype, device=self.device, keep=self._cut)
+                self.model_config, seed=seed, dtype=self.dtype, device=self.device, keep=self._keep)
         else:
             if params is None:
-                params = self._family.init_params(self.model_config, seed=seed)
-            if not all(isinstance(v, torch.Tensor) for v in params["blocks"].values()):
-                params = self._family.params_from_jax(params)  # checked, f32 on the host
-            self.params = tree_from_paths({path: self._place(path, t, from_file)
-                                           for path, t in tree_items(params)})
+                params, owned = self._family.init_params(self.model_config, seed=seed), True
+            if not all(isinstance(v, (torch.Tensor, dict)) for v in params["blocks"].values()):
+                params, owned = self._family.params_from_jax(params), True  # f32 on the host
+            flat = dict(tree_items(params))
+            del params
+            placed = {}
+            for path in list(flat):
+                # an owned float leaf is released as soon as its block is placed,
+                # so the whole tree is never held both as floats and as int8
+                t = flat.pop(path) if owned else flat[path]
+                for sub, leaf in self._prepare(path, t):
+                    placed[sub] = self._place(sub, leaf, from_file)
+                del t
+            self.params = tree_from_paths(placed)
         n_params = self.model_config.num_params()
         log_dist(
             f"inference engine: {type(self.model_config).__name__} "
@@ -264,11 +306,46 @@ class InferenceEngine:
             t = _group_parts(t, parts, self.tp.size)
         return self.mesh.local_block(t, spec)
 
+    def _prepare(self, path: str, t: torch.Tensor):
+        """``[(path, whole leaf)]`` of one leaf as the engine keeps it, on
+        ``t``'s device: under ``quantize_bits=8`` a matmul weight becomes
+        its ``path/q`` and ``path/s`` pair (``runtime/weight_quantizer.py``
+        ``pack_one``, the step of ``pack_int8_tree``), under other bits it
+        is quantized and dequantized; the quantizer always sees the whole
+        weight, before any cut."""
+        from deepspeed_tpu_torch.runtime.weight_quantizer import is_packed_weight, pack_one
+
+        name = path.rsplit("/", 1)[-1]
+        if self._packed_int8 and is_packed_weight(name, tuple(t.shape)):
+            return [(f"{path}/{k}", v) for k, v in pack_one(t).items()]
+        if self._simulate is not None:
+            t = self._simulate.quantize_dequantize_leaf(name, t)
+        return [(path, t)]
+
+    def _keep(self, path: str, t: torch.Tensor):
+        """``init_on_device``'s keep: :meth:`_prepare` on the whole drawn
+        leaf, then this rank's blocks (a packed weight's ``q`` and ``s``)."""
+        parts = self._prepare(path, t)
+        if len(parts) == 1 and parts[0][0] == path:
+            return self._cut(path, parts[0][1])
+        return {sub.rsplit("/", 1)[-1]: self._cut(sub, v) for sub, v in parts}
+
+    def _leaf_dtype(self, path: str, t: torch.Tensor) -> torch.dtype:
+        """int8 codes stay int8 and their scales f32 (the JAX engine's
+        ``_shard_params``); every other leaf takes the engine's dtype."""
+        if t.dtype == torch.int8:
+            return torch.int8
+        return torch.float32 if path.endswith("/s") else self.dtype
+
     def _place(self, path: str, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
         """A whole leaf as this rank's block on the engine's device, in its
         dtype (cut where it lies, then moved: the host never holds a copy
         of the whole tree in the target dtype)."""
-        return self._cut(path, t).to(self.device, self.dtype, copy=copy)
+        return self._cut(path, t).to(self.device, self._leaf_dtype(path, t), copy=copy)
+
+    def weight_bytes(self) -> int:
+        """Bytes of this rank's parameters on the device."""
+        return sum(t.numel() * t.element_size() for _, t in tree_items(self.params))
 
     @property
     def local_heads(self) -> int:
@@ -316,6 +393,15 @@ class InferenceEngine:
                 f"forward() sequence length {ids.shape[1]} exceeds the "
                 f"model's n_positions={self.model_config.n_positions}"
             )
+        if self._packed_int8:
+            # packed weights are read by the inference blocks only: the
+            # whole sequence runs through the cache path (a prefill at 0)
+            B, T = ids.shape
+            k, v = init_kv_cache(self.model_config.n_layer, B, self.local_heads, T,
+                                 self.model_config.head_dim, self._kv_dtype, device=self.device)
+            with torch.inference_mode():
+                return forward_with_cache(self.params, ids, k, v, 0, self.inference_config(T),
+                                          tp=self.tp)[0]
         with torch.inference_mode(), ambient_mesh(self.mesh):
             if self._is_gpt:
                 logits = gpt2_mod.apply(self.params, ids, self.model_config, deterministic=True)

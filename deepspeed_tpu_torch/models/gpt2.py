@@ -208,9 +208,9 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
         raise KeyError(f"GPT-2 parameter tree lacks {missing}")
     extra = sorted(set(tree["blocks"]) - set(BLOCK_KEYS))
     if extra:
-        # MoE blocks (gate_w/w1/...) and packed int8 weights are not ported
+        # MoE blocks (gate_w/w1/...) are not ported
         raise NotImplementedError(
-            f"GPT-2 blocks carry {extra}; only dense fp blocks are ported (ROADMAP A11/A7)"
+            f"GPT-2 blocks carry {extra}; only dense blocks are ported (ROADMAP A11)"
         )
     return {
         "wte": conv(tree["wte"]),

@@ -30,7 +30,8 @@
   (``tp-all-gather``) gives every rank the whole f32 logits.
   Without a group (one rank) the arithmetic is the one-device path's.
 
-Layer-parameter layout matches ``models/gpt2.py`` blocks.
+Layer-parameter layout matches ``models/gpt2.py`` blocks; a matmul
+weight may be a packed int8 ``{"q", "s"}`` pair (:func:`_wmm`).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ from deepspeed_tpu_torch.ops.kernels.flash_decode import (
     paged_gather,  # noqa: F401  (public here, as in the JAX package's module)
 )
 from deepspeed_tpu_torch.ops.normalize import layer_norm as _ln
+from deepspeed_tpu_torch.ops.quantizer.quantizer import int8_matmul
 from deepspeed_tpu_torch.parallel.tensor import TP_ALL_REDUCE, vocab_parallel_rows
 
 # the logits' all-gather over ``model`` (``comm/collectives.py`` kind)
@@ -95,12 +97,13 @@ def _check_tp(cfg: DeepSpeedInferenceConfig, tp) -> None:
 
 
 def _wmm(h: torch.Tensor, w) -> torch.Tensor:
-    """Weight matmul, ``(in, out)`` layout.  Packed int8 weights
-    (``{"q", "s"}``) are not ported yet."""
+    """Weight matmul, ``(in, out)`` layout.  A packed int8 weight
+    (``{"q": int8, "s": f32}`` from ``runtime/weight_quantizer.py``
+    ``pack_int8_tree``) computes ``(h @ q) * s``: the weight stays int8 at
+    rest, and the product reads a transient copy of ``q`` in ``h``'s dtype
+    (a plain product outside any kernel, as the JAX package's is)."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "packed int8 weights are not ported yet (ROADMAP A7 ops/quantizer/)"
-        )
+        return int8_matmul(h, w["q"], w["s"])
     return h @ w.to(h.dtype)
 
 
@@ -329,7 +332,8 @@ def _block_mlp(cfg: DeepSpeedInferenceConfig, lp: Dict[str, torch.Tensor],
 
 
 def _layer_cache(c, i: int):
-    """Layer ``i`` of a stacked cache (a view: writes land in ``c``)."""
+    """Layer ``i`` of a stacked cache or weight, a ``{"q", "s"}`` pair's
+    too (a view: writes land in ``c``)."""
     if isinstance(c, dict):
         return {name: a[i] for name, a in c.items()}
     return c[i]
@@ -386,7 +390,7 @@ def forward_with_cache(
     n_layer = len(k_cache) if per_layer else next(iter(
         k_cache.values() if isinstance(k_cache, dict) else [k_cache])).shape[0]
     for i in range(n_layer):
-        lp = {name: a[i] for name, a in blocks.items()}
+        lp = {name: _layer_cache(a, i) for name, a in blocks.items()}
         ck = k_cache[i] if per_layer else _layer_cache(k_cache, i)
         cv = v_cache[i] if per_layer else _layer_cache(v_cache, i)
         x, _, _ = inference_block(cfg, lp, x, ck, cv, pos, key_padding_mask=key_padding_mask,

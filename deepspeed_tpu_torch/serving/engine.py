@@ -70,8 +70,13 @@ broadcasts it, every rank replays the same records under the same ids in
 the same order).  Rank 0's watchdog decides a drain: the step's clock
 broadcast carries its flag, rank 0 decides each drain step and the exit
 code, so every rank drains the same steps and exits alike.  Tiers under
-a group are refused (ROADMAP A8 tiers across ranks: a disk read or write
-completes at a different moment on each rank).
+a group: each rank tiers its own pool's pages and writes its disk tier
+under ``disk_dir/model<r>`` (``rank_spill_dir``); rank 0's broadcast clock
+drives every tick, and a disk write or read counts as done only once
+every rank's has (``kvcache/tiers.py`` ``_settle``: a MIN all-reduce of
+each entry's flags, ``session-agree`` bytes), so every rank demotes,
+promotes and misses alike, and the drain's ``flush()`` runs the same
+rounds on every rank.
 
 Around the engine: ``serving/fleet/`` routes over several engines
 (each wrapped in a ``LocalReplica``, in this process or in a child behind
@@ -118,7 +123,8 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 # the decode kernel's row tile on the TPU; the pool capacity keeps the
 # JAX engine's alignment so that both engines build the same pool shapes
 _TPU_DECODE_ALIGN = 128
-# the collectives' kind for the ranks' agreement on a session restore
+# the collectives' kind for the ranks' agreements: a session restore, and
+# a KV tier entry's disk write or read done on every rank
 AGREE_KIND = "session-agree"
 
 
@@ -188,12 +194,6 @@ class ServingEngine:
         heads = engine.local_heads
         kvc = config.kvcache
         self._paged = bool(kvc.enabled)
-        if self._paged and kvc.tiers.enabled and self._group is not None:
-            raise NotImplementedError(
-                "serving.kvcache.tiers under a process group is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A8 tiers across ranks: a disk "
-                "read or write completes at a different moment on each rank, "
-                "so readiness would need agreement)")
         if self._paged:
             if config.max_len:
                 if max_len % kvc.page_len:
@@ -288,14 +288,19 @@ class ServingEngine:
         # demotions)
         self._tiers: Optional[PageTierManager] = None
         if self._paged and kvc.tiers.enabled:
+            # under a process group (a group of one too) the tiers agree
+            # across ranks, each rank on a disk directory of its own
+            ranked = mesh is not None
             self._tiers = PageTierManager(
                 self.pool,
                 host_pages=kvc.tiers.host_pages,
-                disk_dir=(kvc.tiers.disk_dir or None),
+                disk_dir=rank_spill_dir(kvc.tiers.disk_dir, mesh),
                 residency_window=kvc.tiers.residency_window,
                 demote_watermark=kvc.tiers.demote_watermark,
                 prefetch_ahead=kvc.tiers.prefetch_ahead,
                 demote_batch=kvc.tiers.demote_batch,
+                agree=self._agree_flags if ranked else None,
+                decide=self._decide if ranked else None,
             )
             self.pool.attach_tiers(self._tiers)
         # the multi-tenant dimension: rate limits + weighted-fair
@@ -786,7 +791,7 @@ class ServingEngine:
                 if self._tiers is not None:
                     # tiering path: demote every warm session and push
                     # T1 to disk, so tiered state survives the process
-                    n_spilled = self._tiers.flush(time.monotonic())
+                    n_spilled = self._tiers.flush(self._note_time())
                 else:
                     n_spilled = self.pool.spill_sessions(time.monotonic())
                 if n_spilled:
@@ -843,8 +848,13 @@ class ServingEngine:
 
     def _agree(self, ok: bool) -> bool:
         """Whether ``ok`` holds on every rank (one all-reduce of the flag)."""
-        flag = torch.tensor([int(bool(ok))], dtype=torch.int32, device=self.device)
-        return bool(collectives.all_reduce(flag, self._group, kind=AGREE_KIND, op="min").item())
+        return bool(self._agree_flags([int(bool(ok))])[0])
+
+    def _agree_flags(self, flags) -> list:
+        """Each flag's MIN over the ranks (one all-reduce of them all; over
+        the process group's world, which a group of one is too)."""
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32, device=self.device)
+        return collectives.all_reduce(t, self._group, kind=AGREE_KIND, op="min").tolist()
 
     def _note_time(self) -> float:
         """The ``now`` a step's decisions read: the broadcast clock across
@@ -960,9 +970,10 @@ class ServingEngine:
                 # per-step sweep never runs on an engine that receives no
                 # traffic
                 self.pool.sweep(time.monotonic())
-        if self._tiers is not None:
+        if self._tiers is not None and self.engine.mesh is None:
             # idle-engine demotion: a quiescent engine must still drain
-            # pending demotions instead of holding T0 pages forever
+            # pending demotions instead of holding T0 pages forever (under
+            # a group the tick is a collective: it runs in steps only)
             self._tiers.tick(time.monotonic())
         j = self._journal
         out = {

@@ -42,6 +42,27 @@ leaves exactly the torn, never-trusted stage the chaos test wants).
 format is the session spill's (``sessions.py``), bfloat16 as its uint16
 view.
 
+**Across ranks** (``agree`` and ``decide`` given: an engine under a
+process group, each ``model`` rank's pool holding its own heads): every
+rank demotes and promotes its own pages and writes its T2 entries under
+a directory of its own (the engine passes ``disk_dir/model<r>``), and
+every rank must take the same branch at every decision.  The engine
+thread's decisions read only state that changes at the step boundary on
+every rank alike (rank 0's broadcast clock, the pool's allocator, the
+entries' tiers); a worker job's end is the one thing that lands at a
+different moment on each rank.  So a job's end only records its outcome
+on the entry, and :meth:`_settle`, at the tick, applies the outcomes
+every rank has (one MIN all-reduce of two flags an entry: finished, and
+verified): a write every rank committed moves its entry to T2, a read
+every rank verified moves it back to T1, a read that failed on any rank
+drops the entry on every rank (a miss: the request re-prefills).  A
+demand read of T2 (:meth:`_materialize`) agrees the same way.  A new
+job is queued only while the jobs not yet settled (an entry dropped with
+its job in flight stays counted until its end is agreed) leave the
+worker's queue room, so a submission never fails on one rank alone, and
+:meth:`flush` and :meth:`recover` agree on their rounds and on the
+entries every rank verified.
+
 Swap-hiding is measured, not assumed: the engine stamps each step's
 wall window into a ring; every worker job computes how much of its own
 duration overlapped a step window.  ``swap_hidden_ratio`` in
@@ -58,7 +79,7 @@ import shutil
 import threading
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +147,10 @@ class TierEntry:
     # the CUDA event recorded after the gather that filled ``leaves``;
     # host reads wait on it (None once waited, and on the CPU)
     ready: Any = None
+    # across ranks: a finished worker job's outcome (True: committed or
+    # verified), applied by _settle once every rank has one
+    outcome: Optional[bool] = None
+    read: Optional[Leaves] = None  # a finished read's leaves, until then
 
     @property
     def host_bytes(self) -> int:
@@ -157,8 +182,18 @@ class PageTierManager:
                  demote_watermark: float = 0.75,
                  prefetch_ahead: int = 4,
                  demote_batch: int = 4,
-                 worker_depth: int = 32):
+                 worker_depth: int = 32,
+                 agree: Optional[Callable[[List[int]], List[int]]] = None,
+                 decide: Optional[Callable[[Any], Any]] = None):
+        """``agree`` (each flag's MIN over the ranks, a collective) and
+        ``decide`` (rank 0's value on every rank) put the manager across
+        ranks (module docstring); None: one process."""
         self.pool = pool
+        self._agree = agree
+        self._decide = decide if decide is not None else (lambda value: value)
+        self._depth = int(worker_depth)
+        # across ranks: dropped entries whose worker job is not settled
+        self._zombies: List[TierEntry] = []
         self.host_pages = max(0, int(host_pages))  # 0 = unbounded T1
         self.disk_dir = disk_dir or None
         self.residency_window = max(0, int(residency_window))
@@ -361,12 +396,122 @@ class PageTierManager:
                       ignore_errors=True)
 
     # -- worker jobs ---------------------------------------------------
+    def _in_flight(self) -> List[TierEntry]:
+        """Registered entries with a job in flight, in key order, then the
+        dropped ones whose job is not settled (``self._lock`` held)."""
+        return sorted((e for e in self._entries.values() if e.writing or e.reading),
+                      key=lambda e: e.key) + self._zombies
+
+    def _room(self) -> bool:
+        """Whether a job may be queued.  Across ranks: while the jobs not
+        yet settled (the same count on every rank, and never fewer than
+        the worker holds) leave its queue room; one process asks the
+        worker itself (:meth:`_queue`)."""
+        if self._agree is None:
+            return True
+        with self._lock:
+            return len(self._in_flight()) < self._depth
+
+    def _queue(self, job, label: str) -> bool:
+        if self._worker.submit(job, label=label):
+            return True
+        if self._agree is not None:  # _room left the queue room: the worker is closed
+            raise RuntimeError(f"kvcache: the tier worker refused {label}")
+        return False
+
+    def _end_write(self, entry: TierEntry, ok: Optional[bool]) -> None:
+        """A write job's end on the worker: ``ok`` True committed, False
+        its directory vanished under it, None it raised (a torn stage
+        stays on disk).  Across ranks the outcome waits for
+        :meth:`_settle` (a raise counts as a failure)."""
+        with self._lock:
+            registered = self._entries.get(entry.key) is entry
+            if not registered and ok is not None:
+                # consumed while the write was in flight: the staged copy
+                # is stale (or its staging dir was rmtree'd under the write)
+                self._remove_dir(entry.dir_name)
+            if self._agree is not None:
+                entry.outcome = bool(ok)
+            elif ok is None:
+                return
+            elif ok and registered:
+                self._finish_write(entry, True)
+            else:
+                entry.writing = False
+                self._remove_dir(entry.dir_name)
+
+    def _end_read(self, entry: TierEntry, leaves: Optional[Leaves], done: bool) -> None:
+        """A read job's end on the worker (``done`` False: it raised)."""
+        with self._lock:
+            if self._agree is not None:
+                entry.read, entry.outcome = leaves, leaves is not None
+            elif self._entries.get(entry.key) is not entry:
+                if done:
+                    entry.reading = False  # consumed or discarded while reading
+            elif done:
+                self._finish_read(entry, leaves)
+
+    def _finish_write(self, entry: TierEntry, ok: bool) -> None:
+        """A T1→T2 write's end (``self._lock`` held): committed, the entry
+        moves to T2; failed, it stays in T1 and the staged copy goes."""
+        entry.writing = False
+        if not ok:
+            self._remove_dir(entry.dir_name)
+            return
+        entry.leaves = None
+        entry.tier = _DISK
+        self.demote_t1_t2 += 1
+
+    def _finish_read(self, entry: TierEntry, leaves: Optional[Leaves]) -> None:
+        """A T2→T1 read's end (``self._lock`` held): verified, the entry
+        is host-resident again; torn on disk, it is dropped."""
+        entry.reading = False
+        if leaves is None:
+            logger.warning(f"kvcache: tier entry {entry.key} unreadable at "
+                           f"{entry.dir_name}; dropping it")
+            self._drop_entry(entry)  # torn on disk: unrecoverable
+            return
+        if entry.tier == _DISK:
+            entry.leaves = leaves
+            entry.tier = _HOST
+            self.promote_t2_t1 += 1
+
+    def _settle(self) -> None:
+        """Across ranks: apply every finished job's outcome that every rank
+        has (engine thread, at the tick; a collective when any entry is in
+        flight, the same entries on every rank).  An entry whose job has
+        not ended on some rank waits for the next tick; a job that ended
+        on every rank but failed on one fails on all."""
+        if self._agree is None:
+            return
+        with self._lock:
+            pending = self._in_flight()
+            flags = [f for e in pending for f in (int(e.outcome is not None),
+                                                  int(bool(e.outcome)))]
+        if not pending:
+            return
+        agreed = self._agree(flags)
+        with self._lock:
+            n_live, ended = len(pending) - len(self._zombies), set()
+            for i, e in enumerate(pending):
+                if not agreed[2 * i]:
+                    continue
+                if i >= n_live:  # dropped: its job has simply ended
+                    e.writing = e.reading = False
+                    ended.add(id(e))
+                elif e.writing:
+                    self._finish_write(e, bool(agreed[2 * i + 1]))
+                else:
+                    self._finish_read(e, e.read if agreed[2 * i + 1] else None)
+                e.outcome, e.read = None, None
+            self._zombies = [z for z in self._zombies if id(z) not in ended]
+
     def _submit_write(self, e: TierEntry) -> bool:
         """T1→T2: queue ``e``'s leaves for a background disk write.
         Caller (the engine thread) holds ``self._lock``; ``e.writing``
         guards re-submit.  The leaves' copy completes before the job is
         queued: the worker never waits on the device."""
-        if not self.disk_dir or e.writing or e.kind == "tail":
+        if not self.disk_dir or e.writing or e.kind == "tail" or not self._room():
             return False
         leaves = self._leaves(e)
         if leaves is None:
@@ -380,29 +525,20 @@ class PageTierManager:
 
         def job(entry=e, leaves=leaves, meta=meta):
             t0 = time.monotonic()
+            ok = None
             try:
                 self._write_t2(entry.dir_name, meta, leaves)
+                ok = True
             except FileNotFoundError:
                 # the entry was consumed and _drop_entry rmtree'd the
                 # staging dir out from under the write — nothing to keep
-                with self._lock:
-                    entry.writing = False
-                    self._remove_dir(entry.dir_name)
-                return
-            t1 = time.monotonic()
-            with self._lock:
-                entry.writing = False
-                if self._entries.get(entry.key) is entry:
-                    entry.leaves = None
-                    entry.tier = _DISK
-                    self.demote_t1_t2 += 1
-                else:
-                    # promoted (consumed) while the write was in flight:
-                    # the staged copy is stale — drop it
-                    self._remove_dir(entry.dir_name)
-            self._account_swap(t0, t1)
+                ok = False
+            finally:
+                self._end_write(entry, ok)
+            if ok:
+                self._account_swap(t0, time.monotonic())
 
-        if not self._worker.submit(job, label=f"demote:{e.key}"):
+        if not self._queue(job, label=f"demote:{e.key}"):
             e.writing = False
             return False
         return True
@@ -411,35 +547,26 @@ class PageTierManager:
         """T2→T1 prefetch: queue a background disk read so a hinted
         promotion finds the leaves already host-resident.  Caller holds
         ``self._lock``."""
-        if e.tier != _DISK or e.reading or e.writing:
+        if e.tier != _DISK or e.reading or e.writing or not self._room():
             return False
         e.reading = True
 
         def job(entry=e):
             t0 = time.monotonic()
-            faults.check("tier.promote")
-            # quiet: a demand promotion may consume the entry (and
-            # remove its dir) while this prefetch is in flight — that
-            # is a benign race, not a torn stage
-            leaves = self._read_t2(entry.dir_name, quiet=True)
-            t1 = time.monotonic()
-            with self._lock:
-                entry.reading = False
-                if self._entries.get(entry.key) is not entry:
-                    return  # consumed or discarded while reading
-                if leaves is None:
-                    logger.warning(
-                        f"kvcache: tier entry {entry.key} unreadable at "
-                        f"{entry.dir_name}; dropping it")
-                    self._drop_entry(entry)  # torn on disk: unrecoverable
-                    return
-                if entry.tier == _DISK:
-                    entry.leaves = leaves
-                    entry.tier = _HOST
-                    self.promote_t2_t1 += 1
-            self._account_swap(t0, t1)
+            leaves, done = None, False
+            try:
+                faults.check("tier.promote")
+                # quiet: a demand promotion may consume the entry (and
+                # remove its dir) while this prefetch is in flight — that
+                # is a benign race, not a torn stage
+                leaves = self._read_t2(entry.dir_name, quiet=True)
+                done = True
+            finally:
+                self._end_read(entry, leaves, done)
+            if leaves is not None:
+                self._account_swap(t0, time.monotonic())
 
-        if not self._worker.submit(job, label=f"prefetch:{e.key}"):
+        if not self._queue(job, label=f"prefetch:{e.key}"):
             e.reading = False
             return False
         self.prefetch_jobs += 1
@@ -460,6 +587,9 @@ class PageTierManager:
             self._pfx.insert(shadow)
 
     def _drop_entry(self, e: TierEntry) -> None:
+        if (self._agree is not None and (e.writing or e.reading)
+                and all(z is not e for z in self._zombies)):
+            self._zombies.append(e)  # its job's end is agreed as any other's
         self._entries.pop(e.key, None)
         if e.kind == "prefix":
             shadow = self._pfx.get(e.tokens)
@@ -476,7 +606,10 @@ class PageTierManager:
             self.hits_t1 += 1
             return self._leaves(e)
         leaves = self._read_t2(e.dir_name)
-        if leaves is None:
+        ok = leaves is not None
+        if self._agree is not None:
+            ok = bool(self._agree([int(ok)])[0])  # verified on every rank, or a miss on all
+        if not ok:
             self._drop_entry(e)
             return None
         self.hits_t2 += 1
@@ -744,6 +877,7 @@ class PageTierManager:
         batched into one per leaf), then T1 cap enforcement."""
         self._pump_errors()
         self._resolve_moves(wait=False)
+        self._settle()
         with self.pool._lock:
             hinted = self._prefetch(now, hints)
             self._batch = []
@@ -884,15 +1018,23 @@ class PageTierManager:
                 if self.demote_session(sess, now):
                     moved += 1
         deadline = time.monotonic() + timeout
+
+        def in_time() -> bool:  # across ranks: every rank within its deadline
+            ok = time.monotonic() <= deadline
+            return ok if self._agree is None else bool(self._agree([int(ok)])[0])
+
         while self.disk_dir:
             with self._lock:
-                left = [e for e in self._entries.values()
-                        if e.tier == _HOST and not e.writing and e.kind != "tail"]
+                left = sorted((e for e in self._entries.values()
+                               if e.tier == _HOST and not e.writing and e.kind != "tail"),
+                              key=lambda e: e.key)
                 queued = [e for e in left if self._submit_write(e)]
-            if len(queued) == len(left) or time.monotonic() > deadline:
+            if len(queued) == len(left) or not in_time():
                 break
             self._worker.drain(max(deadline - time.monotonic(), 0.0))  # the queue was full
+            self._settle()
         self._worker.drain(max(deadline - time.monotonic(), 0.0))
+        self._settle()
         self._pump_errors()
         return moved
 
@@ -910,10 +1052,11 @@ class PageTierManager:
         of the same entry survive, the newest wins and the superseded
         dirs are removed."""
         found: List[str] = []
-        if not self.disk_dir or not os.path.isdir(self.disk_dir):
+        if not self.disk_dir:
             return found
         best: Dict[str, Tuple[float, int, TierEntry]] = {}
-        for name in sorted(os.listdir(self.disk_dir)):
+        names = sorted(os.listdir(self.disk_dir)) if os.path.isdir(self.disk_dir) else []
+        for name in names:
             target = os.path.join(self.disk_dir, name)
             if not (name.startswith("sess_") and os.path.isdir(target)):
                 continue
@@ -958,6 +1101,14 @@ class PageTierManager:
             if prev is not None:
                 self._remove_dir(prev[2].dir_name)
             best[e.key] = (rank[0], rank[1], e)
+        if self._agree is not None:
+            # across ranks: the entries every rank verified under the same
+            # directory (rank 0's list, one flag each); the rest stay on
+            # disk untrusted
+            listed = self._decide(sorted((k, v[2].dir_name) for k, v in best.items()))
+            flags = [int(k in best and best[k][2].dir_name == d) for k, d in listed]
+            agreed = self._agree(flags) if listed else []
+            best = {k: best[k] for (k, _), ok in zip(listed, agreed) if ok}
         with self._lock:
             for _, gen, e in best.values():
                 self._dirgen = max(self._dirgen, gen)

@@ -340,7 +340,8 @@ def rules_for_config(model_config: Any, layout: SpecLayout = DEFAULT_LAYOUT) -> 
 # cuts the packed columns contiguously (at model 2, rank 0 would hold all
 # of q and half of k, and GSPMD reshards); a rank here holds
 # [q_r | k_r | v_r], the columns of its own heads of each part.
-FUSED_TP_PARTS: Tuple[Tuple[str, int], ...] = ((r"(^|/)qkv_[wb]$", 3),)
+# (a packed int8 qkv_w's codes and per-channel scales are cut alike)
+FUSED_TP_PARTS: Tuple[Tuple[str, int], ...] = ((r"(^|/)qkv_[wb](/[qs])?$", 3),)
 
 
 def fused_tp_parts(path: str) -> int:

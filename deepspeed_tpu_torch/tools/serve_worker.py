@@ -20,7 +20,7 @@ It imports torch and the port only.  The spec::
                            "preset": "tiny", "model_cfg": {...}, "mp_size": 2,
                            "dtype": "float32" | "bfloat16", "params": "<npz>",
                            "checkpoint": "<dir>", "checkpoint_tag": null,
-                           "init_on_device": false, "seed": 0,
+                           "init_on_device": false, "seed": 0, "quantize_bits": 0,
                            "kv_cache_dtype": "model" | "int8", "max_out_tokens": 128},
                 "clock_skew": {"rank": 1, "seconds": 1000.0},
                 "drives": [...]}]}
@@ -37,6 +37,9 @@ index ``i``:
 * ``{"kind": "cache", "batch": 2, "max_len": 16}``: the shape of a leaf
   of ``init_cache`` (``init_kv_cache``'s ``q`` for int8).
 * ``{"kind": "shapes"}``: every parameter block's shape on this rank.
+* ``{"kind": "params"}``: every parameter block of this rank, by leaf
+  path (a packed int8 weight's ``.../q`` and ``.../s``), in
+  ``<out>/<name>.r<rank>.d<i>.npz`` (``file``).
 * ``{"kind": "serve", "serving": {...}, "requests": [{"prompt": [...],
   "max_new_tokens": 6, ...submit kwargs}], "first": 3, "steps": 2}``:
   ``init_serving`` over the case's engine; the first ``first`` requests,
@@ -60,14 +63,26 @@ index ``i``:
   true`` traces the drive under ``torch.profiler`` (``profile``: its
   ``tools/profile_serving.py`` ``profile_summary``).
 * ``{"kind": "recover", "serving": {...}, "requests": [...],
-  "kill_at_decode": 3, "tiers_refusal": true}``: a journaled engine
+  "kill_at_decode": 3, "tiers_built": true}``: a journaled engine
   (``<out>/journal_<name>_<i>``, written by rank 0) serves the requests
   until every rank dies of an ``InjectedKill`` at its
   ``kill_at_decode``-th decode; a fresh engine over the same journal
   runs ``recover()`` (a collective) and a drain: ``ids`` the killed
   run's ids, ``replayed`` the replayed ids, ``tokens`` their tokens in
-  that order.  ``tiers_refusal`` first records, in ``tiers_refused``,
-  the message of a tiered paged engine's refusal under the group.
+  that order.  ``tiers_built`` first builds a tiered paged engine under
+  the group and records its disk tier's directory below the one it was
+  given (``tiers_disk_dir``: the rank's own).
+* ``{"kind": "tiers", "serving": {... "kvcache": {..., "tiers": {...}}},
+  "sessions": 4, "turns": 3, "seed": 3, "max_new_tokens": 4, "new_tokens": 10,
+  "flush": true,
+  "corrupt": {"rank": 1, "session": "sess-0"}}``: :func:`tier_turns`'s
+  session schedule on the paged pool without tiers (``reference``), then
+  on the tiered pool (``tokens``; the disk tier under
+  ``<out>/tiers_<name>_<i>``, a directory a rank): before the last turn
+  ``flush`` pushes every warm session to disk, and ``corrupt`` overwrites
+  one rank's disk copies of one session (``dropped``), whose restore must
+  then fail verification there and miss on every rank.  ``tier_counts``:
+  the tier manager's counters.
 * ``{"kind": "sigterm", "serving": {...}, "requests": [...], "steps": 2}``:
   a journaled engine with the watchdog on every rank serves the requests;
   after ``steps`` steps rank 0 alone sends itself SIGTERM, and every rank
@@ -259,17 +274,97 @@ def _serve(engine, drive, rec, spill_root):
     })
 
 
+# the tier manager's counters that every rank must agree on (its timings
+# and the worker's queue depth are a rank's own)
+TIER_COUNTS = ("demote_t0_t1", "demote_t1_t2", "promote_t1_t0", "promote_t2_t1",
+               "promote_t2_t0", "tail_demotions", "tail_promotions", "hits_t1", "hits_t2",
+               "tier_misses", "tier_drops", "prefetch_jobs", "host_entries", "host_pages",
+               "disk_entries", "disk_pages")
+
+
+def tier_turns(srv, sessions=4, turns=3, seed=3, max_new_tokens=4, new_tokens=10,
+               before_last=None):
+    """A seeded multi-turn schedule of ``sessions`` sessions (each turn a
+    session's history plus ``new_tokens`` new tokens, greedy): the
+    generated tokens by turn, then session.  ``before_last(srv)`` runs
+    before the last turn."""
+    rng = np.random.default_rng(int(seed))
+    hist, out = {}, []
+    for turn in range(int(turns)):
+        if turn == int(turns) - 1 and before_last is not None:
+            before_last(srv)
+        batch = []
+        for s in range(int(sessions)):
+            sid = f"sess-{s}"
+            prompt = np.concatenate([hist.get(sid, np.array([], np.int32)),
+                                     rng.integers(1, srv.engine.model_config.vocab_size,
+                                                  int(new_tokens), dtype=np.int32)]
+                                    ).astype(np.int32)
+            batch.append((srv.submit(prompt, max_new_tokens=int(max_new_tokens),
+                                     session_id=sid), sid, prompt))
+        res = srv.drain(max_steps=5000)
+        row = []
+        for rid, sid, prompt in batch:
+            gen = np.asarray(res[rid].generated, np.int32)
+            hist[sid] = np.concatenate([prompt, gen]).astype(np.int32)
+            row.append(gen.tolist())
+        out.append(row)
+    return out
+
+
+def _tiers(engine, drive, rec, disk_root):
+    from deepspeed_tpu_torch.serving import ServingEngine
+
+    serving = dict(drive["serving"])
+    kvc = dict(serving["kvcache"])
+    tiers = dict(kvc.pop("tiers", {}), enabled=True, disk_dir=disk_root)
+    kw = {k: drive[k] for k in ("sessions", "turns", "seed", "max_new_tokens", "new_tokens")
+          if k in drive}
+    rec["reference"] = tier_turns(ServingEngine(engine, config={**serving, "kvcache": kvc}), **kw)
+    srv = ServingEngine(engine, config={**serving, "kvcache": {**kvc, "tiers": tiers}})
+    drop = drive.get("corrupt")
+    rec["dropped"] = []
+
+    def before_last(srv):
+        if drive.get("flush"):
+            srv._tiers.flush(srv._note_time())
+        if drop is not None and engine.mesh is not None and engine.mesh.rank == int(drop["rank"]):
+            from deepspeed_tpu_torch.serving.kvcache.sessions import DATA_FILE, session_dir_name
+
+            base = session_dir_name(drop["session"]) + "-g"
+            root = srv._tiers.disk_dir
+            for name in sorted(os.listdir(root)):
+                if name.startswith(base):  # its manifest's digest no longer matches
+                    with open(os.path.join(root, name, DATA_FILE), "r+b") as f:
+                        f.write(b"\0" * 64)
+                    rec["dropped"].append(name)
+
+    t0 = time.perf_counter()
+    rec["tokens"] = tier_turns(srv, before_last=before_last, **kw)
+    rec["wall_s"] = time.perf_counter() - t0
+    st = srv.stats()["kvcache"]["tiers"]
+    rec["tier_counts"] = {k: st[k] for k in TIER_COUNTS}
+    rec["tier_moves"] = {k: st[k] for k in ("gather_ms_per_page", "scatter_ms_per_page",
+                                            "gather_pages", "scatter_pages",
+                                            "swap_hidden_ratio")}
+    rec["disk_dir"] = srv._tiers.disk_dir
+    rec["decode_steps"] = srv.decode_steps
+    rec["session_rebinds"] = srv.stats()["kvcache"]["session_rebinds"]
+    srv._tiers.close()
+
+
 def _recover(engine, drive, rec, journal_dir):
     from deepspeed_tpu_torch.resilience import faults
     from deepspeed_tpu_torch.serving import ServingEngine
 
-    if drive.get("tiers_refusal"):
-        try:
-            ServingEngine(engine, config={"kvcache": {"enabled": True, "page_len": 16,
-                                                      "tiers": {"enabled": True}}})
-            rec["tiers_refused"] = None
-        except NotImplementedError as e:
-            rec["tiers_refused"] = str(e)
+    if drive.get("tiers_built"):
+        # a tiered paged engine under the group: built on every rank, its
+        # disk tier in a directory of the rank's own
+        tiered = ServingEngine(engine, config={"kvcache": {
+            "enabled": True, "page_len": 16,
+            "tiers": {"enabled": True, "disk_dir": journal_dir + "_t2"}}})
+        rec["tiers_disk_dir"] = os.path.relpath(tiered._tiers.disk_dir, journal_dir + "_t2")
+        tiered._tiers.close()
     serving = {**drive.get("serving", {}), "journal_dir": journal_dir}
     srv = ServingEngine(engine, config=serving)
     rec["ids"] = _submit_all(srv, drive["requests"])
@@ -370,6 +465,15 @@ def run_case(case, device, out_dir, rank):
                 rec["shapes"] = {p: list(t.shape) for p, t in leaves}
                 rec["dtypes"] = sorted({str(t.dtype) for _, t in leaves})
                 rec["finite"] = all(bool(torch.isfinite(t).all()) for _, t in leaves)
+            elif kind == "params":
+                from deepspeed_tpu_torch.runtime.engine import tree_items
+
+                rec["file"] = os.path.join(out_dir, f"{case['name']}.r{rank}.d{i}.npz")
+                np.savez(rec["file"], **{path: (t.cpu() if t.dtype == torch.int8
+                                                else t.float().cpu()).numpy()
+                                         for path, t in tree_items(engine.params)})
+            elif kind == "tiers":
+                _tiers(engine, drive, rec, os.path.join(out_dir, f"tiers_{case['name']}_{i}"))
             elif kind == "serve":
                 _serve(engine, drive, rec, os.path.join(out_dir, f"spill_{case['name']}_{i}"))
             elif kind in ("recover", "sigterm"):

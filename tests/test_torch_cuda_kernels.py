@@ -949,3 +949,17 @@ def test_virtual_ring_matches_dense_flash(dev, dtype, causal):
     else:
         witness = sq.ring_bwd_float64(q, k, v, do, ring_lse, delta, P, causal, scale)
         assert max(fa.float64_over_bound(grads[0], witness)) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(2, 2560, 7680), (2, 10240, 2560)], ids=["qkv", "fc_proj"])
+def test_int8_pack_on_the_card_equals_the_host(dev, shape):
+    """Packing a weight on the card gives the host's int8 codes and f32
+    scales bit for bit (the counterpart of the JAX package's
+    test_int8_pack_device_equals_host), in f32 and from bf16."""
+    from deepspeed_tpu_torch.runtime.weight_quantizer import pack_one
+
+    w = _randn(dev, *shape, seed=3) * 0.02
+    for t in (w, w.to(torch.bfloat16)):
+        card, host = pack_one(t), pack_one(t.cpu())
+        assert card["q"].dtype == torch.int8 and card["s"].dtype == torch.float32
+        assert torch.equal(card["q"].cpu(), host["q"]) and torch.equal(card["s"].cpu(), host["s"])

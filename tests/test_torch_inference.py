@@ -160,8 +160,11 @@ def test_engine_capacity_and_unported_options(params):
         teng.generate(_tokens(1, 500, 9), max_new_tokens=13)
     with pytest.raises(ValueError, match="LEFT-padded"):
         teng.generate(_tokens(1, 4, 9), attention_mask=np.asarray([[1, 1, 0, 0]]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        deepspeed_tpu_torch.init_inference(model="tiny", quantize_bits=8, device="cpu")
+    # int8 weights at rest: the codes stay int8 and the scales f32
+    # (tests/test_torch_injection.py holds them against the JAX engine)
+    q8 = deepspeed_tpu_torch.init_inference(model="tiny", quantize_bits=8, device="cpu")
+    assert q8.params["blocks"]["qkv_w"]["q"].dtype == torch.int8
+    assert q8.params["blocks"]["qkv_w"]["s"].dtype == torch.float32
     # mp_size 2 serves across ranks (tests/test_torch_tp_inference.py); one
     # process without a group refuses it
     with pytest.raises(ValueError, match="mp_size=2 needs a process group"):

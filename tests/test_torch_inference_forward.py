@@ -111,5 +111,5 @@ def test_bert_engine_refuses_generation_as_the_jax_engine_does():
     assert teng.generation_capacity == jeng.generation_capacity == 1024
     with pytest.raises(ValueError, match="unknown model preset"):
         deepspeed_tpu_torch.init_inference(model="bert-huge", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="GPT2Config or a BertConfig"):
         deepspeed_tpu_torch.init_inference(model_config=object(), device="cpu")

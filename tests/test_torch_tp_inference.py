@@ -27,7 +27,18 @@ one of 4, every case of that size inside it) against the port at
 * A journaled engine killed (an injected kill at the 3rd decode on
   every rank) recovers on both ranks: the same replayed ids, the greedy
   ones' tokens those of one process's uninterrupted run; a tiered pool
-  under the group is refused naming ROADMAP A8 tiers across ranks.
+  under the group builds, each rank's disk tier in a directory of its
+  own.
+* int8 weights at rest at ``mp_size`` 2: each rank's ``qkv_w/q`` and
+  ``qkv_w/s`` are the head-grouped blocks of the whole weight's codes and
+  scales (packed whole, then cut), ``proj_w/s`` replicated; logits within
+  2e-4 of the int8 engine at ``mp_size`` 1 and the JAX int8 engine at 2,
+  greedy tokens equal, served tokens solo int8 ``generate``'s.
+* KV tiers at 2 ranks (device → host → disk, a flush to disk before the
+  last turn, one rank's disk copy of one session corrupted): the tokens of
+  one process's tiered run and of the all-device pool, every tier counter
+  alike on both ranks, and the dropped session a miss on both (one
+  rebind fewer than one process's run).
   SIGTERM to rank 0 alone drains both ranks through the same steps to
   the same exit code, 43, after rank 0's journal commits.
 * The bytes counted in every drive equal the inference byte model.
@@ -44,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +81,13 @@ CAP = TTINY.n_positions
 SLOT = {"num_slots": 2, "prefill_chunk": 8, "max_len": 64, "max_new_tokens": 8}
 PAGED = {**SLOT, "kvcache": {"enabled": True, "page_len": 16}}
 # served with rank 1's clock 1000 s ahead: deadlines and TTLs it would trip
+# a device pool a quarter of the tier schedule's working set (as
+# tests/test_torch_kvtiers.py's CASCADE)
+TIERED = {**SLOT, "kvcache": {"enabled": True, "page_len": 16, "num_pages": 24,
+                              "tiers": {"host_pages": 8, "residency_window": 16,
+                                        "demote_watermark": 0.25, "demote_batch": 8}}}
+TIER_DRIVE = {"kind": "tiers", "serving": TIERED, "sessions": 4, "turns": 3, "seed": 3,
+              "max_new_tokens": 4, "flush": True}
 SKEWED = {**SLOT, "deadline_seconds": 120.0,
           "kvcache": {"enabled": True, "page_len": 16, "session_ttl_seconds": 60.0,
                       "spill_dir": "auto"}}
@@ -233,8 +252,15 @@ def runs(tmp_path_factory):
           {"name": "g2refuse", "engine": gpt, "drives": [_refusing_drive(x)]},
           {"name": "g2rec", "engine": gpt, "drives": [
               {"kind": "recover", "serving": SLOT, "requests": x["greedy"] + x["sampled"],
-               "kill_at_decode": 3, "tiers_refusal": True},
+               "kill_at_decode": 3, "tiers_built": True},
               {"kind": "sigterm", "serving": SLOT, "requests": x["greedy"][:4], "steps": 2}]},
+          {"name": "g2q8", "engine": {**gpt, "quantize_bits": 8}, "drives": [
+              {"kind": "params"}, {"kind": "forward", "inputs": str(tmp / "ids24.npz")},
+              {"kind": "generate", "inputs": str(tmp / "ids8.npz"), "max_new_tokens": N_NEW},
+              {"kind": "serve", "serving": SLOT, "requests": x["greedy"]},
+              {"kind": "serve", "serving": PAGED, "requests": x["prefixed"]}]},
+          {"name": "g2tier", "engine": gpt, "drives": [
+              {**TIER_DRIVE, "corrupt": {"rank": 1, "session": "sess-0"}}]},
           {"name": "g2skew", "engine": gpt, "clock_skew": {"rank": 1, "seconds": 1000.0},
            "drives": [{"kind": "serve", "serving": SKEWED, "requests": x["greedy"][:5],
                        "session": {**x["session"], "spill_after": [0]}}]}]
@@ -254,6 +280,12 @@ def runs(tmp_path_factory):
         refs["port"] = _port(model_config=TTINY, params=gparams)
         refs["bert_port"] = _port(model_config=tbert.BERT_TINY, params=bparams)
         refs["port_i8"] = _port(model_config=TTINY, params=gparams, kv_cache_dtype="int8")
+        refs["port_q8"] = _port(model_config=TTINY, params=gparams, quantize_bits=8)
+        refs["jax_q8"] = deepspeed_tpu.init_inference(
+            model_config=JTINY, params=gparams, dtype=jnp.float32, mp_size=2, max_out_tokens=CAP,
+            quantize_bits=8)
+        solo = {k: v for k, v in TIER_DRIVE.items() if k != "kind"}
+        refs["tiers_solo"] = _tiered_solo(refs["port"], solo, tmp / "solo_t2")
         refs["jax"] = {m: deepspeed_tpu.init_inference(
             model_config=JTINY, params=gparams, dtype=jnp.float32, mp_size=m,
             max_out_tokens=CAP) for m in (2, 4)}
@@ -290,7 +322,23 @@ def _read(runs, name, world):
     return out
 
 
+def _tiered_solo(port, drive, disk_dir):
+    """The tier drive's schedule on one process's tiered engine (a flush
+    before the last turn): its tokens and session rebinds."""
+    from deepspeed_tpu_torch.tools.serve_worker import tier_turns
+
+    kvc = dict(drive["serving"]["kvcache"])
+    kvc["tiers"] = {**kvc["tiers"], "enabled": True, "disk_dir": str(disk_dir)}
+    srv = ServingEngine(port, config={**drive["serving"], "kvcache": kvc})
+    kw = {k: drive[k] for k in ("sessions", "turns", "seed", "max_new_tokens")}
+    tokens = tier_turns(srv, before_last=lambda s: s._tiers.flush(time.monotonic()), **kw)
+    out = {"tokens": tokens, "rebinds": srv.stats()["kvcache"]["session_rebinds"]}
+    srv._tiers.close()
+    return out
+
+
 CASES = {"g2": 2, "g2i8": 2, "b2": 2, "g2dev": 2, "g2refuse": 2, "g2skew": 2, "g2rec": 2,
+         "g2q8": 2, "g2tier": 2,
          "g4": 4, "b4": 4, "g4ck": 4, "g2d2": 4}
 
 
@@ -381,14 +429,13 @@ def test_served_tokens_match_solo_generate_and_jax(runs, case, m):
 def test_killed_run_recovers_on_every_rank_to_one_process_tokens(runs):
     """Every rank died at the same decode and replayed the same ids (rank
     0 read the journal and broadcast it); the replayed greedy requests'
-    tokens equal one process's uninterrupted run; tiers under a group are
-    refused, naming their ROADMAP item."""
+    tokens equal one process's uninterrupted run; a tiered pool builds
+    under the group, each rank's disk tier in a directory of its own."""
     ranks = _read(runs, "g2rec", 2)
     d = ranks[0][0]["drives"][0]
     assert d["killed"] and d["replayed"] and set(d["replayed"]) <= set(d["ids"])
     assert all(meta["drives"][0]["replayed"] == d["replayed"] for meta, _ in ranks)
-    assert all("ROADMAP A8 tiers across ranks" in meta["drives"][0]["tiers_refused"]
-               for meta, _ in ranks)
+    assert [meta["drives"][0]["tiers_disk_dir"] for meta, _ in ranks] == ["model0", "model1"]
     x = runs["x"]
     reqs = x["greedy"] + x["sampled"]
     want = _serve_local(ServingEngine(runs["port"], config=SLOT), {"requests": reqs})
@@ -572,3 +619,58 @@ def test_refusals_on_one_process(tmp_path):
         np.testing.assert_array_equal(got[0], solo.generate(ids[:1], max_new_tokens=4)[0])
     finally:
         torch.distributed.destroy_process_group()
+
+
+def test_int8_at_mp2_cuts_packed_weights_by_heads(runs):
+    """Each rank holds the head-grouped block of the whole weight's int8
+    codes and per-channel scales (quantized whole, then cut), and serves
+    the logits and tokens of the int8 engine at mp_size 1 and of the JAX
+    int8 engine at mp_size 2."""
+    from deepspeed_tpu_torch.runtime.zero.partition import _group_parts
+
+    ranks, x = _read(runs, "g2q8", 2), runs["x"]
+    whole = runs["port_q8"].params["blocks"]
+    for r, (meta, _) in enumerate(ranks):
+        with np.load(meta["drives"][0]["file"]) as z:
+            arr = {f"d0/{k}": z[k] for k in z.files}
+        for leaf in ("q", "s"):
+            t = whole["qkv_w"][leaf]
+            want = _group_parts(t, 3, 2).chunk(2, dim=-1)[r]
+            got = arr[f"d0/blocks/qkv_w/{leaf}"]
+            assert got.dtype == (np.int8 if leaf == "q" else np.float32)
+            np.testing.assert_array_equal(got, want.numpy())
+            fc = whole["fc_w"][leaf].chunk(2, dim=-1)[r]
+            np.testing.assert_array_equal(arr[f"d0/blocks/fc_w/{leaf}"], fc.numpy())
+        np.testing.assert_array_equal(arr["d0/blocks/proj_w/q"],
+                                      whole["proj_w"]["q"].chunk(2, dim=1)[r].numpy())
+        np.testing.assert_array_equal(arr["d0/blocks/proj_w/s"], whole["proj_w"]["s"].numpy())
+    meta, arr = ranks[0]
+    port, jeng = runs["port_q8"], runs["jax_q8"]
+    np.testing.assert_allclose(arr["d1"], port.forward(x["ids24"]).numpy(), **TOL)
+    np.testing.assert_allclose(arr["d1"], np.asarray(jeng.forward(x["ids24"])), **TOL)
+    want = port.generate(x["ids8"], max_new_tokens=N_NEW)
+    np.testing.assert_array_equal(arr["d2"], want)
+    np.testing.assert_array_equal(arr["d2"], np.asarray(jeng.generate(x["ids8"],
+                                                                      max_new_tokens=N_NEW)))
+    for d, reqs in ((meta["drives"][3], x["greedy"]), (meta["drives"][4], x["prefixed"])):
+        for r, got in zip(reqs, d["tokens"]):
+            np.testing.assert_array_equal(got, port.generate(
+                np.asarray(r["prompt"])[None], max_new_tokens=r["max_new_tokens"])[0])
+
+
+def test_tiers_at_two_ranks_match_one_process_and_the_all_device_pool(runs):
+    ranks = _read(runs, "g2tier", 2)
+    solo = runs["tiers_solo"]
+    d0 = ranks[0][0]["drives"][0]
+    for r, (meta, _) in enumerate(ranks):
+        d = meta["drives"][0]
+        assert d["tokens"] == d0["tokens"] == solo["tokens"] == d["reference"]
+        assert d["tier_counts"] == d0["tier_counts"]
+        assert d["session_rebinds"] == d0["session_rebinds"]
+        assert d["disk_dir"].endswith(os.path.join("tiers_g2tier_0", f"model{r}"))
+    counts = d0["tier_counts"]
+    assert counts["demote_t0_t1"] > 0 and counts["demote_t1_t2"] > 0, counts
+    assert counts["hits_t2"] + counts["promote_t2_t1"] > 0, counts
+    # sess-0's disk copy failed to verify on rank 1 only: a miss on both
+    assert d0["dropped"] == [] and ranks[1][0]["drives"][0]["dropped"]
+    assert d0["session_rebinds"] == solo["rebinds"] - 1
