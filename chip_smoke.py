@@ -264,15 +264,35 @@ Phases, each printing one JSON line:
    (all on their tensor-core bodies), fused Adam launched,
    B1/B2 not; losses finite and falling.  Prints ms a
    step, tokens/s, peak memory, MFU and sparse-over-dense tokens/s.
-16. ``kernels``: one entry per kernel with its launches on each main path
+16. ``train_moe_bf16``: GPT-2 124M's widths with 8-expert top-2 MoE
+   FFNs (~522M parameters, the JAX package's MoE defaults) in bf16 over
+   f32 masters, micro 8 x T 1024, AdamW, 4 steps through ``initialize``
+   (a main path: counters zeroed before, read after; B1, B2, B3), beside
+   the same steps with plain attention (MOE_BF16_LOSS_RTOL); ms a step,
+   tokens/s, peak GiB, the dropped share of routed assignments.
+17. ``serve_moe_bf16``: that model through ``init_serving`` on the slot
+   pool and the paged pool, 8 requests of 64-256 prompt tokens and 48 new
+   (main paths: B1 for ``generate()``'s prefill, B4 / B5); a request whose
+   steps dropped no pick is held to solo ``generate()``, the rest to a
+   replay of the same batches through the plain bodies, both under the
+   near-tie rule; no leaked page; decode tokens/s, TTFT p50, the drops.
+18. ``train_pipe_bf16``: GPT-2 124M assembled here as a
+   ``PipelineModule`` (:func:`gpt2_pipe_module`: a tied embedding, 12
+   blocks of the port's GPT-2 block, the final LayerNorm and the tied
+   head) over two stage processes sharing the card (gloo, pinned host
+   copies; ``tools/pipe_worker.py``), ``1f1b``, 4 micro-batches of 8 x
+   1024, 3 steps, against the same module at one stage in this process
+   (PIPE_BF16_LOSS_RTOL); B1, B2 and B3 on each stage; ms a step, each
+   stage's idle share.
+19. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
    serving_resilience, serving_fleet, serving_frontdoor, serving_injected,
    serving_int8, serving_megatron, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
-   training_bert_dropout, transformer_layer, training_sparse) and their
-   sum.
+   training_bert_dropout, transformer_layer, training_sparse, training_moe,
+   serving_moe, training_pipe) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -4454,6 +4474,649 @@ def phase_train_sparse_bf16(torch):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# train_moe_bf16, serve_moe_bf16, train_pipe_bf16: MoE and the pipeline
+# ---------------------------------------------------------------------------
+
+# GPT-2 124M's widths with every FFN an 8-expert top-2 MoE layer (the JAX
+# package's MoE defaults: capacity factor 1.25 in training, 2.0 in eval,
+# aux weight 0.01), ~522M parameters
+MOE_CFG = {"n_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 1.25, "moe_aux_weight": 0.01}
+# kernel vs plain-attention losses of the bf16 MoE step (relative): the two
+# round attention to bf16 at different points, and routing is not
+# continuous (a token whose scores tie flips its expert), averaged over
+# the step's 8,192 tokens; the card read 0.34 % at the fourth step
+MOE_BF16_LOSS_RTOL = 5e-3
+# moe_ffn (rows moved by index) against the JAX package's dense einsum form
+# (dense_moe_ffn), both f32 on the card with TF32 off: the same products
+# summed in another order (the card read 1.3e-7 to 7.2e-7)
+MOE_FFN_RTOL = 1e-5
+# the MoE engine's prefill logits against models/gpt2.apply over the same
+# bf16 weights, in bf16 spacings at the largest |logit| (the card read
+# the same bits at every position of the 8 prompts)
+MOE_PREFILL_SPACINGS = 1.0
+MOE_SLOT = {"num_slots": 8, "prefill_chunk": 64, "max_len": 1024}
+MOE_PAGED = {**MOE_SLOT, "kvcache": {"enabled": True, "page_len": 128}}
+# pipelined GPT-2 124M (two stage processes sharing the card, gloo
+# between them) vs the same module at one stage in one process, bf16
+# (relative), on one batch repeated: the same kernels on the same
+# micro-batches, but the tied embedding's two gradients (the lookup's and
+# the head's) are summed in f32 across the stages where one stage's
+# autograd sums them in bf16.  Each limit is five to ten times the card's
+# reading: losses 9.0e-6 ...
+PIPE_BF16_LOSS_RTOL = 1e-4
+# ... each leaf's gradient norm (a block's leaves block by block) at the
+# first step (the same parameters; 4.4e-6, the tied embedding's) and at
+# the later ones (the first update's differences carried through bf16;
+# 9.8e-4) ...
+PIPE_BF16_GRAD0_RTOL = 5e-5
+PIPE_BF16_GRAD_RTOL = 1e-2
+# ... and each leaf's (block's) change over the first step, |P_pipe -
+# P_seq| / |P_seq - P_init|, in norm (9.8e-3, the tied embedding's: Adam
+# turns an entry whose two halves nearly cancel into a whole step of
+# either sign).  Without the stages' gradient sum every one of these
+# reads about 1.
+PIPE_BF16_PARAM_RTOL = 5e-2
+
+
+def _moe_cfg():
+    from deepspeed_tpu_torch.models import gpt2
+
+    return dataclasses.replace(gpt2.PRESETS["gpt2"], **MOE_CFG)
+
+
+def dense_moe_ffn(p, x, cfg, training):
+    """The JAX package's ``moe_ffn`` (``deepspeed_tpu/moe/layer.py:151``)
+    in its dense form: ``top_k_gating``'s (T, E, C) dispatch and combine
+    contracted with the tokens and the expert rows by einsum."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.moe import layer as moe
+
+    B, T, D = x.shape
+    factor = cfg.capacity_factor if training else cfg.eval_capacity_factor
+    C = moe._capacity(B * T, cfg.num_experts, factor, cfg.min_capacity)
+    xt = x.reshape(B * T, D)
+    dispatch, combine, aux = moe.top_k_gating(xt.float() @ p["gate_w"].float(), cfg.top_k, C)
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xt)
+    h = F.gelu(expert_in @ p["w1"] + p["b1"][:, None], approximate="tanh")
+    out = (h @ p["w2"] + p["b2"][:, None]).float()
+    return torch.einsum("tec,ecd->td", combine, out).reshape(B, T, D).to(x.dtype), aux
+
+
+def moe_ffn_vs_dense(torch, leaves, shape, training, dev, seed=0):
+    """The port's ``moe_ffn`` (rows moved by index) against
+    :func:`dense_moe_ffn` on one block's MoE ``leaves``, f32 on ``dev``,
+    random tokens of ``shape`` (B, T): the output, aux and the gradients
+    of ``sum(y * r) + aux`` for ``x`` and every leaf, each as max |a - b|
+    over max |b|; and whether the routing on ``dev`` equals the host's
+    routing of the same logits."""
+    from deepspeed_tpu_torch.moe import layer as moe
+
+    E, D, Fd = np.asarray(leaves["w1"]).shape
+    cfg = moe.MoEConfig(num_experts=E, d_model=D, d_ff=Fd, top_k=MOE_CFG["moe_top_k"],
+                        capacity_factor=MOE_CFG["moe_capacity_factor"])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((*shape, D), generator=g, device=dev)
+    r = torch.randn((*shape, D), generator=g, device=dev)
+
+    def run(fn):
+        p = {k: torch.tensor(np.asarray(leaves[k]), device=dev, requires_grad=True)
+             for k in moe.MOE_PARAM_KEYS}
+        xi = x.clone().requires_grad_(True)
+        y, aux = fn(p, xi)
+        ((y.float() * r).sum() + aux).backward()
+        return [y.detach(), aux.detach(), xi.grad] + [p[k].grad for k in moe.MOE_PARAM_KEYS]
+
+    got = run(lambda p, xi: moe.moe_ffn(p, xi, cfg, training=training))
+    want = run(lambda p, xi: dense_moe_ffn(p, xi, cfg, training))
+    names = ["y", "aux", "dx"] + [f"d{k}" for k in moe.MOE_PARAM_KEYS]
+    err = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for n, a, b in zip(names, got, want)}
+    with torch.no_grad():
+        logits = x.reshape(-1, D) @ torch.tensor(np.asarray(leaves["gate_w"]), device=dev)
+    C = moe._capacity(logits.shape[0], E, cfg.capacity_factor if training
+                      else cfg.eval_capacity_factor, cfg.min_capacity)
+    here, host = moe.route(logits, cfg.top_k, C), moe.route(logits.cpu(), cfg.top_k, C)
+    return {"shape": list(shape), "training": training, "capacity": C,
+            "dropped": int((here.routed[None] & ~here.kept).sum()),
+            "routing_equals_host": all(torch.equal(a.cpu(), b) for a, b in
+                                       zip(here[:3], host[:3])),
+            "max_rel_err": max(err.values()), "worst": max(err, key=err.get)}
+
+
+def check_moe_witness(phase, w):
+    check(w["routing_equals_host"], f"{phase}: moe_ffn's routing at {w['shape']} on the card "
+                                    "differs from the host's")
+    check(w["max_rel_err"] <= MOE_FFN_RTOL,
+          f"{phase}: moe_ffn at {w['shape']} differs from the dense form by "
+          f"{w['max_rel_err']} ({w['worst']}) > {MOE_FFN_RTOL}")
+
+
+def _device_tree(torch, tree, dtype, dev):
+    if isinstance(tree, dict):
+        return {k: _device_tree(torch, v, dtype, dev) for k, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree)).to(dev, dtype)
+
+
+def prefill_vs_apply(torch, eng, params, cfg, prompts, dev):
+    """The inference engine's prefill logits (``ops/transformer/inference.py``)
+    against ``models/gpt2.apply``'s eval forward over the same weights
+    (``params``, the training tree) for each prompt, every position: the
+    largest |difference| in bf16 spacings at the prompt's largest |logit|
+    (:func:`near_tie_tol`'s unit), and the share of positions whose
+    argmax agrees.  Both route the whole prompt at the eval capacity."""
+    from deepspeed_tpu_torch.models import gpt2
+
+    out = []
+    with torch.inference_mode():
+        for p in prompts:
+            ids = np.asarray(p)[None].astype(np.int64)
+            got = eng.prefill(ids, *eng.init_cache(1, ids.shape[1]))[0].float()
+            ids = torch.as_tensor(ids, device=dev)
+            want = gpt2.apply(params, ids, cfg).float()
+            unit = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+            out.append({"T": int(ids.shape[1]),
+                        "max_abs_diff": float((got - want).abs().max()),
+                        "spacings": float((got - want).abs().max()) / float(unit),
+                        "argmax_agrees": float((got.argmax(-1) == want.argmax(-1))
+                                               .double().mean())})
+    return out
+
+
+def phase_train_moe_bf16(torch, moe_params):
+    """GPT-2-MoE (124M widths, 8 experts, top-2) in bf16 over f32 masters,
+    micro 8 x T 1024, AdamW, through ``initialize`` → ``train_batch``, 4
+    steps: the main path (counters zeroed just before, read just after:
+    B1, B2, B3 launched), then the same steps with plain attention; losses
+    finite and falling, the kernel run within MOE_BF16_LOSS_RTOL of the
+    plain one; one block's ``moe_ffn`` at the step's shape, values and
+    gradients, within MOE_FFN_RTOL of the dense form (:func:`moe_ffn_vs_dense`).
+    Prints ms a step, tokens/s, peak GiB and the share of routed
+    assignments dropped past capacity."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.moe import layer as moe
+    from deepspeed_tpu_torch.ops import kernels
+
+    cfg = _moe_cfg()
+    mb, gas, T, steps = 8, 1, 1024, 4
+    config = _gpt2_bf16_config(mb, gas)
+    batch = {"input_ids": np.random.default_rng(21).integers(0, cfg.vocab_size, (mb * gas, T),
+                                                             dtype=np.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # -- the main path: counters zeroed just before, read just after -------
+    kernels.reset_launches()
+    with moe.record_drops() as rec:
+        engine, losses, walls = _train(torch, gpt2.make_model(cfg)[0], moe_params, config,
+                                       batch, steps)
+    launches = kernels.launches()
+    variants = kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    drops = rec.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del engine
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    plain_engine, plain, _ = _train(torch, gpt2.make_model(dataclasses.replace(
+        cfg, use_flash_attention=False))[0], moe_params, config, batch, steps)
+    plain_launches = kernels.launches()
+    del plain_engine
+    torch.cuda.empty_cache()
+    # a second witness: the layer itself against the JAX package's dense form
+    witness = moe_ffn_vs_dense(torch, {k: moe_params["blocks"][k][0] for k in moe.MOE_PARAM_KEYS},
+                               (mb, T), True, "cuda")
+    check_moe_witness("train_moe_bf16", witness)
+    for name in ("flash_fwd", "flash_bwd", "fused_adam"):
+        check(launches[name] > 0, f"train_moe_bf16: kernel {name} was not launched")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(only_tc(variants[name]), f"train_moe_bf16: {name} ran {variants[name]}")
+        check(plain_launches[name] == 0, f"train_moe_bf16: plain run launched {name}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(plain)),
+          f"train_moe_bf16: non-finite loss {losses} / {plain}")
+    check(losses[-1] < losses[0], f"train_moe_bf16: loss did not fall: {losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    check(max(rel) <= MOE_BF16_LOSS_RTOL,
+          f"train_moe_bf16: kernel vs plain losses differ by {max(rel)} > {MOE_BF16_LOSS_RTOL}")
+    tokens = mb * gas * T
+    step_s = float(sum(walls[1:])) / (steps - 1)
+    emit({"phase": "train_moe_bf16", "model": "gpt2 124M widths, 8 experts top-2",
+          "params": cfg.num_params(), "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
+          "losses": losses, "plain_attention_losses": plain, "max_rel_diff": max(rel),
+          "tol": MOE_BF16_LOSS_RTOL, "step_ms": [w * 1e3 for w in walls],
+          "step_ms_mean_after_first": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": peak, "routed_assignments": drops["assignments"],
+          "dropped_assignments": drops["dropped"],
+          "dropped_share": drops["dropped"] / max(1, drops["assignments"]),
+          "moe_ffn_vs_dense": witness, "moe_ffn_tol": MOE_FFN_RTOL,
+          "launches": {n: c for n, c in launches.items() if c}})
+    return launches
+
+
+def moe_requests(seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, 50257, int(n), dtype=np.int32), NEO_NEW)
+            for n in rng.integers(NEO_PROMPTS[0], NEO_PROMPTS[1] + 1, 8)]
+
+
+def watch_drops(srv):
+    """Note, on ``srv``'s prefill and decode calls, the requests one of
+    whose tokens lost an expert pick to capacity (``moe.record_drops``): a
+    prefill chunk's real tokens are its request's; a decode row is its
+    slot's.  Returns the set of request ids it fills and the routed and
+    dropped assignments it sums."""
+    import torch
+
+    from deepspeed_tpu_torch.moe.layer import MOE_PARAM_KEYS, record_drops
+
+    dropped, totals = set(), {"assignments": 0, "dropped": 0}
+    prefill, decode = srv._run_prefill, srv._run_decode
+
+    def add(rec):
+        for k, v in rec.counts().items():
+            totals[k] += v
+
+    def run_prefill(job):
+        with record_drops() as rec:
+            prefill(job)
+        add(rec)
+        # the chunk's real tokens (its zero-padded tail routes too, but
+        # feeds no real token: a pad's lost pick changes nothing)
+        if rec.tokens and bool(torch.stack(rec.tokens)[:, :job.length].any()):
+            dropped.add(job.req.request_id)
+
+    def run_decode(toks, pos, decoding):
+        with record_drops() as rec:
+            decode(toks, pos, decoding)
+        add(rec)
+        lost = torch.stack(rec.tokens).any(0).cpu().numpy() if rec.tokens else None
+        for r in decoding:
+            if lost is not None and lost[r.slot]:
+                dropped.add(r.request_id)
+
+    srv._run_prefill, srv._run_decode = run_prefill, run_decode
+    return dropped, totals
+
+
+def _moe_serve(srv, reqs):
+    dropped, totals = watch_drops(srv)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in reqs]
+    res = srv.drain()
+    return [res[r] for r in rids], dropped, totals
+
+
+def phase_serve_moe_bf16(torch, moe_params):
+    """The GPT-2-MoE of ``train_moe_bf16`` served in bf16 through
+    ``init_serving``, on the slot pool and on the paged pool: 8 requests of
+    64-256 prompt tokens, 48 new each, plus a ``generate()`` of 4 x 256
+    prompts (counters zeroed just before, read just after: B1, and B4 on
+    the slot pool, B5 on the paged pool).  At decode 8 slots route 16 picks
+    over 8 experts at capacity max(ceil(8 / 8 * 2.0), 4) = 4, so some
+    expert overflows at some step (free slots route too, as in the JAX
+    package's decode); a request served alone never drops.  So a request
+    none of whose steps (nor its solo ``generate()``'s) dropped a pick is
+    held to solo ``generate()``; the rest to a replay of the same batches
+    through the plain bodies (``use_flash_attention=False``); both under
+    the near-tie rule.  The paged pool leaks no page.  Two witnesses
+    outside the serving code: ``moe_ffn`` within MOE_FFN_RTOL of the dense
+    form at the decode, chunk and prompt shapes, and every prompt's
+    prefill logits within MOE_PREFILL_SPACINGS of ``models/gpt2.apply``.
+    Prints the dropped count, decode tokens/s and TTFT p50."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.moe.layer import MOE_PARAM_KEYS, record_drops
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.serving import ServingEngine
+    from deepspeed_tpu_torch.tools.fleet_chaos import first_difference
+
+    cfg = _moe_cfg()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng = deepspeed_tpu_torch.init_inference(model_config=cfg, params=moe_params,
+                                             dtype=torch.bfloat16)
+    plain_eng = deepspeed_tpu_torch.init_inference(
+        model_config=dataclasses.replace(cfg, use_flash_attention=False), params=eng.params,
+        dtype=torch.bfloat16)
+    reqs = moe_requests()
+    ids = generate_ids()
+    with torch.inference_mode():
+        tie = near_tie_tol(eng.prefill(ids, *eng.init_cache(4, 256))[0])
+    # witnesses outside the serving code: the layer against the dense form
+    # at the decode step's, a prefill chunk's and a whole prompt's shapes,
+    # and each prompt's prefill logits against models/gpt2.apply
+    leaves = {k: moe_params["blocks"][k][0] for k in MOE_PARAM_KEYS}
+    witnesses = [moe_ffn_vs_dense(torch, leaves, shape, False, "cuda")
+                 for shape in ((MOE_SLOT["num_slots"], 1), (1, MOE_SLOT["prefill_chunk"]),
+                               (1, 256))]
+    for w in witnesses:
+        check_moe_witness("serve_moe_bf16", w)
+    dev_params = _device_tree(torch, moe_params, torch.bfloat16, "cuda")
+    vs_apply = prefill_vs_apply(torch, eng, dev_params, cfg, [p for p, _ in reqs], "cuda")
+    del dev_params
+    torch.cuda.empty_cache()
+    worst = max(v["spacings"] for v in vs_apply)
+    check(worst <= MOE_PREFILL_SPACINGS,
+          f"serve_moe_bf16: prefill logits differ from gpt2.apply's by {worst} bf16 spacings "
+          f"> {MOE_PREFILL_SPACINGS}")
+    solo, solo_dropped = [], set()
+    for i, (p, n) in enumerate(reqs):
+        with record_drops() as rec:
+            solo.append(eng.generate(p[None], max_new_tokens=n)[0])
+        if rec.counts()["dropped"]:
+            solo_dropped.add(i)
+    out, all_launches = {}, {}
+    for pool, conf, decode in (("slot", MOE_SLOT, "flash_decode"),
+                               ("paged", MOE_PAGED, "flash_decode_paged")):
+        srv = ServingEngine(eng, config=conf)
+        # -- the main path: counters zeroed just before, read just after ---
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        done, dropped, drops = _moe_serve(srv, reqs)
+        gen = eng.generate(ids, max_new_tokens=GEN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, variants = kernels.launches(), kernels.launch_variants()
+        # ------------------------------------------------------------------
+        _main_path_launches(f"serve_moe_bf16 {pool}", launches, variants, (decode,))
+        check(gen.shape == (4, 256 + GEN_NEW), f"serve_moe_bf16: generate() gave {gen.shape}")
+        replay, replay_dropped, _ = _moe_serve(ServingEngine(plain_eng, config=conf), reqs)
+        flips, held = [], {"solo": 0, "replay": 0}
+        # not a gate: how many served outputs equal solo generate() anyway
+        same_as_solo = sum(np.array_equal(r.tokens(), want) for r, want in zip(done, solo))
+        for i, (r, (p, n)) in enumerate(zip(done, reqs)):
+            check(r.finish_reason == "length" and len(r.generated) == n,
+                  f"serve_moe_bf16 {pool} request {i}: {r.finish_reason}, {len(r.generated)}")
+            clean = (r.request_id not in dropped and replay[i].request_id not in replay_dropped
+                     and i not in solo_dropped)
+            want = solo[i] if clean else replay[i].tokens()
+            held["solo" if clean else "replay"] += 1
+            diff = first_difference(eng, len(p), r.tokens(), want, tie)
+            if diff is not None:
+                check(diff["ok"], f"serve_moe_bf16 {pool} request {i} differs from "
+                                  f"{'solo generate()' if clean else 'the plain replay'} at "
+                                  f"token {diff['at']}, gap {diff['gap']} above {tie}")
+                flips.append({"request": i, "against": "solo" if clean else "replay", **diff})
+        leaked = None
+        if pool == "paged":
+            live, acc = srv.pool.pages_live, accounted_pages(srv.pool)
+            leaked = live - len(acc)
+            check(leaked == 0, f"serve_moe_bf16: {live} pages live, {len(acc)} accounted")
+        out[pool] = {**_serve_rates(srv, done, wall), "requests_with_drops": len(dropped),
+                     "held_to": held, "near_tie_flips": flips, "leaked_pages": leaked,
+                     "equal_to_solo_generate": int(same_as_solo),
+                     "routed_assignments": drops["assignments"],
+                     "dropped_assignments": drops["dropped"],
+                     "launches": {n: c for n, c in launches.items() if c}}
+        for n, c in launches.items():
+            all_launches[n] = all_launches.get(n, 0) + c
+        del srv
+    emit({"phase": "serve_moe_bf16", "model": "gpt2 124M widths, 8 experts top-2",
+          "params": cfg.num_params(), "served": len(reqs), "near_tie_tol": tie,
+          "solo_requests_with_drops": len(solo_dropped), "moe_ffn_vs_dense": witnesses,
+          "moe_ffn_tol": MOE_FFN_RTOL, "prefill_vs_apply": vs_apply,
+          "prefill_vs_apply_tol_spacings": MOE_PREFILL_SPACINGS, **out})
+    del eng, plain_eng
+    torch.cuda.empty_cache()
+    return all_launches
+
+
+class PipeEmbed:
+    """GPT-2's token and position embeddings as a pipeline layer (tied
+    with :func:`pipe_head` under the key ``embed``)."""
+
+    def __init__(self, vocab, positions, d):
+        self.vocab, self.positions, self.d = vocab, positions, d
+
+    def init(self, rng):
+        return {"wte": (rng.standard_normal((self.vocab, self.d)) * 0.02).astype(np.float32),
+                "wpe": (rng.standard_normal((self.positions, self.d)) * 0.01).astype(np.float32)}
+
+    def num_params(self):
+        return (self.vocab + self.positions) * self.d
+
+    def apply(self, params, tokens, generator=None):
+        T = tokens.shape[1]
+        return params["wte"][tokens.long()] + params["wpe"][:T][None]
+
+
+def pipe_head(params, x):
+    return x @ params["wte"].t().to(x.dtype)
+
+
+class PipeBlock:
+    """One GPT-2 block of the port (``models/gpt2.py`` ``_block``)."""
+
+    def __init__(self, **cfg):
+        from deepspeed_tpu_torch.models import gpt2
+
+        self.cfg = dataclasses.replace(gpt2.GPT2Config(**cfg), remat=False)
+
+    def init(self, rng):
+        d, std = self.cfg.n_embd, 0.02
+        proj = std / np.sqrt(2 * self.cfg.n_layer)
+        n = lambda *s, sc=std: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+        z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+        return {"ln1_g": np.ones(d, np.float32), "ln1_b": z(d), "qkv_w": n(d, 3 * d),
+                "qkv_b": z(3 * d), "proj_w": n(d, d, sc=proj), "proj_b": z(d),
+                "ln2_g": np.ones(d, np.float32), "ln2_b": z(d), "fc_w": n(d, 4 * d),
+                "fc_b": z(4 * d), "fc_proj_w": n(4 * d, d, sc=proj), "fc_proj_b": z(d)}
+
+    def num_params(self):
+        d = self.cfg.n_embd
+        return 12 * d * d + 13 * d
+
+    def apply(self, params, x, generator=None):
+        from deepspeed_tpu_torch.models import gpt2
+
+        return gpt2._block(self.cfg, x, params, None, True)[0]
+
+
+class PipeFinalLN:
+    def __init__(self, d, eps=1e-5):
+        self.d, self.eps = d, eps
+
+    def init(self, rng):
+        return {"g": np.ones(self.d, np.float32), "b": np.zeros(self.d, np.float32)}
+
+    def num_params(self):
+        return 2 * self.d
+
+    def apply(self, params, x, generator=None):
+        from deepspeed_tpu_torch.ops.normalize import layer_norm
+
+        return layer_norm(x, params["g"], params["b"], self.eps)
+
+
+def pipe_next_token_nll(logits, tokens):
+    """GPT-2's loss: the next token's NLL over every position but the last."""
+    import torch
+
+    lg = logits[:, :-1].float()
+    return torch.nn.functional.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                             tokens[:, 1:].reshape(-1).long())
+
+
+def gpt2_pipe_module(n_layer=12, activation_checkpoint_interval=0):
+    """GPT-2 124M as a ``PipelineModule``: the tied embedding, ``n_layer``
+    blocks, the final LayerNorm and the tied head, the next-token NLL."""
+    sys.path.insert(0, REPO)
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime.pipe import LayerSpec, PipelineModule, TiedLayerSpec
+
+    c = dataclasses.replace(gpt2.PRESETS["gpt2"], n_layer=n_layer)
+    cfg = {k: getattr(c, k) for k in ("vocab_size", "n_positions", "n_embd", "n_layer", "n_head")}
+    layers = ([TiedLayerSpec("embed", PipeEmbed, c.vocab_size, c.n_positions, c.n_embd)]
+              + [LayerSpec(PipeBlock, **cfg) for _ in range(n_layer)]
+              + [LayerSpec(PipeFinalLN, c.n_embd),
+                 TiedLayerSpec("embed", PipeEmbed, c.vocab_size, c.n_positions, c.n_embd,
+                               forward_fn=pipe_head)])
+    return PipelineModule(layers, loss_fn=pipe_next_token_nll, partition_method="parameters",
+                          activation_checkpoint_interval=activation_checkpoint_interval), None
+
+
+def _pipe_config(stages, gas):
+    return {**_gpt2_bf16_config(8, gas), "mesh": {"pipe": stages},
+            "pipeline": {"schedule": "1f1b"}}
+
+
+def pipe_witness(init, seq, pipe, seq_norms, pipe_norms):
+    """The pipelined run against one stage: by step, the worst relative
+    gap of a gradient norm (every leaf, a stacked leaf block by block;
+    :func:`tools.pipe_worker.record_grad_norms`), and the worst relative
+    gap of a parameter's change over the steps ``seq`` and ``pipe`` were
+    taken after, ``|P_pipe - P_seq| / |P_seq - P_init|`` (Frobenius, a
+    stacked leaf block by block)."""
+    grad = []
+    for s, (want, got) in enumerate(zip(seq_norms, pipe_norms)):
+        check(len(got) >= len(want), f"train_pipe_bf16: step {s} noted {len(got)} gradient "
+                                     f"norms, one stage {len(want)}")
+        gaps = {name: abs(g - want[name.split("@")[0]]) / max(want[name.split("@")[0]], 1e-30)
+                for name, g in got.items()}
+        worst = max(gaps, key=gaps.get)
+        grad.append({"gap": gaps[worst], "leaf": worst, "compared": len(gaps)})
+    param = {}
+    for path, p0 in init.items():
+        a, b = np.asarray(pipe[path], np.float64), np.asarray(seq[path], np.float64)
+        d = b - np.asarray(p0, np.float64)
+        rows = range(a.shape[0]) if path.startswith("blocks/") else [None]
+        for j in rows:
+            key = path if j is None else f"{path}#{j}"
+            sl = slice(None) if j is None else j
+            param[key] = float(np.linalg.norm(a[sl] - b[sl]) / max(np.linalg.norm(d[sl]), 1e-30))
+    top = sorted(param, key=param.get, reverse=True)[:3]
+    return {"grad_norm_gaps_by_step": grad, "param_change_rel_gap": param[top[0]],
+            "param_change_worst": [[k, param[k]] for k in top],
+            "param_blocks_compared": len(param)}
+
+
+def _stage_norms(ranks):
+    """The stages' gradient norms merged step by step; a leaf every stage
+    holds (the reduction makes its norms equal) is kept once a stage,
+    under ``<name>@stage<s>``."""
+    return [{(name if "#" in name else f"{name}@stage{r['stage']}"): v
+             for r in ranks for name, v in r["grad_norms"][s].items()}
+            for s in range(len(ranks[0]["grad_norms"]))]
+
+
+def phase_train_pipe_bf16(torch):
+    """GPT-2 124M assembled as a ``PipelineModule`` (:func:`gpt2_pipe_module`)
+    trained in bf16 over two stage processes sharing the card (gloo between
+    them, activations and their gradients through pinned host memory;
+    ``tools/pipe_worker.py``), ``1f1b`` over 4 micro-batches of 8 x 1024,
+    3 steps on one repeated batch (so the loss moves): each stage's
+    counters zeroed just before its steps and read just after (B1, B2 and
+    B3 launched on each stage).  Held to the same module at one stage in
+    this process: the losses within PIPE_BF16_LOSS_RTOL; every leaf's
+    gradient norm (a block's leaves block by block, the tied embedding's
+    after the stages' sum) within PIPE_BF16_GRAD0_RTOL at the first step
+    and PIPE_BF16_GRAD_RTOL at the others; every leaf's (block's) change
+    over the first step within PIPE_BF16_PARAM_RTOL (:func:`pipe_witness`).  Prints ms a step and, per stage, the share of
+    the step's wall outside its own CUDA-event spans (with the stages on
+    one card the spans take in the other stage's kernels too, so this is
+    not the card's idle time) and peak GiB."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+    from deepspeed_tpu_torch.tools.pipe_worker import record_grad_norms
+
+    steps, gas, T = 3, 4, 1024
+    one = np.random.default_rng(31).integers(0, 50257, (gas * 8, T), dtype=np.int32)
+    ids = np.stack([one] * steps)
+    with tempfile.TemporaryDirectory() as root:
+        np.savez(os.path.join(root, "b.npz"), x=ids, y=ids)
+        case = {"name": "pipe2", "module": {"factory": os.path.join(REPO, "chip_smoke.py")
+                                            + ":gpt2_pipe_module"},
+                "config": _pipe_config(2, gas), "batches": os.path.join(root, "b.npz"),
+                "steps": steps, "record": "full", "record_step": 1, "grad_norms": True}
+        spec = {"device": "cuda", "backend": "gloo", "deterministic": False, "threads": 4,
+                "init_method": f"file://{root}/store", "out": root, "cases": [case]}
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        procs = []
+        t0 = time.perf_counter()
+        for r in range(2):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                       PYTHONPATH=REPO)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "deepspeed_tpu_torch.tools.pipe_worker",
+                 os.path.join(root, "spec.json")], env=env, cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.perf_counter() - t0
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"train_pipe_bf16: stage {r} exited {p.returncode}:\n"
+                                     f"{o[-3000:]}")
+        with open(os.path.join(root, "pipe2.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(root, "pipe2.npz")) as z:
+            pipe_params = {k: z[k] for k in z.files}
+    # the same module at one stage, in this process
+    module, _ = gpt2_pipe_module()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    engine, *_ = deepspeed_tpu_torch.initialize(model=module, config=_pipe_config(1, gas))
+    init = {p: t.cpu().numpy() for p, t in tree_items(engine.params)}
+    seq_norms = record_grad_norms(engine)
+    seq = [float(engine.train_batch(batch=(ids[0], ids[0])))]
+    seq_params = {p: t.cpu().numpy() for p, t in tree_items(engine.params)}
+    seq += [float(engine.train_batch(batch=(ids[s], ids[s]))) for s in range(1, steps)]
+    del engine
+    torch.cuda.empty_cache()
+    witness = pipe_witness(init, seq_params, pipe_params, seq_norms,
+                           _stage_norms(meta["ranks"]))
+    del init, seq_params, pipe_params
+    losses = meta["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, seq)]
+    launches = {}
+    for rank in meta["ranks"]:
+        for n, c in rank["launches"].items():
+            launches[n] = launches.get(n, 0) + c
+    tokens = gas * 8 * T
+    step_s = float(np.mean(meta["ms"][1:])) / 1e3
+    emit({"phase": "train_pipe_bf16", "model": "gpt2 124M as a PipelineModule",
+          "stages": 2, "schedule": "1f1b", "micro_batches": gas, "micro_batch": 8, "T": T,
+          "batch": "one batch repeated each step",
+          "transport": "gloo, pinned host copies (stage processes share the card)",
+          "losses": losses, "one_stage_losses": seq, "max_rel_diff": max(rel),
+          "tol": PIPE_BF16_LOSS_RTOL, **witness, "grad_tol_first_step": PIPE_BF16_GRAD0_RTOL,
+          "grad_tol": PIPE_BF16_GRAD_RTOL, "param_tol": PIPE_BF16_PARAM_RTOL,
+          "step_ms": meta["ms"],
+          "step_ms_mean_after_first": step_s * 1e3, "tokens_per_s": tokens / step_s,
+          "outside_own_spans_by_stage": {r["stage"]: r["idle"] for r in meta["ranks"]},
+          "peak_gib_by_stage": {r["stage"]: (r["peak"] or 0) / 2**30 for r in meta["ranks"]},
+          "bytes_by_stage": {r["stage"]: r["comm"][-1] for r in meta["ranks"]},
+          "model_bytes_by_stage": {r["stage"]: r["model"] for r in meta["ranks"]},
+          "max_live_by_stage": {r["stage"]: r["max_live"] for r in meta["ranks"]},
+          "wall_s": wall, "launches_by_stage": {r["stage"]: {n: c for n, c in r["launches"].items()
+                                                             if c} for r in meta["ranks"]}})
+    check(all(np.isfinite(losses)), f"train_pipe_bf16: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train_pipe_bf16: loss did not fall: {losses}")
+    check(max(rel) <= PIPE_BF16_LOSS_RTOL,
+          f"train_pipe_bf16: pipelined vs one-stage losses differ by {max(rel)}")
+    for s, g in enumerate(witness["grad_norm_gaps_by_step"]):
+        tol = PIPE_BF16_GRAD0_RTOL if s == 0 else PIPE_BF16_GRAD_RTOL
+        check(g["gap"] <= tol, f"train_pipe_bf16: step {s}'s gradient norm of {g['leaf']} "
+                               f"differs from one stage's by {g['gap']} > {tol}")
+    check(witness["param_change_rel_gap"] <= PIPE_BF16_PARAM_RTOL,
+          f"train_pipe_bf16: parameter {witness['param_change_worst'][0][0]} moved "
+          f"{witness['param_change_rel_gap']} (relative) away from one stage's > "
+          f"{PIPE_BF16_PARAM_RTOL}")
+    for rank in meta["ranks"]:
+        for name in ("flash_fwd", "flash_bwd", "fused_adam"):
+            check(rank["launches"].get(name, 0) > 0,
+                  f"train_pipe_bf16: stage {rank['stage']} launched no {name}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4549,6 +5212,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_sparse_f32(torch)
     sparse_launches = phase_train_sparse_bf16(torch)
+    torch.cuda.empty_cache()
+    moe_params = gpt2.init_params(_moe_cfg(), seed=0)
+    moe_train_launches = phase_train_moe_bf16(torch, moe_params)
+    moe_serve_launches = phase_serve_moe_bf16(torch, moe_params)
+    del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe_launches = phase_train_pipe_bf16(torch)
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "serving_tp": serve_tp_launches.get(name, 0),
                       "serving_tiers": tiers_launches[name],
@@ -4565,7 +5236,10 @@ def main() -> int:
                       "training_resume_bert": resume_bert_launches[name],
                       "training_bert_dropout": drop_launches[name],
                       "transformer_layer": layer_launches[name],
-                      "training_sparse": sparse_launches[name]}
+                      "training_sparse": sparse_launches[name],
+                      "training_moe": moe_train_launches.get(name, 0),
+                      "serving_moe": moe_serve_launches.get(name, 0),
+                      "training_pipe": pipe_launches.get(name, 0)}
                for name in serve_launches}
 
     # the main-path shapes: the GPT-2 training step's bf16 attention (B=8,

@@ -2,8 +2,9 @@
 NVIDIA H100.
 
 The JAX package stays the reference; this package keeps its module paths
-and names.  ``initialize`` trains (one device, or ZeRO 0-3, tensor and
-sequence parallelism across the ranks of a ``torch.distributed`` group),
+and names.  ``initialize`` trains (one device, or ZeRO 0-3, tensor,
+sequence and expert parallelism and pipeline stages across the ranks of a
+``torch.distributed`` group),
 ``init_inference`` and ``init_serving`` serve (one device, or tensor
 parallel over ``mp_size`` ranks of a group).  The kernels the JAX
 package wrote in Pallas for the TPU are CUDA C++ kernels here
@@ -73,12 +74,19 @@ def initialize(
       ``gpt2.parallel_comm_model`` and BERT's, bound to the config with
       ``functools.partial``).
 
+    * A :class:`~deepspeed_tpu_torch.runtime.pipe.PipelineModule` as
+      ``model`` builds a
+      :class:`~deepspeed_tpu_torch.runtime.pipe.engine.PipelineEngine`
+      (``model_parameters`` optional: the module builds them from the
+      config's ``seed``); a ``loss_fn`` here becomes the module's.
+
     Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
     without ``training_data``; it hands each data-parallel rank its own
-    slice of every epoch.  Pipeline modules (A11) are not ported."""
+    slice of every epoch."""
     from deepspeed_tpu_torch.config.config import DeepSpeedConfig, DeepSpeedConfigError
     from deepspeed_tpu_torch.utils.device import resolve_device
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
     device = resolve_device(device)
     if config is None and config_params is not None:
@@ -89,7 +97,8 @@ def initialize(
         raise DeepSpeedConfigError("initialize() needs `config` (dict or json path)")
     if model is None:
         raise ValueError("initialize() needs `model` (callable (params, batch, generator) -> loss/outputs)")
-    if model_parameters is None:
+    is_pipe = isinstance(model, PipelineModule)
+    if model_parameters is None and not is_pipe:
         raise ValueError("initialize() needs `model_parameters` (initial parameter tree)")
     from deepspeed_tpu_torch.comm.distributed import init_distributed
     from deepspeed_tpu_torch.comm.mesh import Mesh, make_mesh
@@ -100,12 +109,28 @@ def initialize(
         mesh = make_mesh(mesh)
     ds_config = DeepSpeedConfig(
         config, world_size=None if mesh is None else mesh.sizes["data"] * mesh.sizes["fsdp"])
-    engine = DeepSpeedEngine(
-        model=model, params=model_parameters, config=ds_config,
-        optimizer=optimizer, lr_scheduler=lr_scheduler, loss_fn=loss_fn, device=device,
-        mesh=mesh, tp_spec_fn=tp_spec_fn, partition_rules=partition_rules,
-        mesh_check=mesh_check, comm_model=comm_model,
-    )
+    if is_pipe:
+        # the reference's rule (deepspeed/__init__.py:125-149): a
+        # PipelineModule trains on a PipelineEngine
+        from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+
+        if loss_fn is not None:
+            if model.loss_fn is not None and model.loss_fn is not loss_fn:
+                raise ValueError("loss_fn given both to PipelineModule and initialize()")
+            model.loss_fn = loss_fn
+        engine = PipelineEngine(
+            module=model, config=ds_config, mesh=mesh, params=model_parameters,
+            optimizer=optimizer, lr_scheduler=lr_scheduler, device=device,
+            tp_spec_fn=tp_spec_fn, partition_rules=partition_rules,
+            mesh_check=mesh_check, comm_model=comm_model,
+        )
+    else:
+        engine = DeepSpeedEngine(
+            model=model, params=model_parameters, config=ds_config,
+            optimizer=optimizer, lr_scheduler=lr_scheduler, loss_fn=loss_fn, device=device,
+            mesh=mesh, tp_spec_fn=tp_spec_fn, partition_rules=partition_rules,
+            mesh_check=mesh_check, comm_model=comm_model,
+        )
     loader = None
     if training_data is not None:
         from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader

@@ -10,7 +10,7 @@ reduce-scatter its shard once, an all-to-all its input once, a ring
 exchange the bytes it sends.  ``kind`` names the count (the model's
 ``all-gather``, ``reduce-scatter``, ``all-reduce``, ``grad-exchange``, or
 a kind of the port's own such as ``update-all-gather``, ``tp-all-reduce``,
-``seq-all-to-all``, ``seq-p2p``);
+``seq-all-to-all``, ``seq-p2p``, ``expert-all-reduce``, ``pipe-p2p``);
 :func:`reset_counts` and :func:`counts` read them.  The counts are host
 integers from tensor shapes: counting never waits on the device.
 
@@ -171,6 +171,42 @@ class _Pending:
             r.wait()
         self.sends = None
         return self.recvs
+
+
+def _host_staged(device, group) -> bool:
+    """Whether a transfer from or to ``device`` goes through host memory: a
+    CUDA tensor on a gloo group (gloo's send and receive take host tensors
+    only)."""
+    return torch.device(device).type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def p2p_send(x: torch.Tensor, dst: int, group, kind: str = "p2p") -> "_Pending":
+    """Post a send of ``x`` to global rank ``dst`` of ``group`` (its bytes,
+    any dtype, as ``uint8``); ``wait()`` on the handle ends it.  A CUDA
+    tensor on a gloo group is copied to pinned host memory first (stage
+    processes sharing one card)."""
+    raw = x.detach().contiguous().reshape(-1).view(torch.uint8)
+    if _host_staged(raw.device, group):
+        host = torch.empty(raw.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(raw)
+        raw = host
+    req = dist.isend(raw, dst, group=group)
+    _count(kind, raw.numel())
+    return _Pending([req], [], [raw])
+
+
+def p2p_recv(shape, dtype: torch.dtype, device, src: int, group) -> torch.Tensor:
+    """Receive from global rank ``src`` of ``group`` what :func:`p2p_send`
+    sent, as a tensor of ``shape`` and ``dtype`` on ``device`` (blocks
+    until it has arrived)."""
+    n = int(torch.Size(shape).numel()) * torch.empty((), dtype=dtype).element_size()
+    staged = _host_staged(device, group)
+    buf = torch.empty((n,), dtype=torch.uint8, device="cpu" if staged else device,
+                      pin_memory=staged)
+    dist.recv(buf, src, group=group)
+    if staged:
+        buf = buf.to(device, non_blocking=True)
+    return buf.view(dtype).reshape(shape)
 
 
 def broadcast_object(obj: Any, src: int = 0, group=None) -> Any:

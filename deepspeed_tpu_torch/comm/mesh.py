@@ -12,7 +12,10 @@ that differ only along a set of axes form one process group;
 ``fsdp``, and both: the data-parallel grid ZeRO partitions over;
 ``model``, the tensor-parallel group of the Megatron operators
 (``parallel/tensor.py``); ``seq``, the ring and the all-to-all of
-``parallel/sequence.py``, and the gradients' all-reduce over it).
+``parallel/sequence.py``, and the gradients' all-reduce over it;
+``expert``, the MoE layer's sum over its experts (``moe/layer.py``);
+``pipe``, the pipeline's stage-to-stage transfers and its replicated
+leaves' gradient sum (``runtime/pipe/engine.py``)).
 :meth:`Mesh.ensure_groups` adds others (LAMB's norms over the axes that
 cut a leaf); the step's scalars travel over every rank
 (:meth:`Mesh.world_group`).
@@ -37,7 +40,7 @@ from deepspeed_tpu_torch.sharding.spec import entry_axes, spec_tuple
 
 # the axis sets whose groups the engine asks for
 GROUP_AXES: Tuple[Tuple[str, ...], ...] = (
-    ("data",), ("fsdp",), ("data", "fsdp"), ("model",), ("seq",))
+    ("data",), ("fsdp",), ("data", "fsdp"), ("model",), ("seq",), ("expert",), ("pipe",))
 
 
 class Mesh:

@@ -1017,19 +1017,13 @@ class ZeroConfig:
         return out
 
 
-# mesh axes the port does not shard over yet, and their ROADMAP items
-_MESH_NOT_PORTED = {
-    "pipe": "A11 (pipeline)",
-    "expert": "A11 (MoE expert parallelism)",
-}
-
-
 @dataclass
 class MeshConfig:
     """``mesh``: the named axis sizes, parsed as the JAX package parses
     them; ``data`` defaults to whatever the world size leaves (-1).  The
-    port shards over ``data``, ``fsdp``, ``seq`` and ``model``; a ``pipe``
-    or ``expert`` axis larger than 1 raises, naming its item."""
+    port shards over every axis: ``data`` and ``fsdp`` (ZeRO), ``seq``
+    and ``model`` (sequence and tensor parallelism), ``expert`` (a MoE
+    layer's experts) and ``pipe`` (a ``PipelineModule``'s stages)."""
 
     data: int = -1
     fsdp: int = 1
@@ -1054,9 +1048,38 @@ class MeshConfig:
             expert=int(d.pop("expert", 1)),
         )
         _check_empty(d, C.MESH, _known_keys(cls))
-        for axis, item in _MESH_NOT_PORTED.items():
-            if getattr(out, axis) not in (1, -1):
-                raise _not_ported(f"{C.MESH}.{axis} = {getattr(out, axis)}", item)
+        return out
+
+
+@dataclass
+class PipelineConfig:
+    """``pipeline``: parsed as the JAX package parses it.  ``schedule``
+    ``"1f1b"`` (the reference ``TrainSchedule``: at most ``stages``
+    micro-batches' stage inputs live) or ``"gpipe"`` (all forwards, then
+    all backwards); ``activation_checkpoint_interval`` > 0 recomputes the
+    stage's blocks in the backward."""
+
+    stages: Any = "auto"
+    partition: str = "best"
+    seed_layers: bool = False
+    activation_checkpoint_interval: int = 0
+    schedule: str = "1f1b"
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "PipelineConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            stages=d.pop("stages", "auto"),
+            partition=d.pop("partition", "best"),
+            seed_layers=bool(d.pop("seed_layers", False)),
+            activation_checkpoint_interval=int(d.pop("activation_checkpoint_interval", 0)),
+            schedule=str(d.pop("schedule", "1f1b")).lower(),
+        )
+        if out.schedule not in ("1f1b", "gpipe"):
+            raise ValueError(f"pipeline.schedule must be '1f1b' or 'gpipe', got {out.schedule!r}")
+        _check_empty(d, C.PIPELINE, _known_keys(cls))
         return out
 
 
@@ -1422,7 +1445,6 @@ _TOP_NOT_PORTED = {
     "amp": (_off_block, "A13"),
     "wall_clock_breakdown": (lambda v: v is False, "A14"),
     "tensorboard": (_off_block, "A14"),
-    "pipeline": (_off_block, "A11 runtime/pipe/"),
     "sanitizer": (_off_block, "A15"),
     "telemetry": (_off_block, "A14 telemetry/"),
     "kernels": (lambda v: v is None or v == {} or v == {"enabled": "auto"},
@@ -1438,7 +1460,7 @@ _TOP_NOT_PORTED = {
 _PORTED_TOP_LEVEL = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.OPTIMIZER, C.SCHEDULER, C.FP16, C.BF16, C.ZERO_OPTIMIZATION, C.GRADIENT_CLIPPING,
-    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.SERVING, C.SPARSE_ATTENTION, C.RESILIENCE, C.OVERLAP,
+    C.STEPS_PER_PRINT, C.SEED, C.MESH, C.PIPELINE, C.SERVING, C.SPARSE_ATTENTION, C.RESILIENCE, C.OVERLAP,
     C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST, C.COMM,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS,
     C.ALLREDUCE_ALWAYS_FP32, C.MEMORY_BREAKDOWN, C.DUMP_STATE, C.DISABLE_ALLGATHER,
@@ -1479,6 +1501,7 @@ class DeepSpeedConfig:
         self.bf16 = Bf16Config.from_dict(d.get(C.BF16))
         self.zero_config = ZeroConfig.from_dict(d.get(C.ZERO_OPTIMIZATION))
         self.mesh = MeshConfig.from_dict(d.get(C.MESH))
+        self.pipeline = PipelineConfig.from_dict(d.get(C.PIPELINE))
         self.comm = CommConfig.from_dict(d.get(C.COMM))
         if world_size is None:
             world_size = _dp_world_size(self.mesh)

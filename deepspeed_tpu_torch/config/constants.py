@@ -84,6 +84,7 @@ ZERO_STAGE_DEFAULT = 0
 MAX_STAGE_ZERO_OPTIMIZATION = 3
 
 MESH = "mesh"
+PIPELINE = "pipeline"
 MESH_AXES = ("data", "fsdp", "model", "pipe", "seq", "expert")
 
 # comm block (the JAX package's constants)

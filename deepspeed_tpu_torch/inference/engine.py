@@ -260,7 +260,7 @@ class InferenceEngine:
 
             _, flat = load_params(checkpoint, checkpoint_tag)
             params, from_file, owned = tree_from_paths(flat), True, True
-        if params is None and init_on_device:
+        if params is None and init_on_device and getattr(self.model_config, "n_experts", 0) == 0:
             self.params = self._family.init_params_device(
                 self.model_config, seed=seed, dtype=self.dtype, device=self.device, keep=self._keep)
         else:
@@ -428,6 +428,7 @@ class InferenceEngine:
             dtype=self.dtype,
             max_out_tokens=int(max_len),
             use_flash_attention=cfg.use_flash_attention,
+            moe_top_k=getattr(cfg, "moe_top_k", 2),
         )
 
     def init_cache(self, batch: int, max_len: int):

@@ -47,6 +47,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.param_init import LeafSpec, draw_device, draw_host
+from deepspeed_tpu_torch.moe.layer import (
+    MOE_PARAM_KEYS,
+    MoEConfig,
+    expert_group,
+    init_moe_params,
+    moe_ffn_from_block,
+    recompute_contexts,
+    route_group,
+)
 from deepspeed_tpu_torch.ops.attention.flash_attention import flash_attention, mha_reference
 from deepspeed_tpu_torch.ops.attention.sparse import BigBirdSparsityConfig, block_sparse_attention
 from deepspeed_tpu_torch.ops.normalize import dropout as _dropout
@@ -80,7 +89,12 @@ class GPT2Config:
     attention_mode: str = "flash"
     # a SparsityConfig instance (ops/attention/sparse.py); None: BigBird
     sparsity_config: Any = None
-    n_experts: int = 0  # MoE FFNs are ROADMAP A11
+    # MoE: >0 replaces every block's FFN with an n_experts MoE layer
+    # (experts cut over the `expert` mesh axis, moe/layer.py)
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     remat: bool = True  # activation checkpointing per block
     # >0: cross-entropy in time-chunks of this size, each recomputed in the
     # backward, so the (B, T, vocab) logits never materialize whole
@@ -93,8 +107,6 @@ class GPT2Config:
     flash_blocks: tuple = ()
 
     def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError("MoE GPT-2 (n_experts > 0) is not ported yet (ROADMAP A11)")
         if self.remat_save_names:
             raise NotImplementedError(
                 "selective remat (remat_save_names) is not ported yet "
@@ -112,7 +124,13 @@ class GPT2Config:
 
     def num_params(self) -> int:
         d, l, v, s = self.n_embd, self.n_layer, self.vocab_size, self.n_positions
-        return v * d + s * d + l * (12 * d * d + 13 * d) + 2 * d
+        if self.n_experts > 0:
+            E = self.n_experts
+            # attention (qkv+proj) + LNs + router + E expert FFNs
+            per_layer = 4 * d * d + 8 * d + d * E + E * (8 * d * d + 5 * d)
+        else:
+            per_layer = 12 * d * d + 13 * d
+        return v * d + s * d + l * per_layer + 2 * d
 
 
 # Model zoo (sizes as in the GPT-2 paper)
@@ -139,6 +157,12 @@ BLOCK_KEYS = (
     "ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
     "ln2_g", "ln2_b", "fc_w", "fc_b", "fc_proj_w", "fc_proj_b",
 )
+# a MoE block: the attention half and the expert FFN (moe/layer.py)
+MOE_BLOCK_KEYS = BLOCK_KEYS[:8] + MOE_PARAM_KEYS
+
+
+def block_keys(cfg: GPT2Config) -> tuple:
+    return MOE_BLOCK_KEYS if cfg.n_experts > 0 else BLOCK_KEYS
 
 
 # the JAX package's ``init_params`` draws the MLP's leaves first
@@ -156,6 +180,13 @@ def param_specs(cfg: GPT2Config) -> Dict[str, Any]:
     n = lambda *shape, s=std: LeafSpec("n", shape, s)  # noqa: E731
     z = lambda *shape: LeafSpec("z", shape)  # noqa: E731
     o = lambda *shape: LeafSpec("o", shape)  # noqa: E731
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        ffn = {"gate_w": n(l, d, E), "w1": n(l, E, d, 4 * d), "b1": z(l, E, 4 * d),
+               "w2": n(l, E, 4 * d, d, s=proj_std), "b2": z(l, E, d)}
+    else:
+        ffn = {"fc_w": n(l, d, 4 * d), "fc_b": z(l, 4 * d),
+               "fc_proj_w": n(l, 4 * d, d, s=proj_std), "fc_proj_b": z(l, d)}
     return {
         "wte": n(cfg.vocab_size, d),
         "wpe": n(cfg.n_positions, d, s=0.01),
@@ -164,8 +195,7 @@ def param_specs(cfg: GPT2Config) -> Dict[str, Any]:
             "qkv_w": n(l, d, 3 * d), "qkv_b": z(l, 3 * d),
             "proj_w": n(l, d, d, s=proj_std), "proj_b": z(l, d),
             "ln2_g": o(l, d), "ln2_b": z(l, d),
-            "fc_w": n(l, d, 4 * d), "fc_b": z(l, 4 * d),
-            "fc_proj_w": n(l, 4 * d, d, s=proj_std), "fc_proj_b": z(l, d),
+            **ffn,
         },
         "lnf_g": o(d),
         "lnf_b": z(d),
@@ -174,8 +204,23 @@ def param_specs(cfg: GPT2Config) -> Dict[str, Any]:
 
 def init_params(cfg: GPT2Config, seed: int = 0) -> Dict[str, Any]:
     """GPT-2 init as numpy arrays (:func:`param_specs`).  Same generator,
-    draw order and values as the JAX package's ``init_params``."""
-    return draw_host(param_specs(cfg), seed, first=_FFN_FIRST)
+    draw order and values as the JAX package's ``init_params``: the FFN
+    first (a MoE model's layer by layer, ``init_moe_params``), then the
+    rest in the tree's order."""
+    if cfg.n_experts == 0:
+        return draw_host(param_specs(cfg), seed, first=_FFN_FIRST)
+    d, l = cfg.n_embd, cfg.n_layer
+    std = 0.02
+    rng = np.random.default_rng(seed)
+    mcfg = MoEConfig(num_experts=cfg.n_experts, d_model=d, d_ff=4 * d)
+    per_layer = [init_moe_params(mcfg, rng, std=std, proj_std=std / np.sqrt(2 * l))
+                 for _ in range(l)]
+    specs = param_specs(cfg)
+    for k in MOE_PARAM_KEYS:
+        specs["blocks"].pop(k)
+    out = draw_host(specs, seed, rng=rng)
+    out["blocks"].update({k: np.stack([p[k] for p in per_layer]) for k in MOE_PARAM_KEYS})
+    return out
 
 
 def init_params_device(cfg: GPT2Config, seed: int = 0, dtype: torch.dtype = torch.float32,
@@ -188,7 +233,7 @@ def init_params_device(cfg: GPT2Config, seed: int = 0, dtype: torch.dtype = torc
     see ``param_init.draw_device`` (``InferenceEngine`` passes a rank's
     cut)."""
     if cfg.n_experts > 0:
-        raise NotImplementedError("device init does not cover MoE (ROADMAP A11); use init_params")
+        raise NotImplementedError("device init does not cover MoE; use init_params")
     return draw_device(param_specs(cfg), seed, dtype, device, keep)
 
 
@@ -206,16 +251,13 @@ def params_from_jax(tree: Dict[str, Any], device: Any = "cpu",
     missing = [k for k in ("wte", "wpe", "blocks", "lnf_g", "lnf_b") if k not in tree]
     if missing:
         raise KeyError(f"GPT-2 parameter tree lacks {missing}")
-    extra = sorted(set(tree["blocks"]) - set(BLOCK_KEYS))
-    if extra:
-        # MoE blocks (gate_w/w1/...) are not ported
-        raise NotImplementedError(
-            f"GPT-2 blocks carry {extra}; only dense blocks are ported (ROADMAP A11)"
-        )
+    keys = MOE_BLOCK_KEYS if "gate_w" in tree["blocks"] else BLOCK_KEYS
+    if set(tree["blocks"]) != set(keys):
+        raise KeyError(f"GPT-2 blocks carry {sorted(tree['blocks'])}, expected {sorted(keys)}")
     return {
         "wte": conv(tree["wte"]),
         "wpe": conv(tree["wpe"]),
-        "blocks": {k: conv(tree["blocks"][k]) for k in BLOCK_KEYS},
+        "blocks": {k: conv(tree["blocks"][k]) for k in keys},
         "lnf_g": conv(tree["lnf_g"]),
         "lnf_b": conv(tree["lnf_b"]),
     }
@@ -265,15 +307,19 @@ def _sparse_attn(cfg: GPT2Config, q, k, v, T: int, tp=None):
 
 class _Parallel:
     """What a forward reads of the ambient mesh: the ``model`` group (None
-    for one rank) and this rank's place on ``seq`` (``P`` ranks)."""
+    for one rank), this rank's place on ``seq`` (``P`` ranks), the
+    ``expert`` group, and (``route_dp``: a training loss) the data-parallel
+    grid a MoE layer routes over."""
 
-    __slots__ = ("mesh", "tp", "P", "r")
+    __slots__ = ("mesh", "tp", "P", "r", "ep", "dp")
 
-    def __init__(self):
+    def __init__(self, route_dp: bool = False):
         self.mesh = _seq.get_global_mesh()
         self.tp = tp_group(self.mesh)
         self.P = 1 if self.mesh is None else int(self.mesh.sizes.get("seq", 1))
         self.r = 0 if self.P == 1 else int(self.mesh.coords["seq"])
+        self.ep = expert_group(self.mesh)
+        self.dp = route_group(self.mesh) if route_dp else None
 
     def fold(self, seed: Optional[int], tp_too: bool = False) -> Optional[int]:
         """A dropout seed of this rank's own: its ``seq`` place (and its
@@ -287,11 +333,16 @@ class _Parallel:
 
 def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
            seeds: Optional[tuple], deterministic: bool,
-           par: Optional[_Parallel] = None) -> torch.Tensor:
+           par: Optional[_Parallel] = None, training: bool = False,
+           token_mask: Optional[torch.Tensor] = None):
     """One transformer block; ``lp`` holds this layer's slice of the
     stacked params (the rank's blocks under tensor parallelism).
     ``seeds``: three ints for the block's dropout generators (None in
-    eval), so a recomputed block draws the same masks."""
+    eval), so a recomputed block draws the same masks.  Returns ``(x,
+    aux)``: the MoE layer's load-balancing loss (zero for a dense block).
+    ``training`` (a generator was threaded in, the JAX package's ``rng is
+    not None``) picks the MoE's training capacity; ``token_mask`` keeps
+    pads out of its routing."""
     B, T, D = x.shape
     tp = par.tp if par is not None else None
     H, hd = cfg.n_head // (tp.size if tp else 1), cfg.head_dim
@@ -329,17 +380,26 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     x = x + _dropout(attn, cfg.dropout, r1, deterministic)
 
     h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_epsilon)
-    h = copy_to_model(h, tp)
-    h = h @ lp["fc_w"].to(h.dtype) + lp["fc_b"].to(h.dtype)
-    h = F.gelu(h, approximate="tanh")
-    h = _dropout(h, cfg.dropout, r2, deterministic)
-    h = reduce_from_model(h @ lp["fc_proj_w"].to(h.dtype), tp) + lp["fc_proj_b"].to(h.dtype)
-    return x + _dropout(h, cfg.dropout, r3, deterministic)
+    if cfg.n_experts > 0:
+        h, aux = moe_ffn_from_block(
+            lp, h, top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            generator=r2, training=training, token_mask=token_mask,
+            ep=par.ep if par is not None else None, tp=tp,
+            dp=par.dp if par is not None else None)
+    else:
+        h = copy_to_model(h, tp)
+        h = h @ lp["fc_w"].to(h.dtype) + lp["fc_b"].to(h.dtype)
+        h = F.gelu(h, approximate="tanh")
+        h = _dropout(h, cfg.dropout, r2, deterministic)
+        h = reduce_from_model(h @ lp["fc_proj_w"].to(h.dtype), tp) + lp["fc_proj_b"].to(h.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + _dropout(h, cfg.dropout, r3, deterministic), aux
 
 
 def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
           generator: Optional[torch.Generator] = None, deterministic: bool = True,
-          return_hidden: bool = False, par: Optional[_Parallel] = None) -> torch.Tensor:
+          return_hidden: bool = False, par: Optional[_Parallel] = None,
+          return_aux: bool = False, token_mask: Optional[torch.Tensor] = None):
     """Forward pass: ``tokens (B, T)`` → logits ``(B, T, V)`` in the
     parameters' type.  ``return_hidden=True`` returns the post-final-LN
     hidden states (B, T, D) instead (the chunked-xent loss).
@@ -347,7 +407,9 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
     off the device); None or ``deterministic`` means no dropout.  Under
     the ambient mesh's ``seq`` axis the result covers this rank's
     positions, under its ``model`` axis the logits this rank's vocabulary
-    block (module docstring)."""
+    block (module docstring).  ``return_aux=True`` also returns the MoE
+    load-balancing loss summed over the blocks (zero for a dense model);
+    ``token_mask (B, T)`` keeps pads out of the MoE routing."""
     par = par or _Parallel()
     B, T = tokens.shape
     pos = slice(0, T)
@@ -358,24 +420,33 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
     wte = materialize(params["wte"])
     x = vocab_parallel_embedding(wte, tokens, par.tp) + materialize(params["wpe"])[pos][None]
     x = x.to(params["blocks"]["qkv_w"].dtype)
-    layers = {key: unstack(params["blocks"][key]) for key in BLOCK_KEYS}
+    keys = block_keys(cfg)
+    layers = {key: unstack(params["blocks"][key]) for key in keys}
     seeds = [None] * cfg.n_layer
     if generator is not None and not deterministic and cfg.dropout > 0.0:
         draw = torch.randint(0, 2**62, (cfg.n_layer, 3), generator=generator,
                              device=generator.device)
         seeds = [tuple(row) for row in draw.tolist()]
-    block_fn = functools.partial(_block, cfg, par=par)
+    if token_mask is not None:
+        token_mask = token_mask[:, pos]
+    block_fn = functools.partial(_block, cfg, par=par, training=generator is not None,
+                                 token_mask=token_mask)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a MoE block's recompute records no drops (moe/layer.py record_drops)
+    remat_kw = {"context_fn": recompute_contexts} if cfg.n_experts > 0 else {}
     for i in range(cfg.n_layer):
-        lp = {key: layers[key][i] for key in BLOCK_KEYS}
+        lp = {key: layers[key][i] for key in keys}
         if cfg.remat:
-            x = checkpoint(block_fn, x, lp, seeds[i], deterministic, use_reentrant=False)
+            x, aux = checkpoint(block_fn, x, lp, seeds[i], deterministic, use_reentrant=False,
+                                **remat_kw)
         else:
-            x = block_fn(x, lp, seeds[i], deterministic)
+            x, aux = block_fn(x, lp, seeds[i], deterministic)
+        aux_total = aux_total + aux
     x = _layer_norm(x, materialize(params["lnf_g"]), materialize(params["lnf_b"]),
                     cfg.layer_norm_epsilon)
-    if return_hidden:
-        return x
-    return copy_to_model(x, par.tp) @ wte.t().to(x.dtype)  # tied embedding head
+    if not return_hidden:
+        x = copy_to_model(x, par.tp) @ wte.t().to(x.dtype)  # tied embedding head
+    return (x, aux_total) if return_aux else x
 
 
 def _xent_chunk(xc, wte, lc, mc, tp=None):
@@ -425,11 +496,14 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
             cfg: GPT2Config = None, deterministic: bool = False) -> torch.Tensor:
     """Next-token cross entropy.  ``batch``: {"input_ids": (B, T)} with
     optional "labels" (default: shifted input_ids) and "attention_mask"."""
-    par = _Parallel()
+    par = _Parallel(route_dp=True)
     tokens = batch["input_ids"]
     chunked = cfg.xent_chunk_size > 0
-    out = apply(params, tokens, cfg, generator=generator, deterministic=deterministic,
-                return_hidden=chunked, par=par)
+    moe = cfg.n_experts > 0
+    out, moe_aux = apply(params, tokens, cfg, generator=generator, deterministic=deterministic,
+                         return_hidden=chunked, par=par, return_aux=True,
+                         token_mask=batch.get("attention_mask") if moe else None)
+    aux = cfg.moe_aux_weight * moe_aux if moe else 0.0
     if chunked:  # the hidden states feed the vocab-parallel head
         out = copy_to_model(out, par.tp)
     if par.P > 1:
@@ -452,11 +526,11 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
     else:
         nll = vocab_parallel_nll(out_shift, labels, par.tp)
         if mask is None:
-            return nll.mean()
+            return nll.mean() + aux
         total, count = (nll * mask).sum(), mask.sum()
     if par.P > 1:
         total, count = _seq.reduce_from_seq(torch.stack([total, count]), par.mesh)
-    return total / torch.clamp(count, min=1.0)
+    return total / torch.clamp(count, min=1.0) + aux
 
 
 def tp_spec_fn(path: str, shape) -> Any:
@@ -476,6 +550,12 @@ def check_mesh(cfg: GPT2Config, sizes: Dict[str, int]) -> None:
     ``ulysses``, and Ulysses over heads the ``seq`` axis does not divide
     (a rank's ``n_head / model`` heads)."""
     m, P = int(sizes.get("model", 1)), int(sizes.get("seq", 1))
+    ep = int(sizes.get("expert", 1))
+    if cfg.n_experts > 0 and cfg.n_experts % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} is not divisible by the expert axis ({ep})")
+    if cfg.n_experts > 0 and P > 1:
+        raise ValueError("a MoE GPT-2 under a seq axis would route each rank's positions apart "
+                         "from the rest of its rows: not ported (ROADMAP C4)")
     if m > 1 and cfg.n_head % m:
         raise ValueError(f"n_head {cfg.n_head} is not divisible by the model axis ({m}): "
                          "a tensor-parallel rank runs whole heads (ROADMAP C4)")
@@ -499,10 +579,45 @@ def parallel_comm_model(cfg: GPT2Config, sizes: Dict[str, int], rows: int, T: in
 
     P = int(sizes.get("seq", 1))
     n = rows * (T // P) if P > 1 else rows * (T if labels_given else T - 1)
-    return port_parallel_comm_model(
+    out = port_parallel_comm_model(
         cfg.n_layer, cfg.n_embd, rows, T, sizes, loss_positions=n, gas=gas,
         act_bytes=act_bytes, attention_mode=cfg.attention_mode, remat=cfg.remat,
         xent_chunk=cfg.xent_chunk_size, mlp_recompute=cfg.remat and cfg.dropout > 0.0)
+    if cfg.n_experts > 0:
+        for kind, n in moe_comm_model(cfg, sizes, rows * T, act_bytes, gas=gas).items():
+            out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def moe_comm_model(cfg: GPT2Config, sizes: Dict[str, int], tokens: int, act_bytes: int,
+                   gas: int = 1) -> Dict[str, int]:
+    """A MoE GPT-2's own collectives a step, ``tokens`` a rank's rows x
+    positions a micro-step: ``expert-all-reduce``
+    (``moe/layer.py`` ``expert_comm_model``; the combine's forward sum runs
+    again in a checkpointed block's recompute only where something after
+    it keeps a tensor, hidden dropout's mask) and ``moe-routing``, the
+    data-parallel grid's router logits and pad masks (f32, ``n_experts +
+    1`` a token) gathered by every MoE layer, again in the recompute.
+    Under a ``model`` axis the experts' ``tp-all-reduce`` moves the
+    ``(E, C, d)`` expert buffer where a dense MLP moves the tokens, and
+    the recompute sums it again (the combine keeps its rows): the
+    difference from ``port_parallel_comm_model``'s dense count."""
+    from deepspeed_tpu_torch.moe.layer import _capacity, expert_comm_model
+
+    ep, dp = int(sizes.get("expert", 1)), int(sizes.get("data", 1)) * int(sizes.get("fsdp", 1))
+    m = int(sizes.get("model", 1))
+    ear = expert_comm_model(cfg.n_layer, tokens, cfg.n_embd, cfg.moe_top_k, ep, act_bytes,
+                            recompute=cfg.remat and cfg.dropout > 0.0)
+    rc = 1 if cfg.remat else 0
+    route = cfg.n_layer * (1 + rc) * dp * tokens * (cfg.n_experts + 1) * 4 if dp > 1 else 0
+    out = {"expert-all-reduce": int(ear * gas), "moe-routing": int(route * gas)}
+    if m > 1:
+        C = _capacity(tokens * dp, cfg.n_experts, cfg.moe_capacity_factor, 4)
+        a_moe = (cfg.n_experts // ep) * C * cfg.n_embd * act_bytes
+        a = tokens * cfg.n_embd * act_bytes
+        dense = (2 + rc * int(cfg.dropout > 0.0)) * 2 * a
+        out["tp-all-reduce"] = int(cfg.n_layer * ((2 + rc) * 2 * a_moe - dense) * gas)
+    return out
 
 
 def make_model(cfg: GPT2Config):

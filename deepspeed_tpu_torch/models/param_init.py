@@ -28,11 +28,13 @@ def _map(tree: Dict[str, Any], fn: Callable[[str, LeafSpec], Any], prefix: str =
             for k, v in tree.items()}
 
 
-def draw_host(tree: Dict[str, Any], seed: int, first: Sequence[str] = ()) -> Dict[str, Any]:
-    """The tree as float32 numpy arrays from ``np.random.default_rng(seed)``:
-    the leaves at the paths ``first`` are drawn first, then the rest, each
-    in the tree's order (the JAX package's ``init_params`` order)."""
-    rng = np.random.default_rng(seed)
+def draw_host(tree: Dict[str, Any], seed: int, first: Sequence[str] = (),
+              rng: Optional[np.random.Generator] = None) -> Dict[str, Any]:
+    """The tree as float32 numpy arrays from ``np.random.default_rng(seed)``
+    (or from ``rng``, part drawn already): the leaves at the paths
+    ``first`` are drawn first, then the rest, each in the tree's order (the
+    JAX package's ``init_params`` order)."""
+    rng = np.random.default_rng(seed) if rng is None else rng
 
     def make(spec: LeafSpec) -> np.ndarray:
         if spec.kind == "n":

@@ -79,6 +79,10 @@ class DeepSpeedInferenceConfig:
     dtype: torch.dtype = torch.bfloat16
     max_out_tokens: int = 1024  # static KV-cache capacity
     use_flash_attention: bool = True
+    # MoE decode (layer params with gate_w/w1/b1/w2/b2): the eval capacity
+    # must be the training model's eval path's (MoEConfig's default)
+    moe_top_k: int = 2
+    moe_eval_capacity_factor: float = 2.0
 
     @property
     def head_dim(self) -> int:
@@ -253,8 +257,6 @@ def inference_block(
     no ``key_padding_mask``).  ``tp``: the ``model`` group when ``lp``
     holds the rank's blocks and the caches its heads.  Returns (y,
     k_cache, v_cache)."""
-    if "gate_w" in lp:
-        raise NotImplementedError("MoE decode blocks are not ported yet (ROADMAP A11)")
     B, T, _ = x.shape
     H, hd = cfg.local_heads, cfg.head_dim
 
@@ -322,9 +324,20 @@ def _block_out(cfg: DeepSpeedInferenceConfig, lp: Dict[str, torch.Tensor], x: to
 
 def _block_mlp(cfg: DeepSpeedInferenceConfig, lp: Dict[str, torch.Tensor],
                x: torch.Tensor, tp=None) -> torch.Tensor:
-    """Post-attention half of the block: LN2 + dense MLP + residual
-    (``fc`` column-parallel, ``fc_proj`` row-parallel under ``tp``)."""
+    """Post-attention half of the block: LN2 + (MoE | dense) MLP +
+    residual (``fc`` column-parallel, ``fc_proj`` row-parallel under
+    ``tp``).  A MoE block routes in eval mode (no jitter, the eval
+    capacity) the step's tokens only, and, as the JAX package's decode,
+    with no token mask: a slot pool's free slots and padded rows route
+    and take capacity too."""
     h = _ln(x, lp["ln2_g"], lp["ln2_b"], cfg.layer_norm_eps)
+    if "gate_w" in lp:
+        from deepspeed_tpu_torch.moe.layer import moe_ffn_from_block
+
+        h, _ = moe_ffn_from_block(lp, h, top_k=cfg.moe_top_k,
+                                  eval_capacity_factor=cfg.moe_eval_capacity_factor,
+                                  training=False, tp=tp)
+        return x + h
     h = _wmm(h, lp["fc_w"]) + lp["fc_b"].to(h.dtype)
     h = F.gelu(h, approximate="tanh")
     h = _sum_over_model(_wmm(h, lp["fc_proj_w"]), tp) + lp["fc_proj_b"].to(h.dtype)

@@ -82,7 +82,17 @@ checks the ``step.boundary`` fault site, a pending preemption (the
 ``resilience.watchdog``: emergency save, exit 43) and the divergence
 guard (``resilience.divergence``, on by default as in the JAX engine).
 
-Not ported (each raises, naming its ROADMAP item, or is absent): offload (A12), pipeline (A11),
+**Expert parallelism.**  An ``expert`` axis cuts the MoE leaves by
+expert (the family table's specs, ``tp_spec_fn``): each ``expert`` rank
+holds its experts, sees the same rows as its peers, and the model sums
+the experts' outputs over the group (``moe/layer.py``); the replicated
+leaves get their whole gradient on every ``expert`` rank, so nothing is
+reduced over ``expert``, and the global norm and the loss count each
+once.  A ``pipe`` axis belongs to ``runtime/pipe/engine.py``'s
+``PipelineEngine``; under this engine it replicates, as under the JAX
+engine.
+
+Not ported (each raises, naming its ROADMAP item, or is absent): offload (A12),
 1-bit optimizers and compressed exchanges (A13), supervision, telemetry,
 sanitizer and flops profiler (A14/A15), MoQ and PLD (A13).
 """
@@ -644,7 +654,7 @@ class DeepSpeedEngine:
             wd = self._watchdog
             preempt = torch.full((), float(wd is not None and wd.preemption_requested),
                                  dtype=torch.float32, device=self.device)
-            counts_loss = self.mesh.coords["model"] == 0 and self.mesh.coords["seq"] == 0
+            counts_loss = self._counts_loss()
             vec = torch.stack([zero if sq is None else sq, overflow.float(),
                                zero if loss is None or not counts_loss else loss.float(),
                                preempt])
@@ -669,6 +679,15 @@ class DeepSpeedEngine:
                                                     "update-all-gather"))
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
         return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+
+    def _counts_loss(self) -> bool:
+        """Whether this rank's loss enters the step's sum: one rank of
+        every data-parallel row (the ``model``, ``seq`` and ``expert``
+        ranks of a row compute the same loss; of a ``pipe`` axis, the last
+        stage, which holds it)."""
+        c, sizes = self.mesh.coords, self.mesh.sizes
+        return (c["model"] == 0 and c["seq"] == 0 and c["expert"] == 0
+                and c["pipe"] == sizes["pipe"] - 1)
 
     def _lamb_norm_reducer(self):
         """LAMB's per-leaf ``(sum p^2, sum dir^2)`` summed over the ranks

@@ -81,13 +81,23 @@ class LeafLayout:
         return n
 
 
+# axes whose ranks each hold their own block of a leaf, never gathered in
+# the step: ``model`` (tensor parallelism), ``expert`` (a MoE layer's
+# experts) and ``pipe`` (a pipeline stage's layers)
+HELD_AXES = ("pipe", "model", "expert")
+
+
 def _sharded(mesh, spec, skip: Sequence[str] = ()) -> bool:
     return any(mesh.size([a for a in entry_axes(e) if a not in skip]) > 1 for e in spec)
 
 
-def _model_only(spec) -> tuple:
-    """A spec's ``model`` entries alone (the tensor-parallel base)."""
-    return tuple("model" if "model" in entry_axes(e) else None for e in spec)
+def _held_only(spec) -> tuple:
+    """A spec's entries over the held axes alone (the block a rank keeps)."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in entry_axes(e) if a in HELD_AXES)
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(out)
 
 
 def _group_parts(t: torch.Tensor, parts: int, ranks: int, inverse: bool = False) -> torch.Tensor:
@@ -121,9 +131,9 @@ class ZeroLayout:
             gs = spec_tuple(rules.grad_spec(path, state_shape), nd)
             os_ = spec_tuple(rules.opt_spec(path, state_shape), nd)
             # model cuts the three specs alike; the stage's own axes decide
-            acc = ps if (_sharded(mesh, ps, skip=("model",))
-                         and not _sharded(mesh, gs, skip=("model",))) else gs
-            tp = _model_only(ps)
+            acc = ps if (_sharded(mesh, ps, skip=HELD_AXES)
+                         and not _sharded(mesh, gs, skip=HELD_AXES)) else gs
+            tp = _held_only(ps)
             parts = 1
             if nd and tp[-1] == "model" and mesh.sizes["model"] > 1:
                 parts = fused_tp_parts(path)
@@ -137,17 +147,20 @@ class ZeroLayout:
     def param_sharded(self, i: int) -> bool:
         """Whether stage 3 shards the parameter (over axes other than
         ``model``): the model gathers it on use."""
-        return _sharded(self.mesh, self.leaves[i].param_spec, skip=("model",))
+        return _sharded(self.mesh, self.leaves[i].param_spec, skip=HELD_AXES)
 
     def tp_sharded(self, i: int) -> bool:
-        """Whether each ``model`` rank holds its own block of the leaf."""
+        """Whether each ``model`` (``expert``, ``pipe``) rank holds its own
+        block of the leaf."""
         return self.sharded(self.leaves[i].tp_spec)
 
     def local_numel(self, i: int) -> int:
-        """Elements of leaf ``i``'s tensor-parallel block (its stored size
-        where ``model`` does not cut it)."""
+        """Elements of leaf ``i``'s held block (its stored size where no
+        held axis cuts it)."""
         leaf = self.leaves[i]
-        cut = self.mesh.sizes["model"] if self.tp_sharded(i) else 1
+        cut = 1
+        for e in leaf.tp_spec:
+            cut *= self.mesh.size(entry_axes(e))
         return leaf.numel // cut
 
     def update_sharded(self, i: int) -> bool:
@@ -160,8 +173,8 @@ class ZeroLayout:
         gradient norm: each element once, on the rank at coordinate 0 of
         every data-parallel axis that does not cut it."""
         cut = {a for e in self.leaves[i].opt_spec for a in entry_axes(e)}
-        return all(self.mesh.coords[a] == 0 for a in ("data", "fsdp", "seq", "model")
-                   if a not in cut)
+        return all(self.mesh.coords[a] == 0
+                   for a in ("pipe", "data", "fsdp", "seq", "model", "expert") if a not in cut)
 
     def update_axes(self, i: int) -> Tuple[str, ...]:
         """The axes that cut leaf ``i``'s optimizer state (LAMB's norms sum
@@ -169,7 +182,7 @@ class ZeroLayout:
         cut = []
         for e in self.leaves[i].opt_spec:
             cut.extend(a for a in entry_axes(e) if self.mesh.sizes[a] > 1)
-        return tuple(a for a in ("data", "fsdp", "model") if a in cut)
+        return tuple(a for a in ("pipe", "data", "fsdp", "model", "expert") if a in cut)
 
     # -- moves ----------------------------------------------------------------
     def narrow(self, t: torch.Tensor, shape: Sequence[int], from_spec, to_spec) -> torch.Tensor:
@@ -253,7 +266,7 @@ class ZeroLayout:
             g = collectives.all_reduce(g, mesh.group(("data",)), kind="grad-exchange")
         if mesh.sizes["fsdp"] > 1:
             dims = [d for d, e in enumerate(leaf.acc_spec) if "fsdp" in entry_axes(e)]
-            if dims and _sharded(mesh, leaf.grad_spec, skip=("model",)):
+            if dims and _sharded(mesh, leaf.grad_spec, skip=HELD_AXES):
                 g = collectives.reduce_scatter(g, mesh.group(("fsdp",)), dim=dims[0])
             else:
                 g = collectives.all_reduce(g, mesh.group(("fsdp",)))
@@ -419,8 +432,7 @@ class ShardedLeaf:
         """The shape :func:`materialize` gives: the leaf's tensor-parallel
         block."""
         layout, leaf = self.ctx.layout, self.ctx.layout.leaves[self.i]
-        m = layout.mesh.sizes["model"]
-        return torch.Size(n // m if e == "model" and m > 1 else n
+        return torch.Size(n // layout.mesh.size(entry_axes(e))
                           for n, e in zip(leaf.shape, leaf.tp_spec))
 
     def layers(self) -> List[Any]:

@@ -26,8 +26,9 @@ It imports torch and the port only.  The spec::
 Each rank trains on its own rows of every global batch (micro-batch
 ``i``'s rows ``i*mb*dp + r*mb ...`` on data-parallel rank ``r``, the JAX
 engine's batch layout); the ``model`` and ``seq`` ranks of a row take the
-same rows, whole (the model cuts a ``seq`` rank's positions).  A mesh
-with a ``model`` axis gets the model's ``tp_spec_fn``.  Rank 0 writes
+same rows, whole (the model cuts a ``seq`` rank's positions), as do the
+``expert`` ranks.  A mesh with a ``model`` or ``expert`` axis gets the
+model's ``tp_spec_fn``.  Rank 0 writes
 ``<out>/<name>.json`` (losses, the collective bytes of every step by
 kind, the comm models, ms a step, peak device memory, kernel launches,
 the backend, and ``replicas_equal``: whether every rank holding the same
@@ -140,7 +141,8 @@ def run_case(case, device, out_dir, rank):
     from deepspeed_tpu_torch.ops import kernels
 
     cfg, model_fn, init_fn, tp_fn, hooks = _model(case)
-    tp = int(case["config"].get("mesh", {}).get("model", 1)) > 1
+    mesh = case["config"].get("mesh", {})
+    tp = int(mesh.get("model", 1)) > 1 or int(mesh.get("expert", 1)) > 1
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model_fn, model_parameters=init_fn(seed=int(case.get("init_seed", 0))),
         config=case["config"], device=device, tp_spec_fn=tp_fn if tp else None, **hooks)

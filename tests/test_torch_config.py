@@ -100,7 +100,7 @@ def test_same_dict_gives_same_rejection(d):
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "nvme"}}}, "A12"),
     # prescale_gradients, fp32_allreduce and disable_allgather parse now
     # (test_keys_the_jax_package_never_reads_parse_as_its_attributes)
-    ({"pipeline": {"stages": 2}}, "A11"),
+    ({"aio": {"block_size": 2048}}, "A12"),
     ({"resilience": {"supervision": {"enabled": True}}}, "A14"),
     ({"telemetry": {"enabled": True, "ring": 16}}, "A14"),
     ({"activation_checkpointing": {"partition_activations": True}}, "A13"),
@@ -112,6 +112,31 @@ def test_not_ported_blocks_raise_naming_their_item(d, item):
     d = {"train_batch_size": 8, **d}
     JConfig(d, world_size=1)  # the JAX package takes it
     with pytest.raises(NotImplementedError, match=item):
+        TConfig(d)
+
+
+@pytest.mark.parametrize("block", [
+    None,
+    {"stages": 2},
+    {"stages": "auto", "partition": "uniform", "seed_layers": True,
+     "activation_checkpoint_interval": 1, "schedule": "GPipe"},
+], ids=["absent", "stages", "every-key"])
+def test_pipeline_block_parses_as_the_jax_package_does(block):
+    d = {"train_batch_size": 8}
+    if block is not None:
+        d["pipeline"] = block
+    want, got = JConfig(d, world_size=1).pipeline, TConfig(d).pipeline
+    keys = ("stages", "partition", "seed_layers", "activation_checkpoint_interval", "schedule")
+    assert {k: getattr(got, k) for k in keys} == {k: getattr(want, k) for k in keys}
+
+
+@pytest.mark.parametrize("block", [{"schedule": "interleaved"}, {"stage": 2}],
+                         ids=["schedule", "unknown-key"])
+def test_pipeline_block_refusals_match_the_jax_package(block):
+    d = {"train_batch_size": 8, "pipeline": block}
+    with pytest.raises((ValueError, JError)):
+        JConfig(d, world_size=1)
+    with pytest.raises((ValueError, TError)):
         TConfig(d)
 
 

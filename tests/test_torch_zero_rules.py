@@ -288,8 +288,8 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "raise", "A12"),
     ({"mesh": {"model": 2}}, "parse", None),
     ({"mesh": {"seq": 2}}, "parse", None),
-    ({"mesh": {"pipe": 2}}, "raise", "A11"),
-    ({"mesh": {"expert": 2}}, "raise", "A11"),
+    ({"mesh": {"pipe": 2}}, "parse", None),
+    ({"mesh": {"expert": 2}}, "parse", None),
     ({"mesh": {"dat": 2}}, "error", None),
     ({"comm": {"strategy": "fast"}}, "error", None),
     ({"comm": {"quantize_bits": 4}}, "error", None),
@@ -298,8 +298,8 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
 def test_config_refusals(d, exc, match):
     """Invalid blocks raise in both packages; blocks the JAX package takes
     but the port does not honour yet raise NotImplementedError naming their
-    ROADMAP item.  A ``model`` or ``seq`` axis parses in both, alike
-    (tensor and sequence parallelism run since they were ported)."""
+    ROADMAP item.  A ``model``, ``seq``, ``pipe`` or ``expert`` axis
+    parses in both, alike (each runs since it was ported)."""
     d = {"train_batch_size": 8, **d}
     if exc == "parse":
         j = jconfig.DeepSpeedConfig(d, world_size=1).mesh
