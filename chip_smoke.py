@@ -284,7 +284,38 @@ Phases, each printing one JSON line:
    1024, 3 steps, against the same module at one stage in this process
    (PIPE_BF16_LOSS_RTOL); B1, B2 and B3 on each stage; ms a step, each
    stage's idle share.
-19. ``kernels``: one entry per kernel with its launches on each main path
+19. ``train_offload_bf16``: ``train_bf16``'s config and batch with
+   ``offload_optimizer: {device: cpu}`` (f32 masters and Adam moments in
+   pinned host memory, the native host Adam), 4 steps (a main path:
+   counters zeroed before, read after): the first loss train_bf16's bit
+   for bit, the rest within OFFLOAD_LOSS_RTOL; a fresh engine's first-step
+   masters within OFFLOAD_STEP1_REL of B3's (``train_bf16_first_step_bits``'
+   first run); B1/B2 on the tensor-core bodies, B3 not launched, the host
+   kernels run; peak memory below train_bf16's by OFFLOAD_PEAK_SHARE of 10
+   bytes a parameter; a fresh engine loading the tag saved after step 2
+   repeats steps 3-4 bit for bit (losses, host masters and moments, bf16
+   parameters).  Prints ms a step split into device compute, device ->
+   host, host Adam, cast and host -> device, the host Adam's GB/s, the
+   host link's pinned GB/s each way and a host memcpy's.
+20. ``train_offload_nvme_bf16``: the same with ``device: nvme`` (the
+   moments only through the disk): losses and final masters
+   train_offload_bf16's bit for bit, m and v read and written each step
+   (16 bytes a parameter); ``used_kernel_aio`` read, not gated.
+21. ``train_infinity_bf16``: ``offload_param: {device: cpu, buffer_count:
+   1}``, 12 one-layer groups streamed through the card: the first loss
+   train_offload_bf16's bit for bit, the rest within INFINITY_LOSS_RTOL of
+   its, the group gradients live (each tensor counted until it is freed)
+   never above two groups', peak memory below train_offload_bf16's by
+   INFINITY_PEAK_SHARE of what the device stops holding (the f32
+   accumulator and the blocks' bf16 parameters, less the two group
+   buffers), B1/B2 on the tensor-core bodies; the last step serialized
+   (``train_batch(timing=)``); B1 launches a layer a micro-step.
+22. ``train_infinity_nvme_bf16``: ``offload_param: {device: nvme,
+   buffer_count: 2}``, 6 two-layer groups read from their files: the
+   losses train_infinity_bf16's bit for bit, the same memory gates, and
+   the bytes the aio engine was asked to read what the sweeps need (gas x
+   2 sweeps x the blocks' bf16 bytes a step).
+23. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
@@ -292,7 +323,8 @@ Phases, each printing one JSON line:
    serving_int8, serving_megatron, training,
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse, training_moe,
-   serving_moe, training_pipe) and their sum.
+   serving_moe, training_pipe, training_offload, training_offload_nvme,
+   training_infinity, training_infinity_nvme) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -3120,10 +3152,13 @@ def _first_step_bits(torch, model_fn, params, config, batch):
            "same_params": not differ, "params_differing": differ,
            "kernel_launches_compared": len(outs_a), "first_kernel_launch_differing": first,
            "note": "ROADMAP C3 reading, not a gate"}
-    del runs, outs_a, outs_b
+    # the first step's updated masters (B3's update), on the host: the
+    # offload phases hold the host Adam's first step to them
+    step1 = {name: t.detach().cpu() for name, t in par_a.items()}
+    del runs, outs_a, outs_b, par_a, par_b
     torch.cuda.empty_cache()
     emit(row)
-    return row
+    return row, step1
 
 
 def _gpt2_bf16_config(mb, gas):
@@ -3149,7 +3184,7 @@ def phase_train_bf16(torch, params):
     config = _gpt2_bf16_config(mb, gas)
     batch = {"input_ids": np.random.default_rng(12).integers(0, cfg.vocab_size, (mb * gas, T),
                                                              dtype=np.int32)}
-    _first_step_bits(torch, gpt2.make_model(cfg)[0], params, config, batch)
+    _, step1 = _first_step_bits(torch, gpt2.make_model(cfg)[0], params, config, batch)
     torch.cuda.reset_peak_memory_stats()
 
     # -- the main path: counters zeroed just before, read just after -------
@@ -3185,7 +3220,8 @@ def phase_train_bf16(torch, params):
     one_process = {"losses": losses, "batch": batch["input_ids"],
                    "digests": _state_digests(torch, engine),
                    "launches": launches, "step_ms_median": float(np.median(walls[1:])) * 1e3,
-                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "peak_bytes": torch.cuda.max_memory_allocated(), "step1_masters": step1}
     del engine
     torch.cuda.empty_cache()
     return launches, float(np.median(walls[1:])) * 1e3, one_process
@@ -5117,6 +5153,324 @@ def phase_train_pipe_bf16(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: ZeRO-Offload and ZeRO-Infinity (GPT-2 124M, train_bf16's
+# config and batch)
+# ---------------------------------------------------------------------------
+
+# train_offload_bf16 vs train_bf16, losses after the first (relative): the
+# same bf16 weights and kernels, the f32 Adam taken by the host kernel in
+# another order than B3 (a few f32 roundings of the update), carried
+# through bf16 weights; about five times the H100's reading, 5.4e-5
+# (test_torch_offload.py's bf16 GPT2_TINY reads about 1e-5 on the CPU)
+OFFLOAD_LOSS_RTOL = 3e-4
+# the first step's masters, host Adam vs B3, per element: the two take the
+# same gradients and round the update in other orders (a few f32 spacings
+# of the update and one of the master), so |dp| <= 2**-20 |p| + 2**-20 lr;
+# a gradient that differed would move an element up to 2 lr (Adam's first
+# step is lr * sign(g)), far outside it
+OFFLOAD_STEP1_REL = 2.0**-20
+# the device peak must fall by at least this share of 10 bytes a parameter
+# (f32 master and moments, 12, gone; bf16 parameters, 2, resident)
+OFFLOAD_PEAK_SHARE = 0.8
+# train_infinity_bf16 vs train_offload_bf16, losses (relative): the same
+# bf16 weights, kernels and host Adam; the stream sums the tied wte's two
+# gradients in f32 on the host (the in-memory engine in bf16 in autograd)
+# and the global norm in f64; about seven times the H100's reading, 4.4e-5
+INFINITY_LOSS_RTOL = 3e-4
+# the stream's peak against train_offload_bf16's: it must fall by this
+# share of what the device stops holding, the f32 accumulator (4 bytes a
+# parameter) and the blocks' bf16 parameters, less the two group buffers.
+# The H100 read 0.98 of it at 12 groups and 1.10 at 6; all 12 groups'
+# parameters kept on the card would leave 0.76
+INFINITY_PEAK_SHARE = 0.85
+
+
+def _offload_run(torch, params, config, batch, steps, save_at=None, save_dir=None,
+                 timing_step=None):
+    """``steps`` train_batch calls on one batch through ``initialize``:
+    ``(engine, losses, walls, breakdowns)``; a save after step ``save_at``
+    (1-based) into ``save_dir``; step ``timing_step`` serialized with
+    ``train_batch(timing=)`` (the streaming engine)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2.make_model(gpt2.PRESETS["gpt2"])[0], model_parameters=params, config=config)
+    losses, walls, rows = [], [], []
+    for step in range(1, steps + 1):
+        timing = {} if step == timing_step else None
+        t0 = time.perf_counter()
+        loss = (engine.train_batch(batch, timing=timing) if timing is not None
+                else engine.train_batch(batch))
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+        rows.append(timing if timing is not None else (
+            engine.offload_breakdown() if hasattr(engine, "offload_breakdown") else None))
+        if step == save_at:
+            engine.save_checkpoint(save_dir, tag=f"step{step}")
+    return engine, losses, walls, rows
+
+
+def _host_state(engine):
+    """The host masters and moments by name (copies)."""
+    return {k: t.clone() for k, t in engine._host_opt.state_dict().items()}
+
+
+def _offload_config(zero):
+    config = _gpt2_bf16_config(8, 2)
+    config["zero_optimization"] = zero
+    return config
+
+
+def _tc_only_b1_b2(label, launches, variants):
+    for name in ("flash_fwd", "flash_bwd"):
+        check(launches[name] > 0, f"{label}: kernel {name} was not launched")
+        check(only_tc(variants[name]), f"{label}: {name} ran {variants[name]}, not only the "
+                                       "tensor-core body")
+    check(launches["fused_adam"] == 0, f"{label}: B3 launched {launches['fused_adam']} times; the "
+                                       "host Adam owns the update")
+
+
+def phase_train_offload_bf16(torch, params, ref, smi, root):
+    """ZeRO-Offload (``offload_optimizer: {device: cpu}``), train_bf16's
+    config and batch: its main path (counters zeroed before, read after),
+    then a fresh engine resumed from the save after step 2."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.adam import cpu_adam
+
+    t_phase = time.perf_counter()
+    cfg = gpt2.PRESETS["gpt2"]
+    n_params = cfg.num_params()
+    config = _offload_config({"offload_optimizer": {"device": "cpu"}})
+    batch, steps = {"input_ids": ref["batch"]}, 4
+    from deepspeed_tpu_torch.tools.profile_offload import host_rates
+
+    rates = host_rates(torch.device("cuda", 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- the main path: counters zeroed just before, read just after -------
+    kernels.reset_launches()
+    cpu_adam.reset_counts()
+    engine, losses, walls, rows = _offload_run(torch, params, config, batch, steps, save_at=2,
+                                               save_dir=os.path.join(root, "ck"))
+    launches, variants, host_calls = kernels.launches(), kernels.launch_variants(), cpu_adam.counts()
+    # ----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    _tc_only_b1_b2("train_offload_bf16", launches, variants)
+    check(host_calls["ds_cpu_adam_step"] >= steps * 16 and host_calls["ds_fp32_to_bf16"] >= steps * 16,
+          f"train_offload_bf16: the host kernels ran {host_calls}")
+    check(all(np.isfinite(losses)), f"train_offload_bf16: non-finite loss {losses}")
+    check(losses[0] == ref["losses"][0],
+          f"train_offload_bf16: first loss {losses[0]!r} != train_bf16's {ref['losses'][0]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    check(max(rel) <= OFFLOAD_LOSS_RTOL,
+          f"train_offload_bf16: losses {losses} vs train_bf16 {ref['losses']} (rel {max(rel)})")
+    want_drop = OFFLOAD_PEAK_SHARE * 10 * n_params
+    check(peak <= ref["peak_bytes"] - want_drop,
+          f"train_offload_bf16: peak {peak} B, train_bf16's {ref['peak_bytes']} B: fell by "
+          f"{ref['peak_bytes'] - peak}, less than {want_drop}")
+    final = _host_state(engine)
+    bf16_params = [p.detach().clone() for p in engine._params]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the first step against B3's (a fresh engine, one step) -------------
+    one, _, _, _ = _offload_run(torch, params, config, batch, 1)
+    lr1 = float(one.lr_schedule(0))
+    worst, share = 0.0, 0
+    for name, m in zip(one._host_opt.keys, one._host_opt.masters):
+        want = ref["step1_masters"][name].float()
+        diff = (m - want).abs()
+        bound = OFFLOAD_STEP1_REL * (want.abs() + lr1)
+        worst = max(worst, float((diff / bound).max()))
+        share += int((diff > 0).sum())
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(worst <= 1.0, f"train_offload_bf16: step-1 masters {worst} x the bound from B3's")
+
+    # -- resume: steps 3-4 from the tag saved after step 2 ------------------
+    t0 = time.perf_counter()
+    import deepspeed_tpu_torch
+
+    resumed, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2.make_model(cfg)[0], model_parameters=params, config=config)
+    path, _ = resumed.load_checkpoint(os.path.join(root, "ck"), tag="step2")
+    check(path is not None and resumed.global_steps == 2, "train_offload_bf16: no resume")
+    tail = [float(resumed.train_batch(batch)) for _ in range(steps - 2)]
+    load_s = time.perf_counter() - t0
+    got = _host_state(resumed)
+    same_state = set(got) == set(final) and all(torch.equal(got[k], final[k]) for k in final)
+    same_params = all(torch.equal(a, b) for a, b in zip(resumed._params, bf16_params))
+    del resumed, got, bf16_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(tail == losses[2:], f"train_offload_bf16: resumed losses {tail} != {losses[2:]}")
+    check(same_state and same_params,
+          f"train_offload_bf16: resumed host state equal {same_state}, device params {same_params}")
+
+    brk = rows[1:]  # the steps after the first (its kernels' first load)
+    mean = {k: float(np.mean([r[k] for r in brk])) for k in brk[0] if brk[0][k] is not None}
+    step_ms = float(np.mean(walls[1:])) * 1e3
+    device_ms = step_ms - mean["d2h_ms"] - mean["adam_ms"] - mean["cast_ms"] - mean["h2d_ms"]
+    emit({"phase": "train_offload_bf16", "card": smi, "micro_batch": 8, "gas": 2, "T": 1024,
+          "steps": steps, "losses": losses, "losses_train_bf16": ref["losses"],
+          "max_rel_diff": max(rel), "tol": OFFLOAD_LOSS_RTOL,
+          "step1_masters_worst_vs_bound": worst, "step1_elements_differing": share,
+          "step1_bound": f"{OFFLOAD_STEP1_REL} * (|p| + lr)",
+          "resumed_losses": tail, "resume_s": load_s, "step_ms": [w * 1e3 for w in walls],
+          "step_ms_mean_after_first": step_ms,
+          "split_ms": {"device_compute_and_rest": device_ms, **mean},
+          "host_adam_gbps": ADAM_BYTES_PER_ELEM * n_params / (mean["adam_ms"] / 1e3) / 1e9,
+          **rates, "torch_threads": torch.get_num_threads(), "cpu_count": os.cpu_count(),
+          "host_adam_threads": cpu_adam.default_threads(),
+          "peak_bytes": peak, "peak_bytes_train_bf16": ref["peak_bytes"],
+          "peak_drop_bytes": ref["peak_bytes"] - peak, "peak_drop_needed": want_drop,
+          "launches": launches, "host_calls": host_calls,
+          "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
+          "wall_s": time.perf_counter() - t_phase})
+    return launches, {"losses": losses, "final": {k: v for k, v in final.items()
+                                                  if k.startswith("master/")},
+                      "peak_bytes": peak}
+
+
+def phase_train_offload_nvme_bf16(torch, params, off, smi, root):
+    """``offload_optimizer: {device: nvme}``: the moments only through the
+    disk; the losses and final masters train_offload_bf16's, bit for bit."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.aio import aio
+
+    t_phase = time.perf_counter()
+    config = _offload_config({"offload_optimizer": {"device": "nvme",
+                                                    "nvme_path": os.path.join(root, "nvme")}})
+    batch, steps = {"input_ids": off["batch"]}, 4
+    kernels.reset_launches()
+    aio.reset_counts()
+    engine, losses, walls, rows = _offload_run(torch, params, config, batch, steps)
+    launches, variants, io = kernels.launches(), kernels.launch_variants(), aio.counts()
+    _tc_only_b1_b2("train_offload_nvme_bf16", launches, variants)
+    check(losses == off["losses"], f"train_offload_nvme_bf16: losses {losses} != {off['losses']}")
+    same = all(torch.equal(m, off["final"][f"master/{k}"])
+               for k, m in zip(engine._host_opt.keys, engine._host_opt.masters))
+    check(same, "train_offload_nvme_bf16: final masters differ from train_offload_bf16's")
+    kernel_aio = engine._host_opt.swapper.swapper.used_kernel_aio
+    n_params = sum(m.numel() for m in engine._host_opt.masters)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # step 1 only writes (the moments start as zeros); later steps read and write
+    per_step = {"read_bytes": io["read_bytes"] / (steps - 1), "write_bytes": io["write_bytes"] / steps}
+    adam_s = float(np.mean([r["adam_ms"] for r in rows[1:]])) / 1e3
+    emit({"phase": "train_offload_nvme_bf16", "card": smi, "steps": steps, "losses": losses,
+          "bytes_a_step": per_step, "bytes_a_step_model": 16 * n_params,
+          "bytes_model_note": "m and v (8 B a parameter) read and written back: 16 x n_params",
+          "disk_gbps_in_host_step": (per_step["read_bytes"] + per_step["write_bytes"]) / adam_s / 1e9,
+          "host_step_ms": adam_s * 1e3, "used_kernel_aio": kernel_aio,
+          "step_ms": [w * 1e3 for w in walls], "launches": launches,
+          "wall_s": time.perf_counter() - t_phase})
+    check(per_step["read_bytes"] == 8 * n_params and per_step["write_bytes"] == 8 * n_params,
+          f"train_offload_nvme_bf16: {per_step} a step, not m and v of {n_params} each way")
+    return launches
+
+
+def phase_train_infinity_bf16(torch, params, off, smi, root, device="cpu", buffer_count=1,
+                              ref_losses=None):
+    """ZeRO-Infinity: ``offload_param`` (``cpu``: 12 one-layer groups;
+    ``nvme``: 6 two-layer groups staged in files), train_bf16's batch."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.ops.aio import aio
+
+    label = "train_infinity_bf16" if device == "cpu" else "train_infinity_nvme_bf16"
+    t_phase = time.perf_counter()
+    cfg = gpt2.PRESETS["gpt2"]
+    zero = {"offload_param": {"device": device, "buffer_count": buffer_count,
+                              **({"nvme_path": os.path.join(root, "nvme_params")}
+                                 if device == "nvme" else {})}}
+    batch, steps, gas = {"input_ids": off["batch"]}, 4, 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    aio.reset_counts()
+    engine, losses, walls, rows = _offload_run(torch, params, _offload_config(zero), batch, steps,
+                                               timing_step=steps)
+    launches, variants, io = kernels.launches(), kernels.launch_variants(), aio.counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats, G, group_bytes = dict(engine.stats), engine.n_groups, engine.group_bytes
+    grads_left = engine.live_group_grad_bytes
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tc_only_b1_b2(label, launches, variants)
+    want = off["losses"] if ref_losses is None else ref_losses
+    # the same bf16 weights through the same kernels: the first loss is the
+    # in-memory engine's bits (a copy racing the compute would show here)
+    check(losses[0] == want[0], f"{label}: first loss {losses[0]!r} != {want[0]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    check(all(np.isfinite(losses)) and max(rel) <= INFINITY_LOSS_RTOL,
+          f"{label}: losses {losses} vs {want} (rel {max(rel)})")
+    check(group_bytes < stats["max_live_group_grad_bytes"] <= 2 * group_bytes and grads_left == 0,
+          f"{label}: {stats['max_live_group_grad_bytes']} B of group gradients live at most "
+          f"({grads_left} B after the steps), not between one and two groups' {group_bytes} B")
+    # what the device stops holding: the f32 accumulator and the blocks'
+    # bf16 parameters, less the two group buffers
+    blocks_bytes = G * group_bytes
+    drop = 4 * cfg.num_params() + blocks_bytes - 2 * group_bytes
+    check(off["peak_bytes"] - peak >= INFINITY_PEAK_SHARE * drop,
+          f"{label}: peak {peak} B, train_offload_bf16's {off['peak_bytes']} B: fell by "
+          f"{off['peak_bytes'] - peak}, less than {INFINITY_PEAK_SHARE} of {drop}")
+    row = {"phase": label, "card": smi, "groups": G, "group_bytes": group_bytes, "steps": steps,
+           "losses": losses, "losses_vs": want, "max_rel_diff": max(rel), "tol": INFINITY_LOSS_RTOL,
+           "first_loss_same_bits": losses[0] == want[0], "peak_bytes": peak,
+           "peak_bytes_offload": off["peak_bytes"], "peak_drop_bytes": off["peak_bytes"] - peak,
+           "peak_drop_model": drop, "peak_drop_share": (off["peak_bytes"] - peak) / drop,
+           "stats": stats, "aio": io,
+           "step_ms": [w * 1e3 for w in walls[:-1]],
+           "step_ms_mean_after_first": float(np.mean(walls[1:-1])) * 1e3,
+           "serialized_step_s": rows[-1],
+           "b1_launches_per_layer_micro": launches["flash_fwd"] / (steps * gas * cfg.n_layer),
+           "launches": launches}
+    if device == "nvme":
+        want_read = steps * gas * 2 * blocks_bytes
+        check(io["read_bytes"] == want_read and io["reads"] == steps * gas * 2 * G,
+              f"{label}: the aio engine read {io['read_bytes']} B in {io['reads']} requests, "
+              f"the sweeps need {want_read} B in {steps * gas * 2 * G}")
+        row["disk_read_gbps_a_step"] = io["read_bytes"] / steps / float(np.mean(walls[1:-1])) / 1e9
+        row["upload_gbps_serialized"] = blocks_bytes * gas * 2 / rows[-1]["upload_s"] / 1e9
+    row["wall_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return launches, losses
+
+
+def run_offload_phases(torch, params, one_process, smi):
+    """The four offload phases, train_bf16's references in ``one_process``."""
+    import shutil
+    import tempfile
+
+    ref = {k: one_process[k] for k in ("losses", "peak_bytes", "step1_masters", "batch")}
+    root = tempfile.mkdtemp()
+    try:
+        off_launches, off = phase_train_offload_bf16(torch, params, ref, smi, root)
+        off["batch"] = ref["batch"]
+        nvme_launches = phase_train_offload_nvme_bf16(torch, params, off, smi, root)
+        inf_launches, inf_losses = phase_train_infinity_bf16(torch, params, off, smi, root)
+        infn_launches, _ = phase_train_infinity_bf16(torch, params, off, smi, root, device="nvme",
+                                                     buffer_count=2, ref_losses=inf_losses)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"training_offload": off_launches, "training_offload_nvme": nvme_launches,
+            "training_infinity": inf_launches, "training_infinity_nvme": infn_launches}
+
+
 def main() -> int:
     import torch
 
@@ -5194,6 +5548,7 @@ def main() -> int:
     serve_tag = tempfile.mkdtemp()
     try:
         zero_launches, tp_seq = phase_train_zero_bf16(torch, one_process, serve_tag)
+        offload_ref = {k: one_process[k] for k in ("losses", "peak_bytes", "step1_masters", "batch")}
         del one_process
         serve_tp_launches = phase_serve_tp_bf16(torch, serve_tag, served)
     finally:
@@ -5220,6 +5575,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe_launches = phase_train_pipe_bf16(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload_launches = run_offload_phases(torch, gpt2.init_params(cfg, seed=0), offload_ref, smi)
+    del offload_ref
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "serving_tp": serve_tp_launches.get(name, 0),
                       "serving_tiers": tiers_launches[name],
@@ -5239,7 +5598,8 @@ def main() -> int:
                       "training_sparse": sparse_launches[name],
                       "training_moe": moe_train_launches.get(name, 0),
                       "serving_moe": moe_serve_launches.get(name, 0),
-                      "training_pipe": pipe_launches.get(name, 0)}
+                      "training_pipe": pipe_launches.get(name, 0),
+                      **{path: launches.get(name, 0) for path, launches in offload_launches.items()}}
                for name in serve_launches}
 
     # the main-path shapes: the GPT-2 training step's bf16 attention (B=8,

@@ -80,6 +80,17 @@ def initialize(
       (``model_parameters`` optional: the module builds them from the
       config's ``seed``); a ``loss_fn`` here becomes the module's.
 
+    * ``zero_optimization.offload_optimizer.device`` ``cpu`` / ``nvme``
+      keeps the f32 masters and Adam moments on the host (ZeRO-Offload,
+      ``runtime/zero/offload.py``); ``offload_param.device`` ``cpu`` /
+      ``nvme`` builds a
+      :class:`~deepspeed_tpu_torch.runtime.zero.param_offload.ZeroInfinityEngine`
+      that streams one layer group at a time through the card, for a
+      model with a ``stream_spec`` (``gpt2.make_model``'s); a model or
+      config that cannot stream falls back to the in-memory engine with a
+      warning, unless it would not fit the card.  One rank only (offload
+      across ranks raises, ROADMAP A12).
+
     Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
     without ``training_data``; it hands each data-parallel rank its own
     slice of every epoch."""
@@ -109,7 +120,27 @@ def initialize(
         mesh = make_mesh(mesh)
     ds_config = DeepSpeedConfig(
         config, world_size=None if mesh is None else mesh.sizes["data"] * mesh.sizes["fsdp"])
-    if is_pipe:
+    stream_reason = "pipeline module" if is_pipe else None
+    if not is_pipe and ds_config.zero_config.offload_param.enabled:
+        from deepspeed_tpu_torch.comm.distributed import get_world_size
+        from deepspeed_tpu_torch.runtime.zero.offload import refuse_across_ranks
+        from deepspeed_tpu_torch.runtime.zero.param_offload import ZeroInfinityEngine
+        from deepspeed_tpu_torch.utils.logging import logger
+
+        refuse_across_ranks(get_world_size(), "offload_param")
+        stream_reason = ZeroInfinityEngine.streamable(model, ds_config, optimizer)
+        if stream_reason is not None:
+            # refuse (not warn-then-run-out-of-memory) a model asked to
+            # stream that would not fit the in-memory engine
+            ZeroInfinityEngine.check_fallback_fits(model_parameters, ds_config, stream_reason,
+                                                   device)
+            logger.warning(f"offload_param: falling back to the in-memory engine — {stream_reason}")
+    if not is_pipe and ds_config.zero_config.offload_param.enabled and stream_reason is None:
+        # ZeRO-Infinity: the parameters exceed the card, so layer groups
+        # stream through it (the reference's partitioned_param_swapper.py:36)
+        engine = ZeroInfinityEngine(model=model, params=model_parameters, config=ds_config,
+                                    lr_scheduler=lr_scheduler, device=device)
+    elif is_pipe:
         # the reference's rule (deepspeed/__init__.py:125-149): a
         # PipelineModule trains on a PipelineEngine
         from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
@@ -142,7 +173,7 @@ def initialize(
             seed=ds_config.seed,
             drop_last=ds_config.dataloader_drop_last,
             collate_fn=collate_fn,
-            process_index=engine.mesh.chunk_index(("data", "fsdp")),
+            process_index=engine.mesh.chunk_index(("data", "fsdp")) if hasattr(engine, "mesh") else 0,
             process_count=engine.dp_world_size,
         )
     return engine, engine.optimizer, loader, engine.lr_schedule

@@ -913,8 +913,79 @@ class SchedulerConfig:
         return out
 
 
-_OFFLOAD_KEYS = ("device", "nvme_path", "buffer_count", "buffer_size", "pin_memory",
-                 "pipeline_read", "pipeline_write", "fast_init", "max_in_cpu", "ratio")
+@dataclass
+class OffloadDeviceConfig:
+    """``zero_optimization.offload_param`` / ``offload_optimizer`` (the JAX
+    package's ``OffloadDeviceConfig``).  ``device: cpu`` keeps the f32
+    masters and Adam moments in pinned host memory (``offload_optimizer``)
+    or streams the parameters through the card a layer group at a time
+    (``offload_param``, ``runtime/zero/param_offload.py``); ``device:
+    nvme`` puts the moments, or the groups' parameters, in files under
+    ``nvme_path`` through the aio engine."""
+
+    device: str = "none"  # none | cpu | nvme
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    max_in_cpu: int = 1_000_000_000
+    ratio: float = 1.0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], block: str) -> "OffloadDeviceConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            device=d.pop("device", "none"),
+            nvme_path=d.pop("nvme_path", None),
+            buffer_count=int(d.pop("buffer_count", 5)),
+            buffer_size=int(d.pop("buffer_size", 100_000_000)),
+            pin_memory=bool(d.pop("pin_memory", False)),
+            pipeline_read=bool(d.pop("pipeline_read", False)),
+            pipeline_write=bool(d.pop("pipeline_write", False)),
+            fast_init=bool(d.pop("fast_init", False)),
+            max_in_cpu=int(d.pop("max_in_cpu", 1_000_000_000)),
+            ratio=float(d.pop("ratio", 1.0)),
+        )
+        _check_empty(d, block, _known_keys(cls))
+        if out.device not in ("none", "cpu", "nvme"):
+            raise DeepSpeedConfigError(f"{block}.device must be none|cpu|nvme, got {out.device}")
+        return out
+
+    @property
+    def enabled(self) -> bool:
+        return self.device != "none"
+
+
+@dataclass
+class AioConfig:
+    """``aio`` block (the JAX package's ``AioConfig``): the aio engine's
+    handle settings (``ops/aio/aio.py``)."""
+
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "AioConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            block_size=int(d.pop("block_size", 1048576)),
+            queue_depth=int(d.pop("queue_depth", 8)),
+            thread_count=int(d.pop("thread_count", 1)),
+            single_submit=bool(d.pop("single_submit", False)),
+            overlap_events=bool(d.pop("overlap_events", True)),
+        )
+        _check_empty(d, "aio", _known_keys(cls))
+        return out
 
 
 def _pop_alias(d: Dict[str, Any], key: str, alias: str, default: Any, block: str) -> Any:
@@ -934,8 +1005,10 @@ class ZeroConfig:
     ``cross_replica_weight_update`` and ``param_persistence_threshold``
     (alias ``stage3_param_persistence_threshold``); the bucket, overlap,
     live-parameter and checkpoint knobs are carried, unread, as there.
-    Offload (``offload_param``, ``offload_optimizer``, ``cpu_offload``)
-    raises (ROADMAP A12)."""
+    ``offload_param`` / ``offload_optimizer`` parse as the JAX package's
+    ``OffloadDeviceConfig``, ``cpu_offload: true`` as ``offload_optimizer:
+    {device: cpu}``; the engines refuse offload across ranks (ROADMAP
+    A12)."""
 
     stage: int = C.ZERO_STAGE_DEFAULT
     contiguous_gradients: bool = True
@@ -956,6 +1029,9 @@ class ZeroConfig:
     ignore_unused_parameters: bool = True
     legacy_stage1: bool = False
     cross_replica_weight_update: bool = True
+    offload_param: OffloadDeviceConfig = field(default_factory=OffloadDeviceConfig)
+    offload_optimizer: OffloadDeviceConfig = field(default_factory=OffloadDeviceConfig)
+    cpu_offload: bool = False  # legacy alias for offload_optimizer.device=cpu
 
     @classmethod
     def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ZeroConfig":
@@ -963,23 +1039,17 @@ class ZeroConfig:
             return cls()
         d = dict(d)
         block = C.ZERO_OPTIMIZATION
-        for sub_name in ("offload_param", "offload_optimizer"):
-            sub = d.pop(sub_name, None)
-            if sub is None:
-                continue
-            sub = dict(sub)
-            unknown = set(sub) - set(_OFFLOAD_KEYS)
-            if unknown:
-                _check_empty({k: sub[k] for k in unknown}, f"{block}.{sub_name}", _OFFLOAD_KEYS)
-            if sub.get("device", "none") not in ("none", "cpu", "nvme"):
-                raise DeepSpeedConfigError(
-                    f"{block}.{sub_name}.device must be none|cpu|nvme, got {sub['device']}"
-                )
-            if sub.get("device", "none") != "none":
-                raise _not_ported(f"{block}.{sub_name}", "A12")
-        if bool(d.pop("cpu_offload", False)):
-            raise _not_ported(f"{block}.cpu_offload", "A12")
+        cpu_offload = bool(d.pop("cpu_offload", False))
+        offload_param = OffloadDeviceConfig.from_dict(d.pop("offload_param", None),
+                                                      f"{block}.offload_param")
+        offload_optimizer = OffloadDeviceConfig.from_dict(d.pop("offload_optimizer", None),
+                                                          f"{block}.offload_optimizer")
+        if cpu_offload and not offload_optimizer.enabled:
+            offload_optimizer = dataclasses.replace(offload_optimizer, device="cpu")
         out = cls(
+            offload_param=offload_param,
+            offload_optimizer=offload_optimizer,
+            cpu_offload=cpu_offload,
             stage=int(d.pop(C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT)),
             contiguous_gradients=bool(d.pop("contiguous_gradients", True)),
             reduce_scatter=bool(d.pop("reduce_scatter", True)),
@@ -1008,8 +1078,7 @@ class ZeroConfig:
             cross_replica_weight_update=bool(d.pop("cross_replica_weight_update", True)),
         )
         _check_empty(d, block, _known_keys(
-            cls, "offload_param", "offload_optimizer", "cpu_offload",
-            "stage3_prefetch_bucket_size", "stage3_param_persistence_threshold",
+            cls, "stage3_prefetch_bucket_size", "stage3_param_persistence_threshold",
             "stage3_max_live_parameters", "stage3_max_reuse_distance",
             "stage3_gather_fp16_weights_on_model_save"))
         if not (0 <= out.stage <= C.MAX_STAGE_ZERO_OPTIMIZATION):
@@ -1451,7 +1520,6 @@ _TOP_NOT_PORTED = {
                 "B (the port has no kernel switch: CUDA tensors always take the kernels)"),
     "activation_checkpointing": (_off_block, "A13 activation_checkpointing/"),
     "flops_profiler": (_off_block, "A14 profiling/flops_profiler.py"),
-    "aio": (_off_block, "A12 ops/aio/"),
     "elasticity": (_off_block, "A14 elasticity/"),
     "quantize_training": (_off_block, "A13 runtime/quantize.py"),
     "progressive_layer_drop": (_off_block, "A13 progressive_layer_drop.py"),
@@ -1464,7 +1532,7 @@ _PORTED_TOP_LEVEL = {
     C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST, C.COMM,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS,
     C.ALLREDUCE_ALWAYS_FP32, C.MEMORY_BREAKDOWN, C.DUMP_STATE, C.DISABLE_ALLGATHER,
-    C.ZERO_ALLOW_UNTESTED_OPTIMIZER,
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, "aio",
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -1513,6 +1581,7 @@ class DeepSpeedConfig:
         self.seed = int(d.get(C.SEED, C.SEED_DEFAULT))
         self.resilience = ResilienceConfig.from_dict(d.get(C.RESILIENCE))
         self.overlap = OverlapConfig.from_dict(d.get(C.OVERLAP))
+        self.aio = AioConfig.from_dict(d.get("aio"))
         # validated as in the JAX package, which never reads it either
         self.checkpoint_tag_validation_mode = d.get(C.CHECKPOINT_TAG_VALIDATION,
                                                     C.CHECKPOINT_TAG_VALIDATION_DEFAULT)

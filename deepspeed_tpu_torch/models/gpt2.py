@@ -416,17 +416,12 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
     if par.P > 1:
         _seq.check_seq_len(T, par.P)
         pos = _seq.local_positions(par.mesh, T)
-    tokens = tokens[:, pos].long()
     wte = materialize(params["wte"])
-    x = vocab_parallel_embedding(wte, tokens, par.tp) + materialize(params["wpe"])[pos][None]
+    x = _embed(wte, materialize(params["wpe"]), tokens, pos, par.tp)
     x = x.to(params["blocks"]["qkv_w"].dtype)
     keys = block_keys(cfg)
     layers = {key: unstack(params["blocks"][key]) for key in keys}
-    seeds = [None] * cfg.n_layer
-    if generator is not None and not deterministic and cfg.dropout > 0.0:
-        draw = torch.randint(0, 2**62, (cfg.n_layer, 3), generator=generator,
-                             device=generator.device)
-        seeds = [tuple(row) for row in draw.tolist()]
+    seeds = _layer_seeds(cfg, None if deterministic else generator)
     if token_mask is not None:
         token_mask = token_mask[:, pos]
     block_fn = functools.partial(_block, cfg, par=par, training=generator is not None,
@@ -442,11 +437,24 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
         else:
             x, aux = block_fn(x, lp, seeds[i], deterministic)
         aux_total = aux_total + aux
-    x = _layer_norm(x, materialize(params["lnf_g"]), materialize(params["lnf_b"]),
-                    cfg.layer_norm_epsilon)
-    if not return_hidden:
-        x = copy_to_model(x, par.tp) @ wte.t().to(x.dtype)  # tied embedding head
+    x = _head(x, materialize(params["lnf_g"]), materialize(params["lnf_b"]), wte, cfg,
+              return_hidden, par.tp)
     return (x, aux_total) if return_aux else x
+
+
+def _embed(wte: torch.Tensor, wpe: torch.Tensor, tokens: torch.Tensor, pos: slice, tp=None):
+    """Token + position embedding of the positions ``pos`` of ``tokens``."""
+    return vocab_parallel_embedding(wte, tokens[:, pos].long(), tp) + wpe[pos][None]
+
+
+def _head(x: torch.Tensor, lnf_g, lnf_b, wte: torch.Tensor, cfg: GPT2Config,
+          return_hidden: bool, tp=None) -> torch.Tensor:
+    """The final LayerNorm, then the tied embedding head (the logits), or
+    the normed hidden states with ``return_hidden``."""
+    x = _layer_norm(x, lnf_g, lnf_b, cfg.layer_norm_epsilon)
+    if not return_hidden:
+        x = copy_to_model(x, tp) @ wte.t().to(x.dtype)
+    return x
 
 
 def _xent_chunk(xc, wte, lc, mc, tp=None):
@@ -504,6 +512,16 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
                          return_hidden=chunked, par=par, return_aux=True,
                          token_mask=batch.get("attention_mask") if moe else None)
     aux = cfg.moe_aux_weight * moe_aux if moe else 0.0
+    return _head_nll(out, materialize(params["wte"]), batch, cfg, par) + aux
+
+
+def _head_nll(out: torch.Tensor, wte: torch.Tensor, batch: Dict[str, Any], cfg: GPT2Config,
+              par: _Parallel) -> torch.Tensor:
+    """The mean masked next-token NLL of :func:`_head`'s output ``out``:
+    the logits, or under ``xent_chunk_size`` the hidden states, whose
+    logits against ``wte`` are made chunk by chunk."""
+    tokens = batch["input_ids"]
+    chunked = cfg.xent_chunk_size > 0
     if chunked:  # the hidden states feed the vocab-parallel head
         out = copy_to_model(out, par.tp)
     if par.P > 1:
@@ -521,16 +539,57 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
 
     if chunked:
         ones = torch.ones(labels.shape, dtype=torch.float32, device=out.device) if mask is None else mask
-        total, count = _chunked_sums(out_shift, materialize(params["wte"]), labels, ones,
-                                     cfg.xent_chunk_size, par.tp)
+        total, count = _chunked_sums(out_shift, wte, labels, ones, cfg.xent_chunk_size, par.tp)
     else:
         nll = vocab_parallel_nll(out_shift, labels, par.tp)
         if mask is None:
-            return nll.mean() + aux
+            return nll.mean()
         total, count = (nll * mask).sum(), mask.sum()
     if par.P > 1:
         total, count = _seq.reduce_from_seq(torch.stack([total, count]), par.mesh)
-    return total / torch.clamp(count, min=1.0) + aux
+    return total / torch.clamp(count, min=1.0)
+
+
+def _layer_seeds(cfg: GPT2Config, generator: Optional[torch.Generator]) -> list:
+    """Every layer's three dropout seeds, drawn as :func:`apply` draws them
+    (None per layer without dropout or without a generator)."""
+    if generator is None or cfg.dropout == 0.0:
+        return [None] * cfg.n_layer
+    draw = torch.randint(0, 2**62, (cfg.n_layer, 3), generator=generator, device=generator.device)
+    return [tuple(row) for row in draw.tolist()]
+
+
+def _stream_embed(cfg: GPT2Config, resident: Dict[str, torch.Tensor], tokens: torch.Tensor):
+    """The streaming engine's first stage: :func:`apply`'s embedding (the
+    JAX package's ``_stream_embed``)."""
+    return _embed(resident["wte"], resident["wpe"], tokens, slice(0, tokens.shape[1]))
+
+
+def _stream_group(cfg: GPT2Config, gblocks: Dict[str, torch.Tensor], x: torch.Tensor,
+                  seeds: list, deterministic: bool, remat: bool = True):
+    """The streaming engine's repeated stage: the blocks of one layer
+    group (``gblocks`` leaves lead with the group's layers), each under
+    ``torch.utils.checkpoint`` when ``remat`` (the JAX ``_stream_group``'s
+    per-block remat); ``seeds``: the group's layers' dropout seeds."""
+    keys = block_keys(cfg)
+    layers = {key: unstack(gblocks[key]) for key in keys}
+    block_fn = functools.partial(_block, cfg, par=_Parallel(), training=seeds[0] is not None)
+    for j in range(len(layers[keys[0]])):
+        lp = {key: layers[key][j] for key in keys}
+        if remat:
+            x, _ = checkpoint(block_fn, x, lp, seeds[j], deterministic, use_reentrant=False)
+        else:
+            x, _ = block_fn(x, lp, seeds[j], deterministic)
+    return x
+
+
+def _stream_head_loss(cfg: GPT2Config, resident: Dict[str, torch.Tensor], x: torch.Tensor,
+                      batch: Dict[str, Any]) -> torch.Tensor:
+    """The streaming engine's last stage: :func:`apply`'s head and
+    :func:`loss_fn`'s loss (chunked when configured)."""
+    out = _head(x, resident["lnf_g"], resident["lnf_b"], resident["wte"], cfg,
+                cfg.xent_chunk_size > 0)
+    return _head_nll(out, resident["wte"], batch, cfg, _Parallel())
 
 
 def tp_spec_fn(path: str, shape) -> Any:
@@ -628,10 +687,28 @@ def make_model(cfg: GPT2Config):
     (pass it to ``initialize`` for a ``model`` axis, with
     ``mesh_check=functools.partial(check_mesh, cfg)`` for this config's
     refusals and ``comm_model=functools.partial(parallel_comm_model,
-    cfg)``).  The layer-streaming ``stream_spec`` is ROADMAP A12."""
+    cfg)``).
+
+    ``model_fn.stream_spec`` gives the layer-streaming structure the
+    ZeRO-Infinity engine needs (``runtime/zero/param_offload.py``): the
+    stacked ``blocks`` and the embed / layer-group / head stages, with
+    the JAX package's ``supported`` rule (no MoE; ``flash`` or ``sparse``
+    attention)."""
+    from deepspeed_tpu_torch.runtime.zero.param_offload import StreamSpec
 
     def model_fn(params, batch, generator):
         deterministic = generator is None or cfg.dropout == 0.0
         return loss_fn(params, batch, generator=generator, cfg=cfg, deterministic=deterministic)
 
+    model_fn.stream_spec = StreamSpec(
+        n_layer=cfg.n_layer,
+        blocks_key="blocks",
+        embed=functools.partial(_stream_embed, cfg),
+        group=functools.partial(_stream_group, cfg),
+        head_loss=functools.partial(_stream_head_loss, cfg),
+        layer_seeds=functools.partial(_layer_seeds, cfg),
+        deterministic=cfg.dropout == 0.0,
+        remat=cfg.remat,
+        supported=cfg.n_experts == 0 and cfg.attention_mode in ("flash", "sparse"),
+    )
     return model_fn, functools.partial(init_params, cfg), tp_spec_fn

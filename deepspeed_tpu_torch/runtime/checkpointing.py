@@ -38,8 +38,18 @@ warning, and on load rank 0 picks the tag (its scan, verification and
 quarantine) and broadcasts it.  Each rank then reads the file and keeps
 its own slices.
 
-Not ported, each with its ROADMAP item: the host-offload optimizer's
-files (A12); the 1-bit optimizers' phase sync (A13); the supervision
+Under ZeRO-Offload (``runtime/zero/offload.py``; both offload engines)
+the tag's ``params/<path>`` are the host f32 masters and the moments go
+in as ``host_optimizer/m/<path>`` and ``host_optimizer/v/<path>`` (under
+``nvme`` read back from disk first), in the same ``state.pt`` under the
+same commit protocol.  A tag without them (saved without offload) loads
+into an offload engine as the JAX package's ``load_masters`` path does:
+the masters from the tag's parameters, the moments reset, with its
+warning.  An offload tag does not load into an engine without offload
+(its ``opt_state`` is missing).
+
+Not ported, each with its ROADMAP item: offload across ranks (A12); the
+1-bit optimizers' phase sync (A13); the supervision
 plane's ``local_npz`` emergency format and its armed barriers (A14); the
 sanitizer's donation, transfer and drift hooks (A15).
 """
@@ -103,6 +113,28 @@ def _per_leaf(engine, x) -> bool:
     return isinstance(x, list) and len(x) == len(engine._params)
 
 
+HOST_OPT = "host_optimizer"
+
+
+def _offload_state_tensors(engine) -> Dict[str, torch.Tensor]:
+    """An offload engine's tensors by name: the host masters as
+    ``params/``, the host moments under ``host_optimizer/``, the loss
+    scaler's state and the pending gradients (live tensors)."""
+    sd = engine._host_opt.state_dict()
+    out = {}
+    for k in engine._host_opt.keys:
+        out[f"params/{k}"] = sd[f"master/{k}"]
+        out[f"{HOST_OPT}/m/{k}"] = sd[f"m/{k}"]
+        out[f"{HOST_OPT}/v/{k}"] = sd[f"v/{k}"]
+    for path, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
+        out[_path_str(path)] = leaf
+    acc = getattr(engine, "_grad_acc", None) or []
+    if any(a is not None for a in acc):
+        for k, a, m in zip(engine._host_opt.keys, acc, engine._host_opt.masters):
+            out[f"grad_acc/{k}"] = a if a is not None else torch.zeros_like(m)
+    return out
+
+
 def _state_tensors(engine) -> Dict[str, torch.Tensor]:
     """The tag's tensors by name, whole: the f32 masters, the optimizer
     state (a list of per-parameter tensors is named by the parameters'
@@ -110,6 +142,8 @@ def _state_tensors(engine) -> Dict[str, torch.Tensor]:
     scaler's state and, between micro-steps, the pending gradients.  Where
     ZeRO cuts a leaf this gathers it (every rank must call); otherwise the
     names map to the engine's live tensors."""
+    if getattr(engine, "_host_opt", None) is not None:
+        return _offload_state_tensors(engine)
     layout = engine.layout
     nat = lambda i, t, spec: layout.natural(i, t.detach(), spec)  # noqa: E731
     params = [nat(i, p, layout.leaves[i].param_spec) for i, p in enumerate(engine._params)]
@@ -145,6 +179,9 @@ def _snapshot_state_to_host(engine) -> Dict[str, torch.Tensor]:
     out = {}
     with torch.cuda.stream(stream):
         for name, t in live.items():
+            if t.device.type == "cpu":  # an offload engine's host state
+                out[name] = t.detach().clone()
+                continue
             out[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             out[name].copy_(t.detach(), non_blocking=True)
         done = torch.cuda.Event()
@@ -295,9 +332,10 @@ def save_checkpoint(
         writer.drain()
     use_async = (writer is not None) if async_save is None else (bool(async_save) and writer is not None)
     if use_async:
-        # the JAX package's blockers (the host-offload optimizer, A12, does
-        # not exist in the port); a multi-rank save is collective, and its
-        # gathers must not run on the writer thread
+        # the JAX package's blockers (its host-offload optimizer's files
+        # are the port's state.pt entries, snapshotted like the rest); a
+        # multi-rank save is collective, and its gathers must not run on
+        # the writer thread
         blockers = []
         if _world(engine) > 1:
             blockers.append("multi-process saves are collective (staging barriers)")
@@ -607,11 +645,18 @@ def _finish_restore(
     step).  As in the JAX package, ``load_module_only`` takes the
     parameters alone, ``load_optimizer_states=False`` the parameters, the
     loss scaler and the counters."""
+    offload = getattr(engine, "_host_opt", None) is not None
     groups = {"params"}
     if not load_module_only:
         groups.add("loss_scale")
         if load_optimizer_states:
-            groups |= {"opt_state", "grad_acc"}
+            groups |= {HOST_OPT if offload else "opt_state", "grad_acc"}
+    reset_moments = HOST_OPT in groups and not any(n.startswith(HOST_OPT + "/") for n in restored)
+    if reset_moments:
+        logger.warning(
+            f"host optimizer state not found in {path} (saved without offload): the f32 "
+            "masters are rebuilt from its parameters and the Adam moments are being RESET")
+        groups.discard(HOST_OPT)
     live = _state_tensors(engine)
     live = {n: t for n, t in live.items() if n.split("/", 1)[0] in groups and n.split("/", 1)[0] != "grad_acc"}
     disk = {n for n in restored if n.split("/", 1)[0] in groups - {"grad_acc"}}
@@ -628,7 +673,10 @@ def _finish_restore(
                 f"{src.dtype}{tuple(src.shape)}, the engine's {t.dtype}{tuple(t.shape)}"
             )
     with torch.no_grad():
-        _copy_in(engine, restored, groups)
+        if offload:
+            _copy_in_offload(engine, restored, groups, reset_moments)
+        else:
+            _copy_in(engine, restored, groups)
     if not load_module_only:
         engine._host_micro_step = int(restored["micro_step"])
         engine._host_global_step = int(restored["global_step"])
@@ -677,6 +725,31 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
         acc = restored.get(f"grad_acc/{name}") if "grad_acc" in groups else None
         engine._grad_acc[i] = (None if acc is None else layout.from_natural(
             i, acc.to(engine.device), layout.leaves[i].acc_spec).clone())
+
+
+def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_moments: bool) -> None:
+    """An offload engine's restore: the host masters from ``params/``, the
+    moments from ``host_optimizer/`` (or reset), then the engine's
+    compute-type parameters from the masters (``_after_host_load``)."""
+    host = engine._host_opt
+    engine._host_buffers_idle()  # no copy may still read the pinned buffers
+    if HOST_OPT in groups:
+        host.load_state_dict({
+            **{f"master/{k}": restored[f"params/{k}"] for k in host.keys},
+            **{f"{x}/{k}": restored[f"{HOST_OPT}/{x}/{k}"] for k in host.keys for x in ("m", "v")},
+        })
+    else:
+        host.load_masters([restored[f"params/{k}"] for k in host.keys])
+        if reset_moments:
+            host.reset_moments()
+    if "loss_scale" in groups:
+        for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
+            leaf.copy_(restored[_path_str(sub)])
+    if getattr(engine, "_grad_acc", None) is not None:
+        for i, k in enumerate(host.keys):
+            acc = restored.get(f"grad_acc/{k}") if "grad_acc" in groups else None
+            engine._grad_acc[i] = None if acc is None else acc.to(engine.device).clone()
+    engine._after_host_load()
 
 
 def load_params(load_dir: str, tag: Optional[str] = None) -> Tuple[str, Dict[str, torch.Tensor]]:

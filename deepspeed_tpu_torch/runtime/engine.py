@@ -92,9 +92,24 @@ once.  A ``pipe`` axis belongs to ``runtime/pipe/engine.py``'s
 ``PipelineEngine``; under this engine it replicates, as under the JAX
 engine.
 
-Not ported (each raises, naming its ROADMAP item, or is absent): offload (A12),
-1-bit optimizers and compressed exchanges (A13), supervision, telemetry,
-sanitizer and flops profiler (A14/A15), MoQ and PLD (A13).
+**ZeRO-Offload** (``zero_optimization.offload_optimizer.device`` ``cpu``
+or ``nvme``, one rank): the f32 masters and Adam moments live in pinned
+host memory (the moments on disk under ``nvme``) in a
+``runtime/zero/offload.py::HostOffloadOptimizer``; the device holds the
+compute-type parameters and the f32 gradient accumulator only.  At the
+accumulation boundary the accumulator is averaged, unscaled, checked,
+norm-reduced and clipped on the device (the code of the device step),
+copied into pinned host buffers on a side stream behind an event, stepped
+by the native host Adam (``ops/adam/cpu_adam.py``), cast to bf16 by the
+host kernel into a pinned buffer and copied back to the device parameters
+without blocking; the next cast into that buffer waits for the copy's
+event.  Offload across ranks raises (ROADMAP A12); ``offload_param``
+routes to ``runtime/zero/param_offload.py`` in ``initialize``.
+
+Not ported (each raises, naming its ROADMAP item, or is absent): offload
+across ranks (A12), 1-bit optimizers and compressed exchanges (A13),
+supervision, telemetry, sanitizer and flops profiler (A14/A15), MoQ and
+PLD (A13).
 """
 from __future__ import annotations
 
@@ -294,7 +309,11 @@ class DeepSpeedEngine:
         self.layout = ZeroLayout(self.mesh, self.zero_rules, shapes, self._paths)
         # LAMB's norms reduce over the axes that cut each leaf's state
         self.mesh.ensure_groups(sorted({self.layout.update_axes(i) for i in range(len(leaves))}))
-        self._params: List[torch.Tensor] = []
+        self._host_opt = None
+        if self._check_offload(model, optimizer):
+            self._init_host_offload(leaves)
+            leaves = []
+        self._params: List[torch.Tensor] = self._params if self._host_opt is not None else []
         for i, x in enumerate(leaves):
             full = (torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
                     if not isinstance(x, torch.Tensor)
@@ -312,9 +331,11 @@ class DeepSpeedEngine:
         self.optimizer = optimizer if optimizer is not None else self._configure_basic_optimizer()
         self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
         self.client_lr_scheduler = lr_scheduler
-        with torch.no_grad():
-            self.opt_state = self.optimizer.init(
-                [self._update_param(i) for i in range(len(self._params))])
+        self.opt_state = None  # offload: the host optimizer holds it
+        if self._host_opt is None:
+            with torch.no_grad():
+                self.opt_state = self.optimizer.init(
+                    [self._update_param(i) for i in range(len(self._params))])
         self.loss_scale_state = self.loss_scaler.init(self.device)
 
         self.skipped_steps = 0
@@ -335,6 +356,64 @@ class DeepSpeedEngine:
             f" of {len(self._params)} leaves update-sharded, "
             f"{sum(self.layout.param_sharded(i) for i in range(len(self._params)))} param-sharded)"
         )
+
+    def _check_offload(self, model, optimizer) -> bool:
+        """The JAX engine's offload checks (``engine.py:149-191``): a model
+        without a ``stream_spec`` under ``offload_param`` keeps its
+        parameters on the device, with the JAX warning; ``offload_optimizer``
+        refuses offload across ranks (ROADMAP A12), a client optimizer and
+        any optimizer but Adam/AdamW.  Returns whether the optimizer is
+        offloaded."""
+        from deepspeed_tpu_torch.runtime.zero.offload import (
+            host_optimizer_refusal,
+            refuse_across_ranks,
+        )
+
+        zc = self.config.zero_config
+        if zc.offload_param.enabled and getattr(model, "stream_spec", None) is None:
+            logger.warning(
+                "offload_param: model exposes no stream_spec, so params stay "
+                "device-resident; models.gpt2.make_model provides the layer-streaming path")
+        if not zc.offload_optimizer.enabled:
+            return False
+        refuse_across_ranks(self.world_size, "offload_optimizer")
+        reason = host_optimizer_refusal(self.config, optimizer)
+        if reason is not None:
+            raise ValueError(f"offload_optimizer: {reason}")
+        return True
+
+    def _init_host_offload(self, leaves: List[Any]) -> None:
+        """The host optimizer (the JAX engine's
+        ``_configure_host_offload_optimizer``) and the pinned buffers of the
+        boundary's copies, allocated once; the device keeps the parameters
+        in the compute type."""
+        from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
+
+        oc = self.config.zero_config.offload_optimizer
+        nvme_dir = None
+        if oc.device == "nvme":
+            if not oc.nvme_path:
+                raise ValueError("offload_optimizer.device=nvme requires nvme_path")
+            nvme_dir = os.path.join(oc.nvme_path, "zero_infinity_swap")
+        pin = self.device.type == "cuda"
+        self._host_opt = HostOffloadOptimizer.from_config(
+            self.config, list(zip(self._paths, leaves)), nvme_swap_dir=nvme_dir, pin_memory=pin)
+        masters = self._host_opt.masters
+        self._host_grads = [torch.empty(m.shape, dtype=torch.float32, pin_memory=pin)
+                            for m in masters]
+        self._host_cast = ([torch.empty(m.shape, dtype=self.compute_dtype, pin_memory=pin)
+                            for m in masters] if self.compute_dtype != torch.float32 else None)
+        self._d2h_stream = torch.cuda.Stream(self.device) if pin else None
+        self._h2d_done = None  # the event of the last copy out of the pinned buffers
+        self._offload_events: Dict[str, Any] = {}
+        self.offload_timing: Dict[str, float] = {}
+        with torch.no_grad():
+            # a copy, never the master itself (the CPU in f32 would alias it)
+            self._params = [m.to(self.device, non_blocking=True).to(self.compute_dtype, copy=True)
+                            for m in masters]
+        log_dist(f"ZeRO-Offload: {sum(m.numel() for m in masters)} parameters, "
+                 f"{self.compute_dtype} on {self.device}, f32 masters+moments on the host "
+                 f"({oc.device})")
 
     def _check_parallel(self, mesh_check, shapes) -> None:
         """The refusals of a ``model`` or ``seq`` axis, before any leaf is
@@ -520,7 +599,10 @@ class DeepSpeedEngine:
     @property
     def params(self) -> Any:
         """The f32 master weights, whole, as the caller's tree (detached).
-        Where ZeRO shards them this gathers: read it on every rank."""
+        Where ZeRO shards them this gathers: read it on every rank.  Under
+        offload: the host masters."""
+        if self._host_opt is not None:
+            return self._unflatten(list(self._host_opt.masters))
         return self._unflatten([self.layout.natural(i, p.detach(), self.layout.leaves[i].param_spec)
                                 for i, p in enumerate(self._params)])
 
@@ -618,6 +700,8 @@ class DeepSpeedEngine:
                 g = torch.zeros_like(p)
             if not self.layout.param_sharded(i):
                 g = self.layout.reduce_grad(i, g)
+            if g.dtype != torch.float32:  # offload: the compute-type leaves' gradients
+                g = g.float()
             acc = self._grad_acc[i]
             self._grad_acc[i] = g if acc is None else acc.add_(g)
 
@@ -627,6 +711,29 @@ class DeepSpeedEngine:
         ``_apply_step_impl`` + ``_apply_update``) on this rank's update
         slices; ``loss`` (this rank's mean loss) comes back as the global
         batch's mean under ``info["loss"]``."""
+        grads, overflow, grad_norm, loss = self._boundary_grads(loss)
+        if self._host_opt is not None:
+            return self._host_apply_step(grads, overflow, grad_norm, loss)
+        layout, n = self.layout, len(self._params)
+        lr = float(self.lr_schedule(self._host_global_step))
+        params = [self._update_param(i) for i in range(n)]
+        state = engine_update(self.optimizer, grads, self.opt_state, params, lr, overflow,
+                              reduce_norms=self._lamb_norm_reducer())
+        if state is None:
+            self.opt_state = self._plain_update(grads, params, lr, overflow)
+        for i in range(n):
+            if layout.update_sharded(i):
+                leaf = layout.leaves[i]
+                self._params[i].copy_(layout.gather(params[i], leaf.opt_spec, leaf.param_spec,
+                                                    "update-all-gather"))
+        self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
+        return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+
+    def _boundary_grads(self, loss: Optional[torch.Tensor]):
+        """The boundary's gradients on the device: the accumulator
+        averaged, unscaled and checked, the global norm reduced (with the
+        step's scalars across ranks) and clipped.  Returns ``(grads,
+        overflow, grad_norm, loss)``."""
         layout, n = self.layout, len(self._params)
         div = self.gradient_accumulation_steps * self.dp_world_size
         grads = []
@@ -666,19 +773,101 @@ class DeepSpeedEngine:
         if clip:
             grad_norm = torch.sqrt(sq)
             grads = _clip_by_norm(grads, grad_norm, self.config.gradient_clipping)
+        return grads, overflow, grad_norm, loss
+
+    def _host_apply_step(self, grads, overflow, grad_norm, loss) -> Dict[str, Any]:
+        """The offload step after :meth:`_boundary_grads` (the JAX engine's
+        ``_host_apply_step``): gradients into the pinned host buffers on
+        the side stream, the host Adam over the masters in place, the cast
+        into the pinned compute-type buffers and the copies back to the
+        device parameters.  A dynamic scaler's overflow skips the update."""
         lr = float(self.lr_schedule(self._host_global_step))
-        params = [self._update_param(i) for i in range(n)]
-        state = engine_update(self.optimizer, grads, self.opt_state, params, lr, overflow,
-                              reduce_norms=self._lamb_norm_reducer())
-        if state is None:
-            self.opt_state = self._plain_update(grads, params, lr, overflow)
-        for i in range(n):
-            if layout.update_sharded(i):
-                leaf = layout.leaves[i]
-                self._params[i].copy_(layout.gather(params[i], leaf.opt_spec, leaf.param_spec,
-                                                    "update-all-gather"))
+        if not (self.loss_scaler.dynamic and bool(overflow)):
+            timing, ev = self.offload_timing, self._offload_events
+            timing.clear()
+            ev.clear()
+            t0 = time.perf_counter()
+            if self._d2h_stream is not None:
+                ev["d2h_start"], ev["d2h_end"] = (torch.cuda.Event(enable_timing=True)
+                                                  for _ in range(2))
+                self._d2h_stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self._d2h_stream):
+                    ev["d2h_start"].record()
+                    for h, g in zip(self._host_grads, grads):
+                        h.copy_(g, non_blocking=True)
+                    ev["d2h_end"].record()
+                ev["d2h_end"].synchronize()  # the host reads the buffers next
+            else:
+                for h, g in zip(self._host_grads, grads):
+                    h.copy_(g)
+            del grads
+            t1 = time.perf_counter()
+            masters = self._host_opt.step(self._host_grads, lr, self._host_global_step + 1)
+            t2 = time.perf_counter()
+            self._push_params(masters)
+            timing.update(d2h_wait_ms=(t1 - t0) * 1e3, adam_ms=(t2 - t1) * 1e3)
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
         return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+
+    def _push_params(self, masters: List[torch.Tensor]) -> None:
+        """The masters, cast to the compute type (the host kernel's
+        round-to-nearest-even for bf16), into the device parameters.  The
+        cast waits for the last copy out of the same pinned buffers."""
+        from deepspeed_tpu_torch.ops.adam.cpu_adam import fp32_to_bf16
+
+        t0 = time.perf_counter()
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+        src = masters
+        if self._host_cast is not None:
+            for m, c in zip(masters, self._host_cast):
+                if c.dtype == torch.bfloat16:
+                    fp32_to_bf16(m.reshape(-1), c.reshape(-1))
+                else:
+                    c.copy_(m)
+            src = self._host_cast
+        t1 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        ev = self._offload_events
+        if cuda:
+            ev["h2d_start"], ev["h2d_end"] = (torch.cuda.Event(enable_timing=True)
+                                              for _ in range(2))
+            ev["h2d_start"].record()
+        with torch.no_grad():
+            for p, h in zip(self._params, src):
+                p.copy_(h, non_blocking=cuda)
+        if cuda:
+            ev["h2d_end"].record()
+            self._h2d_done = ev["h2d_end"]
+        self.offload_timing["cast_ms"] = (t1 - t0) * 1e3
+
+    def _host_buffers_idle(self) -> None:
+        """Wait for the last copy out of the pinned host buffers (before a
+        checkpoint load overwrites the masters)."""
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+
+    def _after_host_load(self) -> None:
+        """A checkpoint load replaced the host masters: the device
+        parameters follow."""
+        self._push_params(self._host_opt.masters)
+
+    def offload_breakdown(self) -> Dict[str, float]:
+        """The last offload step's milliseconds: ``d2h_ms`` and ``h2d_ms``
+        (CUDA events on the copies' streams; None off the card),
+        ``d2h_wait_ms`` (host clock from issuing the gradient copies to
+        their event: the device compute still queued plus the copies),
+        ``adam_ms`` (the host Adam, disk waits under ``nvme`` included) and
+        ``cast_ms`` (the host clock of the cast)."""
+        out = dict(self.offload_timing)
+        ev = self._offload_events
+        for key in ("d2h", "h2d"):
+            if f"{key}_end" in ev:
+                ev[f"{key}_end"].synchronize()
+                out[f"{key}_ms"] = ev[f"{key}_start"].elapsed_time(ev[f"{key}_end"])
+            else:
+                out[f"{key}_ms"] = None
+        return out
 
     def _counts_loss(self) -> bool:
         """Whether this rank's loss enters the step's sum: one rank of

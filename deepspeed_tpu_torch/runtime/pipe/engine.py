@@ -154,6 +154,8 @@ class PipelineEngine(DeepSpeedEngine):
             # reason: partitioned gradients conflict with the pipeline's
             # accumulation over micro-batches
             raise AssertionError("ZeRO stages > 1 are incompatible with pipeline parallelism")
+        if config.zero_config.offload_optimizer.enabled:  # as the JAX engine
+            raise NotImplementedError("offload_optimizer is not supported with the pipeline engine yet")
         if not isinstance(mesh, Mesh):
             mesh, _ = build_mesh(config.mesh if mesh is None else mesh)
         self.num_stages = mesh.sizes["pipe"]

@@ -108,9 +108,30 @@ def test_same_dict_gives_same_rejection(d):
     ({"sanitizer": {"enabled": True}}, "A15"),
     ({"progressive_layer_drop": {"enabled": True}}, "A13"),
 ])
-def test_not_ported_blocks_raise_naming_their_item(d, item):
+def test_not_ported_blocks_raise_naming_their_item(d, item, monkeypatch):
     d = {"train_batch_size": 8, **d}
-    JConfig(d, world_size=1)  # the JAX package takes it
+    j = JConfig(d, world_size=1)  # the JAX package takes it
+    if item == "A12":
+        # offload is ported for one rank: the blocks parse to the JAX
+        # package's values, and offload across ranks (here the JAX
+        # package's DS_OFFLOAD_SHARDS) raises naming A12
+        import dataclasses
+
+        import deepspeed_tpu_torch
+        from deepspeed_tpu_torch.models import gpt2 as tgpt2
+
+        t = TConfig(d)
+        for part in ("offload_param", "offload_optimizer"):
+            assert (dataclasses.asdict(getattr(t.zero_config, part))
+                    == dataclasses.asdict(getattr(j.zero_config, part)))
+        assert dataclasses.asdict(t.aio) == dataclasses.asdict(j.aio)
+        monkeypatch.setenv("DS_OFFLOAD_SHARDS", "2")
+        zero = d.get("zero_optimization", {"offload_optimizer": {"device": "cpu"}})
+        model_fn, init_fn, _ = tgpt2.make_model(tgpt2.GPT2_TINY)
+        with pytest.raises(NotImplementedError, match="A12 \\(offload across ranks\\)"):
+            deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=init_fn(),
+                                           config={**d, "zero_optimization": zero}, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         TConfig(d)
 

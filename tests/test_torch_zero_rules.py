@@ -270,7 +270,9 @@ FIELDS = [f.name for f in dataclasses.fields(tconfig.ZeroConfig)]
 def test_zero_and_mesh_blocks_parse_as_in_jax(k):
     d = ZERO_BLOCKS[k]
     t, j = tconfig.ZeroConfig.from_dict(d), jconfig.ZeroConfig.from_dict(d)
-    assert {f: getattr(t, f) for f in FIELDS} == {f: getattr(j, f) for f in FIELDS}
+    plain = lambda v: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v  # noqa: E731
+    assert ({f: plain(getattr(t, f)) for f in FIELDS}
+            == {f: plain(getattr(j, f)) for f in FIELDS})
     mesh = [None, {}, {"data": 2}, {"fsdp": 4}, {"data": -1, "fsdp": 2}][k % 5]
     tm, jm = tconfig.MeshConfig.from_dict(mesh), jconfig.MeshConfig.from_dict(mesh)
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
@@ -284,8 +286,8 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
     ({"zero_optimization": {"stage": 1, "bucket": 5}}, "error", None),
     ({"zero_optimization": {"param_persistence_threshold": 1,
                             "stage3_param_persistence_threshold": 2}}, "error", None),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "raise", "A12"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "raise", "A12"),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload", "A12"),
+    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "offload", "A12"),
     ({"mesh": {"model": 2}}, "parse", None),
     ({"mesh": {"seq": 2}}, "parse", None),
     ({"mesh": {"pipe": 2}}, "parse", None),
@@ -299,8 +301,22 @@ def test_config_refusals(d, exc, match):
     """Invalid blocks raise in both packages; blocks the JAX package takes
     but the port does not honour yet raise NotImplementedError naming their
     ROADMAP item.  A ``model``, ``seq``, ``pipe`` or ``expert`` axis
-    parses in both, alike (each runs since it was ported)."""
+    parses in both, alike (each runs since it was ported); so do the
+    offload blocks (``cpu_offload`` as ``offload_optimizer: {device:
+    cpu}``), which the engine refuses across ranks only, naming A12."""
     d = {"train_batch_size": 8, **d}
+    if exc == "offload":
+        from deepspeed_tpu_torch.runtime.zero.offload import refuse_across_ranks
+
+        t, j = tconfig.DeepSpeedConfig(d), jconfig.DeepSpeedConfig(d, world_size=1)
+        assert (dataclasses.asdict(t.zero_config.offload_optimizer)
+                == dataclasses.asdict(j.zero_config.offload_optimizer))
+        assert t.zero_config.offload_optimizer.device == "cpu"
+        assert t.zero_config.cpu_offload == j.zero_config.cpu_offload
+        refuse_across_ranks(1, "offload_optimizer")  # one rank: runs
+        with pytest.raises(NotImplementedError, match=match):
+            refuse_across_ranks(2, "offload_optimizer")
+        return
     if exc == "parse":
         j = jconfig.DeepSpeedConfig(d, world_size=1).mesh
         t = tconfig.DeepSpeedConfig(d).mesh
