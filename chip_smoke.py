@@ -315,7 +315,37 @@ Phases, each printing one JSON line:
    losses train_infinity_bf16's bit for bit, the same memory gates, and
    the bytes the aio engine was asked to read what the sweeps need (gas x
    2 sweeps x the blocks' bf16 bytes a step).
-23. ``kernels``: one entry per kernel with its launches on each main path
+23. ``train_offload_ranks_bf16``: ``train_bf16``'s model, config and
+   batch at ``mesh: {data: 2}`` over two rank processes sharing the card
+   (gloo; ``tools/zero_worker.py``, each rank's rows train_bf16's
+   micro-batches), 1 step without offload, 3 with ``offload_optimizer:
+   cpu`` (each rank its flat half of the masters and moments, the slices
+   all-gathered as pinned f32 tensors), 2 with ``nvme``: the first loss
+   the same ranks' without offload bit for bit, step-1 masters within
+   OFFLOAD_STEP1_REL of theirs, the rest within OFFLOAD_LOSS_RTOL of
+   train_bf16's, each
+   rank's host master bytes half of one rank's (up to the pad), nvme the
+   cpu losses bit for bit, and ``DS_OFFLOAD_SHARDS=2`` in this process
+   train_offload_bf16's masters bit for bit.
+24. ``train_infinity_ranks_bf16``: ``offload_param: cpu`` (12 one-layer
+   groups) at ``mesh: {fsdp: 2}`` over two rank processes: each rank its
+   fsdp half of the block masters and moments, the groups all-gathered,
+   their gradients reduce-scattered; the first loss train_infinity_bf16's
+   bit for bit, the rest within INFINITY_LOSS_RTOL; a two-rank tag loads in
+   one process and a one-rank tag at two ranks with the same masters.
+25. ``train_infinity_sparse_bf16``: the sparse GPT-2 of train_sparse_bf16
+   (T 8192, 8 layers) streamed one layer at a time on one rank, 2 steps
+   (a main path: B8 twice, B9a/B9b once a layer a step, tensor-core
+   bodies): the losses within INFINITY_LOSS_RTOL of the in-memory engine's.
+26. ``train_onebit_bf16``: ``OneBitAdam`` and ``OneBitLamb`` (freeze_step
+   2, 4 steps) and AdamW under ``comm.strategy`` int8 and onebit (2 steps)
+   at ``mesh: {data: 2}`` over two rank processes: losses finite, every
+   compressed step's ``grad-exchange`` bytes ``step_comm_bytes``' model and
+   at least ONEBIT_WIRE_FACTOR below dense, one exchange of fixed rows on
+   the card within ONEBIT_ROWS_ATOL of the plain rows functions.
+   Phases 23-26 print ms a step, each rank's profiled step (its kernels'
+   busy share of the step's window) and host and device peaks.
+27. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
@@ -324,7 +354,9 @@ Phases, each printing one JSON line:
    training_resume, training_zero, training_tp_seq, training_bert, training_resume_bert,
    training_bert_dropout, transformer_layer, training_sparse, training_moe,
    serving_moe, training_pipe, training_offload, training_offload_nvme,
-   training_infinity, training_infinity_nvme) and their sum.
+   training_infinity, training_infinity_nvme, training_offload_ranks,
+   training_infinity_ranks, training_infinity_sparse, training_onebit) and
+   their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -479,7 +511,13 @@ HOST_LINK_BYTES = 64e9
 LAYER_F32_RTOL = 1e-4
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line notes the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "script_elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -4505,7 +4543,7 @@ def phase_train_sparse_bf16(torch):
               "sparse_over_dense_tokens_per_s": sp_run["tokens_per_s"] / dn_run["tokens_per_s"],
               "sparse_over_dense_median": sp_run["tokens_per_s_median"]
               / dn_run["tokens_per_s_median"]})
-    return total
+    return total, runs[(SPARSE_TS[0], "sparse")]["losses"]
 
 
 # ---------------------------------------------------------------------------
@@ -5467,8 +5505,512 @@ def run_offload_phases(torch, params, one_process, smi):
                                                      buffer_count=2, ref_losses=inf_losses)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"training_offload": off_launches, "training_offload_nvme": nvme_launches,
-            "training_infinity": inf_launches, "training_infinity_nvme": infn_launches}
+    return ({"training_offload": off_launches, "training_offload_nvme": nvme_launches,
+             "training_infinity": inf_launches, "training_infinity_nvme": infn_launches},
+            off, inf_losses)
+
+
+
+# ---------------------------------------------------------------------------
+# phases 23-26: offload across ranks, the sparse stream, 1-bit optimizers
+# and the compressed exchanges (GPT-2 124M, train_bf16's config)
+# ---------------------------------------------------------------------------
+
+# train_onebit_bf16: one exchange of fixed rows on the card's two ranks
+# against the plain one-process rows function (absolute): a 1-bit output is
+# a sign times a chunk's mean |x|, summed on the card in another order (a
+# few f32 roundings of ~0.8); int8's codes and scales are order-free
+ONEBIT_ROWS_ATOL = 1e-6
+# the frozen-phase exchange moves 2 B a parameter against the dense
+# all-reduce's 8 a micro-step (gas 2: 16)
+ONEBIT_WIRE_FACTOR = 4.0
+ONEBIT_FREEZE = 2
+
+
+def _rank_batch(one_rank, gas, mb, dp):
+    """A global batch whose every data-parallel rank's rows are
+    ``one_rank``'s (``tools/zero_worker.py``'s row order: micro-batch i's
+    rows ``i mb dp + r mb ...`` on rank r), so each rank computes the
+    one-rank run's micro-batches."""
+    T = one_rank.shape[-1]
+    out = np.empty((gas * mb * dp, T), dtype=one_rank.dtype)
+    for i in range(gas):
+        for r in range(dp):
+            out[i * mb * dp + r * mb:i * mb * dp + (r + 1) * mb] = one_rank[i * mb:(i + 1) * mb]
+    return out
+
+
+def spawn_ranks(root, cases, label, extra=None, world=2, timeout=600):
+    """``world`` rank processes of ``tools/zero_worker.py`` sharing the card
+    over gloo (CUDA tensors staged through pinned host memory where gloo
+    needs it), every case of ``cases`` in that one spawn; every process is
+    reaped.  Returns the wall seconds."""
+    spec = {"device": "cuda", "backend": "gloo", "deterministic": False, "threads": 4,
+            "init_method": f"file://{root}/store_{label}", "out": root, "cases": cases,
+            **(extra or {})}
+    path = os.path.join(root, f"spec_{label}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   PYTHONPATH=REPO)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "deepspeed_tpu_torch.tools.zero_worker", path], env=env,
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}:\n{o[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def _case_json(root, name):
+    with open(os.path.join(root, f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _sum_launches(meta):
+    out = {}
+    for rank in meta["launches_by_rank"]:
+        for n, c in rank.items():
+            out[n] = out.get(n, 0) + c
+    return out
+
+
+def _ranks_row(meta):
+    """Step ms, each rank's profiled step (its kernels' busy time and the
+    share of the step's window they leave idle: with both ranks on one card
+    the window also holds the other rank's kernels, so this is not the
+    card's idle time), host and device peaks."""
+    return {"step_ms": meta["ms"], "step_ms_mean_after_first": float(np.mean(meta["ms"][1:]))
+            if len(meta["ms"]) > 1 else meta["ms"][0],
+            "profiled_step_by_rank": meta["profile_by_rank"],
+            "device_peak_gib_by_rank": [(b or 0) / 2**30 for b in meta["peak_bytes_by_rank"]],
+            "host_peak_gib_by_rank": [b / 2**30 for b in meta["host_peak_bytes_by_rank"]]}
+
+
+def offload_ranks_cases(off, root):
+    """train_offload_ranks_bf16's cases for the shared spawn."""
+    mb, gas, steps = 8, 2, 4
+    batches = os.path.join(root, "ranks_b.npz")
+    np.savez(batches, input_ids=np.repeat(_rank_batch(off["batch"], gas, mb, 2)[None], steps,
+                                          axis=0))
+
+    def case(name, zero, **kw):
+        config = dict(_gpt2_bf16_config(mb, gas), mesh={"data": 2})
+        if zero:
+            config["zero_optimization"] = zero
+        return {"name": name, "preset": "gpt2", "init_seed": 0, "config": config,
+                "batches": batches, "steps": steps, **kw}
+
+    return [case("d2", None, steps=1),
+            case("d2_off", {"offload_optimizer": {"device": "cpu"}}, steps=3, record_step=1,
+                 profile_step=3),
+            case("d2_off_nvme", {"offload_optimizer": {"device": "nvme",
+                                                       "nvme_path": os.path.join(root, "nv")}},
+                 steps=2, record="none")]
+
+
+def phase_train_offload_ranks_bf16(torch, params, off, ref_losses, smi, root, spawn_wall):
+    """ZeRO-Offload across ranks: train_bf16's model, config and batch at
+    ``mesh: {data: 2}`` over two rank processes sharing the card (gloo;
+    :func:`offload_ranks_cases`, run in the rank phases' one spawn), each
+    rank's rows train_bf16's micro-batches: one step without offload, 3
+    with ``offload_optimizer: cpu`` (each rank 1/2 of the packed masters
+    and moments, the slices all-gathered as pinned f32 tensors), 2 with
+    ``nvme``.  Gates: the first offload loss is the same two ranks' without
+    offload bit for bit; the masters after step 1 within OFFLOAD_STEP1_REL
+    (|p| + lr) of theirs (B3's); the later losses within OFFLOAD_LOSS_RTOL
+    of train_bf16's (``ref_losses``); each rank's host master bytes half of the one-rank
+    engine's, up to pack_flat's pad; nvme the cpu run's losses bit for bit;
+    and in this process, ``DS_OFFLOAD_SHARDS=2`` gives train_offload_bf16's
+    final masters bit for bit."""
+    from deepspeed_tpu_torch.models import gpt2
+
+    t_phase = time.perf_counter()
+    steps = 4  # train_offload_bf16's, for the one-process run beside it
+    n = gpt2.PRESETS["gpt2"].num_params()
+    d2, d2_off, nvme = (_case_json(root, c) for c in ("d2", "d2_off", "d2_off_nvme"))
+    lr1 = float(gpt2_lr(0))
+    worst = 0.0
+    with np.load(os.path.join(root, "d2.npz")) as a, np.load(os.path.join(root, "d2_off.npz")) as b:
+        for k in a.files:
+            if not k.startswith("params/"):
+                continue
+            want, got = a[k].astype(np.float64), b[k].astype(np.float64)
+            bound = OFFLOAD_STEP1_REL * (np.abs(want) + lr1)
+            worst = max(worst, float((np.abs(got - want) / bound).max()))
+    rel = [abs(x - y) / abs(y) for x, y in zip(d2_off["losses"], ref_losses)]
+    pad = n % 2
+    host = [h["masters"] for h in d2_off["host_bytes_by_rank"]]
+    # the sliced engine in one process (DS_OFFLOAD_SHARDS=2) against the
+    # one-rank engine of train_offload_bf16, on its batch
+    os.environ["DS_OFFLOAD_SHARDS"] = "2"
+    try:
+        eng, losses2, _, _ = _offload_run(torch, params, _offload_config(
+            {"offload_optimizer": {"device": "cpu"}}), {"input_ids": off["batch"]}, steps)
+    finally:
+        del os.environ["DS_OFFLOAD_SHARDS"]
+    same = all(torch.equal(m, off["final"][f"master/{k}"])
+               for k, m in zip(eng._paths, eng._masters_full))
+    shards, two_host = eng._offload_shards, eng.host_master_bytes()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _sum_launches(d2_off)
+    emit({"phase": "train_offload_ranks_bf16", "card": smi, "ranks": 2, "mesh": {"data": 2},
+          "transport": "gloo, pinned host copies (rank processes share the card)",
+          "micro_batch": 8, "gas": 2, "T": 1024,
+          "losses_no_offload": d2["losses"], "losses_offload": d2_off["losses"],
+          "losses_train_bf16": ref_losses,
+          "losses_nvme": nvme["losses"], "max_rel_diff": max(rel), "tol": OFFLOAD_LOSS_RTOL,
+          "step1_masters_worst_vs_bound": worst,
+          "step1_bound": f"{OFFLOAD_STEP1_REL} * (|p| + lr)",
+          "host_master_bytes_by_rank": host, "host_master_bytes_one_rank": 4 * n,
+          "one_process_shards2": {"shards": shards, "host_master_bytes": two_host,
+                                  "losses": losses2, "final_masters_same_bits": same},
+          "offload_breakdown_rank0": d2_off["offload_breakdown"],
+          "bytes_a_step_rank0": d2_off["comm"][-1],
+          "no_offload": _ranks_row(d2), **_ranks_row(d2_off), "launches": launches,
+          "shared_spawn_wall_s": spawn_wall, "wall_s": time.perf_counter() - t_phase})
+    check(all(np.isfinite(d2_off["losses"])), f"train_offload_ranks_bf16: losses {d2_off['losses']}")
+    check(d2_off["losses"][0] == d2["losses"][0],
+          f"train_offload_ranks_bf16: first loss {d2_off['losses'][0]!r} != without offload "
+          f"{d2['losses'][0]!r}")
+    check(worst <= 1.0, f"train_offload_ranks_bf16: step-1 masters {worst} x the bound")
+    check(max(rel) <= OFFLOAD_LOSS_RTOL, f"train_offload_ranks_bf16: losses rel {max(rel)}")
+    check(host == [4 * (n + pad) // 2] * 2,
+          f"train_offload_ranks_bf16: host master bytes {host}, not half of {4 * n} (+pad)")
+    check(nvme["losses"] == d2_off["losses"][:2],
+          f"train_offload_ranks_bf16: nvme losses {nvme['losses']} != cpu {d2_off['losses'][:2]}")
+    check(shards == 2 and same, "train_offload_ranks_bf16: DS_OFFLOAD_SHARDS=2 masters differ "
+                                "from train_offload_bf16's")
+    _tc_only_b1_b2("train_offload_ranks_bf16", launches, d2_off["variants"])
+    return launches
+
+
+def gpt2_lr(step):
+    """train_bf16's learning rate at ``step`` (its WarmupDecayLR)."""
+    from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+
+    sched = _gpt2_bf16_config(8, 2)["scheduler"]
+    return get_lr_schedule(sched["type"], sched["params"])(step)
+
+
+def infinity_ranks_cases(torch, params, off, root):
+    """train_infinity_ranks_bf16's cases for the shared spawn, after the
+    one-rank stream's step and tag here (what 1 -> 2 restores): ``(cases,
+    the tag's master digests, the one-rank block master bytes)``."""
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+
+    mb, gas, steps = 8, 2, 2
+    zero = {"offload_param": {"device": "cpu", "buffer_count": 1}}
+    ck = os.path.join(root, "inf_ck")
+    one, _, _, _ = _offload_run(torch, params, _offload_config(zero), {"input_ids": off["batch"]},
+                                1, save_at=1, save_dir=ck)
+    one_digest = _params_digest(torch, tree_items(one.params))
+    one_block = sum(one._host_opt.masters[i].numel() * 4 for i in one._block_idx)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = os.path.join(root, "inf_b.npz")
+    np.savez(batches, input_ids=np.repeat(_rank_batch(off["batch"], gas, mb, 2)[None], steps,
+                                          axis=0))
+    config = dict(_offload_config(zero), mesh={"fsdp": 2})
+    base = {"preset": "gpt2", "init_seed": 0, "config": config, "batches": batches}
+    cases = [{"name": "inf2", **base, "steps": steps, "record": "digest", "profile_step": 2,
+              "save": {"dir": ck, "tag": "two", "after": 2}},
+             {"name": "inf2_tag", **base, "steps": 0, "record": "digest",
+              "load": {"dir": ck, "tag": "two"}},
+             {"name": "inf2_from_one", **base, "steps": 0, "record": "digest",
+              "load": {"dir": ck, "tag": "step1"}}]
+    return cases, one_digest, one_block
+
+
+def phase_train_infinity_ranks_bf16(torch, params, inf_losses, smi, root, prep, spawn_wall):
+    """ZeRO-Infinity across fsdp: ``offload_param: cpu`` (12 one-layer
+    groups) at ``mesh: {fsdp: 2}`` over two rank processes sharing the card
+    (:func:`infinity_ranks_cases`, in the rank phases' one spawn), each
+    rank's rows train_bf16's micro-batches, 2 steps; each rank holds its
+    fsdp part of every block leaf's masters and moments, a group's upload
+    all-gathered over fsdp, its gradient reduce-scattered.  Gates: the
+    first loss train_infinity_bf16's bit for bit; the later ones within
+    INFINITY_LOSS_RTOL of it; each rank's block masters half of the
+    one-rank engine's; a tag saved at 2 ranks restores into 1 rank and a
+    1-rank tag into 2 ranks, the masters bit for bit."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+
+    t_phase = time.perf_counter()
+    _, one_digest, one_block = prep
+    zero = {"offload_param": {"device": "cpu", "buffer_count": 1}}
+    ck = os.path.join(root, "inf_ck")
+    inf2, tag2, from_one = (_case_json(root, c) for c in ("inf2", "inf2_tag", "inf2_from_one"))
+    # 2 -> 1: the two ranks' tag in one process
+    eng, *_ = deepspeed_tpu_torch.initialize(model=gpt2.make_model(gpt2.PRESETS["gpt2"])[0],
+                                             model_parameters=params,
+                                             config=_offload_config(zero))
+    eng.load_checkpoint(ck, tag="two")
+    back_digest = _params_digest(torch, tree_items(eng.params))
+    del eng
+    gc.collect()
+    rel = [abs(a - b) / abs(b) for a, b in zip(inf2["losses"], inf_losses)]
+    blocks = [h["block_masters"] for h in inf2["host_bytes_by_rank"]]
+    launches = _sum_launches(inf2)
+    two_to_one = back_digest == _digests_of(tag2)
+    one_to_two = _digests_of(from_one) == one_digest
+    emit({"phase": "train_infinity_ranks_bf16", "card": smi, "ranks": 2, "mesh": {"fsdp": 2},
+          "groups": 12, "micro_batch": 8, "gas": 2, "T": 1024, "steps": len(inf2["losses"]),
+          "losses": inf2["losses"], "losses_train_infinity_bf16": inf_losses,
+          "first_loss_same_bits": inf2["losses"][0] == inf_losses[0], "max_rel_diff": max(rel),
+          "tol": INFINITY_LOSS_RTOL, "block_master_bytes_by_rank": blocks,
+          "block_master_bytes_one_rank": one_block,
+          "restore_two_to_one_same_bits": two_to_one, "restore_one_to_two_same_bits": one_to_two,
+          "bytes_a_step_rank0": inf2["comm"][-1], **_ranks_row(inf2), "launches": launches,
+          "shared_spawn_wall_s": spawn_wall, "wall_s": time.perf_counter() - t_phase})
+    check(all(np.isfinite(inf2["losses"])), f"train_infinity_ranks_bf16: {inf2['losses']}")
+    check(inf2["losses"][0] == inf_losses[0],
+          f"train_infinity_ranks_bf16: first loss {inf2['losses'][0]!r} != {inf_losses[0]!r}")
+    check(max(rel) <= INFINITY_LOSS_RTOL, f"train_infinity_ranks_bf16: losses rel {max(rel)}")
+    check(blocks == [one_block // 2] * 2,
+          f"train_infinity_ranks_bf16: block master bytes {blocks}, one rank {one_block}")
+    check(two_to_one and one_to_two,
+          f"train_infinity_ranks_bf16: restores 2->1 {two_to_one}, 1->2 {one_to_two}")
+    _tc_only_b1_b2("train_infinity_ranks_bf16", launches, inf2["variants"])
+    return launches
+
+
+def _params_digest(torch, items):
+    import hashlib
+
+    return {f"params/{k}": hashlib.sha256(t.detach().cpu().reshape(-1).contiguous()
+                                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+            for k, t in items}
+
+
+def _digests_of(meta):
+    return {k: v for k, v in meta["digests"].items() if k.startswith("params/")}
+
+
+def phase_train_infinity_sparse_bf16(torch, sparse_losses, smi):
+    """The block-sparse GPT-2 (124M widths, 8 layers, T 8192, B 1, Adam,
+    cross-entropy chunks of 512) streamed one layer at a time
+    (``offload_param: cpu``, 8 groups) on one rank, 2 steps on
+    train_sparse_bf16's batch; counters zeroed just before, read just
+    after: B8 twice a layer a step (the sweep and the group's recompute),
+    B9a and B9b once, B1/B2 not.  Gate: the losses within
+    INFINITY_LOSS_RTOL of the in-memory sparse engine's (train_sparse_bf16)."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.tools.profile_serving import profile_summary
+    from deepspeed_tpu_torch.tools.profile_training import LONG_ADAM
+
+    t_phase = time.perf_counter()
+    T, steps = SPARSE_TS[0], 2
+    cfg = _sparse_cfg(T)
+    params = gpt2.init_params(cfg, seed=0)
+    config = {"train_micro_batch_size_per_gpu": 1, "bf16": {"enabled": True},
+              "optimizer": LONG_ADAM,
+              "zero_optimization": {"offload_param": {"device": "cpu", "buffer_count": 1}}}
+    batch = {"input_ids": np.random.default_rng(14).integers(0, 50257, (1, T), dtype=np.int32)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    import deepspeed_tpu_torch
+
+    from deepspeed_tpu_torch.tools.zero_worker import HostPeak
+
+    with HostPeak() as host_peak:
+        kernels.reset_launches()
+        engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.make_model(cfg)[0],
+                                                    model_parameters=params, config=config)
+        losses, walls = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            walls.append(time.perf_counter() - t0)
+        launches, variants = kernels.launches(), kernels.launch_variants()
+    peak = torch.cuda.max_memory_allocated()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+    prof_row = profile_summary(prof)
+    groups = engine.n_groups
+    # the stream's host state: f32 masters, moments and gradients, the
+    # groups' compute-type copies
+    host_state = (sum(t.numel() * t.element_size() for t in engine._host_opt.state_dict().values())
+                  + sum(t.numel() * t.element_size() for t in engine._host_grads)
+                  + sum(t.numel() * t.element_size() for t in engine._host_groups))
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_losses = sparse_losses[:steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+    want = {"splash_fwd": 2 * SPARSE_LAYERS * steps, "splash_bwd_dq": SPARSE_LAYERS * steps,
+            "splash_bwd_dkv": SPARSE_LAYERS * steps}
+    got = {k: launches[k] for k in want}
+    emit({"phase": "train_infinity_sparse_bf16", "card": smi, "layers": SPARSE_LAYERS, "T": T,
+          "B": 1, "groups": groups, "steps": steps, "losses": losses,
+          "losses_in_memory": want_losses, "max_rel_diff": max(rel), "tol": INFINITY_LOSS_RTOL,
+          "first_loss_same_bits": losses[0] == want_losses[0],
+          "step_ms": [w * 1e3 for w in walls],
+          "profiled_step": {k: prof_row[k] for k in ("window_ms", "device_busy_ms",
+                                                     "device_idle_share")},
+          "device_peak_gib": peak / 2**30,
+          # the script process's resident peak during the steps (what earlier
+          # phases left resident included)
+          "host_peak_gib_script": host_peak.peak_bytes / 2**30,
+          "host_stream_state_gib": host_state / 2**30,
+          "launches": {k: v for k, v in launches.items() if v},
+          "variants": {k: variants[k] for k in want}, "wall_s": time.perf_counter() - t_phase})
+    check(all(np.isfinite(losses)) and max(rel) <= INFINITY_LOSS_RTOL,
+          f"train_infinity_sparse_bf16: losses {losses} vs {want_losses} (rel {max(rel)})")
+    check(got == want, f"train_infinity_sparse_bf16: splash launches {got}, want {want}")
+    for name in want:
+        check(variants[name] == {"none/tc": want[name]},
+              f"train_infinity_sparse_bf16: {name} ran {variants[name]}")
+    check(launches["flash_fwd"] == 0 and launches["flash_bwd"] == 0 and launches["fused_adam"] == 0,
+          f"train_infinity_sparse_bf16: launches {launches}")
+    return launches
+
+
+def onebit_cases(off, root):
+    """train_onebit_bf16's cases for the shared spawn, and the fixed rows
+    of its exchange check (``compressed_check``)."""
+    mb, gas = 8, 2
+    batches = os.path.join(root, "onebit_b.npz")
+    np.savez(batches, input_ids=np.repeat(_rank_batch(off["batch"], gas, mb, 2)[None], 4,
+                                          axis=0))
+    rng = np.random.default_rng(21)
+    M = 1 << 20
+    rows = os.path.join(root, "rows.npz")
+    np.savez(rows, x=rng.standard_normal((2, M)).astype(np.float32),
+             werr=(0.1 * rng.standard_normal((2, M))).astype(np.float32),
+             serr=(0.1 * rng.standard_normal((2, M // 2))).astype(np.float32))
+
+    def case(name, steps, optimizer=None, comm=None, **kw):
+        config = dict(_gpt2_bf16_config(mb, gas), mesh={"data": 2})
+        if optimizer is not None:
+            config["optimizer"] = {"type": optimizer, "params": {
+                "lr": 6e-4, "betas": [0.9, 0.95], "weight_decay": 0.1,
+                "freeze_step": ONEBIT_FREEZE}}
+        if comm is not None:
+            config["comm"] = {"strategy": comm}
+        return {"name": name, "preset": "gpt2", "init_seed": 0, "config": config,
+                "batches": batches, "steps": steps, "record": "none", **kw}
+
+    return [case("onebit_adam", 4, "OneBitAdam", profile_step=4),
+            case("onebit_lamb", 4, "OneBitLamb"),
+            case("comm_int8", 2, comm="int8"), case("comm_onebit", 2, comm="onebit")], rows
+
+
+def phase_train_onebit_bf16(torch, smi, root, cases, rows, spawn_wall):
+    """1-bit Adam and 1-bit LAMB (``freeze_step`` 2, 4 steps) and AdamW with
+    ``comm.strategy`` ``int8`` and ``onebit`` (2 steps), train_bf16's model,
+    config and batch at ``mesh: {data: 2}`` over two rank processes sharing
+    the card (:func:`onebit_cases`, in the rank phases' one spawn), counters
+    zeroed before each case and read after; first one exchange of fixed
+    rows (2 x 2^20 entries on the card) through the group versions.  Gates:
+    the losses finite; every compressed step's ``grad-exchange`` bytes, as
+    ``comm/collectives.py`` counts them, equal ``step_comm_bytes``' onebit /
+    int8 model and are at least ONEBIT_WIRE_FACTOR below the dense
+    exchange; the warm steps dense; the rows within ONEBIT_ROWS_ATOL of the
+    plain one-process rows function."""
+    from deepspeed_tpu_torch.comm import collectives, compressed
+    from deepspeed_tpu_torch.comm.strategy import step_comm_bytes
+    from deepspeed_tpu_torch.models import gpt2
+
+    t_phase = time.perf_counter()
+    mb, gas, freeze = 8, 2, ONEBIT_FREEZE
+    n = gpt2.PRESETS["gpt2"].num_params()
+    metas = {c["name"]: _case_json(root, c["name"]) for c in cases}
+    model = step_comm_bytes(n, {"data": 2, "fsdp": 1}, stage=0, gas=gas, strategy="onebit")
+    dense = step_comm_bytes(n, {"data": 2, "fsdp": 1}, stage=0, gas=gas, strategy="dense")
+    with np.load(rows) as z:
+        x, werr, serr = (torch.from_numpy(z[k]) for k in ("x", "werr", "serr"))
+    with np.load(os.path.join(root, "compressed.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    out, w, e = compressed.compressed_allreduce_rows(x, werr, serr)
+    errs = {"onebit": float(np.abs(got["onebit"] - out[0].numpy()).max()),
+            "werr": float(np.abs(got["werr"] - w.numpy()).max()),
+            "serr": float(np.abs(got["serr"] - e.numpy()).max()),
+            "int8": float(np.abs(got["int8"] - collectives.quantized_allreduce_rows(x).numpy())
+                          .max()),
+            "dense": float(np.abs(got["dense"] - x.mean(0).numpy()).max())}
+    launches = {}
+    wire = {}
+    for name, meta in metas.items():
+        for k, v in _sum_launches(meta).items():
+            launches[k] = launches.get(k, 0) + v
+        frozen = meta["comm"][freeze:] if name.startswith("onebit_") else meta["comm"]
+        wire[name] = [c.get("grad-exchange", 0) for c in frozen]
+    emit({"phase": "train_onebit_bf16", "card": smi, "ranks": 2, "mesh": {"data": 2},
+          "micro_batch": mb, "gas": gas, "T": 1024, "freeze_step": freeze,
+          "losses": {k: m["losses"] for k, m in metas.items()},
+          "frozen_at_end": {k: m["onebit_frozen"] for k, m in metas.items()},
+          "grad_exchange_bytes_compressed_steps": wire,
+          "model_grad_exchange_bytes": model["grad-exchange"],
+          "dense_grad_exchange_bytes": dense["grad-exchange"],
+          "rows_max_abs_err": errs, "rows_tol": ONEBIT_ROWS_ATOL,
+          "rows_bytes": {"onebit": int(got["onebit_bytes"]), "int8": int(got["int8_bytes"])},
+          # 1-bit Adam's variance-sharded layout on the same rows: the
+          # exchange's bytes and its f32 master all-gather's
+          "vsharded_rows_bytes": [int(b) for b in got["vsharded_bytes"]],
+          **{f"{k}_row": _ranks_row(m) for k, m in metas.items()}, "launches": launches,
+          "shared_spawn_wall_s": spawn_wall, "wall_s": time.perf_counter() - t_phase})
+    for name, meta in metas.items():
+        check(all(np.isfinite(meta["losses"])), f"train_onebit_bf16 {name}: {meta['losses']}")
+        check(all(b == model["grad-exchange"] for b in wire[name]),
+              f"train_onebit_bf16 {name}: grad-exchange {wire[name]} B != the model's "
+              f"{model['grad-exchange']}")
+        check(all(ONEBIT_WIRE_FACTOR * b <= dense["grad-exchange"] for b in wire[name]),
+              f"train_onebit_bf16 {name}: {wire[name]} not {ONEBIT_WIRE_FACTOR}x below dense")
+    for name in ("onebit_adam", "onebit_lamb"):
+        check(metas[name]["onebit_frozen"], f"train_onebit_bf16 {name}: never froze")
+        check(all(c.get("grad-exchange") == dense["grad-exchange"]
+                  for c in metas[name]["comm"][:freeze]),
+              f"train_onebit_bf16 {name}: the warm steps' exchange is not dense")
+    check(all(v <= ONEBIT_ROWS_ATOL for v in errs.values()),
+          f"train_onebit_bf16: group rows vs the plain rows {errs}")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(launches.get(name, 0) > 0, f"train_onebit_bf16: {name} not launched")
+    return launches
+
+
+def run_rank_phases(torch, params, offload_ref, off, inf_losses, sparse_losses, smi):
+    """Offload across ranks, the sparse stream and the compressed exchanges:
+    the three two-rank phases' cases in one spawn of two rank processes
+    (one start-up and one first step's set-up for the three), then each
+    phase's gates; the sparse stream in this process."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp()
+    try:
+        off = dict(off, batch=offload_ref["batch"])
+        inf_prep = infinity_ranks_cases(torch, params, off, root)
+        bit_cases, rows = onebit_cases(off, root)
+        wall = spawn_ranks(root, offload_ranks_cases(off, root) + inf_prep[0] + bit_cases,
+                           "rank_phases", extra={"compressed_check": rows}, timeout=900)
+        out = {"training_offload_ranks": phase_train_offload_ranks_bf16(
+            torch, params, off, offload_ref["losses"], smi, root, wall)}
+        out["training_infinity_ranks"] = phase_train_infinity_ranks_bf16(
+            torch, params, inf_losses, smi, root, inf_prep, wall)
+        out["training_onebit"] = phase_train_onebit_bf16(torch, smi, root, bit_cases, rows, wall)
+        out["training_infinity_sparse"] = phase_train_infinity_sparse_bf16(torch, sparse_losses,
+                                                                           smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -5566,7 +6108,7 @@ def main() -> int:
     layer_launches = phase_transformer_layer(torch, dev)
     torch.cuda.empty_cache()
     phase_train_sparse_f32(torch)
-    sparse_launches = phase_train_sparse_bf16(torch)
+    sparse_launches, sparse_losses = phase_train_sparse_bf16(torch)
     torch.cuda.empty_cache()
     moe_params = gpt2.init_params(_moe_cfg(), seed=0)
     moe_train_launches = phase_train_moe_bf16(torch, moe_params)
@@ -5577,8 +6119,13 @@ def main() -> int:
     pipe_launches = phase_train_pipe_bf16(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    offload_launches = run_offload_phases(torch, gpt2.init_params(cfg, seed=0), offload_ref, smi)
-    del offload_ref
+    offload_params = gpt2.init_params(cfg, seed=0)
+    offload_launches, off, inf_losses = run_offload_phases(torch, offload_params, offload_ref, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload_launches.update(run_rank_phases(torch, offload_params, offload_ref, off, inf_losses,
+                                            sparse_losses, smi))
+    del offload_ref, off, offload_params
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "serving_tp": serve_tp_launches.get(name, 0),
                       "serving_tiers": tiers_launches[name],

@@ -88,8 +88,10 @@ def initialize(
       that streams one layer group at a time through the card, for a
       model with a ``stream_spec`` (``gpt2.make_model``'s); a model or
       config that cannot stream falls back to the in-memory engine with a
-      warning, unless it would not fit the card.  One rank only (offload
-      across ranks raises, ROADMAP A12).
+      warning, unless it would not fit the card.  Across ranks each rank
+      keeps its own part of the masters and moments: a flat 1/P slice in
+      the in-memory engine, its ``fsdp`` part of every block leaf in the
+      streaming one.
 
     Returns ``(engine, optimizer, loader, lr_schedule)``, the loader None
     without ``training_data``; it hands each data-parallel rank its own
@@ -122,12 +124,9 @@ def initialize(
         config, world_size=None if mesh is None else mesh.sizes["data"] * mesh.sizes["fsdp"])
     stream_reason = "pipeline module" if is_pipe else None
     if not is_pipe and ds_config.zero_config.offload_param.enabled:
-        from deepspeed_tpu_torch.comm.distributed import get_world_size
-        from deepspeed_tpu_torch.runtime.zero.offload import refuse_across_ranks
         from deepspeed_tpu_torch.runtime.zero.param_offload import ZeroInfinityEngine
         from deepspeed_tpu_torch.utils.logging import logger
 
-        refuse_across_ranks(get_world_size(), "offload_param")
         stream_reason = ZeroInfinityEngine.streamable(model, ds_config, optimizer)
         if stream_reason is not None:
             # refuse (not warn-then-run-out-of-memory) a model asked to

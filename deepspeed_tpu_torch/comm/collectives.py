@@ -74,10 +74,14 @@ def all_gather(x: torch.Tensor, group, dim: int = 0, kind: str = "all-gather",
     dimension other than the first costs one copy after the collective."""
     n = group_size(group)
     x = x.contiguous()
+    staged = _host_staged(x.device, group)
+    src = _to_host(x) if staged else x
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]) if x.dim() else (n,),
-                      dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
+                      dtype=x.dtype, device=src.device, pin_memory=staged and src.is_pinned())
+    dist.all_gather_into_tensor(out, src, group=group)
     _count(kind, _nbytes(out))
+    if staged:
+        out = out.to(x.device, non_blocking=True)
     if x.dim() == 0:
         return out
     stacked = out.view((n,) + tuple(x.shape))
@@ -105,8 +109,17 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
     else:
         split = list(x.shape[:dim]) + [n, shape[dim]] + list(x.shape[dim + 1:])
         inp = x.reshape(split).movedim(dim, 0).contiguous()  # (n, *shape)
-    out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, inp.reshape((n * shape[0],) + tuple(shape[1:])), group=group)
+    inp = inp.reshape((n * shape[0],) + tuple(shape[1:]))
+    if _host_staged(x.device, group):
+        # gloo has no reduce-scatter of CUDA tensors: the sum over the
+        # group on the host, this rank's chunk back to the device
+        host = _to_host(inp)
+        dist.all_reduce(host, group=group)
+        r = dist.get_rank(group)
+        out = host[r * shape[0]:(r + 1) * shape[0]].to(x.device, non_blocking=True)
+    else:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, inp, group=group)
     _count(kind, _nbytes(out))
     return out
 
@@ -116,16 +129,22 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int,
     """``jax.lax.all_to_all(..., tiled=True)``: cut ``split_dim`` into one
     chunk per group rank, send chunk ``j`` to group rank ``j``, and
     concatenate the chunks received along ``concat_dim`` in group-rank
-    order.  One ``all_to_all_single``, with a copy on each side."""
+    order.  One ``all_to_all_single``, with a copy on each side; a CUDA
+    tensor on a gloo group goes through pinned host memory
+    (:func:`_host_staged`)."""
     n = group_size(group)
     shape = list(x.shape)
     if shape[split_dim] % n:
         raise ValueError(f"all_to_all: dim {split_dim} of {tuple(shape)} is not a multiple of {n}")
     parts = shape[:split_dim] + [n, shape[split_dim] // n] + shape[split_dim + 1:]
     inp = x.reshape(parts).movedim(split_dim, 0).contiguous()
-    out = torch.empty_like(inp)
-    dist.all_to_all_single(out, inp, group=group)
+    staged = _host_staged(inp.device, group)
+    src = _to_host(inp) if staged else inp
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
     _count(kind, _nbytes(inp))
+    if staged:
+        out = out.to(inp.device, non_blocking=True)
     # out[j] is group rank j's chunk: put the rank index just before
     # concat_dim and merge the two
     out = out.movedim(0, concat_dim)
@@ -175,9 +194,17 @@ class _Pending:
 
 def _host_staged(device, group) -> bool:
     """Whether a transfer from or to ``device`` goes through host memory: a
-    CUDA tensor on a gloo group (gloo's send and receive take host tensors
-    only)."""
+    CUDA tensor on a gloo group (gloo's send, receive, all-to-all,
+    all-gather and reduce-scatter take host tensors only; ranks that share
+    one card meet over gloo)."""
     return torch.device(device).type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``, pinned where there is a card."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=torch.cuda.is_available())
+    out.copy_(t)
+    return out
 
 
 def p2p_send(x: torch.Tensor, dst: int, group, kind: str = "p2p") -> "_Pending":
@@ -226,3 +253,102 @@ def host_allgather(obj: Any, group=None) -> List[Any]:
 
 def barrier(group=None) -> None:
     dist.barrier(group=group)
+
+
+_HOST_GROUP: List[Any] = []
+
+
+def host_group():
+    """A gloo group over every rank, for host tensors: the default group
+    when it is gloo, else one made at the first call (collective: every
+    rank calls it at the same point)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    if not _HOST_GROUP:
+        _HOST_GROUP.append(dist.new_group(backend="gloo"))
+    return _HOST_GROUP[0]
+
+
+def host_all_gather(x: torch.Tensor, group, out: Optional[torch.Tensor] = None,
+                    kind: str = "offload-masters-allgather") -> torch.Tensor:
+    """Every rank's contiguous host tensor ``x`` (same shape on each),
+    concatenated flat in group-rank order, into ``out`` when given (a
+    pinned buffer kept across calls): one ``all_gather_into_tensor`` on a
+    gloo group, no pickling."""
+    n = group_size(group)
+    flat = x.reshape(-1)
+    if out is None:
+        out = torch.empty(n * flat.numel(), dtype=x.dtype, pin_memory=x.is_pinned())
+    dist.all_gather_into_tensor(out, flat, group=group)
+    _count(kind, _nbytes(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# EQuARX-style int8 quantized all-reduce (``deepspeed_tpu/comm/collectives.py``
+# ``_quantize_chunks_int8``, ``_int8_body``, ``quantized_allreduce_replicated``,
+# ``dense_allreduce_replicated``).  Each takes this rank's row of the
+# exchange on a process group; the ``*_rows`` functions take every rank's
+# row stacked ``(n, M)`` in one process (the plain versions the tests and
+# the card's check hold the group versions to).
+# ---------------------------------------------------------------------------
+
+def quantize_chunks_int8(xc: torch.Tensor, generator: Optional[torch.Generator] = None):
+    """Symmetric int8 codes with one f32 scale per row of ``xc`` (``(k,
+    chunk)``): ``scale = max|x| / 127`` (1 for an all-zero row).  With a
+    ``generator``, unbiased stochastic rounding ``floor(y + u)``, ``u ~
+    U[0, 1)`` drawn from it (on ``xc``'s device); else round half to even,
+    as ``jnp.rint``."""
+    amax = xc.abs().amax(dim=1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    y = xc / scale[:, None]
+    if generator is not None:
+        q = torch.floor(y + torch.rand(y.shape, generator=generator, device=y.device,
+                                       dtype=torch.float32))
+    else:
+        q = torch.round(y)
+    return torch.clamp(q, -127, 127).to(torch.int8), scale
+
+
+def quantized_allreduce(x: torch.Tensor, group, generator: Optional[torch.Generator] = None,
+                        kind: str = "grad-exchange") -> torch.Tensor:
+    """The mean over ``group`` of every rank's ``x`` (``(M,)``, M a multiple
+    of the group size), quantized twice: each destination chunk to int8
+    with its own scale, exchanged by an all-to-all (with the scales), the
+    served chunk averaged, re-quantized and all-gathered.  Bytes: 2 M of
+    codes and 8 n of scales a rank.  ``generator``: stochastic rounding
+    (this rank's own draws); None rounds to nearest."""
+    n = group_size(group)
+    xf = x.float().reshape(n, -1)
+    q, scale = quantize_chunks_int8(xf, generator)
+    served = all_to_all(q, group, split_dim=0, concat_dim=0, kind=kind)
+    served_scales = all_to_all(scale.reshape(n, 1), group, split_dim=0, concat_dim=0, kind=kind)
+    partial = torch.mean(served.float() * served_scales, dim=0)
+    q2, scale2 = quantize_chunks_int8(partial[None, :], generator)
+    all_q = all_gather(q2[0], group, kind=kind)
+    all_s = all_gather(scale2, group, kind=kind)
+    return (all_q.reshape(n, -1).float() * all_s[:, None]).reshape(-1)
+
+
+def quantized_allreduce_rows(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`quantized_allreduce` with nearest rounding over every rank's
+    row ``(n, M)`` in one process: the ``(M,)`` mean every rank gets."""
+    n, m = rows.shape
+    if m % n:
+        raise ValueError(f"tensor length {m} not divisible by axis size {n}")
+    xf = rows.float().reshape(n, n, m // n)  # [source, destination chunk, :]
+    qs, ss = zip(*(quantize_chunks_int8(xf[i]) for i in range(n)))
+    q, s = torch.stack(qs), torch.stack(ss)  # (n, n, chunk), (n, n)
+    partial = torch.mean(q.float() * s[:, :, None], dim=0)  # (n destinations, chunk)
+    q2, s2 = quantize_chunks_int8(partial)
+    return (q2.float() * s2[:, None]).reshape(-1)
+
+
+def dense_allreduce(x: torch.Tensor, group, kind: str = "grad-exchange") -> torch.Tensor:
+    """The full-precision mean of every rank's ``x`` (the dense rung of the
+    same interface)."""
+    return all_reduce(x.float().contiguous().clone(), group, kind=kind) / group_size(group)
+
+
+def dense_allreduce_rows(rows: torch.Tensor) -> torch.Tensor:
+    return rows.float().mean(dim=0)

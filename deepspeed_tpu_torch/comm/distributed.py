@@ -79,6 +79,9 @@ def init_distributed(
     cuda = torch.device(device).type == "cuda"
     backend = dist_backend or ("nccl" if cuda else "gloo")
     if cuda:
+        # ranks over gloo may share one card: LOCAL_RANK wraps around the
+        # cards there are
+        local_rank %= max(1, torch.cuda.device_count())
         torch.cuda.set_device(local_rank)
     if init_method is None:
         init_method = f"tcp://{master_addr or '127.0.0.1'}:{env.get('MASTER_PORT', '29500')}"

@@ -2,17 +2,19 @@
 (counterpart of ``deepspeed_tpu/comm/strategy.py``).
 
 The policy (:func:`select_strategy`) and the per-step byte model
-(:func:`step_comm_bytes`) are the JAX package's.  The port runs the
-``dense`` strategy only: full-precision ``torch.distributed`` collectives
-(``comm/collectives.py``) on the process groups of the mesh's axes.  The
-compressed exchanges (``int8``, ``onebit``, and ``auto`` where it would
-choose one of them) raise, naming ROADMAP A13.  Every decision lands in
-``CommLayer.decisions``, as in the JAX package.
+(:func:`step_comm_bytes`) are the JAX package's.  ``dense`` runs
+full-precision ``torch.distributed`` collectives (``comm/collectives.py``)
+on the process groups of the mesh's axes; ``int8`` (EQuARX-style
+quantized all-reduce, ``collectives.quantized_allreduce``) and ``onebit``
+(error-feedback sign compression, ``comm/compressed.py``) run through
+:meth:`CommLayer.exchange_rows`, once a step, on the rank's own gradient
+row.  Every decision lands in ``CommLayer.decisions``, as in the JAX
+package.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -209,8 +211,8 @@ def step_comm_bytes(
 
 
 class CommLayer:
-    """Per-engine comm facade: the policy decisions, and the dense
-    gradient exchange the engine runs (``runtime/engine.py``)."""
+    """Per-engine comm facade: the policy decisions and the explicit rows
+    exchange the engine runs (``runtime/engine.py``)."""
 
     def __init__(self, mesh, mesh_info, config, zero_config=None, topology=None):
         self.mesh = mesh
@@ -239,24 +241,60 @@ class CommLayer:
         return "ici+dcn"
 
     def select(self, nbytes: int, dtype, axes, site: str) -> str:
-        """Pick and record the strategy for one exchange site; a
-        compressed pick raises (ROADMAP A13)."""
+        """Pick and record the strategy for one exchange site, keyed on the
+        (size, dtype, rank-count, link) row of the policy table."""
         d = select_strategy(
             self.config, int(nbytes), dtype, self._axis_ranks(axes),
             link=self._axis_link(axes),
         )
         self.decisions[site] = d
-        if d.strategy != STRATEGY_DENSE:
-            raise NotImplementedError(
-                f"comm strategy {d.strategy!r} for '{site}' ({d.reason}) is not ported yet "
-                "(ROADMAP A13 comm/compressed.py); set comm.strategy = dense")
-        if self.config.strategy in (STRATEGY_INT8, STRATEGY_ONEBIT):
+        if d.strategy == STRATEGY_DENSE and self.config.strategy in (STRATEGY_INT8, STRATEGY_ONEBIT):
             logger.info(f"comm: site '{site}' stays dense ({d.reason})")
         return d.strategy
 
+    def exchange_rows(self, rows, strategy: str, group=None, generator=None,
+                      residuals: Optional[Tuple[Any, Any]] = None):
+        """The mean over the exchange's ranks under ``strategy``: ``rows``
+        is this rank's row ``(M,)`` on ``group``, or with ``group`` None
+        every rank's rows ``(n, M)`` in one process (the plain version,
+        nearest rounding for ``int8``).  Returns ``(mean (M,),
+        new_residuals | None)``; only ``onebit`` with error feedback takes
+        and gives ``residuals`` (``(worker_error, server_error)``, this
+        rank's or stacked).  ``generator``: ``int8``'s stochastic rounding
+        (``comm.stochastic_rounding``)."""
+        from deepspeed_tpu_torch.comm import collectives, compressed
+
+        if strategy == STRATEGY_DENSE:
+            if group is None:
+                return collectives.dense_allreduce_rows(rows), None
+            return collectives.dense_allreduce(rows, group), None
+        if strategy == STRATEGY_INT8:
+            if group is None:
+                return collectives.quantized_allreduce_rows(rows), None
+            gen = generator if self.config.stochastic_rounding else None
+            return collectives.quantized_allreduce(rows, group, generator=gen), None
+        if strategy == STRATEGY_ONEBIT:
+            if group is None:
+                n, m = rows.shape
+                werr, serr = residuals if residuals is not None else (
+                    torch.zeros((n, m)), torch.zeros((n, m // n)))
+                out, new_werr, new_serr = compressed.compressed_allreduce_rows(rows, werr, serr)
+                return out[0], None if residuals is None else (new_werr, new_serr)
+            n = collectives.group_size(group)
+            if residuals is None:
+                # error feedback off: a stateless sign exchange (biased a
+                # step; the residual that would carry the bias is dropped)
+                zeros = (torch.zeros_like(rows), torch.zeros(rows.shape[0] // n,
+                                                             device=rows.device))
+                out, _, _ = compressed.compressed_allreduce(rows, *zeros, group)
+                return out, None
+            out, new_werr, new_serr = compressed.compressed_allreduce(rows, *residuals, group)
+            return out, (new_werr, new_serr)
+        raise ValueError(f"unknown comm strategy {strategy!r}")
+
     def note(self, site: str, strategy: str, reason: str) -> None:
         """Record a decision made elsewhere (the engine's forced-dense
-        fallbacks)."""
+        fallbacks, the 1-bit optimizers' momentum exchange)."""
         self.decisions[site] = Decision(strategy, reason)
 
     def table(self) -> Dict[str, Tuple[str, str]]:

@@ -1007,8 +1007,8 @@ class ZeroConfig:
     live-parameter and checkpoint knobs are carried, unread, as there.
     ``offload_param`` / ``offload_optimizer`` parse as the JAX package's
     ``OffloadDeviceConfig``, ``cpu_offload: true`` as ``offload_optimizer:
-    {device: cpu}``; the engines refuse offload across ranks (ROADMAP
-    A12)."""
+    {device: cpu}``; across ranks the engines split the masters over the
+    data-parallel grid."""
 
     stage: int = C.ZERO_STAGE_DEFAULT
     contiguous_gradients: bool = True
@@ -1155,9 +1155,7 @@ class PipelineConfig:
 @dataclass
 class CommConfig:
     """``comm``: the gradient exchange's wire strategy, parsed as the JAX
-    package parses it.  The port runs ``dense``; a strategy that resolves
-    to ``int8`` or ``onebit`` raises where the engine selects it
-    (``comm/strategy.py``, ROADMAP A13)."""
+    package parses it; the engine selects it once (``comm/strategy.py``)."""
 
     strategy: str = C.COMM_STRATEGY_DEFAULT
     threshold_bytes: int = C.COMM_THRESHOLD_BYTES_DEFAULT

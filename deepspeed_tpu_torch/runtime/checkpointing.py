@@ -48,9 +48,19 @@ the masters from the tag's parameters, the moments reset, with its
 warning.  An offload tag does not load into an engine without offload
 (its ``opt_state`` is missing).
 
-Not ported, each with its ROADMAP item: offload across ranks (A12); the
-1-bit optimizers' phase sync (A13); the supervision
-plane's ``local_npz`` emergency format and its armed barriers (A14); the
+Across ranks an offload engine's host state goes in per-rank files beside
+``state.pt`` (``_rank_files``), written into the staging directory by
+every rank before rank 0's manifest: the in-memory engine's flat slices as
+``host_optimizer_shard<i>.pt`` (a restore under another slice count
+rebuilds the masters from ``params/`` and resets the moments, with the JAX
+package's warning), the streaming engine's fsdp parts as
+``host_optimizer_rank<r>.pt`` (restored at any fsdp size).  The 1-bit
+optimizers' compressed phase follows the tag's step count before a restore
+(``_sync_onebit_phase``); its residuals, and the onebit strategy's
+(``comm/``), are gathered to ``(n, Mp)`` rows, each rank restoring its own.
+
+Not ported, each with its ROADMAP item: the supervision plane's
+``local_npz`` emergency format and its armed barriers (A14); the
 sanitizer's donation, transfer and drift hooks (A15).
 """
 from __future__ import annotations
@@ -116,23 +126,59 @@ def _per_leaf(engine, x) -> bool:
 HOST_OPT = "host_optimizer"
 
 
+def _sharded_offload(engine) -> bool:
+    """Whether an offload engine's masters are cut into flat slices (the
+    in-memory engine across ranks or under ``DS_OFFLOAD_SHARDS``)."""
+    return getattr(engine, "_offload_shards", 1) > 1
+
+
 def _offload_state_tensors(engine) -> Dict[str, torch.Tensor]:
     """An offload engine's tensors by name: the host masters as
-    ``params/``, the host moments under ``host_optimizer/``, the loss
-    scaler's state and the pending gradients (live tensors)."""
-    sd = engine._host_opt.state_dict()
+    ``params/``, the host moments under ``host_optimizer/`` (one slice
+    layout only: sliced masters and moments go in per-shard files,
+    :func:`_rank_files`), the loss scaler's state and the pending
+    gradients (live tensors)."""
     out = {}
-    for k in engine._host_opt.keys:
-        out[f"params/{k}"] = sd[f"master/{k}"]
-        out[f"{HOST_OPT}/m/{k}"] = sd[f"m/{k}"]
-        out[f"{HOST_OPT}/v/{k}"] = sd[f"v/{k}"]
+    if getattr(engine, "_masters_sharded", False):
+        # the streaming engine across fsdp: masters and moments go in each
+        # rank's own file (:func:`_rank_files`)
+        for path, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
+            out[_path_str(path)] = leaf
+        return out
+    if _sharded_offload(engine):
+        for k, m in zip(engine._paths, engine._masters_full):
+            out[f"params/{k}"] = m
+        keys, masters = engine._paths, engine._masters_full
+    else:
+        sd = engine._host_opt.state_dict()
+        for k in engine._host_opt.keys:
+            out[f"params/{k}"] = sd[f"master/{k}"]
+            out[f"{HOST_OPT}/m/{k}"] = sd[f"m/{k}"]
+            out[f"{HOST_OPT}/v/{k}"] = sd[f"v/{k}"]
+        keys, masters = engine._host_opt.keys, engine._host_opt.masters
     for path, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
         out[_path_str(path)] = leaf
     acc = getattr(engine, "_grad_acc", None) or []
     if any(a is not None for a in acc):
-        for k, a, m in zip(engine._host_opt.keys, acc, engine._host_opt.masters):
+        for k, a, m in zip(keys, acc, masters):
             out[f"grad_acc/{k}"] = a if a is not None else torch.zeros_like(m)
     return out
+
+
+def _shard_file(i: int) -> str:
+    return f"host_optimizer_shard{i}.pt"
+
+
+def _rank_files(engine) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The files this rank writes beside ``state.pt`` (host copies): a
+    sliced offload engine's ``host_optimizer_shard<i>.pt`` for each slice it
+    steps (``master/flat``, ``m/flat``, ``v/flat``), the streaming
+    engine's per-rank file across ``fsdp``."""
+    if _sharded_offload(engine):
+        return {_shard_file(i): {k: t.detach().clone() for k, t in opt.state_dict().items()}
+                for i, opt in zip(engine._host_shard_ids, engine._host_opts)}
+    files = getattr(engine, "_rank_files", None)
+    return {} if files is None else files()
 
 
 def _state_tensors(engine) -> Dict[str, torch.Tensor]:
@@ -145,10 +191,12 @@ def _state_tensors(engine) -> Dict[str, torch.Tensor]:
     if getattr(engine, "_host_opt", None) is not None:
         return _offload_state_tensors(engine)
     layout = engine.layout
-    nat = lambda i, t, spec: layout.natural(i, t.detach(), spec)  # noqa: E731
+    nat = lambda i, t, spec: layout.natural(i, t.detach(), spec) if t.dim() else t  # noqa: E731
     params = [nat(i, p, layout.leaves[i].param_spec) for i, p in enumerate(engine._params)]
     opt = {}
-    for name, x in _opt_fields(engine).items():
+    fields = (engine._portable_opt_fields() if hasattr(engine, "_portable_opt_fields")
+              else _opt_fields(engine))
+    for name, x in fields.items():
         opt[name] = (engine._unflatten([nat(i, t, layout.leaves[i].opt_spec)
                                         for i, t in enumerate(x)])
                      if _per_leaf(engine, x) else x)
@@ -158,7 +206,10 @@ def _state_tensors(engine) -> Dict[str, torch.Tensor]:
         tree["grad_acc"] = engine._unflatten([
             nat(i, a, layout.leaves[i].acc_spec) if a is not None else torch.zeros_like(params[i])
             for i, a in enumerate(engine._grad_acc)])
-    return {_path_str(path): leaf for path, leaf in _walk(tree)}
+    out = {_path_str(path): leaf for path, leaf in _walk(tree)}
+    if hasattr(engine, "_comm_state"):
+        out.update(engine._comm_state())
+    return out
 
 
 def _snapshot_state_to_host(engine) -> Dict[str, torch.Tensor]:
@@ -190,9 +241,13 @@ def _snapshot_state_to_host(engine) -> Dict[str, torch.Tensor]:
     return {**out, **counters}
 
 
-def _write_state(target: str, snapshot: Dict[str, torch.Tensor]) -> None:
+def _write_state(target: str, snapshot: Dict[str, torch.Tensor], files=None) -> None:
+    """``state.pt`` and, when given, this rank's files beside it."""
     os.makedirs(os.path.join(target, STATE_DIR), exist_ok=True)
-    torch.save(snapshot, os.path.join(target, STATE_DIR, STATE_FILE))
+    if snapshot is not None:
+        torch.save(snapshot, os.path.join(target, STATE_DIR, STATE_FILE))
+    for name, tensors in (files or {}).items():
+        torch.save(tensors, os.path.join(target, STATE_DIR, name))
 
 
 def _resilience_cfg(engine):
@@ -274,8 +329,8 @@ def _broadcast_tag(engine, tag: Optional[str]) -> Optional[str]:
 
 
 def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any]:
-    """The JAX package's ``meta.json`` keys (no comm layer's state:
-    ``comm_state`` null; the dense exchange keeps none)."""
+    """The JAX package's ``meta.json`` keys (``comm_state``: the shapes of
+    the onebit strategy's residuals, null when the exchange keeps none)."""
     return {
         "tag": tag,
         "global_step": int(engine._host_global_step),
@@ -289,10 +344,23 @@ def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any
         # whether the tag holds gradients of micro-steps still to be
         # applied (a save between micro-steps)
         "has_grad_acc": any(a is not None for a in engine._grad_acc),
-        "comm_state": None,
+        "comm_state": _comm_state_shape(engine),
         "client_state": client_state or {},
         "ds_tpu_version": _version(),
+        **(engine._meta_extras() if hasattr(engine, "_meta_extras") else {}),
+        # a sliced offload engine's slice count (absent: masters whole)
+        **({"offload_shards": int(engine._offload_shards)} if _sharded_offload(engine) else {}),
     }
+
+
+def _comm_state_shape(engine) -> Optional[list]:
+    """The shapes of the onebit strategy's residuals in a tag (None: the
+    exchange keeps no state)."""
+    res = getattr(engine, "_comm_residuals", None)
+    if res is None:
+        return None
+    n = int(engine.dp_world_size)
+    return [[n, int(res[0].shape[0])], [n, int(res[1].shape[0])]]
 
 
 def save_checkpoint(
@@ -359,14 +427,15 @@ def save_checkpoint(
 
 
 def _commit_snapshot(save_dir: str, tag: str, final_path: str, target_atomic: bool,
-                     snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any], checksum: str) -> None:
+                     snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any], checksum: str,
+                     files=None) -> None:
     """One attempt of the commit protocol: state, meta, manifest last, one
     rename (``target_atomic``), or straight into the tag's directory."""
     faults.check("ckpt.save.state", path=final_path)
     target = manager.begin_stage(save_dir, tag) if target_atomic else final_path
     os.makedirs(target, exist_ok=True)
     try:
-        _write_state(target, snapshot)
+        _write_state(target, snapshot, files)
         faults.check("ckpt.save.meta", path=target)
         atomic.atomic_write_text(os.path.join(target, "meta.json"), json.dumps(meta, indent=2))
         if target_atomic:
@@ -409,12 +478,14 @@ def _sync_save(
     ck = rcfg.checkpoint
     meta = _build_meta(engine, tag, client_state)
     snapshot = _snapshot_state_to_host(engine)
+    files = _rank_files(engine)
     if _world(engine) > 1:
-        _multi_rank_commit(engine, save_dir, tag, final_path, rcfg, snapshot, meta)
+        _multi_rank_commit(engine, save_dir, tag, final_path, rcfg, snapshot, meta, files)
     else:
         retry_call(
             rcfg.retry.policy(),
             _commit_snapshot, save_dir, tag, final_path, ck.atomic, snapshot, meta, ck.checksum,
+            files,
             on_retry=lambda attempt, e, pause: logger.warning(
                 f"checkpoint save of '{tag}' failed (attempt {attempt}: {e}); retrying in {pause:.1f}s"
             ),
@@ -428,19 +499,39 @@ def _sync_save(
 
 
 def _multi_rank_commit(engine, save_dir: str, tag: str, final_path: str, rcfg,
-                       snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any]) -> None:
-    """The commit protocol across ranks: rank 0 stages, writes the state,
-    meta and manifest, and commits, between barriers.  One attempt: a
-    retry on one rank alone would desync the barriers and hang the job."""
+                       snapshot: Dict[str, torch.Tensor], meta: Dict[str, Any],
+                       files=None) -> None:
+    """The commit protocol across ranks: rank 0 stages; every rank writes
+    its own files (:func:`_rank_files`) into the staging directory, and
+    every rank learns whether all of them landed (a flag gathered from each,
+    as the JAX package's between phases); then rank 0 writes the state,
+    meta and manifest, and commits.  One attempt: a retry on one rank alone
+    would desync the collectives and hang the job."""
+    from deepspeed_tpu_torch.comm import collectives
+
     ck = rcfg.checkpoint
     faults.check("ckpt.save.state", path=final_path)
     rank0 = _rank(engine) == 0
-    target = final_path
     failed = None
+    target = final_path
     if rank0:
         try:
             target = manager.begin_stage(save_dir, tag) if ck.atomic else final_path
             os.makedirs(target, exist_ok=True)
+        except OSError as e:
+            failed = e
+    target = collectives.broadcast_object(target if failed is None else None, src=0)
+    mine = None
+    if target is not None and files:
+        try:
+            _write_state(target, None, files)
+        except OSError as e:
+            mine = repr(e)
+    errors = [e for e in collectives.host_allgather(mine) if e is not None]
+    if rank0 and failed is None:
+        try:
+            if errors:
+                raise OSError(f"rank files failed: {errors}")
             _write_state(target, snapshot)
             faults.check("ckpt.save.meta", path=target)
             atomic.atomic_write_text(os.path.join(target, "meta.json"), json.dumps(meta, indent=2))
@@ -455,8 +546,6 @@ def _multi_rank_commit(engine, save_dir: str, tag: str, final_path: str, rcfg,
             if ck.atomic:
                 manager.release_stage(save_dir, tag)
     # every rank learns whether the commit landed, then fails alike
-    from deepspeed_tpu_torch.comm import collectives
-
     error = collectives.broadcast_object(None if failed is None else repr(failed), src=0)
     if failed is not None:
         raise failed
@@ -485,13 +574,14 @@ def _submit_async_save(
     ck = rcfg.checkpoint
     meta = _build_meta(engine, tag, client_state)
     snapshot = _snapshot_state_to_host(engine)
+    files = _rank_files(engine)
     policy = rcfg.retry.policy()
 
     def commit() -> None:
         retry_call(
             policy,
             _commit_snapshot, save_dir, tag, final_path, True, snapshot, meta, ck.checksum,
-            on_retry=lambda attempt, e, pause: logger.warning(
+            files, on_retry=lambda attempt, e, pause: logger.warning(
                 f"async checkpoint save of '{tag}' failed (attempt {attempt}: {e}); "
                 f"retrying in {pause:.1f}s"
             ),
@@ -620,6 +710,11 @@ def _restore_tag(
     if os.path.exists(meta_path):
         with open(meta_path) as f:
             meta = json.load(f)
+    # the 1-bit optimizers' state layout follows the tag's step count
+    # before the engine's tensors are matched against it
+    sync_phase = getattr(engine, "_sync_onebit_phase", None)
+    if sync_phase is not None and not load_module_only:
+        sync_phase(int(meta.get("global_step", 0)))
     restored = torch.load(os.path.join(path, STATE_DIR, STATE_FILE), map_location="cpu",
                           weights_only=True)
     return _finish_restore(
@@ -651,13 +746,34 @@ def _finish_restore(
         groups.add("loss_scale")
         if load_optimizer_states:
             groups |= {HOST_OPT if offload else "opt_state", "grad_acc"}
+    restore_host = getattr(engine, "_restore_host", None)
+    if restore_host is not None and (engine._masters_sharded or meta.get("masters_sharded")):
+        # the streaming engine across fsdp, or a tag it wrote: reassembled
+        # and cut to this engine's parts
+        engine._host_buffers_idle()
+        with torch.no_grad():
+            restore_host(path, meta, restored, moments=HOST_OPT in groups)
+            if "loss_scale" in groups:
+                for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
+                    leaf.copy_(restored[_path_str(sub)])
+        engine._after_host_load()
+        groups = set()
+    sliced = None
+    if _sharded_offload(engine):
+        # the slices' moments live in the shard files, not in state.pt
+        sliced = (HOST_OPT in groups, meta.get("offload_shards", 1))
+        groups.discard(HOST_OPT)
+        restored = {n: t for n, t in restored.items() if not n.startswith(HOST_OPT + "/")}
     reset_moments = HOST_OPT in groups and not any(n.startswith(HOST_OPT + "/") for n in restored)
     if reset_moments:
         logger.warning(
-            f"host optimizer state not found in {path} (saved without offload): the f32 "
+            f"host optimizer state not found in {path} (saved without offload, or under "
+            "another offload shard layout): the f32 "
             "masters are rebuilt from its parameters and the Adam moments are being RESET")
         groups.discard(HOST_OPT)
     live = _state_tensors(engine)
+    if "opt_state" in groups:
+        groups.add("comm")
     live = {n: t for n, t in live.items() if n.split("/", 1)[0] in groups and n.split("/", 1)[0] != "grad_acc"}
     disk = {n for n in restored if n.split("/", 1)[0] in groups - {"grad_acc"}}
     if disk != set(live):
@@ -673,8 +789,10 @@ def _finish_restore(
                 f"{src.dtype}{tuple(src.shape)}, the engine's {t.dtype}{tuple(t.shape)}"
             )
     with torch.no_grad():
-        if offload:
-            _copy_in_offload(engine, restored, groups, reset_moments)
+        if not groups:
+            pass
+        elif offload:
+            _copy_in_offload(engine, restored, groups, reset_moments, path, sliced)
         else:
             _copy_in(engine, restored, groups)
     if not load_module_only:
@@ -705,17 +823,24 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
     layout, n = engine.layout, len(engine._params)
     paths = [_path_str(p) for p, _ in _walk(engine._unflatten(list(range(n))))]
     put = lambda dst, i, spec, src: dst.copy_(  # noqa: E731
-        layout.from_natural(i, src.to(dst.device), spec))
+        layout.from_natural(i, src.to(dst.device), spec) if dst.dim() else src)
     for i, name in enumerate(paths):
         put(engine._params[i], i, layout.leaves[i].param_spec, restored[f"params/{name}"])
     if "opt_state" in groups:
+        row = engine._dp_row() if getattr(engine, "_onebit_frozen", False) else None
         for field, x in _opt_fields(engine).items():
             if _per_leaf(engine, x):
                 for i, name in enumerate(paths):
                     put(x[i], i, layout.leaves[i].opt_spec, restored[f"opt_state/{field}/{name}"])
+            elif row is not None and field in ("worker_error", "server_error"):
+                x.copy_(restored[f"opt_state/{field}"][row])  # this rank's row of every rank's
             else:
                 for sub, leaf in _walk(x, (field,)):
                     leaf.copy_(restored["opt_state/" + _path_str(sub)])
+        if getattr(engine, "_comm_residuals", None) is not None:
+            row = engine._dp_row()
+            for t, key in zip(engine._comm_residuals, ("worker_error", "server_error")):
+                t.copy_(restored[f"comm/{key}"][row])
     if "loss_scale" in groups:
         for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
             leaf.copy_(restored[_path_str(sub)])
@@ -727,13 +852,48 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
             i, acc.to(engine.device), layout.leaves[i].acc_spec).clone())
 
 
-def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_moments: bool) -> None:
+def _copy_in_sliced(engine, restored: Dict[str, torch.Tensor], path: str, moments: bool,
+                    saved_shards: int) -> None:
+    """A sliced offload engine's restore (the JAX engine's
+    ``_load_host_optimizer``, ``engine.py:1192-1246``): with ``moments``,
+    each slice's masters and moments from its shard file; a tag saved under
+    another slice layout (``saved_shards``) rebuilds every slice's masters
+    from ``params/`` and resets the moments, with the JAX package's
+    warning.  Without ``moments``: the masters from ``params/`` only."""
+    from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat
+
+    P, L = engine._offload_shards, engine._offload_slice_len
+    same = moments and saved_shards == P
+    if moments and not same:
+        logger.warning(
+            f"host optimizer state {_shard_file(engine._host_shard_ids[0])} of this {P}-slice "
+            f"layout not found: the tag {path} was saved under a different offload shard layout "
+            f"({saved_shards} slice(s); process count / DS_OFFLOAD_SHARDS); Adam moments are "
+            "being RESET from params")
+    flat = None
+    for i, opt in zip(engine._host_shard_ids, engine._host_opts):
+        if same:
+            opt.load_state_dict(torch.load(os.path.join(path, STATE_DIR, _shard_file(i)),
+                                           map_location="cpu", weights_only=True))
+            continue
+        if flat is None:
+            flat = pack_flat([restored[f"params/{k}"] for k in engine._paths], P)
+        opt.load_masters([flat[i * L:(i + 1) * L]])
+        if moments:
+            opt.reset_moments()
+
+
+def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_moments: bool,
+                     path: str = "", sliced: Optional[bool] = None) -> None:
     """An offload engine's restore: the host masters from ``params/``, the
-    moments from ``host_optimizer/`` (or reset), then the engine's
-    compute-type parameters from the masters (``_after_host_load``)."""
+    moments from ``host_optimizer/`` (or reset; a sliced engine's from its
+    shard files, :func:`_copy_in_sliced`), then the engine's compute-type
+    parameters from the masters (``_after_host_load``)."""
     host = engine._host_opt
     engine._host_buffers_idle()  # no copy may still read the pinned buffers
-    if HOST_OPT in groups:
+    if sliced is not None:
+        _copy_in_sliced(engine, restored, path, *sliced)
+    elif HOST_OPT in groups:
         host.load_state_dict({
             **{f"master/{k}": restored[f"params/{k}"] for k in host.keys},
             **{f"{x}/{k}": restored[f"{HOST_OPT}/{x}/{k}"] for k in host.keys for x in ("m", "v")},
@@ -746,7 +906,8 @@ def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_mo
         for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
             leaf.copy_(restored[_path_str(sub)])
     if getattr(engine, "_grad_acc", None) is not None:
-        for i, k in enumerate(host.keys):
+        keys = engine._paths if sliced is not None else host.keys
+        for i, k in enumerate(keys):
             acc = restored.get(f"grad_acc/{k}") if "grad_acc" in groups else None
             engine._grad_acc[i] = None if acc is None else acc.to(engine.device).clone()
     engine._after_host_load()

@@ -93,7 +93,7 @@ once.  A ``pipe`` axis belongs to ``runtime/pipe/engine.py``'s
 engine.
 
 **ZeRO-Offload** (``zero_optimization.offload_optimizer.device`` ``cpu``
-or ``nvme``, one rank): the f32 masters and Adam moments live in pinned
+or ``nvme``): the f32 masters and Adam moments live in pinned
 host memory (the moments on disk under ``nvme``) in a
 ``runtime/zero/offload.py::HostOffloadOptimizer``; the device holds the
 compute-type parameters and the f32 gradient accumulator only.  At the
@@ -103,16 +103,31 @@ copied into pinned host buffers on a side stream behind an event, stepped
 by the native host Adam (``ops/adam/cpu_adam.py``), cast to bf16 by the
 host kernel into a pinned buffer and copied back to the device parameters
 without blocking; the next cast into that buffer waits for the copy's
-event.  Offload across ranks raises (ROADMAP A12); ``offload_param``
-routes to ``runtime/zero/param_offload.py`` in ``initialize``.
+event.  Across ranks (or ``DS_OFFLOAD_SHARDS`` in one process) the
+masters are packed flat and each rank keeps, steps and checkpoints its
+1/P slice, the updated slices all-gathered as pinned f32 tensors on a gloo
+group; the device keeps whole parameters and reduces whole gradients
+whatever the stage.  ``offload_param`` routes to
+``runtime/zero/param_offload.py`` in ``initialize``.
 
-Not ported (each raises, naming its ROADMAP item, or is absent): offload
-across ranks (A12), 1-bit optimizers and compressed exchanges (A13),
-supervision, telemetry, sanitizer and flops profiler (A14/A15), MoQ and
-PLD (A13).
+**1-bit Adam / LAMB and compressed exchanges** (``OneBitAdam``,
+``OneBitLamb``; ``comm.strategy`` ``int8`` / ``onebit``): on a
+data-parallel grid of more than one rank at stage 0, the 1-bit
+optimizers' warm steps take the dense exchange; from ``freeze_step`` each
+rank keeps its own gradients and one 1-bit momentum exchange a step
+crosses the wire (``runtime/fp16/onebit/``, :meth:`_explicit_step`).  The
+compressed strategies exchange each rank's gradient row once a step
+(``comm/strategy.py`` ``exchange_rows``) and then take the dense update.
+
+Not ported (each raises, naming its ROADMAP item, or is absent): 1-bit
+optimizers under ZeRO stage >= 1 and explicit exchanges under stage 3 or
+model parallelism (A13), offload under model parallelism (A12's
+remainder), supervision, telemetry, sanitizer and flops profiler
+(A14/A15), MoQ and PLD (A13).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -231,6 +246,13 @@ def _sum_squares(grads: List[torch.Tensor], device) -> torch.Tensor:
     return torch.stack(sq).sum() if sq else torch.zeros((), dtype=torch.float32, device=device)
 
 
+def _keep_on_overflow(overflow, old, new):
+    """``new`` where no rank overflowed, else ``old`` (trees of tensors)."""
+    olds, _ = tree_flatten(old)
+    news, rebuild = tree_flatten(new)
+    return rebuild([torch.where(overflow, o, n) for o, n in zip(olds, news)])
+
+
 def _clip_by_norm(grads: List[torch.Tensor], norm: torch.Tensor,
                   max_norm: float) -> List[torch.Tensor]:
     factor = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
@@ -294,8 +316,14 @@ class DeepSpeedEngine:
         self.world_size = self.mesh.world_size
         self.dp_world_size = self.mesh_info.dp_world_size
         self.partition_rules = PartitionRules.coerce(partition_rules, tp_spec_fn)
+        zc = config.zero_config
+        if zc.offload_optimizer.enabled:
+            # the host optimizer owns the update over its own flat slices:
+            # the device keeps whole compute-type parameters and reduces
+            # whole gradients, whatever the stage
+            zc = dataclasses.replace(zc, stage=0)
         self.zero_rules = ZeroShardingRules(
-            config.zero_config,
+            zc,
             fsdp_size=self.mesh_info.fsdp_world_size,
             tp_spec_fn=self.partition_rules.tp_spec_fn(),
             data_size=self.mesh_info.sizes.get("data", 1),
@@ -346,6 +374,7 @@ class DeepSpeedEngine:
         self._last_loss = None  # the boundary's divergence check_loss reads it
         self._last_info: Dict[str, Any] = {}
         self._peer_preempt = False  # a preemption seen by any rank (the step scalars)
+        self._init_onebit()
         self._init_comm_layer(config)
         self._init_resilience_and_overlap(config)
         log_dist(
@@ -361,13 +390,9 @@ class DeepSpeedEngine:
         """The JAX engine's offload checks (``engine.py:149-191``): a model
         without a ``stream_spec`` under ``offload_param`` keeps its
         parameters on the device, with the JAX warning; ``offload_optimizer``
-        refuses offload across ranks (ROADMAP A12), a client optimizer and
-        any optimizer but Adam/AdamW.  Returns whether the optimizer is
-        offloaded."""
-        from deepspeed_tpu_torch.runtime.zero.offload import (
-            host_optimizer_refusal,
-            refuse_across_ranks,
-        )
+        refuses a client optimizer and any optimizer but Adam/AdamW.
+        Returns whether the optimizer is offloaded."""
+        from deepspeed_tpu_torch.runtime.zero.offload import host_optimizer_refusal
 
         zc = self.config.zero_config
         if zc.offload_param.enabled and getattr(model, "stream_spec", None) is None:
@@ -376,17 +401,41 @@ class DeepSpeedEngine:
                 "device-resident; models.gpt2.make_model provides the layer-streaming path")
         if not zc.offload_optimizer.enabled:
             return False
-        refuse_across_ranks(self.world_size, "offload_optimizer")
         reason = host_optimizer_refusal(self.config, optimizer)
         if reason is not None:
             raise ValueError(f"offload_optimizer: {reason}")
+        other = [a for a in ("model", "seq", "expert", "pipe") if self.mesh.sizes[a] > 1]
+        if other:
+            raise NotImplementedError(
+                f"offload_optimizer with a {'/'.join(other)} axis is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A12's remainder: offload under model "
+                "parallelism); the offload engines split the data-parallel grid only")
         return True
+
+    def _offload_shard_count(self) -> int:
+        """How many flat slices the f32 masters and moments are cut into
+        (the JAX engine's ``_offload_shards``, ``engine.py:166-183``): one a
+        rank across ranks; in one process ``DS_OFFLOAD_SHARDS`` (the JAX
+        package's simulated hosts: this process steps every slice)."""
+        env = int(os.environ.get("DS_OFFLOAD_SHARDS", "1"))
+        if self.world_size > 1:
+            if env > 1 and env != self.world_size:
+                logger.warning(f"DS_OFFLOAD_SHARDS={env} ignored: with {self.world_size} "
+                               "processes each host owns exactly one slice")
+            return self.world_size
+        return max(1, env)
 
     def _init_host_offload(self, leaves: List[Any]) -> None:
         """The host optimizer (the JAX engine's
-        ``_configure_host_offload_optimizer``) and the pinned buffers of the
-        boundary's copies, allocated once; the device keeps the parameters
-        in the compute type."""
+        ``_configure_host_offload_optimizer``, ``engine.py:586-623``) and the
+        pinned buffers of the boundary's copies, allocated once; the device
+        keeps the parameters in the compute type.  With P > 1 slices the
+        masters are packed flat (``pack_flat``, padded to a multiple of P)
+        and this rank keeps slice ``[r L, (r+1) L)`` with its moments (every
+        slice in one process), under ``nvme`` in ``shard<i>/``; after each
+        step the updated slices are all-gathered into one pinned f32
+        buffer, whose views are the whole masters."""
+        from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat, unpack_flat
         from deepspeed_tpu_torch.runtime.zero.offload import HostOffloadOptimizer
 
         oc = self.config.zero_config.offload_optimizer
@@ -396,11 +445,48 @@ class DeepSpeedEngine:
                 raise ValueError("offload_optimizer.device=nvme requires nvme_path")
             nvme_dir = os.path.join(oc.nvme_path, "zero_infinity_swap")
         pin = self.device.type == "cuda"
-        self._host_opt = HostOffloadOptimizer.from_config(
-            self.config, list(zip(self._paths, leaves)), nvme_swap_dir=nvme_dir, pin_memory=pin)
-        masters = self._host_opt.masters
-        self._host_grads = [torch.empty(m.shape, dtype=torch.float32, pin_memory=pin)
-                            for m in masters]
+        P = self._offload_shards = self._offload_shard_count()
+        self._host_pg = None
+        if P <= 1:
+            self._host_opts = [HostOffloadOptimizer.from_config(
+                self.config, list(zip(self._paths, leaves)), nvme_swap_dir=nvme_dir,
+                pin_memory=pin)]
+            self._host_shard_ids = [0]
+            self._masters_full = self._host_opts[0].masters
+            self._host_grads = [torch.empty(m.shape, dtype=torch.float32, pin_memory=pin)
+                                for m in self._masters_full]
+        else:
+            flat = pack_flat([x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(np.asarray(x))) for x in leaves], P)
+            L = self._offload_slice_len = flat.numel() // P
+            self._host_shard_ids = [self.global_rank] if self.world_size > 1 else list(range(P))
+
+            def shard(i):
+                nv = None if nvme_dir is None else os.path.join(nvme_dir, f"shard{i}")
+                if nv is not None:
+                    os.makedirs(nv, exist_ok=True)
+                return HostOffloadOptimizer.from_config(
+                    self.config, [("flat", flat[i * L:(i + 1) * L])], nvme_swap_dir=nv,
+                    pin_memory=pin)
+
+            self._host_opts = [shard(i) for i in self._host_shard_ids]
+            self._gathered = torch.empty(P * L, dtype=torch.float32, pin_memory=pin)
+            self._gathered.copy_(flat)
+            del flat
+            templates = [torch.empty(tuple(np.shape(x)), dtype=torch.float32, device="meta")
+                         for x in leaves]
+            self._masters_full = [v.view(t.shape) for v, t in zip(
+                unpack_flat(self._gathered, [t.reshape(-1) for t in templates]), templates)]
+            self._host_grads = [torch.empty(L, dtype=torch.float32, pin_memory=pin)
+                                for _ in self._host_shard_ids]
+            if self.world_size > 1:
+                from deepspeed_tpu_torch.comm import collectives
+
+                self._host_pg = collectives.host_group()
+            log_dist(f"ZeRO-Offload: masters sharded 1/{P} per host "
+                     f"({L * 4 / 1e9:.2f} GB master slice/host)")
+        self._host_opt = self._host_opts[0]
+        masters = self._masters_full
         self._host_cast = ([torch.empty(m.shape, dtype=self.compute_dtype, pin_memory=pin)
                             for m in masters] if self.compute_dtype != torch.float32 else None)
         self._d2h_stream = torch.cuda.Stream(self.device) if pin else None
@@ -414,6 +500,10 @@ class DeepSpeedEngine:
         log_dist(f"ZeRO-Offload: {sum(m.numel() for m in masters)} parameters, "
                  f"{self.compute_dtype} on {self.device}, f32 masters+moments on the host "
                  f"({oc.device})")
+
+    def host_master_bytes(self) -> int:
+        """The bytes of the f32 masters this rank's host optimizer(s) own."""
+        return sum(m.numel() * 4 for opt in self._host_opts for m in opt.masters)
 
     def _check_parallel(self, mesh_check, shapes) -> None:
         """The refusals of a ``model`` or ``seq`` axis, before any leaf is
@@ -434,12 +524,65 @@ class DeepSpeedEngine:
                 f"mesh.model = {m} needs the model's tensor-parallel specs: pass "
                 "tp_spec_fn (make_model's third value) or partition_rules")
 
+    def _dp_group(self):
+        """The data-parallel grid's group (``data x fsdp``), None at one rank."""
+        return self.mesh.group(("data", "fsdp"))
+
+    def _explicit_refusal(self) -> Optional[str]:
+        """Why the port cannot run an explicit (1-bit or compressed)
+        exchange on this engine's layout, or None: it exchanges whole
+        leaves over the data-parallel grid, so a leaf cut by ZeRO stage 3,
+        or a ``model``, ``seq``, ``expert`` or ``pipe`` axis, is not
+        ported (the JAX package composes them under GSPMD)."""
+        sizes = self.mesh.sizes
+        other = [a for a in ("model", "seq", "expert", "pipe") if sizes[a] > 1]
+        if other:
+            return f"a {'/'.join(other)} axis"
+        if self._stage3:
+            return "ZeRO stage 3 (parameters cut over fsdp)"
+        return None
+
+    def _init_onebit(self) -> None:
+        """The 1-bit optimizers' compressed phase (the JAX engine's
+        ``engine.py:309-365``): after ``freeze_step`` every rank keeps its
+        own gradients and one 1-bit momentum exchange a step crosses the
+        wire.  Its blockers: a data-parallel grid of one rank, offload;
+        otherwise the optimizer falls back to its local quantization under
+        the dense exchange, with the JAX package's warning."""
+        from deepspeed_tpu_torch.runtime.fp16.onebit.adam import OnebitAdam
+
+        self._onebit_frozen = False
+        self._onebit_exchange_ok = False
+        if not isinstance(self.optimizer, OnebitAdam):
+            return
+        reason = self._explicit_refusal()
+        if reason is None and self.zero_stage >= 1:
+            reason = "ZeRO stage >= 1 (the warm state on update slices)"
+        if reason is not None:
+            raise NotImplementedError(
+                f"1-bit {type(self.optimizer).__name__} under {reason} is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A13, 1-bit optimizers under ZeRO or "
+                "model parallelism)")
+        blockers = {"data-parallel grid must be > 1": self.dp_world_size > 1,
+                    "offload_optimizer unsupported": self._host_opt is None}
+        self._onebit_exchange_ok = all(blockers.values())
+        if not self._onebit_exchange_ok:
+            failed = [k for k, ok in blockers.items() if not ok]
+            logger.warning(
+                f"1-bit {type(self.optimizer).__name__}: compressed gradient exchange DISABLED "
+                "— the optimizer will fall back to local momentum quantization with "
+                f"full-precision allreduce ({'; '.join(failed)})")
+
     def _init_comm_layer(self, config) -> None:
         """The comm layer (the JAX engine's ``_init_comm_layer``): resolve
-        the gradient exchange's strategy once (dense only; a compressed
-        pick raises, ROADMAP A13) and record the forced-dense fallback of
+        the gradient exchange's strategy once; ``int8`` / ``onebit`` switch
+        ``train_batch`` to the explicit step (each rank's gradient row,
+        one compressed exchange a step, :meth:`_explicit_step`), unless a
+        blocker forces dense (the JAX package's warning).  The onebit
+        strategy's error-feedback residuals ride checkpoints as
+        ``comm/``.  Records the forced-dense fallback of
         ``reduce_scatter: false``."""
-        from deepspeed_tpu_torch.comm.strategy import STRATEGY_DENSE, CommLayer
+        from deepspeed_tpu_torch.comm.strategy import STRATEGY_DENSE, STRATEGY_ONEBIT, CommLayer
         from deepspeed_tpu_torch.config.config import CommConfig
 
         self.comm = CommLayer(self.mesh, self.mesh_info, getattr(config, "comm", None) or CommConfig(),
@@ -452,12 +595,48 @@ class DeepSpeedEngine:
                 "zero_optimization.reduce_scatter=false: gradient reduction stays a full "
                 "all-reduce (grads replicated over fsdp) — ~2x the wire bytes and a "
                 "params-sized grad buffer per rank")
+        if getattr(self, "_host_pg", None) is not None:
+            self.comm.note("offload-masters-allgather", STRATEGY_DENSE,
+                           "host all-gather of the f32 master slices (pinned tensors on a gloo "
+                           "group)")
         # one model rank's elements: the blocks its collectives move
         self._comm_n_params = sum(self.layout.local_numel(i)
                                   for i in range(len(self.layout.leaves)))
-        self.comm.select(4 * self._comm_n_params, torch.float32, ("data", "fsdp"),
-                         site="grad-exchange")
-        self._comm_grad_strategy = STRATEGY_DENSE
+        n = max(1, self.dp_world_size)
+        self._comm_flat_len = -(-self._comm_n_params // n) * n
+        want = self.comm.select(4 * self._comm_n_params, torch.float32, ("data", "fsdp"),
+                                site="grad-exchange")
+        explicit = want != STRATEGY_DENSE
+        if explicit:
+            blockers = {
+                "data-parallel grid must be > 1": self.dp_world_size > 1,
+                "offload_optimizer unsupported": self._host_opt is None,
+                "1-bit optimizer owns its own exchange": not self._onebit_exchange_ok,
+            }
+            failed = [k for k, ok in blockers.items() if not ok]
+            if failed:
+                logger.warning(
+                    f"comm: '{want}' gradient exchange requested but DISABLED "
+                    f"({'; '.join(failed)}); falling back to dense")
+                self.comm.note("grad-exchange", STRATEGY_DENSE,
+                               f"forced dense: {'; '.join(failed)}")
+                want, explicit = STRATEGY_DENSE, False
+        if explicit and self._explicit_refusal() is not None:
+            raise NotImplementedError(
+                f"comm.strategy '{want}' under {self._explicit_refusal()} is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A13, compressed exchanges under ZeRO stage 3 "
+                "or model parallelism)")
+        self._comm_grad_strategy = want
+        self._comm_explicit = explicit
+        self._comm_residuals = None
+        if explicit and want == STRATEGY_ONEBIT and self.comm.config.error_feedback:
+            mp = self._comm_flat_len
+            self._comm_residuals = (torch.zeros(mp, device=self.device),
+                                    torch.zeros(mp // n, device=self.device))
+        if explicit:
+            log_dist(f"comm: '{want}' gradient exchange over ('data', 'fsdp') (n={n} ranks, "
+                     f"{self._comm_flat_len} padded coords, "
+                     f"{'EF residuals in state' if self._comm_residuals else 'stateless'})")
 
     def comm_summary(self, rows: Optional[int] = None, seq_len: Optional[int] = None,
                      labels_given: bool = False) -> Dict[str, Any]:
@@ -545,8 +724,14 @@ class DeepSpeedEngine:
             return FusedAdamW(lr=lr, **params)
         if name == C.LAMB_OPTIMIZER:
             return FusedLamb(lr=lr, **params)
-        if name in (C.ONEBIT_ADAM_OPTIMIZER, C.ONEBIT_LAMB_OPTIMIZER):
-            raise NotImplementedError(f"the {name} optimizer is not ported yet (ROADMAP A13)")
+        if name == C.ONEBIT_ADAM_OPTIMIZER:
+            from deepspeed_tpu_torch.runtime.fp16.onebit.adam import OnebitAdam
+
+            return OnebitAdam(lr=lr, fsdp_size=self.mesh_info.fsdp_world_size, **params)
+        if name == C.ONEBIT_LAMB_OPTIMIZER:
+            from deepspeed_tpu_torch.runtime.fp16.onebit.lamb import OnebitLamb
+
+            return OnebitLamb(lr=lr, **params)
         if name == C.SGD_OPTIMIZER:
             return SGD(lr=lr, **params)
         raise ValueError(f"Unknown optimizer '{name}'")
@@ -602,7 +787,7 @@ class DeepSpeedEngine:
         Where ZeRO shards them this gathers: read it on every rank.  Under
         offload: the host masters."""
         if self._host_opt is not None:
-            return self._unflatten(list(self._host_opt.masters))
+            return self._unflatten(list(self._masters_full))
         return self._unflatten([self.layout.natural(i, p.detach(), self.layout.leaves[i].param_spec)
                                 for i, p in enumerate(self._params)])
 
@@ -691,14 +876,15 @@ class DeepSpeedEngine:
         stage says (stage 3's sharded leaves were reduced in the backward).
         A leaf the loss did not reach contributes zeros, so every rank
         issues the same collectives."""
-        reduces = self.dp_world_size * self.mesh.sizes["seq"] > 1
+        local = self._local_grads()
+        reduces = not local and self.dp_world_size * self.mesh.sizes["seq"] > 1
         for i, p in enumerate(self._params):
             g, p.grad = p.grad, None
             if g is None:
                 if not reduces:
                     continue
                 g = torch.zeros_like(p)
-            if not self.layout.param_sharded(i):
+            if not self.layout.param_sharded(i) and not local:
                 g = self.layout.reduce_grad(i, g)
             if g.dtype != torch.float32:  # offload: the compute-type leaves' gradients
                 g = g.float()
@@ -711,9 +897,17 @@ class DeepSpeedEngine:
         ``_apply_step_impl`` + ``_apply_update``) on this rank's update
         slices; ``loss`` (this rank's mean loss) comes back as the global
         batch's mean under ``info["loss"]``."""
+        if self._local_grads():
+            return self._explicit_step(loss)
         grads, overflow, grad_norm, loss = self._boundary_grads(loss)
         if self._host_opt is not None:
             return self._host_apply_step(grads, overflow, grad_norm, loss)
+        return self._update(grads, overflow, grad_norm, loss)
+
+    def _update(self, grads, overflow, grad_norm, loss) -> Dict[str, Any]:
+        """The update of this rank's slices from the boundary's gradients
+        (on the optimizer-state slices), then the updated masters gathered
+        back to the parameter spec."""
         layout, n = self.layout, len(self._params)
         lr = float(self.lr_schedule(self._host_global_step))
         params = [self._update_param(i) for i in range(n)]
@@ -775,6 +969,181 @@ class DeepSpeedEngine:
             grads = _clip_by_norm(grads, grad_norm, self.config.gradient_clipping)
         return grads, overflow, grad_norm, loss
 
+    # ------------------------------------------------------------------
+    # the explicit exchanges: the 1-bit optimizers' compressed phase and
+    # comm.strategy int8 / onebit
+    # ------------------------------------------------------------------
+    def _local_grads(self) -> bool:
+        """Whether each rank keeps its own gradients until the step's one
+        explicit exchange (no reduction a micro-step)."""
+        return self._onebit_frozen or self._comm_explicit
+
+    def _sync_onebit_phase(self, global_step: int) -> None:
+        """Align the compressed phase with a tag's step count before a
+        restore (``runtime/checkpointing.py``): a tag at ``freeze_step`` is
+        still warm (the phase flips at the start of the next
+        ``train_batch``); a warm tag rolls a frozen engine back."""
+        if not self._onebit_exchange_ok:
+            return
+        if not self._onebit_frozen and global_step > self.optimizer.freeze_step:
+            self._enter_onebit_frozen()
+        elif self._onebit_frozen and global_step <= self.optimizer.freeze_step:
+            self._exit_onebit_frozen()
+
+    def _natural(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Parameter-shaped tensors (the masters' layout) in their natural
+        shapes, in the engine's order."""
+        return [self.layout.natural(i, t.detach(), self.layout.leaves[i].param_spec)
+                for i, t in enumerate(tensors)]
+
+    @torch.no_grad()
+    def _enter_onebit_frozen(self) -> None:
+        """The warm state in the compressed phase's layout (the JAX engine's
+        ``_enter_onebit_frozen``): the momentum as signs and chunk scales,
+        the variance flat, this rank's residuals."""
+        self.opt_state = self.optimizer.make_frozen_state(
+            self.opt_state, self.dp_world_size)
+        self._onebit_frozen = True
+        self.comm.note("momentum-exchange", "onebit",
+                       f"1-bit {type(self.optimizer).__name__} compressed-exchange phase")
+        log_dist(f"1-bit {type(self.optimizer).__name__}: entering compressed-exchange phase at "
+                 f"step {self._host_global_step} (freeze_step={self.optimizer.freeze_step}, "
+                 f"dp_ranks={self.dp_world_size})")
+
+    @torch.no_grad()
+    def _exit_onebit_frozen(self) -> None:
+        """Back to the warm layout (a pre-freeze tag's restore overwrites
+        the values next)."""
+        self.opt_state = self.optimizer.init([self._update_param(i)
+                                              for i in range(len(self._params))])
+        self._onebit_frozen = False
+        log_dist(f"1-bit {type(self.optimizer).__name__}: rolled back to warmup (pre-freeze) "
+                 "state layout")
+
+    def _step_scalars(self, sq, overflow, loss):
+        """One all-reduce over every rank of ``[sq, overflow, loss,
+        preemption]``: ``(sq summed, overflow anywhere, the global batch's
+        mean loss)``."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        wd = self._watchdog
+        preempt = torch.full((), float(wd is not None and wd.preemption_requested),
+                             dtype=torch.float32, device=self.device)
+        vec = torch.stack([sq, overflow.float(),
+                           zero if loss is None or not self._counts_loss() else loss.float(),
+                           preempt])
+        vec = collectives.all_reduce(vec, self.mesh.world_group(), kind="step-scalars")
+        self._peer_preempt = bool(vec[3] > 0)
+        return vec[0], vec[1] > 0, (None if loss is None else vec[2] / self.dp_world_size)
+
+    @torch.no_grad()
+    def _explicit_step(self, loss: Optional[torch.Tensor]) -> Dict[str, Any]:
+        """The boundary of the explicit paths (the JAX engine's
+        ``_frozen_full_step`` and ``_comm_full_step``): this rank's
+        accumulated gradients packed flat into its row and unscaled; an
+        overflow on any rank skips the step and keeps the residuals.
+
+        * 1-bit frozen phase: the row clipped by its own norm (the
+          reference's per-rank clipping; the reported norm is the root of
+          the rows' mean square), folded into the synced momentum and
+          exchanged 1-bit (``frozen_apply``); the masters move by the
+          update.
+        * ``comm.strategy`` int8 / onebit: non-finite entries zeroed, one
+          compressed exchange of the row, then the dense path's update
+          (clipping by the exchanged mean's global norm)."""
+        from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat, unpack_flat
+
+        n, group, layout = self.dp_world_size, self._dp_group(), self.layout
+        gas = self.gradient_accumulation_steps
+        acc = [a if a is not None else torch.zeros_like(p)
+               for a, p in zip(self._grad_acc, self._params)]
+        self._grad_acc = [None] * len(self._params)
+        nat = self._natural(acc)
+        del acc
+        scale = self.loss_scale_state.scale.float()
+        g_row = pack_flat(nat, n) / (gas * scale)
+        local_overflow = ~torch.isfinite(torch.sum(g_row))
+        clip = self.config.gradient_clipping
+        lr = float(self.lr_schedule(self._host_global_step))
+        if self._onebit_frozen:
+            sq_local = torch.sum(g_row * g_row)
+            sq, overflow, loss = self._step_scalars(sq_local, local_overflow, loss)
+            grad_norm = torch.sqrt(sq / n)
+            if clip > 0.0:
+                g_row = g_row * torch.clamp(clip / (torch.sqrt(sq_local) + 1e-6), max=1.0)
+            p_nat = self._natural(self._params)
+            p_flat = pack_flat(p_nat, n)
+            upd, new_state = self.optimizer.frozen_apply(
+                g_row, self.opt_state, p_flat, torch.tensor(lr, device=self.device), group=group)
+            new_flat = torch.where(overflow, p_flat, p_flat + upd)
+            for i, t in enumerate(unpack_flat(new_flat, p_nat)):
+                self._params[i].copy_(layout.from_natural(i, t, layout.leaves[i].param_spec))
+            self.opt_state = type(new_state)(**{
+                f: torch.where(overflow, getattr(self.opt_state, f), getattr(new_state, f))
+                for f in new_state.__dataclass_fields__})
+            self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
+            return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        _, overflow, loss = self._step_scalars(zero, local_overflow, loss)
+        g_row = torch.where(torch.isfinite(g_row), g_row, torch.zeros((), device=self.device))
+        gen = None
+        if self._comm_grad_strategy == "int8":
+            # fresh bits a step and a rank (the JAX engine folds the step
+            # into its key; the draws differ, ROADMAP C4)
+            gen = torch.Generator(device=self.device).manual_seed(
+                (self.config.seed * 1_000_003 + 777_001 + self._host_global_step * 4099
+                 + self.global_rank) & _SEED_MASK)
+        g_mean, new_res = self.comm.exchange_rows(g_row, self._comm_grad_strategy, group=group,
+                                                  generator=gen,
+                                                  residuals=self._comm_residuals)
+        if new_res is not None:
+            self._comm_residuals = tuple(torch.where(overflow, old, new) for old, new in
+                                         zip(self._comm_residuals, new_res))
+        grads = []
+        for i, t in enumerate(unpack_flat(g_mean, nat)):
+            leaf = layout.leaves[i]
+            full = layout.from_natural(i, t, leaf.param_spec)
+            grads.append(layout.narrow(full, leaf.state_shape, leaf.param_spec, leaf.opt_spec))
+        grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
+        if clip > 0.0:
+            grad_norm = torch.sqrt(_sum_squares(unpack_flat(g_mean, nat), self.device))
+            grads = _clip_by_norm(grads, grad_norm, clip)
+        return self._update(grads, overflow, grad_norm, loss)
+
+    def _portable_opt_fields(self) -> Dict[str, Any]:
+        """The optimizer state by field, as a tag holds it: in the 1-bit
+        compressed phase the residuals of every rank gathered to
+        ``(n, Mp)`` and ``(n, Mp // n)`` (collective: every rank calls)."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        opt = self.opt_state
+        out = ({f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)}
+               if dataclasses.is_dataclass(opt) else dict(opt))
+        if self._onebit_frozen:
+            for k in ("worker_error", "server_error"):
+                out[k] = collectives.all_gather(out[k][None], self._dp_group(),
+                                                kind="checkpoint")
+        return out
+
+    def _comm_state(self) -> Dict[str, torch.Tensor]:
+        """The onebit strategy's residuals of every rank, ``comm/`` in a
+        tag (collective)."""
+        if self._comm_residuals is None:
+            return {}
+        from deepspeed_tpu_torch.comm import collectives
+
+        werr, serr = (collectives.all_gather(t[None], self._dp_group(), kind="checkpoint")
+                      for t in self._comm_residuals)
+        return {"comm/worker_error": werr, "comm/server_error": serr}
+
+    def _dp_row(self) -> int:
+        """This rank's row of the data-parallel grid's stacked residuals."""
+        import torch.distributed as dist
+
+        group = self._dp_group()
+        return 0 if group is None else dist.get_rank(group)
+
     def _host_apply_step(self, grads, overflow, grad_norm, loss) -> Dict[str, Any]:
         """The offload step after :meth:`_boundary_grads` (the JAX engine's
         ``_host_apply_step``): gradients into the pinned host buffers on
@@ -787,6 +1156,12 @@ class DeepSpeedEngine:
             timing.clear()
             ev.clear()
             t0 = time.perf_counter()
+            if self._offload_shards > 1:
+                # this rank's slices of the packed gradient only
+                from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat
+
+                flat, L = pack_flat(grads, self._offload_shards), self._offload_slice_len
+                grads = [flat[i * L:(i + 1) * L] for i in self._host_shard_ids]
             if self._d2h_stream is not None:
                 ev["d2h_start"], ev["d2h_end"] = (torch.cuda.Event(enable_timing=True)
                                                   for _ in range(2))
@@ -802,12 +1177,39 @@ class DeepSpeedEngine:
                     h.copy_(g)
             del grads
             t1 = time.perf_counter()
-            masters = self._host_opt.step(self._host_grads, lr, self._host_global_step + 1)
+            if self._offload_shards <= 1:
+                self._host_opt.step(self._host_grads, lr, self._host_global_step + 1)
+            else:
+                for opt, g in zip(self._host_opts, self._host_grads):
+                    opt.step([g], lr, self._host_global_step + 1)
             t2 = time.perf_counter()
-            self._push_params(masters)
-            timing.update(d2h_wait_ms=(t1 - t0) * 1e3, adam_ms=(t2 - t1) * 1e3)
+            self._gather_masters()
+            t3 = time.perf_counter()
+            self._push_params(self._masters_full)
+            timing.update(d2h_wait_ms=(t1 - t0) * 1e3, adam_ms=(t2 - t1) * 1e3,
+                          gather_ms=(t3 - t2) * 1e3)
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
         return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
+
+    def _gather_masters(self) -> None:
+        """With P > 1 slices: every slice's updated masters into the whole
+        pinned buffer (``_sharded_host_step``'s reassembly): across ranks
+        one all-gather of the f32 slices as pinned tensors on a gloo group
+        (``offload-masters-allgather``), in one process a copy of each.  The
+        buffer is written only after the last copy out of it ended."""
+        if self._offload_shards <= 1:
+            return
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+        if self._host_pg is not None:
+            from deepspeed_tpu_torch.comm import collectives
+
+            collectives.host_all_gather(self._host_opt.masters[0], self._host_pg,
+                                        out=self._gathered)
+            return
+        L = self._offload_slice_len
+        for i, opt in zip(self._host_shard_ids, self._host_opts):
+            self._gathered[i * L:(i + 1) * L].copy_(opt.masters[0])
 
     def _push_params(self, masters: List[torch.Tensor]) -> None:
         """The masters, cast to the compute type (the host kernel's
@@ -848,9 +1250,10 @@ class DeepSpeedEngine:
             self._h2d_done.synchronize()
 
     def _after_host_load(self) -> None:
-        """A checkpoint load replaced the host masters: the device
-        parameters follow."""
-        self._push_params(self._host_opt.masters)
+        """A checkpoint load replaced the host masters: the whole masters
+        (gathered from the slices) and the device parameters follow."""
+        self._gather_masters()
+        self._push_params(self._masters_full)
 
     def offload_breakdown(self) -> Dict[str, float]:
         """The last offload step's milliseconds: ``d2h_ms`` and ``h2d_ms``
@@ -901,9 +1304,12 @@ class DeepSpeedEngine:
         updates, new_state = self.optimizer.update(grads, self.opt_state, params, lr=lr_t)
         for p, u in zip(params, updates):
             p.copy_(torch.where(overflow, p, (p.float() + u).to(p.dtype)))
-        old, _ = tree_flatten(self.opt_state)
-        new, rebuild = tree_flatten(new_state)
-        return rebuild([torch.where(overflow, o, n) for o, n in zip(old, new)])
+        if dataclasses.is_dataclass(new_state):
+            return type(new_state)(**{
+                f.name: _keep_on_overflow(overflow, getattr(self.opt_state, f.name),
+                                          getattr(new_state, f.name))
+                for f in dataclasses.fields(new_state)})
+        return _keep_on_overflow(overflow, self.opt_state, new_state)
 
     def _end_step(self, info: Dict[str, Any], loss: Optional[torch.Tensor]) -> None:
         """Host bookkeeping at the boundary: the overflow flag is read on
@@ -934,6 +1340,10 @@ class DeepSpeedEngine:
         """Forward and backward of one micro-batch; returns the loss.
         As in the JAX engine, the gradients are produced here and summed
         into the accumulator; ``backward()`` checks the call order."""
+        if self._onebit_frozen or self._comm_explicit:
+            raise RuntimeError(
+                "the 1-bit compressed phase and comm.strategy int8/onebit run whole batches "
+                "(each rank's gradient row is exchanged once a step); use train_batch()")
         loss = self._micro_step(self._prepare_batch(batch))
         self._cached_loss = self._last_loss = loss
         return loss
@@ -961,6 +1371,9 @@ class DeepSpeedEngine:
         micro-batches (a 0-dim tensor on the device).  Batches from ``prefetch_loader`` are already on the
         device and pass straight through."""
         gas = self.gradient_accumulation_steps
+        if (self._onebit_exchange_ok and not self._onebit_frozen
+                and self._host_global_step >= self.optimizer.freeze_step):
+            self._enter_onebit_frozen()
         if isinstance(batch, _PlacedBatch):
             # the prefetcher noted its own wait as data_wait
             leaves, rebuild = batch.take()

@@ -12,29 +12,19 @@ native host Adam (``ops/adam/cpu_adam.py``), in place.
 Leaves are keyed by their ``/``-joined paths in the JAX package's order
 (``runtime/engine.py::tree_items``); :meth:`HostOffloadOptimizer.state_dict`
 keeps the JAX layout (``master/<path>``, ``m/<path>``, ``v/<path>``).
+Across ranks the engines give each rank's optimizer its own part: the
+in-memory engine one flat slice (``flat``) of the packed masters, the
+streaming engine its ``fsdp`` part of every block leaf.
 """
 from __future__ import annotations
 
 import math
-import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.utils.logging import log_dist
-
-
-def refuse_across_ranks(world_size: int, what: str) -> None:
-    """Offload runs on one rank: across ranks (a process group of more
-    than one, or ``DS_OFFLOAD_SHARDS`` > 1, the JAX package's simulated
-    hosts) each rank's 1/P master slice and its all-gather, and the fsdp
-    streaming of the parameter groups, are not ported."""
-    shards = int(os.environ.get("DS_OFFLOAD_SHARDS", "1"))
-    if world_size > 1 or shards > 1:
-        raise NotImplementedError(
-            f"{what} across ranks (world size {world_size}, DS_OFFLOAD_SHARDS={shards}) is "
-            "not ported to deepspeed_tpu_torch yet (ROADMAP A12 (offload across ranks))")
 
 
 def host_optimizer_refusal(config, optimizer=None) -> Optional[str]:
@@ -206,6 +196,16 @@ class HostOffloadOptimizer:
 _NORM_CHUNK = 1 << 20
 
 
+def sum_squares_f64(g: torch.Tensor) -> float:
+    """The sum of ``g``'s squares in f64, ``_NORM_CHUNK`` elements at a time
+    (no f64 copy of the whole tensor)."""
+    sq = 0.0
+    for c in g.view(-1).split(_NORM_CHUNK):
+        c = c.to(torch.float64)
+        sq += float(torch.dot(c, c))
+    return sq
+
+
 def host_unscale_clip_and_check(grads_flat: List[torch.Tensor], scale: float,
                                 clip: float) -> Tuple[List[torch.Tensor], float, bool]:
     """Host-side unscale, global-norm clip and overflow check, in place on
@@ -219,9 +219,7 @@ def host_unscale_clip_and_check(grads_flat: List[torch.Tensor], scale: float,
     for g in grads_flat:
         if inv != 1.0:
             g.mul_(inv)
-        for c in g.view(-1).split(_NORM_CHUNK):
-            c = c.to(torch.float64)
-            sq += float(torch.dot(c, c))
+        sq += sum_squares_f64(g)
     overflow = not math.isfinite(sq)
     norm = math.sqrt(sq)
     if clip > 0.0 and not overflow and norm > clip:

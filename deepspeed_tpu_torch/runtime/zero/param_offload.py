@@ -39,16 +39,31 @@ activations and one group's activations and gradients — never the model.
 that are not yet freed (each tensor counted until it is garbage; their
 maxima in ``stats``).
 
-One rank only: offload across ranks raises (ROADMAP A12), as the JAX
-package's fsdp streaming (``_setup_host_partition``) is not ported.
+Across ranks (a ``mesh`` of ``data`` x ``fsdp``, the JAX package's
+``_setup_host_partition``, ``param_offload.py:196-207, 323-458``), each rank
+keeps its ``fsdp`` part of every block leaf's masters, moments and group
+files: the leaf's largest trailing dimension that ``fsdp`` divides
+(``sharding/layout.py`` ``fsdp_trailing_spec``; a leaf nothing divides
+stays whole on every rank), and the resident leaves whole.  A group's
+upload is this rank's part, all-gathered over ``fsdp`` on the device; its
+gradient is all-reduced over ``data`` and reduce-scattered over ``fsdp``
+back to the part (the resident leaves' all-reduced over both), averaged
+over the data-parallel ranks, each rank training on its own rows.  The
+global norm counts each part once (on the ``data`` rank 0 of its ``fsdp``
+rank; the whole leaves on rank 0) in one all-reduce of ``[sq,
+overflow]``.  A checkpoint writes each rank's masters and moments to its
+own file (``host_optimizer_rank<r>.pt``), ``masters_sharded`` in the meta;
+a tag restores at any ``fsdp`` size, reassembled from every saved rank's
+file (or from a one-rank tag's ``state.pt``) and cut to this rank's parts.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 import weakref
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +72,7 @@ from deepspeed_tpu_torch.runtime.zero.offload import (
     HostOffloadOptimizer,
     host_optimizer_refusal,
     host_unscale_clip_and_check,
+    sum_squares_f64,
 )
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
@@ -106,6 +122,9 @@ class ZeroInfinityEngine:
             return "requires bf16 (no dynamic loss scale on the host path)"
         if config.mesh.model > 1:
             return "model (TP) sharding of streamed params is not implemented"
+        other = [a for a in ("seq", "expert", "pipe") if getattr(config.mesh, a, 1) > 1]
+        if other:
+            return f"streams over data/fsdp axes only (a {'/'.join(other)} axis)"
         return host_optimizer_refusal(config, optimizer)
 
     @staticmethod
@@ -146,7 +165,7 @@ class ZeroInfinityEngine:
         spec: StreamSpec = model.stream_spec
         self.device = resolve_device(device)
         self.config, self.spec = config, spec
-        self.world_size, self.dp_world_size, self.global_rank = 1, 1, 0
+        self._setup_mesh(config)
         self.compute_dtype = torch.bfloat16 if config.bf16.enabled else torch.float32
         zc = config.zero_config
         # layers per group: offload_param.buffer_count, or its largest
@@ -164,11 +183,19 @@ class ZeroInfinityEngine:
         self._res_idx = [i for i, p in enumerate(self._paths) if not p.startswith(prefix)]
         self._block_keys = [self._paths[i][len(prefix):] for i in self._block_idx]
         self._res_keys = [self._paths[i] for i in self._res_idx]
+        # each block leaf's fsdp-cut dimension (None: whole on every rank)
+        shapes = [tuple(np.shape(x)) for x in leaves]
+        self._full_shapes = shapes
+        self._cut = {i: self._cut_dim(shapes[i], self._fsdp) for i in self._block_idx}
+        leaves = [self._leaf_to_local(i, x) for i, x in enumerate(leaves)]
         nvme_dir = None
         if zc.offload_optimizer.device == "nvme" or zc.offload_param.device == "nvme":
             nvme_dir = zc.offload_param.nvme_path or zc.offload_optimizer.nvme_path
             if not nvme_dir:
                 raise ValueError("offload device nvme requires nvme_path")
+            if self.world_size > 1:
+                # co-located ranks must not share files
+                nvme_dir = os.path.join(nvme_dir, f"rank{self.global_rank}")
         self._host_opt = HostOffloadOptimizer.from_config(
             config, list(zip(self._paths, leaves)), streaming=True,
             nvme_swap_dir=(os.path.join(nvme_dir, "moments")
@@ -178,13 +205,18 @@ class ZeroInfinityEngine:
         self._host_grads = [torch.zeros(m.shape, dtype=torch.float32, pin_memory=self.cuda)
                             for m in masters]
         # one group's slice of each block leaf: its shape and its offset in
-        # the group's flat compute-type buffer
+        # the group's flat compute-type buffer, this rank's part
+        # (``_gshapes``) and whole (``_gshapes_full``)
         self._gshapes = [(gl,) + tuple(masters[i].shape[1:]) for i in self._block_idx]
         sizes = [torch.Size(s).numel() for s in self._gshapes]
         self._goffs = [sum(sizes[:j]) for j in range(len(sizes))]
         self._gnumel = sum(sizes)
+        self._gshapes_full = [(gl,) + shapes[i][1:] for i in self._block_idx]
+        full = [torch.Size(s).numel() for s in self._gshapes_full]
+        self._goffs_full = [sum(full[:j]) for j in range(len(full))]
+        self._gnumel_full = sum(full)
         self._esize = torch.empty((), dtype=self.compute_dtype).element_size()
-        self.group_bytes = self._gnumel * self._esize
+        self.group_bytes = self._gnumel_full * self._esize
 
         def pinned(n, dtype=None):
             return torch.empty(n, dtype=dtype or self.compute_dtype, pin_memory=self.cuda)
@@ -220,8 +252,13 @@ class ZeroInfinityEngine:
         # here, before any step, and its first copies wait for the work
         # queued so far (memory the allocator hands out may still be read
         # by kernels queued on the current stream)
-        self._slots = [torch.empty(self._gnumel, dtype=self.compute_dtype, device=self.device)
-                       for _ in range(2)]
+        self._slots = [torch.empty(self._gnumel_full, dtype=self.compute_dtype,
+                                   device=self.device) for _ in range(2)]
+        # across fsdp the copies land in this rank's part, gathered whole
+        # into the slot on use
+        self._part_slots = ([torch.empty(self._gnumel, dtype=self.compute_dtype,
+                                         device=self.device) for _ in range(2)]
+                            if self._masters_sharded else self._slots)
         self._live("param", 2 * self.group_bytes)  # they live as long as the engine
         self._slot_free: List[Optional[Any]] = [None, None]
         if self.cuda:
@@ -230,6 +267,8 @@ class ZeroInfinityEngine:
             self._slot_free = [ev, ev]
         self._grad_stage = [pinned(self._gnumel) for _ in range(2)]
         self._res_grad_stage = [[pinned(masters[i].shape) for i in self._res_idx] for _ in range(2)]
+        self._res_grad_f32 = ([pinned(masters[i].shape, torch.float32) for i in self._res_idx]
+                              if self.dp_world_size > 1 else None)
         self._h2d = torch.cuda.Stream(self.device) if self.cuda else None
         self._d2h = torch.cuda.Stream(self.device) if self.cuda else None
         self.reset_stats()
@@ -256,6 +295,7 @@ class ZeroInfinityEngine:
         self._train_loader = None
         log_dist(
             f"ZeRO-Infinity engine: {spec.n_layer} layers in {self.n_groups} groups of {gl}, "
+            f"mesh {self.mesh} (masters sharded over fsdp: {self._masters_sharded}), "
             f"params {zc.offload_param.device}, moments "
             f"{'nvme' if zc.offload_optimizer.device == 'nvme' else 'cpu'}, "
             f"{self.group_bytes / 2**20:.1f} MiB a group, micro_bs="
@@ -284,13 +324,75 @@ class ZeroInfinityEngine:
     def gradient_accumulation_steps(self) -> int:
         return self.config.gradient_accumulation_steps
 
-    @property
-    def params(self) -> Any:
-        """The host f32 masters as the caller's tree."""
-        return self._unflatten(list(self._host_opt.masters))
-
     def get_lr(self) -> List[float]:
         return [float(self.lr_schedule(self._host_global_step))]
+
+    @property
+    def params(self) -> Any:
+        """The host f32 masters as the caller's tree, whole (across fsdp each
+        block leaf is gathered from every rank's part: call on every
+        rank)."""
+        masters = list(self._host_opt.masters)
+        if self._masters_sharded:
+            masters = [self._gather_leaf(i, m) if i in self._cut else m
+                       for i, m in enumerate(masters)]
+        return self._unflatten(masters)
+
+    # ------------------------------------------------------------------
+    # the mesh: this rank's part of the fsdp axis
+    # ------------------------------------------------------------------
+    def _setup_mesh(self, config) -> None:
+        """The engine's ``data`` x ``fsdp`` mesh over the started process
+        group and this rank's ``fsdp`` part (the JAX engine's
+        ``_setup_host_partition``: a process holds one part here)."""
+        from deepspeed_tpu_torch.comm.mesh import MeshInfo
+        from deepspeed_tpu_torch.sharding.mesh import build_mesh
+
+        self.mesh, _ = build_mesh(config.mesh)
+        self.mesh_info = MeshInfo.from_mesh(self.mesh)
+        self.world_size, self.global_rank = self.mesh.world_size, self.mesh.rank
+        self.dp_world_size = self.mesh_info.dp_world_size
+        self._fsdp = self.mesh.sizes["fsdp"]
+        self._part = self.mesh.coords["fsdp"]
+        self._masters_sharded = self._fsdp > 1
+        if self.world_size > 1:
+            from deepspeed_tpu_torch.comm import collectives
+
+            self._host_pg = collectives.host_group()
+
+    @staticmethod
+    def _cut_dim(shape, fsdp: int) -> Optional[int]:
+        """The dimension ``fsdp`` ranks cut a stacked block leaf along (its
+        group's ``fsdp_trailing_spec``: the leading layer dimension never),
+        or None."""
+        from deepspeed_tpu_torch.sharding.layout import fsdp_trailing_spec
+
+        for d, e in enumerate(fsdp_trailing_spec(tuple(shape), fsdp)):
+            if e == "fsdp":
+                return d
+        return None
+
+    def _leaf_to_local(self, i: int, x):
+        """This rank's part of leaf ``i`` (the JAX engine's
+        ``_leaf_to_local``): a block leaf cut over fsdp, else whole."""
+        d = self._cut.get(i)
+        if d is None or not self._masters_sharded:
+            return x
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+        per = t.shape[d] // self._fsdp
+        return t.narrow(d, self._part * per, per).contiguous()
+
+    def _gather_leaf(self, i: int, part: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole from every fsdp part (host tensors; collective
+        over every rank: the parts of the ``data`` rank 0 row)."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        flat = collectives.host_all_gather(part.contiguous(), self._host_pg, kind="checkpoint")
+        parts = flat.view(self.world_size, *part.shape)
+        ranks = [r for r in range(self.world_size)
+                 if self.mesh.topology.get_coord(r).data == 0]
+        ranks.sort(key=lambda r: self.mesh.topology.get_coord(r).fsdp)
+        return torch.cat([parts[r] for r in ranks], dim=self._cut[i])
 
     def reset_stats(self) -> None:
         """Restart the counters: group uploads, bytes read from and written
@@ -385,12 +487,12 @@ class ZeroInfinityEngine:
             src = self._host_groups[g]
         self.stats["group_uploads"] += 1
         if not self.cuda:
-            self._slots[s].copy_(src)
+            self._part_slots[s].copy_(src)
             return g, None
         with torch.cuda.stream(self._h2d):
             if self._slot_free[s] is not None:
                 self._h2d.wait_event(self._slot_free[s])  # the slot's last group is done
-            self._slots[s].copy_(src, non_blocking=True)
+            self._part_slots[s].copy_(src, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record(self._h2d)
         if self._param_swapper is not None:
@@ -404,12 +506,34 @@ class ZeroInfinityEngine:
         if ready is not None:
             torch.cuda.current_stream(self.device).wait_event(ready)
         flat = self._slots[g % 2]
+        if self._masters_sharded:
+            self._assemble(self._part_slots[g % 2], flat)
         out = {}
         for j, key in enumerate(self._block_keys):
-            n = torch.Size(self._gshapes[j]).numel()
-            v = flat[self._goffs[j]:self._goffs[j] + n].view(self._gshapes[j])
+            n = torch.Size(self._gshapes_full[j]).numel()
+            v = flat[self._goffs_full[j]:self._goffs_full[j] + n].view(self._gshapes_full[j])
             out[key] = v.detach().requires_grad_(True) if requires_grad else v
         return out
+
+    @torch.no_grad()
+    def _assemble(self, part: torch.Tensor, whole: torch.Tensor) -> None:
+        """A group whole from every fsdp rank's part: one all-gather over
+        ``fsdp`` of this rank's flat part (``group-all-gather``), each leaf
+        concatenated along its cut dimension into ``whole``."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        parts = collectives.all_gather(part, self.mesh.group(("fsdp",)),
+                                       kind="group-all-gather").view(self._fsdp, -1)
+        for j, i in enumerate(self._block_idx):
+            lo, n = self._goffs[j], torch.Size(self._gshapes[j]).numel()
+            dst = whole[self._goffs_full[j]:self._goffs_full[j]
+                        + torch.Size(self._gshapes_full[j]).numel()].view(self._gshapes_full[j])
+            d = self._cut[i]
+            if d is None:
+                dst.copy_(parts[0, lo:lo + n].view(self._gshapes[j]))
+                continue
+            torch.cat([parts[f, lo:lo + n].view(self._gshapes[j]) for f in range(self._fsdp)],
+                      dim=d, out=dst)
 
     def _release_group(self, g: int) -> None:
         """Group ``g``'s compute is queued: its slot is free for the next
@@ -481,6 +605,12 @@ class ZeroInfinityEngine:
             mbatch = {k: self._to_device(v[micro * mb:(micro + 1) * mb]) for k, v in batch.items()}
             losses.append(self._micro_step(mbatch, micro == 0, phase))
         loss = torch.stack(losses).mean()
+        if self.dp_world_size > 1:
+            # the global batch's mean: every rank its own rows
+            from deepspeed_tpu_torch.comm import collectives
+
+            loss = collectives.all_reduce(loss.float().clone(), self.mesh.group(("data", "fsdp")),
+                                          kind="step-scalars") / self.dp_world_size
         phase("opt_s", self._host_step)
         return loss
 
@@ -545,12 +675,36 @@ class ZeroInfinityEngine:
         phase("drain_s", self._finish_drain, pend, first)
         phase("drain_s", self._drain_resident, d_head, d_embed, first)
         self._host_micro_step += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu
+        self.global_samples += self.train_micro_batch_size_per_gpu * self.dp_world_size
         return loss
 
+    def _reduce_group_grads(self, dgp: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A group's gradients over the data-parallel ranks (the JAX
+        engine's ``group_bwd`` out-shardings): all-reduced over ``data``,
+        reduce-scattered over ``fsdp`` to this rank's part (all-reduced
+        where nothing is cut), averaged."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        data = self.mesh.group(("data",))
+        fsdp = self.mesh.group(("fsdp",))
+        out = []
+        for j, t in enumerate(dgp):
+            t = t.contiguous()
+            if data is not None:
+                t = collectives.all_reduce(t, data, kind="group-grad-reduce")
+            if fsdp is not None:
+                d = self._cut[self._block_idx[j]]
+                t = (collectives.all_reduce(t, fsdp, kind="group-grad-reduce") if d is None else
+                     collectives.reduce_scatter(t, fsdp, dim=d, kind="group-grad-reduce"))
+            out.append(t / self.dp_world_size)
+        return out
+
     def _start_drain(self, g: int, dgp: List[torch.Tensor]):
-        """Copy group ``g``'s gradients into pinned staging ``g % 2`` on the
-        drain stream (the host adds them one group later)."""
+        """Copy group ``g``'s gradients (this rank's part, reduced over the
+        data-parallel ranks) into pinned staging ``g % 2`` on the drain
+        stream (the host adds them one group later)."""
+        if self.dp_world_size > 1:
+            dgp = self._reduce_group_grads(dgp)
         stage = self._grad_stage[g % 2]
         if not self.cuda:
             for j, t in enumerate(dgp):
@@ -585,7 +739,12 @@ class ZeroInfinityEngine:
 
     def _drain_resident(self, d_head, d_embed, first: bool) -> None:
         """The resident leaves' gradients to the host; the two of the tied
-        ``wte`` (head and embedding) summed in f32 there."""
+        ``wte`` (head and embedding) summed in f32 there (across ranks on
+        the device, then all-reduced over the data-parallel ranks and
+        averaged)."""
+        if self.dp_world_size > 1:
+            self._drain_resident_ranks(d_head, d_embed, first)
+            return
         stages = self._res_grad_stage
         with torch.no_grad():
             for s, grads in enumerate((d_head, d_embed)):
@@ -602,6 +761,48 @@ class ZeroInfinityEngine:
             else:
                 self._host_grads[i].add_(total)
 
+    @torch.no_grad()
+    def _drain_resident_ranks(self, d_head, d_embed, first: bool) -> None:
+        from deepspeed_tpu_torch.comm import collectives
+
+        dp = self.mesh.group(("data", "fsdp"))
+        for k, i in enumerate(self._res_idx):
+            parts = [t[k].float() for t in (d_head, d_embed) if t[k] is not None]
+            total = parts[0] if len(parts) == 1 else parts[0] + parts[1]
+            total = collectives.all_reduce(total.contiguous(), dp, kind="group-grad-reduce")
+            self._res_grad_f32[k].copy_(total / self.dp_world_size)
+            if first:
+                self._host_grads[i].copy_(self._res_grad_f32[k])
+            else:
+                self._host_grads[i].add_(self._res_grad_f32[k])
+
+    def _clip_and_check_ranks(self) -> Tuple[float, bool]:
+        """The global norm and overflow over the ranks' parts (the JAX
+        engine's ``_clip_and_check_global``): each fsdp part's squares
+        summed once, by the ``data`` rank 0 of its fsdp rank, the whole
+        leaves' by rank 0, in f64; one all-reduce of ``[sq, overflow]``;
+        then every rank clips by the global norm."""
+        from deepspeed_tpu_torch.comm import collectives
+
+        data0 = self.mesh.coords["data"] == 0
+        sq, overflow = 0.0, False
+        for i, g in enumerate(self._host_grads):
+            if not bool(torch.isfinite(g).all()):
+                overflow = True
+            mine = data0 if (self._masters_sharded and self._cut.get(i) is not None) \
+                else self.global_rank == 0
+            if mine:
+                sq += sum_squares_f64(g)
+        vec = torch.tensor([sq, 1.0 if overflow else 0.0], dtype=torch.float64)
+        vec = collectives.all_reduce(vec, self._host_pg, kind="offload-host-sync")
+        norm, overflow = math.sqrt(float(vec[0])), bool(vec[1] > 0)
+        clip = self.config.gradient_clipping
+        if clip > 0.0 and math.isfinite(norm) and norm > clip:
+            factor = clip / (norm + 1e-6)
+            for g in self._host_grads:
+                g.mul_(factor)
+        return norm, overflow
+
     def _host_step(self) -> None:
         """The boundary on the host: average, check and clip, the host Adam
         (the groups refreshed as their rows land), the resident leaves
@@ -611,8 +812,11 @@ class ZeroInfinityEngine:
             self._h2d.synchronize()  # no upload still reads a host group buffer
         for g in self._host_grads:
             g.div_(gas)
-        _, grad_norm, overflow = host_unscale_clip_and_check(
-            self._host_grads, 1.0, self.config.gradient_clipping)
+        if self.world_size > 1:
+            grad_norm, overflow = self._clip_and_check_ranks()
+        else:
+            _, grad_norm, overflow = host_unscale_clip_and_check(
+                self._host_grads, 1.0, self.config.gradient_clipping)
         lr = float(self.lr_schedule(self._host_global_step))
         G, gl = self.n_groups, self.group_layers
         if not overflow:
@@ -660,12 +864,83 @@ class ZeroInfinityEngine:
             self._param_swapper.synchronize_writes()
         self._push_resident()
 
+    def _rank_files(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Across fsdp, this rank's masters and moments (its parts of the
+        block leaves, the resident leaves whole), ``master/ m/ v/`` by path,
+        in its own file beside ``state.pt`` (host copies)."""
+        if not self._masters_sharded:
+            return {}
+        return {f"host_optimizer_rank{self.global_rank}.pt":
+                {k: t.detach().clone() for k, t in self._host_opt.state_dict().items()}}
+
+    def _meta_extras(self) -> Dict[str, Any]:
+        return {"engine": "zero_infinity_param_offload", "masters_sharded": self._masters_sharded,
+                "process_count": self.world_size, "fsdp": self._fsdp,
+                "fsdp_part_of_rank": [self.mesh.topology.get_coord(r).fsdp
+                                      for r in range(self.world_size)]}
+
+    def _whole_host_state(self, path: str, meta: Dict[str, Any],
+                          restored: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The tag's masters and moments whole, ``master/ m/ v/`` by path
+        (the JAX engine's ``_reassemble_host_state``): a one-rank tag's from
+        its ``state.pt``; a tag sharded over fsdp from every saved part's
+        file (the first rank of each part), each block leaf concatenated
+        along the saving mesh's cut dimension."""
+        if not meta.get("masters_sharded", False):
+            out = {}
+            for k in self._paths:
+                out[f"master/{k}"] = restored[f"params/{k}"]
+                for x in ("m", "v"):
+                    name = f"host_optimizer/{x}/{k}"
+                    if name in restored:
+                        out[f"{x}/{k}"] = restored[name]
+            return out
+        F, parts = int(meta["fsdp"]), list(meta["fsdp_part_of_rank"])
+        files = []
+        for f in range(F):
+            name = os.path.join(path, "state", f"host_optimizer_rank{parts.index(f)}.pt")
+            if not os.path.exists(name):
+                raise ValueError(
+                    f"ZeRO-Infinity checkpoint {path} was saved with its masters sharded over "
+                    f"fsdp {F}; part {f}'s file {os.path.basename(name)} is missing, so the "
+                    "fsdp axis cannot be resharded")
+            files.append(torch.load(name, map_location="cpu", weights_only=True, mmap=True))
+        out = {}
+        prefix = f"{self.spec.blocks_key}/"
+        for name in files[0]:
+            k = name.split("/", 1)[1]
+            d = (self._cut_dim(self._full_shapes[self._paths.index(k)], F)
+                 if k.startswith(prefix) else None)
+            out[name] = (files[0][name] if d is None
+                         else torch.cat([fl[name] for fl in files], dim=d))
+        return out
+
+    def _restore_host(self, path: str, meta: Dict[str, Any], restored: Dict[str, torch.Tensor],
+                      moments: bool) -> None:
+        """Restore the masters (and, with ``moments``, the moments) from a
+        tag of any fsdp size: reassembled whole, then cut to this rank's
+        parts; moments the tag does not hold are reset, with a warning."""
+        whole = self._whole_host_state(path, meta, restored)
+        local = {n: self._leaf_to_local(self._paths.index(n.split("/", 1)[1]), t).contiguous()
+                 for n, t in whole.items()}
+        if moments and all(f"m/{k}" in local for k in self._paths):
+            self._host_opt.load_state_dict(local)
+            return
+        if moments:
+            logger.warning(f"host optimizer state not found in {path}: the f32 masters are "
+                           "rebuilt from its parameters and the Adam moments are being RESET")
+        self._host_opt.load_masters([local[f"master/{k}"] for k in self._paths])
+        if moments:
+            self._host_opt.reset_moments()
+
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                         client_state: Optional[dict] = None, save_latest: bool = True,
                         async_save: Optional[bool] = None):
         """One tag under the port's commit protocol
-        (``runtime/checkpointing.py``): the host masters as ``params/``,
-        the moments under ``host_optimizer/``."""
+        (``runtime/checkpointing.py``): on one rank the host masters as
+        ``params/`` and the moments under ``host_optimizer/`` in
+        ``state.pt``; across fsdp each rank's in its own file
+        (:meth:`_rank_files`).  Collective across ranks."""
         from deepspeed_tpu_torch.runtime.checkpointing import save_checkpoint as _save
 
         return _save(self, save_dir, tag=tag, client_state=client_state,

@@ -11,9 +11,11 @@ host)::
 
 It imports torch and the port only.  The spec::
 
-    {"device": "cpu" | "cuda", "init_method": null, "deterministic": true,
+    {"device": "cpu" | "cuda", "backend": null | "gloo" | "nccl",
+     "init_method": null, "deterministic": true,
      "threads": 1, "out": "<dir>", "collectives_check": false,
      "tp_ops_check": false, "seq_attention_check": null | "<npz: q, k, v, do>",
+     "compressed_check": null | "<npz: x, werr, serr, each (n, M)>",
      "cases": [{"name": "s2", "model": "gpt2" | "bert", "preset": "tiny",
                 "model_cfg": {...}, "init_seed": 3, "config": {...},
                 "batches": "<npz: key -> (steps, global batch, ...)>"
@@ -21,6 +23,8 @@ It imports torch and the port only.  The spec::
                 "steps": 3, "first_batch": 0, "load": {"dir": ..., "tag": ...},
                 "save": {"dir": ..., "tag": ..., "after": 2 (0: before any step)},
                 "sigterm": {"rank": 0, "after": 1},
+                "reload": {"dir": ..., "tag": ..., "after": 3},
+                "record_step": null | 1, "profile_step": null | 2,
                 "record": "full" | "digest" | "none"}]}
 
 Each rank trains on its own rows of every global batch (micro-batch
@@ -38,10 +42,21 @@ name; ``record: digest`` writes a sha256 of each instead, ``none``
 nothing.  A case with
 ``load`` restores the tag before training (``steps: 0`` records the
 loaded state as it is); ``sigterm`` sends SIGTERM to one rank after a
-step (with ``resilience.watchdog`` on, every rank saves and exits 43).
+step (with ``resilience.watchdog`` on, every rank saves and exits 43);
+``reload`` restores a tag into the same engine after a step (a
+rollback); ``record_step`` records the state after that step instead of
+at the end; ``profile_step`` runs that step under ``torch.profiler`` on
+the card (each rank's kernels' busy time and idle share of the step's
+window).  The JSON also notes ``onebit_frozen`` (a 1-bit optimizer's
+compressed phase) and ``global_steps`` at the end, and by rank: the
+kernels launched, the offload engines' host master bytes and the
+process's peak resident host bytes.  ``backend`` ``gloo`` with ``device``
+``cuda`` runs ranks that share one card (CUDA tensors staged through
+pinned host memory where gloo needs it).
 ``collectives_check`` first runs
 :func:`check_collectives` and writes ``<out>/collectives.json``;
-``tp_ops_check`` runs :func:`check_tp_ops` and writes
+``compressed_check`` runs :func:`check_compressed` and writes
+``<out>/compressed.npz``; ``tp_ops_check`` runs :func:`check_tp_ops` and writes
 ``<out>/tp_ops.json``; ``seq_attention_check`` runs
 :func:`check_seq_attention` and writes ``<out>/seq_attention.npz``.
 """
@@ -72,6 +87,21 @@ def _model(case):
     return cfg, model_fn, init_fn, tp_fn, hooks
 
 
+_PARAMS: dict = {}
+
+
+def _init_params(case, init_fn):
+    """The case's initial parameters, drawn once for every case of the
+    spec with the same model and seed (the engines copy them; none writes
+    to them)."""
+    key = json.dumps([case.get("model", "gpt2"), case.get("preset", "tiny"),
+                      case.get("model_cfg", {}), int(case.get("init_seed", 0))], sort_keys=True)
+    if key not in _PARAMS:
+        _PARAMS.clear()  # one model's parameters held at a time
+        _PARAMS[key] = init_fn(seed=int(case.get("init_seed", 0)))
+    return _PARAMS[key]
+
+
 def _batches(case, cfg, global_rows: int):
     steps, first = int(case.get("steps", 1)), int(case.get("first_batch", 0))
     if "batches" in case:
@@ -95,10 +125,72 @@ def _rank_rows(batch, engine):
     return {k: v[rows] for k, v in batch.items()}
 
 
-def _record(engine):
-    from deepspeed_tpu_torch.runtime.checkpointing import _state_tensors
+def _resident_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
 
-    return {n: t.detach().cpu() for n, t in _state_tensors(engine).items()}
+
+class HostPeak:
+    """This process's peak resident host memory while the context runs
+    (``VmRSS`` sampled every ``interval`` seconds on a thread:
+    ``peak_bytes``).  Not ``getrusage``'s ``ru_maxrss``, which carries the
+    forking parent's peak across the ``exec``, nor ``VmHWM``, which some
+    kernels do not report."""
+
+    def __init__(self, interval: float = 0.05):
+        import threading
+
+        self.interval = interval
+        self.peak_bytes = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while True:
+            self.peak_bytes = max(self.peak_bytes, _resident_bytes())
+            if self._stop.wait(self.interval):
+                return
+
+    def __enter__(self) -> "HostPeak":
+        self.peak_bytes = _resident_bytes()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak_bytes = max(self.peak_bytes, _resident_bytes())
+
+
+def _record(engine):
+    """Every tensor of the engine's state by checkpoint name, whole (the
+    streaming engine: its masters, gathered whole; collective)."""
+    from deepspeed_tpu_torch.runtime.checkpointing import _state_tensors
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+
+    # copies: an offload engine's host tensors are live (a later step
+    # updates them in place)
+    if hasattr(engine, "_restore_host"):
+        return {f"params/{k}": t.detach().to("cpu", copy=True)
+                for k, t in tree_items(engine.params)}
+    return {n: t.detach().to("cpu", copy=True) for n, t in _state_tensors(engine).items()}
+
+
+def _host_bytes(engine):
+    """The f32 master bytes this rank's host optimizer(s) own (offload
+    engines), by kind: all, and the streaming engine's block leaves."""
+    opts = getattr(engine, "_host_opts", None) or ([engine._host_opt]
+                                                   if getattr(engine, "_host_opt", None) else [])
+    if not opts:
+        return None
+    out = {"masters": sum(m.numel() * 4 for o in opts for m in o.masters)}
+    blocks = getattr(engine, "_block_idx", None)
+    if blocks is not None:
+        out["block_masters"] = sum(opts[0].masters[i].numel() * 4 for i in blocks)
+    return out
 
 
 def _digest(t: torch.Tensor) -> str:
@@ -114,6 +206,8 @@ def _replicas(engine):
     from deepspeed_tpu_torch.sharding.spec import entry_axes
 
     out = {}
+    if not hasattr(engine, "layout"):  # the streaming engine keeps no device masters
+        return out
     for i, p in enumerate(engine._params):
         leaf = engine.layout.leaves[i]
         cut = sorted({a for e in leaf.param_spec for a in entry_axes(e)
@@ -136,6 +230,11 @@ def _replicas_equal(per_rank):
 
 
 def run_case(case, device, out_dir, rank):
+    with HostPeak() as host_peak:
+        _run_case(case, device, out_dir, rank, host_peak)
+
+
+def _run_case(case, device, out_dir, rank, host_peak):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.comm import collectives
     from deepspeed_tpu_torch.ops import kernels
@@ -144,7 +243,7 @@ def run_case(case, device, out_dir, rank):
     mesh = case["config"].get("mesh", {})
     tp = int(mesh.get("model", 1)) > 1 or int(mesh.get("expert", 1)) > 1
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=model_fn, model_parameters=init_fn(seed=int(case.get("init_seed", 0))),
+        model=model_fn, model_parameters=_init_params(case, init_fn),
         config=case["config"], device=device, tp_spec_fn=tp_fn if tp else None, **hooks)
     if "load" in case:
         engine.load_checkpoint(case["load"]["dir"], tag=case["load"].get("tag"))
@@ -155,24 +254,48 @@ def run_case(case, device, out_dir, rank):
     if cuda:
         torch.cuda.reset_peak_memory_stats(engine.device)
     losses, comm, ms = [], [], []
+    reload_phase = None
     kernels.reset_launches()
     save = case.get("save")
     if save is not None and int(save.get("after", -1)) == 0:  # the initial state
         engine.save_checkpoint(save["dir"], tag=save.get("tag"))
+    record_step = case.get("record_step")
+    profile_step = case.get("profile_step")
+    stepped, profile = None, None
     for s, batch in enumerate(batches):
         local = _rank_rows(batch, engine)
         collectives.reset_counts()
         if cuda:
             torch.cuda.synchronize(engine.device)
+        prof = None
+        if profile_step is not None and s + 1 == int(profile_step) and cuda:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
         t0 = time.perf_counter()
         loss = engine.train_batch(local)
         if cuda:
             torch.cuda.synchronize(engine.device)
         ms.append((time.perf_counter() - t0) * 1e3)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            from deepspeed_tpu_torch.tools.profile_serving import profile_summary
+
+            summ = profile_summary(prof)
+            profile = {k: summ[k] for k in ("window_ms", "device_busy_ms", "device_idle_share",
+                                            "kernel_events")}
+        if record_step is not None and s + 1 == int(record_step):
+            stepped = _record(engine)
         comm.append(collectives.counts())
         losses.append(float(loss))
         if save is not None and s + 1 == int(save.get("after", len(batches))):
             engine.save_checkpoint(save["dir"], tag=save.get("tag"))
+        reload = case.get("reload")
+        if reload is not None and s + 1 == int(reload["after"]):
+            # a restore into this engine mid-run (a rollback)
+            engine.load_checkpoint(reload["dir"], tag=reload.get("tag"))
+            reload_phase = {"onebit_frozen": bool(getattr(engine, "_onebit_frozen", False)),
+                            "global_steps": int(engine.global_steps)}
         term = case.get("sigterm")
         if term is not None and rank == int(term["rank"]) and s + 1 == int(term["after"]):
             # a preemption on one rank: the next step boundary is every
@@ -180,11 +303,19 @@ def run_case(case, device, out_dir, rank):
             os.kill(os.getpid(), signal.SIGTERM)
     launches, variants = kernels.launches(), kernels.launch_variants()
     record = case.get("record", "full")
-    state = _record(engine) if record != "none" else {}
+    state = stepped if stepped is not None else (_record(engine) if record != "none" else {})
     peak = int(torch.cuda.max_memory_allocated(engine.device)) if cuda else None
     dist_on = torch.distributed.is_initialized()
     peaks = collectives.host_allgather(peak) if dist_on else [peak]
+    mine = {"host_bytes": _host_bytes(engine), "launches": launches, "profile": profile,
+            "host_peak_bytes": host_peak.peak_bytes}
+    by_rank = collectives.host_allgather(mine) if dist_on else [mine]
+    host = [r["host_bytes"] for r in by_rank]
+    timing = (engine.offload_breakdown if getattr(engine, "_host_opt", None) is not None
+              and hasattr(engine, "offload_breakdown") else None)
     replicas = collectives.host_allgather(_replicas(engine)) if dist_on else [_replicas(engine)]
+    phase = {"onebit_frozen": bool(getattr(engine, "_onebit_frozen", False)),
+             "global_steps": int(engine.global_steps), "reload_phase": reload_phase}
     if rank != 0:
         return
     # the activations' bytes at the micro-batch's shape (none without a step)
@@ -192,16 +323,22 @@ def run_case(case, device, out_dir, rank):
              {"rows": engine.train_micro_batch_size_per_gpu,
               "seq_len": int(batches[-1]["input_ids"].shape[-1]),
               "labels_given": "labels" in batches[-1]})
-    summary = engine.comm_summary(**shape)
+    summary = engine.comm_summary(**shape) if hasattr(engine, "comm_summary") else {}
     result = {
         "name": case["name"], "losses": losses, "comm": comm, "ms": ms,
         "world_size": engine.world_size, "mesh": engine.mesh.sizes,
-        "model": summary["model"], "extras": summary["extras"], "table": summary["table"],
+        "model": summary.get("model"), "extras": summary.get("extras"),
+        "table": summary.get("table"),
         "parallel": summary.get("parallel"), "replicas_equal": _replicas_equal(replicas),
-        "n_params": engine._comm_n_params, "launches": launches, "variants": variants,
+        "n_params": getattr(engine, "_comm_n_params", None), "launches": launches,
+        "variants": variants, "host_bytes_by_rank": host,
+        "launches_by_rank": [r["launches"] for r in by_rank],
+        "profile_by_rank": [r["profile"] for r in by_rank],
+        "host_peak_bytes_by_rank": [r["host_peak_bytes"] for r in by_rank],
+        "offload_breakdown": timing() if timing is not None else None,
         "backend": (torch.distributed.get_backend() if torch.distributed.is_initialized()
                     else None),
-        "peak_bytes": peak, "peak_bytes_by_rank": peaks,
+        "peak_bytes": peak, "peak_bytes_by_rank": peaks, **phase,
     }
     if record == "digest":
         result["digests"] = {n: _digest(t) for n, t in state.items()}
@@ -277,6 +414,52 @@ def check_collectives(device, out_dir, rank) -> None:
         with open(os.path.join(out_dir, "collectives.json"), "w") as f:
             json.dump({"backend": dist.get_backend(), "world_size": world, "rows": rows,
                        "ok": all(r["ok"] for r in rows)}, f)
+
+
+def check_compressed(inputs, device, out_dir, rank) -> None:
+    """The compressed exchanges of ``comm/compressed.py`` and
+    ``comm/collectives.py`` on the started group, on every rank's row of
+    the ``(n, M)`` rows of ``inputs`` (an npz: ``x``, ``werr``, ``serr``):
+    the 1-bit exchange (average and new residuals), the int8 all-reduce
+    with nearest rounding, and the dense mean, each gathered whole, with
+    the bytes each rank counted.  Rank 0 writes
+    ``<out>/compressed.npz`` (the caller holds them to the ``*_rows``
+    plain versions)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.comm import collectives, compressed
+
+    pg = dist.group.WORLD
+    dev = torch.device(device, torch.cuda.current_device()) if device == "cuda" else torch.device(device)
+    with np.load(inputs) as z:
+        x, werr, serr = (torch.from_numpy(z[k][rank]).to(dev) for k in ("x", "werr", "serr"))
+    out = {}
+    collectives.reset_counts()
+    avg, w, e = compressed.compressed_allreduce(x, werr, serr, pg)
+    out["onebit_bytes"] = np.asarray(collectives.counts().get("grad-exchange", 0))
+    collectives.reset_counts()
+    q = collectives.quantized_allreduce(x, pg)
+    out["int8_bytes"] = np.asarray(collectives.counts().get("grad-exchange", 0))
+    d = collectives.dense_allreduce(x, pg)
+    for key, t in (("onebit", avg), ("int8", q), ("dense", d)):
+        out[key] = t.float().cpu().numpy()
+    for key, t in (("werr", w), ("serr", e)):
+        out[key] = collectives.all_gather(t[None].contiguous(), pg, kind="check").cpu().numpy()
+    # 1-bit Adam's variance-sharded frozen layout: its wire bytes by kind
+    from deepspeed_tpu_torch.runtime.fp16.onebit.adam import OnebitAdam
+
+    n = dist.get_world_size()
+    signs, scales = compressed.compress_chunks(x * 1e-2, n)
+    chunk = x.numel() // n
+    collectives.reset_counts()
+    p_full, *_ = OnebitAdam(lr=1e-2, freeze_step=1).frozen_apply_vsharded(
+        x, signs, scales, x[rank * chunk:(rank + 1) * chunk].abs(),
+        x[rank * chunk:(rank + 1) * chunk].clone(), werr, serr, 1e-2, group=pg)
+    out["vsharded_bytes"] = np.asarray([collectives.counts().get("grad-exchange", 0),
+                                        collectives.counts().get("vsharded-param-all-gather", 0)])
+    out["vsharded_p_full"] = p_full.float().cpu().numpy()
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "compressed.npz"), **out)
 
 
 def check_tp_ops(device, out_dir, rank) -> None:
@@ -404,12 +587,15 @@ def main(argv=None) -> int:
     from deepspeed_tpu_torch.comm import distributed
 
     device = spec.get("device", "cpu")
-    if not distributed.init_distributed(init_method=spec.get("init_method"), device=device):
+    if not distributed.init_distributed(dist_backend=spec.get("backend"),
+                                        init_method=spec.get("init_method"), device=device):
         raise SystemExit("zero_worker: no launcher environment (RANK, WORLD_SIZE)")
     os.makedirs(spec["out"], exist_ok=True)
     try:
         if spec.get("collectives_check"):
             check_collectives(device, spec["out"], distributed.get_rank())
+        if spec.get("compressed_check"):
+            check_compressed(spec["compressed_check"], device, spec["out"], distributed.get_rank())
         if spec.get("tp_ops_check"):
             check_tp_ops(device, spec["out"], distributed.get_rank())
         if spec.get("seq_attention_check"):

@@ -108,13 +108,13 @@ def test_same_dict_gives_same_rejection(d):
     ({"sanitizer": {"enabled": True}}, "A15"),
     ({"progressive_layer_drop": {"enabled": True}}, "A13"),
 ])
-def test_not_ported_blocks_raise_naming_their_item(d, item, monkeypatch):
+def test_not_ported_blocks_raise_naming_their_item(d, item, monkeypatch, tmp_path):
     d = {"train_batch_size": 8, **d}
     j = JConfig(d, world_size=1)  # the JAX package takes it
     if item == "A12":
-        # offload is ported for one rank: the blocks parse to the JAX
-        # package's values, and offload across ranks (here the JAX
-        # package's DS_OFFLOAD_SHARDS) raises naming A12
+        # offload is ported, across ranks too: the blocks parse to the JAX
+        # package's values, and with the JAX package's DS_OFFLOAD_SHARDS
+        # (its simulated hosts) initialize builds the engine, naming no item
         import dataclasses
 
         import deepspeed_tpu_torch
@@ -126,11 +126,17 @@ def test_not_ported_blocks_raise_naming_their_item(d, item, monkeypatch):
                     == dataclasses.asdict(getattr(j.zero_config, part)))
         assert dataclasses.asdict(t.aio) == dataclasses.asdict(j.aio)
         monkeypatch.setenv("DS_OFFLOAD_SHARDS", "2")
-        zero = d.get("zero_optimization", {"offload_optimizer": {"device": "cpu"}})
+        zero = dict(d.get("zero_optimization", {"offload_optimizer": {"device": "cpu"}}))
+        if "offload_param" in zero:
+            zero["offload_param"] = {**zero["offload_param"], "nvme_path": str(tmp_path)}
         model_fn, init_fn, _ = tgpt2.make_model(tgpt2.GPT2_TINY)
-        with pytest.raises(NotImplementedError, match="A12 \\(offload across ranks\\)"):
-            deepspeed_tpu_torch.initialize(model=model_fn, model_parameters=init_fn(),
-                                           config={**d, "zero_optimization": zero}, device="cpu")
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=model_fn, model_parameters=init_fn(), config={**d, "zero_optimization": zero},
+            device="cpu")
+        if "offload_optimizer" in zero:
+            assert eng._offload_shards == 2 and len(eng._host_opts) == 2
+        else:  # the stream's parts follow the fsdp axis, not the variable
+            assert type(eng).__name__ == "ZeroInfinityEngine" and not eng._masters_sharded
         return
     with pytest.raises(NotImplementedError, match=item):
         TConfig(d)
@@ -319,12 +325,20 @@ def test_lamb_block_builds_the_jax_packages_optimizer(params):
 
 
 def test_onebit_lamb_still_raises_naming_a13():
+    """OneBitLamb builds from the JAX package's config (its fields
+    equal); what still raises naming A13 is 1-bit under ZeRO stage >= 1."""
     import numpy as np
 
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.fp16.onebit.lamb import OnebitLamb
 
-    d = {"train_batch_size": 8, "optimizer": {"type": "OneBitLamb", "params": {"lr": 1e-3}}}
+    d = {"train_batch_size": 8, "optimizer": {"type": "OneBitLamb",
+                                              "params": {"lr": 1e-3, "freeze_step": 4}}}
     JConfig(d, world_size=1)  # the JAX package takes it
+    eng = DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
+                          config=TConfig(d), device="cpu")
+    assert isinstance(eng.optimizer, OnebitLamb) and eng.optimizer.freeze_step == 4
+    d["zero_optimization"] = {"stage": 1}
     with pytest.raises(NotImplementedError, match="A13"):
         DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
                         config=TConfig(d), device="cpu")

@@ -363,7 +363,6 @@ def test_non_offload_tag_loads_into_offload_engine(tmp_path, monkeypatch):
 
 def test_offload_refusals(monkeypatch):
     from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
-    from deepspeed_tpu_torch.runtime.zero.offload import refuse_across_ranks
 
     model_fn, init_fn, _ = tgpt2.make_model(tgpt2.GPT2_TINY)
     with pytest.raises(ValueError, match="client optimizer"):
@@ -372,11 +371,13 @@ def test_offload_refusals(monkeypatch):
                                        optimizer=FusedAdam(lr=1e-3), device="cpu")
     with pytest.raises(ValueError, match="Adam/AdamW"):
         _port(_config({"device": "cpu"}, optimizer="Lamb"))
-    with pytest.raises(NotImplementedError, match="A12 \\(offload across ranks\\)"):
-        refuse_across_ranks(2, "offload_optimizer")
+    # DS_OFFLOAD_SHARDS (the JAX package's simulated hosts) is accepted:
+    # two flat slices, each half of the padded masters
     monkeypatch.setenv("DS_OFFLOAD_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="A12 \\(offload across ranks\\)"):
-        _port(_config({"device": "cpu"}))
+    two = _port(_config({"device": "cpu"}))
+    assert two._offload_shards == 2 and len(two._host_opts) == 2
+    n = sum(m.numel() for m in two._masters_full)
+    assert two.host_master_bytes() == 4 * (n + n % 2)
     monkeypatch.delenv("DS_OFFLOAD_SHARDS")
     with pytest.raises(ValueError, match="nvme_path"):
         _port(_config({"device": "nvme"}))

@@ -250,6 +250,19 @@ def test_unstreamable_offload_param_falls_back_when_it_fits(monkeypatch):
 
 
 def test_offload_param_across_ranks_raises(monkeypatch):
+    """Across ranks the stream is ported (its parts follow the fsdp axis;
+    ``DS_OFFLOAD_SHARDS`` in one process streams as one rank, as in the JAX
+    package); what still raises is a ``model`` axis (the engine itself,
+    whatever ``initialize`` would fall back to), and MoE blocks and fp16."""
+    from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+
     monkeypatch.setenv("DS_OFFLOAD_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="A12 \\(offload across ranks\\)"):
-        _port(_config(_stream()))
+    e = _port(_config(_stream()))
+    assert isinstance(e, ZeroInfinityEngine) and not e._masters_sharded
+    model_fn, init_fn, _ = tgpt2.make_model(TCFG)
+    with pytest.raises(NotImplementedError, match="model \\(TP\\)"):
+        ZeroInfinityEngine(model=model_fn, params=init_fn(), device="cpu",
+                           config=DeepSpeedConfig({**_config(_stream()), "mesh": {"model": 2}}))
+    with pytest.raises(NotImplementedError, match="requires bf16"):
+        ZeroInfinityEngine(model=model_fn, params=init_fn(), device="cpu",
+                           config=DeepSpeedConfig(_config(_stream(), fp16=True)))

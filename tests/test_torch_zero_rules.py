@@ -287,7 +287,8 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
     ({"zero_optimization": {"param_persistence_threshold": 1,
                             "stage3_param_persistence_threshold": 2}}, "error", None),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload", "A12"),
-    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "offload", "A12"),
+    ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "offload",
+     "A12's remainder"),
     ({"mesh": {"model": 2}}, "parse", None),
     ({"mesh": {"seq": 2}}, "parse", None),
     ({"mesh": {"pipe": 2}}, "parse", None),
@@ -303,19 +304,26 @@ def test_config_refusals(d, exc, match):
     ROADMAP item.  A ``model``, ``seq``, ``pipe`` or ``expert`` axis
     parses in both, alike (each runs since it was ported); so do the
     offload blocks (``cpu_offload`` as ``offload_optimizer: {device:
-    cpu}``), which the engine refuses across ranks only, naming A12."""
+    cpu}``), which the engine runs across the data-parallel grid and
+    refuses under a model, seq or expert axis only, naming A12's
+    remainder."""
     d = {"train_batch_size": 8, **d}
     if exc == "offload":
-        from deepspeed_tpu_torch.runtime.zero.offload import refuse_across_ranks
+        from deepspeed_tpu_torch.comm.mesh import Mesh
+        from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
         t, j = tconfig.DeepSpeedConfig(d), jconfig.DeepSpeedConfig(d, world_size=1)
         assert (dataclasses.asdict(t.zero_config.offload_optimizer)
                 == dataclasses.asdict(j.zero_config.offload_optimizer))
         assert t.zero_config.offload_optimizer.device == "cpu"
         assert t.zero_config.cpu_offload == j.zero_config.cpu_offload
-        refuse_across_ranks(1, "offload_optimizer")  # one rank: runs
+        model = lambda p, b, g: p["w"].sum()  # noqa: E731
+        params = {"w": np.ones(4, np.float32)}
+        one = DeepSpeedEngine(model=model, params=params, config=t, device="cpu")  # one rank: runs
+        assert one._host_opt is not None and one._offload_shards == 1
         with pytest.raises(NotImplementedError, match=match):
-            refuse_across_ranks(2, "offload_optimizer")
+            DeepSpeedEngine(model=model, params=params, config=t, device="cpu",
+                            mesh=Mesh({"seq": 2}))
         return
     if exc == "parse":
         j = jconfig.DeepSpeedConfig(d, world_size=1).mesh
@@ -384,21 +392,36 @@ def test_rank_blocks_match_jax_named_sharding(sizes):
 
 
 @pytest.mark.parametrize("strategy", ["int8", "onebit", "auto"])
-def test_a_compressed_exchange_raises_naming_a13(strategy):
+def test_a_compressed_exchange_raises_naming_a13(strategy, monkeypatch):
     """Across ranks the comm layer records its decision as the JAX one
-    does; a compressed pick raises (ROADMAP A13), dense and one rank do
-    not."""
+    does, and a compressed pick now runs (``exchange_rows``); what still
+    raises naming A13 is a compressed exchange under a ``seq`` axis (or
+    ZeRO stage 3), which the JAX package composes under GSPMD.  Dense and
+    one rank stay dense."""
+    import jax.numpy as jnp
     import torch
 
-    from deepspeed_tpu_torch.comm.mesh import MeshInfo
+    from deepspeed_tpu.comm import strategy as jstrategy
+    from deepspeed_tpu.config import config as jconf
+    from deepspeed_tpu_torch.comm.mesh import Mesh, MeshInfo
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
     two = MeshInfo({"data": 2, "fsdp": 1})
     layer = tstrategy.CommLayer(None, two, tconfig.CommConfig(strategy=strategy))
-    with pytest.raises(NotImplementedError, match="A13"):
-        layer.select(4 * 10**8, torch.float32, ("data", "fsdp"), site="grad-exchange")
-    assert layer.table()["grad-exchange"][0] in ("int8", "onebit")
+    want = layer.select(4 * 10**8, torch.float32, ("data", "fsdp"), site="grad-exchange")
+    jd = jstrategy.select_strategy(jconf.CommConfig(strategy=strategy), 4 * 10**8, jnp.float32, 2)
+    assert want == jd.strategy and want in ("int8", "onebit")
+    assert layer.table()["grad-exchange"] == (jd.strategy, jd.reason)
     one = tstrategy.CommLayer(None, MeshInfo({"data": 1}), tconfig.CommConfig(strategy=strategy))
     assert one.select(4 * 10**8, torch.float32, ("data", "fsdp"), site="grad-exchange") == "dense"
     dense = tstrategy.CommLayer(None, two, tconfig.CommConfig(strategy="dense"))
     assert dense.select(4 * 10**8, torch.float32, ("data", "fsdp"), site="g") == "dense"
     assert dense.table() == {"g": ("dense", "comm.strategy = dense")}
+    # an engine of rank 0 of {data 2, seq 2}, its groups not built (no
+    # process group here): the refusal comes before any collective
+    monkeypatch.setattr(Mesh, "ensure_groups", lambda self, axis_sets: None)
+    cfg = tconfig.DeepSpeedConfig({"train_batch_size": 4, "mesh": {"data": 2, "seq": 2},
+                                   "comm": {"strategy": strategy, "threshold_bytes": 0}})
+    with pytest.raises(NotImplementedError, match="A13"):
+        DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(8, np.float32)},
+                        config=cfg, device="cpu", mesh=Mesh({"data": 2, "seq": 2}))
