@@ -172,7 +172,7 @@ Phases, each printing one JSON line:
    children (``serving_resilience``).  Then ``serve_fleet_bf16``:
    ``tools/fleet_chaos.py``, GPT-2 124M bf16 replicas in child processes
    behind one ``FleetRouter`` over the framed stdio transport: three
-   slot-pool replicas, 24 requests, one replica killed mid-decode (rc -9,
+   slot-pool replicas, 18 requests, one replica killed mid-decode (rc -9,
    zero acknowledged loss, the restart replays the journal's incomplete
    set); then an elastic fleet: a burst scales up off the warm pool,
    sessions park, a victim dies inside ``migrate.export`` (rc -9), clean
@@ -345,7 +345,32 @@ Phases, each printing one JSON line:
    the card within ONEBIT_ROWS_ATOL of the plain rows functions.
    Phases 23-26 print ms a step, each rank's profiled step (its kernels'
    busy share of the step's window) and host and device peaks.
-27. ``kernels``: one entry per kernel with its launches on each main path
+27. ``train_large_q8_bf16``: the JAX package's ``q8`` recipe
+   (``tools/sweep_774m.py``) on GPT-2 774M at full width and depth (36
+   layers, drawn on the card from seed 0), micro 4 x T 1024,
+   ``xent_chunk_size`` 512, AdamW, bf16 over f32 masters, 3 steps a run:
+   (a) f32 Adam state under ``nothing_saveable``, (b)
+   ``state_precision="8bit"`` under ``remat_save_names=SAVE_FLASH``.  (b)'s
+   first loss (a)'s bits, its step-1 masters within LARGE_STEP1_BOUND *
+   (|p| + lr) of (a)'s, later losses within LARGE_LOSS_RTOL; B1 36 launches
+   a micro-step in (b) (the recompute takes the kept output and lse)
+   against 72 in (a), B2 36 in both; B3 in (a) only (the reduced state's
+   update is plain torch, as the JAX package's is XLA); (b)'s state bytes
+   the count ``_v_blocks`` gives (~3 B a parameter against 8) and its peak
+   below (a)'s; ms a step and the update's ms a step (CUDA events).
+28. ``train_extras_bf16``: train_bf16's model, config and batch, 3 steps a
+   run: (c) bf16 Adam state (losses within EXTRAS_BF16_LOSS_RTOL of
+   train_bf16's, the first its bits); (d) progressive layer drop (theta
+   0.5, gamma 0.001, hidden dropout 0.1): theta the host formula's, B1
+   launches twice and B2 once a kept block, and one forward at theta 0.5
+   skipping blocks (B1 once a kept block); (e) MoQ 16 -> 8 bits from step
+   1 after an eigenvalue probe (10 iterations at most, micro 1 x T 256,
+   plain attention) scales its period, trained until the updates reach 8
+   bits: every matmul weight at most 2^8 levels a layer; (f)
+   ``activation_checkpointing.cpu_checkpointing``: the first loss
+   train_bf16's bits, the peak below train_bf16's; TiledLinear on the card
+   within TILED_TOL of ``F.linear``.
+29. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
@@ -355,8 +380,8 @@ Phases, each printing one JSON line:
    training_bert_dropout, transformer_layer, training_sparse, training_moe,
    serving_moe, training_pipe, training_offload, training_offload_nvme,
    training_infinity, training_infinity_nvme, training_offload_ranks,
-   training_infinity_ranks, training_infinity_sparse, training_onebit) and
-   their sum.
+   training_infinity_ranks, training_infinity_sparse, training_onebit,
+   training_large_f32, training_large_q8, training_extras) and their sum.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -1328,7 +1353,7 @@ def phase_serve_fleet_bf16(torch):
     """``deepspeed_tpu_torch/tools/fleet_chaos.py`` on the card: GPT-2 124M
     in bf16 (weights drawn on the card, seed 0) in replica child processes
     behind one ``FleetRouter`` over ``ProcessTransport``.  (a) Three
-    slot-pool replicas (4 slots x 1024 positions, chunks of 64), 24
+    slot-pool replicas (4 slots x 1024 positions, chunks of 64), 18
     requests (seeded Poisson router steps between submits, prompts of
     64-256 tokens, 32-64 new, 2 seeded-sampling), the first replica killed
     by ``DS_FAULT_PLAN`` at a decode: rc -9, zero acknowledged loss, the
@@ -1644,8 +1669,8 @@ def phase_serve_int8_bf16(torch, bf16_eng, standin, solo_bf16):
     B1, B4 and B5 launched, ``serving_int8``) each equal solo int8
     ``generate()`` or first different on a near-tie.  Reports the weight
     bytes on the card against bf16's, decode tokens/s and TTFT p50 of the
-    same 8 requests at batch 8 on the slot pool, bf16 and int8 in turns
-    (three pairs, medians), and a profiled window of 8 decode steps at
+    same 8 requests at batch 8 on the slot pool, bf16 then int8 (one pair),
+    and a profiled window of 8 decode steps at
     batch 8 each (host ms and device-busy ms a step).  Returns the
     launches."""
     import deepspeed_tpu_torch
@@ -1716,11 +1741,11 @@ def phase_serve_int8_bf16(torch, bf16_eng, standin, solo_bf16):
     same_as_bf16 = sum(int(np.array_equal(a, b)) for a, b in zip(solo, solo_bf16))
     del slot, paged
 
-    # decode tokens/s and TTFT at batch 8, bf16 and int8 in turns (three
-    # pairs, each side first in turn), then a profiled decode window each
+    # decode tokens/s and TTFT at batch 8, bf16 then int8 (one pair), then a
+    # profiled decode window each
     rates = {"bf16": [], "int8": []}
     turns = [("bf16", bf16_eng), ("int8", eng)]
-    for label, e in turns + turns[::-1] + turns:
+    for label, e in turns:
         srv = ServingEngine(e, config=NEO_SLOT)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6013,6 +6038,387 @@ def run_rank_phases(torch, params, offload_ref, off, inf_losses, sparse_losses, 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: the large-model memory recipe and the training extras
+# ---------------------------------------------------------------------------
+
+# the JAX package's selective remat for GPT-2 774M (tools/sweep_774m.py's
+# SAVE_FLASH): the QKV and FFN projections and the attention kernel's output
+# and lse are kept, so the backward runs B2 without relaunching B1
+SAVE_FLASH = ("qkv", "ffn_pre", "attn_o", "attn_lse")
+LARGE_MB, LARGE_T, LARGE_STEPS = 4, 1024, 3
+# the 8-bit run's first-step masters against the f32-state run's: on the
+# first step m = v = 0, so both are f32 Adam's update, B3's kernel against
+# plain torch ops (each rounding its products and sums on its own)
+LARGE_STEP1_BOUND = 2.0 ** -20
+# steps 2-3: step 2 follows the one f32-equal update; step 3 the first
+# update from the 8-bit v (codes of sqrt(v), 1/255 of a block's largest
+# entry).  The card read 1.9e-7 (the same bits in two runs: the rounding
+# generator is seeded); the bound is about 50 times that
+LARGE_LOSS_RTOL = 1e-5
+# train_extras_bf16 (c): bf16 m and stochastically rounded bf16 v against
+# train_bf16's f32 state, steps 2-3; the card read 7.7e-6 (the same bits in
+# two runs), the bound about 6 times that
+EXTRAS_BF16_LOSS_RTOL = 5e-5
+EXTRAS_STEPS = 3
+# (d): progressive layer drop at train_bf16's model with hidden dropout 0.1
+# (the JAX package applies PLD only to a non-deterministic forward)
+PLD_THETA, PLD_GAMMA, PLD_DROPOUT = 0.5, 0.001, 0.1
+# (e): MoQ from 16 to 8 bits, one bit a period from step 1; the period is
+# scaled by an eigenvalue probe of micro 1 x T 256 with plain attention
+MOQ = {"enabled": True, "quantize_bits_start": 16, "quantize_bits_target": 8,
+       "quantize_schedule_offset": 1}
+EIG_MAX_ITER, EIG_T = 10, 256
+TILED_TOL = 2e-5  # TiledLinear vs F.linear, f32 (sums in another order)
+
+
+def _timed_updates(torch, engine):
+    """CUDA events around every call of ``engine._update`` (the step's
+    optimizer update on the card): a list of event pairs to read later."""
+    pairs, update = [], engine._update
+
+    def timed(*args, **kwargs):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = update(*args, **kwargs)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    engine._update = timed
+    return pairs
+
+
+def _large_run(torch, cfg, precision, step1=None):
+    """One train_large_q8_bf16 run: GPT-2 774M drawn on the card (seed 0),
+    the engine built and stepped LARGE_STEPS times on one batch, the
+    counters zeroed before the steps and read after.  Returns the run's
+    record and, after step 1, its masters on the host."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    config = _gpt2_bf16_config(LARGE_MB, 1)
+    if precision:
+        config["optimizer"] = {**config["optimizer"], "params": {
+            **config["optimizer"]["params"], "state_precision": precision}}
+    batch = {"input_ids": np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (LARGE_MB, LARGE_T), dtype=np.int32)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = gpt2.init_params_device(cfg, seed=0, dtype=torch.float32)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2.make_model(cfg)[0], model_parameters=params, config=config)
+    del params
+    upd = _timed_updates(torch, engine)
+    # -- the main path: counters zeroed just before, read just after -------
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    losses, walls, masters1 = [], [], None
+    for s in range(LARGE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+        if s == 0:
+            masters1 = [p.detach().cpu() for p in engine._params]
+    launches, variants = kernels.launches(), kernels.launch_variants()
+    # ----------------------------------------------------------------------
+    torch.cuda.synchronize()
+    rec = {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+           "update_ms": [s.elapsed_time(e) for s, e in upd],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": engine.optimizer.state_bytes(engine.opt_state),
+           "n_params": sum(p.numel() for p in engine._params),
+           "launches": launches, "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
+           "lr_step1": float(engine.lr_schedule(0))}
+    if precision == "8bit":
+        opt = engine.optimizer
+        want = 0
+        for p in engine._params:
+            n, b = p.numel(), opt._v_blocks(p.numel())
+            want += 2 * n + (n + 4 * (n // b) if b else 4 * n + 4)
+        rec["state_bytes_from_v_blocks"] = want
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, masters1
+
+
+def phase_train_large_q8_bf16(torch):
+    """The JAX package's ``q8`` recipe (``tools/sweep_774m.py``) on the
+    port: GPT-2 774M (36 layers, width 1280, 20 heads) at full depth, micro
+    4 x T 1024, ``xent_chunk_size`` 512, AdamW, bf16 over f32 masters.  (a)
+    f32 state under ``nothing_saveable``; (b) ``state_precision="8bit"``
+    under ``remat_save_names=SAVE_FLASH``.  Gates: (b)'s first loss (a)'s
+    bits; step-1 masters within LARGE_STEP1_BOUND * (|p| + lr); steps 2-3
+    within LARGE_LOSS_RTOL, finite; B1 36 launches a micro-step in (b), 72
+    in (a), B2 36 in both; B3 in (a) only; (b)'s state bytes the count from
+    ``_v_blocks``; (b)'s peak below (a)'s."""
+    from deepspeed_tpu_torch.models import gpt2
+
+    t_phase = time.perf_counter()
+    base = dataclasses.replace(gpt2.PRESETS["gpt2-large"], xent_chunk_size=512)
+    runs = {}
+    a, a_step1 = _large_run(torch, base, None)
+    b, b_step1 = _large_run(torch, dataclasses.replace(base, remat_save_names=SAVE_FLASH),
+                            "8bit")
+    runs = {"f32_nothing_saveable": a, "8bit_save_flash": b}
+    L = base.n_layer
+    lr = a["lr_step1"]
+    worst = 0.0
+    for pa, pb in zip(a_step1, b_step1):
+        share = ((pb - pa).abs() / (LARGE_STEP1_BOUND * (pa.abs() + lr))).max().item()
+        worst = max(worst, share)
+    del a_step1, b_step1
+    check(worst <= 1.0, f"train_large_q8_bf16: step-1 masters {worst} of the bound apart")
+    check(all(np.isfinite(r["losses"]).all() for r in runs.values()),
+          f"train_large_q8_bf16: non-finite loss {a['losses']} / {b['losses']}")
+    check(b["losses"][0] == a["losses"][0],
+          f"train_large_q8_bf16: first losses differ {b['losses'][0]} / {a['losses'][0]}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b["losses"][1:], a["losses"][1:]))
+    check(rel <= LARGE_LOSS_RTOL, f"train_large_q8_bf16: later losses {rel} > {LARGE_LOSS_RTOL}")
+    micro = LARGE_STEPS  # gas 1
+    for label, r, b1 in (("a", a, 2 * L), ("b", b, L)):
+        got = (r["launches"]["flash_fwd"], r["launches"]["flash_bwd"])
+        check(got == (b1 * micro, L * micro),
+              f"train_large_q8_bf16 ({label}): B1/B2 launches {got}, want "
+              f"{(b1 * micro, L * micro)}")
+        for name in ("flash_fwd", "flash_bwd"):
+            check(only_tc(r["variants"][name]),
+                  f"train_large_q8_bf16 ({label}): {name} ran {r['variants'][name]}")
+    check(a["launches"]["fused_adam"] > 0 and b["launches"]["fused_adam"] == 0,
+          f"train_large_q8_bf16: B3 launches {a['launches']['fused_adam']} / "
+          f"{b['launches']['fused_adam']} (f32 state / 8-bit state)")
+    check(b["state_bytes"] == b["state_bytes_from_v_blocks"],
+          f"train_large_q8_bf16: 8-bit state {b['state_bytes']} B, _v_blocks says "
+          f"{b['state_bytes_from_v_blocks']}")
+    check(a["state_bytes"] == 8 * a["n_params"], f"train_large_q8_bf16: f32 state {a['state_bytes']}")
+    check(b["peak_bytes"] < a["peak_bytes"],
+          f"train_large_q8_bf16: peak {b['peak_bytes']} not below {a['peak_bytes']}")
+    tokens = LARGE_MB * LARGE_T
+    emit({"phase": "train_large_q8_bf16", "model": "gpt2-large", "n_layer": L,
+          "n_embd": base.n_embd, "micro_batch": LARGE_MB, "T": LARGE_T, "xent_chunk_size": 512,
+          "steps": LARGE_STEPS, "save_names": list(SAVE_FLASH),
+          "runs": {k: {**v, "peak_gib": v["peak_bytes"] / 2**30,
+                       "state_bytes_per_param": v["state_bytes"] / v["n_params"],
+                       "tokens_per_s_after_first": tokens / (np.mean(v["step_ms"][1:]) / 1e3)}
+                   for k, v in runs.items()},
+          "step1_masters_worst_share_of_bound": worst, "step1_bound": LARGE_STEP1_BOUND,
+          "later_loss_max_rel": rel, "loss_rtol": LARGE_LOSS_RTOL,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"training_large_f32": a["launches"], "training_large_q8": b["launches"]}
+
+
+def _extras_run(torch, model_fn, params, config, batch, steps, count_blocks=False):
+    """A train_extras_bf16 run: the counters zeroed before the engine is
+    built and read after ``steps`` steps; the peak from before the build.
+    ``count_blocks``: also count the blocks the forwards ran
+    (``gpt2._run_block``: once a kept block a micro-step)."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = [0]
+    real = gpt2._run_block
+    if count_blocks:
+        def counted(*args, **kwargs):
+            blocks[0] += 1
+            return real(*args, **kwargs)
+        gpt2._run_block = counted
+    try:
+        kernels.reset_launches()
+        engine, losses, walls = _train(torch, model_fn, params, config, batch, steps)
+        launches = kernels.launches()
+    finally:
+        gpt2._run_block = real
+    torch.cuda.synchronize()
+    return engine, {"losses": losses, "step_ms": [w * 1e3 for w in walls],
+                    "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+                    "blocks_run": blocks[0]}
+
+
+def phase_train_extras_bf16(torch, params, ref):
+    """train_bf16's GPT-2 124M, config and batch (micro 8 x gas 2 x T 1024)
+    with the training extras, EXTRAS_STEPS steps a run: (c) bf16 Adam
+    state; (d) progressive layer drop (theta PLD_THETA, gamma PLD_GAMMA,
+    hidden dropout PLD_DROPOUT), and one forward at theta 0.5; (e) MoQ
+    (MOQ) after an eigenvalue probe scales its period, run until the
+    updates reach the target bits; (f) ``activation_checkpointing`` with
+    ``cpu_checkpointing``; and TiledLinear on the card against
+    ``F.linear``."""
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+    from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+    from deepspeed_tpu_torch.runtime.zero.tiling import TiledLinear
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = gpt2.PRESETS["gpt2"]
+    mb, gas, T = 8, 2, 1024
+    base = _gpt2_bf16_config(mb, gas)
+    batch = {"input_ids": ref["batch"]}
+    out, launches = {}, {}
+
+    def with_opt(**kw):
+        return {**base, "optimizer": {**base["optimizer"], "params": {
+            **base["optimizer"]["params"], **kw}}}
+
+    # (c) bf16 Adam state
+    engine, c = _extras_run(torch, gpt2.make_model(cfg)[0], params, with_opt(
+        state_precision="bf16"), batch, EXTRAS_STEPS)
+    c["state_bytes_per_param"] = engine.optimizer.state_bytes(engine.opt_state) / cfg.num_params()
+    del engine
+    rel_c = max(abs(x - y) / abs(y) for x, y in zip(c["losses"][1:], ref["losses"][1:]))
+    check(all(np.isfinite(c["losses"])) and c["losses"][0] == ref["losses"][0],
+          f"train_extras_bf16 (c): losses {c['losses']} vs {ref['losses']}")
+    check(rel_c <= EXTRAS_BF16_LOSS_RTOL,
+          f"train_extras_bf16 (c): later losses {rel_c} > {EXTRAS_BF16_LOSS_RTOL}")
+    check(c["launches"]["fused_adam"] == 0, "train_extras_bf16 (c): B3 ran on the bf16 state")
+    c["later_loss_max_rel"] = rel_c
+    out["c_bf16_state"], launches["c"] = c, c["launches"]
+
+    # (d) progressive layer drop
+    dcfg = dataclasses.replace(cfg, dropout=PLD_DROPOUT)
+    engine, d = _extras_run(torch, gpt2.make_model(dcfg)[0], params, {
+        **base, "progressive_layer_drop": {"enabled": True, "theta": PLD_THETA,
+                                           "gamma": PLD_GAMMA}}, batch, EXTRAS_STEPS,
+        count_blocks=True)
+    host = ProgressiveLayerDrop(PLD_THETA, PLD_GAMMA)
+    theta = engine.progressive_layer_drop.get_state()["pld_theta"]
+    check(theta == host.theta_at(EXTRAS_STEPS)
+          == (1 - PLD_THETA) * np.exp(-PLD_GAMMA * EXTRAS_STEPS) + PLD_THETA,
+          f"train_extras_bf16 (d): theta {theta} is not the host formula's")
+    del engine
+    kept = d["blocks_run"]
+    check(d["launches"]["flash_fwd"] == 2 * kept and d["launches"]["flash_bwd"] == kept,
+          f"train_extras_bf16 (d): B1/B2 {d['launches']['flash_fwd']}/"
+          f"{d['launches']['flash_bwd']} for {kept} blocks kept")
+    check(all(np.isfinite(d["losses"])), f"train_extras_bf16 (d): losses {d['losses']}")
+    # one forward at theta 0.5: B1 once a kept block, the dropped ones skipped
+    tree = _device_tree(torch, params, torch.bfloat16, dev)
+    kernels.reset_launches()
+    counted = [0]
+    real = gpt2._run_block
+
+    def count_block(*args, **kwargs):
+        counted[0] += 1
+        return real(*args, **kwargs)
+
+    gpt2._run_block = count_block
+    try:
+        with torch.no_grad():
+            gpt2.apply(tree, torch.as_tensor(ref["batch"][:mb], device=dev), dcfg,
+                       generator=torch.Generator().manual_seed(5), deterministic=False,
+                       pld_theta=torch.tensor(0.5))
+    finally:
+        gpt2._run_block = real
+    torch.cuda.synchronize()
+    fwd_b1 = kernels.launches()["flash_fwd"]
+    del tree
+    check(fwd_b1 == counted[0] < cfg.n_layer,
+          f"train_extras_bf16 (d): at theta 0.5 {fwd_b1} B1 launches for {counted[0]} kept of "
+          f"{cfg.n_layer}")
+    d.update({"theta_after": theta, "blocks_kept": kept,
+              "blocks_offered": cfg.n_layer * gas * EXTRAS_STEPS,
+              "forward_at_theta_0.5": {"blocks_kept": counted[0], "flash_fwd": fwd_b1}})
+    out["d_pld"], launches["d"] = d, d["launches"]
+
+    # (e) MoQ after an eigenvalue probe
+    pcfg = dataclasses.replace(cfg, use_flash_attention=False, remat=False)
+    probe_params = _device_tree(torch, params, torch.float32, dev)
+    probe_ids = torch.as_tensor(ref["batch"][:1, :EIG_T], device=dev)
+    kernels.reset_launches()
+    t_eig = time.perf_counter()
+    eig = Eigenvalue(max_iter=EIG_MAX_ITER, tol=1e-2).compute_eigenvalue(
+        lambda p: gpt2.loss_fn(p, {"input_ids": probe_ids}, cfg=pcfg, deterministic=True),
+        probe_params, generator=torch.Generator().manual_seed(0))
+    eig_s = time.perf_counter() - t_eig
+    check(np.isfinite(eig) and eig > 0 and sum(kernels.launches().values()) == 0,
+          f"train_extras_bf16 (e): eigenvalue {eig}, launches {kernels.launches()}")
+    del probe_params
+    import deepspeed_tpu_torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=gpt2.make_model(cfg)[0], model_parameters=params,
+        config={**base, "quantize_training": MOQ})
+    q = engine.quantizer
+    q.scale_period_by_eigenvalue(eig, eig)  # one probe: it is the largest
+    losses, walls = [], []
+    while q.current_bits(engine.global_steps) > MOQ["quantize_bits_target"] or not losses:
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        walls.append(time.perf_counter() - t0)
+    # the last update quantized at the target: one step more at it
+    t0 = time.perf_counter()
+    losses.append(float(engine.train_batch(batch)))
+    walls.append(time.perf_counter() - t0)
+    e_launches = kernels.launches()
+    bits = q.current_bits(engine.global_steps - 1)
+    levels = {}
+    for name in ("qkv_w", "proj_w", "fc_w", "fc_proj_w"):
+        w = engine.params["blocks"][name]
+        levels[name] = max(int(torch.unique(layer).numel()) for layer in w)
+    wte_levels = int(torch.unique(engine.params["wte"]).numel())
+    del engine
+    check(bits == MOQ["quantize_bits_target"] and all(np.isfinite(losses)),
+          f"train_extras_bf16 (e): bits {bits}, losses {losses}")
+    check(max(levels.values()) <= 2 ** bits,
+          f"train_extras_bf16 (e): weights hold {levels} levels a group at {bits} bits")
+    out["e_moq"] = {"eigenvalue": eig, "eigenvalue_s": eig_s, "q_period": q.q_period,
+                    "steps": len(losses), "losses": losses, "step_ms": [w * 1e3 for w in walls],
+                    "bits_last_update": bits, "levels_per_group_max": levels,
+                    "wte_distinct": wte_levels, "launches": e_launches}
+    launches["e"] = e_launches
+
+    # (f) activation checkpointing with cpu_checkpointing
+    engine, f = _extras_run(torch, gpt2.make_model(cfg)[0], params, {
+        **base, "activation_checkpointing": {"cpu_checkpointing": True}}, batch, EXTRAS_STEPS)
+    del engine
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as act_ckpt
+
+    act_ckpt.configure(checkpoint_in_cpu=False)  # later phases build no engine to reset it
+    check(f["losses"][0] == ref["losses"][0] and all(np.isfinite(f["losses"])),
+          f"train_extras_bf16 (f): losses {f['losses']} vs {ref['losses']}")
+    check(f["peak_bytes"] < ref["peak_bytes"],
+          f"train_extras_bf16 (f): peak {f['peak_bytes']} not below train_bf16's "
+          f"{ref['peak_bytes']}")
+    f["peak_below_train_bf16_bytes"] = ref["peak_bytes"] - f["peak_bytes"]
+    out["f_cpu_checkpointing"], launches["f"] = f, f["launches"]
+
+    # TiledLinear on the card against F.linear
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tl = TiledLinear(cfg.n_embd, 4 * cfg.n_embd, in_splits=3, out_splits=4, seed=0, device=dev)
+    w = torch.randn(cfg.n_embd, 4 * cfg.n_embd, generator=gen, device=dev) * 0.02
+    bias = torch.randn(4 * cfg.n_embd, generator=gen, device=dev)
+    tl.copy_params_from(w, bias)
+    x = torch.randn(mb * T // 2, cfg.n_embd, generator=gen, device=dev)
+    tiled_err = (tl(x) - torch.nn.functional.linear(x, w.t(), bias)).abs().max().item()
+    check(tiled_err <= TILED_TOL, f"train_extras_bf16: TiledLinear {tiled_err} > {TILED_TOL}")
+    del tl, x
+
+    for k in ("c_bf16_state", "d_pld", "f_cpu_checkpointing"):
+        out[k]["peak_gib"] = out[k]["peak_bytes"] / 2**30
+        out[k]["step_ms_mean_after_first"] = float(np.mean(out[k]["step_ms"][1:]))
+    emit({"phase": "train_extras_bf16", "micro_batch": mb, "gas": gas, "T": T,
+          "train_bf16_losses": ref["losses"], "train_bf16_peak_gib": ref["peak_bytes"] / 2**30,
+          **out, "tiled_linear_max_err": tiled_err, "tiled_tol": TILED_TOL,
+          "loss_rtol": EXTRAS_BF16_LOSS_RTOL, "phase_s": time.perf_counter() - t_phase})
+    total = {}
+    for lc in launches.values():
+        for name, n in lc.items():
+            total[name] = total.get(name, 0) + n
+    return {"training_extras": total}
+
+
 def main() -> int:
     import torch
 
@@ -6125,7 +6531,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     offload_launches.update(run_rank_phases(torch, offload_params, offload_ref, off, inf_losses,
                                             sparse_losses, smi))
-    del offload_ref, off, offload_params
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload_launches.update(phase_train_large_q8_bf16(torch))
+    offload_launches.update(phase_train_extras_bf16(torch, offload_params, offload_ref))
+    del offload_ref, offload_params
     by_path = {name: {"serving": serve_launches[name], "serving_paged": paged_launches[name],
                       "serving_tp": serve_tp_launches.get(name, 0),
                       "serving_tiers": tiers_launches[name],

@@ -11,9 +11,11 @@ and the HTTP front door; :class:`ServingConfig`, :class:`KVCacheConfig`,
 :class:`ElasticConfig`, :class:`FrontdoorConfig`), the ``resilience``
 block but its ``supervision`` (:class:`ResilienceConfig`), the ``overlap``
 block (:class:`OverlapConfig`), ``checkpoint_tag_validation`` and
-``dataloader_drop_last``, and the top-level keys the JAX package parses
-and never reads again (``prescale_gradients``, ``sparse_gradients``,
-``memory_breakdown``, ...), carried unread under its attribute names.  Unknown
+``dataloader_drop_last``, the ``activation_checkpointing``,
+``quantize_training`` and ``progressive_layer_drop`` blocks, and the
+top-level keys the JAX package parses and never reads again
+(``prescale_gradients``, ``sparse_gradients``, ``memory_breakdown``, ...),
+carried unread under its attribute names (``amp``: accepted, unread).  Unknown
 keys raise :class:`DeepSpeedConfigError` as in the JAX package.  Keys and
 blocks the JAX package knows but the port cannot honour yet are accepted
 only at their "off" default; otherwise they raise ``NotImplementedError``
@@ -1212,6 +1214,119 @@ class SparseAttentionConfig:
         return cls(mode=mode, params=d)
 
 
+@dataclass
+class ActivationCheckpointingConfig:
+    """``activation_checkpointing`` (the JAX package's
+    ``ActivationCheckpointingConfig``): read by
+    ``runtime/activation_checkpointing/checkpointing.py`` (``configure``);
+    ``cpu_checkpointing`` keeps the weight-matmul outputs a checkpointed
+    function saves on pinned host memory."""
+
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ActivationCheckpointingConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            partition_activations=bool(d.pop("partition_activations", False)),
+            contiguous_memory_optimization=bool(d.pop("contiguous_memory_optimization", False)),
+            cpu_checkpointing=bool(d.pop("cpu_checkpointing", False)),
+            number_checkpoints=d.pop("number_checkpoints", None),
+            synchronize_checkpoint_boundary=bool(d.pop("synchronize_checkpoint_boundary", False)),
+            profile=bool(d.pop("profile", False)),
+        )
+        _check_empty(d, "activation_checkpointing", _known_keys(cls))
+        return out
+
+
+@dataclass
+class QuantizeTrainingConfig:
+    """``quantize_training``, MoQ with its eigenvalue schedule (the JAX
+    package's ``QuantizeTrainingConfig``; ``runtime/quantize.py``,
+    ``runtime/eigenvalue.py``)."""
+
+    enabled: bool = False
+    quantize_verbose: bool = False
+    quantizer_kernel: bool = False
+    quantize_type: str = "symmetric"
+    quantize_bits_start: int = 16
+    quantize_bits_target: int = 8
+    quantize_schedule_offset: int = 1000
+    quantize_groups: int = 1
+    fp16_mixed_quantize: bool = False
+    quantize_change_ratio: float = 0.001
+    quantize_rounding: str = "nearest"  # nearest | stochastic
+    eigenvalue_enabled: bool = False
+    eigenvalue_verbose: bool = False
+    eigenvalue_max_iter: int = 100
+    eigenvalue_tol: float = 1e-2
+    eigenvalue_stability: float = 1e-6
+    eigenvalue_gas_boundary_resolution: int = 1
+    eigenvalue_layer_name: str = "bert.encoder.layer"
+    eigenvalue_layer_num: int = 0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "QuantizeTrainingConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        block = "quantize_training"
+        out = cls(
+            enabled=bool(d.pop("enabled", False)),
+            quantize_verbose=bool(d.pop("quantize_verbose", False)),
+            quantizer_kernel=bool(d.pop("quantizer_kernel", False)),
+            quantize_type=d.pop("quantize_type", "symmetric"),
+            quantize_bits_start=int(_pop_alias(d, "quantize_bits_start", "start_bits", 16, block)),
+            quantize_bits_target=int(_pop_alias(d, "quantize_bits_target", "target_bits", 8,
+                                                block)),
+            quantize_schedule_offset=int(d.pop("quantize_schedule_offset", 1000)),
+            quantize_groups=int(d.pop("quantize_groups", 1)),
+            fp16_mixed_quantize=bool(d.pop("fp16_mixed_quantize", False)),
+            quantize_change_ratio=float(d.pop("quantize_change_ratio", 0.001)),
+            quantize_rounding=d.pop("quantize_rounding", "nearest"),
+            eigenvalue_enabled=bool(d.pop("eigenvalue_enabled", False)),
+            eigenvalue_verbose=bool(d.pop("eigenvalue_verbose", False)),
+            eigenvalue_max_iter=int(d.pop("eigenvalue_max_iter", 100)),
+            eigenvalue_tol=float(d.pop("eigenvalue_tol", 1e-2)),
+            eigenvalue_stability=float(d.pop("eigenvalue_stability", 1e-6)),
+            eigenvalue_gas_boundary_resolution=int(d.pop("eigenvalue_gas_boundary_resolution", 1)),
+            eigenvalue_layer_name=d.pop("eigenvalue_layer_name", "bert.encoder.layer"),
+            eigenvalue_layer_num=int(d.pop("eigenvalue_layer_num", 0)),
+        )
+        _check_empty(d, block, _known_keys(cls, "start_bits", "target_bits"))
+        return out
+
+
+@dataclass
+class ProgressiveLayerDropConfig:
+    """``progressive_layer_drop`` (the JAX package's
+    ``ProgressiveLayerDropConfig``; ``runtime/progressive_layer_drop.py``)."""
+
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "ProgressiveLayerDropConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", False)),
+            theta=float(d.pop("theta", 0.5)),
+            gamma=float(d.pop("gamma", 0.001)),
+        )
+        _check_empty(d, "progressive_layer_drop", _known_keys(cls))
+        return out
+
+
 def _dp_world_size(mesh: "MeshConfig") -> int:
     """``data x fsdp`` of the mesh over the started process group (1 when
     none is started)."""
@@ -1509,18 +1624,14 @@ class OverlapConfig:
 # top-level keys of the JAX package that the port does not honour yet:
 # key -> (predicate "at its off default", ROADMAP item)
 _TOP_NOT_PORTED = {
-    "amp": (_off_block, "A13"),
     "wall_clock_breakdown": (lambda v: v is False, "A14"),
     "tensorboard": (_off_block, "A14"),
     "sanitizer": (_off_block, "A15"),
     "telemetry": (_off_block, "A14 telemetry/"),
     "kernels": (lambda v: v is None or v == {} or v == {"enabled": "auto"},
                 "B (the port has no kernel switch: CUDA tensors always take the kernels)"),
-    "activation_checkpointing": (_off_block, "A13 activation_checkpointing/"),
     "flops_profiler": (_off_block, "A14 profiling/flops_profiler.py"),
     "elasticity": (_off_block, "A14 elasticity/"),
-    "quantize_training": (_off_block, "A13 runtime/quantize.py"),
-    "progressive_layer_drop": (_off_block, "A13 progressive_layer_drop.py"),
 }
 
 _PORTED_TOP_LEVEL = {
@@ -1530,7 +1641,8 @@ _PORTED_TOP_LEVEL = {
     C.CHECKPOINT_TAG_VALIDATION, C.DATALOADER_DROP_LAST, C.COMM,
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS,
     C.ALLREDUCE_ALWAYS_FP32, C.MEMORY_BREAKDOWN, C.DUMP_STATE, C.DISABLE_ALLGATHER,
-    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, "aio",
+    C.ZERO_ALLOW_UNTESTED_OPTIMIZER, "aio", "amp", "activation_checkpointing",
+    "quantize_training", "progressive_layer_drop",
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -1580,6 +1692,13 @@ class DeepSpeedConfig:
         self.resilience = ResilienceConfig.from_dict(d.get(C.RESILIENCE))
         self.overlap = OverlapConfig.from_dict(d.get(C.OVERLAP))
         self.aio = AioConfig.from_dict(d.get("aio"))
+        self.activation_checkpointing = ActivationCheckpointingConfig.from_dict(
+            d.get("activation_checkpointing"))
+        self.quantize_training = QuantizeTrainingConfig.from_dict(d.get("quantize_training"))
+        self.progressive_layer_drop = ProgressiveLayerDropConfig.from_dict(
+            d.get("progressive_layer_drop"))
+        # ``amp`` is a known key of the JAX package that nothing reads: any
+        # block is accepted and left unread, as there
         # validated as in the JAX package, which never reads it either
         self.checkpoint_tag_validation_mode = d.get(C.CHECKPOINT_TAG_VALIDATION,
                                                     C.CHECKPOINT_TAG_VALIDATION_DEFAULT)

@@ -9,8 +9,30 @@ on both sides of the port.
 
 The layer loop is a Python loop over the stacked parameters (``unbind``
 once per key, so the backward stacks each key's gradient once); with
-``remat`` (the default, the JAX ``nothing_saveable`` policy) each block
-runs under ``torch.utils.checkpoint`` and is recomputed in the backward.
+``remat`` (the default) each block runs under ``torch.utils.checkpoint``
+and is recomputed in the backward, keeping what its policy saves
+(``runtime/activation_checkpointing/checkpointing.py``):
+``remat_policy`` ``nothing_saveable`` (the default; under an engine whose
+``activation_checkpointing`` block sets ``cpu_checkpointing``, the weight
+matmuls' outputs and the block's input wait on the host),
+``everything_saveable`` (no recompute), ``dots_saveable``,
+``dots_with_no_batch_dims_saveable``, or ``remat_save_names`` over the
+JAX tags ``qkv``, ``attn_ctx``, ``ffn_pre`` (``saved_matmul`` /
+``saved_value``: the projections kept before their bias add) and
+``attn_o`` / ``attn_lse``, the attention kernel's output and log-sum-exp.
+With both of those saved the recompute takes them back instead of
+launching the forward kernel (B1) again, so a micro-step launches B1 once
+a layer, not twice, and the backward kernel runs from them.  The
+checkpoint's ``context_fn`` carries the policy out, rather than explicit
+segments: a segment boundary keeps every tensor that crosses it and still
+recomputes the op that made the saved value.
+
+**Progressive layer drop**: a batch carrying
+``runtime/progressive_layer_drop.PLD_THETA_KEY`` (the engine's theta) keeps
+layer l with probability ``1 - (l+1)/L * (1 - theta)`` when training
+(a generator, not deterministic), drawn on the host from the generator
+after the dropout seeds; a dropped layer is skipped whole (no kernel
+launch), a kept layer's residual delta is scaled by ``1 / keep_p``.
 
 Under ZeRO stage 3 a sharded leaf arrives as a handle
 (``runtime/zero/partition.py``): :func:`materialize` gathers the
@@ -69,6 +91,12 @@ from deepspeed_tpu_torch.parallel.tensor import (
     vocab_parallel_embedding,
     vocab_parallel_nll,
 )
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as _act_ckpt
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
+    saved_matmul,
+    saved_value,
+)
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import PLD_THETA_KEY, layer_keep_probs
 from deepspeed_tpu_torch.runtime.zero.partition import materialize, unstack
 
 
@@ -99,22 +127,24 @@ class GPT2Config:
     # >0: cross-entropy in time-chunks of this size, each recomputed in the
     # backward, so the (B, T, vocab) logits never materialize whole
     xent_chunk_size: int = 0
+    # nothing_saveable | everything_saveable | dots_saveable |
+    # dots_with_no_batch_dims_saveable (runtime/activation_checkpointing)
     remat_policy: str = "nothing_saveable"
-    remat_save_names: tuple = ()  # selective remat: not ported yet
+    # selective remat: non-empty overrides remat_policy with the tags kept
+    # (qkv, attn_ctx, ffn_pre, attn_o, attn_lse)
+    remat_save_names: tuple = ()
     # scan_unroll and flash_blocks steer the JAX package's XLA layer scan
     # and Pallas tiles; kept for config compatibility, not read here
     scan_unroll: int = 1
     flash_blocks: tuple = ()
 
     def __post_init__(self):
-        if self.remat_save_names:
-            raise NotImplementedError(
-                "selective remat (remat_save_names) is not ported yet "
-                "(ROADMAP A13 activation_checkpointing/)")
-        if self.remat_policy != "nothing_saveable":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet "
-                "(ROADMAP A13 activation_checkpointing/)")
+        self.save_policy()  # refuses an unported policy or an unknown name
+
+    def save_policy(self) -> "_act_ckpt.SavePolicy":
+        """The block checkpoint's save policy: ``remat_save_names`` when
+        set, else ``remat_policy``."""
+        return _act_ckpt.SavePolicy(self.remat_policy, tuple(self.remat_save_names))
 
     @property
     def head_dim(self) -> int:
@@ -354,7 +384,7 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
 
     h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.layer_norm_epsilon)
     h = copy_to_model(h, tp)
-    qkv = h @ lp["qkv_w"].to(h.dtype) + lp["qkv_b"].to(h.dtype)
+    qkv = saved_matmul("qkv", h, lp["qkv_w"].to(h.dtype)) + lp["qkv_b"].to(h.dtype)
     q, k, v = qkv.split(H * hd, dim=-1)
 
     def heads(t):
@@ -375,7 +405,7 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
         attn = flash_attention(q, k, v, causal=True)
     else:
         attn = mha_reference(q, k, v, causal=True)
-    attn = attn.transpose(1, 2).reshape(B, T, H * hd)
+    attn = saved_value("attn_ctx", lambda: attn.transpose(1, 2).reshape(B, T, H * hd))
     attn = reduce_from_model(attn @ lp["proj_w"].to(attn.dtype), tp) + lp["proj_b"].to(attn.dtype)
     x = x + _dropout(attn, cfg.dropout, r1, deterministic)
 
@@ -388,7 +418,7 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
             dp=par.dp if par is not None else None)
     else:
         h = copy_to_model(h, tp)
-        h = h @ lp["fc_w"].to(h.dtype) + lp["fc_b"].to(h.dtype)
+        h = saved_matmul("ffn_pre", h, lp["fc_w"].to(h.dtype)) + lp["fc_b"].to(h.dtype)
         h = F.gelu(h, approximate="tanh")
         h = _dropout(h, cfg.dropout, r2, deterministic)
         h = reduce_from_model(h @ lp["fc_proj_w"].to(h.dtype), tp) + lp["fc_proj_b"].to(h.dtype)
@@ -396,10 +426,28 @@ def _block(cfg: GPT2Config, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     return x + _dropout(h, cfg.dropout, r3, deterministic), aux
 
 
+def _run_block(cfg: GPT2Config, block_fn, x, lp, seeds, deterministic: bool):
+    """One block under the config's remat: checkpointed with its save
+    policy (a MoE block's recompute records no drops, ``moe/layer.py``
+    ``record_drops``), run as is under ``everything_saveable`` or without
+    ``remat``.  Under ``nothing_saveable`` the engine's configured
+    ``activation_checkpointing`` block decides (``cpu_checkpointing``: the
+    weight matmuls' outputs and the block's input on the host)."""
+    policy = cfg.save_policy()
+    if not cfg.remat or policy.kind == "everything_saveable" and not policy.names:
+        return block_fn(x, lp, seeds, deterministic)
+    if policy.saves_nothing:
+        policy = _act_ckpt.config_policy()
+    extra = recompute_contexts if cfg.n_experts > 0 else None
+    return _act_ckpt.remat(block_fn, x, lp, seeds, deterministic, policy=policy,
+                           offload_args=(0,), context_fn=extra)
+
+
 def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
           generator: Optional[torch.Generator] = None, deterministic: bool = True,
           return_hidden: bool = False, par: Optional[_Parallel] = None,
-          return_aux: bool = False, token_mask: Optional[torch.Tensor] = None):
+          return_aux: bool = False, token_mask: Optional[torch.Tensor] = None,
+          pld_theta=None):
     """Forward pass: ``tokens (B, T)`` → logits ``(B, T, V)`` in the
     parameters' type.  ``return_hidden=True`` returns the post-final-LN
     hidden states (B, T, D) instead (the chunked-xent loss).
@@ -409,7 +457,8 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
     positions, under its ``model`` axis the logits this rank's vocabulary
     block (module docstring).  ``return_aux=True`` also returns the MoE
     load-balancing loss summed over the blocks (zero for a dense model);
-    ``token_mask (B, T)`` keeps pads out of the MoE routing."""
+    ``token_mask (B, T)`` keeps pads out of the MoE routing.  ``pld_theta``:
+    progressive layer drop's theta (module docstring)."""
     par = par or _Parallel()
     B, T = tokens.shape
     pos = slice(0, T)
@@ -426,16 +475,21 @@ def apply(params: Dict[str, Any], tokens: torch.Tensor, cfg: GPT2Config,
         token_mask = token_mask[:, pos]
     block_fn = functools.partial(_block, cfg, par=par, training=generator is not None,
                                  token_mask=token_mask)
+    keep_probs = kept = None
+    if pld_theta is not None and generator is not None and not deterministic:
+        keep_probs = layer_keep_probs(pld_theta, cfg.n_layer)
+        kept = (torch.rand(cfg.n_layer, generator=generator) < keep_probs).tolist()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    # a MoE block's recompute records no drops (moe/layer.py record_drops)
-    remat_kw = {"context_fn": recompute_contexts} if cfg.n_experts > 0 else {}
     for i in range(cfg.n_layer):
+        if kept is not None and not kept[i]:
+            continue  # a dropped layer: nothing runs
         lp = {key: layers[key][i] for key in keys}
-        if cfg.remat:
-            x, aux = checkpoint(block_fn, x, lp, seeds[i], deterministic, use_reentrant=False,
-                                **remat_kw)
-        else:
-            x, aux = block_fn(x, lp, seeds[i], deterministic)
+        y, aux = _run_block(cfg, block_fn, x, lp, seeds[i], deterministic)
+        if keep_probs is not None:
+            # the residual delta scaled by 1/keep_p: the training-time
+            # expectation is the deterministic forward's
+            y = x + (y - x) / float(keep_probs[i].to(y.dtype))
+        x = y
         aux_total = aux_total + aux
     x = _head(x, materialize(params["lnf_g"]), materialize(params["lnf_b"]), wte, cfg,
               return_hidden, par.tp)
@@ -510,7 +564,8 @@ def loss_fn(params: Dict[str, Any], batch: Dict[str, Any], generator=None,
     moe = cfg.n_experts > 0
     out, moe_aux = apply(params, tokens, cfg, generator=generator, deterministic=deterministic,
                          return_hidden=chunked, par=par, return_aux=True,
-                         token_mask=batch.get("attention_mask") if moe else None)
+                         token_mask=batch.get("attention_mask") if moe else None,
+                         pld_theta=batch.get(PLD_THETA_KEY))
     aux = cfg.moe_aux_weight * moe_aux if moe else 0.0
     return _head_nll(out, materialize(params["wte"]), batch, cfg, par) + aux
 
@@ -570,16 +625,16 @@ def _stream_group(cfg: GPT2Config, gblocks: Dict[str, torch.Tensor], x: torch.Te
     """The streaming engine's repeated stage: the blocks of one layer
     group (``gblocks`` leaves lead with the group's layers), each under
     ``torch.utils.checkpoint`` when ``remat`` (the JAX ``_stream_group``'s
-    per-block remat); ``seeds``: the group's layers' dropout seeds."""
+    per-block remat) with the config's save policy, as :func:`apply`;
+    ``seeds``: the group's layers' dropout seeds.  Progressive layer drop
+    does not apply (the JAX package's streamed group takes no theta)."""
     keys = block_keys(cfg)
     layers = {key: unstack(gblocks[key]) for key in keys}
     block_fn = functools.partial(_block, cfg, par=_Parallel(), training=seeds[0] is not None)
+    run_cfg = cfg if remat == cfg.remat else dataclasses.replace(cfg, remat=remat)
     for j in range(len(layers[keys[0]])):
         lp = {key: layers[key][j] for key in keys}
-        if remat:
-            x, _ = checkpoint(block_fn, x, lp, seeds[j], deterministic, use_reentrant=False)
-        else:
-            x, _ = block_fn(x, lp, seeds[j], deterministic)
+        x, _ = _run_block(run_cfg, block_fn, x, lp, seeds[j], deterministic)
     return x
 
 

@@ -37,7 +37,9 @@ the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -798,6 +800,39 @@ def _bias_cotangent(q, k, v, out, lse, do, bias, causal: bool, sm_scale: float,
     return db.to(bias.dtype)
 
 
+class _Residuals(threading.local):
+    store = None
+
+
+_RESIDUALS = _Residuals()
+
+
+@contextlib.contextmanager
+def kernel_residuals(store):
+    """Selective remat's hold on the forward kernel's ``(out, lse)``
+    (``runtime/activation_checkpointing``, the JAX tags ``attn_o`` and
+    ``attn_lse``): inside the context a checkpointed forward hands each
+    pair to ``store.keep``, and its recompute (``store.replaying``) takes
+    them back with ``store.take`` instead of launching the kernel again."""
+    prev, _RESIDUALS.store = _RESIDUALS.store, store
+    try:
+        yield
+    finally:
+        _RESIDUALS.store = prev
+
+
+def forward_residuals(compute):
+    """``compute()``'s ``(out, lse)``, or the pair a checkpoint's forward
+    kept, in its recompute (:func:`kernel_residuals`)."""
+    store = _RESIDUALS.store
+    if store is not None and store.replaying:
+        return store.take()
+    out, lse = compute()
+    if store is not None:
+        store.keep(out, lse)
+    return out, lse
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel attention with its kernel backward (the JAX package's
     ``_flash_attention`` custom_vjp): the forward keeps the kernel's
@@ -817,8 +852,9 @@ class _FlashAttention(torch.autograd.Function):
         b, h, sq, _ = q.shape
         mode, b2 = _bias_mode(bias, b, h, sq, k.shape[2])
         kbias = b2 if mode == "kbias" else None
-        out, lse = flash_fwd(q, k, v, causal, sm_scale, want_lse=True, kbias=kbias,
-                             fbias=b2 if mode == "fbias" else None, drop=drop)
+        out, lse = forward_residuals(lambda: flash_fwd(
+            q, k, v, causal, sm_scale, want_lse=True, kbias=kbias,
+            fbias=b2 if mode == "fbias" else None, drop=drop))
         ctx.save_for_backward(q, k, v, out, lse, kbias, bias)
         ctx.causal = causal
         ctx.sm_scale = sm_scale

@@ -53,6 +53,7 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
     _DTYPE_CODES,
     _HEAD_DIMS,
     DEFAULT_MASK_VALUE,
+    forward_residuals,
 )
 
 # ---------------------------------------------------------------------------
@@ -1051,7 +1052,8 @@ class _SplashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, layout, block: int, causal: bool, sm_scale: float):
-        out, lse = splash_fwd(q, k, v, layout, block, causal, sm_scale, want_lse=True)
+        out, lse = forward_residuals(lambda: splash_fwd(q, k, v, layout, block, causal, sm_scale,
+                                                        want_lse=True))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (layout, block, causal, sm_scale)
         return out

@@ -307,7 +307,9 @@ def engine_update(optimizer, grads: List[torch.Tensor], opt_state, params: List[
     for ZeRO shards, LAMB's per-leaf squared norms summed across ranks.
     Returns the state, or None when the optimizer or state is neither the
     Adam family with f32 state nor LAMB (the caller then takes
-    ``optimizer.update``)."""
+    ``optimizer.update``): the reduced Adam state (``AdamState8``) returns
+    None as in the JAX package, whose reduced-state update runs outside
+    any Pallas kernel."""
     is_adam = isinstance(optimizer, FusedAdam) and isinstance(opt_state, AdamState)
     is_lamb = isinstance(optimizer, FusedLamb) and isinstance(opt_state, LambState)
     if not (is_adam or is_lamb):

@@ -822,8 +822,11 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
     cut to this rank's slice of its spec."""
     layout, n = engine.layout, len(engine._params)
     paths = [_path_str(p) for p, _ in _walk(engine._unflatten(list(range(n))))]
+    # a tensor not of its leaf's shape (the 8-bit Adam state's block
+    # scales) is whole on every rank: copied as it is
     put = lambda dst, i, spec, src: dst.copy_(  # noqa: E731
-        layout.from_natural(i, src.to(dst.device), spec) if dst.dim() else src)
+        layout.from_natural(i, src.to(dst.device), spec)
+        if dst.dim() and tuple(src.shape) == tuple(layout.leaves[i].shape) else src)
     for i, name in enumerate(paths):
         put(engine._params[i], i, layout.leaves[i].param_spec, restored[f"params/{name}"])
     if "opt_state" in groups:

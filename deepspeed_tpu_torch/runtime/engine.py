@@ -12,8 +12,21 @@ the gradient accumulator.  At the accumulation boundary the step
 averages, unscales, checks overflow (dynamic scaler only), clips by the
 global norm and updates: Adam and AdamW with f32 state and LAMB always
 take :func:`~deepspeed_tpu_torch.ops.kernels.fused_update.engine_update`
-(the fused Adam kernel, or LAMB's two kernels, on the card), SGD its own
-``update``.
+(the fused Adam kernel, or LAMB's two kernels, on the card), SGD and the
+reduced Adam state (``state_precision`` "8bit" / "bf16") the optimizer's
+own ``update`` (plain torch ops; the overflow skip folds into the reduced
+state's producer, and its stochastic rounding draws from a generator on
+the device seeded by the seed and the global step).
+
+**Training extras** (``runtime/activation_checkpointing``,
+``progressive_layer_drop.py``, ``quantize.py``): the engine configures the
+``activation_checkpointing`` block at construction; with
+``progressive_layer_drop`` every micro-batch dict carries theta under
+``PLD_THETA_KEY``; with ``quantize_training`` (MoQ) the matmul weights are
+fake-quantized after the update at the boundary, an overflow step keeping
+them unquantized.  The reduced Adam state and MoQ work on whole leaves:
+a leaf cut by ZeRO, tensor or sequence parallelism raises (ROADMAP A13,
+the compositions), as MoQ under offload does (the JAX engine's rule).
 
 **ZeRO across ranks.**  The engine's mesh (``mesh`` config block or
 argument; ``comm/mesh.py``) is read from the started process group
@@ -122,8 +135,9 @@ compressed strategies exchange each rank's gradient row once a step
 Not ported (each raises, naming its ROADMAP item, or is absent): 1-bit
 optimizers under ZeRO stage >= 1 and explicit exchanges under stage 3 or
 model parallelism (A13), offload under model parallelism (A12's
-remainder), supervision, telemetry, sanitizer and flops profiler
-(A14/A15), MoQ and PLD (A13).
+remainder), the reduced Adam state and MoQ on cut leaves (A13, the
+compositions), supervision, telemetry, sanitizer and flops profiler
+(A14/A15).
 """
 from __future__ import annotations
 
@@ -138,7 +152,7 @@ import torch
 from deepspeed_tpu_torch.config import constants as C
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 from deepspeed_tpu_torch.utils.device import resolve_device
-from deepspeed_tpu_torch.ops.adam.fused_adam import SGD, FusedAdam, FusedAdamW
+from deepspeed_tpu_torch.ops.adam.fused_adam import SGD, AdamState8, FusedAdam, FusedAdamW
 from deepspeed_tpu_torch.ops.kernels.fused_update import engine_update
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.parallel.sequence import ambient_mesh
@@ -365,6 +379,7 @@ class DeepSpeedEngine:
                 self.opt_state = self.optimizer.init(
                     [self._update_param(i) for i in range(len(self._params))])
         self.loss_scale_state = self.loss_scaler.init(self.device)
+        self._init_training_extras(config)
 
         self.skipped_steps = 0
         self._host_global_step = 0
@@ -411,6 +426,55 @@ class DeepSpeedEngine:
                 "deepspeed_tpu_torch yet (ROADMAP A12's remainder: offload under model "
                 "parallelism); the offload engines split the data-parallel grid only")
         return True
+
+    def _init_training_extras(self, config) -> None:
+        """The activation checkpointing block published to
+        ``runtime/activation_checkpointing`` (the JAX engine's
+        ``configure`` call), MoQ's quantizer and PLD's schedule, and the
+        refusals of what works on whole leaves only: the reduced Adam
+        state and MoQ, where a leaf is cut by ZeRO, tensor or sequence
+        parallelism (8-bit blocks and quantization groups span a whole
+        leaf or layer), and MoQ under offload."""
+        from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as act_ckpt
+
+        act_ckpt.configure(deepspeed_config=config)
+        self.quantizer = None
+        if config.quantize_training.enabled:
+            if self._host_opt is not None:
+                raise NotImplementedError(
+                    "quantize_training (MoQ) is not supported with offload_optimizer")
+            from deepspeed_tpu_torch.runtime.quantize import Quantizer
+
+            self.quantizer = Quantizer(config.quantize_training)
+        self.progressive_layer_drop = None
+        if config.progressive_layer_drop.enabled:
+            from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=config.progressive_layer_drop.theta,
+                gamma=config.progressive_layer_drop.gamma)
+        reduced = (self._host_opt is None
+                   and getattr(self.optimizer, "state_precision", "fp32") != "fp32")
+        whole = [self.quantizer is not None and "quantize_training (MoQ)",
+                 reduced and f"state_precision={self.optimizer.state_precision!r}"]
+        whole = [w for w in whole if w]
+        layout = self.layout
+        cut = [self._paths[i] for i, leaf in enumerate(layout.leaves)
+               if leaf.flat is not None or layout.sharded(leaf.param_spec)
+               or layout.update_sharded(i)]
+        if whole and cut:
+            raise NotImplementedError(
+                f"{' and '.join(whole)} on leaves cut across ranks ({len(cut)} of "
+                f"{len(layout.leaves)}, e.g. {cut[0]!r}) is not ported to deepspeed_tpu_torch "
+                "yet (ROADMAP A13, the compositions): its blocks span a whole leaf")
+
+    def _rounding_generator(self) -> torch.Generator:
+        """The reduced Adam state's stochastic-rounding bits for this step,
+        on the device: fresh each step, from the seed and the global step
+        (the JAX engine folds ``global_step + 997_001`` into its key;
+        ROADMAP C4)."""
+        seed = (self.config.seed * 1_000_003 + 997_001 + self._host_global_step) ^ (1 << 61)
+        return torch.Generator(device=self.device).manual_seed(seed & _SEED_MASK)
 
     def _offload_shard_count(self) -> int:
         """How many flat slices the f32 masters and moments are cut into
@@ -564,7 +628,9 @@ class DeepSpeedEngine:
                 "deepspeed_tpu_torch yet (ROADMAP A13, 1-bit optimizers under ZeRO or "
                 "model parallelism)")
         blockers = {"data-parallel grid must be > 1": self.dp_world_size > 1,
-                    "offload_optimizer unsupported": self._host_opt is None}
+                    "offload_optimizer unsupported": self._host_opt is None,
+                    "quantize_training (MoQ) unsupported": self.quantizer is None,
+                    "progressive_layer_drop unsupported": self.progressive_layer_drop is None}
         self._onebit_exchange_ok = all(blockers.values())
         if not self._onebit_exchange_ok:
             failed = [k for k, ok in blockers.items() if not ok]
@@ -863,6 +929,11 @@ class DeepSpeedEngine:
         """Forward and backward of one micro-batch on the device; the
         gradients, reduced over the data-parallel grid, add into the
         accumulator."""
+        if self.progressive_layer_drop is not None and isinstance(batch, dict):
+            from deepspeed_tpu_torch.runtime.progressive_layer_drop import PLD_THETA_KEY
+
+            batch = {**batch, PLD_THETA_KEY: self.progressive_layer_drop.get_theta(
+                self._host_global_step)}
         loss = self._compute_loss(batch, self._generator())
         self.loss_scaler.scale_loss(loss.float(), self.loss_scale_state).backward()
         self._accumulate()
@@ -915,6 +986,8 @@ class DeepSpeedEngine:
                               reduce_norms=self._lamb_norm_reducer())
         if state is None:
             self.opt_state = self._plain_update(grads, params, lr, overflow)
+        if self.quantizer is not None:
+            self._quantize_masters(overflow)
         for i in range(n):
             if layout.update_sharded(i):
                 leaf = layout.leaves[i]
@@ -1296,11 +1369,28 @@ class DeepSpeedEngine:
 
         return reduce
 
+    def _quantize_masters(self, overflow) -> None:
+        """MoQ after the update: the matmul weights fake-quantized in place
+        at this step's bits, the unquantized masters kept on overflow."""
+        seed = (self.config.seed * 1_000_003 + 1_000_003 + self._host_global_step) & _SEED_MASK
+        quantized, _ = tree_flatten(self.quantizer.quantize_params(
+            self._unflatten([p.detach() for p in self._params]), self._host_global_step,
+            seed=seed))
+        for p, q in zip(self._params, quantized):
+            if q is not p:
+                p.detach().copy_(torch.where(overflow, p.detach(), q))
+
     def _plain_update(self, grads, params, lr, overflow):
-        """``optimizer.update`` then ``p + u`` for optimizers the fused
-        kernel does not serve (SGD); on overflow the old parameters and
-        state stay."""
+        """``optimizer.update`` then ``p + u`` for what the fused kernels do
+        not serve: SGD (on overflow the old parameters and state stay) and
+        the reduced Adam state, stepped in place chunk by chunk
+        (``step_reduced_``), the overflow skip folded into its producer as
+        the JAX optimizer's is."""
         lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
+        if isinstance(self.opt_state, AdamState8):
+            self.optimizer.step_reduced_(grads, self.opt_state, params, lr=lr_t, skip=overflow,
+                                         generator=self._rounding_generator())
+            return self.opt_state
         updates, new_state = self.optimizer.update(grads, self.opt_state, params, lr=lr_t)
         for p, u in zip(params, updates):
             p.copy_(torch.where(overflow, p, (p.float() + u).to(p.dtype)))
@@ -1322,6 +1412,10 @@ class DeepSpeedEngine:
             log_dist(f"step skipped on overflow; loss scale -> {self.loss_scale}")
         else:
             self._host_global_step += 1
+        if self.quantizer is not None:
+            self.quantizer.maybe_log(self._host_global_step)
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self._host_global_step)
         self._on_step_boundary(overflowed, loss=loss)
         self.timeline.end_step()
 

@@ -156,6 +156,10 @@ class PipelineEngine(DeepSpeedEngine):
             raise AssertionError("ZeRO stages > 1 are incompatible with pipeline parallelism")
         if config.zero_config.offload_optimizer.enabled:  # as the JAX engine
             raise NotImplementedError("offload_optimizer is not supported with the pipeline engine yet")
+        if config.progressive_layer_drop.enabled:  # as the JAX engine
+            raise NotImplementedError(
+                "progressive_layer_drop is not wired into the pipeline engine yet "
+                "(theta injection lives in the micro-step path)")
         if not isinstance(mesh, Mesh):
             mesh, _ = build_mesh(config.mesh if mesh is None else mesh)
         self.num_stages = mesh.sizes["pipe"]

@@ -30,7 +30,6 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.runtime.engine import tree_flatten, tree_paths
 from deepspeed_tpu_torch.runtime.utils import partition_balanced, partition_uniform
@@ -302,30 +301,32 @@ class PipelineModule:
         """The body blocks whose stacked leaves ``blocks`` holds, in order;
         ``first`` is the first one's place in the body (a stage's offset).
         With ``activation_checkpoint_interval`` (or ``remat``: every
-        block) each run of that many blocks is recomputed in the
-        backward."""
+        block) each run of that many blocks is recomputed in the backward
+        (``runtime/activation_checkpointing`` ``checkpoint_sequential``, as
+        the JAX module routes it)."""
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import (
+            checkpoint_sequential,
+        )
+
         flat, rebuild = tree_flatten(blocks)
         if not flat:
             return x
-        # one unbind a leaf, so the backward stacks each leaf's gradient once
-        per_leaf = [t.unbind(0) for t in flat]
-        n = len(per_leaf[0])
-        layer_params = [rebuild([u[j] for u in per_leaf]) for j in range(n)]
         interval = self.activation_checkpoint_interval
         if remat and interval <= 0:
             interval = 1
 
-        def run(h, j0, j1, *ps):
-            for j, p in zip(range(j0, j1), ps):
-                g = layer_generator(seed, self.body_ids[first + j])
-                h = self.apply_block(p, h, generator=g)
-            return h
+        def block(p, h, g):
+            return self.apply_block(p, h, generator=g)
 
-        if interval <= 0:
-            return run(x, 0, n, *layer_params)
-        for j0 in range(0, n, interval):
-            j1 = min(n, j0 + interval)
-            x = checkpoint(run, x, j0, j1, *layer_params[j0:j1], use_reentrant=False)
+        def gen(j):
+            return layer_generator(seed, self.body_ids[first + j])
+
+        if interval > 0:
+            return checkpoint_sequential(block, blocks, x, generator_for=gen, every=interval)
+        # one unbind a leaf, so the backward stacks each leaf's gradient once
+        per_leaf = [t.unbind(0) for t in flat]
+        for j in range(len(per_leaf[0])):
+            x = block(rebuild([u[j] for u in per_leaf]), x, gen(j))
         return x
 
     def apply_body(self, params, x, seed: Optional[int] = None, remat: bool = False):

@@ -162,6 +162,12 @@ class ZeroInfinityEngine:
         reason = self.streamable(model, config)
         if reason is not None:
             raise NotImplementedError(f"offload_param cannot stream: {reason}")
+        extras = [k for k in ("quantize_training", "progressive_layer_drop")
+                  if getattr(config, k).enabled]
+        if extras:
+            raise NotImplementedError(
+                f"{' and '.join(extras)} under offload_param is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP A13, the compositions)")
         spec: StreamSpec = model.stream_spec
         self.device = resolve_device(device)
         self.config, self.spec = config, spec

@@ -73,7 +73,7 @@ SERVING_KERNELS = ("flash_fwd", "flash_fwd_tc", "flash_decode", "flash_decode_pa
 
 def sizes(device: str) -> Dict[str, Any]:
     if device == "cuda":
-        return {"slots": 4, "chunk": 64, "max_len": 1024, "requests": 24,
+        return {"slots": 4, "chunk": 64, "max_len": 1024, "requests": 18,
                 "prompt": (64, 256), "new": (32, 64), "kill_after": 5,
                 "page_len": 128, "num_pages": 96, "burst": 16, "burst_new": (32, 48),
                 "sessions": 6, "turns": 3, "first": (64, 128), "tail": (32, 64),

@@ -138,6 +138,17 @@ def test_not_ported_blocks_raise_naming_their_item(d, item, monkeypatch, tmp_pat
         else:  # the stream's parts follow the fsdp axis, not the variable
             assert type(eng).__name__ == "ZeroInfinityEngine" and not eng._masters_sharded
         return
+    if item == "A13":
+        # the training extras are ported: each block parses to the JAX
+        # package's dataclass values
+        import dataclasses
+
+        t = TConfig(d)
+        for block in ("activation_checkpointing", "progressive_layer_drop",
+                      "quantize_training"):
+            assert (dataclasses.asdict(getattr(t, block))
+                    == dataclasses.asdict(getattr(j, block))), block
+        return
     with pytest.raises(NotImplementedError, match=item):
         TConfig(d)
 
@@ -370,12 +381,28 @@ def test_keys_the_jax_package_never_reads_parse_as_its_attributes(key):
     assert getattr(TConfig(base), attr) == getattr(JConfig(base, world_size=1), attr)
 
 
+# ``amp``: a known key of the JAX package that nothing reads (ROADMAP C8)
+AMP_BLOCKS = [{"enabled": True}, {"enabled": True, "opt_level": "O2"}, {"enabled": False}, {}]
+
+
+@pytest.mark.parametrize("block", AMP_BLOCKS, ids=range(len(AMP_BLOCKS)))
+def test_amp_block_is_accepted_and_left_unread(block):
+    """Any ``amp`` block parses on both sides and changes nothing the
+    port reads (beside the C7 keys: the JAX package keeps no attribute)."""
+    d = {"train_batch_size": 8, "amp": block}
+    j, t = JConfig(d, world_size=1), TConfig(d)
+    base = TConfig({"train_batch_size": 8})
+    assert not hasattr(j, "amp") and not hasattr(t, "amp")
+    assert vars(t).keys() == vars(base).keys()
+    assert t.compute_dtype == base.compute_dtype == j.compute_dtype
+
+
 def test_every_key_still_refused_names_an_open_item():
     """What ``_TOP_NOT_PORTED`` still refuses names a ROADMAP item, and
     none of the keys above is in it."""
     from deepspeed_tpu_torch.config import config as tc
 
-    assert not set(C7_KEYS) & set(tc._TOP_NOT_PORTED)
+    assert not (set(C7_KEYS) | {"amp"}) & set(tc._TOP_NOT_PORTED)
     for key, (_, item) in tc._TOP_NOT_PORTED.items():
         assert item.split()[0][0] in "AB", (key, item)
     assert not hasattr(tc, "_NOT_PORTED_BLOCKS")
