@@ -7,7 +7,11 @@ Phases, each printing one JSON line:
 
 1. ``build``: compile every CUDA kernel of the serving and training paths
    from ``deepspeed_tpu_torch/csrc`` with ``nvcc`` (one process per source,
-   all started together).
+   all started together).  The serving phases (3, 4, 7, 8 below) need the
+   forward and decode kernels only and run as soon as those are built,
+   first, while the other sources (backward, optimizers, block-sparse)
+   finish in the background; they are joined, and this line printed,
+   before the kernel checks.
 2. ``kernel``: every kernel against its plain PyTorch version at the main
    paths' shapes (B1 and B2 run bf16 on their tensor-core bodies and f32
    on their CUDA-core bodies, each row naming its ``body``; flash prefill
@@ -87,7 +91,19 @@ Phases, each printing one JSON line:
    flash backward and fused Adam kernels must have launched, B1 and B2 on
    their tensor-core bodies only; every loss finite and the last below the
    first.  Prints tokens/s, ms a step, peak
-   memory and model-FLOPs utilization.
+   memory and model-FLOPs utilization.  Then its ``telemetry`` object
+   (:func:`train_telemetry`): fresh engines on the same model, config and
+   batch, 4 steps each, with the plane off, registry-only (the default)
+   and fully armed (trace, attribution, the JSONL / Prometheus /
+   TensorBoard sinks, ``wall_clock_breakdown``, the flops profiler): ms a
+   step of each; the synchronizing calls of a step under
+   ``torch.cuda.set_sync_debug_mode("warn")``, off and registry-only
+   equal; the armed trace passes ``validate_chrome_trace`` with the step
+   phases (``train/data_wait``, ``train/compute`` from CUDA events); the
+   counted first step's ``matmul`` bucket within 1 % of ``6 N`` tokens,
+   its attention bucket holding every B1 / B2 launch of that step, the
+   timed second step's kernel events likewise and the buckets' device ms
+   the profiled kernels' sum within 1 %; the MFU gauge.
    Then ``train_resume_bf16``: the same config over a 96 x 1024 dataset
    read through ``DeepSpeedDataLoader(16, shuffle)`` ->
    ``engine.prefetch_loader``: engine A takes 6 steps; engine B 3, a
@@ -154,7 +170,17 @@ Phases, each printing one JSON line:
    (counters zeroed just before and read just after), against the slot
    engine on the same mix (decode tokens/s, TTFT, prefill chunks run);
    then the session is spilled to disk and a fourth turn restores it: the
-   restored rows must equal the spilled ones bit for bit.
+   restored rows must equal the spilled ones bit for bit.  Then its
+   ``telemetry`` object (:func:`serve_telemetry`): the mix's first 8
+   requests on three fresh paged engines with the plane off, the registry only and
+   fully armed (registry, trace, JSONL and Prometheus sinks), two drains
+   each in turns: decode tokens/s and TTFT of each; the armed trace passes
+   ``validate_chrome_trace`` with one lane per request, TTFT from each
+   lane's spans equals its ``serving/ttft_ms`` sample within 1 ms; one
+   counted and two timed serving steps (prefill chunks, which take the
+   plain path on the paged pool, and decode): the attention bucket holds
+   every B5 launch (and B1's, none), the buckets' device ms the profiled
+   kernels' sum within 1 %.
    Then ``serve_tiers_bf16``: GPT-2 124M (weights drawn on the card) in
    bf16 on the paged pool (8 slots x 1024 positions, pages of 128, 160
    pages), 16 sessions x 3 turns of 96..192 new prompt tokens and 32 greedy
@@ -395,6 +421,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -537,12 +564,55 @@ LAYER_F32_RTOL = 1e-4
 
 
 _T0 = time.perf_counter()
+_LAST_PHASE = [_T0]  # when the previous phase line was printed
+
+
+class BackgroundBuild(threading.Thread):
+    """``kernels.build(names, force=True)`` on a thread of its own (its
+    ``nvcc`` processes run beside the caller's work; a kernel's first call
+    waits for its own source's compile); :meth:`wait` joins it and returns
+    its seconds, or raises its error.  ``BackgroundBuild.running`` is the
+    one in flight, whose overlap with each phase that phase's line notes."""
+
+    running = None
+
+    def __init__(self, kernels, names):
+        super().__init__(daemon=True)
+        self.kernels, self.names = kernels, names
+        self.result = self.error = None
+        self.t0 = time.perf_counter()
+        self.t1 = self.wall_s = None
+        BackgroundBuild.running = self
+        self.start()
+
+    def run(self):
+        try:
+            self.result = self.kernels.build(self.names, force=True)
+        except BaseException as e:  # noqa: BLE001 — re-raised by wait()
+            self.error = e
+        self.t1 = time.perf_counter()
+        self.wall_s = self.t1 - self.t0
+
+    def overlap_s(self, t0, t1):
+        """Seconds of ``[t0, t1]`` that the compile ran."""
+        return max(0.0, min(t1, self.t1 or t1) - max(t0, self.t0))
+
+    def wait(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 
 def emit(obj) -> None:
-    """One JSON line; a phase's line notes the script's seconds so far."""
+    """One JSON line; a phase's line notes the script's seconds so far and
+    the seconds since the previous phase line that the background compile
+    ran beside it (its host numbers shared the CPU with ``nvcc`` then)."""
     if "phase" in obj:
-        obj = {**obj, "script_elapsed_s": time.perf_counter() - _T0}
+        now, build = time.perf_counter(), BackgroundBuild.running
+        obj = {**obj, "script_elapsed_s": now - _T0,
+               "nvcc_overlap_s": build.overlap_s(_LAST_PHASE[0], now) if build else 0.0}
+        _LAST_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1070,6 +1140,407 @@ def _served_summary(srv, done, wall):
             "phase_seconds": st["phase_seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the plane's checks inside serve_paged_bf16 and train_bf16
+# ---------------------------------------------------------------------------
+
+TEL_RTOL = 0.01  # bucket ms vs the kernels' summed ms; the matmul bucket vs 6N
+TTFT_MATCH_MS = 1.0  # TTFT from a request's spans vs its serving/ttft_ms sample
+# the attributed serving steps' prompts: one 64-token chunk, or four
+TEL_SERVE_PROMPTS = (32, 32, 32, 32, 200, 200, 200, 200)
+# the off / registry-only / armed comparison: training in windows of
+# TEL_WINDOW_STEPS steps closed by one synchronize, TEL_WINDOWS windows a
+# setting, interleaved (off, registry, armed; armed, registry, off; ...);
+# every setting prints every TEL_PRINT steps, so each window holds one
+# print step.  Serving: each engine one cold drain of the paged mix's
+# requests, then TEL_SERVE_DRAINS warm ones a setting, interleaved alike
+TEL_WINDOW_STEPS, TEL_WINDOWS, TEL_PRINT = 5, 4, 5
+TEL_SERVE_DRAINS = 2
+
+
+def sync_count(torch, fn):
+    """``(sites, fn())``: ``fn`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``; ``sites`` names the Python
+    line of each synchronizing call it made (each warning it raised)."""
+    import warnings
+
+    import traceback
+
+    sites = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message).lower():
+            stack = traceback.extract_stack()[:-1]
+            sites.append(" <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}"
+                                     for f in reversed(stack[-6:])))
+
+    torch.cuda.synchronize()
+    # armed outside the capture: arming warns once itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sites, out
+
+
+def check_trace(label, path, lanes=None):
+    """The exported trace: it passes the schema check; with ``lanes`` (a
+    list of request ids) each request has a lane of its own holding its
+    queue and prefill spans.  Returns ``(doc, spans by lane)``."""
+    from deepspeed_tpu_torch import telemetry
+
+    doc = json.load(open(path))
+    problems = telemetry.validate_chrome_trace(doc)
+    check(not problems, f"{label}: trace schema: {problems[:5]}")
+    by_lane = {}
+    for e in doc["traceEvents"]:
+        if e["ph"] == "X" and e["pid"] == telemetry.PID_REQUESTS:
+            by_lane.setdefault(e["tid"], {})[e["name"]] = e
+    if lanes is not None:
+        check(sorted(by_lane) == sorted(lanes),
+              f"{label}: {len(by_lane)} request lanes for {len(lanes)} requests")
+        check(all({"queue", "prefill"} <= set(v) for v in by_lane.values()),
+              f"{label}: a lane without its queue or prefill span")
+    return doc, by_lane
+
+
+def check_attention_launches(label, attr, counted, timed, names):
+    """The attention bucket holds every launch of ``names``: the counted
+    step's kernel launches (the static part) and the timed window's kernel
+    events (the timed part) against the launch counters of the same
+    calls; the buckets' device ms sum to the kernels' summed ms; and the
+    timed attention bucket also holds kernels of the attention modules'
+    own aten ops (each linked through its op's range, as the counted step
+    buckets that op), so its ms and its counted bytes cover the same work."""
+    from deepspeed_tpu_torch.telemetry.attribution import class_bucket
+
+    static = attr.launches("attention")
+    for name in names:
+        check(static.get(name, 0) == counted.get(name, 0),
+              f"{label}: attention bucket holds {static.get(name, 0)} {name} launches of "
+              f"{counted.get(name, 0)}")
+    tm = attr.timing or {}
+    check(tm.get("device_ms") is not None,
+          f"{label}: the profiler window traced no kernel of the card")
+    events = tm.get("launches_by_class") or {}
+    for name in names:
+        check(class_bucket(name) == "attention" and events.get(name, 0) == timed.get(name, 0),
+              f"{label}: {events.get(name, 0)} {name} kernel events for "
+              f"{timed.get(name, 0)} launches in the timed window")
+    total = sum((tm.get("device_ms") or {}).values())
+    kernels_ms = tm.get("kernels_ms") or 0.0
+    check(abs(total - kernels_ms) <= TEL_RTOL * kernels_ms,
+          f"{label}: buckets {total} ms vs kernels {kernels_ms} ms")
+    hand = sum(events.get(name, 0) for name in names)
+    check(tm["kernel_events"]["attention"] > hand,
+          f"{label}: the attention bucket holds {tm['kernel_events']['attention']} kernel "
+          f"events, the {hand} hand launches alone: its aten ops' kernels found no range "
+          f"({tm.get('unranged_kernels')} unranged)")
+    return {"device_ms": tm.get("device_ms"), "kernels_ms": tm.get("kernels_ms"),
+            "busy_ms": tm.get("busy_ms"), "window_ms": tm.get("window_ms"),
+            "kernel_events": tm.get("kernel_events"),
+            "unranged_kernels": tm.get("unranged_kernels"), "launches_counted": counted,
+            "launches_timed": timed,
+            "flops": {b: attr.buckets[b].flops for b in attr.buckets},
+            "bytes": {b: attr.buckets[b].bytes for b in attr.buckets},
+            "recompute": attr.meta.get("recompute")}
+
+
+def _spread(samples):
+    """A setting's samples: their median, and their spread (max - min)."""
+    return {"median": float(np.median(samples)),
+            "spread": float(max(samples) - min(samples)), "samples": list(samples)}
+
+
+def _compare(rows, key):
+    """Each setting against ``off`` on ``key``: the difference of the
+    medians, resolved only where it exceeds the larger of the two
+    settings' spreads."""
+    off = rows["off"][key]
+    out = {}
+    for name in ("registry", "armed"):
+        got = rows[name][key]
+        diff = got["median"] - off["median"]
+        out[name] = {"diff": diff, "rel": diff / off["median"],
+                     "resolved": abs(diff) > max(got["spread"], off["spread"])}
+    return out
+
+
+def _mix_rates(torch, srv, mix):
+    """One drain of ``paged_request_mix``'s requests (the shared prefix
+    among them, the slots churning mid-decode; the session's turns, each a
+    drain of one request, left out) on ``srv``: ``(requests, rates)``, the
+    rates of this drain alone (decode tokens/s over its decode phase's
+    seconds, TTFT p50/p99, wall)."""
+    dec0 = srv.stats()["phase_seconds"]["decode"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in mix[0][:10]]
+    srv.step()
+    srv.step()
+    rids += [srv.submit(p, max_new_tokens=n) for p, n in mix[0][10:]]
+    res = srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [res[r] for r in rids]
+    dec = srv.stats()["phase_seconds"]["decode"] - dec0
+    n_tok = int(sum(len(r.generated) for r in reqs))
+    ttft = [(r.first_token_time - r.submit_time) * 1e3 for r in reqs]
+    return reqs, {"decode_tokens_per_s": (n_tok - len(reqs)) / dec,
+                  "ttft_ms_p50": _percentile(ttft, 50), "ttft_ms_p99": _percentile(ttft, 99),
+                  "tokens": n_tok, "wall_s": wall}
+
+
+def serve_telemetry(torch, params, mix, cfg, off_summary):
+    """serve_paged_bf16's telemetry: three fresh paged engines on the
+    mix's 16 requests, with the plane off, the registry only and
+    everything armed (registry, trace, JSONL and Prometheus sinks; the
+    process's plane switched before each drain): each engine one cold
+    drain (off, registry, armed), then TEL_SERVE_DRAINS warm drains a
+    setting in turns (armed, registry, off; off, registry, armed), whose
+    decode tokens/s and TTFT p50 are compared (median and spread); the
+    armed cold drain's trace validates with one lane per request, and
+    TTFT from each lane's spans equals its ``serving/ttft_ms`` sample
+    within TTFT_MATCH_MS; then one counted and two timed serving steps
+    (prefill chunks and decode) for the attribution checks."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.profiling.flops_profiler import device_name
+    from deepspeed_tpu_torch.telemetry import attribution
+
+    t_start = time.perf_counter()
+    out = {"main_path": off_summary, "cold": {}, "off": [], "registry": [], "armed": []}
+    with tempfile.TemporaryDirectory() as tel_dir:
+        blocks = {"off": {"enabled": False}, "registry": {"enabled": True},
+                  "armed": {"enabled": True, "trace": True, "exporters": ["jsonl", "prometheus"],
+                            "output_path": tel_dir, "export_interval_seconds": 3600}}
+        engines = {}
+        for name, block in blocks.items():  # each engine attaches to the plane armed now
+            telemetry.configure(block, label="serving")
+            engines[name] = deepspeed_tpu_torch.init_serving(
+                model="gpt2", params=params, dtype=torch.bfloat16, serving=cfg)
+        hist = telemetry.get_registry().histogram("serving/ttft_ms", engine="serving")
+        # each engine one cold drain (its prefix cache and allocator), then
+        # the warm drains in turns
+        warm = [(("armed", "registry", "off"), ("off", "registry", "armed"))[i % 2]
+                for i in range(TEL_SERVE_DRAINS)]
+        order = ("off", "registry", "armed", *[name for turn in warm for name in turn])
+        for turn, name in enumerate(order):
+            telemetry.configure(blocks[name], label="serving")
+            if turn == 2:
+                telemetry.get_tracer().clear()
+                before = len(hist._ring)
+            reqs, rates = _mix_rates(torch, engines[name], mix)
+            if turn < 3:
+                out["cold"][name] = rates
+            else:
+                out[name].append(rates)
+            if turn != 2:
+                continue
+            doc, lanes = check_trace("serve_paged_bf16 telemetry", telemetry.export_trace(),
+                                     [r.request_id for r in reqs])
+            rebuilt = sorted((v["prefill"]["ts"] + v["prefill"]["dur"] - v["queue"]["ts"]) / 1e3
+                             for v in lanes.values())
+            samples = sorted(list(hist._ring)[before:])
+            worst = max(abs(a - b) for a, b in zip(rebuilt, samples))
+            check(len(samples) == len(rebuilt) and worst <= TTFT_MATCH_MS,
+                  f"serve_paged_bf16 telemetry: TTFT from spans vs histogram differ by {worst} ms "
+                  f"({len(rebuilt)} lanes, {len(samples)} samples)")
+            telemetry.flush()
+            files = sorted(os.listdir(tel_dir))
+            check({"metrics_rank0.jsonl", "metrics_rank0.prom", "trace.json"} <= set(files),
+                  f"serve_paged_bf16 telemetry: files {files}")
+        for name in blocks:
+            out[name] = {"drains": out[name], **{key: _spread([r[key] for r in out[name]])
+                                                 for key in ("decode_tokens_per_s", "ttft_ms_p50")}}
+        out["vs_off"] = {key: _compare(out, key) for key in ("decode_tokens_per_s", "ttft_ms_p50")}
+        srv = engines.pop("armed")
+        del engines
+        torch.cuda.empty_cache()
+
+        # attribution: one counted step and two timed ones, prefill and decode
+        rng = np.random.default_rng(22)
+        for n in TEL_SERVE_PROMPTS:
+            srv.submit(rng.integers(1, srv.engine.model_config.vocab_size, n, dtype=np.int32),
+                       max_new_tokens=16)
+        for _ in range(64):  # until decoding, with prompts still prefilling
+            if srv.decode_steps > 0:
+                break
+            srv.step()
+        dev = device_name()
+        with attribution.counting("serving_step", dev) as count:
+            kernels.reset_launches()
+            srv.step()
+            counted = kernels.launches()
+        attr = count.attribution(dev)
+        kernels.reset_launches()
+        with attribution.timing(steps=2) as win:
+            srv.step()
+            srv.step()
+            torch.cuda.synchronize()
+        timed = kernels.launches()
+        check(not win.refused, "serve_paged_bf16 telemetry: profiler window refused")
+        attr.set_timing(win.timing)
+        # the paged pool's prefill chunks take the plain path (no B1), as
+        # the main path's launches show; B5 decodes
+        check(counted["flash_decode_paged"] > 0 and timed["flash_decode_paged"] > 0,
+              f"serve_paged_bf16 telemetry: attributed steps launched {counted} / {timed}")
+        out["attribution"] = check_attention_launches(
+            "serve_paged_bf16 attribution", attr, counted, timed,
+            ("flash_fwd", "flash_decode_paged"))
+        srv.drain()
+        out["trace_events"] = len(doc["traceEvents"])
+        out["request_lanes"] = len(lanes)
+        out["ttft_spans_vs_histogram_max_ms"] = worst
+        del srv
+        # disarm before the directory goes: the sinks' last flush lands in it
+        telemetry.configure({"enabled": False})
+    telemetry.get_registry().reset()
+    telemetry.get_tracer().clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def train_telemetry(torch, cfg, params, config, batch, tokens):
+    """train_bf16's telemetry: three fresh engines on the main path's
+    model, config and batch, printing every TEL_PRINT steps, with the
+    plane off, registry only (the default) and everything armed
+    (registry, trace, attribution, the JSONL / Prometheus / TensorBoard
+    sinks, ``wall_clock_breakdown``, the flops profiler at step 3), the
+    process's plane switched before each window: two warm steps each (the
+    armed engine's counted and timed steps), then TEL_WINDOWS windows of
+    TEL_WINDOW_STEPS steps each, interleaved (off, registry, armed;
+    armed, registry, off; ...), a window's wall closed by one
+    synchronize (the steps read nothing on the host); the step ms are
+    compared by median and spread; then the steps off and registry-only
+    up to and through the next print step under the sync debug mode,
+    whose synchronizing calls must be as many; the armed engine's trace
+    (valid, the step phases: data_wait on the host, compute from CUDA
+    events), the counted step's matmul bucket against 6N, the attention
+    bucket against the B1/B2 launches, the MFU gauge."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.ops import kernels
+    from deepspeed_tpu_torch.telemetry.attribution import analytic_matmul_flops
+
+    t_start = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tel_dir:
+        config = {**config, "steps_per_print": TEL_PRINT}
+        cfgs = {"off": {**config, "telemetry": {"enabled": False}},
+                "registry": {**config, "telemetry": {"enabled": True}},
+                "armed": {**config, "wall_clock_breakdown": True,
+                          "telemetry": {"enabled": True, "trace": True, "attribution": True,
+                                        "exporters": ["jsonl", "prometheus", "tensorboard"],
+                                        "output_path": tel_dir, "export_interval_seconds": 3600},
+                          "tensorboard": {"enabled": True, "output_path": tel_dir},
+                          "flops_profiler": {"enabled": True, "profile_step": 3}}}
+        engines = {}
+        for name, cfg_run in cfgs.items():
+            engines[name], _, _, _ = deepspeed_tpu_torch.initialize(
+                model=gpt2.make_model(cfg)[0], model_parameters=params, config=cfg_run)
+
+        def arm(name):
+            telemetry.configure(cfgs[name]["telemetry"], label="train",
+                                monitor=engines[name].monitor)
+
+        def window(name, steps):
+            """ms a step over ``steps`` steps, one synchronize at the end."""
+            arm(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engines[name].train_batch(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+        launches = []
+        for name in cfgs:
+            for _ in range(2):
+                kernels.reset_launches()
+                window(name, 1)
+                if name == "armed":
+                    launches.append(kernels.launches())
+        walls = {name: [] for name in cfgs}
+        for i in range(TEL_WINDOWS):
+            for name in (("off", "registry", "armed"), ("armed", "registry", "off"))[i % 2]:
+                walls[name].append(window(name, TEL_WINDOW_STEPS))
+        for name, ms in walls.items():
+            out[name] = {"step_ms": _spread(ms), "steps": len(ms) * TEL_WINDOW_STEPS,
+                         "tokens_per_s": tokens / float(np.median(ms)) * 1e3}
+        out["vs_off"] = _compare(out, "step_ms")
+
+        def to_print_step(name):
+            """The steps up to and through the engine's next print step."""
+            engine, steps = engines[name], []
+            while not steps or engine.global_steps % TEL_PRINT:
+                steps.append(engine.train_batch(batch))
+            return len(steps)
+
+        for name in ("off", "registry"):
+            arm(name)
+            sites, n = sync_count(torch, lambda: to_print_step(name))
+            out[f"{name}_sync_sites"] = sites
+            out[f"{name}_sync_steps"] = n
+        off, reg = out["off_sync_sites"], out["registry_sync_sites"]
+        check(len(off) == len(reg),
+              f"train_bf16 telemetry: {len(off)} synchronizing calls off ({off}), "
+              f"{len(reg)} registry-only ({reg})")
+        arm("armed")
+        engine = engines.pop("armed")
+        del engines
+        torch.cuda.empty_cache()
+        attr = engine.train_step_attribution()
+        check(attr is not None, "train_bf16 telemetry: no attribution table")
+        want = analytic_matmul_flops(cfg.num_params(), tokens)
+        got = attr.buckets["matmul"].flops
+        check(abs(got - want) <= TEL_RTOL * want,
+              f"train_bf16 attribution: matmul bucket {got} FLOPs vs 6N {want}")
+        out["attribution"] = check_attention_launches(
+            "train_bf16 attribution", attr, launches[0], launches[1], ("flash_fwd", "flash_bwd"))
+        out["attribution"].update(matmul_flops=got, analytic_matmul_flops=want,
+                                  table=attr.format_table(), roofline=attr.roofline())
+        doc, _ = check_trace("train_bf16 telemetry", telemetry.export_trace())
+        spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        compute = [e for e in spans if e["name"] == "train/compute"]
+        armed_steps = 2 + TEL_WINDOWS * TEL_WINDOW_STEPS
+        check(len(compute) == armed_steps
+              and sum(e["name"] == "train/data_wait" for e in spans) == armed_steps,
+              f"train_bf16 telemetry: {len(compute)} compute spans for {armed_steps} steps, "
+              f"phases {sorted({e['name'] for e in spans})}")
+        out["trace_compute_span_ms"] = [e["dur"] / 1e3 for e in compute]
+        reg = telemetry.get_registry()
+        out["mfu_gauge"] = reg.gauge("mfu", engine="train").value
+        out["flops_per_step"] = reg.gauge("flops_per_step", engine="train").value
+        out["flops_profiler"] = engine.flops_profiler.results
+        # disarm before the monitor and the directory go: the sinks' last
+        # flush lands in them
+        telemetry.configure({"enabled": False})
+        engine.monitor.close()
+        files = sorted(os.listdir(tel_dir))
+        check({"metrics_rank0.jsonl", "metrics_rank0.prom", "trace.json"} <= set(files)
+              and os.listdir(os.path.join(tel_dir, "DeepSpeedJobName")),
+              f"train_bf16 telemetry: files {files}")
+        out["tensorboard_files"] = os.listdir(os.path.join(tel_dir, "DeepSpeedJobName"))
+        del engine
+    telemetry.get_registry().reset()
+    telemetry.get_tracer().clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def phase_serve_paged_bf16(torch, params, mix):
     import tempfile
 
@@ -1135,14 +1606,16 @@ def phase_serve_paged_bf16(torch, params, mix):
         check(all(torch.equal(head(before[k]), head(after[k])) for k in before),
               "serve_paged_bf16: restored rows differ from the spilled ones")
         check(files == ["kv.npz", "manifest.json", "meta.json"], f"spill files {files}")
+        del srv, pool
+        torch.cuda.empty_cache()
+        tel = serve_telemetry(torch, params, mix, PAGED, out["paged"])
         emit({"phase": "serve_paged_bf16", "requests": len(done) + len(turns),
               "paged": out["paged"], "slot": out["slot"], "kvcache": kv,
               "tokens_saved": kv["tokens_saved"],
               "prefill_chunks_saved": out["slot"]["prefill_chunks"] - out["paged"]["prefill_chunks"],
               "spill_restore": {"files": files, "restored_rows": hit, "leaves": sorted(before),
                                 "dtype": str(before["k"].dtype)},
-              "launches": launches})
-        del srv, pool
+              "launches": launches, "telemetry": tel})
     torch.cuda.empty_cache()
     return launches, [r.tokens().tolist() for r in done + turns]
 
@@ -3273,20 +3746,22 @@ def phase_train_bf16(torch, params):
     # included) and 6 L T d per token for causal attention, forward and
     # backward; remat's recompute is not counted
     flops = tokens * (6 * cfg.num_params() + 6 * cfg.n_layer * T * cfg.n_embd)
-    emit({"phase": "train_bf16", "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
-          "losses": losses, "step_ms": [w * 1e3 for w in walls], "step_ms_mean_after_first": step_s * 1e3,
-          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
-          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
-          "launches": launches, "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
-          "global_steps": engine.global_steps})
     one_process = {"losses": losses, "batch": batch["input_ids"],
                    "digests": _state_digests(torch, engine),
                    "launches": launches, "step_ms_median": float(np.median(walls[1:])) * 1e3,
                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                    "peak_bytes": torch.cuda.max_memory_allocated(), "step1_masters": step1}
+    global_steps = engine.global_steps
     del engine
     torch.cuda.empty_cache()
+    tel = train_telemetry(torch, cfg, params, config, batch, tokens)
+    emit({"phase": "train_bf16", "micro_batch": mb, "gas": gas, "T": T, "steps": steps,
+          "losses": losses, "step_ms": [w * 1e3 for w in walls], "step_ms_mean_after_first": step_s * 1e3,
+          "tokens_per_step": tokens, "tokens_per_s": tokens / step_s,
+          "max_memory_allocated_gib": one_process["peak_gib"],
+          "model_flops_per_step": flops, "mfu_vs_989_tflops": flops / step_s / PEAK_FLOPS["bfloat16"],
+          "launches": launches, "variants": {n: variants[n] for n in ("flash_fwd", "flash_bwd")},
+          "global_steps": global_steps, "telemetry": tel})
     return launches, float(np.median(walls[1:])) * 1e3, one_process
 
 
@@ -6441,12 +6916,44 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
 
     t0 = time.perf_counter()
-    seconds = kernels.build(force=True)
+    # the serving phases need the forward and decode kernels only: they run
+    # as soon as those are built, while the rest (the backward, optimizer
+    # and block-sparse sources, the slowest) builds in the background,
+    # joined before serve_paged_bf16 (whose telemetry comparison runs with
+    # no compile beside it) and the kernel checks; each phase's line notes
+    # its seconds beside the compile
+    units = list(kernels.KERNELS) + list(kernels.BODIES)
+    first = [n for n in units if n.startswith(("flash_fwd", "flash_decode"))]
+    rest_build = BackgroundBuild(kernels, [n for n in units if n not in first])
+    seconds = kernels.build(first, force=True)
+    first_wall = time.perf_counter() - t0
+
+    cfg = gpt2.PRESETS["gpt2"]
+    params = gpt2.init_params(cfg, seed=0)
+    reqs = request_mix(seed=0)
+    phase_serve_f32(torch, params, reqs)
+    serve_launches, served = phase_serve_bf16(torch, params, reqs)
+    mix = paged_request_mix(seed=0)
+    phase_serve_paged_f32(torch, params, mix)
+    tiers_launches = phase_serve_tiers_bf16(torch)
+    resilience_launches = phase_serve_resilience_bf16(torch)
+    fleet_launches = phase_serve_fleet_bf16(torch)
+    frontdoor_launches = phase_serve_frontdoor_bf16(torch)
+    injected_launches, neo_bf16, neo_standin, neo_solo = phase_serve_injected_bf16(torch)
+    int8_launches = phase_serve_int8_bf16(torch, neo_bf16, neo_standin, neo_solo)
+    del neo_bf16, neo_standin, neo_solo
+    gc.collect()
+    torch.cuda.empty_cache()
+    megatron_launches = phase_serve_megatron_bf16(torch)
+    torch.cuda.empty_cache()
+
+    seconds.update(rest_build.wait())
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in kernels.library().build_log.items()}
-    emit({"phase": "build", "nvcc_s": seconds, "wall_s": time.perf_counter() - t0,
-          "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "allow_tf32": False, "ptxas": ptxas})
+    emit({"phase": "build", "nvcc_s": seconds, "wall_s": first_wall,
+          "rest_wall_s": rest_build.wall_s, "card": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "allow_tf32": False, "ptxas": ptxas})
+    paged_launches, served["paged"] = phase_serve_paged_bf16(torch, params, mix)
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     check_flash_fwd(torch, dev, flush)
@@ -6466,26 +6973,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     splash_rows = check_splash(torch, dev, flush)
     del flush
-    torch.cuda.empty_cache()
-
-    cfg = gpt2.PRESETS["gpt2"]
-    params = gpt2.init_params(cfg, seed=0)
-    reqs = request_mix(seed=0)
-    phase_serve_f32(torch, params, reqs)
-    serve_launches, served = phase_serve_bf16(torch, params, reqs)
-    mix = paged_request_mix(seed=0)
-    phase_serve_paged_f32(torch, params, mix)
-    paged_launches, served["paged"] = phase_serve_paged_bf16(torch, params, mix)
-    tiers_launches = phase_serve_tiers_bf16(torch)
-    resilience_launches = phase_serve_resilience_bf16(torch)
-    fleet_launches = phase_serve_fleet_bf16(torch)
-    frontdoor_launches = phase_serve_frontdoor_bf16(torch)
-    injected_launches, neo_bf16, neo_standin, neo_solo = phase_serve_injected_bf16(torch)
-    int8_launches = phase_serve_int8_bf16(torch, neo_bf16, neo_standin, neo_solo)
-    del neo_bf16, neo_standin, neo_solo
-    gc.collect()
-    torch.cuda.empty_cache()
-    megatron_launches = phase_serve_megatron_bf16(torch)
     torch.cuda.empty_cache()
     phase_train_f32(torch, params)
     train_launches, train_step_ms, one_process = phase_train_bf16(torch, params)

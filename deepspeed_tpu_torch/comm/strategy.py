@@ -248,6 +248,7 @@ class CommLayer:
             link=self._axis_link(axes),
         )
         self.decisions[site] = d
+        self._publish_decision(site, d.strategy)
         if d.strategy == STRATEGY_DENSE and self.config.strategy in (STRATEGY_INT8, STRATEGY_ONEBIT):
             logger.info(f"comm: site '{site}' stays dense ({d.reason})")
         return d.strategy
@@ -296,6 +297,20 @@ class CommLayer:
         """Record a decision made elsewhere (the engine's forced-dense
         fallbacks, the 1-bit optimizers' momentum exchange)."""
         self.decisions[site] = Decision(strategy, reason)
+        self._publish_decision(site, strategy)
+
+    def _publish_decision(self, site: str, strategy: str) -> None:
+        """Per-site strategy decisions into the telemetry registry and the
+        trace (``comm/decisions``).  Made at engine build or at a phase
+        change, never per step."""
+        from deepspeed_tpu_torch.telemetry import get_registry, get_tracer
+
+        reg = get_registry()
+        if reg.enabled:
+            reg.counter("comm/decisions", site=site, strategy=strategy).inc()
+        tracer = get_tracer()
+        if tracer.enabled:
+            tracer.add_instant("comm_decision", "comm", args={"site": site, "strategy": strategy})
 
     def table(self) -> Dict[str, Tuple[str, str]]:
         return {site: (d.strategy, d.reason) for site, d in sorted(self.decisions.items())}

@@ -1571,10 +1571,9 @@ class TimelineConfig:
     compute / ckpt_stall / compile / other).
 
     ``fence``: synchronize the card after each step so ``compute`` is
-    recorded.  ``null`` (default) follows ``wall_clock_breakdown``, which
-    the port refuses (ROADMAP A14): so the fence is on only when asked for
-    explicitly, and an unfenced timeline omits ``compute`` rather than
-    record the time it took to queue the step."""
+    recorded.  ``null`` (default) follows ``wall_clock_breakdown``; an
+    unfenced timeline omits ``compute`` rather than record the time it
+    took to queue the step."""
 
     enabled: bool = C.TIMELINE_ENABLED_DEFAULT
     window: int = C.TIMELINE_WINDOW_DEFAULT
@@ -1621,16 +1620,160 @@ class OverlapConfig:
         return out
 
 
+@dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler`` block (the JAX package's): at ``profile_step``
+    the engine times its step and reports the counted step's FLOPs and
+    bytes (``profiling/flops_profiler.py``)."""
+
+    enabled: bool = False
+    # 2, as the JAX package's: the first step is the counted one
+    profile_step: int = 2
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "FlopsProfilerConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop("enabled", False)),
+            profile_step=int(d.pop("profile_step", 2)),
+            module_depth=int(d.pop("module_depth", -1)),
+            top_modules=int(d.pop("top_modules", 1)),
+            detailed=bool(d.pop("detailed", True)),
+            output_file=d.pop("output_file", None),
+        )
+        _check_empty(d, C.FLOPS_PROFILER, _known_keys(cls))
+        return out
+
+
+@dataclass
+class TelemetryConfig:
+    """``telemetry`` block (the JAX package's; ``telemetry/``): ``enabled``
+    arms the in-process metrics registry (host dict updates only);
+    ``exporters`` turn on background sinks (``jsonl`` | ``prometheus`` |
+    ``tensorboard``) flushing every ``export_interval_seconds`` off the
+    step; ``trace`` records Chrome-trace spans (step phases, the card's
+    spans of the step from CUDA events, checkpoint commits, serving
+    request lifecycles) exported to ``trace_path``; ``attribution`` (off by
+    default here: the JAX package's walk is free at compile time, the
+    port's count runs the step) counts the first step into the per-bucket
+    cost table (and, with a sink or the trace armed on the card, times the
+    second); ``profiler_dir``
+    enables the ``torch.profiler`` window (on demand, or on the first
+    serving TTFT above ``slo_ttft_breach_ms``).  ``aggregate: true``
+    (snapshots on the supervision heartbeat) is refused: the heartbeat
+    is not ported (ROADMAP A14); ``attribution_max_hlo_mb`` parses and
+    is unused (there is no HLO text)."""
+
+    enabled: bool = C.TELEMETRY_ENABLED_DEFAULT
+    ring: int = C.TELEMETRY_RING_DEFAULT
+    exporters: Tuple[str, ...] = ()
+    export_interval_seconds: float = C.TELEMETRY_EXPORT_INTERVAL_DEFAULT
+    output_path: str = C.TELEMETRY_OUTPUT_PATH_DEFAULT
+    trace: bool = C.TELEMETRY_TRACE_ENABLED_DEFAULT
+    trace_path: str = ""  # "" = <output_path>/trace.json
+    trace_buffer_events: int = C.TELEMETRY_TRACE_BUFFER_DEFAULT
+    profiler_dir: str = ""
+    profiler_capture_ms: int = C.TELEMETRY_PROFILER_CAPTURE_MS_DEFAULT
+    slo_ttft_breach_ms: float = C.TELEMETRY_SLO_TTFT_BREACH_MS_DEFAULT
+    aggregate: bool = C.TELEMETRY_AGGREGATE_DEFAULT
+    attribution: bool = C.TELEMETRY_ATTRIBUTION_DEFAULT
+    attribution_max_hlo_mb: float = C.TELEMETRY_ATTRIBUTION_MAX_HLO_MB_DEFAULT
+    spike_factor: float = C.TELEMETRY_SPIKE_FACTOR_DEFAULT
+    spike_min_window: int = C.TELEMETRY_SPIKE_MIN_WINDOW_DEFAULT
+    straggler_factor: float = C.TELEMETRY_STRAGGLER_FACTOR_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "TelemetryConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        raw_exp = d.pop("exporters", ())
+        if isinstance(raw_exp, str):
+            raw_exp = [raw_exp]
+        out = cls(
+            enabled=bool(d.pop("enabled", C.TELEMETRY_ENABLED_DEFAULT)),
+            ring=int(d.pop("ring", C.TELEMETRY_RING_DEFAULT)),
+            exporters=tuple(str(e).lower() for e in raw_exp),
+            export_interval_seconds=float(
+                d.pop("export_interval_seconds", C.TELEMETRY_EXPORT_INTERVAL_DEFAULT)),
+            output_path=str(d.pop(C.TELEMETRY_OUTPUT_PATH, C.TELEMETRY_OUTPUT_PATH_DEFAULT)),
+            trace=bool(d.pop("trace", C.TELEMETRY_TRACE_ENABLED_DEFAULT)),
+            trace_path=str(d.pop("trace_path", "")),
+            trace_buffer_events=int(d.pop("trace_buffer_events", C.TELEMETRY_TRACE_BUFFER_DEFAULT)),
+            profiler_dir=str(d.pop("profiler_dir", "")),
+            profiler_capture_ms=int(
+                d.pop("profiler_capture_ms", C.TELEMETRY_PROFILER_CAPTURE_MS_DEFAULT)),
+            slo_ttft_breach_ms=float(
+                d.pop("slo_ttft_breach_ms", C.TELEMETRY_SLO_TTFT_BREACH_MS_DEFAULT)),
+            aggregate=bool(d.pop("aggregate", C.TELEMETRY_AGGREGATE_DEFAULT)),
+            attribution=bool(d.pop("attribution", C.TELEMETRY_ATTRIBUTION_DEFAULT)),
+            attribution_max_hlo_mb=float(
+                d.pop("attribution_max_hlo_mb", C.TELEMETRY_ATTRIBUTION_MAX_HLO_MB_DEFAULT)),
+            spike_factor=float(d.pop("spike_factor", C.TELEMETRY_SPIKE_FACTOR_DEFAULT)),
+            spike_min_window=int(d.pop("spike_min_window", C.TELEMETRY_SPIKE_MIN_WINDOW_DEFAULT)),
+            straggler_factor=float(
+                d.pop("straggler_factor", C.TELEMETRY_STRAGGLER_FACTOR_DEFAULT)),
+        )
+        _check_empty(d, C.TELEMETRY, _known_keys(cls))
+        unknown = set(out.exporters) - set(C.TELEMETRY_EXPORTERS)
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"'{C.TELEMETRY}.exporters' must be a subset of "
+                f"{C.TELEMETRY_EXPORTERS}, got {sorted(unknown)}"
+            )
+        positive = (("ring", out.ring >= 16, ">= 16"),
+                    ("export_interval_seconds", out.export_interval_seconds > 0, "> 0"),
+                    ("trace_buffer_events", out.trace_buffer_events >= 1000, ">= 1000"),
+                    ("profiler_capture_ms", out.profiler_capture_ms > 0, "> 0"),
+                    ("slo_ttft_breach_ms", out.slo_ttft_breach_ms >= 0, ">= 0"),
+                    ("spike_factor", out.spike_factor > 1.0, "> 1"),
+                    ("straggler_factor", out.straggler_factor > 1.0, "> 1"),
+                    ("attribution_max_hlo_mb", out.attribution_max_hlo_mb > 0, "> 0"))
+        for key, ok, rule in positive:
+            if not ok:
+                raise DeepSpeedConfigError(
+                    f"'{C.TELEMETRY}.{key}' must be {rule}, got {getattr(out, key)}")
+        if out.aggregate:
+            raise _not_ported(f"{C.TELEMETRY}.aggregate",
+                              "A14 resilience/supervision/ (the heartbeat it rides)")
+        return out
+
+
+@dataclass
+class TensorboardConfig:
+    """``tensorboard`` block (the JAX package's): the engine's
+    ``utils/monitor.py`` ``TensorBoardMonitor``."""
+
+    enabled: bool = C.TENSORBOARD_ENABLED_DEFAULT
+    output_path: str = C.TENSORBOARD_OUTPUT_PATH_DEFAULT
+    job_name: str = C.TENSORBOARD_JOB_NAME_DEFAULT
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]]) -> "TensorboardConfig":
+        if d is None:
+            return cls()
+        d = dict(d)
+        out = cls(
+            enabled=bool(d.pop(C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT)),
+            output_path=d.pop(C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT),
+            job_name=d.pop(C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT),
+        )
+        _check_empty(d, C.TENSORBOARD, _known_keys(cls))
+        return out
+
+
 # top-level keys of the JAX package that the port does not honour yet:
 # key -> (predicate "at its off default", ROADMAP item)
 _TOP_NOT_PORTED = {
-    "wall_clock_breakdown": (lambda v: v is False, "A14"),
-    "tensorboard": (_off_block, "A14"),
     "sanitizer": (_off_block, "A15"),
-    "telemetry": (_off_block, "A14 telemetry/"),
     "kernels": (lambda v: v is None or v == {} or v == {"enabled": "auto"},
                 "B (the port has no kernel switch: CUDA tensors always take the kernels)"),
-    "flops_profiler": (_off_block, "A14 profiling/flops_profiler.py"),
     "elasticity": (_off_block, "A14 elasticity/"),
 }
 
@@ -1642,7 +1785,8 @@ _PORTED_TOP_LEVEL = {
     C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR, C.SPARSE_GRADIENTS,
     C.ALLREDUCE_ALWAYS_FP32, C.MEMORY_BREAKDOWN, C.DUMP_STATE, C.DISABLE_ALLGATHER,
     C.ZERO_ALLOW_UNTESTED_OPTIMIZER, "aio", "amp", "activation_checkpointing",
-    "quantize_training", "progressive_layer_drop",
+    "quantize_training", "progressive_layer_drop", C.WALL_CLOCK_BREAKDOWN, C.TENSORBOARD,
+    C.TELEMETRY, C.FLOPS_PROFILER,
 }
 # the JAX package's ``_KNOWN_TOP_LEVEL``
 _KNOWN_TOP_LEVEL = _PORTED_TOP_LEVEL | set(_TOP_NOT_PORTED)
@@ -1697,6 +1841,11 @@ class DeepSpeedConfig:
         self.quantize_training = QuantizeTrainingConfig.from_dict(d.get("quantize_training"))
         self.progressive_layer_drop = ProgressiveLayerDropConfig.from_dict(
             d.get("progressive_layer_drop"))
+        self.flops_profiler = FlopsProfilerConfig.from_dict(d.get(C.FLOPS_PROFILER))
+        self.tensorboard = TensorboardConfig.from_dict(d.get(C.TENSORBOARD))
+        self.telemetry = TelemetryConfig.from_dict(d.get(C.TELEMETRY))
+        self.wall_clock_breakdown = bool(d.get(C.WALL_CLOCK_BREAKDOWN,
+                                               C.WALL_CLOCK_BREAKDOWN_DEFAULT))
         # ``amp`` is a known key of the JAX package that nothing reads: any
         # block is accepted and left unread, as there
         # validated as in the JAX package, which never reads it either

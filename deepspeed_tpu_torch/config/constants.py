@@ -300,3 +300,42 @@ ASYNC_CHECKPOINT_DRAIN_TIMEOUT_DEFAULT = 300.0  # seconds
 OVERLAP_TIMELINE = "timeline"
 TIMELINE_ENABLED_DEFAULT = True
 TIMELINE_WINDOW_DEFAULT = 512  # steps retained for summaries
+
+#############################################
+# Monitoring and telemetry (the JAX package's constants)
+#############################################
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+
+FLOPS_PROFILER = "flops_profiler"
+
+TELEMETRY = "telemetry"
+TELEMETRY_ENABLED_DEFAULT = True  # in-process registry only; no sinks by default
+TELEMETRY_RING_DEFAULT = 1024  # per-metric ring-buffer samples
+TELEMETRY_EXPORTERS = ["jsonl", "prometheus", "tensorboard"]
+TELEMETRY_EXPORT_INTERVAL_DEFAULT = 10.0  # seconds between sink flushes
+TELEMETRY_OUTPUT_PATH = "output_path"
+TELEMETRY_OUTPUT_PATH_DEFAULT = ""  # "" = ./telemetry when a sink needs a path
+TELEMETRY_TRACE_ENABLED_DEFAULT = False  # Chrome-trace span buffer
+TELEMETRY_TRACE_BUFFER_DEFAULT = 100_000  # span ring-buffer events
+TELEMETRY_PROFILER_CAPTURE_MS_DEFAULT = 2000  # torch.profiler window length
+TELEMETRY_SLO_TTFT_BREACH_MS_DEFAULT = 0.0  # 0 = no on-breach capture
+# the JAX package's default is true (snapshots ride the supervision
+# heartbeat); the heartbeat is not ported (ROADMAP A14), so nothing rides
+TELEMETRY_AGGREGATE_DEFAULT = False
+# the JAX package's default is true (its HLO walk runs at compile time);
+# the port counts a step as it runs, about a second of host time at GPT-2
+# 124M, so the counted step is asked for
+TELEMETRY_ATTRIBUTION_DEFAULT = False
+TELEMETRY_ATTRIBUTION_MAX_HLO_MB_DEFAULT = 256.0  # the JAX walk's cap; parsed, unused here
+TELEMETRY_SPIKE_FACTOR_DEFAULT = 2.5  # step wall > factor x window mean -> anomaly
+TELEMETRY_SPIKE_MIN_WINDOW_DEFAULT = 8  # samples before the spike watch arms
+TELEMETRY_STRAGGLER_FACTOR_DEFAULT = 1.5  # rank wall > factor x cluster median

@@ -543,7 +543,18 @@ class InferenceEngine:
                                  seed=seed, position=step)
 
         last = slice(T - 1, T)  # the prompt's logits that generation reads
-        with torch.inference_mode():
+        # telemetry: generate calls and the tokens they ask for; the span
+        # closes after the tokens are read back to the host, so it holds
+        # the card's work
+        from deepspeed_tpu_torch.telemetry import get_registry, get_tracer
+
+        reg, tracer = get_registry(), get_tracer()
+        if reg.enabled:
+            reg.counter("inference/generate_calls", engine="inference").inc()
+            reg.counter("inference/tokens_requested", engine="inference").inc(B * N)
+        with tracer.span("generate", "inference",
+                         args={"batch": B, "prompt_len": T, "max_new_tokens": N}), \
+                torch.inference_mode():
             if masked:
                 prompt_mask = torch.as_tensor(am_np, device=dev).bool()
                 position_ids = torch.clamp(torch.cumsum(prompt_mask.long(), dim=1) - 1, min=0)

@@ -503,6 +503,45 @@ def _variant(kbias, fbias, drop) -> str:
     return form + ("+dropout" if drop is not None else "")
 
 
+# per (query, key) pair: the forward's two products, the backward's five
+# (s, dp, dv, dk, dq), its dq pass's three and its dk/dv pass's four; and
+# the q-row and k-row tensors each pass reads or writes once
+_ATTN_PASSES = {
+    "flash_fwd": (4, 2, 2), "flash_bwd": (10, 3, 4),
+    "flash_bwd_dq": (6, 3, 2), "flash_bwd_dkv": (8, 2, 4),
+}
+
+
+def attention_pairs(sq: int, sk: int, causal: bool) -> float:
+    """The (query, key) pairs a (batch, head) computes: all of them, or
+    under the end-aligned causal mask ``sq (sk - sq + 1) + sq (sq - 1) / 2``."""
+    if not causal:
+        return float(sq * sk)
+    return sq * (sk - sq + 1) + sq * (sq - 1) / 2.0
+
+
+def attention_cost(name: str, q, k, causal: bool, kbias=None, fbias=None,
+                   lse: bool = True) -> Tuple[float, float]:
+    """``(flops, bytes)`` of one launch of B1, B2, B6a or B6b, the formulas
+    of their bounds in ``PERF.md``: ``2 d`` FLOPs a product a pair, each
+    q-row and k-row tensor read or written once, the f32 lse (and the
+    backward's delta) rows, and the bias read once."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    prods, q_rows, k_rows = _ATTN_PASSES[name]
+    flops = prods * d * attention_pairs(sq, sk, causal) * b * h
+    nbytes = (q_rows * sq + k_rows * sk) * b * h * d * q.element_size()
+    if name == "flash_fwd":
+        nbytes += 4 * b * h * sq if lse else 0
+    else:
+        nbytes += 2 * 4 * b * h * sq
+    if kbias is not None:
+        nbytes += 4 * b * sk
+    if fbias is not None:
+        nbytes += 4 * b * h * sq * sk
+    return flops, nbytes
+
+
 def _body(name: str, dtype) -> Tuple[str, str]:
     """``(library entry, body)`` of B1, B2, B6a, B6b, B8, B9a or B9b for
     ``dtype``: bf16 the tensor-core body (``<name>_tc``, ``tc``), f32 the
@@ -591,7 +630,9 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, want_lse: bool = Fals
         torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch("flash_fwd", f"{_variant(kbias, fbias, drop)}/{body}")
+    _kernels.count_launch("flash_fwd", f"{_variant(kbias, fbias, drop)}/{body}",
+                          cost=lambda: attention_cost("flash_fwd", q, k, causal, kbias, fbias,
+                                                      lse=want_lse))
     return out, lse
 
 
@@ -681,7 +722,8 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias
         int(bool(causal)), float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch("flash_bwd", f"{_variant(kbias, fbias, drop)}/{body}")
+    _kernels.count_launch("flash_bwd", f"{_variant(kbias, fbias, drop)}/{body}",
+                          cost=lambda: attention_cost("flash_bwd", q, k, causal, kbias, fbias))
     return dq32.to(q.dtype), dk, dv
 
 
@@ -717,7 +759,8 @@ def _launch_bwd2(name: str, outs, q, k, v, do, lse, delta, causal: bool, sm_scal
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch(name, f"{_variant(kbias, fbias, drop)}/{body}")
+    _kernels.count_launch(name, f"{_variant(kbias, fbias, drop)}/{body}",
+                          cost=lambda: attention_cost(name, q, k, causal, kbias, fbias))
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float, kbias=None,

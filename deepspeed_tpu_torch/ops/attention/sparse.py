@@ -910,6 +910,29 @@ def _check_tensors(who: str, layout, block, q, k, v, do=None, lse=None, delta=No
             raise ValueError(f"{who}: {name} must be contiguous")
 
 
+def splash_cost(name: str, q, layout: np.ndarray, block: int, causal: bool):
+    """``(flops, bytes)`` of one launch of B8, B9a or B9b (``name`` as the
+    dense pass it mirrors: ``flash_fwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``), the dense formulas over the (query, key) pairs the
+    layout's live tiles hold (a causal diagonal tile half of them)."""
+    b, h, t, d = q.shape
+    lay = np.asarray(layout).astype(bool)
+    lay = np.broadcast_to(lay, (h,) + lay.shape[1:]) if lay.shape[0] == 1 else lay
+    nb = lay.shape[-1]
+    diag = int(sum(lay[:, i, i].sum() for i in range(nb)))
+    full = block * block
+    if causal:
+        below = int(sum(np.tril(x, -1).sum() for x in lay))
+        pairs = below * full + diag * block * (block + 1) / 2.0
+    else:
+        pairs = float(lay.sum()) * full
+    prods, q_rows, k_rows = _fa._ATTN_PASSES[name]
+    flops = prods * d * pairs * b
+    nbytes = (q_rows + k_rows) * t * b * h * d * q.element_size()
+    nbytes += (4 if name == "flash_fwd" else 8) * b * h * t
+    return flops, nbytes
+
+
 def _kernel_arrays(layout: np.ndarray, dev):
     return _kernel_arrays_cached(*_layout_key(layout), str(dev))
 
@@ -942,7 +965,8 @@ def splash_fwd_cuda(q, k, v, layout: np.ndarray, block: int, causal: bool, sm_sc
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch("splash_fwd", "none/" + body)
+    _kernels.count_launch("splash_fwd", "none/" + body,
+                          cost=lambda: splash_cost("flash_fwd", q, layout, block, causal))
     return out, lse
 
 
@@ -977,7 +1001,8 @@ def splash_bwd_dq_cuda(q, k, v, do, lse, delta, layout: np.ndarray, block: int, 
         float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch("splash_bwd_dq", "none/" + body)
+    _kernels.count_launch("splash_bwd_dq", "none/" + body,
+                          cost=lambda: splash_cost("flash_bwd_dq", q, layout, block, causal))
     return dq
 
 
@@ -1010,7 +1035,8 @@ def splash_bwd_dkv_cuda(q, k, v, do, lse, delta, layout: np.ndarray, block: int,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     lib.check(entry, err)
-    _kernels.count_launch("splash_bwd_dkv", "none/" + body)
+    _kernels.count_launch("splash_bwd_dkv", "none/" + body,
+                          cost=lambda: splash_cost("flash_bwd_dkv", q, layout, block, causal))
     return dk, dv
 
 

@@ -37,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -184,6 +185,10 @@ class KernelLibrary:
         self.build_log: Dict[str, str] = {}
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
         self._libs: Dict[str, ctypes.CDLL] = {}
+        # the sources a build is compiling now (on any thread): fn() waits
+        # for its unit's compile in flight rather than start another beside it
+        self._in_flight: set = set()
+        self._flight = threading.Condition()
 
     def _so_path(self, name: str) -> Path:
         return self.build_dir / f"lib{Path(_UNITS[name][0]).stem}.so"
@@ -203,7 +208,18 @@ class KernelLibrary:
         started together.  Returns the wall seconds of each compile, by
         kernel or body (kernels that share a source share its compile)."""
         names = list(_UNITS if names is None else names)
-        todo = [n for n in names if force or self._stale(n)]
+        with self._flight:
+            todo = [n for n in names if force or self._stale(n)]
+            sources = {_UNITS[n][0] for n in todo}
+            self._in_flight.update(sources)
+        try:
+            return self._build(todo)
+        finally:
+            with self._flight:
+                self._in_flight.difference_update(sources)
+                self._flight.notify_all()
+
+    def _build(self, todo):
         if not todo:
             return {}
         sources = {_UNITS[n][0]: n for n in todo}  # one nvcc per source
@@ -239,6 +255,8 @@ class KernelLibrary:
         on first use."""
         f = self._fns.get(name)
         if f is None:
+            with self._flight:
+                self._flight.wait_for(lambda: _UNITS[name][0] not in self._in_flight)
             if self._stale(name):
                 self.build([name])
             lib = ctypes.CDLL(str(self._so_path(name)))  # dlopen: one handle per file
@@ -278,15 +296,33 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     return _LIBRARY.build(names, force=force)
 
 
-def count_launch(name: str, variant: Optional[str] = None) -> None:
+_COST_SINK = None
+
+
+def set_cost_sink(sink):
+    """Route every launch's analytic cost to ``sink(name, variant, flops,
+    nbytes)`` (the telemetry's counted step, ``telemetry/attribution.py``),
+    or stop with ``None``; returns the previous sink."""
+    global _COST_SINK
+    prev, _COST_SINK = _COST_SINK, sink
+    return prev
+
+
+def count_launch(name: str, variant: Optional[str] = None, cost=None) -> None:
     """One launch of kernel ``name``; ``variant`` names the options it ran
     with (for the attention kernels: ``none``, ``kbias`` or ``fbias``, plus
     ``+dropout``; for B1, B2, B6a, B6b, B8, B9a and B9b also the body,
-    ``/tc`` or ``/simt``)."""
+    ``/tc`` or ``/simt``).  ``cost``: a callable giving the launch's
+    ``(flops, bytes)`` (the formulas of its bound in ``PERF.md``), called
+    only while a cost sink is set."""
     _LIBRARY.launches[name] += 1
     if variant is not None:
         v = _LIBRARY.variants[name]
         v[variant] = v.get(variant, 0) + 1
+    sink = _COST_SINK
+    if sink is not None and cost is not None:
+        flops, nbytes = cost()
+        sink(name, variant, float(flops), float(nbytes))
 
 
 def reset_launches() -> None:

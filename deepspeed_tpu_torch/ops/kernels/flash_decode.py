@@ -220,6 +220,30 @@ def _pos_vector(pos, B: int, dev) -> torch.Tensor:
     return torch.full((B,), int(pos), dtype=torch.int32, device=dev)
 
 
+def decode_cost(q, kv_item: int, pos_vec, S: int, kpm=None, quant: bool = False,
+                table_bytes: int = 0):
+    """``(flops, bytes)`` of one decode launch, the formula of its bound in
+    ``PERF.md``: each attendable K and V row once (all S rows of a slot
+    with no attendable key), q, out, the positions, and the int8 scales,
+    the mask prefix and the page table where present.  Reads the
+    positions (and the mask) back to the host: a counted step's cost,
+    never a served step's."""
+    B, H, _, d = q.shape
+    pos = pos_vec.tolist()
+    rows = 0
+    for b in range(B):
+        n = min(int(pos[b]), S - 1) + 1
+        if kpm is not None and not bool(kpm[b, :n].any()):
+            n = S
+        rows += n
+    nbytes = rows * H * d * 2 * kv_item + 2 * B * H * d * q.element_size() + 4 * B
+    if quant:
+        nbytes += rows * H * 2 * 4
+    if kpm is not None:
+        nbytes += rows
+    return 4 * rows * H * d, nbytes + table_bytes
+
+
 def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None,
                       key_padding_mask=None) -> torch.Tensor:
     """Launch the CUDA kernel (``csrc/flash_decode.cu``: the split over
@@ -292,7 +316,8 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, sm_scale: Optional[float] = None
         _KV_CODES[k_op.dtype], float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("flash_decode", err)
-    _kernels.count_launch("flash_decode")
+    _kernels.count_launch("flash_decode", cost=lambda: decode_cost(
+        q, k_op.element_size(), pos_vec, S, kpm=kpm, quant=quant))
     return out
 
 
@@ -377,7 +402,8 @@ def flash_decode_paged_cuda(q, k_cache, v_cache, page_table, pos,
         float(sm_scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("flash_decode_paged", err)
-    _kernels.count_launch("flash_decode_paged")
+    _kernels.count_launch("flash_decode_paged", cost=lambda: decode_cost(
+        q, k_op.element_size(), pos_vec, P * page_len, quant=quant, table_bytes=B * P * 4))
     return out
 
 

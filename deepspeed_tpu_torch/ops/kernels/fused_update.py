@@ -88,7 +88,9 @@ def adam_leaf_cuda(p, g, m, v, scal, *, b1, b2, eps, weight_decay, adam_w_mode) 
         int(bool(adam_w_mode)), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("fused_adam", err)
-    _kernels.count_launch("fused_adam")
+    # 24 FLOPs an element; p and g read, p written, m and v read and written
+    _kernels.count_launch("fused_adam", cost=lambda: (
+        24 * p.numel(), p.numel() * (2 * p.element_size() + g.element_size() + 16)))
 
 
 def adam_leaf(p, g, m, v, scal, *, b1, b2, eps, weight_decay, adam_w_mode) -> None:
@@ -183,7 +185,9 @@ def lamb_dir_cuda(p, g, m, v, scal, dir_buf, *, b1, b2, eps, weight_decay) -> to
         float(weight_decay), torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("fused_lamb_dir", err)
-    _kernels.count_launch("fused_lamb_dir")
+    # 26 FLOPs an element; p, g read, m, v read and written, the f32 direction written
+    _kernels.count_launch("fused_lamb_dir", cost=lambda: (
+        26 * n, n * (p.element_size() + g.element_size() + 20)))
     return partials
 
 
@@ -205,7 +209,9 @@ def lamb_apply_cuda(p, dir_buf, scal, trust) -> None:
         _DTYPE_CODES[p.dtype], torch.cuda.current_stream(dev).cuda_stream,
     )
     lib.check("fused_lamb_apply", err)
-    _kernels.count_launch("fused_lamb_apply")
+    # 2 FLOPs an element; the f32 direction and p read, p written
+    _kernels.count_launch("fused_lamb_apply", cost=lambda: (
+        2 * p.numel(), p.numel() * (4 + 2 * p.element_size())))
 
 
 def lamb_trust_from_partials(partials, min_coeff, max_coeff) -> torch.Tensor:

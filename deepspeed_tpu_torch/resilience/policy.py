@@ -82,9 +82,11 @@ def retry_call(
                 ) from e
             if on_retry is not None:
                 on_retry(attempt, e, pause)
-            # the JAX package also counts each retry in its telemetry
-            # registry ("resilience/retries"); the port has no registry
-            # until ROADMAP A14 ports telemetry/
+            from deepspeed_tpu_torch.telemetry import get_registry
+
+            get_registry().counter(
+                "resilience/retries", fn=getattr(fn, "__name__", "call")
+            ).inc()
             sleep(pause)
     raise RetryError(
         f"{getattr(fn, '__name__', 'call')} failed after {policy.max_attempts} attempt(s): {last!r}"

@@ -132,12 +132,27 @@ crosses the wire (``runtime/fp16/onebit/``, :meth:`_explicit_step`).  The
 compressed strategies exchange each rank's gradient row once a step
 (``comm/strategy.py`` ``exchange_rows``) and then take the dense update.
 
+**Telemetry** (``telemetry`` block; ``telemetry/``): the engine arms the
+process's plane before the comm layer (whose strategy decisions land in
+the registry), attaches its step timeline (phase histograms, the step
+wall, MFU), counts its first step into the per-bucket cost table
+(``telemetry/attribution.py``: the MFU numerator and the flops
+profiler's cost) and, with a sink or the trace armed on the card, times
+its second under ``torch.profiler``.  With tracing armed each step's
+work on the card is one span between two CUDA events, placed at export
+or report time.  At ``steps_per_print`` the loss, lr and loss scale go
+to the registry and the TensorBoard monitor; the loss is read off the
+card (``.item()``) only when a monitor, an exporter or
+``wall_clock_breakdown`` asks for it, so registry-only telemetry adds no
+sync.  ``wall_clock_breakdown`` fences the timeline's ``compute`` phase
+and logs the timeline and the CUDA-event timers at that cadence.
+
 Not ported (each raises, naming its ROADMAP item, or is absent): 1-bit
 optimizers under ZeRO stage >= 1 and explicit exchanges under stage 3 or
 model parallelism (A13), offload under model parallelism (A12's
 remainder), the reduced Adam state and MoQ on cut leaves (A13, the
-compositions), supervision, telemetry, sanitizer and flops profiler
-(A14/A15).
+compositions), supervision and telemetry's cross-rank aggregation (A14)
+and the sanitizer (A15).
 """
 from __future__ import annotations
 
@@ -159,6 +174,12 @@ from deepspeed_tpu_torch.parallel.sequence import ambient_mesh
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (
+    BACKWARD_TIMER,
+    FORWARD_TIMER,
+    STEP_TIMER,
+    TRAIN_BATCH_TIMER,
+)
 
 _SEED_MASK = (1 << 63) - 1
 
@@ -379,6 +400,8 @@ class DeepSpeedEngine:
                 self.opt_state = self.optimizer.init(
                     [self._update_param(i) for i in range(len(self._params))])
         self.loss_scale_state = self.loss_scaler.init(self.device)
+        # a static scaler's scale on the host (load_checkpoint refreshes it)
+        self._static_scale = self.loss_scaler.init_scale
         self._init_training_extras(config)
 
         self.skipped_steps = 0
@@ -390,6 +413,7 @@ class DeepSpeedEngine:
         self._last_info: Dict[str, Any] = {}
         self._peer_preempt = False  # a preemption seen by any rank (the step scalars)
         self._init_onebit()
+        self._init_telemetry(config)
         self._init_comm_layer(config)
         self._init_resilience_and_overlap(config)
         log_dist(
@@ -639,6 +663,42 @@ class DeepSpeedEngine:
                 "— the optimizer will fall back to local momentum quantization with "
                 f"full-precision allreduce ({'; '.join(failed)})")
 
+    def _init_telemetry(self, config) -> None:
+        """The telemetry plane (the JAX engine's ``engine.py:433-453``),
+        armed BEFORE the comm layer so its strategy decisions land in the
+        registry; the TensorBoard monitor (a sink: the loss/lr/loss-scale
+        events go through the manager), the flops profiler, the
+        CUDA-event timers, and the throughput timer where the breakdown or
+        the monitor reads it (its report waits for the card)."""
+        from deepspeed_tpu_torch import telemetry as _telemetry
+        from deepspeed_tpu_torch.config.config import (
+            FlopsProfilerConfig,
+            TelemetryConfig,
+            TensorboardConfig,
+        )
+        from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler, device_name
+        from deepspeed_tpu_torch.utils.monitor import TensorBoardMonitor
+        from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer, ThroughputTimer
+
+        tb = getattr(config, "tensorboard", None) or TensorboardConfig()
+        self.monitor = TensorBoardMonitor(output_path=tb.output_path, job_name=tb.job_name,
+                                          enabled=tb.enabled, rank=self.global_rank)
+        self.telemetry = _telemetry.configure(
+            getattr(config, "telemetry", None) or TelemetryConfig(), rank=self.global_rank,
+            label="train", monitor=self.monitor, device_name=device_name(self.device))
+        self.flops_profiler = FlopsProfiler(
+            getattr(config, "flops_profiler", None) or FlopsProfilerConfig(), engine=self)
+        self.timers = SynchronizedWallClockTimer(self.device)
+        self.wall_clock_breakdown = bool(getattr(config, "wall_clock_breakdown", False))
+        self.tput_timer = (ThroughputTimer(batch_size=config.train_batch_size,
+                                           steps_per_output=config.steps_per_print,
+                                           device=self.device)
+                           if self.wall_clock_breakdown or self.monitor.enabled else None)
+        self._step_cost: Dict[str, float] = {}
+        # the first step is counted, the second (when a sink reads it) timed
+        self._attr_stage = ("count" if self.telemetry.attribution_armed
+                            or self.flops_profiler.enabled else None)
+
     def _init_comm_layer(self, config) -> None:
         """The comm layer (the JAX engine's ``_init_comm_layer``): resolve
         the gradient exchange's strategy once; ``int8`` / ``onebit`` switch
@@ -703,6 +763,8 @@ class DeepSpeedEngine:
             log_dist(f"comm: '{want}' gradient exchange over ('data', 'fsdp') (n={n} ranks, "
                      f"{self._comm_flat_len} padded coords, "
                      f"{'EF residuals in state' if self._comm_residuals else 'stateless'})")
+        if self.telemetry.collect:
+            self.telemetry.set_comm(self.comm_summary())
 
     def comm_summary(self, rows: Optional[int] = None, seq_len: Optional[int] = None,
                      labels_given: bool = False) -> Dict[str, Any]:
@@ -763,10 +825,12 @@ class DeepSpeedEngine:
         self.overlap = getattr(config, "overlap", None) or OverlapConfig()
         self.timeline = StepTimeline(enabled=self.overlap.timeline.enabled,
                                      window=self.overlap.timeline.window)
+        if self.telemetry.collect or self.telemetry.tracer.enabled:
+            self.timeline.attach_telemetry(self.telemetry, prefix="train")
         # the fence (a synchronize per step) follows wall_clock_breakdown
-        # when unset; the port refuses that key (ROADMAP A14), so only an
-        # explicit ``fence: true`` turns it on
-        self._timeline_fence = bool(self.overlap.timeline.fence)
+        # when unset, whose timers already read the card at report time
+        fence = self.overlap.timeline.fence
+        self._timeline_fence = self.wall_clock_breakdown if fence is None else bool(fence)
         self._async_writer = (
             AsyncCheckpointWriter(
                 drain_timeout_seconds=self.overlap.async_checkpoint.drain_timeout_seconds)
@@ -1416,8 +1480,81 @@ class DeepSpeedEngine:
             self.quantizer.maybe_log(self._host_global_step)
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self._host_global_step)
+        self._maybe_report_progress()
         self._on_step_boundary(overflowed, loss=loss)
         self.timeline.end_step()
+
+    def _maybe_report_progress(self) -> None:
+        """At ``steps_per_print``: the progress line, the
+        ``wall_clock_breakdown`` summary (the timeline and the CUDA-event
+        timers, read here), and the loss/lr/loss-scale events through the
+        telemetry manager (the JAX engine's ``engine.py:1995-2030``).  The
+        loss is read off the card only when a consumer is armed (monitor,
+        sinks or ``wall_clock_breakdown``); the registry-only default
+        skips the loss gauge and reads nothing."""
+        step = self._host_global_step
+        if step <= 0 or step % self.config.steps_per_print:
+            return
+        tm = self.telemetry
+        read = tm.monitor_enabled or tm.exports_armed or self.wall_clock_breakdown
+        # the scale off the card only where the card is read anyway: for a
+        # consumer, or a dynamic scaler (its overflow flag, every step)
+        scale = (self.loss_scale if read or self.loss_scaler.dynamic
+                 else self._static_scale)
+        log_dist(f"step={step} lr={self.get_lr()[0]:.3e} loss_scale={scale:.1f}")
+        if self.wall_clock_breakdown:
+            if self.timeline.enabled:
+                log_dist(self.timeline.format_summary(self.config.steps_per_print))
+            self.timers.log([TRAIN_BATCH_TIMER, FORWARD_TIMER, BACKWARD_TIMER, STEP_TIMER],
+                            normalizer=self.config.steps_per_print)
+        if tm.tracer.enabled:
+            tm.tracer.resolve()  # the card's spans, at report cadence
+        if tm.collect or tm.monitor_enabled:
+            last = self._last_loss
+            loss = float(last) if read and last is not None else None
+            tm.publish_train_progress(step=step, samples=self.global_samples, loss=loss,
+                                      lr=float(self.get_lr()[0]), loss_scale=scale)
+
+    def train_step_attribution(self):
+        """The counted step's per-bucket cost table
+        (:class:`~deepspeed_tpu_torch.telemetry.attribution.Attribution`,
+        with the timed step's device ms once timed), or None before the
+        first step or when attribution is off."""
+        return self.telemetry.attribution()
+
+    def _attribution_window(self):
+        """The context the coming step runs in: the counting mode on the
+        first step, a ``torch.profiler`` window on the second when a sink
+        or the trace reads it on the card; else a no-op: ``(stage, context)``."""
+        from contextlib import nullcontext
+
+        stage = self._attr_stage
+        if stage == "count":
+            from deepspeed_tpu_torch.telemetry.attribution import counting
+
+            return stage, counting("train_step", self.telemetry.device_name)
+        if stage == "time":
+            from deepspeed_tpu_torch.telemetry.attribution import timing
+
+            return stage, timing()
+        return None, nullcontext()
+
+    def _close_attribution(self, stage, handle) -> None:
+        tm = self.telemetry
+        if stage == "count":
+            attr = handle.attribution(tm.device_name)
+            self._step_cost = {"flops": attr.total_flops(), "bytes accessed": attr.total_bytes()}
+            tm.set_step_cost(self._step_cost)
+            armed = tm.attribution_armed
+            if armed:
+                tm.set_attribution(attr)
+            timed = armed and self.device.type == "cuda" and (tm.exports_armed or tm.tracer.enabled)
+            self._attr_stage = "time" if timed else None
+        elif stage == "time":
+            self._attr_stage = None
+            if handle.timing is not None and tm.attribution() is not None:
+                tm.attribution().set_timing(handle.timing)
+                tm.set_attribution(tm.attribution())
 
     def _fence_compute(self, t_compute: float) -> None:
         """With ``overlap.timeline.fence``, wait for the card and note the
@@ -1438,7 +1575,11 @@ class DeepSpeedEngine:
             raise RuntimeError(
                 "the 1-bit compressed phase and comm.strategy int8/onebit run whole batches "
                 "(each rank's gradient row is exchanged once a step); use train_batch()")
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_TIMER).start()
         loss = self._micro_step(self._prepare_batch(batch))
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_TIMER).stop()
         self._cached_loss = self._last_loss = loss
         return loss
 
@@ -1449,6 +1590,11 @@ class DeepSpeedEngine:
         the ordering checkpoint."""
         if self._cached_loss is None:
             raise RuntimeError("backward() called before forward()")
+        if self.wall_clock_breakdown:
+            # the gradients were produced in forward(): an empty region,
+            # as the JAX engine's
+            self.timers(BACKWARD_TIMER).start()
+            self.timers(BACKWARD_TIMER).stop()
         loss = self._cached_loss
         self._cached_loss = None
         return loss
@@ -1456,7 +1602,13 @@ class DeepSpeedEngine:
     def step(self) -> None:
         """Apply the optimizer step at the gradient-accumulation boundary."""
         if self.is_gradient_accumulation_boundary():
-            self._end_step(self._apply_step(), loss=self._last_loss)
+            if self.wall_clock_breakdown:
+                self.timers(STEP_TIMER).start()
+            info = self._apply_step()
+            if self.wall_clock_breakdown:
+                self.timers(STEP_TIMER).stop()
+                self.timers.log([FORWARD_TIMER, BACKWARD_TIMER, STEP_TIMER])
+            self._end_step(info, loss=self._last_loss)
 
     def train_batch(self, batch: Any) -> torch.Tensor:
         """One step: every leaf's leading dim is ``gas * micro_batch``,
@@ -1465,6 +1617,8 @@ class DeepSpeedEngine:
         micro-batches (a 0-dim tensor on the device).  Batches from ``prefetch_loader`` are already on the
         device and pass straight through."""
         gas = self.gradient_accumulation_steps
+        if self.tput_timer is not None:
+            self.tput_timer.start()
         if (self._onebit_exchange_ok and not self._onebit_frozen
                 and self._host_global_step >= self.optimizer.freeze_step):
             self._enter_onebit_frozen()
@@ -1472,22 +1626,68 @@ class DeepSpeedEngine:
             # the prefetcher noted its own wait as data_wait
             leaves, rebuild = batch.take()
         else:
-            t_place = time.perf_counter()
-            leaves, rebuild = tree_flatten(batch)
-            leaves = [self._to_device(x) for x in leaves]
-            self.timeline.note("data_wait", time.perf_counter() - t_place)
+            with self.timeline.phase("data_wait"):
+                leaves, rebuild = tree_flatten(batch)
+                leaves = [self._to_device(x) for x in leaves]
+        profile_step = self._host_global_step + 1
+        self.flops_profiler.start_step(profile_step)
+        if self.wall_clock_breakdown:
+            self.timers(TRAIN_BATCH_TIMER).start()
+        span = self._step_span_start()
         t_compute = time.perf_counter()
-        mb = leaves[0].shape[0] // gas if leaves else 0
-        losses = []
-        for i in range(gas):
-            micro = rebuild([x[i * mb:(i + 1) * mb] for x in leaves])
-            losses.append(self._micro_step(micro))
-        info = self._apply_step(torch.stack(losses).mean())
+        stage, window = self._attribution_window()
+        with window as handle:
+            mb = leaves[0].shape[0] // gas if leaves else 0
+            losses = []
+            for i in range(gas):
+                micro = rebuild([x[i * mb:(i + 1) * mb] for x in leaves])
+                losses.append(self._micro_step(micro))
+            info = self._apply_step(torch.stack(losses).mean())
+            if stage == "time":
+                torch.cuda.synchronize(self.device)  # the window holds the step's kernels
+        if stage is not None:
+            self._close_attribution(stage, handle)
         loss = info["loss"]
         self._last_loss = loss
+        self._step_span_end(span, profile_step)
+        if self.wall_clock_breakdown:
+            self.timers(TRAIN_BATCH_TIMER).stop()
         self._fence_compute(t_compute)
+        self.flops_profiler.end_step(profile_step, cost=self._step_cost)
+        if self.tput_timer is not None:
+            self.tput_timer.stop()
         self._end_step(info, loss=loss)
         return loss
+
+    def _step_span_start(self):
+        """With tracing armed: the step's start on the card (a CUDA event
+        on the current stream) or on the host clock off the card."""
+        tracer = self.telemetry.tracer
+        if not tracer.enabled:
+            return None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return tracer.now()
+
+    def _step_span_end(self, start, step: int) -> None:
+        """The step's ``train/compute`` span: between two CUDA events on the
+        card (placed when the trace is exported or at report time, never
+        the time it took to queue the launches), the host clock off it."""
+        if start is None:
+            return
+        from deepspeed_tpu_torch.telemetry import PID_ENGINE
+
+        tracer = self.telemetry.tracer
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            tracer.add_device_span("train/compute", "train", start, end, pid=PID_ENGINE, tid=1,
+                                   args={"step": step}, tid_name="card")
+        else:
+            tracer.add_span("train/compute", "train", start, tracer.now(), pid=PID_ENGINE,
+                            tid=1, args={"step": step}, tid_name="card")
 
     @torch.no_grad()
     def eval_batch(self, batch: Any) -> torch.Tensor:
@@ -1587,6 +1787,9 @@ class DeepSpeedEngine:
         did not happen (deadline passed or save failed) — treat as a
         crash and resume from the previous tag."""
         wd = self._watchdog
+        from deepspeed_tpu_torch.telemetry import get_registry
+
+        get_registry().counter("resilience/preemptions").inc()
         log_dist(
             f"preemption signal ({wd.signal_name}) received; attempting emergency "
             f"checkpoint ({wd.remaining():.0f}s of grace left)"
@@ -1639,6 +1842,9 @@ class DeepSpeedEngine:
                                             kind="boundary-flags")) == 0.0
 
     def _apply_divergence_action(self, action: str) -> None:
+        from deepspeed_tpu_torch.telemetry import get_registry
+
+        get_registry().counter("resilience/divergence_actions", action=action).inc()
         n = self.resilience.divergence.threshold
         if action == C.DIVERGENCE_ACTION_FLOOR:
             # the floor is read by the scaler's next update: nothing to
@@ -1691,4 +1897,7 @@ class DeepSpeedEngine:
         ``load_lr_scheduler_states``, ``load_module_only``, ``strict``."""
         from deepspeed_tpu_torch.runtime.checkpointing import load_checkpoint as _load
 
-        return _load(self, load_dir, tag=tag, **kw)
+        out = _load(self, load_dir, tag=tag, **kw)
+        if not self.loss_scaler.dynamic:
+            self._static_scale = self.loss_scale  # a tag may carry another scale
+        return out

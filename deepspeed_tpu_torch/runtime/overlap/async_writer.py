@@ -138,15 +138,29 @@ class AsyncCheckpointWriter:
             pending = PendingSave(tag, final_path)
 
             def run():
-                # the JAX package also records the commit as a trace span
-                # and counts it in its telemetry registry; the port has
-                # neither until ROADMAP A14 ports telemetry/
+                # the background commit is a trace span (the checkpoint
+                # writer's lane) and an async-saves count; no-ops when the
+                # plane is off
+                from deepspeed_tpu_torch.telemetry import PID_CHECKPOINT, get_registry, get_tracer
+
+                tracer = get_tracer()
+                t0 = tracer.now()
                 try:
                     commit_fn()
                 except BaseException as e:  # noqa: BLE001 — surfaced via drain()
                     pending.error = e
                 finally:
                     pending.finished_at = time.monotonic()
+                    tracer.add_span(
+                        "ckpt_commit", "checkpoint", t0, tracer.now(), pid=PID_CHECKPOINT,
+                        args={"tag": tag, "ok": pending.error is None},
+                    )
+                    reg = get_registry()
+                    if reg.enabled:
+                        reg.counter(
+                            "ckpt/async_saves",
+                            outcome="ok" if pending.error is None else "failed",
+                        ).inc()
 
             if not self._atexit_registered:
                 self._register_exit_drain()

@@ -27,8 +27,11 @@ reads and a dict update per note): enabled without the fence it does
 not change the hot path and still attributes every host-measurable
 phase; the per-step device fence is the engine's (opt-in) choice.
 
-Not ported: the JAX timeline's telemetry attachment (spans and registry
-publishing, ROADMAP A14) and its comm-strategy metadata (A6).
+Attached to the telemetry plane (:meth:`StepTimeline.attach_telemetry`),
+every ``phase()`` block also lands as a trace span and every closed step
+record publishes into the metrics registry.  Not ported: the JAX
+timeline's comm-strategy metadata in its summaries (the engine's
+``comm_summary()`` carries it).
 """
 from __future__ import annotations
 
@@ -61,6 +64,22 @@ class StepTimeline:
         self._pending_gauges: Dict[str, float] = {}
         self._gauge_names: set = set()
         self._last_boundary: Optional[float] = None
+        # telemetry plane attachment: None-checked on the hot path; when
+        # attached, phases become trace spans and closed step records
+        # publish into the registry
+        self._telemetry = None
+        self._t_prefix = "train"
+        self._trace_pid = 0
+
+    def attach_telemetry(self, manager, prefix: str = "train", trace_pid: int = 0) -> None:
+        """Route this timeline into a
+        :class:`~deepspeed_tpu_torch.telemetry.TelemetryManager`: every
+        ``phase()`` block also lands as a span (when tracing is armed)
+        and every ``end_step`` publishes the closed record as
+        histograms/gauges.  Detach with ``manager=None``."""
+        self._telemetry = manager
+        self._t_prefix = prefix
+        self._trace_pid = int(trace_pid)
 
     # -- recording --------------------------------------------------------
     def note(self, phase: str, seconds: float) -> None:
@@ -71,15 +90,23 @@ class StepTimeline:
 
     @contextmanager
     def phase(self, name: str):
-        """Time a host block and note it under ``name``."""
+        """Time a host block and note it under ``name`` (and as a trace
+        span when the attached telemetry plane has tracing armed)."""
         if not self.enabled:
             yield
             return
+        tm = self._telemetry
+        tracer = tm.tracer if tm is not None and tm.tracer.enabled else None
+        t0m = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.note(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.note(name, dt)
+            if tracer is not None:
+                tracer.add_span(f"{self._t_prefix}/{name}", self._t_prefix, t0m, t0m + dt,
+                                pid=self._trace_pid)
 
     def set_gauge(self, name: str, value: float) -> None:
         """Record a per-step level (queue depth, live slots, ...): kept
@@ -114,6 +141,11 @@ class StepTimeline:
         rec.update(self._pending_gauges)
         for _ in range(count):
             self.records.append(dict(rec))
+        if self._telemetry is not None:
+            # registry publish of the closed record (host dict ops; the
+            # manager also derives the live MFU gauge from the wall)
+            self._telemetry.publish_step(self._t_prefix, rec, count=count,
+                                         gauge_names=self._gauge_names)
         self.total_steps += count
         self._pending = {}
         self._pending_gauges = {}

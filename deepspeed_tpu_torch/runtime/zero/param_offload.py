@@ -299,6 +299,12 @@ class ZeroInfinityEngine:
         self._last_info: Dict[str, Any] = {}
         self._async_writer = None
         self._train_loader = None
+        from deepspeed_tpu_torch import telemetry as _telemetry
+
+        # the process's telemetry plane, armed from the config as the
+        # engine arms it (this engine publishes zinf/* straight into it)
+        _telemetry.configure(getattr(config, "telemetry", None), rank=self.global_rank,
+                             label="offload")
         log_dist(
             f"ZeRO-Infinity engine: {spec.n_layer} layers in {self.n_groups} groups of {gl}, "
             f"mesh {self.mesh} (masters sharded over fsdp: {self._masters_sharded}), "
@@ -618,7 +624,25 @@ class ZeroInfinityEngine:
             loss = collectives.all_reduce(loss.float().clone(), self.mesh.group(("data", "fsdp")),
                                           kind="step-scalars") / self.dp_world_size
         phase("opt_s", self._host_step)
+        self._publish_step(timing)
         return loss
+
+    def _publish_step(self, timing: Optional[dict]) -> None:
+        """The streaming engine has no step timeline: its step counters and
+        gauges go to the telemetry registry directly (the JAX engine's
+        ``zinf/*``; host values only)."""
+        from deepspeed_tpu_torch.telemetry import get_registry
+
+        reg = get_registry()
+        if not reg.enabled:
+            return
+        info = self._last_info
+        reg.counter("zinf/steps", engine="offload").inc()
+        reg.gauge("zinf/lr", engine="offload").set(info["lr"])
+        if info["overflow"]:
+            reg.counter("zinf/overflow_skips", engine="offload").inc()
+        for key, v in (timing or {}).items():
+            reg.gauge(f"zinf/{key}", engine="offload").set(v)
 
     def _micro_step(self, batch, first: bool, phase) -> torch.Tensor:
         spec, G = self.spec, self.n_groups

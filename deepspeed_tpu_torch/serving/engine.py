@@ -82,8 +82,19 @@ Around the engine: ``serving/fleet/`` routes over several engines
 (each wrapped in a ``LocalReplica``, in this process or in a child behind
 ``serving/frontdoor/transport.py``) through ``cancel``,
 ``client_request_id``, ``pop_results`` and ``recover``, and
-``serving/frontdoor/http.py`` serves one engine over HTTP.  Not ported
-yet: the telemetry spans and counters (ROADMAP A14) and the
+``serving/frontdoor/http.py`` serves one engine over HTTP.
+
+Telemetry: the engine attaches to whatever plane the process armed
+(``telemetry.configure``, called before ``init_serving``) when it is
+built.  Its step timeline (``sched`` / ``prefill`` / ``decode``) publishes
+``serving/*`` histograms and gauges; the scheduler's lifecycle events
+become spans on the request's own trace lane (queue, prefill chunks,
+prefill, decode, retire) and the ``serving/ttft_ms``, ``tpot_ms`` and
+``queue_wait_ms`` histograms; admission counts ``serving/submitted``,
+``rejected``, ``shed`` and ``retry_after_s``; the paged pool's counters
+become ``kvcache/*`` gauges at each step.  A prefill chunk's and a decode
+step's host times follow the sampled token's read back to the host, so
+their spans and TTFT are the card's work.  Not ported yet: the
 ds_san/ds_shard hooks (A15).
 """
 from __future__ import annotations
@@ -97,6 +108,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.comm import collectives
 from deepspeed_tpu_torch.config.config import ServingConfig
 from deepspeed_tpu_torch.inference.engine import sample_logits_pooled
@@ -278,8 +290,24 @@ class ServingEngine:
                     "in-flight and queued requests"
                 )
         self._watchdog: Optional[ServingWatchdog] = None
-        # the scheduler's lifecycle events become journal records (and
-        # tenant billing); its spans and histograms are ROADMAP A14
+        from deepspeed_tpu_torch.profiling.flops_profiler import device_name
+        from deepspeed_tpu_torch.runtime.overlap.timeline import StepTimeline
+
+        self.timeline = StepTimeline(enabled=True, phases=("sched", "prefill", "decode"))
+        # telemetry: attach to whatever plane the process armed (a
+        # no-config process gets no-op publishes).  Arm the plane BEFORE
+        # building engines: the timeline attachment and the manager's SLO
+        # config are captured here.
+        self.telemetry = _telemetry.manager_for("serving", device_name=device_name(self.device))
+        self._tel_ttft = self.telemetry.histogram("serving/ttft_ms")
+        self._tel_tpot = self.telemetry.histogram("serving/tpot_ms")
+        self._tel_queue_wait = self.telemetry.histogram("serving/queue_wait_ms")
+        if self.telemetry.collect or self.telemetry.tracer.enabled:
+            self.timeline.attach_telemetry(self.telemetry, prefix="serving")
+        # kvcache event watermarks: deltas become trace instants
+        self._kv_evt_seen = {"evictions": 0, "session_spills": 0}
+        # the scheduler's lifecycle events become journal records, tenant
+        # billing, spans and histograms
         self.scheduler.on_event = self._on_request_event
         # hierarchical KV tiering: the tier manager's migration worker
         # moves T1<->T2 in the background; the engine thread drives
@@ -302,6 +330,7 @@ class ServingEngine:
                 agree=self._agree_flags if ranked else None,
                 decide=self._decide if ranked else None,
             )
+            self._tiers.telemetry = self.telemetry
             self.pool.attach_tiers(self._tiers)
         # the multi-tenant dimension: rate limits + weighted-fair
         # queueing + SLO classes + KV quotas + billing-grade accounting,
@@ -440,7 +469,10 @@ class ServingEngine:
                 "raise serving.max_top_k or lower the request's top_k"
             )
         wd = self._watchdog
+        tm = self.telemetry
         if wd is not None and wd.draining:
+            if tm.collect:
+                tm.counter("serving/rejected").inc()
             raise ServingDraining(
                 f"serving engine is draining ({wd.signal_name} received, "
                 f"{max(wd.remaining(), 0.0):.1f}s of drain budget left); retry "
@@ -455,12 +487,28 @@ class ServingEngine:
             # Raises TenantThrottled (429 semantics) with retry_after.
             kw["priority"] = self.tenants.priority_for(tenant, kw["priority"])
             cost = float(np.asarray(prompt).reshape(-1).shape[0] + int(kw["max_new_tokens"]))
-            self.tenants.admit(tenant, cost, now=now)
+            try:
+                self.tenants.admit(tenant, cost, now=now)
+            except ServingQueueFull:
+                if tm.collect:
+                    tm.counter("serving/rejected").inc()
+                    self._tenant_counter(tenant, "throttled").inc()
+                raise
         elif kw["priority"] is None:
             kw["priority"] = PRIORITY_NORMAL
         try:
             req = self.scheduler.submit(prompt, now=now, step=self._step_count, **kw)
-        except ServingQueueFull:  # ServingOverloaded too
+        except ServingOverloaded as e:
+            if tm.collect:
+                tm.counter("serving/rejected").inc()
+                tm.counter("serving/shed").inc()
+                tm.histogram("serving/retry_after_s").observe(e.retry_after or 0.0)
+            if self.tenants is not None:
+                self.tenants.note("rejected", tenant)
+            raise
+        except ServingQueueFull:
+            if tm.collect:
+                tm.counter("serving/rejected").inc()
             if self.tenants is not None:
                 self.tenants.note("rejected", tenant)
             raise
@@ -473,8 +521,16 @@ class ServingEngine:
             self._client_keys[client_key] = req.request_id
         if self.tenants is not None:
             self.tenants.note("admitted", tenant)
-        # the serving/submitted, rejected and shed counters: ROADMAP A14
+            if tm.collect:
+                self._tenant_counter(tenant, "admitted").inc()
+        if tm.collect:
+            tm.counter("serving/submitted").inc()
         return req
+
+    def _tenant_counter(self, tenant: Optional[str], kind: str):
+        from deepspeed_tpu_torch.serving.frontdoor.tenants import DEFAULT_TENANT
+
+        return self.telemetry.counter(f"serving/tenant/{tenant or DEFAULT_TENANT}/{kind}")
 
     def client_request_id(self, client_key: str) -> Optional[int]:
         """The id this engine acknowledged for ``client_key`` (in memory
@@ -558,7 +614,8 @@ class ServingEngine:
                 f"serving: replayed {len(replayed)} incomplete request(s) "
                 f"from the journal (ids {replayed[0]}..{replayed[-1]})"
             )
-        # the serving/replayed counter: ROADMAP A14
+            if self.telemetry.collect:
+                self.telemetry.counter("serving/replayed").inc(len(replayed))
         return replayed
 
     # ------------------------------------------------------------------
@@ -596,13 +653,15 @@ class ServingEngine:
         )
         j.quarantine()
         self._journal_quarantined = j.quarantined
-        # the serving/journal_quarantined counter: ROADMAP A14
+        if self.telemetry.collect:
+            self.telemetry.counter("serving/journal_quarantined").inc()
 
     def _on_request_event(self, kind: str, r, now: float, step: int) -> None:
         """Scheduler lifecycle hook → journal records (committed at the
-        step boundary; a reject at once) and tenant billing.  The
-        request's spans and the TTFT / per-token histograms are
-        ROADMAP A14."""
+        step boundary; a reject at once), tenant billing, and spans on the
+        request's own trace lane (tid = request id): queue → prefill →
+        decode → retire, plus the TTFT / per-output-token histograms."""
+        tm = self.telemetry
         if kind == "admitted":
             self._journal_record("record_admit", r)
         elif kind == "first_token":
@@ -615,6 +674,8 @@ class ServingEngine:
                 # after a crash + recover() (at most one retire per id)
                 if kind == "finished":
                     self.tenants.bill(r.tenant, len(r.generated))
+                    if tm.collect:
+                        self._tenant_counter(r.tenant, "billed_tokens").inc(len(r.generated))
                 else:
                     self.tenants.note("cancelled", r.tenant)
         elif kind in ("expired", "shed"):
@@ -625,6 +686,95 @@ class ServingEngine:
             self._journal_commit()
             if self.tenants is not None:
                 self.tenants.note(kind, r.tenant)
+        if tm.collect or tm.tracer.enabled:
+            self._publish_request_event(kind, r, now)
+
+    def _publish_request_event(self, kind: str, r, now: float) -> None:
+        """The JAX engine's request spans and histograms
+        (``serving/engine.py:1070-1139``); host dict ops, spans only when
+        tracing is armed."""
+        tm = self.telemetry
+        tracer = tm.tracer if tm.tracer.enabled else None
+        rid = r.request_id
+        lane = dict(pid=_telemetry.PID_REQUESTS, tid=rid)
+        if kind == "admitted":
+            self._tel_queue_wait.observe((now - r.submit_time) * 1e3)
+            if tracer is not None:
+                tracer.add_span("queue", "serving.request", r.submit_time, now, **lane,
+                                args={"request": rid, "slot": r.slot, "prompt_len": r.prompt_len},
+                                tid_name=f"request {rid}")
+        elif kind == "first_token":
+            ttft_ms = (now - r.submit_time) * 1e3
+            self._tel_ttft.observe(ttft_ms)
+            if tracer is not None:
+                tracer.add_span(
+                    "prefill", "serving.request",
+                    r.admit_time if r.admit_time is not None else r.submit_time, now, **lane,
+                    args={"request": rid, "ttft_ms": round(ttft_ms, 3),
+                          "chunks": -(-r.prompt_len // self.config.prefill_chunk)})
+            tm.check_slo(ttft_ms)
+        elif kind == "finished":
+            if tm.collect:
+                tm.counter("serving/finished", reason=r.finish_reason or "?").inc()
+                if len(r.generated) > 1 and r.first_token_time is not None:
+                    self._tel_tpot.observe(
+                        (now - r.first_token_time) * 1e3 / (len(r.generated) - 1))
+            if tracer is not None:
+                if r.first_token_time is not None:
+                    tracer.add_span("decode", "serving.request", r.first_token_time, now, **lane,
+                                    args={"request": rid, "tokens": len(r.generated)})
+                tracer.add_instant("retire", "serving.request", ts=now, **lane,
+                                   args={"request": rid, "finish_reason": r.finish_reason,
+                                         "tokens": len(r.generated)})
+        elif kind == "cancelled":
+            if tm.collect:
+                tm.counter("serving/cancelled").inc()
+            if tracer is not None:
+                tracer.add_instant("cancelled", "serving.request", ts=now, **lane,
+                                   args={"request": rid, "tokens": len(r.generated)})
+        elif kind == "expired":
+            if tm.collect:
+                tm.counter("serving/expired").inc()
+            if tracer is not None:
+                tracer.add_instant("expired", "serving.request", ts=now, **lane,
+                                   args={"request": rid,
+                                         "queue_wait_ms": round((now - r.submit_time) * 1e3, 3)})
+        elif kind == "shed":
+            if tm.collect:
+                tm.counter("serving/shed").inc()
+                if r.retry_after is not None:
+                    tm.histogram("serving/retry_after_s").observe(r.retry_after)
+            if tracer is not None:
+                tracer.add_instant("shed", "serving.request", ts=now, **lane,
+                                   args={"request": rid, "priority": r.priority,
+                                         "ladder_rung": self.scheduler.ladder.level,
+                                         "retry_after_s": r.retry_after})
+
+    def _publish_kvcache(self) -> None:
+        """Paged-pool counters → ``kvcache/*`` registry gauges, plus trace
+        instants for eviction/spill deltas since the last publish
+        (step-boundary granularity; host dict reads only)."""
+        tm = self.telemetry
+        if not self._paged or not (tm.collect or tm.tracer.enabled):
+            return
+        st = self.pool.stats()
+        if tm.collect:
+            for key in ("pages_live", "pages_free", "hit_rate", "tokens_saved",
+                        "cow_copies", "evictions", "session_rebinds",
+                        "session_spills", "session_restores", "prefix_entries",
+                        "sessions_warm", "sessions_spilled"):
+                tm.gauge(f"kvcache/{key}").set(float(st[key]))
+            for key, val in (st.get("tiers") or {}).items():
+                if isinstance(val, (int, float)):
+                    tm.gauge(f"kvcache/tier/{key}").set(float(val))
+        tracer = tm.tracer if tm.tracer.enabled else None
+        for key, name in (("evictions", "kvcache_evict"), ("session_spills", "kvcache_spill")):
+            delta = int(st[key]) - self._kv_evt_seen[key]
+            if delta > 0 and tracer is not None:
+                tracer.add_instant(name, "serving.kvcache",
+                                   args={"count": delta, "pages_free": st["pages_free"],
+                                         "pages_live": st["pages_live"]})
+            self._kv_evt_seen[key] = int(st[key])
 
     def step(self) -> bool:
         """One serving step: tick the scheduler, land this step's prefill
@@ -656,15 +806,22 @@ class ServingEngine:
             # device-to-host traffic at the step boundary
             self._tiers.tick(now, hints=self.scheduler.upcoming_hints(
                 self._tiers.prefetch_ahead))
-        plan = self.scheduler.tick(now, self._step_count, admit=admit)
+        tl = self.timeline
+        with tl.phase("sched"):
+            plan = self.scheduler.tick(now, self._step_count, admit=admit)
         t1 = time.monotonic()
-        for job in plan.prefill_jobs:
-            self._run_prefill(job)
+        with tl.phase("prefill"):
+            for job in plan.prefill_jobs:
+                self._run_prefill(job)
         t2 = time.monotonic()
-        toks, pos, decoding = self.scheduler.decode_inputs()
-        if decoding:
-            self._run_decode(toks, pos, decoding)
+        with tl.phase("decode"):
+            toks, pos, decoding = self.scheduler.decode_inputs()
+            if decoding:
+                self._run_decode(toks, pos, decoding)
         t3 = time.monotonic()
+        tl.set_gauge("queue_depth", self.scheduler.queue_depth)
+        tl.set_gauge("live_slots", self.pool.live_slots)
+        tl.end_step()
         self._phase_seconds["sched"] += t1 - t0
         self._phase_seconds["prefill"] += t2 - t1
         self._phase_seconds["decode"] += t3 - t2
@@ -679,7 +836,7 @@ class ServingEngine:
         if self._tiers is not None:
             # the step's wall window feeds the swap-hide overlap ratio
             self._tiers.note_step(t0, time.monotonic())
-        # the kvcache/* gauges and evict/spill instants: ROADMAP A14
+        self._publish_kvcache()
         return self.scheduler.has_work()
 
     def drain(self, max_steps: Optional[int] = None) -> Dict[int, Request]:
@@ -766,7 +923,8 @@ class ServingEngine:
                 f"within {max(wd.remaining(), 0.0):.1f}s "
                 f"({self.scheduler.queue_depth} queued will replay from the journal)"
             )
-        # the serving/drains counter: ROADMAP A14
+        if self.telemetry.collect:
+            self.telemetry.counter("serving/drains").inc()
         drained_all = True
         try:
             while self._decide(bool(self.scheduler.live) and wd.remaining() > 0
@@ -878,6 +1036,8 @@ class ServingEngine:
     def _run_prefill(self, job: PrefillJob) -> None:
         faults.check("serving.prefill")
         faults.check_latency("serving.prefill")
+        tracer = self.telemetry.tracer if self.telemetry.tracer.enabled else None
+        t_span = tracer.now() if tracer is not None else 0.0
         r = job.req
         chunk = self.config.prefill_chunk
         dev = self.device
@@ -924,6 +1084,16 @@ class ServingEngine:
             # prefix (before note_prefill — a 1-token budget can retire
             # the request, releasing the slot, inside that call)
             self.pool.learn_prefix(r, now=now)
+        if tracer is not None:
+            # chunk-level detail on the request's own lane, between its
+            # queue and prefill spans (the sampled token was read back to
+            # the host: the span holds the chunk's work on the card)
+            tracer.add_span(
+                "prefill_chunk", "serving.request", t_span, tracer.now(),
+                pid=_telemetry.PID_REQUESTS, tid=r.request_id,
+                args={"request": r.request_id, "start": job.start, "len": job.length,
+                      "final": job.final},
+                tid_name=f"request {r.request_id}")
         self.scheduler.note_prefill(job, int(first), now=now, step=self._step_count)
         self._stamp([r], now)
 
@@ -975,6 +1145,9 @@ class ServingEngine:
             # pending demotions instead of holding T0 pages forever (under
             # a group the tick is a collective: it runs in steps only)
             self._tiers.tick(time.monotonic())
+        if self.telemetry.collect:
+            self.telemetry.gauge("serving/queue_depth_now").set(s.queue_depth)
+            self.telemetry.gauge("serving/live_slots_now").set(self.pool.live_slots)
         j = self._journal
         out = {
             "submitted": s.submitted,

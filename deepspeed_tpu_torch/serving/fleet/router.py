@@ -37,9 +37,9 @@ One ``submit()`` surface for the whole fleet:
 Fault sites (chaos matrix): ``router.route`` (fail + recurring
 latency), ``router.hedge``, ``replica.death``.
 
-The router's counters are its own integers (``stats()``); the JAX package
-also mirrors them into its telemetry registry, which the port has not yet
-(ROADMAP A14).
+The router's counters are its own integers (``stats()``), mirrored into
+the telemetry registry (``fleet/*`` counters and the ``fleet/ttft_ms``
+histogram) when the process armed it.
 """
 from __future__ import annotations
 
@@ -140,8 +140,10 @@ class FleetRouter:
         self._refire_pending: List[int] = []
         self._restarting: Set[str] = set()  # background restarts underway
         self._ttft_ms: List[float] = []  # delivered-TTFT window (hedge p99)
-        # counters (the JAX package mirrors them into its telemetry
-        # registry: ROADMAP A14)
+        # counters (mirrored into the telemetry registry when armed)
+        from deepspeed_tpu_torch import telemetry as _telemetry
+
+        self.telemetry = _telemetry.manager_for("fleet")
         self.routed = 0
         self.rejections = 0  # per-replica retry_after rejections absorbed
         self.failovers = 0  # submits that succeeded on a non-first replica
@@ -282,7 +284,9 @@ class FleetRouter:
         self._rr += 1
         best = min(scored)
         if best[1] < 0:
-            self.affinity_routes += 1  # mirrored to telemetry in JAX: ROADMAP A14
+            self.affinity_routes += 1
+            if self.telemetry.collect:
+                self.telemetry.counter("fleet/affinity_routes").inc()
         return best[-1]
 
     def _route(
@@ -329,13 +333,18 @@ class FleetRouter:
             except Exception as e:
                 self.route_failures += 1
                 tripped = h.breaker.record_failure(now)
-                # the fleet/route_failures and breaker_trips counters: ROADMAP A14
+                if self.telemetry.collect:
+                    self.telemetry.counter("fleet/route_failures").inc()
+                    if tripped:
+                        self.telemetry.counter("fleet/breaker_trips").inc()
                 logger.warning(f"fleet: submit to {name} failed ({e!r}); "
                                f"{'breaker OPEN, ' if tripped else ''}trying next")
                 continue
             h.breaker.record_success()
             if attempts > 1:
-                self.failovers += 1  # mirrored to telemetry in JAX: ROADMAP A14
+                self.failovers += 1
+                if self.telemetry.collect:
+                    self.telemetry.counter("fleet/failovers").inc()
             return name, rid
         retry = min(hints) if hints else self._soonest_retry(now)
         raise FleetOverloaded(
@@ -408,7 +417,9 @@ class FleetRouter:
             # either the removal saw the handle and refused, or we see
             # the removal here and re-route.
             self._refire(hd, {name}, now)
-        self.routed += 1  # mirrored to telemetry in JAX: ROADMAP A14
+        self.routed += 1
+        if self.telemetry.collect:
+            self.telemetry.counter("fleet/routed", replica=name).inc()
         return hid
 
     def _adopt_by_client_key(
@@ -562,7 +573,8 @@ class FleetRouter:
                 self._ttft_ms.append((r.first_token_time - r.submit_time) * 1e3)
                 if len(self._ttft_ms) > 1024:
                     del self._ttft_ms[:512]
-                # the fleet/ttft_ms histogram: ROADMAP A14
+                if self.telemetry.collect:
+                    self.telemetry.histogram("fleet/ttft_ms").observe(self._ttft_ms[-1])
 
     def _cancel_leg(self, name: Optional[str], rid: Optional[int]) -> None:
         """Loser retirement: scheduler-level cancel on whichever replica
@@ -574,7 +586,9 @@ class FleetRouter:
         if rep is not None and rep.alive():
             try:
                 if rep.cancel(rid):
-                    self.hedge_cancelled += 1  # mirrored to telemetry in JAX: ROADMAP A14
+                    self.hedge_cancelled += 1
+                    if self.telemetry.collect:
+                        self.telemetry.counter("fleet/hedge_cancelled").inc()
             except Exception as e:  # a failed cancel is cosmetic, not fatal
                 logger.warning(f"fleet: cancel of {rid} on {name} failed: {e!r}")
 
@@ -631,7 +645,9 @@ class FleetRouter:
                 self._by_rid.pop((name2, rid2), None)
                 hd.hedge_replica = hd.hedge_request_id = hd.hedged_at = None
                 continue
-            self.hedges += 1  # mirrored to telemetry in JAX: ROADMAP A14
+            self.hedges += 1
+            if self.telemetry.collect:
+                self.telemetry.counter("fleet/hedges").inc()
             log_dist(
                 f"fleet: hedged handle {hd.handle_id} to {name2} after "
                 f"{now - hd.submit_time:.3f}s (delay {delay:.3f}s)"
@@ -680,7 +696,9 @@ class FleetRouter:
         if h is None or rep is None or h.state == DEAD:
             return
         h.mark_dead(reason, now)
-        self.deaths += 1  # mirrored to telemetry in JAX: ROADMAP A14
+        self.deaths += 1
+        if self.telemetry.collect:
+            self.telemetry.counter("fleet/deaths", replica=name).inc()
         self.last_failover = {"replica": name, "reason": reason, "at": now}
         replayed = None
         if self._supervisor is not None:
@@ -693,7 +711,9 @@ class FleetRouter:
             self._restarting.add(name)
             return
         if replayed is not None:
-            h.revive()  # the fleet/restarts counter: ROADMAP A14
+            h.revive()
+            if self.telemetry.collect:
+                self.telemetry.counter("fleet/restarts", replica=name).inc()
             self._rebind(name, set(int(r) for r in replayed), now)
         else:
             self._refire_all(name, now)
@@ -708,7 +728,9 @@ class FleetRouter:
             name = rep.name
             self._restarting.discard(name)
             if replayed is not None:
-                self._health[name].revive()  # the fleet/restarts counter: ROADMAP A14
+                self._health[name].revive()
+                if self.telemetry.collect:
+                    self.telemetry.counter("fleet/restarts", replica=name).inc()
                 self._rebind(name, set(int(r) for r in replayed), now)
             else:
                 self._refire_all(name, now)
@@ -769,7 +791,9 @@ class FleetRouter:
         hd.replica, hd.request_id = name2, rid2
         hd.refires += 1
         self.refired += 1
-        self._by_rid[(name2, rid2)] = hd.handle_id  # fleet/refired: ROADMAP A14
+        self._by_rid[(name2, rid2)] = hd.handle_id
+        if self.telemetry.collect:
+            self.telemetry.counter("fleet/refired").inc()
 
     def _retry_refires(self, now: float) -> None:
         pending, self._refire_pending = self._refire_pending, []

@@ -189,6 +189,7 @@ class PageTierManager:
         ``decide`` (rank 0's value on every rank) put the manager across
         ranks (module docstring); None: one process."""
         self.pool = pool
+        self.telemetry: Any = None  # the engine hands its TelemetryManager
         self._agree = agree
         self._decide = decide if decide is not None else (lambda value: value)
         self._depth = int(worker_depth)
@@ -339,13 +340,19 @@ class PageTierManager:
             hidden += max(0.0, min(end, we) - max(start, ws))
         return min(hidden, end - start)
 
-    def _account_swap(self, start: float, end: float) -> None:
+    def _account_swap(self, op: str, start: float, end: float, n_pages: int) -> None:
         dur = max(0.0, end - start)
         hidden = self._hidden_overlap(start, end)
         with self._lock:
             self.swap_seconds_total += dur
             self.swap_seconds_hidden += hidden
-        # a span per job (cat serving.tier) comes with telemetry: ROADMAP A14
+        tracer = getattr(self.telemetry, "tracer", None)
+        if tracer is not None and getattr(tracer, "enabled", False):
+            # one span per disk job on the tiers' lane (host I/O: the host
+            # clock is its time)
+            tracer.add_span(f"tier.{op}", "serving.tier", start, end, tid=3,
+                            tid_name="kv tiers",
+                            args={"pages": int(n_pages), "hidden_s": round(hidden, 6)})
 
     # -- T2 staging (worker thread) -----------------------------------
     def _write_t2(self, entry_dir: str, meta: Dict, leaves) -> str:
@@ -536,7 +543,7 @@ class PageTierManager:
             finally:
                 self._end_write(entry, ok)
             if ok:
-                self._account_swap(t0, time.monotonic())
+                self._account_swap("demote", t0, time.monotonic(), entry.n_pages)
 
         if not self._queue(job, label=f"demote:{e.key}"):
             e.writing = False
@@ -564,7 +571,7 @@ class PageTierManager:
             finally:
                 self._end_read(entry, leaves, done)
             if leaves is not None:
-                self._account_swap(t0, time.monotonic())
+                self._account_swap("promote", t0, time.monotonic(), entry.n_pages)
 
         if not self._queue(job, label=f"prefetch:{e.key}"):
             e.reading = False

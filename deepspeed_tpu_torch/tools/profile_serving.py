@@ -48,6 +48,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.telemetry.attribution import union_us
+
 
 def request_mix(seed: int, n: int = 16):
     """``n`` (prompt, max_new_tokens) pairs: prompts of 64..384 tokens
@@ -113,16 +115,6 @@ def drain_paged_mix(srv, mix, session_id: str = "chat-1"):
     return done, turns
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, -np.inf
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
-
-
 def profile_summary(prof) -> dict:
     """A ``torch.profiler`` window: its span, the device-busy time (the
     union of the kernels' intervals) and idle share, and the top device
@@ -134,7 +126,7 @@ def profile_summary(prof) -> dict:
     host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     window = [(e.time_range.start, e.time_range.end) for e in events]
     span_us = max(e for _, e in window) - min(s for s, _ in window)
-    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kern)
+    busy_us = union_us((e.time_range.start, e.time_range.end) for e in kern)
     by_kernel = defaultdict(lambda: [0, 0.0])
     for e in kern:
         by_kernel[e.name][0] += 1

@@ -49,33 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.tools.profile_serving import _union_us
-
-# kernel-name patterns of each class, first match wins
-KERNEL_CLASSES = (
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
-    ("flash_bwd", ("flash_bwd_kernel", "flash_bwd_tc_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_tc_kernel")),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_tc_kernel")),
-    ("splash_fwd", ("splash_fwd_kernel", "splash_fwd_tc_kernel")),
-    ("splash_bwd_dq", ("splash_dq_kernel", "splash_dq_tc_kernel")),
-    ("splash_bwd_dkv", ("splash_dkv_kernel", "splash_dkv_sum_kernel", "splash_dkv_tc_kernel",
-                        "splash_dkv_tc_sum_kernel")),
-    ("fused_adam", ("fused_adam_kernel",)),
-    ("fused_lamb_dir", ("lamb_dir_kernel",)),
-    ("fused_lamb_apply", ("lamb_apply_kernel",)),
-    # cuBLAS on Hopper names most of its GEMM kernels nvjet_*
-    ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
-)
-
-
-def kernel_class(name: str) -> str:
-    low = name.lower()
-    for cls, pats in KERNEL_CLASSES:
-        if any(p in low for p in pats):
-            return cls
-    return "other"
-
+from deepspeed_tpu_torch.telemetry.attribution import kernel_class, union_us
 
 # the key-padding pattern of the synthetic BERT batches: row b keeps
 # KEEP_FRACTIONS[b % 4] of its T positions (512, 448, 300 and 129 at T 512)
@@ -269,7 +243,7 @@ def main(argv=None) -> dict:
     kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     window = [(e.time_range.start, e.time_range.end) for e in events]
     span_us = max(e for _, e in window) - min(s for s, _ in window)
-    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kern)
+    busy_us = union_us((e.time_range.start, e.time_range.end) for e in kern)
     by_kernel = defaultdict(lambda: [0, 0.0])
     by_class = defaultdict(lambda: [0, 0.0])
     for e in kern:

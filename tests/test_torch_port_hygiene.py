@@ -83,6 +83,17 @@ SLICE_MODULES = (
     "deepspeed_tpu_torch/parallel/__init__.py",
     "deepspeed_tpu_torch/parallel/sequence.py",
     "deepspeed_tpu_torch/parallel/tensor.py",
+    "deepspeed_tpu_torch/telemetry/__init__.py",
+    "deepspeed_tpu_torch/telemetry/registry.py",
+    "deepspeed_tpu_torch/telemetry/spans.py",
+    "deepspeed_tpu_torch/telemetry/exporters.py",
+    "deepspeed_tpu_torch/telemetry/regression.py",
+    "deepspeed_tpu_torch/telemetry/aggregate.py",
+    "deepspeed_tpu_torch/telemetry/attribution.py",
+    "deepspeed_tpu_torch/telemetry/manager.py",
+    "deepspeed_tpu_torch/profiling/flops_profiler.py",
+    "deepspeed_tpu_torch/utils/monitor.py",
+    "deepspeed_tpu_torch/utils/timer.py",
 )
 # the layers above the ops, which no op module may import
 ABOVE_OPS = ("deepspeed_tpu_torch.models", "deepspeed_tpu_torch.inference",
