@@ -344,9 +344,9 @@ Phases, each printing one JSON line:
 23. ``train_offload_ranks_bf16``: ``train_bf16``'s model, config and
    batch at ``mesh: {data: 2}`` over two rank processes sharing the card
    (gloo; ``tools/zero_worker.py``, each rank's rows train_bf16's
-   micro-batches), 1 step without offload, 3 with ``offload_optimizer:
+   micro-batches), 1 step without offload, 2 with ``offload_optimizer:
    cpu`` (each rank its flat half of the masters and moments, the slices
-   all-gathered as pinned f32 tensors), 2 with ``nvme``: the first loss
+   all-gathered as pinned f32 tensors), 1 with ``nvme``: the first loss
    the same ranks' without offload bit for bit, step-1 masters within
    OFFLOAD_STEP1_REL of theirs, the rest within OFFLOAD_LOSS_RTOL of
    train_bf16's, each
@@ -363,15 +363,29 @@ Phases, each printing one JSON line:
    (T 8192, 8 layers) streamed one layer at a time on one rank, 2 steps
    (a main path: B8 twice, B9a/B9b once a layer a step, tensor-core
    bodies): the losses within INFINITY_LOSS_RTOL of the in-memory engine's.
-26. ``train_onebit_bf16``: ``OneBitAdam`` and ``OneBitLamb`` (freeze_step
-   2, 4 steps) and AdamW under ``comm.strategy`` int8 and onebit (2 steps)
-   at ``mesh: {data: 2}`` over two rank processes: losses finite, every
+26. ``train_onebit_bf16``: ``OneBitAdam`` (freeze_step 2, 4 steps) and
+   ``OneBitLamb`` (3 steps) and AdamW under ``comm.strategy`` int8 (3
+   steps) and onebit (1 step) at ``mesh: {data: 2}`` over two rank
+   processes: losses finite, every
    compressed step's ``grad-exchange`` bytes ``step_comm_bytes``' model and
    at least ONEBIT_WIRE_FACTOR below dense, one exchange of fixed rows on
    the card within ONEBIT_ROWS_ATOL of the plain rows functions.
-   Phases 23-26 print ms a step, each rank's profiled step (its kernels'
+27. ``train_compose_bf16``: the compositions (PR 23) in the same spawn,
+   train_bf16's config and batch over two rank processes: ``{model: 2}`` +
+   ``offload_optimizer: cpu`` (GPT-2's vocabulary padded to 50304; 3
+   steps) within COMPOSE_TP_LOSS_RTOL of the one-rank offload engine, its
+   ``tp-all-reduce`` bytes the model's, each rank's host masters its
+   blocks, B1 24 and B2 12 a micro-step on each rank's 6 heads;
+   ``{data: 2}`` stage 2 + 8-bit Adam state rounding to nearest (3 steps)
+   against the one-rank engine, the block-scale bytes the cut leaves';
+   ``{fsdp: 2}`` stage 2 + ``OneBitAdam`` past ``freeze_step`` (4 steps)
+   and ``{fsdp: 2}`` stage 3 + ``comm.strategy: int8`` (3 steps) against
+   train_onebit_bf16's same-rows runs: each first loss the reference's
+   bits, the rest within COMPOSE_ZERO_LOSS_RTOL, the compressed steps'
+   ``grad-exchange`` (and stage 3's ``all-gather``) bytes the models'.
+   Phases 23-27 print ms a step, each rank's profiled step (its kernels'
    busy share of the step's window) and host and device peaks.
-27. ``train_large_q8_bf16``: the JAX package's ``q8`` recipe
+28. ``train_large_q8_bf16``: the JAX package's ``q8`` recipe
    (``tools/sweep_774m.py``) on GPT-2 774M at full width and depth (36
    layers, drawn on the card from seed 0), micro 4 x T 1024,
    ``xent_chunk_size`` 512, AdamW, bf16 over f32 masters, 3 steps a run:
@@ -384,7 +398,7 @@ Phases, each printing one JSON line:
    update is plain torch, as the JAX package's is XLA); (b)'s state bytes
    the count ``_v_blocks`` gives (~3 B a parameter against 8) and its peak
    below (a)'s; ms a step and the update's ms a step (CUDA events).
-28. ``train_extras_bf16``: train_bf16's model, config and batch, 3 steps a
+29. ``train_extras_bf16``: train_bf16's model, config and batch, 3 steps a
    run: (c) bf16 Adam state (losses within EXTRAS_BF16_LOSS_RTOL of
    train_bf16's, the first its bits); (d) progressive layer drop (theta
    0.5, gamma 0.001, hidden dropout 0.1): theta the host formula's, B1
@@ -396,7 +410,7 @@ Phases, each printing one JSON line:
    ``activation_checkpointing.cpu_checkpointing``: the first loss
    train_bf16's bits, the peak below train_bf16's; TiledLinear on the card
    within TILED_TOL of ``F.linear``.
-29. ``kernels``: one entry per kernel with its launches on each main path
+30. ``kernels``: one entry per kernel with its launches on each main path
    (B1, B2, B6a, B6b, B8, B9a and B9b: the tensor-core body's source, the
    f32 body's beside it)
    (``launches_by_path``: serving, serving_paged, serving_tp, serving_tiers,
@@ -407,7 +421,9 @@ Phases, each printing one JSON line:
    serving_moe, training_pipe, training_offload, training_offload_nvme,
    training_infinity, training_infinity_nvme, training_offload_ranks,
    training_infinity_ranks, training_infinity_sparse, training_onebit,
-   training_large_f32, training_large_q8, training_extras) and their sum.
+   training_compose, training_large_f32, training_large_q8,
+   training_extras) and their sum; B1's and B2's rows also at a
+   tensor-parallel rank's 6 heads (``h6``).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failing phase raises, so the
@@ -467,6 +483,9 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # are the training shape's), each at GPT-2's width (768 = H x d) and
 # training shape (B 8, T 1024, causal)
 TC_DIMS = (16, 32, 128)
+# a tensor-parallel rank's heads in training at model 2 (train_compose_bf16):
+# GPT-2's 12 heads of d 64 over two ranks, B1 and B2 at the training shape
+TP_TRAIN_HEADS = 6
 
 # flash backward vs its plain version, entry by entry:
 #   |got - ref| <= tol * (|ref| + BWD_RMS_SHARE * rms(ref))
@@ -2492,7 +2511,9 @@ def check_flash_bwd(torch, dev, flush):
 def check_flash_tc_dims(torch, dev, flush):
     """B1 (with lse) and B2 on the tensor-core bodies at the head dims
     they serve beside 64 (``TC_DIMS``; d 64 is the training rows'), bf16,
-    causal, at GPT-2's width and training shape: B 8, T 1024, H = 768 / d.
+    causal, at GPT-2's width and training shape: B 8, T 1024, H = 768 / d;
+    and at d 64 on a tensor-parallel rank's ``TP_TRAIN_HEADS`` heads (keyed
+    ``h6``).
     Out within 2e-2 and lse within 1e-4 of the plain version, the
     gradients (the kernel's and the plain version's) within the float64
     bound (:func:`_bwd_fields`); each launch counted as ``tc``.  Library:
@@ -2504,9 +2525,9 @@ def check_flash_tc_dims(torch, dev, flush):
 
     B, T = 8, 1024
     rows = {}
-    for d in TC_DIMS:
-        H = 768 // d
-        g = torch.Generator(device=dev).manual_seed(2000 + d)
+    shapes = [(d, 768 // d, d) for d in TC_DIMS] + [(64, TP_TRAIN_HEADS, f"h{TP_TRAIN_HEADS}")]
+    for d, H, key in shapes:
+        g = torch.Generator(device=dev).manual_seed(2000 + d if key == d else 3000 + H)
         q, k, v, do = (torch.randn(B, H, T, d, generator=g, device=dev).to(torch.bfloat16)
                        for _ in range(4))
         scale = d ** -0.5
@@ -2517,22 +2538,22 @@ def check_flash_tc_dims(torch, dev, flush):
         torch.cuda.synchronize()
         variants = kernels.launch_variants()
         check(variants["flash_fwd"] == {"none/tc": 1} and variants["flash_bwd"] == {"none/tc": 1},
-              f"d={d}: bf16 launches ran {variants['flash_fwd']} / {variants['flash_bwd']}")
+              f"d={d} H={H}: bf16 launches ran {variants['flash_fwd']} / {variants['flash_bwd']}")
         ref, ref_lse = fa.flash_fwd_reference(q, k, v, True, scale)
         err, lse_err = max_err(out, ref), max_err(lse, ref_lse)
         del ref
-        check(torch.isfinite(out).all().item(), f"flash_fwd tc d={d}: non-finite output")
-        check(err <= TOL["bfloat16"], f"flash_fwd tc d={d}: max_err {err}")
-        check(lse_err <= 1e-4, f"flash_fwd tc d={d}: lse max_err {lse_err} > 1e-4")
+        check(torch.isfinite(out).all().item(), f"flash_fwd tc d={d} H={H}: non-finite output")
+        check(err <= TOL["bfloat16"], f"flash_fwd tc d={d} H={H}: max_err {err}")
+        check(lse_err <= 1e-4, f"flash_fwd tc d={d} H={H}: lse max_err {lse_err} > 1e-4")
         refb = fa.flash_bwd_reference(q, k, v, do, lse, delta, True, scale)
         fields = _bwd_fields(fa, got, refb, (q, k, v, do, lse, delta, True, scale),
-                             f"flash_bwd tc d={d}")
+                             f"flash_bwd tc d={d} H={H}")
         del refb
         torch.cuda.empty_cache()
         pairs = T * (T + 1) / 2
         fb_ms, fb_by = bound_ms(4 * B * H * T * d * 2 + B * H * T * 4, 4 * B * H * d * pairs,
                                 "bfloat16")
-        rows[("flash_fwd", d)] = {
+        rows[("flash_fwd", key)] = {
             "phase": "kernel", "kernel": "flash_fwd", "body": "tc", "B": B, "H": H, "T": T,
             "d": d, "dtype": "bfloat16", "causal": True, "lse": True, "max_err": err,
             "lse_max_err": lse_err, "tol": TOL["bfloat16"], "lse_tol": 1e-4,
@@ -2547,7 +2568,7 @@ def check_flash_tc_dims(torch, dev, flush):
         bb_ms, bb_by = bound_ms(7 * B * H * T * d * 2 + 2 * B * H * T * 4,
                                 5 * 2 * d * pairs * B * H, "bfloat16")
         sdpa_bwd = _sdpa_grad(torch, F, q, k, v, do, is_causal=True)
-        rows[("flash_bwd", d)] = {
+        rows[("flash_bwd", key)] = {
             "phase": "kernel", "kernel": "flash_bwd", "body": "tc", "B": B, "H": H, "T": T,
             "d": d, "dtype": "bfloat16", "causal": True, **fields,
             "kernel_ms": device_ms(torch, lambda: fa.flash_bwd_cuda(
@@ -2559,8 +2580,8 @@ def check_flash_tc_dims(torch, dev, flush):
         }
         del sdpa_bwd, q, k, v, do, out, lse, delta, got
         torch.cuda.empty_cache()
-        emit(rows[("flash_fwd", d)])
-        emit(rows[("flash_bwd", d)])
+        emit(rows[("flash_fwd", key)])
+        emit(rows[("flash_bwd", key)])
     return rows
 
 
@@ -6111,8 +6132,8 @@ def offload_ranks_cases(off, root):
                 "batches": batches, "steps": steps, **kw}
 
     return [case("d2", None, steps=1),
-            case("d2_off", {"offload_optimizer": {"device": "cpu"}}, steps=3, record_step=1,
-                 profile_step=3),
+            case("d2_off", {"offload_optimizer": {"device": "cpu"}}, steps=2, record_step=1,
+                 profile_step=2),
             case("d2_off_nvme", {"offload_optimizer": {"device": "nvme",
                                                        "nvme_path": os.path.join(root, "nv")}},
                  steps=2, record="none")]
@@ -6122,7 +6143,7 @@ def phase_train_offload_ranks_bf16(torch, params, off, ref_losses, smi, root, sp
     """ZeRO-Offload across ranks: train_bf16's model, config and batch at
     ``mesh: {data: 2}`` over two rank processes sharing the card (gloo;
     :func:`offload_ranks_cases`, run in the rank phases' one spawn), each
-    rank's rows train_bf16's micro-batches: one step without offload, 3
+    rank's rows train_bf16's micro-batches: one step without offload, 2
     with ``offload_optimizer: cpu`` (each rank 1/2 of the packed masters
     and moments, the slices all-gathered as pinned f32 tensors), 2 with
     ``nvme``.  Gates: the first offload loss is the same two ranks' without
@@ -6184,12 +6205,17 @@ def phase_train_offload_ranks_bf16(torch, params, off, ref_losses, smi, root, sp
     check(d2_off["losses"][0] == d2["losses"][0],
           f"train_offload_ranks_bf16: first loss {d2_off['losses'][0]!r} != without offload "
           f"{d2['losses'][0]!r}")
+    # the second loss follows one update of each: nvme's moments through
+    # the async-I/O engine give the cpu run's bits
+    check(len(nvme["losses"]) == len(d2_off["losses"]) == 2,
+          f"train_offload_ranks_bf16: {len(nvme['losses'])} nvme and {len(d2_off['losses'])} "
+          "cpu steps, want 2 each")
     check(worst <= 1.0, f"train_offload_ranks_bf16: step-1 masters {worst} x the bound")
     check(max(rel) <= OFFLOAD_LOSS_RTOL, f"train_offload_ranks_bf16: losses rel {max(rel)}")
     check(host == [4 * (n + pad) // 2] * 2,
           f"train_offload_ranks_bf16: host master bytes {host}, not half of {4 * n} (+pad)")
-    check(nvme["losses"] == d2_off["losses"][:2],
-          f"train_offload_ranks_bf16: nvme losses {nvme['losses']} != cpu {d2_off['losses'][:2]}")
+    check(nvme["losses"] == d2_off["losses"][:len(nvme["losses"])],
+          f"train_offload_ranks_bf16: nvme losses {nvme['losses']} != cpu {d2_off['losses']}")
     check(shards == 2 and same, "train_offload_ranks_bf16: DS_OFFLOAD_SHARDS=2 masters differ "
                                 "from train_offload_bf16's")
     _tc_only_b1_b2("train_offload_ranks_bf16", launches, d2_off["variants"])
@@ -6409,18 +6435,20 @@ def onebit_cases(off, root):
                 "batches": batches, "steps": steps, "record": "none", **kw}
 
     return [case("onebit_adam", 4, "OneBitAdam", profile_step=4),
-            case("onebit_lamb", 4, "OneBitLamb"),
-            case("comm_int8", 2, comm="int8"), case("comm_onebit", 2, comm="onebit")], rows
+            case("onebit_lamb", 3, "OneBitLamb"),
+            case("comm_int8", 3, comm="int8"), case("comm_onebit", 3, comm="onebit")], rows
 
 
 def phase_train_onebit_bf16(torch, smi, root, cases, rows, spawn_wall):
-    """1-bit Adam and 1-bit LAMB (``freeze_step`` 2, 4 steps) and AdamW with
-    ``comm.strategy`` ``int8`` and ``onebit`` (2 steps), train_bf16's model,
+    """1-bit Adam (``freeze_step`` 2, 4 steps), 1-bit LAMB (3 steps) and
+    AdamW with ``comm.strategy`` ``int8`` and ``onebit`` (3 steps: the
+    second exchange carries the first's residuals, the third loss reads
+    its update), train_bf16's model,
     config and batch at ``mesh: {data: 2}`` over two rank processes sharing
     the card (:func:`onebit_cases`, in the rank phases' one spawn), counters
     zeroed before each case and read after; first one exchange of fixed
     rows (2 x 2^20 entries on the card) through the group versions.  Gates:
-    the losses finite; every compressed step's ``grad-exchange`` bytes, as
+    the losses finite, the last below the first; every compressed step's ``grad-exchange`` bytes, as
     ``comm/collectives.py`` counts them, equal ``step_comm_bytes``' onebit /
     int8 model and are at least ONEBIT_WIRE_FACTOR below the dense
     exchange; the warm steps dense; the rows within ONEBIT_ROWS_ATOL of the
@@ -6468,7 +6496,8 @@ def phase_train_onebit_bf16(torch, smi, root, cases, rows, spawn_wall):
           **{f"{k}_row": _ranks_row(m) for k, m in metas.items()}, "launches": launches,
           "shared_spawn_wall_s": spawn_wall, "wall_s": time.perf_counter() - t_phase})
     for name, meta in metas.items():
-        check(all(np.isfinite(meta["losses"])), f"train_onebit_bf16 {name}: {meta['losses']}")
+        check(all(np.isfinite(meta["losses"])) and meta["losses"][-1] < meta["losses"][0],
+              f"train_onebit_bf16 {name}: {meta['losses']}")
         check(all(b == model["grad-exchange"] for b in wire[name]),
               f"train_onebit_bf16 {name}: grad-exchange {wire[name]} B != the model's "
               f"{model['grad-exchange']}")
@@ -6486,6 +6515,360 @@ def phase_train_onebit_bf16(torch, smi, root, cases, rows, spawn_wall):
     return launches
 
 
+# train_compose_bf16 (PR 23): the compositions of ZeRO, tensor parallelism,
+# offload, the 8-bit state and the explicit exchanges, GPT-2 124M at full
+# width and depth, two rank processes sharing the card (gloo)
+COMPOSE_STEPS = {"m2_off": 3, "d2_s2_q8": 3, "d2_s2_q8_noclip": 2, "d2_s2_q8_sr": 2,
+                 "f2_s2_onebit": 4, "f3_int8": 3}
+# GPT-2's vocabulary padded to a multiple of 64, which a model axis of 2
+# divides (50257 is refused, as the JAX package refuses it)
+COMPOSE_VOCAB = 50304
+# {model: 2} + offload against the one-rank offload engine on the same
+# batch: each rank computes half the heads and the row-parallel products'
+# two bf16 halves are summed by the all-reduce, where one rank's GEMM
+# rounds its f32 sum once; every loss, relative.  The card read 1.3e-4;
+# the bound about fifteen times that
+COMPOSE_TP_LOSS_RTOL = 2e-3
+# ZeRO's update slices against the same rows' stage-0 run: the global
+# norm's squares are summed by slice, then over the ranks, where those sum
+# each leaf whole (the clip factor's last bits), carried through bf16
+# weights and, past freeze_step, through 1-bit signs of entries near zero;
+# later losses, relative (the first is the same bits).  The card read
+# 8.7e-5 (1-bit Adam at {fsdp: 2} stage 2, step 4); the bound about six
+# times that
+COMPOSE_ZERO_LOSS_RTOL = 5e-4
+# the 8-bit state at {data: 2} stage 2 against one rank, rounding to
+# nearest.  Without clipping the two are the same bits (losses, masters, m,
+# codes and block scales: d2_s2_q8_noclip), which is what holds the block
+# layout: a block scale taken over one rank's slice of a block changes its
+# codes.  With clipping the clip factor's last bits differ: the first
+# step's masters within OFFLOAD_STEP1_REL (|p| + lr) of one rank's (Adam's
+# first step is lr * sign(g), the factor moves only its last bits; the
+# update does not read the codes yet); from there every bf16 weight that
+# rounds the other way moves every later gradient (on an H100 at 700 W
+# the masters after step 3 read 99.95 % not the same bits, up to 1.02e-3
+# apart), so later
+# losses are held within COMPOSE_Q8_LOSS_RTOL (the card read 4.9e-6, about
+# a tenth of it)
+COMPOSE_Q8_LOSS_RTOL = 5e-5
+# each rank's 8-bit state bytes against one rank's: half the m and codes,
+# the block scales whole (about 1.6 % of m and codes' bytes)
+COMPOSE_Q8_STATE_SHARE = 0.55
+
+
+def compose_cases(off, root, preset="gpt2", vocab=COMPOSE_VOCAB):
+    """train_compose_bf16's cases for the shared spawn: ``{data: 2}`` stage
+    2 + the 8-bit state (rounding to nearest; again without clipping; and
+    with stochastic rounding, 2 steps), ``{fsdp: 2}`` stage 2 + 1-bit
+    Adam past ``freeze_step``, ``{fsdp: 2}`` stage 3 + the int8 exchange,
+    and ``{model: 2}`` + offload (the vocabulary padded to ``vocab``, which
+    the model axis divides); each rank's rows train_bf16's micro-batches."""
+    mb, gas = 8, 2
+    b1 = os.path.join(root, "compose_m2_b.npz")
+    np.savez(b1, input_ids=np.repeat(off["batch"][None], COMPOSE_STEPS["m2_off"], axis=0))
+    b2 = os.path.join(root, "compose_d2_b.npz")
+    np.savez(b2, input_ids=np.repeat(_rank_batch(off["batch"], gas, mb, 2)[None], 4, axis=0))
+
+    def case(name, mesh, batches, zero=None, optimizer=None, comm=None, clip=None, **kw):
+        config = dict(_gpt2_bf16_config(mb, gas), mesh=mesh)
+        if clip is not None:
+            config["gradient_clipping"] = clip
+        if zero is not None:
+            config["zero_optimization"] = zero
+        if optimizer is not None:
+            kind = optimizer.pop("type", config["optimizer"]["type"])
+            config["optimizer"] = {"type": kind,
+                                   "params": {**config["optimizer"]["params"], **optimizer}}
+        if comm is not None:
+            config["comm"] = {"strategy": comm}
+        return {"name": name, "preset": preset, "init_seed": 0, "config": config,
+                "batches": batches, "steps": COMPOSE_STEPS[name], "record": "none", **kw}
+
+    # the padded vocabulary's case last: the rank processes draw its
+    # parameters once, after the earlier cases' (train_bf16's)
+    return [case("d2_s2_q8", {"data": 2}, b2, {"stage": 2}, {"state_precision": "8bit"},
+                 nearest_rounding=True, record="full", record_step=1),
+            case("d2_s2_q8_noclip", {"data": 2}, b2, {"stage": 2}, {"state_precision": "8bit"},
+                 clip=0.0, nearest_rounding=True, record="digest"),
+            # the default stochastic rounding on the cut leaves
+            case("d2_s2_q8_sr", {"data": 2}, b2, {"stage": 2}, {"state_precision": "8bit"},
+                 record="digest"),
+            case("f2_s2_onebit", {"fsdp": 2}, b2, {"stage": 2},
+                 {"type": "OneBitAdam", "freeze_step": ONEBIT_FREEZE}),
+            # every leaf sharded (no persistence threshold): stage 3's
+            # gathers move what the byte model counts
+            case("f3_int8", {"fsdp": 2}, b2, {"stage": 3, "stage3_param_persistence_threshold": 0},
+                 comm="int8"),
+            case("m2_off", {"model": 2}, b1, {"offload_optimizer": {"device": "cpu"}},
+                 model_cfg={"vocab_size": vocab})]
+
+
+def _compose_one_rank(torch, params, config, batch, steps, nearest=False, vocab=None,
+                      masters_after=None):
+    """One rank of a composition's reference in this process: ``(losses,
+    engine)``, and with ``masters_after`` the f32 masters after that step
+    on the host by checkpoint name; ``vocab``: GPT-2 with its vocabulary
+    padded to it, drawn here (seed 0, as the rank processes draw it)."""
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt2
+
+    cfg = gpt2.PRESETS["gpt2"]
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
+        params = gpt2.init_params(cfg, seed=0)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.make_model(cfg)[0],
+                                                model_parameters=params, config=config)
+    if nearest:
+        engine._rounding_generator = lambda: None
+    losses, masters = [], None
+    for s in range(steps):
+        losses.append(float(engine.train_batch(batch)))
+        if masters_after == s + 1:
+            masters = {f"params/{k}": t.detach().to("cpu", torch.float32, copy=True).numpy()
+                       for k, t in tree_items(engine.params)}
+    return (losses, engine) if masters_after is None else (losses, engine, masters)
+
+
+def _scale_bytes_model(torch, params, mesh, stage):
+    """The 8-bit state's block-scale all-reduce a step (``state-scales``,
+    2 x 4 bytes a block: sent and received) over the leaves ``mesh`` and
+    ``stage`` cut: the engine's own layout of them, read off the rank-0
+    layout in this process (no collective)."""
+    from deepspeed_tpu_torch.comm.mesh import Mesh
+    from deepspeed_tpu_torch.config.config import ZeroConfig
+    from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+    from deepspeed_tpu_torch.runtime.engine import tree_items
+    from deepspeed_tpu_torch.runtime.zero.partition import ZeroLayout
+    from deepspeed_tpu_torch.runtime.zero.stages import ZeroShardingRules
+
+    m = Mesh(mesh, rank=0)
+    rules = ZeroShardingRules(ZeroConfig.from_dict({"stage": stage}),
+                              fsdp_size=m.sizes["fsdp"], data_size=m.sizes["data"])
+    items = tree_items(params)
+    layout = ZeroLayout(m, rules, [tuple(np.shape(x)) for _, x in items], [k for k, _ in items])
+    opt, total = FusedAdam(state_precision="8bit"), 0
+    for leaf in layout.leaves:
+        n = int(np.prod(leaf.shape))
+        b = opt._v_blocks(n)
+        if b and (layout.sharded(leaf.opt_spec) or leaf.flat is not None):
+            total += 2 * 4 * (n // b)
+    return total
+
+
+def _merge_variants(metas, name):
+    out = {}
+    for meta in metas.values():
+        for k, v in meta["variants"].get(name, {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_train_compose_bf16(torch, params, off, smi, root, cases, spawn_wall):
+    """The compositions (:func:`compose_cases`, in the rank phases' one
+    spawn), train_bf16's config and batch, counters zeroed before each case
+    and read after, each against a reference on the same rows:
+
+    * ``{model: 2}`` + ``offload_optimizer: cpu`` (each rank's host Adam
+      over its block of every cut leaf, the replicated leaves whole): every
+      loss within COMPOSE_TP_LOSS_RTOL of the one-rank offload engine's
+      (this process, the same padded vocabulary); ``tp-all-reduce`` bytes
+      the model's; each rank's host masters below one rank's, the two
+      equal; every replicated leaf the same bits on both ranks; B1 24 and
+      B2 12 a micro-step on each rank's 6 heads (the kernel rows ``h6``).
+    * ``{data: 2}`` stage 2 + 8-bit state, rounding to nearest: the first
+      loss the one-rank 8-bit engine's bits, the rest within
+      COMPOSE_Q8_LOSS_RTOL, the masters after step 1 within
+      OFFLOAD_STEP1_REL (|p| + lr) (the clip factor's last bits differ);
+      without clipping the losses and the whole
+      state (masters, m, codes, block scales) one rank's bits; with
+      stochastic rounding the first two losses the nearest run's bits (the
+      first update reads v before it is encoded) and the state finite;
+      ``state-scales`` bytes the cut leaves' blocks a step; each rank's
+      state bytes at most COMPOSE_Q8_STATE_SHARE of one rank's.
+    * ``{fsdp: 2}`` stage 2 + 1-bit Adam (``freeze_step`` 2, 4 steps): the
+      first loss train_onebit_bf16's ``{data: 2}`` stage-0 run's bits, the
+      rest within COMPOSE_ZERO_LOSS_RTOL; the compressed steps'
+      ``grad-exchange`` bytes the onebit model's.
+    * ``{fsdp: 2}`` stage 3 + ``comm.strategy: int8``: the first loss
+      train_onebit_bf16's int8 run's bits, the rest within
+      COMPOSE_ZERO_LOSS_RTOL; ``grad-exchange`` and stage 3's
+      ``all-gather`` bytes the models'; no reduce-scatter; B3 launched."""
+    from deepspeed_tpu_torch.comm.strategy import step_comm_bytes
+    from deepspeed_tpu_torch.tools.zero_worker import _digest, _record
+
+    t_phase = time.perf_counter()
+    metas = {c["name"]: _case_json(root, c["name"]) for c in cases}
+    batch = {"input_ids": off["batch"]}
+    # -- the references in this process ----------------------------------
+    t_ref = time.perf_counter()
+    m2_losses, eng = _compose_one_rank(
+        torch, None, _offload_config({"offload_optimizer": {"device": "cpu"}}), batch,
+        COMPOSE_STEPS["m2_off"], vocab=COMPOSE_VOCAB)
+    one_host = eng.host_master_bytes()
+    del eng
+    q8_cfg = _gpt2_bf16_config(8, 2)
+    q8_cfg["optimizer"]["params"] = {**q8_cfg["optimizer"]["params"], "state_precision": "8bit"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q8_losses, eng, q8_masters = _compose_one_rank(
+        torch, params, q8_cfg, batch, COMPOSE_STEPS["d2_s2_q8"], nearest=True, masters_after=1)
+    q8_one = {"state_bytes": eng.optimizer.state_bytes(eng.opt_state),
+              "peak_gib_above_live": (torch.cuda.max_memory_allocated() - live) / 2**30}
+    del eng
+    nc_losses, eng = _compose_one_rank(torch, params, dict(q8_cfg, gradient_clipping=0.0),
+                                       batch, COMPOSE_STEPS["d2_s2_q8_noclip"], nearest=True)
+    nc_digests = {n: _digest(t) for n, t in _record(eng).items()}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_ref
+    bit = {c: _case_json(root, c) for c in ("onebit_adam", "comm_int8")}
+    # -- gates ---------------------------------------------------------------
+    m2, q8, ob, i8 = (metas[k] for k in ("m2_off", "d2_s2_q8", "f2_s2_onebit", "f3_int8"))
+    nc, sr = metas["d2_s2_q8_noclip"], metas["d2_s2_q8_sr"]
+    rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a, b)]  # noqa: E731
+    m2_rel = rel(m2["losses"], m2_losses)
+    q8_rel = rel(q8["losses"], q8_losses)
+    lr1 = float(gpt2_lr(0))
+    moved = counted = 0
+    q8_worst = 0.0
+    with np.load(os.path.join(root, "d2_s2_q8.npz")) as z:
+        for k, want in q8_masters.items():
+            want = want.astype(np.float64)
+            d = np.abs(z[k].astype(np.float64) - want)
+            moved += int((d > 0).sum())
+            counted += d.size
+            q8_worst = max(q8_worst, float((d / (OFFLOAD_STEP1_REL * (np.abs(want) + lr1))).max()))
+    del q8_masters
+    nc_same = {k: nc["digests"].get(k) == v for k, v in nc_digests.items()
+               if k.startswith(("params/", "opt_state/"))}
+    q8_state = q8["state_bytes_by_rank"]
+    ob_rel = rel(ob["losses"], bit["onebit_adam"]["losses"])
+    i8_rel = rel(i8["losses"], bit["comm_int8"]["losses"])
+    n = ob["n_params"]
+    grid = {"data": 1, "fsdp": 2}
+    ob_model = step_comm_bytes(n, grid, stage=2, gas=2, strategy="onebit")["grad-exchange"]
+    i8_model = step_comm_bytes(n, grid, stage=3, gas=2, strategy="int8")["grad-exchange"]
+    pad = 2 * (n % 2)
+    ob_wire = [c.get("grad-exchange", 0) for c in ob["comm"][ONEBIT_FREEZE:]]
+    i8_wire = [c.get("grad-exchange", 0) for c in i8["comm"]]
+    scales = _scale_bytes_model(torch, params, {"data": 2}, 2)
+    q8_scales = [c.get("state-scales", 0) for c in q8["comm"]]
+    sr_scales = [c.get("state-scales", 0) for c in sr["comm"]]
+    host = [h["masters"] for h in m2["host_bytes_by_rank"]]
+    tp_counted = [c.get("tp-all-reduce", 0) for c in m2["comm"]]
+    gas = 2
+    want_b1 = {"flash_fwd": 24 * gas * COMPOSE_STEPS["m2_off"],
+               "flash_bwd": 12 * gas * COMPOSE_STEPS["m2_off"]}
+    m2_b1 = [{k: r.get(k, 0) for k in want_b1} for r in m2["launches_by_rank"]]
+    launches = {}
+    for meta in metas.values():
+        for k, v in _sum_launches(meta).items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": "train_compose_bf16", "card": smi, "ranks": 2, "micro_batch": 8, "gas": gas,
+          "T": 1024, "steps": COMPOSE_STEPS,
+          "m2_offload": {"mesh": {"model": 2}, "vocab": COMPOSE_VOCAB, "losses": m2["losses"],
+                         "losses_one_rank": m2_losses, "max_rel_diff": max(m2_rel),
+                         "tol": COMPOSE_TP_LOSS_RTOL, "first_loss_same_bits":
+                         m2["losses"][0] == m2_losses[0],
+                         "host_master_bytes_by_rank": host, "host_master_bytes_one_rank": one_host,
+                         "tp_all_reduce_bytes": tp_counted,
+                         "tp_all_reduce_model": m2["parallel"]["tp-all-reduce"],
+                         "replicas_equal": all(m2["replicas_equal"].values()),
+                         "b1_b2_launches_by_rank": m2_b1,
+                         "offload_breakdown_rank0": m2["offload_breakdown"], **_ranks_row(m2)},
+          "d2_s2_8bit": {"mesh": {"data": 2}, "stage": 2, "rounding": "nearest",
+                         "losses": q8["losses"], "losses_one_rank": q8_losses,
+                         "max_rel_diff": max(q8_rel), "tol": COMPOSE_Q8_LOSS_RTOL,
+                         "step1_masters_worst_vs_bound": q8_worst,
+                         "step1_bound": f"{OFFLOAD_STEP1_REL} * (|p| + lr)",
+                         "step1_masters_moved_share": moved / counted,
+                         "state_scales_bytes": q8_scales, "state_scales_model": scales,
+                         "state_bytes_by_rank": q8_state,
+                         "state_bytes_one_rank": q8_one["state_bytes"],
+                         "state_share_tol": COMPOSE_Q8_STATE_SHARE,
+                         "one_rank_peak_gib_above_live": q8_one["peak_gib_above_live"],
+                         "bytes_a_step_rank0": q8["comm"][-1], **_ranks_row(q8),
+                         "no_clipping": {"losses": nc["losses"], "losses_one_rank": nc_losses,
+                                         "state_same_bits": all(nc_same.values()),
+                                         "tensors_compared": len(nc_same),
+                                         "differing": [k for k, v in nc_same.items() if not v]},
+                         "stochastic_rounding": {"losses": sr["losses"],
+                                                 "state_finite": sr.get("state_finite"),
+                                                 "state_scales_bytes": sr_scales,
+                                                 **_ranks_row(sr)}},
+          "f2_s2_onebit_adam": {"mesh": {"fsdp": 2}, "stage": 2, "freeze_step": ONEBIT_FREEZE,
+                                "losses": ob["losses"],
+                                "losses_data2_stage0": bit["onebit_adam"]["losses"],
+                                "max_rel_diff": max(ob_rel), "tol": COMPOSE_ZERO_LOSS_RTOL,
+                                "frozen_at_end": ob["onebit_frozen"],
+                                "grad_exchange_bytes_compressed_steps": ob_wire,
+                                "model_grad_exchange_bytes": ob_model + pad,
+                                "bytes_a_step_rank0": ob["comm"][-1], **_ranks_row(ob)},
+          "f3_int8": {"mesh": {"fsdp": 2}, "stage": 3, "losses": i8["losses"],
+                      "losses_data2_stage0": bit["comm_int8"]["losses"],
+                      "max_rel_diff": max(i8_rel), "tol": COMPOSE_ZERO_LOSS_RTOL,
+                      "grad_exchange_bytes": i8_wire, "model_grad_exchange_bytes": i8_model + pad,
+                      "all_gather_bytes": [c.get("all-gather", 0) for c in i8["comm"]],
+                      "all_gather_model": i8["model"]["all-gather"],
+                      "bytes_a_step_rank0": i8["comm"][-1], **_ranks_row(i8)},
+          "launches": launches, "references_s": ref_s,
+          "shared_spawn_wall_s": spawn_wall, "wall_s": time.perf_counter() - t_phase})
+    for name, meta in metas.items():
+        check(all(np.isfinite(meta["losses"])), f"train_compose_bf16 {name}: {meta['losses']}")
+    check(max(m2_rel) <= COMPOSE_TP_LOSS_RTOL,
+          f"train_compose_bf16 m2_off: losses {m2['losses']} vs one rank {m2_losses}")
+    check(all(b == m2["parallel"]["tp-all-reduce"] for b in tp_counted),
+          f"train_compose_bf16 m2_off: tp-all-reduce {tp_counted} != the model's "
+          f"{m2['parallel']['tp-all-reduce']}")
+    check(host[0] == host[1] and one_host // 2 < host[0] < one_host,
+          f"train_compose_bf16 m2_off: host master bytes {host}, one rank {one_host}")
+    check(all(m2["replicas_equal"].values()),
+          f"train_compose_bf16 m2_off: replicas differ {m2['replicas_equal']}")
+    check(all(r == want_b1 for r in m2_b1),
+          f"train_compose_bf16 m2_off: B1/B2 launches by rank {m2_b1}, want {want_b1} each")
+    check(q8["losses"][0] == q8_losses[0] and max(q8_rel) <= COMPOSE_Q8_LOSS_RTOL,
+          f"train_compose_bf16 d2_s2_q8: {q8['losses']} vs one rank {q8_losses}")
+    check(q8_worst <= 1.0,
+          f"train_compose_bf16 d2_s2_q8: step-1 masters {q8_worst} x the bound "
+          f"({moved} of {counted} moved)")
+    check(nc["losses"] == nc_losses and len(nc_same) > 0 and all(nc_same.values()),
+          f"train_compose_bf16 d2_s2_q8_noclip: {nc['losses']} vs one rank {nc_losses}, "
+          f"differing {[k for k, v in nc_same.items() if not v][:8]}")
+    check(sr["losses"][:2] == q8["losses"][:2] and sr.get("state_finite") is True,
+          f"train_compose_bf16 d2_s2_q8_sr: {sr['losses']} vs nearest {q8['losses']}, "
+          f"finite {sr.get('state_finite')}")
+    check(all(b == scales for b in q8_scales + sr_scales),
+          f"train_compose_bf16 d2_s2_q8: state-scales {q8_scales} / {sr_scales} != {scales}")
+    check(all(b <= COMPOSE_Q8_STATE_SHARE * q8_one["state_bytes"] for b in q8_state),
+          f"train_compose_bf16 d2_s2_q8: state bytes {q8_state}, one rank "
+          f"{q8_one['state_bytes']}")
+    check(ob["losses"][0] == bit["onebit_adam"]["losses"][0] and max(ob_rel)
+          <= COMPOSE_ZERO_LOSS_RTOL and ob["onebit_frozen"],
+          f"train_compose_bf16 f2_s2_onebit: {ob['losses']} vs {bit['onebit_adam']['losses']}")
+    check(all(b == ob_model + pad for b in ob_wire),
+          f"train_compose_bf16 f2_s2_onebit: grad-exchange {ob_wire} != {ob_model + pad}")
+    check(i8["losses"][0] == bit["comm_int8"]["losses"][0] and max(i8_rel)
+          <= COMPOSE_ZERO_LOSS_RTOL,
+          f"train_compose_bf16 f3_int8: {i8['losses']} vs {bit['comm_int8']['losses']}")
+    check(all(b == i8_model + pad for b in i8_wire),
+          f"train_compose_bf16 f3_int8: grad-exchange {i8_wire} != {i8_model + pad}")
+    check(all(c.get("all-gather", 0) == i8["model"]["all-gather"] for c in i8["comm"])
+          and not any(c.get("reduce-scatter") for c in i8["comm"]),
+          f"train_compose_bf16 f3_int8: bytes {i8['comm']} vs {i8['model']}")
+    check(_sum_launches(i8).get("fused_adam", 0) > 0,
+          "train_compose_bf16 f3_int8: B3 not launched")
+    for name in ("flash_fwd", "flash_bwd"):
+        check(only_tc(_merge_variants(metas, name)),
+              f"train_compose_bf16: {name} ran {_merge_variants(metas, name)}")
+    return launches
+
+
 def run_rank_phases(torch, params, offload_ref, off, inf_losses, sparse_losses, smi):
     """Offload across ranks, the sparse stream and the compressed exchanges:
     the three two-rank phases' cases in one spawn of two rank processes
@@ -6499,13 +6882,17 @@ def run_rank_phases(torch, params, offload_ref, off, inf_losses, sparse_losses, 
         off = dict(off, batch=offload_ref["batch"])
         inf_prep = infinity_ranks_cases(torch, params, off, root)
         bit_cases, rows = onebit_cases(off, root)
-        wall = spawn_ranks(root, offload_ranks_cases(off, root) + inf_prep[0] + bit_cases,
-                           "rank_phases", extra={"compressed_check": rows}, timeout=900)
+        comp_cases = compose_cases(off, root)
+        wall = spawn_ranks(root, offload_ranks_cases(off, root) + inf_prep[0] + bit_cases
+                           + comp_cases, "rank_phases", extra={"compressed_check": rows},
+                           timeout=1000)
         out = {"training_offload_ranks": phase_train_offload_ranks_bf16(
             torch, params, off, offload_ref["losses"], smi, root, wall)}
         out["training_infinity_ranks"] = phase_train_infinity_ranks_bf16(
             torch, params, inf_losses, smi, root, inf_prep, wall)
         out["training_onebit"] = phase_train_onebit_bf16(torch, smi, root, bit_cases, rows, wall)
+        out["training_compose"] = phase_train_compose_bf16(torch, params, off, smi, root,
+                                                           comp_cases, wall)
         out["training_infinity_sparse"] = phase_train_infinity_sparse_bf16(torch, sparse_losses,
                                                                            smi)
     finally:
@@ -7109,6 +7496,9 @@ def main() -> int:
             row = tc_rows.get((name, d))
             if row is not None:
                 entry[f"d{d}"] = {key: row[key] for key in ("d", *keys)}
+        row = tc_rows.get((name, f"h{TP_TRAIN_HEADS}"))
+        if row is not None:  # a tensor-parallel rank's heads (train_compose_bf16)
+            entry[f"h{TP_TRAIN_HEADS}"] = {key: row[key] for key in ("d", *keys)}
         if name in ("flash_bwd_dq", "flash_bwd_dkv"):  # the pair at GPT-2's shape, beside B2
             entry["gpt2_pair"] = {key: long_rows["gpt2"][key] for key in (
                 "B", "H", "T", "max_err", "kernel_ms", "flash_bwd_ms", "plain_ms", "bound_ms",

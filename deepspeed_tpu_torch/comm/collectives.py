@@ -21,7 +21,7 @@ one-rank group they still run the collective.
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -255,18 +255,30 @@ def barrier(group=None) -> None:
     dist.barrier(group=group)
 
 
-_HOST_GROUP: List[Any] = []
+_HOST_GROUPS: Dict[Tuple[Tuple[int, ...], ...], Any] = {}
 
 
-def host_group():
-    """A gloo group over every rank, for host tensors: the default group
-    when it is gloo, else one made at the first call (collective: every
-    rank calls it at the same point)."""
-    if dist.get_backend() == "gloo":
-        return dist.group.WORLD
-    if not _HOST_GROUP:
-        _HOST_GROUP.append(dist.new_group(backend="gloo"))
-    return _HOST_GROUP[0]
+def host_group(rank_sets: Optional[Sequence[Sequence[int]]] = None):
+    """A gloo group for host tensors: over every rank by default (the
+    default group when it is gloo, else one made at the first call), or,
+    given ``rank_sets`` (every group's ranks, the same lists in the same
+    order on every rank), this rank's group among them.  Collective: every
+    rank calls it at the same point."""
+    me = dist.get_rank()
+    if rank_sets is None:
+        rank_sets = [list(range(dist.get_world_size()))]
+    key = tuple(tuple(r) for r in rank_sets)
+    if key not in _HOST_GROUPS:
+        mine = None
+        for ranks in key:
+            if len(ranks) == dist.get_world_size() and dist.get_backend() == "gloo":
+                pg = dist.group.WORLD
+            else:
+                pg = dist.new_group(list(ranks), backend="gloo")
+            if me in ranks:
+                mine = pg
+        _HOST_GROUPS[key] = mine
+    return _HOST_GROUPS[key]
 
 
 def host_all_gather(x: torch.Tensor, group, out: Optional[torch.Tensor] = None,

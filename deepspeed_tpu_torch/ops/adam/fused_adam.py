@@ -22,7 +22,7 @@ nearest.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -94,6 +94,47 @@ def _adam_keep_body(p32, g32, m, v, lr, keep, c1, c2, *, b1, b2, eps,
     return p32 + keep * upd, m_new, v_new
 
 
+@dataclasses.dataclass
+class CutBlocks:
+    """A rank's slice of a leaf cut across ranks, for the 8-bit state:
+    ``index`` (:meth:`ZeroLayout.natural_index`) one int64 vector a
+    dimension of the slice, summed to each element's flat index in the
+    natural leaf of ``n`` elements; ``block`` the leaf's block;
+    ``reduce_max(t)`` the elementwise max of a ``(n // block,)`` tensor
+    over the ranks holding the leaf's other slices."""
+
+    index: List[torch.Tensor]
+    n: int
+    block: int
+    reduce_max: Callable[[torch.Tensor], torch.Tensor]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.n // self.block
+
+    def rows(self, shape) -> int:
+        """Rows of the slice's first dimension in a chunk of about
+        :data:`REDUCED_CHUNK` elements (at least one)."""
+        row = 1
+        for s in shape[1:]:
+            row *= s
+        return max(1, REDUCED_CHUNK // max(row, 1))
+
+    def ids(self, lo: int, hi: int) -> torch.Tensor:
+        """The whole-leaf blocks of the slice's rows ``lo:hi``, in the
+        slice's shape (a flat leaf's padding in block 0, where its zeros
+        raise no absmax)."""
+        flat = self.index[0][lo:hi]
+        for t in self.index[1:]:
+            flat = flat[..., None] + t
+        return torch.where(flat < self.n, flat, 0) // self.block
+
+    def scales(self, part: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's block scales from this slice's partial absmax
+        of sqrt(v) (its blocks' max over every rank)."""
+        return torch.clamp(self.reduce_max(part), min=1e-30) / 255.0
+
+
 class FusedAdam:
     """Adam with decoupled (AdamW) or L2 (classic) weight decay.
     ``adam_w_mode=True`` decays the parameters, not the gradients."""
@@ -152,22 +193,30 @@ class FusedAdam:
         return torch.where(torch.isfinite(x32), sr, x32).to(torch.bfloat16)
 
     def _v_encode(self, v32: torch.Tensor, generator: Optional[torch.Generator], skip=None,
-                  block: Optional[int] = None):
+                  block: Optional[int] = None, ids: Optional[torch.Tensor] = None,
+                  scales: Optional[torch.Tensor] = None):
         """v (f32, >= 0) -> ``(codes, scales)``: uint8 codes of sqrt(v) over
         per-block absmax scales, stochastically rounded with a generator
         (nearest without one, and on a skipped step, so a burst of skips
         does not random-walk the codes); bf16 state: v stochastically
         rounded to bf16.  ``block``: the leaf's block (0: f32 passthrough)
-        where ``v32`` is a block-aligned chunk of it."""
+        where ``v32`` is a block-aligned chunk of it; ``ids`` and
+        ``scales``: where ``v32`` is a chunk of a rank's slice of a leaf cut
+        across ranks, its elements' whole-leaf blocks and the whole leaf's
+        new scales (:meth:`CutBlocks.scales`), returned as they are."""
         one = torch.zeros((1,), dtype=torch.float32, device=v32.device)
         if self.state_precision == "bf16":
             # idempotent on exact-bf16 inputs: the added bits mask away
             return self._sr_bf16(v32, generator), one
-        b = self._v_blocks(v32.numel()) if block is None else block
-        if b == 0:
-            return v32, one
-        u = _sqrt_rn(v32).reshape(-1, b)
-        s = torch.clamp(u.amax(dim=1, keepdim=True), min=1e-30) / 255.0
+        if ids is not None:
+            u = _sqrt_rn(v32)
+            s = scales[ids]
+        else:
+            b = self._v_blocks(v32.numel()) if block is None else block
+            if b == 0:
+                return v32, one
+            u = _sqrt_rn(v32).reshape(-1, b)
+            s = torch.clamp(u.amax(dim=1, keepdim=True), min=1e-30) / 255.0
         q = u / s
         if generator is not None:
             noise = torch.rand(q.shape, generator=generator, dtype=torch.float32, device=q.device)
@@ -177,21 +226,33 @@ class FusedAdam:
         else:
             q = torch.round(q)
         codes = torch.clamp(q, 0, 255).to(torch.uint8).reshape(v32.shape)
-        return codes, s[:, 0]
+        return codes, (scales if ids is not None else s[:, 0])
+
+    @staticmethod
+    def _block_absmax(v32: torch.Tensor, ids: torch.Tensor, part: torch.Tensor) -> None:
+        """``part`` (a leaf's blocks) raised to the absmax of sqrt(v) over
+        the elements of ``v32`` (a chunk of a rank's slice of the leaf) in
+        each block ``ids`` names."""
+        part.scatter_reduce_(0, ids.reshape(-1), _sqrt_rn(v32).reshape(-1), "amax")
 
     def _v_decode(self, vq: torch.Tensor, vs: torch.Tensor,
-                  block: Optional[int] = None) -> torch.Tensor:
+                  block: Optional[int] = None, ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The inverse of :meth:`_v_encode`.  Codes are floored at half a
         step: a small nonzero v decoded as 0 would hand Adam an eps
         denominator; the floor bounds the update by ``lr * m / (absmax /
         510)`` and leaves codes >= 1 unbiased."""
         if vq.dtype != torch.uint8:  # f32 / bf16 passthrough
             return vq.float()
-        b = self._v_blocks(vq.numel()) if block is None else block
         codes = torch.clamp(vq.float(), min=0.5)
+        if ids is not None:
+            return torch.square(codes * vs[ids])
+        b = self._v_blocks(vq.numel()) if block is None else block
         return torch.square(codes.reshape(-1, b) * vs[:, None]).reshape(vq.shape)
 
-    def init(self, params: List[torch.Tensor]):
+    def init(self, params: List[torch.Tensor], whole: Optional[List[int]] = None):
+        """The state of ``params``; ``whole``: each leaf's element count
+        where ``params`` holds a rank's slice of it (the 8-bit blocks are
+        the whole leaf's: its block scales, whole, on every rank)."""
         step = torch.zeros((), dtype=torch.int32, device=_device_of(params))
         if self.state_precision == "bf16":
             zb = lambda: [torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)  # noqa: E731
@@ -200,15 +261,16 @@ class FusedAdam:
                               vs=[torch.zeros((1,), dtype=torch.float32, device=p.device)
                                   for p in params])
         if self.state_precision == "8bit":
-            blocks = [self._v_blocks(p.numel()) for p in params]
+            sizes = whole or [p.numel() for p in params]
+            blocks = [self._v_blocks(n) for n in sizes]
             return AdamState8(
                 step=step,
                 exp_avg=[torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
                          for p in params],
                 vq=[torch.zeros(p.shape, dtype=torch.uint8 if b else torch.float32,
                                 device=p.device) for p, b in zip(params, blocks)],
-                vs=[torch.zeros((p.numel() // b,) if b else (1,), dtype=torch.float32,
-                                device=p.device) for p, b in zip(params, blocks)])
+                vs=[torch.zeros((n // b,) if b else (1,), dtype=torch.float32,
+                                device=p.device) for p, n, b in zip(params, sizes, blocks)])
         zeros = lambda: [torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
                          for p in params]
         return AdamState(step=step, exp_avg=zeros(), exp_avg_sq=zeros())
@@ -259,12 +321,10 @@ class FusedAdam:
         c1, c2 = _bias_corrections(self, state.step)
         return lr, keep, c1, c2
 
-    def _reduced_leaf(self, g, m, vq, vs, p, lr, keep, skip, c1, c2, generator, block=None):
-        """One leaf's (or one block-aligned chunk's) step over the reduced
-        state: f32 Adam on the decoded values, ``(update, m bf16, v codes,
-        v scales)``.  ``skip`` folds the overflow skip in: the update is
-        zero, m keeps its bits and v re-encodes its decoded self at nearest
-        rounding."""
+    def _reduced_moments(self, g, m, vq, vs, p, keep, skip, block=None, ids=None):
+        """One leaf's (or chunk's) Adam moments over the reduced state:
+        ``(p f32, m_new, v_new)`` in f32.  ``skip`` folds the overflow skip
+        in: m and v keep their decoded values."""
         b1, b2, wd = self.b1, self.b2, self.weight_decay
         g32 = g.float()
         if keep is not None:
@@ -274,19 +334,30 @@ class FusedAdam:
         if not self.adam_w_mode and wd > 0.0:
             g32 = g32 + wd * p32
         m32 = m.float()
-        v32 = self._v_decode(vq, vs, block)
+        v32 = self._v_decode(vq, vs, block, ids)
         if keep is None:
             m_new = b1 * m32 + (1.0 - b1) * g32
             v_new = b2 * v32 + (1.0 - b2) * g32 * g32
         else:
             m_new = m32 + keep * ((b1 - 1.0) * m32 + (1.0 - b1) * g32)
             v_new = v32 + keep * ((b2 - 1.0) * v32 + (1.0 - b2) * g32 * g32)
+        return p32, m_new, v_new
+
+    def _reduced_leaf(self, g, m, vq, vs, p, lr, keep, skip, c1, c2, generator, block=None,
+                      ids=None, scales=None):
+        """One leaf's (or one chunk's) step over the reduced state: f32
+        Adam on the decoded values, ``(update, m bf16, v codes, v
+        scales)``.  On a skipped step the update is zero, m keeps its bits
+        and v re-encodes its decoded self at nearest rounding.  ``ids`` and
+        ``scales``: a chunk of a cut leaf's slice (:meth:`_v_encode`)."""
+        wd = self.weight_decay
+        p32, m_new, v_new = self._reduced_moments(g, m, vq, vs, p, keep, skip, block, ids)
         upd = -(lr * (m_new / c1) / (torch.sqrt(v_new / c2) + self.eps))
         if self.adam_w_mode and wd > 0.0:
             upd = upd - lr * wd * p32
         if keep is not None:
             upd = keep * upd
-        nvq, nvs = self._v_encode(v_new, generator, skip, block)
+        nvq, nvs = self._v_encode(v_new, generator, skip, block, ids, scales)
         return upd, m_new.to(torch.bfloat16), nvq, nvs
 
     def _update_8bit(self, grads, state: AdamState8, params, lr, generator, skip=None):
@@ -308,17 +379,27 @@ class FusedAdam:
     @torch.no_grad()
     def step_reduced_(self, grads, state: AdamState8, params, lr=None,
                       skip: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> None:
+                      generator: Optional[torch.Generator] = None,
+                      cuts: Optional[List[Optional["CutBlocks"]]] = None) -> None:
         """The engine's step over the reduced state, in place: ``p + u``
         written into each parameter and the new state into the state's
         tensors, leaf by leaf in block-aligned chunks of about
         :data:`REDUCED_CHUNK` elements, so the f32 temporaries stay a
         chunk's size (a stacked GPT-2 774M leaf holds 236M elements).  The
         values are :meth:`update`'s (with a generator the rounding bits are
-        drawn chunk by chunk)."""
+        drawn chunk by chunk).  ``cuts[i]``: where leaf ``i`` is a rank's
+        slice of a leaf cut across ranks with 8-bit blocks, its
+        :class:`CutBlocks`: the slice steps in chunks of its first
+        dimension's rows twice, first for its blocks' absmax (reduced over
+        the ranks into the whole leaf's scales), then for the update."""
         chunk = REDUCED_CHUNK
         lr, keep, c1, c2 = self._reduced_scalars(state, lr, skip)
-        for g, m, vq, vs, p in zip(grads, state.exp_avg, state.vq, state.vs, params):
+        for i, (g, m, vq, vs, p) in enumerate(zip(grads, state.exp_avg, state.vq, state.vs,
+                                                  params)):
+            cut = None if cuts is None else cuts[i]
+            if cut is not None:
+                self._step_cut_(cut, g, m, vq, vs, p, lr, keep, skip, c1, c2, generator)
+                continue
             n = p.numel()
             b = self._v_blocks(n) if vq.dtype == torch.uint8 else 0
             step = max(b, chunk // b * b) if b else chunk
@@ -335,6 +416,31 @@ class FusedAdam:
                 if b:
                     vs_c.copy_(nvs)
         state.step += 1 if skip is None else (~skip).to(state.step.dtype)
+
+    def _step_cut_(self, cut: CutBlocks, g, m, vq, vs, p, lr, keep, skip, c1, c2,
+                   generator) -> None:
+        """:meth:`step_reduced_` on a rank's slice of a cut leaf: the new
+        v's absmax a block over the slice's chunks, the whole leaf's scales
+        from every rank's, then each chunk's update and codes.  The old
+        scales decode both passes; they are replaced at the end."""
+        rows, step = p.shape[0], cut.rows(p.shape)
+        part = torch.zeros(cut.n_blocks, dtype=torch.float32, device=p.device)
+        for lo in range(0, rows, step):
+            hi = min(rows, lo + step)
+            ids = cut.ids(lo, hi).to(p.device)
+            _, _, v_new = self._reduced_moments(g[lo:hi], m[lo:hi], vq[lo:hi], vs, p[lo:hi],
+                                                keep, skip, ids=ids)
+            self._block_absmax(v_new, ids, part)
+        scales = cut.scales(part)
+        for lo in range(0, rows, step):
+            hi = min(rows, lo + step)
+            upd, m_new, nvq, _ = self._reduced_leaf(
+                g[lo:hi], m[lo:hi], vq[lo:hi], vs, p[lo:hi], lr, keep, skip, c1, c2, generator,
+                ids=cut.ids(lo, hi).to(p.device), scales=scales)
+            p[lo:hi].copy_((p[lo:hi].float() + upd).to(p.dtype))
+            m[lo:hi].copy_(m_new)
+            vq[lo:hi].copy_(nvq)
+        vs.copy_(scales)
 
 
 class FusedAdamW(FusedAdam):

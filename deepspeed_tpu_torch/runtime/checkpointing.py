@@ -145,23 +145,26 @@ def _offload_state_tensors(engine) -> Dict[str, torch.Tensor]:
         for path, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
             out[_path_str(path)] = leaf
         return out
+    # under a model or expert axis each rank holds its block of a cut
+    # leaf: the tag keeps the natural layout (gathered, collective)
+    nat = getattr(engine, "_host_natural", lambda i, t: t)
     if _sharded_offload(engine):
-        for k, m in zip(engine._paths, engine._masters_full):
-            out[f"params/{k}"] = m
+        for i, (k, m) in enumerate(zip(engine._paths, engine._masters_full)):
+            out[f"params/{k}"] = nat(i, m)
         keys, masters = engine._paths, engine._masters_full
     else:
         sd = engine._host_opt.state_dict()
-        for k in engine._host_opt.keys:
-            out[f"params/{k}"] = sd[f"master/{k}"]
-            out[f"{HOST_OPT}/m/{k}"] = sd[f"m/{k}"]
-            out[f"{HOST_OPT}/v/{k}"] = sd[f"v/{k}"]
+        for i, k in enumerate(engine._host_opt.keys):
+            out[f"params/{k}"] = nat(i, sd[f"master/{k}"])
+            out[f"{HOST_OPT}/m/{k}"] = nat(i, sd[f"m/{k}"])
+            out[f"{HOST_OPT}/v/{k}"] = nat(i, sd[f"v/{k}"])
         keys, masters = engine._host_opt.keys, engine._host_opt.masters
     for path, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
         out[_path_str(path)] = leaf
     acc = getattr(engine, "_grad_acc", None) or []
     if any(a is not None for a in acc):
-        for k, a, m in zip(keys, acc, masters):
-            out[f"grad_acc/{k}"] = a if a is not None else torch.zeros_like(m)
+        for i, (k, a, m) in enumerate(zip(keys, acc, masters)):
+            out[f"grad_acc/{k}"] = nat(i, a if a is not None else torch.zeros_like(m))
     return out
 
 
@@ -197,7 +200,8 @@ def _state_tensors(engine) -> Dict[str, torch.Tensor]:
     fields = (engine._portable_opt_fields() if hasattr(engine, "_portable_opt_fields")
               else _opt_fields(engine))
     for name, x in fields.items():
-        opt[name] = (engine._unflatten([nat(i, t, layout.leaves[i].opt_spec)
+        # the 8-bit state's block scales are whole on every rank
+        opt[name] = (engine._unflatten([t if name == "vs" else nat(i, t, layout.leaves[i].opt_spec)
                                         for i, t in enumerate(x)])
                      if _per_leaf(engine, x) else x)
     tree = {"params": engine._unflatten(params), "opt_state": opt,
@@ -349,7 +353,8 @@ def _build_meta(engine, tag: str, client_state: Optional[dict]) -> Dict[str, Any
         "ds_tpu_version": _version(),
         **(engine._meta_extras() if hasattr(engine, "_meta_extras") else {}),
         # a sliced offload engine's slice count (absent: masters whole)
-        **({"offload_shards": int(engine._offload_shards)} if _sharded_offload(engine) else {}),
+        **({"offload_shards": int(engine._offload_shards),
+            "offload_blocks": int(engine._offload_blocks)} if _sharded_offload(engine) else {}),
     }
 
 
@@ -761,7 +766,8 @@ def _finish_restore(
     sliced = None
     if _sharded_offload(engine):
         # the slices' moments live in the shard files, not in state.pt
-        sliced = (HOST_OPT in groups, meta.get("offload_shards", 1))
+        sliced = (HOST_OPT in groups, (meta.get("offload_shards", 1),
+                                       meta.get("offload_blocks", 1)))
         groups.discard(HOST_OPT)
         restored = {n: t for n, t in restored.items() if not n.startswith(HOST_OPT + "/")}
     reset_moments = HOST_OPT in groups and not any(n.startswith(HOST_OPT + "/") for n in restored)
@@ -830,20 +836,28 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
     for i, name in enumerate(paths):
         put(engine._params[i], i, layout.leaves[i].param_spec, restored[f"params/{name}"])
     if "opt_state" in groups:
-        row = engine._dp_row() if getattr(engine, "_onebit_frozen", False) else None
+        frozen = getattr(engine, "_onebit_frozen", False)
+        row = engine._dp_row() if frozen else None
         for field, x in _opt_fields(engine).items():
             if _per_leaf(engine, x):
                 for i, name in enumerate(paths):
                     put(x[i], i, layout.leaves[i].opt_spec, restored[f"opt_state/{field}/{name}"])
-            elif row is not None and field in ("worker_error", "server_error"):
-                x.copy_(restored[f"opt_state/{field}"][row])  # this rank's row of every rank's
+            elif frozen and field != "step":
+                # this model rank's state, of every model rank's
+                src = restored[f"opt_state/{field}"]
+                if field in ("worker_error", "server_error"):
+                    # this rank's row of every rank's
+                    src = src[:, row] if engine.mesh.sizes["model"] > 1 else src[row]
+                x.copy_(engine._held_row(src))
             else:
                 for sub, leaf in _walk(x, (field,)):
                     leaf.copy_(restored["opt_state/" + _path_str(sub)])
         if getattr(engine, "_comm_residuals", None) is not None:
             row = engine._dp_row()
             for t, key in zip(engine._comm_residuals, ("worker_error", "server_error")):
-                t.copy_(restored[f"comm/{key}"][row])
+                src = restored[f"comm/{key}"]
+                t.copy_(engine._held_row(src[:, row] if engine.mesh.sizes["model"] > 1
+                                         else src[row]))
     if "loss_scale" in groups:
         for sub, leaf in _walk(engine.loss_scale_state, ("loss_scale",)):
             leaf.copy_(restored[_path_str(sub)])
@@ -856,23 +870,24 @@ def _copy_in(engine, restored: Dict[str, torch.Tensor], groups) -> None:
 
 
 def _copy_in_sliced(engine, restored: Dict[str, torch.Tensor], path: str, moments: bool,
-                    saved_shards: int) -> None:
+                    saved_layout: Tuple[int, int]) -> None:
     """A sliced offload engine's restore (the JAX engine's
     ``_load_host_optimizer``, ``engine.py:1192-1246``): with ``moments``,
     each slice's masters and moments from its shard file; a tag saved under
-    another slice layout (``saved_shards``) rebuilds every slice's masters
-    from ``params/`` and resets the moments, with the JAX package's
-    warning.  Without ``moments``: the masters from ``params/`` only."""
+    another slice layout (``saved_layout``: its slices a block and its
+    blocks) rebuilds every slice's masters from ``params/`` and resets the
+    moments, with the JAX package's warning.  Without ``moments``: the
+    masters from ``params/`` only."""
     from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat
 
     P, L = engine._offload_shards, engine._offload_slice_len
-    same = moments and saved_shards == P
+    same = moments and tuple(saved_layout) == (P, engine._offload_blocks)
     if moments and not same:
         logger.warning(
             f"host optimizer state {_shard_file(engine._host_shard_ids[0])} of this {P}-slice "
             f"layout not found: the tag {path} was saved under a different offload shard layout "
-            f"({saved_shards} slice(s); process count / DS_OFFLOAD_SHARDS); Adam moments are "
-            "being RESET from params")
+            f"({saved_layout[0]} slice(s) of {saved_layout[1]} block(s); process count / "
+            "DS_OFFLOAD_SHARDS / model axis); Adam moments are being RESET from params")
     flat = None
     for i, opt in zip(engine._host_shard_ids, engine._host_opts):
         if same:
@@ -880,8 +895,10 @@ def _copy_in_sliced(engine, restored: Dict[str, torch.Tensor], path: str, moment
                                            map_location="cpu", weights_only=True))
             continue
         if flat is None:
-            flat = pack_flat([restored[f"params/{k}"] for k in engine._paths], P)
-        opt.load_masters([flat[i * L:(i + 1) * L]])
+            flat = pack_flat([engine._host_block(j, restored[f"params/{k}"])
+                              for j, k in enumerate(engine._paths)], P)
+        j = i % P
+        opt.load_masters([flat[j * L:(j + 1) * L]])
         if moments:
             opt.reset_moments()
 
@@ -890,19 +907,22 @@ def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_mo
                      path: str = "", sliced: Optional[bool] = None) -> None:
     """An offload engine's restore: the host masters from ``params/``, the
     moments from ``host_optimizer/`` (or reset; a sliced engine's from its
-    shard files, :func:`_copy_in_sliced`), then the engine's compute-type
-    parameters from the masters (``_after_host_load``)."""
+    shard files, :func:`_copy_in_sliced`), each cut to this rank's block,
+    then the engine's compute-type parameters from the masters
+    (``_after_host_load``)."""
     host = engine._host_opt
     engine._host_buffers_idle()  # no copy may still read the pinned buffers
+    block = getattr(engine, "_host_block", lambda i, t: t)
     if sliced is not None:
         _copy_in_sliced(engine, restored, path, *sliced)
     elif HOST_OPT in groups:
         host.load_state_dict({
-            **{f"master/{k}": restored[f"params/{k}"] for k in host.keys},
-            **{f"{x}/{k}": restored[f"{HOST_OPT}/{x}/{k}"] for k in host.keys for x in ("m", "v")},
+            **{f"master/{k}": block(i, restored[f"params/{k}"]) for i, k in enumerate(host.keys)},
+            **{f"{x}/{k}": block(i, restored[f"{HOST_OPT}/{x}/{k}"])
+               for i, k in enumerate(host.keys) for x in ("m", "v")},
         })
     else:
-        host.load_masters([restored[f"params/{k}"] for k in host.keys])
+        host.load_masters([block(i, restored[f"params/{k}"]) for i, k in enumerate(host.keys)])
         if reset_moments:
             host.reset_moments()
     if "loss_scale" in groups:
@@ -912,7 +932,7 @@ def _copy_in_offload(engine, restored: Dict[str, torch.Tensor], groups, reset_mo
         keys = engine._paths if sliced is not None else host.keys
         for i, k in enumerate(keys):
             acc = restored.get(f"grad_acc/{k}") if "grad_acc" in groups else None
-            engine._grad_acc[i] = None if acc is None else acc.to(engine.device).clone()
+            engine._grad_acc[i] = None if acc is None else block(i, acc).to(engine.device).clone()
     engine._after_host_load()
 
 

@@ -24,9 +24,12 @@ the device seeded by the seed and the global step).
 ``progressive_layer_drop`` every micro-batch dict carries theta under
 ``PLD_THETA_KEY``; with ``quantize_training`` (MoQ) the matmul weights are
 fake-quantized after the update at the boundary, an overflow step keeping
-them unquantized.  The reduced Adam state and MoQ work on whole leaves:
-a leaf cut by ZeRO, tensor or sequence parallelism raises (ROADMAP A13,
-the compositions), as MoQ under offload does (the JAX engine's rule).
+them unquantized.  Both keep the JAX engine's whole-leaf groups where
+ranks cut a leaf: the 8-bit state's block scales are the whole leaf's
+(each element's block through the same cut as its slice, the partial
+absmax all-reduced by MAX; :class:`~deepspeed_tpu_torch.ops.adam.fused_adam.CutBlocks`),
+and MoQ quantizes each cut matmul weight gathered whole.  MoQ under
+offload raises (the JAX engine's rule).
 
 **ZeRO across ranks.**  The engine's mesh (``mesh`` config block or
 argument; ``comm/mesh.py``) is read from the started process group
@@ -109,28 +112,40 @@ engine.
 or ``nvme``): the f32 masters and Adam moments live in pinned
 host memory (the moments on disk under ``nvme``) in a
 ``runtime/zero/offload.py::HostOffloadOptimizer``; the device holds the
-compute-type parameters and the f32 gradient accumulator only.  At the
+compute-type parameters and the f32 gradient accumulator only.  Under a
+``model`` or ``expert`` axis each rank's host optimizer holds its block of
+every cut leaf (``qkv`` head-grouped) and the replicated leaves whole;
+checkpoints gather the natural layout.  At the
 accumulation boundary the accumulator is averaged, unscaled, checked,
 norm-reduced and clipped on the device (the code of the device step),
 copied into pinned host buffers on a side stream behind an event, stepped
 by the native host Adam (``ops/adam/cpu_adam.py``), cast to bf16 by the
 host kernel into a pinned buffer and copied back to the device parameters
 without blocking; the next cast into that buffer waits for the copy's
-event.  Across ranks (or ``DS_OFFLOAD_SHARDS`` in one process) the
-masters are packed flat and each rank keeps, steps and checkpoints its
-1/P slice, the updated slices all-gathered as pinned f32 tensors on a gloo
-group; the device keeps whole parameters and reduces whole gradients
-whatever the stage.  ``offload_param`` routes to
+event.  Across the ranks that hold the same blocks (the ``data x fsdp x
+seq`` grid; or ``DS_OFFLOAD_SHARDS`` in one process) the masters are
+packed flat and each rank keeps, steps and checkpoints its 1/P slice, the
+updated slices all-gathered as pinned f32 tensors on a gloo group over
+that grid; the device keeps whole parameters (blocks) and reduces whole
+gradients whatever the stage.  A ``pipe`` axis is refused, as the JAX
+pipeline engine refuses offload.  ``offload_param`` routes to
 ``runtime/zero/param_offload.py`` in ``initialize``.
 
 **1-bit Adam / LAMB and compressed exchanges** (``OneBitAdam``,
 ``OneBitLamb``; ``comm.strategy`` ``int8`` / ``onebit``): on a
-data-parallel grid of more than one rank at stage 0, the 1-bit
-optimizers' warm steps take the dense exchange; from ``freeze_step`` each
-rank keeps its own gradients and one 1-bit momentum exchange a step
-crosses the wire (``runtime/fp16/onebit/``, :meth:`_explicit_step`).  The
-compressed strategies exchange each rank's gradient row once a step
-(``comm/strategy.py`` ``exchange_rows``) and then take the dense update.
+data-parallel grid of more than one rank, at any ZeRO stage, the 1-bit
+optimizers' warm steps take the dense exchange (their state on ZeRO's
+update slices; LAMB's trust-ratio norms summed over a cut leaf's ranks);
+from ``freeze_step`` each rank keeps its own gradients and one 1-bit
+momentum exchange a step crosses the wire over ``data x fsdp``
+(``runtime/fp16/onebit/``, :meth:`_explicit_step`), the frozen state
+replicated over that grid.  The compressed strategies exchange each
+rank's gradient row once a step (``comm/strategy.py`` ``exchange_rows``)
+and then take the dense update.  Under stage 3 each rank keeps its
+gathered leaves' gradients unreduced for its row; ``seq`` ranks sum their
+rows first; under a ``model`` axis each ``model`` rank's row is its blocks
+(the replicated leaves on ``model`` rank 0's row alone, its results
+taken by the others: ROADMAP C4).
 
 **Telemetry** (``telemetry`` block; ``telemetry/``): the engine arms the
 process's plane before the comm layer (whose strategy decisions land in
@@ -148,15 +163,15 @@ sync.  ``wall_clock_breakdown`` fences the timeline's ``compute`` phase
 and logs the timeline and the CUDA-event timers at that cadence.
 
 Not ported (each raises, naming its ROADMAP item, or is absent): 1-bit
-optimizers under ZeRO stage >= 1 and explicit exchanges under stage 3 or
-model parallelism (A13), offload under model parallelism (A12's
-remainder), the reduced Adam state and MoQ on cut leaves (A13, the
-compositions), supervision and telemetry's cross-rank aggregation (A14)
-and the sanitizer (A15).
+optimizers and explicit exchanges under an ``expert`` or ``pipe`` axis,
+and the 1-bit local-quantization fallback on leaves cut across ranks
+(A13, the compositions); supervision and telemetry's cross-rank
+aggregation (A14) and the sanitizer (A15).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -173,6 +188,7 @@ from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.parallel.sequence import ambient_mesh
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaler
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_schedule
+from deepspeed_tpu_torch.runtime.zero.partition import HELD_AXES
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (
     BACKWARD_TIMER,
@@ -395,10 +411,16 @@ class DeepSpeedEngine:
         self.lr_schedule = self._configure_lr_schedule(lr_scheduler)
         self.client_lr_scheduler = lr_scheduler
         self.opt_state = None  # offload: the host optimizer holds it
+        self._state_cuts = None
         if self._host_opt is None:
             with torch.no_grad():
-                self.opt_state = self.optimizer.init(
-                    [self._update_param(i) for i in range(len(self._params))])
+                params = [self._update_param(i) for i in range(len(self._params))]
+                if getattr(self.optimizer, "state_precision", "fp32") == "8bit":
+                    self.opt_state = self.optimizer.init(
+                        params, whole=[int(np.prod(leaf.shape)) for leaf in self.layout.leaves])
+                    self._init_state_cuts()
+                else:
+                    self.opt_state = self.optimizer.init(params)
         self.loss_scale_state = self.loss_scaler.init(self.device)
         # a static scaler's scale on the host (load_checkpoint refreshes it)
         self._static_scale = self.loss_scaler.init_scale
@@ -443,22 +465,20 @@ class DeepSpeedEngine:
         reason = host_optimizer_refusal(self.config, optimizer)
         if reason is not None:
             raise ValueError(f"offload_optimizer: {reason}")
-        other = [a for a in ("model", "seq", "expert", "pipe") if self.mesh.sizes[a] > 1]
-        if other:
+        if self.mesh.sizes["pipe"] > 1:
             raise NotImplementedError(
-                f"offload_optimizer with a {'/'.join(other)} axis is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A12's remainder: offload under model "
-                "parallelism); the offload engines split the data-parallel grid only")
+                "offload_optimizer with a pipe axis: the pipeline engine owns its layout and "
+                "refuses offload, as the JAX package's does")
         return True
 
     def _init_training_extras(self, config) -> None:
         """The activation checkpointing block published to
         ``runtime/activation_checkpointing`` (the JAX engine's
-        ``configure`` call), MoQ's quantizer and PLD's schedule, and the
-        refusals of what works on whole leaves only: the reduced Adam
-        state and MoQ, where a leaf is cut by ZeRO, tensor or sequence
-        parallelism (8-bit blocks and quantization groups span a whole
-        leaf or layer), and MoQ under offload."""
+        ``configure`` call), MoQ's quantizer and PLD's schedule, and
+        MoQ under offload's refusal (the JAX engine's rule).  The 8-bit
+        state's blocks and MoQ's quantization groups are the whole leaf's
+        wherever ranks cut it (:meth:`_init_state_cuts`,
+        :meth:`_quantize_masters`)."""
         from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as act_ckpt
 
         act_ckpt.configure(deepspeed_config=config)
@@ -477,20 +497,31 @@ class DeepSpeedEngine:
             self.progressive_layer_drop = ProgressiveLayerDrop(
                 theta=config.progressive_layer_drop.theta,
                 gamma=config.progressive_layer_drop.gamma)
-        reduced = (self._host_opt is None
-                   and getattr(self.optimizer, "state_precision", "fp32") != "fp32")
-        whole = [self.quantizer is not None and "quantize_training (MoQ)",
-                 reduced and f"state_precision={self.optimizer.state_precision!r}"]
-        whole = [w for w in whole if w]
-        layout = self.layout
-        cut = [self._paths[i] for i, leaf in enumerate(layout.leaves)
-               if leaf.flat is not None or layout.sharded(leaf.param_spec)
-               or layout.update_sharded(i)]
-        if whole and cut:
-            raise NotImplementedError(
-                f"{' and '.join(whole)} on leaves cut across ranks ({len(cut)} of "
-                f"{len(layout.leaves)}, e.g. {cut[0]!r}) is not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP A13, the compositions): its blocks span a whole leaf")
+
+    def _init_state_cuts(self) -> None:
+        """The 8-bit state's blocks on leaves cut across ranks (ZeRO's update
+        slices, stage 3's shards, ``model`` blocks): for each such leaf with
+        blocks, where its slice sits in the natural leaf (one index vector
+        a dimension of the slice, so each chunk's blocks are worked out as
+        it steps) and the max over the ranks holding its other slices, so
+        every block scale is the one-rank value (the JAX engine's blocks
+        span the whole leaf, ``engine.py:841-857``)."""
+        from deepspeed_tpu_torch.comm import collectives
+        from deepspeed_tpu_torch.ops.adam.fused_adam import CutBlocks
+
+        layout, cuts = self.layout, []
+        for i, leaf in enumerate(layout.leaves):
+            n = int(np.prod(leaf.shape))
+            b = self.optimizer._v_blocks(n)
+            if not b or not (layout.sharded(leaf.opt_spec) or leaf.flat is not None):
+                cuts.append(None)
+                continue
+            index = [t.to(self.device) for t in layout.natural_index(i, leaf.opt_spec)]
+            reduce_max = functools.partial(collectives.all_reduce,
+                                           group=self.mesh.group(layout.update_axes(i)),
+                                           kind="state-scales", op="max")
+            cuts.append(CutBlocks(index=index, n=n, block=b, reduce_max=reduce_max))
+        self._state_cuts = cuts if any(c is not None for c in cuts) else None
 
     def _rounding_generator(self) -> torch.Generator:
         """The reduced Adam state's stochastic-rounding bits for this step,
@@ -500,18 +531,41 @@ class DeepSpeedEngine:
         seed = (self.config.seed * 1_000_003 + 997_001 + self._host_global_step) ^ (1 << 61)
         return torch.Generator(device=self.device).manual_seed(seed & _SEED_MASK)
 
+    # the axes whose ranks hold the same parameter blocks under offload:
+    # the host masters are cut into flat slices over them
+    _OFFLOAD_SLICE_AXES = ("data", "fsdp", "seq")
+
     def _offload_shard_count(self) -> int:
-        """How many flat slices the f32 masters and moments are cut into
-        (the JAX engine's ``_offload_shards``, ``engine.py:166-183``): one a
-        rank across ranks; in one process ``DS_OFFLOAD_SHARDS`` (the JAX
-        package's simulated hosts: this process steps every slice)."""
+        """How many flat slices the f32 masters and moments (this rank's
+        blocks of them under a ``model`` or ``expert`` axis) are cut into
+        (the JAX engine's ``_offload_shards``, ``engine.py:166-183``):
+        across ranks one a rank of the ``data x fsdp x seq`` grid that
+        holds the same blocks; in one process ``DS_OFFLOAD_SHARDS`` (the
+        JAX package's simulated hosts: this process steps every slice)."""
         env = int(os.environ.get("DS_OFFLOAD_SHARDS", "1"))
         if self.world_size > 1:
-            if env > 1 and env != self.world_size:
-                logger.warning(f"DS_OFFLOAD_SHARDS={env} ignored: with {self.world_size} "
-                               "processes each host owns exactly one slice")
-            return self.world_size
+            P = self.mesh.size(self._OFFLOAD_SLICE_AXES)
+            if env > 1 and env != P:
+                logger.warning(f"DS_OFFLOAD_SHARDS={env} ignored: with {P} processes holding "
+                               "the same blocks each owns exactly one slice")
+            return P
         return max(1, env)
+
+    def _host_block(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i`` (its natural whole ``full``, on
+        the host) as the host optimizer holds it: the stored shape cut by
+        the held axes (``model``, ``expert``), contiguous."""
+        leaf = self.layout.leaves[i]
+        return self.layout.from_natural(i, full.float(), leaf.param_spec).contiguous()
+
+    def _host_natural(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i`` whole and natural, on the host, from this rank's
+        block ``t`` of it (gathered over the held axes on the engine's
+        device: collective where a held axis cuts the leaf)."""
+        if not self.layout.tp_sharded(i):
+            return self.layout.from_state(i, t)
+        whole = self.layout.natural(i, t.to(self.device), self.layout.leaves[i].param_spec)
+        return whole.to("cpu")
 
     def _init_host_offload(self, leaves: List[Any]) -> None:
         """The host optimizer (the JAX engine's
@@ -533,44 +587,62 @@ class DeepSpeedEngine:
                 raise ValueError("offload_optimizer.device=nvme requires nvme_path")
             nvme_dir = os.path.join(oc.nvme_path, "zero_infinity_swap")
         pin = self.device.type == "cuda"
+        # this rank's block of every leaf (the leaf itself where no held
+        # axis cuts it), as the device computes with it
+        leaves = [self._host_block(i, x.detach().cpu() if isinstance(x, torch.Tensor)
+                                   else torch.from_numpy(np.ascontiguousarray(np.asarray(x))))
+                  for i, x in enumerate(leaves)]
+        held = tuple(a for a in HELD_AXES if self.mesh.sizes[a] > 1)
+        self._offload_blocks = self.mesh.size(held)
+        block = self.mesh.chunk_index(held)
         P = self._offload_shards = self._offload_shard_count()
         self._host_pg = None
+        if nvme_dir is not None and self._offload_blocks > 1:
+            nvme_dir = os.path.join(nvme_dir, f"block{block}")
         if P <= 1:
+            if nvme_dir is not None:
+                os.makedirs(nvme_dir, exist_ok=True)
             self._host_opts = [HostOffloadOptimizer.from_config(
                 self.config, list(zip(self._paths, leaves)), nvme_swap_dir=nvme_dir,
                 pin_memory=pin)]
-            self._host_shard_ids = [0]
+            self._host_shard_ids = [block]
             self._masters_full = self._host_opts[0].masters
             self._host_grads = [torch.empty(m.shape, dtype=torch.float32, pin_memory=pin)
                                 for m in self._masters_full]
         else:
-            flat = pack_flat([x if isinstance(x, torch.Tensor) else torch.from_numpy(
-                np.ascontiguousarray(np.asarray(x))) for x in leaves], P)
+            flat = pack_flat(leaves, P)
             L = self._offload_slice_len = flat.numel() // P
-            self._host_shard_ids = [self.global_rank] if self.world_size > 1 else list(range(P))
-
-            def shard(i):
-                nv = None if nvme_dir is None else os.path.join(nvme_dir, f"shard{i}")
-                if nv is not None:
-                    os.makedirs(nv, exist_ok=True)
-                return HostOffloadOptimizer.from_config(
-                    self.config, [("flat", flat[i * L:(i + 1) * L])], nvme_swap_dir=nv,
-                    pin_memory=pin)
-
-            self._host_opts = [shard(i) for i in self._host_shard_ids]
-            self._gathered = torch.empty(P * L, dtype=torch.float32, pin_memory=pin)
-            self._gathered.copy_(flat)
-            del flat
-            templates = [torch.empty(tuple(np.shape(x)), dtype=torch.float32, device="meta")
-                         for x in leaves]
-            self._masters_full = [v.view(t.shape) for v, t in zip(
-                unpack_flat(self._gathered, [t.reshape(-1) for t in templates]), templates)]
-            self._host_grads = [torch.empty(L, dtype=torch.float32, pin_memory=pin)
-                                for _ in self._host_shard_ids]
             if self.world_size > 1:
                 from deepspeed_tpu_torch.comm import collectives
 
-                self._host_pg = collectives.host_group()
+                axes = tuple(a for a in self._OFFLOAD_SLICE_AXES if self.mesh.sizes[a] > 1)
+                sets = self.mesh.group_ranks(axes)
+                mine = next(r for r in sets if self.global_rank in r)
+                slices = [mine.index(self.global_rank)]
+                # gloo over the ranks holding the same blocks (group order
+                # is slice order: each set is sorted)
+                self._host_pg = collectives.host_group(sets)
+            else:
+                slices = list(range(P))
+            # a slice's name counts every block's slices: block b's slice s
+            self._host_shard_ids = [block * P + j for j in slices]
+
+            def shard(j):
+                nv = None if nvme_dir is None else os.path.join(nvme_dir, f"shard{j}")
+                if nv is not None:
+                    os.makedirs(nv, exist_ok=True)
+                return HostOffloadOptimizer.from_config(
+                    self.config, [("flat", flat[j * L:(j + 1) * L])], nvme_swap_dir=nv,
+                    pin_memory=pin)
+
+            self._host_opts = [shard(j) for j in slices]
+            self._gathered = torch.empty(P * L, dtype=torch.float32, pin_memory=pin)
+            self._gathered.copy_(flat)
+            del flat
+            self._masters_full = [v.view(t.shape) for v, t in zip(
+                unpack_flat(self._gathered, [t.reshape(-1) for t in leaves]), leaves)]
+            self._host_grads = [torch.empty(L, dtype=torch.float32, pin_memory=pin)
+                                for _ in slices]
             log_dist(f"ZeRO-Offload: masters sharded 1/{P} per host "
                      f"({L * 4 / 1e9:.2f} GB master slice/host)")
         self._host_opt = self._host_opts[0]
@@ -618,16 +690,14 @@ class DeepSpeedEngine:
 
     def _explicit_refusal(self) -> Optional[str]:
         """Why the port cannot run an explicit (1-bit or compressed)
-        exchange on this engine's layout, or None: it exchanges whole
-        leaves over the data-parallel grid, so a leaf cut by ZeRO stage 3,
-        or a ``model``, ``seq``, ``expert`` or ``pipe`` axis, is not
-        ported (the JAX package composes them under GSPMD)."""
-        sizes = self.mesh.sizes
-        other = [a for a in ("model", "seq", "expert", "pipe") if sizes[a] > 1]
+        exchange on this engine's layout, or None.  Each ``model`` rank
+        exchanges the rows of its own blocks over its data-parallel grid
+        (``seq`` ranks sum their rows first, stage 3 keeps each rank's
+        gradients unreduced); an ``expert`` or ``pipe`` axis is not ported
+        (the JAX package composes them under GSPMD)."""
+        other = [a for a in ("expert", "pipe") if self.mesh.sizes[a] > 1]
         if other:
             return f"a {'/'.join(other)} axis"
-        if self._stage3:
-            return "ZeRO stage 3 (parameters cut over fsdp)"
         return None
 
     def _init_onebit(self) -> None:
@@ -636,7 +706,10 @@ class DeepSpeedEngine:
         own gradients and one 1-bit momentum exchange a step crosses the
         wire.  Its blockers: a data-parallel grid of one rank, offload;
         otherwise the optimizer falls back to its local quantization under
-        the dense exchange, with the JAX package's warning."""
+        the dense exchange, with the JAX package's warning.  The warm
+        state lives on ZeRO's update slices; the compressed phase's is
+        replicated over the data-parallel grid (per ``model`` rank, its
+        blocks), with the JAX package's warning of its bytes."""
         from deepspeed_tpu_torch.runtime.fp16.onebit.adam import OnebitAdam
 
         self._onebit_frozen = False
@@ -644,13 +717,10 @@ class DeepSpeedEngine:
         if not isinstance(self.optimizer, OnebitAdam):
             return
         reason = self._explicit_refusal()
-        if reason is None and self.zero_stage >= 1:
-            reason = "ZeRO stage >= 1 (the warm state on update slices)"
         if reason is not None:
             raise NotImplementedError(
                 f"1-bit {type(self.optimizer).__name__} under {reason} is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A13, 1-bit optimizers under ZeRO or "
-                "model parallelism)")
+                "deepspeed_tpu_torch yet (ROADMAP A13, the compositions)")
         blockers = {"data-parallel grid must be > 1": self.dp_world_size > 1,
                     "offload_optimizer unsupported": self._host_opt is None,
                     "quantize_training (MoQ) unsupported": self.quantizer is None,
@@ -658,10 +728,25 @@ class DeepSpeedEngine:
         self._onebit_exchange_ok = all(blockers.values())
         if not self._onebit_exchange_ok:
             failed = [k for k, ok in blockers.items() if not ok]
+            cut = [i for i in range(len(self._params)) if self.layout.update_axes(i)]
+            if cut:
+                raise NotImplementedError(
+                    f"1-bit {type(self.optimizer).__name__}'s local quantization fallback "
+                    f"({'; '.join(failed)}) on leaves cut across ranks is not ported to "
+                    "deepspeed_tpu_torch yet (ROADMAP A13, the compositions): its scale is a "
+                    "whole leaf's mean")
             logger.warning(
                 f"1-bit {type(self.optimizer).__name__}: compressed gradient exchange DISABLED "
                 "— the optimizer will fall back to local momentum quantization with "
                 f"full-precision allreduce ({'; '.join(failed)})")
+        elif any(self.layout.update_sharded(i) for i in range(len(self._params))):
+            n_p = sum(self.layout.local_numel(i) for i in range(len(self._params)))
+            logger.warning(
+                "1-bit optimizer + ZeRO: the compressed phase replicates the momentum signs "
+                "(int8) + flat fp32 variance/params and keeps a per-rank fp32 worker-error row "
+                f"(~{13 * n_p / 2**30:.1f}GiB static per rank, plus fp32 momentum/grad "
+                "transients during the step) — ZeRO's state sharding does not apply after "
+                "freeze_step")
 
     def _init_telemetry(self, config) -> None:
         """The telemetry plane (the JAX engine's ``engine.py:433-453``),
@@ -729,7 +814,7 @@ class DeepSpeedEngine:
         self._comm_n_params = sum(self.layout.local_numel(i)
                                   for i in range(len(self.layout.leaves)))
         n = max(1, self.dp_world_size)
-        self._comm_flat_len = -(-self._comm_n_params // n) * n
+        self._comm_flat_len = self._row_len()
         want = self.comm.select(4 * self._comm_n_params, torch.float32, ("data", "fsdp"),
                                 site="grad-exchange")
         explicit = want != STRATEGY_DENSE
@@ -750,8 +835,7 @@ class DeepSpeedEngine:
         if explicit and self._explicit_refusal() is not None:
             raise NotImplementedError(
                 f"comm.strategy '{want}' under {self._explicit_refusal()} is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A13, compressed exchanges under ZeRO stage 3 "
-                "or model parallelism)")
+                "deepspeed_tpu_torch yet (ROADMAP A13, the compositions)")
         self._comm_grad_strategy = want
         self._comm_explicit = explicit
         self._comm_residuals = None
@@ -917,7 +1001,8 @@ class DeepSpeedEngine:
         Where ZeRO shards them this gathers: read it on every rank.  Under
         offload: the host masters."""
         if self._host_opt is not None:
-            return self._unflatten(list(self._masters_full))
+            return self._unflatten([self._host_natural(i, m)
+                                    for i, m in enumerate(self._masters_full)])
         return self._unflatten([self.layout.natural(i, p.detach(), self.layout.leaves[i].param_spec)
                                 for i, p in enumerate(self._params)])
 
@@ -976,7 +1061,8 @@ class DeepSpeedEngine:
             return self._loss_of(self._materialize_params(), batch, generator)
         from deepspeed_tpu_torch.runtime.zero.partition import Stage3Context
 
-        ctx = Stage3Context(self.layout, self._params, self.compute_dtype)
+        ctx = Stage3Context(self.layout, self._params, self.compute_dtype,
+                            local=self._local_sink if self._local_grads() else None)
         with ctx.hooks():
             loss = self._loss_of(self._materialize_params(ctx), batch, generator)
         ctx.end_forward()
@@ -1050,13 +1136,13 @@ class DeepSpeedEngine:
                               reduce_norms=self._lamb_norm_reducer())
         if state is None:
             self.opt_state = self._plain_update(grads, params, lr, overflow)
-        if self.quantizer is not None:
-            self._quantize_masters(overflow)
         for i in range(n):
             if layout.update_sharded(i):
                 leaf = layout.leaves[i]
                 self._params[i].copy_(layout.gather(params[i], leaf.opt_spec, leaf.param_spec,
                                                     "update-all-gather"))
+        if self.quantizer is not None:
+            self._quantize_masters(overflow)
         self.loss_scale_state = self.loss_scaler.update(self.loss_scale_state, overflow)
         return {"lr": lr, "grad_norm": grad_norm, "overflow": overflow, "loss": loss}
 
@@ -1127,19 +1213,117 @@ class DeepSpeedEngine:
         elif self._onebit_frozen and global_step <= self.optimizer.freeze_step:
             self._exit_onebit_frozen()
 
-    def _natural(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Parameter-shaped tensors (the masters' layout) in their natural
-        shapes, in the engine's order."""
-        return [self.layout.natural(i, t.detach(), self.layout.leaves[i].param_spec)
-                for i, t in enumerate(tensors)]
+    def _row_leaf(self, i: int, block: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s part of an explicit exchange's row, from this
+        rank's whole block of it (the stored shape cut by the held axes):
+        the natural leaf where no ``model`` axis cuts it (unpadded), else
+        the block as stored (head-grouped ``qkv``)."""
+        return block if self.layout.tp_sharded(i) else self.layout.from_state(i, block)
+
+    def _from_row_leaf(self, i: int, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's part of ``spec`` from leaf ``i``'s row part ``t``
+        (a view)."""
+        leaf = self.layout.leaves[i]
+        block = t if self.layout.tp_sharded(i) else self.layout.to_state(i, t)
+        return self.layout.narrow(block, leaf.state_shape, leaf.tp_spec, spec)
+
+    def _row_members(self, lead: Optional[bool] = None) -> List[int]:
+        """The leaves in this rank's exchange row (``lead``: in ``model``
+        rank 0's): every leaf, or under a ``model`` axis the blocks it cuts
+        and, on ``model`` rank 0 alone, the replicated leaves (each element
+        is exchanged once; the other ``model`` ranks take those from it,
+        :meth:`_from_lead`)."""
+        lead = self.mesh.coords["model"] == 0 if lead is None else lead
+        return [i for i in range(len(self._params)) if lead or self.layout.tp_sharded(i)]
+
+    def _row_numel(self, lead: Optional[bool] = None) -> int:
+        return sum(int(np.prod(self.layout.leaves[i].shape)) if not self.layout.tp_sharded(i)
+                   else int(np.prod(self._block_shape(i))) for i in self._row_members(lead))
+
+    def _row_len(self) -> int:
+        """Every rank's exchange row's length: ``model`` rank 0's elements
+        (the longest row) padded to the data-parallel grid."""
+        dp = max(1, self.dp_world_size)
+        return -(-self._row_numel(lead=True) // dp) * dp
+
+    def _row_parts(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's row parts and, on a ``model`` rank other than 0,
+        zeros up to ``model`` rank 0's elements: every ``model`` rank's row
+        (and its residuals and frozen state) is of one length."""
+        pad = self._row_numel(lead=True) - self._row_numel()
+        return parts + [torch.zeros(pad, device=self.device)] if pad else parts
+
+    def _row_leaves(self, tensors: List[torch.Tensor], spec: str,
+                    idx: List[int]) -> List[torch.Tensor]:
+        """Leaves ``idx`` of tensors in each leaf's ``spec``
+        (``"param_spec"``, ``"opt_spec"``) as row parts: gathered over the
+        stage's axes up to the held block (a collective where ZeRO cuts a
+        leaf), then :meth:`_row_leaf`."""
+        out = []
+        for i in idx:
+            leaf = self.layout.leaves[i]
+            t = self.layout.gather(tensors[i].detach(), getattr(leaf, spec), leaf.tp_spec,
+                                   "row-gather")
+            out.append(self._row_leaf(i, t))
+        return out
+
+    def _model_sum(self, sq: torch.Tensor) -> torch.Tensor:
+        """A sum over this rank's row, summed over the ``model`` axis (the
+        whole row of a data rank)."""
+        if self.mesh.sizes["model"] <= 1:
+            return sq
+        from deepspeed_tpu_torch.comm import collectives
+
+        return collectives.all_reduce(sq, self.mesh.group(("model",)), kind="step-scalars")
+
+    def _from_lead(self, parts: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        """The replicated leaves' row parts of ``model`` rank 0 on every
+        ``model`` rank (one all-reduce over ``model`` to which the other
+        ranks add zeros: the lead's bits); nothing without a ``model``
+        axis."""
+        from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat, unpack_flat
+
+        rep = [i for i in range(len(self._params)) if not self.layout.tp_sharded(i)]
+        if self.mesh.sizes["model"] <= 1 or not rep:
+            return {}
+        from deepspeed_tpu_torch.comm import collectives
+
+        shapes = [self.layout.leaves[i].shape for i in rep]
+        if self.mesh.coords["model"] == 0:
+            flat = pack_flat([parts[i] for i in rep], 1)
+        else:
+            flat = torch.zeros(sum(int(np.prod(sh)) for sh in shapes), device=self.device)
+        flat = collectives.all_reduce(flat, self.mesh.group(("model",)), kind="model-replicated")
+        return dict(zip(rep, unpack_flat(flat, [torch.empty(sh, device="meta") for sh in shapes])))
+
+    def _held_stack(self, t: torch.Tensor) -> torch.Tensor:
+        """A tensor of this rank's exchange row (a frozen 1-bit state's
+        field, an exchange's residuals), stacked over the ``model`` axis
+        for a tag (collective), or itself without one."""
+        if self.mesh.sizes["model"] <= 1:
+            return t
+        from deepspeed_tpu_torch.comm import collectives
+
+        return collectives.all_gather(t[None].contiguous(), self.mesh.group(("model",)),
+                                      kind="checkpoint")
+
+    def _held_row(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's entry of :meth:`_held_stack`'s stack."""
+        return t[self.mesh.coords["model"]] if self.mesh.sizes["model"] > 1 else t
 
     @torch.no_grad()
     def _enter_onebit_frozen(self) -> None:
         """The warm state in the compressed phase's layout (the JAX engine's
         ``_enter_onebit_frozen``): the momentum as signs and chunk scales,
         the variance flat, this rank's residuals."""
+        st, idx = self.opt_state, self._row_members()
+        rows = {f: self._row_parts(self._row_leaves(getattr(st, f), "opt_spec", idx))
+                for f in ("exp_avg", "exp_avg_sq", "worker_error")}
+        rows.update({f.name: [getattr(st, f.name)[i] for i in idx]
+                     for f in dataclasses.fields(st)
+                     if f.name not in rows and isinstance(getattr(st, f.name), list)})
         self.opt_state = self.optimizer.make_frozen_state(
-            self.opt_state, self.dp_world_size)
+            dataclasses.replace(st, **rows), self.dp_world_size)
         self._onebit_frozen = True
         self.comm.note("momentum-exchange", "onebit",
                        f"1-bit {type(self.optimizer).__name__} compressed-exchange phase")
@@ -1193,29 +1377,44 @@ class DeepSpeedEngine:
 
         n, group, layout = self.dp_world_size, self._dp_group(), self.layout
         gas = self.gradient_accumulation_steps
-        acc = [a if a is not None else torch.zeros_like(p)
-               for a, p in zip(self._grad_acc, self._params)]
+        # this rank's whole blocks (a stage-3 leaf's came from its gather's
+        # backward unreduced), as the row's leaves
+        idx = self._row_members()
+        nat = [self._row_leaf(i, self._grad_acc[i] if self._grad_acc[i] is not None
+                              else torch.zeros(self._block_shape(i), device=self.device))
+               for i in idx]
         self._grad_acc = [None] * len(self._params)
-        nat = self._natural(acc)
-        del acc
         scale = self.loss_scale_state.scale.float()
-        g_row = pack_flat(nat, n) / (gas * scale)
+        g_row = pack_flat(self._row_parts(nat), n)
+        if self.mesh.sizes["seq"] > 1:
+            # each seq rank saw other positions: their sum, once a step
+            from deepspeed_tpu_torch.comm import collectives
+
+            g_row = collectives.all_reduce(g_row, self.mesh.group(("seq",)),
+                                           kind="seq-grad-exchange")
+        g_row = g_row / (gas * scale)
         local_overflow = ~torch.isfinite(torch.sum(g_row))
         clip = self.config.gradient_clipping
         lr = float(self.lr_schedule(self._host_global_step))
         if self._onebit_frozen:
-            sq_local = torch.sum(g_row * g_row)
-            sq, overflow, loss = self._step_scalars(sq_local, local_overflow, loss)
+            # the row's norm across the model axis: this data rank's whole
+            # gradient; a seq rank's row equals its peers'
+            sq_local = self._model_sum(torch.sum(g_row * g_row))
+            lead = self.mesh.coords["model"] == 0 and self.mesh.coords["seq"] == 0
+            sq, overflow, loss = self._step_scalars(
+                sq_local if lead else torch.zeros_like(sq_local), local_overflow, loss)
             grad_norm = torch.sqrt(sq / n)
             if clip > 0.0:
                 g_row = g_row * torch.clamp(clip / (torch.sqrt(sq_local) + 1e-6), max=1.0)
-            p_nat = self._natural(self._params)
-            p_flat = pack_flat(p_nat, n)
+            p_nat = self._row_leaves(self._params, "param_spec", idx)
+            p_flat = pack_flat(self._row_parts(p_nat), n)
             upd, new_state = self.optimizer.frozen_apply(
                 g_row, self.opt_state, p_flat, torch.tensor(lr, device=self.device), group=group)
             new_flat = torch.where(overflow, p_flat, p_flat + upd)
-            for i, t in enumerate(unpack_flat(new_flat, p_nat)):
-                self._params[i].copy_(layout.from_natural(i, t, layout.leaves[i].param_spec))
+            new = dict(zip(idx, unpack_flat(new_flat, p_nat)))
+            new.update(self._from_lead(new))
+            for i, t in new.items():
+                self._params[i].copy_(self._from_row_leaf(i, t, layout.leaves[i].param_spec))
             self.opt_state = type(new_state)(**{
                 f: torch.where(overflow, getattr(self.opt_state, f), getattr(new_state, f))
                 for f in new_state.__dataclass_fields__})
@@ -1237,16 +1436,33 @@ class DeepSpeedEngine:
         if new_res is not None:
             self._comm_residuals = tuple(torch.where(overflow, old, new) for old, new in
                                          zip(self._comm_residuals, new_res))
-        grads = []
-        for i, t in enumerate(unpack_flat(g_mean, nat)):
-            leaf = layout.leaves[i]
-            full = layout.from_natural(i, t, leaf.param_spec)
-            grads.append(layout.narrow(full, leaf.state_shape, leaf.param_spec, leaf.opt_spec))
+        mine = unpack_flat(g_mean, nat)
+        parts = {**dict(zip(idx, mine)), **self._from_lead(dict(zip(idx, mine)))}
+        grads = [self._from_row_leaf(i, parts[i], layout.leaves[i].opt_spec)
+                 for i in range(len(self._params))]
         grad_norm = torch.zeros((), dtype=torch.float32, device=self.device)
         if clip > 0.0:
-            grad_norm = torch.sqrt(_sum_squares(unpack_flat(g_mean, nat), self.device))
+            grad_norm = torch.sqrt(self._model_sum(_sum_squares(mine, self.device)))
             grads = _clip_by_norm(grads, grad_norm, clip)
         return self._update(grads, overflow, grad_norm, loss)
+
+    def _block_shape(self, i: int) -> Tuple[int, ...]:
+        """Leaf ``i``'s held block in its stored shape (the stored shape
+        where no held axis cuts it)."""
+        from deepspeed_tpu_torch.sharding.spec import entry_axes
+
+        leaf = self.layout.leaves[i]
+        return tuple(n // self.mesh.size(entry_axes(e))
+                     for n, e in zip(leaf.state_shape, leaf.tp_spec))
+
+    def _local_sink(self, i: int, layer: Optional[int], g: torch.Tensor) -> None:
+        """A stage-3 gather's gradient kept unreduced where each rank keeps
+        its own gradients (the explicit exchanges): added into leaf ``i``'s
+        whole block (``layer``: one layer of a stacked leaf)."""
+        acc = self._grad_acc[i]
+        if acc is None:
+            acc = self._grad_acc[i] = torch.zeros(self._block_shape(i), device=self.device)
+        (acc if layer is None else acc[layer]).add_(g)
 
     def _portable_opt_fields(self) -> Dict[str, Any]:
         """The optimizer state by field, as a tag holds it: in the 1-bit
@@ -1261,6 +1477,8 @@ class DeepSpeedEngine:
             for k in ("worker_error", "server_error"):
                 out[k] = collectives.all_gather(out[k][None], self._dp_group(),
                                                 kind="checkpoint")
+            # each model rank's state is of its own blocks
+            out = {k: (t if k == "step" else self._held_stack(t)) for k, t in out.items()}
         return out
 
     def _comm_state(self) -> Dict[str, torch.Tensor]:
@@ -1270,7 +1488,8 @@ class DeepSpeedEngine:
             return {}
         from deepspeed_tpu_torch.comm import collectives
 
-        werr, serr = (collectives.all_gather(t[None], self._dp_group(), kind="checkpoint")
+        werr, serr = (self._held_stack(collectives.all_gather(t[None], self._dp_group(),
+                                                             kind="checkpoint"))
                       for t in self._comm_residuals)
         return {"comm/worker_error": werr, "comm/server_error": serr}
 
@@ -1297,8 +1516,9 @@ class DeepSpeedEngine:
                 # this rank's slices of the packed gradient only
                 from deepspeed_tpu_torch.runtime.fp16.onebit.adam import pack_flat
 
-                flat, L = pack_flat(grads, self._offload_shards), self._offload_slice_len
-                grads = [flat[i * L:(i + 1) * L] for i in self._host_shard_ids]
+                P, L = self._offload_shards, self._offload_slice_len
+                flat = pack_flat(grads, P)
+                grads = [flat[i % P * L:(i % P + 1) * L] for i in self._host_shard_ids]
             if self._d2h_stream is not None:
                 ev["d2h_start"], ev["d2h_end"] = (torch.cuda.Event(enable_timing=True)
                                                   for _ in range(2))
@@ -1435,14 +1655,23 @@ class DeepSpeedEngine:
 
     def _quantize_masters(self, overflow) -> None:
         """MoQ after the update: the matmul weights fake-quantized in place
-        at this step's bits, the unquantized masters kept on overflow."""
+        at this step's bits, the unquantized masters kept on overflow.  A
+        leaf cut across ranks (stage 3's shards, ``model`` blocks) is
+        quantized whole, as one rank does (gathered, the same groups and
+        bits on every rank), and each rank keeps its part."""
+        from deepspeed_tpu_torch.runtime.quantize import is_quantized
+
         seed = (self.config.seed * 1_000_003 + 1_000_003 + self._host_global_step) & _SEED_MASK
-        quantized, _ = tree_flatten(self.quantizer.quantize_params(
-            self._unflatten([p.detach() for p in self._params]), self._host_global_step,
-            seed=seed))
-        for p, q in zip(self._params, quantized):
-            if q is not p:
-                p.detach().copy_(torch.where(overflow, p.detach(), q))
+        layout = self.layout
+        for i, p in enumerate(self._params):
+            leaf = layout.leaves[i]
+            name = leaf.path.split("/")[-1]
+            if not is_quantized(name, len(leaf.shape)):
+                continue
+            whole = layout.natural(i, p.detach(), leaf.param_spec, kind="moq-gather")
+            q = self.quantizer.quantize_leaf(name, whole, self._host_global_step, seed=seed)
+            q = layout.from_natural(i, q, leaf.param_spec)
+            p.detach().copy_(torch.where(overflow, p.detach(), q))
 
     def _plain_update(self, grads, params, lr, overflow):
         """``optimizer.update`` then ``p + u`` for what the fused kernels do
@@ -1453,9 +1682,15 @@ class DeepSpeedEngine:
         lr_t = torch.full((), lr, dtype=torch.float32, device=self.device)
         if isinstance(self.opt_state, AdamState8):
             self.optimizer.step_reduced_(grads, self.opt_state, params, lr=lr_t, skip=overflow,
-                                         generator=self._rounding_generator())
+                                         generator=self._rounding_generator(),
+                                         cuts=self._state_cuts)
             return self.opt_state
-        updates, new_state = self.optimizer.update(grads, self.opt_state, params, lr=lr_t)
+        from deepspeed_tpu_torch.runtime.fp16.onebit.lamb import OnebitLamb
+
+        kw = {}
+        if isinstance(self.optimizer, OnebitLamb) and self._lamb_norm_reducer() is not None:
+            kw["reduce_norms"] = self._lamb_norm_reducer()
+        updates, new_state = self.optimizer.update(grads, self.opt_state, params, lr=lr_t, **kw)
         for p, u in zip(params, updates):
             p.copy_(torch.where(overflow, p, (p.float() + u).to(p.dtype)))
         if dataclasses.is_dataclass(new_state):

@@ -60,7 +60,11 @@ class OnebitLamb(OnebitAdam):
             exp_avg_sq=_zeros(params), worker_error=_zeros(params),
             scaling_coeff=[torch.ones((), dtype=torch.float32, device=p.device) for p in params])
 
-    def update(self, grads, state: OnebitLambState, params, lr=None):
+    def update(self, grads, state: OnebitLambState, params, lr=None, reduce_norms=None):
+        """The warm step (:meth:`OnebitAdam.update`'s rule) with each leaf's
+        trust ratio.  ``reduce_norms(i, sums)``: where ZeRO or a ``model``
+        axis cuts leaf ``i``, its ``(sum p^2, sum dir^2)`` summed across
+        the ranks holding its other slices (the norms of the whole leaf)."""
         lr = self.lr if lr is None else lr
         step = state.step + 1
         b1, b2 = self.b1, self.b2
@@ -68,8 +72,9 @@ class OnebitLamb(OnebitAdam):
         t_eff = torch.clamp(step, max=self.freeze_step).to(torch.float32)
         c2 = 1.0 - b2 ** t_eff
         out = ([], [], [], [], [])
-        for g, m, v, werr, coeff, p in zip(grads, state.exp_avg, state.exp_avg_sq,
-                                           state.worker_error, state.scaling_coeff, params):
+        for i, (g, m, v, werr, coeff, p) in enumerate(zip(
+                grads, state.exp_avg, state.exp_avg_sq, state.worker_error, state.scaling_coeff,
+                params)):
             g = g.float()
             p32 = p.float()
             m_new = b1 * m + (1.0 - b1) * g
@@ -82,8 +87,13 @@ class OnebitLamb(OnebitAdam):
             update_dir = m_eff / (torch.sqrt(v_new / c2) + self.eps)
             if self.weight_decay > 0.0:
                 update_dir = update_dir + self.weight_decay * p32
-            w_norm = torch.linalg.vector_norm(p32.reshape(-1))
-            u_norm = torch.linalg.vector_norm(update_dir.reshape(-1))
+            if reduce_norms is None:
+                w_norm = torch.linalg.vector_norm(p32.reshape(-1))
+                u_norm = torch.linalg.vector_norm(update_dir.reshape(-1))
+            else:
+                sums = reduce_norms(i, torch.stack([torch.sum(p32 * p32),
+                                                    torch.sum(update_dir * update_dir)]))
+                w_norm, u_norm = torch.sqrt(sums[0]), torch.sqrt(sums[1])
             fresh = torch.where((w_norm > 0) & (u_norm > 0),
                                 torch.clamp(w_norm / u_norm, self.min_coeff, self.max_coeff),
                                 torch.ones((), dtype=torch.float32, device=p32.device))

@@ -24,10 +24,10 @@ from deepspeed_tpu_torch.utils.logging import log_dist, logger
 _SEED_MASK = (1 << 63) - 1
 
 
-def _is_quantized(name: str, w) -> bool:
+def is_quantized(name: str, ndim: int) -> bool:
     """The leaves MoQ quantizes: matmul weights (``*_w``, at least 2-D),
     not the embeddings."""
-    return w.dim() >= 2 and name.endswith("_w") and "emb" not in name
+    return ndim >= 2 and name.endswith("_w") and "emb" not in name
 
 
 class Quantizer:
@@ -83,8 +83,6 @@ class Quantizer:
         Stochastic rounding draws each weight's bits from a generator on
         its device seeded by ``seed`` and the crc32 of its name (the JAX
         package folds the same crc32 into its key; ROADMAP C4)."""
-        bits = self.current_bits(global_step)
-
         def visit(tree):
             if isinstance(tree, dict):
                 return {k: (visit(v) if isinstance(v, dict) else leaf(k, v))
@@ -92,16 +90,22 @@ class Quantizer:
             return tree
 
         def leaf(name, w):
-            if not isinstance(w, torch.Tensor) or not _is_quantized(name, w):
+            if not isinstance(w, torch.Tensor) or not is_quantized(name, w.dim()):
                 return w
-            gen = None
-            if self.cfg.quantize_rounding == "stochastic":
-                crc = zlib.crc32(name.encode()) & 0x7FFFFFFF
-                gen = torch.Generator(device=w.device).manual_seed(
-                    (int(seed) * 1_000_003 + crc) & _SEED_MASK)
-            return self._qdq_leaf(w, bits, gen)
+            return self.quantize_leaf(name, w, global_step, seed)
 
         return visit(params)
+
+    def quantize_leaf(self, name: str, w: torch.Tensor, global_step: int,
+                      seed: int = 0) -> torch.Tensor:
+        """One matmul weight (named by its key) fake-quantized at
+        :meth:`current_bits`, as :meth:`quantize_params` does it."""
+        gen = None
+        if self.cfg.quantize_rounding == "stochastic":
+            crc = zlib.crc32(name.encode()) & 0x7FFFFFFF
+            gen = torch.Generator(device=w.device).manual_seed(
+                (int(seed) * 1_000_003 + crc) & _SEED_MASK)
+        return self._qdq_leaf(w, self.current_bits(global_step), gen)
 
     def maybe_log(self, global_step: int) -> None:
         if not self.cfg.quantize_verbose:

@@ -55,6 +55,11 @@ overflow]``.  A checkpoint writes each rank's masters and moments to its
 own file (``host_optimizer_rank<r>.pt``), ``masters_sharded`` in the meta;
 a tag restores at any ``fsdp`` size, reassembled from every saved rank's
 file (or from a one-rank tag's ``state.pt``) and cut to this rank's parts.
+A ``seq``, ``expert`` or ``pipe`` axis replicates the stream, as under the
+JAX streaming engine (which checks none of them): its ranks take the same
+rows and parts as their ``data x fsdp`` peers and count nothing twice.
+``progressive_layer_drop`` and ``quantize_training`` are left unread, with
+a warning, as the JAX streaming engine leaves them (ROADMAP C4).
 """
 from __future__ import annotations
 
@@ -103,6 +108,10 @@ def _untrack(engine_ref, kind: str, n: int) -> None:
         engine._live(kind, -n)
 
 
+# the axes whose ranks replicate the stream
+REPLICA_AXES = ("seq", "expert", "pipe")
+
+
 class ZeroInfinityEngine:
     """Streaming train executor for ``offload_param`` models.  Its API is
     the engine's where it matters: ``train_batch``, ``eval_batch``,
@@ -122,9 +131,8 @@ class ZeroInfinityEngine:
             return "requires bf16 (no dynamic loss scale on the host path)"
         if config.mesh.model > 1:
             return "model (TP) sharding of streamed params is not implemented"
-        other = [a for a in ("seq", "expert", "pipe") if getattr(config.mesh, a, 1) > 1]
-        if other:
-            return f"streams over data/fsdp axes only (a {'/'.join(other)} axis)"
+        # a seq, expert or pipe axis replicates the stream (the JAX
+        # streaming engine checks none of them: its step sees them whole)
         return host_optimizer_refusal(config, optimizer)
 
     @staticmethod
@@ -165,9 +173,10 @@ class ZeroInfinityEngine:
         extras = [k for k in ("quantize_training", "progressive_layer_drop")
                   if getattr(config, k).enabled]
         if extras:
-            raise NotImplementedError(
-                f"{' and '.join(extras)} under offload_param is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP A13, the compositions)")
+            # the JAX streaming engine never reads either block
+            logger.warning(f"offload_param: the streaming engine does not apply "
+                           f"{' and '.join(extras)}; the block is left unread, as in the JAX "
+                           "package's ZeroInfinityEngine")
         spec: StreamSpec = model.stream_spec
         self.device = resolve_device(device)
         self.config, self.spec = config, spec
@@ -366,6 +375,10 @@ class ZeroInfinityEngine:
         self.dp_world_size = self.mesh_info.dp_world_size
         self._fsdp = self.mesh.sizes["fsdp"]
         self._part = self.mesh.coords["fsdp"]
+        # a seq, expert or pipe axis holds replicas of the data x fsdp grid
+        # (the same rows, parts and steps): each part is counted on the
+        # replicas' first
+        self._replica0 = all(self.mesh.coords[a] == 0 for a in REPLICA_AXES)
         self._masters_sharded = self._fsdp > 1
         if self.world_size > 1:
             from deepspeed_tpu_torch.comm import collectives
@@ -402,7 +415,8 @@ class ZeroInfinityEngine:
         flat = collectives.host_all_gather(part.contiguous(), self._host_pg, kind="checkpoint")
         parts = flat.view(self.world_size, *part.shape)
         ranks = [r for r in range(self.world_size)
-                 if self.mesh.topology.get_coord(r).data == 0]
+                 if self.mesh.topology.get_coord(r).data == 0
+                 and all(getattr(self.mesh.topology.get_coord(r), a) == 0 for a in REPLICA_AXES)]
         ranks.sort(key=lambda r: self.mesh.topology.get_coord(r).fsdp)
         return torch.cat([parts[r] for r in ranks], dim=self._cut[i])
 
@@ -819,8 +833,8 @@ class ZeroInfinityEngine:
         for i, g in enumerate(self._host_grads):
             if not bool(torch.isfinite(g).all()):
                 overflow = True
-            mine = data0 if (self._masters_sharded and self._cut.get(i) is not None) \
-                else self.global_rank == 0
+            mine = (data0 and self._replica0) if (
+                self._masters_sharded and self._cut.get(i) is not None) else self.global_rank == 0
             if mine:
                 sq += sum_squares_f64(g)
         vec = torch.tensor([sq, 1.0 if overflow else 0.0], dtype=torch.float64)

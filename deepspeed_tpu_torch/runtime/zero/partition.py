@@ -185,10 +185,8 @@ class ZeroLayout:
         return tuple(a for a in ("pipe", "data", "fsdp", "model", "expert") if a in cut)
 
     # -- moves ----------------------------------------------------------------
-    def narrow(self, t: torch.Tensor, shape: Sequence[int], from_spec, to_spec) -> torch.Tensor:
-        """This rank's block of ``to_spec`` out of its block ``t`` of
-        ``from_spec`` (``to_spec`` cuts each dimension by ``from_spec``'s
-        axes and then more); a view."""
+    def _slices(self, shape: Sequence[int], from_spec, to_spec) -> List[slice]:
+        """Each dimension's slice of :meth:`narrow`."""
         idx = []
         for n, fe, te in zip(shape, spec_tuple(from_spec, len(shape)),
                              spec_tuple(to_spec, len(shape))):
@@ -196,7 +194,13 @@ class ZeroLayout:
             kf, kt = self.mesh.size(fa), self.mesh.size(ta)
             off = self.mesh.chunk_index(ta) * (n // kt) - self.mesh.chunk_index(fa) * (n // kf)
             idx.append(slice(off, off + n // kt))
-        return t[tuple(idx)]
+        return idx
+
+    def narrow(self, t: torch.Tensor, shape: Sequence[int], from_spec, to_spec) -> torch.Tensor:
+        """This rank's block of ``to_spec`` out of its block ``t`` of
+        ``from_spec`` (``to_spec`` cuts each dimension by ``from_spec``'s
+        axes and then more); a view."""
+        return t[tuple(self._slices(shape, from_spec, to_spec))]
 
     def gather(self, t: torch.Tensor, from_spec, to_spec, kind: str) -> torch.Tensor:
         """This rank's block of ``to_spec`` from its block ``t`` of
@@ -246,6 +250,25 @@ class ZeroLayout:
         if parts > 1:
             state = _group_parts(state, parts, self.mesh.sizes["model"])
         return self.narrow(state, self.leaves[i].state_shape, (), spec)
+
+    def natural_index(self, i: int, spec) -> List[torch.Tensor]:
+        """Where this rank's block of ``spec`` sits in the natural leaf,
+        without building it: one int64 vector a dimension of the block,
+        whose sum over the dimensions (broadcast) is each element's flat
+        index in the natural leaf -- :meth:`from_natural` of
+        ``arange(numel)`` -- and, in a flat leaf's padding, an index of at
+        least the leaf's size."""
+        leaf = self.leaves[i]
+        shape = leaf.state_shape
+        out, stride = [], 1
+        for d in range(len(shape) - 1, -1, -1):
+            idx = torch.arange(shape[d], dtype=torch.int64)
+            if d == len(shape) - 1 and leaf.parts > 1:
+                idx = _group_parts(idx, leaf.parts, self.mesh.sizes["model"])
+            out.append(idx * stride)
+            stride *= shape[d]
+        out.reverse()
+        return [t[s] for t, s in zip(out, self._slices(shape, (), spec))]
 
     # -- gradients ------------------------------------------------------------
     def reduce_grad(self, i: int, g: torch.Tensor) -> torch.Tensor:
@@ -320,8 +343,14 @@ class Stage3Context:
     model receives, the once-per-forward cache, and the saved-tensor
     hooks that gather again in the backward."""
 
-    def __init__(self, layout: ZeroLayout, masters: Sequence[torch.Tensor], dtype: torch.dtype):
+    def __init__(self, layout: ZeroLayout, masters: Sequence[torch.Tensor], dtype: torch.dtype,
+                 local=None):
+        """``local(i, layer, g)``: where each rank keeps its own gradients
+        (the engine's explicit exchanges), the gather's backward hands it
+        leaf ``i``'s whole f32 gradient (of one layer of a stacked leaf,
+        ``layer`` set) unreduced instead of reducing it to the shard."""
         self.layout, self.masters, self.dtype = layout, masters, dtype
+        self.local = local
         self._full: Dict[int, torch.Tensor] = {}
         # storage address -> (weakref to the gathered tensor, group, member)
         self._live: Dict[int, Tuple[Any, Any, Any]] = {}
@@ -344,11 +373,14 @@ class Stage3Context:
 
         return gather
 
-    def _reduce_fn(self, i: int, dim_offset: int = 0):
+    def _reduce_fn(self, i: int, dim_offset: int = 0, layer: Optional[int] = None):
         layout, leaf = self.layout, self.layout.leaves[i]
 
         def reduce(g):
             g = g.float()
+            if self.local is not None:
+                self.local(i, layer, layout.to_state(i, g.contiguous()) if dim_offset == 0 else g)
+                return None
             if dim_offset == 0:
                 g = layout.to_state(i, g.contiguous())
                 return layout.reduce_grad(i, g)
@@ -370,7 +402,7 @@ class Stage3Context:
 
     def layer(self, i: int, shard_l: torch.Tensor, l: int) -> torch.Tensor:
         """Layer ``l`` of stacked leaf ``i`` whole, from its shard slice."""
-        t = _GatherFn.apply(shard_l, self._gather_fn(i, 1), self._reduce_fn(i, 1))
+        t = _GatherFn.apply(shard_l, self._gather_fn(i, 1), self._reduce_fn(i, 1, l))
         if (i, l) not in self._layer_shards:  # a recompute gathers again, once
             self._layer_shards[(i, l)] = shard_l
             self._register(t, ("layer", l), ("layer", i, l))

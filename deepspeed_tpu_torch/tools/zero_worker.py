@@ -25,6 +25,7 @@ It imports torch and the port only.  The spec::
                 "sigterm": {"rank": 0, "after": 1},
                 "reload": {"dir": ..., "tag": ..., "after": 3},
                 "record_step": null | 1, "profile_step": null | 2,
+                "nearest_rounding": false,
                 "record": "full" | "digest" | "none"}]}
 
 Each rank trains on its own rows of every global batch (micro-batch
@@ -39,18 +40,21 @@ the backend, and ``replicas_equal``: whether every rank holding the same
 block of a leaf holds the same bits of its master) and, for ``record: full``,
 ``<out>/<name>.npz`` with every tensor of the state, whole, by checkpoint
 name; ``record: digest`` writes a sha256 of each instead, ``none``
-nothing.  A case with
+nothing (``state_finite`` in the JSON: whether every float tensor recorded
+is finite).  A case with
 ``load`` restores the tag before training (``steps: 0`` records the
 loaded state as it is); ``sigterm`` sends SIGTERM to one rank after a
 step (with ``resilience.watchdog`` on, every rank saves and exits 43);
 ``reload`` restores a tag into the same engine after a step (a
-rollback); ``record_step`` records the state after that step instead of
+rollback); ``nearest_rounding`` steps the reduced Adam state without
+stochastic rounding (the JAX package's rule without a key, for holding
+the two to the same values); ``record_step`` records the state after that step instead of
 at the end; ``profile_step`` runs that step under ``torch.profiler`` on
 the card (each rank's kernels' busy time and idle share of the step's
 window).  The JSON also notes ``onebit_frozen`` (a 1-bit optimizer's
 compressed phase) and ``global_steps`` at the end, and by rank: the
-kernels launched, the offload engines' host master bytes and the
-process's peak resident host bytes.  ``backend`` ``gloo`` with ``device``
+kernels launched, the offload engines' host master bytes, the optimizer
+state's bytes on the device and the process's peak resident host bytes.  ``backend`` ``gloo`` with ``device``
 ``cuda`` runs ranks that share one card (CUDA tensors staged through
 pinned host memory where gloo needs it).
 ``collectives_check`` first runs
@@ -245,6 +249,8 @@ def _run_case(case, device, out_dir, rank, host_peak):
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model_fn, model_parameters=_init_params(case, init_fn),
         config=case["config"], device=device, tp_spec_fn=tp_fn if tp else None, **hooks)
+    if case.get("nearest_rounding"):
+        engine._rounding_generator = lambda: None
     if "load" in case:
         engine.load_checkpoint(case["load"]["dir"], tag=case["load"].get("tag"))
     global_rows = (engine.gradient_accumulation_steps * engine.train_micro_batch_size_per_gpu
@@ -307,8 +313,11 @@ def _run_case(case, device, out_dir, rank, host_peak):
     peak = int(torch.cuda.max_memory_allocated(engine.device)) if cuda else None
     dist_on = torch.distributed.is_initialized()
     peaks = collectives.host_allgather(peak) if dist_on else [peak]
+    opt_state, opt = getattr(engine, "opt_state", None), getattr(engine, "optimizer", None)
     mine = {"host_bytes": _host_bytes(engine), "launches": launches, "profile": profile,
-            "host_peak_bytes": host_peak.peak_bytes}
+            "host_peak_bytes": host_peak.peak_bytes,
+            "state_bytes": (opt.state_bytes(opt_state) if opt_state is not None
+                            and hasattr(opt, "state_bytes") else None)}
     by_rank = collectives.host_allgather(mine) if dist_on else [mine]
     host = [r["host_bytes"] for r in by_rank]
     timing = (engine.offload_breakdown if getattr(engine, "_host_opt", None) is not None
@@ -335,11 +344,15 @@ def _run_case(case, device, out_dir, rank, host_peak):
         "launches_by_rank": [r["launches"] for r in by_rank],
         "profile_by_rank": [r["profile"] for r in by_rank],
         "host_peak_bytes_by_rank": [r["host_peak_bytes"] for r in by_rank],
+        "state_bytes_by_rank": [r["state_bytes"] for r in by_rank],
         "offload_breakdown": timing() if timing is not None else None,
         "backend": (torch.distributed.get_backend() if torch.distributed.is_initialized()
                     else None),
         "peak_bytes": peak, "peak_bytes_by_rank": peaks, **phase,
     }
+    if state:
+        result["state_finite"] = all(bool(torch.isfinite(t).all()) for t in state.values()
+                                     if t.is_floating_point())
     if record == "digest":
         result["digests"] = {n: _digest(t) for n, t in state.items()}
     elif record == "full":

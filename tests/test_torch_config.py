@@ -348,11 +348,14 @@ def test_lamb_block_builds_the_jax_packages_optimizer(params):
     assert {n: getattr(topt, n) for n in names} == {n: getattr(jopt, n) for n in names}
 
 
-def test_onebit_lamb_still_raises_naming_a13():
+def test_onebit_lamb_still_raises_naming_a13(monkeypatch):
     """OneBitLamb builds from the JAX package's config (its fields
-    equal); what still raises naming A13 is 1-bit under ZeRO stage >= 1."""
+    equal) and runs under ZeRO stage >= 1; what still raises naming A13 is
+    1-bit under an ``expert`` axis (rank 0 of ``{data: 2, expert: 2}``, its
+    groups not built: the refusal comes before any collective)."""
     import numpy as np
 
+    from deepspeed_tpu_torch.comm.mesh import Mesh
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.runtime.fp16.onebit.lamb import OnebitLamb
 
@@ -363,9 +366,14 @@ def test_onebit_lamb_still_raises_naming_a13():
                           config=TConfig(d), device="cpu")
     assert isinstance(eng.optimizer, OnebitLamb) and eng.optimizer.freeze_step == 4
     d["zero_optimization"] = {"stage": 1}
+    eng = DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
+                          config=TConfig(d), device="cpu")
+    assert eng.zero_stage == 1 and not eng._onebit_exchange_ok  # one rank: local fallback
+    monkeypatch.setattr(Mesh, "ensure_groups", lambda self, axis_sets: None)
     with pytest.raises(NotImplementedError, match="A13"):
-        DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(3, np.float32)},
-                        config=TConfig(d), device="cpu")
+        DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(4, np.float32)},
+                        config=TConfig({**d, "mesh": {"data": 2, "expert": 2}}), device="cpu",
+                        mesh=Mesh({"data": 2, "expert": 2}))
 
 
 # the top-level keys the JAX package parses and never reads again: the

@@ -286,9 +286,9 @@ def test_zero_and_mesh_blocks_parse_as_in_jax(k):
     ({"zero_optimization": {"stage": 1, "bucket": 5}}, "error", None),
     ({"zero_optimization": {"param_persistence_threshold": 1,
                             "stage3_param_persistence_threshold": 2}}, "error", None),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload", "A12"),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "offload", "pipe axis"),
     ({"zero_optimization": {"offload_optimizer": {"device": "cpu"}}}, "offload",
-     "A12's remainder"),
+     "pipe axis"),
     ({"mesh": {"model": 2}}, "parse", None),
     ({"mesh": {"seq": 2}}, "parse", None),
     ({"mesh": {"pipe": 2}}, "parse", None),
@@ -304,9 +304,9 @@ def test_config_refusals(d, exc, match):
     ROADMAP item.  A ``model``, ``seq``, ``pipe`` or ``expert`` axis
     parses in both, alike (each runs since it was ported); so do the
     offload blocks (``cpu_offload`` as ``offload_optimizer: {device:
-    cpu}``), which the engine runs across the data-parallel grid and
-    refuses under a model, seq or expert axis only, naming A12's
-    remainder."""
+    cpu}``), which the engine runs across the data-parallel grid and under
+    a model, seq or expert axis, and refuses under a pipe axis only (the
+    pipeline engine refuses offload, as the JAX package's does)."""
     d = {"train_batch_size": 8, **d}
     if exc == "offload":
         from deepspeed_tpu_torch.comm.mesh import Mesh
@@ -323,7 +323,7 @@ def test_config_refusals(d, exc, match):
         assert one._host_opt is not None and one._offload_shards == 1
         with pytest.raises(NotImplementedError, match=match):
             DeepSpeedEngine(model=model, params=params, config=t, device="cpu",
-                            mesh=Mesh({"seq": 2}))
+                            mesh=Mesh({"pipe": 2}))
         return
     if exc == "parse":
         j = jconfig.DeepSpeedConfig(d, world_size=1).mesh
@@ -394,10 +394,11 @@ def test_rank_blocks_match_jax_named_sharding(sizes):
 @pytest.mark.parametrize("strategy", ["int8", "onebit", "auto"])
 def test_a_compressed_exchange_raises_naming_a13(strategy, monkeypatch):
     """Across ranks the comm layer records its decision as the JAX one
-    does, and a compressed pick now runs (``exchange_rows``); what still
-    raises naming A13 is a compressed exchange under a ``seq`` axis (or
-    ZeRO stage 3), which the JAX package composes under GSPMD.  Dense and
-    one rank stay dense."""
+    does, and a compressed pick now runs (``exchange_rows``), under ZeRO
+    stage 3 and ``model`` / ``seq`` axes too; what still raises naming A13
+    is a compressed exchange under an ``expert`` (or ``pipe``) axis, which
+    the JAX package composes under GSPMD.  Dense and one rank stay
+    dense."""
     import jax.numpy as jnp
     import torch
 
@@ -417,11 +418,11 @@ def test_a_compressed_exchange_raises_naming_a13(strategy, monkeypatch):
     dense = tstrategy.CommLayer(None, two, tconfig.CommConfig(strategy="dense"))
     assert dense.select(4 * 10**8, torch.float32, ("data", "fsdp"), site="g") == "dense"
     assert dense.table() == {"g": ("dense", "comm.strategy = dense")}
-    # an engine of rank 0 of {data 2, seq 2}, its groups not built (no
+    # an engine of rank 0 of {data 2, expert 2}, its groups not built (no
     # process group here): the refusal comes before any collective
     monkeypatch.setattr(Mesh, "ensure_groups", lambda self, axis_sets: None)
-    cfg = tconfig.DeepSpeedConfig({"train_batch_size": 4, "mesh": {"data": 2, "seq": 2},
+    cfg = tconfig.DeepSpeedConfig({"train_batch_size": 4, "mesh": {"data": 2, "expert": 2},
                                    "comm": {"strategy": strategy, "threshold_bytes": 0}})
     with pytest.raises(NotImplementedError, match="A13"):
         DeepSpeedEngine(model=lambda p, b, g: p["w"].sum(), params={"w": np.ones(8, np.float32)},
-                        config=cfg, device="cpu", mesh=Mesh({"data": 2, "seq": 2}))
+                        config=cfg, device="cpu", mesh=Mesh({"data": 2, "expert": 2}))
